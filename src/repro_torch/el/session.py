@@ -1,0 +1,342 @@
+"""``ELSession`` — the façade over the OL4EL runtime, host loops.
+
+    from repro_torch.el import ELSession
+
+    report = (ELSession(cfg)
+              .with_executor(executor)            # any EdgeExecutor
+              .with_policy("ol4el")               # name or Policy object
+              .on_round(lambda rec: ...)          # streaming callbacks
+              .run())                             # -> ELReport
+
+One session owns the paper pipeline: the cloud coordinator (budgets +
+bandit, numpy on the host), the utility estimator, and the host-driven
+sync/async loops (the §V simulator semantics) over an executor whose
+training and aggregation run in torch on the executor's device.  The
+random streams are the reference's numpy ones (coordinator
+``default_rng(seed)``, block seeds ``default_rng(seed + 17)``, minibatch
+indices in the executor), so a seeded run makes the reference's decisions.
+
+The compiled device programs (``run_sync_ingraph`` /
+``run_async_ingraph``), ablation ``sweep``s and ``run_async``'s ``"jax"``
+streams are later slices of the port; they raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import heapq
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+
+from repro_torch.config import ExperimentConfig, OL4ELConfig
+from repro_torch.core.coordinator import CloudCoordinator
+from repro_torch.core.utility import UtilityEstimator, param_l2_delta
+from repro_torch.el import policies as el_policies
+from repro_torch.el.events.knobs import default_event_horizon
+from repro_torch.el.executor import EdgeExecutor, validate_executor
+from repro_torch.el.report import ELReport, RoundRecord
+from repro_torch.federated.aggregation import (staleness_alpha, staleness_mix,
+                                               weighted_average)
+
+Params = Any
+RoundCallback = Callable[[RoundRecord], None]
+
+_INGRAPH_SLICE = ("the port's slice of the in-graph bandit and compiled "
+                  "sync program")
+_EVENTS_SLICE = "the port's slice of the async event engine"
+_SWEEP_SLICE = "the port's slice of the sweep engine"
+
+
+class ELSession:
+    """Configure-then-run handle for one edge-cloud collaborative run."""
+
+    def __init__(self, cfg: Union[OL4ELConfig, ExperimentConfig], *,
+                 metric_name: str = "accuracy", lr: float = 0.1,
+                 async_alpha: Optional[float] = None):
+        if isinstance(cfg, ExperimentConfig):
+            cfg = cfg.ol4el
+        if async_alpha is not None:        # override the config's knob
+            cfg = dataclasses.replace(cfg, async_alpha=float(async_alpha))
+        self.cfg = cfg
+        self.metric_name = metric_name
+        self.lr = lr
+        self._executor: Optional[EdgeExecutor] = None
+        self._init_params: Optional[Params] = None
+        self._n_samples: Optional[np.ndarray] = None
+        self._policy: Optional[el_policies.Policy] = None
+        self._callbacks: List[RoundCallback] = []
+        self.coord: Optional[CloudCoordinator] = None   # built per run
+        self._coord_consumed = False
+
+    @property
+    def async_alpha(self) -> float:
+        """The async staleness-mix base rate (``cfg.async_alpha``)."""
+        return self.cfg.async_alpha
+
+    # -- configuration API ---------------------------------------------------
+
+    def with_executor(self, executor: EdgeExecutor, *,
+                      init_params: Optional[Params] = None,
+                      n_samples: Optional[Any] = None) -> "ELSession":
+        validate_executor(executor)
+        self._executor = executor
+        self._init_params = init_params
+        if n_samples is not None:
+            self._n_samples = np.asarray(n_samples, np.float64)
+        return self
+
+    def with_policy(self, policy: Union[str, el_policies.Policy]
+                    ) -> "ELSession":
+        if isinstance(policy, str):
+            self.cfg = dataclasses.replace(self.cfg, policy=policy)
+            self._policy = None
+        else:
+            self._policy = policy
+            self.cfg = dataclasses.replace(self.cfg, policy=policy.name)
+        self.coord = None                    # any prepared coordinator is stale
+        return self
+
+    def with_metric(self, metric_name: str) -> "ELSession":
+        self.metric_name = metric_name
+        return self
+
+    def on_round(self, callback: RoundCallback) -> "ELSession":
+        """Register a streaming per-aggregation callback."""
+        self._callbacks.append(callback)
+        return self
+
+    # -- internals -----------------------------------------------------------
+
+    def _require_executor(self) -> EdgeExecutor:
+        if self._executor is None:
+            raise RuntimeError("call .with_executor(...) before .run()")
+        return self._executor
+
+    def _initial_params(self) -> Params:
+        if self._init_params is not None:
+            return self._init_params
+        ex = self._require_executor()
+        if hasattr(ex, "init_params"):
+            return ex.init_params(self.cfg.seed)
+        raise RuntimeError(
+            f"{type(ex).__name__} has no init_params(); pass "
+            "init_params= to with_executor()")
+
+    def coordinator(self) -> CloudCoordinator:
+        """The current coordinator: before a run this is the instance the
+        next run will use (budgets/costs inspectable — or adjustable);
+        after a run it still holds that run's consumed state."""
+        if self.coord is None:
+            self.coord = CloudCoordinator(self.cfg, self.cfg.n_edges,
+                                          lr=self.lr, policy=self._policy)
+            self._coord_consumed = False
+        return self.coord
+
+    def _build(self) -> Tuple[CloudCoordinator, UtilityEstimator,
+                              np.random.Generator]:
+        if self._coord_consumed:             # each run starts from fresh
+            self.coord = None                # budgets/bandit statistics
+        coord = self.coordinator()
+        self._coord_consumed = True
+        utility = UtilityEstimator(self.cfg.utility)
+        rng = np.random.default_rng(self.cfg.seed + 17)
+        return coord, utility, rng
+
+    def _emit(self, records: List[RoundRecord], rec: RoundRecord) -> None:
+        records.append(rec)
+        for cb in self._callbacks:
+            cb(rec)
+
+    def _snapshot(self, ex: EdgeExecutor, utility: UtilityEstimator,
+                  params: Params, want_metric: bool) -> Dict[str, Any]:
+        snap: Dict[str, Any] = {"params": params, "loss": 0.0}
+        if want_metric or utility.kind in ("eval_gain", "loss_delta"):
+            m = ex.evaluate(params)
+            snap["metric"] = m[self.metric_name]
+            snap["loss"] = m.get("loss", 0.0)
+        else:
+            snap["metric"] = float("nan")
+        return snap
+
+    def _report(self, ex: EdgeExecutor, coord: CloudCoordinator,
+                params: Params, records: List[RoundRecord], reason: str,
+                t0: float) -> ELReport:
+        final = ex.evaluate(params)[self.metric_name]
+        pulls = np.zeros(self.cfg.max_interval, np.int64)
+        for b in coord.bandits:
+            pulls += np.asarray(b.counts)
+        return ELReport(
+            records=records,
+            final_metric=float(final),
+            n_aggregations=len(records),
+            total_consumed=coord.total_consumed(),
+            wall_time=records[-1].wall_time if records else 0.0,
+            terminated_reason=reason,
+            policy=self.cfg.policy,
+            mode=self.cfg.mode,
+            arm_pulls=[int(c) for c in pulls],
+            elapsed_s=time.perf_counter() - t0,
+            final_params=params,
+        )
+
+    # -- host-driven synchronous loop ----------------------------------------
+
+    def run_sync(self, max_rounds: int = 10_000,
+                 eval_every: int = 1) -> ELReport:
+        cfg = self.cfg
+        ex = self._require_executor()
+        coord, utility, rng = self._build()
+        t0 = time.perf_counter()
+        params = self._initial_params()
+        records: List[RoundRecord] = []
+        wall, n_agg = 0.0, 0
+        prev = self._snapshot(ex, utility, params, want_metric=True)
+        reason = "max_rounds"
+        for _ in range(max_rounds):
+            interval = coord.decide()
+            if interval < 0 or coord.all_exhausted():
+                reason = "budget_exhausted"
+                break
+            edge_params: List[Params] = []
+            round_costs = np.zeros(cfg.n_edges)
+            for e in range(cfg.n_edges):
+                p_e, _ = ex.local_train(params, e, interval,
+                                        rng.integers(1 << 31))
+                edge_params.append(p_e)
+                round_costs[e] = coord.realized_cost(e, interval)
+            # Time-budget semantics (paper §V.A): synchronous edges BLOCK
+            # on the slowest edge, so every edge's budget advances by the
+            # straggler's round time.
+            slot = float(round_costs.max())
+            for e in range(cfg.n_edges):
+                coord.charge(e, slot)
+            wall += slot
+            w = (np.ones(cfg.n_edges) if self._n_samples is None
+                 else self._n_samples)
+            params = weighted_average(edge_params, w)
+            n_agg += 1
+            new = self._snapshot(ex, utility, params,
+                                 want_metric=(n_agg % eval_every == 0))
+            u = utility(prev, new)
+            # sync: ONE bandit fed the worst-case (binding) cost
+            coord.observe(0, interval, u, slot)
+            if coord.ac is not None:
+                self._update_ac(coord, edge_params, prev["params"], params,
+                                interval)
+            prev = new
+            self._emit(records, RoundRecord(
+                wall, coord.total_consumed(), new["metric"], u,
+                interval, -1, n_agg))
+        return self._report(ex, coord, params, records, reason, t0)
+
+    # -- host-driven asynchronous (event-driven) loop ------------------------
+
+    def run_async(self, max_events: Optional[int] = None,
+                  eval_every: int = 1,
+                  rng_streams: str = "numpy") -> ELReport:
+        """The host-driven event-queue loop (paper §V.A async semantics).
+
+        ``max_events=None`` derives the horizon from budget/cost
+        (``default_event_horizon``), so long runs are never silently
+        truncated.  ``rng_streams="numpy"`` is the only source here; the
+        reference's ``"jax"`` streams replay the compiled async program and
+        arrive with it.
+        """
+        cfg = self.cfg
+        ex = self._require_executor()
+        if rng_streams == "jax":
+            raise NotImplementedError(
+                "run_async(rng_streams='jax') replays the compiled async "
+                f"program's streams; it arrives with {_EVENTS_SLICE}")
+        if rng_streams != "numpy":
+            raise ValueError(
+                f"unknown rng_streams={rng_streams!r}; expected 'numpy'")
+        if max_events is None:
+            max_events = default_event_horizon(cfg)
+        coord, utility, rng = self._build()
+        t0 = time.perf_counter()
+        global_params = self._initial_params()
+        records: List[RoundRecord] = []
+        n_agg = 0
+        prev = self._snapshot(ex, utility, global_params, want_metric=True)
+        # per-edge in-flight blocks: (finish_time, edge, interval, cost) —
+        # the SAME realized-cost draw sets the finish time AND is charged
+        # at completion, so charged budget always equals simulated
+        # wall-clock (one draw per block, not two independent ones).
+        heap: List[Tuple[float, int, int, float]] = []
+        fetch_version = np.zeros(cfg.n_edges)
+        version = 0
+        edge_params: List[Params] = [global_params] * cfg.n_edges
+        for e in range(cfg.n_edges):
+            i = coord.decide(e)
+            if i < 0:
+                continue
+            cost = coord.realized_cost(e, i)
+            heapq.heappush(heap, (cost, e, i, cost))
+            fetch_version[e] = version
+        wall = 0.0
+        reason = "max_events"
+        for _ in range(max_events):
+            if not heap:
+                reason = "budget_exhausted"
+                break
+            wall, e, interval, cost = heapq.heappop(heap)
+            # edge e finishes `interval` local iterations and uploads
+            p_e, _ = ex.local_train(edge_params[e], e, interval,
+                                    rng.integers(1 << 31))
+            coord.charge(e, cost)
+            # staleness in *epochs*: normalize raw version staleness by the
+            # fleet size so async mixing survives edge-count scaling
+            staleness = (version - fetch_version[e]) / max(cfg.n_edges, 1)
+            alpha = staleness_alpha(self.async_alpha, staleness)
+            global_params = staleness_mix(global_params, p_e, alpha)
+            version += 1
+            n_agg += 1
+            new = self._snapshot(ex, utility, global_params,
+                                 want_metric=(n_agg % eval_every == 0))
+            u = utility(prev, new)
+            coord.observe(e, interval, u, cost)
+            prev = new
+            self._emit(records, RoundRecord(
+                wall, coord.total_consumed(), new["metric"], u,
+                float(interval), e, n_agg))
+            # edge fetches the fresh global model, schedules its next block
+            edge_params[e] = global_params
+            fetch_version[e] = version
+            nxt = coord.decide(e)
+            if nxt > 0 and not coord.exhausted(e):
+                next_cost = coord.realized_cost(e, nxt)
+                heapq.heappush(heap, (wall + next_cost, e, nxt, next_cost))
+        return self._report(ex, coord, global_params, records, reason, t0)
+
+    def run(self, **kw) -> ELReport:
+        if self.cfg.mode == "sync":
+            return self.run_sync(**kw)
+        return self.run_async(**kw)
+
+    # -- later slices -----------------------------------------------------------
+
+    def run_sync_ingraph(self, *args, **kwargs) -> ELReport:
+        raise NotImplementedError(
+            f"run_sync_ingraph arrives with {_INGRAPH_SLICE}; use run_sync")
+
+    def run_async_ingraph(self, *args, **kwargs) -> ELReport:
+        raise NotImplementedError(
+            f"run_async_ingraph arrives with {_EVENTS_SLICE}; use run_async")
+
+    def sweep(self, *args, **kwargs):
+        raise NotImplementedError(f"ELSession.sweep arrives with "
+                                  f"{_SWEEP_SLICE}")
+
+    # -- AC-sync estimator plumbing -------------------------------------------
+
+    @staticmethod
+    def _update_ac(coord: CloudCoordinator, edge_params: List[Params],
+                   prev_global: Params, new_global: Params,
+                   tau: int) -> None:
+        local_deltas = np.array([param_l2_delta(prev_global, p)
+                                 for p in edge_params])
+        global_delta = param_l2_delta(prev_global, new_global)
+        coord.ac.update_estimates(local_deltas, global_delta, tau)

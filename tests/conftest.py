@@ -57,6 +57,13 @@ except ImportError:
     sys.modules["hypothesis.strategies"] = _strategies
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the "
+        "card with `python -m pytest --noconftest -m cuda "
+        "tests/test_torch_kernels_cuda.py`")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.key(0)

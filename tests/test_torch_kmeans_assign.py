@@ -1,0 +1,114 @@
+"""The port's K-means assignment op vs the JAX reference's.
+
+The plain torch version (the wrapper's CPU path) is held to the
+reference's jnp oracle and to its Pallas kernel in interpret mode on the
+same numpy inputs.  The CUDA kernel itself runs only on a card: its tests
+are in ``test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.kmeans_assign.ops import \
+    assign_with_dist as jax_assign_with_dist  # noqa: E402
+from repro.kernels.kmeans_assign.ref import \
+    assign_ref as jax_assign_ref  # noqa: E402
+from repro_torch.config import get_config  # noqa: E402
+from repro_torch.kernels.kmeans_assign import ops, ref  # noqa: E402
+from repro_torch.models import KMeans  # noqa: E402
+
+# the reference's tests/test_kernels.py cases
+KM_CASES = [
+    (100, 8, 3, "float32"),
+    (1000, 64, 3, "float32"),
+    (513, 59, 8, "float32"),       # wafer dims, non-multiple of a block
+    (256, 16, 32, "float32"),
+    (300, 64, 3, "bfloat16"),
+]
+
+
+def _inputs(n, d, k, dtype, seed):
+    """The same values for both frameworks: f32 numpy, rounded to bf16 by
+    each side (both round to nearest even)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((k, d)).astype(np.float32)
+    return (jnp.asarray(x, getattr(jnp, dtype)),
+            jnp.asarray(c, getattr(jnp, dtype)),
+            torch.tensor(x).to(getattr(torch, dtype)),
+            torch.tensor(c).to(getattr(torch, dtype)))
+
+
+def _tolerance(dtype):
+    # f32: the two sides sum ||x||^2 and x.c in different orders; bf16: the
+    # reference test's own bound
+    return (1e-5, 1e-4) if dtype == "float32" else (1e-2, 1e-2)
+
+
+@pytest.mark.parametrize("oracle", ["jnp_ref", "pallas_interpret"])
+@pytest.mark.parametrize("n,d,k,dtype", KM_CASES)
+def test_plain_matches_reference(n, d, k, dtype, oracle):
+    jx, jc, tx, tc = _inputs(n, d, k, dtype, seed=n + d + k)
+    if oracle == "jnp_ref":
+        a_ref, d2_ref = jax_assign_ref(jx, jc)
+    else:
+        a_ref, d2_ref = jax_assign_with_dist(jx, jc, interpret=True)
+    a, d2 = ref.assign_ref(tx, tc)
+    assert a.dtype == torch.int32 and d2.dtype == torch.float32
+    assert a.shape == (n,) and d2.shape == (n,)
+    rtol, atol = _tolerance(dtype)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(d2_ref),
+                               rtol=rtol, atol=atol)
+    if dtype == "float32":
+        assert (a.numpy() == np.asarray(a_ref)).mean() >= 0.999
+
+
+def test_tie_goes_to_lowest_index():
+    _, _, x, c = _inputs(500, 16, 4, "float32", seed=3)
+    c[2] = c[0]
+    c[3] = c[1]
+    a, _ = ref.assign_ref(x, c)
+    assert not bool(((a == 2) | (a == 3)).any())
+    a_jax, _ = jax_assign_ref(jnp.asarray(x.numpy()), jnp.asarray(c.numpy()))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_jax))
+
+
+def test_wrapper_on_cpu_takes_plain_path_without_launching():
+    _, _, x, c = _inputs(300, 64, 3, "float32", seed=1)
+    ops.launches = 0
+    a, d2 = ops.assign_with_dist(x, c)
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    assert ops.launches == 0
+    assert torch.equal(a, a_ref) and torch.equal(d2, d2_ref)
+    assert torch.equal(ops.assign(x, c), a_ref)
+
+
+@pytest.mark.parametrize("bad", ["rank", "width", "dtype", "mixed_dtype",
+                                 "no_centres"])
+def test_wrapper_rejects_malformed_inputs(bad):
+    x = torch.zeros(8, 4)
+    c = torch.zeros(3, 4)
+    if bad == "rank":
+        x = x[None]
+    elif bad == "width":
+        c = torch.zeros(3, 5)
+    elif bad == "dtype":
+        x, c = x.double(), c.double()
+    elif bad == "mixed_dtype":
+        c = c.to(torch.bfloat16)
+    else:
+        c = torch.zeros(0, 4)
+    with pytest.raises((ValueError, TypeError)):
+        ops.assign_with_dist(x, c)
+
+
+def test_kmeans_cuda_impl_refuses_cpu_tensors():
+    model = KMeans(get_config("kmeans-traffic").model, impl="cuda",
+                   device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="impl='torch'"):
+        model.assign(params, torch.zeros(4, 64))
