@@ -3,30 +3,39 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device  -- require CUDA, turn TF32 off, report the card;
-2. build   -- compile every kernel of the path from ``src/repro_torch/csrc``
-              with nvcc for sm_90a (ptxas report included);
+2. build   -- compile every kernel of the port from ``src/repro_torch/csrc``
+              with nvcc for sm_90a, all sources at once (ptxas report
+              included): ``kmeans_assign`` and ``ssd_scan``;
 3. kernel  -- hold each kernel against its plain PyTorch version on the
-              card, at the reference tests' shapes and the main path's;
+              card, at the reference tests' shapes and the main paths';
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
               (20,000 samples, 4 edges, batch 128, budget 5000 per edge)
-              through ``ELSession.run_sync`` and ``run_async`` on the card,
-              with every kernel's launch count read around that run; the
-              same runs on the CPU with the plain E-step must make the
+              through ``ELSession.run_sync`` and ``run_async`` on the card;
+              the same runs on the CPU with the plain E-step must make the
               same decisions; then svm-wafer sync at full width;
-5. kernels -- per-kernel launches, error, times (CUDA events) and bound,
+5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
+              random weights from a seeded generator) through the port's
+              ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
+              arriving over time (one admitted mid-flight), every Mamba
+              layer's prefill through the ``ssd_scan`` kernel; then the
+              same prompts' prefill with the plain SSD, compared;
+6. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch.
 
-Then the card's name and power limit (nvidia-smi), and last
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero, as
-does a machine without CUDA or a directory without the repo's sources.
-The script imports nothing of JAX and nothing of the JAX package.
+Each path (4, 5) is driven with every kernel's launch count set to 0 just
+before it and read just after.  Then the card's name and power limit
+(nvidia-smi), and last ``{"ok": true, "device": {...}}``.  Any failed
+check exits non-zero, as does a machine without CUDA or a directory
+without the repo's sources.  The script imports nothing of JAX and
+nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import subprocess
@@ -150,6 +159,102 @@ def kernel_vs_plain() -> float:
     return main_err
 
 
+# (b, s, h, p, n, chunk, dtype name): the reference's kernel-test cases,
+# then the main path's prefill shapes (mamba2-370m: 4 slots, 32 heads of
+# 64, d_state 128, chunk 128; the mid-flight prefills of 514-529 tokens
+# pad to 640), and ragged chunks (a 100-token prompt gives L = 100)
+SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
+             (1, 256, 2, 64, 128, 128, "float32"),
+             (1, 64, 8, 64, 64, 32, "float32"),
+             (2, 128, 2, 128, 128, 64, "float32"),
+             (1, 128, 4, 32, 16, 32, "bfloat16"),
+             (4, 512, 32, 64, 128, 128, "bfloat16"),
+             (4, 512, 32, 64, 128, 128, "float32"),
+             (4, 640, 32, 64, 128, 128, "bfloat16"),
+             (4, 100, 32, 64, 128, 100, "bfloat16"),
+             (2, 100, 4, 64, 128, 100, "float32")]
+SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
+
+
+def ssd_inputs(b, s, h, p, n, dtype_name, seed):
+    """The reference test's recipe, drawn on the card: x * softplus(dt)
+    and B, C in ``dtype``, da = dt * A in f32 (A < 0)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = getattr(torch, dtype_name)
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    x = normal(b, s, h, p)
+    dt = torch.nn.functional.softplus(normal(b, s, h)).to(dtype).float()
+    a = -torch.exp(0.5 * normal(h))
+    xs = (x.to(dtype).float() * dt[..., None]).to(dtype)
+    return xs, (dt * a).contiguous(), normal(b, s, n).to(dtype), \
+        normal(b, s, n).to(dtype)
+
+
+def ssd_compare(y, state, x, da, bm, cm, chunk) -> dict:
+    """Kernel vs plain version on the reference test's tolerance (1e-4
+    f32, 5e-2 bf16, elementwise abs + rel) plus twice the f32 rounding
+    bound of ``ref.f32_rounding_bound``: at N = 128 two f32 summation
+    orders differ by more than 1e-4 on a few elements, and the plain
+    version itself lies that far from the exact (f64) value, which is
+    reported beside."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ref
+    y_ref, st_ref = ref.ssd_reference(x, da, bm, cm, chunk)
+    y_b, st_b = ref.f32_rounding_bound(x, da, bm, cm, chunk)
+    y64, st64 = ref.ssd_reference(x.double(), da.double(), bm.double(),
+                                  cm.double(), chunk)
+    tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-4
+    out = {"tol": tol}
+    for name, got, want, bound, exact in (("y", y, y_ref, y_b, y64),
+                                          ("state", state, st_ref, st_b,
+                                           st64)):
+        got, want = got.double(), want.double()
+        err = (got - want).abs()
+        plain_tol = tol + tol * want.abs()
+        out[name] = {
+            "max_abs_err": float(err.max()),
+            "beyond_plain_tol": int((err > plain_tol).sum()),
+            "beyond_allowed": int((err > plain_tol + 2 * bound).sum()),
+            "kernel_vs_f64": float((got - exact).abs().max()),
+            "plain_vs_f64": float((want - exact).abs().max()),
+            "finite": bool(torch.isfinite(got).all())}
+    return out
+
+
+def ssd_vs_plain() -> float:
+    """Returns the largest |y - y_plain| at the main path's shape."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    main_err = 0.0
+    for i, case in enumerate(SSD_CASES):
+        b, s, h, p, n, chunk, dt = case
+        x, da, bm, cm = ssd_inputs(b, s, h, p, n, dt, seed=100 + i)
+        y, state = ops.ssd(x, da, bm, cm, chunk)
+        torch.cuda.synchronize()
+        res = ssd_compare(y, state, x, da, bm, cm, chunk)
+        emit("kernel_vs_plain", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
+             chunk=chunk, dtype=dt, **res)
+        for part in ("y", "state"):
+            check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
+                  f"ssd_scan {part} off at {case}: {res[part]}")
+        if case == SSD_MAIN:
+            main_err = res["y"]["max_abs_err"]
+    # strongly negative da: exp above the diagonal would overflow to inf
+    x, da, bm, cm = ssd_inputs(1, 128, 4, 32, 16, "float32", seed=7)
+    y, state = ops.ssd(x, da * 200.0, bm, cm, 128)
+    torch.cuda.synchronize()
+    res = ssd_compare(y, state, x, da * 200.0, bm, cm, 128)
+    emit("kernel_vs_plain", kernel="ssd_scan", case="da*200", **res)
+    check(res["y"]["finite"] and res["state"]["finite"]
+          and res["y"]["beyond_allowed"] == 0
+          and res["state"]["beyond_allowed"] == 0,
+          f"ssd_scan large-decay case: {res}")
+    return main_err
+
+
 # -- phase 4: the slice ----------------------------------------------------------
 
 def f1_flip_bound(y) -> float:
@@ -182,6 +287,7 @@ def slice_phase() -> dict:
     import torch
     from repro_torch.interop import params_from_numpy, params_to_numpy
     from repro_torch.kernels.kmeans_assign import ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.classic import classic_fixture
 
     gpu = classic_fixture("kmeans-traffic", samples=20000, n_edges=4,
@@ -191,6 +297,7 @@ def slice_phase() -> dict:
 
     # the main path: every kernel count is read around exactly this run
     ops.launches = 0
+    ssd_ops.launches = 0
     gpu_reports, per_mode = {}, {}
     for mode in ("sync", "async"):
         before = ops.launches
@@ -200,6 +307,7 @@ def slice_phase() -> dict:
         per_mode[mode] = ops.launches - before
         check(per_mode[mode] > 0, f"kmeans {mode}: kernel never launched")
     launches = ops.launches
+    check(ssd_ops.launches == 0, "the EL loop launched ssd_scan")
 
     cpu = classic_fixture("kmeans-traffic", samples=20000, n_edges=4,
                           device="cpu")
@@ -237,7 +345,233 @@ def slice_phase() -> dict:
     return {"kmeans_assign": launches}
 
 
-# -- phase 5: times and bounds ------------------------------------------------
+# -- phase 5: mamba2-370m serving ---------------------------------------------
+
+# (arrival step, prompt length): three prompts open the first wave and
+# leave a slot free; a short one arrives while they decode and is admitted
+# mid-flight; four more arrive and take the slots the first wave frees
+SERVE_TRAFFIC = [(0, 512), (0, 437), (0, 300), (3, 128),
+                 (8, 200), (8, 480), (8, 256), (8, 333)]
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW_TOKENS = 4, 1024, 16
+# kernel vs plain SSD through the whole 48-layer model, as the largest
+# difference over the largest magnitude of each compared tensor.  At f32
+# the two differ by f32 summation order only: 1e-3.  At bf16 the kernel's
+# y and the plain version's round to bf16 on either side of a boundary
+# here and there (one ulp, 2^-8 relative), and 48 residual layers of
+# random weights amplify that, so the kernel path is held to the bf16
+# model's own rounding error measured in the same run: its distance from
+# the plain path may not exceed the plain bf16 path's from the plain f32
+# path.  (A fixed 5e-2 was tried first and missed: 0.054 logits, 0.059
+# SSM state, 0.041 conv.)
+SERVE_F32_TOL = 1e-3
+
+
+class Timed:
+    """Proxy of a model that times ``prefill`` / ``decode_step`` with the
+    card synchronised around each call (host clock)."""
+
+    def __init__(self, model):
+        self.model = model
+        self.cfg = model.cfg
+        self.device = model.device
+        self.times = {"prefill": [], "decode": []}
+        self.prefill_lens = []
+
+    def _timed(self, key, fn, *args):
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        self.times[key].append(time.perf_counter() - t0)
+        return out
+
+    def init_cache(self, *args):
+        return self.model.init_cache(*args)
+
+    def prefill(self, params, tokens, cache):
+        self.prefill_lens.append(int(tokens.shape[1]))
+        return self._timed("prefill", self.model.prefill, params, tokens,
+                           cache)
+
+    def decode_step(self, params, tokens, cache):
+        return self._timed("decode", self.model.decode_step, params, tokens,
+                           cache)
+
+
+def serve_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import tree_map
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config("mamba2-370m").model
+    model = build_model(cfg, device="cuda")
+    check(model.use_ssd_kernel, "mamba2 on CUDA must use the ssd_scan kernel")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's dt_bias [H] and the conv bias's 2N entries beyond it
+    mc = cfg.mamba
+    check(n_params == cfg.num_params() + cfg.n_layers * (
+        mc.n_heads(cfg.d_model) + 2 * mc.d_state),
+        f"mamba2-370m holds {n_params} parameters, not its full width")
+    data = SyntheticLMData.for_model(cfg, len(SERVE_TRAFFIC), 512, seed=0)
+    tokens = data.batch(0, 0, device="cpu")["tokens"].numpy()
+    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+
+    timed = Timed(model)
+    eng = ServingEngine(timed, params, n_slots=SERVE_SLOTS,
+                        max_len=SERVE_MAX_LEN, seed=0)
+    pending = list(enumerate(SERVE_TRAFFIC))
+    done, mid_flight, step = [], [], 0
+    submitted, token_times = {}, {uid: [] for uid in range(len(prompts))}
+    # the main path: every kernel count is read around exactly this run
+    ssd_ops.launches = 0
+    km_ops.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        while pending or eng.has_work():
+            while pending and pending[0][1][0] <= step:
+                uid, _ = pending.pop(0)
+                eng.submit(Request(uid=uid, prompt=prompts[uid],
+                                   max_new_tokens=SERVE_NEW_TOKENS))
+                submitted[uid] = time.perf_counter()
+            before = {r.uid for r in eng.slot_req if r is not None}
+            was_active = eng.active
+            finished = eng.step()      # ends in a host read of the tokens
+            now = time.perf_counter()
+            done += finished
+            for r in eng.slot_req + finished:
+                if r is not None:
+                    token_times[r.uid] += [now] * (
+                        len(r.output) - len(token_times[r.uid]))
+            if was_active:       # requests that joined a running batch
+                mid_flight += [r.uid for r in eng.slot_req + finished
+                               if r is not None and r.uid not in before]
+            step += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, km_launches = ssd_ops.launches, km_ops.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    n_prefill = len(timed.times["prefill"])
+    outputs = {r.uid: r.output for r in done}
+    new_tokens = sum(len(o) for o in outputs.values())
+    ssm = eng.cache["groups"]["sub0"]["ssm"]
+    decode_ms = [t * 1e3 for t in timed.times["decode"]]
+    ttft_ms = sorted((token_times[u][0] - submitted[u]) * 1e3
+                     for u in submitted)
+    gaps_ms = sorted((b - a) * 1e3 for ts in token_times.values()
+                     for a, b in zip(ts, ts[1:]))
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "params": n_params, "init_s": init_s,
+        "slots": SERVE_SLOTS, "requests": len(SERVE_TRAFFIC),
+        "completed": len(done), "steps": step,
+        "prefill_calls": n_prefill, "prefill_lens": timed.prefill_lens,
+        "prefill_ms": [t * 1e3 for t in timed.times["prefill"]],
+        "decode_steps": len(decode_ms),
+        "decode_ms_mean": sum(decode_ms) / max(len(decode_ms), 1),
+        "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+        "ttft_ms_median": ttft_ms[len(ttft_ms) // 2],
+        "ttft_ms_max": ttft_ms[-1],
+        "token_gap_ms_median": gaps_ms[len(gaps_ms) // 2],
+        "token_gap_ms_max": gaps_ms[-1],
+        "new_tokens": new_tokens, "wall_s": wall,
+        "tokens_per_s": new_tokens / wall,
+        "max_memory_allocated": peak, "mid_flight_admitted": mid_flight,
+        "ssd_scan_launches": launches, "kmeans_assign_launches": km_launches}
+    emit("serve", **result)
+    check(len(done) == len(SERVE_TRAFFIC) and all(
+        len(o) == SERVE_NEW_TOKENS for o in outputs.values()),
+        f"serve: not every request completed {SERVE_NEW_TOKENS} tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outputs.values() for t in o),
+          "serve: token out of the vocabulary")
+    check(launches == cfg.n_layers * n_prefill and launches > 0,
+          f"serve: ssd_scan launched {launches} times for {n_prefill} "
+          f"prefills of {cfg.n_layers} layers")
+    check(km_launches == 0, "serve: kmeans_assign launched")
+    check(len(mid_flight) >= 1, "serve: no request was admitted mid-flight")
+    check(bool(torch.isfinite(ssm).all()), "serve: non-finite SSM cache")
+
+    # the same prompts' prefill, kernel vs plain SSD, in two waves of 4,
+    # at the config's bf16 and at f32 (same weights)
+    models = {(dtype, kernel): build_model(
+                  dataclasses.replace(cfg, dtype=dtype),
+                  use_ssd_kernel=kernel, device="cuda")
+              for dtype in ("bfloat16", "float32") for kernel in (True, False)}
+    worst = {}                      # (pair name, tensor) -> relative error
+    agree, flips_outside = {"bfloat16": 0, "float32": 0}, 0
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / float(b.abs().max())
+
+    for w in range(0, len(prompts), SERVE_SLOTS):
+        wave = prompts[w: w + SERVE_SLOTS]
+        s = max(len(p) for p in wave)
+        batch = torch.tensor([[0] * (s - len(p)) + list(p) for p in wave],
+                             dtype=torch.int32, device="cuda")
+        out = {}
+        for key, m in models.items():
+            with torch.inference_mode():
+                logits, cache = m.prefill(params, batch,
+                                          m.init_cache(len(wave), s))
+            g = cache["groups"]["sub0"]
+            out[key] = {"logits": logits[:, -1].float(), "ssm": g["ssm"],
+                        "conv": g["conv"].float()}
+            del logits
+            for name, t in out[key].items():
+                check(bool(torch.isfinite(t).all()),
+                      f"serve compare {key}: non-finite {name}")
+        pairs = {"kernel_vs_plain_f32": (("float32", True),
+                                         ("float32", False)),
+                 "kernel_vs_plain_bf16": (("bfloat16", True),
+                                          ("bfloat16", False)),
+                 "bf16_vs_f32_plain": (("bfloat16", False),
+                                       ("float32", False))}
+        for pname, (ka, kb) in pairs.items():
+            for t in ("logits", "ssm", "conv"):
+                worst[pname, t] = max(worst.get((pname, t), 0.0),
+                                      rel(out[ka][t], out[kb][t]))
+        for dtype in agree:
+            lk = out[dtype, True]["logits"]
+            lp = out[dtype, False]["logits"]
+            same = lk.argmax(-1) == lp.argmax(-1)
+            top2 = lp.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            agree[dtype] += int(same.sum())
+            flips_outside += int((~same & (margin > 2 * float(
+                (lk - lp).abs().max()))).sum())
+    rel_err = {f"{p}.{t}": v for (p, t), v in worst.items()}
+    emit("serve_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
+         first_token_agree=agree, first_tokens=len(prompts),
+         flips_beyond_margin=flips_outside)
+    for t in ("logits", "ssm", "conv"):
+        check(worst["kernel_vs_plain_f32", t] <= SERVE_F32_TOL,
+              f"serve f32: kernel vs plain SSD off in {t}: {rel_err}")
+        check(worst["kernel_vs_plain_bf16", t]
+              <= worst["bf16_vs_f32_plain", t],
+              f"serve bf16: kernel vs plain SSD in {t} beyond the bf16 "
+              f"model's own rounding: {rel_err}")
+    check(flips_outside == 0,
+          "serve: a greedy first token flipped beyond the logits' error "
+          "margin")
+    return {"ssd_scan": launches}
+
+
+# -- phase 6: times and bounds ------------------------------------------------
 
 def kmeans_timing(n: int, d: int, k: int) -> dict:
     import torch
@@ -258,6 +592,68 @@ def kmeans_timing(n: int, d: int, k: int) -> dict:
     return out
 
 
+def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
+    """The kernel's card time at one shape beside its plain version's and
+    its bound.  No single PyTorch call computes the SSD scan, so there is
+    no library time."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops, ref
+    x, da, bm, cm = ssd_inputs(b, s, h, p, n, dtype_name, seed=11)
+    e = x.element_size()
+    # each input read once, each output written once
+    nbytes = (2 * b * s * h * p * e + b * s * h * 4 + 2 * b * s * n * e
+              + b * h * p * n * 4)
+    # per (b, h, chunk): G = C B^T (2L^2N), Gd X (2L^2P), C state^T and
+    # the state update (2LPN each); the causal half of the L^2 terms is
+    # what the data needs, the full square what the dual form computes
+    per_chunk = 2 * chunk * chunk * n + 2 * chunk * chunk * p \
+        + 4 * chunk * p * n
+    flops = b * h * (s // chunk) * per_chunk
+    tri = chunk * (chunk + 1) // 2
+    flops_causal = b * h * (s // chunk) * (2 * tri * n + 2 * tri * p
+                                           + 4 * chunk * p * n)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
+           "dtype": dtype_name}
+    for key, fn, iters in (
+            ("", lambda: ops.ssd(x, da, bm, cm, chunk), 50),
+            ("plain_", lambda: ref.ssd_reference(x, da, bm, cm, chunk), 20)):
+        out[key + "ms"] = cuda_ms(fn, iters=iters, warmup=5, queued=True)
+        out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=5)
+    out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops, flops_causal=flops_causal,
+               bound_causal_ms=max(t_bytes, flops_causal / H100_F32_FLOPS)
+               * 1e3, library_ms=None)
+    return out
+
+
+def build_all() -> None:
+    """Compile every kernel's source at once (one nvcc each), then load."""
+    from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    kernels = {"kmeans_assign": ka_kernel, "ssd_scan": ssd_kernel}
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        paths = dict(zip(kernels, pool.map(lambda k: k.library_path(),
+                                           kernels.values())))
+    seconds = time.perf_counter() - t0
+    # ptxas reports static shared memory only; ssd_scan's is dynamic
+    smem = {"ssd_scan": {
+        "dynamic_smem_bytes_at_P64_N128_L128": ssd_kernel.smem_bytes(
+            64, 128, 128),
+        "dynamic_smem_limit": ssd_kernel.max_smem(0)}}
+    for name, mod in kernels.items():
+        mod.library()
+        log_path = paths[name].with_suffix(".log")
+        log = log_path.read_text() if log_path.exists() else ""
+        emit("build", kernel=name, seconds=seconds,
+             library=str(paths[name].relative_to(ROOT)),
+             ptxas=[ln.strip() for ln in log.splitlines()
+                    if "ptxas info" in ln and "Compile time" not in ln],
+             **smem.get(name, {}))
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -272,33 +668,35 @@ def main() -> None:
          cuda=torch.version.cuda,
          tf32=torch.backends.cuda.matmul.allow_tf32)
 
-    from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
-    t0 = time.perf_counter()
-    lib_path = ka_kernel.library_path()
-    ka_kernel.library()
-    log = lib_path.with_suffix(".log").read_text() \
-        if lib_path.with_suffix(".log").exists() else ""
-    emit("build", kernel="kmeans_assign", seconds=time.perf_counter() - t0,
-         library=str(lib_path.relative_to(ROOT)),
-         ptxas=[ln.strip() for ln in log.splitlines() if "ptxas info" in ln])
-
-    main_err = kernel_vs_plain()
+    build_all()
+    km_err = kernel_vs_plain()
+    ssd_err = ssd_vs_plain()
     launches = slice_phase()
+    launches.update(serve_phase())
 
-    shapes = [kmeans_timing(*s) for s in MAIN_SHAPES]
-    step = shapes[0]
+    km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES]
+    km = km_shapes[0]
+    ssd = ssd_timing(*SSD_MAIN)
+    emit("ssd_timing", **ssd)
     # an empty kernel queued the same way: what a launch alone costs
     launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), queued=True)
     print(json.dumps({"kernels": [{
         "name": "kmeans_assign", "route": "cuda",
         "source": "src/repro_torch/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20",
-        "launches": launches["kmeans_assign"], "max_abs_err": main_err,
-        "ms": step["ms"], "kernel_ms": step["ms"],
-        "call_ms": step["call_ms"],
-        "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
-        "bound_by": step["bound_by"], "library_ms": step["library_ms"],
-        "launch_floor_ms": launch_floor_ms, "shapes": shapes}]}),
+        "launches": launches["kmeans_assign"], "max_abs_err": km_err,
+        "ms": km["ms"], "kernel_ms": km["ms"], "call_ms": km["call_ms"],
+        "plain_ms": km["plain_ms"], "bound_ms": km["bound_ms"],
+        "bound_by": km["bound_by"], "library_ms": km["library_ms"],
+        "launch_floor_ms": launch_floor_ms, "shapes": km_shapes}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",
+        "launches": launches["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": ssd["ms"], "kernel_ms": ssd["ms"], "call_ms": ssd["call_ms"],
+        "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
+        "bound_by": ssd["bound_by"], "library_ms": None,
+        "launch_floor_ms": launch_floor_ms, "shapes": [ssd]}]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

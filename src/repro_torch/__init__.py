@@ -7,10 +7,16 @@ copies of the numpy control plane (bandit, policies, coordinator, data
 generators).  Parity with the reference is held by the tests, which
 import both packages.
 
-This slice runs the paper's host loop end to end:
-``ELSession.run_sync`` / ``run_async(rng_streams="numpy")`` over a
-``ClassicExecutor`` training the linear SVM or minibatch K-means, whose
-E-step is the hand-written CUDA kernel in ``csrc/kmeans_assign.cu``.
+Slices so far:
+
+* the paper's host loop: ``ELSession.run_sync`` / ``run_async(
+  rng_streams="numpy")`` over a ``ClassicExecutor`` training the linear
+  SVM or minibatch K-means, whose E-step is the hand-written CUDA kernel
+  in ``csrc/kmeans_assign.cu``;
+* mamba2-370m serving: ``serving.ServingEngine`` over ``models.LM``'s
+  ``prefill`` / ``decode_step`` (pure-SSM blocks), every Mamba layer's
+  prefill through the hand-written CUDA kernel in ``csrc/ssd_scan.cu``
+  (``python -m repro_torch.launch.serve --arch mamba2-370m``).
 
 Every entry point takes ``device=``; ``None`` means CUDA and raises when
 there is no card (``repro_torch.device.resolve_device``).

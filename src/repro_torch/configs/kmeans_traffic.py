@@ -7,7 +7,7 @@ assumed, as in the reference config.
 """
 
 from repro_torch.config import ModelConfig, OL4ELConfig, TrainConfig
-from repro_torch.configs._base import experiment
+from repro_torch.configs._base import experiment, smoke_experiment
 
 
 def get_config():
@@ -32,3 +32,8 @@ def get_config():
                         max_interval=10, utility="param_delta")
     return experiment(model, train=train, ol4el=ol4el,
                       notes="paper-native unsupervised task")
+
+
+def get_smoke_config():
+    return smoke_experiment(get_config(), d_model=16, vocab_size=3,
+                            n_layers=1, n_heads=0, n_kv_heads=0, d_ff=0)

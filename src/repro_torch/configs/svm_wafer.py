@@ -6,7 +6,7 @@ ModelConfig fields: d_model = feature dim, vocab_size = number of classes.
 """
 
 from repro_torch.config import ModelConfig, OL4ELConfig, TrainConfig
-from repro_torch.configs._base import experiment
+from repro_torch.configs._base import experiment, smoke_experiment
 
 
 def get_config():
@@ -31,3 +31,8 @@ def get_config():
                         max_interval=10, utility="eval_gain")
     return experiment(model, train=train, ol4el=ol4el,
                       notes="paper-native supervised task")
+
+
+def get_smoke_config():
+    return smoke_experiment(get_config(), d_model=59, vocab_size=8,
+                            n_layers=1, n_heads=0, n_kv_heads=0, d_ff=0)

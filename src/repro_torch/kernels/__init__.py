@@ -9,5 +9,9 @@ Each kernel mirrors the reference's three files under
   ref.py    -- the plain PyTorch version (the CPU path and the oracle).
 
 Kernels:
-  kmeans_assign -- K-means E-step (the paper's own workload hot spot)
+  kmeans_assign -- K-means E-step (the paper's own workload hot spot),
+                   launched by every local step of the EL loop;
+  ssd_scan      -- Mamba-2 chunked SSD forward, launched by every Mamba
+                   layer's prefill on the serving path (mamba2-370m
+                   through ``serving.ServingEngine``).
 """

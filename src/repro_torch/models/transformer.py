@@ -1,0 +1,286 @@
+"""Decoder-only language model over the ModelConfig space (port of
+``repro.models.transformer``).
+
+This slice runs the pure-SSM stack: ``(MAMBA, NO_FFN)`` blocks, i.e.
+mamba2-370m.  Attention blocks come with the training/scoring slice
+(``flash_attention``), dense FFNs with the attention slice, MoE with the
+MoE slice; those raise ``NotImplementedError`` naming the slice.
+
+Parameter and cache trees have the reference's shape, so weights and
+caches carry across (``repro_torch.interop``): the layer pattern splits
+into ``n_groups`` repetitions of a group (a uniform pattern needs no
+unstacked prefix), whose leaves are stacked on a leading ``[n_groups]``
+axis (every LM config sets ``scan_layers``), and the cache holds a scalar
+``index``.  Where the
+reference scans over the stacked groups, the port loops over the leading
+index in Python.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.config import ATTN, DENSE_FFN, MAMBA, MOE_FFN, NO_FFN, \
+    ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.interop import tree_map
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
+from repro_torch.models.layers import Params
+
+_NOT_YET = {
+    ATTN: "attention blocks come with the training/scoring slice "
+          "(flash_attention)",
+    DENSE_FFN: "dense FFN blocks come with the attention slice",
+    MOE_FFN: "MoE blocks come with the MoE slice",
+}
+
+
+def _require_ported(kind: str, ffn: str) -> None:
+    for part in (kind, ffn):
+        if part in _NOT_YET:
+            raise NotImplementedError(
+                f"block ({kind}, {ffn}): {_NOT_YET[part]} of the port; "
+                f"this slice runs ({MAMBA}, {NO_FFN}) blocks")
+
+
+# ---------------------------------------------------------------------------
+# Layer-group decomposition
+# ---------------------------------------------------------------------------
+
+
+def layer_groups(cfg: ModelConfig) -> Tuple[Tuple, Tuple, int]:
+    """Split block pattern into (prefix, group, n_groups).
+
+    ``prefix`` layers are applied unstacked; the remaining layers are
+    ``n_groups`` repetitions of ``group``.  Minimizes the number of
+    *unrolled* layers (prefix + group size), breaking ties with the
+    shortest prefix.
+    """
+    pattern = cfg.block_pattern()
+    n = len(pattern)
+    best = None
+    for p in range(n + 1):
+        rest = pattern[p:]
+        if not rest:
+            cand = (10 ** 9, p)   # all-prefix fallback: never preferred
+            g = 0
+        else:
+            g = next(gg for gg in range(1, len(rest) + 1)
+                     if len(rest) % gg == 0
+                     and rest == rest[:gg] * (len(rest) // gg))
+            cand = (p + g, p)
+        if best is None or cand < best:
+            best = cand
+            best_split = (pattern[:p], rest[:g] if rest else (),
+                          (len(rest) // g) if rest else 0)
+    return best_split
+
+
+def _stack(trees: List[Any]) -> Any:
+    """Stack same-shaped trees leaf by leaf on a new leading axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _take(groups: Any, g: int) -> Any:
+    """Group ``g`` of a stacked (leading-axis) group tree."""
+    return tree_map(lambda a: a[g], groups)
+
+
+# ---------------------------------------------------------------------------
+# Single block (mixer + optional FFN)
+# ---------------------------------------------------------------------------
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
+               ffn: str) -> Params:
+    _require_ported(kind, ffn)
+    return {"mix": M.init_mamba(gen, cfg)}
+
+
+def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
+                x: torch.Tensor, use_ssd_kernel: bool = False
+                ) -> torch.Tensor:
+    _require_ported(kind, ffn)
+    h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
+    return x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
+
+
+def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
+                     x: torch.Tensor, use_ssd_kernel: bool = False
+                     ) -> Tuple[torch.Tensor, Params]:
+    """Full-sequence block that also fills the decode cache (prefill)."""
+    _require_ported(kind, ffn)
+    h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
+    y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
+                                        use_kernel=use_ssd_kernel)
+    return x + y, cache
+
+
+def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
+                       x: torch.Tensor, cache: Params
+                       ) -> Tuple[torch.Tensor, Params]:
+    _require_ported(kind, ffn)
+    h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
+    y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
+    return x + y, cache
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+                     dtype: torch.dtype, device: torch.device) -> Params:
+    _require_ported(kind, NO_FFN)
+    return M.init_mamba_cache(cfg, batch, dtype, device)
+
+
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance_loss": z, "router_z_loss": z, "expert_frac_max": z,
+            "n_moe": z}
+
+
+# ---------------------------------------------------------------------------
+# The model
+# ---------------------------------------------------------------------------
+
+
+class LM:
+    """Functional language model: ``params`` tree in, tensors out.
+
+    ``use_ssd_kernel=None`` picks the prefill SSD from the device: the
+    CUDA ``ssd_scan`` kernel on a CUDA device, the plain ``ssd_reference``
+    on the CPU.  An explicit ``False`` runs the plain SSD on the card too,
+    for comparison only.
+    """
+
+    def __init__(self, cfg: ModelConfig, use_ssd_kernel: Optional[bool] = None,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.use_ssd_kernel = (self.device.type == "cuda"
+                               if use_ssd_kernel is None else use_ssd_kernel)
+        self.dtype = getattr(torch, cfg.dtype)
+        for kind, ffn in cfg.block_pattern():
+            _require_ported(kind, ffn)
+        if cfg.n_codebooks > 1 or cfg.num_prefix_embeddings:
+            raise NotImplementedError(
+                f"{cfg.name}: multi-codebook heads and prefix embeddings "
+                "come with the dense-attention slice of the port")
+        if not cfg.scan_layers:
+            raise NotImplementedError(
+                f"{cfg.name}: the port stacks layer groups; unstacked "
+                "(scan_layers=False) trees are not ported")
+        self.prefix, self.group, self.n_groups = layer_groups(cfg)
+        # a uniform pattern (all this slice runs) splits with no prefix
+        assert not self.prefix, self.prefix
+
+    # -- init ---------------------------------------------------------------
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random parameters drawn from ``gen`` on its device, placed on
+        the model's."""
+        cfg = self.cfg
+        params: Params = {
+            "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model)),
+            "final_norm": L.init_rms_norm(cfg.d_model, gen.device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = L.dense_init(gen, (cfg.d_model,
+                                                   cfg.vocab_size))
+        groups = [{f"sub{i}": init_block(gen, cfg, kind, ffn)
+                   for i, (kind, ffn) in enumerate(self.group)}
+                  for _ in range(self.n_groups)]
+        params["groups"] = _stack(groups)
+        return tree_map(lambda t: t.to(self.device), params)
+
+    # -- embedding ----------------------------------------------------------
+
+    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens.long()].to(self.dtype)      # [B, S, d]
+
+    def unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return x @ params["embed"].to(x.dtype).T
+        return x @ params["lm_head"].to(x.dtype)
+
+    # -- forward (scoring / prefill without a cache) -------------------------
+
+    def forward(self, params: Params, tokens: torch.Tensor,
+                last_only: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        for g in range(self.n_groups):
+            p_group = _take(params["groups"], g)
+            for i, (kind, ffn) in enumerate(self.group):
+                x = apply_block(p_group[f"sub{i}"], cfg, kind, ffn, x,
+                                self.use_ssd_kernel)
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        if last_only:
+            x = x[:, -1:]
+        return self.unembed(params, x), _zero_aux(x.device)
+
+    # -- serving -------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int) -> Params:
+        """Zero decode cache for ``batch`` slots.  SSM layers hold O(1)
+        state, so ``max_len`` sizes nothing in this slice (attention's KV
+        cache will read it)."""
+        del max_len
+        cfg = self.cfg
+        groups = [{f"sub{i}": init_block_cache(cfg, kind, batch, self.dtype,
+                                               self.device)
+                   for i, (kind, _) in enumerate(self.group)}
+                  for _ in range(self.n_groups)]
+        return {"index": torch.zeros((), dtype=torch.int32,
+                                     device=self.device),
+                "groups": _stack(groups)}
+
+    def _run_layers(self, params: Params, cache: Params, x: torch.Tensor,
+                    block_fn) -> Tuple[torch.Tensor, Params]:
+        """Thread ``x`` through every block with ``block_fn(p, kind, ffn,
+        x, c) -> (x, c)``; return x and the new stacked group caches."""
+        new_groups = []
+        for g in range(self.n_groups):
+            p_group = _take(params["groups"], g)
+            c_group = _take(cache["groups"], g)
+            new_c = {}
+            for i, (kind, ffn) in enumerate(self.group):
+                x, new_c[f"sub{i}"] = block_fn(
+                    p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"])
+            new_groups.append(new_c)
+        return x, _stack(new_groups)
+
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params) -> Tuple[torch.Tensor, Params]:
+        """One-token decode. tokens: [B, 1]."""
+        cfg = self.cfg
+        x = self.embed(params, tokens)                              # [B,1,d]
+        x, groups = self._run_layers(
+            params, cache, x,
+            lambda p, kind, ffn, x, c: apply_block_decode(p, cfg, kind, ffn,
+                                                          x, c))
+        new_cache = {"index": cache["index"] + 1, "groups": groups}
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return self.unembed(params, x), new_cache
+
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params
+                ) -> Tuple[torch.Tensor, Params]:
+        """Run the full prompt through the model, filling the decode cache.
+
+        SSM layers store their final recurrent + conv state (from a zero
+        state, as the reference).  Returns full-sequence logits and the
+        filled cache (index advanced by S).
+        """
+        cfg = self.cfg
+        x = self.embed(params, tokens)
+        s = x.shape[1]
+        x, groups = self._run_layers(
+            params, cache, x,
+            lambda p, kind, ffn, x, c: apply_block_fill(
+                p, cfg, kind, ffn, x, self.use_ssd_kernel))
+        new_cache = {"index": cache["index"] + s, "groups": groups}
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        return self.unembed(params, x), new_cache

@@ -65,13 +65,66 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
-    from repro_torch.interop import params_from_numpy
+    from repro_torch.config import get_smoke_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import params_from_numpy, tree_from_numpy
+    from repro_torch.launch import serve
     from repro_torch.launch.classic import classic_fixture
+    from repro_torch.models import LM, build_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         classic_fixture("svm-wafer", samples=200, n_edges=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tree_from_numpy({"groups": [{}]})
+    cfg = get_smoke_config("mamba2-370m").model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticLMData.for_model(cfg, 2, 8).batch(0, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-370m", "--smoke"])
+
+
+def test_cpu_model_takes_the_plain_ssd_and_cuda_the_kernel(monkeypatch):
+    """``use_ssd_kernel=None`` resolves from the device: the kernel on a
+    CUDA device, the plain SSD on the CPU; an explicit value wins."""
+    from repro_torch.config import get_smoke_config
+    from repro_torch.models import LM
+    cfg = get_smoke_config("mamba2-370m").model
+    assert LM(cfg, device="cpu").use_ssd_kernel is False
+    assert LM(cfg, use_ssd_kernel=True, device="cpu").use_ssd_kernel is True
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert LM(cfg, device="cuda").use_ssd_kernel is True
+    assert LM(cfg, use_ssd_kernel=False,
+              device="cuda").use_ssd_kernel is False
+
+
+def test_ssd_op_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
+    """On a CUDA tensor the op goes to the kernel (or raises): stub the
+    launch and check it, not the plain version, is reached."""
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    calls = []
+    monkeypatch.setattr(kernel, "ssd_fwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(ops, "ssd_reference", lambda *a: pytest.fail(
+        "plain SSD ran for a CUDA tensor"))
+
+    class FakeCuda(torch.Tensor):
+        @property
+        def device(self):
+            return torch.device("cuda", 0)
+
+    def fake(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype).as_subclass(FakeCuda)
+    monkeypatch.setattr(torch, "empty_like", lambda t: fake(*t.shape))
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: fake(*s))
+    before = ops.launches
+    ops.ssd(fake(1, 64, 2, 16), fake(1, 64, 2), fake(1, 64, 8),
+            fake(1, 64, 8), 32)
+    assert len(calls) == 1 and ops.launches == before + 1
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

@@ -15,6 +15,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import get_config  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.models import KMeans  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +109,94 @@ def test_kmeans_cuda_local_step_matches_plain_step(cuda_device):
     assert ops.launches == before + 1
     torch.testing.assert_close(p_cuda["centers"], p_plain["centers"],
                                rtol=1e-5, atol=1e-5)
+
+
+# (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
+# cases, then the main path's prefill shapes (mamba2-370m: 32 heads of 64,
+# d_state 128, chunk 128) and ragged chunks (a 100-token prompt gives
+# L=100; 40 tokens under the smoke config's chunk 32 pad to 64).
+SSD_CASES = [
+    (2, 128, 4, 32, 16, 32, "float32"),
+    (1, 256, 2, 64, 128, 128, "float32"),
+    (1, 64, 8, 64, 64, 32, "float32"),
+    (2, 128, 2, 128, 128, 64, "float32"),
+    (1, 128, 4, 32, 16, 32, "bfloat16"),
+    (4, 512, 32, 64, 128, 128, "bfloat16"),
+    (4, 512, 32, 64, 128, 128, "float32"),
+    (2, 100, 32, 64, 128, 100, "bfloat16"),
+    (2, 100, 4, 64, 128, 100, "float32"),
+    (3, 64, 4, 32, 16, 32, "float32"),
+    (1, 384, 2, 128, 128, 128, "float32"),
+]
+
+
+def ssd_inputs(b, s, h, p, n, dtype, seed, device):
+    """The reference test's recipe, drawn with numpy: x * softplus(dt)
+    in ``dtype``, da = dt * A in f32 (A < 0), B and C normal."""
+    rng = np.random.default_rng(seed)
+    dt_ = getattr(torch, dtype)
+    x = torch.tensor(rng.standard_normal((b, s, h, p)), dtype=torch.float32)
+    dt = torch.nn.functional.softplus(
+        torch.tensor(rng.standard_normal((b, s, h)), dtype=torch.float32))
+    a = -torch.exp(0.5 * torch.tensor(rng.standard_normal(h),
+                                      dtype=torch.float32))
+    bm = torch.tensor(rng.standard_normal((b, s, n)), dtype=torch.float32)
+    cm = torch.tensor(rng.standard_normal((b, s, n)), dtype=torch.float32)
+    dt = dt.to(dt_).float()
+    xs = (x.to(dt_).float() * dt[..., None]).to(dt_)
+    return (xs.to(device), (dt * a).to(device), bm.to(device, dt_),
+            cm.to(device, dt_))
+
+
+def assert_ssd_close(y, state, x, da, bm, cm, chunk):
+    """Kernel vs plain version, on the reference test's tolerance (1e-4
+    f32, 5e-2 bf16) plus twice ``ref.f32_rounding_bound``: at N = 128 two
+    f32 summation orders differ by more than 1e-4 on a few elements, the
+    plain version itself lying that far from the exact (f64) value."""
+    y_ref, state_ref = ssd_ref.ssd_reference(x, da, bm, cm, chunk)
+    y_bound, state_bound = ssd_ref.f32_rounding_bound(x, da, bm, cm, chunk)
+    tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-4
+    for got, want, bound in ((y, y_ref, y_bound),
+                             (state, state_ref, state_bound)):
+        want = want.double()
+        err = (got.double() - want).abs()
+        allowed = tol + tol * want.abs() + 2 * bound
+        assert bool((err <= allowed).all()), \
+            f"off by {float(err.max())}, {int((err > allowed).sum())} beyond"
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", SSD_CASES)
+def test_ssd_scan_matches_plain(b, s, h, p, n, chunk, dtype, cuda_device):
+    x, da, bm, cm = ssd_inputs(b, s, h, p, n, dtype, s * h + p, cuda_device)
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(x, da, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert y.dtype == x.dtype and state.dtype == torch.float32
+    assert_ssd_close(y, state, x, da, bm, cm, chunk)
+
+
+def test_ssd_scan_decay_never_overflows(cuda_device):
+    """Strongly negative da makes a_cs[i] - a_cs[j] huge above the
+    diagonal: the kernel must not form exp there (inf * 0 = NaN)."""
+    x, da, bm, cm = ssd_inputs(1, 128, 4, 32, 16, "float32", 3, cuda_device)
+    da = da * 200.0
+    y, state = ssd_ops.ssd(x, da, bm, cm, 128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert_ssd_close(y, state, x, da, bm, cm, 128)
+
+
+def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
+    x, da, bm, cm = ssd_inputs(1, 256, 2, 32, 16, "float32", 1, cuda_device)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_ops.ssd(x, da, bm, cm, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_ops.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), da, bm,
+                    cm, 128)
+    with pytest.raises(TypeError, match="da"):
+        ssd_ops.ssd(x, da.to(torch.bfloat16), bm, cm, 128)
+    assert ssd_kernel.smem_bytes(256, 256, 128) > ssd_kernel.max_smem(0)
+    big = ssd_inputs(1, 128, 1, 256, 256, "float32", 2, cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_ops.ssd(*big, 128)

@@ -1,0 +1,157 @@
+"""The port's SSD scan op vs the JAX reference's.
+
+The wrapper's CPU path (the plain torch ``ssd_reference``) is held to the
+reference's jnp oracle and to its Pallas kernel in interpret mode, on the
+same numpy inputs.  The CUDA kernel itself runs only on a card: its tests
+are in ``test_torch_kernels_cuda.py``.
+"""
+
+import ml_dtypes
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
+from repro.models import mamba2 as jax_m  # noqa: E402
+from repro_torch.interop import tree_from_numpy  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
+from repro_torch.models import mamba2 as port_m  # noqa: E402
+
+# (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
+# cases, then a ragged chunk (a 100-token prompt gives L=100)
+SSD_CASES = [
+    (2, 128, 4, 32, 16, 32, "float32"),
+    (1, 256, 2, 64, 128, 128, "float32"),
+    (1, 64, 8, 64, 64, 32, "float32"),
+    (2, 128, 2, 128, 128, 64, "float32"),
+    (1, 128, 4, 32, 16, 32, "bfloat16"),
+    (1, 100, 4, 32, 16, 100, "float32"),
+    (2, 100, 4, 64, 128, 100, "bfloat16"),
+]
+
+
+def _inputs(b, s, h, p, n, dtype, seed):
+    """The reference test's recipe drawn with numpy, as numpy arrays both
+    frameworks take bit for bit: x * softplus(dt) and B, C in ``dtype``
+    (rounded once, by ml_dtypes), da = dt * A in f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cast = ((lambda v: v.astype(ml_dtypes.bfloat16)) if dtype == "bfloat16"
+            else (lambda v: v))
+    return cast(x * dt[..., None]), (dt * a).astype(np.float32), cast(bm), \
+        cast(cm)
+
+
+def _tol(dtype):
+    # the reference test's tolerances: f32 sums in another order; bf16 y
+    # rounded once on each side
+    return 5e-2 if dtype == "bfloat16" else 1e-4
+
+
+def _close(port, ref_arr, tol):
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(ref_arr, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("oracle", ["jnp_ref", "pallas_interpret"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", SSD_CASES)
+def test_plain_matches_reference(b, s, h, p, n, chunk, dtype, oracle):
+    arrays = _inputs(b, s, h, p, n, dtype, seed=s * h + p)
+    jx = [jnp.asarray(a) for a in arrays]
+    if oracle == "jnp_ref":
+        y_ref, st_ref = jax_m.ssd_reference(*jx, chunk)
+    else:
+        y_ref, st_ref = jax_ssd(*jx, chunk, True)
+    before = ops.launches
+    y, st = ops.ssd(*tree_from_numpy(list(arrays), "cpu"), chunk)
+    assert ops.launches == before            # the CPU path launches nothing
+    assert y.dtype == getattr(torch, dtype) and st.dtype == torch.float32
+    _close(y, y_ref, _tol(dtype))
+    _close(st, st_ref, _tol(dtype))
+
+
+def test_padded_input_matches_reference():
+    """The mixer's padding: a 40-step sequence under chunk 32 padded to 64
+    with x = 0, da = 0, B = C = 0; the state and the first 40 outputs
+    equal an unpadded single-chunk run of the reference."""
+    x, da, bm, cm = _inputs(2, 40, 4, 32, 16, "float32", seed=4)
+    pad = ((0, 0), (0, 24))
+    padded = [np.pad(x, pad + ((0, 0), (0, 0))), np.pad(da, pad + ((0, 0),)),
+              np.pad(bm, pad + ((0, 0),)), np.pad(cm, pad + ((0, 0),))]
+    y, st = ops.ssd(*tree_from_numpy(padded, "cpu"), 32)
+    y_ref, st_ref = jax_ssd(*[jnp.asarray(a) for a in padded], 32, True)
+    _close(y, y_ref, 1e-4)
+    _close(st, st_ref, 1e-4)
+    y40, st40 = jax_m.ssd_reference(*[jnp.asarray(a) for a in
+                                      (x, da, bm, cm)], 40)
+    _close(y[:, :40], y40, 1e-4)
+    _close(st, st40, 1e-4)
+
+
+def test_segsum_matches_reference():
+    v = np.random.default_rng(0).standard_normal((3, 2, 17)).astype(
+        np.float32)
+    out = ref.segsum(torch.from_numpy(v))
+    want = np.asarray(jax_m.segsum(jnp.asarray(v)))
+    assert np.array_equal(np.isneginf(out.numpy()), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(out.numpy()[fin], want[fin], atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_recurrent_step_matches_reference():
+    rng = np.random.default_rng(1)
+    b, h, p, n = 2, 3, 8, 5
+    arrays = [rng.standard_normal(sh).astype(np.float32)
+              for sh in ((b, h, p, n), (b, h, p), (b, h), (b, n), (b, n))]
+    arrays[2] = -np.abs(arrays[2])
+    y, st = port_m.ssd_recurrent_step(*tree_from_numpy(arrays, "cpu"))
+    y_ref, st_ref = jax_m.ssd_recurrent_step(*[jnp.asarray(a)
+                                               for a in arrays])
+    _close(y, y_ref, 1e-5)
+    _close(st, st_ref, 1e-5)
+
+
+def test_chunked_state_matches_recurrence():
+    """Chunked SSD final state and outputs == the step-by-step recurrence
+    (the reference's test_ssd_state_matches_recurrence, inside the port)."""
+    b, s, h, p, n = 1, 64, 2, 16, 8
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((b, s, h, p)).astype(np.float32))
+    da = -torch.nn.functional.softplus(torch.from_numpy(
+        rng.standard_normal((b, s, h)).astype(np.float32)))
+    bm = torch.from_numpy(rng.standard_normal((b, s, n)).astype(np.float32))
+    cm = torch.from_numpy(rng.standard_normal((b, s, n)).astype(np.float32))
+    y_chunked, state_chunked = ops.ssd(x, da, bm, cm, 16)
+    state = torch.zeros(b, h, p, n)
+    ys = []
+    for t in range(s):
+        y_t, state = port_m.ssd_recurrent_step(state, x[:, t], da[:, t],
+                                               bm[:, t], cm[:, t])
+        ys.append(y_t)
+    torch.testing.assert_close(state_chunked, state, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(y_chunked, torch.stack(ys, dim=1), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_rejects_bad_inputs():
+    x, da, bm, cm = tree_from_numpy(
+        list(_inputs(1, 64, 2, 16, 8, "float32", seed=0)), "cpu")
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ops.ssd(x, da, bm, cm, 48)
+    with pytest.raises(ValueError, match="disagree"):
+        ops.ssd(x, da[:, :32], bm, cm, 32)
+    with pytest.raises(TypeError, match="share dtype"):
+        ops.ssd(x, da, bm.to(torch.bfloat16), cm, 32)
+    with pytest.raises(TypeError, match="da must be float32"):
+        ops.ssd(x, da.double(), bm, cm, 32)
+    with pytest.raises(ValueError, match="x \\[B,S,H,P\\]"):
+        ops.ssd(x[0], da, bm, cm, 32)
