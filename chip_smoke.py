@@ -194,30 +194,25 @@ def ssd_inputs(b, s, h, p, n, dtype_name, seed):
 
 
 def ssd_compare(y, state, x, da, bm, cm, chunk) -> dict:
-    """Kernel vs plain version on the reference test's tolerance (1e-4
-    f32, 5e-2 bf16, elementwise abs + rel) plus twice the f32 rounding
-    bound of ``ref.f32_rounding_bound``: at N = 128 two f32 summation
-    orders differ by more than 1e-4 on a few elements, and the plain
-    version itself lies that far from the exact (f64) value, which is
+    """Kernel vs plain version within ``ref.allowed_error`` (the rule the
+    card tests hold it to), with the count beyond the reference test's
+    bare tolerance and both sides' distance from the exact (f64) value
     reported beside."""
     import torch
     from repro_torch.kernels.ssd_scan import ref
-    y_ref, st_ref = ref.ssd_reference(x, da, bm, cm, chunk)
-    y_b, st_b = ref.f32_rounding_bound(x, da, bm, cm, chunk)
     y64, st64 = ref.ssd_reference(x.double(), da.double(), bm.double(),
                                   cm.double(), chunk)
-    tol = 5e-2 if x.dtype == torch.bfloat16 else 1e-4
+    tol = ref.tolerance(x.dtype)
     out = {"tol": tol}
-    for name, got, want, bound, exact in (("y", y, y_ref, y_b, y64),
-                                          ("state", state, st_ref, st_b,
-                                           st64)):
-        got, want = got.double(), want.double()
+    for name, got, (want, allowed), exact in zip(
+            ("y", "state"), (y, state),
+            ref.allowed_error(x, da, bm, cm, chunk), (y64, st64)):
+        got = got.double()
         err = (got - want).abs()
-        plain_tol = tol + tol * want.abs()
         out[name] = {
             "max_abs_err": float(err.max()),
-            "beyond_plain_tol": int((err > plain_tol).sum()),
-            "beyond_allowed": int((err > plain_tol + 2 * bound).sum()),
+            "beyond_plain_tol": int((err > tol + tol * want.abs()).sum()),
+            "beyond_allowed": int((err > allowed).sum()),
             "kernel_vs_f64": float((got - exact).abs().max()),
             "plain_vs_f64": float((want - exact).abs().max()),
             "finite": bool(torch.isfinite(got).all())}
@@ -402,20 +397,19 @@ class Timed:
 def serve_phase() -> dict:
     import torch
     from repro_torch.config import get_config
-    from repro_torch.data import SyntheticLMData
     from repro_torch.interop import tree_map
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.serve import build
     from repro_torch.models import build_model
     from repro_torch.serving import Request, ServingEngine
 
     cfg = get_config("mamba2-370m").model
-    model = build_model(cfg, device="cuda")
-    check(model.use_ssd_kernel, "mamba2 on CUDA must use the ssd_scan kernel")
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    check(model.use_ssd_kernel, "mamba2 on CUDA must use the ssd_scan kernel")
     sizes = []
     tree_map(lambda t: sizes.append(t.numel()), params)
     n_params = sum(sizes)
@@ -425,8 +419,7 @@ def serve_phase() -> dict:
     check(n_params == cfg.num_params() + cfg.n_layers * (
         mc.n_heads(cfg.d_model) + 2 * mc.d_state),
         f"mamba2-370m holds {n_params} parameters, not its full width")
-    data = SyntheticLMData.for_model(cfg, len(SERVE_TRAFFIC), 512, seed=0)
-    tokens = data.batch(0, 0, device="cpu")["tokens"].numpy()
+    tokens = tokens.cpu().numpy()
     prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
 
     timed = Timed(model)
@@ -603,15 +596,14 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     # each input read once, each output written once
     nbytes = (2 * b * s * h * p * e + b * s * h * 4 + 2 * b * s * n * e
               + b * h * p * n * 4)
-    # per (b, h, chunk): G = C B^T (2L^2N), Gd X (2L^2P), C state^T and
-    # the state update (2LPN each); the causal half of the L^2 terms is
-    # what the data needs, the full square what the dual form computes
-    per_chunk = 2 * chunk * chunk * n + 2 * chunk * chunk * p \
-        + 4 * chunk * p * n
-    flops = b * h * (s // chunk) * per_chunk
+    # what the function needs, as multiply-adds (2 operations each), on
+    # the causal triangle of the L x L terms only: G = C B^T is shared by
+    # the heads, once per (b, chunk) (2 tri N); per (b, h, chunk) the
+    # masked Gd X (2 tri P), C state^T and the state update (2LPN each)
     tri = chunk * (chunk + 1) // 2
-    flops_causal = b * h * (s // chunk) * (2 * tri * n + 2 * tri * p
-                                           + 4 * chunk * p * n)
+    n_chunks = s // chunk
+    flops = b * n_chunks * 2 * tri * n \
+        + b * h * n_chunks * (2 * tri * p + 4 * chunk * p * n)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
            "dtype": dtype_name}
@@ -622,9 +614,7 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
         out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=5)
     out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, flops=flops, flops_causal=flops_causal,
-               bound_causal_ms=max(t_bytes, flops_causal / H100_F32_FLOPS)
-               * 1e3, library_ms=None)
+               bytes=nbytes, flops=flops, library_ms=None)
     return out
 
 

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the card's time goes when the PyTorch port serves mamba2-370m.
 
-    PYTHONPATH=src python scripts/profile_torch_serve.py \\
-        [--batch 4] [--prompt-len 512] [--decode 8]
+    PYTHONPATH=src python scripts/profile_torch_serve.py
 
-Builds the full-width model on the card (random weights from a seeded
-generator), warms up once, then runs one prefill and ``--decode`` decode
-steps, each phase under ``torch.profiler`` with the card synchronised
-around it.  Prints one JSON line per phase:
+Builds the full-width model and its prompts on the card as
+``chip_smoke.py``'s serve phase does (``repro_torch.launch.serve.build``:
+random weights from a seeded generator), at the serving prefill's shape
+(4 prompts of 512 tokens), warms up once, then runs one prefill and 8
+decode steps, each phase under ``torch.profiler`` with the card
+synchronised around it.  Prints one JSON line per phase:
 
   wall_ms        host clock around the phase;
   device_ms      union of the intervals in which a kernel ran (CUPTI);
@@ -21,7 +22,6 @@ card or the profiler reports no device time.
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -30,6 +30,8 @@ from collections import defaultdict
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+BATCH, PROMPT_LEN, DECODE_STEPS = 4, 512, 8
 
 
 def device_events(prof):
@@ -79,34 +81,25 @@ def profile_phase(name: str, fn) -> dict:
                     for n, (c, ms) in top]}
 
 
-def main(argv=None) -> None:
+def main() -> None:
     import torch
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=512)
-    ap.add_argument("--decode", type=int, default=8)
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
 
     from repro_torch.config import get_config
-    from repro_torch.data import SyntheticLMData
-    from repro_torch.models import build_model
+    from repro_torch.launch.serve import build
 
     cfg = get_config("mamba2-370m").model
-    model = build_model(cfg, device="cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    prompts = SyntheticLMData.for_model(cfg, args.batch, args.prompt_len
-                                        ).batch(0, 0)["tokens"]
+    model, params, prompts = build(cfg, BATCH, PROMPT_LEN, "cuda")
     state = {}
 
     def prefill():
         logits, state["cache"] = model.prefill(
-            params, prompts, model.init_cache(args.batch, 0))
+            params, prompts, model.init_cache(BATCH, 0))
         state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
 
     def decode():
-        for _ in range(args.decode):
+        for _ in range(DECODE_STEPS):
             logits, state["cache"] = model.decode_step(
                 params, state["tok"], state["cache"])
             state["tok"] = logits[:, -1].argmax(-1, keepdim=True)
@@ -116,8 +109,8 @@ def main(argv=None) -> None:
         decode()
         for name, fn in (("prefill", prefill), ("decode", decode)):
             out = profile_phase(name, fn)
-            out.update(batch=args.batch, prompt_len=args.prompt_len,
-                       steps=1 if name == "prefill" else args.decode,
+            out.update(batch=BATCH, prompt_len=PROMPT_LEN,
+                       steps=1 if name == "prefill" else DECODE_STEPS,
                        card=torch.cuda.get_device_name(0))
             print(json.dumps(out), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -92,3 +92,26 @@ def f32_rounding_bound(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
                                   chunk)
     u = (s + 2 * n + chunk + 8) * 2.0 ** -24
     return u * y_abs, u * st_abs
+
+
+def tolerance(dtype: torch.dtype) -> float:
+    """The reference kernel test's elementwise tolerance, absolute and
+    relative alike: 5e-2 for bf16 inputs, 1e-4 otherwise."""
+    return 5e-2 if dtype == torch.bfloat16 else 1e-4
+
+
+def allowed_error(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
+                  c_mat: torch.Tensor, chunk: int):
+    """What a kernel's SSD is held to: the plain version's y and final
+    state, each with the per-element distance the kernel's may lie from
+    it, ``tolerance(x.dtype) * (1 + |plain|)`` plus twice
+    ``f32_rounding_bound`` (at N = 128 two f32 summation orders differ by
+    more than 1e-4 on a few elements where sums cancel).
+
+    Returns ``((y, y_allowed), (state, state_allowed))``, all f64."""
+    y, state = ssd_reference(x, da, b_mat, c_mat, chunk)
+    y_b, st_b = f32_rounding_bound(x, da, b_mat, c_mat, chunk)
+    tol = tolerance(x.dtype)
+    y, state = y.double(), state.double()
+    return ((y, tol + tol * y.abs() + 2 * y_b),
+            (state, tol + tol * state.abs() + 2 * st_b))

@@ -15,7 +15,7 @@ import time
 
 import torch
 
-from repro_torch.config import get_config, get_smoke_config
+from repro_torch.config import ModelConfig, get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
@@ -24,6 +24,19 @@ from repro_torch.models import build_model
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def build(mc: ModelConfig, batch: int, prompt_len: int, device=None,
+          seed: int = 0):
+    """What every entry point of the serving path starts from: the model,
+    its random parameters (a generator seeded with ``seed`` on
+    ``device``) and a batch of synthetic prompts, int32 [batch,
+    prompt_len]."""
+    dev = resolve_device(device)
+    model = build_model(mc, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    data = SyntheticLMData.for_model(mc, batch, prompt_len, seed=seed)
+    return model, params, data.batch(0, 0, device=dev)["tokens"]
 
 
 def main(argv=None) -> dict:
@@ -40,11 +53,8 @@ def main(argv=None) -> dict:
 
     dev = resolve_device(args.device)
     exp = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    mc = exp.model
-    model = build_model(mc, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    data = SyntheticLMData.for_model(mc, args.batch, args.prompt_len)
-    prompts = data.batch(0, 0, device=dev)["tokens"]
+    model, params, prompts = build(exp.model, args.batch, args.prompt_len,
+                                   dev)
     cache = model.init_cache(args.batch, args.prompt_len + args.tokens + 1)
     gen = torch.Generator(device=dev).manual_seed(1)
 
