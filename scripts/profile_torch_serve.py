@@ -56,7 +56,9 @@ def busy_ms(events) -> float:
     return total / 1e3                        # profiler times are in us
 
 
-def profile_phase(name: str, fn) -> dict:
+def profile_phase(name: str, fn):
+    """Run ``fn`` under the profiler, the card synchronised around it;
+    returns the phase's summary and the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -78,7 +80,7 @@ def profile_phase(name: str, fn) -> dict:
     return {"phase": name, "wall_ms": wall, "device_ms": dev,
             "idle_share": 1.0 - dev / wall, "kernels": len(events),
             "top": [{"name": n[:120], "count": c, "ms": ms}
-                    for n, (c, ms) in top]}
+                    for n, (c, ms) in top]}, prof
 
 
 def main() -> None:
@@ -108,7 +110,7 @@ def main() -> None:
         prefill()                              # warm-up: build, cuBLAS
         decode()
         for name, fn in (("prefill", prefill), ("decode", decode)):
-            out = profile_phase(name, fn)
+            out, _ = profile_phase(name, fn)
             out.update(batch=BATCH, prompt_len=PROMPT_LEN,
                        steps=1 if name == "prefill" else DECODE_STEPS,
                        card=torch.cuda.get_device_name(0))

@@ -243,9 +243,8 @@ CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 
 # LM architectures of the reference, by the slice of the port that brings
 # each (the LM ids this slice does not resolve raise and name theirs).
-PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m",)
+PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b")
 LM_SLICES = {
-    "qwen3-1.7b": "the training/scoring slice (flash_attention)",
     "minicpm-2b": "the dense-attention slice",
     "qwen2.5-14b": "the dense-attention slice",
     "deepseek-coder-33b": "the dense-attention slice",

@@ -18,23 +18,23 @@ from typing import Any, Dict
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+from repro_torch.interop import tree_leaves, tree_map
+
+Params = Any
 
 
 def param_l2_delta(prev_params: Params, new_params: Params) -> float:
-    """Global L2 distance between two parameter dicts.
+    """Global L2 distance between two parameter trees.
 
     Computed on the params' device with one host read per call: each
-    leaf's squared distance is summed in f32 (leaves in sorted-key order,
-    the order ``jax.tree.leaves`` gives the reference), and the per-leaf
-    sums are added in f64 as the reference adds Python floats.
+    leaf's squared distance is summed in f32 (leaves in the order
+    ``jax.tree.leaves`` gives the reference: dict keys sorted at every
+    level), and the per-leaf sums are added in f64 as the reference adds
+    Python floats.
     """
-    names = sorted(prev_params)
-    if sorted(new_params) != names:
-        raise ValueError(f"param dicts differ: {names} vs {sorted(new_params)}")
-    per_leaf = torch.stack([
-        (prev_params[k].float() - new_params[k].float()).square().sum()
-        for k in names])
+    sq = tree_map(lambda a, b: (a.float() - b.float()).square().sum(),
+                  prev_params, new_params)
+    per_leaf = torch.stack(tree_leaves(sq))
     return math.sqrt(per_leaf.double().sum().item())
 
 

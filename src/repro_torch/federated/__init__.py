@@ -1,7 +1,7 @@
 from repro_torch.federated.aggregation import (staleness_alpha,
                                                staleness_mix,
                                                weighted_average)
-from repro_torch.federated.executors import ClassicExecutor
+from repro_torch.federated.executors import ClassicExecutor, LMExecutor
 
 __all__ = ["weighted_average", "staleness_mix", "staleness_alpha",
-           "ClassicExecutor"]
+           "ClassicExecutor", "LMExecutor"]

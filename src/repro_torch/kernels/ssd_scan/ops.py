@@ -1,5 +1,5 @@
-"""Public SSD op (forward only; the backward comes with the training
-slice).
+"""Public SSD op (forward only; the backward comes with the mamba
+training slice, and a CUDA call that would need one raises).
 
 ``ssd`` picks its path from where the tensors lie: on a CUDA device it
 launches the hand-written kernel (``kernel.ssd_fwd``) or raises; on the
@@ -63,6 +63,12 @@ def ssd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
                          f"{kernel.MAX_CHUNK}")
     if not all(t.is_contiguous() for t in (x, da, b_mat, c_mat)):
         raise ValueError("ssd_scan: x, da, b and c must be contiguous")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, da, b_mat, c_mat)):
+        raise NotImplementedError(
+            "ssd_scan: the kernel has no backward yet (it comes with the "
+            "mamba training slice); run the SSD forward-only or through "
+            "the plain ssd_reference")
     bsz, _, h, p = x.shape
     y = torch.empty_like(x)
     final_state = torch.empty(bsz, h, p, b_mat.shape[-1],

@@ -1,0 +1,166 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id> ...``
+
+The port of ``repro.launch.train`` for the LM archs, on the card unless
+``--device cpu``:
+
+  * ``--mode standard`` -- plain synchronous training: a loop of train
+    steps (grad, clip, AdamW) over the synthetic stream of edge 0;
+  * ``--mode ol4el``    -- the paper's edge-cloud loop through
+    ``ELSession``: E simulated edges, per-block intervals chosen by the
+    budget-limited bandit, local blocks of train steps on an
+    ``LMExecutor``, aggregation, budgets charged per the heterogeneous
+    cost model (``run_sync`` or ``run_async(rng_streams="numpy")``,
+    utility ``loss_delta``).
+
+Parameters are the port's random init from a generator seeded with the
+experiment's ``train.seed``.  Classic archs under ``--mode ol4el`` run the
+reference's compiled single-run programs, which the port has not reached:
+they raise (``repro_torch.launch.classic`` builds their host-loop
+fixture).  The reference's mesh, donation, telemetry, scenario, metrics
+and checkpoint flags drive parts the port has not reached and are not
+taken.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.config import get_config, get_smoke_config
+from repro_torch.data import SyntheticLMData
+from repro_torch.device import resolve_device
+from repro_torch.el import ELSession
+from repro_torch.federated import LMExecutor
+from repro_torch.models import build_model
+from repro_torch.train import init_train_state, make_train_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_standard(exp, args) -> dict:
+    """``args.steps`` (default 50) train steps on ``data.batch(0, i)``.
+    Returns the final state, each step's metrics (floats) and its host
+    time, the card synchronised after each step."""
+    dev = resolve_device(args.device)
+    n_steps = args.steps if args.steps is not None else 50
+    model = build_model(exp.model, device=dev)
+    state = init_train_state(
+        model, exp.train,
+        torch.Generator(device=dev).manual_seed(exp.train.seed))
+    data = SyntheticLMData.for_model(exp.model, args.batch, args.seq)
+    step = make_train_step(model, exp.train)
+    history, step_s = [], []
+    for i in range(n_steps):
+        batch = data.batch(0, i, device=dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        _sync(dev)
+        step_s.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if i % args.log_every == 0 or i == n_steps - 1:
+            m = history[-1]
+            print(f"step {i:5d} loss={m['loss']:.4f} lr={m['lr']:.2e} "
+                  f"gnorm={m['grad_norm']:.2f} dt={step_s[-1]:.2f}s",
+                  flush=True)
+    return {"state": state, "metrics": history, "step_s": step_s}
+
+
+def train_ol4el(exp, args):
+    """The host EL loop over an ``LMExecutor``; returns the ``ELReport``."""
+    dev = resolve_device(args.device)
+    model = build_model(exp.model, device=dev)
+    ol = dataclasses.replace(exp.ol4el, n_edges=args.edges,
+                             heterogeneity=args.heterogeneity,
+                             budget=args.budget, mode=args.el_mode,
+                             async_alpha=args.async_alpha,
+                             utility="loss_delta")
+    ex = LMExecutor(model, exp.model, exp.train, batch=args.batch,
+                    seq_len=args.seq, seed=exp.train.seed)
+
+    def progress(rec):
+        if rec.n_aggregations % args.log_every == 0:
+            print(f"agg {rec.n_aggregations:4d} loss={rec.metric:.4f} "
+                  f"interval={rec.interval:.0f} edge={rec.edge} "
+                  f"consumed={rec.total_consumed:.0f}/"
+                  f"{args.edges * args.budget:.0f}", flush=True)
+
+    session = (ELSession(ol, metric_name="loss", lr=exp.train.peak_lr)
+               .with_executor(ex)
+               .on_round(progress))
+    if ol.mode == "sync":
+        report = session.run_sync(
+            max_rounds=args.steps if args.steps is not None else 50)
+    else:
+        # without --steps the event horizon comes from budget / cost, so
+        # the run ends on budget exhaustion; --steps caps it at
+        # steps * edges events
+        if args.steps is not None:
+            print(f"async: --steps caps the run at "
+                  f"{args.steps * args.edges} events (omit --steps to "
+                  "run to budget exhaustion)", flush=True)
+        report = session.run_async(
+            max_events=None if args.steps is None
+            else args.steps * args.edges)
+    print(f"done: {report.n_aggregations} aggregations, "
+          f"final loss {report.final_metric:.4f}, "
+          f"consumed {report.total_consumed:.0f} "
+          f"({report.terminated_reason}); arm pulls {report.arm_pulls}")
+    return report
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced smoke config (CPU-friendly)")
+    ap.add_argument("--mode", default="standard",
+                    choices=["standard", "ol4el"])
+    ap.add_argument("--el-mode", default="async", choices=["sync", "async"])
+    ap.add_argument("--async-alpha", type=float, default=0.5,
+                    help="async staleness-mix base rate (cfg.async_alpha)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="standard/sync: training steps/rounds (default "
+                         "50); async: optional event cap of steps*edges "
+                         "— omitted, the run goes to budget exhaustion")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="sequences per step (default: the experiment's "
+                         "train.global_batch, 8 at full width)")
+    ap.add_argument("--seq", type=int, default=None,
+                    help="tokens per sequence (default: the experiment's "
+                         "train.seq_len, 512 at full width)")
+    ap.add_argument("--edges", type=int, default=4)
+    ap.add_argument("--heterogeneity", type=float, default=4.0)
+    ap.add_argument("--budget", type=float, default=1e5)
+    ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, required)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    exp = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if exp.model.family == "classic":
+        raise NotImplementedError(
+            f"{args.arch}: classic archs train through the compiled "
+            "single-run EL programs, which the port has not reached "
+            "(ROADMAP Queue 1 item 7); repro_torch.launch.classic builds "
+            "their host-loop fixture for ELSession.run_sync / run_async")
+    if args.batch is None:
+        args.batch = exp.train.global_batch
+    if args.seq is None:
+        args.seq = exp.train.seq_len
+    if args.mode == "standard":
+        return train_standard(exp, args)
+    return train_ol4el(exp, args)
+
+
+if __name__ == "__main__":
+    main()

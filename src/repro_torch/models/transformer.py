@@ -1,19 +1,23 @@
 """Decoder-only language model over the ModelConfig space (port of
 ``repro.models.transformer``).
 
-This slice runs the pure-SSM stack: ``(MAMBA, NO_FFN)`` blocks, i.e.
-mamba2-370m.  Attention blocks come with the training/scoring slice
-(``flash_attention``), dense FFNs with the attention slice, MoE with the
-MoE slice; those raise ``NotImplementedError`` naming the slice.
+This port runs two block kinds: ``(MAMBA, NO_FFN)`` (mamba2-370m: forward,
+prefill and decode) and ``(ATTN, DENSE_FFN)`` (qwen3-1.7b: forward and
+``loss``, the training / scoring path, every attention layer through the
+``flash_attention`` kernel on the card).  Attention against a KV cache
+(``prefill`` / ``decode_step`` of attention blocks) comes with the
+attention-serving slice, MoE with the MoE slice; those raise
+``NotImplementedError`` naming the slice.
 
 Parameter and cache trees have the reference's shape, so weights and
 caches carry across (``repro_torch.interop``): the layer pattern splits
 into ``n_groups`` repetitions of a group (a uniform pattern needs no
 unstacked prefix), whose leaves are stacked on a leading ``[n_groups]``
 axis (every LM config sets ``scan_layers``), and the cache holds a scalar
-``index``.  Where the
-reference scans over the stacked groups, the port loops over the leading
-index in Python.
+``index``.  Where the reference scans over the stacked groups, the port
+unbinds them once (one autograd node per leaf, whose backward stacks the
+groups' gradients) and loops in Python; ``cfg.remat`` checkpoints each
+group as ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -21,29 +25,28 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.config import ATTN, DENSE_FFN, MAMBA, MOE_FFN, NO_FFN, \
-    ModelConfig
+from repro_torch.config import ATTN, DENSE_FFN, MOE_FFN, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import Params
 
-_NOT_YET = {
-    ATTN: "attention blocks come with the training/scoring slice "
-          "(flash_attention)",
-    DENSE_FFN: "dense FFN blocks come with the attention slice",
-    MOE_FFN: "MoE blocks come with the MoE slice",
-}
+_MOE = "MoE blocks come with the MoE slice"
+_KV_CACHE = ("attention against a KV cache (prefill / decode) comes with "
+             "the attention-serving slice")
+ATTN_IMPLS = ("kernel", "naive", "blocked", "auto")
 
 
-def _require_ported(kind: str, ffn: str) -> None:
-    for part in (kind, ffn):
-        if part in _NOT_YET:
-            raise NotImplementedError(
-                f"block ({kind}, {ffn}): {_NOT_YET[part]} of the port; "
-                f"this slice runs ({MAMBA}, {NO_FFN}) blocks")
+def _require_ported(kind: str, ffn: str, cache: bool = False) -> None:
+    if ffn == MOE_FFN:
+        raise NotImplementedError(f"block ({kind}, {ffn}): {_MOE} of the "
+                                  "port")
+    if cache and kind == ATTN:
+        raise NotImplementedError(f"block ({kind}, {ffn}): {_KV_CACHE} of "
+                                  "the port")
 
 
 # ---------------------------------------------------------------------------
@@ -86,9 +89,13 @@ def _stack(trees: List[Any]) -> Any:
     return torch.stack(trees)
 
 
-def _take(groups: Any, g: int) -> Any:
-    """Group ``g`` of a stacked (leading-axis) group tree."""
-    return tree_map(lambda a: a[g], groups)
+def _unstack(tree: Any) -> List[Any]:
+    """A stacked (leading-axis) group tree as one tree per group."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][g] for k in tree} for g in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -99,40 +106,57 @@ def _take(groups: Any, g: int) -> Any:
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                ffn: str) -> Params:
     _require_ported(kind, ffn)
-    return {"mix": M.init_mamba(gen, cfg)}
+    p: Params = {"mix": L.init_attention(gen, cfg) if kind == ATTN
+                 else M.init_mamba(gen, cfg)}
+    if ffn == DENSE_FFN:
+        p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str,
+               x: torch.Tensor) -> torch.Tensor:
+    if ffn == DENSE_FFN:
+        h = L.rms_norm(p["ffn"]["norm"], x, cfg.norm_eps)
+        x = x + L.mlp(p["ffn"], h, cfg.act_fn)
+    return x
 
 
 def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
-                x: torch.Tensor, use_ssd_kernel: bool = False
+                x: torch.Tensor, positions: torch.Tensor,
+                attn_impl: str = "auto", use_ssd_kernel: bool = False
                 ) -> torch.Tensor:
     _require_ported(kind, ffn)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
-    return x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
+    if kind == ATTN:
+        x = x + L.attention(p["mix"], cfg, h, positions, impl=attn_impl)
+    else:
+        x = x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
+    return _apply_ffn(p, cfg, ffn, x)
 
 
 def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                      x: torch.Tensor, use_ssd_kernel: bool = False
                      ) -> Tuple[torch.Tensor, Params]:
     """Full-sequence block that also fills the decode cache (prefill)."""
-    _require_ported(kind, ffn)
+    _require_ported(kind, ffn, cache=True)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
                                         use_kernel=use_ssd_kernel)
-    return x + y, cache
+    return _apply_ffn(p, cfg, ffn, x + y), cache
 
 
 def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                        x: torch.Tensor, cache: Params
                        ) -> Tuple[torch.Tensor, Params]:
-    _require_ported(kind, ffn)
+    _require_ported(kind, ffn, cache=True)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
-    return x + y, cache
+    return _apply_ffn(p, cfg, ffn, x + y), cache
 
 
-def init_block_cache(cfg: ModelConfig, kind: str, batch: int,
+def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
                      dtype: torch.dtype, device: torch.device) -> Params:
-    _require_ported(kind, NO_FFN)
+    _require_ported(kind, ffn, cache=True)
     return M.init_mamba_cache(cfg, batch, dtype, device)
 
 
@@ -150,18 +174,34 @@ def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
 class LM:
     """Functional language model: ``params`` tree in, tensors out.
 
-    ``use_ssd_kernel=None`` picks the prefill SSD from the device: the
-    CUDA ``ssd_scan`` kernel on a CUDA device, the plain ``ssd_reference``
-    on the CPU.  An explicit ``False`` runs the plain SSD on the card too,
-    for comparison only.
+    ``attn_impl=None`` picks full-sequence attention from the device: the
+    CUDA ``flash_attention`` kernel (``"kernel"``) on a CUDA device, the
+    reference's ``"auto"`` rule (naive up to 2048 positions, blocked
+    beyond) on the CPU.  ``use_ssd_kernel=None`` picks the prefill SSD
+    likewise: the CUDA ``ssd_scan`` kernel on a CUDA device, the plain
+    ``ssd_reference`` on the CPU.  An explicit value of either runs that
+    path on any device, for comparison only.  ``fused_xent`` (the
+    reference's sharded-vocab loss form) is not ported: the trainer never
+    sets it.
     """
 
-    def __init__(self, cfg: ModelConfig, use_ssd_kernel: Optional[bool] = None,
-                 device: DeviceLike = None):
+    def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
+                 use_ssd_kernel: Optional[bool] = None,
+                 fused_xent: bool = False, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.use_ssd_kernel = (self.device.type == "cuda"
-                               if use_ssd_kernel is None else use_ssd_kernel)
+        on_card = self.device.type == "cuda"
+        if attn_impl is not None and attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; expected "
+                             f"one of {ATTN_IMPLS}")
+        self.attn_impl = (("kernel" if on_card else "auto")
+                          if attn_impl is None else attn_impl)
+        self.use_ssd_kernel = (on_card if use_ssd_kernel is None
+                               else use_ssd_kernel)
+        if fused_xent:
+            raise NotImplementedError(
+                "fused_xent (the reference's sharded-vocab cross-entropy) "
+                "is not ported; LM.loss takes log_softmax")
         self.dtype = getattr(torch, cfg.dtype)
         for kind, ffn in cfg.block_pattern():
             _require_ported(kind, ffn)
@@ -174,7 +214,8 @@ class LM:
                 f"{cfg.name}: the port stacks layer groups; unstacked "
                 "(scan_layers=False) trees are not ported")
         self.prefix, self.group, self.n_groups = layer_groups(cfg)
-        # a uniform pattern (all this slice runs) splits with no prefix
+        # a uniform pattern (all the ported models have) splits with no
+        # prefix
         assert not self.prefix, self.prefix
 
     # -- init ---------------------------------------------------------------
@@ -205,22 +246,58 @@ class LM:
             return x @ params["embed"].to(x.dtype).T
         return x @ params["lm_head"].to(x.dtype)
 
-    # -- forward (scoring / prefill without a cache) -------------------------
+    # -- forward (train / scoring) ------------------------------------------
+
+    def _group_fn(self, p_group: Params, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        for i, (kind, ffn) in enumerate(self.group):
+            x = apply_block(p_group[f"sub{i}"], self.cfg, kind, ffn, x,
+                            positions, self.attn_impl, self.use_ssd_kernel)
+        return x
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 last_only: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
         x = self.embed(params, tokens)
-        for g in range(self.n_groups):
-            p_group = _take(params["groups"], g)
-            for i, (kind, ffn) in enumerate(self.group):
-                x = apply_block(p_group[f"sub{i}"], cfg, kind, ffn, x,
-                                self.use_ssd_kernel)
+        positions = torch.arange(x.shape[1], device=x.device)
+        # remat: keep only each group's input; its activations are
+        # recomputed in the backward (forward-only calls skip it)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for p_group in _unstack(params["groups"]):
+            if remat:
+                x = checkpoint(self._group_fn, p_group, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._group_fn(p_group, x, positions)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
         return self.unembed(params, x), _zero_aux(x.device)
+
+    # -- loss ---------------------------------------------------------------
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy (+ MoE aux, zero for the ported
+        blocks). batch: tokens [B, S]; optional loss_mask [B, S-1]."""
+        tokens = batch["tokens"]
+        logits, aux = self.forward(params, tokens)
+        pred = logits[:, :-1]                               # [B, S-1, V]
+        tgt = tokens[:, 1:].long()
+        logp = torch.log_softmax(pred.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones(nll.shape, dtype=torch.float32,
+                              device=nll.device)
+        else:
+            mask = torch.broadcast_to(mask, nll.shape).float()
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        metrics = {"ce_loss": ce, "loss": ce,
+                   "load_balance_loss": aux["load_balance_loss"],
+                   "router_z_loss": aux["router_z_loss"]}
+        return ce, metrics
 
     # -- serving -------------------------------------------------------------
 
@@ -230,9 +307,9 @@ class LM:
         cache will read it)."""
         del max_len
         cfg = self.cfg
-        groups = [{f"sub{i}": init_block_cache(cfg, kind, batch, self.dtype,
-                                               self.device)
-                   for i, (kind, _) in enumerate(self.group)}
+        groups = [{f"sub{i}": init_block_cache(cfg, kind, ffn, batch,
+                                               self.dtype, self.device)
+                   for i, (kind, ffn) in enumerate(self.group)}
                   for _ in range(self.n_groups)]
         return {"index": torch.zeros((), dtype=torch.int32,
                                      device=self.device),
@@ -243,9 +320,8 @@ class LM:
         """Thread ``x`` through every block with ``block_fn(p, kind, ffn,
         x, c) -> (x, c)``; return x and the new stacked group caches."""
         new_groups = []
-        for g in range(self.n_groups):
-            p_group = _take(params["groups"], g)
-            c_group = _take(cache["groups"], g)
+        for p_group, c_group in zip(_unstack(params["groups"]),
+                                    _unstack(cache["groups"])):
             new_c = {}
             for i, (kind, ffn) in enumerate(self.group):
                 x, new_c[f"sub{i}"] = block_fn(

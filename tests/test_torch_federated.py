@@ -13,7 +13,8 @@ from repro.federated import aggregation as jax_agg  # noqa: E402
 from repro.launch.classic import classic_fixture as jax_fixture  # noqa: E402
 from repro_torch.core import utility as t_utility  # noqa: E402
 from repro_torch.federated import aggregation as t_agg  # noqa: E402
-from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.interop import params_from_numpy, \
+    params_to_numpy  # noqa: E402
 from repro_torch.launch.classic import classic_fixture as t_fixture  # noqa: E402
 
 
@@ -76,6 +77,43 @@ def test_param_l2_delta_and_utility_match_reference():
             snap(params_from_numpy(a, "cpu"), 0.25),
             snap(params_from_numpy(b, "cpu"), 0.5))
         np.testing.assert_allclose(u_port, u_ref, rtol=1e-6)
+
+
+def _nested(n, seed):
+    """LM-shaped trees: stacked groups, nested dicts, keys out of order."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    return [{"groups": {"sub0": {"mix": {"wq": leaf(2, 6, 4),
+                                         "norm": leaf(2, 6)},
+                                 "ffn": {"wo": leaf(2, 5, 6)}}},
+             "embed": leaf(9, 6), "final_norm": leaf(6)} for _ in range(n)]
+
+
+@pytest.mark.parametrize("op", ["weighted_average", "staleness_mix",
+                                "param_l2_delta"])
+def test_nested_trees_match_reference(op):
+    """The LM executor's parameters are nested trees; the reference takes
+    any pytree (``jax.tree.map`` / ``jax.tree.leaves``, keys sorted)."""
+    trees = _nested(3, seed=21)
+    jt = [jax.tree.map(jnp.asarray, t) for t in trees]
+    tt = [params_from_numpy(t, "cpu") for t in trees]
+    if op == "param_l2_delta":
+        np.testing.assert_allclose(t_utility.param_l2_delta(tt[0], tt[1]),
+                                   jax_utility.param_l2_delta(jt[0], jt[1]),
+                                   rtol=1e-6)
+        return
+    if op == "weighted_average":
+        want = jax_agg.weighted_average(jt, [3.0, 1.0, 0.5])
+        got = t_agg.weighted_average(tt, [3.0, 1.0, 0.5])
+    else:
+        want = jax_agg.staleness_mix(jt[0], jt[1], 0.3)
+        got = t_agg.staleness_mix(tt[0], tt[1], 0.3)
+    got_np = params_to_numpy(got)
+    assert jax.tree.structure(got_np) == jax.tree.structure(want)
+    for g, w in zip(jax.tree.leaves(got_np), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(g, np.asarray(w))
 
 
 @pytest.fixture(scope="module", params=["svm-wafer", "kmeans-traffic"])

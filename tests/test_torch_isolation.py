@@ -68,7 +68,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.config import get_smoke_config
     from repro_torch.data import SyntheticLMData
     from repro_torch.interop import params_from_numpy, tree_from_numpy
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.launch.classic import classic_fixture
     from repro_torch.models import LM, build_model
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -87,6 +87,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         SyntheticLMData.for_model(cfg, 2, 8).batch(0, 0)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mamba2-370m", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-1.7b", "--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "qwen3-1.7b", "--smoke", "--mode", "ol4el"])
 
 
 def test_cpu_model_takes_the_plain_ssd_and_cuda_the_kernel(monkeypatch):
@@ -103,6 +107,48 @@ def test_cpu_model_takes_the_plain_ssd_and_cuda_the_kernel(monkeypatch):
               device="cuda").use_ssd_kernel is False
 
 
+def test_cpu_model_takes_plain_attention_and_cuda_the_kernel(monkeypatch):
+    """``attn_impl=None`` resolves from the device: the flash_attention
+    kernel on a CUDA device, the reference's auto rule on the CPU; an
+    explicit value wins."""
+    from repro_torch.config import get_smoke_config
+    from repro_torch.models import LM
+    cfg = get_smoke_config("qwen3-1.7b").model
+    assert LM(cfg, device="cpu").attn_impl == "auto"
+    assert LM(cfg, attn_impl="kernel", device="cpu").attn_impl == "kernel"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert LM(cfg, device="cuda").attn_impl == "kernel"
+    assert LM(cfg, attn_impl="naive", device="cuda").attn_impl == "naive"
+
+
+class FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach an op's card path
+    without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _fake_cuda(*shape, dtype=torch.float32):
+    return torch.zeros(*shape, dtype=dtype).as_subclass(FakeCuda)
+
+
+def test_flash_op_never_runs_the_plain_version_for_a_cuda_tensor(
+        monkeypatch):
+    from repro_torch.kernels.flash_attention import kernel, ops
+    calls = []
+    monkeypatch.setattr(kernel, "flash_fwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(ops, "attention_ref", lambda *a, **k: pytest.fail(
+        "plain attention ran for a CUDA tensor"))
+    monkeypatch.setattr(torch, "empty_like", lambda t: _fake_cuda(*t.shape))
+    before = ops.launches
+    ops.flash_attention(_fake_cuda(1, 64, 4, 64), _fake_cuda(1, 64, 2, 64),
+                        _fake_cuda(1, 64, 2, 64), window=16)
+    assert len(calls) == 1 and ops.launches == before + 1
+    assert calls[0][3:5] == (True, 16)
+
+
 def test_ssd_op_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
     """On a CUDA tensor the op goes to the kernel (or raises): stub the
     launch and check it, not the plain version, is reached."""
@@ -112,13 +158,7 @@ def test_ssd_op_never_runs_the_plain_version_for_a_cuda_tensor(monkeypatch):
     monkeypatch.setattr(ops, "ssd_reference", lambda *a: pytest.fail(
         "plain SSD ran for a CUDA tensor"))
 
-    class FakeCuda(torch.Tensor):
-        @property
-        def device(self):
-            return torch.device("cuda", 0)
-
-    def fake(*shape, dtype=torch.float32):
-        return torch.zeros(*shape, dtype=dtype).as_subclass(FakeCuda)
+    fake = _fake_cuda
     monkeypatch.setattr(torch, "empty_like", lambda t: fake(*t.shape))
     monkeypatch.setattr(torch, "empty", lambda *s, **k: fake(*s))
     before = ops.launches
@@ -138,3 +178,15 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                              env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_ssd_kernel_path_refuses_inputs_that_need_a_gradient(monkeypatch):
+    """The ssd_scan kernel has no backward: a CUDA call that would need
+    one raises instead of returning a constant."""
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    monkeypatch.setattr(kernel, "ssd_fwd", lambda *a: pytest.fail(
+        "launched with inputs that need a gradient"))
+    x = _fake_cuda(1, 64, 2, 16).requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.ssd(x, _fake_cuda(1, 64, 2), _fake_cuda(1, 64, 8),
+                _fake_cuda(1, 64, 8), 32)

@@ -14,6 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.config import get_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.kmeans_assign import ops, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -193,3 +196,96 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
     big = ssd_inputs(1, 128, 1, 256, 256, "float32", 2, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_ops.ssd(*big, 128)
+
+
+# (b, s, h, kv, d, window, dtype): the reference's tests/test_kernels.py
+# FLASH_CASES, then a ragged S, and the training shape (qwen3-1.7b: 16
+# query heads and 8 KV heads of 128, B = 8, S = 512)
+FLASH_CASES = [
+    (1, 128, 4, 4, 64, 0, "float32"),
+    (2, 256, 4, 2, 64, 0, "float32"),
+    (1, 256, 8, 1, 64, 0, "float32"),
+    (1, 128, 4, 4, 128, 0, "float32"),
+    (1, 128, 2, 2, 256, 0, "float32"),
+    (2, 256, 4, 2, 64, 128, "float32"),
+    (1, 256, 4, 4, 64, 64, "float32"),
+    (1, 128, 4, 2, 64, 0, "bfloat16"),
+    (2, 300, 4, 2, 128, 0, "float32"),
+    (2, 300, 4, 2, 64, 100, "bfloat16"),
+    (8, 512, 16, 8, 128, 0, "float32"),
+    (8, 512, 16, 8, 128, 0, "bfloat16"),
+]
+
+
+def flash_inputs(b, s, h, kv, d, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, dtype)
+    return [torch.tensor(rng.standard_normal(shape), dtype=torch.float32
+                         ).to(device, dt)
+            for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
+
+
+def assert_flash_close(out, q, k, v, causal=True, window=0):
+    """Kernel vs plain version, within ``ref.allowed_error`` (the rule
+    ``chip_smoke.py`` holds the kernel to as well)."""
+    want, allowed = fa_ref.allowed_error(q, k, v, causal=causal,
+                                         window=window)
+    err = (out.double() - want).abs()
+    assert bool(torch.isfinite(out).all())
+    assert bool((err <= allowed).all()), \
+        f"off by {float(err.max())}, {int((err > allowed).sum())} beyond"
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,dtype", FLASH_CASES)
+def test_flash_attention_matches_plain(b, s, h, kv, d, window, dtype,
+                                       cuda_device):
+    q, k, v = flash_inputs(b, s, h, kv, d, dtype, s + h + d + window,
+                           cuda_device)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert_flash_close(out, q, k, v, window=window)
+
+
+def test_flash_attention_non_causal_and_empty(cuda_device):
+    q, k, v = flash_inputs(1, 200, 4, 2, 64, "float32", 5, cuda_device)
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert_flash_close(out, q, k, v, causal=False)
+    before = fa_ops.launches
+    empty = fa_ops.flash_attention(q[:0], k[:0], v[:0])
+    assert fa_ops.launches == before and empty.shape == (0, 200, 4, 64)
+
+
+def test_flash_attention_grad_goes_through_the_plain_backward(cuda_device):
+    q, k, v = (t.requires_grad_() for t in flash_inputs(
+        2, 128, 4, 2, 64, "float32", 9, cuda_device))
+    got = torch.autograd.grad(fa_ops.flash_attention(q, k, v).square().sum(),
+                              (q, k, v))
+    want = torch.autograd.grad(fa_ref.attention_ref(q, k, v).square().sum(),
+                               (q, k, v))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
+                                                             monkeypatch):
+    """Over the shared-memory budget (D = 512) or without a kernel instance
+    the op raises; it never gives way to the plain version."""
+    monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **k: pytest.fail(
+        "the plain forward ran for a CUDA tensor"))
+    assert fa_kernel.smem_bytes(512) > fa_kernel.max_smem(0)
+    before = fa_ops.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 512, "float32", 1,
+                                             cuda_device))
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 32, "float32", 1,
+                                             cuda_device))
+    q, k, v = flash_inputs(1, 64, 2, 2, 64, "float32", 1, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v)
+    assert fa_ops.launches == before

@@ -214,7 +214,7 @@ def test_cache_tree_matches_reference():
 
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
-@pytest.mark.parametrize("arch", ["mamba2-370m", "svm-wafer",
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-1.7b", "svm-wafer",
                                   "kmeans-traffic"])
 def test_config_equals_reference_field_for_field(arch, getter):
     port = getattr(port_config, getter)(arch)
@@ -239,15 +239,19 @@ def test_num_params():
 
 
 def test_unported_archs_and_blocks_name_their_slice():
-    with pytest.raises(KeyError, match="flash_attention"):
-        port_config.get_config("qwen3-1.7b")
+    with pytest.raises(KeyError, match="dense-attention slice"):
+        port_config.get_config("minicpm-2b")
     with pytest.raises(KeyError, match="MoE slice"):
         port_config.get_smoke_config("olmoe-1b-7b")
     with pytest.raises(KeyError, match="unknown arch"):
         port_config.get_config("gpt-5")
-    attn = port_config.ModelConfig(n_layers=2)
-    with pytest.raises(NotImplementedError, match="training/scoring slice"):
-        LM(attn, device="cpu")
+    moe = port_config.ModelConfig(n_layers=2, moe=port_config.MoEConfig(
+        num_experts=4, expert_ffn_dim=32))
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        LM(moe, device="cpu")
+    attn = LM(port_config.ModelConfig(n_layers=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="attention-serving slice"):
+        attn.init_cache(2, 8)
 
 
 def test_interop_round_trip_keeps_dtypes():
