@@ -9,7 +9,9 @@ Phases, each printing JSON lines:
 2. build   -- compile every kernel of the port from ``src/repro_torch/csrc``
               with nvcc for sm_90a, one nvcc per source, all at once
               (ptxas report included): ``kmeans_assign``, ``ssd_scan`` and
-              ``flash_attention``;
+              ``flash_attention`` (its bf16 and f32 instances' shared
+              memory, and the tensor-core instructions in each instance's
+              SASS by ``cuobjdump``: the bf16 instance must have some);
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths';
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
@@ -35,7 +37,9 @@ Phases, each printing JSON lines:
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
-              beside the time of one empty launch.
+              beside the time of one empty launch; ``flash_attention``
+              also per instance (bf16 on the tensor cores, f32 on the CUDA
+              cores) at the training shape.
 
 Each path (4, 5, 6, 7) is driven with every kernel's launch count set to 0
 just before it and read just after.  Then the card's name and power limit
@@ -50,6 +54,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -266,7 +271,10 @@ def ssd_vs_plain() -> float:
 # (b, s, h, kv, d, window, dtype name): the reference's kernel-test cases
 # (MQA, windows 128 and 64, D 64/128/256, bf16), ragged S, then the
 # training shape (qwen3-1.7b: 16 query and 8 KV heads of 128, B = 8,
-# S = 512) in f32 and the config's bf16
+# S = 512) in f32 and the config's bf16; then every branch of the bf16
+# (tensor-core) instance: D 64, 128 and 256, GQA groups 1, 2 and 8,
+# S = 17 and 300 (not multiples of its 64-row tiles) and 512, windows of
+# 100 and 64 that start mid-tile
 FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 256, 4, 2, 64, 0, "float32"),
                (1, 256, 8, 1, 64, 0, "float32"),
@@ -278,7 +286,22 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 300, 4, 2, 128, 0, "float32"),
                (2, 300, 4, 2, 64, 100, "bfloat16"),
                (8, 512, 16, 8, 128, 0, "float32"),
-               (8, 512, 16, 8, 128, 0, "bfloat16")]
+               (8, 512, 16, 8, 128, 0, "bfloat16"),
+               (1, 17, 4, 4, 64, 0, "bfloat16"),
+               (2, 17, 16, 2, 128, 0, "bfloat16"),
+               (1, 17, 2, 1, 256, 0, "bfloat16"),
+               (2, 300, 16, 2, 128, 0, "bfloat16"),
+               (1, 300, 4, 2, 256, 0, "bfloat16"),
+               (1, 512, 8, 1, 256, 0, "bfloat16"),
+               (2, 512, 4, 4, 64, 0, "bfloat16"),
+               (1, 512, 8, 4, 128, 100, "bfloat16"),
+               (2, 300, 4, 4, 128, 64, "bfloat16"),
+               (1, 512, 4, 2, 256, 64, "bfloat16")]
+# the same fields, causal=False: the bf16 instance without the causal
+# bound, ragged, and with a window that starts mid-tile
+FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
+                    (2, 17, 8, 1, 64, 0, "bfloat16"),
+                    (1, 300, 4, 1, 64, 100, "bfloat16")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
 
 
@@ -297,14 +320,17 @@ def flash_vs_plain() -> float:
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     main_err = 0.0
-    for i, case in enumerate(FLASH_CASES):
+    cases = [(c, True) for c in FLASH_CASES] + \
+        [(c, False) for c in FLASH_NON_CAUSAL]
+    for i, (case, causal) in enumerate(cases):
         b, s, h, kv, d, window, dt = case
         q, k, v = flash_inputs(b, s, h, kv, d, dt, seed=200 + i)
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want, allowed = ref.allowed_error(q, k, v, window=window)
+        want, allowed = ref.allowed_error(q, k, v, causal=causal,
+                                          window=window)
         exact = ref.attention_ref(q.double(), k.double(), v.double(),
-                                  window=window).double()
+                                  causal=causal, window=window).double()
         err = (out.double() - want).abs()
         res = {"max_abs_err": float(err.max()),
                "beyond_allowed": int((err > allowed).sum()),
@@ -312,11 +338,11 @@ def flash_vs_plain() -> float:
                "plain_vs_f64": float((want - exact).abs().max()),
                "finite": bool(torch.isfinite(out).all())}
         emit("kernel_vs_plain", kernel="flash_attention", b=b, s=s, h=h,
-             kv=kv, d=d, window=window, dtype=dt,
+             kv=kv, d=d, window=window, causal=causal, dtype=dt,
              tol=ref.tolerance(q.dtype), **res)
         check(res["finite"] and res["beyond_allowed"] == 0,
-              f"flash_attention off at {case}: {res}")
-        if case == FLASH_MAIN:
+              f"flash_attention off at {case}, causal={causal}: {res}")
+        if causal and case == FLASH_MAIN:
             main_err = res["max_abs_err"]
     return main_err
 
@@ -941,7 +967,8 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
 def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's, the
     library's (SDPA; timed here as a yardstick, never called by the port)
-    and its bound."""
+    and its bound (bf16 operations at the tensor cores' rate, f32 at the
+    CUDA cores', as each instance runs)."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v = flash_inputs(b, s, h, kv, d, dtype_name, seed=13)
@@ -969,8 +996,32 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     return out
 
 
+def flash_sass_census(library: Path) -> dict:
+    """Tensor-core instructions in each ``flash_attention`` instance's SASS
+    (``cuobjdump -sass`` on the built library): HMMA is ``mma.sync``,
+    HGMMA ``wgmma``."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()}")
+    census, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_attention_kernel_(\w+?)ILi(\d+)E", line)
+            name = f"{m.group(1)}<D={m.group(2)}>" if m else None
+            if name:
+                census[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                census[name][op.group(1)] += 1
+    return census
+
+
 def build_all() -> None:
     """Compile every kernel's source at once (one nvcc each), then load."""
+    import torch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
@@ -981,15 +1032,20 @@ def build_all() -> None:
         paths = dict(zip(kernels, pool.map(lambda k: k.library_path(),
                                            kernels.values())))
     seconds = time.perf_counter() - t0
+    census = flash_sass_census(paths["flash_attention"])
     # ptxas reports static shared memory only; these two use dynamic
-    smem = {"ssd_scan": {
+    extra = {"ssd_scan": {
         "dynamic_smem_bytes_at_P64_N128_L128": ssd_kernel.smem_bytes(
             64, 128, 128),
         "dynamic_smem_limit": ssd_kernel.max_smem(0)},
         "flash_attention": {
-        "dynamic_smem_bytes_at_D128": fa_kernel.smem_bytes(128),
-        "dynamic_smem_bytes_at_D256": fa_kernel.smem_bytes(256),
-        "dynamic_smem_limit": fa_kernel.max_smem(0)}}
+        "dynamic_smem_bytes": {
+            str(dt).removeprefix("torch."): {
+                f"D={d}": fa_kernel.smem_bytes(d, dt)
+                for d in fa_kernel.HEAD_DIMS}
+            for dt in (torch.bfloat16, torch.float32)},
+        "dynamic_smem_limit": fa_kernel.max_smem(0),
+        "sass_tensor_core_instructions": census}}
     for name, mod in kernels.items():
         mod.library()
         log_path = paths[name].with_suffix(".log")
@@ -997,8 +1053,14 @@ def build_all() -> None:
         emit("build", kernel=name, seconds=seconds,
              library=str(paths[name].relative_to(ROOT)),
              ptxas=[ln.strip() for ln in log.splitlines()
-                    if "ptxas info" in ln and "Compile time" not in ln],
-             **smem.get(name, {}))
+                    if ("ptxas info" in ln or "spill" in ln)
+                    and "Compile time" not in ln],
+             **extra.get(name, {}))
+    for d in fa_kernel.HEAD_DIMS:
+        counts = census.get(f"bf16<D={d}>", {})
+        check(counts.get("HMMA", 0) + counts.get("HGMMA", 0) > 0,
+              f"flash_attention bf16 at D={d}: no tensor-core instruction "
+              f"in its SASS: {census}")
 
 
 def main() -> None:
@@ -1031,6 +1093,15 @@ def main() -> None:
     emit("ssd_timing", **ssd)
     fa = flash_timing(*FLASH_MAIN)
     emit("flash_timing", **fa)
+    fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
+    emit("flash_timing", **fa32)
+    instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "bound_by")
+    fa_instances = {
+        "bfloat16": {"cores": "tensor (mma.sync)",
+                     **{k: fa[k] for k in instance_keys}},
+        "float32": {"cores": "CUDA (f32 FMA)",
+                    **{k: fa32[k] for k in instance_keys}}}
     # an empty kernel queued the same way: what a launch alone costs
     launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), queued=True)
     print(json.dumps({"kernels": [{
@@ -1059,7 +1130,8 @@ def main() -> None:
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
-        "launch_floor_ms": launch_floor_ms, "shapes": [fa]}]}),
+        "instances": fa_instances,
+        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,40 +18,99 @@
 // l = alpha l + sum_j p_j, acc = alpha acc + sum_j p_j v_j, and at the end
 // o = acc / max(l, 1e-30), written in q's dtype. As in the TPU kernel, p is
 // rounded to v's dtype before the PV product (l sums the unrounded p), and
-// every product accumulates in f32 with plain FMAs (no TF32, no fast-math
-// exp). Masked keys get p = 0 and the -1e30 sentinel in the max.
+// every product accumulates in f32. Masked keys get p = 0 and the -1e30
+// sentinel in the max: a row whose keys in a tile are all masked must add
+// nothing, which exp(-1e30 - m) gives only once m is a real logit.
 //
-// Design. One block of 256 threads per (b, h, tile of 64 query rows): the
-// TPU grid's sequential KV axis becomes the loop inside the block. The
-// block stages its query tile once, then per tile of 32 keys stages K and
-// V (all in f32, converted on load) and computes its [64, 32] logits as a
-// 16 x 16 grid of threads, each owning 4 rows x 2 columns in registers;
-// the 16 threads of a row group are one half-warp, so row max and row sum
-// are shuffles. The probabilities go through shared memory to the PV
-// product, where each thread owns the same 4 rows x D/16 columns of the
-// output accumulator in registers. Only live tiles are visited: keys up to
-// the tile's last row (causal) and from its first row's window start. The
-// TPU grid walks every S/128 block; skipping dead ones changes nothing,
-// because every row keeps its diagonal. Ragged S is masked (rows past S
-// are computed on zero queries and never stored, keys past S get p = 0),
-// so any S works. Blocks are numbered heaviest query tile first, so the
-// long causal rows start early and the short ones fill in at the end.
-// Rows of the query and key tiles are padded to D + 1 floats and those of
-// the probabilities to 33, so a warp's reads hit distinct banks or
-// broadcast. Shared memory is 4 (64 (D+1) + 32 (D+1) + 32 D + 64 * 33)
-// bytes: 41,600 at D = 64, 74,368 at D = 128 (three blocks per SM),
-// 139,904 at D = 256; the wrapper checks the budget and raises beyond it.
-// Instances exist for D = 64, 128 and 256.
+// Both instances share the TPU grid's shape: one block per (b, h, tile of
+// 64 query rows), numbered heaviest causal tile first, with the TPU grid's
+// sequential KV axis as the loop inside the block. Only live key tiles are
+// visited: keys up to the tile's last row (causal) and from its first
+// row's window start. The TPU grid walks every S/128 block; skipping dead
+// ones changes nothing, because every row keeps its diagonal. Ragged S is
+// masked (rows past S are computed on zero queries and never stored, keys
+// past S get p = 0), so any S works. Instances exist for D = 64, 128 and
+// 256; the wrapper checks each one's shared-memory budget and raises
+// beyond it. flash_attention_launch dispatches on the dtype code: bf16 runs
+// the tensor-core kernel, f32 the CUDA-core kernel.
 //
 // What bounds it on an H100: at the training shape (B = 8, S = 512,
 // H = 16, KV = 8, D = 128, bf16) one call must move q, k, v and o once,
 // 50.3 MB (3.35 TB/s: 15.0 us), and do 4 B H D S (S + 1) / 2 = 8.6 GFLOP
 // on the causal triangle (989 TFLOP/s of bf16 on the tensor cores: 8.7
-// us). So the card's bound is bytes. This simple design runs every product
-// on the CUDA cores in f32 (67 TFLOP/s) with about one shared-memory load
-// per two FMAs, so shared-memory bandwidth and the FMA pipes bound it, far
-// above that: tensor cores (wgmma on bf16 tiles), TMA loads and a
-// producer warp are the later work that closes the gap.
+// us). So the card's bound is bytes.
+//
+// bf16 instance: tensor cores (flash_attention_kernel_bf16)
+// ---------------------------------------------------------
+// The FlashAttention-2 shape on mma.sync. 128 threads, 4 warps; each warp
+// owns 16 query rows of the block's 64 for the whole key loop, so no
+// barrier guards the softmax state.
+// - Staging. The Q tile [64, D] and K/V tiles [64, D] stay bf16 in shared
+//   memory, copied by cp.async.cg in 16-byte chunks; rows past S are
+//   zero-filled (src-size 0), so ragged S needs no padding. K and V are
+//   double-buffered: tile t + 1 is in flight while tile t is computed
+//   (commit_group / wait_group, then the barrier that hands the stage
+//   over; a second barrier at the end of the tile frees its stage for the
+//   next copy). Rows are padded to D + 8 halves, so the eight 16-byte rows
+//   one ldmatrix phase reads fall in distinct bank groups. Shared memory is
+//   2 (D + 8)(64 + 2 * 2 * 64) bytes: 46,080 at D = 64, 87,040 at D = 128
+//   (two blocks per SM), 168,960 at D = 256.
+// - S = QK^T by mma.sync.m16n8k16 (bf16 in, f32 accumulate): A fragments
+//   from Q by ldmatrix.x4, held in registers for the whole loop at
+//   D <= 128; B fragments from K by ldmatrix.x4 (non-transposed), two key
+//   tiles of 8 per load. A warp's [16, 64] logits are 32 f32 registers a
+//   thread. At D = 256 the output accumulator alone takes 128, so there Q
+//   is re-read from shared memory per k-step and each 64-key stage is
+//   consumed as two softmax steps of 32 keys (16 registers of logits).
+// - Online softmax on the accumulator fragments. Each thread holds two
+//   rows (g and g + 8 of its warp's 16) at 16 keys each; the four threads
+//   of a quad share a row, so the row max is two __shfl_xor_sync and the
+//   row sum one thread-partial l per row, summed over the quad at the end
+//   (alpha is uniform over the quad, so the partials rescale alike).
+//   log2 e is folded into the scale and every exp is exp2f: s is scaled in
+//   f32 by scale * log2 e, p = exp2f(s - m), alpha = exp2f(m - m'), the
+//   same function as exp(scale s - m) up to exp2f's rounding. Only the
+//   tiles that need it are masked (the causal diagonal, a window's first
+//   tiles, the ragged tail); there a bit per key keeps p = 0 explicit.
+//   l sums the unrounded f32 p.
+// - PV by mma.sync as well: the logits' accumulators, rounded to bf16
+//   pairs in registers (the TPU kernel's p.astype(v.dtype)), are the A
+//   fragments directly (two adjacent n8 C-tiles are one k16 A-tile), so P
+//   never touches memory; B fragments from V by ldmatrix.x4.trans. The
+//   output accumulator is 16 x D f32 per warp: D / 2 registers a thread.
+// - Epilogue: o = acc / max(l, 1e-30) rounded to bf16, staged through the
+//   warp's own Q rows in shared memory, stored as 16-byte chunks; rows past
+//   S are not stored.
+// Against the bound: every product runs on the tensor cores (no f32
+// widening, no shared-memory round trip of P, 64-key tiles: 8 rescales of
+// a 512-key row). mma.sync reaches a part of the 989 TFLOP/s that wgmma
+// reaches, the diagonal tiles compute their masked half, and the blocks'
+// loads are not warp-specialised; wgmma, TMA and a producer warp are the
+// later work if it still trails the library.
+// ptxas (CUDA 12.9, sm_90a), as chip_smoke.py's build phase prints it:
+// 168 registers at D = 64 and 236 at D = 128, no spills; 255 at D = 256
+// with 48 bytes spilled. Softmax steps of 16 keys at D = 256 spill the
+// same 48 bytes and ran 4-8% slower on an H100, so the 32-key steps stay
+// (PERF.md).
+//
+// f32 instance: CUDA cores (flash_attention_kernel_f32)
+// -----------------------------------------------------
+// Tensor cores take f32 only as TF32, which the port's f32 parity tier
+// forbids, so f32 keeps a CUDA-core design: one block of 256 threads per
+// query tile stages its query tile once, then per tile of 32 keys stages K
+// and V and computes its [64, 32] logits as a 16 x 16 grid of threads,
+// each owning 4 rows x 2 columns in registers; the 16 threads of a row
+// group are one half-warp, so row max and row sum are shuffles. The
+// probabilities go through shared memory to the PV product, where each
+// thread owns the same 4 rows x D/16 columns of the output accumulator in
+// registers. Products are plain f32 FMAs and exps are expf (no TF32, no
+// fast-math exp). Rows of the query and key tiles are padded to D + 1
+// floats and those of the probabilities to 33, so a warp's reads hit
+// distinct banks or broadcast. Shared memory is
+// 4 (64 (D+1) + 32 (D+1) + 32 D + 64 * 33) bytes: 41,600 at D = 64,
+// 74,368 at D = 128, 139,904 at D = 256. It is bound by shared-memory
+// bandwidth and the FMA pipes (67 TFLOP/s of f32), far above the card's
+// bound.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,34 +118,36 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// -- f32 instance: CUDA cores ---------------------------------------------
+
+namespace f32 {
+
 constexpr int kThreads = 256;
 constexpr int kBlockQ = 64;            // query rows per block (BLOCK_Q)
 constexpr int kBlockK = 32;            // keys per tile (BLOCK_K)
 constexpr int kRows = kBlockQ / 16;    // query rows per thread
 constexpr int kCols = kBlockK / 16;    // key columns per thread
 constexpr int kP1 = kBlockK + 1;       // padded row stride of the p tile
-constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// p rounded to the dtype of v, as the TPU kernel casts it before PV
-__device__ __forceinline__ float round_like(float v, float) { return v; }
-__device__ __forceinline__ float round_like(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t(kBlockQ) * (D + 1) + size_t(kBlockK) * (D + 1)
+                          + size_t(kBlockK) * D + size_t(kBlockQ) * kP1);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           int batch, int seqlen, int heads, int kv_heads,
-                           int causal, int window, float scale) {
+}  // namespace f32
+
+template <int D>
+__global__ void __launch_bounds__(f32::kThreads)
+    flash_attention_kernel_f32(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o, int batch, int seqlen,
+                               int heads, int kv_heads, int causal,
+                               int window, float scale) {
+  using namespace f32;
   constexpr int kD1 = D + 1;           // padded row stride: q, k tiles
   constexpr int kDCols = D / 16;       // output columns per thread
   extern __shared__ float smem[];
@@ -110,15 +171,16 @@ __global__ void __launch_bounds__(kThreads)
 
   const long long q_step = (long long)heads * D;      // between positions
   const long long kv_step = (long long)kv_heads * D;
-  const T* qb = q + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
-  const T* kb = k + (long long)b * seqlen * kv_step + (long long)kvh * D;
-  const T* vb = v + (long long)b * seqlen * kv_step + (long long)kvh * D;
-  T* ob = o + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
+  const float* qb = q + ((long long)b * seqlen + q0) * q_step
+                    + (long long)h * D;
+  const float* kb = k + (long long)b * seqlen * kv_step + (long long)kvh * D;
+  const float* vb = v + (long long)b * seqlen * kv_step + (long long)kvh * D;
+  float* ob = o + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
 
   for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
-    qs[r * kD1 + c] = r < q_rows ? to_f32(qb[r * q_step + c]) : 0.f;
+    qs[r * kD1 + c] = r < q_rows ? qb[r * q_step + c] : 0.f;
   }
 
   // live keys: [kv_begin, kv_end)
@@ -144,8 +206,8 @@ __global__ void __launch_bounds__(kThreads)
       const int r = idx / D;
       const int c = idx - r * D;
       const bool in = r < k_rows;
-      ks[r * kD1 + c] = in ? to_f32(kb[(k0 + r) * kv_step + c]) : 0.f;
-      vs[r * D + c] = in ? to_f32(vb[(k0 + r) * kv_step + c]) : 0.f;
+      ks[r * kD1 + c] = in ? kb[(k0 + r) * kv_step + c] : 0.f;
+      vs[r * D + c] = in ? vb[(k0 + r) * kv_step + c] : 0.f;
     }
     __syncthreads();
 
@@ -191,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kCols; ++j) {
         const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         row_sum += p;
-        ps[(ty + 16 * i) * kP1 + tx + 16 * j] = round_like(p, T());
+        ps[(ty + 16 * i) * kP1 + tx + 16 * j] = p;
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -225,74 +287,402 @@ __global__ void __launch_bounds__(kThreads)
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < kDCols; ++c)
-        store(ob + r * q_step + tx + 16 * c, acc[i][c] / denom);
+        ob[r * q_step + tx + 16 * c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int seqlen, int heads, int kv_heads, int causal, int window,
-           float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t(kBlockQ) * (D + 1) +
-                                       size_t(kBlockK) * (D + 1) +
-                                       size_t(kBlockK) * D +
-                                       size_t(kBlockQ) * kP1);
+// -- bf16 instance: tensor cores ------------------------------------------
+
+namespace bf16 {
+
+using T = __nv_bfloat16;
+constexpr int kThreads = 128;          // 4 warps, 16 query rows each
+constexpr int kBlockQ = 64;            // query rows per block (BLOCK_Q)
+constexpr int kBlockK = 64;            // keys per tile (BLOCK_K)
+constexpr int kPad = 8;                // halves of padding per smem row
+constexpr int kStages = 2;             // K/V buffers in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * size_t(D + kPad) * (kBlockQ + 2 * kStages * kBlockK);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !in
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to a bf16 pair, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// Copy rows [0, 64) of a [*, row_step] bf16 array into a [64, D + 8] tile,
+// one 16-byte cp.async per chunk; rows >= n_valid are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
+                                          long long row_step, int n_valid,
+                                          int tid) {
+  constexpr int kChunks = D / 8;                 // 16-byte chunks per row
+  static_assert(kBlockQ == kBlockK, "one tile loader for Q, K and V");
+#pragma unroll
+  for (int i = 0; i < kBlockK * kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const bool in = r < n_valid;
+    cp_async16(dst + (r * (D + kPad) + ch * 8) * sizeof(T),
+               src + (in ? r * row_step + ch * 8 : 0), in);
+  }
+}
+
+// One tile's online-softmax update on the logits' fragments. s[j][2 half +
+// e] holds row g + 8 half, key k0 + 8 j + 2 tig + e; on return it holds p.
+template <int D, int kNT, bool kMask>
+__device__ __forceinline__ void softmax_update(
+    float (&s)[kNT][4], float (&m)[2], float (&l)[2],
+    float (&acc)[D / 8][4], float scale_log2, int row0, int k0, int seqlen,
+    int causal, int window, int tig) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int qi = row0 + 8 * half;
+    uint32_t live = 0;                  // bit 2 j + e: key counts
+    float row_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * half + e];
+        if (kMask) {
+          const int kj = k0 + 8 * j + 2 * tig + e;
+          const bool ok = kj < seqlen && (!causal || kj <= qi) &&
+                          (window <= 0 || kj > qi - window);
+          live |= uint32_t(ok) << (2 * j + e);
+          x = ok ? x * scale_log2 : kNegInf;
+        } else {
+          x *= scale_log2;
+        }
+        row_max = fmaxf(row_max, x);
+      }
+    // the four threads of a quad share the row
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
+    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 2));
+    const float m_new = fmaxf(m[half], row_max);
+    const float alpha = exp2f(m[half] - m_new);
+    float row_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[j][2 * half + e];
+        x = (!kMask || (live >> (2 * j + e)) & 1u) ? exp2f(x - m_new) : 0.f;
+        row_sum += x;
+      }
+    l[half] = l[half] * alpha + row_sum;     // this thread's part of the row
+    m[half] = m_new;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      acc[c][2 * half] *= alpha;
+      acc[c][2 * half + 1] *= alpha;
+    }
+  }
+}
+
+}  // namespace bf16
+
+template <int D>
+__global__ void __launch_bounds__(bf16::kThreads)
+    flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o, int batch,
+                                int seqlen, int heads, int kv_heads,
+                                int causal, int window, float scale) {
+  using namespace bf16;
+  constexpr int kS = D + kPad;             // smem row stride, halves
+  constexpr int kTile = kBlockK * kS;      // halves per K or V stage
+  constexpr int kKSteps = D / 16;          // k16 steps of QK^T
+  constexpr int kSubK = D > 128 ? 32 : 64; // keys per softmax step
+  constexpr int kNT = kSubK / 8;           // n8 key tiles of S
+  constexpr int kDT = D / 8;               // n8 column tiles of O
+  constexpr int kChunks = D / 8;           // 16-byte chunks per row
+  constexpr bool kQRegs = D <= 128;        // Q fragments kept in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [kBlockQ, kS]
+  const uint32_t qs_a = smem_addr(qs);
+  const uint32_t ks_a = qs_a + kBlockQ * kS * sizeof(T);    // [2][kBlockK, kS]
+  const uint32_t vs_a = ks_a + kStages * kTile * sizeof(T); // [2][kBlockK, kS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;                 // fragment row group
+  const int tig = lane & 3;                // thread in group
+  const int bh_count = batch * heads;
+  const int n_q = (seqlen + kBlockQ - 1) / kBlockQ;
+  const int bh = blockIdx.x % bh_count;
+  const int qt = n_q - 1 - blockIdx.x / bh_count;   // heaviest tile first
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = qt * kBlockQ;
+  const int q_rows = min(kBlockQ, seqlen - q0);
+
+  const long long q_step = (long long)heads * D;      // between positions
+  const long long kv_step = (long long)kv_heads * D;
+  const T* qb = q + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
+  const T* kb = k + (long long)b * seqlen * kv_step + (long long)kvh * D;
+  const T* vb = v + (long long)b * seqlen * kv_step + (long long)kvh * D;
+  T* ob = o + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
+
+  // live keys: [kv_begin, kv_end)
+  const int kv_end = causal ? q0 + q_rows : seqlen;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = kv_begin / kBlockK;
+  const int t_end = (kv_end + kBlockK - 1) / kBlockK;
+
+  // group 0: the Q tile and the first K/V tile
+  load_tile<D>(qs_a, qb, q_step, q_rows, tid);
+  {
+    const int k0 = t_begin * kBlockK;
+    load_tile<D>(ks_a, kb + k0 * kv_step, kv_step, seqlen - k0, tid);
+    load_tile<D>(vs_a, vb + k0 * kv_step, kv_step, seqlen - k0, tid);
+  }
+  cp_async_commit();
+
+  // each lane's ldmatrix row address within a tile (bytes): Q's A tile
+  // (rows 0-15, depth halves 0/8), K's two n8 key tiles (keys 0-7 / 8-15,
+  // depth 0/8) and V's two n8 column tiles (keys 0-7 / 8-15, columns 0/8)
+  const uint32_t q_off =
+      ((warp * 16 + (lane & 15)) * kS + (lane >> 4) * 8) * sizeof(T);
+  const uint32_t k_off =
+      (((lane & 7) + ((lane >> 4) << 3)) * kS + ((lane >> 3) & 1) * 8) *
+      sizeof(T);
+  const uint32_t v_off =
+      (((lane & 7) + (((lane >> 3) & 1) << 3)) * kS + (lane >> 4) * 8) *
+      sizeof(T);
+
+  uint32_t qf[kQRegs ? kKSteps : 1][4];
+  float acc[kDT][4];
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < kDT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.f;
+  const int row0 = q0 + warp * 16 + g;     // this thread's rows: +0, +8
+  const float scale_log2 = scale * kLog2e;
+
+  for (int t = t_begin, stage = 0; t < t_end; ++t, stage ^= 1) {
+    if (t + 1 < t_end) {                   // prefetch tile t + 1
+      const int k1 = (t + 1) * kBlockK;
+      const uint32_t off = (stage ^ 1) * kTile * sizeof(T);
+      load_tile<D>(ks_a + off, kb + k1 * kv_step, kv_step, seqlen - k1, tid);
+      load_tile<D>(vs_a + off, vb + k1 * kv_step, kv_step, seqlen - k1, tid);
+      cp_async_commit();
+      cp_async_wait<1>();                  // all but tile t + 1 arrived
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                       // tile t visible to every warp
+    if (kQRegs && t == t_begin) {
+#pragma unroll
+      for (int kk = 0; kk < (kQRegs ? kKSteps : 1); ++kk)
+        ldmatrix_x4(qf[kk], qs_a + q_off + kk * 16 * sizeof(T));
+    }
+    const uint32_t kt = ks_a + stage * kTile * sizeof(T);
+    const uint32_t vt = vs_a + stage * kTile * sizeof(T);
+
+#pragma unroll 1
+    for (int sub = 0; sub < kBlockK / kSubK; ++sub) {
+      const int k0 = t * kBlockK + sub * kSubK;
+      const uint32_t kst = kt + sub * kSubK * kS * sizeof(T);
+      const uint32_t vst = vt + sub * kSubK * kS * sizeof(T);
+
+      // S = Q K^T, [16, kSubK] per warp
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t a[4];
+        if (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kQRegs ? kk : 0][e];
+        } else {
+          ldmatrix_x4(a, qs_a + q_off + kk * 16 * sizeof(T));
+        }
+#pragma unroll
+        for (int jp = 0; jp < kNT / 2; ++jp) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, kst + k_off + (jp * 16 * kS + kk * 16) * sizeof(T));
+          mma(s[2 * jp], a, bk[0], bk[1]);
+          mma(s[2 * jp + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      const bool need_mask = (causal && k0 + kSubK - 1 > q0) ||
+                             (window > 0 && k0 <= q0 + kBlockQ - 1 - window) ||
+                             k0 + kSubK > seqlen;
+      if (need_mask)
+        softmax_update<D, kNT, true>(s, m, l, acc, scale_log2, row0, k0,
+                                     seqlen, causal, window, tig);
+      else
+        softmax_update<D, kNT, false>(s, m, l, acc, scale_log2, row0, k0,
+                                      seqlen, causal, window, tig);
+
+      // O += P V: P's bf16 pairs are the A fragments (C tiles 2kk, 2kk + 1)
+#pragma unroll
+      for (int kk = 0; kk < kSubK / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int dp = 0; dp < kDT / 2; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(
+              bv, vst + v_off + (kk * 16 * kS + dp * 16) * sizeof(T));
+          mma(acc[2 * dp], a, bv[0], bv[1]);
+          mma(acc[2 * dp + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();                       // stage free for tile t + 2
+  }
+
+  // o = acc / max(l, 1e-30) in bf16, staged through this warp's Q rows
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float denom = fmaxf(sum, 1e-30f);
+    T* row = qs + (warp * 16 + g + 8 * half) * kS + 2 * tig;
+#pragma unroll
+    for (int c = 0; c < kDT; ++c)
+      *reinterpret_cast<uint32_t*>(row + 8 * c) =
+          pack_bf16(acc[c][2 * half] / denom, acc[c][2 * half + 1] / denom);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * kChunks / 32; ++i) {
+    const int c = lane + 32 * i;
+    const int r = warp * 16 + c / kChunks;
+    const int ch = c % kChunks;
+    if (r < q_rows)
+      *reinterpret_cast<uint4*>(ob + r * q_step + ch * 8) =
+          *reinterpret_cast<const uint4*>(qs + r * kS + ch * 8);
+  }
+}
+
+// -- launch ---------------------------------------------------------------
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int batch, seqlen, heads, kv_heads, causal, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename Kernel>
+int launch(Kernel kernel, size_t smem, int threads, int block_q,
+           const Args& a) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int n_q = (seqlen + kBlockQ - 1) / kBlockQ;
-  flash_attention_kernel<T, D><<<batch * heads * n_q, kThreads, smem,
-                                 stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), batch, seqlen, heads,
-      kv_heads, causal, window, scale);
+  const int n_q = (a.seqlen + block_q - 1) / block_q;
+  kernel<<<a.batch * a.heads * n_q, threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.batch, a.seqlen,
+      a.heads, a.kv_heads, a.causal, a.window, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dtype(const void* q, const void* k, const void* v, void* o,
-                 int batch, int seqlen, int heads, int kv_heads,
-                 int head_dim, int causal, int window, float scale,
-                 cudaStream_t stream) {
-  switch (head_dim) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, batch, seqlen, heads, kv_heads,
-                           causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, batch, seqlen, heads, kv_heads,
-                            causal, window, scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, batch, seqlen, heads, kv_heads,
-                            causal, window, scale, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_dim(const Args& a, int dtype) {
+  if (dtype == 0)
+    return launch<float>(flash_attention_kernel_f32<D>, f32::smem_bytes<D>(),
+                         f32::kThreads, f32::kBlockQ, a);
+  return launch<bf16::T>(flash_attention_kernel_bf16<D>,
+                         bf16::smem_bytes<D>(), bf16::kThreads,
+                         bf16::kBlockQ, a);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it). All tensors
-// contiguous; heads % kv_heads == 0; head_dim 64, 128 or 256; causal 0/1;
-// window <= 0 for none. Returns the cudaError_t of the launch (0 = ok).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v
+// and o share it. All tensors contiguous; heads % kv_heads == 0; head_dim
+// 64, 128 or 256; causal 0/1; window <= 0 for none. Returns the
+// cudaError_t of the launch (0 = ok).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int batch, int seqlen, int heads,
                            int kv_heads, int head_dim, int causal, int window,
                            float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kv_heads <= 0 || heads % kv_heads != 0)
+  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_dtype<float>(q, k, v, o, batch, seqlen, heads, kv_heads,
-                               head_dim, causal, window, scale, s);
-  if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(q, k, v, o, batch, seqlen, heads,
-                                       kv_heads, head_dim, causal, window,
-                                       scale, s);
+  const Args a{q,     k,        v,      o,      batch, seqlen,
+               heads, kv_heads, causal, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  switch (head_dim) {
+    case 64: return launch_dim<64>(a, dtype);
+    case 128: return launch_dim<128>(a, dtype);
+    case 256: return launch_dim<256>(a, dtype);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

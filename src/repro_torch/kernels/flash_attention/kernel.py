@@ -1,10 +1,11 @@
 """ctypes binding of the Hopper flash-attention kernel.
 
 The kernel itself is CUDA C++ in ``repro_torch/csrc/flash_attention.cu``
-(see its header for the design and what bounds it); this module builds it
-on first use, declares its C signature, checks a shape's shared-memory
-budget and launches it.  Shape and dtype checks live in the ``ops``
-wrapper.
+(see its header for the design and what bounds it), in two instances that
+its entry point picks by dtype: bf16 on the tensor cores (``mma.sync``),
+f32 on the CUDA cores.  This module builds it on first use, declares its
+C signature, checks a shape's shared-memory budget and launches it.
+Shape and dtype checks live in the ``ops`` wrapper.
 """
 
 from __future__ import annotations
@@ -19,8 +20,10 @@ from repro_torch.kernels import _build
 
 SOURCES = ("flash_attention.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_Q = 64                   # query rows per block (the .cu's kBlockQ)
-BLOCK_K = 32                   # key rows per tile (the .cu's kBlockK)
+# per instance, as the .cu's kBlockQ / kBlockK: query rows per block, key
+# rows per tile
+BLOCK_Q = {torch.float32: 64, torch.bfloat16: 64}
+BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
 HEAD_DIMS = (64, 128, 256)     # the head dims the .cu is instantiated for
 
 
@@ -51,12 +54,17 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{err} ({msg})")
 
 
-def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block, as the .cu lays it out, all
-    f32: the query tile [BLOCK_Q, D+1], a key tile [BLOCK_K, D+1], a value
-    tile [BLOCK_K, D] and the probabilities [BLOCK_Q, BLOCK_K+1]."""
-    return 4 * (BLOCK_Q * (d + 1) + BLOCK_K * (d + 1) + BLOCK_K * d
-                + BLOCK_Q * (BLOCK_K + 1))
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block, as the .cu lays it out for
+    ``dtype``'s instance.  f32 (CUDA cores), all f32: the query tile
+    [BLOCK_Q, D+1], a key tile [BLOCK_K, D+1], a value tile [BLOCK_K, D]
+    and the probabilities [BLOCK_Q, BLOCK_K+1].  bf16 (tensor cores), all
+    bf16 with rows padded to D+8: the query tile and two stages of key and
+    value tiles [BLOCK_K, D+8]."""
+    bq, bk = BLOCK_Q[dtype], BLOCK_K[dtype]
+    if dtype == torch.bfloat16:
+        return 2 * (d + 8) * (bq + 2 * 2 * bk)
+    return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,11 +84,11 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B,S,H,D].  Raises when the head dim's block does not fit the card's
     shared memory or the kernel has no instance for it."""
     bsz, s, h, d = q.shape
-    need, limit = smem_bytes(d), max_smem(q.device.index)
+    need, limit = smem_bytes(d, q.dtype), max_smem(q.device.index)
     if need > limit:
         raise ValueError(
-            f"flash_attention: head dim {d} needs {need} bytes of shared "
-            f"memory per block; the card allows {limit}")
+            f"flash_attention: head dim {d} at {q.dtype} needs {need} bytes "
+            f"of shared memory per block; the card allows {limit}")
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} is not one of the "
                          f"kernel's {HEAD_DIMS}")

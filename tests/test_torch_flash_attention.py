@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro.kernels.flash_attention import ops as jax_ops  # noqa: E402
 from repro.kernels.flash_attention import ref as jax_ref  # noqa: E402
-from repro_torch.kernels.flash_attention import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402,E501
 
 # (b, s, h, kv, d, window, dtype): the reference's FLASH_CASES
 FLASH_CASES = [
@@ -127,3 +127,43 @@ def test_op_checks_its_inputs():
         ops.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match=r"\[B,S,H,D\]"):
         ops.flash_attention(q[0], k, v)
+
+
+# the .cu's dynamic shared memory per block: bf16 (tensor cores) holds the
+# query tile and two stages of key and value tiles, bf16 rows padded to
+# D + 8; f32 (CUDA cores) the query, key, value and probability tiles
+SMEM_PLAN = [("bfloat16", 64, 46_080), ("bfloat16", 128, 87_040),
+             ("bfloat16", 256, 168_960), ("float32", 64, 41_600),
+             ("float32", 128, 74_368), ("float32", 256, 139_904)]
+H100_SMEM_PER_BLOCK = 232_448       # cudaDevAttrMaxSharedMemoryPerBlockOptin
+
+
+@pytest.mark.parametrize("dtype,d,want", SMEM_PLAN)
+def test_smem_plan_fits_the_card(dtype, d, want):
+    """Every instance the .cu has fits one H100 block; no card needed."""
+    dt = getattr(torch, dtype)
+    got = kernel.smem_bytes(d, dt)
+    assert got == want
+    assert got <= H100_SMEM_PER_BLOCK
+    assert kernel.smem_bytes(2 * kernel.HEAD_DIMS[-1], dt) \
+        > H100_SMEM_PER_BLOCK
+
+
+def test_cpu_runs_the_plain_version_and_never_launches(monkeypatch):
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(kw)
+        return ref.attention_ref(*args, **kw)
+
+    monkeypatch.setattr(ops, "attention_ref", counted)
+    monkeypatch.setattr(kernel, "flash_fwd", lambda *a, **k: pytest.fail(
+        "the kernel was launched for a CPU tensor"))
+    q, k, v = _torch(_inputs(1, 64, 4, 2, 64, "bfloat16", 1), "bfloat16")
+    before = ops.launches
+    out = ops.flash_attention(q, k, v, causal=True, window=16)
+    assert ops.launches == before
+    assert calls == [{"causal": True, "window": 16}]
+    torch.testing.assert_close(out, ref.attention_ref(q, k, v, causal=True,
+                                                      window=16),
+                               rtol=0, atol=0)

@@ -200,7 +200,10 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
 
 # (b, s, h, kv, d, window, dtype): the reference's tests/test_kernels.py
 # FLASH_CASES, then a ragged S, and the training shape (qwen3-1.7b: 16
-# query heads and 8 KV heads of 128, B = 8, S = 512)
+# query heads and 8 KV heads of 128, B = 8, S = 512); then every branch of
+# the bf16 (tensor-core) instance: D 64, 128 and 256, GQA groups 1, 2 and
+# 8, S = 17 and 300 (not multiples of its 64-row tiles) and 512, windows
+# of 100 and 64 that start mid-tile
 FLASH_CASES = [
     (1, 128, 4, 4, 64, 0, "float32"),
     (2, 256, 4, 2, 64, 0, "float32"),
@@ -214,6 +217,23 @@ FLASH_CASES = [
     (2, 300, 4, 2, 64, 100, "bfloat16"),
     (8, 512, 16, 8, 128, 0, "float32"),
     (8, 512, 16, 8, 128, 0, "bfloat16"),
+    (1, 17, 4, 4, 64, 0, "bfloat16"),
+    (2, 17, 16, 2, 128, 0, "bfloat16"),
+    (1, 17, 2, 1, 256, 0, "bfloat16"),
+    (2, 300, 16, 2, 128, 0, "bfloat16"),
+    (1, 300, 4, 2, 256, 0, "bfloat16"),
+    (1, 512, 8, 1, 256, 0, "bfloat16"),
+    (2, 512, 4, 4, 64, 0, "bfloat16"),
+    (1, 512, 8, 4, 128, 100, "bfloat16"),
+    (2, 300, 4, 4, 128, 64, "bfloat16"),
+    (1, 512, 4, 2, 256, 64, "bfloat16"),
+]
+# (b, s, h, kv, d, window, dtype), causal=False: the bf16 instance without
+# the causal bound, ragged, and with a window that starts mid-tile
+FLASH_NON_CAUSAL = [
+    (1, 300, 4, 2, 128, 0, "bfloat16"),
+    (2, 17, 8, 1, 64, 0, "bfloat16"),
+    (1, 300, 4, 1, 64, 100, "bfloat16"),
 ]
 
 
@@ -249,6 +269,18 @@ def test_flash_attention_matches_plain(b, s, h, kv, d, window, dtype,
     assert_flash_close(out, q, k, v, window=window)
 
 
+@pytest.mark.parametrize("b,s,h,kv,d,window,dtype", FLASH_NON_CAUSAL)
+def test_flash_attention_non_causal_matches_plain(b, s, h, kv, d, window,
+                                                  dtype, cuda_device):
+    q, k, v = flash_inputs(b, s, h, kv, d, dtype, s + h + d + window + 1,
+                           cuda_device)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=False, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert_flash_close(out, q, k, v, causal=False, window=window)
+
+
 def test_flash_attention_non_causal_and_empty(cuda_device):
     q, k, v = flash_inputs(1, 200, 4, 2, 64, "float32", 5, cuda_device)
     out = fa_ops.flash_attention(q, k, v, causal=False)
@@ -276,11 +308,13 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
     the op raises; it never gives way to the plain version."""
     monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **k: pytest.fail(
         "the plain forward ran for a CUDA tensor"))
-    assert fa_kernel.smem_bytes(512) > fa_kernel.max_smem(0)
     before = fa_ops.launches
-    with pytest.raises(ValueError, match="shared memory"):
-        fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 512, "float32", 1,
-                                             cuda_device))
+    for dtype in ("float32", "bfloat16"):
+        assert fa_kernel.smem_bytes(512, getattr(torch, dtype)) \
+            > fa_kernel.max_smem(0)
+        with pytest.raises(ValueError, match="shared memory"):
+            fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 512, dtype, 1,
+                                                 cuda_device))
     with pytest.raises(ValueError, match="head dim"):
         fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 32, "float32", 1,
                                              cuda_device))
