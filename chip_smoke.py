@@ -9,9 +9,10 @@ Phases, each printing JSON lines:
 2. build   -- compile every kernel of the port from ``src/repro_torch/csrc``
               with nvcc for sm_90a, one nvcc per source, all at once
               (ptxas report included): ``kmeans_assign``, ``ssd_scan`` and
-              ``flash_attention`` (its bf16 and f32 instances' shared
-              memory, and the tensor-core instructions in each instance's
-              SASS by ``cuobjdump``: the bf16 instance must have some);
+              ``flash_attention`` (the bf16 and f32 instances' shared
+              memory of the last two, and the tensor-core instructions in
+              each instance's SASS by ``cuobjdump``: every bf16 instance
+              must have some);
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths';
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
@@ -37,9 +38,10 @@ Phases, each printing JSON lines:
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
-              beside the time of one empty launch; ``flash_attention``
-              also per instance (bf16 on the tensor cores, f32 on the CUDA
-              cores) at the training shape.
+              beside the time of one empty launch; ``ssd_scan`` and
+              ``flash_attention`` also per instance (bf16 on the tensor
+              cores, f32 on the CUDA cores, each bound at its own rate) at
+              the serving and the training shape.
 
 Each path (4, 5, 6, 7) is driven with every kernel's launch count set to 0
 just before it and read just after.  Then the card's name and power limit
@@ -121,11 +123,17 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20,
 # -- phase 3: kernel vs plain ---------------------------------------------------
 
 # (n, d, k, dtype name): the reference's kernel-test cases, then the main
-# path's local-step minibatch and evaluation-set shapes.
+# path's local-step minibatch and evaluation-set shapes; then the lane-group
+# kernel's branches: D = 59 (not a multiple of its 8 lanes: scalar loads)
+# in bf16, D = 300 (32 lanes, past the 8 elements a lane keeps), N = 1001
+# (not a multiple of the block's 16 points), and more lanes than a bf16
+# row has 16-byte vectors (8 lanes for 5 at D = 40, 4 for 3 at D = 24)
 KM_CASES = [(100, 8, 3, "float32"), (1000, 64, 3, "float32"),
             (513, 59, 8, "float32"), (256, 16, 32, "float32"),
             (300, 64, 3, "bfloat16"), (128, 64, 3, "float32"),
-            (4000, 64, 3, "float32")]
+            (4000, 64, 3, "float32"), (200, 59, 3, "bfloat16"),
+            (64, 300, 4, "float32"), (1001, 64, 3, "float32"),
+            (300, 40, 3, "bfloat16"), (200, 24, 3, "bfloat16")]
 MAIN_SHAPES = [(128, 64, 3), (4000, 64, 3)]
 
 
@@ -141,7 +149,7 @@ def km_inputs(n, d, k, dtype_name, seed):
 def kernel_vs_plain() -> float:
     """Returns the largest |d2 - d2_plain| at the main path's shapes."""
     import torch
-    from repro_torch.kernels.kmeans_assign import ops, ref
+    from repro_torch.kernels.kmeans_assign import kernel, ops, ref
     main_err = 0.0
     for i, (n, d, k, dt) in enumerate(KM_CASES):
         x, c = km_inputs(n, d, k, dt, seed=i)
@@ -156,7 +164,8 @@ def kernel_vs_plain() -> float:
         close = torch.allclose(d2, d2_ref, rtol=rtol, atol=atol)
         agree = float((a == a_ref).float().mean())
         emit("kernel_vs_plain", kernel="kmeans_assign", n=n, d=d, k=k,
-             dtype=dt, max_abs_err=err, assign_agree=agree)
+             dtype=dt, group=kernel.lane_group(d), max_abs_err=err,
+             assign_agree=agree)
         check(close, f"kmeans_assign d2 off at {(n, d, k, dt)}: {err}")
         check(dt == "bfloat16" or agree >= 0.999,
               f"kmeans_assign assignments agree {agree} at {(n, d, k, dt)}")
@@ -180,7 +189,11 @@ def kernel_vs_plain() -> float:
 # (b, s, h, p, n, chunk, dtype name): the reference's kernel-test cases,
 # then the main path's prefill shapes (mamba2-370m: 4 slots, 32 heads of
 # 64, d_state 128, chunk 128; the mid-flight prefills of 514-529 tokens
-# pad to 640), and ragged chunks (a 100-token prompt gives L = 100)
+# pad to 640, a lone admitted prompt is B = 1), and ragged chunks (a
+# 100-token prompt gives L = 100); then the bf16 (tensor-core) instance's
+# branches: P tile P (the serving shape; B * H = 160) and P / 2 (a lone
+# prompt), P = N = 128 (jamba-1.5's head dim and d_state) with P tiles of
+# 64 and of 128 (a warp holding 4 state items), N = 16 with a ragged L
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -190,7 +203,17 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (4, 512, 32, 64, 128, 128, "float32"),
              (4, 640, 32, 64, 128, 128, "bfloat16"),
              (4, 100, 32, 64, 128, 100, "bfloat16"),
-             (2, 100, 4, 64, 128, 100, "float32")]
+             (2, 100, 4, 64, 128, 100, "float32"),
+             (1, 128, 32, 64, 128, 128, "bfloat16"),
+             (5, 256, 32, 64, 128, 128, "bfloat16"),
+             (2, 256, 8, 128, 128, 128, "bfloat16"),
+             (1, 128, 136, 128, 32, 64, "bfloat16"),
+             (2, 128, 70, 128, 128, 64, "bfloat16"),
+             (2, 100, 4, 32, 16, 100, "bfloat16")]
+# shapes the bf16 instance refuses, with the error's words: N not a
+# multiple of 16, and a plan beyond the card's shared memory
+SSD_REFUSED = [((1, 128, 2, 32, 24, 64), "multiples of 16"),
+               ((1, 128, 2, 64, 256, 128), "shared memory")]
 SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
 
 
@@ -240,8 +263,9 @@ def ssd_compare(y, state, x, da, bm, cm, chunk) -> dict:
 def ssd_vs_plain() -> float:
     """Returns the largest |y - y_plain| at the main path's shape."""
     import torch
-    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan import kernel, ops
     main_err = 0.0
+    limit, sms = kernel.max_smem(0), kernel.sm_count(0)
     for i, case in enumerate(SSD_CASES):
         b, s, h, p, n, chunk, dt = case
         x, da, bm, cm = ssd_inputs(b, s, h, p, n, dt, seed=100 + i)
@@ -249,22 +273,37 @@ def ssd_vs_plain() -> float:
         torch.cuda.synchronize()
         res = ssd_compare(y, state, x, da, bm, cm, chunk)
         emit("kernel_vs_plain", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
-             chunk=chunk, dtype=dt, **res)
+             chunk=chunk, dtype=dt, p_tile=kernel.p_tile(
+                 b, h, p, n, chunk, x.dtype, limit, sms), **res)
         for part in ("y", "state"):
             check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
                   f"ssd_scan {part} off at {case}: {res[part]}")
         if case == SSD_MAIN:
             main_err = res["y"]["max_abs_err"]
     # strongly negative da: exp above the diagonal would overflow to inf
-    x, da, bm, cm = ssd_inputs(1, 128, 4, 32, 16, "float32", seed=7)
-    y, state = ops.ssd(x, da * 200.0, bm, cm, 128)
-    torch.cuda.synchronize()
-    res = ssd_compare(y, state, x, da * 200.0, bm, cm, 128)
-    emit("kernel_vs_plain", kernel="ssd_scan", case="da*200", **res)
-    check(res["y"]["finite"] and res["state"]["finite"]
-          and res["y"]["beyond_allowed"] == 0
-          and res["state"]["beyond_allowed"] == 0,
-          f"ssd_scan large-decay case: {res}")
+    for shape in ((1, 128, 4, 32, 16, "float32"),
+                  (2, 256, 4, 64, 128, "bfloat16")):
+        x, da, bm, cm = ssd_inputs(*shape, seed=7)
+        y, state = ops.ssd(x, da * 200.0, bm, cm, 128)
+        torch.cuda.synchronize()
+        res = ssd_compare(y, state, x, da * 200.0, bm, cm, 128)
+        emit("kernel_vs_plain", kernel="ssd_scan", case="da*200",
+             dtype=shape[-1], **res)
+        check(res["y"]["finite"] and res["state"]["finite"]
+              and res["y"]["beyond_allowed"] == 0
+              and res["state"]["beyond_allowed"] == 0,
+              f"ssd_scan large-decay case {shape}: {res}")
+    for (b, s, h, p, n, chunk), words in SSD_REFUSED:
+        before = ops.launches
+        try:
+            ops.ssd(*ssd_inputs(b, s, h, p, n, "bfloat16", seed=8), chunk)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        emit("kernel_refuses", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
+             chunk=chunk, dtype="bfloat16", error=refused)
+        check(words in refused and ops.launches == before,
+              f"ssd_scan bf16 did not refuse {(p, n, chunk)}: {refused!r}")
     return main_err
 
 
@@ -502,7 +541,6 @@ def serve_phase() -> dict:
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import build
-    from repro_torch.models import build_model
     from repro_torch.serving import Request, ServingEngine
 
     cfg = get_config("mamba2-370m").model
@@ -604,8 +642,33 @@ def serve_phase() -> dict:
     check(len(mid_flight) >= 1, "serve: no request was admitted mid-flight")
     check(bool(torch.isfinite(ssm).all()), "serve: non-finite SSM cache")
 
-    # the same prompts' prefill, kernel vs plain SSD, in two waves of 4,
-    # at the config's bf16 and at f32 (same weights)
+    rel_err, agree, flips_outside = serve_vs_plain(cfg, params, prompts)
+    emit("serve_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
+         first_token_agree=agree, first_tokens=len(prompts),
+         flips_beyond_margin=flips_outside)
+    for t in ("logits", "ssm", "conv"):
+        check(rel_err[f"kernel_vs_plain_f32.{t}"] <= SERVE_F32_TOL,
+              f"serve f32: kernel vs plain SSD off in {t}: {rel_err}")
+        check(rel_err[f"kernel_vs_plain_bf16.{t}"]
+              <= rel_err[f"bf16_vs_f32_plain.{t}"],
+              f"serve bf16: kernel vs plain SSD in {t} beyond the bf16 "
+              f"model's own rounding: {rel_err}")
+    check(flips_outside == 0,
+          "serve: a greedy first token flipped beyond the logits' error "
+          "margin")
+    return {"ssd_scan": launches}
+
+
+def serve_vs_plain(cfg, params, prompts):
+    """The prompts' prefill, kernel vs plain SSD, in waves of
+    ``SERVE_SLOTS``, at the config's bf16 and at f32 (same weights).
+
+    Returns the largest relative error of each pair and tensor
+    (``{"kernel_vs_plain_bf16.logits": ..., ...}``), the first tokens the
+    kernel and plain paths agree on per dtype, and the first-token flips
+    beyond the logits' error margin."""
+    import torch
+    from repro_torch.models import build_model
     models = {(dtype, kernel): build_model(
                   dataclasses.replace(cfg, dtype=dtype),
                   use_ssd_kernel=kernel, device="cuda")
@@ -653,20 +716,7 @@ def serve_phase() -> dict:
             flips_outside += int((~same & (margin > 2 * float(
                 (lk - lp).abs().max()))).sum())
     rel_err = {f"{p}.{t}": v for (p, t), v in worst.items()}
-    emit("serve_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
-         first_token_agree=agree, first_tokens=len(prompts),
-         flips_beyond_margin=flips_outside)
-    for t in ("logits", "ssm", "conv"):
-        check(worst["kernel_vs_plain_f32", t] <= SERVE_F32_TOL,
-              f"serve f32: kernel vs plain SSD off in {t}: {rel_err}")
-        check(worst["kernel_vs_plain_bf16", t]
-              <= worst["bf16_vs_f32_plain", t],
-              f"serve bf16: kernel vs plain SSD in {t} beyond the bf16 "
-              f"model's own rounding: {rel_err}")
-    check(flips_outside == 0,
-          "serve: a greedy first token flipped beyond the logits' error "
-          "margin")
-    return {"ssd_scan": launches}
+    return rel_err, agree, flips_outside
 
 
 # -- phase 6: qwen3-1.7b training ------------------------------------------------
@@ -933,10 +983,11 @@ def kmeans_timing(n: int, d: int, k: int) -> dict:
 
 def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's and
-    its bound.  No single PyTorch call computes the SSD scan, so there is
-    no library time."""
+    its bound (bf16 operations at the tensor cores' rate, f32 at the CUDA
+    cores', as each instance runs).  No single PyTorch call computes the
+    SSD scan, so there is no library time."""
     import torch
-    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
     x, da, bm, cm = ssd_inputs(b, s, h, p, n, dtype_name, seed=11)
     e = x.element_size()
     # each input read once, each output written once
@@ -950,9 +1001,12 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     n_chunks = s // chunk
     flops = b * n_chunks * 2 * tri * n \
         + b * h * n_chunks * (2 * tri * p + 4 * chunk * p * n)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
-           "dtype": dtype_name}
+           "dtype": dtype_name, "p_tile": kernel.p_tile(
+               b, h, p, n, chunk, x.dtype, kernel.max_smem(0),
+               kernel.sm_count(0))}
     for key, fn, iters in (
             ("", lambda: ops.ssd(x, da, bm, cm, chunk), 50),
             ("plain_", lambda: ref.ssd_reference(x, da, bm, cm, chunk), 20)):
@@ -996,10 +1050,12 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     return out
 
 
-def flash_sass_census(library: Path) -> dict:
-    """Tensor-core instructions in each ``flash_attention`` instance's SASS
+def sass_census(library: Path, kernel: str, params: tuple) -> dict:
+    """Tensor-core instructions in each instance of a kernel's SASS
     (``cuobjdump -sass`` on the built library): HMMA is ``mma.sync``,
-    HGMMA ``wgmma``."""
+    HGMMA ``wgmma``.  Functions are named ``<kernel>_<instance>`` with int
+    template arguments named by ``params``, keyed as
+    ``instance<param=value,...>``."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(library)],
@@ -1008,9 +1064,13 @@ def flash_sass_census(library: Path) -> dict:
     census, name = {}, None
     for line in out.stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_attention_kernel_(\w+?)ILi(\d+)E", line)
-            name = f"{m.group(1)}<D={m.group(2)}>" if m else None
-            if name:
+            m = re.search(rf"{kernel}_(\w+?)(?:I((?:Li\d+E)+)E|E|$)", line)
+            name = None
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                name = m.group(1) + (
+                    "<" + ",".join(f"{p}={a}" for p, a in zip(params, args))
+                    + ">" if args else "")
                 census[name] = {"HMMA": 0, "HGMMA": 0}
         elif name:
             op = re.search(r"\b(HGMMA|HMMA)\.", line)
@@ -1032,12 +1092,18 @@ def build_all() -> None:
         paths = dict(zip(kernels, pool.map(lambda k: k.library_path(),
                                            kernels.values())))
     seconds = time.perf_counter() - t0
-    census = flash_sass_census(paths["flash_attention"])
+    census = sass_census(paths["flash_attention"], "flash_attention_kernel",
+                         ("D",))
+    ssd_census = sass_census(paths["ssd_scan"], "ssd_scan_kernel",
+                             ("Pt", "items"))
     # ptxas reports static shared memory only; these two use dynamic
     extra = {"ssd_scan": {
-        "dynamic_smem_bytes_at_P64_N128_L128": ssd_kernel.smem_bytes(
-            64, 128, 128),
-        "dynamic_smem_limit": ssd_kernel.max_smem(0)},
+        "dynamic_smem_bytes_at_P64_N128_L128": {
+            "float32": ssd_kernel.smem_bytes(64, 128, 128, torch.float32),
+            "bfloat16": {f"Pt={t}": ssd_kernel.smem_bytes(
+                64, 128, 128, torch.bfloat16, t) for t in (32, 64)}},
+        "dynamic_smem_limit": ssd_kernel.max_smem(0),
+        "sass_tensor_core_instructions": ssd_census},
         "flash_attention": {
         "dynamic_smem_bytes": {
             str(dt).removeprefix("torch."): {
@@ -1061,6 +1127,11 @@ def build_all() -> None:
         check(counts.get("HMMA", 0) + counts.get("HGMMA", 0) > 0,
               f"flash_attention bf16 at D={d}: no tensor-core instruction "
               f"in its SASS: {census}")
+    bf16 = {k: v for k, v in ssd_census.items() if k.startswith("bf16<")}
+    check(len(bf16) == 3 * len(ssd_kernel.P_TILES)
+          and all(v["HMMA"] > 0 for v in bf16.values()),
+          f"ssd_scan: a bf16 instance without HMMA in its SASS: "
+          f"{ssd_census}")
 
 
 def main() -> None:
@@ -1091,17 +1162,22 @@ def main() -> None:
     km = km_shapes[0]
     ssd = ssd_timing(*SSD_MAIN)
     emit("ssd_timing", **ssd)
+    ssd32 = ssd_timing(*SSD_MAIN[:-1], "float32")
+    emit("ssd_timing", **ssd32)
+    ssd_admit = ssd_timing(1, 128, *SSD_MAIN[2:])    # a lone admitted prompt
+    emit("ssd_timing", **ssd_admit)
     fa = flash_timing(*FLASH_MAIN)
     emit("flash_timing", **fa)
     fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
     emit("flash_timing", **fa32)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
-    fa_instances = {
-        "bfloat16": {"cores": "tensor (mma.sync)",
-                     **{k: fa[k] for k in instance_keys}},
-        "float32": {"cores": "CUDA (f32 FMA)",
-                    **{k: fa32[k] for k in instance_keys}}}
+
+    def instances(bf16, f32):
+        return {"bfloat16": {"cores": "tensor (mma.sync)",
+                             **{k: bf16[k] for k in instance_keys}},
+                "float32": {"cores": "CUDA (f32 FMA)",
+                            **{k: f32[k] for k in instance_keys}}}
     # an empty kernel queued the same way: what a launch alone costs
     launch_floor_ms = cuda_ms(lambda: torch.cuda._sleep(0), queued=True)
     print(json.dumps({"kernels": [{
@@ -1120,7 +1196,9 @@ def main() -> None:
         "ms": ssd["ms"], "kernel_ms": ssd["ms"], "call_ms": ssd["call_ms"],
         "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"], "library_ms": None,
-        "launch_floor_ms": launch_floor_ms, "shapes": [ssd]}, {
+        "instances": instances(ssd, ssd32),
+        "launch_floor_ms": launch_floor_ms,
+        "shapes": [ssd, ssd32, ssd_admit]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
@@ -1130,7 +1208,7 @@ def main() -> None:
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
-        "instances": fa_instances,
+        "instances": instances(fa, fa32),
         "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}]}),
         flush=True)
     print(card_line(), flush=True)

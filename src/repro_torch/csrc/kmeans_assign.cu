@@ -15,20 +15,35 @@
 // What bounds it on an H100: at the main path's shapes (N=128 local-step
 // minibatch, D=64, K=3) one call reads ~33 KB and does ~49 kFLOP, i.e.
 // ~10 ns at 3.35 TB/s and under 1 ns of f32 math, far below the few
-// microseconds a launch costs. Fixed latencies bound it, not bytes or
-// FLOPs: the launch, and each thread's serial walk over D (staging loads,
-// then K*D dependent FMAs); at the evaluation shape (N=4000, ~1 MB) the
-// byte bound is still ~0.3 us.
-// The design is therefore the simplest one that moves each byte once:
-//   * one block of `rows` threads per tile of `rows` points, one point per
-//     thread; any N is handled by masking the last tile (no padding);
-//   * the [K, D] centroids and their ||c||^2 live in shared memory for the
-//     block's lifetime (the TPU kernel's "centroids resident in VMEM");
-//   * the [rows, D] point tile is staged into shared memory with coalesced
-//     loads (consecutive threads read consecutive elements), stored with an
-//     odd row stride so the per-thread row reads are bank-conflict free;
-//   * centroid reads are warp-wide broadcasts.
-// wgmma/TMA pipelines are left for when a caller's shape makes this
+// microseconds a launch costs. Latencies bound it, not bytes or FLOPs: the
+// launch, the global loads, and the longest chain of dependent FMAs. The
+// first design gave each point one thread, which walked all of D serially
+// (D FMAs for ||x||^2, then K*D for the dots: ~250 in a chain at D = 64).
+//
+// Design: a group of G lanes shares one point, G a power of two <= 32
+// chosen by the wrapper from D (8 at D = 64: at most 8 elements a lane).
+//   * Lane r of a group holds vectors r, r + G, r + 2G, ... of the point's
+//     row in registers, loaded straight from global memory: 16-byte vectors
+//     (4 f32 or 8 bf16) where D and the pointers allow it, else scalars.
+//     The loads are issued before the centroids are staged, so the two
+//     global latencies overlap. Past 8 elements a lane (D > 256 at G = 32)
+//     the rest of the row is re-read per centroid (from L1).
+//   * The [K, D] centroids live in shared memory in f32 for the block's
+//     lifetime (the TPU kernel's "centroids resident in VMEM"); a lane reads
+//     its slice of a centroid, the groups of a warp read the same addresses
+//     (broadcasts).
+//   * Each lane forms its partial ||x||^2 and the K partial dots in a fixed
+//     order; the group sums them with log2 G rounds of __shfl_xor_sync. The
+//     butterfly leaves every lane with the same bits (a + b == b + a), and
+//     every centroid's dot goes through the same tree, so two identical
+//     centroids give identical d2 and the tie still goes to the lower index.
+//     ||c||^2 is split over a group's lanes and summed by the same tree,
+//     one centroid per group.
+//   * Lane 0 of the group writes argmin and min; points past N compute on
+//     zeros and write nothing. 128 threads a block: 16 points at G = 8, so
+//     the local step's N = 128 spreads over 8 SMs instead of one.
+// The dependent chain at D = 64 is now 8 FMAs, 3 shuffles and an add per
+// product. wgmma/TMA pipelines are left for when a caller's shape makes this
 // bandwidth- or compute-bound.
 
 #include <cuda_runtime.h>
@@ -37,51 +52,155 @@
 
 namespace {
 
+constexpr int kThreads = 128;
+constexpr int kRegElems = 8;           // elements of the row a lane keeps
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-template <typename T>
-__global__ void kmeans_assign_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ centers, int n,
-                                     int d, int k, int x_stride,
-                                     int32_t* __restrict__ out_assign,
-                                     float* __restrict__ out_d2) {
-  extern __shared__ float smem[];
-  float* c_s = smem;            // [k, d]
-  float* c2_s = c_s + k * d;    // [k]
-  float* x_s = c2_s + k;        // [rows, x_stride]
+// V consecutive elements of a row, from global memory, as f32
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(float (&out)[V], const T* p) {
+  if constexpr (V == 1) {
+    out[0] = to_f32(*p);
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(V == 4, "f32 vectors are 16 bytes");
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else {
+    static_assert(V == 8, "bf16 vectors are 16 bytes");
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+}
 
-  const int rows = blockDim.x;
+// V consecutive f32 of a shared-memory row
+template <int V>
+__device__ __forceinline__ void load_smem(float (&out)[V], const float* p) {
+  if constexpr (V == 1) {
+    out[0] = *p;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i) {
+      const float4 v = reinterpret_cast<const float4*>(p)[i];
+      out[4 * i] = v.x; out[4 * i + 1] = v.y;
+      out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
+    }
+  }
+}
+
+__device__ __forceinline__ float group_sum(float v, int group) {
+  for (int off = group >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// This lane's share of x . c over the vectors it owns: the ones held in xv,
+// then any past them read again from global memory (x_row). c_row is a
+// shared-memory row; c_row == nullptr gives x . x.
+template <typename T, int V>
+__device__ __forceinline__ float lane_dot(const float (&xv)[kRegElems],
+                                          const T* x_row, const float* c_row,
+                                          int nv, int r, int group) {
+  constexpr int kSlots = kRegElems / V;
+  float part = 0.f;
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int q = r + group * s;
+    if (q < nv) {
+      float c[V];
+      if (c_row) {
+        load_smem<V>(c, c_row + q * V);
+      } else {
+#pragma unroll
+        for (int t = 0; t < V; ++t) c[t] = xv[s * V + t];
+      }
+#pragma unroll
+      for (int t = 0; t < V; ++t) part = fmaf(xv[s * V + t], c[t], part);
+    }
+  }
+  for (int q = r + group * kSlots; q < nv; q += group) {
+    float v[V], c[V];
+    load_vec<T, V>(v, x_row + q * V);
+    if (c_row) {
+      load_smem<V>(c, c_row + q * V);
+    } else {
+#pragma unroll
+      for (int t = 0; t < V; ++t) c[t] = v[t];
+    }
+#pragma unroll
+    for (int t = 0; t < V; ++t) part = fmaf(v[t], c[t], part);
+  }
+  return part;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    kmeans_assign_kernel(const T* __restrict__ x,
+                         const T* __restrict__ centers, int n, int d, int k,
+                         int group, int32_t* __restrict__ out_assign,
+                         float* __restrict__ out_d2) {
+  constexpr int kSlots = kRegElems / V;
+  extern __shared__ float4 smem4[];
+  float* c_s = reinterpret_cast<float*>(smem4);  // [k, d]
+  float* c2_s = c_s + k * d;                      // [k]
+
   const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * rows;
-  const int valid = (int)min((long long)rows, (long long)n - row0);
+  const int r = tid & (group - 1);       // lane within the group
+  const int gi = tid / group;            // group within the block
+  const int groups = kThreads / group;
+  const int nv = d / V;                  // vectors per row
+  const long long point = (long long)blockIdx.x * groups + gi;
+  const bool live = point < n;
+  const T* x_row = x + (live ? point : 0) * d;
 
-  for (int i = tid; i < k * d; i += rows) c_s[i] = to_f32(centers[i]);
-  const T* xb = x + row0 * d;
-  for (int i = tid; i < valid * d; i += rows) {
-    const int r = i / d;
-    x_s[r * x_stride + (i - r * d)] = to_f32(xb[i]);
+  // this lane's vectors of the point, issued before the centroids' loads
+  float xv[kRegElems];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    const int q = r + group * s;
+    float v[V];
+#pragma unroll
+    for (int t = 0; t < V; ++t) v[t] = 0.f;
+    if (live && q < nv) load_vec<T, V>(v, x_row + q * V);
+#pragma unroll
+    for (int t = 0; t < V; ++t) xv[s * V + t] = v[t];
+  }
+
+  for (int i = tid; i < k * d; i += kThreads) c_s[i] = to_f32(centers[i]);
+  __syncthreads();
+  // ||c||^2, centroid c0 + gi by group gi (the loop is uniform over the
+  // block, so every lane takes part in every shuffle)
+  for (int c0 = 0; c0 < k; c0 += groups) {
+    const int c = c0 + gi;
+    float part = 0.f;
+    if (c < k) {
+      for (int j = r; j < d; j += group)
+        part = fmaf(c_s[c * d + j], c_s[c * d + j], part);
+    }
+    part = group_sum(part, group);
+    if (c < k && r == 0) c2_s[c] = part;
   }
   __syncthreads();
-  for (int c = tid; c < k; c += rows) {
-    float s = 0.f;
-    for (int j = 0; j < d; ++j) s = fmaf(c_s[c * d + j], c_s[c * d + j], s);
-    c2_s[c] = s;
-  }
-  __syncthreads();
-  if (tid >= valid) return;
 
-  const float* xr = x_s + tid * x_stride;
-  float x2 = 0.f;
-  for (int j = 0; j < d; ++j) x2 = fmaf(xr[j], xr[j], x2);
+  // a dead point's lanes still join the shuffles; its tail is not read
+  const int nv_live = live ? nv : min(nv, group * kSlots);
+  const float x2 =
+      group_sum(lane_dot<T, V>(xv, x_row, nullptr, nv_live, r, group), group);
   float best = 0.f;
   int best_k = 0;
   for (int c = 0; c < k; ++c) {
-    const float* cr = c_s + c * d;
-    float dot = 0.f;
-    for (int j = 0; j < d; ++j) dot = fmaf(xr[j], cr[j], dot);
+    const float dot = group_sum(
+        lane_dot<T, V>(xv, x_row, c_s + c * d, nv_live, r, group), group);
     // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
     const float d2 = (x2 - 2.f * dot) + c2_s[c];
     if (c == 0 || d2 < best) {  // strict <: ties keep the lowest index
@@ -89,46 +208,65 @@ __global__ void kmeans_assign_kernel(const T* __restrict__ x,
       best_k = c;
     }
   }
-  out_assign[row0 + tid] = best_k;
-  out_d2[row0 + tid] = best;
+  if (live && r == 0) {
+    out_assign[point] = best_k;
+    out_d2[point] = best;
+  }
 }
 
-template <typename T>
-int launch(const void* x, const void* centers, int n, int d, int k, int rows,
-           int x_stride, int32_t* out_assign, float* out_d2,
-           cudaStream_t stream) {
-  const size_t smem =
-      (size_t(k) * d + k + size_t(rows) * x_stride) * sizeof(float);
+template <typename T, int V>
+int launch(const void* x, const void* centers, int n, int d, int k, int group,
+           int32_t* out_assign, float* out_d2, cudaStream_t stream) {
+  auto kernel = kmeans_assign_kernel<T, V>;
+  const size_t smem = (size_t(k) * d + k) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        kmeans_assign_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const int blocks = (n + rows - 1) / rows;
-  kmeans_assign_kernel<T><<<blocks, rows, smem, stream>>>(
+  const int points = kThreads / group;   // per block
+  const int blocks = (n + points - 1) / points;
+  kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(centers), n, d, k,
-      x_stride, out_assign, out_d2);
+      group, out_assign, out_d2);
   return (int)cudaGetLastError();
+}
+
+// 16-byte vectors when every row of x and of the centroids starts on a
+// 16-byte boundary; scalars otherwise
+template <typename T>
+int launch_dtype(const void* x, const void* centers, int n, int d, int k,
+                 int group, int32_t* out_assign, float* out_d2,
+                 cudaStream_t stream) {
+  constexpr int kV = 16 / sizeof(T);
+  const bool aligned = d % kV == 0 && (uintptr_t)x % 16 == 0 &&
+                       (uintptr_t)centers % 16 == 0;
+  if (aligned)
+    return launch<T, kV>(x, centers, n, d, k, group, out_assign, out_d2,
+                         stream);
+  return launch<T, 1>(x, centers, n, d, k, group, out_assign, out_d2,
+                      stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and centers share it). rows is the
-// tile height (threads per block); x_stride the odd shared-memory row
-// stride (>= d). Returns the cudaError_t of the launch (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (x and centers share it). group: lanes
+// per point, a power of two <= 32. Returns the cudaError_t of the launch
+// (0 = success).
 int kmeans_assign_launch(const void* x, const void* centers, int n, int d,
-                         int k, int dtype, int rows, int x_stride,
-                         int32_t* out_assign, float* out_d2, void* stream) {
+                         int k, int dtype, int group, int32_t* out_assign,
+                         float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(x, centers, n, d, k, rows, x_stride, out_assign,
-                         out_d2, s);
+    return launch_dtype<float>(x, centers, n, d, k, group, out_assign,
+                               out_d2, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, centers, n, d, k, rows, x_stride,
-                                 out_assign, out_d2, s);
+    return launch_dtype<__nv_bfloat16>(x, centers, n, d, k, group,
+                                       out_assign, out_d2, s);
   return (int)cudaErrorInvalidValue;
 }
 

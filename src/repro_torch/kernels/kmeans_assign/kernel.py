@@ -17,7 +17,8 @@ from repro_torch.kernels import _build
 
 SOURCES = ("kmeans_assign.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 128                     # points per block, one per thread
+THREADS = 128                  # threads per block (the .cu's kThreads)
+LANE_ELEMS = 8                 # elements of a point a lane keeps in registers
 
 
 def library_path():
@@ -29,8 +30,8 @@ def library_path():
 def library() -> ctypes.CDLL:
     lib = _build.load("kmeans_assign", SOURCES)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci,
-                                         vp, vp, vp]
+    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp,
+                                         vp]
     lib.kmeans_assign_launch.restype = ci
     lib.kmeans_assign_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.kmeans_assign_max_smem.restype = ci
@@ -46,27 +47,43 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({msg})")
 
 
-@functools.lru_cache(maxsize=None)
-def tile(d: int, k: int, device_index: int) -> tuple:
-    """(rows, x_stride) of a block for feature dim ``d`` and ``k`` centres.
+def lane_group(d: int) -> int:
+    """Lanes that share one point: the least power of two that leaves at
+    most ``LANE_ELEMS`` elements of D to a lane, at most a warp (8 at
+    D = 64, 1 at D <= 8)."""
+    group = 1
+    while group < 32 and group * LANE_ELEMS < d:
+        group *= 2
+    return group
 
-    The tile is halved from ``ROWS`` down to one warp until centroids,
-    their norms and the staged point tile fit the block's shared memory.
-    Raises when ``k * d`` leaves no room for even one warp of points.
-    """
+
+def smem_bytes(d: int, k: int) -> int:
+    """Dynamic shared memory of one block: the centroids [K, D] and their
+    norms [K], in f32."""
+    return 4 * (k * d + k)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(d: int, k: int, limit: int) -> int:
+    """Lanes per point for feature dim ``d`` and ``k`` centres under
+    ``limit`` bytes of shared memory (a block holds ``THREADS`` // lanes
+    points).  Cached: the EL loop launches at a few shapes thousands of
+    times.  Raises when the centroids do not fit one block."""
+    if smem_bytes(d, k) > limit:
+        raise ValueError(
+            f"kmeans_assign: K*D = {k}*{d} centroids need "
+            f"{smem_bytes(d, k)} bytes of shared memory per block; the card "
+            f"allows {limit}")
+    return lane_group(d)
+
+
+@functools.lru_cache(maxsize=None)
+def max_smem(device_index: int) -> int:
     lib = library()
     limit = ctypes.c_int(0)
     _check(lib, lib.kmeans_assign_max_smem(device_index, ctypes.byref(limit)),
            "shared-memory query")
-    x_stride = d if d % 2 else d + 1          # odd stride: no bank conflicts
-    rows = ROWS
-    while rows >= 32:
-        if 4 * (k * d + k + rows * x_stride) <= limit.value:
-            return rows, x_stride
-        rows //= 2
-    raise ValueError(
-        f"kmeans_assign: K*D = {k}*{d} centroids do not fit one block's "
-        f"{limit.value} bytes of shared memory beside a 32-point tile")
+    return limit.value
 
 
 def assign_fwd(x: torch.Tensor, centers: torch.Tensor,
@@ -75,10 +92,10 @@ def assign_fwd(x: torch.Tensor, centers: torch.Tensor,
     same CUDA device, f32 or bf16) into out_assign [N] i32, out_d2 [N] f32."""
     n, d = x.shape
     k = centers.shape[0]
-    rows, x_stride = tile(d, k, x.device.index)
+    group = plan(d, k, max_smem(x.device.index))
     lib = library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.kmeans_assign_launch(
         x.data_ptr(), centers.data_ptr(), n, d, k, _DTYPE_CODE[x.dtype],
-        rows, x_stride, out_assign.data_ptr(), out_d2.data_ptr(), stream)
+        group, out_assign.data_ptr(), out_d2.data_ptr(), stream)
     _check(lib, err, "launch")

@@ -1,9 +1,12 @@
 """ctypes binding of the Hopper SSD scan kernel.
 
 The kernel itself is CUDA C++ in ``repro_torch/csrc/ssd_scan.cu`` (see its
-header for the design and what bounds it); this module builds it on first
-use, declares its C signature, checks a shape's shared-memory budget and
-launches it.  Shape and dtype checks live in the ``ops`` wrapper.
+header for the design and what bounds it), in two instances that its
+entry point picks by dtype: bf16 on the tensor cores (``mma.sync``), f32
+on the CUDA cores.  This module builds it on first use, declares its
+C signature, plans a shape (the bf16 instance's P tile, both instances'
+shared-memory budget) and launches it.  Shape and dtype checks live in
+the ``ops`` wrapper.
 """
 
 from __future__ import annotations
@@ -17,8 +20,12 @@ from repro_torch.kernels import _build
 
 SOURCES = ("ssd_scan.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 32                      # chunk rows per block of G (the .cu's kRows)
+ROWS = 32                      # f32: chunk rows per block of G (f32::kRows)
 MAX_CHUNK = 128
+P_TILES = (16, 32, 64, 128)    # bf16: the P tiles the .cu is built for
+ITEM_COLS = 32                 # bf16: state columns per item (kItemCols)
+MAX_ITEMS = 4                  # bf16: state items a warp may hold (kMaxItems)
+WARPS = 8                      # bf16: warps per scan block (kWarps)
 
 
 def library_path():
@@ -28,11 +35,17 @@ def library_path():
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    lib = _build.load("ssd_scan", SOURCES)
+    return declare(_build.load("ssd_scan", SOURCES))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures on a loaded build of ``ssd_scan.cu``."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                    ci, vp, vp, vp]
+                                    ci, ci, ci, vp, vp, vp]
     lib.ssd_scan_launch.restype = ci
+    lib.ssd_scan_bf16_smem.argtypes = [ci, ci, ci]
+    lib.ssd_scan_bf16_smem.restype = ci
     lib.ssd_scan_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.ssd_scan_max_smem.restype = ci
     lib.ssd_scan_error_string.argtypes = [ci]
@@ -47,12 +60,80 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"({msg})")
 
 
-def smem_bytes(p: int, n: int, chunk: int) -> int:
-    """Dynamic shared memory of one block, as the .cu lays it out: the
-    state [P, N+1], x [L, P], B [L, N+1], a row block of C [ROWS, N] and
-    of G [ROWS, L], and three [L] vectors, all f32."""
+def padded_chunk(chunk: int) -> int:
+    """The bf16 instance's rows per chunk tile: L rounded up to 16."""
+    return -(-chunk // 16) * 16
+
+
+def smem_bytes(p: int, n: int, chunk: int, dtype: torch.dtype,
+               p_tile: int = None) -> int:
+    """Dynamic shared memory of one scan block, as the .cu lays it out for
+    ``dtype``'s instance.  f32 (CUDA cores), all f32: the state [P, N+1],
+    x [L, P], B [L, N+1], a row block of C [ROWS, N] and of G [ROWS, L],
+    and three [L] vectors.  bf16 (tensor cores), for a block owning
+    ``p_tile`` (default P) columns of P, with Lp = L rounded up to 16: two
+    stages of x [Lp, Pt+8], B and C [Lp, N+8] in bf16 and da [Lp] in f32,
+    the state's hi and lo bf16 parts [Pt, N+8], and four [Lp] vectors and
+    8 totals in f32."""
+    if dtype == torch.bfloat16:
+        pt = p if p_tile is None else p_tile
+        lp = padded_chunk(chunk)
+        stage = 2 * lp * (pt + 8) + 2 * 2 * lp * (n + 8) + 4 * lp
+        return 2 * stage + 2 * 2 * pt * (n + 8) + 4 * (4 * lp + 8)
     return 4 * (p * (n + 1) + chunk * p + chunk * (n + 1) + ROWS * n
                 + ROWS * chunk + 3 * chunk)
+
+
+def state_items(p_tile: int, n: int) -> int:
+    """bf16: the state items (16 rows of P, ``ITEM_COLS`` columns of N)
+    each warp of a scan block holds in registers for the whole sequence:
+    the warps sharing a P tile split its column groups.  The .cu takes
+    this count from the launch and picks its instance by it."""
+    groups = -(-n // ITEM_COLS)
+    return -(-groups // (WARPS // (p_tile // 16)))
+
+
+def p_tile(bsz: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
+           limit: int, sms: int) -> int:
+    """The P columns one scan block owns, for a call on a card with
+    ``sms`` SMs and ``limit`` bytes of opt-in shared memory a block.
+
+    f32: all of P.  bf16: P / 2 where twice B * H blocks still run in one
+    wave (one block per SM), else P; the other one where the first does
+    not fit.  (At B * H = 128 on an H100's 132 SMs, P / 2 makes two waves
+    and ran 1.7x slower than P; at B * H = 32 it ran 1.09x faster:
+    ``scripts/ssd_scan_variants.py``, PERF.md.)  Raises ``ValueError``
+    naming the limit for a shape the instance cannot take: P or N not a
+    multiple of 16, no built tile, a warp's share of the state over its
+    registers, or no tile within the shared memory."""
+    if dtype != torch.bfloat16:
+        need = smem_bytes(p, n, chunk, dtype)
+        if need > limit:
+            raise ValueError(
+                f"ssd_scan: P={p}, N={n}, chunk={chunk} needs {need} bytes "
+                f"of shared memory per block; the card allows {limit}")
+        return p
+    if p % 16 or n % 16:
+        raise ValueError(f"ssd_scan: the bf16 instance takes P and N in "
+                         f"multiples of 16 (mma.sync tiles), got P={p}, "
+                         f"N={n}")
+    order = (p // 2, p) if 2 * bsz * h <= sms else (p, p // 2)
+    tiles = [t for t in order if t in P_TILES and p % t == 0]
+    if not tiles:
+        raise ValueError(f"ssd_scan: P={p} has no P tile among the bf16 "
+                         f"instance's {P_TILES}")
+    tiles = [t for t in tiles if state_items(t, n) <= MAX_ITEMS]
+    if not tiles:
+        raise ValueError(f"ssd_scan: N={n} at P={p} gives a warp more than "
+                         f"{MAX_ITEMS} items of the state to hold in "
+                         f"registers")
+    for t in tiles:
+        if smem_bytes(p, n, chunk, dtype, t) <= limit:
+            return t
+    need = min(smem_bytes(p, n, chunk, dtype, t) for t in tiles)
+    raise ValueError(
+        f"ssd_scan: P={p}, N={n}, chunk={chunk} at bfloat16 needs {need} "
+        f"bytes of shared memory per block; the card allows {limit}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -64,24 +145,31 @@ def max_smem(device_index: int) -> int:
     return limit.value
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def ssd_fwd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
             c_mat: torch.Tensor, chunk: int, y: torch.Tensor,
             final_state: torch.Tensor) -> None:
     """Launch on the current stream: x [B,S,H,P], da [B,S,H] f32, b/c
     [B,S,N] (contiguous, one CUDA device, x's dtype f32 or bf16) into
-    y [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32.  Raises when
-    the shape's block does not fit the card's shared memory."""
+    y [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32.  Raises
+    (``p_tile``) for a shape the instance cannot take."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
-    need, limit = smem_bytes(p, n, chunk), max_smem(x.device.index)
-    if need > limit:
-        raise ValueError(
-            f"ssd_scan: P={p}, N={n}, chunk={chunk} needs {need} bytes of "
-            f"shared memory per block; the card allows {limit}")
+    dev = x.device.index
+    tile = p_tile(bsz, h, p, n, chunk, x.dtype, max_smem(dev), sm_count(dev))
+    items = state_items(tile, n) if x.dtype == torch.bfloat16 else 0
+    if x.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
+        raise ValueError("ssd_scan: the bf16 instance copies x, b and c in "
+                         "16-byte pieces; they must start 16-byte aligned")
     lib = library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), da.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-        bsz, s, h, p, n, chunk, _DTYPE_CODE[x.dtype], y.data_ptr(),
-        final_state.data_ptr(), stream)
+        bsz, s, h, p, n, chunk, _DTYPE_CODE[x.dtype], tile, items,
+        y.data_ptr(), final_state.data_ptr(), stream)
     _check(lib, err, "launch")

@@ -17,6 +17,7 @@ from repro_torch.config import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402,E501
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.kmeans_assign import kernel as km_kernel  # noqa: E402,E501
 from repro_torch.kernels.kmeans_assign import ops, ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -26,7 +27,10 @@ from repro_torch.models import KMeans  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 # the reference's tests/test_kernels.py cases, then the main path's
-# local-step minibatch and evaluation-set shapes
+# local-step minibatch and evaluation-set shapes; then the lane-group
+# kernel's branches: D = 59 (not a multiple of its 8 lanes, scalar loads)
+# in bf16, D = 300 (32 lanes, past the 8 elements a lane keeps), N = 1001
+# (not a multiple of the block's 16 points)
 KM_CASES = [
     (100, 8, 3, "float32"),
     (1000, 64, 3, "float32"),
@@ -35,6 +39,9 @@ KM_CASES = [
     (300, 64, 3, "bfloat16"),
     (128, 64, 3, "float32"),
     (4000, 64, 3, "float32"),
+    (200, 59, 3, "bfloat16"),
+    (64, 300, 4, "float32"),
+    (1001, 64, 3, "float32"),
 ]
 
 
@@ -70,6 +77,35 @@ def test_kmeans_assign_matches_plain(n, d, k, dtype, cuda_device):
     torch.testing.assert_close(d2, d2_ref, rtol=rtol, atol=atol)
     if dtype == "float32":
         assert float((a == a_ref).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("n,d,k,dtype", [(300, 40, 3, "bfloat16"),
+                                         (200, 24, 3, "bfloat16")])
+def test_kmeans_assign_lanes_beyond_d(n, d, k, dtype, cuda_device):
+    """More lanes per point than a bf16 row has 16-byte vectors (8 lanes
+    for 5 at D = 40, 4 for 3 at D = 24): the lanes without a share add
+    nothing and still join every shuffle."""
+    assert km_kernel.lane_group(d) > d // 8
+    x, c = _inputs(n, d, k, dtype, n + d, cuda_device)
+    a, d2 = ops.assign_with_dist(x, c)
+    torch.cuda.synchronize()
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    torch.testing.assert_close(d2, d2_ref, rtol=1e-2, atol=1e-2)
+
+
+def test_kmeans_assign_unaligned_rows_take_scalar_loads(cuda_device):
+    """Rows that do not start on 16 bytes (a view one element into its
+    storage) are read with scalar loads."""
+    x, c = _inputs(129, 64, 3, "float32", 4, cuda_device)
+    flat = torch.empty(129 * 64 + 1, device=cuda_device)
+    flat[1:] = x.reshape(-1)
+    xs = flat[1:].view(129, 64)
+    assert xs.is_contiguous() and xs.data_ptr() % 16
+    a, d2 = ops.assign_with_dist(xs, c)
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d2, d2_ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(a, a_ref)
 
 
 def test_kmeans_assign_tie_goes_to_lowest_index(cuda_device):
@@ -117,7 +153,11 @@ def test_kmeans_cuda_local_step_matches_plain_step(cuda_device):
 # (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
 # cases, then the main path's prefill shapes (mamba2-370m: 32 heads of 64,
 # d_state 128, chunk 128) and ragged chunks (a 100-token prompt gives
-# L=100; 40 tokens under the smoke config's chunk 32 pad to 64).
+# L=100; 40 tokens under the smoke config's chunk 32 pad to 64); then the
+# bf16 (tensor-core) instance's branches: P tile P (the serving shape,
+# B * H = 160) and P / 2 (B * H <= 66), P = N = 128 (jamba-1.5's head dim
+# and d_state) with P tiles of 64 and of 128 (a warp holding 4 state
+# items), the mid-flight admission prefill (B = 1, S = 128), 5 chunks.
 SSD_CASES = [
     (2, 128, 4, 32, 16, 32, "float32"),
     (1, 256, 2, 64, 128, 128, "float32"),
@@ -130,6 +170,13 @@ SSD_CASES = [
     (2, 100, 4, 64, 128, 100, "float32"),
     (3, 64, 4, 32, 16, 32, "float32"),
     (1, 384, 2, 128, 128, 128, "float32"),
+    (5, 256, 32, 64, 128, 128, "bfloat16"),
+    (2, 256, 8, 128, 128, 128, "bfloat16"),
+    (1, 128, 136, 128, 32, 64, "bfloat16"),
+    (2, 128, 70, 128, 128, 64, "bfloat16"),
+    (1, 128, 32, 64, 128, 128, "bfloat16"),
+    (2, 640, 8, 64, 128, 128, "bfloat16"),
+    (2, 100, 4, 32, 16, 100, "bfloat16"),
 ]
 
 
@@ -183,6 +230,42 @@ def test_ssd_scan_decay_never_overflows(cuda_device):
     assert_ssd_close(y, state, x, da, bm, cm, 128)
 
 
+def test_ssd_scan_bf16_decay_never_overflows(cuda_device):
+    x, da, bm, cm = ssd_inputs(2, 256, 4, 64, 128, "bfloat16", 3,
+                               cuda_device)
+    da = da * 200.0
+    y, state = ssd_ops.ssd(x, da, bm, cm, 128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert_ssd_close(y, state, x, da, bm, cm, 128)
+
+
+@pytest.mark.parametrize("p,n,chunk", [(64, 128, 128), (32, 16, 32),
+                                       (128, 128, 100), (128, 32, 64)])
+def test_ssd_scan_bf16_smem_plan_matches_the_kernel(p, n, chunk,
+                                                    cuda_device):
+    lib = ssd_kernel.library()
+    for tile in (p // 2, p):
+        assert ssd_kernel.smem_bytes(p, n, chunk, torch.bfloat16, tile) == \
+            lib.ssd_scan_bf16_smem(tile, n, chunk)
+
+
+def test_ssd_scan_bf16_refuses_what_it_cannot_take(cuda_device,
+                                                   monkeypatch):
+    """N not a multiple of 16, or a plan over the card's shared memory:
+    the op raises and never gives way to the plain version."""
+    monkeypatch.setattr(ssd_ops, "ssd_reference", lambda *a, **k: pytest.fail(
+        "the plain SSD ran for a CUDA tensor"))
+    before = ssd_ops.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ssd_ops.ssd(*ssd_inputs(1, 128, 2, 32, 24, "bfloat16", 1,
+                                cuda_device), 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_ops.ssd(*ssd_inputs(1, 128, 2, 64, 256, "bfloat16", 1,
+                                cuda_device), 128)
+    assert ssd_ops.launches == before
+
+
 def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
     x, da, bm, cm = ssd_inputs(1, 256, 2, 32, 16, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="chunk"):
@@ -192,7 +275,8 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
                     cm, 128)
     with pytest.raises(TypeError, match="da"):
         ssd_ops.ssd(x, da.to(torch.bfloat16), bm, cm, 128)
-    assert ssd_kernel.smem_bytes(256, 256, 128) > ssd_kernel.max_smem(0)
+    assert ssd_kernel.smem_bytes(256, 256, 128, torch.float32) \
+        > ssd_kernel.max_smem(0)
     big = ssd_inputs(1, 128, 1, 256, 256, "float32", 2, cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         ssd_ops.ssd(*big, 128)

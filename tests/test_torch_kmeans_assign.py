@@ -18,7 +18,7 @@ from repro.kernels.kmeans_assign.ops import \
 from repro.kernels.kmeans_assign.ref import \
     assign_ref as jax_assign_ref  # noqa: E402
 from repro_torch.config import get_config  # noqa: E402
-from repro_torch.kernels.kmeans_assign import ops, ref  # noqa: E402
+from repro_torch.kernels.kmeans_assign import kernel, ops, ref  # noqa: E402
 from repro_torch.models import KMeans  # noqa: E402
 
 # the reference's tests/test_kernels.py cases
@@ -112,3 +112,29 @@ def test_kmeans_cuda_impl_refuses_cpu_tensors():
     params = model.init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="impl='torch'"):
         model.assign(params, torch.zeros(4, 64))
+
+
+# (D, lanes per point): at most 8 elements a lane, a power of two <= 32.
+# D = 24 and 40 give more lanes than bf16 rows have 16-byte vectors (4
+# lanes for 3, 8 for 5): the kernel's lanes with no vector of their own
+@pytest.mark.parametrize("d,group", [(1, 1), (8, 1), (9, 2), (16, 2),
+                                     (24, 4), (40, 8), (59, 8), (64, 8),
+                                     (65, 16), (256, 32), (300, 32),
+                                     (4096, 32)])
+def test_lane_group_follows_d(d, group):
+    assert kernel.lane_group(d) == group
+
+
+def test_plan_spreads_the_local_step_over_blocks():
+    group = kernel.plan(64, 3, 232448)
+    points = kernel.THREADS // group
+    assert (group, points) == (8, 16)
+    assert kernel.THREADS % group == 0 and -(-128 // points) == 8
+    assert kernel.plan(8, 3, 232448) == 1
+
+
+def test_plan_refuses_centroids_beyond_shared_memory():
+    assert kernel.smem_bytes(64, 3) == 4 * (64 * 3 + 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.plan(64, 1000, 232448)
+    assert kernel.plan(64, 800, 232448) == 8

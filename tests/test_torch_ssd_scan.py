@@ -17,7 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.ssd_scan.ops import ssd as jax_ssd  # noqa: E402
 from repro.models import mamba2 as jax_m  # noqa: E402
 from repro_torch.interop import tree_from_numpy  # noqa: E402
-from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel, ops, ref  # noqa: E402
 from repro_torch.models import mamba2 as port_m  # noqa: E402
 
 # (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
@@ -155,3 +155,65 @@ def test_ssd_rejects_bad_inputs():
         ops.ssd(x, da.double(), bm, cm, 32)
     with pytest.raises(ValueError, match="x \\[B,S,H,P\\]"):
         ops.ssd(x[0], da, bm, cm, 32)
+
+
+H100_SMEM, H100_SMS = 232448, 132
+
+
+# (P, N, L, dtype, P tile, bytes): f32 as the CUDA-core block lays it out;
+# bf16 two stages of x [Lp, Pt+8], B and C [Lp, N+8] (bf16) and da [Lp],
+# the state's hi and lo parts [Pt, N+8] and five small f32 vectors
+@pytest.mark.parametrize("p,n,chunk,dtype,tile,want", [
+    (64, 128, 128, "float32", None, 166144),
+    (64, 128, 128, "bfloat16", 64, 214048),
+    (64, 128, 128, "bfloat16", 32, 180256),
+    (32, 16, 32, "bfloat16", 16, 11552),
+    (64, 128, 100, "bfloat16", 64, 191648),
+])
+def test_smem_plan_by_dtype(p, n, chunk, dtype, tile, want):
+    assert kernel.smem_bytes(p, n, chunk, getattr(torch, dtype),
+                             tile) == want
+
+
+# (B, H, P, N, L, dtype, P tile): bf16 halves P only where twice B * H
+# blocks still fit one wave of the card's 132 SMs, and takes the other
+# tile where the first does not fit its shared memory; f32 keeps P
+@pytest.mark.parametrize("b,h,p,n,chunk,dtype,tile", [
+    (4, 32, 64, 128, 128, "bfloat16", 64),     # the serving prefill
+    (1, 32, 64, 128, 128, "bfloat16", 32),     # a lone admitted prompt
+    (5, 32, 64, 128, 128, "bfloat16", 64),
+    (2, 8, 128, 128, 128, "bfloat16", 64),     # P = 128 does not fit
+    (8, 32, 128, 128, 128, "bfloat16", 64),
+    (1, 136, 128, 32, 64, "bfloat16", 128),
+    (1, 4, 32, 16, 32, "bfloat16", 16),
+    (1, 4, 16, 16, 32, "bfloat16", 16),        # no tile of 8
+    (4, 32, 64, 128, 128, "float32", 64),
+])
+def test_p_tile_choice(b, h, p, n, chunk, dtype, tile):
+    assert kernel.p_tile(b, h, p, n, chunk, getattr(torch, dtype),
+                         H100_SMEM, H100_SMS) == tile
+
+
+# (P tile, N, items a warp holds): 8 warps share the P tile's 16-row
+# slices, each slice's 32-column groups split among its warps
+@pytest.mark.parametrize("tile,n,items", [(16, 128, 1), (32, 128, 1),
+                                          (64, 128, 2), (128, 128, 4),
+                                          (128, 32, 1), (64, 256, 4),
+                                          (16, 16, 1)])
+def test_state_items(tile, n, items):
+    assert kernel.state_items(tile, n) == items
+
+
+# (P, N, L, dtype, words the refusal names)
+@pytest.mark.parametrize("p,n,chunk,dtype,words", [
+    (32, 24, 64, "bfloat16", "multiples of 16"),
+    (40, 16, 64, "bfloat16", "multiples of 16"),
+    (64, 256, 128, "bfloat16", "shared memory"),
+    (512, 16, 32, "bfloat16", "no P tile"),
+    (128, 512, 16, "bfloat16", "registers"),
+    (256, 256, 128, "float32", "shared memory"),
+])
+def test_p_tile_refusals_name_the_limit(p, n, chunk, dtype, words):
+    with pytest.raises(ValueError, match=words):
+        kernel.p_tile(1, 2, p, n, chunk, getattr(torch, dtype), H100_SMEM,
+                      H100_SMS)
