@@ -20,6 +20,15 @@ Phases, each printing JSON lines:
               through ``ELSession.run_sync`` and ``run_async`` on the card;
               the same runs on the CPU with the plain E-step must make the
               same decisions; then svm-wafer sync at full width;
+4b. compiled -- the same two workloads through the compiled sync round
+              (``ELSession.run_sync_ingraph``: chunks of masked rounds,
+              each a CUDA graph replay, the bandit on the card, every
+              K-means local step one launch of ``kmeans_assign``'s batched
+              entry): on draws replayed from a seeded CPU generator the
+              card's decisions must equal the port's own CPU run's; then
+              on the card's own generator, run seconds, rounds, chunks
+              (host syncs), graphs, replays and kernel launches beside the
+              host loop's seconds;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -38,12 +47,13 @@ Phases, each printing JSON lines:
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
-              beside the time of one empty launch; ``ssd_scan`` and
+              beside the time of one empty launch (the batched
+              ``kmeans_assign`` beside 4 single launches); ``ssd_scan`` and
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 5, 6, 7) is driven with every kernel's launch count set to 0
+Each path (4, 4b, 5, 6, 7) is driven with every kernel's launch count set to 0
 just before it and read just after.  Then the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero, as does a machine without CUDA or a directory
@@ -183,6 +193,56 @@ def kernel_vs_plain() -> float:
     check(not bool((a == 1).any()), "kmeans_assign tie went to the higher "
           "index")
     check(bool((a == a_ref).all()), "kmeans_assign tie case disagrees")
+    return main_err
+
+
+# (e, n, d, k, dtype name) of the batched entry: the compiled round's local
+# step (4 edges of (128, 64, 3)), N not a multiple of the block's points,
+# wafer widths (scalar loads), K = 1, bf16
+KM_BATCHED_CASES = [(4, 128, 64, 3, "float32"), (4, 1001, 64, 3, "float32"),
+                    (3, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
+                    (3, 300, 64, 3, "bfloat16")]
+KM_BATCHED_MAIN = (4, 128, 64, 3)
+
+
+def km_batched_inputs(e, n, d, k, dtype_name, seed):
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, dtype_name)
+    x = torch.randn(e, n, d, generator=g).to("cuda", dtype)
+    c = torch.randn(e, k, d, generator=g).to("cuda", dtype)
+    return x, c
+
+
+def kernel_batched_vs_plain() -> float:
+    """The batched entry bit-equal to E single launches, and within the
+    single entry's tolerance of the plain version; returns the largest
+    |d2 - d2_plain| at the main path's shape."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops, ref
+    main_err = 0.0
+    for i, (e, n, d, k, dt) in enumerate(KM_BATCHED_CASES):
+        x, c = km_batched_inputs(e, n, d, k, dt, seed=50 + i)
+        a, d2 = ops.assign_with_dist_batched(x, c)
+        singles = [ops.assign_with_dist(x[j], c[j]) for j in range(e)]
+        a_ref, d2_ref = ref.assign_ref(x, c)
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a[j], sa) and torch.equal(d2[j], sd)
+                        for j, (sa, sd) in enumerate(singles))
+        tol = (1e-2, 1e-2) if dt == "bfloat16" else (1e-4, 1e-3)
+        err = float((d2 - d2_ref).abs().max())
+        agree = float((a == a_ref).float().mean())
+        emit("kernel_vs_plain", kernel="kmeans_assign_batched", e=e, n=n,
+             d=d, k=k, dtype=dt, bit_equal_to_singles=bit_equal,
+             max_abs_err=err, assign_agree=agree)
+        check(bit_equal, f"kmeans_assign batched != {e} single launches at "
+              f"{(e, n, d, k, dt)}")
+        check(torch.allclose(d2, d2_ref, rtol=tol[0], atol=tol[1]),
+              f"kmeans_assign batched d2 off at {(e, n, d, k, dt)}: {err}")
+        check(dt == "bfloat16" or agree >= 0.999,
+              f"kmeans_assign batched assignments agree {agree}")
+        if (e, n, d, k) == KM_BATCHED_MAIN:
+            main_err = err
     return main_err
 
 
@@ -476,7 +536,125 @@ def slice_phase() -> dict:
          reason=rep.terminated_reason, run_s=secs)
     check(rep.n_aggregations > 0 and 0.5 < rep.final_metric <= 1.0,
           f"svm-wafer sync: accuracy {rep.final_metric}")
-    return {"kmeans_assign": launches}
+    host_s = {"kmeans-traffic": gpu_reports["sync"][1], "svm-wafer": secs}
+    return {"kmeans_assign": launches}, host_s
+
+
+# -- phase 4b: the compiled sync round ---------------------------------------------
+
+COMPILED_ROUNDS = 512             # run_sync_ingraph's default horizon
+
+
+def compiled_session(fx, init):
+    from repro_torch.el import ELSession
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=4,
+                              utility=fx["utility"])
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=init,
+                           n_samples=fx["n_samples"]))
+
+
+def replay_draws(cfg, batch, seed):
+    """The compiled round's draws for every round of the horizon from a
+    seeded CPU generator (numpy), handed to both devices alike."""
+    import numpy as np
+    from repro_torch.el.rng import ReplayDraws
+    rng = np.random.default_rng(seed)
+    k, e = cfg.max_interval, cfg.n_edges
+    return ReplayDraws(rng.gumbel(size=(COMPILED_ROUNDS, k)),
+                       rng.uniform(size=(COMPILED_ROUNDS, e, k, batch)),
+                       rng.standard_normal((COMPILED_ROUNDS, e)))
+
+
+def flip_bound(arch, y) -> float:
+    return f1_flip_bound(y) if arch == "kmeans-traffic" else 1.0 / len(y)
+
+
+def compiled_phase(host_s: dict) -> dict:
+    import math
+    import torch
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.kmeans_assign import ops
+    from repro_torch.launch.classic import classic_fixture
+
+    fixtures = {arch: {dev: classic_fixture(arch, samples=20000, n_edges=4,
+                                            device=dev)
+                       for dev in ("cuda", "cpu")}
+                for arch in ("kmeans-traffic", "svm-wafer")}
+    # (a) replayed draws: the card's decisions are the CPU run's
+    for arch, fx in fixtures.items():
+        init = params_to_numpy(fx["cuda"]["init_params"])
+        reps = {}
+        for dev in ("cuda", "cpu"):
+            sess = compiled_session(fx[dev], params_from_numpy(init, dev))
+            draws = replay_draws(sess.cfg, fx[dev]["executor"].batch, seed=3)
+            reps[dev] = sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS,
+                                              draws=draws)
+        gpu, cpu = reps["cuda"], reps["cpu"]
+        bound = flip_bound(arch, fx["cpu"]["executor"].eval_set["y"].numpy())
+        same = [r.interval for r in gpu.records] == \
+            [r.interval for r in cpu.records]
+        emit("compiled_vs_cpu", arch=arch, draws="replayed (numpy seed 3)",
+             rounds=gpu.n_aggregations, cpu_rounds=cpu.n_aggregations,
+             same_intervals=same, arm_pulls=gpu.arm_pulls,
+             cpu_arm_pulls=cpu.arm_pulls, reason=gpu.terminated_reason,
+             final_metric=gpu.final_metric, cpu_final_metric=cpu.final_metric,
+             flip_bound=bound, consumed=gpu.total_consumed,
+             cpu_consumed=cpu.total_consumed,
+             device_loop=gpu.telemetry["device_loop"])
+        check(same, f"compiled {arch}: card and CPU intervals differ")
+        check(gpu.arm_pulls == cpu.arm_pulls and gpu.terminated_reason ==
+              cpu.terminated_reason, f"compiled {arch}: arm pulls or end")
+        check(abs(gpu.final_metric - cpu.final_metric) <= bound,
+              f"compiled {arch}: final metric {gpu.final_metric} vs CPU "
+              f"{cpu.final_metric}")
+
+    # (b) the card's own generator: the main path, counts read around it
+    result = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    for arch, fx in fixtures.items():
+        sess = compiled_session(fx["cuda"], fx["cuda"]["init_params"])
+        runs = []
+        for _ in range(2):             # the first run captures the graph
+            before = ops.batched_launches
+            t0 = time.perf_counter()
+            rep = sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            loop = rep.telemetry["device_loop"]
+            runs.append({"run_s": secs, "rounds": rep.n_aggregations,
+                         "kernel_launches": ops.batched_launches - before,
+                         "reason": rep.terminated_reason,
+                         "final_metric": rep.final_metric,
+                         "arm_pulls": rep.arm_pulls, **loop})
+            check(rep.terminated_reason == "budget_exhausted"
+                  and rep.n_aggregations > 0
+                  and math.isfinite(rep.final_metric)
+                  and all(bool(torch.isfinite(v).all())
+                          for v in rep.final_params.values()),
+                  f"compiled {arch}: {rep.summary()}")
+        emit("compiled", arch=arch, device="cuda", draws="torch.Generator "
+             "on the card, seed cfg.seed + 17", runs=runs,
+             host_loop_run_s=host_s[arch])
+        check(runs[0]["graphs_captured"] == 1 and
+              runs[1]["graphs_captured"] == 0 and
+              all(r["replays"] == r["chunks"] > 0 for r in runs),
+              f"compiled {arch}: graphs / replays {runs}")
+        result[arch] = runs
+    launches = counts()
+    km = result["kmeans-traffic"]
+    check(launches["kmeans_assign_batched"] > 0 and
+          launches["kmeans_assign_batched"] == sum(
+              r["kernel_launches"] for r in km),
+          f"compiled kmeans: batched kmeans_assign launches {launches}")
+    # the single entry runs once per kmeans run: the report's final F1
+    # (``ex.evaluate``'s E-step over the evaluation set)
+    check(launches["kmeans_assign"] == len(km) and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"compiled: unexpected kernel launches {launches}")
+    return {"kmeans_assign_batched": launches["kmeans_assign_batched"],
+            "runs": result}
 
 
 # -- phase 5: mamba2-370m serving ---------------------------------------------
@@ -756,6 +934,7 @@ def reset_counts() -> None:
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     fa_ops.launches = km_ops.launches = ssd_ops.launches = 0
+    km_ops.batched_launches = 0
 
 
 def counts() -> dict:
@@ -763,7 +942,9 @@ def counts() -> dict:
     from repro_torch.kernels.kmeans_assign import ops as km_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"flash_attention": fa_ops.launches,
-            "kmeans_assign": km_ops.launches, "ssd_scan": ssd_ops.launches}
+            "kmeans_assign": km_ops.launches,
+            "kmeans_assign_batched": km_ops.batched_launches,
+            "ssd_scan": ssd_ops.launches}
 
 
 def train_phase() -> dict:
@@ -981,6 +1162,31 @@ def kmeans_timing(n: int, d: int, k: int) -> dict:
     return out
 
 
+def kmeans_batched_timing(e: int, n: int, d: int, k: int) -> dict:
+    """The batched entry at the compiled round's local-step shape beside
+    ``e`` launches of the single entry on the same inputs, the plain
+    version and the library's batched ``cdist`` + ``min``."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops, ref
+    x, c = km_batched_inputs(e, n, d, k, "float32", seed=8)
+    nbytes = e * ((n * d + k * d) * 4 + n * (4 + 4))
+    flops = e * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    out = {"e": e, "n": n, "d": d, "k": k}
+    for key, fn in (
+            ("", lambda: ops.assign_with_dist_batched(x, c)),
+            ("singles_", lambda: [ops.assign_with_dist(x[i], c[i])
+                                  for i in range(e)]),
+            ("plain_", lambda: ref.assign_ref(x, c)),
+            ("library_", lambda: torch.cdist(x, c).min(-1))):
+        out[key + "ms"] = cuda_ms(fn, queued=True)       # the card's time
+        out[key + "call_ms"] = cuda_ms(fn)               # host enqueue incl.
+    out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    return out
+
+
 def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's and
     its bound (bf16 operations at the tensor cores' rate, f32 at the CUDA
@@ -1150,9 +1356,12 @@ def main() -> None:
 
     build_all()
     km_err = kernel_vs_plain()
+    kmb_err = kernel_batched_vs_plain()
     ssd_err = ssd_vs_plain()
     fa_err = flash_vs_plain()
-    launches = slice_phase()
+    launches, host_s = slice_phase()
+    compiled = compiled_phase(host_s)
+    launches["kmeans_assign_batched"] = compiled["kmeans_assign_batched"]
     launches.update(serve_phase())
     launches.update(train_phase())
     train_vs_plain()
@@ -1160,6 +1369,8 @@ def main() -> None:
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES]
     km = km_shapes[0]
+    kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
+    emit("kmeans_batched_timing", **kmb)
     ssd = ssd_timing(*SSD_MAIN)
     emit("ssd_timing", **ssd)
     ssd32 = ssd_timing(*SSD_MAIN[:-1], "float32")
@@ -1189,6 +1400,19 @@ def main() -> None:
         "plain_ms": km["plain_ms"], "bound_ms": km["bound_ms"],
         "bound_by": km["bound_by"], "library_ms": km["library_ms"],
         "launch_floor_ms": launch_floor_ms, "shapes": km_shapes}, {
+        "name": "kmeans_assign_batched", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
+                    "jax.vmap, src/repro/el/ingraph.py:526)",
+        "launches": launches["kmeans_assign_batched"],
+        "max_abs_err": kmb_err, "ms": kmb["ms"], "kernel_ms": kmb["ms"],
+        "call_ms": kmb["call_ms"], "plain_ms": kmb["plain_ms"],
+        "bound_ms": kmb["bound_ms"], "bound_by": kmb["bound_by"],
+        "library_ms": kmb["library_ms"],
+        "library": "torch.cdist(x, c).min(-1) on [E, N, D] x [E, K, D]",
+        "singles_ms": kmb["singles_ms"],
+        "singles_call_ms": kmb["singles_call_ms"],
+        "launch_floor_ms": launch_floor_ms, "shapes": [kmb]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

@@ -45,6 +45,14 @@
 // The dependent chain at D = 64 is now 8 FMAs, 3 shuffles and an add per
 // product. wgmma/TMA pipelines are left for when a caller's shape makes this
 // bandwidth- or compute-bound.
+//
+// Edges: the reference also runs the TPU kernel under jax.vmap over edges
+// (src/repro/el/ingraph.py, the compiled EL round's local blocks), so the
+// compiled round's E-step is E problems X [E, N, D] against C [E, K, D], each
+// edge against its own centroids. One launch covers them all: blockIdx.y is
+// the edge, blockIdx.x the point block, and each block stages its own edge's
+// centroids and norms in shared memory. A single problem is one edge, so a
+// batched launch computes bit for bit what E single launches compute.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -154,6 +162,13 @@ __global__ void __launch_bounds__(kThreads)
   float* c_s = reinterpret_cast<float*>(smem4);  // [k, d]
   float* c2_s = c_s + k * d;                      // [k]
 
+  // this block's edge: its points, centroids and outputs
+  const long long edge = blockIdx.y;
+  x += edge * n * d;
+  centers += edge * k * d;
+  out_assign += edge * n;
+  out_d2 += edge * n;
+
   const int tid = threadIdx.x;
   const int r = tid & (group - 1);       // lane within the group
   const int gi = tid / group;            // group within the block
@@ -215,8 +230,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int V>
-int launch(const void* x, const void* centers, int n, int d, int k, int group,
-           int32_t* out_assign, float* out_d2, cudaStream_t stream) {
+int launch(const void* x, const void* centers, int edges, int n, int d, int k,
+           int group, int32_t* out_assign, float* out_d2,
+           cudaStream_t stream) {
   auto kernel = kmeans_assign_kernel<T, V>;
   const size_t smem = (size_t(k) * d + k) * sizeof(float);
   if (smem > 48 * 1024) {
@@ -225,7 +241,7 @@ int launch(const void* x, const void* centers, int n, int d, int k, int group,
     if (err != cudaSuccess) return (int)err;
   }
   const int points = kThreads / group;   // per block
-  const int blocks = (n + points - 1) / points;
+  const dim3 blocks((n + points - 1) / points, edges);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(centers), n, d, k,
       group, out_assign, out_d2);
@@ -233,18 +249,19 @@ int launch(const void* x, const void* centers, int n, int d, int k, int group,
 }
 
 // 16-byte vectors when every row of x and of the centroids starts on a
-// 16-byte boundary; scalars otherwise
+// 16-byte boundary (every edge's too: rows are D elements apart); scalars
+// otherwise
 template <typename T>
-int launch_dtype(const void* x, const void* centers, int n, int d, int k,
-                 int group, int32_t* out_assign, float* out_d2,
+int launch_dtype(const void* x, const void* centers, int edges, int n, int d,
+                 int k, int group, int32_t* out_assign, float* out_d2,
                  cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   const bool aligned = d % kV == 0 && (uintptr_t)x % 16 == 0 &&
                        (uintptr_t)centers % 16 == 0;
   if (aligned)
-    return launch<T, kV>(x, centers, n, d, k, group, out_assign, out_d2,
-                         stream);
-  return launch<T, 1>(x, centers, n, d, k, group, out_assign, out_d2,
+    return launch<T, kV>(x, centers, edges, n, d, k, group, out_assign,
+                         out_d2, stream);
+  return launch<T, 1>(x, centers, edges, n, d, k, group, out_assign, out_d2,
                       stream);
 }
 
@@ -252,20 +269,23 @@ int launch_dtype(const void* x, const void* centers, int n, int d, int k,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and centers share it). group: lanes
-// per point, a power of two <= 32. Returns the cudaError_t of the launch
-// (0 = success).
-int kmeans_assign_launch(const void* x, const void* centers, int n, int d,
-                         int k, int dtype, int group, int32_t* out_assign,
-                         float* out_d2, void* stream) {
+// x [edges, n, d] and centers [edges, k, d], contiguous, into out_assign /
+// out_d2 [edges, n]; edge e's points against edge e's centroids (edges = 1:
+// one problem). dtype: 0 = float32, 1 = bfloat16 (x and centers share it).
+// group: lanes per point, a power of two <= 32. Returns the cudaError_t of
+// the launch (0 = success).
+int kmeans_assign_launch(const void* x, const void* centers, int edges, int n,
+                         int d, int k, int dtype, int group,
+                         int32_t* out_assign, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (group < 1 || group > 32 || (group & (group - 1)) != 0)
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || edges < 1 ||
+      edges > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dtype<float>(x, centers, n, d, k, group, out_assign,
+    return launch_dtype<float>(x, centers, edges, n, d, k, group, out_assign,
                                out_d2, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(x, centers, n, d, k, group,
+    return launch_dtype<__nv_bfloat16>(x, centers, edges, n, d, k, group,
                                        out_assign, out_d2, s);
   return (int)cudaErrorInvalidValue;
 }

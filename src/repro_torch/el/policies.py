@@ -36,6 +36,10 @@ class Policy:
 
     name: str = ""
     init_phase: bool = True        # paper §IV.B: try every feasible arm once
+    #: Modes the compiled device programs implement for this policy
+    #: (``repro_torch.el.ingraph``'s sync round; the async event engine
+    #: is a later slice).  Empty = host paths only.
+    ingraph_modes: Tuple[str, ...] = ()
 
     def __init__(self, ucb_c: float = 2.0, eps: float = 0.1,
                  fixed_arm: int = 3, **_: object):
@@ -101,6 +105,14 @@ def available() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def ingraph_modes(name: str) -> Tuple[str, ...]:
+    """Modes (``sync``/``async``) the compiled programs support for the
+    named policy; ``()`` for host-only or unknown policies (the
+    reference's registry, mode for mode)."""
+    cls = _REGISTRY.get(name)
+    return getattr(cls, "ingraph_modes", ()) if cls is not None else ()
+
+
 # ---------------------------------------------------------------------------
 # The paper's procedure and its ablations
 # ---------------------------------------------------------------------------
@@ -111,6 +123,7 @@ class OL4ELPolicy(Policy):
     """§IV.B.1 3-step procedure: P(i) ∝ UCB-density_i × frequency_i."""
 
     name = "ol4el"
+    ingraph_modes = ("sync", "async")   # shared / per-edge bandits
 
     def _select(self, state, residual_budget, costs, feasible, rng):
         density = self._density(state, costs, feasible)
@@ -216,6 +229,7 @@ class TaskAllocPolicy(Policy):
 
     name = "task_alloc"
     init_phase = False
+    ingraph_modes = ("sync",)          # via the scenario policy switch
 
     def _select(self, state, residual_budget, costs, feasible, rng):
         arms = np.arange(len(costs))
@@ -231,6 +245,7 @@ class DelayEnergyPolicy(Policy):
 
     name = "delay_energy"
     init_phase = False
+    ingraph_modes = ("sync",)          # via the scenario policy switch
 
     def _select(self, state, residual_budget, costs, feasible, rng):
         min_c = max(float(np.min(costs)), 1e-9)

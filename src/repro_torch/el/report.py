@@ -1,9 +1,6 @@
-"""Run artifacts of the EL runtime: per-round records + the final report.
-
-The functions that turn a compiled program's history arrays into these
-(``records_from_out`` / ``report_from_out`` in the reference) come with
-the compiled-program slice.
-"""
+"""Run artifacts of the EL runtime: per-round records + the final report,
+plus the builders that turn a compiled program's ``out`` dict (its history
+arrays, read back to the host once) into them."""
 
 from __future__ import annotations
 
@@ -41,6 +38,10 @@ class ELReport:
     arm_pulls: Optional[List[int]] = None
     elapsed_s: float = 0.0
     final_params: Any = None           # the trained global model
+    #: observability payload: ``"cache"`` holds the session's
+    #: ``ProgramCache.stats()`` snapshot on compiled runs, ``"device_loop"``
+    #: the compiled run's chunks (host syncs), graphs and replays.
+    telemetry: Optional[Dict[str, Any]] = None
 
     def metric_at_consumption(self, budget_frac: float,
                               total_budget: float) -> float:
@@ -71,3 +72,43 @@ class ELReport:
                 f"aggs={self.n_aggregations} "
                 f"consumed={self.total_consumed:.0f} "
                 f"({self.terminated_reason})")
+
+
+def records_from_out(out: Dict[str, Any], lo: int, hi: int
+                     ) -> List[RoundRecord]:
+    """``RoundRecord``s for rounds ``[lo, hi)`` of the compiled sync
+    program's history arrays (sync rounds have no edge: ``-1``)."""
+    return [
+        RoundRecord(float(out["wall"][t]), float(out["consumed"][t]),
+                    float(out["metric"][t]), float(out["utility"][t]),
+                    float(out["interval"][t]), -1, t + 1)
+        for t in range(lo, hi)
+    ]
+
+
+def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
+                    horizon: int, final_metric: float, final_params: Any,
+                    elapsed_s: float,
+                    records: Optional[List[RoundRecord]] = None
+                    ) -> ELReport:
+    """Assemble an :class:`ELReport` from the compiled sync program's
+    ``out``: the run ended on its budget unless it reached ``horizon``
+    rounds.  (The reference's async branches arrive with the async event
+    engine.)"""
+    n = int(out["n_rounds"])
+    if records is None:
+        records = records_from_out(out, 0, n)
+    reason = "max_rounds" if n >= horizon else "budget_exhausted"
+    return ELReport(
+        records=records,
+        final_metric=float(final_metric),
+        n_aggregations=n,
+        total_consumed=float(out["consumed"][n - 1]) if n else 0.0,
+        wall_time=float(out["wall_time"]),
+        terminated_reason=reason,
+        policy=policy,
+        mode=mode,
+        arm_pulls=[int(c) for c in out["arm_pulls"]],
+        elapsed_s=elapsed_s,
+        final_params=final_params,
+    )

@@ -16,9 +16,13 @@ random streams are the reference's numpy ones (coordinator
 ``default_rng(seed)``, block seeds ``default_rng(seed + 17)``, minibatch
 indices in the executor), so a seeded run makes the reference's decisions.
 
-The compiled device programs (``run_sync_ingraph`` /
-``run_async_ingraph``), ablation ``sweep``s and ``run_async``'s ``"jax"``
-streams are later slices of the port; they raise ``NotImplementedError``.
+``run_sync_ingraph`` runs the whole budgeted sync loop on the device
+(``repro_torch.el.ingraph``): chunks of masked rounds, each a CUDA graph
+replay on a card, with the bandit on the device and one host sync per
+chunk.  Its draws come through the RNG seam (``repro_torch.el.rng``).
+The compiled async program (``run_async_ingraph``), ablation ``sweep``s
+and ``run_async``'s ``"jax"`` streams are later slices of the port; they
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,24 +33,28 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from repro_torch.config import ExperimentConfig, OL4ELConfig
 from repro_torch.core.coordinator import CloudCoordinator
 from repro_torch.core.utility import UtilityEstimator, param_l2_delta
 from repro_torch.el import policies as el_policies
+from repro_torch.el.cache import ProgramCache
 from repro_torch.el.events.knobs import default_event_horizon
 from repro_torch.el.executor import EdgeExecutor, validate_executor
-from repro_torch.el.report import ELReport, RoundRecord
+from repro_torch.el.report import (ELReport, RoundRecord, records_from_out,
+                                   report_from_out)
 from repro_torch.federated.aggregation import (staleness_alpha, staleness_mix,
                                                weighted_average)
 
 Params = Any
 RoundCallback = Callable[[RoundRecord], None]
 
-_INGRAPH_SLICE = ("the port's slice of the in-graph bandit and compiled "
-                  "sync program")
-_EVENTS_SLICE = "the port's slice of the async event engine"
-_SWEEP_SLICE = "the port's slice of the sweep engine"
+_EVENTS_SLICE = ("the port's slice of the async event engine (ROADMAP "
+                 "Queue 1 item 8)")
+_SWEEP_SLICE = "the port's slice of the sweep engine (ROADMAP Queue 1 item 9)"
+_MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
+_OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
 
 
 class ELSession:
@@ -69,6 +77,12 @@ class ELSession:
         self._callbacks: List[RoundCallback] = []
         self.coord: Optional[CloudCoordinator] = None   # built per run
         self._coord_consumed = False
+        # compiled-program cache: key -> SyncProgram (its static device
+        # buffers and, on a card, its captured CUDA graph).  Bounded FIFO:
+        # each entry pins a device copy of the padded per-edge datasets.
+        self._programs = ProgramCache(max_entries=8)
+        self._closed = False
+        self._fastpath = None                           # last sync program
 
     @property
     def async_alpha(self) -> float:
@@ -110,6 +124,10 @@ class ELSession:
     # -- internals -----------------------------------------------------------
 
     def _require_executor(self) -> EdgeExecutor:
+        if self._closed:
+            raise RuntimeError(
+                "this ELSession is closed (close() released its compiled "
+                "programs and device buffers); build a fresh session")
         if self._executor is None:
             raise RuntimeError("call .with_executor(...) before .run()")
         return self._executor
@@ -316,11 +334,141 @@ class ELSession:
             return self.run_sync(**kw)
         return self.run_async(**kw)
 
-    # -- later slices -----------------------------------------------------------
+    # -- compiled fast path ---------------------------------------------------
 
-    def run_sync_ingraph(self, *args, **kwargs) -> ELReport:
-        raise NotImplementedError(
-            f"run_sync_ingraph arrives with {_INGRAPH_SLICE}; use run_sync")
+    @staticmethod
+    def _structural_cfg(cfg: OL4ELConfig) -> OL4ELConfig:
+        """The config with the knob fields normalized away: ucb_c, budget,
+        heterogeneity, cost noise, the async mixing rate and seed enter
+        the compiled program as inputs (``sync_knobs``, the draws), so
+        cache keys built from this reuse one program (and one captured
+        graph) across any knob point."""
+        return dataclasses.replace(cfg, ucb_c=0.0, budget=0.0,
+                                   heterogeneity=1.0, seed=0,
+                                   cost_noise=0.0, cost_model="fixed",
+                                   async_alpha=0.5)
+
+    def _ingraph_cfg(self, caller: str,
+                     mode: Optional[str] = None) -> OL4ELConfig:
+        """The effective (mode-coerced, support-checked) fast-path config."""
+        from repro_torch.el.ingraph import check_ingraph_support
+        cfg = self.cfg
+        if mode is not None and cfg.mode != mode:
+            cfg = dataclasses.replace(cfg, mode=mode)
+        # an injected ol4el Policy object carries its own exploration
+        # constant; honor it like the host path does (other policy objects
+        # are rejected by the support check below)
+        if self._policy is not None and self._policy.name == "ol4el":
+            cfg = dataclasses.replace(cfg, ucb_c=self._policy.ucb_c)
+        check_ingraph_support(cfg, self._require_executor(), caller=caller)
+        return cfg
+
+    @property
+    def compile_cache(self) -> ProgramCache:
+        """The session's bounded compiled-program cache."""
+        return self._programs
+
+    def clear_compile_cache(self) -> int:
+        """Drop every cached program AND the last-used alias that keeps an
+        evicted one alive.  Each program pins its device buffers (the
+        padded per-edge datasets, the carry, a captured graph), so on a
+        long-lived session this is what releases device memory.  Returns
+        the number of cached programs dropped; the session stays usable —
+        the next run rebuilds."""
+        n = self._programs.clear()
+        self._fastpath = None
+        return n
+
+    def close(self) -> None:
+        """Release everything the session pins on the device: the compiled
+        programs plus the initial-params reference.  After ``close()`` the
+        session refuses to run — build a fresh one instead (idempotent)."""
+        self.clear_compile_cache()
+        self._init_params = None
+        self._executor = None
+        self._closed = True
+
+    def _cache_program(self, key: tuple, program: Any) -> Any:
+        """Insert into the bounded FIFO program cache (oldest evicted;
+        the last-used alias keeps an evicted program alive until the next
+        run replaces it)."""
+        return self._programs.put(key, program)
+
+    def run_sync_ingraph(self, max_rounds: int = 512,
+                         metric_fn: Optional[Callable] = None, *,
+                         draws=None, mesh=None, donate: bool = False,
+                         telemetry=None, profile: bool = False,
+                         contract=None) -> ELReport:
+        """Run the whole budgeted sync loop on the device.
+
+        The supported matrix is ``repro_torch.el.ingraph``'s: policy
+        ``ol4el``, cost model ``fixed`` or ``variable``, utility
+        ``eval_gain`` (a device metric) or ``param_delta``, an
+        ``InGraphExecutor`` such as ``ClassicExecutor``; an async config
+        is coerced to sync.  Unsupported combinations raise an informative
+        ``ValueError``/``TypeError``.  Callbacks still fire, streamed
+        after the device loop finishes.
+
+        ``draws`` is the RNG-seam provider (``repro_torch.el.rng``);
+        ``None`` draws from a ``torch.Generator`` on the program's device
+        seeded with ``cfg.seed + 17`` (the reference's run key).  A
+        ``ReplayDraws`` of the reference's ``jax.random`` draws reproduces
+        its decisions.
+
+        The program (its buffers and captured graph) is cached per
+        structural config, so knob changes (ucb_c, budget, heterogeneity,
+        cost noise, seed) reuse it.  ``report.telemetry`` holds the
+        cache's counters and ``"device_loop"``: rounds, chunks (= host
+        syncs), graphs captured and replays of this run.
+
+        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14), ``telemetry``,
+        ``profile`` and ``contract`` (item 12) raise
+        ``NotImplementedError``.
+        """
+        from repro_torch.el.ingraph import make_sync_program, sync_knobs
+        from repro_torch.el.rng import TorchDraws
+        if mesh is not None or donate:
+            raise NotImplementedError(
+                "run_sync_ingraph(mesh=/donate=): sharded and donating "
+                f"runs arrive with {_MESH_ITEM}")
+        if telemetry not in (None, False) or profile or contract:
+            raise NotImplementedError(
+                "run_sync_ingraph(telemetry=/profile=/contract=): the "
+                f"device rings and program profiles arrive with {_OBS_ITEM}")
+        ex = self._require_executor()
+        cfg = self._ingraph_cfg("run_sync_ingraph", mode="sync")
+        t0 = time.perf_counter()
+        key = ("sync", ex, self._structural_cfg(cfg), max_rounds,
+               metric_fn, self.metric_name,
+               None if self._n_samples is None else tuple(self._n_samples))
+        params = self._initial_params()
+        program = self._programs.get(key)
+        if program is None:
+            program = make_sync_program(
+                ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
+                batch=ex.batch, n_samples=self._n_samples,
+                metric_fn=metric_fn, metric_name=self.metric_name,
+                max_rounds=max_rounds,
+                device=getattr(ex, "device", None))
+            self._cache_program(key, program)
+        self._fastpath = program
+        if draws is None:
+            draws = TorchDraws(torch.Generator(device=program.device)
+                               .manual_seed(cfg.seed + 17))
+        params, out = program(params, sync_knobs(cfg), draws)
+        records: List[RoundRecord] = []
+        for rec in records_from_out(out, 0, int(out["n_rounds"])):
+            self._emit(records, rec)
+        final = ex.evaluate(params)[self.metric_name]
+        report = report_from_out(
+            out, mode="sync", policy=cfg.policy, horizon=max_rounds,
+            final_metric=final, final_params=params,
+            elapsed_s=time.perf_counter() - t0, records=records)
+        report.telemetry = {"cache": self._programs.stats(),
+                            "device_loop": dict(program.last_run)}
+        return report
+
+    # -- later slices -----------------------------------------------------------
 
     def run_async_ingraph(self, *args, **kwargs) -> ELReport:
         raise NotImplementedError(

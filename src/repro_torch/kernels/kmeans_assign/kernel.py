@@ -30,8 +30,8 @@ def library_path():
 def library() -> ctypes.CDLL:
     lib = _build.load("kmeans_assign", SOURCES)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp, vp,
-                                         vp]
+    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp,
+                                         vp, vp]
     lib.kmeans_assign_launch.restype = ci
     lib.kmeans_assign_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.kmeans_assign_max_smem.restype = ci
@@ -86,16 +86,34 @@ def max_smem(device_index: int) -> int:
     return limit.value
 
 
-def assign_fwd(x: torch.Tensor, centers: torch.Tensor,
-               out_assign: torch.Tensor, out_d2: torch.Tensor) -> None:
-    """Launch on the current stream: x [N, D], centers [K, D] (contiguous,
-    same CUDA device, f32 or bf16) into out_assign [N] i32, out_d2 [N] f32."""
-    n, d = x.shape
-    k = centers.shape[0]
+def _launch(x: torch.Tensor, centers: torch.Tensor, edges: int,
+            out_assign: torch.Tensor, out_d2: torch.Tensor) -> None:
+    n, d = x.shape[-2:]
+    k = centers.shape[-2]
     group = plan(d, k, max_smem(x.device.index))
     lib = library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.kmeans_assign_launch(
-        x.data_ptr(), centers.data_ptr(), n, d, k, _DTYPE_CODE[x.dtype],
-        group, out_assign.data_ptr(), out_d2.data_ptr(), stream)
+        x.data_ptr(), centers.data_ptr(), edges, n, d, k,
+        _DTYPE_CODE[x.dtype], group, out_assign.data_ptr(),
+        out_d2.data_ptr(), stream)
     _check(lib, err, "launch")
+
+
+def assign_fwd(x: torch.Tensor, centers: torch.Tensor,
+               out_assign: torch.Tensor, out_d2: torch.Tensor) -> None:
+    """Launch on the current stream: x [N, D], centers [K, D] (contiguous,
+    same CUDA device, f32 or bf16) into out_assign [N] i32, out_d2 [N] f32."""
+    _launch(x, centers, 1, out_assign, out_d2)
+
+
+def assign_fwd_batched(x: torch.Tensor, centers: torch.Tensor,
+                       out_assign: torch.Tensor,
+                       out_d2: torch.Tensor) -> None:
+    """Launch once on the current stream for every edge: x [E, N, D],
+    centers [E, K, D] (contiguous, same CUDA device, f32 or bf16) into
+    out_assign [E, N] i32, out_d2 [E, N] f32.  Under CUDA-graph capture
+    the current stream is the capturing one, so the launch is recorded
+    into the graph; ``library()`` and ``max_smem`` must have run once
+    before capture (they load the library and query the device)."""
+    _launch(x, centers, x.shape[0], out_assign, out_d2)

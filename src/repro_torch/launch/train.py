@@ -13,12 +13,13 @@ The port of ``repro.launch.train`` for the LM archs, on the card unless
     utility ``loss_delta``).
 
 Parameters are the port's random init from a generator seeded with the
-experiment's ``train.seed``.  Classic archs under ``--mode ol4el`` run the
-reference's compiled single-run programs, which the port has not reached:
-they raise (``repro_torch.launch.classic`` builds their host-loop
-fixture).  The reference's mesh, donation, telemetry, scenario, metrics
-and checkpoint flags drive parts the port has not reached and are not
-taken.
+experiment's ``train.seed``.  Classic archs (svm-wafer, kmeans-traffic)
+under ``--mode ol4el --el-mode sync`` run the compiled sync round on the
+device (``train_classic_ol4el``: ``ELSession.run_sync_ingraph`` over the
+``repro_torch.launch.classic`` fixture); ``--el-mode async`` needs the
+compiled async program (ROADMAP Queue 1 item 8) and raises.  The
+reference's mesh, donation, telemetry, scenario, metrics and checkpoint
+flags drive parts the port has not reached and are not taken.
 """
 
 from __future__ import annotations
@@ -115,6 +116,38 @@ def train_ol4el(exp, args):
     return report
 
 
+def train_classic_ol4el(exp, args):
+    """Classic archs through the compiled sync round on the device; returns
+    the ``ELReport``."""
+    from repro_torch.launch.classic import classic_fixture
+    if args.el_mode != "sync":
+        raise NotImplementedError(
+            f"{args.arch} --el-mode {args.el_mode}: the compiled async "
+            "program arrives with ROADMAP Queue 1 item 8; use --el-mode sync")
+    fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
+                         device=args.device)
+    metric = fx["metric"]
+    ol = dataclasses.replace(fx["exp"].ol4el, n_edges=args.edges,
+                             heterogeneity=args.heterogeneity,
+                             budget=args.budget, mode="sync",
+                             policy="ol4el", utility=fx["utility"])
+    session = (ELSession(ol, metric_name=metric, lr=fx["lr"])
+               .with_executor(fx["executor"], init_params=fx["init_params"],
+                              n_samples=fx["n_samples"]))
+    print(f"ol4el {args.arch}: compiled sync run, {args.edges} edges on "
+          f"{fx['executor'].device}", flush=True)
+    report = session.run_sync_ingraph(
+        max_rounds=args.steps if args.steps is not None else 256)
+    loop = report.telemetry["device_loop"]
+    print(f"done: {report.n_aggregations} aggregations, "
+          f"final {metric} {report.final_metric:.4f}, "
+          f"consumed {report.total_consumed:.0f} "
+          f"({report.terminated_reason}); arm pulls {report.arm_pulls}; "
+          f"{loop['chunks']} chunks of {loop['rounds_per_chunk']} rounds, "
+          f"{loop['replays']} graph replays", flush=True)
+    return report
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -141,6 +174,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--log-every", type=int, default=5)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, required)")
+    ap.add_argument("--samples", type=int, default=4000,
+                    help="classic-arch dataset size (ol4el mode)")
     return ap.parse_args(argv)
 
 
@@ -148,11 +183,10 @@ def main(argv=None):
     args = parse_args(argv)
     exp = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if exp.model.family == "classic":
-        raise NotImplementedError(
-            f"{args.arch}: classic archs train through the compiled "
-            "single-run EL programs, which the port has not reached "
-            "(ROADMAP Queue 1 item 7); repro_torch.launch.classic builds "
-            "their host-loop fixture for ELSession.run_sync / run_async")
+        if args.mode != "ol4el":
+            raise ValueError(f"{args.arch}: classic archs train under "
+                             "--mode ol4el (the compiled EL round)")
+        return train_classic_ol4el(exp, args)
     if args.batch is None:
         args.batch = exp.train.global_batch
     if args.seq is None:

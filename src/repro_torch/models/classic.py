@@ -8,6 +8,12 @@ Both expose the functional surface the EL runtime drives:
       PyTorch would run them, so the executors call this)
   ``evaluate(params, eval_set) -> metrics``               (cloud-side utility)
 
+``scores``, ``step``, ``local_step`` and K-means' ``assign`` also take a
+leading edge dimension: batches ``[E, B, D]`` against per-edge params
+(``w`` ``[E, D, C]``, ``centers`` ``[E, K, D]``), each edge stepping its
+own copy.  That is the reference's ``jax.vmap`` over edges in the
+compiled EL round (``repro_torch.el.ingraph``), written out.
+
 Params are a ``dict[str, Tensor]``, not an ``nn.Module``: the EL runtime
 copies a global model to every edge, trains the copies apart and averages
 or mixes them leaf by leaf (``repro_torch.federated.aggregation``).  A
@@ -37,13 +43,18 @@ from repro_torch.kernels.kmeans_assign.ref import assign_ref
 Params = Dict[str, torch.Tensor]
 
 
+def accuracy_tensor(scores: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Share of rows whose argmax is the label, as an f32 0-dim tensor on
+    the scores' device (no host sync), rounded as the reference's f32
+    ``mean`` rounds it: the exact count times the f32 reciprocal of the
+    row count (XLA's mean multiplies; a division differs by an ulp for
+    some counts, and the bandit's utility is this value's delta)."""
+    correct = (scores.argmax(-1) == y).sum(-1)
+    return correct.float() * float(np.float32(1) / np.float32(y.shape[-1]))
+
+
 def _accuracy(scores: torch.Tensor, y: torch.Tensor) -> float:
-    """Share of rows whose argmax is the label, rounded as the reference's
-    f32 ``mean`` rounds it: the exact count times the f32 reciprocal of
-    the row count (XLA's mean multiplies; a division differs by an ulp
-    for some counts, and the bandit's utility is this value's delta)."""
-    correct = int((scores.argmax(-1) == y).sum().item())
-    return float(np.float32(correct) * (np.float32(1) / np.float32(y.shape[0])))
+    return float(accuracy_tensor(scores, y))
 
 
 # ---------------------------------------------------------------------------
@@ -67,35 +78,37 @@ class LinearSVM:
         }
 
     def scores(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return x @ params["w"] + params["b"]
+        """[B, C], or [E, B, C] for per-edge params and batches."""
+        return x @ params["w"] + params["b"].unsqueeze(-2)
 
     def _margins(self, params: Params, x: torch.Tensor, y: torch.Tensor):
         """Scores, ±1 one-vs-rest targets and squared-hinge margins."""
         s = self.scores(params, x)                                # [B, C]
         classes = torch.arange(self.n_classes, device=y.device)
-        y_pm = (y[:, None] == classes).float() * 2.0 - 1.0      # [B, C] ±1
+        y_pm = (y[..., None] == classes).float() * 2.0 - 1.0    # [B, C] ±1
         return s, y_pm, torch.clamp(1.0 - y_pm * s, min=0.0)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         x, y = batch["x"], batch["y"]
         s, _, margin = self._margins(params, x, y)
-        loss = ((margin ** 2).sum(-1).mean()
-                + self.reg * (params["w"] ** 2).sum())
-        acc = (s.argmax(-1) == y).float().mean()
+        loss = ((margin ** 2).sum(-1).mean(-1)
+                + self.reg * (params["w"] ** 2).sum((-2, -1)))
+        acc = (s.argmax(-1) == y).float().mean(-1)
         return loss, {"loss": loss, "accuracy": acc}
 
     def step(self, params: Params, batch: Dict[str, torch.Tensor],
              lr: float) -> Params:
         """One SGD step on the squared hinge + L2, gradients in closed form:
         dL/ds = -2 y± max(0, 1 - y± s) / B, dw = xᵀ dL/ds + 2 reg w,
-        db = Σ_B dL/ds.  Computes no metrics (the executors' hot path)."""
+        db = Σ_B dL/ds.  Computes no metrics (the executors' hot path).
+        With a leading edge dim the products are batched (``bmm``)."""
         x = batch["x"]
         _, y_pm, margin = self._margins(params, x, batch["y"])
-        g_s = (-2.0 / x.shape[0]) * (y_pm * margin)               # [B, C]
-        g_w = x.T @ g_s + (2.0 * self.reg) * params["w"]
+        g_s = (-2.0 / x.shape[-2]) * (y_pm * margin)              # [B, C]
+        g_w = x.transpose(-1, -2) @ g_s + (2.0 * self.reg) * params["w"]
         return {"w": params["w"] - lr * g_w,
-                "b": params["b"] - lr * g_s.sum(0)}
+                "b": params["b"] - lr * g_s.sum(-2)}
 
     def local_step(self, params: Params, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[Params, Dict[str, torch.Tensor]]:
@@ -118,8 +131,10 @@ class KMeans:
 
     ``impl`` selects the E-step: ``"torch"`` (the plain distance expansion,
     ``kernels.kmeans_assign.ref``) or ``"cuda"`` — the hand-written Hopper
-    kernel through its wrapper.  ``"cuda"`` refuses CPU tensors rather
-    than quietly running the plain version.
+    kernel through its wrapper, one launch per call: the single entry for
+    ``[B, D]``, the batched entry for ``[E, B, D]`` against per-edge
+    centres.  ``"cuda"`` refuses CPU tensors rather than quietly running
+    the plain version.
     """
 
     def __init__(self, cfg: ModelConfig, blend: float = 0.5,
@@ -141,16 +156,20 @@ class KMeans:
         return {"centers": c.to(self.device)}
 
     def assign(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """[B] assignments, or [E, B] for per-edge centres [E, K, D]."""
         if self.impl == "cuda":
             if x.device.type != "cuda":
                 raise ValueError(
                     "KMeans(impl='cuda') runs the CUDA kernel and got "
                     f"tensors on {x.device}; use impl='torch' on the CPU")
+            if x.dim() == 3:
+                return ka_ops.assign_with_dist_batched(
+                    x, params["centers"])[0]
             return ka_ops.assign(x, params["centers"])
         return assign_ref(x, params["centers"])[0]
 
     def inertia(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return assign_ref(x, params["centers"])[1].mean()
+        return assign_ref(x, params["centers"])[1].mean(-1)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -165,12 +184,13 @@ class KMeans:
         c = params["centers"]
         a = self.assign(params, x)                                # [B]
         clusters = torch.arange(self.k, device=x.device)
-        onehot = (a[:, None] == clusters).float()                 # [B, K]
-        counts = onehot.sum(0)                                    # [K]
-        new = (onehot.T @ x) / torch.clamp(counts[:, None], min=1.0)
+        onehot = (a[..., None] == clusters).float()               # [B, K]
+        counts = onehot.sum(-2)                                   # [K]
+        new = ((onehot.transpose(-1, -2) @ x)
+               / torch.clamp(counts[..., None], min=1.0))
         # the reference computes rate in f32: blend * f32(lr)
         rate = float(np.float32(self.blend) * np.float32(lr))
-        centers = torch.where((counts > 0)[:, None],
+        centers = torch.where((counts > 0)[..., None],
                               (1.0 - rate) * c + rate * new, c)
         return {"centers": centers}
 

@@ -11,9 +11,12 @@
 
 The engine is host-driven (admission control is control plane); the
 device work is the model's ``prefill`` and ``decode_step`` on the model's
-device.  Sampling draws from a ``torch.Generator`` seeded by ``seed`` on
-that device, so sampled (temperature > 0) tokens differ from the
-reference's ``jax.random`` draws; greedy tokens do not depend on them.
+device.  Sampling is a Gumbel-max, ``argmax(logits / t + g)``, as the
+reference's ``jax.random.categorical`` is, with the Gumbel array ``g`` of
+each sampling step taken through the RNG seam (``repro_torch.el.rng``):
+by default from a ``torch.Generator`` seeded by ``seed`` on the model's
+device, or from ``draws=``, e.g. a ``ReplayDraws`` of the reference
+engine's ``jax.random`` draws, which makes its sampled tokens.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.el.rng import TorchDraws
 
 Params = Any
 
@@ -54,14 +58,15 @@ def _scatter_rows(live: Any, new: Any, rows: torch.Tensor) -> None:
 
 class ServingEngine:
     def __init__(self, model, params: Params, n_slots: int = 4,
-                 max_len: int = 512, seed: int = 0):
+                 max_len: int = 512, seed: int = 0, draws=None):
         self.model = model
         self.cfg: ModelConfig = model.cfg
         self.device = model.device
         self.params = params
         self.n_slots = n_slots
         self.max_len = max_len
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.draws = draws if draws is not None else TorchDraws(
+            torch.Generator(device=self.device).manual_seed(seed))
         # one shared cache with a batch dim == n_slots; slots stay
         # position-aligned by LEFT-padding prompts at admission time
         self.cache = model.init_cache(n_slots, max_len)
@@ -98,8 +103,7 @@ class ServingEngine:
             return greedy
         t = torch.from_numpy(temperatures).to(lg.device)
         # Gumbel-max: argmax(logits / t + g) samples softmax(logits / t)
-        u = torch.rand(lg.shape, generator=self.gen, device=lg.device)
-        g = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+        g = self.draws.gumbel(lg.shape, lg.device)
         sampled = (lg.float() / t.clamp_min(1e-6)[:, None] + g).argmax(-1)
         return torch.where(t <= 0, greedy, sampled)
 

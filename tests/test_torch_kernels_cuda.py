@@ -150,6 +150,135 @@ def test_kmeans_cuda_local_step_matches_plain_step(cuda_device):
                                rtol=1e-5, atol=1e-5)
 
 
+# (E, N, D, K, dtype) of the batched entry: the compiled EL round's local
+# step (4 edges of (128, 64, 3)), N not a multiple of the block's points,
+# wafer widths (scalar loads), K = 1, bf16, D = 300 (32 lanes, past the 8
+# elements a lane keeps)
+KM_BATCHED = [(4, 128, 64, 3, "float32"), (3, 1001, 64, 3, "float32"),
+              (2, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
+              (3, 300, 64, 3, "bfloat16"), (2, 64, 300, 4, "float32")]
+
+
+def _batched_inputs(e, n, d, k, dtype, seed, device):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((e, n, d)), dtype=torch.float32)
+    c = torch.tensor(rng.standard_normal((e, k, d)), dtype=torch.float32)
+    dt = getattr(torch, dtype)
+    return x.to(device, dt), c.to(device, dt)
+
+
+@pytest.mark.parametrize("e,n,d,k,dtype", KM_BATCHED)
+def test_kmeans_assign_batched_bit_equal_to_single_launches(
+        e, n, d, k, dtype, cuda_device):
+    """One batched launch computes, bit for bit, what E launches of the
+    single entry compute (the same kernel, blockIdx.y the edge)."""
+    x, c = _batched_inputs(e, n, d, k, dtype, e + n + d + k, cuda_device)
+    before, single = ops.batched_launches, ops.launches
+    a, d2 = ops.assign_with_dist_batched(x, c)
+    assert ops.batched_launches == before + 1 and ops.launches == single
+    assert a.shape == (e, n) and a.dtype == torch.int32
+    for i in range(e):
+        a_i, d2_i = ops.assign_with_dist(x[i], c[i])
+        assert torch.equal(a[i], a_i) and torch.equal(d2[i], d2_i)
+    torch.cuda.synchronize()
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    rtol, atol = (1e-4, 1e-3) if dtype == "float32" else (1e-2, 1e-2)
+    torch.testing.assert_close(d2, d2_ref, rtol=rtol, atol=atol)
+
+
+def test_kmeans_assign_batched_in_a_cuda_graph(cuda_device):
+    """Captured once, replayed: each replay recomputes from the inputs'
+    new values; capture records a launch (``batched_captured``) and runs
+    none, and replays are counted through ``add_replayed``."""
+    x, c = _batched_inputs(4, 128, 64, 3, "float32", 11, cuda_device)
+    ops.assign_with_dist_batched(x, c)                  # warm-up
+    torch.cuda.synchronize()
+    launched, captured = ops.batched_launches, ops.batched_captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a, d2 = ops.assign_with_dist_batched(x, c)
+    assert ops.batched_captured == captured + 1
+    assert ops.batched_launches == launched
+    for seed in range(3):
+        x2, c2 = _batched_inputs(4, 128, 64, 3, "float32", 20 + seed,
+                                 cuda_device)
+        x.copy_(x2)
+        c.copy_(c2)
+        graph.replay()
+        ops.add_replayed(1)
+        a_eager, d2_eager = ops.assign_with_dist_batched(x, c)
+        torch.cuda.synchronize()
+        assert torch.equal(a, a_eager) and torch.equal(d2, d2_eager)
+    assert ops.batched_launches == launched + 6
+
+
+def test_kmeans_assign_batched_rejects_what_the_kernel_cannot_take(
+        cuda_device):
+    x, c = _batched_inputs(2, 64, 64, 3, "float32", 1, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.assign_with_dist_batched(x.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), c)
+    big = torch.zeros(2, 1000, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.assign_with_dist_batched(x, big)
+
+
+@pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
+def test_compiled_round_on_the_card_makes_the_cpu_decisions(arch,
+                                                            cuda_device):
+    """``run_sync_ingraph`` on the card (CUDA-graph chunks, the batched
+    kernel in every K-means local step) against the same program on the
+    CPU, on the same replayed draws: identical decisions."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        fx = classic_fixture(arch, samples=2000, n_edges=3, device=dev)
+        cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=3,
+                                  budget=3000.0, utility=fx["utility"],
+                                  heterogeneity=2.0)
+        if dev == "cuda":
+            init = params_to_numpy(fx["init_params"])
+        rng = np.random.default_rng(0)
+        k, batch = cfg.max_interval, fx["executor"].batch
+        draws = ReplayDraws(rng.gumbel(size=(128, k)),
+                            rng.uniform(size=(128, 3, k, batch)),
+                            rng.standard_normal((128, 3)))
+        sess = ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"]) \
+            .with_executor(fx["executor"],
+                           init_params=params_from_numpy(init, dev),
+                           n_samples=fx["n_samples"])
+        before = ops.batched_launches
+        reports[dev] = sess.run_sync_ingraph(max_rounds=128, draws=draws)
+        launched = ops.batched_launches - before
+        if dev == "cuda":
+            loop = reports[dev].telemetry["device_loop"]
+            assert loop["graphs_captured"] == 1
+            assert loop["replays"] == loop["chunks"] > 0
+            if arch == "kmeans-traffic":
+                # every local step of every round, masked or not, plus the
+                # capture's warm-up chunk
+                steps = loop["rounds_per_chunk"] * k
+                assert loop["kernel_launches_per_graph"] == steps
+                assert launched == steps * (loop["replays"] + 1)
+            again = sess.run_sync_ingraph(max_rounds=128, draws=draws)
+            assert again.telemetry["device_loop"]["graphs_captured"] == 0
+            assert [r.interval for r in again.records] == \
+                [r.interval for r in reports[dev].records]
+    gpu, cpu = reports["cuda"], reports["cpu"]
+    assert [r.interval for r in gpu.records] == \
+        [r.interval for r in cpu.records]
+    assert gpu.arm_pulls == cpu.arm_pulls
+    assert gpu.terminated_reason == cpu.terminated_reason == \
+        "budget_exhausted"
+    np.testing.assert_allclose([r.total_consumed for r in gpu.records],
+                               [r.total_consumed for r in cpu.records],
+                               rtol=1e-6)
+
+
 # (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
 # cases, then the main path's prefill shapes (mamba2-370m: 32 heads of 64,
 # d_state 128, chunk 128) and ragged chunks (a 100-token prompt gives

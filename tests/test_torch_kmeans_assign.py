@@ -138,3 +138,93 @@ def test_plan_refuses_centroids_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         kernel.plan(64, 1000, 232448)
     assert kernel.plan(64, 800, 232448) == 8
+
+
+# -- the batched entry: x [E, N, D] against each edge's centres [E, K, D] ----
+
+# (E, N, D, K, dtype): the compiled EL round's local step (4 edges of
+# (128, 64, 3)); N not a multiple of a block; K = 1; wafer widths; bf16
+KM_BATCHED = [(4, 128, 64, 3, "float32"), (3, 300, 64, 3, "float32"),
+              (2, 100, 64, 1, "float32"), (2, 513, 59, 8, "float32"),
+              (3, 300, 64, 3, "bfloat16")]
+
+
+def _batched_inputs(e, n, d, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((e, n, d)).astype(np.float32)
+    c = rng.standard_normal((e, k, d)).astype(np.float32)
+    return (jnp.asarray(x, getattr(jnp, dtype)),
+            jnp.asarray(c, getattr(jnp, dtype)),
+            torch.tensor(x).to(getattr(torch, dtype)),
+            torch.tensor(c).to(getattr(torch, dtype)))
+
+
+@pytest.mark.parametrize("oracle", ["jnp_ref", "pallas_interpret"])
+@pytest.mark.parametrize("e,n,d,k,dtype", KM_BATCHED)
+def test_batched_plain_matches_reference_under_vmap(e, n, d, k, dtype,
+                                                    oracle):
+    """The wrapper's batched CPU path against the reference's kernel under
+    ``jax.vmap`` over edges (interpret mode), as the compiled EL round
+    runs it, and against its vmapped jnp oracle."""
+    import jax
+    jx, jc, tx, tc = _batched_inputs(e, n, d, k, dtype, seed=e + n + d + k)
+    if oracle == "jnp_ref":
+        a_ref, d2_ref = jax.vmap(jax_assign_ref)(jx, jc)
+    else:
+        a_ref, d2_ref = jax.vmap(lambda x, c: jax_assign_with_dist(
+            x, c, interpret=True))(jx, jc)
+    ops.batched_launches = 0
+    a, d2 = ops.assign_with_dist_batched(tx, tc)
+    assert ops.batched_launches == 0           # the CPU takes the plain path
+    assert a.dtype == torch.int32 and d2.dtype == torch.float32
+    assert a.shape == (e, n) and d2.shape == (e, n)
+    rtol, atol = _tolerance(dtype)
+    np.testing.assert_allclose(d2.numpy(), np.asarray(d2_ref),
+                               rtol=rtol, atol=atol)
+    if dtype == "float32":
+        assert (a.numpy() == np.asarray(a_ref)).mean() >= 0.999
+    if k == 1:
+        assert not bool(a.any())
+
+
+def test_batched_plain_equals_per_edge_plain():
+    _, _, x, c = _batched_inputs(3, 200, 64, 3, "float32", seed=9)
+    a, d2 = ref.assign_ref(x, c)
+    for i in range(3):
+        a_i, d2_i = ref.assign_ref(x[i], c[i])
+        assert (a[i] == a_i).float().mean() >= 0.999
+        torch.testing.assert_close(d2[i], d2_i, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad", ["rank", "edges", "width", "dtype",
+                                 "no_centres"])
+def test_batched_wrapper_rejects_malformed_inputs(bad):
+    x = torch.zeros(2, 8, 4)
+    c = torch.zeros(2, 3, 4)
+    if bad == "rank":
+        x = x[0]
+    elif bad == "edges":
+        c = torch.zeros(3, 3, 4)
+    elif bad == "width":
+        c = torch.zeros(2, 3, 5)
+    elif bad == "dtype":
+        x, c = x.double(), c.double()
+    else:
+        c = torch.zeros(2, 0, 4)
+    with pytest.raises((ValueError, TypeError)):
+        ops.assign_with_dist_batched(x, c)
+
+
+def test_kmeans_step_takes_an_edge_dimension():
+    """A batched Lloyd step ([E, B, D] against per-edge centres) equals
+    each edge's own step."""
+    model = KMeans(get_config("kmeans-traffic").model, device="cpu")
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.standard_normal((3, 128, 64)), dtype=torch.float32)
+    c = torch.tensor(rng.standard_normal((3, 3, 64)), dtype=torch.float32)
+    new = model.step({"centers": c}, {"x": x}, 1.0)["centers"]
+    assert new.shape == (3, 3, 64)
+    for i in range(3):
+        one = model.step({"centers": c[i]}, {"x": x[i]}, 1.0)["centers"]
+        torch.testing.assert_close(new[i], one, rtol=1e-6, atol=1e-6)
+    assert model.assign({"centers": c}, x).shape == (3, 128)

@@ -3,12 +3,15 @@ mirrored), on mamba2-370m's smoke config.
 
 For exact tokens both engines run at f32 on the same parameters (the
 reference's ``LM.init``, carried with ``tree_from_numpy``): every greedy
-request must produce the reference engine's tokens, token for token.
+request must produce the reference engine's tokens, token for token, and
+so must sampled requests when the port's engine replays the reference
+engine's Gumbel draws through the RNG seam.
 """
 
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -20,6 +23,7 @@ from repro.serving import Request as JaxRequest  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.el.rng import ReplayDraws  # noqa: E402
 from repro_torch.interop import tree_from_numpy  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -196,6 +200,49 @@ def test_sampling_is_seeded(models):
 
     assert hot(0) == hot(0)
     assert hot(0) != hot(1)
+
+
+def _jax_engine_gumbels(seed, n_steps, shape):
+    """The reference engine's sampling draws, key for key: ``rng =
+    key(seed)``, then per sampling step ``rng, sub = split(rng)`` and the
+    Gumbel array ``categorical(sub, ...)`` adds to the logits."""
+    rng, out = jax.random.key(seed), []
+    for _ in range(n_steps):
+        rng, sub = jax.random.split(rng)
+        out.append(np.array(jax.random.gumbel(sub, shape, jnp.float32)))
+    return np.stack(out)
+
+
+def test_engine_sampled_tokens_match_reference_under_replayed_draws(models):
+    """Hot sampling is a Gumbel-max on both sides: fed the reference
+    engine's ``jax.random`` Gumbel draws through the RNG seam, the port's
+    engine samples the reference's tokens, token for token (f32), for
+    slots at different temperatures beside a greedy one."""
+    rm, rp, tm, tp = models
+    n_slots, seed = 3, 7
+    draws = ReplayDraws(gumbel=_jax_engine_gumbels(
+        seed, 64, (n_slots, tm.cfg.vocab_size)))
+    port = ServingEngine(tm, tp, n_slots=n_slots, max_len=96, seed=seed,
+                         draws=draws)
+    ref = JaxEngine(rm, rp, n_slots=n_slots, max_len=96, seed=seed)
+    rng = np.random.default_rng(2)
+    for uid, temp in enumerate((0.7, 0.0, 1.5, 1.0)):
+        prompt = rng.integers(0, tm.cfg.vocab_size, size=6 + uid
+                              ).astype(np.int32)
+        _submit((port, ref), uid, prompt, max_new_tokens=6,
+                temperature=temp)
+    out = _run_both((port, ref))
+    assert len(out) == 4 and all(len(o) == 6 for o in out.values())
+    # the draws made a difference: hot slots left the greedy path
+    greedy = _engines(models, n_slots=n_slots)
+    rng = np.random.default_rng(2)
+    for uid in range(4):
+        prompt = rng.integers(0, tm.cfg.vocab_size, size=6 + uid
+                              ).astype(np.int32)
+        _submit(greedy, uid, prompt, max_new_tokens=6)
+    cold = _run_both(greedy)
+    assert out[1] == cold[1]
+    assert any(out[u] != cold[u] for u in (0, 2, 3))
 
 
 def test_serve_launcher_runs_on_cpu():

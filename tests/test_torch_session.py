@@ -159,7 +159,7 @@ def test_coordinator_and_horizon_match_reference(mode, cost_model):
 def test_later_slices_raise_not_implemented(fixtures):
     _, tf = fixtures["svm-wafer"]
     sess = ELSession(_cfg(tf, "sync", "ol4el")).with_executor(tf["executor"])
-    for call in (sess.run_sync_ingraph, sess.run_async_ingraph, sess.sweep,
+    for call in (sess.run_async_ingraph, sess.sweep,
                  lambda: sess.run_async(rng_streams="jax")):
         with pytest.raises(NotImplementedError, match="slice"):
             call()

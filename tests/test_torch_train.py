@@ -291,11 +291,23 @@ def test_train_launcher_runs_on_cpu(mode, capsys):
     assert "loss=" in capsys.readouterr().out
 
 
-def test_train_launcher_defaults_and_classic_archs():
+def test_train_launcher_defaults_and_classic_archs(capsys):
+    """Classic archs under ``--mode ol4el --el-mode sync`` run the compiled
+    sync round (``run_sync_ingraph``); the async one raises until the
+    event engine lands."""
     exp = port_config.get_config("qwen3-1.7b")
     args = port_train.parse_args(["--arch", "qwen3-1.7b"])
     assert args.batch is None and args.seq is None
     assert (exp.train.global_batch, exp.train.seq_len) == (8, 512)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    rep = port_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
+                           "--el-mode", "sync", "--device", "cpu",
+                           "--samples", "600", "--edges", "2",
+                           "--budget", "1200", "--steps", "16"])
+    assert rep.mode == "sync" and rep.n_aggregations > 0
+    assert rep.terminated_reason == "budget_exhausted"
+    assert 0.5 < rep.final_metric <= 1.0
+    assert rep.telemetry["device_loop"]["chunks"] == 1
+    assert "compiled sync run" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         port_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
                          "--device", "cpu"])
