@@ -29,6 +29,17 @@ Phases, each printing JSON lines:
               on the card's own generator, run seconds, rounds, chunks
               (host syncs), graphs, replays and kernel launches beside the
               host loop's seconds;
+4c. async  -- the same two workloads through the compiled async event
+              engine (``ELSession.run_async_ingraph``: chunks of masked
+              event steps, each a CUDA graph replay, one bandit per edge
+              on the card, every K-means local step one launch of
+              ``kmeans_assign``'s batched entry), single events and
+              K-event waves of 4: on replayed draws the card's events
+              (order, intervals, charges, times) must equal the port's
+              CPU run's, and the waves' the single events'; then on the
+              card's own generator, run seconds, events, chunks, graphs,
+              replays and kernel launches beside the host ``run_async``'s
+              seconds;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -53,7 +64,7 @@ Phases, each printing JSON lines:
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 5, 6, 7) is driven with every kernel's launch count set to 0
+Each path (4, 4b, 4c, 5, 6, 7) is driven with every kernel's launch count set to 0
 just before it and read just after.  Then the card's name and power limit
 (nvidia-smi), and last ``{"ok": true, "device": {...}}``.  Any failed
 check exits non-zero, as does a machine without CUDA or a directory
@@ -570,17 +581,20 @@ def flip_bound(arch, y) -> float:
     return f1_flip_bound(y) if arch == "kmeans-traffic" else 1.0 / len(y)
 
 
-def compiled_phase(host_s: dict) -> dict:
+def classic_fixtures() -> dict:
+    from repro_torch.launch.classic import classic_fixture
+    return {arch: {dev: classic_fixture(arch, samples=20000, n_edges=4,
+                                        device=dev)
+                   for dev in ("cuda", "cpu")}
+            for arch in ("kmeans-traffic", "svm-wafer")}
+
+
+def compiled_phase(host_s: dict, fixtures) -> dict:
     import math
     import torch
     from repro_torch.interop import params_from_numpy, params_to_numpy
     from repro_torch.kernels.kmeans_assign import ops
-    from repro_torch.launch.classic import classic_fixture
 
-    fixtures = {arch: {dev: classic_fixture(arch, samples=20000, n_edges=4,
-                                            device=dev)
-                       for dev in ("cuda", "cpu")}
-                for arch in ("kmeans-traffic", "svm-wafer")}
     # (a) replayed draws: the card's decisions are the CPU run's
     for arch, fx in fixtures.items():
         init = params_to_numpy(fx["cuda"]["init_params"])
@@ -655,6 +669,163 @@ def compiled_phase(host_s: dict) -> dict:
           f"compiled: unexpected kernel launches {launches}")
     return {"kmeans_assign_batched": launches["kmeans_assign_batched"],
             "runs": result}
+
+
+# -- phase 4c: the compiled async event engine ---------------------------------------
+
+ASYNC_EVENTS = 512                # the full-width runs' padded horizon (336)
+ASYNC_WAVE = 4                    # the pinned wave width, all four edges
+
+
+def async_session(fx, init, batch_k):
+    from repro_torch.el import ELSession
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode="async", n_edges=4,
+                              utility=fx["utility"], async_batch_k=batch_k)
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=init,
+                           n_samples=fx["n_samples"]))
+
+
+def async_replay_draws(cfg, batch, seed):
+    """Every edge's draws for every event of the horizon, and the initial
+    round's, from a seeded CPU generator (numpy), handed to both devices
+    alike."""
+    import numpy as np
+    from repro_torch.el.rng import ReplayDraws
+    rng = np.random.default_rng(seed)
+    k, e = cfg.max_interval, cfg.n_edges
+    return ReplayDraws(rng.gumbel(size=(ASYNC_EVENTS, e, k)),
+                       rng.uniform(size=(ASYNC_EVENTS, e, k, batch)),
+                       rng.standard_normal((ASYNC_EVENTS, e)),
+                       init_gumbel=rng.gumbel(size=(e, k)),
+                       init_normal=rng.standard_normal(e))
+
+
+def event_decisions(rep):
+    """Event order, intervals, charged totals and event times: at fixed
+    cost the same bits on every device."""
+    return [(r.edge, r.interval, r.total_consumed, r.wall_time)
+            for r in rep.records]
+
+
+def max_param_diff(a, b) -> float:
+    return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
+               for k in a)
+
+
+def async_phase(fixtures) -> dict:
+    import math
+    import torch
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.kmeans_assign import ops
+
+    # (a) replayed draws: the card's decisions are the CPU run's, and a
+    # K-event wave's the single events'
+    for arch, fx in fixtures.items():
+        init = params_to_numpy(fx["cuda"]["init_params"])
+        reps = {}
+        for dev, bk in (("cuda", 1), ("cpu", 1), ("cuda", ASYNC_WAVE)):
+            sess = async_session(fx[dev], params_from_numpy(init, dev), bk)
+            draws = async_replay_draws(sess.cfg, fx[dev]["executor"].batch,
+                                       seed=5)
+            reps[dev, bk] = sess.run_async_ingraph(draws=draws)
+        gpu, cpu, wave = reps["cuda", 1], reps["cpu", 1], \
+            reps["cuda", ASYNC_WAVE]
+        bound = flip_bound(arch, fx["cpu"]["executor"].eval_set["y"].numpy())
+        same = event_decisions(gpu) == event_decisions(cpu)
+        same_wave = event_decisions(wave) == event_decisions(gpu)
+        emit("async_vs_cpu", arch=arch, draws="replayed (numpy seed 5)",
+             events=gpu.n_aggregations, cpu_events=cpu.n_aggregations,
+             wave_events=wave.n_aggregations, same_decisions=same,
+             wave_same_decisions=same_wave, arm_pulls=gpu.arm_pulls,
+             cpu_arm_pulls=cpu.arm_pulls, wave_arm_pulls=wave.arm_pulls,
+             reason=gpu.terminated_reason, consumed=gpu.total_consumed,
+             cpu_consumed=cpu.total_consumed, wall=gpu.wall_time,
+             cpu_wall=cpu.wall_time, final_metric=gpu.final_metric,
+             cpu_final_metric=cpu.final_metric,
+             wave_final_metric=wave.final_metric, flip_bound=bound,
+             wave_max_param_diff=max_param_diff(wave.final_params,
+                                                gpu.final_params),
+             device_loop=gpu.telemetry["device_loop"],
+             wave_device_loop=wave.telemetry["device_loop"])
+        check(same, f"async {arch}: card and CPU events differ")
+        check(same_wave, f"async {arch}: batch_k={ASYNC_WAVE} and "
+              "batch_k=1 events differ on the card")
+        for other in (cpu, wave):
+            check(other.arm_pulls == gpu.arm_pulls and
+                  other.terminated_reason == gpu.terminated_reason ==
+                  "budget_exhausted", f"async {arch}: arm pulls or end")
+            check(abs(other.final_metric - gpu.final_metric) <= bound,
+                  f"async {arch}: final metric {other.final_metric} vs "
+                  f"{gpu.final_metric}")
+
+    # the yardstick: the host event loop on numpy streams, on the card
+    host_s = {}
+    for arch, fx in fixtures.items():
+        sess = async_session(fx["cuda"], fx["cuda"]["init_params"], 1)
+        t0 = time.perf_counter()
+        rep = sess.run_async()
+        torch.cuda.synchronize()
+        host_s[arch] = {"run_s": time.perf_counter() - t0,
+                        "events": rep.n_aggregations}
+
+    # (b) the card's own generator: the main path, counts read around it
+    result = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    for arch, fx in fixtures.items():
+        for bk in (1, ASYNC_WAVE):
+            sess = async_session(fx["cuda"], fx["cuda"]["init_params"], bk)
+            runs = []
+            for _ in range(2):         # the first run captures the graph
+                before = ops.batched_launches
+                t0 = time.perf_counter()
+                rep = sess.run_async_ingraph()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                loop = rep.telemetry["device_loop"]
+                runs.append({"run_s": secs, "events": rep.n_aggregations,
+                             "kernel_launches": ops.batched_launches - before,
+                             "reason": rep.terminated_reason,
+                             "final_metric": rep.final_metric,
+                             "arm_pulls": rep.arm_pulls, **loop})
+                check(rep.terminated_reason == "budget_exhausted"
+                      and rep.n_aggregations > 0
+                      and all(bool(torch.isfinite(v).all())
+                              for v in rep.final_params.values())
+                      and math.isfinite(rep.final_metric),
+                      f"async {arch} batch_k={bk}: {rep.summary()}")
+            emit("async", arch=arch, device="cuda", batch_k=bk,
+                 draws="torch.Generator on the card, seed cfg.seed + 17",
+                 runs=runs, host_run_async=host_s[arch])
+            check(runs[0]["graphs_captured"] == 1 and
+                  runs[1]["graphs_captured"] == 0 and
+                  all(r["replays"] == r["chunks"] > 0 for r in runs),
+                  f"async {arch} batch_k={bk}: graphs / replays {runs}")
+            check(runs[0]["events"] == runs[1]["events"] and
+                  runs[0]["arm_pulls"] == runs[1]["arm_pulls"],
+                  f"async {arch} batch_k={bk}: the two runs differ")
+            if arch == "kmeans-traffic":
+                for r in runs:
+                    # every local step of every step, masked or not; the
+                    # capture's warm-up chunk runs eagerly
+                    per_graph = r["rounds_per_chunk"] * 10
+                    check(r["kernel_launches_per_graph"] == per_graph and
+                          r["kernel_launches"] == per_graph * (
+                              r["replays"] + r["graphs_captured"]),
+                          f"async kmeans batch_k={bk}: launches {r}")
+            result[arch, bk] = runs
+    launches = counts()
+    km = result["kmeans-traffic", 1] + result["kmeans-traffic", ASYNC_WAVE]
+    check(launches["kmeans_assign_batched"] == sum(
+              r["kernel_launches"] for r in km) > 0,
+          f"async kmeans: batched kmeans_assign launches {launches}")
+    # the single entry runs once per kmeans run: the report's final F1
+    check(launches["kmeans_assign"] == len(km) and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"async: unexpected kernel launches {launches}")
+    return {"kmeans_assign": launches["kmeans_assign"],
+            "kmeans_assign_batched": launches["kmeans_assign_batched"]}
 
 
 # -- phase 5: mamba2-370m serving ---------------------------------------------
@@ -1360,8 +1531,13 @@ def main() -> None:
     ssd_err = ssd_vs_plain()
     fa_err = flash_vs_plain()
     launches, host_s = slice_phase()
-    compiled = compiled_phase(host_s)
-    launches["kmeans_assign_batched"] = compiled["kmeans_assign_batched"]
+    fixtures = classic_fixtures()
+    compiled = compiled_phase(host_s, fixtures)
+    events = async_phase(fixtures)
+    del fixtures
+    launches["kmeans_assign"] += events["kmeans_assign"]
+    launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
+                                         + events["kmeans_assign_batched"])
     launches.update(serve_phase())
     launches.update(train_phase())
     train_vs_plain()

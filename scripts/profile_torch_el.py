@@ -6,25 +6,36 @@
 Builds the full-width kmeans-traffic and svm-wafer fixtures on the card as
 ``chip_smoke.py`` does (``repro_torch.launch.classic.classic_fixture``:
 20,000 samples, 4 edges, budget 5000 per edge), warms each path up once
-(the compiled round captures its CUDA graph there), then profiles one run
-of each path under ``torch.profiler`` with the card synchronised around
-it:
+(the compiled programs capture their CUDA graphs there), then profiles one
+run of each path under ``torch.profiler`` with the card synchronised
+around it:
 
-  host_sync      ``ELSession.run_sync`` (kmeans-traffic only), the host
-                 loop: one eager launch per op, a sync per round;
-  compiled_sync  ``ELSession.run_sync_ingraph``: chunks of masked rounds,
-                 each a CUDA graph replay, one sync per chunk.
+  host_sync          ``ELSession.run_sync`` (kmeans-traffic only), the
+                     host loop: one eager launch per op, a sync per round;
+  compiled_sync      ``ELSession.run_sync_ingraph``: chunks of masked
+                     rounds, each a CUDA graph replay, one sync per chunk;
+  host_async         ``ELSession.run_async`` (numpy streams), the host
+                     event-queue loop;
+  compiled_async     ``ELSession.run_async_ingraph``: chunks of masked
+                     event steps, single events;
+  compiled_async_k4  the same with K-event waves of 4 (``async_batch_k``).
 
 Prints one JSON line per (arch, path):
 
-  wall_ms        host clock around the run;
+  wall_ms        host clock around the profiled run;
   device_ms      union of the intervals in which a kernel ran (CUPTI);
-  idle_share     1 - device_ms / wall_ms;
-  kernels        kernel launches the profiler saw;
+  idle_share     1 - device_ms / wall_ms (the profiler's overhead counts
+                 as idle);
+  kernels        kernel launches the profiler saw, and per round or event;
   top            the kernels with the most device time, with their count;
-  replay_ms      (compiled) one chunk's graph replay timed by CUDA events,
-                 the card's time for R rounds with no host in the way;
-  rounds, chunks, replays  from the report's ``device_loop``;
+  rounds         rounds or events of the run;
+  (compiled)     replay_ms, one chunk's graph replay timed by CUDA events,
+                 the card's time for one chunk with no host in the way;
+                 chunks, replays; plain_wall_ms, the fastest of three
+                 unprofiled runs by the host clock; idle_share_events, 1 - replays x replay_ms /
+                 plain_wall_ms (every chunk replays the whole graph);
+                 fill_ms and launch_ms, the host's time to refill a
+                 chunk's draws and to launch its graph;
 
 then the card's name and power limit (nvidia-smi).  Fails when there is no
 card or the profiler reports no device time for a path.
@@ -110,6 +121,32 @@ def replay_ms(program, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(program, iters: int = 5) -> dict:
+    """The host's share of one chunk, the card kept busy by a queued
+    sleep so that no call waits for it: the refill of the draw buffers
+    from a ``TorchDraws`` (fresh blocks each time) and the graph's
+    launch (``replay()`` returning), each by the host clock."""
+    import torch
+    from repro_torch.el.rng import TorchDraws
+    draws = TorchDraws(torch.Generator(device="cuda").manual_seed(0))
+    if program.init_bufs:
+        draws.fill_init(program.init_bufs)
+    items = next(iter(program.draw_bufs.values())).shape[0]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)          # ~0.5 s of queued card work
+    fill, launch = [], []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        draws.fill(program.draw_bufs, i * items)
+        t1 = time.perf_counter()
+        program.graph.replay()
+        t2 = time.perf_counter()
+        fill.append((t1 - t0) * 1e3)
+        launch.append((t2 - t1) * 1e3)
+    torch.cuda.synchronize()
+    return {"fill_ms": sum(fill) / iters, "launch_ms": sum(launch) / iters}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -121,31 +158,50 @@ def main() -> None:
     for arch in ("kmeans-traffic", "svm-wafer"):
         fx = classic_fixture(arch, samples=SAMPLES, n_edges=EDGES,
                              device="cuda")
-        cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync",
-                                  n_edges=EDGES, utility=fx["utility"])
 
-        def session():
+        def session(mode, batch_k=0):
+            cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode,
+                                      n_edges=EDGES, utility=fx["utility"],
+                                      async_batch_k=batch_k)
             return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
                     .with_executor(fx["executor"],
                                    init_params=fx["init_params"],
                                    n_samples=fx["n_samples"]))
 
-        paths = [("compiled_sync", session(), "run_sync_ingraph")]
+        paths = [("compiled_sync", session("sync"), "run_sync_ingraph"),
+                 ("host_async", session("async"), "run_async"),
+                 ("compiled_async", session("async"), "run_async_ingraph"),
+                 ("compiled_async_k4", session("async", 4),
+                  "run_async_ingraph")]
         if arch == "kmeans-traffic":
-            paths.insert(0, ("host_sync", session(), "run_sync"))
+            paths.insert(0, ("host_sync", session("sync"), "run_sync"))
         for name, sess, method in paths:
             run = getattr(sess, method)
             run()                              # warm-up (graph capture)
             out, rep = profile_run(name, run)
             out.update(arch=arch, rounds=rep.n_aggregations,
+                       kernels_per_round=out["kernels"] / rep.n_aggregations,
                        reason=rep.terminated_reason,
                        card=torch.cuda.get_device_name(0))
             if rep.telemetry:
                 loop = rep.telemetry["device_loop"]
+                program = list(sess.compile_cache.values())[-1]
+                one = replay_ms(program)
+                out.update(host_ms(program))
+                plain = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    plain.append((time.perf_counter() - t0) * 1e3)
+                plain = min(plain)
                 out.update(chunks=loop["chunks"], replays=loop["replays"],
                            rounds_per_chunk=loop["rounds_per_chunk"],
-                           replay_ms=replay_ms(
-                               list(sess.compile_cache.values())[-1]))
+                           batch_k=loop.get("batch_k"), replay_ms=one,
+                           plain_wall_ms=plain,
+                           idle_share_events=1.0 - loop["replays"] * one
+                           / plain)
             print(json.dumps(out), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -2,9 +2,10 @@
 
 A copy of the reference's ``ProgramCache`` (pure Python), less its
 program-profile store (observability, a later slice).  Here an entry
-is a compiled sync program (``repro_torch.el.ingraph.SyncProgram``): its
-static device buffers (the padded per-edge datasets, the carry, the knob
-and draw buffers) and, on a card, the CUDA graph captured over them.
+is a compiled program (``repro_torch.el.ingraph.SyncProgram`` or
+``repro_torch.el.events.AsyncProgram``): its static device buffers (the
+padded per-edge datasets, the carry, the knob and draw buffers) and, on
+a card, the CUDA graph captured over them.
 Each entry pins those buffers, so the cache is a bounded FIFO, and
 ``clear()`` is what releases them on a long-lived session.  The
 reference's cache events on its tracer come with the observability slice.

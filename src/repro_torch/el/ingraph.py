@@ -37,9 +37,8 @@ guards and ``idx = trunc(u * f32(n_e))`` are f32 as there.
 Supported configuration matrix (``check_ingraph_support``):
 
   ==============  =======================================================
-  mode             ``sync`` (async configs are coerced to sync by the
-                   session; the async event engine is ROADMAP Queue 1
-                   item 8)
+  mode             ``sync`` (this module) and ``async`` (the event engine,
+                   ``repro_torch.el.events``)
   policy           ``ol4el`` (the 3-step KUBE bandit, one shared bandit)
   cost_model       ``fixed`` and ``variable`` (the ``cost_noise`` knob;
                    0 multiplies by exactly 1.0)
@@ -69,9 +68,8 @@ from repro_torch.core.bandit import (device_arm_logits, device_bandit_init,
                                      device_selection_weights)
 from repro_torch.core.coordinator import edge_speed_factors
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.el.rng import ROUND_DRAWS
 from repro_torch.interop import tree_leaves, tree_map
-from repro_torch.models.classic import accuracy_tensor
+from repro_torch.models.classic import accuracy_tensor, correct_count
 
 Params = Any
 Carry = Dict[str, Any]
@@ -108,8 +106,8 @@ def support_matrix() -> str:
     full menu."""
     return (
         "supported in-graph matrix:\n"
-        "  mode        'sync' (repro_torch.el.ingraph; the async event "
-        "engine is ROADMAP Queue 1 item 8)\n"
+        "  mode        'sync' (repro_torch.el.ingraph) and 'async' "
+        "(repro_torch.el.events)\n"
         "  policy      'ol4el' (other registry policies run host-side "
         "only; the scenario policy switch is ROADMAP Queue 1 item 10)\n"
         f"  cost_model  cfg.cost_model in {_INGRAPH_COST_MODELS}; "
@@ -246,10 +244,19 @@ def default_metric_fn(model, eval_set, metric_name: str
         dev = getattr(model, "device", None)
         xe = torch.as_tensor(eval_set["x"], dtype=torch.float32, device=dev)
         ye = torch.as_tensor(eval_set["y"], device=dev).long()
+        scale = float(np.float32(1) / np.float32(ye.shape[-1]))
 
         def accuracy(params: Params) -> torch.Tensor:
             return accuracy_tensor(model.scores(params, xe), ye)
 
+        def with_gain(params: Params, prev_metric: torch.Tensor):
+            """(accuracy, accuracy - prev_metric) as XLA computes them in
+            one expression: the mean's multiply fused into the
+            subtraction, one rounding."""
+            count = correct_count(model.scores(params, xe), ye)
+            return count * scale, _fma32(count, scale, -prev_metric)
+
+        accuracy.with_gain = with_gain
         return accuracy
     return None
 
@@ -264,6 +271,15 @@ def _fma32(a, b, c) -> torch.Tensor:
     return (f64(a) * f64(b) + f64(c)).float()
 
 
+def _edge_sum(v: torch.Tensor) -> torch.Tensor:
+    """Σ_e v[e] in f32, edge by edge in order, as XLA sums a short
+    vector."""
+    total = v[0]
+    for e in range(1, v.shape[0]):
+        total = total + v[e]
+    return total
+
+
 def _tree_l2(a: Params, b: Params) -> torch.Tensor:
     total = None
     for x, y in zip(tree_leaves(a), tree_leaves(b)):
@@ -275,27 +291,35 @@ def _tree_l2(a: Params, b: Params) -> torch.Tensor:
 def make_local_block(model, xs: torch.Tensor, ys: torch.Tensor,
                      n_per_edge: torch.Tensor, batch: int, lr: float,
                      k: int) -> Callable:
-    """``local_block(params, interval, uniform)`` — ``interval`` masked
-    local iterations on every edge at once: ``params`` is the per-edge
-    stack ``[E, ...]``, ``uniform`` the round's minibatch uniforms
-    ``[E, k, batch]``.  Always ``k`` steps, steps past ``interval``
-    masked, as the reference's fixed-length ``lax.scan``.  A step's
-    indices are ``trunc(u * f32(n_e))`` (clamped to the padded length,
-    as ``jnp`` indexing clamps), so a replayed uniform picks the
-    reference's rows."""
-    n_edges, n_max = xs.shape[0], xs.shape[1]
-    rows = torch.arange(n_edges, device=xs.device)[:, None]      # [E, 1]
-    n_f = n_per_edge.float()[:, None]                            # [E, 1]
+    """``local_block(params, interval, uniform, lanes=None)`` —
+    ``interval`` masked local iterations on L lanes at once, lane l on
+    edge ``lanes[l]`` (default: every edge, lane e on edge e): ``params``
+    is the per-lane stack ``[L, ...]``, ``interval`` a scalar or one per
+    lane ``[L]``, ``uniform`` the lanes' minibatch uniforms ``[L, k,
+    batch]``.  Always ``k`` steps, steps past a lane's interval masked, as
+    the reference's fixed-length ``lax.scan``; every step is one batched
+    model step over the lanes (one launch of ``kmeans_assign``'s batched
+    entry for K-means).  A step's indices are ``trunc(u * f32(n_e))``
+    (clamped to the padded length, as ``jnp`` indexing clamps), so a
+    replayed uniform picks the reference's rows."""
+    n_max = xs.shape[1]
+    all_edges = torch.arange(xs.shape[0], device=xs.device)
+    n_f = n_per_edge.float()
 
     def local_block(params: Params, interval: torch.Tensor,
-                    uniform: torch.Tensor) -> Params:
+                    uniform: torch.Tensor,
+                    lanes: Optional[torch.Tensor] = None) -> Params:
+        if lanes is None:
+            lanes = all_edges
+        rows, n_l = lanes[:, None], n_f[lanes][:, None]          # [L, 1]
         for step in range(k):
-            idx = (uniform[:, step] * n_f).long().clamp_(max=n_max - 1)
-            b = {"x": xs[rows, idx], "y": ys[rows, idx]}         # [E, B, ...]
+            idx = (uniform[:, step] * n_l).long().clamp_(max=n_max - 1)
+            b = {"x": xs[rows, idx], "y": ys[rows, idx]}         # [L, B, ...]
             p2 = model.step(params, b, lr)
-            take = step < interval
-            params = tree_map(lambda a, c: torch.where(take, c, a), params,
-                              p2)
+            take = (step < interval).reshape(-1)                 # [L] or [1]
+            params = tree_map(lambda a, c: torch.where(
+                take.reshape((-1,) + (1,) * (a.dim() - 1)), c, a),
+                params, p2)
         return params
 
     return local_block
@@ -306,20 +330,27 @@ class ELCell:
     """One EL run's loop, split into composable pieces.
 
     The closures share the program's dict carry (``carry["t"]`` is the
-    round counter, ``carry["hist"]`` the ``[horizon]`` history arrays) and
-    all take the knob dict explicitly.  ``body`` also takes the round's
-    draws (``gumbel`` [K], ``uniform`` [E, k, batch], ``normal`` [E]),
-    whose per-round shapes ``draw_shapes`` names.  ``SyncProgram`` fuses
-    ``init → chunks of masked body → finalize``.
+    round or event counter, ``carry["hist"]`` the ``[horizon]`` history
+    arrays) and all take the knob dict explicitly.  ``body`` also takes
+    its draws: the sync round its own (``gumbel`` [K], ``uniform`` [E, k,
+    batch], ``normal`` [E]), the async step a chunk's (see
+    ``repro_torch.el.events.program``); ``draw_shapes`` names the shape
+    of one item and ``items_per_step`` how many items a step may take
+    (a sync round 1, an async wave ``batch_k``).  ``init`` takes the
+    initial draws, shaped ``init_draw_shapes`` (none for sync).  A
+    ``ChunkRunner`` fuses ``init → chunks of masked body → finalize``.
     """
 
-    init: Callable       # (init_params, knobs) -> carry
+    init: Callable       # (init_params, knobs, init_draws) -> carry
     cond: Callable       # (carry, knobs) -> bool tensor (continue?)
     body: Callable       # (carry, knobs, draws) -> carry (one round)
     finalize: Callable   # (carry, knobs) -> (params, out dict)
-    horizon: int         # history length (max_rounds)
+    horizon: int         # history length (max_rounds / max_events)
     draw_shapes: Dict[str, Tuple[int, ...]]
     device: torch.device
+    init_draw_shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
+        default_factory=dict)
+    items_per_step: int = 1
 
 
 def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
@@ -380,7 +411,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             return metric_fn(params)
         return torch.full((), float("nan"), device=dev)
 
-    def init(init_params: Params, knobs: Knobs) -> Carry:
+    def init(init_params: Params, knobs: Knobs, draws) -> Carry:
         hist = {
             "metric": torch.full((max_rounds,), float("nan"), device=dev),
             "utility": torch.zeros(max_rounds, device=dev),
@@ -437,9 +468,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
 
         bstate = device_bandit_update(bstate, arm, utility, slot)
         wall = carry["wall"] + slot
-        total = consumed[0]
-        for e in range(1, n_edges):        # the reference's order over E
-            total = total + consumed[e]
+        total = _edge_sum(consumed)
         at = pos == t
         hist = carry["hist"]
         hist = {
@@ -471,19 +500,33 @@ def _tree_copy_(dst, src) -> None:
     tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
-class SyncProgram:
-    """``program(init_params, knobs, draws) -> (params, out)``: the whole
-    budgeted sync run as chunks of ``rounds_per_chunk`` masked rounds.
+def _knob_tensor(value, device: torch.device) -> torch.Tensor:
+    """A knob on the device: integers keep their dtype, floats are f32."""
+    a = np.asarray(value)
+    if a.dtype.kind not in "iu":
+        a = a.astype(np.float32)
+    return torch.as_tensor(a, device=device)
 
-    The carry, knobs and draws live in static device buffers.  On a CUDA
-    device the first run captures one chunk (warmed up once on a side
-    stream, eagerly, its result discarded) into a ``torch.cuda.CUDAGraph``
-    that copies the chunk's result back into the carry and writes ``cond``
-    of it into a flag; every chunk of every later run is a refill of the
-    draw buffers, a replay and one read of the flag.  Launches of
-    ``kmeans_assign``'s batched entry recorded at capture are counted as
-    (replays x launches per graph) in its wrapper's ``batched_launches``.
-    On the CPU the chunk runs eagerly, with the same flag read.
+
+class ChunkRunner:
+    """``program(init_params, knobs, draws) -> (params, out)``: a whole
+    budgeted run of an :class:`ELCell` as chunks of ``rounds_per_chunk``
+    masked steps, shared by the sync round (:class:`SyncProgram`) and the
+    async engine (``repro_torch.el.events.program.AsyncProgram``).
+
+    The carry, knobs and draws live in static device buffers; a chunk's
+    draw buffers hold ``rounds_per_chunk x cell.items_per_step`` items from
+    the RNG-seam provider, starting at the chunk's first item ``t``.  On a
+    CUDA device the first run captures one chunk (warmed up once on a
+    side stream, eagerly, its result discarded) into a
+    ``torch.cuda.CUDAGraph`` that copies the chunk's result back into the
+    carry and writes ``cond`` of it and the carry's ``t`` into ``status``;
+    every chunk of every later run is a refill of the draw buffers, a
+    replay and one read of ``status`` (the flag and the next chunk's
+    first item).  Launches of ``kmeans_assign``'s batched entry recorded
+    at capture are counted as (replays x launches per graph) in its
+    wrapper's ``batched_launches``.  On the CPU the chunk runs eagerly,
+    with the same read.
 
     ``out`` holds numpy arrays (one transfer after the loop); ``params``
     are copies of the final carry's.  ``last_run`` describes the latest
@@ -495,34 +538,46 @@ class SyncProgram:
         self.cell = cell
         self.device = device = cell.device
         self.rounds_per_chunk = int(rounds_per_chunk)
+        items = self.rounds_per_chunk * cell.items_per_step
         self.carry: Optional[Carry] = None
         self.knobs: Optional[Knobs] = None
-        self.flag: Optional[torch.Tensor] = None
-        self.draw_bufs = {
-            name: torch.zeros((self.rounds_per_chunk,) + shape,
-                              device=device)
-            for name, shape in cell.draw_shapes.items()}
+        self.status = torch.ones(2, dtype=torch.int64, device=device)
+        self.draw_bufs = {name: torch.zeros((items,) + shape, device=device)
+                          for name, shape in cell.draw_shapes.items()}
+        self.init_bufs = {name: torch.zeros(shape, device=device)
+                          for name, shape in cell.init_draw_shapes.items()}
         self.graph = None
         self.launches_per_graph = 0
         self.graphs_captured = 0
         self.replays = 0
         self.last_run: Dict[str, Any] = {}
 
+    @property
+    def flag(self) -> torch.Tensor:
+        """Whether the loop goes on after the latest chunk."""
+        return self.status[0] != 0
+
+    def _step_draws(self, r: int, t_base: torch.Tensor) -> Dict[str, Any]:
+        """The draws step ``r`` of a chunk reads; ``t_base`` is the
+        chunk's first item."""
+        raise NotImplementedError
+
     def _chunk(self, carry: Carry) -> Carry:
         cell, knobs = self.cell, self.knobs
+        t_base = carry["t"]
         for r in range(self.rounds_per_chunk):
             active = cell.cond(carry, knobs)
-            new = cell.body(carry, knobs,
-                            {n: self.draw_bufs[n][r] for n in ROUND_DRAWS})
+            new = cell.body(carry, knobs, self._step_draws(r, t_base))
             carry = tree_map(lambda n, o: torch.where(active, n, o), new,
                              carry)
         return carry
 
     def _step(self) -> None:
-        """One chunk, the carry updated in place and the flag set."""
+        """One chunk, the carry updated in place and the status set."""
         carry = self._chunk(self.carry)
         _tree_copy_(self.carry, carry)
-        self.flag.copy_(self.cell.cond(self.carry, self.knobs))
+        self.status[0].copy_(self.cell.cond(self.carry, self.knobs))
+        self.status[1].copy_(self.carry["t"])
 
     def _capture(self) -> None:
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
@@ -543,13 +598,12 @@ class SyncProgram:
                  ) -> Tuple[Params, Dict[str, np.ndarray]]:
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
         dev = self.device
-        knob_t = {name: torch.as_tensor(np.asarray(v, np.float32),
-                                        device=dev)
-                  for name, v in knobs.items()}
-        init = self.cell.init(init_params, knob_t)
+        knob_t = {name: _knob_tensor(v, dev) for name, v in knobs.items()}
+        if self.init_bufs:
+            draws.fill_init(self.init_bufs)
+        init = self.cell.init(init_params, knob_t, self.init_bufs)
         if self.carry is None:
             self.knobs, self.carry = knob_t, init
-            self.flag = torch.ones((), dtype=torch.bool, device=dev)
         else:
             _tree_copy_(self.knobs, knob_t)
             _tree_copy_(self.carry, init)
@@ -557,9 +611,9 @@ class SyncProgram:
         graphs_before, replays_before = self.graphs_captured, self.replays
         if cuda and self.graph is None:
             self._capture()
-        chunks, horizon = 0, self.cell.horizon
+        chunks, t_next, horizon = 0, 0, self.cell.horizon
         while chunks * self.rounds_per_chunk < horizon:
-            draws.fill(self.draw_bufs, chunks * self.rounds_per_chunk)
+            draws.fill(self.draw_bufs, t_next)
             if cuda:
                 self.graph.replay()
                 self.replays += 1
@@ -567,7 +621,8 @@ class SyncProgram:
             else:
                 self._step()
             chunks += 1
-            if not bool(self.flag):        # the chunk's one host sync
+            go_on, t_next = self.status.tolist()   # the chunk's host sync
+            if not go_on:
                 break
         params, out = self.cell.finalize(self.carry, self.knobs)
         out = {name: v.cpu().numpy() for name, v in out.items()}
@@ -578,6 +633,14 @@ class SyncProgram:
             "replays": self.replays - replays_before,
             "kernel_launches_per_graph": self.launches_per_graph}
         return params, out
+
+
+class SyncProgram(ChunkRunner):
+    """The compiled sync round on a :class:`ChunkRunner`: step ``r`` of a
+    chunk is round ``t + r`` and reads item ``r`` of the draw buffers."""
+
+    def _step_draws(self, r: int, t_base: torch.Tensor) -> Dict[str, Any]:
+        return {name: buf[r] for name, buf in self.draw_bufs.items()}
 
 
 def make_sync_program(model, edge_data, eval_set, cfg: OL4ELConfig, *,

@@ -7,6 +7,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 
 @dataclasses.dataclass
 class RoundRecord:
@@ -76,12 +78,15 @@ class ELReport:
 
 def records_from_out(out: Dict[str, Any], lo: int, hi: int
                      ) -> List[RoundRecord]:
-    """``RoundRecord``s for rounds ``[lo, hi)`` of the compiled sync
-    program's history arrays (sync rounds have no edge: ``-1``)."""
+    """``RoundRecord``s for rounds or events ``[lo, hi)`` of a compiled
+    program's history arrays (sync histories have no ``edge`` array:
+    their records get ``-1``)."""
+    edge = out.get("edge")
     return [
         RoundRecord(float(out["wall"][t]), float(out["consumed"][t]),
                     float(out["metric"][t]), float(out["utility"][t]),
-                    float(out["interval"][t]), -1, t + 1)
+                    float(out["interval"][t]),
+                    int(edge[t]) if edge is not None else -1, t + 1)
         for t in range(lo, hi)
     ]
 
@@ -91,14 +96,23 @@ def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
                     elapsed_s: float,
                     records: Optional[List[RoundRecord]] = None
                     ) -> ELReport:
-    """Assemble an :class:`ELReport` from the compiled sync program's
-    ``out``: the run ended on its budget unless it reached ``horizon``
-    rounds.  (The reference's async branches arrive with the async event
-    engine.)"""
+    """Assemble an :class:`ELReport` from a compiled program's ``out``.
+
+    The termination reason comes from ``n_active`` when present (the
+    async blocks in flight at exit), else from the round count against
+    ``horizon``; async ``[E, K]`` arm pulls are summed to the sync ``[K]``
+    histogram shape."""
     n = int(out["n_rounds"])
     if records is None:
         records = records_from_out(out, 0, n)
-    reason = "max_rounds" if n >= horizon else "budget_exhausted"
+    pulls = np.asarray(out["arm_pulls"])
+    if pulls.ndim == 2:                                # async [E, K] -> [K]
+        pulls = pulls.sum(axis=0)
+    if "n_active" in out:
+        reason = ("budget_exhausted" if int(out["n_active"]) == 0
+                  else "max_events")
+    else:
+        reason = "max_rounds" if n >= horizon else "budget_exhausted"
     return ELReport(
         records=records,
         final_metric=float(final_metric),
@@ -108,7 +122,7 @@ def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
         terminated_reason=reason,
         policy=policy,
         mode=mode,
-        arm_pulls=[int(c) for c in out["arm_pulls"]],
+        arm_pulls=[int(c) for c in pulls],
         elapsed_s=elapsed_s,
         final_params=final_params,
     )

@@ -17,12 +17,13 @@ random streams are the reference's numpy ones (coordinator
 indices in the executor), so a seeded run makes the reference's decisions.
 
 ``run_sync_ingraph`` runs the whole budgeted sync loop on the device
-(``repro_torch.el.ingraph``): chunks of masked rounds, each a CUDA graph
-replay on a card, with the bandit on the device and one host sync per
-chunk.  Its draws come through the RNG seam (``repro_torch.el.rng``).
-The compiled async program (``run_async_ingraph``), ablation ``sweep``s
-and ``run_async``'s ``"jax"`` streams are later slices of the port; they
-raise ``NotImplementedError``.
+(``repro_torch.el.ingraph``), ``run_async_ingraph`` the async event loop
+(``repro_torch.el.events``): chunks of masked rounds or events, each a
+CUDA graph replay on a card, with the bandits on the device and one host
+sync per chunk.  Their draws come through the RNG seam
+(``repro_torch.el.rng``); ``run_async(rng_streams="jax")`` is the async
+program's host twin on the same draws.  Ablation ``sweep``s are a later
+slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,8 +51,6 @@ from repro_torch.federated.aggregation import (staleness_alpha, staleness_mix,
 Params = Any
 RoundCallback = Callable[[RoundRecord], None]
 
-_EVENTS_SLICE = ("the port's slice of the async event engine (ROADMAP "
-                 "Queue 1 item 8)")
 _SWEEP_SLICE = "the port's slice of the sweep engine (ROADMAP Queue 1 item 9)"
 _MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
 _OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
@@ -77,12 +76,12 @@ class ELSession:
         self._callbacks: List[RoundCallback] = []
         self.coord: Optional[CloudCoordinator] = None   # built per run
         self._coord_consumed = False
-        # compiled-program cache: key -> SyncProgram (its static device
-        # buffers and, on a card, its captured CUDA graph).  Bounded FIFO:
+        # compiled-program cache: key -> SyncProgram / AsyncProgram (its
+        # static device buffers and, on a card, its captured CUDA graph).  Bounded FIFO:
         # each entry pins a device copy of the padded per-edge datasets.
         self._programs = ProgramCache(max_entries=8)
         self._closed = False
-        self._fastpath = None                           # last sync program
+        self._fastpath = None                      # last compiled program
 
     @property
     def async_alpha(self) -> float:
@@ -252,25 +251,38 @@ class ELSession:
     # -- host-driven asynchronous (event-driven) loop ------------------------
 
     def run_async(self, max_events: Optional[int] = None,
-                  eval_every: int = 1,
-                  rng_streams: str = "numpy") -> ELReport:
+                  eval_every: int = 1, rng_streams: str = "numpy", *,
+                  draws=None) -> ELReport:
         """The host-driven event-queue loop (paper §V.A async semantics).
 
         ``max_events=None`` derives the horizon from budget/cost
         (``default_event_horizon``), so long runs are never silently
-        truncated.  ``rng_streams="numpy"`` is the only source here; the
-        reference's ``"jax"`` streams replay the compiled async program and
-        arrive with it.
+        truncated.
+
+        ``rng_streams`` picks the randomness source: ``"numpy"`` (the
+        reference's host streams) or ``"jax"``, the reference's name for
+        "the compiled async program's streams": the same priority-queue
+        loop driven by the program's RNG-seam draws (``draws``, default a
+        ``torch.Generator`` seeded as ``run_async_ingraph`` seeds its own)
+        and its f32 per-event pieces (``repro_torch.el.events.reference``;
+        needs the in-graph support matrix).  At fixed cost the ``"jax"``
+        loop is bit-identical to ``run_async_ingraph()`` on the same
+        draws; ``eval_every`` is ignored there.
         """
         cfg = self.cfg
         ex = self._require_executor()
         if rng_streams == "jax":
-            raise NotImplementedError(
-                "run_async(rng_streams='jax') replays the compiled async "
-                f"program's streams; it arrives with {_EVENTS_SLICE}")
+            from repro_torch.el.events.reference import run_async_reference
+            acfg = self._ingraph_cfg("run_async(rng_streams='jax')",
+                                     mode="async")
+            return run_async_reference(
+                ex, acfg, self._initial_params(),
+                metric_name=self.metric_name, max_events=max_events,
+                draws=draws, callbacks=self._callbacks)
         if rng_streams != "numpy":
             raise ValueError(
-                f"unknown rng_streams={rng_streams!r}; expected 'numpy'")
+                f"unknown rng_streams={rng_streams!r}; expected 'numpy' "
+                "or 'jax'")
         if max_events is None:
             max_events = default_event_horizon(cfg)
         coord, utility, rng = self._build()
@@ -468,11 +480,96 @@ class ELSession:
                             "device_loop": dict(program.last_run)}
         return report
 
-    # -- later slices -----------------------------------------------------------
+    def run_async_ingraph(self, max_events: Optional[int] = None,
+                          metric_fn: Optional[Callable] = None, *,
+                          draws=None, mesh=None, donate: bool = False,
+                          telemetry=None, profile: bool = False,
+                          contract=None) -> ELReport:
+        """Run the whole budgeted async event loop on the device
+        (``repro_torch.el.events``): no host priority queue; finish times
+        live in an ``[E]`` tensor, each step pops the earliest completion
+        (or a K-event wave), staleness-merges that edge's block and
+        schedules its next one, in chunks of masked steps replayed as CUDA
+        graphs on a card.
 
-    def run_async_ingraph(self, *args, **kwargs) -> ELReport:
-        raise NotImplementedError(
-            f"run_async_ingraph arrives with {_EVENTS_SLICE}; use run_async")
+        Same supported matrix as ``run_sync_ingraph`` (policy ``ol4el``,
+        one bandit per edge).  ``max_events=None`` derives the event
+        horizon from budget and cost, so runs end on budget exhaustion,
+        never on silent truncation; the history is that horizon padded to
+        a power of two (``padded_event_horizon``).  An explicit
+        ``max_events`` is bucketed the same way (``bucket_event_horizon``)
+        and the exact cap rides in as the ``event_cap`` knob, so nearby
+        caps share one program.  ``cfg.async_batch_k`` sets the K-event
+        wave width (0: 1, ``resolve_async_batch_k``); it is structural, so
+        it joins the program-cache key.
+
+        ``draws`` is the RNG-seam provider (``None``: a
+        ``torch.Generator`` on the program's device seeded with ``cfg.seed
+        + 17``).  At fixed cost the result is bit-identical to the host
+        twin on the same draws, ``run_async(rng_streams="jax")``.
+        ``report.telemetry`` holds the cache's counters and
+        ``"device_loop"`` (chunks, graphs, replays, ``batch_k``).
+
+        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14), ``telemetry``,
+        ``profile`` and ``contract`` (item 12) raise
+        ``NotImplementedError``.
+        """
+        from repro_torch.el.events import (async_knobs, bucket_event_horizon,
+                                           make_async_program,
+                                           padded_event_horizon,
+                                           resolve_async_batch_k)
+        from repro_torch.el.rng import TorchDraws
+        if mesh is not None or donate:
+            raise NotImplementedError(
+                "run_async_ingraph(mesh=/donate=): sharded and donating "
+                f"runs arrive with {_MESH_ITEM}")
+        if telemetry not in (None, False) or profile or contract:
+            raise NotImplementedError(
+                "run_async_ingraph(telemetry=/profile=/contract=): the "
+                f"device rings and program profiles arrive with {_OBS_ITEM}")
+        ex = self._require_executor()
+        cfg = self._ingraph_cfg("run_async_ingraph", mode="async")
+        t0 = time.perf_counter()
+        if max_events is None:
+            horizon, event_cap = padded_event_horizon(cfg), None
+        else:
+            event_cap = int(max_events)
+            horizon = bucket_event_horizon(event_cap)
+        batch_k = resolve_async_batch_k(cfg)
+        key = ("async", ex, self._structural_cfg(cfg), horizon, batch_k,
+               metric_fn, self.metric_name)
+        params = self._initial_params()
+        program = self._programs.get(key)
+        if program is None:
+            program = make_async_program(
+                ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
+                batch=ex.batch, metric_fn=metric_fn,
+                metric_name=self.metric_name, max_events=horizon,
+                batch_k=batch_k, device=getattr(ex, "device", None))
+            self._cache_program(key, program)
+        self._fastpath = program
+        knobs = async_knobs(cfg)
+        if event_cap is not None:
+            knobs["event_cap"] = np.int32(event_cap)
+        if draws is None:
+            draws = TorchDraws(torch.Generator(device=program.device)
+                               .manual_seed(cfg.seed + 17))
+        params, out = program(params, knobs, draws)
+        records: List[RoundRecord] = []
+        for rec in records_from_out(out, 0, int(out["n_rounds"])):
+            self._emit(records, rec)
+        final = ex.evaluate(params)[self.metric_name]
+        report = report_from_out(
+            out, mode="async", policy=cfg.policy,
+            horizon=horizon if event_cap is None else event_cap,
+            final_metric=final, final_params=params,
+            elapsed_s=time.perf_counter() - t0, records=records)
+        report.telemetry = {"cache": self._programs.stats(),
+                            "device_loop": dict(program.last_run,
+                                                batch_k=batch_k)}
+        return report
+
+    # -- later slices -----------------------------------------------------------
 
     def sweep(self, *args, **kwargs):
         raise NotImplementedError(f"ELSession.sweep arrives with "

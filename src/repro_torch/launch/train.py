@@ -14,12 +14,13 @@ The port of ``repro.launch.train`` for the LM archs, on the card unless
 
 Parameters are the port's random init from a generator seeded with the
 experiment's ``train.seed``.  Classic archs (svm-wafer, kmeans-traffic)
-under ``--mode ol4el --el-mode sync`` run the compiled sync round on the
-device (``train_classic_ol4el``: ``ELSession.run_sync_ingraph`` over the
-``repro_torch.launch.classic`` fixture); ``--el-mode async`` needs the
-compiled async program (ROADMAP Queue 1 item 8) and raises.  The
-reference's mesh, donation, telemetry, scenario, metrics and checkpoint
-flags drive parts the port has not reached and are not taken.
+under ``--mode ol4el`` run the compiled programs on the device
+(``train_classic_ol4el`` over the ``repro_torch.launch.classic``
+fixture): ``--el-mode sync`` the sync round
+(``ELSession.run_sync_ingraph``), ``--el-mode async`` the async event
+engine (``ELSession.run_async_ingraph``, ``--async-batch-k`` its wave
+width).  The reference's mesh, donation, telemetry, scenario, metrics and
+checkpoint flags drive parts the port has not reached and are not taken.
 """
 
 from __future__ import annotations
@@ -117,27 +118,36 @@ def train_ol4el(exp, args):
 
 
 def train_classic_ol4el(exp, args):
-    """Classic archs through the compiled sync round on the device; returns
-    the ``ELReport``."""
+    """Classic archs through the compiled sync round or async event engine
+    on the device; returns the ``ELReport``."""
     from repro_torch.launch.classic import classic_fixture
-    if args.el_mode != "sync":
-        raise NotImplementedError(
-            f"{args.arch} --el-mode {args.el_mode}: the compiled async "
-            "program arrives with ROADMAP Queue 1 item 8; use --el-mode sync")
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
                          device=args.device)
     metric = fx["metric"]
     ol = dataclasses.replace(fx["exp"].ol4el, n_edges=args.edges,
                              heterogeneity=args.heterogeneity,
-                             budget=args.budget, mode="sync",
+                             budget=args.budget, mode=args.el_mode,
+                             async_alpha=args.async_alpha,
+                             async_batch_k=args.async_batch_k,
                              policy="ol4el", utility=fx["utility"])
     session = (ELSession(ol, metric_name=metric, lr=fx["lr"])
                .with_executor(fx["executor"], init_params=fx["init_params"],
                               n_samples=fx["n_samples"]))
-    print(f"ol4el {args.arch}: compiled sync run, {args.edges} edges on "
-          f"{fx['executor'].device}", flush=True)
-    report = session.run_sync_ingraph(
-        max_rounds=args.steps if args.steps is not None else 256)
+    print(f"ol4el {args.arch}: compiled {ol.mode} run, {args.edges} edges "
+          f"on {fx['executor'].device}", flush=True)
+    if ol.mode == "sync":
+        report = session.run_sync_ingraph(
+            max_rounds=args.steps if args.steps is not None else 256)
+    else:
+        # as train_ol4el: an explicit --steps caps the run at steps * edges
+        # events, announced, never silently
+        if args.steps is not None:
+            print(f"async: --steps caps the run at "
+                  f"{args.steps * args.edges} events (omit --steps to "
+                  "run to budget exhaustion)", flush=True)
+        report = session.run_async_ingraph(
+            max_events=None if args.steps is None
+            else args.steps * args.edges)
     loop = report.telemetry["device_loop"]
     print(f"done: {report.n_aggregations} aggregations, "
           f"final {metric} {report.final_metric:.4f}, "
@@ -158,6 +168,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--el-mode", default="async", choices=["sync", "async"])
     ap.add_argument("--async-alpha", type=float, default=0.5,
                     help="async staleness-mix base rate (cfg.async_alpha)")
+    ap.add_argument("--async-batch-k", type=int, default=0,
+                    help="classic archs, compiled async engine: K-event "
+                         "wave width (cfg.async_batch_k; 0 resolves to 1)")
     ap.add_argument("--steps", type=int, default=None,
                     help="standard/sync: training steps/rounds (default "
                          "50); async: optional event cap of steps*edges "

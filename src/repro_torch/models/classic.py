@@ -43,14 +43,19 @@ from repro_torch.kernels.kmeans_assign.ref import assign_ref
 Params = Dict[str, torch.Tensor]
 
 
+def correct_count(scores: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Rows whose argmax is the label, an f32 tensor (exact)."""
+    return (scores.argmax(-1) == y).sum(-1).float()
+
+
 def accuracy_tensor(scores: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Share of rows whose argmax is the label, as an f32 0-dim tensor on
     the scores' device (no host sync), rounded as the reference's f32
     ``mean`` rounds it: the exact count times the f32 reciprocal of the
     row count (XLA's mean multiplies; a division differs by an ulp for
     some counts, and the bandit's utility is this value's delta)."""
-    correct = (scores.argmax(-1) == y).sum(-1)
-    return correct.float() * float(np.float32(1) / np.float32(y.shape[-1]))
+    return correct_count(scores, y) * float(np.float32(1)
+                                            / np.float32(y.shape[-1]))
 
 
 def _accuracy(scores: torch.Tensor, y: torch.Tensor) -> float:

@@ -279,6 +279,61 @@ def test_compiled_round_on_the_card_makes_the_cpu_decisions(arch,
                                rtol=1e-6)
 
 
+@pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
+@pytest.mark.parametrize("batch_k", [1, 3])
+def test_async_engine_on_the_card_makes_the_cpu_decisions(arch, batch_k,
+                                                          cuda_device):
+    """``run_async_ingraph`` on the card (CUDA-graph chunks of masked
+    event steps, single events or K-event waves, the batched kernel in
+    every K-means local step) against the same program on the CPU, on the
+    same replayed draws: the same events in the same order, the same
+    intervals, charges and times."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    reports = {}
+    for dev in ("cuda", "cpu"):
+        fx = classic_fixture(arch, samples=2000, n_edges=3, device=dev)
+        cfg = dataclasses.replace(fx["exp"].ol4el, mode="async", n_edges=3,
+                                  budget=1500.0, utility=fx["utility"],
+                                  heterogeneity=1.0, async_batch_k=batch_k)
+        if dev == "cuda":
+            init = params_to_numpy(fx["init_params"])
+        rng = np.random.default_rng(0)
+        k, batch = cfg.max_interval, fx["executor"].batch
+        draws = ReplayDraws(rng.gumbel(size=(128, 3, k)),
+                            rng.uniform(size=(128, 3, k, batch)),
+                            rng.standard_normal((128, 3)),
+                            init_gumbel=rng.gumbel(size=(3, k)),
+                            init_normal=rng.standard_normal(3))
+        sess = ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"]) \
+            .with_executor(fx["executor"],
+                           init_params=params_from_numpy(init, dev))
+        before = ops.batched_launches
+        reports[dev] = sess.run_async_ingraph(draws=draws)
+        launched = ops.batched_launches - before
+        if dev == "cuda":
+            loop = reports[dev].telemetry["device_loop"]
+            assert loop["graphs_captured"] == 1 and loop["batch_k"] == batch_k
+            assert loop["replays"] == loop["chunks"] > 0
+            if arch == "kmeans-traffic":
+                # every local step of every step, masked or not, plus the
+                # capture's warm-up chunk
+                steps = loop["rounds_per_chunk"] * k
+                assert loop["kernel_launches_per_graph"] == steps
+                assert launched == steps * (loop["replays"] + 1)
+    gpu, cpu = reports["cuda"], reports["cpu"]
+    assert [(r.edge, r.interval, r.wall_time, r.total_consumed)
+            for r in gpu.records] == \
+        [(r.edge, r.interval, r.wall_time, r.total_consumed)
+         for r in cpu.records]
+    assert gpu.arm_pulls == cpu.arm_pulls
+    assert gpu.terminated_reason == cpu.terminated_reason == \
+        "budget_exhausted"
+
+
 # (b, s, h, p, n, chunk, dtype): the reference's tests/test_kernels.py
 # cases, then the main path's prefill shapes (mamba2-370m: 32 heads of 64,
 # d_state 128, chunk 128) and ragged chunks (a 100-token prompt gives

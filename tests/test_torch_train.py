@@ -292,9 +292,9 @@ def test_train_launcher_runs_on_cpu(mode, capsys):
 
 
 def test_train_launcher_defaults_and_classic_archs(capsys):
-    """Classic archs under ``--mode ol4el --el-mode sync`` run the compiled
-    sync round (``run_sync_ingraph``); the async one raises until the
-    event engine lands."""
+    """Classic archs under ``--mode ol4el`` run the compiled programs:
+    ``--el-mode sync`` the sync round (``run_sync_ingraph``), the default
+    ``--el-mode async`` the async event engine (``run_async_ingraph``)."""
     exp = port_config.get_config("qwen3-1.7b")
     args = port_train.parse_args(["--arch", "qwen3-1.7b"])
     assert args.batch is None and args.seq is None
@@ -308,6 +308,12 @@ def test_train_launcher_defaults_and_classic_archs(capsys):
     assert 0.5 < rep.final_metric <= 1.0
     assert rep.telemetry["device_loop"]["chunks"] == 1
     assert "compiled sync run" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
-                         "--device", "cpu"])
+    rep = port_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
+                           "--device", "cpu", "--samples", "600",
+                           "--edges", "2", "--budget", "1200",
+                           "--async-batch-k", "2"])
+    assert rep.mode == "async" and rep.n_aggregations > 0
+    assert rep.terminated_reason == "budget_exhausted"
+    assert {r.edge for r in rep.records} == {0, 1}
+    assert rep.telemetry["device_loop"]["batch_k"] == 2
+    assert "compiled async run" in capsys.readouterr().out
