@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
               each instance's SASS by ``cuobjdump``: every bf16 instance
               must have some);
 3. kernel  -- hold each kernel against its plain PyTorch version on the
-              card, at the reference tests' shapes and the main paths';
+              card, at the reference tests' shapes and the main paths'
+              (the batched ``kmeans_assign`` also under ``torch.func.vmap``
+              over 24 cells: one launch, bit-equal to 24);
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
               (20,000 samples, 4 edges, batch 128, budget 5000 per edge)
               through ``ELSession.run_sync`` and ``run_async`` on the card;
@@ -40,6 +42,17 @@ Phases, each printing JSON lines:
               card's own generator, run seconds, events, chunks, graphs,
               replays and kernel launches beside the host ``run_async``'s
               seconds;
+4d. sweep  -- the same two workloads through ``ELSession.sweep``: a sync
+              grid of 24 cells (ucb_c x budget x heterogeneity x seeds) and
+              an async grid of two sub-sweeps of 8 (wave widths 1 and 4),
+              each cell a row of one device loop, its masked step vmapped
+              over the cells (one CUDA graph replay a chunk, every K-means
+              local step one ``kmeans_assign`` launch over all (cell,
+              edge) pairs), with functorch's per-cell fallback warning an
+              error; every cell's decisions must equal a solo run of its
+              config on the card, the K = 4 cells their K = 1 twins; sweep
+              seconds (capture, then reuse) beside the solo runs' sum,
+              chunks, replays, launches and the draw refill's host ms;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -59,16 +72,17 @@ Phases, each printing JSON lines:
               S = 128, 2 rounds);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch (the batched
-              ``kmeans_assign`` beside 4 single launches); ``ssd_scan`` and
+              ``kmeans_assign`` beside 4 single launches, and at the sweep's
+              96 (cell, edge) pairs); ``ssd_scan`` and
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 4c, 5, 6, 7) is driven with every kernel's launch count set to 0
-just before it and read just after.  Then the card's name and power limit
-(nvidia-smi), and last ``{"ok": true, "device": {...}}``.  Any failed
-check exits non-zero, as does a machine without CUDA or a directory
-without the repo's sources.  The script imports nothing of JAX and
+Each path (4, 4b, 4c, 4d, 5, 6, 7) is driven with every kernel's launch
+count set to 0 just before it and read just after.  Then the card's name
+and power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero, as does a machine without CUDA or a
+directory without the repo's sources.  The script imports nothing of JAX and
 nothing of the JAX package.
 """
 
@@ -255,6 +269,42 @@ def kernel_batched_vs_plain() -> float:
         if (e, n, d, k) == KM_BATCHED_MAIN:
             main_err = err
     return main_err
+
+
+def kernel_cells_vs_plain(n_cells: int) -> float:
+    """The batched entry under ``torch.func.vmap`` over ``n_cells`` cells
+    at the compiled round's local-step shape: the op's vmap rule folds
+    (cell, edge) into C·E pairs and launches once, bit-equal to C batched
+    launches and within the batched entry's tolerance of the plain
+    version; returns the largest |d2 - d2_plain|."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops, ref
+    e, n, d, k = KM_BATCHED_MAIN
+    x, c = km_batched_inputs(n_cells * e, n, d, k, "float32", seed=60)
+    xv, cv = x.view(n_cells, e, n, d), c.view(n_cells, e, k, d)
+    before = ops.batched_launches
+    a, d2 = torch.func.vmap(ops.assign_with_dist_batched)(xv, cv)
+    vmapped_launches = ops.batched_launches - before
+    per_cell = [ops.assign_with_dist_batched(xv[i], cv[i])
+                for i in range(n_cells)]
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a[i], pa) and torch.equal(d2[i], pd)
+                    for i, (pa, pd) in enumerate(per_cell))
+    err = float((d2.reshape(-1, n) - d2_ref).abs().max())
+    agree = float((a.reshape(-1, n) == a_ref).float().mean())
+    emit("kernel_vs_plain", kernel="kmeans_assign_batched_cells",
+         cells=n_cells, e=e, n=n, d=d, k=k, dtype="float32",
+         vmapped_launches=vmapped_launches,
+         bit_equal_to_per_cell_launches=bit_equal, max_abs_err=err,
+         assign_agree=agree)
+    check(vmapped_launches == 1,
+          f"kmeans_assign under vmap: {vmapped_launches} launches, not 1")
+    check(bit_equal, "kmeans_assign under vmap != per-cell launches")
+    check(torch.allclose(d2.reshape(-1, n), d2_ref, rtol=1e-4, atol=1e-3),
+          f"kmeans_assign under vmap: d2 off by {err}")
+    check(agree >= 0.999, f"kmeans_assign under vmap: assignments {agree}")
+    return err
 
 
 # (b, s, h, p, n, chunk, dtype name): the reference's kernel-test cases,
@@ -828,6 +878,247 @@ def async_phase(fixtures) -> dict:
             "kmeans_assign_batched": launches["kmeans_assign_batched"]}
 
 
+# -- phase 4d: the compiled ablation sweep ------------------------------------
+
+# the paper's Figs. 3-5 grids at the phases' full width: 24 sync cells and
+# two async sub-sweeps (one per wave width) of 8
+SWEEP_SYNC = {"ucb_c": (0.5, 1.0, 2.0), "budget": (2500.0, 5000.0),
+              "heterogeneity": (1.0, 6.0), "seeds": (0, 1),
+              "max_rounds": 256}
+SWEEP_ASYNC = {"async_batch_k": (1, ASYNC_WAVE), "ucb_c": (1.0, 2.0),
+               "budget": (2500.0, 5000.0), "seeds": (0, 1)}
+# functorch's warning when an op has no batching rule and runs once per
+# cell: on the sweep's path it is an error
+PERF_DROP = ".*performance drop.*"
+SWEEP_CELLS = 24                  # the sync grid's cells: 96 (cell, edge)
+
+
+class FillClock:
+    """Host seconds spent in ``CellDraws.fill`` (the per-cell draw
+    refill before each chunk)."""
+
+    def __init__(self):
+        from repro_torch.el.rng import CellDraws
+        self.cls, self.orig, self.seconds, self.calls = \
+            CellDraws, CellDraws.fill, 0.0, 0
+        clock = self
+
+        def timed(draws, *a, **kw):
+            t0 = time.perf_counter()
+            clock.orig(draws, *a, **kw)
+            clock.seconds += time.perf_counter() - t0
+            clock.calls += 1
+        CellDraws.fill = timed
+
+    def close(self):
+        self.cls.fill = self.orig
+
+
+def sweep_session(fx, mode):
+    from repro_torch.el import ELSession
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=4,
+                              utility=fx["utility"])
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]))
+
+
+def cell_report(rep, i, horizon, mode):
+    """Cell ``i`` of a sweep as the ``ELReport`` a solo run gives."""
+    from repro_torch.el.report import report_from_out
+    out = {k: v[i] for k, v in rep.out.items() if k != "final_metric_host"}
+    return report_from_out(out, mode=mode, policy=rep.policy,
+                           horizon=horizon, final_metric=float("nan"),
+                           final_params=None, elapsed_s=0.0)
+
+
+def max_diff(a, b) -> float:
+    """The largest |a - b| where both are finite (0 where none is)."""
+    import numpy as np
+    a, b = np.float32(a), np.float32(b)
+    ok = np.isfinite(a) & np.isfinite(b)
+    check(bool((np.isfinite(a) == np.isfinite(b)).all()),
+          "a metric is finite on one side only")
+    return float(np.abs(a[ok] - b[ok]).max()) if ok.any() else 0.0
+
+
+def sync_margin(sess_cfg, rep) -> float:
+    """The smallest top-2 margin of ``logits + g`` over a sync run's
+    rounds, its bandit rebuilt from the records and its Gumbel draws
+    regenerated from the cell's seed (item t's draws depend on t only)."""
+    import torch
+    from repro_torch.core import bandit
+    from repro_torch.el.ingraph import sync_knobs
+    from repro_torch.el.rng import TorchDraws
+    n, k, e = rep.n_aggregations, sess_cfg.max_interval, sess_cfg.n_edges
+    dev = torch.device("cuda")
+    bufs = {"gumbel": torch.zeros(n, k, device=dev),
+            "uniform": torch.zeros(n, e, k, 1, device=dev),
+            "normal": torch.zeros(n, e, device=dev)}
+    TorchDraws(torch.Generator(device=dev).manual_seed(
+        sess_cfg.seed + 17)).fill(bufs, 0)
+    knobs = {name: torch.as_tensor(v, device=dev)
+             for name, v in sync_knobs(sess_cfg).items()}
+    state = bandit.device_bandit_init(k, dev)
+    wall, best = torch.zeros((), device=dev), float("inf")
+    for t, r in enumerate(rep.records):
+        w = bandit.device_selection_weights(state, knobs["budget"] - wall,
+                                            knobs["costs_k"], knobs["ucb_c"])
+        top2 = (bandit.device_arm_logits(w) + bufs["gumbel"][t]).topk(2)
+        best = min(best, float(top2.values[0] - top2.values[1]))
+        state = bandit.device_bandit_update(
+            state, torch.tensor(int(r.interval) - 1, device=dev),
+            torch.tensor(r.utility, dtype=torch.float32, device=dev),
+            torch.zeros((), device=dev))
+        wall = torch.tensor(r.wall_time, dtype=torch.float32, device=dev)
+    return best
+
+
+def sweep_phase(fixtures) -> dict:
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.el.events import padded_event_horizon
+    from repro_torch.el.sweep import SweepSpec
+    from repro_torch.kernels.kmeans_assign import ops
+
+    warnings.filterwarnings("error", message=PERF_DROP)
+    card = card_line()
+    sessions, specs = {}, {}
+    for arch, fx in fixtures.items():
+        for mode in ("sync", "async"):
+            sess = sweep_session(fx["cuda"], mode)
+            if mode == "sync":
+                spec = SweepSpec(**SWEEP_SYNC)
+            else:
+                top = dataclasses.replace(
+                    sess.cfg, budget=max(SWEEP_ASYNC["budget"]))
+                spec = SweepSpec(**SWEEP_ASYNC,
+                                 max_rounds=padded_event_horizon(top))
+            sessions[arch, mode], specs[arch, mode] = sess, spec
+
+    # (a) the main path, counts read around it: each grid twice, the
+    # first run capturing its graphs, the second reusing them
+    reports, runs = {}, {}
+    clock = FillClock()
+    reset_counts()
+    torch.cuda.synchronize()
+    for key, sess in sessions.items():
+        runs[key] = []
+        for _ in range(2):
+            before, fills = ops.batched_launches, clock.seconds
+            t0 = time.perf_counter()
+            rep = sess.sweep(specs[key])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            loops = rep.telemetry["device_loops"]
+            chunks = sum(lp["chunks"] for lp in loops)
+            runs[key].append({
+                "run_s": secs, "cells": rep.n_cells, "chunks": chunks,
+                "replays": sum(lp["replays"] for lp in loops),
+                "graphs_captured": sum(lp["graphs_captured"] for lp in loops),
+                "kernel_launches": ops.batched_launches - before,
+                "device_loops": loops,
+                "fill_ms_per_chunk": 1e3 * (clock.seconds - fills) / chunks,
+                "rounds": [int(n) for n in rep.out["n_rounds"]]})
+        reports[key] = rep
+    launches = counts()
+    clock.close()
+    warnings.filterwarnings("default", message=PERF_DROP)
+
+    for (arch, mode), rs in runs.items():
+        rep, spec = reports[arch, mode], specs[arch, mode]
+        check(rs[0]["graphs_captured"] == len(rep.telemetry["device_loops"])
+              and rs[1]["graphs_captured"] == 0
+              and all(r["replays"] == r["chunks"] > 0 for r in rs),
+              f"sweep {arch} {mode}: graphs / replays {rs}")
+        check(not rep.truncated().any(),
+              f"sweep {arch} {mode}: truncated cells {rep.truncated()}")
+        finals = rep.final_metrics()
+        check(np.isfinite(finals).all() and all(
+            bool(torch.isfinite(v).all())
+            for v in rep.final_params.values()),
+            f"sweep {arch} {mode}: final metrics {finals}")
+        if arch == "kmeans-traffic":
+            for r in rs:
+                for lp in r["device_loops"]:
+                    # one launch a local step for every (cell, edge) pair:
+                    # rounds_per_chunk x k a graph, not x C
+                    check(lp["kernel_launches_per_graph"] ==
+                          lp["rounds_per_chunk"] * 10,
+                          f"sweep kmeans {mode}: launches per graph {lp}")
+                check(r["kernel_launches"] == 160 * (
+                    r["replays"] + r["graphs_captured"]),
+                    f"sweep kmeans {mode}: batched launches {r}")
+    km = [r for (arch, _), rs in runs.items() if arch == "kmeans-traffic"
+          for r in rs]
+    check(launches["kmeans_assign_batched"] == sum(
+        r["kernel_launches"] for r in km) > 0,
+        f"sweep: batched kmeans_assign launches {launches}")
+    # the single entry scores each kmeans cell's final params (F1)
+    check(launches["kmeans_assign"] == sum(r["cells"] for r in km) and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"sweep: unexpected kernel launches {launches}")
+
+    # (b) every cell against a solo run of its config on the card's
+    # default draws; the solo runs share one program per mode (and wave
+    # width), the first capturing it
+    for (arch, mode), rep in reports.items():
+        sess, spec = sessions[arch, mode], specs[arch, mode]
+        solo = sweep_session(fixtures[arch]["cuda"], mode)
+        cfgs = spec.cell_cfgs(sess.cfg)
+        solo_s, diffs, margin = 0.0, [0.0, 0.0], float("inf")
+        for i, ccfg in enumerate(cfgs):
+            solo.cfg = ccfg
+            run = (lambda: solo.run_sync_ingraph(max_rounds=spec.max_rounds)
+                   ) if mode == "sync" else solo.run_async_ingraph
+            if i == 0 or (mode == "async" and ccfg.async_batch_k !=
+                          cfgs[i - 1].async_batch_k):
+                run()                          # capture the solo graph
+            t0 = time.perf_counter()
+            ind = run()
+            torch.cuda.synchronize()
+            solo_s += time.perf_counter() - t0
+            cell = cell_report(rep, i, spec.max_rounds, mode)
+            # (edge, interval, consumed, wall) a round or event, bits
+            same = event_decisions(cell) == event_decisions(ind)
+            check(same and cell.arm_pulls == ind.arm_pulls and
+                  cell.terminated_reason == ind.terminated_reason ==
+                  "budget_exhausted",
+                  f"sweep {arch} {mode} cell {i} ({spec.cells(sess.cfg)[i]}):"
+                  f" {cell.n_aggregations} rounds vs the solo run's "
+                  f"{ind.n_aggregations}")
+            for j, f in enumerate(("metric", "utility")):
+                diffs[j] = max(diffs[j], max_diff(
+                    [getattr(r, f) for r in cell.records],
+                    [getattr(r, f) for r in ind.records]))
+            if mode == "sync":
+                margin = min(margin, sync_margin(ccfg, ind))
+        waves = {}
+        if mode == "async":
+            # async_batch_k is slowest: the K = 4 cells are the K = 1
+            # cells' twins, in order
+            half = rep.n_cells // 2
+            waves = {"wave_same_decisions": all(
+                event_decisions(cell_report(rep, i, spec.max_rounds, mode))
+                == event_decisions(cell_report(rep, half + i,
+                                               spec.max_rounds, mode))
+                for i in range(half))}
+            check(waves["wave_same_decisions"],
+                  f"sweep {arch}: batch_k={ASYNC_WAVE} cells differ from "
+                  "their batch_k=1 twins")
+        emit("sweep", arch=arch, mode=mode, device="cuda",
+             draws="torch.Generator per cell on the card, seed + 17",
+             spec=spec.describe(sess.cfg), runs=runs[arch, mode],
+             solo_runs_s=solo_s, same_decisions_as_solo=True,
+             max_metric_diff=diffs[0], max_utility_diff=diffs[1],
+             min_top2_margin=margin if mode == "sync" else "not measured",
+             final_metrics=[float(m) for m in rep.final_metrics()],
+             card=card, **waves)
+    return {"kmeans_assign": launches["kmeans_assign"],
+            "kmeans_assign_batched": launches["kmeans_assign_batched"]}
+
+
 # -- phase 5: mamba2-370m serving ---------------------------------------------
 
 # (arrival step, prompt length): three prompts open the first wave and
@@ -1358,6 +1649,37 @@ def kmeans_batched_timing(e: int, n: int, d: int, k: int) -> dict:
     return out
 
 
+def kmeans_cells_timing(n_cells: int, e: int, n: int, d: int,
+                        k: int) -> dict:
+    """The batched entry at a sweep's local-step shape, all C·E (cell,
+    edge) pairs in one launch, beside the plain version and the library's
+    batched ``cdist`` + ``min``; ``vmap_call_ms`` is the call as the
+    sweep makes it, through ``torch.func.vmap`` and the op's fold rule
+    (host enqueue included)."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops, ref
+    pairs = n_cells * e
+    x, c = km_batched_inputs(pairs, n, d, k, "float32", seed=9)
+    xv, cv = x.view(n_cells, e, n, d), c.view(n_cells, e, k, d)
+    vmapped = torch.func.vmap(ops.assign_with_dist_batched)
+    nbytes = pairs * ((n * d + k * d) * 4 + n * (4 + 4))
+    flops = pairs * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    out = {"cells": n_cells, "e": e, "pairs": pairs, "n": n, "d": d,
+           "k": k}
+    for key, fn in (
+            ("", lambda: ops.assign_with_dist_batched(x, c)),
+            ("plain_", lambda: ref.assign_ref(x, c)),
+            ("library_", lambda: torch.cdist(x, c).min(-1))):
+        out[key + "ms"] = cuda_ms(fn, queued=True)       # the card's time
+        out[key + "call_ms"] = cuda_ms(fn)               # host enqueue incl.
+    out["vmap_call_ms"] = cuda_ms(lambda: vmapped(xv, cv))
+    out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=flops)
+    return out
+
+
 def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's and
     its bound (bf16 operations at the tensor cores' rate, f32 at the CUDA
@@ -1528,14 +1850,17 @@ def main() -> None:
     build_all()
     km_err = kernel_vs_plain()
     kmb_err = kernel_batched_vs_plain()
+    kmc_err = kernel_cells_vs_plain(SWEEP_CELLS)
     ssd_err = ssd_vs_plain()
     fa_err = flash_vs_plain()
     launches, host_s = slice_phase()
     fixtures = classic_fixtures()
     compiled = compiled_phase(host_s, fixtures)
     events = async_phase(fixtures)
+    sweep = sweep_phase(fixtures)
     del fixtures
-    launches["kmeans_assign"] += events["kmeans_assign"]
+    launches["kmeans_assign"] += events["kmeans_assign"] + \
+        sweep["kmeans_assign"]
     launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
                                          + events["kmeans_assign_batched"])
     launches.update(serve_phase())
@@ -1547,6 +1872,8 @@ def main() -> None:
     km = km_shapes[0]
     kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
     emit("kmeans_batched_timing", **kmb)
+    kmc = kmeans_cells_timing(SWEEP_CELLS, *KM_BATCHED_MAIN)
+    emit("kmeans_cells_timing", **kmc)
     ssd = ssd_timing(*SSD_MAIN)
     emit("ssd_timing", **ssd)
     ssd32 = ssd_timing(*SSD_MAIN[:-1], "float32")
@@ -1589,6 +1916,18 @@ def main() -> None:
         "singles_ms": kmb["singles_ms"],
         "singles_call_ms": kmb["singles_call_ms"],
         "launch_floor_ms": launch_floor_ms, "shapes": [kmb]}, {
+        "name": "kmeans_assign_batched_cells", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
+                    "jax.vmap over edges, src/repro/el/ingraph.py:526, and "
+                    "over cells, src/repro/el/sweep/engine.py:190)",
+        "launches": sweep["kmeans_assign_batched"],
+        "max_abs_err": kmc_err, "ms": kmc["ms"], "kernel_ms": kmc["ms"],
+        "call_ms": kmc["call_ms"], "vmap_call_ms": kmc["vmap_call_ms"],
+        "plain_ms": kmc["plain_ms"], "bound_ms": kmc["bound_ms"],
+        "bound_by": kmc["bound_by"], "library_ms": kmc["library_ms"],
+        "library": "torch.cdist(x, c).min(-1) on [C*E, N, D] x [C*E, K, D]",
+        "launch_floor_ms": launch_floor_ms, "shapes": [kmc]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

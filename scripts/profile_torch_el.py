@@ -18,7 +18,12 @@ around it:
                      event-queue loop;
   compiled_async     ``ELSession.run_async_ingraph``: chunks of masked
                      event steps, single events;
-  compiled_async_k4  the same with K-event waves of 4 (``async_batch_k``).
+  compiled_async_k4  the same with K-event waves of 4 (``async_batch_k``);
+  sweep_sync_24      ``ELSession.sweep`` of the 24-cell sync grid of
+                     ``chip_smoke.py`` phase 4d (ucb_c 0.5 / 1 / 2 x budget
+                     2500 / 5000 x heterogeneity 1 / 6 x seeds 0 / 1): the
+                     compiled round's masked step vmapped over the cells,
+                     one graph replay a chunk for the whole grid.
 
 Prints one JSON line per (arch, path):
 
@@ -35,7 +40,10 @@ Prints one JSON line per (arch, path):
                  unprofiled runs by the host clock; idle_share_events, 1 - replays x replay_ms /
                  plain_wall_ms (every chunk replays the whole graph);
                  fill_ms and launch_ms, the host's time to refill a
-                 chunk's draws and to launch its graph;
+                 chunk's draws (a sweep: every cell's, from its own
+                 generator) and to launch its graph; a sweep also gives
+                 cells and kernels_per_graph_round, the kernels a replay
+                 runs over its rounds (masked or not);
 
 then the card's name and power limit (nvidia-smi).  Fails when there is no
 card or the profiler reports no device time for a path.
@@ -44,6 +52,7 @@ card or the profiler reports no device time for a path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -124,20 +133,29 @@ def replay_ms(program, iters: int = 20) -> float:
 def host_ms(program, iters: int = 5) -> dict:
     """The host's share of one chunk, the card kept busy by a queued
     sleep so that no call waits for it: the refill of the draw buffers
-    from a ``TorchDraws`` (fresh blocks each time) and the graph's
-    launch (``replay()`` returning), each by the host clock."""
+    from a ``TorchDraws`` (fresh blocks each time; a sweep: one per
+    cell) and the graph's launch (``replay()`` returning), each by the
+    host clock.  Each chunk starts from an empty launch queue (a sweep's
+    refill enqueues ~10 small kernels a cell, and a full queue would
+    make the host wait for the sleep)."""
     import torch
-    from repro_torch.el.rng import TorchDraws
-    draws = TorchDraws(torch.Generator(device="cuda").manual_seed(0))
+    from repro_torch.el.rng import CellDraws, TorchDraws
+
+    def torch_draws(seed):
+        return TorchDraws(torch.Generator(device="cuda").manual_seed(seed))
+    cells = program.n_cells
+    draws = torch_draws(0) if cells is None else CellDraws(
+        [torch_draws(c) for c in range(cells)])
     if program.init_bufs:
         draws.fill_init(program.init_bufs)
-    items = next(iter(program.draw_bufs.values())).shape[0]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(1_000_000_000)          # ~0.5 s of queued card work
+    items = program.rounds_per_chunk * program.cell.items_per_step
     fill, launch = [], []
     for i in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)        # ~0.1 s of queued card work
         t0 = time.perf_counter()
-        draws.fill(program.draw_bufs, i * items)
+        draws.fill(program.draw_bufs,
+                   i * items if cells is None else [i * items] * cells)
         t1 = time.perf_counter()
         program.graph.replay()
         t2 = time.perf_counter()
@@ -153,7 +171,10 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
 
     from repro_torch.el import ELSession
+    from repro_torch.el.sweep import SweepSpec
     from repro_torch.launch.classic import classic_fixture
+    grid = SweepSpec(ucb_c=(0.5, 1.0, 2.0), budget=(2500.0, 5000.0),
+                     heterogeneity=(1.0, 6.0), seeds=(0, 1), max_rounds=256)
 
     for arch in ("kmeans-traffic", "svm-wafer"):
         fx = classic_fixture(arch, samples=SAMPLES, n_edges=EDGES,
@@ -172,19 +193,32 @@ def main() -> None:
                  ("host_async", session("async"), "run_async"),
                  ("compiled_async", session("async"), "run_async_ingraph"),
                  ("compiled_async_k4", session("async", 4),
-                  "run_async_ingraph")]
+                  "run_async_ingraph"),
+                 ("sweep_sync_24", session("sync"), "sweep")]
         if arch == "kmeans-traffic":
             paths.insert(0, ("host_sync", session("sync"), "run_sync"))
         for name, sess, method in paths:
             run = getattr(sess, method)
+            if method == "sweep":
+                run = functools.partial(run, grid)
             run()                              # warm-up (graph capture)
             out, rep = profile_run(name, run)
-            out.update(arch=arch, rounds=rep.n_aggregations,
-                       kernels_per_round=out["kernels"] / rep.n_aggregations,
-                       reason=rep.terminated_reason,
-                       card=torch.cuda.get_device_name(0))
-            if rep.telemetry:
-                loop = rep.telemetry["device_loop"]
+            out.update(arch=arch, card=torch.cuda.get_device_name(0))
+            if method == "sweep":
+                loop = rep.telemetry["device_loops"][0]
+                rounds = int(rep.out["n_rounds"].max())
+                out.update(cells=rep.n_cells, rounds=rounds,
+                           kernels_per_round=out["kernels"] / rounds,
+                           kernels_per_graph_round=out["kernels"] / (
+                               loop["replays"] * loop["rounds_per_chunk"]),
+                           truncated=int(rep.truncated().sum()))
+            else:
+                out.update(rounds=rep.n_aggregations,
+                           kernels_per_round=out["kernels"]
+                           / rep.n_aggregations,
+                           reason=rep.terminated_reason)
+                loop = (rep.telemetry or {}).get("device_loop")
+            if loop:
                 program = list(sess.compile_cache.values())[-1]
                 one = replay_ms(program)
                 out.update(host_ms(program))

@@ -61,7 +61,7 @@ from repro_torch.el.events.state import (bandit_fleet_init, bandit_place,
 from repro_torch.el.ingraph import (ChunkRunner, ELCell, _edge_sum,
                                     _pad_edge_data, _tree_l2,
                                     check_ingraph_support, default_metric_fn,
-                                    make_local_block)
+                                    gain_fn, make_local_block)
 from repro_torch.interop import tree_map
 
 Params = Any
@@ -85,15 +85,12 @@ def _build_parts(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "utility='eval_gain' needs a device metric; pass metric_fn= "
             "or use utility='param_delta'")
     nan = torch.full((), float("nan"), device=device)
+    eval_gain = gain_fn(metric_fn) if cfg.utility == "eval_gain" else None
 
     def eval_step(params: Params, prev_params: Params,
                   prev_metric: torch.Tensor):
-        if cfg.utility == "eval_gain":
-            with_gain = getattr(metric_fn, "with_gain", None)
-            if with_gain is not None:      # XLA's one rounding of the gain
-                return with_gain(params, prev_metric)
-            metric = metric_fn(params)
-            return metric, metric - prev_metric
+        if eval_gain is not None:
+            return eval_gain(params, prev_metric)
         metric = metric_fn(params) if metric_fn is not None else nan
         return metric, 1.0 / (1.0 + _tree_l2(prev_params, params))
 
@@ -115,7 +112,8 @@ def _ascending(finish: torch.Tensor, edge_ids: torch.Tensor
     f_row, f_col = finish[None, :], finish[:, None]
     before = (f_row < f_col) | ((f_row == f_col)
                                 & (edge_ids[None, :] < edge_ids[:, None]))
-    order = torch.empty_like(edge_ids).scatter_(0, before.sum(1), edge_ids)
+    rank = before.sum(1)
+    order = torch.zeros_like(rank).scatter(0, rank, edge_ids)
     return finish[order], order
 
 
@@ -373,8 +371,9 @@ class AsyncProgram(ChunkRunner):
     chunk's first; every step reads the whole buffers and its own offset
     from ``t_base``."""
 
-    def _step_draws(self, r: int, t_base: torch.Tensor) -> Dict[str, Any]:
-        return dict(self.draw_bufs, t_base=t_base)
+    def _step_draws(self, bufs: Dict[str, torch.Tensor], r: int,
+                    t_base: torch.Tensor) -> Dict[str, Any]:
+        return dict(bufs, t_base=t_base)
 
 
 def make_async_program(model, edge_data, eval_set, cfg: OL4ELConfig, *,

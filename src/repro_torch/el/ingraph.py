@@ -261,6 +261,22 @@ def default_metric_fn(model, eval_set, metric_name: str
     return None
 
 
+def gain_fn(metric_fn: Callable) -> Callable:
+    """``gain(params, prev_metric) -> (metric, metric - prev_metric)`` as
+    the reference computes the eval gain: through the metric's
+    ``with_gain`` where it has one (XLA fuses the accuracy's multiply into
+    the subtraction, one rounding), else a plain subtraction."""
+    with_gain = getattr(metric_fn, "with_gain", None)
+    if with_gain is not None:
+        return with_gain
+
+    def gain(params: Params, prev_metric: torch.Tensor):
+        metric = metric_fn(params)
+        return metric, metric - prev_metric
+
+    return gain
+
+
 def _fma32(a, b, c) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once, as a fused multiply-add rounds it
     (XLA contracts these): the f32 product is exact in f64, and one
@@ -313,7 +329,7 @@ def make_local_block(model, xs: torch.Tensor, ys: torch.Tensor,
             lanes = all_edges
         rows, n_l = lanes[:, None], n_f[lanes][:, None]          # [L, 1]
         for step in range(k):
-            idx = (uniform[:, step] * n_l).long().clamp_(max=n_max - 1)
+            idx = (uniform[:, step] * n_l).long().clamp(max=n_max - 1)
             b = {"x": xs[rows, idx], "y": ys[rows, idx]}         # [L, B, ...]
             p2 = model.step(params, b, lr)
             take = (step < interval).reshape(-1)                 # [L] or [1]
@@ -393,6 +409,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "or use utility='param_delta'")
 
     local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr, k)
+    eval_gain = gain_fn(metric_fn) if cfg.utility == "eval_gain" else None
     pos = torch.arange(max_rounds, device=dev)
 
     def weighted_mean(trees: Params) -> Params:
@@ -460,10 +477,10 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         slot = (round_costs * mult).amax()
         consumed = consumed + slot
 
-        metric = metric_of(new_params)
-        if cfg.utility == "eval_gain":
-            utility = metric - carry["prev_metric"]
+        if eval_gain is not None:
+            metric, utility = eval_gain(new_params, carry["prev_metric"])
         else:                              # param_delta (§III.A)
+            metric = metric_of(new_params)
             utility = 1.0 / (1.0 + _tree_l2(params, new_params))
 
         bstate = device_bandit_update(bstate, arm, utility, slot)
@@ -528,23 +545,44 @@ class ChunkRunner:
     wrapper's ``batched_launches``.  On the CPU the chunk runs eagerly,
     with the same read.
 
+    With ``n_cells = C`` the runner carries ``C`` independent runs of the
+    cell (an ablation grid's cells, or a ``CellBatch``'s slots): every
+    buffer gains a leading ``[C]`` dimension, ``knobs`` are stacked per
+    cell, ``draws`` is a per-cell provider (``repro_torch.el.rng.
+    CellDraws``), and the masked step, ``init``, ``cond`` and
+    ``finalize`` are vmapped (``torch.func.vmap``) over the cells, so each op
+    of the step is one kernel over all cells (and every K-means local step
+    one ``kmeans_assign`` launch over every (cell, edge) pair).  A cell
+    steps where ``active[c] & cond`` holds (``active`` is all true but
+    for a ``CellBatch``); ``status`` holds whether any cell runs, then
+    every cell's ``t``, then every cell's running flag; the loop ends when
+    no cell runs, or at the horizon.  The refill writes each running
+    cell's rows from its own provider at its own ``t``.
+
     ``out`` holds numpy arrays (one transfer after the loop); ``params``
     are copies of the final carry's.  ``last_run`` describes the latest
     run: chunks (= host syncs), graphs captured, replays and the batched
     kernel launches a graph holds.
     """
 
-    def __init__(self, cell: ELCell, rounds_per_chunk: int = 16):
+    def __init__(self, cell: ELCell, rounds_per_chunk: int = 16,
+                 n_cells: Optional[int] = None):
         self.cell = cell
         self.device = device = cell.device
         self.rounds_per_chunk = int(rounds_per_chunk)
+        self.n_cells = n_cells
+        lead = () if n_cells is None else (int(n_cells),)
         items = self.rounds_per_chunk * cell.items_per_step
         self.carry: Optional[Carry] = None
         self.knobs: Optional[Knobs] = None
-        self.status = torch.ones(2, dtype=torch.int64, device=device)
-        self.draw_bufs = {name: torch.zeros((items,) + shape, device=device)
+        self.status = torch.ones(2 if n_cells is None else 1 + 2 * n_cells,
+                                 dtype=torch.int64, device=device)
+        self.active = (None if n_cells is None else
+                       torch.ones(n_cells, dtype=torch.bool, device=device))
+        self.draw_bufs = {name: torch.zeros(lead + (items,) + shape,
+                                            device=device)
                           for name, shape in cell.draw_shapes.items()}
-        self.init_bufs = {name: torch.zeros(shape, device=device)
+        self.init_bufs = {name: torch.zeros(lead + shape, device=device)
                           for name, shape in cell.init_draw_shapes.items()}
         self.graph = None
         self.launches_per_graph = 0
@@ -557,27 +595,48 @@ class ChunkRunner:
         """Whether the loop goes on after the latest chunk."""
         return self.status[0] != 0
 
-    def _step_draws(self, r: int, t_base: torch.Tensor) -> Dict[str, Any]:
-        """The draws step ``r`` of a chunk reads; ``t_base`` is the
-        chunk's first item."""
+    def _per_cell(self, fn: Callable, in_dims) -> Callable:
+        return fn if self.n_cells is None else torch.func.vmap(
+            fn, in_dims=in_dims)
+
+    def _step_draws(self, bufs: Dict[str, torch.Tensor], r: int,
+                    t_base: torch.Tensor) -> Dict[str, Any]:
+        """The draws step ``r`` of a chunk reads from one cell's buffers;
+        ``t_base`` is the chunk's first item."""
         raise NotImplementedError
 
+    def _masked_step(self, r: int, carry: Carry, knobs: Knobs,
+                     bufs: Dict[str, torch.Tensor], t_base: torch.Tensor,
+                     active: Optional[torch.Tensor] = None) -> Carry:
+        cell = self.cell
+        go = cell.cond(carry, knobs)
+        if active is not None:
+            go = go & active
+        new = cell.body(carry, knobs, self._step_draws(bufs, r, t_base))
+        return tree_map(lambda n, o: torch.where(go, n, o), new, carry)
+
     def _chunk(self, carry: Carry) -> Carry:
-        cell, knobs = self.cell, self.knobs
         t_base = carry["t"]
+        step = self._per_cell(self._masked_step, (None, 0, 0, 0, 0, 0))
         for r in range(self.rounds_per_chunk):
-            active = cell.cond(carry, knobs)
-            new = cell.body(carry, knobs, self._step_draws(r, t_base))
-            carry = tree_map(lambda n, o: torch.where(active, n, o), new,
-                             carry)
+            carry = step(r, carry, self.knobs, self.draw_bufs, t_base,
+                         self.active)
         return carry
 
     def _step(self) -> None:
         """One chunk, the carry updated in place and the status set."""
         carry = self._chunk(self.carry)
         _tree_copy_(self.carry, carry)
-        self.status[0].copy_(self.cell.cond(self.carry, self.knobs))
-        self.status[1].copy_(self.carry["t"])
+        go = self._per_cell(self.cell.cond, (0, 0))(self.carry, self.knobs)
+        if self.n_cells is None:
+            self.status[0].copy_(go)
+            self.status[1].copy_(self.carry["t"])
+        else:
+            go = go & self.active
+            n = self.n_cells
+            self.status[0].copy_(go.any())
+            self.status[1:1 + n].copy_(self.carry["t"])
+            self.status[1 + n:].copy_(go)
 
     def _capture(self) -> None:
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
@@ -594,37 +653,70 @@ class ChunkRunner:
         self.graph = graph
         self.graphs_captured += 1
 
-    def __call__(self, init_params: Params, knobs: Dict[str, Any], draws
-                 ) -> Tuple[Params, Dict[str, np.ndarray]]:
-        from repro_torch.kernels.kmeans_assign import ops as ka_ops
-        dev = self.device
-        knob_t = {name: _knob_tensor(v, dev) for name, v in knobs.items()}
+    def _init_carry(self, init_params: Params, knobs: Knobs) -> Carry:
+        """The initial carry (per cell: ``init`` vmapped over the knobs
+        and initial draws, every leaf its own buffer)."""
+        init = self._per_cell(self.cell.init, (None, 0, 0))(
+            init_params, knobs, self.init_bufs)
+        if self.n_cells is not None:
+            init = tree_map(lambda v: v.clone(
+                memory_format=torch.contiguous_format), init)
+        return init
+
+    def _load(self, init_params: Params, knobs: Dict[str, Any],
+              draws) -> None:
+        """Knobs and the initial carry into the static buffers."""
+        knob_t = {name: _knob_tensor(v, self.device)
+                  for name, v in knobs.items()}
         if self.init_bufs:
             draws.fill_init(self.init_bufs)
-        init = self.cell.init(init_params, knob_t, self.init_bufs)
+        init = self._init_carry(init_params, knob_t)
         if self.carry is None:
             self.knobs, self.carry = knob_t, init
         else:
             _tree_copy_(self.knobs, knob_t)
             _tree_copy_(self.carry, init)
-        cuda = dev.type == "cuda"
-        graphs_before, replays_before = self.graphs_captured, self.replays
-        if cuda and self.graph is None:
+
+    def _run_chunk(self) -> None:
+        """One chunk on the loaded buffers: a replay on a card (the first
+        captures the graph), eagerly on the CPU."""
+        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+        if self.device.type != "cuda":
+            self._step()
+            return
+        if self.graph is None:
             self._capture()
-        chunks, t_next, horizon = 0, 0, self.cell.horizon
+        self.graph.replay()
+        self.replays += 1
+        ka_ops.add_replayed(self.launches_per_graph)
+
+    def _fill(self, draws, status: List[int]) -> None:
+        """The next chunk's draws from the status the last chunk left."""
+        if self.n_cells is None:
+            draws.fill(self.draw_bufs, status[1])
+        else:
+            n = self.n_cells
+            draws.fill(self.draw_bufs, status[1:1 + n],
+                       rows=[bool(s) for s in status[1 + n:]])
+
+    def __call__(self, init_params: Params, knobs: Dict[str, Any], draws
+                 ) -> Tuple[Params, Dict[str, np.ndarray]]:
+        self._load(init_params, knobs, draws)
+        if self.active is not None:
+            self.active.fill_(True)
+        graphs_before, replays_before = self.graphs_captured, self.replays
+        n = self.n_cells
+        status = [1, 0] if n is None else [1] + [0] * n + [1] * n
+        chunks, horizon = 0, self.cell.horizon
         while chunks * self.rounds_per_chunk < horizon:
-            draws.fill(self.draw_bufs, t_next)
-            if cuda:
-                self.graph.replay()
-                self.replays += 1
-                ka_ops.add_replayed(self.launches_per_graph)
-            else:
-                self._step()
+            self._fill(draws, status)
+            self._run_chunk()
             chunks += 1
-            go_on, t_next = self.status.tolist()   # the chunk's host sync
-            if not go_on:
+            status = self.status.tolist()   # the chunk's host sync
+            if not status[0]:
                 break
-        params, out = self.cell.finalize(self.carry, self.knobs)
+        params, out = self._per_cell(self.cell.finalize, (0, 0))(
+            self.carry, self.knobs)
         out = {name: v.cpu().numpy() for name, v in out.items()}
         params = tree_map(torch.clone, params)
         self.last_run = {
@@ -632,6 +724,8 @@ class ChunkRunner:
             "graphs_captured": self.graphs_captured - graphs_before,
             "replays": self.replays - replays_before,
             "kernel_launches_per_graph": self.launches_per_graph}
+        if self.n_cells is not None:
+            self.last_run["n_cells"] = self.n_cells
         return params, out
 
 
@@ -639,8 +733,9 @@ class SyncProgram(ChunkRunner):
     """The compiled sync round on a :class:`ChunkRunner`: step ``r`` of a
     chunk is round ``t + r`` and reads item ``r`` of the draw buffers."""
 
-    def _step_draws(self, r: int, t_base: torch.Tensor) -> Dict[str, Any]:
-        return {name: buf[r] for name, buf in self.draw_bufs.items()}
+    def _step_draws(self, bufs: Dict[str, torch.Tensor], r: int,
+                    t_base: torch.Tensor) -> Dict[str, Any]:
+        return {name: buf[r] for name, buf in bufs.items()}
 
 
 def make_sync_program(model, edge_data, eval_set, cfg: OL4ELConfig, *,

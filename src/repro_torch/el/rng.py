@@ -27,11 +27,14 @@ use it.  ``ReplayDraws`` hands out arrays made elsewhere: the parity tests
 build it from ``jax.random`` key for key, so the port's loops see the
 reference's draws.  A categorical draw is a Gumbel-max either way
 (``jax.random.categorical(k, logits)`` is ``argmax(logits + gumbel(k))``).
+``CellDraws`` stacks one provider per cell of a sweep (or slot of a
+``CellBatch``): row c of the buffers comes from cell c's provider at
+cell c's own item, so a cell sees the draws of its solo run.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -168,3 +171,26 @@ class ReplayDraws:
                              f"{tuple(shape)}")
         self._step += 1
         return g.to(device)
+
+
+class CellDraws:
+    """One provider per cell, for loops that carry a leading cell
+    dimension: buffers ``[C, R, ...]`` (initial draws ``[C, ...]``), row
+    c written by ``providers[c]``."""
+
+    def __init__(self, providers: Sequence):
+        self.providers: List = list(providers)
+
+    def fill(self, bufs: Dict[str, torch.Tensor], t0s: Sequence[int],
+             rows: Optional[Sequence[bool]] = None) -> None:
+        """Row c: cell c's items ``t0s[c] ..``; only the rows where
+        ``rows`` holds (default: every row; a row left out keeps its old
+        draws, which a finished or inactive cell reads masked)."""
+        for c, provider in enumerate(self.providers):
+            if rows is None or rows[c]:
+                provider.fill({n: b[c] for n, b in bufs.items()},
+                              int(t0s[c]))
+
+    def fill_init(self, bufs: Dict[str, torch.Tensor]) -> None:
+        for c, provider in enumerate(self.providers):
+            provider.fill_init({n: b[c] for n, b in bufs.items()})

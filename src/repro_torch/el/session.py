@@ -22,8 +22,9 @@ indices in the executor), so a seeded run makes the reference's decisions.
 CUDA graph replay on a card, with the bandits on the device and one host
 sync per chunk.  Their draws come through the RNG seam
 (``repro_torch.el.rng``); ``run_async(rng_streams="jax")`` is the async
-program's host twin on the same draws.  Ablation ``sweep``s are a later
-slice of the port and raise ``NotImplementedError``.
+program's host twin on the same draws.  ``sweep`` runs a whole ablation
+grid as one of those device loops with a leading cell dimension
+(``repro_torch.el.sweep``).
 """
 
 from __future__ import annotations
@@ -51,7 +52,6 @@ from repro_torch.federated.aggregation import (staleness_alpha, staleness_mix,
 Params = Any
 RoundCallback = Callable[[RoundRecord], None]
 
-_SWEEP_SLICE = "the port's slice of the sweep engine (ROADMAP Queue 1 item 9)"
 _MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
 _OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
 
@@ -82,6 +82,7 @@ class ELSession:
         self._programs = ProgramCache(max_entries=8)
         self._closed = False
         self._fastpath = None                      # last compiled program
+        self._sweep_programs: List[Any] = []       # the last sweep's
 
     @property
     def async_alpha(self) -> float:
@@ -346,7 +347,7 @@ class ELSession:
             return self.run_sync(**kw)
         return self.run_async(**kw)
 
-    # -- compiled fast path ---------------------------------------------------
+    # -- compiled fast path --------------------------------------------------
 
     @staticmethod
     def _structural_cfg(cfg: OL4ELConfig) -> OL4ELConfig:
@@ -389,6 +390,7 @@ class ELSession:
         the next run rebuilds."""
         n = self._programs.clear()
         self._fastpath = None
+        self._sweep_programs = []
         return n
 
     def close(self) -> None:
@@ -569,13 +571,102 @@ class ELSession:
                                                 batch_k=batch_k)}
         return report
 
-    # -- later slices -----------------------------------------------------------
+    # -- ablation sweeps -----------------------------------------------------
 
-    def sweep(self, *args, **kwargs):
-        raise NotImplementedError(f"ELSession.sweep arrives with "
-                                  f"{_SWEEP_SLICE}")
+    def sweep(self, spec, *, draws=None, mesh=None,
+              metric_fn: Optional[Callable] = None, telemetry=None):
+        """Run a whole ablation grid as one device loop.
 
-    # -- AC-sync estimator plumbing -------------------------------------------
+        ``spec`` is a :class:`repro_torch.el.sweep.SweepSpec` — grids over
+        ``ucb_c`` / ``budget`` / ``heterogeneity`` / ``cost_noise`` /
+        ``async_alpha`` / ``async_batch_k`` / ``seeds``; empty axes inherit
+        this session's config.  The session's ``cfg.mode`` picks the
+        program the cells run: the sync round (``repro_torch.el.ingraph``)
+        or the async event engine (``repro_torch.el.events``), with a
+        leading cell dimension (the masked step vmapped over the cells,
+        one CUDA graph replay a chunk on a card).  Every cell makes the
+        decisions of an independent ``run_sync_ingraph`` /
+        ``run_async_ingraph`` with that cell's config on the same draws,
+        and the same support matrix applies.  Each ``async_batch_k`` value
+        is a different wave body, so an async grid runs one sub-sweep per
+        K (the axis is slowest-varying: the sub-results concatenate back
+        into ``spec.cells()`` order).
+
+        ``draws`` is ``None`` (each cell draws from a ``torch.Generator``
+        on the program's device seeded with its ``seed + 17``, the stream
+        its solo run draws) or one RNG-seam provider per cell in
+        ``spec.cells()`` order.  Programs are cached per (structural
+        config, grid shape, ``max_rounds``), so a rerun with new knob
+        values reuses the captured graph.  A workload without a device
+        metric (K-means F1) has its cells' final params scored here.
+        ``mesh=`` (ROADMAP Queue 1 item 14) and ``telemetry=`` (item 12)
+        raise ``NotImplementedError``.  Returns a
+        :class:`repro_torch.el.sweep.SweepReport`.
+        """
+        from repro_torch.el.sweep.engine import (make_sweep_program,
+                                                 refuse_unported,
+                                                 run_sweep_program)
+        from repro_torch.el.sweep.report import SweepReport
+        from repro_torch.interop import tree_map
+        refuse_unported("ELSession.sweep", mesh, telemetry)
+        ex = self._require_executor()
+        cfg = self._ingraph_cfg("ELSession.sweep")
+        if draws is not None and len(draws) != spec.n_cells:
+            raise ValueError(f"ELSession.sweep: {len(draws)} draw providers "
+                             f"for {spec.n_cells} cells")
+        t0 = time.perf_counter()
+        subs = (spec.per_batch_k() if cfg.mode == "async"
+                else [(None, spec)])
+        params_parts, out_parts, loops, first = [], [], [], 0
+        self._sweep_programs = []
+        for k_val, sub in subs:
+            sub_cfg = (cfg if k_val is None else dataclasses.replace(
+                cfg, async_batch_k=int(k_val)))
+            # the program depends on the structural config (wave width
+            # included), the grid's shape and max_rounds, not the knobs
+            spec_shape = (tuple(len(v) for v in sub.axes(sub_cfg).values()),
+                          sub.max_rounds)
+            key = ("sweep", ex, self._structural_cfg(sub_cfg), spec_shape,
+                   metric_fn, self.metric_name,
+                   None if self._n_samples is None
+                   else tuple(self._n_samples))
+            program = self._programs.get(key)
+            if program is None:
+                program = make_sweep_program(
+                    ex.model, ex.edge_data, ex.eval_set, sub_cfg, sub,
+                    lr=ex.lr, batch=ex.batch, n_samples=self._n_samples,
+                    metric_fn=metric_fn, metric_name=self.metric_name,
+                    device=getattr(ex, "device", None))
+                self._cache_program(key, program)
+            self._sweep_programs.append(program)
+            sub_draws = (None if draws is None
+                         else list(draws[first:first + sub.n_cells]))
+            first += sub.n_cells
+            params, out = run_sweep_program(
+                program, self._initial_params(), sub.cell_cfgs(sub_cfg),
+                sub_draws)
+            params_parts.append(params)
+            out_parts.append(out)
+            loops.append(dict(program.last_run))
+        # async_batch_k is slowest-varying, so concatenating the sub-sweeps
+        # along the cell axis reproduces spec.cells()
+        params = tree_map(lambda *xs: torch.cat(xs), *params_parts)
+        out = {k: np.concatenate([o[k] for o in out_parts])
+               for k in out_parts[0]}
+        report = SweepReport(
+            spec=spec, axes=spec.axes(cfg), cells=spec.cells(cfg),
+            out=out, policy=cfg.policy,
+            elapsed_s=time.perf_counter() - t0, final_params=params,
+            telemetry={"cache": self._programs.stats(),
+                       "device_loops": loops})
+        # workloads without a device metric (K-means F1) run the program
+        # with a NaN metric history; score the final params host-side so
+        # the report's frontier still has an accuracy axis
+        report.score_final_params(
+            lambda p: ex.evaluate(p)[self.metric_name])
+        return report
+
+    # -- AC-sync estimator plumbing ------------------------------------------
 
     @staticmethod
     def _update_ac(coord: CloudCoordinator, edge_params: List[Params],

@@ -15,16 +15,28 @@ kernel under ``jax.vmap``), one launch for all edges, counted apart in
 launch but runs none: it counts it in ``batched_captured``, and whoever
 replays the graph adds (replays x launches captured) to
 ``batched_launches`` through ``add_replayed``.
+
+The batched entry is the registered op ``repro_torch::kmeans_assign_batched``
+with a ``torch.func.vmap`` rule: under a vmap over cells the rule folds
+the cell dimension into the edge dimension (``[C, E, N, D]`` into
+``[C * E, N, D]``), calls the op once and unfolds the outputs, so a sweep's
+local step is still one launch for every (cell, edge) pair; nested vmaps
+fold one dimension at a time.  The kernel's grid takes at most
+``MAX_EDGES`` such pairs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.kmeans_assign import kernel
 from repro_torch.kernels.kmeans_assign.ref import assign_ref
+
+#: The most (cell, edge) pairs one batched launch takes: the kernel's
+#: ``gridDim.y`` is the edge.
+MAX_EDGES = 65_535
 
 launches = 0
 batched_launches = 0
@@ -92,13 +104,24 @@ def assign_with_dist_batched(x: torch.Tensor, centers: torch.Tensor
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [E, N, D]; centers: [E, K, D] -> (assignments [E, N] i32,
     min_d2 [E, N] f32), edge e's points against edge e's centres."""
-    global batched_launches, batched_captured
     _check_batched_shapes(x, centers)
     _check(x, centers)
+    return _assign_batched(x, centers)
+
+
+@torch.library.custom_op("repro_torch::kmeans_assign_batched",
+                         mutates_args=())
+def _assign_batched(x: torch.Tensor, centers: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    global batched_launches, batched_captured
     if x.device.type == "cpu":
         return assign_ref(x, centers)
     _check_cuda(x, centers)
     e, n = x.shape[:2]
+    if e > MAX_EDGES:
+        raise ValueError(f"kmeans_assign: {e} (cell, edge) pairs in one "
+                         f"batched launch; the kernel's grid takes at most "
+                         f"{MAX_EDGES}")
     out_assign = torch.empty(e, n, dtype=torch.int32, device=x.device)
     out_d2 = torch.empty(e, n, dtype=torch.float32, device=x.device)
     if e and n:
@@ -108,6 +131,31 @@ def assign_with_dist_batched(x: torch.Tensor, centers: torch.Tensor
         else:
             batched_launches += 1
     return out_assign, out_d2
+
+
+@_assign_batched.register_fake
+def _assign_batched_fake(x: torch.Tensor, centers: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    e, n = x.shape[:2]
+    return (x.new_empty((e, n), dtype=torch.int32),
+            x.new_empty((e, n), dtype=torch.float32))
+
+
+def _fold(t: torch.Tensor, dim: Optional[int], size: int) -> torch.Tensor:
+    """The vmapped dimension ``dim`` (None: unbatched, expanded) folded
+    into the edge dimension: [size, E, ...] as [size * E, ...]."""
+    t = t.expand(size, *t.shape) if dim is None else t.movedim(dim, 0)
+    return t.reshape(-1, *t.shape[2:]).contiguous()
+
+
+@_assign_batched.register_vmap
+def _assign_batched_vmap(info, in_dims, x: torch.Tensor,
+                         centers: torch.Tensor):
+    size = info.batch_size
+    a, d2 = _assign_batched(_fold(x, in_dims[0], size),
+                            _fold(centers, in_dims[1], size))
+    return (a.reshape(size, -1, a.shape[-1]),
+            d2.reshape(size, -1, d2.shape[-1])), (0, 0)
 
 
 def add_replayed(n: int) -> None:

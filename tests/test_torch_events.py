@@ -51,6 +51,18 @@ from repro_torch.models import build_model  # noqa: E402
 EDGES = 3
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The device loops are hundreds of small ops a step; on a CPU that
+    other test processes load, torch's OpenMP pool spin-waits between them
+    (a case took 112 s under load with the default pool, 19 s with one
+    thread).  One intra-op thread for this module, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_event_draws(seed, n_events, n_edges, n_arms, steps, batch):
     """The reference async program's draws from ``jax.random.key(seed)``
     (``events/scheduler.py:18-48``, ``program.py:189-195, :252, :264,

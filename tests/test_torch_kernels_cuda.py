@@ -223,6 +223,180 @@ def test_kmeans_assign_batched_rejects_what_the_kernel_cannot_take(
         ops.assign_with_dist_batched(x, big)
 
 
+@pytest.mark.parametrize("cells", [1, 24])
+def test_kmeans_assign_batched_under_vmap_is_one_launch(cells, cuda_device):
+    """``torch.func.vmap`` over the batched entry (a sweep's cells): the
+    op's vmap rule folds (cell, edge) into one launch of C·E pairs,
+    bit-equal to C separate batched launches; nested vmaps fold again,
+    and inside a capture the folded launch is recorded once."""
+    x, c = _batched_inputs(cells * 4, 128, 64, 3, "float32", cells,
+                           cuda_device)
+    xv, cv = x.view(cells, 4, 128, 64), c.view(cells, 4, 3, 64)
+    before = ops.batched_launches
+    a, d2 = torch.func.vmap(ops.assign_with_dist_batched)(xv, cv)
+    assert ops.batched_launches == before + 1
+    assert a.shape == (cells, 4, 128) and a.dtype == torch.int32
+    for i in range(cells):
+        a_i, d2_i = ops.assign_with_dist_batched(xv[i], cv[i])
+        assert torch.equal(a[i], a_i) and torch.equal(d2[i], d2_i)
+    if cells > 1:
+        x2, c2 = xv.view(2, cells // 2, 4, 128, 64), \
+            cv.view(2, cells // 2, 4, 3, 64)
+        before = ops.batched_launches
+        a2, d22 = torch.func.vmap(torch.func.vmap(
+            ops.assign_with_dist_batched))(x2, c2)
+        assert ops.batched_launches == before + 1
+        assert torch.equal(a2.reshape(a.shape), a)
+        assert torch.equal(d22.reshape(d2.shape), d2)
+    torch.cuda.synchronize()
+    captured = ops.batched_captured
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a3, d23 = torch.func.vmap(ops.assign_with_dist_batched)(xv, cv)
+    assert ops.batched_captured == captured + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(a3, a) and torch.equal(d23, d2)
+
+
+def test_kmeans_assign_batched_refuses_more_pairs_than_its_grid(
+        cuda_device):
+    x = torch.zeros(ops.MAX_EDGES + 1, 1, 8, device=cuda_device)
+    c = torch.zeros(ops.MAX_EDGES + 1, 2, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="pairs"):
+        ops.assign_with_dist_batched(x, c)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_sweep_on_the_card_makes_the_solo_runs_decisions(mode,
+                                                         cuda_device):
+    """``ELSession.sweep`` on the card (the masked step vmapped over the
+    cells, CUDA-graph chunks, one batched kernel launch a K-means local
+    step for every (cell, edge) pair), with functorch's per-cell fallback
+    warning an error: every cell makes the decisions of a solo run of its
+    config on the card's default draws."""
+    import dataclasses
+    import warnings
+    from repro_torch.el import ELSession
+    from repro_torch.el.sweep import SweepSpec
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=3,
+                         device=cuda_device)
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=3,
+                              budget=1500.0, utility=fx["utility"],
+                              heterogeneity=2.0)
+
+    def session(c):
+        return ELSession(c, metric_name=fx["metric"], lr=fx["lr"]) \
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"])
+
+    spec = SweepSpec(ucb_c=(1.0, 2.0), budget=(900.0, 1500.0),
+                     seeds=(0, 3), max_rounds=128,
+                     async_batch_k=(1, 2) if mode == "async" else ())
+    before = ops.batched_launches
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop.*")
+        rep = session(cfg).sweep(spec)
+    launched = ops.batched_launches - before
+    loops = rep.telemetry["device_loops"]
+    for loop in loops:
+        assert loop["graphs_captured"] == 1
+        assert loop["kernel_launches_per_graph"] == \
+            loop["rounds_per_chunk"] * cfg.max_interval
+    assert launched == sum(lp["kernel_launches_per_graph"]
+                           * (lp["replays"] + 1) for lp in loops)
+    assert not rep.truncated().any()
+    for i, ccfg in enumerate(spec.cell_cfgs(cfg)):
+        ind = (session(ccfg).run_sync_ingraph(max_rounds=128)
+               if mode == "sync" else
+               session(ccfg).run_async_ingraph(max_events=128))
+        n = int(rep.out["n_rounds"][i])
+        assert n == ind.n_aggregations > 0
+        assert rep.out["interval"][i][:n].tolist() == \
+            [r.interval for r in ind.records]
+        assert rep.out["consumed"][i][:n].tolist() == \
+            [r.total_consumed for r in ind.records]
+        assert rep.out["wall"][i][:n].tolist() == \
+            [r.wall_time for r in ind.records]
+        if mode == "async":
+            assert rep.out["edge"][i][:n].tolist() == \
+                [r.edge for r in ind.records]
+            pulls = rep.out["arm_pulls"][i].sum(0)
+        else:
+            pulls = rep.out["arm_pulls"][i]
+        assert pulls.tolist() == ind.arm_pulls
+
+
+def test_cell_batch_on_the_card_makes_the_solo_runs_decisions(
+        cuda_device):
+    """``CellBatch`` on the card: four tenants through three slots, one
+    CUDA graph a wave (captured at the first step, the stacked carry its
+    static buffer, ``place`` writing into it between waves); each
+    harvested tenant makes the decisions of its solo run on the card's
+    default draws."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.ingraph import sync_knobs
+    from repro_torch.el.rng import TorchDraws
+    from repro_torch.el.sweep import make_cell_batch
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=3,
+                         device=cuda_device)
+    ex = fx["executor"]
+    base = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=3,
+                               utility=fx["utility"], heterogeneity=2.0)
+    tenants = [dataclasses.replace(base, budget=b, seed=s, ucb_c=c)
+               for b, s, c in ((900.0, 0, 1.0), (1500.0, 3, 2.0),
+                               (700.0, 1, 0.5), (1100.0, 2, 2.0))]
+    cb = make_cell_batch(ex.model, ex.edge_data, ex.eval_set, base,
+                         n_slots=3, rounds_per_wave=4, lr=ex.lr,
+                         batch=ex.batch, n_samples=fx["n_samples"],
+                         horizon=64, device=cuda_device)
+
+    def draws(c):
+        return TorchDraws(torch.Generator(device=cuda_device)
+                          .manual_seed(c.seed + 17))
+
+    queue, occupant, rows = list(range(4)), [None] * 3, [None] * 3
+    stacked, done = None, {}
+    while queue or any(o is not None for o in occupant):
+        for slot in range(3):
+            if occupant[slot] is None and queue:
+                i = queue.pop(0)
+                d = draws(tenants[i])
+                carry = cb.init_slot(fx["init_params"],
+                                     sync_knobs(tenants[i]), d)
+                if stacked is None:
+                    stacked = cb.broadcast(carry)
+                stacked = cb.place(stacked, carry, slot, d)
+                occupant[slot], rows[slot] = i, sync_knobs(tenants[i])
+        knobs = {k: np.stack([(r if r is not None else rows[0])[k]
+                              for r in rows]) for k in rows[0]}
+        stacked, running = cb.step(stacked, knobs, torch.tensor(
+            [o is not None for o in occupant]))
+        for slot, i in enumerate(occupant):
+            if i is not None and not bool(running[slot]):
+                done[i] = cb.finalize_slot(cb.take_slot(stacked, slot),
+                                           rows[slot])[1]
+                occupant[slot] = None
+    program = cb.program
+    assert program.graphs_captured == 1
+    assert program.launches_per_graph == 4 * base.max_interval
+    for i, cfg in enumerate(tenants):
+        solo = ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"]) \
+            .with_executor(ex, init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]) \
+            .run_sync_ingraph(max_rounds=64)
+        out, n = done[i], int(done[i]["n_rounds"])
+        assert n == solo.n_aggregations > 0
+        assert out["interval"][:n].tolist() == \
+            [r.interval for r in solo.records]
+        assert out["consumed"][:n].tolist() == \
+            [r.total_consumed for r in solo.records]
+        assert out["arm_pulls"].tolist() == solo.arm_pulls
+
+
 @pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
 def test_compiled_round_on_the_card_makes_the_cpu_decisions(arch,
                                                             cuda_device):

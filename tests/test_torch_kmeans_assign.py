@@ -228,3 +228,60 @@ def test_kmeans_step_takes_an_edge_dimension():
         one = model.step({"centers": c[i]}, {"x": x[i]}, 1.0)["centers"]
         torch.testing.assert_close(new[i], one, rtol=1e-6, atol=1e-6)
     assert model.assign({"centers": c}, x).shape == (3, 128)
+
+
+# -- the batched entry under torch.func.vmap (a sweep's cells) -----------------
+
+
+@pytest.mark.parametrize("in_dims", [(0, 0), (1, 1), (None, 0), (0, None)])
+def test_batched_op_under_vmap_folds_cells_into_edges(in_dims):
+    """``torch.func.vmap`` over the registered op: the vmap rule folds the
+    cell dimension into the edge dimension (an unbatched operand
+    expanded), calls the op once, and unfolds; the result is the plain
+    version on the folded ``[C * E, ...]`` shapes, bit for bit."""
+    cells, e, n, d, k = 5, 3, 40, 16, 4
+    rng = np.random.default_rng(21)
+    x = torch.tensor(rng.standard_normal((cells, e, n, d)),
+                     dtype=torch.float32)
+    c = torch.tensor(rng.standard_normal((cells, e, k, d)),
+                     dtype=torch.float32)
+    xs = x if in_dims[0] == 0 else (x[0] if in_dims[0] is None
+                                    else x.transpose(0, 1))
+    cs = c if in_dims[1] == 0 else (c[0] if in_dims[1] is None
+                                    else c.transpose(0, 1))
+    a, d2 = torch.func.vmap(ops.assign_with_dist_batched,
+                            in_dims=in_dims)(xs, cs)
+    assert a.shape == (cells, e, n) and a.dtype == torch.int32
+    xf = (x[:1] if in_dims[0] is None else x).expand(cells, e, n, d)
+    cf = (c[:1] if in_dims[1] is None else c).expand(cells, e, k, d)
+    a_ref, d2_ref = ref.assign_ref(xf.reshape(-1, n, d),
+                                   cf.reshape(-1, k, d))
+    assert torch.equal(a.reshape(-1, n), a_ref)
+    assert torch.equal(d2.reshape(-1, n), d2_ref)
+
+
+def test_batched_op_under_nested_vmap_folds_one_dim_at_a_time():
+    outer, inner, e, n, d, k = 2, 3, 4, 24, 8, 3
+    rng = np.random.default_rng(22)
+    x = torch.tensor(rng.standard_normal((outer, inner, e, n, d)),
+                     dtype=torch.float32)
+    c = torch.tensor(rng.standard_normal((outer, inner, e, k, d)),
+                     dtype=torch.float32)
+    a, d2 = torch.func.vmap(torch.func.vmap(ops.assign_with_dist_batched))(
+        x, c)
+    assert a.shape == (outer, inner, e, n)
+    a_ref, d2_ref = ref.assign_ref(x.reshape(-1, n, d), c.reshape(-1, k, d))
+    assert torch.equal(a.reshape(-1, n), a_ref)
+    assert torch.equal(d2.reshape(-1, n), d2_ref)
+
+
+def test_batched_op_is_registered_with_a_fake_implementation():
+    """``repro_torch::kmeans_assign_batched`` is a registered op whose fake
+    (meta) implementation gives the outputs' shapes and dtypes; the grid
+    bound on (cell, edge) pairs is the kernel's ``gridDim.y``."""
+    op = torch.ops.repro_torch.kmeans_assign_batched
+    a, d2 = op(torch.empty(6, 10, 4, device="meta"),
+               torch.empty(6, 3, 4, device="meta"))
+    assert a.shape == d2.shape == (6, 10)
+    assert (a.dtype, d2.dtype) == (torch.int32, torch.float32)
+    assert ops.MAX_EDGES == 65_535

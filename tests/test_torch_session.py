@@ -157,13 +157,17 @@ def test_coordinator_and_horizon_match_reference(mode, cost_model):
 
 
 def test_later_slices_raise_not_implemented(fixtures):
-    """The sweep engine is a later slice; the async engine's entry points
-    (``run_async_ingraph``, ``run_async(rng_streams="jax")``) run, and
-    raise only for their unported options."""
+    """The sweep engine's and the async engine's entry points
+    (``sweep``, ``run_async_ingraph``, ``run_async(rng_streams="jax")``)
+    run, and raise only for their unported options: sharded runs, and the
+    scenario engine's sweep axes."""
+    from repro_torch.el.sweep import SweepSpec
     _, tf = fixtures["svm-wafer"]
     sess = ELSession(_cfg(tf, "sync", "ol4el")).with_executor(tf["executor"])
-    with pytest.raises(NotImplementedError, match="slice"):
-        sess.sweep()
+    with pytest.raises(NotImplementedError, match="item 14"):
+        sess.sweep(SweepSpec(seeds=(0,)), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 10"):
+        SweepSpec(policy=("ol4el",))
     with pytest.raises(NotImplementedError, match="item 14"):
         sess.run_async_ingraph(mesh=object())
     assert sess.run_async_ingraph(max_events=4).n_aggregations == 4
