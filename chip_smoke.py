@@ -53,6 +53,23 @@ Phases, each printing JSON lines:
               config on the card, the K = 4 cells their K = 1 twins; sweep
               seconds (capture, then reuse) beside the solo runs' sum,
               chunks, replays, launches and the draw refill's host ms;
+4e. scenarios -- the scenario engine: one scenario (20 % dropout on a
+              32-round schedule, Pareto(2) straggler spikes on a 64-round
+              one, drift 0.01; fixed cost) through ``run_sync_ingraph``
+              under each policy of the switch (``ol4el``, ``task_alloc``,
+              ``delay_energy``) and ``run_async_ingraph`` (K = 1): on
+              replayed draws every decision field of the card's ``out``
+              must equal the CPU run's and ``verify_sync_replay`` must
+              hold each sync run; then on the card's own generator, run
+              seconds, rounds, chunks, replays and launches; then the
+              churn benchmark's grid (3 policies x churn 0 / 0.2 / 0.4 x
+              seeds 0 / 1 / 2) through ``ELSession.sweep`` on svm-wafer
+              (the benchmark's data) and kmeans-traffic, every cell equal
+              to a solo run of its config, the svm seed-means within
+              0.05 of ``BENCH_churn_baselines.json``; past the counted
+              runs, each run's card time (profiled busy share, kernels a
+              chunk round, replay ms, idle share by CUDA events) beside
+              the scenario-less round's and event's;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -78,7 +95,7 @@ Phases, each printing JSON lines:
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 4c, 4d, 5, 6, 7) is driven with every kernel's launch
+Each path (4, 4b, 4c, 4d, 4e, 5, 6, 7) is driven with every kernel's launch
 count set to 0 just before it and read just after.  Then the card's name
 and power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
@@ -1119,6 +1136,395 @@ def sweep_phase(fixtures) -> dict:
             "kmeans_assign_batched": launches["kmeans_assign_batched"]}
 
 
+# -- phase 4e: the scenario engine ---------------------------------------------
+
+# one scenario with all three parts, at fixed cost: 20 % dropout on a
+# 32-round schedule, Pareto(2) straggler spikes on a 64-round one, drift
+SCN_POLICIES = ("ol4el", "task_alloc", "delay_energy")
+# the churn benchmark's grid (benchmarks/churn_baselines.py): 3 policies x
+# churn rates x seeds, heterogeneity 6, churn period 32, 256 rounds; on
+# svm-wafer with its data (4,000 samples, 3 edges, budget 1200, lr 0.01,
+# batch 32), and on kmeans-traffic at the phases' full width
+CHURN_RATES, CHURN_SEEDS = (0.0, 0.2, 0.4), (0, 1, 2)
+CHURN_GRID = {"heterogeneity": 6.0, "period": 32, "max_rounds": 256}
+CHURN_SVM = {"samples": 4000, "edges": 3, "budget": 1200.0, "lr": 0.01,
+             "batch": 32}
+# (edges, interval, ...) a round or event: the decisions a card run must
+# share with the CPU run (or a sweep cell with its solo run), bit for bit
+SCN_DECISIONS = ("n_rounds", "interval", "active_edges", "arm_pulls",
+                 "consumed", "wall", "wall_time", "budgets_left", "edge",
+                 "cost", "n_active")
+
+
+def card_time(run, program) -> dict:
+    """Where a device loop's time goes, after its counted runs: one run of
+    ``run`` under ``torch.profiler`` (host clock around it, the union of
+    its kernels' intervals, the kernels), one chunk's graph replay timed
+    by CUDA events, and the idle share by CUDA events, 1 - replays x
+    replay ms / the run's host ms (every chunk replays the whole graph;
+    the profiler's own overhead counts as idle in the profiled share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(prof):
+        cuda = torch.autograd.DeviceType.CUDA
+        return sorted((e.time_range.start, e.time_range.end)
+                      for e in prof.events() if e.device_type == cuda)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy, cur = kernels(prof), 0.0, None
+    for a, b in spans:                       # the union of the intervals
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy = (busy + (cur[1] - cur[0] if cur else 0.0)) / 1e3
+    check(spans, "the profiler saw no device time")
+    replays = program.last_run["replays"]
+    with profile(activities=[ProfilerActivity.CUDA]) as one:
+        program.graph.replay()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        program.graph.replay()
+    end.record()
+    end.synchronize()
+    replay_ms = start.elapsed_time(end) / 20
+    return {"wall_ms": wall_ms, "profiled_ms": prof_ms,
+            "device_ms": busy, "idle_share": 1.0 - busy / prof_ms,
+            "kernels": len(spans), "replays": replays,
+            "kernels_per_chunk_round": len(kernels(one))
+            / program.rounds_per_chunk,
+            "replay_ms": replay_ms,
+            "idle_share_events": 1.0 - replays * replay_ms / wall_ms}
+
+
+def scenario_spec(rate=0.2):
+    from repro_torch.el.scenarios import ChurnSpec, CostSpec, ScenarioSpec
+    return ScenarioSpec(churn=ChurnSpec(rate=rate, period=32),
+                        cost=CostSpec(kind="pareto", alpha=2.0, period=64),
+                        drift=0.01)
+
+
+def scenario_session(fx, init, mode, policy="ol4el"):
+    from repro_torch.el import ELSession
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=4,
+                              utility=fx["utility"], policy=policy,
+                              scenario=scenario_spec())
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=init,
+                           n_samples=fx["n_samples"]))
+
+
+def same_raw(a: dict, b: dict) -> list:
+    """The decision fields in which two runs' ``out`` dicts differ."""
+    import numpy as np
+    return [k for k in SCN_DECISIONS if (k in a or k in b) and not (
+        k in a and k in b and np.array_equal(np.asarray(a[k]),
+                                             np.asarray(b[k])))]
+
+
+def scenario_solo_runs(fixtures) -> dict:
+    """(a) solo runs: card vs CPU on replayed draws, the replay oracle, then
+    the main path on the card's own generator, counted."""
+    import math
+    import torch
+    from repro_torch.el.scenarios import verify_sync_replay
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.kernels.kmeans_assign import ops
+
+    runs = [(mode, pol) for mode in ("sync",) for pol in SCN_POLICIES] + \
+        [("async", "ol4el")]
+    for arch, fx in fixtures.items():
+        init = params_to_numpy(fx["cuda"]["init_params"])
+        bound = flip_bound(arch, fx["cpu"]["executor"].eval_set["y"].numpy())
+        for mode, pol in runs:
+            reps = {}
+            for dev in ("cuda", "cpu"):
+                sess = scenario_session(fx[dev], params_from_numpy(init, dev),
+                                        mode, pol)
+                batch = fx[dev]["executor"].batch
+                if mode == "sync":
+                    reps[dev] = sess.run_sync_ingraph(
+                        max_rounds=COMPILED_ROUNDS,
+                        draws=replay_draws(sess.cfg, batch, seed=7))
+                    verify_sync_replay(sess.cfg, reps[dev].raw,
+                                       COMPILED_ROUNDS)
+                else:
+                    reps[dev] = sess.run_async_ingraph(
+                        draws=async_replay_draws(sess.cfg, batch, seed=7))
+            gpu, cpu = reps["cuda"], reps["cpu"]
+            differ = same_raw(gpu.raw, cpu.raw)
+            n = gpu.n_aggregations
+            emit("scenario_vs_cpu", arch=arch, mode=mode, policy=pol,
+                 draws="replayed (numpy seed 7)", rounds=n,
+                 cpu_rounds=cpu.n_aggregations, differing_fields=differ,
+                 active_edges_min=int(gpu.raw["active_edges"][:n].min()),
+                 arm_pulls=gpu.arm_pulls, reason=gpu.terminated_reason,
+                 cpu_reason=cpu.terminated_reason,
+                 replay_oracle="passed" if mode == "sync" else "sync only",
+                 final_metric=gpu.final_metric,
+                 cpu_final_metric=cpu.final_metric, flip_bound=bound,
+                 device_loop=gpu.telemetry["device_loop"])
+            check(not differ and n > 0, f"scenario {arch} {mode} {pol}: "
+                  f"card and CPU differ in {differ}")
+            check(gpu.terminated_reason == cpu.terminated_reason,
+                  f"scenario {arch} {mode} {pol}: end")
+            check(abs(gpu.final_metric - cpu.final_metric) <= bound,
+                  f"scenario {arch} {mode} {pol}: final metric "
+                  f"{gpu.final_metric} vs CPU {cpu.final_metric}")
+            check(int(gpu.raw["active_edges"][:n].min()) < 4,
+                  f"scenario {arch} {mode} {pol}: no edge ever dropped")
+
+    # (b) the card's own generator: the main path, counts read around it
+    result, sessions = {}, {}
+    reset_counts()
+    torch.cuda.synchronize()
+    for arch, fx in fixtures.items():
+        for mode, pol in runs:
+            sess = scenario_session(fx["cuda"], fx["cuda"]["init_params"],
+                                    mode, pol)
+            sessions[arch, mode, pol] = sess
+            out = []
+            for _ in range(2):         # the first run captures the graph
+                before = ops.batched_launches
+                t0 = time.perf_counter()
+                rep = (sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS)
+                       if mode == "sync" else sess.run_async_ingraph())
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                loop = rep.telemetry["device_loop"]
+                n = rep.n_aggregations
+                out.append({"run_s": secs, "rounds": n,
+                            "kernel_launches": ops.batched_launches - before,
+                            "reason": rep.terminated_reason,
+                            "final_metric": rep.final_metric,
+                            "active_edges_mean": float(
+                                rep.raw["active_edges"][:n].mean()),
+                            "arm_pulls": rep.arm_pulls, **loop})
+                check(n > 0 and math.isfinite(rep.final_metric)
+                      and all(bool(torch.isfinite(v).all())
+                              for v in rep.final_params.values()),
+                      f"scenario {arch} {mode} {pol}: {rep.summary()}")
+            emit("scenario", arch=arch, mode=mode, policy=pol,
+                 device="cuda", draws="torch.Generator on the card, seed "
+                 "cfg.seed + 17", runs=out, card=card_line())
+            check(out[0]["graphs_captured"] == 1 and
+                  out[1]["graphs_captured"] == 0 and
+                  all(r["replays"] == r["chunks"] > 0 for r in out) and
+                  out[0]["arm_pulls"] == out[1]["arm_pulls"],
+                  f"scenario {arch} {mode} {pol}: graphs / replays {out}")
+            if arch == "kmeans-traffic":
+                for r in out:
+                    # every local step of every round or event, a dropped
+                    # edge's masked; the capture's warm-up chunk eagerly
+                    per_graph = r["rounds_per_chunk"] * 10
+                    check(r["kernel_launches_per_graph"] == per_graph and
+                          r["kernel_launches"] == per_graph * (
+                              r["replays"] + r["graphs_captured"]),
+                          f"scenario kmeans {mode} {pol}: launches {r}")
+            result[arch, mode, pol] = out
+    launches = counts()
+    km = [r for (arch, *_), rs in result.items() if arch == "kmeans-traffic"
+          for r in rs]
+    check(launches["kmeans_assign_batched"] == sum(
+        r["kernel_launches"] for r in km) > 0,
+        f"scenario solo: batched kmeans_assign launches {launches}")
+    # the single entry runs once per kmeans run: the report's final F1
+    check(launches["kmeans_assign"] == len(km) and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"scenario solo: unexpected kernel launches {launches}")
+
+    # (c) where the card's time goes, past the counted runs: each scenario
+    # run, and the scenario-less round and event beside it
+    card = card_line()
+    for arch, fx in fixtures.items():
+        init = fx["cuda"]["init_params"]
+        plain = {("sync", "no scenario"): compiled_session(fx["cuda"], init),
+                 ("async", "no scenario"): async_session(fx["cuda"], init, 1)}
+        for (mode, pol), sess in [*((k[1:], v) for k, v in sessions.items()
+                                    if k[0] == arch), *plain.items()]:
+            run = (lambda s=sess: s.run_sync_ingraph(
+                max_rounds=COMPILED_ROUNDS)) if mode == "sync" else \
+                sess.run_async_ingraph
+            run()                          # the plain runs capture here
+            emit("scenario_card_time", arch=arch, mode=mode, policy=pol,
+                 **card_time(run, sess._fastpath), card=card)
+    return launches
+
+
+def churn_sessions(fixtures) -> dict:
+    """The churn grid's base sessions: svm-wafer built as the churn
+    benchmark builds it (its data, lr and batch), kmeans-traffic from the
+    phases' fixture."""
+    from repro_torch.config import get_config
+    from repro_torch.data import make_wafer_dataset, partition_edges
+    from repro_torch.el import ELSession
+    from repro_torch.el.scenarios import ChurnSpec, ScenarioSpec
+    from repro_torch.federated import ClassicExecutor
+    from repro_torch.models import build_model
+    scn = ScenarioSpec(churn=ChurnSpec(rate=CHURN_RATES[0],
+                                       period=CHURN_GRID["period"]))
+    c = CHURN_SVM
+    train, test = make_wafer_dataset(n=c["samples"], seed=0)
+    exp = get_config("svm-wafer")
+    model = build_model(exp.model, device="cuda")
+    edges = partition_edges(train, c["edges"], alpha=100.0, seed=0)
+    ex = ClassicExecutor(model, edges, test, batch=c["batch"], lr=c["lr"],
+                         device="cuda")
+    svm_cfg = dataclasses.replace(
+        exp.ol4el, mode="sync", policy="ol4el", n_edges=c["edges"],
+        budget=c["budget"], heterogeneity=CHURN_GRID["heterogeneity"],
+        utility="eval_gain", seed=0, cost_noise=0.0, cost_model="fixed",
+        max_interval=10, scenario=scn)
+    svm = (ELSession(svm_cfg, metric_name="accuracy", lr=c["lr"],
+                     async_alpha=0.5)
+           .with_executor(ex, init_params=model.init(None),
+                          n_samples=[len(e["y"]) for e in edges]))
+    fx = fixtures["kmeans-traffic"]["cuda"]
+    km_cfg = dataclasses.replace(
+        fx["exp"].ol4el, mode="sync", policy="ol4el", n_edges=4,
+        utility=fx["utility"], heterogeneity=CHURN_GRID["heterogeneity"],
+        scenario=scn)
+    km = (ELSession(km_cfg, metric_name=fx["metric"], lr=fx["lr"])
+          .with_executor(fx["executor"], init_params=fx["init_params"],
+                         n_samples=fx["n_samples"]))
+    return {"svm-wafer": svm, "kmeans-traffic": km}
+
+
+def churn_grid(fixtures) -> dict:
+    """(c) the churn grid through ``ELSession.sweep``, twice (the first
+    capturing), counted; every cell against a solo run of its config; the
+    svm seed-means beside the reference package's recorded rows."""
+    import warnings
+    import numpy as np
+    import torch
+    from repro_torch.el.scenarios import INGRAPH_POLICY_ORDER
+    from repro_torch.el.sweep import SweepSpec
+    from repro_torch.kernels.kmeans_assign import ops
+
+    spec = SweepSpec(policy=INGRAPH_POLICY_ORDER, churn_rate=CHURN_RATES,
+                     seeds=CHURN_SEEDS, max_rounds=CHURN_GRID["max_rounds"])
+    sessions = churn_sessions(fixtures)
+    warnings.filterwarnings("error", message=PERF_DROP)
+    reports, runs = {}, {}
+    reset_counts()
+    torch.cuda.synchronize()
+    for arch, sess in sessions.items():
+        runs[arch] = []
+        for _ in range(2):
+            before = ops.batched_launches
+            t0 = time.perf_counter()
+            rep = sess.sweep(spec)
+            torch.cuda.synchronize()
+            loops = rep.telemetry["device_loops"]
+            runs[arch].append({
+                "run_s": time.perf_counter() - t0, "cells": rep.n_cells,
+                "chunks": sum(lp["chunks"] for lp in loops),
+                "replays": sum(lp["replays"] for lp in loops),
+                "graphs_captured": sum(lp["graphs_captured"]
+                                       for lp in loops),
+                "kernel_launches": ops.batched_launches - before,
+                "kernel_launches_per_graph": loops[0][
+                    "kernel_launches_per_graph"],
+                "rounds": [int(n) for n in rep.out["n_rounds"]]})
+        reports[arch] = rep
+    launches = counts()
+    warnings.filterwarnings("default", message=PERF_DROP)
+    km = runs["kmeans-traffic"]
+    for r in km:
+        check(r["kernel_launches_per_graph"] == 160 and
+              r["kernel_launches"] == 160 * (r["replays"] +
+                                             r["graphs_captured"]),
+              f"churn grid kmeans: launches {r}")
+    check(launches["kmeans_assign_batched"] == sum(
+        r["kernel_launches"] for r in km) > 0,
+        f"churn grid: batched kmeans_assign launches {launches}")
+    # the single entry scores each kmeans cell's final params (F1)
+    check(launches["kmeans_assign"] == sum(r["cells"] for r in km) and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"churn grid: unexpected kernel launches {launches}")
+
+    for arch, sess in sessions.items():
+        # where the card's time goes, past the counted runs
+        emit("churn_grid_card_time", arch=arch, **card_time(
+            lambda s=sess: s.sweep(spec), sess._sweep_programs[0]),
+            card=card_line())
+
+    ref_rows = json.loads((ROOT / "BENCH_churn_baselines.json").read_text())
+    ref_rows = {(r["policy"], r["churn_rate"]): r for r in ref_rows["rows"]}
+    for arch, rep in reports.items():
+        sess = sessions[arch]
+        check(rep.n_cells == 27 and not rep.truncated().any(),
+              f"churn grid {arch}: truncated cells {rep.truncated()}")
+        check(runs[arch][0]["graphs_captured"] == 1 and
+              runs[arch][1]["graphs_captured"] == 0,
+              f"churn grid {arch}: graphs {runs[arch]}")
+        solo_s, metric_diff = 0.0, 0.0
+        for i, ccfg in enumerate(spec.cell_cfgs(sess.cfg)):
+            sess_cfg, sess.cfg = sess.cfg, ccfg
+            if i == 0:                 # capture the solo graph
+                sess.run_sync_ingraph(max_rounds=spec.max_rounds)
+            t0 = time.perf_counter()
+            solo = sess.run_sync_ingraph(max_rounds=spec.max_rounds)
+            torch.cuda.synchronize()
+            solo_s += time.perf_counter() - t0
+            sess.cfg = sess_cfg
+            cell = {k: v[i] for k, v in rep.out.items()}
+            differ = same_raw(cell, solo.raw)
+            check(not differ, f"churn grid {arch} cell {i} "
+                  f"({rep.cells[i]}): differs from its solo run in {differ}")
+            metric_diff = max(metric_diff, max_diff(cell["metric"],
+                                                    solo.raw["metric"]))
+        rows = rep.grouped_rows()
+        table = []
+        for g in rows:
+            ref = ref_rows.get((g["policy"], g["churn_rate"]))
+            row = {"policy": g["policy"], "churn_rate": g["churn_rate"],
+                   "n_seeds": g["n_seeds"], "metric": g["final_metric"],
+                   "metric_std": g["final_metric_std"],
+                   "consumed": g["total_consumed"]}
+            if arch == "svm-wafer":
+                row["reference_metric"] = ref["metric"]
+                row["reference_consumed"] = ref["consumed"]
+                check(np.isfinite(g["final_metric"]) and
+                      0.5 < g["final_metric"] and
+                      abs(g["final_metric"] - ref["metric"]) <= 0.05,
+                      f"churn grid svm {g['policy']} rate "
+                      f"{g['churn_rate']}: accuracy {g['final_metric']} vs "
+                      f"the reference's {ref['metric']}")
+            table.append(row)
+        emit("churn_grid", arch=arch, device="cuda", spec=spec.describe(
+            sess.cfg), draws="torch.Generator per cell on the card, seed + "
+             "17", runs=runs[arch], solo_runs_s=solo_s,
+             same_decisions_as_solo=True, max_metric_diff=metric_diff,
+             rows=table, reference="BENCH_churn_baselines.json (the JAX "
+             "package's run; other draws)" if arch == "svm-wafer"
+             else None, card=card_line())
+    return launches
+
+
+def scenario_phase(fixtures) -> dict:
+    solo = scenario_solo_runs(fixtures)
+    grid = churn_grid(fixtures)
+    return {"kmeans_assign": solo["kmeans_assign"] + grid["kmeans_assign"],
+            "kmeans_assign_batched": solo["kmeans_assign_batched"],
+            "kmeans_assign_batched_cells": grid["kmeans_assign_batched"]}
+
+
 # -- phase 5: mamba2-370m serving ---------------------------------------------
 
 # (arrival step, prompt length): three prompts open the first wave and
@@ -1858,11 +2264,13 @@ def main() -> None:
     compiled = compiled_phase(host_s, fixtures)
     events = async_phase(fixtures)
     sweep = sweep_phase(fixtures)
+    scenarios = scenario_phase(fixtures)
     del fixtures
     launches["kmeans_assign"] += events["kmeans_assign"] + \
-        sweep["kmeans_assign"]
+        sweep["kmeans_assign"] + scenarios["kmeans_assign"]
     launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
-                                         + events["kmeans_assign_batched"])
+                                         + events["kmeans_assign_batched"]
+                                         + scenarios["kmeans_assign_batched"])
     launches.update(serve_phase())
     launches.update(train_phase())
     train_vs_plain()
@@ -1921,7 +2329,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
                     "jax.vmap over edges, src/repro/el/ingraph.py:526, and "
                     "over cells, src/repro/el/sweep/engine.py:190)",
-        "launches": sweep["kmeans_assign_batched"],
+        "launches": sweep["kmeans_assign_batched"]
+        + scenarios["kmeans_assign_batched_cells"],
         "max_abs_err": kmc_err, "ms": kmc["ms"], "kernel_ms": kmc["ms"],
         "call_ms": kmc["call_ms"], "vmap_call_ms": kmc["vmap_call_ms"],
         "plain_ms": kmc["plain_ms"], "bound_ms": kmc["bound_ms"],

@@ -28,16 +28,13 @@ ASYNC_KNOB_NAMES = ("ucb_c", "budget", "comp", "comm", "costs_ek",
                     "min_edge_cost", "cost_noise", "async_alpha",
                     "event_cap")
 
-_SCENARIO_ITEM = ("scenarios (ScenarioSpec) arrive with ROADMAP Queue 1 "
-                  "item 10")
-
 
 def async_knobs(cfg: OL4ELConfig) -> Dict[str, np.ndarray]:
     """Host-side inputs of the compiled async program, in the reference's
     f32 numpy arithmetic (shared with the sync path through
-    ``base_cost_knobs``)."""
-    if cfg.scenario is not None:
-        raise NotImplementedError(f"async_knobs: {_SCENARIO_ITEM}")
+    ``base_cost_knobs``), plus the scenario knobs (no ``policy_id``: the
+    async engine keeps the per-edge OL4EL bandit) when ``cfg.scenario``
+    is set."""
     knobs = base_cost_knobs(cfg)
     intervals_f = np.arange(1, cfg.max_interval + 1, dtype=np.float32)
     # async bandits are per-edge: every edge scores its own arm costs
@@ -45,14 +42,20 @@ def async_knobs(cfg: OL4ELConfig) -> Dict[str, np.ndarray]:
                          + knobs["comm"][:, None])                  # [E, K]
     knobs["async_alpha"] = np.float32(cfg.async_alpha)
     knobs["event_cap"] = np.int32(default_event_horizon(cfg))
+    if cfg.scenario is not None:
+        from repro_torch.el.scenarios.schedule import scenario_knobs
+        knobs.update(scenario_knobs(cfg))
     return knobs
 
 
 def async_knob_names(cfg: OL4ELConfig) -> Tuple[str, ...]:
-    """The input names of this config's compiled async program (exactly
-    the keys ``async_knobs(cfg)`` returns)."""
+    """The input names of this config's compiled async program:
+    ``ASYNC_KNOB_NAMES``, plus the scenario schedule knobs when
+    ``cfg.scenario`` is set (exactly the keys ``async_knobs(cfg)``
+    returns)."""
     if cfg.scenario is not None:
-        raise NotImplementedError(f"async_knob_names: {_SCENARIO_ITEM}")
+        from repro_torch.el.scenarios.schedule import scenario_knob_names
+        return ASYNC_KNOB_NAMES + scenario_knob_names("async")
     return ASYNC_KNOB_NAMES
 
 
@@ -94,7 +97,9 @@ def resolve_async_batch_k(cfg: OL4ELConfig) -> int:
     """The engine's K-event wave width.  ``cfg.async_batch_k > 0`` pins it,
     clamped to ``n_edges`` (a wave pops distinct edges); ``0`` resolves
     to 1, as the reference resolves it without a mesh (sharded runs are
-    ROADMAP Queue 1 item 14)."""
+    ROADMAP Queue 1 item 14) and under a scenario (whose body is the
+    single-event one; ``make_async_cell`` refuses a pinned K > 1 with a
+    scenario)."""
     if cfg.async_batch_k > 0:
         return max(1, min(int(cfg.async_batch_k), cfg.n_edges))
     return 1

@@ -39,8 +39,17 @@ j``, row ``e_j``.  ``make_async_kernels`` hands the same per-event pieces
 to the host twin (``repro_torch.el.events.reference``); at fixed cost the
 two agree bit for bit.
 
-Scenario bodies (ROADMAP Queue 1 item 10), telemetry rings (item 12) and
-sharded runs (item 14) are not ported.
+**Scenarios** (``cfg.scenario``, K = 1 only): ``body_one_scn`` reads row
+``t % period`` of the activity and cost-multiplier schedules at event t.
+A popped edge that is dropped out makes a *probe*: its block runs masked
+(interval 0), and it charges nothing, pulls no arm, bumps no version and
+retries the same block ``min_edge_cost[e]`` later.  A live edge's next
+block is scheduled on costs scaled by its straggler multiplier, and the
+drift rotates the sampled indices.  The scenario body takes the same
+draws as the scenario-less one.
+
+Telemetry rings (ROADMAP Queue 1 item 12) and sharded runs (item 14) are
+not ported.
 """
 
 from __future__ import annotations
@@ -71,13 +80,15 @@ Knobs = Dict[str, torch.Tensor]
 
 def _build_parts(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                  lr: float, batch: int, metric_fn: Optional[Callable],
-                 metric_name: str, device: torch.device):
+                 metric_name: str, device: torch.device,
+                 drift: bool = False):
     """The data-plane pieces both async paths share: the lane-indexed
-    local block (the sync round's minibatch streams) and ``eval_step``,
-    the one closure that yields (metric, utility)."""
+    local block (the sync round's minibatch streams; ``drift=`` the
+    scenario path's drift-aware one) and ``eval_step``, the one closure
+    that yields (metric, utility)."""
     xs, ys, n_per_edge = _pad_edge_data(edge_data, device)
     local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr,
-                                   cfg.max_interval)
+                                   cfg.max_interval, drift=drift)
     if metric_fn is None:
         metric_fn = default_metric_fn(model, eval_set, metric_name)
     if cfg.utility == "eval_gain" and metric_fn is None:
@@ -128,8 +139,10 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     """The budgeted async event loop as an :class:`ELCell` on ``device``
     (default: the model's).  ``batch_k`` is the K-event wave width
     (``None``: ``resolve_async_batch_k(cfg)``); 1 builds the single-event
-    body.  ``n_samples`` is ignored: the async global update is the
-    staleness mix, not a weighted average."""
+    body.  With ``cfg.scenario`` set the body is the single-event
+    scenario body (``batch_k`` > 1 raises) and the history gains
+    ``active_edges``.  ``n_samples`` is ignored: the async global update
+    is the staleness mix, not a weighted average."""
     del n_samples
     if mesh is not None:
         raise NotImplementedError(
@@ -142,6 +155,11 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     check_ingraph_support(cfg, caller="make_async_program")
     dev = resolve_device(device if device is not None
                          else getattr(model, "device", None))
+    # the fleet-dynamics scenario: None keeps every closure below the
+    # scenario-less engine; a ScenarioSpec swaps in the churn-aware
+    # single-event body (dropout probes, uncharged dead edges)
+    scn = cfg.scenario
+    period = scn.period if scn is not None else 0
     n_edges, k = cfg.n_edges, cfg.max_interval
     if len(edge_data) != n_edges:
         raise ValueError(f"cfg.n_edges = {n_edges} but the executor has "
@@ -149,9 +167,16 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     if batch_k is None:
         batch_k = resolve_async_batch_k(cfg)
     batch_k = max(1, min(int(batch_k), n_edges))
+    if scn is not None and batch_k > 1:
+        raise ValueError(
+            f"async_batch_k={batch_k} with a ScenarioSpec: the scenario "
+            "path (per-event activity masks, dropout probes) is defined "
+            "on the single-event program only — pin async_batch_k=1 or "
+            "leave it 0 (auto resolves to 1 under a scenario)")
     local_block, metric_fn, eval_step = _build_parts(
         model, edge_data, eval_set, cfg, lr=lr, batch=batch,
-        metric_fn=metric_fn, metric_name=metric_name, device=dev)
+        metric_fn=metric_fn, metric_name=metric_name, device=dev,
+        drift=scn is not None)
 
     pos = torch.arange(max_events, device=dev)
     edge_ids = torch.arange(n_edges, device=dev)
@@ -191,6 +216,9 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "consumed": torch.zeros(max_events, device=dev),
             "wall": torch.zeros(max_events, device=dev),
         }
+        if scn is not None:
+            hist["active_edges"] = torch.zeros(max_events, dtype=torch.int32,
+                                               device=dev)
         return {"gparams": gparams,
                 "edge_params": tree_map(lambda p: p.unsqueeze(0).repeat(
                     (n_edges,) + (1,) * p.dim()), gparams),
@@ -341,6 +369,99 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                        interval_l[j], cost_l[j], utility, nxt), state)
         return dict(carry, t=t0 + n_batch, wall=_at(f_sorted, n_batch - 1))
 
+    def body_one_scn(carry: Carry, knobs: Knobs, draws) -> Carry:
+        # the scenario variant of body_one: the popped edge's activity bit
+        # decides between a real completion and a dropout PROBE, which
+        # discards the block (no merge, no charge, no bandit pull, no
+        # version bump) and retries the same in-flight block after a
+        # reconnect delay: churned edges burn wall clock, never budget
+        t = carry["t"]
+        e = torch.argmin(carry["finish"])           # the event horizon
+        hit = edge_ids == e
+        wall = _at(carry["finish"], e)
+        slot_i = torch.remainder(t, period)
+        act_row = _at(knobs["scn_active"], slot_i) > 0               # [E]
+        is_act = _at(act_row, e)
+        live = hit & is_act
+        interval, cost = _at(carry["infl_i"], e), _at(carry["infl_c"], e)
+        at = item(draws, t - draws["t_base"])
+        lanes = e.reshape(1)
+        # a dropped edge runs its steps masked (interval 0); the drift
+        # phase rotates the sampling window
+        p_new = local_block(
+            tree_map(lambda a: a[lanes], carry["edge_params"]),
+            torch.where(is_act, interval, 0).reshape(1),
+            draws["uniform"][at.reshape(1), lanes], lanes,
+            shift=knobs["scn_drift"] * t.float())
+        gparams, version = carry["gparams"], carry["version"]
+        # charge at completion, live edges only: probes are free
+        consumed = torch.where(hit, carry["consumed"]
+                               + torch.where(is_act, cost, 0.0),
+                               carry["consumed"])
+        alpha = staleness_alpha(knobs["async_alpha"], version,
+                                _at(carry["fetch_ver"], e), n_edges_f)
+        merged = staleness_merge(gparams, tree_map(lambda a: a[0], p_new),
+                                 alpha)
+        new_global = tree_map(lambda m, g: torch.where(is_act, m, g),
+                              merged, gparams)
+        version = version + is_act.long()
+        metric, utility = eval_step(new_global, gparams,
+                                    carry["prev_metric"])
+        # arm -1 makes the bandit update a no-op, so a probe pulls nothing
+        bstate_e = device_bandit_update(
+            bandit_slice(carry["fleet"], e),
+            torch.where(is_act, interval - 1, -1), utility, cost)
+        fleet = bandit_place(carry["fleet"], e, bstate_e)
+        # only a live edge refetches the global model
+        edge_params = tree_map(lambda a, g: on_edge(live, g.unsqueeze(0), a),
+                               carry["edge_params"], new_global)
+        fetch_ver = torch.where(live, version, carry["fetch_ver"])
+        # straggler spikes scale the NEXT block's cost surface at
+        # scheduling time (cost = m * (i * comp + comm) by linearity);
+        # each scaled cost is an f32 tensor, as the reference's
+        m = _at(knobs["scn_mult"], slot_i, e)
+        min_cost_e = _at(knobs["min_edge_cost"], e)
+        _, nxt_i, nxt_c, fin = schedule_block(
+            bstate_e, knobs["budget"] - _at(consumed, e),
+            _at(knobs["costs_ek"], e) * m, knobs["ucb_c"], min_cost_e * m,
+            knobs["cost_noise"], _at(knobs["comp"], e) * m,
+            _at(knobs["comm"], e) * m, wall, _at(draws["gumbel"], at, e),
+            _at(draws["normal"], at, e))
+        # a probe keeps its in-flight block and retries after a reconnect
+        # delay of the edge's minimum block cost
+        fin = torch.where(is_act, fin, wall + min_cost_e)
+        nxt_i = torch.where(is_act, nxt_i, interval)
+        nxt_c = torch.where(is_act, nxt_c, cost)
+        at_t = pos == t
+        hist = carry["hist"]
+        hist = {
+            "metric": torch.where(at_t, metric, hist["metric"]),
+            "utility": torch.where(at_t, torch.where(is_act, utility, 0.0),
+                                   hist["utility"]),
+            "interval": torch.where(at_t, torch.where(is_act, interval, 0)
+                                    .int(), hist["interval"]),
+            "edge": torch.where(at_t, e.int(), hist["edge"]),
+            "cost": torch.where(at_t, torch.where(is_act, cost, 0.0),
+                                hist["cost"]),
+            "consumed": torch.where(at_t, _edge_sum(consumed),
+                                    hist["consumed"]),
+            "wall": torch.where(at_t, wall, hist["wall"]),
+            "active_edges": torch.where(at_t, act_row.int().sum().int(),
+                                        hist["active_edges"]),
+        }
+        return dict(carry, gparams=new_global, edge_params=edge_params,
+                    fleet=fleet, consumed=consumed,
+                    finish=torch.where(hit, fin, carry["finish"]),
+                    infl_i=torch.where(hit, nxt_i, carry["infl_i"]),
+                    infl_c=torch.where(hit, nxt_c, carry["infl_c"]),
+                    fetch_ver=fetch_ver, version=version, t=t + 1,
+                    prev_metric=metric, wall=wall, hist=hist)
+
+    if scn is not None:
+        body = body_one_scn
+    else:
+        body = body_one if batch_k == 1 else body_wave
+
     def finalize(carry: Carry, knobs: Knobs) -> Tuple[Params, Dict]:
         out = dict(carry["hist"])
         out["n_rounds"] = carry["t"]
@@ -355,8 +476,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
 
     draw_shapes = {"gumbel": (n_edges, k), "uniform": (n_edges, k, batch),
                    "normal": (n_edges,)}
-    return ELCell(init=init, cond=cond,
-                  body=body_one if batch_k == 1 else body_wave,
+    return ELCell(init=init, cond=cond, body=body,
                   finalize=finalize, horizon=max_events,
                   draw_shapes=draw_shapes, device=dev,
                   init_draw_shapes={"init_gumbel": (n_edges, k),

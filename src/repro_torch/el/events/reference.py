@@ -12,6 +12,11 @@ per-event pieces (``make_async_kernels``), in f32.  So it is the
 transparent twin of the compiled scheduler: at fixed cost the two agree
 bit for bit on event order, merge values and charged costs, and any
 divergence is a fault of the device loop.
+
+Like the reference's twin it has no scenario branch: with
+``cfg.scenario`` set it runs the scenario-less event loop (no masks, no
+multipliers, no drift; the scenario knobs ``async_knobs`` adds go
+unread).
 """
 
 from __future__ import annotations

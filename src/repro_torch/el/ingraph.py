@@ -39,16 +39,31 @@ Supported configuration matrix (``check_ingraph_support``):
   ==============  =======================================================
   mode             ``sync`` (this module) and ``async`` (the event engine,
                    ``repro_torch.el.events``)
-  policy           ``ol4el`` (the 3-step KUBE bandit, one shared bandit)
+  policy           ``ol4el`` (the 3-step KUBE bandit: one shared bandit in
+                   sync, one bandit per edge in async); with a
+                   ``ScenarioSpec`` the sync round routes selection through
+                   a device policy switch that adds the task-allocation
+                   baselines (``repro_torch.el.scenarios.baselines``)
   cost_model       ``fixed`` and ``variable`` (the ``cost_noise`` knob;
-                   0 multiplies by exactly 1.0)
-  scenario         ``None`` only (scenarios: ROADMAP Queue 1 item 10)
+                   0 multiplies by exactly 1.0); heavy-tailed / replayed
+                   models are ``ScenarioSpec`` cost kinds, layered on top
+  scenario         ``None`` — the scenario-less programs, op for op — or
+                   a ``repro_torch.el.scenarios.ScenarioSpec`` (churn
+                   activity masks, straggler cost schedules, data drift as
+                   knobs; async requires K = 1 event waves)
   utility          ``eval_gain`` (needs a device metric) and
                    ``param_delta``
   executor         ``InGraphExecutor`` shape — raw per-edge arrays + a
                    model whose ``step`` takes a leading edge dimension
                    (``ClassicExecutor``)
   ==============  =======================================================
+
+A scenario round (``cond_scn`` / ``body_scn``) reads row ``t % period``
+of the activity and cost-multiplier schedules: a dropped edge runs its
+local steps masked (interval 0), carries zero aggregation weight (the
+live weights renormalise) and is not charged; the slot paces on the
+slowest active edge; the drift rotates every sampled index.  It takes the
+same draws as the scenario-less round.
 
 ``mesh=`` (ROADMAP Queue 1 item 14) and ``telemetry=`` (item 12) raise
 ``NotImplementedError``.
@@ -68,6 +83,9 @@ from repro_torch.core.bandit import (device_arm_logits, device_bandit_init,
                                      device_selection_weights)
 from repro_torch.core.coordinator import edge_speed_factors
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.el.scenarios.baselines import (INGRAPH_POLICY_ORDER,
+                                                select_arm_switch)
+from repro_torch.el.scenarios.spec import ScenarioSpec
 from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.models.classic import accuracy_tensor, correct_count
 
@@ -89,9 +107,6 @@ _INGRAPH_COST_MODELS = ("fixed", "variable")
 #: (the ``InGraphExecutor`` Protocol, satisfied by ``ClassicExecutor``).
 INGRAPH_EXECUTOR_ATTRS = ("model", "edge_data", "eval_set", "batch", "lr")
 
-_SCENARIO_ITEM = ("scenarios (ScenarioSpec) arrive with ROADMAP Queue 1 "
-                  "item 10")
-
 
 def _combo(cfg: OL4ELConfig, executor: Any) -> str:
     ex_name = type(executor).__name__ if executor is not None else "<unset>"
@@ -101,19 +116,25 @@ def _combo(cfg: OL4ELConfig, executor: Any) -> str:
 
 
 def support_matrix() -> str:
-    """The supported configuration matrix, rendered for error messages —
-    so an unsupported combination is rejected at the front door with the
-    full menu."""
+    """The scenario/cost-model support matrix, rendered for error
+    messages — so an unsupported combination is rejected at the front
+    door with the full menu."""
     return (
         "supported in-graph matrix:\n"
-        "  mode        'sync' (repro_torch.el.ingraph) and 'async' "
+        "  mode        'sync' (repro_torch.el.ingraph) | 'async' "
         "(repro_torch.el.events)\n"
-        "  policy      'ol4el' (other registry policies run host-side "
-        "only; the scenario policy switch is ROADMAP Queue 1 item 10)\n"
+        "  policy      scenario=None: 'ol4el' only; with a ScenarioSpec "
+        f"the sync policy switch adds {INGRAPH_POLICY_ORDER[1:]} (other "
+        "registry policies run host-side only; async is always the "
+        "per-edge 'ol4el' bandit)\n"
         f"  cost_model  cfg.cost_model in {_INGRAPH_COST_MODELS}; "
-        "heavy-tailed / replayed models are ScenarioSpec cost kinds "
-        "(ROADMAP Queue 1 item 10)\n"
-        "  scenario    None\n"
+        "heavy-tailed / replayed models ('pareto' | 'lognormal' | "
+        "'trace:<path>') are ScenarioSpec COST KINDS — set "
+        "cfg.scenario=ScenarioSpec(cost=CostSpec(kind=...)) (the "
+        "--cost-model launch flag builds this for you)\n"
+        "  scenario    None (the scenario-less programs, op for op) | "
+        "ScenarioSpec (churn/straggler/drift schedules; async requires "
+        "K=1 event waves)\n"
         f"  utility     {_INGRAPH_UTILITIES}\n"
         "  executor    InGraphExecutor shape (raw per-edge arrays + a "
         "model whose step takes a leading edge dimension, e.g. "
@@ -126,33 +147,52 @@ def check_ingraph_support(cfg: OL4ELConfig, executor: Any = None, *,
 
     Raises ``ValueError`` naming the unsupported (policy, cost_model,
     scenario, executor) combination with the full :func:`support_matrix`,
-    ``TypeError`` when the executor is not in-graph capable, and
-    ``NotImplementedError`` for a scenario (a later slice).
+    or ``TypeError`` when the scenario is not a ``ScenarioSpec`` or the
+    executor is not in-graph capable.  ``ol4el`` runs in both modes; the
+    task-allocation baselines run through the sync scenario policy
+    switch (``repro_torch.el.scenarios.baselines``).
     """
     from repro_torch.el import policies as el_policies
     if cfg.mode not in ("sync", "async"):
         raise ValueError(
             f"{caller} does not support mode={cfg.mode!r}; in-graph modes "
-            "are 'sync' and 'async'\n" + support_matrix())
-    if cfg.scenario is not None:
-        raise NotImplementedError(f"{caller}: {_SCENARIO_ITEM}")
+            "are 'sync' (repro_torch.el.ingraph) and 'async' "
+            "(repro_torch.el.events)\n" + support_matrix())
+    scn = cfg.scenario
+    if scn is not None and not isinstance(scn, ScenarioSpec):
+        raise TypeError(
+            f"{caller}: cfg.scenario must be a "
+            "repro_torch.el.scenarios.ScenarioSpec (or None), got "
+            f"{type(scn).__name__}\n" + support_matrix())
     if cfg.mode not in el_policies.ingraph_modes(cfg.policy):
         raise ValueError(
             f"{caller} does not support {_combo(cfg, executor)} in "
             f"mode={cfg.mode!r}: the compiled programs implement the "
-            "'ol4el' selection rule; run other policies through the host "
-            "paths ELSession.run_sync()/run_async()\n" + support_matrix())
+            "'ol4el' selection rule (shared bandit in sync, one bandit "
+            "per edge in async) plus the sync scenario policy switch; "
+            "run other policies through the host paths "
+            "ELSession.run_sync()/run_async()\n" + support_matrix())
     if cfg.policy != "ol4el":
-        raise ValueError(
-            f"{caller} does not support {_combo(cfg, executor)}: policy "
-            f"{cfg.policy!r} compiles only through the scenario policy "
-            "switch (ROADMAP Queue 1 item 10)\n" + support_matrix())
+        if scn is None:
+            raise ValueError(
+                f"{caller} does not support {_combo(cfg, executor)}: "
+                f"policy {cfg.policy!r} compiles only through the "
+                "scenario policy switch — set cfg.scenario "
+                "(ScenarioSpec() is the identity scenario)\n"
+                + support_matrix())
+        if cfg.mode != "sync":
+            raise ValueError(
+                f"{caller} does not support {_combo(cfg, executor)} in "
+                f"mode={cfg.mode!r}: the policy switch is sync-only (the "
+                "async program keeps the paper's per-edge 'ol4el' "
+                "bandit)\n" + support_matrix())
     if cfg.cost_model not in _INGRAPH_COST_MODELS:
         hint = ""
         if cfg.cost_model in ("pareto", "lognormal") or str(
                 cfg.cost_model).startswith("trace"):
             hint = (f" — {cfg.cost_model!r} is a ScenarioSpec cost KIND, "
-                    "not a cfg.cost_model (ROADMAP Queue 1 item 10)")
+                    "not a cfg.cost_model: set cfg.scenario="
+                    "ScenarioSpec(cost=CostSpec(kind=...))")
         raise ValueError(
             f"{caller} does not support {_combo(cfg, executor)}: "
             f"cost_model must be one of {_INGRAPH_COST_MODELS}{hint}\n"
@@ -196,22 +236,28 @@ def base_cost_knobs(cfg: OL4ELConfig) -> Dict[str, np.ndarray]:
 
 def sync_knobs(cfg: OL4ELConfig) -> Dict[str, np.ndarray]:
     """Host-side control-plane inputs of the compiled sync program, all
-    f32; feasibility is scored against the binding (slowest) edge."""
-    if cfg.scenario is not None:
-        raise NotImplementedError(f"sync_knobs: {_SCENARIO_ITEM}")
+    f32 (``policy_id`` int32); feasibility is scored against the binding
+    (slowest) edge.  With ``cfg.scenario`` set the scenario knobs are
+    appended (``repro_torch.el.scenarios.scenario_knobs``)."""
     knobs = base_cost_knobs(cfg)
     intervals_f = np.arange(1, cfg.max_interval + 1, dtype=np.float32)
     worst = int(np.argmax(knobs["comp"]))
     knobs["costs_k"] = (intervals_f * knobs["comp"][worst]
                         + knobs["comm"][worst])                     # [K]
+    if cfg.scenario is not None:
+        from repro_torch.el.scenarios.schedule import scenario_knobs
+        knobs.update(scenario_knobs(cfg))
     return knobs
 
 
 def sync_knob_names(cfg: OL4ELConfig) -> Tuple[str, ...]:
-    """The input names of this config's compiled sync program (exactly
-    the keys ``sync_knobs(cfg)`` returns)."""
+    """The input names of this config's compiled sync program:
+    ``KNOB_NAMES``, plus the scenario schedule knobs and the policy
+    selector when ``cfg.scenario`` is set (exactly the keys
+    ``sync_knobs(cfg)`` returns)."""
     if cfg.scenario is not None:
-        raise NotImplementedError(f"sync_knob_names: {_SCENARIO_ITEM}")
+        from repro_torch.el.scenarios.schedule import scenario_knob_names
+        return KNOB_NAMES + scenario_knob_names("sync")
     return KNOB_NAMES
 
 
@@ -277,14 +323,17 @@ def gain_fn(metric_fn: Callable) -> Callable:
     return gain
 
 
+def _f64(v):
+    return v.double() if isinstance(v, torch.Tensor) else float(v)
+
+
 def _fma32(a, b, c) -> torch.Tensor:
     """f32 ``a * b + c`` rounded once, as a fused multiply-add rounds it
     (XLA contracts these): the f32 product is exact in f64, and one
     rounding of the f64 sum to f32 is the fused result (a double rounding
-    needs an f64 sum on an f32 midpoint)."""
-    def f64(v):
-        return v.double() if isinstance(v, torch.Tensor) else float(v)
-    return (f64(a) * f64(b) + f64(c)).float()
+    needs an f64 sum on an f32 midpoint).  Any operand may be a tensor or
+    a Python number."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 def _edge_sum(v: torch.Tensor) -> torch.Tensor:
@@ -306,7 +355,7 @@ def _tree_l2(a: Params, b: Params) -> torch.Tensor:
 
 def make_local_block(model, xs: torch.Tensor, ys: torch.Tensor,
                      n_per_edge: torch.Tensor, batch: int, lr: float,
-                     k: int) -> Callable:
+                     k: int, *, drift: bool = False) -> Callable:
     """``local_block(params, interval, uniform, lanes=None)`` —
     ``interval`` masked local iterations on L lanes at once, lane l on
     edge ``lanes[l]`` (default: every edge, lane e on edge e): ``params``
@@ -317,19 +366,36 @@ def make_local_block(model, xs: torch.Tensor, ys: torch.Tensor,
     model step over the lanes (one launch of ``kmeans_assign``'s batched
     entry for K-means).  A step's indices are ``trunc(u * f32(n_e))``
     (clamped to the padded length, as ``jnp`` indexing clamps), so a
-    replayed uniform picks the reference's rows."""
+    replayed uniform picks the reference's rows.
+
+    ``drift=True`` (the scenario path) adds a trailing ``shift`` argument
+    — the drift phase ``scn_drift * t``, a 0-dim f32 tensor — and rotates
+    every sampled index by ``trunc(shift * f32(n_e))`` modulo ``n_e``
+    before the clamp, as the reference wraps an index that rounds up to
+    ``n_e`` (``torch.remainder`` keeps ``jnp.mod``'s sign rule).  With
+    ``drift=False`` the rotation is absent — the classic block, op for
+    op."""
     n_max = xs.shape[1]
     all_edges = torch.arange(xs.shape[0], device=xs.device)
     n_f = n_per_edge.float()
+    n_i = n_per_edge.long()
 
     def local_block(params: Params, interval: torch.Tensor,
                     uniform: torch.Tensor,
-                    lanes: Optional[torch.Tensor] = None) -> Params:
+                    lanes: Optional[torch.Tensor] = None,
+                    shift: Optional[torch.Tensor] = None) -> Params:
         if lanes is None:
             lanes = all_edges
         rows, n_l = lanes[:, None], n_f[lanes][:, None]          # [L, 1]
+        if drift:
+            off = (shift * n_l).long()                            # [L, 1]
+            n_int = n_i[lanes][:, None]
         for step in range(k):
-            idx = (uniform[:, step] * n_l).long().clamp(max=n_max - 1)
+            if drift:
+                idx = torch.remainder((uniform[:, step] * n_l).long() + off,
+                                      n_int).clamp(max=n_max - 1)
+            else:
+                idx = (uniform[:, step] * n_l).long().clamp(max=n_max - 1)
             b = {"x": xs[rows, idx], "y": ys[rows, idx]}         # [L, B, ...]
             p2 = model.step(params, b, lr)
             take = (step < interval).reshape(-1)                 # [L] or [1]
@@ -377,7 +443,10 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                    max_rounds: int = 512, mesh=None, telemetry=None,
                    device: DeviceLike = None) -> ELCell:
     """The budgeted sync round as an :class:`ELCell` on ``device``
-    (default: the model's)."""
+    (default: the model's).  With ``cfg.scenario`` set, ``cond`` and
+    ``body`` are the scenario round's (``cond_scn`` / ``body_scn``) and
+    the history gains ``active_edges``; ``None`` builds the scenario-less
+    round, op for op."""
     if mesh is not None:
         raise NotImplementedError(
             "make_sync_cell(mesh=...): sharded runs arrive with ROADMAP "
@@ -389,6 +458,11 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     check_ingraph_support(cfg, caller="make_sync_program")
     dev = resolve_device(device if device is not None
                          else getattr(model, "device", None))
+    # the fleet-dynamics scenario: None keeps every closure below the
+    # scenario-less round; a ScenarioSpec swaps in the mask-aware
+    # cond/body (the period sizes the schedule knobs)
+    scn = cfg.scenario
+    period = scn.period if scn is not None else 0
     n_edges, k = cfg.n_edges, cfg.max_interval
     if len(edge_data) != n_edges:
         raise ValueError(f"cfg.n_edges = {n_edges} but the executor has "
@@ -400,6 +474,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     # f64 weights rounded to f32, as the reference's; kept in f64 for the
     # fused multiply-adds of the aggregation
     w_agg = [float(np.float32(w)) for w in w_agg / w_agg.sum()]
+    w_agg_t = torch.tensor(w_agg, dtype=torch.float32, device=dev)
 
     if metric_fn is None:
         metric_fn = default_metric_fn(model, eval_set, metric_name)
@@ -408,18 +483,20 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "utility='eval_gain' needs a device metric; pass metric_fn= "
             "or use utility='param_delta'")
 
-    local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr, k)
+    local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr, k,
+                                   drift=scn is not None)
     eval_gain = gain_fn(metric_fn) if cfg.utility == "eval_gain" else None
     pos = torch.arange(max_rounds, device=dev)
 
-    def weighted_mean(trees: Params) -> Params:
+    def weighted_mean(trees: Params, w=w_agg) -> Params:
         """Σ_e w_e leaf_e in f32, edge by edge in order with one rounding
         per edge: XLA's ``einsum("e...,e->...")`` (a product, then fused
-        multiply-adds)."""
+        multiply-adds).  ``w``: the static weights (floats) or a round's
+        ``[E]`` f32 tensor of them (the scenario's masked weights)."""
         def mean(leaf):
-            acc = (leaf[0].double() * w_agg[0]).float()
+            acc = (leaf[0].double() * _f64(w[0])).float()
             for e in range(1, n_edges):
-                acc = _fma32(leaf[e], w_agg[e], acc)
+                acc = _fma32(leaf[e], w[e], acc)
             return acc.to(leaf.dtype)
         return tree_map(mean, trees)
 
@@ -437,6 +514,9 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "consumed": torch.zeros(max_rounds, device=dev),
             "wall": torch.zeros(max_rounds, device=dev),
         }
+        if scn is not None:
+            hist["active_edges"] = torch.zeros(max_rounds, dtype=torch.int32,
+                                               device=dev)
         return {"params": tree_map(lambda p: p.to(dev, copy=True),
                                    init_params),
                 "bstate": device_bandit_init(k, dev),
@@ -455,7 +535,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     def body(carry: Carry, knobs: Knobs, draws: Dict[str, torch.Tensor]
              ) -> Carry:
         params, bstate = carry["params"], carry["bstate"]
-        consumed, t = carry["consumed"], carry["t"]
+        consumed = carry["consumed"]
 
         resid = (knobs["budget"] - consumed).amin()
         w = device_selection_weights(bstate, resid, knobs["costs_k"],
@@ -475,15 +555,22 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         mult = torch.clamp(_fma32(knobs["cost_noise"], draws["normal"], 1.0),
                            min=0.1)
         slot = (round_costs * mult).amax()
-        consumed = consumed + slot
+        return close_round(carry, new_params, arm, interval, slot,
+                           consumed + slot)
 
+    def close_round(carry: Carry, new_params: Params, arm: torch.Tensor,
+                    interval: torch.Tensor, slot: torch.Tensor,
+                    consumed: torch.Tensor, **extra_hist) -> Carry:
+        """The round's utility, bandit update, wall clock and history
+        row (``extra_hist``: more history entries, written at ``t``)."""
+        params, t = carry["params"], carry["t"]
         if eval_gain is not None:
             metric, utility = eval_gain(new_params, carry["prev_metric"])
         else:                              # param_delta (§III.A)
             metric = metric_of(new_params)
             utility = 1.0 / (1.0 + _tree_l2(params, new_params))
 
-        bstate = device_bandit_update(bstate, arm, utility, slot)
+        bstate = device_bandit_update(carry["bstate"], arm, utility, slot)
         wall = carry["wall"] + slot
         total = _edge_sum(consumed)
         at = pos == t
@@ -494,10 +581,72 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "interval": torch.where(at, interval.int(), hist["interval"]),
             "consumed": torch.where(at, total, hist["consumed"]),
             "wall": torch.where(at, wall, hist["wall"]),
+            **{name: torch.where(at, v, hist[name])
+               for name, v in extra_hist.items()},
         }
         return {"params": new_params, "bstate": bstate,
                 "consumed": consumed, "t": t + 1,
                 "prev_metric": metric, "wall": wall, "hist": hist}
+
+    def active_row(knobs: Knobs, slot_i: torch.Tensor) -> torch.Tensor:
+        """Round ``t``'s activity mask [E]; ``slot_i`` = ``t % period``
+        as a 1-element index (a gather: no host read)."""
+        return knobs["scn_active"][slot_i][0] > 0
+
+    def slot_of(t: torch.Tensor) -> torch.Tensor:
+        return torch.remainder(t, period).long().reshape(1)
+
+    def cond_scn(carry: Carry, knobs: Knobs) -> torch.Tensor:
+        # feasibility paces on the tightest ACTIVE edge this round:
+        # dropped edges neither spend nor constrain the fleet
+        resid = knobs["budget"] - carry["consumed"]                  # [E]
+        act = active_row(knobs, slot_of(carry["t"]))
+        affordable = (torch.where(act, resid, torch.inf).amin()
+                      >= knobs["costs_k"].amin() - 1e-12)
+        exhausted = (act & (resid < knobs["min_edge_cost"])).any()
+        return (carry["t"] < max_rounds) & affordable & ~exhausted
+
+    def body_scn(carry: Carry, knobs: Knobs, draws: Dict[str, torch.Tensor]
+                 ) -> Carry:
+        params, bstate = carry["params"], carry["bstate"]
+        consumed, t = carry["consumed"], carry["t"]
+        slot_i = slot_of(t)
+        act = active_row(knobs, slot_i)                              # [E]
+
+        resid = torch.where(act, knobs["budget"] - consumed,
+                            torch.inf).amin()
+        # the policy switch: OL4EL bandit vs the task-allocation
+        # baselines, selected by the policy_id knob (a sweep axis)
+        arm = select_arm_switch(knobs["policy_id"], bstate, resid,
+                                knobs["costs_k"], knobs["ucb_c"],
+                                draws["gumbel"])
+        interval = arm + 1
+
+        bcast = tree_map(lambda p: p.unsqueeze(0).expand(
+            n_edges, *p.shape).contiguous(), params)
+        # a dropped edge runs its steps masked (interval 0); the drift
+        # phase rotates every edge's sampling window
+        edge_iv = torch.where(act, interval, 0)
+        shift = knobs["scn_drift"] * t.float()
+        edge_params = local_block(bcast, edge_iv, draws["uniform"],
+                                  shift=shift)
+        # mask-aware aggregation: dead edges carry zero weight and the
+        # live weights renormalise
+        w_act = w_agg_t * act.float()
+        w_act = w_act / torch.clamp(_edge_sum(w_act), min=1e-12)
+        new_params = weighted_mean(edge_params, w_act)
+
+        round_costs = _fma32(interval.float(), knobs["comp"], knobs["comm"])
+        mult = torch.clamp(_fma32(knobs["cost_noise"], draws["normal"], 1.0),
+                           min=0.1)
+        # straggler spikes compose with the i.i.d. noise model; the slot
+        # paces on the slowest ACTIVE edge and only active edges are
+        # charged
+        round_costs = round_costs * mult * knobs["scn_mult"][slot_i][0]
+        slot = torch.where(act, round_costs, 0.0).amax()
+        return close_round(carry, new_params, arm, interval, slot,
+                           consumed + torch.where(act, slot, 0.0),
+                           active_edges=act.int().sum().int())
 
     def finalize(carry: Carry, knobs: Knobs) -> Tuple[Params, Dict]:
         out = dict(carry["hist"])
@@ -507,6 +656,8 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         out["wall_time"] = carry["wall"]
         return carry["params"], out
 
+    if scn is not None:
+        cond, body = cond_scn, body_scn
     draw_shapes = {"gumbel": (k,), "uniform": (n_edges, k, batch),
                    "normal": (n_edges,)}
     return ELCell(init=init, cond=cond, body=body, finalize=finalize,
@@ -559,9 +710,9 @@ class ChunkRunner:
     no cell runs, or at the horizon.  The refill writes each running
     cell's rows from its own provider at its own ``t``.
 
-    ``out`` holds numpy arrays (one transfer after the loop); ``params``
-    are copies of the final carry's.  ``last_run`` describes the latest
-    run: chunks (= host syncs), graphs captured, replays and the batched
+    ``out`` holds numpy arrays (one transfer after the loop) and ``params``
+    tensors, both copies of the final carry's.  ``last_run`` describes the
+    latest run: chunks (= host syncs), graphs captured, replays and the batched
     kernel launches a graph holds.
     """
 
@@ -717,7 +868,10 @@ class ChunkRunner:
                 break
         params, out = self._per_cell(self.cell.finalize, (0, 0))(
             self.carry, self.knobs)
-        out = {name: v.cpu().numpy() for name, v in out.items()}
+        # a copy: on the CPU ``.cpu()`` would alias the carry buffers the
+        # next run refills
+        out = {name: v.to("cpu", copy=True).numpy()
+               for name, v in out.items()}
         params = tree_map(torch.clone, params)
         self.last_run = {
             "chunks": chunks, "rounds_per_chunk": self.rounds_per_chunk,

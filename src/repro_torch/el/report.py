@@ -44,6 +44,11 @@ class ELReport:
     #: ``ProgramCache.stats()`` snapshot on compiled runs, ``"device_loop"``
     #: the compiled run's chunks (host syncs), graphs and replays.
     telemetry: Optional[Dict[str, Any]] = None
+    #: a compiled run's ``out`` dict (numpy history arrays: per-round
+    #: ``interval``, ``consumed``, ``wall``, a scenario's
+    #: ``active_edges``, ...), what ``repro_torch.el.scenarios.
+    #: verify_sync_replay`` checks; None on the host loops.
+    raw: Optional[Dict[str, Any]] = None
 
     def metric_at_consumption(self, budget_frac: float,
                               total_budget: float) -> float:

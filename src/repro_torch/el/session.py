@@ -268,7 +268,10 @@ class ELSession:
         and its f32 per-event pieces (``repro_torch.el.events.reference``;
         needs the in-graph support matrix).  At fixed cost the ``"jax"``
         loop is bit-identical to ``run_async_ingraph()`` on the same
-        draws; ``eval_every`` is ignored there.
+        draws; ``eval_every`` is ignored there.  The reference's twin has
+        no scenario branch: with ``cfg.scenario`` set it runs the
+        scenario-less event loop (the scenario knobs unread), and so does
+        this one.
         """
         cfg = self.cfg
         ex = self._require_executor()
@@ -355,11 +358,19 @@ class ELSession:
         heterogeneity, cost noise, the async mixing rate and seed enter
         the compiled program as inputs (``sync_knobs``, the draws), so
         cache keys built from this reuse one program (and one captured
-        graph) across any knob point."""
+        graph) across any knob point.  A scenario keeps only
+        ``ScenarioSpec.structural()`` (presence + period — the schedule
+        knobs' shape); churn rates, cost tails, seeds and the competing
+        policy are knob values."""
         return dataclasses.replace(cfg, ucb_c=0.0, budget=0.0,
                                    heterogeneity=1.0, seed=0,
                                    cost_noise=0.0, cost_model="fixed",
-                                   async_alpha=0.5)
+                                   async_alpha=0.5,
+                                   policy=(cfg.policy
+                                           if cfg.scenario is None
+                                           else "ol4el"),
+                                   scenario=(None if cfg.scenario is None
+                                             else cfg.scenario.structural()))
 
     def _ingraph_cfg(self, caller: str,
                      mode: Optional[str] = None) -> OL4ELConfig:
@@ -415,13 +426,16 @@ class ELSession:
                          contract=None) -> ELReport:
         """Run the whole budgeted sync loop on the device.
 
-        The supported matrix is ``repro_torch.el.ingraph``'s: policy
-        ``ol4el``, cost model ``fixed`` or ``variable``, utility
-        ``eval_gain`` (a device metric) or ``param_delta``, an
-        ``InGraphExecutor`` such as ``ClassicExecutor``; an async config
-        is coerced to sync.  Unsupported combinations raise an informative
-        ``ValueError``/``TypeError``.  Callbacks still fire, streamed
-        after the device loop finishes.
+        The supported matrix is ``repro_torch.el.ingraph``'s: policy ``ol4el``,
+        cost model ``fixed`` or ``variable``, utility ``eval_gain`` (a device
+        metric) or ``param_delta``, an ``InGraphExecutor`` such as
+        ``ClassicExecutor``; an async config is coerced to sync.  With
+        ``cfg.scenario`` set (a ``repro_torch.el.scenarios.ScenarioSpec``) it
+        runs the scenario round — churn masks, straggler cost schedules, data
+        drift — and ``cfg.policy`` may be a task-allocation baseline of its
+        policy switch (``task_alloc``, ``delay_energy``).  Unsupported
+        combinations raise an informative ``ValueError``/``TypeError``.
+        Callbacks still fire, streamed after the device loop finishes.
 
         ``draws`` is the RNG-seam provider (``repro_torch.el.rng``);
         ``None`` draws from a ``torch.Generator`` on the program's device
@@ -480,6 +494,7 @@ class ELSession:
             elapsed_s=time.perf_counter() - t0, records=records)
         report.telemetry = {"cache": self._programs.stats(),
                             "device_loop": dict(program.last_run)}
+        report.raw = out
         return report
 
     def run_async_ingraph(self, max_events: Optional[int] = None,
@@ -494,16 +509,18 @@ class ELSession:
         schedules its next one, in chunks of masked steps replayed as CUDA
         graphs on a card.
 
-        Same supported matrix as ``run_sync_ingraph`` (policy ``ol4el``,
-        one bandit per edge).  ``max_events=None`` derives the event
-        horizon from budget and cost, so runs end on budget exhaustion,
-        never on silent truncation; the history is that horizon padded to
-        a power of two (``padded_event_horizon``).  An explicit
-        ``max_events`` is bucketed the same way (``bucket_event_horizon``)
-        and the exact cap rides in as the ``event_cap`` knob, so nearby
-        caps share one program.  ``cfg.async_batch_k`` sets the K-event
-        wave width (0: 1, ``resolve_async_batch_k``); it is structural, so
-        it joins the program-cache key.
+        Same supported matrix as ``run_sync_ingraph`` (policy ``ol4el``, one
+        bandit per edge); with ``cfg.scenario`` set it runs the single-event
+        scenario body (dropout probes, straggler-scaled blocks, drift), so
+        ``cfg.async_batch_k`` must be 0 or 1. ``max_events=None`` derives the
+        event horizon from budget and cost, so runs end on budget exhaustion,
+        never on silent truncation; the history is that horizon padded to a
+        power of two (``padded_event_horizon``).  An explicit ``max_events`` is
+        bucketed the same way (``bucket_event_horizon``) and the exact cap
+        rides in as the ``event_cap`` knob, so nearby caps share one program.
+        ``cfg.async_batch_k`` sets the K-event wave width (0: 1,
+        ``resolve_async_batch_k``); it is structural, so it joins the
+        program-cache key.
 
         ``draws`` is the RNG-seam provider (``None``: a
         ``torch.Generator`` on the program's device seeded with ``cfg.seed
@@ -569,6 +586,7 @@ class ELSession:
         report.telemetry = {"cache": self._programs.stats(),
                             "device_loop": dict(program.last_run,
                                                 batch_k=batch_k)}
+        report.raw = out
         return report
 
     # -- ablation sweeps -----------------------------------------------------
@@ -579,18 +597,19 @@ class ELSession:
 
         ``spec`` is a :class:`repro_torch.el.sweep.SweepSpec` — grids over
         ``ucb_c`` / ``budget`` / ``heterogeneity`` / ``cost_noise`` /
-        ``async_alpha`` / ``async_batch_k`` / ``seeds``; empty axes inherit
-        this session's config.  The session's ``cfg.mode`` picks the
-        program the cells run: the sync round (``repro_torch.el.ingraph``)
-        or the async event engine (``repro_torch.el.events``), with a
-        leading cell dimension (the masked step vmapped over the cells,
-        one CUDA graph replay a chunk on a card).  Every cell makes the
-        decisions of an independent ``run_sync_ingraph`` /
-        ``run_async_ingraph`` with that cell's config on the same draws,
-        and the same support matrix applies.  Each ``async_batch_k`` value
-        is a different wave body, so an async grid runs one sub-sweep per
-        K (the axis is slowest-varying: the sub-results concatenate back
-        into ``spec.cells()`` order).
+        ``async_alpha`` / ``async_batch_k`` / ``seeds``, and with
+        ``cfg.scenario`` set the scenario engine's ``policy`` (sync) and
+        ``churn_rate`` axes; empty axes inherit this session's config. The
+        session's ``cfg.mode`` picks the program the cells run: the sync round
+        (``repro_torch.el.ingraph``) or the async event engine
+        (``repro_torch.el.events``), with a leading cell dimension (the masked
+        step vmapped over the cells, one CUDA graph replay a chunk on a card).
+        Every cell makes the decisions of an independent ``run_sync_ingraph`` /
+        ``run_async_ingraph`` with that cell's config on the same draws, and
+        the same support matrix applies.  Each ``async_batch_k`` value is a
+        different wave body, so an async grid runs one sub-sweep per K (the
+        axis is slowest-varying: the sub-results concatenate back into
+        ``spec.cells()`` order).
 
         ``draws`` is ``None`` (each cell draws from a ``torch.Generator``
         on the program's device seeded with its ``seed + 17``, the stream

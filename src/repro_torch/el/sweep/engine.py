@@ -11,7 +11,9 @@ pair, and each chunk one CUDA graph replay on a card.  Each cell makes
 the decisions of an independent ``run_sync_ingraph`` /
 ``run_async_ingraph`` with that cell's config on the same draws.
 
-Knobs are stacked per cell (``stack_knobs``) and draws come from one
+Knobs are stacked per cell (``stack_knobs``; with a scenario its
+``[C, period, E]`` schedules and, in sync, a per-cell ``policy_id``, so a
+``policy`` x ``churn_rate`` grid is one program) and draws come from one
 RNG-seam provider per cell (``cell_draws``: each cell's solo stream,
 ``torch.Generator`` seeded with ``seed + 17``, as the reference's
 ``cell_keys`` seeds each cell with its solo run's key).
@@ -63,10 +65,15 @@ def refuse_unported(caller: str, mesh, telemetry) -> None:
             f"{_OBS_ITEM}")
 
 
-def knob_names(mode: str) -> Tuple[str, ...]:
-    """The knob set of the mode's compiled program (the scenario engine's
-    schedule knobs arrive with ROADMAP Queue 1 item 10)."""
-    return ASYNC_KNOB_NAMES if mode == "async" else KNOB_NAMES
+def knob_names(mode: str, scenario: bool = False) -> Tuple[str, ...]:
+    """The knob set of the mode's compiled program; ``scenario`` appends
+    the scenario engine's schedule knobs (``scn_active`` / ``scn_mult`` /
+    ``scn_drift``, plus ``policy_id`` on sync)."""
+    names = ASYNC_KNOB_NAMES if mode == "async" else KNOB_NAMES
+    if scenario:
+        from repro_torch.el.scenarios.schedule import scenario_knob_names
+        names = names + scenario_knob_names(mode)
+    return names
 
 
 def stack_knobs(cell_cfgs: Sequence[OL4ELConfig]) -> Dict[str, np.ndarray]:
@@ -75,7 +82,8 @@ def stack_knobs(cell_cfgs: Sequence[OL4ELConfig]) -> Dict[str, np.ndarray]:
     knobs_fn = async_knobs if cell_cfgs[0].mode == "async" else sync_knobs
     per_cell = [knobs_fn(c) for c in cell_cfgs]
     return {k: np.stack([knobs[k] for knobs in per_cell])
-            for k in knob_names(cell_cfgs[0].mode)}
+            for k in knob_names(cell_cfgs[0].mode,
+                                cell_cfgs[0].scenario is not None)}
 
 
 def cell_draws(cell_cfgs: Sequence[OL4ELConfig],

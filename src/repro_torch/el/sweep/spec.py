@@ -32,8 +32,10 @@ wave program is order-equivalent to K=1); sweeping it compares
 *throughput*, not learning curves.
 
 The ``policy`` and ``churn_rate`` axes sweep the scenario engine's
-knobs, which the port does not have yet: a spec that names either
-raises ``NotImplementedError`` (ROADMAP Queue 1 item 10).
+knobs (``repro_torch.el.scenarios``): the policy competes through the
+``policy_id`` switch and the churn rate only re-draws the ``scn_active``
+schedule, so both are plain knob-value axes and every cell shares one
+program.
 """
 
 from __future__ import annotations
@@ -47,15 +49,13 @@ from repro_torch.config import OL4ELConfig
 #: Sweep-axis order; the flattened cell index is row-major over these,
 #: so ``seed`` varies fastest and ``async_batch_k`` slowest (each K is
 #: its own sub-sweep; first place keeps its cells contiguous).
-#: ``policy`` and ``churn_rate`` are the scenario engine's axes (ROADMAP
-#: Queue 1 item 10); they keep their places so the flattening is the
-#: reference's.
+#: ``policy`` and ``churn_rate`` are scenario-engine axes: the policy
+#: competes through the ``policy_id`` switch and the churn rate only
+#: re-draws the ``scn_active`` schedule, so BOTH are plain knob-value
+#: axes — every cell still shares one program.
 AXIS_ORDER = ("async_batch_k", "policy", "ucb_c", "budget",
               "heterogeneity", "cost_noise", "async_alpha",
               "churn_rate", "seed")
-
-_SCENARIO_ITEM = ("SweepSpec policy / churn_rate axes sweep the scenario "
-                  "engine's knobs, which arrive with ROADMAP Queue 1 item 10")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +81,13 @@ class SweepSpec:
     cost_noise: Tuple[float, ...] = ()
     async_alpha: Tuple[float, ...] = ()
     async_batch_k: Tuple[int, ...] = ()
-    #: competitor-policy axis: the scenario engine's (item 10); raises
+    #: competitor-policy axis (``repro_torch.el.scenarios.
+    #: INGRAPH_POLICY_ORDER`` names) — through the ``policy_id`` switch,
+    #: so a multi-policy grid is still ONE program; needs ``cfg.scenario``
+    #: set (sync mode)
     policy: Tuple[str, ...] = ()
-    #: churn-rate axis: the scenario engine's (item 10); raises
+    #: churn-rate axis — re-draws each cell's ``scn_active`` schedule;
+    #: needs a churn-bearing ``cfg.scenario``
     churn_rate: Tuple[float, ...] = ()
     seeds: Tuple[int, ...] = (0,)
     max_rounds: int = 256
@@ -120,13 +124,28 @@ class SweepSpec:
             raise ValueError("SweepSpec.async_batch_k values are wave "
                              "widths and must be >= 0 (0 = auto), got "
                              f"{self.async_batch_k}")
-        if self.policy or self.churn_rate:
-            raise NotImplementedError(_SCENARIO_ITEM)
+        if self.policy:
+            from repro_torch.el.scenarios.baselines import \
+                INGRAPH_POLICY_ORDER
+            bad = tuple(p for p in self.policy
+                        if p not in INGRAPH_POLICY_ORDER)
+            if bad:
+                raise ValueError(
+                    f"SweepSpec.policy values must be in-graph switch "
+                    f"policies {INGRAPH_POLICY_ORDER}, got {bad}")
+        if any(not 0.0 <= r < 1.0 for r in self.churn_rate):
+            raise ValueError("SweepSpec.churn_rate values are dropout "
+                             "probabilities and must be in [0, 1), got "
+                             f"{self.churn_rate}")
 
     # -- flattening ----------------------------------------------------------
 
     def axes(self, cfg: OL4ELConfig) -> Dict[str, Tuple]:
         """Axis name -> values, empty axes defaulted from ``cfg``."""
+        scn = cfg.scenario
+        base_rate = (scn.churn.rate
+                     if scn is not None and scn.churn is not None
+                     else 0.0)
         return {
             "async_batch_k": self.async_batch_k or (cfg.async_batch_k,),
             "policy": self.policy or (cfg.policy,),
@@ -135,7 +154,7 @@ class SweepSpec:
             "heterogeneity": self.heterogeneity or (cfg.heterogeneity,),
             "cost_noise": self.cost_noise or (cfg.cost_noise,),
             "async_alpha": self.async_alpha or (cfg.async_alpha,),
-            "churn_rate": self.churn_rate or (0.0,),
+            "churn_rate": self.churn_rate or (base_rate,),
             "seed": self.seeds,
         }
 
@@ -168,8 +187,33 @@ class SweepSpec:
         cells to ``cost_model="variable"`` (the knob derivations gate
         noise on it); an inherited one-point axis keeps the session's
         cost model, so a fixed-cost session with a dormant
-        ``cfg.cost_noise`` sweeps exactly like its single runs."""
+        ``cfg.cost_noise`` sweeps exactly like its single runs.
+
+        The scenario axes are likewise value-only: an explicit
+        ``policy`` axis swaps each cell's ``cfg.policy`` (entering the
+        program as the ``policy_id`` knob), and an explicit
+        ``churn_rate`` axis rewrites ``cfg.scenario.churn.rate`` — the
+        scenario's PERIOD (the only structural residue) is untouched, so
+        every cell still shares one program.  Both explicit axes require
+        a ``cfg.scenario``."""
         explicit_noise = bool(self.cost_noise)
+        if (self.policy or self.churn_rate) and cfg.scenario is None:
+            raise ValueError(
+                "SweepSpec policy/churn_rate axes sweep the scenario "
+                "engine's traced knobs and need cfg.scenario set (an "
+                "identity ScenarioSpec() is enough for the policy axis)")
+        if self.churn_rate and cfg.scenario.churn is None:
+            raise ValueError(
+                "SweepSpec.churn_rate re-draws the dropout schedule and "
+                "needs cfg.scenario.churn set (e.g. ChurnSpec())")
+
+        def _cell_scenario(c):
+            if not self.churn_rate:
+                return cfg.scenario
+            return dataclasses.replace(
+                cfg.scenario, churn=dataclasses.replace(
+                    cfg.scenario.churn, rate=float(c["churn_rate"])))
+
         return [dataclasses.replace(
             cfg, ucb_c=float(c["ucb_c"]),
             budget=float(c["budget"]),
@@ -180,6 +224,7 @@ class SweepSpec:
                         else cfg.cost_model),
             async_alpha=float(c["async_alpha"]),
             policy=str(c["policy"]),
+            scenario=_cell_scenario(c),
             async_batch_k=int(c["async_batch_k"]), seed=int(c["seed"]))
             for c in self.cells(cfg)]
 

@@ -3,18 +3,24 @@
     PYTHONPATH=src python -m repro_torch.launch.sweep --arch svm-wafer \
         --ucb-c 1.0 2.0 --budget 2000 4000 --seeds 0 1 2
 
-Flattens the grid (ucb_c × budget × heterogeneity × cost_noise ×
-async_alpha × seeds, and async wave widths) into ``[n_cells]``, runs the
-compiled EL program with a leading cell dimension (``repro_torch.el.
-sweep``) — the sync round or, with ``--el-mode async``, the async event
-engine (``repro_torch.el.events``) — and prints per-cell rows, seed-mean
-curves and the accuracy-vs-resource Pareto frontier.  It runs on CUDA
-unless ``--device`` names another device.
+    PYTHONPATH=src python -m repro_torch.launch.sweep --arch svm-wafer \
+        --policy ol4el task_alloc delay_energy --churn 0.2 \
+        --churn-rate 0.0 0.2 0.4 --seeds 0 1 2
 
-``--mesh`` (sharded sweeps, ROADMAP Queue 1 item 14), ``--policy`` and
-``--churn-rate`` (the scenario engine's axes, item 10) raise
-``NotImplementedError``; the reference's scenario and observability flags
-(items 10 and 12) are not taken yet.
+Flattens the grid (policy × ucb_c × budget × heterogeneity × cost_noise ×
+async_alpha × churn_rate × seeds, and async wave widths) into
+``[n_cells]``, runs the compiled EL program with a leading cell dimension
+(``repro_torch.el.sweep``) — the sync round or, with ``--el-mode async``,
+the async event engine (``repro_torch.el.events``) — and prints per-cell
+rows, seed-mean curves and the accuracy-vs-resource Pareto frontier.  It
+runs on CUDA unless ``--device`` names another device.
+
+The scenario flags (``--churn``, ``--churn-period``, ``--cost-model``,
+``--drift``; ``repro_torch.el.scenarios.cli``) run the scenario programs;
+``--policy`` implies the identity scenario when none is set, and
+``--churn-rate`` needs a base ``--churn``.  ``--mesh`` (sharded sweeps,
+ROADMAP Queue 1 item 14) raises ``NotImplementedError``; the reference's
+observability flags (item 12) are not taken yet.
 """
 
 from __future__ import annotations
@@ -25,11 +31,14 @@ import dataclasses
 from repro_torch.config import CLASSIC_IDS
 from repro_torch.device import resolve_device
 from repro_torch.el import ELSession
+from repro_torch.el.scenarios import ScenarioSpec
+from repro_torch.el.scenarios.cli import add_scenario_args, scenario_from_args
 from repro_torch.el.sweep import spec_from_sequences
 from repro_torch.launch.classic import classic_fixture
 
 
-def build_session(args) -> ELSession:
+def build_session(args, scenario=None,
+                  base_cost_model=None) -> ELSession:
     fx = classic_fixture(args.arch, samples=args.samples,
                          n_edges=args.edges, alpha=args.alpha,
                          data_seed=args.data_seed,
@@ -37,7 +46,9 @@ def build_session(args) -> ELSession:
     ol = dataclasses.replace(
         fx["exp"].ol4el, mode=args.el_mode, policy="ol4el",
         n_edges=args.edges, utility=fx["utility"],
-        cost_model=args.cost_model, max_interval=args.max_interval)
+        cost_model=(base_cost_model if base_cost_model is not None
+                    else args.cost_model),
+        scenario=scenario, max_interval=args.max_interval)
     return (ELSession(ol, metric_name=fx["metric"], lr=fx["lr"])
             .with_executor(fx["executor"],
                            init_params=fx["init_params"],
@@ -65,11 +76,13 @@ def parser() -> argparse.ArgumentParser:
                          "K; 0 = auto — a throughput axis, every K "
                          "computes identical results)")
     ap.add_argument("--policy", nargs="*", default=[],
-                    help="competitor-policy grid: the scenario engine's "
-                         "axis (ROADMAP Queue 1 item 10); raises")
+                    help="competitor-policy grid (ol4el task_alloc "
+                         "delay_energy) — through the scenario engine's "
+                         "policy switch, one program for all (sync; "
+                         "implies an identity scenario)")
     ap.add_argument("--churn-rate", type=float, nargs="*", default=[],
-                    help="churn-rate grid: the scenario engine's axis "
-                         "(item 10); raises")
+                    help="churn-rate grid: re-draws each cell's dropout "
+                         "schedule (needs a base --churn RATE)")
     ap.add_argument("--seeds", type=int, nargs="*", default=[0, 1])
     ap.add_argument("--el-mode", default="sync", choices=["sync", "async"],
                     help="'async': every cell runs the compiled async "
@@ -81,8 +94,6 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--alpha", type=float, default=100.0,
                     help="Dirichlet concentration of the edge data split")
     ap.add_argument("--max-interval", type=int, default=10)
-    ap.add_argument("--cost-model", default="fixed",
-                    choices=["fixed", "variable"])
     ap.add_argument("--kmeans-impl", default=None, choices=["torch", "cuda"],
                     help="K-means E-step inside the local blocks (default: "
                          "the CUDA kernel on a CUDA device, the plain "
@@ -93,35 +104,49 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="none", choices=["none", "debug"],
                     help="sharded sweeps: ROADMAP Queue 1 item 14; "
                          "'debug' raises")
+    add_scenario_args(ap)
     return ap
 
 
 def main(argv=None) -> None:
-    args = parser().parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
     if args.mesh != "none":
         raise NotImplementedError(
             "--mesh: sharded sweeps arrive with ROADMAP Queue 1 item 14 "
             "(multiple GPUs)")
+    scenario, base_cost_model = scenario_from_args(args)
+    if args.policy and scenario is None:
+        # the policy switch lives on the scenario program path; an
+        # identity scenario (all edges up, multipliers 1) is enough
+        scenario = ScenarioSpec()
+    if args.churn_rate and (scenario is None or scenario.churn is None):
+        ap.error("--churn-rate re-draws the dropout schedule per cell "
+                 "and needs a base --churn RATE")
     spec = spec_from_sequences(
         ucb_c=args.ucb_c, budget=args.budget,
         heterogeneity=args.heterogeneity, cost_noise=args.cost_noise,
         async_alpha=args.async_alpha, async_batch_k=args.async_batch_k,
         policy=args.policy, churn_rate=args.churn_rate,
         seeds=args.seeds, max_rounds=args.max_rounds)
-    session = build_session(args)
+    session = build_session(args, scenario, base_cost_model)
     print(f"sweep {args.arch}: {spec.describe(session.cfg)} on "
           f"{resolve_device(args.device)}", flush=True)
 
     report = session.sweep(spec)
 
+    scn_cols = bool(args.policy or args.churn_rate)
     print(f"\n{'ucb_c':>6s} {'budget':>8s} {'H':>5s} {'noise':>6s} "
           f"{'alpha':>6s} {'seed':>5s} "
-          f"{'rounds':>6s} {'metric':>8s} {'consumed':>9s}")
+          + (f"{'policy':>12s} {'churn':>6s} " if scn_cols else "")
+          + f"{'rounds':>6s} {'metric':>8s} {'consumed':>9s}")
     for row in report.to_rows():
         print(f"{row['ucb_c']:6.2f} {row['budget']:8.0f} "
               f"{row['heterogeneity']:5.1f} {row['cost_noise']:6.2f} "
               f"{row['async_alpha']:6.2f} {row['seed']:5.0f} "
-              f"{row['n_rounds']:6d} {row['final_metric']:8.4f} "
+              + (f"{row['policy']:>12s} {row['churn_rate']:6.2f} "
+                 if scn_cols else "")
+              + f"{row['n_rounds']:6d} {row['final_metric']:8.4f} "
               f"{row['total_consumed']:9.0f}")
 
     trunc = report.truncated()

@@ -19,8 +19,12 @@ under ``--mode ol4el`` run the compiled programs on the device
 fixture): ``--el-mode sync`` the sync round
 (``ELSession.run_sync_ingraph``), ``--el-mode async`` the async event
 engine (``ELSession.run_async_ingraph``, ``--async-batch-k`` its wave
-width).  The reference's mesh, donation, telemetry, scenario, metrics and
-checkpoint flags drive parts the port has not reached and are not taken.
+width), and the scenario flags (``--churn``, ``--churn-period``,
+``--cost-model``, ``--drift``; ``repro_torch.el.scenarios.cli``) inject
+fleet dynamics into them.  Those flags need a classic arch under ``--mode
+ol4el``, as the reference requires.  The reference's mesh, donation,
+telemetry, metrics and checkpoint flags drive parts the port has not
+reached and are not taken.
 """
 
 from __future__ import annotations
@@ -119,22 +123,28 @@ def train_ol4el(exp, args):
 
 def train_classic_ol4el(exp, args):
     """Classic archs through the compiled sync round or async event engine
-    on the device; returns the ``ELReport``."""
+    on the device, scenario-injected by the ``--churn`` / ``--cost-model``
+    / ``--drift`` flags; returns the ``ELReport``."""
+    from repro_torch.el.scenarios.cli import scenario_from_args
     from repro_torch.launch.classic import classic_fixture
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
                          device=args.device)
     metric = fx["metric"]
+    scenario, base_cost_model = scenario_from_args(args)
     ol = dataclasses.replace(fx["exp"].ol4el, n_edges=args.edges,
                              heterogeneity=args.heterogeneity,
                              budget=args.budget, mode=args.el_mode,
                              async_alpha=args.async_alpha,
                              async_batch_k=args.async_batch_k,
-                             policy="ol4el", utility=fx["utility"])
+                             policy="ol4el", utility=fx["utility"],
+                             cost_model=base_cost_model, scenario=scenario)
     session = (ELSession(ol, metric_name=metric, lr=fx["lr"])
                .with_executor(fx["executor"], init_params=fx["init_params"],
                               n_samples=fx["n_samples"]))
     print(f"ol4el {args.arch}: compiled {ol.mode} run, {args.edges} edges "
-          f"on {fx['executor'].device}", flush=True)
+          f"on {fx['executor'].device}"
+          + ("" if scenario is None else f", scenario {scenario}"),
+          flush=True)
     if ol.mode == "sync":
         report = session.run_sync_ingraph(
             max_rounds=args.steps if args.steps is not None else 256)
@@ -158,7 +168,8 @@ def train_classic_ol4el(exp, args):
     return report
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def parser() -> argparse.ArgumentParser:
+    from repro_torch.el.scenarios.cli import add_scenario_args
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
@@ -189,12 +200,26 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="torch device (default: cuda, required)")
     ap.add_argument("--samples", type=int, default=4000,
                     help="classic-arch dataset size (ol4el mode)")
-    return ap.parse_args(argv)
+    add_scenario_args(ap)
+    return ap
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return parser().parse_args(argv)
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    ap = parser()
+    args = ap.parse_args(argv)
     exp = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    classic_el = args.mode == "ol4el" and exp.model.family == "classic"
+    scenario_flags = (args.churn is not None or args.drift is not None
+                      or args.cost_model not in ("fixed", "variable"))
+    if scenario_flags and not classic_el:
+        ap.error("--churn/--drift and the scenario --cost-model kinds "
+                 "drive the compiled single-run programs, which need a "
+                 "classic arch under --mode ol4el (LM archs and --mode "
+                 "standard run the host loops)")
     if exp.model.family == "classic":
         if args.mode != "ol4el":
             raise ValueError(f"{args.arch}: classic archs train under "

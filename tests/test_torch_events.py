@@ -230,8 +230,12 @@ def test_async_knobs_and_horizons_match_reference():
     for cap in (1, 5, 64, 65, 300, 1000):
         assert events.bucket_event_horizon(cap) == \
             jax_knobs.bucket_event_horizon(cap)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a scenario that is not a ScenarioSpec: the reference's TypeError
+    with pytest.raises(TypeError) as want:
+        jax_knobs.async_knobs(JaxCfg(mode="async", scenario=object()))
+    with pytest.raises(TypeError) as got:
         events.async_knobs(OL4ELConfig(mode="async", scenario=object()))
+    assert str(got.value) == str(want.value)
 
 
 def test_eval_gain_is_rounded_once_as_xla_rounds_it():
@@ -661,10 +665,18 @@ def test_async_rejects_unsupported_configs(port_fixtures):
     fx = port_fixtures["svm-wafer"]
     with pytest.raises(ValueError, match="policy='greedy'"):
         _port_session(fx, policy="greedy").run_async_ingraph()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port_session(fx, scenario=object()).run_async_ingraph()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _port_session(fx, scenario=object()).run_async(rng_streams="jax")
+    # a scenario that is not a ScenarioSpec: the reference's TypeError
+    # (its first line; the menu below it names each package's modules)
+    from repro.el.ingraph import check_ingraph_support as jax_check
+    for caller, run in (("run_async_ingraph", lambda s: s.run_async_ingraph()),
+                        ("run_async(rng_streams='jax')",
+                         lambda s: s.run_async(rng_streams="jax"))):
+        with pytest.raises(TypeError) as got:
+            run(_port_session(fx, scenario=object()))
+        with pytest.raises(TypeError) as want:
+            jax_check(JaxCfg(mode="async", scenario=object()), caller=caller)
+        assert str(got.value).split("\n")[0].replace("repro_torch.", "repro.") \
+            == str(want.value).split("\n")[0]
     ex = fx["executor"]
     cfg = _port_session(fx).cfg
     with pytest.raises(NotImplementedError, match="item 14"):

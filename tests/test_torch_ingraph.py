@@ -467,10 +467,19 @@ def test_ingraph_rejects_unsupported_configs(fixtures):
         _session(tf, policy="greedy").run_sync_ingraph()
     with pytest.raises(ValueError, match="cost_model"):
         _session(tf, cost_model="bogus").run_sync_ingraph()
-    with pytest.raises(ValueError, match="item 10"):
-        _session(tf, policy="task_alloc").run_sync_ingraph()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _session(tf, scenario=object()).run_sync_ingraph()
+    # the reference's messages on the same configs (their first line; the
+    # menu below it names each package's own modules)
+    for kw, exc in (({"policy": "task_alloc"}, ValueError),
+                    ({"scenario": object()}, TypeError)):
+        with pytest.raises(exc) as got:
+            _session(tf, **kw).run_sync_ingraph()
+        with pytest.raises(exc) as want:
+            jax_ingraph.check_ingraph_support(
+                dataclasses.replace(_cfg(jf_of(fixtures), "fixed"),
+                                    budget=1500.0, **kw),
+                jf_of(fixtures)["executor"], caller="run_sync_ingraph")
+        assert str(got.value).split("\n")[0].replace("repro_torch.", "repro.") \
+            == str(want.value).split("\n")[0]
 
     class NotInGraph:
         def local_train(self, params, edge, n_iters, seed):
@@ -494,6 +503,10 @@ def test_unported_options_name_their_items(fixtures, kw, item):
     _, tf = fixtures["svm-wafer", "jnp"]
     with pytest.raises(NotImplementedError, match=item):
         _session(tf).run_sync_ingraph(**kw)
+
+
+def jf_of(fixtures):
+    return fixtures["svm-wafer", "jnp"][0]
 
 
 def test_ingraph_async_cfg_is_coerced_to_sync(fixtures):

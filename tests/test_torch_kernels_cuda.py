@@ -454,6 +454,55 @@ def test_compiled_round_on_the_card_makes_the_cpu_decisions(arch,
 
 
 @pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
+@pytest.mark.parametrize("policy", ["ol4el", "task_alloc", "delay_energy"])
+def test_scenario_round_on_the_card_makes_the_cpu_decisions(arch, policy,
+                                                            cuda_device):
+    """The scenario sync round (churn, Pareto straggler spikes, drift) on
+    the card against the same program on the CPU, on the same replayed
+    draws, under each policy of the switch: identical intervals, active
+    edges, arm pulls and end, ``consumed`` / ``wall`` bit-equal, and the
+    replay oracle holds the card's output."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.el.scenarios import (ChurnSpec, CostSpec, ScenarioSpec,
+                                          verify_sync_replay)
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    scn = ScenarioSpec(churn=ChurnSpec(rate=0.3, period=16),
+                       cost=CostSpec(kind="pareto", alpha=2.0, period=8),
+                       drift=0.05)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        fx = classic_fixture(arch, samples=2000, n_edges=3, device=dev)
+        cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=3,
+                                  budget=3000.0, utility=fx["utility"],
+                                  heterogeneity=2.0, policy=policy,
+                                  scenario=scn)
+        if dev == "cuda":
+            init = params_to_numpy(fx["init_params"])
+        rng = np.random.default_rng(1)
+        k, batch = cfg.max_interval, fx["executor"].batch
+        draws = ReplayDraws(rng.gumbel(size=(128, k)),
+                            rng.uniform(size=(128, 3, k, batch)),
+                            rng.standard_normal((128, 3)))
+        rep = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+               .with_executor(fx["executor"],
+                              init_params=params_from_numpy(init, dev),
+                              n_samples=fx["n_samples"])
+               .run_sync_ingraph(max_rounds=128, draws=draws))
+        verify_sync_replay(cfg, rep.raw, 128)
+        outs[dev] = rep.raw
+    gpu, cpu = outs["cuda"], outs["cpu"]
+    n = int(cpu["n_rounds"])
+    assert int(gpu["n_rounds"]) == n > 3
+    assert cpu["active_edges"][:n].min() < 3
+    for name in ("interval", "active_edges", "arm_pulls", "consumed",
+                 "wall", "budgets_left"):
+        np.testing.assert_array_equal(gpu[name], cpu[name], err_msg=name)
+
+
+@pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
 @pytest.mark.parametrize("batch_k", [1, 3])
 def test_async_engine_on_the_card_makes_the_cpu_decisions(arch, batch_k,
                                                           cuda_device):

@@ -159,15 +159,26 @@ def test_coordinator_and_horizon_match_reference(mode, cost_model):
 def test_later_slices_raise_not_implemented(fixtures):
     """The sweep engine's and the async engine's entry points
     (``sweep``, ``run_async_ingraph``, ``run_async(rng_streams="jax")``)
-    run, and raise only for their unported options: sharded runs, and the
-    scenario engine's sweep axes."""
+    run, and raise only for their unported option, sharded runs; the
+    scenario engine's sweep axes are taken as the reference takes them
+    (they need ``cfg.scenario`` set)."""
+    from repro.el.sweep import SweepSpec as JaxSpec
+    from repro_torch.el.scenarios import ScenarioSpec
     from repro_torch.el.sweep import SweepSpec
-    _, tf = fixtures["svm-wafer"]
+    jf, tf = fixtures["svm-wafer"]
     sess = ELSession(_cfg(tf, "sync", "ol4el")).with_executor(tf["executor"])
     with pytest.raises(NotImplementedError, match="item 14"):
         sess.sweep(SweepSpec(seeds=(0,)), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SweepSpec(policy=("ol4el",))
+    spec = SweepSpec(policy=("ol4el",))
+    with pytest.raises(ValueError) as want:
+        JaxSpec(policy=("ol4el",)).cell_cfgs(_cfg(jf, "sync", "ol4el"))
+    with pytest.raises(ValueError) as got:
+        spec.cell_cfgs(sess.cfg)
+    assert str(got.value) == str(want.value)
+    cells = spec.cell_cfgs(dataclasses.replace(sess.cfg,
+                                               scenario=ScenarioSpec()))
+    assert [c.policy for c in cells] == ["ol4el"]
+    assert cells[0].scenario == ScenarioSpec()
     with pytest.raises(NotImplementedError, match="item 14"):
         sess.run_async_ingraph(mesh=object())
     assert sess.run_async_ingraph(max_events=4).n_aggregations == 4

@@ -116,8 +116,20 @@ def test_spec_validation_messages_are_the_reference(kw):
 @pytest.mark.parametrize("kw", [dict(policy=("ol4el",)),
                                 dict(churn_rate=(0.1,))])
 def test_scenario_axes_name_their_item(kw):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SweepSpec(**kw)
+    """The scenario engine's axes build the reference's cells on a config
+    with a scenario (the churn axis rewrites the churn rate)."""
+    from repro.el.scenarios import ChurnSpec as JaxChurn
+    from repro.el.scenarios import ScenarioSpec as JaxScn
+    from repro_torch.el.scenarios import ChurnSpec, ScenarioSpec
+    spec, ref = SweepSpec(**kw), JaxSpec(**kw)
+    cfg = OL4ELConfig(mode="sync", scenario=ScenarioSpec(
+        churn=ChurnSpec(rate=0.3, period=8)))
+    want_cfg = JaxCfg(mode="sync", scenario=JaxScn(
+        churn=JaxChurn(rate=0.3, period=8)))
+    assert spec.n_cells == ref.n_cells and spec.axes(cfg) == \
+        ref.axes(want_cfg)
+    assert [dataclasses.asdict(c) for c in spec.cell_cfgs(cfg)] == \
+        [dataclasses.asdict(c) for c in ref.cell_cfgs(want_cfg)]
 
 
 def test_stack_knobs_match_the_reference():
@@ -475,9 +487,18 @@ def test_launch_sweep_runs_on_the_cpu(capsys):
                        "--edges", "2", "--device", "cpu"])
     text = capsys.readouterr().out
     assert "2 cells" in text and "Pareto frontier" in text
-    for flags, item in ((["--mesh", "debug"], "item 14"),
-                        (["--policy", "ol4el"], "item 10"),
-                        (["--churn-rate", "0.1"], "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            launch_sweep.main(["--device", "cpu", "--samples", "200"]
-                              + flags)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        launch_sweep.main(["--device", "cpu", "--samples", "200", "--mesh",
+                           "debug"])
+    # the scenario engine's axes run, as the reference's launcher runs them:
+    # --policy implies the identity scenario, --churn-rate a base --churn
+    for flags in (["--policy", "ol4el"], ["--churn", "0.2", "--churn-rate",
+                                          "0.1"]):
+        launch_sweep.main(["--device", "cpu", "--samples", "200",
+                           "--seeds", "0", "--edges", "2", "--max-rounds",
+                           "32"] + flags)
+        text = capsys.readouterr().out
+        assert "1 cells" in text and "policy" in text and "churn" in text
+    with pytest.raises(SystemExit):
+        launch_sweep.main(["--device", "cpu", "--samples", "200",
+                           "--churn-rate", "0.1"])
