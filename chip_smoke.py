@@ -70,6 +70,20 @@ Phases, each printing JSON lines:
               runs, each run's card time (profiled busy share, kernels a
               chunk round, replay ms, idle share by CUDA events) beside
               the scenario-less round's and event's;
+4f. fleet  -- ``FleetServer`` (``repro_torch.el.fleet``) over the same
+              fixtures: three cohorts (kmeans-traffic sync and async K = 1,
+              svm-wafer sync), 8 tenants each through 4 slots in waves of
+              16 steps (one CUDA graph replay a wave, every K-means local
+              step one ``kmeans_assign`` launch over 16 (slot, edge)
+              pairs), one tenant a cohort at priority 2, the rest admitted
+              as slots free; 3 builds, one graph a cohort, dispatches at
+              most one a wave, every tenant's streamed deltas its records
+              and its report bit for bit its solo run's on the card; a
+              second drain on a fresh server sharing the cache, with a
+              JSONL tracer, reuses the graphs and gives the same reports;
+              drain and cohort seconds beside the solo runs' sum, host ms
+              a wave in admit / step / harvest; past the counted runs one
+              cohort's card time;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -90,14 +104,16 @@ Phases, each printing JSON lines:
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch (the batched
               ``kmeans_assign`` beside 4 single launches, and at the sweep's
-              96 (cell, edge) pairs); ``ssd_scan`` and
+              96 (cell, edge) pairs and the fleet's 16 (slot, edge)
+              pairs); ``ssd_scan`` and
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 4c, 4d, 4e, 5, 6, 7) is driven with every kernel's launch
-count set to 0 just before it and read just after.  Then the card's name
-and power limit (nvidia-smi), and last ``{"ok": true, "device": {...}}``.
+Each path (4, 4b, 4c, 4d, 4e, 4f, 5, 6, 7) is driven with every kernel's
+launch count set to 0 just before it and read just after.  Then the card's
+name and power limit (nvidia-smi), and last ``{"ok": true, "device":
+{...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
 directory without the repo's sources.  The script imports nothing of JAX and
 nothing of the JAX package.
@@ -1156,13 +1172,14 @@ SCN_DECISIONS = ("n_rounds", "interval", "active_edges", "arm_pulls",
                  "cost", "n_active")
 
 
-def card_time(run, program) -> dict:
+def card_time(run, program, replays=None) -> dict:
     """Where a device loop's time goes, after its counted runs: one run of
     ``run`` under ``torch.profiler`` (host clock around it, the union of
     its kernels' intervals, the kernels), one chunk's graph replay timed
     by CUDA events, and the idle share by CUDA events, 1 - replays x
     replay ms / the run's host ms (every chunk replays the whole graph;
-    the profiler's own overhead counts as idle in the profiled share)."""
+    the profiler's own overhead counts as idle in the profiled share).
+    ``replays`` is a run's replays (default: the program's last run's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1191,7 +1208,8 @@ def card_time(run, program) -> dict:
             cur[1] = max(cur[1], b)
     busy = (busy + (cur[1] - cur[0] if cur else 0.0)) / 1e3
     check(spans, "the profiler saw no device time")
-    replays = program.last_run["replays"]
+    if replays is None:
+        replays = program.last_run["replays"]
     with profile(activities=[ProfilerActivity.CUDA]) as one:
         program.graph.replay()
         torch.cuda.synchronize()
@@ -1523,6 +1541,346 @@ def scenario_phase(fixtures) -> dict:
     return {"kmeans_assign": solo["kmeans_assign"] + grid["kmeans_assign"],
             "kmeans_assign_batched": solo["kmeans_assign_batched"],
             "kmeans_assign_batched_cells": grid["kmeans_assign_batched"]}
+
+
+# -- phase 4f: the fleet server -----------------------------------------------
+
+# three cohorts at the phases' full width (kmeans-traffic sync and async
+# K = 1, svm-wafer sync), 8 tenants each through 4 slots, a wave the
+# 16-step chunk of phases 4b-4e; tenant i has seed i, one of them
+# priority 2.  Sync budgets run from 2500 to 5000 per edge; the async
+# cohort's from 4000 to 5000, which all pad to one event horizon (512),
+# as the reference demo's async tenants share one program (2500 pads to
+# 256: a second program)
+FLEET_SLOTS, FLEET_WAVE, FLEET_TENANTS, FLEET_PRIORITY = 4, 16, 8, 5
+FLEET_UCB = (0.5, 1.0, 2.0, 1.5, 0.75, 1.25, 2.0, 0.5)
+FLEET_COHORTS = (("kmeans-traffic", "sync", 2500.0),
+                 ("kmeans-traffic", "async", 4000.0),
+                 ("svm-wafer", "sync", 2500.0))
+FLEET_PAIRS = FLEET_SLOTS * 4      # (slot, edge) pairs a kmeans launch
+
+
+class WaveClock:
+    """Host seconds a cohort spends in each part of its waves: admission
+    (``Cohort._admit``: init_slot, the place_many scatter), the step
+    (``CellBatch.step``: draw refill, the graph replay, the status read)
+    and the harvest (``Cohort._harvest``: the new history rows, the
+    deltas, the take_many gather and finalize); and the wave each
+    admission landed in."""
+
+    PARTS = ("_admit", "step", "_harvest")
+
+    def __init__(self):
+        from repro_torch.el.fleet.cohort import Cohort
+        from repro_torch.el.sweep.engine import CellBatch
+        self.seconds, self.admits, self.saved = {}, {}, []
+        for cls, name in zip((Cohort, CellBatch, Cohort), self.PARTS):
+            self._wrap(cls, name)
+
+    def _wrap(self, cls, name):
+        orig, clock = getattr(cls, name), self
+        self.saved.append((cls, name, orig))
+
+        def timed(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(obj, *a, **kw)
+            key = (id(obj), name)
+            clock.seconds[key] = clock.seconds.get(key, 0.0) + \
+                time.perf_counter() - t0
+            if name == "_admit" and out:
+                clock.admits.setdefault(id(obj), []).append(
+                    (obj.waves, out))
+            return out
+        setattr(cls, name, timed)
+
+    def cohort_ms(self, cohort) -> dict:
+        """A cohort's host ms in each part over its waves."""
+        return {part: 1e3 * self.seconds.get((id(obj), part), 0.0)
+                for obj, part in zip((cohort, cohort.batch, cohort),
+                                     self.PARTS)}
+
+    def mid_flight(self, cohort) -> int:
+        """Tenants admitted after the cohort's first wave."""
+        return sum(n for wave, n in self.admits.get(id(cohort), [])
+                   if wave > 0)
+
+    def reset(self):
+        self.seconds, self.admits = {}, {}
+
+    def close(self):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+
+
+def fleet_runs(fixtures) -> dict:
+    """Each cohort's 8 tenant configs, by (arch, mode)."""
+    out = {}
+    for arch, mode, lo in FLEET_COHORTS:
+        fx = fixtures[arch]["cuda"]
+        base = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=4,
+                                   utility=fx["utility"])
+        out[arch, mode] = [dataclasses.replace(
+            base, budget=lo + (5000.0 - lo) * i / (FLEET_TENANTS - 1),
+            ucb_c=FLEET_UCB[i], seed=i) for i in range(FLEET_TENANTS)]
+    return out
+
+
+def fleet_server(fixtures, cfgs, cache):
+    """A server on the card over ``cache`` with every tenant submitted in
+    order (tenant ids ``arch/mode/i``); the subscriber's events by
+    tenant."""
+    from repro_torch.el.fleet import FleetServer, TenantRun
+    server = FleetServer(n_slots=FLEET_SLOTS, rounds_per_wave=FLEET_WAVE,
+                         cache=cache)
+    events = {}
+    server.subscribe(lambda ev: events.setdefault(ev.tenant_id,
+                                                  []).append(ev))
+    for (arch, mode), tenants in cfgs.items():
+        fx = fixtures[arch]["cuda"]
+        for i, cfg in enumerate(tenants):
+            server.submit(TenantRun(
+                cfg=cfg, executor=fx["executor"],
+                tenant_id=f"{arch}/{mode}/{i}",
+                priority=2 if i == FLEET_PRIORITY else 0,
+                metric_name=fx["metric"], n_samples=fx["n_samples"],
+                init_params=fx["init_params"]))
+    return server, events
+
+
+def _records(rep):
+    import numpy as np
+    return np.array([dataclasses.astuple(r) for r in rep.records])
+
+
+def same_fleet_report(got, want) -> bool:
+    """Field for field and bit for bit: records (NaN metrics equal),
+    arm pulls, rounds, consumption, time, end, final metric and final
+    parameters."""
+    import math
+    import numpy as np
+    import torch
+    return (np.array_equal(_records(got), _records(want), equal_nan=True)
+            and (got.arm_pulls, got.n_aggregations, got.total_consumed,
+                 got.wall_time, got.terminated_reason)
+            == (want.arm_pulls, want.n_aggregations, want.total_consumed,
+                want.wall_time, want.terminated_reason)
+            and (got.final_metric == want.final_metric or (
+                math.isnan(got.final_metric)
+                and math.isnan(want.final_metric)))
+            and all(torch.equal(got.final_params[k], v)
+                    for k, v in want.final_params.items()))
+
+
+def fleet_drain(fixtures, cfgs, cache, clock, spans_path=None) -> dict:
+    """Drain every tenant through a fresh server over ``cache`` (with a
+    JSONL tracer when ``spans_path`` is given); per cohort its waves,
+    admissions, dispatches, replays and host ms by part."""
+    import torch
+    from repro_torch.obs import trace
+    clock.reset()
+    if spans_path is not None:           # from the cache lookups on
+        spans_path.parent.mkdir(parents=True, exist_ok=True)
+        spans_path.unlink(missing_ok=True)
+        prev = trace.get_tracer()
+        trace.configure(jsonl_path=str(spans_path))
+    server, events = fleet_server(fixtures, cfgs, cache)
+    replays0 = {c.key: c.batch.program.replays for c in server.cohorts()}
+    t0 = time.perf_counter()
+    reports = server.drain()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if spans_path is not None:
+        trace.use_tracer(prev).close()
+    cohorts = {}
+    for c in server.cohorts():
+        p, ms = c.batch.program, clock.cohort_ms(c)
+        cohorts[c.key] = {
+            "waves": c.waves, "admitted": c.admitted,
+            "admitted_mid_flight": clock.mid_flight(c),
+            "place_dispatches": c.place_dispatches,
+            "gather_dispatches": c.gather_dispatches,
+            "replays": p.replays - replays0[c.key],
+            "graphs_captured": p.graphs_captured,
+            "launches_per_graph": p.launches_per_graph,
+            "waves_s": sum(ms.values()) / 1e3,
+            "host_ms_per_wave": {k.strip("_"): v / c.waves
+                                 for k, v in ms.items()}}
+    out = {"drain_s": secs, "reports": reports, "events": events,
+           "stats": server.stats(), "cohorts": cohorts}
+    server.close()
+    return out
+
+
+def fleet_phase(fixtures) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.el import ELSession
+    from repro_torch.el.cache import ProgramCache
+    from repro_torch.el.events import padded_event_horizon
+    from repro_torch.el.fleet import ReportReady, RoundDelta
+    from repro_torch.obs import trace
+
+    card = card_line()
+    cfgs = fleet_runs(fixtures)
+    check(len({padded_event_horizon(c)
+               for c in cfgs["kmeans-traffic", "async"]}) == 1,
+          "fleet: the async budgets pad to more than one event horizon")
+    n_tenants = sum(len(t) for t in cfgs.values())
+    km_ex = fixtures["kmeans-traffic"]["cuda"]["executor"]
+    cache = ProgramCache(8)
+    clock = WaveClock()
+    spans_path = ROOT / "build" / "fleet_spans.jsonl"
+
+    # (a) the main path, counts read around it: a drain that captures each
+    # cohort's graph, then a traced drain on a fresh server sharing the
+    # cache, which reuses them
+    reset_counts()
+    torch.cuda.synchronize()
+    drains = [fleet_drain(fixtures, cfgs, cache, clock),
+              fleet_drain(fixtures, cfgs, cache, clock, spans_path)]
+    launches = counts()
+    clock.close()
+
+    first, second = drains
+    check(first["stats"]["compiles"] == 3 and first["stats"]["cohorts"] == 3
+          and second["stats"]["compiles"] == 0,
+          f"fleet: compiles / cohorts {first['stats']} {second['stats']}")
+    by_name = {}
+    for e in trace.read_jsonl(str(spans_path)):
+        by_name.setdefault(e["name"], []).append(e)
+    check(len(by_name.get("cohort.wave", [])) == second["stats"]["waves"]
+          and len(by_name.get("cohort.refill", [])) == n_tenants
+          and "fleet.compile" not in by_name
+          and len(by_name.get("cache.hit", [])) == 3,
+          "fleet: the traced drain's records "
+          f"{ {k: len(v) for k, v in by_name.items()} }")
+    for d in drains:
+        st = d["stats"]
+        check(len(d["reports"]) == n_tenants == st["tenants_done"],
+              f"fleet: {len(d['reports'])} reports")
+        check(1 <= st["place_dispatches"] <= st["waves"]
+              and 1 <= st["gather_dispatches"] <= st["waves"],
+              f"fleet: dispatches over waves {st}")
+        for c in d["cohorts"].values():
+            check(c["graphs_captured"] == 1
+                  and c["replays"] == c["waves"] > 0
+                  and c["admitted"] == FLEET_TENANTS
+                  and c["admitted_mid_flight"] >= FLEET_TENANTS - FLEET_SLOTS
+                  and 1 <= c["place_dispatches"] <= c["waves"]
+                  and 1 <= c["gather_dispatches"] <= c["waves"],
+                  f"fleet: a cohort's graphs / waves / dispatches {c}")
+        for tid, evs in d["events"].items():
+            check(isinstance(evs[-1], ReportReady)
+                  and all(isinstance(e, RoundDelta) for e in evs[:-1])
+                  and np.array_equal(
+                      np.array([dataclasses.astuple(e.record)
+                                for e in evs[:-1]]),
+                      _records(d["reports"][tid]), equal_nan=True),
+                  f"fleet {tid}: the streamed deltas are not its records")
+    for tid, rep in first["reports"].items():
+        check(same_fleet_report(second["reports"][tid], rep),
+              f"fleet {tid}: the traced drain's report differs")
+    # the priority tenant is admitted before the FIFO tenants queued with
+    # it: it takes a first-wave slot, the last first-wave FIFO one waits
+    order = [e["tenant"] for e in by_name["cohort.refill"]]
+    for arch, mode in cfgs:
+        mine = [t.rsplit("/", 1)[1] for t in order
+                if t.startswith(f"{arch}/{mode}/")]
+        check(mine[0] == str(FLEET_PRIORITY) and
+              mine.index(str(FLEET_SLOTS - 1)) >= FLEET_SLOTS,
+              f"fleet {arch} {mode}: admission order {mine}")
+
+    def km_launches(d, captured):
+        return sum(c["launches_per_graph"] * (c["replays"] + captured)
+                   for k, c in d["cohorts"].items() if k[1] is km_ex)
+    check(launches["kmeans_assign_batched"] ==
+          km_launches(first, 1) + km_launches(second, 0) > 0,
+          f"fleet: batched kmeans_assign launches {launches}")
+    # the single entry scores each kmeans tenant's final params (F1)
+    check(launches["kmeans_assign"] == 2 * 2 * FLEET_TENANTS
+          and launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"fleet: unexpected kernel launches {launches}")
+
+    # (b) every tenant against its solo run on the card's default draws;
+    # the solo runs share one program per cohort, captured before the sum
+    solo_s = {}
+    for (arch, mode), tenants in cfgs.items():
+        fx = fixtures[arch]["cuda"]
+        sess = (ELSession(tenants[0], metric_name=fx["metric"], lr=fx["lr"])
+                .with_executor(fx["executor"], init_params=fx["init_params"],
+                               n_samples=fx["n_samples"]
+                               if mode == "sync" else None))
+        run = (sess.run_sync_ingraph if mode == "sync"
+               else sess.run_async_ingraph)
+        run()                                # capture the solo graph
+        solo_s[arch, mode] = 0.0
+        for i, cfg in enumerate(tenants):
+            sess.cfg = cfg
+            t0 = time.perf_counter()
+            ind = run()
+            torch.cuda.synchronize()
+            solo_s[arch, mode] += time.perf_counter() - t0
+            got = first["reports"][f"{arch}/{mode}/{i}"]
+            check(ind.terminated_reason == "budget_exhausted"
+                  and same_fleet_report(got, ind),
+                  f"fleet {arch} {mode} tenant {i}: {got.summary()} vs the "
+                  f"solo run's {ind.summary()}")
+
+    for key in first["cohorts"]:
+        arch = "kmeans-traffic" if key[1] is km_ex else "svm-wafer"
+        mode = key[2].mode
+        rows = [d["cohorts"][key] for d in drains]
+        reports = [first["reports"][f"{arch}/{mode}/{i}"]
+                   for i in range(FLEET_TENANTS)]
+        emit("fleet", arch=arch, mode=mode, device="cuda",
+             draws="torch.Generator per tenant on the card, seed + 17",
+             slots=FLEET_SLOTS, rounds_per_wave=FLEET_WAVE,
+             tenants=FLEET_TENANTS,
+             budgets=[c.budget for c in cfgs[arch, mode]],
+             cohort_waves_s=[r["waves_s"] for r in rows],
+             solo_runs_s=solo_s[arch, mode], same_reports_as_solo=True,
+             waves=[r["waves"] for r in rows],
+             admitted_mid_flight=[r["admitted_mid_flight"] for r in rows],
+             host_ms_per_wave=[r["host_ms_per_wave"] for r in rows],
+             place_dispatches=[r["place_dispatches"] for r in rows],
+             gather_dispatches=[r["gather_dispatches"] for r in rows],
+             batched_launches=[r["launches_per_graph"]
+                               * (r["replays"] + (i == 0))
+                               for i, r in enumerate(rows)]
+             if arch == "kmeans-traffic" else 0,
+             launches_per_graph=rows[0]["launches_per_graph"],
+             pairs_a_launch=FLEET_PAIRS if arch == "kmeans-traffic"
+             else None,
+             rounds=[r.n_aggregations for r in reports],
+             final_metrics=[r.final_metric for r in reports], card=card)
+    emit("fleet_drains", drain_s=[d["drain_s"] for d in drains],
+         note="three cohorts' waves interleaved in one server; the first "
+              "drain captures each cohort's graph, the second (traced, a "
+              "fresh server on the same cache) reuses them",
+         stats=[d["stats"] for d in drains],
+         trace_records={k: len(v) for k, v in by_name.items()},
+         solo_runs_s=sum(solo_s.values()), card=card)
+
+    # (c) where the card's time goes, past the counted runs: the kmeans
+    # sync cohort's drain alone, its graph reused
+    km_sync = {("kmeans-traffic", "sync"): cfgs["kmeans-traffic", "sync"]}
+    probe = {}
+
+    def run():
+        server, _ = fleet_server(fixtures, km_sync, cache)
+        server.drain()
+        torch.cuda.synchronize()
+        probe["waves"] = server.stats()["waves"]
+        probe["program"] = server.cohorts()[0].batch.program
+        server.close()
+    run()
+    ct = card_time(run, probe["program"], replays=probe["waves"])
+    emit("fleet_card_time", arch="kmeans-traffic", mode="sync",
+         waves=probe["waves"],
+         kernels_a_wave=ct["kernels_per_chunk_round"] * FLEET_WAVE, **ct,
+         card=card)
+    return {"kmeans_assign": launches["kmeans_assign"],
+            "kmeans_assign_batched_cells": launches["kmeans_assign_batched"]}
 
 
 # -- phase 5: mamba2-370m serving ---------------------------------------------
@@ -2256,7 +2614,8 @@ def main() -> None:
     build_all()
     km_err = kernel_vs_plain()
     kmb_err = kernel_batched_vs_plain()
-    kmc_err = kernel_cells_vs_plain(SWEEP_CELLS)
+    kmc_err = max(kernel_cells_vs_plain(SWEEP_CELLS),
+                  kernel_cells_vs_plain(FLEET_SLOTS))
     ssd_err = ssd_vs_plain()
     fa_err = flash_vs_plain()
     launches, host_s = slice_phase()
@@ -2265,9 +2624,11 @@ def main() -> None:
     events = async_phase(fixtures)
     sweep = sweep_phase(fixtures)
     scenarios = scenario_phase(fixtures)
+    fleet = fleet_phase(fixtures)
     del fixtures
     launches["kmeans_assign"] += events["kmeans_assign"] + \
-        sweep["kmeans_assign"] + scenarios["kmeans_assign"]
+        sweep["kmeans_assign"] + scenarios["kmeans_assign"] + \
+        fleet["kmeans_assign"]
     launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
                                          + events["kmeans_assign_batched"]
                                          + scenarios["kmeans_assign_batched"])
@@ -2282,6 +2643,8 @@ def main() -> None:
     emit("kmeans_batched_timing", **kmb)
     kmc = kmeans_cells_timing(SWEEP_CELLS, *KM_BATCHED_MAIN)
     emit("kmeans_cells_timing", **kmc)
+    kmf = kmeans_cells_timing(FLEET_SLOTS, *KM_BATCHED_MAIN)  # the fleet's
+    emit("kmeans_cells_timing", **kmf)
     ssd = ssd_timing(*SSD_MAIN)
     emit("ssd_timing", **ssd)
     ssd32 = ssd_timing(*SSD_MAIN[:-1], "float32")
@@ -2328,15 +2691,17 @@ def main() -> None:
         "source": "src/repro_torch/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
                     "jax.vmap over edges, src/repro/el/ingraph.py:526, and "
-                    "over cells, src/repro/el/sweep/engine.py:190)",
+                    "over cells, src/repro/el/sweep/engine.py:190, and so "
+                    "over a fleet cohort's slots)",
         "launches": sweep["kmeans_assign_batched"]
-        + scenarios["kmeans_assign_batched_cells"],
+        + scenarios["kmeans_assign_batched_cells"]
+        + fleet["kmeans_assign_batched_cells"],
         "max_abs_err": kmc_err, "ms": kmc["ms"], "kernel_ms": kmc["ms"],
         "call_ms": kmc["call_ms"], "vmap_call_ms": kmc["vmap_call_ms"],
         "plain_ms": kmc["plain_ms"], "bound_ms": kmc["bound_ms"],
         "bound_by": kmc["bound_by"], "library_ms": kmc["library_ms"],
         "library": "torch.cdist(x, c).min(-1) on [C*E, N, D] x [C*E, K, D]",
-        "launch_floor_ms": launch_floor_ms, "shapes": [kmc]}, {
+        "launch_floor_ms": launch_floor_ms, "shapes": [kmc, kmf]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

@@ -1,14 +1,16 @@
-"""Bounded program cache, shared by a session's compiled runs.
+"""Bounded program cache, shared by sessions and fleet cohorts.
 
 A copy of the reference's ``ProgramCache`` (pure Python), less its
-program-profile store (observability, a later slice).  Here an entry
-is a compiled program (``repro_torch.el.ingraph.SyncProgram`` or
-``repro_torch.el.events.AsyncProgram``): its static device buffers (the
+program-profile store (``repro.obs.prof``, ROADMAP Queue 1 item 12).
+Here an entry is a compiled program (``repro_torch.el.ingraph.
+SyncProgram``, ``repro_torch.el.events.AsyncProgram``, a sweep's runner
+or a fleet cohort's ``CellBatch``): its static device buffers (the
 padded per-edge datasets, the carry, the knob and draw buffers) and, on
-a card, the CUDA graph captured over them.
-Each entry pins those buffers, so the cache is a bounded FIFO, and
-``clear()`` is what releases them on a long-lived session.  The
-reference's cache events on its tracer come with the observability slice.
+a card, the CUDA graph captured over them.  Each entry pins those
+buffers, so the cache is a bounded FIFO, and ``clear()`` is what
+releases them on a long-lived session or server.  A
+``repro_torch.el.fleet.FleetServer`` can share a session's cache (and
+its hit/miss counters — the fleet's compiles-per-cohort check).
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ class ProgramCache:
     ``len`` / ``in`` / iteration / ``values()`` behave like a plain
     dict.  ``hits`` / ``misses`` / ``evictions`` count ``get()`` /
     ``put()`` outcomes and are surfaced as a snapshot by :meth:`stats`
-    (``ELReport.telemetry["cache"]``).
+    (``ELReport.telemetry["cache"]``, the fleet CLI's summary line).
+    Lookups and evictions also emit ``cache.hit`` / ``cache.miss`` /
+    ``cache.evict`` events on the process tracer
+    (``repro_torch.obs.trace``), so a JSONL span stream shows exactly
+    when a server rebuilt a program.
     """
 
     def __init__(self, max_entries: int = 8):
@@ -33,22 +39,27 @@ class ProgramCache:
         self.evictions = 0
 
     def get(self, key: tuple, default: Optional[Any] = None) -> Any:
+        from repro_torch.obs import trace
         entry = self._entries.get(key, default)
         if entry is default:
             self.misses += 1
+            trace.event("cache.miss", misses=self.misses)
         else:
             self.hits += 1
+            trace.event("cache.hit", hits=self.hits)
         return entry
 
     def put(self, key: tuple, program: Any) -> Any:
         """Insert, evicting oldest entries past ``max_entries`` (any
         alias the caller keeps — e.g. the session's last-used fast-path
         handle — keeps an evicted program alive until replaced)."""
+        from repro_torch.obs import trace
         self._entries[key] = program
         while len(self._entries) > self.max_entries:
             evicted = next(iter(self._entries))
             self._entries.pop(evicted)
             self.evictions += 1
+            trace.event("cache.evict", evictions=self.evictions)
         return program
 
     def stats(self) -> Dict[str, int]:

@@ -81,17 +81,20 @@ class ELReport:
                 f"({self.terminated_reason})")
 
 
-def records_from_out(out: Dict[str, Any], lo: int, hi: int
-                     ) -> List[RoundRecord]:
+def records_from_out(out: Dict[str, Any], lo: int, hi: int, *,
+                     base: int = 0) -> List[RoundRecord]:
     """``RoundRecord``s for rounds or events ``[lo, hi)`` of a compiled
     program's history arrays (sync histories have no ``edge`` array:
-    their records get ``-1``)."""
+    their records get ``-1``); ``base`` is the round the arrays' first
+    row holds (a fleet wave reads only the rows it added)."""
     edge = out.get("edge")
     return [
-        RoundRecord(float(out["wall"][t]), float(out["consumed"][t]),
-                    float(out["metric"][t]), float(out["utility"][t]),
-                    float(out["interval"][t]),
-                    int(edge[t]) if edge is not None else -1, t + 1)
+        RoundRecord(float(out["wall"][t - base]),
+                    float(out["consumed"][t - base]),
+                    float(out["metric"][t - base]),
+                    float(out["utility"][t - base]),
+                    float(out["interval"][t - base]),
+                    int(edge[t - base]) if edge is not None else -1, t + 1)
         for t in range(lo, hi)
     ]
 

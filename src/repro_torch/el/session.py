@@ -389,7 +389,10 @@ class ELSession:
 
     @property
     def compile_cache(self) -> ProgramCache:
-        """The session's bounded compiled-program cache."""
+        """The session's bounded compiled-program cache — pass it to a
+        ``FleetServer(cache=...)`` to share one pool (and one hit/miss
+        counter) between the server's cohorts and this session's
+        verification runs."""
         return self._programs
 
     def clear_compile_cache(self) -> int:
@@ -455,6 +458,7 @@ class ELSession:
         """
         from repro_torch.el.ingraph import make_sync_program, sync_knobs
         from repro_torch.el.rng import TorchDraws
+        from repro_torch.obs import trace
         if mesh is not None or donate:
             raise NotImplementedError(
                 "run_sync_ingraph(mesh=/donate=): sharded and donating "
@@ -472,18 +476,21 @@ class ELSession:
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
-            program = make_sync_program(
-                ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
-                batch=ex.batch, n_samples=self._n_samples,
-                metric_fn=metric_fn, metric_name=self.metric_name,
-                max_rounds=max_rounds,
-                device=getattr(ex, "device", None))
-            self._cache_program(key, program)
+            with trace.span("session.compile", mode="sync", telemetry=False):
+                program = make_sync_program(
+                    ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
+                    batch=ex.batch, n_samples=self._n_samples,
+                    metric_fn=metric_fn, metric_name=self.metric_name,
+                    max_rounds=max_rounds,
+                    device=getattr(ex, "device", None))
+                self._cache_program(key, program)
         self._fastpath = program
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
-        params, out = program(params, sync_knobs(cfg), draws)
+        with trace.span("session.dispatch", mode="sync") as sp:
+            params, out = program(params, sync_knobs(cfg), draws)
+            sp["n_rounds"] = int(out["n_rounds"])
         records: List[RoundRecord] = []
         for rec in records_from_out(out, 0, int(out["n_rounds"])):
             self._emit(records, rec)
@@ -538,6 +545,7 @@ class ELSession:
                                            padded_event_horizon,
                                            resolve_async_batch_k)
         from repro_torch.el.rng import TorchDraws
+        from repro_torch.obs import trace
         if mesh is not None or donate:
             raise NotImplementedError(
                 "run_async_ingraph(mesh=/donate=): sharded and donating "
@@ -560,12 +568,14 @@ class ELSession:
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
-            program = make_async_program(
-                ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
-                batch=ex.batch, metric_fn=metric_fn,
-                metric_name=self.metric_name, max_events=horizon,
-                batch_k=batch_k, device=getattr(ex, "device", None))
-            self._cache_program(key, program)
+            with trace.span("session.compile", mode="async",
+                            telemetry=False):
+                program = make_async_program(
+                    ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
+                    batch=ex.batch, metric_fn=metric_fn,
+                    metric_name=self.metric_name, max_events=horizon,
+                    batch_k=batch_k, device=getattr(ex, "device", None))
+                self._cache_program(key, program)
         self._fastpath = program
         knobs = async_knobs(cfg)
         if event_cap is not None:
@@ -573,7 +583,9 @@ class ELSession:
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
-        params, out = program(params, knobs, draws)
+        with trace.span("session.dispatch", mode="async") as sp:
+            params, out = program(params, knobs, draws)
+            sp["n_events"] = int(out["n_rounds"])
         records: List[RoundRecord] = []
         for rec in records_from_out(out, 0, int(out["n_rounds"])):
             self._emit(records, rec)
@@ -627,6 +639,7 @@ class ELSession:
                                                  run_sweep_program)
         from repro_torch.el.sweep.report import SweepReport
         from repro_torch.interop import tree_map
+        from repro_torch.obs import trace
         refuse_unported("ELSession.sweep", mesh, telemetry)
         ex = self._require_executor()
         cfg = self._ingraph_cfg("ELSession.sweep")
@@ -651,19 +664,24 @@ class ELSession:
                    else tuple(self._n_samples))
             program = self._programs.get(key)
             if program is None:
-                program = make_sweep_program(
-                    ex.model, ex.edge_data, ex.eval_set, sub_cfg, sub,
-                    lr=ex.lr, batch=ex.batch, n_samples=self._n_samples,
-                    metric_fn=metric_fn, metric_name=self.metric_name,
-                    device=getattr(ex, "device", None))
-                self._cache_program(key, program)
+                with trace.span("session.compile", mode="sweep",
+                                n_cells=sub.n_cells):
+                    program = make_sweep_program(
+                        ex.model, ex.edge_data, ex.eval_set, sub_cfg, sub,
+                        lr=ex.lr, batch=ex.batch,
+                        n_samples=self._n_samples, metric_fn=metric_fn,
+                        metric_name=self.metric_name,
+                        device=getattr(ex, "device", None))
+                    self._cache_program(key, program)
             self._sweep_programs.append(program)
             sub_draws = (None if draws is None
                          else list(draws[first:first + sub.n_cells]))
             first += sub.n_cells
-            params, out = run_sweep_program(
-                program, self._initial_params(), sub.cell_cfgs(sub_cfg),
-                sub_draws)
+            with trace.span("session.dispatch", mode="sweep",
+                            n_cells=sub.n_cells):
+                params, out = run_sweep_program(
+                    program, self._initial_params(),
+                    sub.cell_cfgs(sub_cfg), sub_draws)
             params_parts.append(params)
             out_parts.append(out)
             loops.append(dict(program.last_run))

@@ -200,6 +200,11 @@ class CellBatch:
         self.horizon = program.cell.horizon
         self.device = program.device
         self.draws = CellDraws([None] * self.n_slots)
+        #: every slot's ``t`` after the latest ``step`` (host ints)
+        self.last_t: List[int] = [0] * self.n_slots
+        #: the fleet cohort whose tenants the static buffers hold
+        #: (``repro_torch.el.fleet.Cohort``; None when free)
+        self.owner = None
 
     def _knobs(self, knobs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return {n: v.to(self.device) if isinstance(v, torch.Tensor)
@@ -260,7 +265,8 @@ class CellBatch:
              active) -> Tuple[Carry, torch.Tensor]:
         """``rounds_per_wave`` masked steps of every slot where ``active``
         (a ``[n_slots]`` bool) holds; returns the stacked carry (updated
-        in place) and ``running`` = ``active & cond`` after the wave."""
+        in place) and ``running`` = ``active & cond`` after the wave, and
+        leaves every slot's ``t`` in ``last_t``."""
         p = self.program
         knobs = self._knobs(knobs_stacked)
         if p.carry is None:
@@ -274,6 +280,7 @@ class CellBatch:
         self.draws.fill(p.draw_bufs, p.carry["t"].tolist(), rows=act)
         p._run_chunk()
         status = p.status.tolist()
+        self.last_t = status[1:1 + self.n_slots]
         running = torch.tensor(status[1 + self.n_slots:], dtype=torch.bool)
         return p.carry, running
 

@@ -18,9 +18,12 @@ runs on CUDA unless ``--device`` names another device.
 The scenario flags (``--churn``, ``--churn-period``, ``--cost-model``,
 ``--drift``; ``repro_torch.el.scenarios.cli``) run the scenario programs;
 ``--policy`` implies the identity scenario when none is set, and
-``--churn-rate`` needs a base ``--churn``.  ``--mesh`` (sharded sweeps,
-ROADMAP Queue 1 item 14) raises ``NotImplementedError``; the reference's
-observability flags (item 12) are not taken yet.
+``--churn-rate`` needs a base ``--churn``.  ``--metrics-out`` writes the
+grid's metrics (``repro_torch.obs.cli``: Prometheus text, JSON and the
+tracer's spans) and ``--trace-dir`` a ``torch.profiler`` trace.
+``--mesh`` (sharded sweeps, ROADMAP Queue 1 item 14) and
+``--telemetry`` (the device rings, item 12) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from repro_torch.el.scenarios import ScenarioSpec
 from repro_torch.el.scenarios.cli import add_scenario_args, scenario_from_args
 from repro_torch.el.sweep import spec_from_sequences
 from repro_torch.launch.classic import classic_fixture
+from repro_torch.obs.cli import (add_metrics_args, begin_observability,
+                                 finish_observability, telemetry_arg)
 
 
 def build_session(args, scenario=None,
@@ -105,6 +110,8 @@ def parser() -> argparse.ArgumentParser:
                     help="sharded sweeps: ROADMAP Queue 1 item 14; "
                          "'debug' raises")
     add_scenario_args(ap)
+    add_metrics_args(ap, trace_dir=True)
+    telemetry_arg(ap)
     return ap
 
 
@@ -123,6 +130,7 @@ def main(argv=None) -> None:
     if args.churn_rate and (scenario is None or scenario.churn is None):
         ap.error("--churn-rate re-draws the dropout schedule per cell "
                  "and needs a base --churn RATE")
+    begin_observability(args)
     spec = spec_from_sequences(
         ucb_c=args.ucb_c, budget=args.budget,
         heterogeneity=args.heterogeneity, cost_noise=args.cost_noise,
@@ -133,7 +141,7 @@ def main(argv=None) -> None:
     print(f"sweep {args.arch}: {spec.describe(session.cfg)} on "
           f"{resolve_device(args.device)}", flush=True)
 
-    report = session.sweep(spec)
+    report = session.sweep(spec, telemetry=args.telemetry)
 
     scn_cols = bool(args.policy or args.churn_rate)
     print(f"\n{'ucb_c':>6s} {'budget':>8s} {'H':>5s} {'noise':>6s} "
@@ -177,6 +185,22 @@ def main(argv=None) -> None:
     print(f"compile cache: {cache['entries']} programs "
           f"({cache['hits']} hits, {cache['misses']} misses, "
           f"{cache['evictions']} evictions)", flush=True)
+
+    registry = None
+    if args.metrics_out:
+        from repro_torch.obs.metrics import MetricsRegistry
+        registry = MetricsRegistry()
+        registry.gauge("sweep_cells", "grid cells in the compiled sweep"
+                       ).set(report.n_cells)
+        registry.gauge("sweep_truncated_cells",
+                       "cells that hit the max-rounds cap"
+                       ).set(int(trunc.sum()))
+        hist = registry.histogram(
+            "sweep_final_metric", "per-cell final metric",
+            buckets=(0.25, 0.5, 0.75, 0.9, 0.95, 0.99, 1.0))
+        hist.observe_many([row["final_metric"]
+                           for row in report.to_rows()])
+    finish_observability(args, registry)
 
 
 if __name__ == "__main__":

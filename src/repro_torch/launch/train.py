@@ -22,9 +22,12 @@ engine (``ELSession.run_async_ingraph``, ``--async-batch-k`` its wave
 width), and the scenario flags (``--churn``, ``--churn-period``,
 ``--cost-model``, ``--drift``; ``repro_torch.el.scenarios.cli``) inject
 fleet dynamics into them.  Those flags need a classic arch under ``--mode
-ol4el``, as the reference requires.  The reference's mesh, donation,
-telemetry, metrics and checkpoint flags drive parts the port has not
-reached and are not taken.
+ol4el``, as the reference requires.  ``--metrics-out`` writes the run's
+metrics (``repro_torch.obs.cli``: the EL report's registry, Prometheus
+text and JSON, and the tracer's spans) and ``--trace-dir`` a
+``torch.profiler`` trace.  ``--telemetry`` (the device rings, ROADMAP
+Queue 1 item 12) raises ``NotImplementedError``; the reference's mesh,
+donation (item 14) and checkpoint (item 13.7) flags are not taken.
 """
 
 from __future__ import annotations
@@ -39,8 +42,11 @@ from repro_torch.config import get_config, get_smoke_config
 from repro_torch.data import SyntheticLMData
 from repro_torch.device import resolve_device
 from repro_torch.el import ELSession
+from repro_torch.el.report import ELReport
 from repro_torch.federated import LMExecutor
 from repro_torch.models import build_model
+from repro_torch.obs.cli import (add_metrics_args, begin_observability,
+                                 finish_observability, telemetry_arg)
 from repro_torch.train import init_train_state, make_train_step
 
 
@@ -147,7 +153,8 @@ def train_classic_ol4el(exp, args):
           flush=True)
     if ol.mode == "sync":
         report = session.run_sync_ingraph(
-            max_rounds=args.steps if args.steps is not None else 256)
+            max_rounds=args.steps if args.steps is not None else 256,
+            telemetry=args.telemetry)
     else:
         # as train_ol4el: an explicit --steps caps the run at steps * edges
         # events, announced, never silently
@@ -157,7 +164,7 @@ def train_classic_ol4el(exp, args):
                   "run to budget exhaustion)", flush=True)
         report = session.run_async_ingraph(
             max_events=None if args.steps is None
-            else args.steps * args.edges)
+            else args.steps * args.edges, telemetry=args.telemetry)
     loop = report.telemetry["device_loop"]
     print(f"done: {report.n_aggregations} aggregations, "
           f"final {metric} {report.final_metric:.4f}, "
@@ -201,6 +208,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--samples", type=int, default=4000,
                     help="classic-arch dataset size (ol4el mode)")
     add_scenario_args(ap)
+    add_metrics_args(ap, trace_dir=True)
+    telemetry_arg(ap)
     return ap
 
 
@@ -215,23 +224,31 @@ def main(argv=None):
     classic_el = args.mode == "ol4el" and exp.model.family == "classic"
     scenario_flags = (args.churn is not None or args.drift is not None
                       or args.cost_model not in ("fixed", "variable"))
-    if scenario_flags and not classic_el:
-        ap.error("--churn/--drift and the scenario --cost-model kinds "
-                 "drive the compiled single-run programs, which need a "
-                 "classic arch under --mode ol4el (LM archs and --mode "
-                 "standard run the host loops)")
-    if exp.model.family == "classic":
-        if args.mode != "ol4el":
-            raise ValueError(f"{args.arch}: classic archs train under "
-                             "--mode ol4el (the compiled EL round)")
-        return train_classic_ol4el(exp, args)
-    if args.batch is None:
-        args.batch = exp.train.global_batch
-    if args.seq is None:
-        args.seq = exp.train.seq_len
-    if args.mode == "standard":
-        return train_standard(exp, args)
-    return train_ol4el(exp, args)
+    if (scenario_flags or args.telemetry is not None) and not classic_el:
+        ap.error("--telemetry/--churn/--drift and the scenario "
+                 "--cost-model kinds drive the compiled single-run "
+                 "programs, which need a classic arch under --mode ol4el "
+                 "(LM archs and --mode standard run the host loops)")
+    if exp.model.family == "classic" and args.mode != "ol4el":
+        raise ValueError(f"{args.arch}: classic archs train under "
+                         "--mode ol4el (the compiled EL round)")
+    begin_observability(args)
+    if classic_el:
+        report = train_classic_ol4el(exp, args)
+    else:
+        if args.batch is None:
+            args.batch = exp.train.global_batch
+        if args.seq is None:
+            args.seq = exp.train.seq_len
+        report = (train_standard(exp, args) if args.mode == "standard"
+                  else train_ol4el(exp, args))
+    registry = None
+    if args.metrics_out and isinstance(report, ELReport):
+        from repro_torch.obs import registry_from_report
+        registry = registry_from_report(
+            report, labels={"arch": args.arch, "mode": report.mode})
+    finish_observability(args, registry)
+    return report
 
 
 if __name__ == "__main__":

@@ -112,8 +112,12 @@ class LinearSVM:
         _, y_pm, margin = self._margins(params, x, batch["y"])
         g_s = (-2.0 / x.shape[-2]) * (y_pm * margin)              # [B, C]
         g_w = x.transpose(-1, -2) @ g_s + (2.0 * self.reg) * params["w"]
-        return {"w": params["w"] - lr * g_w,
-                "b": params["b"] - lr * g_s.sum(-2)}
+        # Σ_B dL/ds point after point (a cumulative sum along the batch
+        # axis, which both devices scan sequentially): a sum's reduction
+        # order on the card depends on how many lanes, cells or slots
+        # share the call
+        g_b = g_s.cumsum(-2)[..., -1, :]
+        return {"w": params["w"] - lr * g_w, "b": params["b"] - lr * g_b}
 
     def local_step(self, params: Params, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[Params, Dict[str, torch.Tensor]]:
@@ -191,8 +195,14 @@ class KMeans:
         clusters = torch.arange(self.k, device=x.device)
         onehot = (a[..., None] == clusters).float()               # [B, K]
         counts = onehot.sum(-2)                                   # [K]
-        new = ((onehot.transpose(-1, -2) @ x)
-               / torch.clamp(counts[..., None], min=1.0))
+        # the per-cluster sums (the reference's ``onehot.T @ x``) in one
+        # fixed order, point after point: a cumulative sum along the batch
+        # axis, which is not the innermost, so both devices scan it
+        # sequentially.  The sums' bits then do not depend on how many
+        # lanes, cells or slots share the call; cuBLAS sums a batch of
+        # one matrix in another order than a batch of four.
+        sums = (onehot[..., :, :, None] * x[..., :, None, :]).cumsum(-3)
+        new = sums[..., -1, :, :] / torch.clamp(counts[..., None], min=1.0)
         # the reference computes rate in f32: blend * f32(lr)
         rate = float(np.float32(self.blend) * np.float32(lr))
         centers = torch.where((counts > 0)[..., None],

@@ -397,6 +397,57 @@ def test_cell_batch_on_the_card_makes_the_solo_runs_decisions(
         assert out["arm_pulls"].tolist() == solo.arm_pulls
 
 
+def test_fleet_on_the_card_equals_the_solo_runs(cuda_device):
+    """``FleetServer`` on the card: a kmeans sync cohort and an async
+    cohort, five tenants each through three slots (two admitted
+    mid-flight), one CUDA graph a cohort; every tenant's report equals its
+    solo run on the card's default draws (``seed + 17``) field for field,
+    its final parameters bit for bit."""
+    import dataclasses
+    from repro_torch.el import ELSession, FleetServer, TenantRun
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=3,
+                         device=cuda_device)
+    # the async budgets all pad to one event horizon: one program
+    knobs = ((900.0, 0, 1.0), (1300.0, 3, 2.0), (700.0, 1, 0.5),
+             (1100.0, 2, 2.0), (1000.0, 4, 1.0))
+    cfgs = [dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=3,
+                                utility=fx["utility"], heterogeneity=2.0,
+                                budget=b, seed=s, ucb_c=c)
+            for mode in ("sync", "async") for b, s, c in knobs]
+    server = FleetServer(n_slots=3, rounds_per_wave=16)
+    ids = [server.submit(TenantRun(
+        cfg=c, executor=fx["executor"], metric_name=fx["metric"],
+        n_samples=fx["n_samples"], init_params=fx["init_params"],
+        max_rounds=128)) for c in cfgs]
+    reports = server.drain()
+    st = server.stats()
+    assert st["compiles"] == st["cohorts"] == 2 and len(reports) == 10
+    assert 1 <= st["place_dispatches"] <= st["waves"]
+    assert all(c.batch.program.graphs_captured == 1
+               for c in server.cohorts())
+    for tid, cfg in zip(ids, cfgs):
+        sess = ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"]) \
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]
+                           if cfg.mode == "sync" else None)
+        solo = (sess.run_sync_ingraph(max_rounds=128) if cfg.mode == "sync"
+                else sess.run_async_ingraph())
+        got = reports[tid]
+        assert got.n_aggregations == solo.n_aggregations > 0
+        assert [(r.interval, r.edge, r.total_consumed, r.wall_time)
+                for r in got.records] == \
+            [(r.interval, r.edge, r.total_consumed, r.wall_time)
+             for r in solo.records]
+        assert (got.arm_pulls, got.terminated_reason, got.total_consumed,
+                got.wall_time, got.final_metric) == \
+            (solo.arm_pulls, solo.terminated_reason, solo.total_consumed,
+             solo.wall_time, solo.final_metric)
+        for k, v in solo.final_params.items():
+            assert torch.equal(got.final_params[k], v), (tid, k)
+    server.close()
+
+
 @pytest.mark.parametrize("arch", ["kmeans-traffic", "svm-wafer"])
 def test_compiled_round_on_the_card_makes_the_cpu_decisions(arch,
                                                             cuda_device):
