@@ -1,0 +1,107 @@
+"""The port's figure harness: ``python -m repro_torch.bench.run``.
+
+One benchmark per paper artifact (Fig. 3/4/5) plus the policy ablation,
+on the card unless ``--device`` says otherwise.  Writes the reference's
+JSON keys to ``--out`` and prints the harness CSV contract
+``name,us_per_call,derived`` at the end, with the reference's row names.
+
+Modes (the reference's sizes):
+  --fast   tiny sizes (CI smoke)
+  default  reduced-but-representative sizes
+  --full   paper-scale (20k samples, H sweep to 15, 100 edges)
+
+The reference's other half — the roofline analysis over its dry-run
+artifacts (TPU constants) and the host microbenchmarks — is not ported:
+``--only roofline`` and ``--only micro`` raise, and a whole run writes
+``"roofline": []`` and ``"micro": []``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+_UNPORTED = ("roofline", "micro")
+_UNPORTED_ITEM = "ROADMAP Queue 1 item 15 (launchers, benchmarks, scripts)"
+
+
+def sizes(fast: bool = False, full: bool = False):
+    """The (fig3, fig4, fig5) keyword sets of a preset."""
+    if fast:
+        kw3 = dict(budget=1200.0, n_data=2000, seeds=(0,),
+                   h_values=[1.0, 6.0, 15.0])
+        kw4 = dict(budget=1200.0, n_data=2000, seeds=(0,))
+        kw5 = dict(budget=400.0, n_data=2000, seeds=(0,),
+                   edge_counts=[3, 10], h_values=[1.0, 15.0])
+    elif full:
+        kw3 = dict(budget=5000.0, n_data=20000, seeds=(0, 1, 2))
+        kw4 = dict(budget=5000.0, n_data=20000, seeds=(0, 1, 2))
+        kw5 = dict(budget=600.0, n_data=20000, seeds=(0, 1),
+                   edge_counts=[3, 10, 30, 100])
+    else:
+        kw3 = dict(budget=3000.0, n_data=8000, seeds=(0, 1),
+                   h_values=[1.0, 3.0, 6.0, 9.0, 15.0])
+        kw4 = dict(budget=3000.0, n_data=8000, seeds=(0, 1))
+        kw5 = dict(budget=600.0, n_data=8000, seeds=(0, 1),
+                   edge_counts=[3, 10, 30], h_values=[1.0, 5.0, 15.0])
+    return kw3, kw4, kw5
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--fast", action="store_true")
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--only", default=None,
+                    choices=[None, "fig3", "fig4", "fig5", "roofline",
+                             "micro", "policies"])
+    ap.add_argument("--out", default="results/torch_bench.json")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.only in _UNPORTED:
+        raise NotImplementedError(
+            f"repro_torch.bench.run --only {args.only}: the roofline "
+            f"analysis and the microbenchmarks arrive with {_UNPORTED_ITEM}")
+    kw3, kw4, kw5 = sizes(args.fast, args.full)
+    dev = dict(device=args.device)
+
+    all_rows = []
+    t_start = time.time()
+
+    if args.only in (None, "fig3"):
+        from repro_torch.bench import fig3_heterogeneity
+        all_rows += fig3_heterogeneity.run(**kw3, **dev)
+    if args.only in (None, "fig4"):
+        from repro_torch.bench import fig4_tradeoff
+        all_rows += fig4_tradeoff.run(**kw4, **dev)
+    if args.only in (None, "fig5"):
+        from repro_torch.bench import fig5_scalability
+        all_rows += fig5_scalability.run(**kw5, **dev)
+    if args.only in (None, "policies"):
+        from repro_torch.bench import policy_ablation
+        pol_seeds = (0,) if args.fast else (0, 1, 2)
+        all_rows += [dict(r, metric=r.get("svm_acc", r["oracle_frac"]))
+                     for r in policy_ablation.run(
+                         seeds=pol_seeds, with_testbed=not args.fast,
+                         **dev)]
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"figures": all_rows, "roofline": [], "micro": [],
+                   "wall_s": time.time() - t_start}, f, indent=1,
+                  default=str)
+
+    # harness CSV contract: name,us_per_call,derived
+    print("\nname,us_per_call,derived")
+    for r in all_rows:
+        name = ":".join(str(r.get(k)) for k in
+                        ("figure", "workload", "algo", "H", "n_edges",
+                         "consumption_frac") if r.get(k) is not None)
+        print(f"{name},0,{r['metric']:.4f}")
+    print(f"# total wall time: {time.time() - t_start:.1f}s")
+
+
+if __name__ == "__main__":
+    main()

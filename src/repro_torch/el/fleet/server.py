@@ -31,12 +31,7 @@ from repro_torch.el.executor import validate_executor
 from repro_torch.el.fleet.cohort import Cohort
 from repro_torch.el.fleet.tenant import TenantRun
 from repro_torch.el.report import ELReport
-from repro_torch.el.session import _MESH_ITEM, _OBS_ITEM
-
-#: sync cohorts' default compiled history length (``max_rounds``) —
-#: the ``run_sync_ingraph`` default, so default submissions verify
-#: against default single runs.
-DEFAULT_SYNC_HORIZON = 512
+from repro_torch.el.session import DEFAULT_SYNC_HORIZON, _MESH_ITEM, _OBS_ITEM
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:

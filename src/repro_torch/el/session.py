@@ -55,6 +55,9 @@ RoundCallback = Callable[[RoundRecord], None]
 _MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
 _OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
 
+#: ``run_sync_ingraph``'s default compiled history length (``max_rounds``)
+DEFAULT_SYNC_HORIZON = 512
+
 
 class ELSession:
     """Configure-then-run handle for one edge-cloud collaborative run."""
@@ -422,7 +425,7 @@ class ELSession:
         run replaces it)."""
         return self._programs.put(key, program)
 
-    def run_sync_ingraph(self, max_rounds: int = 512,
+    def run_sync_ingraph(self, max_rounds: int = DEFAULT_SYNC_HORIZON,
                          metric_fn: Optional[Callable] = None, *,
                          draws=None, mesh=None, donate: bool = False,
                          telemetry=None, profile: bool = False,

@@ -31,6 +31,7 @@ def classic_fixture(arch: str, *, samples: int, n_edges: int,
                     alpha: float = 100.0, data_seed: int = 0,
                     kmeans_impl: Optional[str] = None,
                     batch: Optional[int] = None,
+                    lr: Optional[float] = None,
                     device: DeviceLike = None) -> Dict[str, Any]:
     """Build the classic EL data plane on ``device`` (default CUDA).
 
@@ -40,10 +41,11 @@ def classic_fixture(arch: str, *, samples: int, n_edges: int,
     ``metric``, ``lr``, ``utility``, ``init_params`` (from
     ``model.init`` on a generator seeded with ``data_seed``) and
     ``n_samples`` (per-edge sizes, the aggregation weights).  ``batch``
-    overrides the recipe's minibatch size.
+    and ``lr`` override the recipe's minibatch size and learning rate.
     """
     dev = resolve_device(device)
-    metric, lr, recipe_batch, utility = CLASSIC_RECIPES[arch]
+    metric, recipe_lr, recipe_batch, utility = CLASSIC_RECIPES[arch]
+    lr = recipe_lr if lr is None else lr
     exp = get_config(arch)
     if arch == "kmeans-traffic":
         impl = kmeans_impl or ("cuda" if dev.type == "cuda" else "torch")

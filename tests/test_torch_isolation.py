@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``src/repro_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and the entry points
-default to CUDA and refuse to fall back to the CPU."""
+``chip_smoke.py``) imports JAX, the JAX package or its ``benchmarks``
+harness, and the entry points default to CUDA and refuse to fall back to
+the CPU."""
 
 import ast
 import os
@@ -28,9 +29,10 @@ def test_every_port_module_imports_without_jax_or_repro():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'repro', 'benchmarks')]\n"
         "assert len(names) > 20, names\n"
+        "assert 'repro_torch.bench.run' in names, names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -51,7 +53,8 @@ def test_no_jax_or_repro_import_in_source(path):
             continue
         for m in mods:
             root = m.split(".")[0]
-            assert root not in ("jax", "jaxlib", "repro"), (path, m)
+            assert root not in ("jax", "jaxlib", "repro", "benchmarks"), \
+                (path, m)
 
 
 def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -91,6 +94,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
         train.main(["--arch", "qwen3-1.7b", "--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "qwen3-1.7b", "--smoke", "--mode", "ol4el"])
+
+
+def test_bench_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    from repro_torch.bench import churn_baselines, policy_ablation, run
+    from repro_torch.bench import testbed
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "bench.json"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run.main(["--fast", "--only", "fig5", "--out", str(out)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        policy_ablation.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        churn_baselines.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        testbed.main(["--samples", "600"])
+    assert not out.exists()
 
 
 def test_cpu_model_takes_the_plain_ssd_and_cuda_the_kernel(monkeypatch):
