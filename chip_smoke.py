@@ -84,6 +84,26 @@ Phases, each printing JSON lines:
               drain and cohort seconds beside the solo runs' sum, host ms
               a wave in admit / step / harvest; past the counted runs one
               cohort's card time;
+4h. rings -- the device telemetry rings and program profiles
+              (``repro_torch.obs.rings`` / ``prof``) through every compiled
+              path at the same width: the sync round (rings of 128 and of
+              16, which wraps), the async engine at K = 1 and 4 (234 / 224
+              events wrap the default ring), the scenario round and event
+              body (phase 4e's scenario), each run equal bit for bit to
+              the same run with the rings off and, at fixed cost outside
+              a scenario, its rings to the numpy replay oracle; the sync
+              and async programs profiled with the default contract (no
+              collectives, nothing aliased, the allocator's chunk peak
+              measured) and an impossible contract raising before any
+              replay; phase 4d's 24-cell sync grid ringed (the grid the
+              unringed one, every cell's rings its solo card run's) and
+              phase 4f's kmeans sync cohort ringed and profiled (every
+              tenant bit for bit its solo card run, rings included, the
+              donated profile on every report); past the counted runs
+              each path's seconds with the rings off and on (reused
+              graphs, median of 5) and their ratio, and for kmeans sync
+              and async K = 1 the kernels a chunk round each side
+              (``card_time``);
 4g. figures -- the paper's figure harness (``repro_torch.bench``) at its
               ``--full`` sizes: Fig. 3 (3 seeds, H 1 to 15, 20,000 samples),
               Fig. 4 (3 seeds), Fig. 5 (2 seeds, 3 / 10 / 30 / 100 edges,
@@ -127,7 +147,7 @@ Phases, each printing JSON lines:
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4g, 5, 6, 7) is driven with every kernel's
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 5, 6, 7) is driven with every kernel's
 launch count set to 0 just before it and read just after.  Then the card's
 name and power limit (nvidia-smi), and last ``{"ok": true, "device":
 {...}}``.
@@ -1894,6 +1914,359 @@ def fleet_phase(fixtures) -> dict:
             "kmeans_assign_batched_cells": launches["kmeans_assign_batched"]}
 
 
+# -- phase 4h: the device telemetry rings and program profiles ----------------
+
+# the default ring (128), and a ring of 16 that every sync run wraps; the
+# async runs (234 / 224 events) wrap the default one
+TELEM_RING, TELEM_SHORT = 128, 16
+# (mode, wave width, scenario): the compiled paths a ring records in
+TELEM_CASES = (("sync", 1, False), ("async", 1, False),
+               ("async", ASYNC_WAVE, False), ("sync", 1, True),
+               ("async", 1, True))
+TELEM_TIMED = 5                   # timed runs a side, on and off alternating
+TELEM_COHORT = ("kmeans-traffic", "sync")        # one of phase 4f's cohorts
+
+
+def telemetry_session(fx, mode, batch_k=1, scenario=False):
+    from repro_torch.el import ELSession
+    cfg = dataclasses.replace(
+        fx["exp"].ol4el, mode=mode, n_edges=4, utility=fx["utility"],
+        async_batch_k=batch_k if mode == "async" else 0,
+        scenario=scenario_spec() if scenario else None)
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]))
+
+
+def same_out(a: dict, b: dict) -> bool:
+    """Two runs' ``out`` dicts, the rings left aside, bit for bit."""
+    import numpy as np
+    keys = set(a) - {"telemetry"}
+    return keys == set(b) - {"telemetry"} and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]), equal_nan=True)
+        for k in keys)
+
+
+def ring_mismatch(got: dict, want: dict, util_tol: float = 0.0) -> list:
+    """The fields in which two runs' unrolled rings differ: every field
+    bit for bit, ``arm_utility`` (sums of utilities) to ``util_tol``."""
+    import numpy as np
+    from repro_torch.obs.rings import unroll_ring
+    g, w = unroll_ring(got), unroll_ring(want)
+    if g.keys() != w.keys():
+        return ["keys"]
+    bad = []
+    for k in w:
+        if g[k].shape != w[k].shape:
+            bad.append(k)
+        elif k == "arm_utility" and util_tol:
+            if not np.allclose(g[k], w[k], rtol=0.0, atol=util_tol):
+                bad.append(k)
+        elif not np.array_equal(g[k], w[k]):
+            bad.append(k)
+    return bad
+
+
+def oracle_mismatch(rep, cfg) -> list:
+    """The fields in which a fixed-cost run's unrolled rings differ from
+    the port's numpy replay of its history."""
+    import numpy as np
+    from repro_torch.el.events import async_knobs
+    from repro_torch.el.ingraph import sync_knobs
+    from repro_torch.obs import rings
+    if cfg.mode == "sync":
+        want = rings.sync_reference_telemetry(rep.raw, sync_knobs(cfg),
+                                              cfg.max_interval)
+    else:
+        want = rings.async_reference_telemetry(
+            rep.raw, async_knobs(cfg), cfg.n_edges, cfg.max_interval)
+    got = rings.unroll_ring(rep.telemetry["rings"])
+    return [k for k in want if not np.array_equal(got[k], want[k])]
+
+
+def telemetry_runs(fixtures) -> dict:
+    """(a) every compiled path with the rings off and on: the same run,
+    rings that wrap, equal to the replay oracle; the sessions, by
+    (arch, mode, wave width, scenario)."""
+    import numpy as np
+    from repro_torch.kernels.kmeans_assign import ops
+    card = card_line()
+    sessions = {}
+    for arch, fx in fixtures.items():
+        for mode, bk, scn in TELEM_CASES:
+            sess = telemetry_session(fx["cuda"], mode, bk, scn)
+            run = (sess.run_sync_ingraph if mode == "sync"
+                   else sess.run_async_ingraph)
+            off = run()
+            rows = []
+            for ring in ((TELEM_RING, TELEM_SHORT) if mode == "sync"
+                         and not scn else (TELEM_RING,)):
+                before = ops.batched_launches
+                on = run(telemetry=ring)
+                launched = ops.batched_launches - before
+                loop, rings = on.telemetry["device_loop"], \
+                    on.telemetry["rings"]
+                n = on.n_aggregations
+                same = same_fleet_report(on, off) and same_out(on.raw,
+                                                                off.raw)
+                check(same, f"rings {arch} {mode} K={bk} scenario={scn} "
+                      f"ring {ring}: the run differs from the unringed one")
+                check(int(rings["head"]) == n and
+                      int(rings["ring_size"]) == ring and
+                      on.terminated_reason == "budget_exhausted",
+                      f"rings {arch} {mode}: head {rings['head']} of {n}")
+                oracle = [] if scn else oracle_mismatch(on, sess.cfg)
+                check(not oracle, f"rings {arch} {mode} K={bk} ring {ring}:"
+                      f" the replay oracle differs in {oracle}")
+                if scn:
+                    act = rings["active_edges"][:min(n, ring)]
+                    check(((act >= 0) & (act <= 4)).all() and
+                          int(np.asarray(rings["dropouts"]).sum()) > 0,
+                          f"rings {arch} {mode} scenario: activity {act}")
+                if arch == "kmeans-traffic":
+                    check(launched == loop["kernel_launches_per_graph"] * (
+                        loop["replays"] + loop["graphs_captured"]) > 0,
+                        f"rings {arch} {mode}: batched launches {launched}"
+                        f" for {loop}")
+                rows.append({"ring": ring, "rounds": n, "wraps": n > ring,
+                             "same_run_as_unringed": same,
+                             "oracle": "not defined (scenario)" if scn
+                             else "equal",
+                             "batched_launches": launched,
+                             "chunks": loop["chunks"],
+                             "graphs_captured": loop["graphs_captured"]})
+            check(mode == "sync" or scn or rows[0]["wraps"],
+                  f"rings {arch} {mode}: {rows[0]['rounds']} events do not "
+                  f"wrap the default ring")
+            emit("rings", arch=arch, mode=mode, batch_k=bk, scenario=scn,
+                 device="cuda", draws="torch.Generator on the card, seed "
+                 "cfg.seed + 17", runs=rows, card=card)
+            sessions[arch, mode, bk, scn] = sess
+    return sessions
+
+
+def telemetry_profiles(fixtures, sessions) -> dict:
+    """(b) ``profile=True, contract=True`` on the sync round and the async
+    engine, rings off and on: no collectives, nothing aliased, the
+    memory fields measured; an impossible contract raises before any
+    replay."""
+    from repro_torch.obs import prof
+    card = card_line()
+    peaks = {}
+    for arch, fx in fixtures.items():
+        for mode in ("sync", "async"):
+            sess = sessions[arch, mode, 1, False]
+            run = (sess.run_sync_ingraph if mode == "sync"
+                   else sess.run_async_ingraph)
+            for ring in (None, TELEM_RING):
+                rep = run(telemetry=ring, profile=True, contract=True)
+                p = rep.telemetry["profile"]
+                check(p["collectives"] == {} and p["alias_bytes"] == 0
+                      and p["collective_bytes"] == 0 and not p["donated"]
+                      and p["errors"] == [] and p["backend"] == "cuda"
+                      and all(p[f] is not None and p[f] > 0 for f in (
+                          "argument_bytes", "output_bytes", "temp_bytes",
+                          "peak_live_bytes"))
+                      and p["peak_live_bytes"] == p["argument_bytes"]
+                      + p["output_bytes"] + p["temp_bytes"],
+                      f"profile {arch} {mode} ring {ring}: {p}")
+                peaks[arch, mode, ring] = p
+                emit("profile", arch=arch, mode=mode, rings=ring,
+                     device="cuda", **{k: p[k] for k in (
+                         "argument_bytes", "output_bytes", "temp_bytes",
+                         "alias_bytes", "peak_live_bytes", "flops",
+                         "collectives", "donated")}, card=card)
+        fresh = telemetry_session(fx["cuda"], "sync")
+        impossible = prof.CollectiveContract(
+            "impossible", counts={"all-gather": (5, 99)})
+        try:
+            fresh.run_sync_ingraph(contract=impossible)
+            raised = False
+        except prof.ContractViolation:
+            raised = True
+        check(raised and fresh._fastpath.replays == 0,
+              f"profile {arch}: an impossible contract did not raise "
+              "before dispatch")
+    return peaks
+
+
+def telemetry_sweep(fixtures) -> dict:
+    """(c) phase 4d's 24-cell sync grid with the rings on: the grid the
+    unringed grid, every cell's rings its solo card run's; the largest
+    ``arm_utility`` difference, which the vmapped cells' reductions may
+    round apart."""
+    import numpy as np
+    import torch
+    from repro_torch.el.sweep import SweepSpec
+    card = card_line()
+    spec = SweepSpec(**SWEEP_SYNC)
+    out = {}
+    for arch, fx in fixtures.items():
+        sess = sweep_session(fx["cuda"], "sync")
+        off = sess.sweep(spec)
+        on = sess.sweep(spec, telemetry=True)
+        same = (same_out(on.out, off.out) and all(
+            torch.equal(on.final_params[k], v)
+            for k, v in off.final_params.items()))
+        check(same, f"rings sweep {arch}: the grid differs from the "
+              "unringed grid")
+        solo = sweep_session(fx["cuda"], "sync")
+        util, heads = 0.0, []
+        for i, ccfg in enumerate(spec.cell_cfgs(sess.cfg)):
+            solo.cfg = ccfg
+            ind = solo.run_sync_ingraph(max_rounds=spec.max_rounds,
+                                        telemetry=True)
+            cell = {k: np.asarray(v)[i]
+                    for k, v in on.out["telemetry"].items()}
+            bad = ring_mismatch(cell, ind.telemetry["rings"], util_tol=1e-4)
+            check(not bad, f"rings sweep {arch} cell {i}: {bad} differ "
+                  "from the solo run's")
+            util = max(util, float(np.abs(
+                cell["arm_utility"] - ind.telemetry["rings"]["arm_utility"]
+            ).max()))
+            heads.append(int(cell["head"]))
+        emit("rings_sweep", arch=arch, device="cuda", cells=spec.n_cells,
+             ring=TELEM_RING, heads=heads, same_grid_as_unringed=same,
+             rings_equal_solo_runs=True, max_arm_utility_diff=util,
+             card=card)
+        out[arch] = util
+    return out
+
+
+def telemetry_cohort(fixtures) -> dict:
+    """(d) phase 4f's kmeans sync cohort (8 tenants through 4 slots, waves
+    of 16) on a server with the rings and the profile on: every tenant's
+    report bit for bit its solo card run's, rings included, the cohort's
+    (donated) profile on every report."""
+    import numpy as np
+    from repro_torch.el import ELSession
+    from repro_torch.el.cache import ProgramCache
+    from repro_torch.el.fleet import FleetServer, TenantRun
+    card = card_line()
+    arch, mode = TELEM_COHORT
+    cfgs = fleet_runs(fixtures)[arch, mode]
+    fx = fixtures[arch]["cuda"]
+    server = FleetServer(n_slots=FLEET_SLOTS, rounds_per_wave=FLEET_WAVE,
+                         cache=ProgramCache(2), telemetry=True, profile=True)
+    for i, cfg in enumerate(cfgs):
+        server.submit(TenantRun(cfg=cfg, executor=fx["executor"],
+                                tenant_id=f"{i}", metric_name=fx["metric"],
+                                n_samples=fx["n_samples"],
+                                init_params=fx["init_params"]))
+    reports = server.drain()
+    stats = server.stats()
+    server.close()
+    solo = (ELSession(cfgs[0], metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]))
+    profiles = []
+    for i, cfg in enumerate(cfgs):
+        solo.cfg = cfg
+        ind = solo.run_sync_ingraph(telemetry=True)
+        got = reports[f"{i}"]
+        bad = ring_mismatch(got.telemetry["rings"], ind.telemetry["rings"])
+        check(same_fleet_report(got, ind) and not bad,
+              f"rings cohort tenant {i}: {bad} / {got.summary()} vs the solo"
+              f" run's {ind.summary()}")
+        profiles.append(got.telemetry["profile"])
+    p = profiles[0]
+    check(all(q == p for q in profiles) and p["donated"] and
+          p["errors"] == [] and 0 < p["alias_bytes"] < p["argument_bytes"]
+          and p["collectives"] == {} and p["temp_bytes"] is not None
+          and p["peak_live_bytes"] == p["argument_bytes"]
+          + p["output_bytes"] + p["temp_bytes"] - p["alias_bytes"],
+          f"rings cohort: the profile {p}")
+    emit("rings_cohort", arch=arch, mode=mode, device="cuda",
+         tenants=len(cfgs), slots=FLEET_SLOTS, waves=stats["waves"],
+         rounds=[reports[f"{i}"].n_aggregations for i in range(len(cfgs))],
+         rings_equal_solo_runs=True, **{k: p[k] for k in (
+             "argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+             "peak_live_bytes", "donated")}, card=card)
+    return p
+
+
+def telemetry_timing(sessions) -> dict:
+    """(e) past the counted runs: each path's seconds with the rings off
+    and on, both on reused graphs (alternating, the median of
+    ``TELEM_TIMED`` a side), and through ``card_time`` the kernels a
+    chunk round and the replay ms each side."""
+    import statistics
+    import torch
+    card = card_line()
+    out = {}
+    for (arch, mode, bk, scn), sess in sessions.items():
+        run = (sess.run_sync_ingraph if mode == "sync"
+               else sess.run_async_ingraph)
+        secs = {None: [], TELEM_RING: []}
+        for _ in range(TELEM_TIMED):
+            for ring in secs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(telemetry=ring)
+                torch.cuda.synchronize()
+                secs[ring].append(time.perf_counter() - t0)
+        off_s = statistics.median(secs[None])
+        on_s = statistics.median(secs[TELEM_RING])
+        row = {"off_s": off_s, "on_s": on_s, "ratio": on_s / off_s,
+               "off_runs_s": secs[None], "on_runs_s": secs[TELEM_RING]}
+        if arch == "kmeans-traffic" and not scn and bk == 1:
+            for ring, name in ((None, "off"), (TELEM_RING, "on")):
+                run(telemetry=ring)
+                ct = card_time(lambda r=ring: run(telemetry=r),
+                               sess._fastpath)
+                row[f"{name}_kernels_per_chunk_round"] = \
+                    ct["kernels_per_chunk_round"]
+                row[f"{name}_replay_ms"] = ct["replay_ms"]
+                row[f"{name}_idle_share_events"] = ct["idle_share_events"]
+            row["kernels_added_per_chunk_round"] = (
+                row["on_kernels_per_chunk_round"]
+                - row["off_kernels_per_chunk_round"])
+        emit("rings_timing", arch=arch, mode=mode, batch_k=bk,
+             scenario=scn, device="cuda", ring=TELEM_RING, **row,
+             card=card)
+        out[arch, mode, bk, scn] = row
+    return out
+
+
+def telemetry_phase(fixtures) -> dict:
+    """Phase 4h: (a)-(d) with every count set to 0 just before and read
+    just after, then (e)."""
+    import torch
+    from repro_torch.kernels.kmeans_assign import ops
+    reset_counts()
+    torch.cuda.synchronize()
+    sessions = telemetry_runs(fixtures)
+    peaks = telemetry_profiles(fixtures, sessions)
+    solo = counts()["kmeans_assign_batched"]
+    sweep = telemetry_sweep(fixtures)
+    after_sweep = ops.batched_launches
+    cohort = telemetry_cohort(fixtures)
+    launches = counts()
+    cells = launches["kmeans_assign_batched"] - solo
+    check(solo > 0 and after_sweep > solo and
+          launches["kmeans_assign_batched"] > after_sweep,
+          "rings: batched kmeans_assign launches (solo runs, sweep, "
+          f"cohort) {solo}, {after_sweep - solo}, "
+          f"{launches['kmeans_assign_batched'] - after_sweep}")
+    check(launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"rings: unexpected kernel launches {launches}")
+    timing = telemetry_timing(sessions)
+    emit("rings_phase", batched_launches_solo=solo,
+         batched_launches_sweep=after_sweep - solo,
+         batched_launches_cohort=launches["kmeans_assign_batched"]
+         - after_sweep,
+         single_launches=launches["kmeans_assign"],
+         ratios={f"{a}/{m}/K={k}/scenario={s}": r["ratio"]
+                 for (a, m, k, s), r in timing.items()},
+         peak_live_bytes={f"{a}/{m}/rings={r}": p["peak_live_bytes"]
+                          for (a, m, r), p in peaks.items()},
+         cohort_peak_live_bytes=cohort["peak_live_bytes"],
+         sweep_max_arm_utility_diff=sweep, card=card_line())
+    return {"kmeans_assign": launches["kmeans_assign"],
+            "kmeans_assign_batched": solo,
+            "kmeans_assign_batched_cells": cells}
+
+
 # -- phase 4g: the paper's figures --------------------------------------------
 
 # the reference's "high H" for Fig. 3's async claim: the H values above 6
@@ -2866,14 +3239,17 @@ def main() -> None:
     sweep = sweep_phase(fixtures)
     scenarios = scenario_phase(fixtures)
     fleet = fleet_phase(fixtures)
+    telemetry = telemetry_phase(fixtures)
     del fixtures
     figures = figures_phase()
     launches["kmeans_assign"] += events["kmeans_assign"] + \
         sweep["kmeans_assign"] + scenarios["kmeans_assign"] + \
-        fleet["kmeans_assign"] + figures["kmeans_assign"]
+        fleet["kmeans_assign"] + telemetry["kmeans_assign"] + \
+        figures["kmeans_assign"]
     launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
                                          + events["kmeans_assign_batched"]
-                                         + scenarios["kmeans_assign_batched"])
+                                         + scenarios["kmeans_assign_batched"]
+                                         + telemetry["kmeans_assign_batched"])
     launches.update(serve_phase())
     launches.update(train_phase())
     train_vs_plain()
@@ -2937,7 +3313,8 @@ def main() -> None:
                     "over a fleet cohort's slots)",
         "launches": sweep["kmeans_assign_batched"]
         + scenarios["kmeans_assign_batched_cells"]
-        + fleet["kmeans_assign_batched_cells"],
+        + fleet["kmeans_assign_batched_cells"]
+        + telemetry["kmeans_assign_batched_cells"],
         "max_abs_err": kmc_err, "ms": kmc["ms"], "kernel_ms": kmc["ms"],
         "call_ms": kmc["call_ms"], "vmap_call_ms": kmc["vmap_call_ms"],
         "plain_ms": kmc["plain_ms"], "bound_ms": kmc["bound_ms"],

@@ -1,10 +1,13 @@
 """Bounded program cache, shared by sessions and fleet cohorts.
 
-A copy of the reference's ``ProgramCache`` (pure Python), less its
-program-profile store (``repro.obs.prof``, ROADMAP Queue 1 item 12).
-Here an entry is a compiled program (``repro_torch.el.ingraph.
-SyncProgram``, ``repro_torch.el.events.AsyncProgram``, a sweep's runner
-or a fleet cohort's ``CellBatch``): its static device buffers (the
+A copy of the reference's ``ProgramCache`` (pure Python), with its
+program-profile side-store: ``set_profile`` / ``profile`` / ``profiles``
+keep one ``repro_torch.obs.prof.ProgramProfile`` per cached program,
+counted in ``stats()["profiled"]`` and dropped with the entry on
+eviction and ``clear()``.  Here an entry is a compiled program
+(``repro_torch.el.ingraph.SyncProgram``,
+``repro_torch.el.events.AsyncProgram``, a sweep's runner or a fleet
+cohort's ``CellBatch``): its static device buffers (the
 padded per-edge datasets, the carry, the knob and draw buffers) and, on
 a card, the CUDA graph captured over them.  Each entry pins those
 buffers, so the cache is a bounded FIFO, and ``clear()`` is what
@@ -34,6 +37,10 @@ class ProgramCache:
     def __init__(self, max_entries: int = 8):
         self.max_entries = int(max_entries)
         self._entries: Dict[tuple, Any] = {}
+        # per-entry ProgramProfile side-store (repro_torch.obs.prof): kept
+        # out of _entries so cached values stay the programs themselves;
+        # evicted with the entry
+        self._profiles: Dict[tuple, Any] = {}
         self.hits = 0
         self.misses = 0
         self.evictions = 0
@@ -58,18 +65,38 @@ class ProgramCache:
         while len(self._entries) > self.max_entries:
             evicted = next(iter(self._entries))
             self._entries.pop(evicted)
+            self._profiles.pop(evicted, None)
             self.evictions += 1
             trace.event("cache.evict", evictions=self.evictions)
         return program
 
+    def set_profile(self, key: tuple, profile: Any) -> Any:
+        """Attach a :class:`repro_torch.obs.prof.ProgramProfile` to a
+        cached program (no-op for unknown keys: the entry may have been
+        evicted between build and profile)."""
+        if key in self._entries:
+            self._profiles[key] = profile
+        return profile
+
+    def profile(self, key: tuple) -> Optional[Any]:
+        """The profile attached to a cached program (None when never
+        profiled, or evicted)."""
+        return self._profiles.get(key)
+
+    def profiles(self) -> Dict[tuple, Any]:
+        """Snapshot of every attached profile (key → ProgramProfile)."""
+        return dict(self._profiles)
+
     def stats(self) -> Dict[str, int]:
-        """Counter snapshot: entries/max_entries/hits/misses/evictions."""
+        """Counter snapshot: entries/max_entries/hits/misses/evictions
+        (+ how many entries carry a profile)."""
         return {
             "entries": len(self._entries),
             "max_entries": self.max_entries,
             "hits": self.hits,
             "misses": self.misses,
             "evictions": self.evictions,
+            "profiled": len(self._profiles),
         }
 
     def clear(self) -> int:
@@ -78,6 +105,7 @@ class ProgramCache:
         callers also drop their aliases."""
         n = len(self._entries)
         self._entries.clear()
+        self._profiles.clear()
         return n
 
     # -- dict-compatible surface ---------------------------------------------

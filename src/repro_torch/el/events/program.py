@@ -48,8 +48,12 @@ block is scheduled on costs scaled by its straggler multiplier, and the
 drift rotates the sampled indices.  The scenario body takes the same
 draws as the scenario-less one.
 
-Telemetry rings (ROADMAP Queue 1 item 12) and sharded runs (item 14) are
-not ported.
+**Telemetry** (``telemetry=``, ``repro_torch.obs.rings``): every event
+records its edge, arm, charge, the edge's residual budget, the merge's
+alpha and staleness, the inter-arrival time and the edge's bandit
+statistics at slot ``t % ring_size``; a wave writes its accepted lanes'
+rows.  Off, the carry is the ungated one.  Sharded runs (ROADMAP Queue 1
+item 14) are not ported.
 """
 
 from __future__ import annotations
@@ -142,16 +146,19 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     body.  With ``cfg.scenario`` set the body is the single-event
     scenario body (``batch_k`` > 1 raises) and the history gains
     ``active_edges``.  ``n_samples`` is ignored: the async global update
-    is the staleness mix, not a weighted average."""
+    is the staleness mix, not a weighted average.  ``telemetry=`` gates
+    the rings (see ``make_sync_cell``); a wave wider than the ring
+    raises."""
+    from repro_torch.obs.rings import (as_spec, async_ring_init,
+                                       async_ring_record,
+                                       async_ring_record_wave,
+                                       finalize_telemetry)
     del n_samples
     if mesh is not None:
         raise NotImplementedError(
             "make_async_cell(mesh=...): sharded runs arrive with ROADMAP "
             "Queue 1 item 14")
-    if telemetry not in (None, False):
-        raise NotImplementedError(
-            "make_async_cell(telemetry=...): the device rings arrive with "
-            "ROADMAP Queue 1 item 12")
+    spec = as_spec(telemetry)
     check_ingraph_support(cfg, caller="make_async_program")
     dev = resolve_device(device if device is not None
                          else getattr(model, "device", None))
@@ -173,6 +180,12 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "path (per-event activity masks, dropout probes) is defined "
             "on the single-event program only — pin async_batch_k=1 or "
             "leave it 0 (auto resolves to 1 under a scenario)")
+    if spec is not None and batch_k > spec.ring_size:
+        raise ValueError(
+            f"async_batch_k={batch_k} exceeds the telemetry ring size "
+            f"{spec.ring_size}: a wave's per-event ring writes would "
+            "collide within one scatter — raise telemetry= or lower "
+            "the batch width")
     local_block, metric_fn, eval_step = _build_parts(
         model, edge_data, eval_set, cfg, lr=lr, batch=batch,
         metric_fn=metric_fn, metric_name=metric_name, device=dev,
@@ -219,21 +232,25 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         if scn is not None:
             hist["active_edges"] = torch.zeros(max_events, dtype=torch.int32,
                                                device=dev)
-        return {"gparams": gparams,
-                "edge_params": tree_map(lambda p: p.unsqueeze(0).repeat(
-                    (n_edges,) + (1,) * p.dim()), gparams),
-                "fleet": fleet,
-                "consumed": torch.zeros(n_edges, device=dev),
-                "finish": torch.stack([s[3] for s in sched]),
-                "infl_i": torch.stack([s[1] for s in sched]),
-                "infl_c": torch.stack([s[2] for s in sched]),
-                "fetch_ver": torch.zeros(n_edges, dtype=torch.int64,
-                                         device=dev),
-                "version": torch.zeros((), dtype=torch.int64, device=dev),
-                "t": torch.zeros((), dtype=torch.int64, device=dev),
-                "prev_metric": prev_metric,
-                "wall": torch.zeros((), device=dev),
-                "hist": hist}
+        carry = {"gparams": gparams,
+                 "edge_params": tree_map(lambda p: p.unsqueeze(0).repeat(
+                     (n_edges,) + (1,) * p.dim()), gparams),
+                 "fleet": fleet,
+                 "consumed": torch.zeros(n_edges, device=dev),
+                 "finish": torch.stack([s[3] for s in sched]),
+                 "infl_i": torch.stack([s[1] for s in sched]),
+                 "infl_c": torch.stack([s[2] for s in sched]),
+                 "fetch_ver": torch.zeros(n_edges, dtype=torch.int64,
+                                          device=dev),
+                 "version": torch.zeros((), dtype=torch.int64, device=dev),
+                 "t": torch.zeros((), dtype=torch.int64, device=dev),
+                 "prev_metric": prev_metric,
+                 "wall": torch.zeros((), device=dev),
+                 "hist": hist}
+        if spec is not None:
+            carry["telem"] = async_ring_init(
+                spec, k, scenario=scn is not None, device=dev)
+        return carry
 
     def event_cap(knobs: Knobs) -> torch.Tensor:
         # the history length bounds the exact cap the knob carries
@@ -243,17 +260,25 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         return ((carry["t"] < event_cap(knobs))
                 & torch.isfinite(carry["finish"]).any())
 
+    def staleness(version, fetch_ver_e):
+        """The raw staleness the ring records: ``staleness_alpha``'s
+        exact f32 expression."""
+        return (version - fetch_ver_e).float() / n_edges_f
+
     def event(state, knobs: Knobs, e, wall, interval, cost, p_new, gumbel,
               normal):
         """One completion of edge ``e`` (a 0-dim index) at ``wall``, its
         block's params ``p_new``: charge, merge, utility, bandit, and the
         edge's next block.  ``state`` is (gparams, fleet, consumed,
-        fetch_ver, version, prev_metric)."""
+        fetch_ver, version, prev_metric).  Also returns the event's ring
+        signals (``None`` with telemetry off)."""
         gparams, fleet, consumed, fetch_ver, version, prev_metric = state
         hit = edge_ids == e
         consumed = torch.where(hit, consumed + cost, consumed)
         alpha = staleness_alpha(knobs["async_alpha"], version,
                                 _at(fetch_ver, e), n_edges_f)
+        stale = (staleness(version, _at(fetch_ver, e))
+                 if spec is not None else None)
         new_global = staleness_merge(gparams, p_new, alpha)
         version = version + 1
         metric, utility = eval_step(new_global, gparams, prev_metric)
@@ -261,14 +286,18 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                                         utility, cost)
         fleet = bandit_place(fleet, e, bstate_e)
         fetch_ver = torch.where(hit, version, fetch_ver)
+        resid = knobs["budget"] - _at(consumed, e)
         _, nxt_i, nxt_c, fin = schedule_block(
-            bstate_e, knobs["budget"] - _at(consumed, e),
+            bstate_e, resid,
             _at(knobs["costs_ek"], e), knobs["ucb_c"],
             _at(knobs["min_edge_cost"], e), knobs["cost_noise"],
             _at(knobs["comp"], e), _at(knobs["comm"], e), wall, gumbel,
             normal)
         state = (new_global, fleet, consumed, fetch_ver, version, metric)
-        return state, utility, (nxt_i, nxt_c, fin)
+        signals = (None if spec is None else
+                   {"resid": resid, "alpha": alpha, "stale": stale,
+                    "bstate": bstate_e})
+        return state, utility, (nxt_i, nxt_c, fin), signals
 
     def commit(carry: Carry, state, ok, t, e, wall, interval, cost,
                utility, nxt):
@@ -322,13 +351,20 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         p_new = local_block(tree_map(lambda a: a[lanes], carry["edge_params"]),
                             interval.reshape(1),
                             draws["uniform"][at.reshape(1), lanes], lanes)
-        state, utility, nxt = event(
+        state, utility, nxt, sig = event(
             state_of(carry), knobs, e, wall, interval, cost,
             tree_map(lambda a: a[0], p_new), _at(draws["gumbel"], at, e),
             _at(draws["normal"], at, e))
-        carry = commit(carry, state, always, t, e, wall, interval, cost,
-                       utility, nxt)
-        return dict(with_state(carry, state), t=t + 1, wall=wall)
+        new = commit(carry, state, always, t, e, wall, interval, cost,
+                     utility, nxt)
+        new = dict(with_state(new, state), t=t + 1, wall=wall)
+        if spec is not None:
+            new["telem"] = async_ring_record(
+                carry["telem"], spec, t=t, edge=e, arm=interval - 1,
+                cost=cost, budget_resid=sig["resid"], alpha=sig["alpha"],
+                staleness=sig["stale"], interarrival=wall - carry["wall"],
+                bstate_e=sig["bstate"])
+        return new
 
     def body_wave(carry: Carry, knobs: Knobs, draws) -> Carry:
         t0 = carry["t"]
@@ -355,9 +391,10 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             draws["normal"][at, e_sorted]
         # the control plane: the merge chain is sequential (lane j + 1
         # merges into lane j's model), replayed lane by lane, masked
+        sigs = []
         for j in range(batch_k):
             ok = valid[j]
-            state, utility, nxt = event(
+            state, utility, nxt, sig = event(
                 state_of(carry), knobs, e_sorted[j], f_sorted[j],
                 interval_l[j], cost_l[j], tree_map(lambda a: a[j], p_new),
                 gumbel[j], normal[j])
@@ -367,7 +404,24 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             carry = with_state(
                 commit(carry, state, ok, t0 + j, e_sorted[j], f_sorted[j],
                        interval_l[j], cost_l[j], utility, nxt), state)
-        return dict(carry, t=t0 + n_batch, wall=_at(f_sorted, n_batch - 1))
+            sigs.append(sig)
+        new = dict(carry, t=t0 + n_batch, wall=_at(f_sorted, n_batch - 1))
+        if spec is not None:
+            # the lanes' commits left the carry's rings and wall as the
+            # wave found them; lanes past the accepted prefix write no row
+            prev_walls = torch.cat([carry["wall"].reshape(1), f_sorted[:-1]])
+            lanes = {name: torch.stack([s[name] for s in sigs])
+                     for name in ("resid", "alpha", "stale")}
+            new["telem"] = async_ring_record_wave(
+                carry["telem"], spec, t0=t0, valid=valid, edge=e_sorted,
+                arm=interval_l - 1, cost=cost_l,
+                budget_resid=lanes["resid"], alpha=lanes["alpha"],
+                staleness=lanes["stale"], interarrival=f_sorted - prev_walls,
+                arm_counts=torch.stack([s["bstate"]["counts"]
+                                        for s in sigs]),
+                arm_utility=torch.stack([s["bstate"]["utility_sum"]
+                                         for s in sigs]))
+        return new
 
     def body_one_scn(carry: Carry, knobs: Knobs, draws) -> Carry:
         # the scenario variant of body_one: the popped edge's activity bit
@@ -400,6 +454,8 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                                carry["consumed"])
         alpha = staleness_alpha(knobs["async_alpha"], version,
                                 _at(carry["fetch_ver"], e), n_edges_f)
+        stale = (staleness(version, _at(carry["fetch_ver"], e))
+                 if spec is not None else None)
         merged = staleness_merge(gparams, tree_map(lambda a: a[0], p_new),
                                  alpha)
         new_global = tree_map(lambda m, g: torch.where(is_act, m, g),
@@ -421,8 +477,9 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         # each scaled cost is an f32 tensor, as the reference's
         m = _at(knobs["scn_mult"], slot_i, e)
         min_cost_e = _at(knobs["min_edge_cost"], e)
+        resid = knobs["budget"] - _at(consumed, e)
         _, nxt_i, nxt_c, fin = schedule_block(
-            bstate_e, knobs["budget"] - _at(consumed, e),
+            bstate_e, resid,
             _at(knobs["costs_ek"], e) * m, knobs["ucb_c"], min_cost_e * m,
             knobs["cost_noise"], _at(knobs["comp"], e) * m,
             _at(knobs["comm"], e) * m, wall, _at(draws["gumbel"], at, e),
@@ -433,6 +490,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         nxt_i = torch.where(is_act, nxt_i, interval)
         nxt_c = torch.where(is_act, nxt_c, cost)
         at_t = pos == t
+        n_act = act_row.int().sum().int()
         hist = carry["hist"]
         hist = {
             "metric": torch.where(at_t, metric, hist["metric"]),
@@ -446,16 +504,25 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             "consumed": torch.where(at_t, _edge_sum(consumed),
                                     hist["consumed"]),
             "wall": torch.where(at_t, wall, hist["wall"]),
-            "active_edges": torch.where(at_t, act_row.int().sum().int(),
-                                        hist["active_edges"]),
+            "active_edges": torch.where(at_t, n_act, hist["active_edges"]),
         }
-        return dict(carry, gparams=new_global, edge_params=edge_params,
-                    fleet=fleet, consumed=consumed,
-                    finish=torch.where(hit, fin, carry["finish"]),
-                    infl_i=torch.where(hit, nxt_i, carry["infl_i"]),
-                    infl_c=torch.where(hit, nxt_c, carry["infl_c"]),
-                    fetch_ver=fetch_ver, version=version, t=t + 1,
-                    prev_metric=metric, wall=wall, hist=hist)
+        new = dict(carry, gparams=new_global, edge_params=edge_params,
+                   fleet=fleet, consumed=consumed,
+                   finish=torch.where(hit, fin, carry["finish"]),
+                   infl_i=torch.where(hit, nxt_i, carry["infl_i"]),
+                   infl_c=torch.where(hit, nxt_c, carry["infl_c"]),
+                   fetch_ver=fetch_ver, version=version, t=t + 1,
+                   prev_metric=metric, wall=wall, hist=hist)
+        if spec is not None:
+            # a probe records its edge and arm, charges 0 and counts as
+            # one dropout; rejoins are not observed per event
+            new["telem"] = async_ring_record(
+                carry["telem"], spec, t=t, edge=e, arm=interval - 1,
+                cost=torch.where(is_act, cost, 0.0), budget_resid=resid,
+                alpha=alpha, staleness=stale,
+                interarrival=wall - carry["wall"], bstate_e=bstate_e,
+                scn=(n_act, 1 - is_act.int(), torch.zeros_like(n_act)))
+        return new
 
     if scn is not None:
         body = body_one_scn
@@ -472,6 +539,9 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         # every edge ("budget_exhausted"), more that the horizon cut the
         # run ("max_events")
         out["n_active"] = torch.isfinite(carry["finish"]).sum()
+        if spec is not None:
+            out["telemetry"] = finalize_telemetry(carry["telem"],
+                                                  carry["t"], spec)
         return carry["gparams"], out
 
     draw_shapes = {"gumbel": (n_edges, k), "uniform": (n_edges, k, batch),
@@ -516,7 +586,7 @@ def make_async_program(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     edges) and ``wall`` (the event time), plus ``n_rounds`` (events),
     ``wall_time``, the final per-edge ``budgets_left``, the per-edge
     bandits' ``arm_pulls`` ``[E, K]`` and ``n_active`` (blocks in flight
-    at exit).
+    at exit); with ``telemetry=`` the nested ``out["telemetry"]`` rings.
     """
     cell = make_async_cell(
         model, edge_data, eval_set, cfg, lr=lr, batch=batch,

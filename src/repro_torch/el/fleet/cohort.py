@@ -15,6 +15,11 @@ captured graph's static buffer on first sight (any other object would
 cost a copy of the whole carry a wave), so a cohort serving thousands of
 tenants recycles one set of device buffers.  A ``CellBatch`` holds that
 state, so it serves one live cohort at a time (:meth:`Cohort._claim`).
+
+With ``profile=True`` the first wave profiles the batch's wave program
+(``repro_torch.obs.prof.profile_jit``, the stacked carry ``donated``: the
+graph updates it in place) once per cohort, stores the profile on the
+shared program cache and attaches it to every tenant report.
 """
 
 from __future__ import annotations
@@ -70,10 +75,14 @@ def _hist_rows(hist: Dict[str, torch.Tensor], lo: int, hi: int
 class Cohort:
     """Slot-batched continuous service of one structural config."""
 
-    def __init__(self, key: tuple, batch: CellBatch, knobs_fn: Callable):
+    def __init__(self, key: tuple, batch: CellBatch, knobs_fn: Callable, *,
+                 profile: bool = False, cache=None):
         self.key = key
         self.batch = batch
         self.knobs_fn = knobs_fn
+        self.profile_requested = bool(profile)
+        self._cache = cache
+        self._profile = None
         self.waves = 0
         self.admitted = 0
         self.completed = 0
@@ -202,6 +211,8 @@ class Cohort:
             if not any(active):
                 sp["completed"] = 0
                 return []
+            if self.profile_requested and self._profile is None:
+                self._profile_step(active)
             self._stacked, running = self.batch.step(
                 self._stacked, self._knobs_np, torch.tensor(active))
             self.waves += 1
@@ -246,6 +257,20 @@ class Cohort:
                                tree_map(lambda a, i=i: a[i], rows))
                 for i, s in enumerate(finished)]
 
+    def _profile_step(self, active: List[bool]) -> None:
+        """Profile the batch's wave program on the live stacked carry
+        (adopted as the wave adopts it; no draw is taken), once per
+        cohort; the profile is also stored on the shared program cache."""
+        from repro_torch.obs import prof as obs_prof
+        from repro_torch.obs import trace
+        with trace.span("cohort.profile", mode=self.batch.mode):
+            prof = obs_prof.profile_jit(self.batch, self._stacked,
+                                        self._knobs_np, torch.tensor(active),
+                                        donated=True)
+        self._profile = prof
+        if self._cache is not None:
+            self._cache.set_profile(self.key, prof)
+
     def _finalize(self, s: int, emit: EmitFn,
                   carry: Any) -> Tuple[str, ELReport]:
         slot = self._slots[s]
@@ -257,6 +282,9 @@ class Cohort:
             final_params=params,
             elapsed_s=time.perf_counter() - slot.t0,
             records=slot.records)
+        if self._profile is not None:
+            report.telemetry = dict(report.telemetry or {},
+                                    profile=self._profile.to_json())
         report.raw = out
         self._slots[s] = None                    # frees the row; the mask
         self.completed += 1                      # keeps it inert until reuse

@@ -31,7 +31,7 @@ from repro_torch.el.executor import validate_executor
 from repro_torch.el.fleet.cohort import Cohort
 from repro_torch.el.fleet.tenant import TenantRun
 from repro_torch.el.report import ELReport
-from repro_torch.el.session import DEFAULT_SYNC_HORIZON, _MESH_ITEM, _OBS_ITEM
+from repro_torch.el.session import DEFAULT_SYNC_HORIZON, _MESH_ITEM
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -55,9 +55,19 @@ class FleetServer:
     tenants' state in its static buffers, so two live servers sharing a
     cache serve one structure in turn, not at once.
 
-    ``mesh=`` (ROADMAP Queue 1 item 14) and ``telemetry=`` /
-    ``profile=`` / ``REPRO_EL_PROFILE`` (item 12: the device rings and
-    program profiles) raise ``NotImplementedError``.
+    ``telemetry=`` gates the device rings (``repro_torch.obs.rings``) of
+    every cohort program (off, the default, builds the ungated programs).
+    Each tenant's report then carries its own ring snapshot in
+    ``report.telemetry["rings"]``.  The gate joins the cohort key, so on
+    and off tenants never share a cohort.
+
+    ``profile=`` (or ``REPRO_EL_PROFILE=1``) profiles each cohort's wave
+    program once, at its first wave (``repro_torch.obs.prof``; the
+    stacked carry is updated in place, so the profile is ``donated``),
+    and every tenant report from that cohort carries it as
+    ``report.telemetry["profile"]``.
+
+    ``mesh=`` (ROADMAP Queue 1 item 14) raises ``NotImplementedError``.
     """
 
     def __init__(self, *, n_slots: int = 4, rounds_per_wave: int = 32,
@@ -70,12 +80,10 @@ class FleetServer:
             raise NotImplementedError(
                 "FleetServer(mesh=...): sharded cohorts arrive with "
                 f"{_MESH_ITEM}")
-        if (telemetry not in (None, False) or profile
-                or os.environ.get("REPRO_EL_PROFILE")):
-            raise NotImplementedError(
-                "FleetServer(telemetry=/profile=, REPRO_EL_PROFILE): the "
-                f"device rings and program profiles arrive with {_OBS_ITEM}")
+        from repro_torch.obs.rings import as_spec
         self.device = resolve_device(device)
+        self.telemetry = as_spec(telemetry)
+        self.profile = bool(profile or os.environ.get("REPRO_EL_PROFILE"))
         self.n_slots = int(n_slots)
         self.rounds_per_wave = int(rounds_per_wave)
         self._owns_cache = cache is None
@@ -109,7 +117,7 @@ class FleetServer:
         return ("fleet", run.executor,
                 ELSession._structural_cfg(run.cfg), run.metric_fn,
                 run.metric_name, n_samples, horizon, self.n_slots,
-                self.rounds_per_wave)
+                self.rounds_per_wave, self.telemetry)
 
     def _horizon(self, run: TenantRun) -> int:
         if run.cfg.mode == "async":
@@ -150,7 +158,8 @@ class FleetServer:
         cohort = self._cohorts.get(key)
         if cohort is None:
             cohort = Cohort(key, self._batch_for(run, horizon),
-                            self._knobs_fn(run))
+                            self._knobs_fn(run), profile=self.profile,
+                            cache=self._cache)
             self._cohorts[key] = cohort
         cohort.submit(tenant_id, run)
         return tenant_id
@@ -181,7 +190,8 @@ class FleetServer:
         if batch is None:
             ex = run.executor
             with trace.span("fleet.compile", mode=run.cfg.mode,
-                            n_slots=self.n_slots, telemetry=False):
+                            n_slots=self.n_slots,
+                            telemetry=self.telemetry is not None):
                 batch = make_cell_batch(
                     ex.model, ex.edge_data, ex.eval_set, run.cfg,
                     n_slots=self.n_slots,
@@ -189,7 +199,8 @@ class FleetServer:
                     lr=ex.lr, batch=ex.batch,
                     n_samples=self._n_samples_of(run),
                     metric_fn=run.metric_fn, metric_name=run.metric_name,
-                    horizon=horizon, device=self.device)
+                    horizon=horizon, telemetry=self.telemetry,
+                    device=self.device)
                 self._cache.put(key, batch)
                 self.compiles += 1
         return batch

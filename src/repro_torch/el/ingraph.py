@@ -65,8 +65,11 @@ live weights renormalise) and is not charged; the slot paces on the
 slowest active edge; the drift rotates every sampled index.  It takes the
 same draws as the scenario-less round.
 
-``mesh=`` (ROADMAP Queue 1 item 14) and ``telemetry=`` (item 12) raise
-``NotImplementedError``.
+``telemetry=`` (``repro_torch.obs.rings``) adds the device rings to the
+carry: each round records its arm, straggler cost, residual budget and
+the bandit's per-arm statistics at ``t % ring_size``, and ``finalize``
+emits them as ``out["telemetry"]``; off, the carry is the ungated one.
+``mesh=`` (ROADMAP Queue 1 item 14) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -446,15 +449,20 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     (default: the model's).  With ``cfg.scenario`` set, ``cond`` and
     ``body`` are the scenario round's (``cond_scn`` / ``body_scn``) and
     the history gains ``active_edges``; ``None`` builds the scenario-less
-    round, op for op."""
+    round, op for op.
+
+    ``telemetry=`` is the rings' gate (``repro_torch.obs.rings.as_spec``:
+    None/False off, True/int/``TelemetrySpec`` on).  Off builds exactly
+    the carry below; on adds ``carry["telem"]``, recorded by ``body`` /
+    ``body_scn`` (the scenario round adds active edges, dropouts and
+    rejoins) and emitted by ``finalize`` as ``out["telemetry"]``."""
+    from repro_torch.obs.rings import (as_spec, finalize_telemetry,
+                                       sync_ring_init, sync_ring_record)
     if mesh is not None:
         raise NotImplementedError(
             "make_sync_cell(mesh=...): sharded runs arrive with ROADMAP "
             "Queue 1 item 14")
-    if telemetry not in (None, False):
-        raise NotImplementedError(
-            "make_sync_cell(telemetry=...): the device rings arrive with "
-            "ROADMAP Queue 1 item 12")
+    spec = as_spec(telemetry)
     check_ingraph_support(cfg, caller="make_sync_program")
     dev = resolve_device(device if device is not None
                          else getattr(model, "device", None))
@@ -517,14 +525,18 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         if scn is not None:
             hist["active_edges"] = torch.zeros(max_rounds, dtype=torch.int32,
                                                device=dev)
-        return {"params": tree_map(lambda p: p.to(dev, copy=True),
-                                   init_params),
-                "bstate": device_bandit_init(k, dev),
-                "consumed": torch.zeros(n_edges, device=dev),
-                "t": torch.zeros((), dtype=torch.int32, device=dev),
-                "prev_metric": metric_of(init_params).reshape(()).float(),
-                "wall": torch.zeros((), device=dev),
-                "hist": hist}
+        carry = {"params": tree_map(lambda p: p.to(dev, copy=True),
+                                    init_params),
+                 "bstate": device_bandit_init(k, dev),
+                 "consumed": torch.zeros(n_edges, device=dev),
+                 "t": torch.zeros((), dtype=torch.int32, device=dev),
+                 "prev_metric": metric_of(init_params).reshape(()).float(),
+                 "wall": torch.zeros((), device=dev),
+                 "hist": hist}
+        if spec is not None:
+            carry["telem"] = sync_ring_init(spec, k, scenario=scn is not None,
+                                            device=dev)
+        return carry
 
     def cond(carry: Carry, knobs: Knobs) -> torch.Tensor:
         resid = knobs["budget"] - carry["consumed"]                  # [E]
@@ -555,8 +567,19 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         mult = torch.clamp(_fma32(knobs["cost_noise"], draws["normal"], 1.0),
                            min=0.1)
         slot = (round_costs * mult).amax()
-        return close_round(carry, new_params, arm, interval, slot,
-                           consumed + slot)
+        new = close_round(carry, new_params, arm, interval, slot,
+                          consumed + slot)
+        if spec is not None:
+            new["telem"] = record(carry, knobs, new, arm, slot)
+        return new
+
+    def record(carry: Carry, knobs: Knobs, new: Carry, arm: torch.Tensor,
+               slot: torch.Tensor, scn_row=None) -> Dict[str, Any]:
+        """Round ``t``'s ring row: values the round already computed."""
+        return sync_ring_record(
+            carry["telem"], spec, t=carry["t"], arm=arm, round_cost=slot,
+            budget_resid=(knobs["budget"] - new["consumed"]).amin(),
+            bstate=new["bstate"], scn=scn_row)
 
     def close_round(carry: Carry, new_params: Params, arm: torch.Tensor,
                     interval: torch.Tensor, slot: torch.Tensor,
@@ -644,9 +667,19 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         # charged
         round_costs = round_costs * mult * knobs["scn_mult"][slot_i][0]
         slot = torch.where(act, round_costs, 0.0).amax()
-        return close_round(carry, new_params, arm, interval, slot,
-                           consumed + torch.where(act, slot, 0.0),
-                           active_edges=act.int().sum().int())
+        n_active = act.int().sum().int()
+        new = close_round(carry, new_params, arm, interval, slot,
+                          consumed + torch.where(act, slot, 0.0),
+                          active_edges=n_active)
+        if spec is not None:
+            # dropout / rejoin counts against the previous round's mask
+            # (round 0 against the nominal full fleet)
+            prev = torch.where(t > 0, active_row(knobs, slot_of(t - 1)),
+                               True)
+            new["telem"] = record(carry, knobs, new, arm, slot, (
+                n_active, (prev & ~act).int().sum(),
+                (~prev & act).int().sum()))
+        return new
 
     def finalize(carry: Carry, knobs: Knobs) -> Tuple[Params, Dict]:
         out = dict(carry["hist"])
@@ -654,6 +687,9 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         out["budgets_left"] = knobs["budget"] - carry["consumed"]
         out["arm_pulls"] = carry["bstate"]["counts"]
         out["wall_time"] = carry["wall"]
+        if spec is not None:
+            out["telemetry"] = finalize_telemetry(carry["telem"],
+                                                  carry["t"], spec)
         return carry["params"], out
 
     if scn is not None:
@@ -710,7 +746,8 @@ class ChunkRunner:
     no cell runs, or at the horizon.  The refill writes each running
     cell's rows from its own provider at its own ``t``.
 
-    ``out`` holds numpy arrays (one transfer after the loop) and ``params``
+    ``out`` holds numpy arrays (one transfer after the loop; the rings'
+    ``out["telemetry"]`` a nested dict of them) and ``params``
     tensors, both copies of the final carry's.  ``last_run`` describes the
     latest run: chunks (= host syncs), graphs captured, replays and the batched
     kernel launches a graph holds.
@@ -789,13 +826,18 @@ class ChunkRunner:
             self.status[1:1 + n].copy_(self.carry["t"])
             self.status[1 + n:].copy_(go)
 
-    def _capture(self) -> None:
-        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    def _warm_up(self) -> None:
+        """One chunk run eagerly on a side stream, its result discarded:
+        the capture's warm-up (library handles, plans, cuBLAS)."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):      # warm-up: library, plans, cuBLAS
+        with torch.cuda.stream(side):
             self._chunk(self.carry)
         torch.cuda.current_stream(self.device).wait_stream(side)
+
+    def _capture(self) -> None:
+        from repro_torch.kernels.kmeans_assign import ops as ka_ops
+        self._warm_up()
         graph = torch.cuda.CUDAGraph()
         before = ka_ops.batched_captured
         with torch.cuda.graph(graph):
@@ -816,10 +858,11 @@ class ChunkRunner:
 
     def _load(self, init_params: Params, knobs: Dict[str, Any],
               draws) -> None:
-        """Knobs and the initial carry into the static buffers."""
+        """Knobs and the initial carry into the static buffers (with
+        ``draws=None`` the initial draws are the buffers' current ones)."""
         knob_t = {name: _knob_tensor(v, self.device)
                   for name, v in knobs.items()}
-        if self.init_bufs:
+        if self.init_bufs and draws is not None:
             draws.fill_init(self.init_bufs)
         init = self._init_carry(init_params, knob_t)
         if self.carry is None:
@@ -840,6 +883,37 @@ class ChunkRunner:
         self.graph.replay()
         self.replays += 1
         ka_ops.add_replayed(self.launches_per_graph)
+
+    def _prepare_chunk(self) -> None:
+        """On a card: capture the chunk's graph if there is none (its
+        warm-up runs the chunk eagerly), else run that warm-up alone."""
+        if self.graph is None:
+            self._capture()
+        else:
+            self._warm_up()
+
+    def _one_step(self) -> Carry:
+        """One masked step of the loaded carry, its result discarded by
+        the caller (the step ``profile_view`` counts)."""
+        step = self._per_cell(self._masked_step, (None, 0, 0, 0, 0, 0))
+        return step(0, self.carry, self.knobs, self.draw_bufs,
+                    self.carry["t"], self.active)
+
+    def profile_view(self, init_params: Params,
+                     knobs: Dict[str, Any]) -> Dict[str, Any]:
+        """What ``repro_torch.obs.prof.profile_jit`` measures, with
+        ``init_params`` and ``knobs`` loaded into the static buffers (no
+        draw is taken): the device, the input buffers, the finalized
+        outputs, one masked step and the chunk to capture (or warm up)."""
+        self._load(init_params, knobs, None)
+        params, out = self._per_cell(self.cell.finalize, (0, 0))(
+            self.carry, self.knobs)
+        return {"device": self.device,
+                "arguments": (init_params, self.knobs, self.draw_bufs,
+                              self.init_bufs),
+                "outputs": (params, out),
+                "step": self._one_step,
+                "chunk": self._prepare_chunk}
 
     def _fill(self, draws, status: List[int]) -> None:
         """The next chunk's draws from the status the last chunk left."""
@@ -868,10 +942,9 @@ class ChunkRunner:
                 break
         params, out = self._per_cell(self.cell.finalize, (0, 0))(
             self.carry, self.knobs)
-        # a copy: on the CPU ``.cpu()`` would alias the carry buffers the
-        # next run refills
-        out = {name: v.to("cpu", copy=True).numpy()
-               for name, v in out.items()}
+        # a copy (the nested rings too): on the CPU ``.cpu()`` would alias
+        # the carry buffers the next run refills
+        out = tree_map(lambda v: v.to("cpu", copy=True).numpy(), out)
         params = tree_map(torch.clone, params)
         self.last_run = {
             "chunks": chunks, "rounds_per_chunk": self.rounds_per_chunk,
@@ -910,7 +983,9 @@ def make_sync_program(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     ``out`` holds per-round ``metric``, ``utility``, ``interval``,
     ``consumed`` (cumulative total across edges), ``wall`` (cumulative
     straggler time), plus ``n_rounds``, the final per-edge
-    ``budgets_left``, ``arm_pulls`` and ``wall_time``.
+    ``budgets_left``, ``arm_pulls`` and ``wall_time``.  With
+    ``telemetry=`` (see ``make_sync_cell``) it gains the nested
+    ``out["telemetry"]`` rings.
     """
     cell = make_sync_cell(
         model, edge_data, eval_set, cfg, lr=lr, batch=batch,

@@ -109,7 +109,9 @@ def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
     The termination reason comes from ``n_active`` when present (the
     async blocks in flight at exit), else from the round count against
     ``horizon``; async ``[E, K]`` arm pulls are summed to the sync ``[K]``
-    histogram shape."""
+    histogram shape.  A run with rings on carries ``out["telemetry"]`` to
+    ``report.telemetry["rings"]`` as numpy."""
+    from repro_torch.interop import tree_map
     n = int(out["n_rounds"])
     if records is None:
         records = records_from_out(out, 0, n)
@@ -121,6 +123,9 @@ def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
                   else "max_events")
     else:
         reason = "max_rounds" if n >= horizon else "budget_exhausted"
+    telemetry = None
+    if "telemetry" in out:                 # the device rings, on the host
+        telemetry = {"rings": tree_map(np.asarray, dict(out["telemetry"]))}
     return ELReport(
         records=records,
         final_metric=float(final_metric),
@@ -133,4 +138,5 @@ def report_from_out(out: Dict[str, Any], *, mode: str, policy: str,
         arm_pulls=[int(c) for c in pulls],
         elapsed_s=elapsed_s,
         final_params=final_params,
+        telemetry=telemetry,
     )

@@ -24,7 +24,9 @@ sync per chunk.  Their draws come through the RNG seam
 (``repro_torch.el.rng``); ``run_async(rng_streams="jax")`` is the async
 program's host twin on the same draws.  ``sweep`` runs a whole ablation
 grid as one of those device loops with a leading cell dimension
-(``repro_torch.el.sweep``).
+(``repro_torch.el.sweep``).  ``telemetry=`` turns the device rings on
+(``repro_torch.obs.rings``), ``profile=`` / ``contract=`` the program
+profiles and their contracts (``repro_torch.obs.prof``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ Params = Any
 RoundCallback = Callable[[RoundRecord], None]
 
 _MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
-_OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
 
 #: ``run_sync_ingraph``'s default compiled history length (``max_rounds``)
 DEFAULT_SYNC_HORIZON = 512
@@ -355,6 +356,60 @@ class ELSession:
 
     # -- compiled fast path --------------------------------------------------
 
+    def _attach_cache_stats(self, report: ELReport,
+                            key: Optional[tuple] = None) -> ELReport:
+        """Fold the session's program-cache counters into
+        ``report.telemetry["cache"]`` (always present on device-loop
+        reports, rings on or off).  When ``key`` names a cached program
+        that has been profiled, its :class:`repro_torch.obs.prof.
+        ProgramProfile` snapshot joins as ``report.telemetry["profile"]``."""
+        tele = dict(report.telemetry or {})
+        tele["cache"] = self._programs.stats()
+        if key is not None:
+            prof = self._programs.profile(key)
+            if prof is not None:
+                tele["profile"] = prof.to_json()
+        report.telemetry = tele
+        return report
+
+    def _profile_program(self, key: tuple, program: Any,
+                         example_args: tuple, *, mode: str, profile: bool,
+                         contract, scenario: bool = False) -> Any:
+        """The dispatch-time half of the program profiles
+        (``repro_torch.obs.prof``): profile the cached program once per
+        cache entry and, when a contract is armed, enforce it.
+
+        ``profile`` / ``contract`` are the per-call opt-ins;
+        ``REPRO_EL_PROFILE=1`` / ``REPRO_EL_CONTRACTS=1`` arm them
+        process-wide.  ``contract=True`` checks the mode's
+        ``default_contract`` (no collectives, nothing aliased); a
+        ``CollectiveContract`` instance checks that.  A violation raises
+        ``repro_torch.obs.prof.ContractViolation`` before any chunk of
+        the run is replayed.
+        """
+        import os
+        from repro_torch.obs import prof as obs_prof
+        from repro_torch.obs import trace
+        if contract is None and os.environ.get("REPRO_EL_CONTRACTS"):
+            contract = True
+        want_profile = (profile or bool(contract)
+                        or bool(os.environ.get("REPRO_EL_PROFILE")))
+        if not want_profile:
+            return self._programs.profile(key)
+        prof = self._programs.profile(key)
+        if prof is None:
+            with trace.span("session.profile", mode=mode):
+                prof = obs_prof.profile_jit(program, *example_args)
+                self._programs.set_profile(key, prof)
+        if contract:
+            c = contract
+            if c is True:
+                c = obs_prof.default_contract(
+                    mode=mode, scenario=scenario,
+                    param_bytes=obs_prof.param_tree_bytes(example_args[0]))
+            c.enforce(prof)
+        return prof
+
     @staticmethod
     def _structural_cfg(cfg: OL4ELConfig) -> OL4ELConfig:
         """The config with the knob fields normalized away: ucb_c, budget,
@@ -455,39 +510,53 @@ class ELSession:
         cache's counters and ``"device_loop"``: rounds, chunks (= host
         syncs), graphs captured and replays of this run.
 
-        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14), ``telemetry``,
-        ``profile`` and ``contract`` (item 12) raise
+        ``telemetry=`` switches the device rings on
+        (``repro_torch.obs.rings.as_spec``: None/False off, True/int/
+        ``TelemetrySpec`` on); they land in ``report.telemetry["rings"]``
+        and the gate joins the program-cache key.  ``profile=True``
+        attaches the program's :class:`repro_torch.obs.prof.
+        ProgramProfile` (once per cached program) as
+        ``report.telemetry["profile"]``; ``contract=`` also enforces a
+        ``CollectiveContract`` before the run (``True``: the mode's
+        ``default_contract``).  ``REPRO_EL_PROFILE=1`` /
+        ``REPRO_EL_CONTRACTS=1`` arm these process-wide.
+
+        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14) raise
         ``NotImplementedError``.
         """
         from repro_torch.el.ingraph import make_sync_program, sync_knobs
         from repro_torch.el.rng import TorchDraws
+        from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
         if mesh is not None or donate:
             raise NotImplementedError(
                 "run_sync_ingraph(mesh=/donate=): sharded and donating "
                 f"runs arrive with {_MESH_ITEM}")
-        if telemetry not in (None, False) or profile or contract:
-            raise NotImplementedError(
-                "run_sync_ingraph(telemetry=/profile=/contract=): the "
-                f"device rings and program profiles arrive with {_OBS_ITEM}")
         ex = self._require_executor()
         cfg = self._ingraph_cfg("run_sync_ingraph", mode="sync")
+        spec = obs_rings.as_spec(telemetry)
         t0 = time.perf_counter()
         key = ("sync", ex, self._structural_cfg(cfg), max_rounds,
                metric_fn, self.metric_name,
-               None if self._n_samples is None else tuple(self._n_samples))
+               None if self._n_samples is None else tuple(self._n_samples),
+               spec)
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
-            with trace.span("session.compile", mode="sync", telemetry=False):
+            with trace.span("session.compile", mode="sync",
+                            telemetry=spec is not None):
                 program = make_sync_program(
                     ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
                     batch=ex.batch, n_samples=self._n_samples,
                     metric_fn=metric_fn, metric_name=self.metric_name,
-                    max_rounds=max_rounds,
+                    max_rounds=max_rounds, telemetry=spec,
                     device=getattr(ex, "device", None))
                 self._cache_program(key, program)
         self._fastpath = program
+        self._profile_program(key, program, (params, sync_knobs(cfg)),
+                              mode="sync", profile=profile,
+                              contract=contract,
+                              scenario=cfg.scenario is not None)
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
@@ -502,8 +571,8 @@ class ELSession:
             out, mode="sync", policy=cfg.policy, horizon=max_rounds,
             final_metric=final, final_params=params,
             elapsed_s=time.perf_counter() - t0, records=records)
-        report.telemetry = {"cache": self._programs.stats(),
-                            "device_loop": dict(program.last_run)}
+        self._attach_cache_stats(report, key)
+        report.telemetry["device_loop"] = dict(program.last_run)
         report.raw = out
         return report
 
@@ -539,26 +608,26 @@ class ELSession:
         ``report.telemetry`` holds the cache's counters and
         ``"device_loop"`` (chunks, graphs, replays, ``batch_k``).
 
-        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14), ``telemetry``,
-        ``profile`` and ``contract`` (item 12) raise
-        ``NotImplementedError``.
+        ``telemetry=``, ``profile=`` and ``contract=`` work as in
+        ``run_sync_ingraph``; the async rings record the event edge, the
+        merge's alpha and staleness and the inter-arrival time too, and
+        a wave wider than the ring raises.  ``mesh`` and ``donate``
+        (ROADMAP Queue 1 item 14) raise ``NotImplementedError``.
         """
         from repro_torch.el.events import (async_knobs, bucket_event_horizon,
                                            make_async_program,
                                            padded_event_horizon,
                                            resolve_async_batch_k)
         from repro_torch.el.rng import TorchDraws
+        from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
         if mesh is not None or donate:
             raise NotImplementedError(
                 "run_async_ingraph(mesh=/donate=): sharded and donating "
                 f"runs arrive with {_MESH_ITEM}")
-        if telemetry not in (None, False) or profile or contract:
-            raise NotImplementedError(
-                "run_async_ingraph(telemetry=/profile=/contract=): the "
-                f"device rings and program profiles arrive with {_OBS_ITEM}")
         ex = self._require_executor()
         cfg = self._ingraph_cfg("run_async_ingraph", mode="async")
+        spec = obs_rings.as_spec(telemetry)
         t0 = time.perf_counter()
         if max_events is None:
             horizon, event_cap = padded_event_horizon(cfg), None
@@ -567,22 +636,26 @@ class ELSession:
             horizon = bucket_event_horizon(event_cap)
         batch_k = resolve_async_batch_k(cfg)
         key = ("async", ex, self._structural_cfg(cfg), horizon, batch_k,
-               metric_fn, self.metric_name)
+               metric_fn, self.metric_name, spec)
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
             with trace.span("session.compile", mode="async",
-                            telemetry=False):
+                            telemetry=spec is not None):
                 program = make_async_program(
                     ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
                     batch=ex.batch, metric_fn=metric_fn,
                     metric_name=self.metric_name, max_events=horizon,
-                    batch_k=batch_k, device=getattr(ex, "device", None))
+                    telemetry=spec, batch_k=batch_k,
+                    device=getattr(ex, "device", None))
                 self._cache_program(key, program)
         self._fastpath = program
         knobs = async_knobs(cfg)
         if event_cap is not None:
             knobs["event_cap"] = np.int32(event_cap)
+        self._profile_program(key, program, (params, knobs), mode="async",
+                              profile=profile, contract=contract,
+                              scenario=cfg.scenario is not None)
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
@@ -598,9 +671,9 @@ class ELSession:
             horizon=horizon if event_cap is None else event_cap,
             final_metric=final, final_params=params,
             elapsed_s=time.perf_counter() - t0, records=records)
-        report.telemetry = {"cache": self._programs.stats(),
-                            "device_loop": dict(program.last_run,
-                                                batch_k=batch_k)}
+        self._attach_cache_stats(report, key)
+        report.telemetry["device_loop"] = dict(program.last_run,
+                                               batch_k=batch_k)
         report.raw = out
         return report
 
@@ -633,8 +706,10 @@ class ELSession:
         config, grid shape, ``max_rounds``), so a rerun with new knob
         values reuses the captured graph.  A workload without a device
         metric (K-means F1) has its cells' final params scored here.
-        ``mesh=`` (ROADMAP Queue 1 item 14) and ``telemetry=`` (item 12)
-        raise ``NotImplementedError``.  Returns a
+        ``telemetry=`` switches the per-cell rings on (see
+        ``run_sync_ingraph``); each cell's rings land stacked in the
+        report's ``out["telemetry"]`` leaves.  ``mesh=`` (ROADMAP Queue 1
+        item 14) raises ``NotImplementedError``.  Returns a
         :class:`repro_torch.el.sweep.SweepReport`.
         """
         from repro_torch.el.sweep.engine import (make_sweep_program,
@@ -642,10 +717,12 @@ class ELSession:
                                                  run_sweep_program)
         from repro_torch.el.sweep.report import SweepReport
         from repro_torch.interop import tree_map
+        from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
-        refuse_unported("ELSession.sweep", mesh, telemetry)
+        refuse_unported("ELSession.sweep", mesh)
         ex = self._require_executor()
         cfg = self._ingraph_cfg("ELSession.sweep")
+        tele_spec = obs_rings.as_spec(telemetry)
         if draws is not None and len(draws) != spec.n_cells:
             raise ValueError(f"ELSession.sweep: {len(draws)} draw providers "
                              f"for {spec.n_cells} cells")
@@ -664,7 +741,7 @@ class ELSession:
             key = ("sweep", ex, self._structural_cfg(sub_cfg), spec_shape,
                    metric_fn, self.metric_name,
                    None if self._n_samples is None
-                   else tuple(self._n_samples))
+                   else tuple(self._n_samples), tele_spec)
             program = self._programs.get(key)
             if program is None:
                 with trace.span("session.compile", mode="sweep",
@@ -673,7 +750,7 @@ class ELSession:
                         ex.model, ex.edge_data, ex.eval_set, sub_cfg, sub,
                         lr=ex.lr, batch=ex.batch,
                         n_samples=self._n_samples, metric_fn=metric_fn,
-                        metric_name=self.metric_name,
+                        metric_name=self.metric_name, telemetry=tele_spec,
                         device=getattr(ex, "device", None))
                     self._cache_program(key, program)
             self._sweep_programs.append(program)
@@ -691,8 +768,7 @@ class ELSession:
         # async_batch_k is slowest-varying, so concatenating the sub-sweeps
         # along the cell axis reproduces spec.cells()
         params = tree_map(lambda *xs: torch.cat(xs), *params_parts)
-        out = {k: np.concatenate([o[k] for o in out_parts])
-               for k in out_parts[0]}
+        out = tree_map(lambda *xs: np.concatenate(xs), *out_parts)
         report = SweepReport(
             spec=spec, axes=spec.axes(cfg), cells=spec.cells(cfg),
             out=out, policy=cfg.policy,

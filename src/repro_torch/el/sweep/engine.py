@@ -21,10 +21,12 @@ RNG-seam provider per cell (``cell_draws``: each cell's solo stream,
 ``CellBatch`` is the same vmapped step run a wave at a time over a
 fixed set of slots with an activity mask — the fleet's engine.
 
-Mesh placement (the reference's ``sweep_partition_specs`` /
-``sweep_input_shardings``, ``mesh=``) waits for ROADMAP Queue 1 item 14
-and the per-cell telemetry rings (``telemetry=``) for item 12; both
-raise ``NotImplementedError``.
+``telemetry=`` gives every cell (or slot) its own device rings
+(``repro_torch.obs.rings``): a sweep's come back stacked under
+``out["telemetry"]``, a slot's from ``finalize_slot``.  Mesh placement
+(the reference's ``sweep_partition_specs`` / ``sweep_input_shardings``,
+``mesh=``) waits for ROADMAP Queue 1 item 14 and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,19 +52,14 @@ Params = Any
 Carry = Dict[str, Any]
 
 _MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
-_OBS_ITEM = "ROADMAP Queue 1 item 12 (observability)"
 
 
-def refuse_unported(caller: str, mesh, telemetry) -> None:
-    """Raise for the options a sweep does not take yet: ``mesh=``
-    (ROADMAP Queue 1 item 14) and ``telemetry=`` (item 12)."""
+def refuse_unported(caller: str, mesh) -> None:
+    """Raise for the option a sweep does not take yet: ``mesh=``
+    (ROADMAP Queue 1 item 14)."""
     if mesh is not None:
         raise NotImplementedError(
             f"{caller}(mesh=...): sharded sweeps arrive with {_MESH_ITEM}")
-    if telemetry not in (None, False):
-        raise NotImplementedError(
-            f"{caller}(telemetry=...): the device rings arrive with "
-            f"{_OBS_ITEM}")
 
 
 def knob_names(mode: str, scenario: bool = False) -> Tuple[str, ...]:
@@ -124,9 +121,11 @@ def make_sweep_program(model, edge_data, eval_set, cfg: OL4ELConfig,
     The program is the mode's own runner (``SyncProgram`` /
     ``AsyncProgram``, picked by ``cfg.mode``) at ``spec.max_rounds`` with
     ``n_cells = spec.n_cells``: the very cell ``run_sync_ingraph`` /
-    ``run_async_ingraph`` drives, vmapped over the cells.
+    ``run_async_ingraph`` drives, vmapped over the cells.  ``telemetry=``
+    gates the per-cell rings (see ``make_sync_cell``); each cell's come
+    back stacked under ``out["telemetry"]``.
     """
-    refuse_unported("make_sweep_program", mesh, telemetry)
+    refuse_unported("make_sweep_program", mesh)
     cfgs = spec.cell_cfgs(cfg)
     for c in cfgs:
         check_ingraph_support(c, caller="ELSession.sweep")
@@ -141,7 +140,7 @@ def make_sweep_program(model, edge_data, eval_set, cfg: OL4ELConfig,
     cell, runner = _make_cell(
         model, edge_data, eval_set, cfgs[0], spec.max_rounds, lr=lr,
         batch=batch, n_samples=n_samples, metric_fn=metric_fn,
-        metric_name=metric_name, device=device)
+        metric_name=metric_name, telemetry=telemetry, device=device)
     return runner(cell, rounds_per_chunk, n_cells=spec.n_cells)
 
 
@@ -261,12 +260,10 @@ class CellBatch:
                               device=self.device)
         return tree_map(lambda s: s[idx], stacked)
 
-    def step(self, stacked: Carry, knobs_stacked: Dict[str, Any],
-             active) -> Tuple[Carry, torch.Tensor]:
-        """``rounds_per_wave`` masked steps of every slot where ``active``
-        (a ``[n_slots]`` bool) holds; returns the stacked carry (updated
-        in place) and ``running`` = ``active & cond`` after the wave, and
-        leaves every slot's ``t`` in ``last_t``."""
+    def _adopt(self, stacked: Carry, knobs_stacked: Dict[str, Any],
+               active) -> List[bool]:
+        """The stacked carry, knobs and activity mask into the program's
+        static buffers (the first carry seen becomes the buffer)."""
         p = self.program
         knobs = self._knobs(knobs_stacked)
         if p.carry is None:
@@ -277,6 +274,31 @@ class CellBatch:
             tree_map(lambda d, s: d.copy_(s), p.knobs, knobs)
         act = [bool(a) for a in torch.as_tensor(active).tolist()]
         p.active.copy_(torch.tensor(act, dtype=torch.bool))
+        return act
+
+    def profile_view(self, stacked: Carry, knobs_stacked: Dict[str, Any],
+                     active) -> Dict[str, Any]:
+        """What ``repro_torch.obs.prof.profile_jit`` measures of one wave,
+        with the stacked carry, knobs and mask adopted as ``step`` adopts
+        them (no draw is taken): the wave's inputs, its outputs (the
+        carry, updated in place, and the status), one masked step and the
+        chunk to capture (or warm up)."""
+        p = self.program
+        self._adopt(stacked, knobs_stacked, active)
+        return {"device": self.device,
+                "arguments": (p.carry, p.knobs, p.draw_bufs, p.active),
+                "outputs": (p.carry, p.status),
+                "step": p._one_step,
+                "chunk": p._prepare_chunk}
+
+    def step(self, stacked: Carry, knobs_stacked: Dict[str, Any],
+             active) -> Tuple[Carry, torch.Tensor]:
+        """``rounds_per_wave`` masked steps of every slot where ``active``
+        (a ``[n_slots]`` bool) holds; returns the stacked carry (updated
+        in place) and ``running`` = ``active & cond`` after the wave, and
+        leaves every slot's ``t`` in ``last_t``."""
+        p = self.program
+        act = self._adopt(stacked, knobs_stacked, active)
         self.draws.fill(p.draw_bufs, p.carry["t"].tolist(), rows=act)
         p._run_chunk()
         status = p.status.tolist()
@@ -287,10 +309,12 @@ class CellBatch:
     def finalize_slot(self, carry_one: Carry, knobs_row: Dict[str, Any]
                       ) -> Tuple[Params, Dict[str, np.ndarray]]:
         """The cell's ``finalize`` on one slot: ``(params, out)``, ``out``
-        as numpy (the programs' ``out``)."""
+        as numpy copies (the programs' ``out``; with rings on, the slot's
+        own ``out["telemetry"]``)."""
         params, out = self.program.cell.finalize(carry_one,
                                                  self._knobs(knobs_row))
-        return params, {n: v.cpu().numpy() for n, v in out.items()}
+        return params, tree_map(lambda v: v.to("cpu", copy=True).numpy(),
+                                out)
 
 
 def make_cell_batch(model, edge_data, eval_set, cfg: OL4ELConfig, *,
@@ -308,13 +332,17 @@ def make_cell_batch(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     exactly as in :func:`make_sweep_program` — so one ``CellBatch`` serves
     every tenant that shares the structure.  ``horizon`` is the history
     length (``max_rounds`` sync, ``max_events`` async); use
-    ``padded_event_horizon`` for async cohorts.
+    ``padded_event_horizon`` for async cohorts.  ``telemetry=`` gates the
+    cell's rings (see ``make_sync_cell``): the stacked carry gains a
+    per-slot ``"telem"`` subtree, ``init_slot`` gives an admitted tenant
+    empty rings and ``finalize_slot`` emits the slot's
+    ``out["telemetry"]``.
     """
-    refuse_unported("make_cell_batch", mesh, telemetry)
+    refuse_unported("make_cell_batch", mesh)
     check_ingraph_support(cfg, caller="make_cell_batch")
     cell, runner = _make_cell(
         model, edge_data, eval_set, cfg, horizon, lr=lr, batch=batch,
         n_samples=n_samples, metric_fn=metric_fn, metric_name=metric_name,
-        device=device)
+        telemetry=telemetry, device=device)
     return CellBatch(runner(cell, rounds_per_wave, n_cells=n_slots),
                      cfg.mode)

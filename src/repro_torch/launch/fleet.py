@@ -14,9 +14,11 @@ complete.  It runs on CUDA unless ``--device`` names another device.
 ``--assert-compiles`` exits non-zero unless the server built exactly
 that many cohort programs ("one compile per cohort"), and the run exits
 non-zero when the wave-batched dispatch invariant breaks (more place or
-gather dispatches than waves).  ``--mesh debug`` (sharded cohorts,
-ROADMAP Queue 1 item 14) and ``--telemetry`` (the device rings, item 12)
-raise ``NotImplementedError``.
+gather dispatches than waves).  ``--telemetry [N]`` records every
+tenant's device rings (``repro_torch.obs.rings``) into its report and
+``--metrics-out`` folds them into the registry.  ``--mesh debug``
+(sharded cohorts, ROADMAP Queue 1 item 14) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -21,9 +21,10 @@ The scenario flags (``--churn``, ``--churn-period``, ``--cost-model``,
 ``--churn-rate`` needs a base ``--churn``.  ``--metrics-out`` writes the
 grid's metrics (``repro_torch.obs.cli``: Prometheus text, JSON and the
 tracer's spans) and ``--trace-dir`` a ``torch.profiler`` trace.
-``--mesh`` (sharded sweeps, ROADMAP Queue 1 item 14) and
-``--telemetry`` (the device rings, item 12) raise
-``NotImplementedError``.
+``--telemetry [N]`` records every cell's device rings
+(``repro_torch.obs.rings``, ring length N, default 128) into the report's
+``out["telemetry"]``.  ``--mesh`` (sharded sweeps, ROADMAP Queue 1 item
+14) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -25,9 +25,11 @@ fleet dynamics into them.  Those flags need a classic arch under ``--mode
 ol4el``, as the reference requires.  ``--metrics-out`` writes the run's
 metrics (``repro_torch.obs.cli``: the EL report's registry, Prometheus
 text and JSON, and the tracer's spans) and ``--trace-dir`` a
-``torch.profiler`` trace.  ``--telemetry`` (the device rings, ROADMAP
-Queue 1 item 12) raises ``NotImplementedError``; the reference's mesh,
-donation (item 14) and checkpoint (item 13.7) flags are not taken.
+``torch.profiler`` trace.  ``--telemetry [N]`` records the compiled
+run's device rings (``repro_torch.obs.rings``) into the report (and,
+with ``--metrics-out``, the ring series into the registry); the
+reference's mesh, donation (item 14) and checkpoint (item 13.7) flags
+are not taken.
 """
 
 from __future__ import annotations

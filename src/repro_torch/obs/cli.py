@@ -96,13 +96,11 @@ def finish_observability(args, registry=None):
 
 
 def telemetry_arg(ap) -> None:
-    """Add ``--telemetry [N]``, parsed as the reference parses it.  The
-    in-graph rings it switches on are not ported yet (ROADMAP Queue 1
-    item 12): any value but off makes the run raise
-    ``NotImplementedError``."""
+    """Add ``--telemetry [N]``: switch the device rings on, optionally
+    with an explicit ring length (bare flag = the default ring)."""
     ap.add_argument("--telemetry", nargs="?", type=int, const=True,
                     default=None, metavar="RING",
-                    help="record the in-graph telemetry rings (the "
-                         "reference's repro.obs.rings; not ported yet, "
-                         "ROADMAP Queue 1 item 12: any value raises)")
+                    help="record the device telemetry rings "
+                         "(repro_torch.obs.rings); optional ring length, "
+                         "default 128")
 

@@ -4,12 +4,10 @@ rendered as Prometheus text format and JSON.
 A copy of the reference's ``repro.obs.metrics`` (pure Python), every
 message kept, so one registry renders the same text and JSON in both
 packages.  The tracer (``repro_torch.obs.trace``) supplies span
-durations and ``ELReport.telemetry`` the compile-cache counters; a
-:class:`MetricsRegistry` folds them into a flat, scrapable snapshot,
-which ``--metrics-out`` on the launchers writes.  The in-graph telemetry
-rings are not ported yet (ROADMAP Queue 1 item 12), so
-:func:`registry_from_report` emits what the reference emits for a run
-with telemetry off.
+durations and ``ELReport.telemetry`` the compile-cache counters, the
+program profile and the device rings; a :class:`MetricsRegistry` folds
+them into a flat, scrapable snapshot, which ``--metrics-out`` on the
+launchers writes.
 
 Deliberately tiny and dependency-free: enough of the Prometheus
 `text exposition format <https://prometheus.io/docs/instrumenting/exposition_formats/>`_
@@ -25,6 +23,8 @@ import json
 import math
 import re
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 
@@ -289,9 +289,9 @@ def registry_from_report(report, *, registry: Optional[MetricsRegistry]
     wall time, per-arm pulls), the compile-cache counters when
     ``report.telemetry['cache']`` is present, program-profile gauges
     (``el_profile_*``: flops, peak live bytes, the per-op collective
-    census) when ``report.telemetry['profile']`` is present.  The
+    census) when ``report.telemetry['profile']`` is present, and
     ring-derived series (budget remaining, per-round cost / merge-α
-    histograms) wait for the in-graph rings (ROADMAP Queue 1 item 12).
+    histograms) when the run recorded the device rings.
     """
     reg = registry if registry is not None else MetricsRegistry()
     labels = dict(labels or {})
@@ -354,7 +354,61 @@ def registry_from_report(report, *, registry: Optional[MetricsRegistry]
             reg.gauge("el_profile_collective_op_bytes",
                       "per-device result bytes of one collective op"
                       ).set(float(d.get("bytes", 0)), op_labels)
+    rings = tele.get("rings")
+    if rings:
+        from repro_torch.obs.rings import unroll_ring
+        rings = unroll_ring(rings)     # round order, written slots only
+        resid = np.asarray(rings["budget_resid"], np.float64)
+        if resid.size:
+            reg.gauge("el_budget_remaining",
+                      "min residual budget after the last recorded "
+                      "round").set(float(resid[-1]), base)
+        cost_key = "round_cost" if "round_cost" in rings else "cost"
+        costs = np.asarray(rings[cost_key], np.float64)
+        if costs.size:
+            reg.histogram(
+                "el_round_cost", "charged cost per round/event",
+                buckets=_cost_buckets(costs)).observe_many(costs, base)
+        if "alpha" in rings:
+            reg.histogram(
+                "el_merge_alpha", "async staleness-weighted merge rate",
+                buckets=(0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.75, 1.0)
+            ).observe_many(np.asarray(rings["alpha"], np.float64), base)
+        if "interarrival" in rings:
+            inter = np.asarray(rings["interarrival"], np.float64)
+            reg.histogram(
+                "el_event_interarrival",
+                "simulated time between async merge events",
+                buckets=_cost_buckets(inter)).observe_many(inter, base)
+        if "active_edges" in rings:
+            # scenario-engine columns (repro_torch.el.scenarios): fleet-churn
+            # census per recorded round/event
+            act = np.asarray(rings["active_edges"], np.float64)
+            if act.size:
+                reg.gauge("el_scenario_active_edges",
+                          "active edges in the last recorded "
+                          "round/event").set(float(act[-1]), base)
+            reg.counter("el_scenario_dropouts_total",
+                        "edge dropout transitions over the recorded "
+                        "window").inc(
+                int(np.sum(np.asarray(rings["dropouts"], np.int64))),
+                base)
+            reg.counter("el_scenario_rejoins_total",
+                        "edge rejoin transitions over the recorded "
+                        "window").inc(
+                int(np.sum(np.asarray(rings["rejoins"], np.int64))),
+                base)
     return reg
+
+
+def _cost_buckets(values: np.ndarray) -> Tuple[float, ...]:
+    """Data-scaled buckets: powers of two spanning the sample range (the
+    EL cost scale depends entirely on the config's comp/comm costs)."""
+    hi = float(np.max(values)) if values.size else 1.0
+    if hi <= 0:
+        return (1.0,)
+    top = 2.0 ** math.ceil(math.log2(hi))
+    return tuple(top / 2.0 ** i for i in reversed(range(8)))
 
 
 def registry_from_fleet(stats: Mapping[str, Any],

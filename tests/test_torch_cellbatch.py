@@ -275,7 +275,17 @@ def test_cell_batch_rejects_what_it_does_not_port(fixtures):
     ex = tf["executor"]
     for kw, item in (({"mesh": object()}, "item 14"),
                      ({"telemetry": True}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_cell_batch(ex.model, ex.edge_data, ex.eval_set,
-                            _base(tf, "sync"), n_slots=2, lr=ex.lr,
-                            batch=ex.batch, device="cpu", **kw)
+        if item == "item 14":
+            with pytest.raises(NotImplementedError, match=item):
+                make_cell_batch(ex.model, ex.edge_data, ex.eval_set,
+                                _base(tf, "sync"), n_slots=2, lr=ex.lr,
+                                batch=ex.batch, device="cpu", **kw)
+            continue
+        # the rings are ported: a slot's initial carry has empty rings
+        cb = make_cell_batch(ex.model, ex.edge_data, ex.eval_set,
+                             _base(tf, "sync"), n_slots=2, lr=ex.lr,
+                             batch=ex.batch, device="cpu", **kw)
+        carry = cb.init_slot(tf["init_params"], _knobs(_base(tf, "sync")),
+                             None)
+        assert (carry["telem"]["arm"] == -1).all()
+        assert carry["telem"]["arm"].shape == (128,)

@@ -682,9 +682,19 @@ def test_async_rejects_unsupported_configs(port_fixtures):
     with pytest.raises(NotImplementedError, match="item 14"):
         events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
                                lr=ex.lr, batch=ex.batch, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # the rings are ported; a wave wider than the ring raises with the
+    # reference's message
+    cell = events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
+                                  lr=ex.lr, batch=ex.batch, telemetry=True)
+    assert cell.items_per_step == 1
+    with pytest.raises(ValueError) as got:
         events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
-                               lr=ex.lr, batch=ex.batch, telemetry=True)
+                               lr=ex.lr, batch=ex.batch, telemetry=1,
+                               batch_k=2)
+    assert str(got.value) == (
+        "async_batch_k=2 exceeds the telemetry ring size 1: a wave's "
+        "per-event ring writes would collide within one scatter — raise "
+        "telemetry= or lower the batch width")
 
 
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14"),
@@ -693,8 +703,27 @@ def test_async_rejects_unsupported_configs(port_fixtures):
                                      ({"profile": True}, "item 12"),
                                      ({"contract": True}, "item 12")])
 def test_unported_options_name_their_items(port_fixtures, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _port_session(port_fixtures["svm-wafer"]).run_async_ingraph(**kw)
+    """``mesh=`` / ``donate=`` (item 14) raise; the rings and the program
+    profiles (item 12) run, leave the events as they were and attach the
+    reference's fields."""
+    from repro.obs import rings as jax_rings
+    fx = port_fixtures["svm-wafer"]
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            _port_session(fx).run_async_ingraph(**kw)
+        return
+    off = _port_session(fx).run_async_ingraph()
+    rep = _port_session(fx).run_async_ingraph(**kw)
+    assert _same(_key(rep), _key(off))
+    if "telemetry" in kw:
+        rings = rep.telemetry["rings"]
+        assert set(rings) == {*jax_rings._ASYNC_INTS, *jax_rings._ASYNC_FLOATS,
+                              "arm_counts", "arm_utility", "head",
+                              "ring_size"}
+        assert int(rings["head"]) == rep.n_aggregations
+    else:
+        prof = rep.telemetry["profile"]
+        assert prof["collectives"] == {} and prof["alias_bytes"] == 0
 
 
 def test_sync_cfg_is_coerced_to_async(port_fixtures):

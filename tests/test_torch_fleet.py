@@ -368,16 +368,26 @@ def test_close_refuses_new_work_and_keeps_reports(fixtures):
 
 def test_unported_options_and_devices_raise(fixtures, monkeypatch):
     _, tf = fixtures["svm-wafer", "jnp"]
+    from repro_torch.obs.rings import TelemetrySpec
     for kw, item in (({"mesh": object()}, "item 14"),
                      ({"telemetry": True}, "item 12"),
                      ({"telemetry": 16}, "item 12"),
                      ({"profile": True}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            FleetServer(device="cpu", **kw)
-    FleetServer(device="cpu", telemetry=False)        # off, as None
+        if item == "item 14":
+            with pytest.raises(NotImplementedError, match=item):
+                FleetServer(device="cpu", **kw)
+            continue
+        # the rings and profiles are ported: the gates arm, as the
+        # reference's server arms them
+        server = FleetServer(device="cpu", **kw)
+        if "telemetry" in kw:
+            assert server.telemetry == TelemetrySpec(
+                16 if kw["telemetry"] == 16 else 128)
+        else:
+            assert server.profile and server.telemetry is None
+    assert FleetServer(device="cpu", telemetry=False).telemetry is None
     monkeypatch.setenv("REPRO_EL_PROFILE", "1")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        FleetServer(device="cpu")
+    assert FleetServer(device="cpu").profile
     monkeypatch.delenv("REPRO_EL_PROFILE")
     with pytest.raises(ValueError, match="n_slots"):
         FleetServer(n_slots=0, device="cpu")
@@ -409,8 +419,6 @@ def test_launcher_demo_serves_eight_tenants(capsys, tmp_path):
     with pytest.raises(NotImplementedError, match="item 14"):
         launch_fleet.main(["--demo", "--device", "cpu", "--mesh",
                            "debug"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_fleet.main(["--demo", "--device", "cpu", "--telemetry"])
     manifest = tmp_path / "m.json"
     manifest.write_text('{"tenants": [{"arch": "svm-wafer", "budget": 600,'
                         ' "tenant_id": "only"}]}')
@@ -418,3 +426,9 @@ def test_launcher_demo_serves_eight_tenants(capsys, tmp_path):
                              "--samples", "256", "--verbose"])
     assert list(got) == ["only"]
     assert "[only] agg 1" in capsys.readouterr().out
+    # --telemetry records the tenant's rings; its decisions are unchanged
+    ringed = launch_fleet.main(["--manifest", str(manifest), "--device",
+                                "cpu", "--samples", "256", "--telemetry"])
+    rings = ringed["only"].telemetry["rings"]
+    assert int(rings["head"]) == ringed["only"].n_aggregations
+    assert ringed["only"].records == got["only"].records

@@ -500,9 +500,34 @@ def test_ingraph_rejects_unsupported_configs(fixtures):
                                      ({"profile": True}, "item 12"),
                                      ({"contract": True}, "item 12")])
 def test_unported_options_name_their_items(fixtures, kw, item):
+    """``mesh=`` / ``donate=`` (item 14) raise; the rings and the program
+    profiles (item 12) run and attach what the reference's attach: the
+    rings under ``report.telemetry["rings"]`` with the reference's field
+    names, a profile with no collectives and nothing aliased."""
+    from repro.obs import prof as jax_prof
+    from repro.obs import rings as jax_rings
     _, tf = fixtures["svm-wafer", "jnp"]
-    with pytest.raises(NotImplementedError, match=item):
-        _session(tf).run_sync_ingraph(**kw)
+    if item == "item 14":
+        with pytest.raises(NotImplementedError, match=item):
+            _session(tf).run_sync_ingraph(**kw)
+        return
+    off = _session(tf).run_sync_ingraph()
+    rep = _session(tf).run_sync_ingraph(**kw)
+    assert [r.interval for r in rep.records] == \
+        [r.interval for r in off.records]
+    if "telemetry" in kw:
+        rings = rep.telemetry["rings"]
+        assert set(rings) == {"arm", *jax_rings._SYNC_FLOATS, "arm_counts",
+                              "arm_utility", "head", "ring_size"}
+        assert int(rings["head"]) == rep.n_aggregations
+        assert int(rings["ring_size"]) == jax_rings.DEFAULT_RING
+        assert "profile" not in rep.telemetry
+    else:
+        prof = rep.telemetry["profile"]
+        assert set(prof) == {f.name for f in dataclasses.fields(
+            jax_prof.ProgramProfile)}
+        assert prof["collectives"] == {} and prof["alias_bytes"] == 0
+        assert "rings" not in rep.telemetry
 
 
 def jf_of(fixtures):

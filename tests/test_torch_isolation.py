@@ -33,6 +33,8 @@ def test_every_port_module_imports_without_jax_or_repro():
         "       ('jax', 'repro', 'benchmarks')]\n"
         "assert len(names) > 20, names\n"
         "assert 'repro_torch.bench.run' in names, names\n"
+        "assert {'repro_torch.obs.rings', 'repro_torch.obs.prof',\n"
+        "        'repro_torch.obs.regress'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

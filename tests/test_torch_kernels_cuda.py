@@ -865,3 +865,112 @@ def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
         fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
     assert fa_ops.launches == before
+
+
+# -- the device telemetry rings and program profiles on the card ------------------
+
+
+def _el_session(arch, mode, dev, init=None, batch_k=1, n_events=160):
+    """A kmeans-traffic / svm-wafer session on ``dev`` and numpy-replayed
+    draws for it; ``init`` (numpy) shares one initialization between
+    devices."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture(arch, samples=2000, n_edges=4, device=dev)
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=4,
+                              budget=3000.0 if mode == "sync" else 1500.0,
+                              utility=fx["utility"], heterogeneity=2.0,
+                              async_batch_k=batch_k)
+    init = params_to_numpy(fx["init_params"]) if init is None else init
+    rng = np.random.default_rng(0)
+    k, batch = cfg.max_interval, fx["executor"].batch
+    if mode == "sync":
+        draws = ReplayDraws(rng.gumbel(size=(128, k)),
+                            rng.uniform(size=(128, 4, k, batch)),
+                            rng.standard_normal((128, 4)))
+    else:
+        draws = ReplayDraws(rng.gumbel(size=(n_events, 4, k)),
+                            rng.uniform(size=(n_events, 4, k, batch)),
+                            rng.standard_normal((n_events, 4)),
+                            init_gumbel=rng.gumbel(size=(4, k)),
+                            init_normal=rng.standard_normal(4))
+    sess = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"],
+                           init_params=params_from_numpy(init, dev),
+                           n_samples=fx["n_samples"]
+                           if mode == "sync" else None))
+    return sess, draws, init
+
+
+@pytest.mark.parametrize("mode,batch_k", [("sync", 1), ("async", 1),
+                                          ("async", 4)])
+def test_rings_under_a_captured_graph_equal_the_oracle(mode, batch_k,
+                                                       cuda_device):
+    """Rings recorded inside CUDA-graph replays (ring 16, so they wrap):
+    equal to the numpy replay oracle of the card's own history bit for
+    bit, their decisions those of the CPU's ringed run, and the run the
+    unringed one."""
+    from repro_torch.el import events, ingraph
+    from repro_torch.obs import rings
+    reps = {}
+    init = None
+    for dev in ("cuda", "cpu"):
+        sess, draws, init = _el_session("kmeans-traffic", mode, dev, init,
+                                        batch_k)
+        run = (sess.run_sync_ingraph if mode == "sync"
+               else sess.run_async_ingraph)
+        reps[dev] = run(draws=draws, telemetry=16)
+        if dev == "cuda":
+            loop = reps[dev].telemetry["device_loop"]
+            assert loop["graphs_captured"] == 1 and loop["replays"] > 0
+            off = run(draws=draws)
+            assert [r.interval for r in off.records] == \
+                [r.interval for r in reps[dev].records]
+            assert "rings" not in off.telemetry
+            cfg = sess.cfg
+            out = reps[dev].raw
+            if mode == "sync":
+                want = rings.sync_reference_telemetry(
+                    out, ingraph.sync_knobs(cfg), cfg.max_interval)
+            else:
+                want = rings.async_reference_telemetry(
+                    out, events.async_knobs(cfg), 4, cfg.max_interval)
+            got = rings.unroll_ring(reps[dev].telemetry["rings"])
+            assert int(reps[dev].telemetry["rings"]["head"]) == \
+                reps[dev].n_aggregations > 16
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+    gpu = rings.unroll_ring(reps["cuda"].telemetry["rings"])
+    cpu = rings.unroll_ring(reps["cpu"].telemetry["rings"])
+    for k in ("arm", "arm_counts") + (("edge",) if mode == "async" else ()):
+        np.testing.assert_array_equal(gpu[k], cpu[k], err_msg=k)
+
+
+def test_profiles_on_the_card_have_their_memory_fields(cuda_device):
+    """``profile=True, contract=True`` on the card: the allocator's
+    chunk peak, the reference's peak sum, no collectives, nothing
+    aliased; the profile captured the graph the run then replays, and the
+    run is the unprofiled run.  An impossible contract raises before
+    any replay."""
+    from repro_torch.obs import prof
+    sess, draws, init = _el_session("kmeans-traffic", "sync", "cuda")
+    rep = sess.run_sync_ingraph(draws=draws, profile=True, contract=True)
+    p = rep.telemetry["profile"]
+    assert p["backend"] == "cuda" and p["errors"] == []
+    assert p["collectives"] == {} and p["alias_bytes"] == 0
+    assert p["temp_bytes"] > 0
+    assert p["peak_live_bytes"] == (p["argument_bytes"] + p["output_bytes"]
+                                    + p["temp_bytes"] - p["alias_bytes"])
+    assert rep.telemetry["device_loop"]["graphs_captured"] == 0
+    plain, draws2, _ = _el_session("kmeans-traffic", "sync", "cuda", init)
+    ref = plain.run_sync_ingraph(draws=draws2)
+    assert [r.interval for r in rep.records] == \
+        [r.interval for r in ref.records]
+    fresh, draws3, _ = _el_session("kmeans-traffic", "sync", "cuda", init)
+    with pytest.raises(prof.ContractViolation, match="impossible"):
+        fresh.run_sync_ingraph(draws=draws3, contract=prof.CollectiveContract(
+            "impossible", counts={"all-gather": (5, 99)}))
+    assert fresh._fastpath.replays == 0

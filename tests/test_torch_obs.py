@@ -424,10 +424,11 @@ def test_sweep_launcher_writes_metrics(tmp_path, capsys):
     assert {"session.compile", "session.dispatch"} <= \
         {e["name"] for e in spans}
     assert "metrics written" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_sweep.main(["--arch", "svm-wafer", "--seeds", "0",
-                           "--samples", "200", "--device", "cpu",
-                           "--telemetry"])
+    # --telemetry records the cells' rings (the launcher prints the grid)
+    launch_sweep.main(["--arch", "svm-wafer", "--seeds", "0",
+                       "--samples", "200", "--device", "cpu",
+                       "--max-rounds", "16", "--telemetry"])
+    assert "pareto" in capsys.readouterr().out.lower()
 
 
 @pytest.mark.parametrize("el_mode", ["sync", "async"])
@@ -454,11 +455,14 @@ def test_train_launcher_writes_metrics_and_a_trace(tmp_path, el_mode):
     chrome = json.load(open(tmp_path / "trace" / "trace.json"))
     assert "session.dispatch" in {e.get("name")
                                   for e in chrome["traceEvents"]}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        launch_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
-                           "--el-mode", el_mode, "--device", "cpu",
-                           "--samples", "200", "--edges", "2",
-                           "--telemetry", "8"])
+    # --telemetry 8 records the run's rings, the same run otherwise
+    ringed = launch_train.main(["--arch", "svm-wafer", "--mode", "ol4el",
+                                "--el-mode", el_mode, "--device", "cpu",
+                                "--samples", "300", "--edges", "2",
+                                "--budget", "900", "--telemetry", "8"])
+    assert int(ringed.telemetry["rings"]["ring_size"]) == 8
+    assert int(ringed.telemetry["rings"]["head"]) == ringed.n_aggregations
+    assert ringed.records == rep.records
     with pytest.raises(SystemExit):
         launch_train.main(["--arch", "qwen3-1.7b", "--smoke",
                            "--device", "cpu", "--telemetry"])

@@ -457,8 +457,10 @@ def test_sweep_rejects_what_it_does_not_port(fixtures):
     spec = SweepSpec(seeds=(0,), max_rounds=8)
     with pytest.raises(NotImplementedError, match="item 14"):
         session().sweep(spec, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12"):
-        session().sweep(spec, telemetry=True)
+    # the per-cell rings are ported: each cell's come back stacked
+    rep = session().sweep(spec, telemetry=True)
+    np.testing.assert_array_equal(rep.out["telemetry"]["head"],
+                                  rep.out["n_rounds"])
     with pytest.raises(ValueError, match="policy='greedy'"):
         session(policy="greedy").sweep(spec)
     with pytest.raises(ValueError, match="2 draw providers for 1 cells"):
