@@ -121,6 +121,20 @@ Phases, each printing JSON lines:
               by edge count, and the reference's claims as booleans
               (``fig3_heterogeneity.py:7-11``, ``fig4_tradeoff.py:3-6``,
               ``fig5_scalability.py:3-6``), reported without a gate;
+4i. bench  -- the port's benches and bench gate (``repro_torch.bench``):
+              (a) ``microbench.run`` on the card, every row finite, the
+              reference's rows in its order plus the ``kmeans_assign``
+              kernel row at (4096, 64, 3), every assignment of which must
+              equal the plain version's and every distance lie within
+              ``ref.allowed_error``; (b) ``bench_fleet`` at 16 tenants
+              (its fleet contract: ``fleet_16`` makes
+              ``sequential_ingraph_16``'s aggregations); (c)
+              ``bench_check --smoke`` (a small ``bench_el`` on the card
+              against the committed ``BENCH_torch_el.json``) and (d)
+              ``bench_check`` on the committed baselines: a contract or
+              ledger finding, or exit code 2, fails; the ratio and overhead
+              findings are printed with their rows, ungated; each part's
+              seconds;
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -142,14 +156,15 @@ Phases, each printing JSON lines:
               beside the time of one empty launch (the batched
               ``kmeans_assign`` beside 4 single launches, and at the sweep's
               96 (cell, edge) pairs and the fleet's 16 (slot, edge)
-              pairs); ``ssd_scan`` and
+              pairs; the single entry also at the microbenchmark's
+              (4096, 64, 3)); ``ssd_scan`` and
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 5, 6, 7) is driven with every kernel's
-launch count set to 0 just before it and read just after.  Then the card's
-name and power limit (nvidia-smi), and last ``{"ok": true, "device":
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 6, 7) is driven with every
+kernel's launch count set to 0 just before it and read just after.  Then the
+card's name and power limit (nvidia-smi), and last ``{"ok": true, "device":
 {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
 directory without the repo's sources.  The script imports nothing of JAX and
@@ -2497,6 +2512,121 @@ def figures_phase() -> dict:
             "claims": claims}
 
 
+# -- phase 4i: the port's benches and bench gate -------------------------------
+
+# the reference's micro rows (``benchmarks/microbench.py``), the kernel row
+# after the E-step's plain one on a card
+MICRO_ROWS = ["bandit_select_arm", "aggregate_1M_params_4edges",
+              "xla_blocked_attention_b1_s512_d256",
+              "kmeans_assign_ref_n4096_d64_k3", "kmeans_assign_n4096_d64_k3",
+              "el_sim_svm_async_per_aggregation", "el_sync_host_per_round",
+              "el_sync_ingraph_per_round", "el_telemetry_overhead_per_round",
+              "el_async_host_per_event", "el_async_ingraph_per_event",
+              "el_sweep_vmapped_4cells"]
+MICRO_KERNEL_ROW = "kmeans_assign_n4096_d64_k3"
+MICRO_SHAPE = (4096, 64, 3)                  # the E-step rows' inputs
+
+
+def bench_gate(mode: str, argv: list) -> dict:
+    """``bench_check`` in one mode: a contract or ledger regression (or a
+    stale ledger entry), or what would be exit code 2, fails the run; the
+    ratio and overhead findings are printed with their rows, ungated
+    (this script gates correctness, not speed)."""
+    from repro_torch.bench import bench_check
+    from repro_torch.obs.regress import worst_exit_code
+    args = bench_check.parser().parse_args(argv)
+    try:
+        found = bench_check.findings(args)
+    except bench_check.MissingArtifact as e:
+        fail(f"bench_check {mode}: exit code 2, missing {e}")
+    except RuntimeError as e:
+        fail(f"bench_check {mode}: exit code 2, {e}")
+    for gate, f in found:
+        if f.kind != "ok":
+            print(f"bench_check {mode} ({gate}): {f}", flush=True)
+    gated = [f for gate, f in found if gate in ("contract", "ledger")
+             and f.kind in ("regression", "fixed")]
+    check(not gated, f"bench_check {mode}: contract or ledger findings "
+          f"{[str(f) for f in gated]}")
+    return {"exit_code": worst_exit_code([f for _, f in found]),
+            "findings": [{"gate": g, "kind": f.kind, "row": f.row,
+                          "metric": f.metric, "detail": f.detail}
+                         for g, f in found]}
+
+
+def bench_phase() -> dict:
+    """Phase 4i: (a) ``microbench.run`` on the card, the count set to 0
+    just before and read just after; (b) ``bench_fleet`` at 16 tenants;
+    (c) ``bench_check --smoke``; (d) ``bench_check`` on the committed
+    baselines.  Each part's seconds."""
+    import math
+    import os
+    import tempfile
+    import torch
+    from repro_torch.bench import bench_fleet, microbench
+    card = card_line()
+    seconds = {}
+
+    # (a) the main path, counts read around it
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = microbench.run(quiet=True, device="cuda")
+    torch.cuda.synchronize()
+    seconds["micro"] = time.perf_counter() - t0
+    launches = counts()
+    check([r["name"] for r in rows] == MICRO_ROWS,
+          f"bench micro: rows {[r['name'] for r in rows]}")
+    for r in rows:
+        check(math.isfinite(r["us_per_call"]) and r["us_per_call"] >= 0,
+              f"bench micro: {r['name']} took {r['us_per_call']} us")
+    krow = rows[MICRO_ROWS.index(MICRO_KERNEL_ROW)]
+    check(krow["assign_mismatches"] == 0,
+          f"bench micro: {krow['assign_mismatches']} assignments differ "
+          "from the plain version's")
+    check(krow["beyond_allowed"] == 0,
+          f"bench micro: {krow['beyond_allowed']} distances outside "
+          f"ref.allowed_error (max |d2 - d2_plain| {krow['max_abs_err']})")
+    check(launches["kmeans_assign"] == krow["launches"] > 0 and
+          launches["kmeans_assign_batched"] == 0 and
+          launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
+          f"bench micro: kernel launches {launches}, the row's "
+          f"{krow['launches']}")
+    emit("bench_micro", device="cuda", rows=rows,
+         seconds=seconds["micro"], kernel_launches=launches, card=card)
+
+    # (b) the fleet bench at 16 tenants (the script raises when fleet_16
+    # and sequential_ingraph_16 disagree)
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "BENCH_torch_fleet.json")
+        t0 = time.perf_counter()
+        bench_fleet.main(["--tenants", "16", "--repeats", "1",
+                          "--no-history", "--device", "cuda", "--out", out])
+        torch.cuda.synchronize()
+        seconds["fleet"] = time.perf_counter() - t0
+        fleet = json.loads(Path(out).read_text())
+    frows = fleet["rows"]
+    check(frows["fleet_16"]["n_aggregations"] ==
+          frows["sequential_ingraph_16"]["n_aggregations"] > 0,
+          f"bench fleet: {frows}")
+    emit("bench_fleet", device="cuda", rows=frows,
+         seconds=seconds["fleet"], card=card)
+
+    # (c) the smoke gate, (d) the gate on the committed baselines
+    gates = {}
+    for mode, argv in (("smoke", ["--smoke", "--no-history"]),
+                       ("baselines", [])):
+        t0 = time.perf_counter()
+        gates[mode] = bench_gate(mode, argv)
+        seconds[mode] = time.perf_counter() - t0
+        emit("bench_check", mode=mode, seconds=seconds[mode],
+             **gates[mode], card=card)
+    emit("bench_phase", seconds=seconds,
+         exit_codes={m: g["exit_code"] for m, g in gates.items()},
+         card=card)
+    return {"kmeans_assign": launches["kmeans_assign"], "seconds": seconds}
+
+
 # -- phase 5: mamba2-370m serving ---------------------------------------------
 
 # (arrival step, prompt length): three prompts open the first wave and
@@ -3242,10 +3372,11 @@ def main() -> None:
     telemetry = telemetry_phase(fixtures)
     del fixtures
     figures = figures_phase()
+    bench = bench_phase()
     launches["kmeans_assign"] += events["kmeans_assign"] + \
         sweep["kmeans_assign"] + scenarios["kmeans_assign"] + \
         fleet["kmeans_assign"] + telemetry["kmeans_assign"] + \
-        figures["kmeans_assign"]
+        figures["kmeans_assign"] + bench["kmeans_assign"]
     launches["kmeans_assign_batched"] = (compiled["kmeans_assign_batched"]
                                          + events["kmeans_assign_batched"]
                                          + scenarios["kmeans_assign_batched"]
@@ -3255,8 +3386,9 @@ def main() -> None:
     train_vs_plain()
     ol4el_phase()
 
-    km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES]
+    km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
+    emit("kmeans_timing", case="microbench E-step", **km_shapes[-1])
     kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
     emit("kmeans_batched_timing", **kmb)
     kmc = kmeans_cells_timing(SWEEP_CELLS, *KM_BATCHED_MAIN)

@@ -19,6 +19,7 @@ builds and run records, plus three things a run on the port needs.
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -186,6 +187,28 @@ def mean_over_seeds(fn, seeds=(0, 1, 2)) -> Dict[str, float]:
         "metric_std": float(np.std([r.final_metric for r in runs])),
         "aggs": float(np.mean([r.n_aggregations for r in runs])),
     }
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (a no-op on the CPU): every timed
+    call of the benches ends in it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def card_meta(device: torch.device) -> Dict[str, str]:
+    """``device_name`` / ``power_limit`` as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them (nothing on the
+    CPU)."""
+    if device.type != "cuda":
+        return {}
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    index = device.index if device.index is not None else 0
+    name, limit = out.stdout.strip().splitlines()[index].rsplit(",", 1)
+    return {"device_name": name.strip(), "power_limit": limit.strip()}
 
 
 class Timer:

@@ -1,19 +1,19 @@
 """The port's figure harness: ``python -m repro_torch.bench.run``.
 
-One benchmark per paper artifact (Fig. 3/4/5) plus the policy ablation,
-on the card unless ``--device`` says otherwise.  Writes the reference's
-JSON keys to ``--out`` and prints the harness CSV contract
-``name,us_per_call,derived`` at the end, with the reference's row names.
+One benchmark per paper artifact (Fig. 3/4/5) plus the policy ablation
+and the microbenchmarks (``repro_torch.bench.microbench``), on the card
+unless ``--device`` says otherwise.  Writes the reference's JSON keys to
+``--out`` and prints the harness CSV contract ``name,us_per_call,derived``
+at the end, the micro rows first, with the reference's row names.
 
 Modes (the reference's sizes):
   --fast   tiny sizes (CI smoke)
   default  reduced-but-representative sizes
   --full   paper-scale (20k samples, H sweep to 15, 100 edges)
 
-The reference's other half — the roofline analysis over its dry-run
-artifacts (TPU constants) and the host microbenchmarks — is not ported:
-``--only roofline`` and ``--only micro`` raise, and a whole run writes
-``"roofline": []`` and ``"micro": []``.
+The reference's roofline analysis over its dry-run artifacts (TPU
+constants) is not ported: ``--only roofline`` raises, and a whole run
+writes ``"roofline": []``.
 """
 
 from __future__ import annotations
@@ -23,8 +23,10 @@ import json
 import os
 import time
 
-_UNPORTED = ("roofline", "micro")
-_UNPORTED_ITEM = "ROADMAP Queue 1 item 15 (launchers, benchmarks, scripts)"
+_UNPORTED = ("roofline",)
+_UNPORTED_ITEM = ("ROADMAP Queue 1 item 15 (the H100 memory and FLOP "
+                  "planner: launch/specs.py, launch/dryrun.py, "
+                  "benchmarks/roofline.py)")
 
 
 def sizes(fast: bool = False, full: bool = False):
@@ -63,7 +65,7 @@ def main(argv=None) -> None:
     if args.only in _UNPORTED:
         raise NotImplementedError(
             f"repro_torch.bench.run --only {args.only}: the roofline "
-            f"analysis and the microbenchmarks arrive with {_UNPORTED_ITEM}")
+            f"analysis arrives with {_UNPORTED_ITEM}")
     kw3, kw4, kw5 = sizes(args.fast, args.full)
     dev = dict(device=args.device)
 
@@ -86,15 +88,22 @@ def main(argv=None) -> None:
                      for r in policy_ablation.run(
                          seeds=pol_seeds, with_testbed=not args.fast,
                          **dev)]
+    micro_rows = []
+    if args.only in (None, "micro"):
+        from repro_torch.bench import microbench
+        micro_rows = microbench.run(**dev)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"figures": all_rows, "roofline": [], "micro": [],
+        json.dump({"figures": all_rows, "roofline": [],
+                   "micro": micro_rows,
                    "wall_s": time.time() - t_start}, f, indent=1,
                   default=str)
 
     # harness CSV contract: name,us_per_call,derived
     print("\nname,us_per_call,derived")
+    for r in micro_rows:
+        print(f"{r['name']},{r['us_per_call']:.1f},{r['derived']}")
     for r in all_rows:
         name = ":".join(str(r.get(k)) for k in
                         ("figure", "workload", "algo", "H", "n_edges",

@@ -26,3 +26,15 @@ def assign_ref(x: torch.Tensor, centers: torch.Tensor
           - 2.0 * x32 @ c32.transpose(-1, -2)
           + (c32 ** 2).sum(-1).unsqueeze(-2))
     return d2.argmin(-1).to(torch.int32), d2.amin(-1)
+
+
+def allowed_error(x: torch.Tensor, centers: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d2_plain, allowed): the plain version's distances and how far the
+    kernel's may lie from them, ``atol + rtol * |d2_plain|`` elementwise.
+    f32 inputs: rtol 1e-4, atol 1e-3 (the expansion cancels terms of size
+    ||x||^2 ~ D, and the two sides sum in different orders); bf16 inputs
+    1e-2 each, the reference kernel test's tolerance."""
+    tol = (1e-4, 1e-3) if x.dtype == torch.float32 else (1e-2, 1e-2)
+    d2 = assign_ref(x, centers)[1]
+    return d2, tol[1] + tol[0] * d2.abs()

@@ -354,6 +354,8 @@ def test_presets_are_the_references(monkeypatch):
         monkeypatch.setattr(f"benchmarks.{name}.run", record(want, name))
     monkeypatch.setattr("benchmarks.roofline.run", lambda: [])
     monkeypatch.setattr("benchmarks.microbench.run", lambda: [])
+    monkeypatch.setattr("repro_torch.bench.microbench.run",
+                        lambda **kw: [])
     for flags in ([], ["--fast"], ["--full"]):
         got.clear()
         want.clear()
@@ -365,9 +367,30 @@ def test_presets_are_the_references(monkeypatch):
             assert got[name] == dict(kw, device="cpu"), (flags, name)
 
 
-@pytest.mark.parametrize("only", ["roofline", "micro"])
+@pytest.mark.parametrize("only", ["roofline"])
 def test_run_refuses_the_unported_half_by_name(only, tmp_path):
     out = tmp_path / "x.json"
     with pytest.raises(NotImplementedError, match="item 15"):
         port_run.main(["--only", only, "--device", "cpu", "--out", str(out)])
     assert not out.exists()
+
+
+def test_run_only_micro_writes_and_prints_the_micro_rows(tmp_path, capsys):
+    """``--only micro``: the reference's micro row names in the JSON's
+    ``"micro"`` and first in the CSV (``benchmarks/run.py:72-89``)."""
+    from test_torch_microbench import reference_row_names
+    out = tmp_path / "x.json"
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        port_run.main(["--only", "micro", "--device", "cpu",
+                       "--out", str(out)])
+    finally:
+        torch.set_num_threads(n)
+    doc = json.loads(out.read_text())
+    names = reference_row_names()
+    assert [r["name"] for r in doc["micro"]] == names
+    assert doc["figures"] == [] and doc["roofline"] == []
+    csv = capsys.readouterr().out.split("name,us_per_call,derived\n")[1]
+    assert [line.split(",")[0] for line in csv.splitlines()
+            if not line.startswith("#")] == names

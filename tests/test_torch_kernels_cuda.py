@@ -974,3 +974,44 @@ def test_profiles_on_the_card_have_their_memory_fields(cuda_device):
         fresh.run_sync_ingraph(draws=draws3, contract=prof.CollectiveContract(
             "impossible", counts={"all-gather": (5, 99)}))
     assert fresh._fastpath.replays == 0
+
+
+def test_microbench_kernel_row_equals_the_plain_version(cuda_device):
+    """The microbenchmark's E-step kernel row at (4096, 64, 3): every
+    assignment the plain version's, every distance within
+    ``ref.allowed_error``, its launches counted."""
+    from repro_torch.bench import microbench
+    x, c = microbench.kmeans_inputs(cuda_device)
+    before = ops.launches
+    row = microbench.kmeans_kernel_row(x, c)
+    assert row["name"] == "kmeans_assign_n4096_d64_k3"
+    assert row["assign_mismatches"] == 0 and row["beyond_allowed"] == 0
+    assert row["launches"] == ops.launches - before == 1 + 3 + 20
+    assert 0 < row["us_per_call"] < 1e4
+    assert f"launches={row['launches']}" in row["derived"]
+
+
+def test_bench_el_smoke_on_the_card(cuda_device):
+    """``bench_el`` at the smoke gate's sizes on the card: the port's
+    compiled tiers, each profiled with the allocator's chunk peak, no
+    collectives, nothing aliased, the card named in ``meta``."""
+    from repro_torch.bench import bench_check, bench_el
+    args = bench_el.parser().parse_args(
+        ["--device", "cuda", "--edges", "4", "--samples", "512",
+         "--batch", "64", "--budget", "300", "--max-rounds", "16",
+         "--max-events", "64", "--repeats", "2", "--skip-host",
+         "--no-history"])
+    report = bench_el.bench(args)
+    rows = report["rows"]
+    assert sorted(rows) == sorted(
+        ["el_sync_ingraph", "el_sync_ingraph_telemetry",
+         "el_sync_ingraph_churn", "el_async_ingraph",
+         "el_async_ingraph_telemetry", "el_async_ingraph_batched"])
+    for name, row in rows.items():
+        assert row["n_aggregations"] > 0, name
+        assert "profile_errors" not in row, (name, row["profile_errors"])
+        assert row["temp_bytes"] is not None and row["peak_live_bytes"] > 0
+    assert [f.kind for f in bench_check.contract_findings(rows)] == ["ok"]
+    assert report["meta"]["backend"] == "cuda"
+    assert report["meta"]["device_name"]
+    assert report["meta"]["power_limit"].endswith("W")
