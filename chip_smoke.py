@@ -141,6 +141,16 @@ Phases, each printing JSON lines:
               arriving over time (one admitted mid-flight), every Mamba
               layer's prefill through the ``ssd_scan`` kernel; then the
               same prompts' prefill with the plain SSD, compared;
+5b. serve_attention -- qwen3-1.7b at full width (28 layers, d_model 2048,
+              16 query and 8 KV heads of 128, vocab 151,936, bf16, random
+              weights from a seeded generator) through the same engine
+              and traffic: every attention layer's prefill fills the KV
+              cache (4 slots x 1024 positions) through the
+              ``flash_attention`` kernel (28 launches a prefill, the
+              mid-flight ones at ragged lengths), the decode attends over
+              the cache in plain torch; prefill and decode ms a call, peak
+              memory; then the same prompts' prefill with the naive fill,
+              logits and every layer's K and V compared at f32 and bf16;
 6. train   -- qwen3-1.7b at full width (28 layers, d_model 2048, 16 query
               and 8 KV heads of 128, vocab 151,936, bf16, remat; random
               weights from a seeded generator) through the port's
@@ -149,6 +159,13 @@ Phases, each printing JSON lines:
               recompute) through the ``flash_attention`` kernel; then one
               step's loss and gradient norm with the kernel and with the
               plain naive attention, at f32 and bf16, compared;
+6b. train_minicpm -- minicpm-2b at full width (40 layers, d_model 2304, 36
+              heads of 64 (MHA), vocab 122,753, tied, bf16, remat) through
+              the same trainer under its Warmup-Stable-Decay schedule: 3
+              AdamW steps at B = 4, S = 512 (after phase 6's state is
+              released), every attention forward and remat recompute
+              through the kernel at D = 64; finite losses and the
+              reference's wsd rates gated; then kernel vs naive as in 6;
 7. ol4el   -- the paper's loop over the same LM at full width
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
@@ -160,12 +177,14 @@ Phases, each printing JSON lines:
               (4096, 64, 3)); ``ssd_scan`` and
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
-              the serving and the training shape.
+              the serving and the training shape; and ``flash_attention``
+              at phase 5b's prefill (4, 512, 16, 8, 128) and phase 6b's
+              (4, 512, 36, 36, 64), bf16, each a row of its own.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 6, 7) is driven with every
-kernel's launch count set to 0 just before it and read just after.  Then the
-card's name and power limit (nvidia-smi), and last ``{"ok": true, "device":
-{...}}``.
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 7) is driven with
+every kernel's launch count set to 0 just before it and read just after.
+Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
+"device": {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
 directory without the repo's sources.  The script imports nothing of JAX and
 nothing of the JAX package.
@@ -543,13 +562,22 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 512, 4, 4, 64, 0, "bfloat16"),
                (1, 512, 8, 4, 128, 100, "bfloat16"),
                (2, 300, 4, 4, 128, 64, "bfloat16"),
-               (1, 512, 4, 2, 256, 64, "bfloat16")]
+               (1, 512, 4, 2, 256, 64, "bfloat16"),
+               (4, 512, 16, 8, 128, 0, "bfloat16"),
+               (4, 515, 16, 8, 128, 0, "bfloat16"),
+               (4, 512, 36, 36, 64, 0, "bfloat16")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile
 FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
                     (2, 17, 8, 1, 64, 0, "bfloat16"),
                     (1, 300, 4, 1, 64, 100, "bfloat16")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
+# phase 5b's prefill (qwen3-1.7b serving, 4 slots: a full wave, and a
+# mid-flight admission at a ragged 515 above) and phase 6b's attention
+# (minicpm-2b: 36 heads of 64, MHA, B = 4); each with its own row in the
+# kernels line
+FLASH_SERVE = (4, 512, 16, 8, 128, 0, "bfloat16")
+FLASH_MINICPM = (4, 512, 36, 36, 64, 0, "bfloat16")
 
 
 def flash_inputs(b, s, h, kv, d, dtype_name, seed):
@@ -560,13 +588,13 @@ def flash_inputs(b, s, h, kv, d, dtype_name, seed):
             for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d))]
 
 
-def flash_vs_plain() -> float:
+def flash_vs_plain() -> dict:
     """Every case within ``ref.allowed_error`` (the rule the card tests
     hold the kernel to: the reference test's bare tolerance); returns the
-    largest |o - o_plain| at the main path's shape."""
+    largest |o - o_plain| of each causal case."""
     import torch
     from repro_torch.kernels.flash_attention import ops, ref
-    main_err = 0.0
+    errs = {}
     cases = [(c, True) for c in FLASH_CASES] + \
         [(c, False) for c in FLASH_NON_CAUSAL]
     for i, (case, causal) in enumerate(cases):
@@ -589,9 +617,9 @@ def flash_vs_plain() -> float:
              tol=ref.tolerance(q.dtype), **res)
         check(res["finite"] and res["beyond_allowed"] == 0,
               f"flash_attention off at {case}, causal={causal}: {res}")
-        if causal and case == FLASH_MAIN:
-            main_err = res["max_abs_err"]
-    return main_err
+        if causal:
+            errs[case] = res["max_abs_err"]
+    return errs
 
 
 # -- phase 4: the slice ----------------------------------------------------------
@@ -1226,6 +1254,42 @@ SCN_DECISIONS = ("n_rounds", "interval", "active_edges", "arm_pulls",
                  "cost", "n_active")
 
 
+def kernel_spans(prof) -> list:
+    """The (start, end) of every kernel a ``torch.profiler`` run saw."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == cuda)
+
+
+def profile_busy(run) -> dict:
+    """``run()`` once under ``torch.profiler``, the card synchronised
+    around it: host ms, device ms (the union of its kernels' intervals),
+    kernels, and the idle share 1 - device / host ms (the profiler's own
+    overhead counts as idle)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, busy, cur = kernel_spans(prof), 0.0, None
+    for a, b in spans:                       # the union of the intervals
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy = (busy + (cur[1] - cur[0] if cur else 0.0)) / 1e3
+    check(spans, "the profiler saw no device time")
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall_ms, "kernels": len(spans)}
+
+
 def card_time(run, program, replays=None) -> dict:
     """Where a device loop's time goes, after its counted runs: one run of
     ``run`` under ``torch.profiler`` (host clock around it, the union of
@@ -1237,31 +1301,13 @@ def card_time(run, program, replays=None) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def kernels(prof):
-        cuda = torch.autograd.DeviceType.CUDA
-        return sorted((e.time_range.start, e.time_range.end)
-                      for e in prof.events() if e.device_type == cuda)
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    spans, busy, cur = kernels(prof), 0.0, None
-    for a, b in spans:                       # the union of the intervals
-        if cur is None or a > cur[1]:
-            busy += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    busy = (busy + (cur[1] - cur[0] if cur else 0.0)) / 1e3
-    check(spans, "the profiler saw no device time")
+    prof = profile_busy(run)
+    prof_ms, busy = prof["wall_ms"], prof["device_ms"]
     if replays is None:
         replays = program.last_run["replays"]
     with profile(activities=[ProfilerActivity.CUDA]) as one:
@@ -1276,9 +1322,9 @@ def card_time(run, program, replays=None) -> dict:
     end.synchronize()
     replay_ms = start.elapsed_time(end) / 20
     return {"wall_ms": wall_ms, "profiled_ms": prof_ms,
-            "device_ms": busy, "idle_share": 1.0 - busy / prof_ms,
-            "kernels": len(spans), "replays": replays,
-            "kernels_per_chunk_round": len(kernels(one))
+            "device_ms": busy, "idle_share": prof["idle_share"],
+            "kernels": prof["kernels"], "replays": replays,
+            "kernels_per_chunk_round": len(kernel_spans(one))
             / program.rounds_per_chunk,
             "replay_ms": replay_ms,
             "idle_share_events": 1.0 - replays * replay_ms / wall_ms}
@@ -2681,33 +2727,12 @@ class Timed:
                            cache)
 
 
-def serve_phase() -> dict:
+def drive_serving(model, params, prompts) -> dict:
+    """``SERVE_TRAFFIC`` through the port's ``ServingEngine`` over
+    ``model`` (timed): the main path, every kernel count set to 0 just
+    before it and read just after."""
     import torch
-    from repro_torch.config import get_config
-    from repro_torch.interop import tree_map
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.kmeans_assign import ops as km_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.launch.serve import build
     from repro_torch.serving import Request, ServingEngine
-
-    cfg = get_config("mamba2-370m").model
-    t0 = time.perf_counter()
-    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    check(model.use_ssd_kernel, "mamba2 on CUDA must use the ssd_scan kernel")
-    sizes = []
-    tree_map(lambda t: sizes.append(t.numel()), params)
-    n_params = sum(sizes)
-    # num_params() is the reference's analytic count; the tree also holds
-    # each layer's dt_bias [H] and the conv bias's 2N entries beyond it
-    mc = cfg.mamba
-    check(n_params == cfg.num_params() + cfg.n_layers * (
-        mc.n_heads(cfg.d_model) + 2 * mc.d_state),
-        f"mamba2-370m holds {n_params} parameters, not its full width")
-    tokens = tokens.cpu().numpy()
-    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
 
     timed = Timed(model)
     eng = ServingEngine(timed, params, n_slots=SERVE_SLOTS,
@@ -2715,10 +2740,7 @@ def serve_phase() -> dict:
     pending = list(enumerate(SERVE_TRAFFIC))
     done, mid_flight, step = [], [], 0
     submitted, token_times = {}, {uid: [] for uid in range(len(prompts))}
-    # the main path: every kernel count is read around exactly this run
-    ssd_ops.launches = 0
-    km_ops.launches = 0
-    fa_ops.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2743,26 +2765,31 @@ def serve_phase() -> dict:
                                if r is not None and r.uid not in before]
             step += 1
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, km_launches = ssd_ops.launches, km_ops.launches
-    fa_launches = fa_ops.launches
-    peak = torch.cuda.max_memory_allocated()
+    return {"eng": eng, "timed": timed, "done": done,
+            "mid_flight": mid_flight, "steps": step,
+            "submitted": submitted, "token_times": token_times,
+            "wall": time.perf_counter() - t0, "launches": counts(),
+            "peak": torch.cuda.max_memory_allocated()}
 
-    n_prefill = len(timed.times["prefill"])
-    outputs = {r.uid: r.output for r in done}
-    new_tokens = sum(len(o) for o in outputs.values())
-    ssm = eng.cache["groups"]["sub0"]["ssm"]
+
+def serve_result(cfg, n_params: int, init_s: float, run: dict) -> dict:
+    """The phase line's fields of one serving run (``drive_serving``)."""
+    timed, done = run["timed"], run["done"]
+    new_tokens = sum(len(r.output) for r in done)
     decode_ms = [t * 1e3 for t in timed.times["decode"]]
+    submitted, token_times = run["submitted"], run["token_times"]
     ttft_ms = sorted((token_times[u][0] - submitted[u]) * 1e3
                      for u in submitted)
     gaps_ms = sorted((b - a) * 1e3 for ts in token_times.values()
                      for a, b in zip(ts, ts[1:]))
-    result = {
+    launches = run["launches"]
+    return {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "dtype": cfg.dtype, "params": n_params, "init_s": init_s,
         "slots": SERVE_SLOTS, "requests": len(SERVE_TRAFFIC),
-        "completed": len(done), "steps": step,
-        "prefill_calls": n_prefill, "prefill_lens": timed.prefill_lens,
+        "completed": len(done), "steps": run["steps"],
+        "prefill_calls": len(timed.times["prefill"]),
+        "prefill_lens": timed.prefill_lens,
         "prefill_ms": [t * 1e3 for t in timed.times["prefill"]],
         "decode_steps": len(decode_ms),
         "decode_ms_mean": sum(decode_ms) / max(len(decode_ms), 1),
@@ -2771,23 +2798,64 @@ def serve_phase() -> dict:
         "ttft_ms_max": ttft_ms[-1],
         "token_gap_ms_median": gaps_ms[len(gaps_ms) // 2],
         "token_gap_ms_max": gaps_ms[-1],
-        "new_tokens": new_tokens, "wall_s": wall,
-        "tokens_per_s": new_tokens / wall,
-        "max_memory_allocated": peak, "mid_flight_admitted": mid_flight,
-        "ssd_scan_launches": launches, "kmeans_assign_launches": km_launches,
-        "flash_attention_launches": fa_launches}
-    emit("serve", **result)
-    check(len(done) == len(SERVE_TRAFFIC) and all(
+        "new_tokens": new_tokens, "wall_s": run["wall"],
+        "tokens_per_s": new_tokens / run["wall"],
+        "max_memory_allocated": run["peak"],
+        "mid_flight_admitted": run["mid_flight"],
+        "ssd_scan_launches": launches["ssd_scan"],
+        "kmeans_assign_launches": launches["kmeans_assign"],
+        "flash_attention_launches": launches["flash_attention"]}
+
+
+def check_served(name: str, cfg, run: dict) -> None:
+    outputs = {r.uid: r.output for r in run["done"]}
+    check(len(run["done"]) == len(SERVE_TRAFFIC) and all(
         len(o) == SERVE_NEW_TOKENS for o in outputs.values()),
-        f"serve: not every request completed {SERVE_NEW_TOKENS} tokens")
+        f"{name}: not every request completed {SERVE_NEW_TOKENS} tokens")
     check(all(0 <= t < cfg.vocab_size for o in outputs.values() for t in o),
-          "serve: token out of the vocabulary")
+          f"{name}: token out of the vocabulary")
+    check(len(run["mid_flight"]) >= 1,
+          f"{name}: no request was admitted mid-flight")
+
+
+def serve_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.interop import tree_map
+    from repro_torch.launch.serve import build
+
+    cfg = get_config("mamba2-370m").model
+    t0 = time.perf_counter()
+    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.use_ssd_kernel, "mamba2 on CUDA must use the ssd_scan kernel")
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel()), params)
+    n_params = sum(sizes)
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's dt_bias [H] and the conv bias's 2N entries beyond it
+    mc = cfg.mamba
+    check(n_params == cfg.num_params() + cfg.n_layers * (
+        mc.n_heads(cfg.d_model) + 2 * mc.d_state),
+        f"mamba2-370m holds {n_params} parameters, not its full width")
+    tokens = tokens.cpu().numpy()
+    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+
+    # the main path: every kernel count is read around exactly this run
+    run = drive_serving(model, params, prompts)
+    launches = run["launches"]["ssd_scan"]
+    km_launches = run["launches"]["kmeans_assign"]
+    fa_launches = run["launches"]["flash_attention"]
+    n_prefill = len(run["timed"].times["prefill"])
+    ssm = run["eng"].cache["groups"]["sub0"]["ssm"]
+    emit("serve", **serve_result(cfg, n_params, init_s, run))
+    check_served("serve", cfg, run)
     check(launches == cfg.n_layers * n_prefill and launches > 0,
           f"serve: ssd_scan launched {launches} times for {n_prefill} "
           f"prefills of {cfg.n_layers} layers")
     check(km_launches == 0 and fa_launches == 0,
           "serve: kmeans_assign or flash_attention launched")
-    check(len(mid_flight) >= 1, "serve: no request was admitted mid-flight")
     check(bool(torch.isfinite(ssm).all()), "serve: non-finite SSM cache")
 
     rel_err, agree, flips_outside = serve_vs_plain(cfg, params, prompts)
@@ -2804,12 +2872,35 @@ def serve_phase() -> dict:
     check(flips_outside == 0,
           "serve: a greedy first token flipped beyond the logits' error "
           "margin")
+    del run, model, params
+    torch.cuda.empty_cache()
     return {"ssd_scan": launches}
 
 
-def serve_vs_plain(cfg, params, prompts):
-    """The prompts' prefill, kernel vs plain SSD, in waves of
-    ``SERVE_SLOTS``, at the config's bf16 and at f32 (same weights).
+def ssd_paths():
+    """Phase 5's pair: the ``ssd_scan`` kernel and the plain SSD, with the
+    cache tensors each is compared on."""
+    def tensors(cache):
+        g = cache["groups"]["sub0"]
+        return {"ssm": g["ssm"], "conv": g["conv"].float()}
+    return {True: {"use_ssd_kernel": True},
+            False: {"use_ssd_kernel": False}}, tensors
+
+
+def attention_paths():
+    """Phase 5b's pair: the ``flash_attention`` kernel fill and the naive
+    fill, compared on every layer's K and V."""
+    def tensors(cache):
+        g = cache["groups"]["sub0"]
+        return {"k": g["k"].float(), "v": g["v"].float()}
+    return {True: {"attn_impl": "kernel"},
+            False: {"attn_impl": "naive"}}, tensors
+
+
+def serve_vs_plain(cfg, params, prompts, paths=None):
+    """The prompts' prefill, kernel vs plain path (``ssd_paths()`` by
+    default, or ``attention_paths()``), in waves of ``SERVE_SLOTS``, at
+    the config's bf16 and at f32 (same weights).
 
     Returns the largest relative error of each pair and tensor
     (``{"kernel_vs_plain_bf16.logits": ..., ...}``), the first tokens the
@@ -2817,9 +2908,10 @@ def serve_vs_plain(cfg, params, prompts):
     beyond the logits' error margin."""
     import torch
     from repro_torch.models import build_model
+    kwargs, tensors = paths or ssd_paths()
     models = {(dtype, kernel): build_model(
-                  dataclasses.replace(cfg, dtype=dtype),
-                  use_ssd_kernel=kernel, device="cuda")
+                  dataclasses.replace(cfg, dtype=dtype), device="cuda",
+                  **kwargs[kernel])
               for dtype in ("bfloat16", "float32") for kernel in (True, False)}
     worst = {}                      # (pair name, tensor) -> relative error
     agree, flips_outside = {"bfloat16": 0, "float32": 0}, 0
@@ -2837,13 +2929,12 @@ def serve_vs_plain(cfg, params, prompts):
             with torch.inference_mode():
                 logits, cache = m.prefill(params, batch,
                                           m.init_cache(len(wave), s))
-            g = cache["groups"]["sub0"]
-            out[key] = {"logits": logits[:, -1].float(), "ssm": g["ssm"],
-                        "conv": g["conv"].float()}
-            del logits
+            out[key] = {"logits": logits[:, -1].float(), **tensors(cache)}
+            del logits, cache
             for name, t in out[key].items():
                 check(bool(torch.isfinite(t).all()),
                       f"serve compare {key}: non-finite {name}")
+        names = list(out[key])
         pairs = {"kernel_vs_plain_f32": (("float32", True),
                                          ("float32", False)),
                  "kernel_vs_plain_bf16": (("bfloat16", True),
@@ -2851,7 +2942,7 @@ def serve_vs_plain(cfg, params, prompts):
                  "bf16_vs_f32_plain": (("bfloat16", False),
                                        ("float32", False))}
         for pname, (ka, kb) in pairs.items():
-            for t in ("logits", "ssm", "conv"):
+            for t in names:
                 worst[pname, t] = max(worst.get((pname, t), 0.0),
                                       rel(out[ka][t], out[kb][t]))
         for dtype in agree:
@@ -2863,8 +2954,140 @@ def serve_vs_plain(cfg, params, prompts):
             agree[dtype] += int(same.sum())
             flips_outside += int((~same & (margin > 2 * float(
                 (lk - lp).abs().max()))).sum())
+        del out
     rel_err = {f"{p}.{t}": v for (p, t), v in worst.items()}
     return rel_err, agree, flips_outside
+
+
+# -- phase 5b: qwen3-1.7b serving ---------------------------------------------
+
+# phase 5's traffic, slots and tolerances (SERVE_F32_TOL and its comment)
+# on the dense model: every attention layer's prefill fills the KV cache
+# through the flash_attention kernel, the decode attends over the cache
+# in plain torch.  The kernel fill is held to the naive fill on the
+# logits and on every layer's K and V.
+
+
+SERVE_PROFILED_STEPS = 8
+
+
+def serve_card_time(model, params, prompts) -> dict:
+    """The first wave's prefill (its prompts left-padded to the longest)
+    and ``SERVE_PROFILED_STEPS`` greedy decode steps after it, each under
+    ``torch.profiler`` (``profile_busy``) after a warm-up; the decode's
+    tokens stay on the card (the engine reads them back each step)."""
+    import torch
+    wave = prompts[:SERVE_SLOTS]
+    s = max(len(p) for p in wave)
+    batch = torch.tensor([[0] * (s - len(p)) + list(p) for p in wave],
+                         dtype=torch.int32, device="cuda")
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = model.prefill(params, batch,
+                                               state["cache"])
+        state["tok"] = logits[:, -1].argmax(-1)[:, None]
+
+    def decode():
+        for _ in range(SERVE_PROFILED_STEPS):
+            logits, state["cache"] = model.decode_step(
+                params, state["tok"], state["cache"])
+            state["tok"] = logits[:, -1].argmax(-1)[:, None]
+
+    out = {"batch": len(wave), "prompt_len": s,
+           "decode_steps": SERVE_PROFILED_STEPS}
+    with torch.inference_mode():
+        for name, fn in (("prefill", prefill), ("decode", decode)):
+            state["cache"] = model.init_cache(len(wave), SERVE_MAX_LEN)
+            if name == "decode":
+                prefill()
+            fn()                                     # warm-up
+            state["cache"] = model.init_cache(len(wave), SERVE_MAX_LEN)
+            if name == "decode":
+                prefill()
+            out[name] = profile_busy(fn)
+    out["decode"]["kernels_per_step"] = \
+        out["decode"]["kernels"] / SERVE_PROFILED_STEPS
+    out["decode"]["ms_per_step"] = \
+        out["decode"]["wall_ms"] / SERVE_PROFILED_STEPS
+    return out
+
+
+def serve_attention_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.serve import build
+
+    cfg = get_config("qwen3-1.7b").model
+    t0 = time.perf_counter()
+    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.attn_impl == "kernel",
+          "qwen3 on CUDA must fill through the flash_attention kernel")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's q/k norm scales (2 * head_dim)
+    check(n_params == cfg.num_params() + cfg.n_layers * 2
+          * cfg.resolved_head_dim,
+          f"qwen3-1.7b holds {n_params} parameters, not its full width")
+    tokens = tokens.cpu().numpy()
+    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+
+    # the main path: every kernel count is read around exactly this run
+    run = drive_serving(model, params, prompts)
+    launches = run["launches"]
+    n_prefill = len(run["timed"].times["prefill"])
+    cache = run["eng"].cache["groups"]["sub0"]
+    result = serve_result(cfg, n_params, init_s, run)
+    result.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                  head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+                  max_len=SERVE_MAX_LEN,
+                  kv_cache_bytes=2 * cache["k"].numel()
+                  * cache["k"].element_size(),
+                  flash_launches_per_prefill=cfg.n_layers)
+    emit("serve_attention", **result)
+    check_served("serve_attention", cfg, run)
+    fa = launches["flash_attention"]
+    check(fa == cfg.n_layers * n_prefill and fa > 0,
+          f"serve_attention: flash_attention launched {fa} times for "
+          f"{n_prefill} prefills of {cfg.n_layers} layers")
+    check(launches["ssd_scan"] == 0 and launches["kmeans_assign"] == 0,
+          "serve_attention: ssd_scan or kmeans_assign launched")
+    check(bool(torch.isfinite(cache["k"]).all()
+               and torch.isfinite(cache["v"]).all()),
+          "serve_attention: non-finite KV cache")
+    del run, cache
+    torch.cuda.empty_cache()
+    # past the counted run: where a wave's prefill and decode steps spend
+    # the card's time
+    emit("serve_attention_card_time", **serve_card_time(model, params,
+                                                        prompts))
+    del model
+    torch.cuda.empty_cache()
+
+    rel_err, agree, flips_outside = serve_vs_plain(cfg, params, prompts,
+                                                   attention_paths())
+    emit("serve_attention_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
+         first_token_agree=agree, first_tokens=len(prompts),
+         flips_beyond_margin=flips_outside)
+    for t in ("logits", "k", "v"):
+        check(rel_err[f"kernel_vs_plain_f32.{t}"] <= SERVE_F32_TOL,
+              f"serve_attention f32: kernel vs naive fill off in {t}: "
+              f"{rel_err}")
+        check(rel_err[f"kernel_vs_plain_bf16.{t}"]
+              <= rel_err[f"bf16_vs_f32_plain.{t}"],
+              f"serve_attention bf16: kernel vs naive fill in {t} beyond "
+              f"the bf16 model's own rounding: {rel_err}")
+    check(flips_outside == 0,
+          "serve_attention: a greedy first token flipped beyond the "
+          "logits' error margin")
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention": fa, "prefills": n_prefill,
+            "prefill_ms": result["prefill_ms"],
+            "decode_ms_median": result["decode_ms_median"]}
 
 
 # -- phase 6: qwen3-1.7b training ------------------------------------------------
@@ -2888,11 +3111,11 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 3, 8, 512
 TRAIN_F32_TOL = 1e-3
 
 
-def train_args(**kw):
+def train_args(arch="qwen3-1.7b", **kw):
     """The launcher's arguments (``launch.train.parse_args``) for a run on
     the card."""
     from repro_torch.launch.train import parse_args
-    args = parse_args(["--arch", "qwen3-1.7b", "--device", "cuda",
+    args = parse_args(["--arch", arch, "--device", "cuda",
                        "--log-every", "1"])
     for k, v in kw.items():
         setattr(args, k, v)
@@ -2917,23 +3140,20 @@ def counts() -> dict:
             "ssd_scan": ssd_ops.launches}
 
 
-def train_phase() -> dict:
-    import math
+def drive_training(exp, batch: int, seq: int) -> dict:
+    """``launch.train.train_standard`` for ``TRAIN_STEPS`` steps at
+    ``batch`` x ``seq``: the main path, every kernel count set to 0 just
+    before it and read just after.  Returns the phase line's fields."""
     import torch
-    from repro_torch.config import get_config
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.train import train_standard
 
-    exp = get_config("qwen3-1.7b")
     cfg = exp.model
-    check(exp.train.global_batch == TRAIN_BATCH and exp.train.seq_len ==
-          TRAIN_SEQ and exp.train.optimizer == "adamw" and cfg.remat,
-          "qwen3-1.7b: the experiment's batch, sequence, optimizer or "
-          "remat changed")
-    args = train_args(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    args = train_args(exp.model.name, steps=TRAIN_STEPS, batch=batch,
+                      seq=seq)
     torch.cuda.synchronize()
+    allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    # the main path: every kernel count is read around exactly this run
     reset_counts()
     t0 = time.perf_counter()
     out = train_standard(exp, args)
@@ -2944,44 +3164,125 @@ def train_phase() -> dict:
     leaves = tree_leaves(out["state"].params)
     n_params = sum(t.numel() for t in leaves)
     finite = all(bool(torch.isfinite(t).all()) for t in leaves)
-    losses = [m["loss"] for m in out["metrics"]]
     step_ms = [t * 1e3 for t in out["step_s"]]
     median_ms = sorted(step_ms)[len(step_ms) // 2]
-    # with remat each layer's forward runs again in the backward
-    per_step = 2 * cfg.n_layers
     result = {
         "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
         "head_dim": cfg.resolved_head_dim, "vocab": cfg.vocab_size,
         "dtype": cfg.dtype, "remat": cfg.remat, "params": n_params,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
-        "optimizer": exp.train.optimizer, "losses": losses,
+        "batch": batch, "seq": seq, "steps": TRAIN_STEPS,
+        "optimizer": exp.train.optimizer,
+        "losses": [m["loss"] for m in out["metrics"]],
         "grad_norms": [m["grad_norm"] for m in out["metrics"]],
         "lrs": [m["lr"] for m in out["metrics"]],
         "step_ms": step_ms, "step_ms_median": median_ms,
-        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (median_ms / 1e3),
-        "wall_s": wall, "max_memory_allocated": peak,
-        "launches": launches, "flash_launches_per_step": per_step}
-    emit("train", **result)
+        "tokens_per_s": batch * seq / (median_ms / 1e3),
+        "wall_s": wall, "allocated_before": allocated_before,
+        "max_memory_allocated": peak, "launches": launches,
+        # with remat each layer's forward runs again in the backward
+        "flash_launches_per_step": 2 * cfg.n_layers,
+        "params_finite": finite}
     del out, leaves
     torch.cuda.empty_cache()
-    # num_params() is the reference's analytic count; the tree also holds
-    # each layer's q/k norm scales (2 * head_dim)
-    check(n_params == cfg.num_params() + cfg.n_layers * 2
-          * cfg.resolved_head_dim,
-          f"qwen3-1.7b holds {n_params} parameters, not its full width")
+    return result
+
+
+def check_trained(name: str, result: dict) -> None:
+    import math
+    losses = result["losses"]
     check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
-                                             for x in losses) and finite,
-          f"train: non-finite loss or parameters: {losses}")
+                                             for x in losses)
+          and result["params_finite"],
+          f"{name}: non-finite loss or parameters: {losses}")
+    launches, per_step = result["launches"], result["flash_launches_per_step"]
     check(launches["flash_attention"] == per_step * TRAIN_STEPS,
-          f"train: flash_attention launched {launches['flash_attention']} "
+          f"{name}: flash_attention launched {launches['flash_attention']} "
           f"times, not {per_step} x {TRAIN_STEPS}")
     check(launches["kmeans_assign"] == 0 and launches["ssd_scan"] == 0,
-          "train: kmeans_assign or ssd_scan launched")
-    return {"flash_attention": launches["flash_attention"]}
+          f"{name}: kmeans_assign or ssd_scan launched")
 
 
-def train_vs_plain() -> dict:
+def train_phase() -> dict:
+    from repro_torch.config import get_config
+
+    exp = get_config("qwen3-1.7b")
+    cfg = exp.model
+    check(exp.train.global_batch == TRAIN_BATCH and exp.train.seq_len ==
+          TRAIN_SEQ and exp.train.optimizer == "adamw" and cfg.remat,
+          "qwen3-1.7b: the experiment's batch, sequence, optimizer or "
+          "remat changed")
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, TRAIN_BATCH, TRAIN_SEQ)
+    emit("train", **result)
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's q/k norm scales (2 * head_dim)
+    check(result["params"] == cfg.num_params() + cfg.n_layers * 2
+          * cfg.resolved_head_dim,
+          f"qwen3-1.7b holds {result['params']} parameters, not its full "
+          "width")
+    check_trained("train", result)
+    return {"flash_attention": result["launches"]["flash_attention"]}
+
+
+# -- phase 6b: minicpm-2b training --------------------------------------------
+
+# minicpm-2b at full width (40 layers, d_model 2304, 36 heads of 64: MHA,
+# vocab 122,753, tied, bf16, remat) under its own Warmup-Stable-Decay
+# schedule; B = 4 (the experiment's 8 would not leave room: 2.7e9 params
+# x 16 B of f32 params, gradients and AdamW moments are 43.6 GB, and the
+# logits of a step take 1 GB a copy in f32).  Its first steps' learning
+# rates are the warmup's smallest, so the loss barely moves: the gate is
+# finite losses and the reference's wsd rates at those steps.
+MINICPM_BATCH, MINICPM_SEQ = 4, 512
+
+
+def wsd_lr(train, step: int) -> float:
+    """The reference's ``wsd`` rate at ``step`` in plain floats
+    (``src/repro/train/optimizer.py``'s formula, independent of the
+    port's tensors)."""
+    warm = max(train.warmup_steps, 1)
+    total = max(train.total_steps, 1)
+    peak = train.peak_lr
+    if step < warm:
+        return peak * min(step + 1.0, warm) / warm
+    start = total * train.decay_start_frac
+    frac = min(max((step - start) / max(total - start, 1.0), 0.0), 1.0)
+    return peak - (peak - peak * train.min_lr_ratio) * frac
+
+
+def minicpm_train_phase() -> dict:
+    from repro_torch.config import get_config
+
+    exp = get_config("minicpm-2b")
+    cfg = exp.model
+    check(exp.train.schedule == "wsd" and exp.train.optimizer == "adamw"
+          and cfg.remat and cfg.tie_embeddings and cfg.n_heads == 36
+          and cfg.n_kv_heads == 36 and cfg.resolved_head_dim == 64,
+          "minicpm-2b: the experiment's schedule, optimizer, remat, "
+          "embeddings or heads changed")
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, MINICPM_BATCH, MINICPM_SEQ)
+    want_lrs = [wsd_lr(exp.train, i) for i in range(TRAIN_STEPS)]
+    result.update(schedule=exp.train.schedule, reference_lrs=want_lrs)
+    emit("train_minicpm", **result)
+    # minicpm has no q/k norms: the tree is num_params() exactly
+    check(result["params"] == cfg.num_params(),
+          f"minicpm-2b holds {result['params']} parameters, not its full "
+          "width")
+    check_trained("train_minicpm", result)
+    check(all(abs(g - w) <= 1e-6 * w
+              for g, w in zip(result["lrs"], want_lrs)),
+          f"train_minicpm: learning rates {result['lrs']}, not the wsd "
+          f"schedule's {want_lrs}")
+    return {"flash_attention": result["launches"]["flash_attention"],
+            "step_ms_median": result["step_ms_median"],
+            "max_memory_allocated": result["max_memory_allocated"]}
+
+
+def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ,
+                   phase: str = "train_vs_plain") -> dict:
     """The kernel and the naive attention through the whole model, at f32
     and at the config's bf16, from the same weights and batch: a forward
     pass's logits, and one step's loss and gradient norm."""
@@ -2992,10 +3293,10 @@ def train_vs_plain() -> dict:
     from repro_torch.train import clip_by_global_norm
     from repro_torch.train.state import loss_and_grads
 
-    cfg = get_config("qwen3-1.7b").model
+    cfg = get_config(arch).model
     params = LM(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
-    batch = SyntheticLMData.for_model(cfg, TRAIN_BATCH, TRAIN_SEQ).batch(
+    batch = SyntheticLMData.for_model(cfg, batch_size, seq).batch(
         0, 0, device="cuda")
     out, logits = {}, {}
     for dtype in ("float32", "bfloat16"):
@@ -3028,27 +3329,27 @@ def train_vs_plain() -> dict:
                                         ("bfloat16", "naive")),
             "bf16_vs_f32_naive": gap(("bfloat16", "naive"),
                                      ("float32", "naive"))}
-    emit("train_vs_plain", values={f"{d}.{i}": v for (d, i), v in
-                                   out.items()},
+    emit(phase, arch=arch, batch=batch_size, seq=seq,
+         values={f"{d}.{i}": v for (d, i), v in out.items()},
          rel_gap=gaps, f32_tol=TRAIN_F32_TOL)
     per_pass = 3 * cfg.n_layers     # forward, then loss + remat recompute
     for (dtype, impl), v in out.items():
         want = per_pass if impl == "kernel" else 0
         check(v["launches"] == want,
-              f"train {dtype} {impl}: flash_attention launched "
+              f"{phase} {dtype} {impl}: flash_attention launched "
               f"{v['launches']} times, not {want}")
     for k in ("logits", "loss", "grad_norm"):
         check(gaps["kernel_vs_naive_f32"][k] <= TRAIN_F32_TOL,
-              f"train f32: kernel vs naive attention off in {k}: {gaps}")
+              f"{phase} f32: kernel vs naive attention off in {k}: {gaps}")
     for k in ("logits", "grad_norm"):
         check(gaps["kernel_vs_naive_bf16"][k]
               <= gaps["bf16_vs_f32_naive"][k],
-              f"train bf16: kernel vs naive attention in {k} beyond the "
+              f"{phase} bf16: kernel vs naive attention in {k} beyond the "
               f"bf16 model's own rounding: {gaps}")
     bf16 = gaps["kernel_vs_naive_bf16"]
     loss_n = out["bfloat16", "naive"]["loss"]
     check(bf16["loss"] * loss_n <= 2 * bf16["logits_abs"],
-          f"train bf16: the loss moved more than twice the largest logit "
+          f"{phase} bf16: the loss moved more than twice the largest logit "
           f"change: {gaps}")
     del params, logits
     torch.cuda.empty_cache()
@@ -3361,7 +3662,8 @@ def main() -> None:
     kmc_err = max(kernel_cells_vs_plain(SWEEP_CELLS),
                   kernel_cells_vs_plain(FLEET_SLOTS))
     ssd_err = ssd_vs_plain()
-    fa_err = flash_vs_plain()
+    fa_errs = flash_vs_plain()
+    fa_err = fa_errs[FLASH_MAIN]
     launches, host_s = slice_phase()
     fixtures = classic_fixtures()
     compiled = compiled_phase(host_s, fixtures)
@@ -3382,8 +3684,12 @@ def main() -> None:
                                          + scenarios["kmeans_assign_batched"]
                                          + telemetry["kmeans_assign_batched"])
     launches.update(serve_phase())
+    served = serve_attention_phase()
     launches.update(train_phase())
     train_vs_plain()
+    minicpm = minicpm_train_phase()
+    train_vs_plain("minicpm-2b", MINICPM_BATCH, MINICPM_SEQ,
+                   phase="train_minicpm_vs_plain")
     ol4el_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
@@ -3405,6 +3711,10 @@ def main() -> None:
     emit("flash_timing", **fa)
     fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
     emit("flash_timing", **fa32)
+    fa_serve = flash_timing(*FLASH_SERVE)
+    emit("flash_timing", case="qwen3-1.7b serving prefill", **fa_serve)
+    fa_minicpm = flash_timing(*FLASH_MINICPM)
+    emit("flash_timing", case="minicpm-2b training", **fa_minicpm)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
@@ -3473,7 +3783,25 @@ def main() -> None:
         "library": "torch.nn.functional.scaled_dot_product_attention("
                    "is_causal=True, enable_gqa=True)",
         "instances": instances(fa, fa32),
-        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}]}),
+        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
+        "path": path, "launches": n, "max_abs_err": fa_errs[case],
+        "ms": t["ms"], "kernel_ms": t["ms"], "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True)",
+        "launch_floor_ms": launch_floor_ms, "shapes": [t]}
+        for name, path, n, case, t in (
+            ("flash_attention_serve_prefill",
+             "phase 5b: qwen3-1.7b serving, every layer's prefill fill",
+             served["flash_attention"], FLASH_SERVE, fa_serve),
+            ("flash_attention_minicpm_train",
+             "phase 6b: minicpm-2b training, every layer's forward and "
+             "remat recompute (D = 64, MHA)",
+             minicpm["flash_attention"], FLASH_MINICPM, fa_minicpm))]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

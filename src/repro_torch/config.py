@@ -243,13 +243,11 @@ CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 
 # LM architectures of the reference, by the slice of the port that brings
 # each (the LM ids this slice does not resolve raise and name theirs).
-PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b")
+PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b", "minicpm-2b",
+                                   "qwen2.5-14b", "deepseek-coder-33b")
 LM_SLICES = {
-    "minicpm-2b": "the dense-attention slice",
-    "qwen2.5-14b": "the dense-attention slice",
-    "deepseek-coder-33b": "the dense-attention slice",
-    "paligemma-3b": "the dense-attention slice",
-    "musicgen-medium": "the dense-attention slice",
+    "paligemma-3b": "the prefix-embedding slice (item 13.5)",
+    "musicgen-medium": "the multi-codebook slice (item 13.5)",
     "olmoe-1b-7b": "the MoE slice",
     "deepseek-moe-16b": "the MoE slice",
     "jamba-1.5-large-398b": "the hybrid attention/SSM/MoE slice",

@@ -15,8 +15,19 @@ Full-sequence attention has three paths, as in the reference:
     ``pallas``): the hand-written CUDA kernel for CUDA tensors, its plain
     version on the CPU.
 
-Attention against a KV cache (prefill that fills it, one-token decode,
-the ring forms) comes with the attention-serving slice.
+Attention against a KV cache, as in the reference: ``attention_fill``
+(prefill: writes K/V for positions [0, S) and returns ``attention``'s
+output), ``attention_decode`` (one token against ``[B, S_max, KV, D]`` at
+a scalar index, masked over S_max and by the window) and their ring forms
+for sliding-window models (``attention_fill_ring``,
+``attention_decode_ring``: position p lives in slot p mod L).  The fills
+take the full-sequence paths above; with ``impl="kernel"`` they run the
+``flash_attention`` kernel on a CUDA tensor, where the reference always
+fills with naive or blocked attention (the kernel fill is held to the
+naive one).  The caches are written in place and returned, and the decode
+index stays a device tensor: a step reads nothing back to the host.
+The reference's ``window_slice`` (a window-sized slice of the cache in
+place of a mask) is not ported (item 13.7) and raises.
 """
 
 from __future__ import annotations
@@ -170,7 +181,7 @@ def _blocked_attention(q, k, v, q_positions, k_positions, window, scale,
                        block_q=1024):
     """Query chunks of ``block_q`` rows, each against every key (the
     reference's ``lax.scan`` over chunks as a Python loop; its
-    ``window_slice`` option is not ported)."""
+    ``window_slice`` option is not ported: item 13.7)."""
     b, s, h, d = q.shape
     nblocks = -(-s // block_q)
     pad = nblocks * block_q - s
@@ -185,30 +196,149 @@ def _blocked_attention(q, k, v, q_positions, k_positions, window, scale,
     return torch.cat(outs, dim=1)[:, :s]
 
 
+def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cfg: ModelConfig, positions: torch.Tensor,
+                    impl: str) -> torch.Tensor:
+    """Causal (optionally windowed) attention of the whole sequence by
+    ``impl``: ``kernel``, ``naive``, ``blocked`` or ``auto`` (the
+    reference's rule: naive up to 2048 positions, blocked beyond)."""
+    scale = cfg.resolved_head_dim ** -0.5
+    if impl == "auto":
+        impl = "naive" if q.shape[1] <= 2048 else "blocked"
+    if impl == "kernel":
+        return fa_ops.flash_attention(q, k, v, causal=True,
+                                      window=cfg.sliding_window)
+    if impl == "blocked":
+        return _blocked_attention(q, k, v, positions, positions,
+                                  cfg.sliding_window, scale)
+    if impl == "naive":
+        bias = _mask_bias(positions, positions, cfg.sliding_window)
+        return _sdpa(q, k, v, bias, scale)
+    raise ValueError(f"unknown attention impl {impl!r}; expected kernel, "
+                     "naive, blocked or auto")
+
+
+def _out_proj(params: Params, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, wo)`` in out's dtype."""
+    return _proj(out.reshape(*out.shape[:2], -1),
+                 params["wo"].reshape(-1, params["wo"].shape[-1]))
+
+
+def _refuse_window_slice(window_slice: bool) -> None:
+    if window_slice:
+        raise NotImplementedError(
+            "window_slice (a window-sized slice of the KV cache in place of "
+            "a mask) is not ported: item 13.7")
+
+
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     """Full-sequence causal attention (train / scoring).  ``impl``:
     ``kernel``, ``naive``, ``blocked`` or ``auto`` (the reference's rule:
     naive up to 2048 positions, blocked beyond)."""
     q, k, v = _qkv(params, cfg, x, positions)
-    scale = cfg.resolved_head_dim ** -0.5
+    return _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+
+
+def attention_fill(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, impl: str = "auto"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Full-sequence attention that also fills the KV cache (prefill).
+
+    Writes K/V for positions [0, S) into ``cache_k`` / ``cache_v`` [B,
+    S_max, KV, D] in place and returns ``attention``'s output with them.
+    """
+    q, k, v = _qkv(params, cfg, x, positions)
     s = x.shape[1]
-    if impl == "auto":
-        impl = "naive" if s <= 2048 else "blocked"
-    if impl == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=True,
-                                     window=cfg.sliding_window)
-    elif impl == "blocked":
-        out = _blocked_attention(q, k, v, positions, positions,
-                                 cfg.sliding_window, scale)
-    elif impl == "naive":
-        bias = _mask_bias(positions, positions, cfg.sliding_window)
-        out = _sdpa(q, k, v, bias, scale)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r}; expected "
-                         "kernel, naive, blocked or auto")
-    return _proj(out.reshape(*out.shape[:2], -1),
-                 params["wo"].reshape(-1, params["wo"].shape[-1]))
+    cache_k[:, :s].copy_(k)
+    cache_v[:, :s].copy_(v)
+    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+    return y, cache_k, cache_v
+
+
+def attention_fill_ring(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                        positions: torch.Tensor, cache_k: torch.Tensor,
+                        cache_v: torch.Tensor, impl: str = "auto"
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefill that fills a ring cache of length L in place: only the
+    last ``min(S, L)`` positions land in it, at slot = position mod L."""
+    q, k, v = _qkv(params, cfg, x, positions)
+    s, ring = x.shape[1], cache_k.shape[1]
+    n = min(s, ring)
+    slots = torch.arange(s - n, s, device=x.device) % ring
+    cache_k.index_copy_(1, slots, k[:, s - n:].to(cache_k.dtype))
+    cache_v.index_copy_(1, slots, v[:, s - n:].to(cache_v.dtype))
+    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+    return y, cache_k, cache_v
+
+
+def _decode_qkv(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                cache_index: torch.Tensor):
+    """q, k, v of one new token per row at position ``cache_index``."""
+    positions = cache_index.reshape(1, 1).expand(x.shape[0], 1)
+    return _qkv(params, cfg, x, positions)
+
+
+def _decode_attend(params: Params, cfg: ModelConfig, q: torch.Tensor,
+                   cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    bias = torch.where(valid, zero, -1e30)[None, :]
+    out = _sdpa(q, cache_k.to(q.dtype), cache_v.to(q.dtype), bias,
+                cfg.resolved_head_dim ** -0.5)
+    return _out_proj(params, out)
+
+
+def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                     cache_k: torch.Tensor, cache_v: torch.Tensor,
+                     cache_index: torch.Tensor, window_slice: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a KV cache.
+
+    x: [B, 1, d]; cache_k/v: [B, S_max, KV, D], written in place;
+    cache_index: 0-d int tensor (current length, the new token's
+    position), on the device: the write and the mask index with it, and
+    nothing is read back to the host.  As the reference's
+    ``dynamic_update_slice``, a write past S_max lands in the last slot.
+    Returns (y [B, 1, d], cache_k, cache_v).
+    """
+    _refuse_window_slice(window_slice)
+    s_max = cache_k.shape[1]
+    q, k_new, v_new = _decode_qkv(params, cfg, x, cache_index)
+    slot = cache_index.clamp(0, s_max - 1).reshape(1).long()
+    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    k_pos = torch.arange(s_max, device=x.device)
+    valid = k_pos <= cache_index
+    if cfg.sliding_window > 0:
+        valid &= k_pos > (cache_index - cfg.sliding_window)
+    return _decode_attend(params, cfg, q, cache_k, cache_v, valid), \
+        cache_k, cache_v
+
+
+def attention_decode_ring(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                          cache_k: torch.Tensor, cache_v: torch.Tensor,
+                          cache_index: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode against a ring (rolling) KV cache of length L,
+    written in place at slot ``index mod L``.  Slot j holds absolute
+    position ``index - ((index - j) mod L)``; keys are stored after RoPE,
+    so only the mask needs the positions, and the fresh token is always
+    live."""
+    ring = cache_k.shape[1]
+    q, k_new, v_new = _decode_qkv(params, cfg, x, cache_index)
+    slot = cache_index.remainder(ring).reshape(1).long()
+    cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    j = torch.arange(ring, device=x.device)
+    k_pos = cache_index - (cache_index - j).remainder(ring)
+    valid = k_pos >= 0
+    if cfg.sliding_window > 0:
+        valid &= k_pos > (cache_index - cfg.sliding_window)
+    valid |= j == slot                  # the fresh token is always live
+    return _decode_attend(params, cfg, q, cache_k, cache_v, valid), \
+        cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

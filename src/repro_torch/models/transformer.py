@@ -1,13 +1,13 @@
 """Decoder-only language model over the ModelConfig space (port of
 ``repro.models.transformer``).
 
-This port runs two block kinds: ``(MAMBA, NO_FFN)`` (mamba2-370m: forward,
-prefill and decode) and ``(ATTN, DENSE_FFN)`` (qwen3-1.7b: forward and
-``loss``, the training / scoring path, every attention layer through the
-``flash_attention`` kernel on the card).  Attention against a KV cache
-(``prefill`` / ``decode_step`` of attention blocks) comes with the
-attention-serving slice, MoE with the MoE slice; those raise
-``NotImplementedError`` naming the slice.
+This port runs two block kinds, each through forward, ``loss``,
+``prefill`` and ``decode_step``: ``(MAMBA, NO_FFN)`` (mamba2-370m) and
+``(ATTN, DENSE_FFN)`` (the dense configs: qwen3-1.7b, minicpm-2b,
+qwen2.5-14b, deepseek-coder-33b), every full-sequence attention (the
+forward's and the prefill's) through the ``flash_attention`` kernel on
+the card.  MoE blocks come with the MoE slice and raise
+``NotImplementedError`` naming it.
 
 Parameter and cache trees have the reference's shape, so weights and
 caches carry across (``repro_torch.interop``): the layer pattern splits
@@ -17,7 +17,11 @@ axis (every LM config sets ``scan_layers``), and the cache holds a scalar
 ``index``.  Where the reference scans over the stacked groups, the port
 unbinds them once (one autograd node per leaf, whose backward stacks the
 groups' gradients) and loops in Python; ``cfg.remat`` checkpoints each
-group as ``jax.checkpoint`` does.
+group as ``jax.checkpoint`` does.  An attention layer writes its K/V rows
+into its group's view of the stacked cache in place, so ``prefill`` and
+``decode_step`` return the cache they were given with those rows (and
+the index) updated, where the reference returns a new one with the same
+values; the SSM state is small and is restacked.
 """
 
 from __future__ import annotations
@@ -35,18 +39,13 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models.layers import Params
 
 _MOE = "MoE blocks come with the MoE slice"
-_KV_CACHE = ("attention against a KV cache (prefill / decode) comes with "
-             "the attention-serving slice")
 ATTN_IMPLS = ("kernel", "naive", "blocked", "auto")
 
 
-def _require_ported(kind: str, ffn: str, cache: bool = False) -> None:
+def _require_ported(kind: str, ffn: str) -> None:
     if ffn == MOE_FFN:
         raise NotImplementedError(f"block ({kind}, {ffn}): {_MOE} of the "
                                   "port")
-    if cache and kind == ATTN:
-        raise NotImplementedError(f"block ({kind}, {ffn}): {_KV_CACHE} of "
-                                  "the port")
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +89,25 @@ def _stack(trees: List[Any]) -> Any:
 
 
 def _unstack(tree: Any) -> List[Any]:
-    """A stacked (leading-axis) group tree as one tree per group."""
+    """A stacked (leading-axis) group tree as one tree per group (views)."""
     if isinstance(tree, dict):
         parts = {k: _unstack(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: parts[k][g] for k in tree} for g in range(n)]
     return list(tree.unbind(0))
+
+
+def _restack(new: List[Any], old: List[Any], stacked: Any) -> Any:
+    """Stack the per-group trees ``new`` that blocks returned for the
+    views ``old = _unstack(stacked)``.  A leaf every group returned as the
+    very view it was given (written in place) keeps ``stacked`` as it is,
+    with no copy."""
+    if isinstance(stacked, dict):
+        return {k: _restack([t[k] for t in new], [t[k] for t in old],
+                            stacked[k]) for k in stacked}
+    if all(n is o for n, o in zip(new, old)):
+        return stacked
+    return torch.stack(new)
 
 
 # ---------------------------------------------------------------------------
@@ -135,28 +147,51 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
 
 
 def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
-                     x: torch.Tensor, use_ssd_kernel: bool = False
+                     x: torch.Tensor, positions: torch.Tensor,
+                     cache: Params, attn_impl: str = "auto",
+                     use_ssd_kernel: bool = False, ring: bool = False
                      ) -> Tuple[torch.Tensor, Params]:
-    """Full-sequence block that also fills the decode cache (prefill)."""
-    _require_ported(kind, ffn, cache=True)
+    """Full-sequence block that also fills the decode cache (prefill):
+    an attention layer writes its K/V into ``cache`` in place (a ring
+    cache with ``ring``), an SSM layer returns its final state."""
+    _require_ported(kind, ffn)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
-    y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
-                                        use_kernel=use_ssd_kernel)
+    if kind == ATTN:
+        fill = L.attention_fill_ring if ring else L.attention_fill
+        y, ck, cv = fill(p["mix"], cfg, h, positions, cache["k"],
+                         cache["v"], impl=attn_impl)
+        cache = {"k": ck, "v": cv}
+    else:
+        y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
+                                            use_kernel=use_ssd_kernel)
     return _apply_ffn(p, cfg, ffn, x + y), cache
 
 
 def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
-                       x: torch.Tensor, cache: Params
-                       ) -> Tuple[torch.Tensor, Params]:
-    _require_ported(kind, ffn, cache=True)
+                       x: torch.Tensor, cache: Params, index: torch.Tensor,
+                       ring: bool = False) -> Tuple[torch.Tensor, Params]:
+    """One-token block at position ``index`` (a 0-d device tensor)."""
+    _require_ported(kind, ffn)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
-    y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
+    if kind == ATTN:
+        decode = L.attention_decode_ring if ring else L.attention_decode
+        y, ck, cv = decode(p["mix"], cfg, h, cache["k"], cache["v"], index)
+        cache = {"k": ck, "v": cv}
+    else:
+        y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
     return _apply_ffn(p, cfg, ffn, x + y), cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
-                     dtype: torch.dtype, device: torch.device) -> Params:
-    _require_ported(kind, ffn, cache=True)
+                     max_len: int, dtype: torch.dtype, device: torch.device
+                     ) -> Params:
+    """Zero cache of one block: K and V [batch, max_len, KV, D] for
+    attention, the O(1) SSM state otherwise."""
+    _require_ported(kind, ffn)
+    if kind == ATTN:
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     return M.init_mamba_cache(cfg, batch, dtype, device)
 
 
@@ -177,17 +212,22 @@ class LM:
     ``attn_impl=None`` picks full-sequence attention from the device: the
     CUDA ``flash_attention`` kernel (``"kernel"``) on a CUDA device, the
     reference's ``"auto"`` rule (naive up to 2048 positions, blocked
-    beyond) on the CPU.  ``use_ssd_kernel=None`` picks the prefill SSD
+    beyond) on the CPU; the prefill's attention takes the same path.
+    ``use_ssd_kernel=None`` picks the prefill SSD
     likewise: the CUDA ``ssd_scan`` kernel on a CUDA device, the plain
     ``ssd_reference`` on the CPU.  An explicit value of either runs that
-    path on any device, for comparison only.  ``fused_xent`` (the
-    reference's sharded-vocab loss form) is not ported: the trainer never
-    sets it.
+    path on any device, for comparison only.  ``ring_cache``: a
+    sliding-window model keeps a rolling KV cache of ``min(max_len,
+    window)`` slots (the reference's option; off without a window).
+    ``fused_xent`` (the reference's sharded-vocab loss form) and
+    ``window_slice`` (item 13.7) are not ported: the trainer and the
+    engine never set them.
     """
 
     def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
                  use_ssd_kernel: Optional[bool] = None,
-                 fused_xent: bool = False, device: DeviceLike = None):
+                 fused_xent: bool = False, ring_cache: bool = False,
+                 window_slice: bool = False, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
@@ -202,13 +242,15 @@ class LM:
             raise NotImplementedError(
                 "fused_xent (the reference's sharded-vocab cross-entropy) "
                 "is not ported; LM.loss takes log_softmax")
+        L._refuse_window_slice(window_slice)
+        self.ring_cache = ring_cache and cfg.sliding_window > 0
         self.dtype = getattr(torch, cfg.dtype)
         for kind, ffn in cfg.block_pattern():
             _require_ported(kind, ffn)
         if cfg.n_codebooks > 1 or cfg.num_prefix_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: multi-codebook heads and prefix embeddings "
-                "come with the dense-attention slice of the port")
+                "come with item 13.5 of the port")
         if not cfg.scan_layers:
             raise NotImplementedError(
                 f"{cfg.name}: the port stacks layer groups; unstacked "
@@ -302,13 +344,16 @@ class LM:
     # -- serving -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> Params:
-        """Zero decode cache for ``batch`` slots.  SSM layers hold O(1)
-        state, so ``max_len`` sizes nothing in this slice (attention's KV
-        cache will read it)."""
-        del max_len
+        """Zero decode cache for ``batch`` slots: attention layers hold
+        ``max_len`` positions (a ring cache ``min(max_len, window)``), SSM
+        layers O(1) state."""
         cfg = self.cfg
+        if self.ring_cache:
+            # ring length == window: slots cover (index - window, index]
+            max_len = min(max_len, cfg.sliding_window)
         groups = [{f"sub{i}": init_block_cache(cfg, kind, ffn, batch,
-                                               self.dtype, self.device)
+                                               max_len, self.dtype,
+                                               self.device)
                    for i, (kind, ffn) in enumerate(self.group)}
                   for _ in range(self.n_groups)]
         return {"index": torch.zeros((), dtype=torch.int32,
@@ -318,27 +363,30 @@ class LM:
     def _run_layers(self, params: Params, cache: Params, x: torch.Tensor,
                     block_fn) -> Tuple[torch.Tensor, Params]:
         """Thread ``x`` through every block with ``block_fn(p, kind, ffn,
-        x, c) -> (x, c)``; return x and the new stacked group caches."""
+        x, c) -> (x, c)``; return x and the new stacked group caches (a
+        cache leaf the blocks wrote in place is the one given)."""
+        old_groups = _unstack(cache["groups"])
         new_groups = []
-        for p_group, c_group in zip(_unstack(params["groups"]),
-                                    _unstack(cache["groups"])):
+        for p_group, c_group in zip(_unstack(params["groups"]), old_groups):
             new_c = {}
             for i, (kind, ffn) in enumerate(self.group):
                 x, new_c[f"sub{i}"] = block_fn(
                     p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"])
             new_groups.append(new_c)
-        return x, _stack(new_groups)
+        return x, _restack(new_groups, old_groups, cache["groups"])
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params) -> Tuple[torch.Tensor, Params]:
-        """One-token decode. tokens: [B, 1]."""
+        """One-token decode. tokens: [B, 1].  The position is the cache's
+        ``index``, a device tensor: nothing is read back to the host."""
         cfg = self.cfg
+        index = cache["index"]
         x = self.embed(params, tokens)                              # [B,1,d]
         x, groups = self._run_layers(
             params, cache, x,
-            lambda p, kind, ffn, x, c: apply_block_decode(p, cfg, kind, ffn,
-                                                          x, c))
-        new_cache = {"index": cache["index"] + 1, "groups": groups}
+            lambda p, kind, ffn, x, c: apply_block_decode(
+                p, cfg, kind, ffn, x, c, index, self.ring_cache))
+        new_cache = {"index": index + 1, "groups": groups}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache
 
@@ -346,17 +394,20 @@ class LM:
                 ) -> Tuple[torch.Tensor, Params]:
         """Run the full prompt through the model, filling the decode cache.
 
-        SSM layers store their final recurrent + conv state (from a zero
-        state, as the reference).  Returns full-sequence logits and the
-        filled cache (index advanced by S).
+        Attention layers write K/V for positions [0, S); SSM layers store
+        their final recurrent + conv state (from a zero state, as the
+        reference).  Returns full-sequence logits and the filled cache
+        (index advanced by S).
         """
         cfg = self.cfg
         x = self.embed(params, tokens)
         s = x.shape[1]
+        positions = torch.arange(s, device=x.device)
         x, groups = self._run_layers(
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_fill(
-                p, cfg, kind, ffn, x, self.use_ssd_kernel))
+                p, cfg, kind, ffn, x, positions, c, self.attn_impl,
+                self.use_ssd_kernel, self.ring_cache))
         new_cache = {"index": cache["index"] + s, "groups": groups}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache

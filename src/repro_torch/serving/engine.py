@@ -1,7 +1,10 @@
 """Batched serving engine: continuous batching over a fixed-slot cache
 (port of ``repro.serving.engine``).
 
-  * a fixed number of batch *slots*, each owning a row of the SSM cache;
+  * a fixed number of batch *slots*, each owning a row of the cache: of
+    every attention layer's K/V (``[n_groups, slots, max_len, KV, D]``,
+    a ring of ``min(max_len, window)`` positions for a sliding-window
+    model built with ``ring_cache``) or of every SSM layer's state;
   * waiting requests are admitted in waves into free slots (left-padded
     to a common length), prefilled as one batch, then decoded in
     lock-step; finished slots free early (EOS / max tokens) while the
@@ -48,7 +51,8 @@ class Request:
 def _scatter_rows(live: Any, new: Any, rows: torch.Tensor) -> None:
     """Copy the slot rows ``rows`` of the stacked group cache ``new`` into
     ``live`` in place, leaf by leaf (batch is axis 1, after the leading
-    ``[n_groups]``)."""
+    ``[n_groups]``: K/V ``[n_groups, B, S_max, KV, D]``, SSM state
+    ``[n_groups, B, ...]``), as the reference's ``scatter``."""
     if isinstance(live, dict):
         for k in live:
             _scatter_rows(live[k], new[k], rows)

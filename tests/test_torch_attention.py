@@ -255,9 +255,14 @@ def test_full_config_parameter_count():
 
 
 def test_kv_cache_paths_and_fused_xent_raise():
-    _, tc = _smoke()
-    with pytest.raises(NotImplementedError, match="attention-serving"):
-        LM(tc, device="cpu").init_cache(2, 16)
+    rc, tc = _smoke()
+    # the KV cache is ported: the reference's tree, K and V [n_groups, B,
+    # max_len, KV, D]; its window_slice is not (item 13.7)
+    cache = LM(tc, device="cpu").init_cache(2, 16)
+    want = jax.tree.map(lambda a: a.shape, jax_build(rc).init_cache(2, 16))
+    assert tree_map(lambda t: tuple(t.shape), cache) == want
+    with pytest.raises(NotImplementedError, match="window_slice"):
+        LM(tc, window_slice=True, device="cpu")
     with pytest.raises(NotImplementedError, match="fused_xent"):
         LM(tc, fused_xent=True, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):

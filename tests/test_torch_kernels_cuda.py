@@ -844,6 +844,46 @@ def test_flash_attention_grad_goes_through_the_plain_backward(cuda_device):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "minicpm-2b"])
+def test_attention_fill_kernel_equals_naive_fill_at_ragged_s(arch, dtype,
+                                                             cuda_device):
+    """One full-width attention layer's prefill (qwen3: 16 query and 8 KV
+    heads of 128; minicpm: 36 heads of 64) at S = 515, not a multiple of
+    the kernel's 64-row tiles, as a mid-flight admission prefill is: the
+    kernel fill launches once, writes the naive fill's K/V bit for bit,
+    its attention lies within ``ref.allowed_error`` of the plain version
+    and (f32) its output within 1e-3 of the naive fill's."""
+    import dataclasses
+
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config(arch).model, dtype=dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = L.init_attention(gen, cfg)
+    dt = getattr(torch, dtype)
+    x = torch.randn(2, 515, cfg.d_model, generator=gen,
+                    device=cuda_device).to(dt)
+    pos = torch.arange(515, device=cuda_device)
+    cache = torch.zeros(2, 600, cfg.n_kv_heads, cfg.resolved_head_dim,
+                        dtype=dt, device=cuda_device)
+    before = fa_ops.launches
+    yk, kk, vk = L.attention_fill(p, cfg, x, pos, cache.clone(),
+                                  cache.clone(), impl="kernel")
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    yn, kn, vn = L.attention_fill(p, cfg, x, pos, cache.clone(),
+                                  cache.clone(), impl="naive")
+    assert fa_ops.launches == before + 1
+    assert torch.equal(kk, kn) and torch.equal(vk, vn)
+    assert not kk[:, 515:].any()
+    q, k, v = L._qkv(p, cfg, x, pos)
+    assert_flash_close(fa_ops.flash_attention(q, k, v), q, k, v)
+    assert bool(torch.isfinite(yk).all())
+    if dt == torch.float32:
+        rel = float((yk - yn).abs().max()) / float(yn.abs().max())
+        assert rel <= 1e-3, rel
+
+
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
                                                              monkeypatch):
     """Over the shared-memory budget (D = 512) or without a kernel instance

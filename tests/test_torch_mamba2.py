@@ -215,7 +215,8 @@ def test_cache_tree_matches_reference():
 
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-1.7b", "svm-wafer",
-                                  "kmeans-traffic"])
+                                  "kmeans-traffic", "minicpm-2b",
+                                  "qwen2.5-14b", "deepseek-coder-33b"])
 def test_config_equals_reference_field_for_field(arch, getter):
     port = getattr(port_config, getter)(arch)
     ref = getattr(jax_config, getter)(arch)
@@ -239,8 +240,10 @@ def test_num_params():
 
 
 def test_unported_archs_and_blocks_name_their_slice():
-    with pytest.raises(KeyError, match="dense-attention slice"):
-        port_config.get_config("minicpm-2b")
+    with pytest.raises(KeyError, match="prefix-embedding slice"):
+        port_config.get_config("paligemma-3b")
+    with pytest.raises(KeyError, match="multi-codebook slice"):
+        port_config.get_config("musicgen-medium")
     with pytest.raises(KeyError, match="MoE slice"):
         port_config.get_smoke_config("olmoe-1b-7b")
     with pytest.raises(KeyError, match="unknown arch"):
@@ -249,9 +252,11 @@ def test_unported_archs_and_blocks_name_their_slice():
         num_experts=4, expert_ffn_dim=32))
     with pytest.raises(NotImplementedError, match="MoE slice"):
         LM(moe, device="cpu")
-    attn = LM(port_config.ModelConfig(n_layers=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="attention-serving slice"):
-        attn.init_cache(2, 8)
+    attn = port_config.ModelConfig(n_layers=2)
+    with pytest.raises(NotImplementedError, match="item 13.5"):
+        LM(dataclasses.replace(attn, n_codebooks=4), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13.7"):
+        LM(attn, window_slice=True, device="cpu")
 
 
 def test_interop_round_trip_keeps_dtypes():

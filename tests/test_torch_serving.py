@@ -1,5 +1,6 @@
 """The port's serving engine vs the reference's (``tests/test_serving.py``
-mirrored), on mamba2-370m's smoke config.
+mirrored), on mamba2-370m's smoke config (the SSM cache) and qwen3-1.7b's
+(the KV cache), every engine test a case of each.
 
 For exact tokens both engines run at f32 on the same parameters (the
 reference's ``LM.init``, carried with ``tree_from_numpy``): every greedy
@@ -29,13 +30,14 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
-ARCH = "mamba2-370m"
+ARCHS = ["mamba2-370m", "qwen3-1.7b"]
 
 
-@pytest.fixture(scope="module")
-def models():
-    rc = dataclasses.replace(jax_smoke(ARCH).model, dtype="float32")
-    tc = dataclasses.replace(get_smoke_config(ARCH).model, dtype="float32")
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    rc = dataclasses.replace(jax_smoke(request.param).model, dtype="float32")
+    tc = dataclasses.replace(get_smoke_config(request.param).model,
+                             dtype="float32")
     rm = jax_build(rc)
     rp = rm.init(jax.random.key(0))
     tm = build_model(tc, device="cpu")
@@ -245,12 +247,35 @@ def test_engine_sampled_tokens_match_reference_under_replayed_draws(models):
     assert any(out[u] != cold[u] for u in (0, 2, 3))
 
 
-def test_serve_launcher_runs_on_cpu():
-    out = serve.main(["--arch", ARCH, "--smoke", "--batch", "2",
+def test_ring_cache_engine_matches_reference():
+    """A sliding-window qwen3 (window 8) on ring caches of 8 slots a
+    layer: prompts longer than the ring, decodes that wrap it, a request
+    admitted mid-flight; greedy tokens equal the reference engine's."""
+    kw = dict(dtype="float32", sliding_window=8)
+    rc = dataclasses.replace(jax_smoke("qwen3-1.7b").model, **kw)
+    tc = dataclasses.replace(get_smoke_config("qwen3-1.7b").model, **kw)
+    rm = jax_build(rc, ring_cache=True)
+    rp = rm.init(jax.random.key(4))
+    tm = build_model(tc, ring_cache=True, device="cpu")
+    tp = tree_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+    engines = (ServingEngine(tm, tp, n_slots=2, max_len=64),
+               JaxEngine(rm, rp, n_slots=2, max_len=64))
+    assert engines[0].cache["groups"]["sub0"]["k"].shape[2] == 8
+    rng = np.random.default_rng(5)
+    for uid, (n, new) in enumerate([(11, 3), (13, 12), (6, 9)]):
+        _submit(engines, uid, rng.integers(0, tc.vocab_size, size=n).astype(
+            np.int32), max_new_tokens=new)
+    out = _run_both(engines)
+    assert sorted(len(o) for o in out.values()) == [3, 9, 12]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serve_launcher_runs_on_cpu(arch):
+    out = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                       "--prompt-len", "12", "--tokens", "3",
                       "--device", "cpu"])
     assert tuple(out["tokens"].shape) == (2, 4)
-    vocab = get_smoke_config(ARCH).model.vocab_size
+    vocab = get_smoke_config(arch).model.vocab_size
     assert bool(((out["tokens"] >= 0) & (out["tokens"] < vocab)).all())
 
 
