@@ -166,7 +166,29 @@ Phases, each printing JSON lines:
               released), every attention forward and remat recompute
               through the kernel at D = 64; finite losses and the
               reference's wsd rates gated; then kernel vs naive as in 6;
-7. ol4el   -- the paper's loop over the same LM at full width
+5c. serve_moe -- olmoe-1b-7b at full width and depth (16 layers, d_model
+              2048, 16 heads of 128 (MHA), qk-norm, 64 experts top-8 of
+              d_ff 1024, vocab 50,304, bf16; 6,919,100,416 parameters)
+              through ``launch/serve.build`` and the engine on phase 5's
+              traffic, after 6b's state is released: 16 ``flash_attention``
+              launches a prefill; the first wave's card time; layer 0's MoE
+              block at (4, 512, 2048) f32 on the card equal to the CPU's
+              (expert choices, y, aux); the kernel fill vs the naive fill at
+              f32 (K, V, logits; (token, layer) expert sets agreeing);
+5d. serve_deepseek_moe -- deepseek-moe-16b at full width, its depth cut
+              from 28 to 4 layers (the 65.3 GB f32 tree would not fit
+              safely): a dense prefix layer, then 3 MoE layers of 2 shared
+              and 64 routed experts top-6; the same traffic (mid-flight
+              admissions scatter the prefix layer's cache rows), a re-run
+              whose greedy tokens must be equal, and the checks of 5c;
+6c. train_mamba -- mamba2-370m at full width (48 layers) through the same
+              trainer: 3 AdamW steps at the experiment's B = 8, S = 512 with
+              remat, every layer's SSD forward and remat recompute through
+              the ``ssd_scan`` kernel (96 launches a step; the backward
+              through the plain ``ssd_reference``); then kernel vs plain SSD
+              at f32 (loss 1e-5, gradient norm 1e-4) and bf16, the launches
+              counted in the forward and the recompute apart;
+7. ol4el   -- the paper's loop over qwen3-1.7b at full width
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
@@ -178,11 +200,14 @@ Phases, each printing JSON lines:
               ``flash_attention`` also per instance (bf16 on the tensor
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape; and ``flash_attention``
-              at phase 5b's prefill (4, 512, 16, 8, 128) and phase 6b's
-              (4, 512, 36, 36, 64), bf16, each a row of its own.
+              at phase 5b's prefill (4, 512, 16, 8, 128), phase 6b's
+              (4, 512, 36, 36, 64) and phases 5c / 5d's (4, 512, 16, 16,
+              128), and ``ssd_scan`` at phase 6c's (8, 512, 32, 64, 128,
+              128), bf16, each a row of its own.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 7) is driven with
-every kernel's launch count set to 0 just before it and read just after.
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 7) is
+driven with every kernel's launch count set to 0 just before it and read
+just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
 "device": {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
@@ -420,7 +445,8 @@ def kernel_cells_vs_plain(n_cells: int) -> float:
 # 100-token prompt gives L = 100); then the bf16 (tensor-core) instance's
 # branches: P tile P (the serving shape; B * H = 160) and P / 2 (a lone
 # prompt), P = N = 128 (jamba-1.5's head dim and d_state) with P tiles of
-# 64 and of 128 (a warp holding 4 state items), N = 16 with a ragged L
+# 64 and of 128 (a warp holding 4 state items), N = 16 with a ragged L;
+# last phase 6c's training shape (mamba2-370m at B = 8, S = 512)
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -436,12 +462,14 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (2, 256, 8, 128, 128, 128, "bfloat16"),
              (1, 128, 136, 128, 32, 64, "bfloat16"),
              (2, 128, 70, 128, 128, 64, "bfloat16"),
-             (2, 100, 4, 32, 16, 100, "bfloat16")]
+             (2, 100, 4, 32, 16, 100, "bfloat16"),
+             (8, 512, 32, 64, 128, 128, "bfloat16")]
 # shapes the bf16 instance refuses, with the error's words: N not a
 # multiple of 16, and a plan beyond the card's shared memory
 SSD_REFUSED = [((1, 128, 2, 32, 24, 64), "multiples of 16"),
                ((1, 128, 2, 64, 256, 128), "shared memory")]
 SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
+SSD_TRAIN = (8, 512, 32, 64, 128, 128, "bfloat16")      # phase 6c's
 
 
 def ssd_inputs(b, s, h, p, n, dtype_name, seed):
@@ -487,11 +515,11 @@ def ssd_compare(y, state, x, da, bm, cm, chunk) -> dict:
     return out
 
 
-def ssd_vs_plain() -> float:
-    """Returns the largest |y - y_plain| at the main path's shape."""
+def ssd_vs_plain() -> dict:
+    """Returns the largest |y - y_plain| of each case."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel, ops
-    main_err = 0.0
+    errs = {}
     limit, sms = kernel.max_smem(0), kernel.sm_count(0)
     for i, case in enumerate(SSD_CASES):
         b, s, h, p, n, chunk, dt = case
@@ -505,8 +533,7 @@ def ssd_vs_plain() -> float:
         for part in ("y", "state"):
             check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
                   f"ssd_scan {part} off at {case}: {res[part]}")
-        if case == SSD_MAIN:
-            main_err = res["y"]["max_abs_err"]
+        errs[case] = res["y"]["max_abs_err"]
     # strongly negative da: exp above the diagonal would overflow to inf
     for shape in ((1, 128, 4, 32, 16, "float32"),
                   (2, 256, 4, 64, 128, "bfloat16")):
@@ -531,7 +558,7 @@ def ssd_vs_plain() -> float:
              chunk=chunk, dtype="bfloat16", error=refused)
         check(words in refused and ops.launches == before,
               f"ssd_scan bf16 did not refuse {(p, n, chunk)}: {refused!r}")
-    return main_err
+    return errs
 
 
 # (b, s, h, kv, d, window, dtype name): the reference's kernel-test cases
@@ -565,7 +592,9 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (1, 512, 4, 2, 256, 64, "bfloat16"),
                (4, 512, 16, 8, 128, 0, "bfloat16"),
                (4, 515, 16, 8, 128, 0, "bfloat16"),
-               (4, 512, 36, 36, 64, 0, "bfloat16")]
+               (4, 512, 36, 36, 64, 0, "bfloat16"),
+               (4, 512, 16, 16, 128, 0, "bfloat16"),
+               (4, 515, 16, 16, 128, 0, "bfloat16")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile
 FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
@@ -573,11 +602,13 @@ FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
                     (1, 300, 4, 1, 64, 100, "bfloat16")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
 # phase 5b's prefill (qwen3-1.7b serving, 4 slots: a full wave, and a
-# mid-flight admission at a ragged 515 above) and phase 6b's attention
-# (minicpm-2b: 36 heads of 64, MHA, B = 4); each with its own row in the
-# kernels line
+# mid-flight admission at a ragged 515 above), phase 6b's attention
+# (minicpm-2b: 36 heads of 64, MHA, B = 4) and phases 5c / 5d's prefill
+# (olmoe-1b-7b and deepseek-moe-16b: 16 heads of 128, MHA, 4 slots; a
+# ragged 515 above); each with its own row in the kernels line
 FLASH_SERVE = (4, 512, 16, 8, 128, 0, "bfloat16")
 FLASH_MINICPM = (4, 512, 36, 36, 64, 0, "bfloat16")
+FLASH_MOE = (4, 512, 16, 16, 128, 0, "bfloat16")
 
 
 def flash_inputs(b, s, h, kv, d, dtype_name, seed):
@@ -3140,10 +3171,13 @@ def counts() -> dict:
             "ssd_scan": ssd_ops.launches}
 
 
-def drive_training(exp, batch: int, seq: int) -> dict:
+def drive_training(exp, batch: int, seq: int,
+                   kernel: str = "flash_attention") -> dict:
     """``launch.train.train_standard`` for ``TRAIN_STEPS`` steps at
     ``batch`` x ``seq``: the main path, every kernel count set to 0 just
-    before it and read just after.  Returns the phase line's fields."""
+    before it and read just after.  ``kernel`` is the one every layer's
+    forward (and its remat recompute) launches.  Returns the phase line's
+    fields."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.train import train_standard
@@ -3181,7 +3215,7 @@ def drive_training(exp, batch: int, seq: int) -> dict:
         "wall_s": wall, "allocated_before": allocated_before,
         "max_memory_allocated": peak, "launches": launches,
         # with remat each layer's forward runs again in the backward
-        "flash_launches_per_step": 2 * cfg.n_layers,
+        "kernel": kernel, "kernel_launches_per_step": 2 * cfg.n_layers,
         "params_finite": finite}
     del out, leaves
     torch.cuda.empty_cache()
@@ -3195,12 +3229,13 @@ def check_trained(name: str, result: dict) -> None:
                                              for x in losses)
           and result["params_finite"],
           f"{name}: non-finite loss or parameters: {losses}")
-    launches, per_step = result["launches"], result["flash_launches_per_step"]
-    check(launches["flash_attention"] == per_step * TRAIN_STEPS,
-          f"{name}: flash_attention launched {launches['flash_attention']} "
-          f"times, not {per_step} x {TRAIN_STEPS}")
-    check(launches["kmeans_assign"] == 0 and launches["ssd_scan"] == 0,
-          f"{name}: kmeans_assign or ssd_scan launched")
+    launches, kernel = result["launches"], result["kernel"]
+    per_step = result["kernel_launches_per_step"]
+    check(launches[kernel] == per_step * TRAIN_STEPS,
+          f"{name}: {kernel} launched {launches[kernel]} times, not "
+          f"{per_step} x {TRAIN_STEPS}")
+    others = [k for k, n in launches.items() if n and k != kernel]
+    check(not others, f"{name}: {others} launched")
 
 
 def train_phase() -> dict:
@@ -3281,18 +3316,31 @@ def minicpm_train_phase() -> dict:
 
 
 def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
-                   seq: int = TRAIN_SEQ,
-                   phase: str = "train_vs_plain") -> dict:
-    """The kernel and the naive attention through the whole model, at f32
-    and at the config's bf16, from the same weights and batch: a forward
-    pass's logits, and one step's loss and gradient norm."""
+                   seq: int = TRAIN_SEQ, phase: str = "train_vs_plain",
+                   kernel: str = "flash_attention",
+                   f32_tol: dict = None) -> dict:
+    """The kernel and the plain path (``kernel`` ``flash_attention``: the
+    kernel and the naive attention; ``ssd_scan``: the kernel's SSD and
+    ``ssd_reference``) through the whole model, at f32 and at the config's
+    bf16, from the same weights and batch: a forward pass's logits, and
+    one step's loss and gradient norm.  ``f32_tol`` bounds each f32 gap
+    (``TRAIN_F32_TOL`` by default).  The kernel's launches are counted in
+    the forward pass, the loss's forward and the backward (each layer's
+    remat recompute) apart."""
     import torch
     from repro_torch.config import get_config
     from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import tree_map
     from repro_torch.models import LM
     from repro_torch.train import clip_by_global_norm
-    from repro_torch.train.state import loss_and_grads
 
+    f32_tol = f32_tol or {k: TRAIN_F32_TOL
+                          for k in ("logits", "loss", "grad_norm")}
+    path_kw = ({"kernel": {"attn_impl": "kernel"},
+                "naive": {"attn_impl": "naive"}}
+               if kernel == "flash_attention" else
+               {"kernel": {"use_ssd_kernel": True},
+                "naive": {"use_ssd_kernel": False}})
     cfg = get_config(arch).model
     params = LM(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
@@ -3301,18 +3349,29 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
     out, logits = {}, {}
     for dtype in ("float32", "bfloat16"):
         for impl in ("kernel", "naive"):
-            model = LM(dataclasses.replace(cfg, dtype=dtype), attn_impl=impl,
-                       device="cuda")
+            model = LM(dataclasses.replace(cfg, dtype=dtype), device="cuda",
+                       **path_kw[impl])
             reset_counts()
             with torch.no_grad():
                 logits[dtype, impl] = model.forward(
                     params, batch["tokens"])[0].float()
-            metrics, grads = loss_and_grads(model, params, batch)
+            launches = [counts()[kernel]]
+            leaves = []
+
+            def track(p):
+                leaves.append(p.detach().requires_grad_())
+                return leaves[-1]
+            loss, metrics = model.loss(tree_map(track, params), batch)
+            launches.append(counts()[kernel] - launches[0])
+            grads = torch.autograd.grad(loss, leaves)
+            launches.append(counts()[kernel] - sum(launches))
             _, gnorm = clip_by_global_norm(grads, 0.0)
-            out[dtype, impl] = {"loss": float(metrics["loss"]),
+            out[dtype, impl] = {"loss": float(metrics["loss"].detach()),
                                 "grad_norm": float(gnorm),
-                                "launches": counts()["flash_attention"]}
-            del grads
+                                "launches": dict(zip(
+                                    ("forward", "loss_forward",
+                                     "backward_recompute"), launches))}
+            del grads, loss, leaves
             torch.cuda.empty_cache()
 
     def gap(a, b):
@@ -3329,23 +3388,24 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
                                         ("bfloat16", "naive")),
             "bf16_vs_f32_naive": gap(("bfloat16", "naive"),
                                      ("float32", "naive"))}
-    emit(phase, arch=arch, batch=batch_size, seq=seq,
+    emit(phase, arch=arch, batch=batch_size, seq=seq, kernel=kernel,
          values={f"{d}.{i}": v for (d, i), v in out.items()},
-         rel_gap=gaps, f32_tol=TRAIN_F32_TOL)
-    per_pass = 3 * cfg.n_layers     # forward, then loss + remat recompute
+         rel_gap=gaps, f32_tol=f32_tol)
     for (dtype, impl), v in out.items():
-        want = per_pass if impl == "kernel" else 0
-        check(v["launches"] == want,
-              f"{phase} {dtype} {impl}: flash_attention launched "
-              f"{v['launches']} times, not {want}")
-    for k in ("logits", "loss", "grad_norm"):
-        check(gaps["kernel_vs_naive_f32"][k] <= TRAIN_F32_TOL,
-              f"{phase} f32: kernel vs naive attention off in {k}: {gaps}")
+        # each pass runs every layer once: the forward, the loss's
+        # forward, the remat recompute in the backward
+        want = cfg.n_layers if impl == "kernel" else 0
+        check(all(n == want for n in v["launches"].values()),
+              f"{phase} {dtype} {impl}: {kernel} launched "
+              f"{v['launches']} times, not {want} a pass")
+    for k, tol in f32_tol.items():
+        check(gaps["kernel_vs_naive_f32"][k] <= tol,
+              f"{phase} f32: kernel vs plain {k} beyond {tol}: {gaps}")
     for k in ("logits", "grad_norm"):
         check(gaps["kernel_vs_naive_bf16"][k]
               <= gaps["bf16_vs_f32_naive"][k],
-              f"{phase} bf16: kernel vs naive attention in {k} beyond the "
-              f"bf16 model's own rounding: {gaps}")
+              f"{phase} bf16: kernel vs plain in {k} beyond the bf16 "
+              f"model's own rounding: {gaps}")
     bf16 = gaps["kernel_vs_naive_bf16"]
     loss_n = out["bfloat16", "naive"]["loss"]
     check(bf16["loss"] * loss_n <= 2 * bf16["logits_abs"],
@@ -3354,6 +3414,332 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
     del params, logits
     torch.cuda.empty_cache()
     return gaps
+
+
+# -- phases 5c / 5d: the MoE family serving -------------------------------------
+
+# olmoe-1b-7b at full width and depth (16 layers, d_model 2048, 16 heads of
+# 128 (MHA), qk-norm, 64 experts top-8 of d_ff 1024, vocab 50,304, untied,
+# bf16; 5c) and deepseek-moe-16b at full width, its depth cut from 28 to 4
+# layers because its 65.3 GB f32 tree would not fit safely beside the
+# activations and per-layer casts on 80 GB (1 dense prefix layer, then 3
+# MoE layers of 2 shared experts and 64 routed top-6 of d_ff 1408, vocab
+# 102,400; 5d), each through the engine on phase 5's traffic after phase
+# 6b's state is released.  The kernel fill is held to the naive fill at f32
+# through the whole model.  A token at the top-k boundary of a layer's
+# router can take another expert on either path (f32 rounding moves the
+# router logits by ~1e-6), which moves its residual stream by an expert's
+# output, and through a full expert's queue the drop decisions of other
+# tokens (left-padded prompts send their pad rows to the same experts):
+# so the two fills are first run free and their (token, layer) expert
+# sets counted (at least MOE_AGREE of them must agree), then the naive
+# fill runs again on the kernel fill's expert choices, replayed layer by
+# layer (its own gates at those experts), and that pair is held to 1e-3
+# on K, V and the last position's logits; the free pair's errors are
+# reported beside it.  (The first card run held the free pair's K and V,
+# less the rows of tokens whose sets differed, to 1e-3 and missed:
+# 0.0228 and 0.0214, with 33 of 63,488 sets differing.)
+MOE_AGREE = 0.999
+# one MoE block at full width on the card and on the CPU: y and aux as
+# the CPU tests hold them to the reference (absolute plus relative)
+MOE_BLOCK_SHAPE = (4, 512)
+MOE_Y_TOL, MOE_AUX_TOL = 1e-5, 1e-6
+
+
+class RoutingLog:
+    """While active, wraps ``repro_torch.models.moe.route``: every MoE
+    layer's expert choices ([T, k]) in call order (``idx``).  With
+    ``replay`` (such a list) each call takes the replayed layer's choices
+    in place of its own top k, with its own probabilities' gates there,
+    renormalized as ``route`` does."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.mod, self.orig, self.idx = moe, moe.route, []
+
+        def route(router, xf, k):
+            logits, probs, gate, idx = self.orig(router, xf, k)
+            if self.replay is not None:
+                idx = self.replay[len(self.idx)]
+                gate = probs.gather(-1, idx)
+                gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.idx.append(idx)
+            return logits, probs, gate, idx
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route = self.orig
+
+
+def layer_kv(cache, s: int) -> list:
+    """Every attention layer's (K, V) of a cache tree, positions [0, s),
+    in f32: the unstacked prefix layers', then each group's."""
+    out = [(c["k"][:, :s].float(), c["v"][:, :s].float())
+           for c in cache.get("prefix_layers", [])]
+    for sub in cache["groups"].values():
+        out += [(k[:, :s].float(), v[:, :s].float())
+                for k, v in zip(sub["k"].unbind(0), sub["v"].unbind(0))]
+    return out
+
+
+def moe_fill_vs_naive(cfg, params, prompts) -> dict:
+    """The prompts' prefill in waves of ``SERVE_SLOTS`` at f32 (same
+    weights), the ``flash_attention`` kernel fill against the naive fill:
+    run free, the (token, layer) expert sets that differ and the relative
+    errors of the last position's logits and every layer's K and V
+    (``free.*``); then the naive fill on the kernel fill's replayed expert
+    choices, its errors (``replayed.*``)."""
+    import torch
+    from repro_torch.models import LM
+    models = {impl: LM(dataclasses.replace(cfg, dtype="float32"),
+                       attn_impl=impl, device="cuda")
+              for impl in ("kernel", "naive")}
+    sets = differ = 0
+    err = {f"{run}.{t}": 0.0 for run in ("replayed", "free")
+           for t in ("logits", "k", "v")}
+    for w in range(0, len(prompts), SERVE_SLOTS):
+        wave = prompts[w: w + SERVE_SLOTS]
+        s = max(len(p) for p in wave)
+        batch = torch.tensor([[0] * (s - len(p)) + list(p) for p in wave],
+                             dtype=torch.int32, device="cuda")
+        out = {}
+        for run, impl in (("kernel", "kernel"), ("free", "naive"),
+                          ("replayed", "naive")):
+            m = models[impl]
+            replay = out["kernel"]["idx"] if run == "replayed" else None
+            with torch.inference_mode(), RoutingLog(replay) as log:
+                logits, cache = m.prefill(params, batch,
+                                          m.init_cache(len(wave), s))
+            out[run] = {"logits": logits[:, -1].float(),
+                        "kv": layer_kv(cache, s), "idx": log.idx}
+            del logits, cache
+            check(all(bool(torch.isfinite(t).all()) for kv in out[run]["kv"]
+                      for t in kv)
+                  and bool(torch.isfinite(out[run]["logits"]).all()),
+                  f"moe fill {run}: non-finite logits or cache")
+        for a, b in zip(out["kernel"]["idx"], out["free"]["idx"]):
+            layer_differs = (a.sort(-1).values
+                             != b.sort(-1).values).any(-1)
+            sets += layer_differs.numel()
+            differ += int(layer_differs.sum())
+        for run in ("replayed", "free"):
+            pairs = {"logits": [(out["kernel"]["logits"],
+                                 out[run]["logits"])],
+                     "k": [(a[0], b[0]) for a, b in
+                           zip(out["kernel"]["kv"], out[run]["kv"])],
+                     "v": [(a[1], b[1]) for a, b in
+                           zip(out["kernel"]["kv"], out[run]["kv"])]}
+            for t, items in pairs.items():
+                for a, b in items:
+                    err[f"{run}.{t}"] = max(
+                        err[f"{run}.{t}"],
+                        float((a - b).abs().max()) / float(b.abs().max()))
+        del out
+    return {"rel_err": err, "f32_tol": SERVE_F32_TOL,
+            "expert_sets": sets, "expert_sets_differ": differ,
+            "expert_sets_agree": 1.0 - differ / sets}
+
+
+def check_moe_fill(name: str, res: dict) -> None:
+    check(res["expert_sets_agree"] >= MOE_AGREE,
+          f"{name}: {res['expert_sets_differ']} of {res['expert_sets']} "
+          f"(token, layer) expert sets differ between the kernel and the "
+          f"naive fill")
+    for t in ("logits", "k", "v"):
+        check(res["rel_err"][f"replayed.{t}"] <= SERVE_F32_TOL,
+              f"{name} f32: kernel vs naive fill off in {t}: {res}")
+
+
+def moe_block_vs_cpu(cfg, p) -> dict:
+    """One MoE FFN (the block's ``p["ffn"]``, here layer 0's) at full
+    width on a seeded f32 input [MOE_BLOCK_SHAPE, d] on the card and on
+    the CPU, on the same weights."""
+    import torch
+    from repro_torch.models import moe
+    d, k = cfg.d_model, cfg.moe.top_k
+    x = torch.randn(*MOE_BLOCK_SHAPE, d,
+                    generator=torch.Generator().manual_seed(5))
+    p_cpu = {n: t.detach().cpu() for n, t in p.items()}
+    out = {}
+    with torch.inference_mode():
+        for dev, pp in (("cuda", p), ("cpu", p_cpu)):
+            xd = x.to(dev)
+            y, aux = moe.moe_ffn(pp, cfg, xd)
+            idx = moe.route(pp["router"], xd.reshape(-1, d), k)[3]
+            out[dev] = (y.cpu(), {n: float(v) for n, v in aux.items()},
+                        idx.cpu())
+    (y_g, aux_g, idx_g), (y_c, aux_c, idx_c) = out["cuda"], out["cpu"]
+    t = MOE_BLOCK_SHAPE[0] * MOE_BLOCK_SHAPE[1]
+    cap = moe.capacity(t, cfg)
+    kept = int(torch.bincount(idx_c.reshape(-1), minlength=cfg.moe
+                              .num_experts).clamp_max(cap).sum())
+    y_err = (y_g - y_c).abs()
+    return {"shape": [*MOE_BLOCK_SHAPE, d], "experts": cfg.moe.num_experts,
+            "top_k": k, "capacity": cap, "assignments": t * k,
+            "dropped": t * k - kept,
+            "expert_idx_equal": bool(torch.equal(idx_g, idx_c)),
+            "y_max_abs_err": float(y_err.max()),
+            "y_max_abs": float(y_c.abs().max()),
+            "y_within_tol": bool((y_err <= MOE_Y_TOL
+                                  + MOE_Y_TOL * y_c.abs()).all()),
+            "aux_card": aux_g, "aux_cpu": aux_c,
+            "aux_within_tol": all(abs(aux_g[n] - aux_c[n]) <= MOE_AUX_TOL
+                                  + MOE_AUX_TOL * abs(aux_c[n])
+                                  for n in aux_c)}
+
+
+def serve_moe(cfg, name: str, reruns: int = 0) -> dict:
+    """``cfg`` through ``launch/serve.build`` and the engine on phase 5's
+    traffic (the main path, counted), then ``reruns`` more drives that
+    must give the same greedy tokens; past the counted run the first
+    wave's card time, layer 0's MoE block against the CPU, and the kernel
+    fill against the naive fill at f32."""
+    import torch
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.serve import build
+    t0 = time.perf_counter()
+    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(model.attn_impl == "kernel",
+          f"{name}: on CUDA the fill must go through flash_attention")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's q/k norm scales (2 * head_dim) where the model has them
+    want = cfg.num_params() + (cfg.n_layers * 2 * cfg.resolved_head_dim
+                               if cfg.qk_norm else 0)
+    check(n_params == want, f"{name}: {cfg.name} holds {n_params} "
+          f"parameters, not its full width's {want}")
+    tokens = tokens.cpu().numpy()
+    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+
+    # the main path: every kernel count is read around exactly this run
+    run = drive_serving(model, params, prompts)
+    launches = run["launches"]
+    n_prefill = len(run["timed"].times["prefill"])
+    first = {r.uid: r.output for r in run["done"]}
+    cache = run["eng"].cache
+    m = cfg.moe
+    result = serve_result(cfg, n_params, init_s, run)
+    result.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                  head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+                  max_len=SERVE_MAX_LEN, experts=m.num_experts,
+                  top_k=m.top_k, expert_ffn_dim=m.expert_ffn_dim,
+                  shared_experts=m.num_shared_experts,
+                  prefix_layers=[list(b) for b in model.prefix],
+                  flash_launches_per_prefill=cfg.n_layers)
+    emit(name, **result)
+    check_served(name, cfg, run)
+    fa = launches["flash_attention"]
+    check(fa == cfg.n_layers * n_prefill and fa > 0,
+          f"{name}: flash_attention launched {fa} times for {n_prefill} "
+          f"prefills of {cfg.n_layers} layers")
+    check(launches["ssd_scan"] == 0 and launches["kmeans_assign"] == 0,
+          f"{name}: ssd_scan or kmeans_assign launched")
+    check(all(bool(torch.isfinite(t).all()) for kv in layer_kv(
+        cache, SERVE_MAX_LEN) for t in kv), f"{name}: non-finite KV cache")
+    del run, cache
+    for i in range(reruns):
+        again = drive_serving(model, params, prompts)
+        same = {r.uid: r.output for r in again["done"]} == first
+        emit(f"{name}_rerun", run=i + 1, tokens_equal=same,
+             prefill_ms=[t * 1e3 for t in again["timed"].times["prefill"]])
+        check(same, f"{name}: greedy tokens changed on a re-run")
+        del again
+    torch.cuda.empty_cache()
+    # past the counted run: where a wave's prefill and decode steps spend
+    # the card's time
+    emit(f"{name}_card_time", **serve_card_time(model, params, prompts))
+    first_moe = next(i for i, (_, f) in enumerate(model.group) if f == "moe")
+    ffn = {n: t[0] for n, t in
+           params["groups"][f"sub{first_moe}"]["ffn"].items()}
+    block = moe_block_vs_cpu(cfg, ffn)
+    emit(f"{name}_block_vs_cpu", **block, y_tol=MOE_Y_TOL,
+         aux_tol=MOE_AUX_TOL)
+    check(block["expert_idx_equal"] and block["y_within_tol"]
+          and block["aux_within_tol"],
+          f"{name}: the MoE block on the card is not the CPU's: {block}")
+    del model, ffn
+    torch.cuda.empty_cache()
+    fill = moe_fill_vs_naive(cfg, params, prompts)
+    emit(f"{name}_vs_plain", **fill)
+    check_moe_fill(f"{name}_vs_plain", fill)
+    del params
+    torch.cuda.empty_cache()
+    return {"flash_attention": fa, "prefills": n_prefill,
+            "prefill_ms": result["prefill_ms"],
+            "decode_ms_median": result["decode_ms_median"]}
+
+
+def serve_moe_phase() -> dict:
+    from repro_torch.config import get_config
+    cfg = get_config("olmoe-1b-7b").model
+    m = cfg.moe
+    check(cfg.n_layers == 16 and cfg.d_model == 2048 and m.num_experts == 64
+          and m.top_k == 8 and cfg.n_heads == cfg.n_kv_heads == 16,
+          "olmoe-1b-7b: the config's width or depth changed")
+    return serve_moe(cfg, "serve_moe")
+
+
+DEEPSEEK_MOE_LAYERS = 4
+
+
+def serve_deepseek_phase() -> dict:
+    from repro_torch.config import get_config
+    from repro_torch.models import LM
+    full = get_config("deepseek-moe-16b").model
+    cfg = dataclasses.replace(full, n_layers=DEEPSEEK_MOE_LAYERS)
+    model = LM(cfg, device="cuda")
+    check(model.prefix == (("attn", "dense"),) and model.n_groups == 3
+          and cfg.moe.num_shared_experts == 2 and cfg.moe.top_k == 6,
+          f"deepseek-moe-16b at {DEEPSEEK_MOE_LAYERS} layers: not a dense "
+          f"prefix layer and 3 MoE layers ({model.prefix}, {model.group})")
+    emit("serve_deepseek_moe_cut", layers=[full.n_layers, cfg.n_layers],
+         full_params=full.num_params(), cut_params=cfg.num_params(),
+         reason="the full f32 tree (65.3 GB) does not fit safely on 80 GB "
+                "beside activations and per-layer casts")
+    return serve_moe(cfg, "serve_deepseek_moe", reruns=1)
+
+
+# -- phase 6c: mamba2-370m training ---------------------------------------------
+
+# mamba2-370m at full width and depth (48 layers, d_model 1024, 32 heads of
+# 64, d_state 128, chunk 128, vocab 50,280, tied, bf16, remat) under the
+# experiment's own TrainConfig (AdamW, B = 8, S = 512): every layer's SSD
+# forward through the ssd_scan kernel, once in the forward and once more in
+# its remat recompute (96 launches a step), the backward through the plain
+# ssd_reference (the JAX package has no backward kernel).  Kernel vs plain
+# SSD through the whole model at f32: the loss within 1e-5 and the gradient
+# norm within 1e-4 (relative), the logits within TRAIN_F32_TOL.
+MAMBA_F32_TOL = {"logits": TRAIN_F32_TOL, "loss": 1e-5, "grad_norm": 1e-4}
+
+
+def mamba_train_phase() -> dict:
+    from repro_torch.config import get_config
+    exp = get_config("mamba2-370m")
+    cfg = exp.model
+    check(exp.train.global_batch == TRAIN_BATCH and exp.train.seq_len ==
+          TRAIN_SEQ and exp.train.optimizer == "adamw" and cfg.remat,
+          "mamba2-370m: the experiment's batch, sequence, optimizer or "
+          "remat changed")
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, TRAIN_BATCH, TRAIN_SEQ, kernel="ssd_scan")
+    emit("train_mamba", **result)
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's dt_bias [H] and the conv bias's 2N entries beyond it
+    mc = cfg.mamba
+    want = cfg.num_params() + cfg.n_layers * (mc.n_heads(cfg.d_model)
+                                              + 2 * mc.d_state)
+    check(result["params"] == want,
+          f"mamba2-370m holds {result['params']} parameters, not {want}")
+    check_trained("train_mamba", result)
+    return {"ssd_scan": result["launches"]["ssd_scan"],
+            "step_ms_median": result["step_ms_median"],
+            "max_memory_allocated": result["max_memory_allocated"]}
 
 
 # -- phase 7: ol4el over the LM ----------------------------------------------------
@@ -3526,6 +3912,11 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     return out
 
 
+def sdpa_name(gqa: bool) -> str:
+    return ("torch.nn.functional.scaled_dot_product_attention("
+            f"is_causal=True, enable_gqa={gqa})")
+
+
 def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's, the
     library's (SDPA; timed here as a yardstick, never called by the port)
@@ -3543,13 +3934,14 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = kv != h                 # MHA shapes call SDPA without the flag
     out = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "window": window,
-           "dtype": dtype_name}
+           "dtype": dtype_name, "library": sdpa_name(gqa)}
     for key, fn, iters in (
             ("", lambda: ops.flash_attention(q, k, v, window=window), 50),
             ("plain_", lambda: ref.attention_ref(q, k, v, window=window), 20),
             ("library_", lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True), 50)):
+                                      enable_gqa=gqa), 50)):
         out[key + "ms"] = cuda_ms(fn, iters=iters, warmup=5, queued=True)
         out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=5)
     out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
@@ -3661,7 +4053,8 @@ def main() -> None:
     kmb_err = kernel_batched_vs_plain()
     kmc_err = max(kernel_cells_vs_plain(SWEEP_CELLS),
                   kernel_cells_vs_plain(FLEET_SLOTS))
-    ssd_err = ssd_vs_plain()
+    ssd_errs = ssd_vs_plain()
+    ssd_err = ssd_errs[SSD_MAIN]
     fa_errs = flash_vs_plain()
     fa_err = fa_errs[FLASH_MAIN]
     launches, host_s = slice_phase()
@@ -3690,6 +4083,11 @@ def main() -> None:
     minicpm = minicpm_train_phase()
     train_vs_plain("minicpm-2b", MINICPM_BATCH, MINICPM_SEQ,
                    phase="train_minicpm_vs_plain")
+    moe_served = serve_moe_phase()
+    deepseek_served = serve_deepseek_phase()
+    mamba_trained = mamba_train_phase()
+    train_vs_plain("mamba2-370m", phase="train_mamba_vs_plain",
+                   kernel="ssd_scan", f32_tol=MAMBA_F32_TOL)
     ol4el_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
@@ -3707,6 +4105,8 @@ def main() -> None:
     emit("ssd_timing", **ssd32)
     ssd_admit = ssd_timing(1, 128, *SSD_MAIN[2:])    # a lone admitted prompt
     emit("ssd_timing", **ssd_admit)
+    ssd_train = ssd_timing(*SSD_TRAIN)
+    emit("ssd_timing", case="mamba2-370m training", **ssd_train)
     fa = flash_timing(*FLASH_MAIN)
     emit("flash_timing", **fa)
     fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
@@ -3715,6 +4115,9 @@ def main() -> None:
     emit("flash_timing", case="qwen3-1.7b serving prefill", **fa_serve)
     fa_minicpm = flash_timing(*FLASH_MINICPM)
     emit("flash_timing", case="minicpm-2b training", **fa_minicpm)
+    fa_moe = flash_timing(*FLASH_MOE)
+    emit("flash_timing", case="olmoe-1b-7b / deepseek-moe-16b serving "
+         "prefill", **fa_moe)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
@@ -3780,8 +4183,7 @@ def main() -> None:
         "ms": fa["ms"], "kernel_ms": fa["ms"], "call_ms": fa["call_ms"],
         "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
-        "library": "torch.nn.functional.scaled_dot_product_attention("
-                   "is_causal=True, enable_gqa=True)",
+        "library": fa["library"],
         "instances": instances(fa, fa32),
         "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}] + [{
         "name": name, "route": "cuda",
@@ -3791,8 +4193,7 @@ def main() -> None:
         "ms": t["ms"], "kernel_ms": t["ms"], "call_ms": t["call_ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "library": "torch.nn.functional.scaled_dot_product_attention("
-                   "is_causal=True, enable_gqa=True)",
+        "library": t["library"],
         "launch_floor_ms": launch_floor_ms, "shapes": [t]}
         for name, path, n, case, t in (
             ("flash_attention_serve_prefill",
@@ -3801,7 +4202,24 @@ def main() -> None:
             ("flash_attention_minicpm_train",
              "phase 6b: minicpm-2b training, every layer's forward and "
              "remat recompute (D = 64, MHA)",
-             minicpm["flash_attention"], FLASH_MINICPM, fa_minicpm))]}),
+             minicpm["flash_attention"], FLASH_MINICPM, fa_minicpm),
+            ("flash_attention_moe_serve_prefill",
+             "phases 5c and 5d: olmoe-1b-7b and deepseek-moe-16b serving, "
+             "every layer's prefill fill (16 heads of 128, MHA)",
+             moe_served["flash_attention"]
+             + deepseek_served["flash_attention"], FLASH_MOE, fa_moe))] + [{
+        "name": "ssd_scan_mamba_train", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",
+        "path": "phase 6c: mamba2-370m training, every layer's forward and "
+                "remat recompute (the backward through the plain "
+                "ssd_reference)",
+        "launches": mamba_trained["ssd_scan"],
+        "max_abs_err": ssd_errs[SSD_TRAIN], "ms": ssd_train["ms"],
+        "kernel_ms": ssd_train["ms"], "call_ms": ssd_train["call_ms"],
+        "plain_ms": ssd_train["plain_ms"], "bound_ms": ssd_train["bound_ms"],
+        "bound_by": ssd_train["bound_by"], "library_ms": None,
+        "launch_floor_ms": launch_floor_ms, "shapes": [ssd_train]}]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -244,13 +244,12 @@ CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 # LM architectures of the reference, by the slice of the port that brings
 # each (the LM ids this slice does not resolve raise and name theirs).
 PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b", "minicpm-2b",
-                                   "qwen2.5-14b", "deepseek-coder-33b")
+                                   "qwen2.5-14b", "deepseek-coder-33b",
+                                   "olmoe-1b-7b", "deepseek-moe-16b")
 LM_SLICES = {
     "paligemma-3b": "the prefix-embedding slice (item 13.5)",
     "musicgen-medium": "the multi-codebook slice (item 13.5)",
-    "olmoe-1b-7b": "the MoE slice",
-    "deepseek-moe-16b": "the MoE slice",
-    "jamba-1.5-large-398b": "the hybrid attention/SSM/MoE slice",
+    "jamba-1.5-large-398b": "the hybrid attention/SSM/MoE slice (item 13.6)",
 }
 
 

@@ -1,13 +1,18 @@
-"""Public SSD op (forward only; the backward comes with the mamba
-training slice, and a CUDA call that would need one raises).
+"""Public SSD op: CUDA kernel forward, plain-version backward.
 
-``ssd`` picks its path from where the tensors lie: on a CUDA device it
+``ssd`` picks its forward from where the tensors lie: on a CUDA device it
 launches the hand-written kernel (``kernel.ssd_fwd``) or raises; on the
 CPU it runs the plain version ``ref.ssd_reference``.  It never runs the
-plain version for a CUDA tensor.
+plain forward for a CUDA tensor.  The backward re-runs ``ssd_reference``
+under autograd and returns dx, dda, dB and dC from the cotangents of both
+outputs, y and the final state, as the reference's ``custom_vjp`` routes
+them through its jnp oracle (the JAX package has no backward kernel, so
+neither has the port).
 
 ``launches`` counts kernel launches (CPU calls and empty inputs do not
-launch), so a run can show that its prefills went through the kernel.
+launch), so a run can show that its prefills and training steps went
+through the kernel.  Under activation checkpointing the forward runs
+again in the backward's recompute and counts again.
 """
 
 from __future__ import annotations
@@ -47,13 +52,9 @@ def _check(x, da, b_mat, c_mat, chunk: int) -> None:
         raise ValueError("ssd_scan: x, da, b and c on different devices")
 
 
-def ssd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
-        c_mat: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,H,P] (pre-scaled by dt); da [B,S,H] f32; b/c [B,S,N]; S a
-    multiple of ``chunk`` -> (y [B,S,H,P] in x's dtype, final_state
-    [B,H,P,N] f32)."""
+def _forward(x, da, b_mat, c_mat, chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    _check(x, da, b_mat, c_mat, chunk)
     if x.device.type == "cpu":
         return ssd_reference(x, da, b_mat, c_mat, chunk)
     if x.device.type != "cuda":
@@ -63,12 +64,6 @@ def ssd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
                          f"{kernel.MAX_CHUNK}")
     if not all(t.is_contiguous() for t in (x, da, b_mat, c_mat)):
         raise ValueError("ssd_scan: x, da, b and c must be contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, da, b_mat, c_mat)):
-        raise NotImplementedError(
-            "ssd_scan: the kernel has no backward yet (it comes with the "
-            "mamba training slice); run the SSD forward-only or through "
-            "the plain ssd_reference")
     bsz, _, h, p = x.shape
     y = torch.empty_like(x)
     final_state = torch.empty(bsz, h, p, b_mat.shape[-1],
@@ -80,3 +75,30 @@ def ssd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
         y.zero_()
         final_state.zero_()
     return y, final_state
+
+
+class _SSD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, da, b_mat, c_mat, chunk):
+        ctx.save_for_backward(x, da, b_mat, c_mat)
+        ctx.chunk = chunk
+        return _forward(x, da, b_mat, c_mat, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, final_state = ssd_reference(*inputs, ctx.chunk)
+            grads = torch.autograd.grad((y, final_state), inputs,
+                                        (dy, dstate))
+        return (*grads, None)
+
+
+def ssd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
+        c_mat: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,H,P] (pre-scaled by dt); da [B,S,H] f32; b/c [B,S,N]; S a
+    multiple of ``chunk`` -> (y [B,S,H,P] in x's dtype, final_state
+    [B,H,P,N] f32)."""
+    _check(x, da, b_mat, c_mat, chunk)
+    return _SSD.apply(x, da, b_mat, c_mat, int(chunk))

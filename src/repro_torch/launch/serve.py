@@ -2,10 +2,11 @@
 
 ``python -m repro_torch.launch.serve --arch qwen3-1.7b --tokens 32`` (or
 any other ported LM id: mamba2-370m, minicpm-2b, qwen2.5-14b,
-deepseek-coder-33b) runs a batch of synthetic requests end to end on the
-card: prefill the prompts (attention through the CUDA ``flash_attention``
-kernel, filling the KV cache; Mamba layers through ``ssd_scan``), then
-decode N tokens per request against the cache.  ``--smoke`` takes the
+deepseek-coder-33b, olmoe-1b-7b, deepseek-moe-16b) runs a batch of
+synthetic requests end to end on the card: prefill the prompts
+(attention through the CUDA ``flash_attention`` kernel, filling the KV
+cache; Mamba layers through ``ssd_scan``), then decode N tokens per
+request against the cache.  ``--smoke`` takes the
 reduced config, ``--device cpu`` runs the plain path on the CPU.
 Parameters are the port's random init from a generator seeded with 0.
 """

@@ -12,9 +12,10 @@ Layer structure (Mamba-2 block):
     y = SSD(x * dt, dt*A, B, C) + D * x
     out = out_proj( rmsnorm(y * silu(z)) )
 
-With ``use_kernel`` the prefill SSD goes through ``kernels.ssd_scan.ops``
-(the CUDA kernel for CUDA tensors); without it through the plain
-``ssd_reference``.
+With ``use_kernel`` the full-sequence SSD (the prefill's and the training
+forward's) goes through ``kernels.ssd_scan.ops`` (the CUDA kernel for
+CUDA tensors; its gradient through the plain version); without it through
+the plain ``ssd_reference``.
 """
 
 from __future__ import annotations

@@ -1,27 +1,33 @@
 """Decoder-only language model over the ModelConfig space (port of
 ``repro.models.transformer``).
 
-This port runs two block kinds, each through forward, ``loss``,
-``prefill`` and ``decode_step``: ``(MAMBA, NO_FFN)`` (mamba2-370m) and
-``(ATTN, DENSE_FFN)`` (the dense configs: qwen3-1.7b, minicpm-2b,
-qwen2.5-14b, deepseek-coder-33b), every full-sequence attention (the
-forward's and the prefill's) through the ``flash_attention`` kernel on
-the card.  MoE blocks come with the MoE slice and raise
-``NotImplementedError`` naming it.
+This port runs the block kinds of the pure-SSM, dense and MoE families,
+each through forward, ``loss`` (and its gradient), ``prefill`` and
+``decode_step``: ``(MAMBA, NO_FFN)`` (mamba2-370m), ``(ATTN, DENSE_FFN)``
+(qwen3-1.7b, minicpm-2b, qwen2.5-14b, deepseek-coder-33b) and ``(ATTN,
+MOE_FFN)`` (olmoe-1b-7b; deepseek-moe-16b, whose first layer is dense).
+Every full-sequence attention (the forward's and the prefill's) runs
+through the ``flash_attention`` kernel on the card, every SSD through
+``ssd_scan``.  A MoE block returns its router's aux values, which
+``forward`` sums over layers with the reference's tree add (so
+``expert_frac_max``, a max within a block, is a sum across layers, as
+there) and ``loss`` weighs into the loss.
 
 Parameter and cache trees have the reference's shape, so weights and
 caches carry across (``repro_torch.interop``): the layer pattern splits
-into ``n_groups`` repetitions of a group (a uniform pattern needs no
-unstacked prefix), whose leaves are stacked on a leading ``[n_groups]``
-axis (every LM config sets ``scan_layers``), and the cache holds a scalar
-``index``.  Where the reference scans over the stacked groups, the port
-unbinds them once (one autograd node per leaf, whose backward stacks the
-groups' gradients) and loops in Python; ``cfg.remat`` checkpoints each
-group as ``jax.checkpoint`` does.  An attention layer writes its K/V rows
-into its group's view of the stacked cache in place, so ``prefill`` and
-``decode_step`` return the cache they were given with those rows (and
-the index) updated, where the reference returns a new one with the same
-values; the SSM state is small and is restacked.
+into unstacked ``prefix_layers`` (a list; deepseek-moe's dense first
+layer at depth 4 and beyond) and ``n_groups`` repetitions of a group,
+whose leaves are stacked on a leading ``[n_groups]`` axis (every LM
+config sets ``scan_layers``), and the cache holds a scalar ``index``.
+Where the reference scans over the stacked groups, the port unbinds them
+once (one autograd node per leaf, whose backward stacks the groups'
+gradients) and loops in Python; ``cfg.remat`` checkpoints each group as
+``jax.checkpoint`` does.  An attention layer writes its K/V rows into its
+group's view of the stacked cache (or its prefix layer's cache) in
+place, so ``prefill`` and ``decode_step`` return the cache they were
+given with those rows (and the index) updated, where the reference
+returns a new one with the same values; the SSM state is small and is
+restacked.
 """
 
 from __future__ import annotations
@@ -36,16 +42,18 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.interop import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MoE
 from repro_torch.models.layers import Params
 
-_MOE = "MoE blocks come with the MoE slice"
 ATTN_IMPLS = ("kernel", "naive", "blocked", "auto")
+_HYBRID = "the hybrid attention/SSM/MoE slice (item 13.6)"
 
 
 def _require_ported(kind: str, ffn: str) -> None:
-    if ffn == MOE_FFN:
-        raise NotImplementedError(f"block ({kind}, {ffn}): {_MOE} of the "
-                                  "port")
+    if kind != ATTN and ffn == MOE_FFN:
+        raise NotImplementedError(f"block ({kind}, {ffn}): an SSM mixer "
+                                  f"with a MoE FFN comes with {_HYBRID} "
+                                  "of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -122,28 +130,57 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                  else M.init_mamba(gen, cfg)}
     if ffn == DENSE_FFN:
         p["ffn"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff)
+    elif ffn == MOE_FFN:
+        p["ffn"] = MoE.init_moe(gen, cfg)
     return p
 
 
-def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str,
-               x: torch.Tensor) -> torch.Tensor:
+def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    return {"load_balance_loss": z, "router_z_loss": z, "expert_frac_max": z,
+            "n_moe": z}
+
+
+def _add_aux(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+    """The reference's ``jax.tree.map(jnp.add, a, b)`` over aux dicts."""
+    return {k: a[k] + b[k] for k in a}
+
+
+def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """The block's FFN half: x and, for a MoE FFN, its router's aux."""
     if ffn == DENSE_FFN:
         h = L.rms_norm(p["ffn"]["norm"], x, cfg.norm_eps)
-        x = x + L.mlp(p["ffn"], h, cfg.act_fn)
-    return x
+        return x + L.mlp(p["ffn"], h, cfg.act_fn), None
+    if ffn == MOE_FFN:
+        h = L.rms_norm(p["ffn"]["norm"], x, cfg.norm_eps)
+        y, moe_aux = MoE.moe_ffn(p["ffn"], cfg, h)
+        return x + y, moe_aux
+    return x, None
 
 
 def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                 x: torch.Tensor, positions: torch.Tensor,
                 attn_impl: str = "auto", use_ssd_kernel: bool = False
-                ) -> torch.Tensor:
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence block: (x, aux), aux zero but for a MoE FFN (whose
+    ``expert_frac_max`` enters as a max, the rest as sums)."""
     _require_ported(kind, ffn)
+    aux = _zero_aux(x.device)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
         x = x + L.attention(p["mix"], cfg, h, positions, impl=attn_impl)
     else:
         x = x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
-    return _apply_ffn(p, cfg, ffn, x)
+    x, moe_aux = _apply_ffn(p, cfg, ffn, x)
+    if moe_aux is not None:
+        for k in ("load_balance_loss", "router_z_loss"):
+            aux[k] = aux[k] + moe_aux[k]
+        aux["expert_frac_max"] = torch.maximum(aux["expert_frac_max"],
+                                               moe_aux["expert_frac_max"])
+        aux["n_moe"] = aux["n_moe"] + 1.0
+    return x, aux
 
 
 def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
@@ -164,7 +201,7 @@ def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
     else:
         y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
                                             use_kernel=use_ssd_kernel)
-    return _apply_ffn(p, cfg, ffn, x + y), cache
+    return _apply_ffn(p, cfg, ffn, x + y)[0], cache
 
 
 def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
@@ -179,7 +216,7 @@ def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
         cache = {"k": ck, "v": cv}
     else:
         y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
-    return _apply_ffn(p, cfg, ffn, x + y), cache
+    return _apply_ffn(p, cfg, ffn, x + y)[0], cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
@@ -195,12 +232,6 @@ def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
     return M.init_mamba_cache(cfg, batch, dtype, device)
 
 
-def _zero_aux(device: torch.device) -> Dict[str, torch.Tensor]:
-    z = torch.zeros((), dtype=torch.float32, device=device)
-    return {"load_balance_loss": z, "router_z_loss": z, "expert_frac_max": z,
-            "n_moe": z}
-
-
 # ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
@@ -213,9 +244,9 @@ class LM:
     CUDA ``flash_attention`` kernel (``"kernel"``) on a CUDA device, the
     reference's ``"auto"`` rule (naive up to 2048 positions, blocked
     beyond) on the CPU; the prefill's attention takes the same path.
-    ``use_ssd_kernel=None`` picks the prefill SSD
-    likewise: the CUDA ``ssd_scan`` kernel on a CUDA device, the plain
-    ``ssd_reference`` on the CPU.  An explicit value of either runs that
+    ``use_ssd_kernel=None`` picks the full-sequence SSD (prefill and
+    training) likewise: the CUDA ``ssd_scan`` kernel on a CUDA device, the
+    plain ``ssd_reference`` on the CPU.  An explicit value of either runs that
     path on any device, for comparison only.  ``ring_cache``: a
     sliding-window model keeps a rolling KV cache of ``min(max_len,
     window)`` slots (the reference's option; off without a window).
@@ -247,6 +278,10 @@ class LM:
         self.dtype = getattr(torch, cfg.dtype)
         for kind, ffn in cfg.block_pattern():
             _require_ported(kind, ffn)
+        if len(set(cfg.layer_kinds())) > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: interleaved attention and SSM layers come "
+                f"with {_HYBRID} of the port")
         if cfg.n_codebooks > 1 or cfg.num_prefix_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: multi-codebook heads and prefix embeddings "
@@ -256,9 +291,6 @@ class LM:
                 f"{cfg.name}: the port stacks layer groups; unstacked "
                 "(scan_layers=False) trees are not ported")
         self.prefix, self.group, self.n_groups = layer_groups(cfg)
-        # a uniform pattern (all the ported models have) splits with no
-        # prefix
-        assert not self.prefix, self.prefix
 
     # -- init ---------------------------------------------------------------
 
@@ -272,6 +304,9 @@ class LM:
         if not cfg.tie_embeddings:
             params["lm_head"] = L.dense_init(gen, (cfg.d_model,
                                                    cfg.vocab_size))
+        if self.prefix:
+            params["prefix_layers"] = [init_block(gen, cfg, kind, ffn)
+                                       for kind, ffn in self.prefix]
         groups = [{f"sub{i}": init_block(gen, cfg, kind, ffn)
                    for i, (kind, ffn) in enumerate(self.group)}
                   for _ in range(self.n_groups)]
@@ -290,12 +325,20 @@ class LM:
 
     # -- forward (train / scoring) ------------------------------------------
 
+    def _block(self, p: Params, kind: str, ffn: str, x: torch.Tensor,
+               positions: torch.Tensor
+               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return apply_block(p, self.cfg, kind, ffn, x, positions,
+                           self.attn_impl, self.use_ssd_kernel)
+
     def _group_fn(self, p_group: Params, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        aux = _zero_aux(x.device)
         for i, (kind, ffn) in enumerate(self.group):
-            x = apply_block(p_group[f"sub{i}"], self.cfg, kind, ffn, x,
-                            positions, self.attn_impl, self.use_ssd_kernel)
-        return x
+            x, a = self._block(p_group[f"sub{i}"], kind, ffn, x, positions)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     def forward(self, params: Params, tokens: torch.Tensor,
                 last_only: bool = False
@@ -303,26 +346,32 @@ class LM:
         cfg = self.cfg
         x = self.embed(params, tokens)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = _zero_aux(x.device)
+        for p_layer, (kind, ffn) in zip(params.get("prefix_layers", []),
+                                        self.prefix):
+            x, a = self._block(p_layer, kind, ffn, x, positions)
+            aux = _add_aux(aux, a)
         # remat: keep only each group's input; its activations are
         # recomputed in the backward (forward-only calls skip it)
         remat = cfg.remat and torch.is_grad_enabled()
         for p_group in _unstack(params["groups"]):
             if remat:
-                x = checkpoint(self._group_fn, p_group, x, positions,
-                               use_reentrant=False)
+                x, a = checkpoint(self._group_fn, p_group, x, positions,
+                                  use_reentrant=False)
             else:
-                x = self._group_fn(p_group, x, positions)
+                x, a = self._group_fn(p_group, x, positions)
+            aux = _add_aux(aux, a)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
-        return self.unembed(params, x), _zero_aux(x.device)
+        return self.unembed(params, x), aux
 
     # -- loss ---------------------------------------------------------------
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Next-token cross-entropy (+ MoE aux, zero for the ported
-        blocks). batch: tokens [B, S]; optional loss_mask [B, S-1]."""
+        """Next-token cross-entropy (+ the MoE router's aux losses).
+        batch: tokens [B, S]; optional loss_mask [B, S-1]."""
         tokens = batch["tokens"]
         logits, aux = self.forward(params, tokens)
         pred = logits[:, :-1]                               # [B, S-1, V]
@@ -336,35 +385,58 @@ class LM:
         else:
             mask = torch.broadcast_to(mask, nll.shape).float()
         ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
-        metrics = {"ce_loss": ce, "loss": ce,
+        loss = ce
+        m = self.cfg.moe
+        if m.enabled:
+            loss = loss + m.router_aux_loss * aux["load_balance_loss"]
+            loss = loss + m.router_z_loss * aux["router_z_loss"]
+        metrics = {"ce_loss": ce, "loss": loss,
                    "load_balance_loss": aux["load_balance_loss"],
                    "router_z_loss": aux["router_z_loss"]}
-        return ce, metrics
+        return loss, metrics
 
     # -- serving -------------------------------------------------------------
 
     def init_cache(self, batch: int, max_len: int) -> Params:
         """Zero decode cache for ``batch`` slots: attention layers hold
         ``max_len`` positions (a ring cache ``min(max_len, window)``), SSM
-        layers O(1) state."""
+        layers O(1) state; prefix layers' caches unstacked
+        (``prefix_layers``, batch-leading), the groups' stacked."""
         cfg = self.cfg
         if self.ring_cache:
             # ring length == window: slots cover (index - window, index]
             max_len = min(max_len, cfg.sliding_window)
-        groups = [{f"sub{i}": init_block_cache(cfg, kind, ffn, batch,
-                                               max_len, self.dtype,
-                                               self.device)
-                   for i, (kind, ffn) in enumerate(self.group)}
-                  for _ in range(self.n_groups)]
-        return {"index": torch.zeros((), dtype=torch.int32,
-                                     device=self.device),
-                "groups": _stack(groups)}
+
+        def block_cache(kind, ffn):
+            return init_block_cache(cfg, kind, ffn, batch, max_len,
+                                    self.dtype, self.device)
+        cache: Params = {"index": torch.zeros((), dtype=torch.int32,
+                                              device=self.device)}
+        if self.prefix:
+            cache["prefix_layers"] = [block_cache(kind, ffn)
+                                      for kind, ffn in self.prefix]
+        cache["groups"] = _stack([
+            {f"sub{i}": block_cache(kind, ffn)
+             for i, (kind, ffn) in enumerate(self.group)}
+            for _ in range(self.n_groups)])
+        return cache
 
     def _run_layers(self, params: Params, cache: Params, x: torch.Tensor,
                     block_fn) -> Tuple[torch.Tensor, Params]:
-        """Thread ``x`` through every block with ``block_fn(p, kind, ffn,
-        x, c) -> (x, c)``; return x and the new stacked group caches (a
-        cache leaf the blocks wrote in place is the one given)."""
+        """Thread ``x`` through every block, the prefix layers first, with
+        ``block_fn(p, kind, ffn, x, c) -> (x, c)``; return x and the new
+        cache's layers: ``prefix_layers`` (a list) where the model has
+        them, and the stacked ``groups`` (a cache leaf the blocks wrote
+        in place is the one given)."""
+        layers: Params = {}
+        if self.prefix:
+            new_prefix = []
+            for p_layer, c_layer, (kind, ffn) in zip(
+                    params["prefix_layers"], cache["prefix_layers"],
+                    self.prefix):
+                x, c = block_fn(p_layer, kind, ffn, x, c_layer)
+                new_prefix.append(c)
+            layers["prefix_layers"] = new_prefix
         old_groups = _unstack(cache["groups"])
         new_groups = []
         for p_group, c_group in zip(_unstack(params["groups"]), old_groups):
@@ -373,7 +445,8 @@ class LM:
                 x, new_c[f"sub{i}"] = block_fn(
                     p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"])
             new_groups.append(new_c)
-        return x, _restack(new_groups, old_groups, cache["groups"])
+        layers["groups"] = _restack(new_groups, old_groups, cache["groups"])
+        return x, layers
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params) -> Tuple[torch.Tensor, Params]:
@@ -382,11 +455,11 @@ class LM:
         cfg = self.cfg
         index = cache["index"]
         x = self.embed(params, tokens)                              # [B,1,d]
-        x, groups = self._run_layers(
+        x, layers = self._run_layers(
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_decode(
                 p, cfg, kind, ffn, x, c, index, self.ring_cache))
-        new_cache = {"index": index + 1, "groups": groups}
+        new_cache = {"index": index + 1, **layers}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache
 
@@ -403,11 +476,11 @@ class LM:
         x = self.embed(params, tokens)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)
-        x, groups = self._run_layers(
+        x, layers = self._run_layers(
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_fill(
                 p, cfg, kind, ffn, x, positions, c, self.attn_impl,
                 self.use_ssd_kernel, self.ring_cache))
-        new_cache = {"index": cache["index"] + s, "groups": groups}
+        new_cache = {"index": cache["index"] + s, **layers}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache

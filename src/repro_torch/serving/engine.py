@@ -3,8 +3,9 @@
 
   * a fixed number of batch *slots*, each owning a row of the cache: of
     every attention layer's K/V (``[n_groups, slots, max_len, KV, D]``,
-    a ring of ``min(max_len, window)`` positions for a sliding-window
-    model built with ``ring_cache``) or of every SSM layer's state;
+    ``[slots, max_len, KV, D]`` in an unstacked prefix layer, a ring of
+    ``min(max_len, window)`` positions for a sliding-window model built
+    with ``ring_cache``) or of every SSM layer's state;
   * waiting requests are admitted in waves into free slots (left-padded
     to a common length), prefilled as one batch, then decoded in
     lock-step; finished slots free early (EOS / max tokens) while the
@@ -48,16 +49,21 @@ class Request:
     done: bool = False
 
 
-def _scatter_rows(live: Any, new: Any, rows: torch.Tensor) -> None:
-    """Copy the slot rows ``rows`` of the stacked group cache ``new`` into
-    ``live`` in place, leaf by leaf (batch is axis 1, after the leading
-    ``[n_groups]``: K/V ``[n_groups, B, S_max, KV, D]``, SSM state
-    ``[n_groups, B, ...]``), as the reference's ``scatter``."""
+def _scatter_rows(live: Any, new: Any, rows: torch.Tensor,
+                  axis: int) -> None:
+    """Copy the slot rows ``rows`` of cache tree ``new`` into ``live`` in
+    place, leaf by leaf, along the batch axis ``axis``: 1 in the stacked
+    groups (after the leading ``[n_groups]``: K/V ``[n_groups, B, S_max,
+    KV, D]``, SSM state ``[n_groups, B, ...]``), 0 in the unstacked
+    prefix layers, as the reference's ``scatter``."""
     if isinstance(live, dict):
         for k in live:
-            _scatter_rows(live[k], new[k], rows)
+            _scatter_rows(live[k], new[k], rows, axis)
+    elif isinstance(live, list):
+        for a, b in zip(live, new):
+            _scatter_rows(a, b, rows, axis)
     else:
-        live.index_copy_(1, rows, new.index_select(1, rows))
+        live.index_copy_(axis, rows, new.index_select(axis, rows))
 
 
 class ServingEngine:
@@ -149,8 +155,11 @@ class ServingEngine:
             self.params, torch.from_numpy(batch).to(self.device), scratch)
         rows = torch.tensor(admitted, dtype=torch.long, device=self.device)
         # the shared position index is equal by construction (live and
-        # scratch both at _cur_len); only the groups' rows move
-        _scatter_rows(self.cache["groups"], scratch["groups"], rows)
+        # scratch both at _cur_len); only the layers' slot rows move
+        _scatter_rows(self.cache["groups"], scratch["groups"], rows, 1)
+        if "prefix_layers" in self.cache:
+            _scatter_rows(self.cache["prefix_layers"],
+                          scratch["prefix_layers"], rows, 0)
         tok = self._sample(logits, self._slot_temperatures())
         self._last_tok[rows] = tok[rows]
         flat = tok.cpu().numpy()

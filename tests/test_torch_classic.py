@@ -39,7 +39,7 @@ def test_configs_equal_reference(arch):
 
 def test_unknown_arch_raises():
     with pytest.raises(KeyError):
-        t_config.get_config("olmoe-1b-7b")
+        t_config.get_config("jamba-1.5-large-398b")
 
 
 def _assert_same_split(a, b):

@@ -9,6 +9,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -202,12 +203,34 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
 
 
 def test_ssd_kernel_path_refuses_inputs_that_need_a_gradient(monkeypatch):
-    """The ssd_scan kernel has no backward: a CUDA call that would need
-    one raises instead of returning a constant."""
-    from repro_torch.kernels.ssd_scan import kernel, ops
-    monkeypatch.setattr(kernel, "ssd_fwd", lambda *a: pytest.fail(
-        "launched with inputs that need a gradient"))
-    x = _fake_cuda(1, 64, 2, 16).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.ssd(x, _fake_cuda(1, 64, 2), _fake_cuda(1, 64, 8),
-                _fake_cuda(1, 64, 8), 32)
+    """The ssd_scan kernel has no backward, and the op needs none: on CUDA
+    tensors that need a gradient the forward launches the (stubbed)
+    kernel exactly once, and the backward returns the plain
+    ``ssd_reference``'s gradients for the cotangents of both outputs."""
+    from repro_torch.kernels.ssd_scan import kernel, ops, ref
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((1, 64, 2, 16), (1, 64, 2), (1, 64, 8), (1, 64, 8))]
+    arrays[1] = -np.abs(arrays[1])
+    cts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+           for s in ((1, 64, 2, 16), (1, 2, 16, 8))]
+    plain = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    want = torch.autograd.grad(ref.ssd_reference(*plain, 32), plain, cts)
+
+    def fake(a):
+        return torch.from_numpy(a).as_subclass(FakeCuda).requires_grad_()
+    calls = []
+    monkeypatch.setattr(kernel, "ssd_fwd", lambda *a: calls.append(a))
+    monkeypatch.setattr(torch, "empty_like", lambda t: _fake_cuda(*t.shape))
+    monkeypatch.setattr(torch, "empty", lambda *s, **k: _fake_cuda(*s))
+    # the backward's plain version, on the tensors' CPU storage
+    monkeypatch.setattr(ops, "ssd_reference", lambda *a: ref.ssd_reference(
+        *(t.as_subclass(torch.Tensor) for t in a[:4]), *a[4:]))
+    tensors = [fake(a) for a in arrays]
+    before = ops.launches
+    y, state = ops.ssd(*tensors, 32)
+    assert len(calls) == 1 and ops.launches == before + 1
+    got = torch.autograd.grad((y, state), tensors, cts)
+    assert len(calls) == 1 and ops.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.as_subclass(torch.Tensor), w)

@@ -844,6 +844,74 @@ def test_flash_attention_grad_goes_through_the_plain_backward(cuda_device):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+def test_ssd_grad_through_the_kernel_forward_equals_the_plain_forward(
+        cuda_device):
+    """mamba2-370m's SSD at f32 (32 heads of 64, d_state 128, chunk 128):
+    the op's forward launches the kernel once, its backward re-runs the
+    plain version, and the gradients of a loss of both outputs equal
+    those through the plain forward."""
+    x, da, bm, cm = (t.requires_grad_() for t in ssd_inputs(
+        2, 512, 32, 64, 128, "float32", 21, cuda_device))
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(x, da, bm, cm, 128)
+    got = torch.autograd.grad(y.square().sum() + state.square().sum(),
+                              (x, da, bm, cm))
+    assert ssd_ops.launches == before + 1
+    y, state = ssd_ref.ssd_reference(x, da, bm, cm, 128)
+    want = torch.autograd.grad(y.square().sum() + state.square().sum(),
+                               (x, da, bm, cm))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def _moe_block(arch, shape, device):
+    """A full-width MoE FFN of ``arch`` (weights from a seeded CPU
+    generator) and a seeded f32 input of ``shape`` [B, S]."""
+    from repro_torch.models import moe
+    cfg = get_config(arch).model
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v.to(device) for k, v in moe.init_moe(gen, cfg).items()}
+    x = torch.randn(*shape, cfg.d_model, generator=gen).to(device)
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-moe-16b"])
+def test_moe_ffn_on_the_card_equals_the_cpu(arch, cuda_device):
+    """The same weights and f32 input (256 tokens: dropless) on the card
+    and on the CPU: the same expert choices, y within 1e-5 and every aux
+    value within 1e-6 (absolute plus relative)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_block(arch, (2, 128), cuda_device)
+    with torch.no_grad():
+        y, aux = moe.moe_ffn(p, cfg, x)
+        idx = moe.route(p["router"], x.reshape(-1, cfg.d_model),
+                        cfg.moe.top_k)[3]
+        pc = {k: v.cpu() for k, v in p.items()}
+        y_c, aux_c = moe.moe_ffn(pc, cfg, x.cpu())
+        idx_c = moe.route(pc["router"], x.cpu().reshape(-1, cfg.d_model),
+                          cfg.moe.top_k)[3]
+    assert torch.equal(idx.cpu(), idx_c)
+    torch.testing.assert_close(y.cpu(), y_c, rtol=1e-5, atol=1e-5)
+    for k in aux_c:
+        torch.testing.assert_close(aux[k].cpu(), aux_c[k], rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_combine_is_deterministic_on_the_card(dtype, cuda_device):
+    """olmoe's MoE FFN over a serving prefill's 2048 tokens (capacity
+    drops included) three times: bit-equal outputs, as greedy tokens need
+    (the combine sums each token's k rows in a fixed order, where
+    ``index_add_``'s atomics would not)."""
+    from repro_torch.models import moe
+    cfg, p, x = _moe_block("olmoe-1b-7b", (4, 512), cuda_device)
+    x = x.to(getattr(torch, dtype))
+    with torch.no_grad():
+        ys = [moe.moe_ffn(p, cfg, x)[0] for _ in range(3)]
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "minicpm-2b"])
 def test_attention_fill_kernel_equals_naive_fill_at_ragged_s(arch, dtype,

@@ -216,7 +216,8 @@ def test_cache_tree_matches_reference():
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-1.7b", "svm-wafer",
                                   "kmeans-traffic", "minicpm-2b",
-                                  "qwen2.5-14b", "deepseek-coder-33b"])
+                                  "qwen2.5-14b", "deepseek-coder-33b",
+                                  "olmoe-1b-7b", "deepseek-moe-16b"])
 def test_config_equals_reference_field_for_field(arch, getter):
     port = getattr(port_config, getter)(arch)
     ref = getattr(jax_config, getter)(arch)
@@ -244,14 +245,19 @@ def test_unported_archs_and_blocks_name_their_slice():
         port_config.get_config("paligemma-3b")
     with pytest.raises(KeyError, match="multi-codebook slice"):
         port_config.get_config("musicgen-medium")
-    with pytest.raises(KeyError, match="MoE slice"):
-        port_config.get_smoke_config("olmoe-1b-7b")
+    with pytest.raises(KeyError, match="hybrid attention/SSM/MoE slice"):
+        port_config.get_smoke_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         port_config.get_config("gpt-5")
-    moe = port_config.ModelConfig(n_layers=2, moe=port_config.MoEConfig(
-        num_experts=4, expert_ffn_dim=32))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        LM(moe, device="cpu")
+    hybrid = port_config.ModelConfig(
+        n_layers=2, layer_pattern=(port_config.MAMBA,),
+        moe=port_config.MoEConfig(num_experts=4, expert_ffn_dim=32))
+    with pytest.raises(NotImplementedError, match="item 13.6"):
+        LM(hybrid, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13.6"):
+        LM(dataclasses.replace(hybrid, layer_pattern=(
+            port_config.MAMBA, port_config.ATTN),
+            moe=port_config.MoEConfig()), device="cpu")
     attn = port_config.ModelConfig(n_layers=2)
     with pytest.raises(NotImplementedError, match="item 13.5"):
         LM(dataclasses.replace(attn, n_codebooks=4), device="cpu")
