@@ -188,6 +188,33 @@ Phases, each printing JSON lines:
               through the plain ``ssd_reference``); then kernel vs plain SSD
               at f32 (loss 1e-5, gradient norm 1e-4) and bf16, the launches
               counted in the forward and the recompute apart;
+6d. train_musicgen -- musicgen-medium at full width and depth (48 layers,
+              d_model 1536, 24 heads of 64 (MHA), GeGLU d_ff 6144, 4
+              codebooks of vocab 2048: summed embeddings, a head per
+              codebook; 1,837,254,144 parameters) through the same
+              trainer: 3 AdamW steps at B = 8, S = 512 (tokens [8, 4, 512]),
+              288 ``flash_attention`` launches (48 forward + 48 remat
+              recompute a step); then kernel vs naive attention at f32
+              (loss 1e-5, gradient norm 1e-4) and bf16;
+6e. train_paligemma -- paligemma-3b at full width and depth (18 layers,
+              d_model 2048, 8 query heads of 256 and 1 KV head, GeGLU d_ff
+              16,384, tied vocab 257,216, 256 prefix embeddings before the
+              text; 2,508,662,784 parameters): 3 steps at B = 4, S = 512,
+              the attention at (4, 768, 8, 1, 256), 108 launches; kernel vs
+              naive as in 6d; then ``--ckpt``: the launcher's saved state
+              restored into a fresh template equal to the live one bit for
+              bit, and one more step from each the same;
+5e. serve_musicgen -- musicgen-medium through ``launch/serve.build`` and
+              the engine on phase 5's traffic with [4, S] prompts (every
+              codebook sampled, codebook 0 recorded, mid-flight admission):
+              48 launches a prefill, prefill and decode ms, peak; the
+              kernel fill vs the naive fill as in 5b;
+5f. serve_paligemma -- paligemma-3b through the engine on phase 5's traffic
+              with text prompts (18 launches a prefill at (4, S, 8, 1,
+              256)); then ``LM.prefill`` of 256 prefix embeddings and 512
+              tokens (18 launches at (4, 768, 8, 1, 256)) and 16 greedy
+              decode steps, the cache index at 784; the kernel fill vs the
+              naive fill at f32 with the prefix (logits, K, V);
 7. ol4el   -- the paper's loop over qwen3-1.7b at full width
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
@@ -201,11 +228,14 @@ Phases, each printing JSON lines:
               cores, f32 on the CUDA cores, each bound at its own rate) at
               the serving and the training shape; and ``flash_attention``
               at phase 5b's prefill (4, 512, 16, 8, 128), phase 6b's
-              (4, 512, 36, 36, 64) and phases 5c / 5d's (4, 512, 16, 16,
-              128), and ``ssd_scan`` at phase 6c's (8, 512, 32, 64, 128,
-              128), bf16, each a row of its own.
+              (4, 512, 36, 36, 64), phases 5c / 5d's (4, 512, 16, 16, 128),
+              phase 6d's (8, 512, 24, 24, 64), 5e's (4, 512, 24, 24, 64),
+              6e's and 5f's prefix prefill (4, 768, 8, 1, 256) and 5f's
+              engine prefill (4, 512, 8, 1, 256), and ``ssd_scan`` at phase
+              6c's (8, 512, 32, 64, 128, 128), bf16, each a row of its own.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 7) is
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
+6e, 5e, 5f (its engine and its prefix prefill), 7) is
 driven with every kernel's launch count set to 0 just before it and read
 just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
@@ -594,7 +624,13 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (4, 515, 16, 8, 128, 0, "bfloat16"),
                (4, 512, 36, 36, 64, 0, "bfloat16"),
                (4, 512, 16, 16, 128, 0, "bfloat16"),
-               (4, 515, 16, 16, 128, 0, "bfloat16")]
+               (4, 515, 16, 16, 128, 0, "bfloat16"),
+               (8, 512, 24, 24, 64, 0, "bfloat16"),
+               (4, 512, 24, 24, 64, 0, "bfloat16"),
+               (4, 515, 24, 24, 64, 0, "bfloat16"),
+               (4, 768, 8, 1, 256, 0, "bfloat16"),
+               (4, 512, 8, 1, 256, 0, "bfloat16"),
+               (4, 515, 8, 1, 256, 0, "bfloat16")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile
 FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
@@ -605,10 +641,18 @@ FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
 # mid-flight admission at a ragged 515 above), phase 6b's attention
 # (minicpm-2b: 36 heads of 64, MHA, B = 4) and phases 5c / 5d's prefill
 # (olmoe-1b-7b and deepseek-moe-16b: 16 heads of 128, MHA, 4 slots; a
-# ragged 515 above); each with its own row in the kernels line
+# ragged 515 above); phase 6d's and 5e's (musicgen-medium: 24 heads of 64,
+# MHA; training at B = 8, a prefill of 4 slots), phase 6e's and 5f's prefix
+# prefill (paligemma-3b: 8 query heads of 256, 1 KV head, 256 prefix
+# embeddings before 512 tokens) and 5f's engine prefill of text prompts;
+# each with its own row in the kernels line
 FLASH_SERVE = (4, 512, 16, 8, 128, 0, "bfloat16")
 FLASH_MINICPM = (4, 512, 36, 36, 64, 0, "bfloat16")
 FLASH_MOE = (4, 512, 16, 16, 128, 0, "bfloat16")
+FLASH_MUSICGEN = (8, 512, 24, 24, 64, 0, "bfloat16")
+FLASH_MUSICGEN_SERVE = (4, 512, 24, 24, 64, 0, "bfloat16")
+FLASH_PALIGEMMA = (4, 768, 8, 1, 256, 0, "bfloat16")
+FLASH_PALIGEMMA_SERVE = (4, 512, 8, 1, 256, 0, "bfloat16")
 
 
 def flash_inputs(b, s, h, kv, d, dtype_name, seed):
@@ -2749,7 +2793,7 @@ class Timed:
         return self.model.init_cache(*args)
 
     def prefill(self, params, tokens, cache):
-        self.prefill_lens.append(int(tokens.shape[1]))
+        self.prefill_lens.append(int(tokens.shape[-1]))
         return self._timed("prefill", self.model.prefill, params, tokens,
                            cache)
 
@@ -2928,6 +2972,18 @@ def attention_paths():
             False: {"attn_impl": "naive"}}, tensors
 
 
+def left_padded(wave):
+    """A wave of prompts (``[S]``, or ``[CB, S]`` with codebooks) as one
+    int32 batch on the card, left-padded to the longest, as the engine
+    pads them."""
+    import numpy as np
+    import torch
+    s = max(p.shape[-1] for p in wave)
+    return torch.from_numpy(np.stack([
+        np.pad(p, [(0, 0)] * (p.ndim - 1) + [(s - p.shape[-1], 0)])
+        for p in wave]).astype(np.int32)).to("cuda")
+
+
 def serve_vs_plain(cfg, params, prompts, paths=None):
     """The prompts' prefill, kernel vs plain path (``ssd_paths()`` by
     default, or ``attention_paths()``), in waves of ``SERVE_SLOTS``, at
@@ -2952,15 +3008,15 @@ def serve_vs_plain(cfg, params, prompts, paths=None):
 
     for w in range(0, len(prompts), SERVE_SLOTS):
         wave = prompts[w: w + SERVE_SLOTS]
-        s = max(len(p) for p in wave)
-        batch = torch.tensor([[0] * (s - len(p)) + list(p) for p in wave],
-                             dtype=torch.int32, device="cuda")
+        batch = left_padded(wave)
         out = {}
         for key, m in models.items():
             with torch.inference_mode():
-                logits, cache = m.prefill(params, batch,
-                                          m.init_cache(len(wave), s))
-            out[key] = {"logits": logits[:, -1].float(), **tensors(cache)}
+                logits, cache = m.prefill(params, batch, m.init_cache(
+                    len(wave), batch.shape[-1]))
+            # the last position's logits ([B, V], or [B, CB, V])
+            out[key] = {"logits": logits[..., -1, :].float(),
+                        **tensors(cache)}
             del logits, cache
             for name, t in out[key].items():
                 check(bool(torch.isfinite(t).all()),
@@ -2981,7 +3037,7 @@ def serve_vs_plain(cfg, params, prompts, paths=None):
             lp = out[dtype, False]["logits"]
             same = lk.argmax(-1) == lp.argmax(-1)
             top2 = lp.topk(2, dim=-1).values
-            margin = top2[:, 0] - top2[:, 1]
+            margin = top2[..., 0] - top2[..., 1]
             agree[dtype] += int(same.sum())
             flips_outside += int((~same & (margin > 2 * float(
                 (lk - lp).abs().max()))).sum())
@@ -3009,23 +3065,25 @@ def serve_card_time(model, params, prompts) -> dict:
     tokens stay on the card (the engine reads them back each step)."""
     import torch
     wave = prompts[:SERVE_SLOTS]
-    s = max(len(p) for p in wave)
-    batch = torch.tensor([[0] * (s - len(p)) + list(p) for p in wave],
-                         dtype=torch.int32, device="cuda")
+    batch = left_padded(wave)
     state = {}
+
+    def next_input(logits):
+        # greedy: [B, 1], or [B, CB, 1] with codebooks
+        return logits[..., -1, :].argmax(-1)[..., None]
 
     def prefill():
         logits, state["cache"] = model.prefill(params, batch,
                                                state["cache"])
-        state["tok"] = logits[:, -1].argmax(-1)[:, None]
+        state["tok"] = next_input(logits)
 
     def decode():
         for _ in range(SERVE_PROFILED_STEPS):
             logits, state["cache"] = model.decode_step(
                 params, state["tok"], state["cache"])
-            state["tok"] = logits[:, -1].argmax(-1)[:, None]
+            state["tok"] = next_input(logits)
 
-    out = {"batch": len(wave), "prompt_len": s,
+    out = {"batch": len(wave), "prompt_len": int(batch.shape[-1]),
            "decode_steps": SERVE_PROFILED_STEPS}
     with torch.inference_mode():
         for name, fn in (("prefill", prefill), ("decode", decode)):
@@ -3044,81 +3102,116 @@ def serve_card_time(model, params, prompts) -> dict:
     return out
 
 
-def serve_attention_phase() -> dict:
+def serve_engine(cfg, name: str, want_params: int, extra=None,
+                 reruns: int = 0):
+    """``cfg`` at full width through ``launch/serve.build`` and the engine
+    on phase 5's traffic (the main path, counted; the prompts ``[S]``, or
+    ``[CB, S]`` with codebooks), its checks (``extra``: more fields for
+    the phase line), then ``reruns`` more drives that must give the same
+    greedy tokens, and past the counted run the first wave's card time.
+    Returns (summary, params, prompts)."""
     import torch
-    from repro_torch.config import get_config
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.serve import build
 
-    cfg = get_config("qwen3-1.7b").model
     t0 = time.perf_counter()
     model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     check(model.attn_impl == "kernel",
-          "qwen3 on CUDA must fill through the flash_attention kernel")
+          f"{name}: on CUDA the fill must go through flash_attention")
     n_params = sum(t.numel() for t in tree_leaves(params))
-    # num_params() is the reference's analytic count; the tree also holds
-    # each layer's q/k norm scales (2 * head_dim)
-    check(n_params == cfg.num_params() + cfg.n_layers * 2
-          * cfg.resolved_head_dim,
-          f"qwen3-1.7b holds {n_params} parameters, not its full width")
+    check(n_params == want_params,
+          f"{name}: {cfg.name} holds {n_params} parameters, not its full "
+          f"width's {want_params}")
     tokens = tokens.cpu().numpy()
-    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+    prompts = [tokens[i, ..., :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
 
     # the main path: every kernel count is read around exactly this run
     run = drive_serving(model, params, prompts)
     launches = run["launches"]
     n_prefill = len(run["timed"].times["prefill"])
-    cache = run["eng"].cache["groups"]["sub0"]
+    first = {r.uid: r.output for r in run["done"]}
+    cache = run["eng"].cache
     result = serve_result(cfg, n_params, init_s, run)
     result.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                   head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
+                  codebooks=cfg.n_codebooks,
+                  prompt_shape=list(prompts[0].shape[:-1]) + ["S"],
                   max_len=SERVE_MAX_LEN,
-                  kv_cache_bytes=2 * cache["k"].numel()
-                  * cache["k"].element_size(),
-                  flash_launches_per_prefill=cfg.n_layers)
-    emit("serve_attention", **result)
-    check_served("serve_attention", cfg, run)
+                  kv_cache_bytes=sum(t.numel() * t.element_size()
+                                     for t in tree_leaves(cache)
+                                     if t.dim()),
+                  flash_launches_per_prefill=cfg.n_layers, **(extra or {}))
+    emit(name, **result)
+    check_served(name, cfg, run)
     fa = launches["flash_attention"]
     check(fa == cfg.n_layers * n_prefill and fa > 0,
-          f"serve_attention: flash_attention launched {fa} times for "
-          f"{n_prefill} prefills of {cfg.n_layers} layers")
+          f"{name}: flash_attention launched {fa} times for {n_prefill} "
+          f"prefills of {cfg.n_layers} layers")
     check(launches["ssd_scan"] == 0 and launches["kmeans_assign"] == 0,
-          "serve_attention: ssd_scan or kmeans_assign launched")
-    check(bool(torch.isfinite(cache["k"]).all()
-               and torch.isfinite(cache["v"]).all()),
-          "serve_attention: non-finite KV cache")
+          f"{name}: ssd_scan or kmeans_assign launched")
+    check(all(bool(torch.isfinite(t).all()) for kv in layer_kv(
+        cache, SERVE_MAX_LEN) for t in kv), f"{name}: non-finite KV cache")
     del run, cache
+    for i in range(reruns):
+        again = drive_serving(model, params, prompts)
+        same = {r.uid: r.output for r in again["done"]} == first
+        emit(f"{name}_rerun", run=i + 1, tokens_equal=same,
+             prefill_ms=[t * 1e3 for t in again["timed"].times["prefill"]])
+        check(same, f"{name}: greedy tokens changed on a re-run")
+        del again
     torch.cuda.empty_cache()
     # past the counted run: where a wave's prefill and decode steps spend
     # the card's time
-    emit("serve_attention_card_time", **serve_card_time(model, params,
-                                                        prompts))
+    emit(f"{name}_card_time", **serve_card_time(model, params, prompts))
     del model
     torch.cuda.empty_cache()
+    return ({"flash_attention": fa, "prefills": n_prefill,
+             "prefill_ms": result["prefill_ms"],
+             "decode_ms_median": result["decode_ms_median"],
+             "max_memory_allocated": result["max_memory_allocated"]},
+            params, prompts)
 
+
+def check_fill_vs_plain(name: str, cfg, params, prompts) -> None:
+    """The kernel fill against the naive fill on the prompts' prefill
+    (``serve_vs_plain`` with ``attention_paths()``): logits and every
+    layer's K and V within ``SERVE_F32_TOL`` at f32, within the bf16
+    model's own rounding at bf16, no greedy first token flipped beyond
+    the logits' error margin."""
     rel_err, agree, flips_outside = serve_vs_plain(cfg, params, prompts,
                                                    attention_paths())
-    emit("serve_attention_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
-         first_token_agree=agree, first_tokens=len(prompts),
+    emit(f"{name}_vs_plain", rel_err=rel_err, f32_tol=SERVE_F32_TOL,
+         first_token_agree=agree,
+         first_tokens=len(prompts) * cfg.n_codebooks,
          flips_beyond_margin=flips_outside)
     for t in ("logits", "k", "v"):
         check(rel_err[f"kernel_vs_plain_f32.{t}"] <= SERVE_F32_TOL,
-              f"serve_attention f32: kernel vs naive fill off in {t}: "
-              f"{rel_err}")
+              f"{name} f32: kernel vs naive fill off in {t}: {rel_err}")
         check(rel_err[f"kernel_vs_plain_bf16.{t}"]
               <= rel_err[f"bf16_vs_f32_plain.{t}"],
-              f"serve_attention bf16: kernel vs naive fill in {t} beyond "
-              f"the bf16 model's own rounding: {rel_err}")
+              f"{name} bf16: kernel vs naive fill in {t} beyond the bf16 "
+              f"model's own rounding: {rel_err}")
     check(flips_outside == 0,
-          "serve_attention: a greedy first token flipped beyond the "
-          "logits' error margin")
+          f"{name}: a greedy first token flipped beyond the logits' error "
+          "margin")
+
+
+def serve_attention_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+
+    cfg = get_config("qwen3-1.7b").model
+    # num_params() is the reference's analytic count; the tree also holds
+    # each layer's q/k norm scales (2 * head_dim)
+    summary, params, prompts = serve_engine(
+        cfg, "serve_attention",
+        cfg.num_params() + cfg.n_layers * 2 * cfg.resolved_head_dim)
+    check_fill_vs_plain("serve_attention", cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
-    return {"flash_attention": fa, "prefills": n_prefill,
-            "prefill_ms": result["prefill_ms"],
-            "decode_ms_median": result["decode_ms_median"]}
+    return summary
 
 
 # -- phase 6: qwen3-1.7b training ------------------------------------------------
@@ -3172,19 +3265,20 @@ def counts() -> dict:
 
 
 def drive_training(exp, batch: int, seq: int,
-                   kernel: str = "flash_attention") -> dict:
+                   kernel: str = "flash_attention", ckpt=None) -> dict:
     """``launch.train.train_standard`` for ``TRAIN_STEPS`` steps at
     ``batch`` x ``seq``: the main path, every kernel count set to 0 just
     before it and read just after.  ``kernel`` is the one every layer's
     forward (and its remat recompute) launches.  Returns the phase line's
-    fields."""
+    fields; with ``ckpt`` (the launcher's ``--ckpt``: the state is saved
+    there after the steps) also the trained state, under ``"state"``."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.train import train_standard
 
     cfg = exp.model
     args = train_args(exp.model.name, steps=TRAIN_STEPS, batch=batch,
-                      seq=seq)
+                      seq=seq, ckpt=ckpt)
     torch.cuda.synchronize()
     allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3217,6 +3311,8 @@ def drive_training(exp, batch: int, seq: int,
         # with remat each layer's forward runs again in the backward
         "kernel": kernel, "kernel_launches_per_step": 2 * cfg.n_layers,
         "params_finite": finite}
+    if ckpt:
+        result["state"] = out["state"]
     del out, leaves
     torch.cuda.empty_cache()
     return result
@@ -3354,7 +3450,8 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
             reset_counts()
             with torch.no_grad():
                 logits[dtype, impl] = model.forward(
-                    params, batch["tokens"])[0].float()
+                    params, batch["tokens"],
+                    batch.get("prefix_emb"))[0].float()
             launches = [counts()[kernel]]
             leaves = []
 
@@ -3593,68 +3690,25 @@ def moe_block_vs_cpu(cfg, p) -> dict:
 
 
 def serve_moe(cfg, name: str, reruns: int = 0) -> dict:
-    """``cfg`` through ``launch/serve.build`` and the engine on phase 5's
-    traffic (the main path, counted), then ``reruns`` more drives that
-    must give the same greedy tokens; past the counted run the first
-    wave's card time, layer 0's MoE block against the CPU, and the kernel
-    fill against the naive fill at f32."""
+    """``cfg`` through ``serve_engine`` (phase 5's traffic, ``reruns``
+    re-runs with the same greedy tokens, the first wave's card time), then
+    layer 0's MoE block against the CPU, and the kernel fill against the
+    naive fill at f32."""
     import torch
-    from repro_torch.interop import tree_leaves
-    from repro_torch.launch.serve import build
-    t0 = time.perf_counter()
-    model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    check(model.attn_impl == "kernel",
-          f"{name}: on CUDA the fill must go through flash_attention")
-    n_params = sum(t.numel() for t in tree_leaves(params))
+    from repro_torch.models.transformer import layer_groups
+    m = cfg.moe
+    prefix, group, _ = layer_groups(cfg)
     # num_params() is the reference's analytic count; the tree also holds
     # each layer's q/k norm scales (2 * head_dim) where the model has them
     want = cfg.num_params() + (cfg.n_layers * 2 * cfg.resolved_head_dim
                                if cfg.qk_norm else 0)
-    check(n_params == want, f"{name}: {cfg.name} holds {n_params} "
-          f"parameters, not its full width's {want}")
-    tokens = tokens.cpu().numpy()
-    prompts = [tokens[i, :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
-
-    # the main path: every kernel count is read around exactly this run
-    run = drive_serving(model, params, prompts)
-    launches = run["launches"]
-    n_prefill = len(run["timed"].times["prefill"])
-    first = {r.uid: r.output for r in run["done"]}
-    cache = run["eng"].cache
-    m = cfg.moe
-    result = serve_result(cfg, n_params, init_s, run)
-    result.update(heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-                  head_dim=cfg.resolved_head_dim, vocab=cfg.vocab_size,
-                  max_len=SERVE_MAX_LEN, experts=m.num_experts,
-                  top_k=m.top_k, expert_ffn_dim=m.expert_ffn_dim,
-                  shared_experts=m.num_shared_experts,
-                  prefix_layers=[list(b) for b in model.prefix],
-                  flash_launches_per_prefill=cfg.n_layers)
-    emit(name, **result)
-    check_served(name, cfg, run)
-    fa = launches["flash_attention"]
-    check(fa == cfg.n_layers * n_prefill and fa > 0,
-          f"{name}: flash_attention launched {fa} times for {n_prefill} "
-          f"prefills of {cfg.n_layers} layers")
-    check(launches["ssd_scan"] == 0 and launches["kmeans_assign"] == 0,
-          f"{name}: ssd_scan or kmeans_assign launched")
-    check(all(bool(torch.isfinite(t).all()) for kv in layer_kv(
-        cache, SERVE_MAX_LEN) for t in kv), f"{name}: non-finite KV cache")
-    del run, cache
-    for i in range(reruns):
-        again = drive_serving(model, params, prompts)
-        same = {r.uid: r.output for r in again["done"]} == first
-        emit(f"{name}_rerun", run=i + 1, tokens_equal=same,
-             prefill_ms=[t * 1e3 for t in again["timed"].times["prefill"]])
-        check(same, f"{name}: greedy tokens changed on a re-run")
-        del again
-    torch.cuda.empty_cache()
-    # past the counted run: where a wave's prefill and decode steps spend
-    # the card's time
-    emit(f"{name}_card_time", **serve_card_time(model, params, prompts))
-    first_moe = next(i for i, (_, f) in enumerate(model.group) if f == "moe")
+    summary, params, prompts = serve_engine(
+        cfg, name, want, reruns=reruns, extra={
+            "experts": m.num_experts, "top_k": m.top_k,
+            "expert_ffn_dim": m.expert_ffn_dim,
+            "shared_experts": m.num_shared_experts,
+            "prefix_layers": [list(b) for b in prefix]})
+    first_moe = next(i for i, (_, f) in enumerate(group) if f == "moe")
     ffn = {n: t[0] for n, t in
            params["groups"][f"sub{first_moe}"]["ffn"].items()}
     block = moe_block_vs_cpu(cfg, ffn)
@@ -3663,16 +3717,14 @@ def serve_moe(cfg, name: str, reruns: int = 0) -> dict:
     check(block["expert_idx_equal"] and block["y_within_tol"]
           and block["aux_within_tol"],
           f"{name}: the MoE block on the card is not the CPU's: {block}")
-    del model, ffn
+    del ffn
     torch.cuda.empty_cache()
     fill = moe_fill_vs_naive(cfg, params, prompts)
     emit(f"{name}_vs_plain", **fill)
     check_moe_fill(f"{name}_vs_plain", fill)
     del params
     torch.cuda.empty_cache()
-    return {"flash_attention": fa, "prefills": n_prefill,
-            "prefill_ms": result["prefill_ms"],
-            "decode_ms_median": result["decode_ms_median"]}
+    return summary
 
 
 def serve_moe_phase() -> dict:
@@ -3740,6 +3792,326 @@ def mamba_train_phase() -> dict:
     return {"ssd_scan": result["launches"]["ssd_scan"],
             "step_ms_median": result["step_ms_median"],
             "max_memory_allocated": result["max_memory_allocated"]}
+
+
+# -- phases 6d / 6e: musicgen-medium and paligemma-3b training ---------------
+
+# musicgen-medium at full width and depth (48 layers, d_model 1536, 24 heads
+# of 64 (MHA), GeGLU d_ff 6144, 4 codebooks of vocab 2048: summed
+# embeddings and a head per codebook, bf16, remat; 6d) under the
+# experiment's own TrainConfig (AdamW, B = 8, S = 512, tokens [8, 4,
+# 512]); paligemma-3b at full width and depth (18 layers, d_model 2048, 8
+# query heads of 256 and 1 KV head, GeGLU d_ff 16,384, tied vocab 257,216,
+# 256 prefix embeddings before the text, bf16, remat; 6e) at B = 4, S =
+# 512 text tokens, the attention at (4, 768, 8, 1, 256).  Each after the
+# previous phase's state is released; every attention layer's forward and
+# remat recompute through flash_attention; then kernel vs naive attention
+# through the whole model at f32 (loss 1e-5, gradient norm 1e-4, as 6c
+# holds the SSD) and bf16.  6e then checks ``--ckpt``: the launcher saved
+# the state after its steps; it is restored into a fresh template (each
+# leaf's shape, dtype and device, no values) and must equal the live
+# state bit for bit; one more step from each must give the same metrics
+# and, leaf by leaf, the same bits (two int64 sums of each leaf's bit
+# patterns, one position-weighted: the two states cannot share the card
+# beside a step's gradients, so the restored one waits in host memory
+# while the live one steps).
+MULTIMODAL_F32_TOL = MAMBA_F32_TOL
+PALIGEMMA_BATCH = 4
+
+
+def musicgen_train_phase() -> dict:
+    from repro_torch.config import get_config
+    exp = get_config("musicgen-medium")
+    cfg = exp.model
+    check(exp.train.global_batch == TRAIN_BATCH and exp.train.seq_len ==
+          TRAIN_SEQ and exp.train.optimizer == "adamw" and cfg.remat
+          and cfg.n_layers == 48 and cfg.d_model == 1536
+          and cfg.n_heads == cfg.n_kv_heads == 24
+          and cfg.resolved_head_dim == 64 and cfg.n_codebooks == 4
+          and cfg.vocab_size == 2048 and not cfg.tie_embeddings,
+          "musicgen-medium: the config or the experiment's batch, sequence, "
+          "optimizer or remat changed")
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, TRAIN_BATCH, TRAIN_SEQ)
+    result.update(codebooks=cfg.n_codebooks,
+                  tokens_shape=[TRAIN_BATCH, cfg.n_codebooks, TRAIN_SEQ])
+    emit("train_musicgen", **result)
+    # num_params() is the reference's analytic count: one embedding table,
+    # where the tree holds one a codebook
+    want = cfg.num_params() + (cfg.n_codebooks - 1) * cfg.vocab_size \
+        * cfg.d_model
+    check(result["params"] == want,
+          f"musicgen-medium holds {result['params']} parameters, not {want}")
+    check_trained("train_musicgen", result)
+    return {"flash_attention": result["launches"]["flash_attention"],
+            "step_ms_median": result["step_ms_median"],
+            "max_memory_allocated": result["max_memory_allocated"]}
+
+
+def bit_digest(t) -> list:
+    """Two int64 sums of a tensor's bit patterns, plain and weighted by
+    position (mod 65,521), in chunks: equal tensors give equal digests."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    bits = t.detach().contiguous().view(ints).reshape(-1)
+    plain = weighted = 0
+    for i in range(0, bits.numel(), 1 << 26):
+        b = bits[i: i + (1 << 26)].long()
+        w = torch.arange(i, i + b.numel(), device=b.device) % 65521 + 1
+        plain += int(b.sum())
+        weighted += int((b * w).sum())
+    return [plain, weighted]
+
+
+def ckpt_check(exp, result: dict, path: Path, batch_size: int) -> dict:
+    """6e's ``--ckpt``: ``result["state"]`` (popped here, so that this
+    function holds the live state's last reference) against the file the
+    launcher wrote."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint, make_train_step
+
+    state = result.pop("state")
+    # a fresh template: each leaf's shape, dtype and device, one element
+    template = tree_map(lambda t: torch.empty(
+        (), dtype=t.dtype, device=t.device).expand(t.shape), state)
+    step_at = checkpoint.latest_step(str(path))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(str(path), template)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    leaves = list(zip(tree_leaves(restored), tree_leaves(state)))
+    unequal = sum(not (a.dtype == b.dtype and a.shape == b.shape
+                       and a.device == b.device and torch.equal(a, b))
+                  for a, b in leaves)
+    del leaves
+    # the restored state waits in host memory while the live one steps
+    restored = tree_map(lambda t: t.cpu(), restored)
+    torch.cuda.empty_cache()
+
+    step = make_train_step(build_model(exp.model, device="cuda"), exp.train)
+    batch = SyntheticLMData.for_model(exp.model, batch_size,
+                                      TRAIN_SEQ).batch(0, step_at,
+                                                       device="cuda")
+
+    def one_more_step(s):
+        reset_counts()
+        s, metrics = step(s, batch)
+        torch.cuda.synchronize()
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "digests": [bit_digest(t) for t in tree_leaves(s)],
+                "flash_attention": counts()["flash_attention"]}
+
+    live = one_more_step(state)
+    del state
+    torch.cuda.empty_cache()
+    restored = tree_map(lambda t: t.to("cuda"), restored)
+    again = one_more_step(restored)
+    del restored
+    torch.cuda.empty_cache()
+    out = {"path": str(path.relative_to(ROOT)),
+           "file_bytes": path.stat().st_size, "step": step_at,
+           "restore_s": restore_s,
+           # the launcher's wall time outside its steps: init and the save
+           "save_and_init_s": result["wall_s"]
+           - sum(result["step_ms"]) / 1e3,
+           "leaves": len(live["digests"]),
+           "leaves_unequal_after_restore": unequal,
+           "next_step_metrics_live": live["metrics"],
+           "next_step_metrics_restored": again["metrics"],
+           "next_step_digests_equal": live["digests"] == again["digests"],
+           "next_step_flash_attention": [live["flash_attention"],
+                                         again["flash_attention"]]}
+    path.unlink()
+    return out
+
+
+def paligemma_train_phase() -> dict:
+    from repro_torch.config import get_config
+    exp = get_config("paligemma-3b")
+    cfg = exp.model
+    check(exp.train.optimizer == "adamw" and cfg.remat
+          and cfg.n_layers == 18 and cfg.d_model == 2048
+          and cfg.n_heads == 8 and cfg.n_kv_heads == 1
+          and cfg.resolved_head_dim == 256 and cfg.d_ff == 16384
+          and cfg.vocab_size == 257216 and cfg.tie_embeddings
+          and cfg.num_prefix_embeddings == 256,
+          "paligemma-3b: the config, optimizer or remat changed")
+    path = ROOT / "build" / "paligemma_ckpt.npz"
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, PALIGEMMA_BATCH, TRAIN_SEQ, ckpt=str(path))
+    result.update(prefix_embeddings=cfg.num_prefix_embeddings,
+                  attention_seq=cfg.num_prefix_embeddings + TRAIN_SEQ,
+                  experiment_batch=exp.train.global_batch)
+    emit("train_paligemma", **{k: v for k, v in result.items()
+                                if k != "state"})
+    # paligemma has no q/k norms: the tree is num_params() exactly
+    check(result["params"] == cfg.num_params(),
+          f"paligemma-3b holds {result['params']} parameters, not its full "
+          "width")
+    check_trained("train_paligemma", result)
+    ck = ckpt_check(exp, result, path, PALIGEMMA_BATCH)
+    emit("train_paligemma_ckpt", **ck)
+    check(ck["step"] == TRAIN_STEPS and ck["leaves_unequal_after_restore"]
+          == 0, f"train_paligemma: --ckpt did not restore the state bit for "
+          f"bit: {ck}")
+    check(ck["next_step_metrics_live"] == ck["next_step_metrics_restored"]
+          and ck["next_step_digests_equal"]
+          and ck["next_step_flash_attention"] == [2 * cfg.n_layers] * 2,
+          f"train_paligemma: a step from the restored state is not the "
+          f"live state's: {ck}")
+    return {"flash_attention": result["launches"]["flash_attention"],
+            "step_ms_median": result["step_ms_median"],
+            "max_memory_allocated": result["max_memory_allocated"]}
+
+
+# -- phases 5e / 5f: musicgen-medium and paligemma-3b serving -----------------
+
+# both at full width and depth through ``launch/serve.build`` and the engine
+# on phase 5's traffic (SERVE_TRAFFIC, SERVE_SLOTS, SERVE_MAX_LEN,
+# SERVE_NEW_TOKENS; mid-flight admission included) after 6e's state is
+# released.  musicgen-medium's prompts are [4, S]: the engine samples every
+# codebook, decodes [4 slots, 4, 1] and records codebook 0; the kernel fill
+# is held to the naive fill as in 5b.  paligemma-3b is served on text
+# prompts, as the reference's engine serves it (18 launches a prefill at
+# (4, S, 8, 1, 256)); then ``LM.prefill`` with 256 prefix embeddings before
+# 512 text tokens (18 launches at (4, 768, 8, 1, 256)) and 16 greedy
+# decode steps against a cache of SERVE_MAX_LEN >= 256 + 512 + 16
+# positions, and the kernel fill against the naive fill at f32 with the
+# prefix: the last position's logits and every layer's K and V.
+PREFIX_TEXT, PREFIX_DECODE = 512, 16
+
+
+def serve_musicgen_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    cfg = get_config("musicgen-medium").model
+    check(cfg.n_codebooks == 4 and cfg.n_layers == 48
+          and cfg.n_heads == cfg.n_kv_heads == 24, "musicgen-medium: the "
+          "config's codebooks, depth or heads changed")
+    summary, params, prompts = serve_engine(
+        cfg, "serve_musicgen", cfg.num_params() + (cfg.n_codebooks - 1)
+        * cfg.vocab_size * cfg.d_model)
+    check(prompts[0].shape == (cfg.n_codebooks, SERVE_TRAFFIC[0][1]),
+          f"serve_musicgen: prompts of shape {prompts[0].shape}")
+    check_fill_vs_plain("serve_musicgen", cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+def prefix_serving(cfg, params) -> dict:
+    """``LM.prefill`` of ``SERVE_SLOTS`` sequences of 256 prefix
+    embeddings and ``PREFIX_TEXT`` tokens (the synthetic stream's), then
+    ``PREFIX_DECODE`` greedy decode steps: launches, ms, the cache index,
+    and the kernel fill against the naive fill at f32."""
+    import torch
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.models import LM
+
+    n_prefix = cfg.num_prefix_embeddings
+    check(SERVE_MAX_LEN >= n_prefix + PREFIX_TEXT + PREFIX_DECODE,
+          "serve_paligemma: the cache cannot hold the prefix, the text and "
+          "the decode")
+    batch = SyntheticLMData.for_model(cfg, SERVE_SLOTS, PREFIX_TEXT).batch(
+        0, 0, device="cuda")
+    model = LM(cfg, device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(SERVE_SLOTS, SERVE_MAX_LEN)
+        torch.cuda.synchronize()
+        # a main path: every kernel count is read around exactly this run
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch["tokens"], cache,
+                                      batch["prefix_emb"])
+        tok = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = counts()
+        generated, decode_ms = [tok], []
+        for _ in range(PREFIX_DECODE):
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(params, tok, cache)
+            tok = logits[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            generated.append(tok)
+        launches = counts()
+    ids = torch.cat(generated, dim=1).cpu()
+    k = cache["groups"]["sub0"]["k"]
+    out = {"batch": SERVE_SLOTS, "prefix": n_prefix, "text": PREFIX_TEXT,
+           "decode_steps": PREFIX_DECODE, "max_len": SERVE_MAX_LEN,
+           "attention_shape": [SERVE_SLOTS, n_prefix + PREFIX_TEXT,
+                               cfg.n_heads, cfg.n_kv_heads,
+                               cfg.resolved_head_dim],
+           "index": int(cache["index"]), "prefill_ms": prefill_ms,
+           "decode_ms_median": sorted(decode_ms)[len(decode_ms) // 2],
+           "prefill_launches": prefill_launches, "launches": launches,
+           "ids_first_request": ids[0].tolist(),
+           "kv_finite": bool(torch.isfinite(k[:, :, :n_prefix
+                                             + PREFIX_TEXT]).all())}
+    del model, cache, logits, k
+    torch.cuda.empty_cache()
+    check(out["index"] == n_prefix + PREFIX_TEXT + PREFIX_DECODE,
+          f"serve_paligemma prefix: cache index {out['index']}")
+    check(prefill_launches["flash_attention"] == cfg.n_layers
+          and launches == prefill_launches
+          and launches["ssd_scan"] == launches["kmeans_assign"] == 0,
+          f"serve_paligemma prefix: launches {prefill_launches} in the "
+          f"prefill, {launches} with the decode, not {cfg.n_layers} "
+          "flash_attention")
+    check(out["kv_finite"] and bool(((ids >= 0) & (ids < cfg.vocab_size))
+                                    .all()),
+          "serve_paligemma prefix: non-finite cache or ids out of the "
+          "vocabulary")
+
+    # the kernel fill against the naive fill at f32, with the prefix
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    fills = {}
+    for impl in ("kernel", "naive"):
+        m = LM(f32, attn_impl=impl, device="cuda")
+        with torch.inference_mode():
+            logits, c = m.prefill(params, batch["tokens"], m.init_cache(
+                SERVE_SLOTS, n_prefix + PREFIX_TEXT), batch["prefix_emb"])
+        g = c["groups"]["sub0"]
+        fills[impl] = {"logits": logits[:, -1].float(), "k": g["k"],
+                       "v": g["v"]}
+        del m, logits, c, g
+        torch.cuda.empty_cache()
+    out["kernel_vs_naive_f32"] = {
+        t: float((fills["kernel"][t] - fills["naive"][t]).abs().max())
+        / float(fills["naive"][t].abs().max()) for t in fills["kernel"]}
+    del fills
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_paligemma_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    cfg = get_config("paligemma-3b").model
+    check(cfg.n_heads == 8 and cfg.n_kv_heads == 1
+          and cfg.resolved_head_dim == 256 and cfg.tie_embeddings
+          and cfg.num_prefix_embeddings == 256, "paligemma-3b: the config's "
+          "heads, embeddings or prefix changed")
+    # paligemma has no q/k norms: the tree is num_params() exactly
+    summary, params, _ = serve_engine(cfg, "serve_paligemma",
+                                      cfg.num_params())
+    prefix = prefix_serving(cfg, params)
+    emit("serve_paligemma_prefix", **prefix, f32_tol=SERVE_F32_TOL)
+    check(all(v <= SERVE_F32_TOL
+              for v in prefix["kernel_vs_naive_f32"].values()),
+          f"serve_paligemma prefix f32: kernel vs naive fill beyond "
+          f"{SERVE_F32_TOL}: {prefix['kernel_vs_naive_f32']}")
+    del params
+    torch.cuda.empty_cache()
+    summary.update(prefix_flash_attention=prefix["prefill_launches"]
+                   ["flash_attention"], prefix_prefill_ms=prefix["prefill_ms"],
+                   prefix_decode_ms_median=prefix["decode_ms_median"])
+    return summary
 
 
 # -- phase 7: ol4el over the LM ----------------------------------------------------
@@ -4088,6 +4460,15 @@ def main() -> None:
     mamba_trained = mamba_train_phase()
     train_vs_plain("mamba2-370m", phase="train_mamba_vs_plain",
                    kernel="ssd_scan", f32_tol=MAMBA_F32_TOL)
+    musicgen = musicgen_train_phase()
+    train_vs_plain("musicgen-medium", phase="train_musicgen_vs_plain",
+                   f32_tol=MULTIMODAL_F32_TOL)
+    paligemma = paligemma_train_phase()
+    train_vs_plain("paligemma-3b", PALIGEMMA_BATCH,
+                   phase="train_paligemma_vs_plain",
+                   f32_tol=MULTIMODAL_F32_TOL)
+    musicgen_served = serve_musicgen_phase()
+    paligemma_served = serve_paligemma_phase()
     ol4el_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
@@ -4118,6 +4499,17 @@ def main() -> None:
     fa_moe = flash_timing(*FLASH_MOE)
     emit("flash_timing", case="olmoe-1b-7b / deepseek-moe-16b serving "
          "prefill", **fa_moe)
+    fa_musicgen = flash_timing(*FLASH_MUSICGEN)
+    emit("flash_timing", case="musicgen-medium training", **fa_musicgen)
+    fa_musicgen_serve = flash_timing(*FLASH_MUSICGEN_SERVE)
+    emit("flash_timing", case="musicgen-medium serving prefill",
+         **fa_musicgen_serve)
+    fa_paligemma = flash_timing(*FLASH_PALIGEMMA)
+    emit("flash_timing", case="paligemma-3b training and prefix prefill",
+         **fa_paligemma)
+    fa_paligemma_serve = flash_timing(*FLASH_PALIGEMMA_SERVE)
+    emit("flash_timing", case="paligemma-3b engine prefill",
+         **fa_paligemma_serve)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
@@ -4207,7 +4599,28 @@ def main() -> None:
              "phases 5c and 5d: olmoe-1b-7b and deepseek-moe-16b serving, "
              "every layer's prefill fill (16 heads of 128, MHA)",
              moe_served["flash_attention"]
-             + deepseek_served["flash_attention"], FLASH_MOE, fa_moe))] + [{
+             + deepseek_served["flash_attention"], FLASH_MOE, fa_moe),
+            ("flash_attention_musicgen_train",
+             "phase 6d: musicgen-medium training, every layer's forward and "
+             "remat recompute (24 heads of 64, MHA)",
+             musicgen["flash_attention"], FLASH_MUSICGEN, fa_musicgen),
+            ("flash_attention_musicgen_serve_prefill",
+             "phase 5e: musicgen-medium serving, every layer's prefill fill "
+             "([4, S] prompts)",
+             musicgen_served["flash_attention"], FLASH_MUSICGEN_SERVE,
+             fa_musicgen_serve),
+            ("flash_attention_paligemma_train",
+             "phases 6e and 5f: paligemma-3b training (every layer's forward "
+             "and remat recompute) and the prefill of 256 prefix embeddings "
+             "before 512 tokens (8 query heads of 256, 1 KV head, D = 256)",
+             paligemma["flash_attention"]
+             + paligemma_served["prefix_flash_attention"], FLASH_PALIGEMMA,
+             fa_paligemma),
+            ("flash_attention_paligemma_serve_prefill",
+             "phase 5f: paligemma-3b's engine prefill of text prompts, every "
+             "layer's fill (D = 256, MQA)",
+             paligemma_served["flash_attention"], FLASH_PALIGEMMA_SERVE,
+             fa_paligemma_serve))] + [{
         "name": "ssd_scan_mamba_train", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

@@ -245,10 +245,9 @@ CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 # each (the LM ids this slice does not resolve raise and name theirs).
 PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b", "minicpm-2b",
                                    "qwen2.5-14b", "deepseek-coder-33b",
-                                   "olmoe-1b-7b", "deepseek-moe-16b")
+                                   "olmoe-1b-7b", "deepseek-moe-16b",
+                                   "musicgen-medium", "paligemma-3b")
 LM_SLICES = {
-    "paligemma-3b": "the prefix-embedding slice (item 13.5)",
-    "musicgen-medium": "the multi-codebook slice (item 13.5)",
     "jamba-1.5-large-398b": "the hybrid attention/SSM/MoE slice (item 13.6)",
 }
 

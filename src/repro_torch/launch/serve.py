@@ -2,13 +2,16 @@
 
 ``python -m repro_torch.launch.serve --arch qwen3-1.7b --tokens 32`` (or
 any other ported LM id: mamba2-370m, minicpm-2b, qwen2.5-14b,
-deepseek-coder-33b, olmoe-1b-7b, deepseek-moe-16b) runs a batch of
-synthetic requests end to end on the card: prefill the prompts
-(attention through the CUDA ``flash_attention`` kernel, filling the KV
-cache; Mamba layers through ``ssd_scan``), then decode N tokens per
-request against the cache.  ``--smoke`` takes the
-reduced config, ``--device cpu`` runs the plain path on the CPU.
-Parameters are the port's random init from a generator seeded with 0.
+deepseek-coder-33b, olmoe-1b-7b, deepseek-moe-16b, musicgen-medium,
+paligemma-3b) runs a batch of synthetic requests end to end on the card:
+prefill the prompts (attention through the CUDA ``flash_attention``
+kernel, filling the KV cache; Mamba layers through ``ssd_scan``), then
+decode N tokens per request against the cache.  musicgen-medium's
+prompts are ``[B, 4, S]`` (every codebook decoded, codebook 0's ids
+printed); paligemma-3b is served on its text alone, as the reference's
+launcher serves it.  ``--smoke`` takes the reduced config, ``--device
+cpu`` runs the plain path on the CPU.  Parameters are the port's random
+init from a generator seeded with 0.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def build(mc: ModelConfig, batch: int, prompt_len: int, device=None,
     """What every entry point of the serving path starts from: the model,
     its random parameters (a generator seeded with ``seed`` on
     ``device``) and a batch of synthetic prompts, int32 [batch,
-    prompt_len]."""
+    prompt_len] (``[batch, CB, prompt_len]`` with codebooks)."""
     dev = resolve_device(device)
     model = build_model(mc, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
@@ -61,12 +64,15 @@ def main(argv=None) -> dict:
     cache = model.init_cache(args.batch, args.prompt_len + args.tokens + 1)
     gen = torch.Generator(device=dev).manual_seed(1)
 
+    cb = exp.model.n_codebooks
+
     def sample(lg):
-        lg = lg[:, -1, :]
+        lg = lg[..., -1, :]                         # [B, V] or [B, CB, V]
         if args.temperature <= 0:
             return lg.argmax(-1)
         probs = torch.softmax(lg.float() / args.temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0]
+        return torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                 generator=gen).reshape(lg.shape[:-1])
 
     with torch.inference_mode():
         _sync(dev)
@@ -80,7 +86,9 @@ def main(argv=None) -> dict:
         generated = [tok]
         t0 = time.perf_counter()
         for _ in range(args.tokens):
-            logits, cache = model.decode_step(params, tok[:, None], cache)
+            inp = tok.reshape((args.batch, cb, 1) if cb > 1
+                              else (args.batch, 1))
+            logits, cache = model.decode_step(params, inp, cache)
             tok = sample(logits)
             generated.append(tok)
         _sync(dev)
@@ -88,7 +96,9 @@ def main(argv=None) -> dict:
     print(f"decode: {args.tokens} steps x batch {args.batch} "
           f"-> {args.tokens * args.batch / dt:.1f} tok/s "
           f"({dt / max(args.tokens, 1) * 1e3:.1f} ms/step, {dev})")
-    out = torch.stack(generated, dim=1).cpu()
+    # the ids of codebook 0 (the only one without codebooks)
+    out = torch.stack([g.reshape(args.batch, -1)[:, 0] for g in generated],
+                      dim=1).cpu()
     print("generated token ids (first request):", out[0][:16].tolist())
     return {"tokens": out, "prefill_s": t_prefill, "decode_s": dt}
 

@@ -27,9 +27,12 @@ metrics (``repro_torch.obs.cli``: the EL report's registry, Prometheus
 text and JSON, and the tracer's spans) and ``--trace-dir`` a
 ``torch.profiler`` trace.  ``--telemetry [N]`` records the compiled
 run's device rings (``repro_torch.obs.rings``) into the report (and,
-with ``--metrics-out``, the ring series into the registry); the
-reference's mesh, donation (item 14) and checkpoint (item 13.7) flags
-are not taken.
+with ``--metrics-out``, the ring series into the registry).  ``--ckpt
+PATH`` saves the result in the reference's ``.npz`` format
+(``repro_torch.train.checkpoint``): the final ``TrainState`` at step
+``n_steps`` (standard), the EL report's final parameters at its
+aggregation count (ol4el).  The reference's mesh and donation flags
+(item 14) are not taken.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from repro_torch.federated import LMExecutor
 from repro_torch.models import build_model
 from repro_torch.obs.cli import (add_metrics_args, begin_observability,
                                  finish_observability, telemetry_arg)
-from repro_torch.train import init_train_state, make_train_step
+from repro_torch.train import checkpoint, init_train_state, make_train_step
 
 
 def _sync(dev: torch.device) -> None:
@@ -83,7 +86,17 @@ def train_standard(exp, args) -> dict:
             print(f"step {i:5d} loss={m['loss']:.4f} lr={m['lr']:.2e} "
                   f"gnorm={m['grad_norm']:.2f} dt={step_s[-1]:.2f}s",
                   flush=True)
+    if args.ckpt:
+        checkpoint.save(args.ckpt, state, step=n_steps)
+        print(f"saved checkpoint to {args.ckpt}")
     return {"state": state, "metrics": history, "step_s": step_s}
+
+
+def _save_el(args, report) -> None:
+    if args.ckpt:
+        checkpoint.save(args.ckpt, report.final_params,
+                        step=report.n_aggregations)
+        print(f"saved EL checkpoint to {args.ckpt}")
 
 
 def train_ol4el(exp, args):
@@ -126,6 +139,7 @@ def train_ol4el(exp, args):
           f"final loss {report.final_metric:.4f}, "
           f"consumed {report.total_consumed:.0f} "
           f"({report.terminated_reason}); arm pulls {report.arm_pulls}")
+    _save_el(args, report)
     return report
 
 
@@ -174,6 +188,7 @@ def train_classic_ol4el(exp, args):
           f"({report.terminated_reason}); arm pulls {report.arm_pulls}; "
           f"{loop['chunks']} chunks of {loop['rounds_per_chunk']} rounds, "
           f"{loop['replays']} graph replays", flush=True)
+    _save_el(args, report)
     return report
 
 
@@ -205,6 +220,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--heterogeneity", type=float, default=4.0)
     ap.add_argument("--budget", type=float, default=1e5)
     ap.add_argument("--log-every", type=int, default=5)
+    ap.add_argument("--ckpt", default=None,
+                    help="save the trained state (standard) or the EL "
+                         "run's final parameters (ol4el) to this .npz")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, required)")
     ap.add_argument("--samples", type=int, default=4000,

@@ -4,8 +4,13 @@
 This port runs the block kinds of the pure-SSM, dense and MoE families,
 each through forward, ``loss`` (and its gradient), ``prefill`` and
 ``decode_step``: ``(MAMBA, NO_FFN)`` (mamba2-370m), ``(ATTN, DENSE_FFN)``
-(qwen3-1.7b, minicpm-2b, qwen2.5-14b, deepseek-coder-33b) and ``(ATTN,
-MOE_FFN)`` (olmoe-1b-7b; deepseek-moe-16b, whose first layer is dense).
+(qwen3-1.7b, minicpm-2b, qwen2.5-14b, deepseek-coder-33b; musicgen-medium
+and paligemma-3b) and ``(ATTN, MOE_FFN)`` (olmoe-1b-7b; deepseek-moe-16b,
+whose first layer is dense).  A multi-codebook model (musicgen-medium)
+takes tokens ``[B, CB, S]``, sums the codebooks' embeddings and has one
+head per codebook (logits ``[B, CB, S, V]``); a prefix-embedding model
+(paligemma-3b) takes precomputed ``prefix_emb [B, P, d]`` placed before
+the text in ``forward``, ``loss`` and ``prefill``.
 Every full-sequence attention (the forward's and the prefill's) runs
 through the ``flash_attention`` kernel on the card, every SSD through
 ``ssd_scan``.  A MoE block returns its router's aux values, which
@@ -250,9 +255,10 @@ class LM:
     path on any device, for comparison only.  ``ring_cache``: a
     sliding-window model keeps a rolling KV cache of ``min(max_len,
     window)`` slots (the reference's option; off without a window).
-    ``fused_xent`` (the reference's sharded-vocab loss form) and
-    ``window_slice`` (item 13.7) are not ported: the trainer and the
-    engine never set them.
+    ``fused_xent``: the loss as ``logsumexp`` less the label's logit (the
+    reference's form for a vocab-sharded loss; the same value, the label
+    logit taken by ``gather`` where the reference contracts a one-hot).
+    ``window_slice`` (item 13.7) is not ported.
     """
 
     def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
@@ -269,10 +275,7 @@ class LM:
                           if attn_impl is None else attn_impl)
         self.use_ssd_kernel = (on_card if use_ssd_kernel is None
                                else use_ssd_kernel)
-        if fused_xent:
-            raise NotImplementedError(
-                "fused_xent (the reference's sharded-vocab cross-entropy) "
-                "is not ported; LM.loss takes log_softmax")
+        self.fused_xent = fused_xent
         L._refuse_window_slice(window_slice)
         self.ring_cache = ring_cache and cfg.sliding_window > 0
         self.dtype = getattr(torch, cfg.dtype)
@@ -282,10 +285,6 @@ class LM:
             raise NotImplementedError(
                 f"{cfg.name}: interleaved attention and SSM layers come "
                 f"with {_HYBRID} of the port")
-        if cfg.n_codebooks > 1 or cfg.num_prefix_embeddings:
-            raise NotImplementedError(
-                f"{cfg.name}: multi-codebook heads and prefix embeddings "
-                "come with item 13.5 of the port")
         if not cfg.scan_layers:
             raise NotImplementedError(
                 f"{cfg.name}: the port stacks layer groups; unstacked "
@@ -298,12 +297,14 @@ class LM:
         """Random parameters drawn from ``gen`` on its device, placed on
         the model's."""
         cfg = self.cfg
+        cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         params: Params = {
-            "embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model)),
+            "embed": L.embed_init(gen, cb + (cfg.vocab_size, cfg.d_model)),
             "final_norm": L.init_rms_norm(cfg.d_model, gen.device)}
         if not cfg.tie_embeddings:
-            params["lm_head"] = L.dense_init(gen, (cfg.d_model,
-                                                   cfg.vocab_size))
+            params["lm_head"] = L.dense_init(
+                gen, cb + (cfg.d_model, cfg.vocab_size),
+                in_axis_size=cfg.d_model)
         if self.prefix:
             params["prefix_layers"] = [init_block(gen, cfg, kind, ffn)
                                        for kind, ffn in self.prefix]
@@ -315,12 +316,29 @@ class LM:
 
     # -- embedding ----------------------------------------------------------
 
-    def embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()].to(self.dtype)      # [B, S, d]
+    def embed(self, params: Params, tokens: torch.Tensor,
+              prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[B, P + S, d]: the prefix embeddings (if any), then the tokens'
+        (``[B, S]``, or ``[B, CB, S]`` summed over the codebooks)."""
+        emb = params["embed"]
+        if self.cfg.n_codebooks > 1:
+            cb = torch.arange(self.cfg.n_codebooks,
+                              device=tokens.device)[None, :, None]
+            x = emb[cb, tokens.long()].to(self.dtype).sum(1)
+        else:
+            x = emb[tokens.long()].to(self.dtype)
+        if prefix_emb is not None:
+            x = torch.cat([prefix_emb.to(self.dtype), x], dim=1)
+        return x
 
     def unembed(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """Logits [B, S, V], or [B, CB, S, V] from per-codebook heads (a
+        tied embedding wins, as in the reference)."""
         if self.cfg.tie_embeddings:
             return x @ params["embed"].to(x.dtype).T
+        if self.cfg.n_codebooks > 1:
+            return torch.einsum("bsd,cdv->bcsv", x,
+                                params["lm_head"].to(x.dtype))
         return x @ params["lm_head"].to(x.dtype)
 
     # -- forward (train / scoring) ------------------------------------------
@@ -341,10 +359,11 @@ class LM:
         return x, aux
 
     def forward(self, params: Params, tokens: torch.Tensor,
+                prefix_emb: Optional[torch.Tensor] = None,
                 last_only: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         cfg = self.cfg
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, prefix_emb)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = _zero_aux(x.device)
         for p_layer, (kind, ffn) in zip(params.get("prefix_layers", []),
@@ -371,13 +390,26 @@ class LM:
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross-entropy (+ the MoE router's aux losses).
-        batch: tokens [B, S]; optional loss_mask [B, S-1]."""
+        batch: tokens [B, S] or [B, CB, S]; optional prefix_emb [B, P, d]
+        (the logits at the prefix's positions, its last included, are
+        not scored); optional loss_mask [B, S-1]."""
         tokens = batch["tokens"]
-        logits, aux = self.forward(params, tokens)
-        pred = logits[:, :-1]                               # [B, S-1, V]
-        tgt = tokens[:, 1:].long()
-        logp = torch.log_softmax(pred.float(), dim=-1)
-        nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        prefix_emb = batch.get("prefix_emb")
+        logits, aux = self.forward(params, tokens, prefix_emb)
+        n_prefix = prefix_emb.shape[1] if prefix_emb is not None else 0
+        if self.cfg.n_codebooks > 1:
+            pred = logits[:, :, :-1]                        # [B,CB,S-1,V]
+            tgt = tokens[:, :, 1:].long()                   # [B,CB,S-1]
+        else:
+            pred = logits[:, n_prefix:-1]                   # [B, S-1, V]
+            tgt = tokens[:, 1:].long()
+        if self.fused_xent:
+            logits32 = pred.float()
+            label = torch.gather(logits32, -1, tgt[..., None])[..., 0]
+            nll = torch.logsumexp(logits32, dim=-1) - label
+        else:
+            logp = torch.log_softmax(pred.float(), dim=-1)
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(nll.shape, dtype=torch.float32,
@@ -450,8 +482,10 @@ class LM:
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params) -> Tuple[torch.Tensor, Params]:
-        """One-token decode. tokens: [B, 1].  The position is the cache's
-        ``index``, a device tensor: nothing is read back to the host."""
+        """One-token decode. tokens: [B, 1] (or [B, CB, 1]
+        multi-codebook; logits [B, CB, 1, V]).  The position is the
+        cache's ``index``, a device tensor: nothing is read back to the
+        host."""
         cfg = self.cfg
         index = cache["index"]
         x = self.embed(params, tokens)                              # [B,1,d]
@@ -463,17 +497,19 @@ class LM:
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache
 
-    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params
+    def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
+                prefix_emb: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
-        """Run the full prompt through the model, filling the decode cache.
+        """Run the full prompt (after ``prefix_emb``'s P positions, if
+        given) through the model, filling the decode cache.
 
-        Attention layers write K/V for positions [0, S); SSM layers store
-        their final recurrent + conv state (from a zero state, as the
-        reference).  Returns full-sequence logits and the filled cache
-        (index advanced by S).
+        Attention layers write K/V for positions [0, P + S); SSM layers
+        store their final recurrent + conv state (from a zero state, as
+        the reference).  Returns full-sequence logits and the filled cache
+        (index advanced by P + S).
         """
         cfg = self.cfg
-        x = self.embed(params, tokens)
+        x = self.embed(params, tokens, prefix_emb)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)
         x, layers = self._run_layers(

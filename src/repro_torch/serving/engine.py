@@ -11,7 +11,9 @@
     lock-step; finished slots free early (EOS / max tokens) while the
     rest keep decoding, and a queued prompt that fits the slots' shared
     position is admitted into a free slot mid-flight;
-  * greedy or per-slot temperature sampling, max-token / EOS termination.
+  * greedy or per-slot temperature sampling, max-token / EOS termination;
+  * a multi-codebook model's prompts are ``[CB, S]``: every codebook is
+    sampled and decoded, the request records codebook 0's token.
 
 The engine is host-driven (admission control is control plane); the
 device work is the model's ``prefill`` and ``decode_step`` on the model's
@@ -40,7 +42,7 @@ Params = Any
 @dataclasses.dataclass
 class Request:
     uid: int
-    prompt: np.ndarray                 # [S] token ids
+    prompt: np.ndarray                 # [S] or [CB, S] token ids
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     temperature: float = 0.0
@@ -107,14 +109,16 @@ class ServingEngine:
 
     def _sample(self, logits: torch.Tensor,
                 temperatures: np.ndarray) -> torch.Tensor:
-        lg = logits[:, -1, :]                                   # [B, V]
+        lg = logits[..., -1, :]                     # [B, V] or [B, CB, V]
         greedy = lg.argmax(dim=-1)
         if not np.any(temperatures > 0):
             return greedy
-        t = torch.from_numpy(temperatures).to(lg.device)
+        # each slot's temperature, broadcast over its codebooks
+        t = torch.from_numpy(temperatures).to(lg.device).reshape(
+            (-1,) + (1,) * (lg.dim() - 2))
         # Gumbel-max: argmax(logits / t + g) samples softmax(logits / t)
         g = self.draws.gumbel(lg.shape, lg.device)
-        sampled = (lg.float() / t.clamp_min(1e-6)[:, None] + g).argmax(-1)
+        sampled = (lg.float() / t.clamp_min(1e-6)[..., None] + g).argmax(-1)
         return torch.where(t <= 0, greedy, sampled)
 
     @staticmethod
@@ -123,7 +127,8 @@ class ServingEngine:
 
     def _pad_prompt(self, req: Request, to_len: int) -> np.ndarray:
         p = np.asarray(req.prompt)
-        return np.pad(p, (to_len - p.shape[-1], 0))
+        return np.pad(p, [(0, 0)] * (p.ndim - 1)
+                      + [(to_len - p.shape[-1], 0)])
 
     def _admit_free_slots(self, completed: List[Request]) -> None:
         """Mid-flight admission: fill free slots from the queue without
@@ -146,7 +151,9 @@ class ServingEngine:
         self.waiting = keep
         if not admitted:
             return
-        batch = np.zeros((self.n_slots, self._cur_len), np.int32)
+        shape = np.asarray(self.slot_req[admitted[0]].prompt).shape
+        batch = np.zeros((self.n_slots,) + shape[:-1] + (self._cur_len,),
+                         np.int32)
         for slot in admitted:
             batch[slot] = self._pad_prompt(self.slot_req[slot],
                                            self._cur_len)
@@ -162,10 +169,10 @@ class ServingEngine:
                           scratch["prefix_layers"], rows, 0)
         tok = self._sample(logits, self._slot_temperatures())
         self._last_tok[rows] = tok[rows]
-        flat = tok.cpu().numpy()
+        flat = tok.cpu().numpy().reshape(self.n_slots, -1)
         for slot in admitted:
             self._append_and_check(slot, self.slot_req[slot],
-                                   int(flat[slot]), completed)
+                                   int(flat[slot, 0]), completed)
 
     def step(self) -> List[Request]:
         """Admit + decode one step. Returns requests completed this step.
@@ -183,21 +190,18 @@ class ServingEngine:
             self.waiting = self.waiting[len(wave):]
             self.cache = self.model.init_cache(self.n_slots, self.max_len)
             max_prompt = max(self._prompt_len(r) for r in wave)
-            batch = np.zeros((self.n_slots, max_prompt), np.int32)
-            for slot, req in enumerate(wave):
+            prompts = [self._pad_prompt(req, max_prompt) for req in wave]
+            batch = np.zeros((self.n_slots,) + prompts[0].shape, np.int32)
+            for slot, (req, p) in enumerate(zip(wave, prompts)):
                 self.slot_req[slot] = req
-                batch[slot] = self._pad_prompt(req, max_prompt)
+                batch[slot] = p
             logits, self.cache = self.model.prefill(
                 self.params, torch.from_numpy(batch).to(self.device),
                 self.cache)
             self._cur_len = max_prompt
             tok = self._sample(logits, self._slot_temperatures())
             self._last_tok = tok
-            flat = tok.cpu().numpy()
-            for slot, req in enumerate(self.slot_req):
-                if req is not None:
-                    self._append_and_check(slot, req, int(flat[slot]),
-                                           completed)
+            self._record(tok, completed)
             return completed
 
         if self.active == 0:
@@ -210,18 +214,24 @@ class ServingEngine:
                 return completed         # its first token (EOS / max=1)
 
         # decode step for all active slots
-        inp = self._last_tok.reshape(self.n_slots, 1)
+        cb = self.cfg.n_codebooks
+        inp = self._last_tok.reshape((self.n_slots, cb, 1) if cb > 1
+                                     else (self.n_slots, 1))
         logits, self.cache = self.model.decode_step(self.params, inp,
                                                     self.cache)
         self._cur_len += 1
         tok = self._sample(logits, self._slot_temperatures())
         self._last_tok = tok
-        flat = tok.cpu().numpy()
+        self._record(tok, completed)
+        return completed
+
+    def _record(self, tok: torch.Tensor, completed: List[Request]) -> None:
+        """Each live slot's new token (codebook 0's, with codebooks)."""
+        flat = tok.cpu().numpy().reshape(self.n_slots, -1)
         for slot, req in enumerate(self.slot_req):
             if req is not None:
-                self._append_and_check(slot, req, int(flat[slot]),
+                self._append_and_check(slot, req, int(flat[slot, 0]),
                                        completed)
-        return completed
 
     def _append_and_check(self, slot: int, req: Request, t: int,
                           completed: List[Request]) -> None:

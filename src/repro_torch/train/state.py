@@ -69,3 +69,24 @@ def make_eval_step(model):
         return metrics
 
     return eval_step
+
+
+def make_prefill_step(model, last_only: bool = False):
+    def prefill_step(params: Params, batch: Dict[str, torch.Tensor]
+                     ) -> torch.Tensor:
+        with torch.no_grad():
+            logits, _ = model.forward(params, batch["tokens"],
+                                      batch.get("prefix_emb"),
+                                      last_only=last_only)
+        return logits
+
+    return prefill_step
+
+
+def make_decode_step(model):
+    def decode_step(params: Params, tokens: torch.Tensor, cache: Any
+                    ) -> Tuple[torch.Tensor, Any]:
+        with torch.no_grad():
+            return model.decode_step(params, tokens, cache)
+
+    return decode_step

@@ -263,7 +263,13 @@ def test_kv_cache_paths_and_fused_xent_raise():
     assert tree_map(lambda t: tuple(t.shape), cache) == want
     with pytest.raises(NotImplementedError, match="window_slice"):
         LM(tc, window_slice=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused_xent"):
-        LM(tc, fused_xent=True, device="cpu")
+    # fused_xent is ported (item 13.7): the same loss as log_softmax
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, tc.vocab_size, (2, 12)).astype(np.int32))
+    params = LM(tc, device="cpu").init(torch.Generator().manual_seed(0))
+    fused = LM(tc, fused_xent=True, device="cpu").loss(params,
+                                                       {"tokens": toks})[0]
+    plain = LM(tc, device="cpu").loss(params, {"tokens": toks})[0]
+    np.testing.assert_allclose(float(fused), float(plain), rtol=1e-6)
     with pytest.raises(ValueError, match="attn_impl"):
         LM(tc, attn_impl="pallas", device="cpu")

@@ -745,7 +745,10 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
 # query heads and 8 KV heads of 128, B = 8, S = 512); then every branch of
 # the bf16 (tensor-core) instance: D 64, 128 and 256, GQA groups 1, 2 and
 # 8, S = 17 and 300 (not multiples of its 64-row tiles) and 512, windows
-# of 100 and 64 that start mid-tile
+# of 100 and 64 that start mid-tile; last the main-path shapes of
+# musicgen-medium (24 heads of 64, MHA: training at B = 8, a prefill of 4
+# slots) and paligemma-3b (8 query heads of 256, 1 KV head: 256 prefix
+# embeddings before 512 tokens, and the engine's text prefill)
 FLASH_CASES = [
     (1, 128, 4, 4, 64, 0, "float32"),
     (2, 256, 4, 2, 64, 0, "float32"),
@@ -769,6 +772,10 @@ FLASH_CASES = [
     (1, 512, 8, 4, 128, 100, "bfloat16"),
     (2, 300, 4, 4, 128, 64, "bfloat16"),
     (1, 512, 4, 2, 256, 64, "bfloat16"),
+    (8, 512, 24, 24, 64, 0, "bfloat16"),
+    (4, 512, 24, 24, 64, 0, "bfloat16"),
+    (4, 768, 8, 1, 256, 0, "bfloat16"),
+    (4, 512, 8, 1, 256, 0, "bfloat16"),
 ]
 # (b, s, h, kv, d, window, dtype), causal=False: the bf16 instance without
 # the causal bound, ragged, and with a window that starts mid-tile

@@ -241,12 +241,16 @@ def test_num_params():
 
 
 def test_unported_archs_and_blocks_name_their_slice():
-    with pytest.raises(KeyError, match="prefix-embedding slice"):
-        port_config.get_config("paligemma-3b")
-    with pytest.raises(KeyError, match="multi-codebook slice"):
-        port_config.get_config("musicgen-medium")
+    # item 13.5 resolves paligemma-3b and musicgen-medium; jamba is the one
+    # LM id left, and it names item 13.6
+    for arch in ("paligemma-3b", "musicgen-medium"):
+        assert port_config.get_config(arch).model.name == arch
+        assert arch in port_config.PORTED_LM_IDS
+    assert list(port_config.LM_SLICES) == ["jamba-1.5-large-398b"]
     with pytest.raises(KeyError, match="hybrid attention/SSM/MoE slice"):
         port_config.get_smoke_config("jamba-1.5-large-398b")
+    with pytest.raises(KeyError, match="item 13.6"):
+        port_config.get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError, match="unknown arch"):
         port_config.get_config("gpt-5")
     hybrid = port_config.ModelConfig(
@@ -259,8 +263,11 @@ def test_unported_archs_and_blocks_name_their_slice():
             port_config.MAMBA, port_config.ATTN),
             moe=port_config.MoEConfig()), device="cpu")
     attn = port_config.ModelConfig(n_layers=2)
-    with pytest.raises(NotImplementedError, match="item 13.5"):
-        LM(dataclasses.replace(attn, n_codebooks=4), device="cpu")
+    # multi-codebook heads and prefix embeddings build (item 13.5)
+    cb = LM(dataclasses.replace(attn, n_codebooks=4, num_prefix_embeddings=2),
+            device="cpu")
+    assert cb.init(torch.Generator().manual_seed(0))["lm_head"].shape == (
+        4, attn.d_model, attn.vocab_size)
     with pytest.raises(NotImplementedError, match="item 13.7"):
         LM(attn, window_slice=True, device="cpu")
 

@@ -5,7 +5,8 @@
 numpy): both dispatch modes, grouped dispatch, shared experts and a tight
 capacity that drops assignments, each with identical expert choices,
 y within 1e-5, every aux value within 1e-6 and gradients to x and every
-weight within 1e-4; the dropless decode rule, a constructed top-k tie.
+weight within 1e-4; the dropless decode rule, a constructed top-k tie;
+at bf16 the same expert choices and y within the bf16 bound 2e-2.
 Then olmoe-1b-7b and deepseek-moe-16b at smoke width (2 layers: no
 unstacked prefix) and a 4-layer deepseek-moe (its dense first layer is
 the reference's ``prefix_layers``): ``forward`` with its aux, ``loss``
@@ -153,6 +154,30 @@ def test_moe_ffn_matches_reference(case, kw, shape):
     _close(grads[0], gx_ref, GRAD_TOL)
     for n, g in zip(names, grads[1:]):
         _close(g, gp_ref[n], GRAD_TOL)
+
+
+def test_moe_ffn_at_bf16_within_the_bf16_bound():
+    """The bf16 tier (olmoe and deepseek-moe serve in bf16): x (4, 64, 64)
+    bf16 through 8 experts, top 4, f32 weights (256 tokens of top-4:
+    dropless).  The expert choices are identical; y is within the
+    per-function bf16 bound of ``tests/test_torch_kv_cache.py``, 2e-2: the
+    two packages' expert matmuls round at other places, and the port's
+    fixed-order combine sums the k rows where the reference scatter-adds
+    them."""
+    rc, tc = _moe_cfgs(e=8, k=4, d=64, f=32)
+    rp = jax.tree.map(np.asarray, jax_moe.init_moe(jax.random.key(3), rc))
+    tp = tree_from_numpy(rp, "cpu")
+    x = np.random.default_rng(11).standard_normal((4, 64, 64)).astype(
+        jnp.bfloat16)
+    xt = tree_from_numpy(x, "cpu")
+    assert xt.dtype == torch.bfloat16
+    want_idx = _ref_expert_idx(rp, x, 4)
+    got_idx = port_moe.route(tp["router"], xt.reshape(-1, 64), 4)[3]
+    assert np.array_equal(got_idx.numpy(), want_idx)
+    y_ref, _ = jax_moe.moe_ffn(rp, rc, jnp.asarray(x))
+    y, _ = port_moe.moe_ffn(tp, tc, xt)
+    assert y.dtype == torch.bfloat16 and y_ref.dtype == jnp.bfloat16
+    _close(y, y_ref, 2e-2)
 
 
 @pytest.mark.parametrize("t,e,k,cf", [(1, 64, 8, 1.25), (4, 64, 6, 1.25),
