@@ -215,6 +215,29 @@ Phases, each printing JSON lines:
               tokens (18 launches at (4, 768, 8, 1, 256)) and 16 greedy
               decode steps, the cache index at 784; the kernel fill vs the
               naive fill at f32 with the prefix (logits, K, V);
+5g. serve_jamba -- jamba-1.5-large-398b at full width (d_model 8192, 64
+              query and 8 KV heads of 128, 16 experts top-2 of d_ff 24,576,
+              Mamba-2 with 128 heads of 128 and d_state 128), its depth cut
+              from 72 layers to layers 2-4 of its group, (MAMBA, DENSE),
+              (MAMBA, MOE), (ATTN, DENSE): 12.91 B parameters, a 51.6 GB
+              f32 tree; phase 5's traffic through the engine, a re-run
+              with equal tokens, flash_attention once and ssd_scan twice a
+              prefill (P = N = 128), peak memory and the first wave's card
+              time; the kernel fill vs the naive fill at f32 (K, V, SSM and
+              conv state, logits; expert sets agreeing, as in 5c);
+5h. serve_long_context -- qwen3-1.7b with the reference's long-context
+              sliding window of 8192: 2 slots of 12,288-token prompts and
+              16 greedy decode steps through the engine, with the masked
+              full cache, with ``window_slice`` and with ``ring_cache``
+              (8192 slots): each prefill launches flash_attention 28 times
+              at window 8192; the three runs' tokens equal, their logits
+              within the bf16 model's own rounding of each other;
+6f. train_hybrid -- jamba-1.5's (MAMBA, DENSE), (ATTN, DENSE) at full
+              width (2.85 B parameters): 3 AdamW steps at B = 8, S = 512,
+              flash_attention and ssd_scan each twice a step (remat); then
+              kernel vs plain at f32 (loss 1e-5, gradient norm 1e-4) and
+              bf16, and the same on the smoke config over two groups of the
+              full 8-layer pattern (MoE choices replayed on the plain path);
 7. ol4el   -- the paper's loop over qwen3-1.7b at full width
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
@@ -231,11 +254,16 @@ Phases, each printing JSON lines:
               (4, 512, 36, 36, 64), phases 5c / 5d's (4, 512, 16, 16, 128),
               phase 6d's (8, 512, 24, 24, 64), 5e's (4, 512, 24, 24, 64),
               6e's and 5f's prefix prefill (4, 768, 8, 1, 256) and 5f's
-              engine prefill (4, 512, 8, 1, 256), and ``ssd_scan`` at phase
-              6c's (8, 512, 32, 64, 128, 128), bf16, each a row of its own.
+              engine prefill (4, 512, 8, 1, 256), 5g's (4, 512, 64, 8, 128),
+              6f's (8, 512, 64, 8, 128) and 5h's (2, 12288, 16, 8, 128) at
+              window 8192 (its library time SDPA with a boolean band mask),
+              and ``ssd_scan`` at phase 6c's (8, 512, 32, 64, 128, 128), 5g's
+              (4, 512, 128, 128, 128, 128) (and f32) and 6f's (8, 512, 128,
+              128, 128, 128), bf16, each a row of its own.
 
 Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
-6e, 5e, 5f (its engine and its prefix prefill), 7) is
+6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
+runs), 6f, 7) is
 driven with every kernel's launch count set to 0 just before it and read
 just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
@@ -476,7 +504,11 @@ def kernel_cells_vs_plain(n_cells: int) -> float:
 # branches: P tile P (the serving shape; B * H = 160) and P / 2 (a lone
 # prompt), P = N = 128 (jamba-1.5's head dim and d_state) with P tiles of
 # 64 and of 128 (a warp holding 4 state items), N = 16 with a ragged L;
-# last phase 6c's training shape (mamba2-370m at B = 8, S = 512)
+# phase 6c's training shape (mamba2-370m at B = 8, S = 512); last
+# jamba-1.5's (128 heads of P = N = 128): phase 5g's prefill in bf16 (P
+# tile 64, B * H = 512) and in f32 (its kernel-vs-naive fill: the f32
+# instance's plan takes 231,936 of the card's 232,448 bytes of shared
+# memory), and phase 6f's training shape
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -493,13 +525,18 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 128, 136, 128, 32, 64, "bfloat16"),
              (2, 128, 70, 128, 128, 64, "bfloat16"),
              (2, 100, 4, 32, 16, 100, "bfloat16"),
-             (8, 512, 32, 64, 128, 128, "bfloat16")]
+             (8, 512, 32, 64, 128, 128, "bfloat16"),
+             (4, 512, 128, 128, 128, 128, "bfloat16"),
+             (4, 512, 128, 128, 128, 128, "float32"),
+             (8, 512, 128, 128, 128, 128, "bfloat16")]
 # shapes the bf16 instance refuses, with the error's words: N not a
 # multiple of 16, and a plan beyond the card's shared memory
 SSD_REFUSED = [((1, 128, 2, 32, 24, 64), "multiples of 16"),
                ((1, 128, 2, 64, 256, 128), "shared memory")]
 SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
 SSD_TRAIN = (8, 512, 32, 64, 128, 128, "bfloat16")      # phase 6c's
+SSD_JAMBA = (4, 512, 128, 128, 128, 128, "bfloat16")    # phase 5g's
+SSD_JAMBA_TRAIN = (8, 512, 128, 128, 128, 128, "bfloat16")   # 6f's
 
 
 def ssd_inputs(b, s, h, p, n, dtype_name, seed):
@@ -630,7 +667,11 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (4, 515, 24, 24, 64, 0, "bfloat16"),
                (4, 768, 8, 1, 256, 0, "bfloat16"),
                (4, 512, 8, 1, 256, 0, "bfloat16"),
-               (4, 515, 8, 1, 256, 0, "bfloat16")]
+               (4, 515, 8, 1, 256, 0, "bfloat16"),
+               (4, 512, 64, 8, 128, 0, "bfloat16"),
+               (4, 512, 64, 8, 128, 0, "float32"),
+               (4, 515, 64, 8, 128, 0, "bfloat16"),
+               (8, 512, 64, 8, 128, 0, "bfloat16")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile
 FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
@@ -653,6 +694,16 @@ FLASH_MUSICGEN = (8, 512, 24, 24, 64, 0, "bfloat16")
 FLASH_MUSICGEN_SERVE = (4, 512, 24, 24, 64, 0, "bfloat16")
 FLASH_PALIGEMMA = (4, 768, 8, 1, 256, 0, "bfloat16")
 FLASH_PALIGEMMA_SERVE = (4, 512, 8, 1, 256, 0, "bfloat16")
+# jamba-1.5's attention layer (64 query heads over 8 KV heads of 128, a
+# group of 8): phase 5g's prefill (4 slots; a ragged 515 above) and 6f's
+# training (B = 8); then phase 5h's long-context prefill (qwen3-1.7b, 2
+# slots of 12,288 tokens, the sliding window of 8192: the kernel's window
+# branch, which skips the tiles wholly before each query tile's window),
+# compared with its plain version one KV head's group at a time (the
+# whole plain version's f64 logits would take 38.7 GB)
+FLASH_JAMBA = (4, 512, 64, 8, 128, 0, "bfloat16")
+FLASH_JAMBA_TRAIN = (8, 512, 64, 8, 128, 0, "bfloat16")
+FLASH_LONG = (2, 12288, 16, 8, 128, 8192, "bfloat16")
 
 
 def flash_inputs(b, s, h, kv, d, dtype_name, seed):
@@ -694,7 +745,49 @@ def flash_vs_plain() -> dict:
               f"flash_attention off at {case}, causal={causal}: {res}")
         if causal:
             errs[case] = res["max_abs_err"]
+    errs[FLASH_LONG] = flash_long_vs_plain(FLASH_LONG)
     return errs
+
+
+def flash_long_vs_plain(case) -> float:
+    """``case``'s kernel output against the plain version within
+    ``ref.allowed_error``, held one (batch row, KV head) at a time: each
+    query head sees only its own KV head, so a slice of q's heads and of
+    k and v is the whole function on that slice."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, s, h, kv, d, window, dt = case
+    q, k, v = flash_inputs(b, s, h, kv, d, dt, seed=299)
+    out = ops.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    g = h // kv
+    res = {"max_abs_err": 0.0, "beyond_allowed": 0, "kernel_vs_f64": 0.0,
+           "plain_vs_f64": 0.0, "finite": bool(torch.isfinite(out).all())}
+    for i in range(b):
+        for j in range(kv):
+            qs = q[i:i + 1, :, j * g:(j + 1) * g]
+            ks, vs = k[i:i + 1, :, j:j + 1], v[i:i + 1, :, j:j + 1]
+            got = out[i:i + 1, :, j * g:(j + 1) * g].double()
+            want, allowed = ref.allowed_error(qs, ks, vs, window=window)
+            exact = ref.attention_ref(qs.double(), ks.double(), vs.double(),
+                                      window=window)
+            err = (got - want).abs()
+            res["max_abs_err"] = max(res["max_abs_err"], float(err.max()))
+            res["beyond_allowed"] += int((err > allowed).sum())
+            res["kernel_vs_f64"] = max(res["kernel_vs_f64"], float(
+                (got - exact).abs().max()))
+            res["plain_vs_f64"] = max(res["plain_vs_f64"], float(
+                (want - exact).abs().max()))
+            del want, allowed, exact, err
+    emit("kernel_vs_plain", kernel="flash_attention", b=b, s=s, h=h, kv=kv,
+         d=d, window=window, causal=True, dtype=dt,
+         tol=ref.tolerance(q.dtype), compared="per (batch row, KV head)",
+         **res)
+    check(res["finite"] and res["beyond_allowed"] == 0,
+          f"flash_attention off at {case}: {res}")
+    del q, k, v, out
+    torch.cuda.empty_cache()
+    return res["max_abs_err"]
 
 
 # -- phase 4: the slice ----------------------------------------------------------
@@ -3118,14 +3211,20 @@ def serve_engine(cfg, name: str, want_params: int, extra=None,
     model, params, tokens = build(cfg, len(SERVE_TRAFFIC), 512, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    check(model.attn_impl == "kernel",
-          f"{name}: on CUDA the fill must go through flash_attention")
+    check(model.attn_impl == "kernel" and model.use_ssd_kernel,
+          f"{name}: on CUDA the fill must go through flash_attention and "
+          "ssd_scan")
     n_params = sum(t.numel() for t in tree_leaves(params))
     check(n_params == want_params,
           f"{name}: {cfg.name} holds {n_params} parameters, not its full "
           f"width's {want_params}")
     tokens = tokens.cpu().numpy()
     prompts = [tokens[i, ..., :n] for i, (_, n) in enumerate(SERVE_TRAFFIC)]
+    # each attention layer's fill launches flash_attention once a prefill,
+    # each Mamba layer's ssd_scan
+    kinds = cfg.layer_kinds()
+    per_prefill = {"flash_attention": kinds.count("attn"),
+                   "ssd_scan": kinds.count("mamba")}
 
     # the main path: every kernel count is read around exactly this run
     run = drive_serving(model, params, prompts)
@@ -3142,15 +3241,18 @@ def serve_engine(cfg, name: str, want_params: int, extra=None,
                   kv_cache_bytes=sum(t.numel() * t.element_size()
                                      for t in tree_leaves(cache)
                                      if t.dim()),
-                  flash_launches_per_prefill=cfg.n_layers, **(extra or {}))
+                  flash_launches_per_prefill=per_prefill["flash_attention"],
+                  ssd_launches_per_prefill=per_prefill["ssd_scan"],
+                  **(extra or {}))
     emit(name, **result)
     check_served(name, cfg, run)
     fa = launches["flash_attention"]
-    check(fa == cfg.n_layers * n_prefill and fa > 0,
-          f"{name}: flash_attention launched {fa} times for {n_prefill} "
-          f"prefills of {cfg.n_layers} layers")
-    check(launches["ssd_scan"] == 0 and launches["kmeans_assign"] == 0,
-          f"{name}: ssd_scan or kmeans_assign launched")
+    for kernel, n in per_prefill.items():
+        check(launches[kernel] == n * n_prefill,
+              f"{name}: {kernel} launched {launches[kernel]} times for "
+              f"{n_prefill} prefills of {n} such layers")
+    check(fa > 0 and launches["kmeans_assign"] == 0,
+          f"{name}: flash_attention not launched, or kmeans_assign was")
     check(all(bool(torch.isfinite(t).all()) for kv in layer_kv(
         cache, SERVE_MAX_LEN) for t in kv), f"{name}: non-finite KV cache")
     del run, cache
@@ -3167,7 +3269,8 @@ def serve_engine(cfg, name: str, want_params: int, extra=None,
     emit(f"{name}_card_time", **serve_card_time(model, params, prompts))
     del model
     torch.cuda.empty_cache()
-    return ({"flash_attention": fa, "prefills": n_prefill,
+    return ({"flash_attention": fa, "ssd_scan": launches["ssd_scan"],
+             "prefills": n_prefill,
              "prefill_ms": result["prefill_ms"],
              "decode_ms_median": result["decode_ms_median"],
              "max_memory_allocated": result["max_memory_allocated"]},
@@ -3269,9 +3372,11 @@ def drive_training(exp, batch: int, seq: int,
     """``launch.train.train_standard`` for ``TRAIN_STEPS`` steps at
     ``batch`` x ``seq``: the main path, every kernel count set to 0 just
     before it and read just after.  ``kernel`` is the one every layer's
-    forward (and its remat recompute) launches.  Returns the phase line's
-    fields; with ``ckpt`` (the launcher's ``--ckpt``: the state is saved
-    there after the steps) also the trained state, under ``"state"``."""
+    forward (and its remat recompute) launches, or ``"both"`` for a
+    hybrid stack, whose attention layers launch ``flash_attention`` and
+    whose Mamba layers ``ssd_scan``.  Returns the phase line's fields;
+    with ``ckpt`` (the launcher's ``--ckpt``: the state is saved there
+    after the steps) also the trained state, under ``"state"``."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.train import train_standard
@@ -3309,13 +3414,26 @@ def drive_training(exp, batch: int, seq: int,
         "wall_s": wall, "allocated_before": allocated_before,
         "max_memory_allocated": peak, "launches": launches,
         # with remat each layer's forward runs again in the backward
-        "kernel": kernel, "kernel_launches_per_step": 2 * cfg.n_layers,
+        "kernel": kernel,
+        "kernel_launches_per_step": {
+            k: 2 * n for k, n in layers_by_kernel(cfg, kernel).items()},
         "params_finite": finite}
     if ckpt:
         result["state"] = out["state"]
     del out, leaves
     torch.cuda.empty_cache()
     return result
+
+
+def layers_by_kernel(cfg, kernel: str) -> dict:
+    """The layers of ``cfg`` that launch each kernel once a pass:
+    ``kernel`` for every layer, or with ``"both"`` ``flash_attention``
+    for the attention layers and ``ssd_scan`` for the Mamba layers."""
+    if kernel != "both":
+        return {kernel: cfg.n_layers}
+    kinds = cfg.layer_kinds()
+    return {"flash_attention": kinds.count("attn"),
+            "ssd_scan": kinds.count("mamba")}
 
 
 def check_trained(name: str, result: dict) -> None:
@@ -3325,12 +3443,13 @@ def check_trained(name: str, result: dict) -> None:
                                              for x in losses)
           and result["params_finite"],
           f"{name}: non-finite loss or parameters: {losses}")
-    launches, kernel = result["launches"], result["kernel"]
+    launches = result["launches"]
     per_step = result["kernel_launches_per_step"]
-    check(launches[kernel] == per_step * TRAIN_STEPS,
-          f"{name}: {kernel} launched {launches[kernel]} times, not "
-          f"{per_step} x {TRAIN_STEPS}")
-    others = [k for k, n in launches.items() if n and k != kernel]
+    for kernel, n in per_step.items():
+        check(launches[kernel] == n * TRAIN_STEPS and n > 0,
+              f"{name}: {kernel} launched {launches[kernel]} times, not "
+              f"{n} x {TRAIN_STEPS}")
+    others = [k for k, n in launches.items() if n and k not in per_step]
     check(not others, f"{name}: {others} launched")
 
 
@@ -3414,15 +3533,19 @@ def minicpm_train_phase() -> dict:
 def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
                    seq: int = TRAIN_SEQ, phase: str = "train_vs_plain",
                    kernel: str = "flash_attention",
-                   f32_tol: dict = None) -> dict:
+                   f32_tol: dict = None, cfg=None) -> dict:
     """The kernel and the plain path (``kernel`` ``flash_attention``: the
     kernel and the naive attention; ``ssd_scan``: the kernel's SSD and
-    ``ssd_reference``) through the whole model, at f32 and at the config's
-    bf16, from the same weights and batch: a forward pass's logits, and
-    one step's loss and gradient norm.  ``f32_tol`` bounds each f32 gap
-    (``TRAIN_F32_TOL`` by default).  The kernel's launches are counted in
-    the forward pass, the loss's forward and the backward (each layer's
-    remat recompute) apart."""
+    ``ssd_reference``; ``"both"``: the two kernels against the two plain
+    paths) through the whole model (``cfg``, default ``arch``'s), at f32
+    and at the config's bf16, from the same weights and batch: a forward
+    pass's logits, and one step's loss and gradient norm.  ``f32_tol``
+    bounds each f32 gap (``TRAIN_F32_TOL`` by default).  The kernels'
+    launches are counted in the forward pass, the loss's forward and the
+    backward (each layer's remat recompute) apart.  With MoE layers the
+    plain path takes the kernel path's expert choices, replayed call by
+    call (``RoutingLog``: a choice at the top-k boundary may flip with
+    f32 rounding, and the comparison is of the kernels, not of that)."""
     import torch
     from repro_torch.config import get_config
     from repro_torch.data import SyntheticLMData
@@ -3432,12 +3555,14 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
 
     f32_tol = f32_tol or {k: TRAIN_F32_TOL
                           for k in ("logits", "loss", "grad_norm")}
-    path_kw = ({"kernel": {"attn_impl": "kernel"},
-                "naive": {"attn_impl": "naive"}}
-               if kernel == "flash_attention" else
-               {"kernel": {"use_ssd_kernel": True},
-                "naive": {"use_ssd_kernel": False}})
-    cfg = get_config(arch).model
+    path_kw = {"flash_attention": {"kernel": {"attn_impl": "kernel"},
+                                   "naive": {"attn_impl": "naive"}},
+               "ssd_scan": {"kernel": {"use_ssd_kernel": True},
+                            "naive": {"use_ssd_kernel": False}},
+               "both": HYBRID_PATHS}[kernel]
+    cfg = cfg or get_config(arch).model
+    per_pass = layers_by_kernel(cfg, kernel)
+    replay = {}                    # dtype -> the kernel path's choices
     params = LM(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
     batch = SyntheticLMData.for_model(cfg, batch_size, seq).batch(
@@ -3448,26 +3573,35 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
             model = LM(dataclasses.replace(cfg, dtype=dtype), device="cuda",
                        **path_kw[impl])
             reset_counts()
-            with torch.no_grad():
-                logits[dtype, impl] = model.forward(
-                    params, batch["tokens"],
-                    batch.get("prefix_emb"))[0].float()
-            launches = [counts()[kernel]]
-            leaves = []
+            marks = [counts()]
+            with RoutingLog(replay.get(dtype) if impl == "naive"
+                            else None) as log:
+                with torch.no_grad():
+                    logits[dtype, impl] = model.forward(
+                        params, batch["tokens"],
+                        batch.get("prefix_emb"))[0].float()
+                marks.append(counts())
+                leaves = []
 
-            def track(p):
-                leaves.append(p.detach().requires_grad_())
-                return leaves[-1]
-            loss, metrics = model.loss(tree_map(track, params), batch)
-            launches.append(counts()[kernel] - launches[0])
-            grads = torch.autograd.grad(loss, leaves)
-            launches.append(counts()[kernel] - sum(launches))
+                def track(p):
+                    leaves.append(p.detach().requires_grad_())
+                    return leaves[-1]
+                loss, metrics = model.loss(tree_map(track, params), batch)
+                marks.append(counts())
+                grads = torch.autograd.grad(loss, leaves)
+                marks.append(counts())
+            if impl == "kernel":
+                replay[dtype] = log.idx
             _, gnorm = clip_by_global_norm(grads, 0.0)
             out[dtype, impl] = {"loss": float(metrics["loss"].detach()),
                                 "grad_norm": float(gnorm),
-                                "launches": dict(zip(
-                                    ("forward", "loss_forward",
-                                     "backward_recompute"), launches))}
+                                "moe_calls": len(log.idx),
+                                "launches": {
+                                    k: dict(zip(("forward", "loss_forward",
+                                                 "backward_recompute"),
+                                                (b[k] - a[k] for a, b in
+                                                 zip(marks, marks[1:]))))
+                                    for k in per_pass}}
             del grads, loss, leaves
             torch.cuda.empty_cache()
 
@@ -3491,10 +3625,11 @@ def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
     for (dtype, impl), v in out.items():
         # each pass runs every layer once: the forward, the loss's
         # forward, the remat recompute in the backward
-        want = cfg.n_layers if impl == "kernel" else 0
-        check(all(n == want for n in v["launches"].values()),
-              f"{phase} {dtype} {impl}: {kernel} launched "
-              f"{v['launches']} times, not {want} a pass")
+        for k, n_layers in per_pass.items():
+            want = n_layers if impl == "kernel" else 0
+            check(all(n == want for n in v["launches"][k].values()),
+                  f"{phase} {dtype} {impl}: {k} launched "
+                  f"{v['launches'][k]} times, not {want} a pass")
     for k, tol in f32_tol.items():
         check(gaps["kernel_vs_naive_f32"][k] <= tol,
               f"{phase} f32: kernel vs plain {k} beyond {tol}: {gaps}")
@@ -3574,30 +3709,51 @@ class RoutingLog:
 
 def layer_kv(cache, s: int) -> list:
     """Every attention layer's (K, V) of a cache tree, positions [0, s),
-    in f32: the unstacked prefix layers', then each group's."""
+    in f32: the unstacked prefix layers', then each group's (a Mamba
+    layer's state has no K and V)."""
     out = [(c["k"][:, :s].float(), c["v"][:, :s].float())
-           for c in cache.get("prefix_layers", [])]
+           for c in cache.get("prefix_layers", []) if "k" in c]
     for sub in cache["groups"].values():
-        out += [(k[:, :s].float(), v[:, :s].float())
-                for k, v in zip(sub["k"].unbind(0), sub["v"].unbind(0))]
+        if "k" in sub:
+            out += [(k[:, :s].float(), v[:, :s].float()) for k, v in
+                    zip(sub["k"].unbind(0), sub["v"].unbind(0))]
     return out
+
+
+def layer_ssm(cache) -> list:
+    """Every Mamba layer's (SSM state, conv state) of a stacked cache
+    tree, in f32."""
+    out = []
+    for sub in cache["groups"].values():
+        if "ssm" in sub:
+            out += [(a.float(), c.float()) for a, c in
+                    zip(sub["ssm"].unbind(0), sub["conv"].unbind(0))]
+    return out
+
+
+HYBRID_PATHS = {"kernel": {"attn_impl": "kernel", "use_ssd_kernel": True},
+                "naive": {"attn_impl": "naive", "use_ssd_kernel": False}}
 
 
 def moe_fill_vs_naive(cfg, params, prompts) -> dict:
     """The prompts' prefill in waves of ``SERVE_SLOTS`` at f32 (same
-    weights), the ``flash_attention`` kernel fill against the naive fill:
-    run free, the (token, layer) expert sets that differ and the relative
-    errors of the last position's logits and every layer's K and V
+    weights), the kernel fill (``flash_attention``, and ``ssd_scan`` for
+    Mamba layers) against the naive fill (naive attention, the plain
+    SSD): run free, the (token, layer) expert sets that differ and the
+    relative errors of the last position's logits, every attention
+    layer's K and V and every Mamba layer's SSM and conv state
     (``free.*``); then the naive fill on the kernel fill's replayed expert
     choices, its errors (``replayed.*``)."""
     import torch
     from repro_torch.models import LM
     models = {impl: LM(dataclasses.replace(cfg, dtype="float32"),
-                       attn_impl=impl, device="cuda")
-              for impl in ("kernel", "naive")}
+                       device="cuda", **kw)
+              for impl, kw in HYBRID_PATHS.items()}
+    hybrid = "mamba" in cfg.layer_kinds()
+    parts = ("logits", "k", "v") + (("ssm", "conv") if hybrid else ())
     sets = differ = 0
     err = {f"{run}.{t}": 0.0 for run in ("replayed", "free")
-           for t in ("logits", "k", "v")}
+           for t in parts}
     for w in range(0, len(prompts), SERVE_SLOTS):
         wave = prompts[w: w + SERVE_SLOTS]
         s = max(len(p) for p in wave)
@@ -3612,10 +3768,11 @@ def moe_fill_vs_naive(cfg, params, prompts) -> dict:
                 logits, cache = m.prefill(params, batch,
                                           m.init_cache(len(wave), s))
             out[run] = {"logits": logits[:, -1].float(),
-                        "kv": layer_kv(cache, s), "idx": log.idx}
+                        "kv": layer_kv(cache, s), "idx": log.idx,
+                        "ssm": layer_ssm(cache)}
             del logits, cache
-            check(all(bool(torch.isfinite(t).all()) for kv in out[run]["kv"]
-                      for t in kv)
+            check(all(bool(torch.isfinite(t).all())
+                      for kv in out[run]["kv"] + out[run]["ssm"] for t in kv)
                   and bool(torch.isfinite(out[run]["logits"]).all()),
                   f"moe fill {run}: non-finite logits or cache")
         for a, b in zip(out["kernel"]["idx"], out["free"]["idx"]):
@@ -3629,9 +3786,13 @@ def moe_fill_vs_naive(cfg, params, prompts) -> dict:
                      "k": [(a[0], b[0]) for a, b in
                            zip(out["kernel"]["kv"], out[run]["kv"])],
                      "v": [(a[1], b[1]) for a, b in
-                           zip(out["kernel"]["kv"], out[run]["kv"])]}
-            for t, items in pairs.items():
-                for a, b in items:
+                           zip(out["kernel"]["kv"], out[run]["kv"])],
+                     "ssm": [(a[0], b[0]) for a, b in
+                             zip(out["kernel"]["ssm"], out[run]["ssm"])],
+                     "conv": [(a[1], b[1]) for a, b in
+                              zip(out["kernel"]["ssm"], out[run]["ssm"])]}
+            for t in parts:
+                for a, b in pairs[t]:
                     err[f"{run}.{t}"] = max(
                         err[f"{run}.{t}"],
                         float((a - b).abs().max()) / float(b.abs().max()))
@@ -3646,8 +3807,11 @@ def check_moe_fill(name: str, res: dict) -> None:
           f"{name}: {res['expert_sets_differ']} of {res['expert_sets']} "
           f"(token, layer) expert sets differ between the kernel and the "
           f"naive fill")
-    for t in ("logits", "k", "v"):
-        check(res["rel_err"][f"replayed.{t}"] <= SERVE_F32_TOL,
+    for key, v in res["rel_err"].items():
+        if not key.startswith("replayed."):
+            continue
+        t = key.split(".", 1)[1]
+        check(v <= SERVE_F32_TOL,
               f"{name} f32: kernel vs naive fill off in {t}: {res}")
 
 
@@ -4114,6 +4278,347 @@ def serve_paligemma_phase() -> dict:
     return summary
 
 
+# -- phase 5g: jamba-1.5-large-398b serving -----------------------------------
+
+# jamba-1.5-large-398b at full width (d_model 8192, 64 query and 8 KV heads
+# of 128, d_ff 24,576, 16 experts top-2 of 24,576, Mamba-2 with 128 heads
+# of 128 and d_state 128, chunk 128, vocab 65,536, untied, bf16), its depth
+# cut from 72 layers to the three at positions 2-4 of its 8-layer group:
+# (MAMBA, DENSE), (MAMBA, MOE), (ATTN, DENSE), every block kind of the full
+# model and one MoE layer.  12.91 B parameters, a 51.6 GB f32 tree; the
+# whole model's 1.59 TB, and the first 5 layers' 96.0 GB (two MoE layers),
+# would not fit the card.  Phase 5's traffic through the engine (4 slots,
+# 8 greedy requests of 16 tokens, prompts 128-512, mid-flight admissions at
+# ragged lengths), re-run once for equal tokens; each prefill launches
+# flash_attention once and ssd_scan twice (the bf16 instance at P = N =
+# 128, P tile 64); then the kernel fill against the naive fill (naive
+# attention, the plain SSD) at f32 by phase 5c's MoE rule, the Mamba
+# layers' SSM and conv state compared too.  The layer-0 MoE block is not
+# run on the CPU here: its 38.7 GB of f32 experts would take minutes
+# there; 5c holds that code path's card and CPU results equal.
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_CUT = {"n_layers": 3, "layer_pattern": ("mamba", "mamba", "attn"),
+             "ffn_pattern": ("dense", "moe", "dense")}
+
+
+def mamba_extra_params(cfg) -> int:
+    """The tree's elements beyond ``num_params()`` (the reference's
+    analytic count): each Mamba layer's dt_bias [H] and conv bias's 2N."""
+    mc = cfg.mamba
+    return cfg.layer_kinds().count("mamba") * (mc.n_heads(cfg.d_model)
+                                               + 2 * mc.d_state)
+
+
+def serve_jamba_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models import LM
+    full = get_config(JAMBA).model
+    cfg = dataclasses.replace(full, **JAMBA_CUT)
+    m, mc = cfg.moe, cfg.mamba
+    check(full.n_layers == 72 and full.d_model == 8192
+          and full.n_heads == 64 and full.n_kv_heads == 8
+          and full.resolved_head_dim == 128 and m.num_experts == 16
+          and m.top_k == 2 and m.expert_ffn_dim == 24576
+          and mc.n_heads(full.d_model) == 128 and mc.head_dim == 128
+          and mc.d_state == 128
+          and full.block_pattern()[2:5] == cfg.block_pattern(),
+          f"{JAMBA}: the config's width or its layers 2-4 changed")
+    model = LM(cfg, device="cuda")
+    check(model.n_groups == 1 and model.group == cfg.block_pattern(),
+          f"{JAMBA} cut: not one group of the three blocks: {model.group}")
+    emit("serve_jamba_cut", layers=[full.n_layers, cfg.n_layers],
+         kept=[list(b) for b in cfg.block_pattern()],
+         full_params=full.num_params(), cut_params=cfg.num_params(),
+         cut_f32_bytes=4 * (cfg.num_params() + mamba_extra_params(cfg)),
+         reason="the full f32 tree (1.59 TB) and the first five layers' "
+                "(96.0 GB, two MoE layers) do not fit on 80 GB; layers 2-4 "
+                "hold every block kind and one MoE layer")
+    summary, params, prompts = serve_engine(
+        cfg, "serve_jamba", cfg.num_params() + mamba_extra_params(cfg),
+        reruns=1, extra={
+            "experts": m.num_experts, "top_k": m.top_k,
+            "expert_ffn_dim": m.expert_ffn_dim, "ssm_heads": mc.n_heads(
+                cfg.d_model), "ssm_head_dim": mc.head_dim,
+            "d_state": mc.d_state,
+            "blocks": [list(b) for b in cfg.block_pattern()]})
+    fill = moe_fill_vs_naive(cfg, params, prompts)
+    emit("serve_jamba_vs_plain", **fill)
+    check_moe_fill("serve_jamba_vs_plain", fill)
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+# -- phase 5h: qwen3-1.7b at long context -------------------------------------
+
+# qwen3-1.7b at full width with the sliding window the reference gives
+# attention models at long context (``LONG_CONTEXT_WINDOW``,
+# ``src/repro/launch/specs.py:24``, copied: this script imports nothing of
+# the JAX package): 2 slots of 12,288-token prompts through the engine and
+# 16 greedy decode steps, three ways: the masked full cache (12,304
+# positions), ``window_slice`` (each decode step gathers the 8193 rows
+# ending at its token) and ``ring_cache`` (8192 slots).  Every prefill goes
+# through the kernel's window branch (28 launches at window 8192, by
+# attention_fill, and by attention_fill_ring for the ring).  At the
+# config's bf16 the masked run decodes freely and the other two decode
+# the masked run's tokens (teacher-forced, so one flip does not carry):
+# their logits are held to the bf16 rule of the serving phases (a
+# variant's distance from the masked run no more than the masked run's own
+# distance from the masked path at f32 on the same tokens), and a token
+# of theirs may differ from the masked run's only where the masked run's
+# top-2 margin is within twice their logits' difference.  (The first card
+# run required the three runs' free bf16 tokens equal and missed: a
+# near-tied greedy token of one slot flipped between the masked and the
+# window_slice decode, each within the bf16 model's own rounding of the
+# blocked path's logits over the whole sequence, and every later token
+# then differed.)  At f32 the three runs decode freely and their tokens
+# must be equal.
+LONG_CONTEXT_WINDOW = 8192
+LONG_SLOTS, LONG_PROMPT, LONG_DECODE = 2, 12288, 16
+
+
+class Logged(Timed):
+    """``Timed`` that also keeps each call's last-position logits (f32);
+    with ``forced`` ([B, steps] tokens) decode step i takes
+    ``forced[:, i]`` as its input, whatever the engine sampled."""
+
+    def __init__(self, model, forced=None):
+        super().__init__(model)
+        self.forced, self.logits = forced, []
+
+    def prefill(self, params, tokens, cache):
+        logits, cache = super().prefill(params, tokens, cache)
+        self.logits.append(logits[:, -1].float())
+        return logits, cache
+
+    def decode_step(self, params, tokens, cache):
+        if self.forced is not None:
+            i = len(self.times["decode"])
+            tokens = self.forced[:, i:i + 1]
+        logits, cache = super().decode_step(params, tokens, cache)
+        self.logits.append(logits[:, -1].float())
+        return logits, cache
+
+
+class FlashWindows:
+    """While active, records the (S, window) of every ``flash_attention``
+    kernel launch (wrapping the op's forward; its count is untouched)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.orig, self.windows = ops, ops._forward, []
+
+        def forward(q, k, v, causal, window):
+            if q.is_cuda:
+                self.windows.append((int(q.shape[1]), window))
+            return self.orig(q, k, v, causal, window)
+        ops._forward = forward
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._forward = self.orig
+
+
+LONG_VARIANTS = {"masked": {}, "window_slice": {"window_slice": True},
+                 "ring": {"ring_cache": True}}
+
+
+def long_context_run(cfg, params, prompts, kw, forced=None) -> dict:
+    """The prompts through the engine over ``LM(cfg, **kw)`` (``Logged``,
+    ``forced`` tokens if given), every kernel count set to 0 just before
+    and read just after."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serving import Request, ServingEngine
+    logged = Logged(LM(cfg, device="cuda", **kw), forced)
+    eng = ServingEngine(logged, params, n_slots=LONG_SLOTS,
+                        max_len=LONG_PROMPT + LONG_DECODE)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p,
+                           max_new_tokens=LONG_DECODE + 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.inference_mode(), FlashWindows() as fw:
+        done = eng.run()
+    launches = counts()
+    decode_ms = sorted(t * 1e3 for t in logged.times["decode"])
+    out = {"tokens": {r.uid: r.output for r in done},
+           "logits": logged.logits, "launches": launches,
+           "windows": sorted(set(fw.windows)),
+           "prefill_ms": [t * 1e3 for t in logged.times["prefill"]],
+           "decode_ms_median": decode_ms[len(decode_ms) // 2],
+           "decode_steps": len(decode_ms),
+           "cache_positions": int(eng.cache["groups"]["sub0"]["k"].shape[2]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del eng, logged, done
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_long_context_phase() -> dict:
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config("qwen3-1.7b").model,
+                              sliding_window=LONG_CONTEXT_WINDOW)
+    params = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    prompts = torch.randint(0, cfg.vocab_size, (LONG_SLOTS, LONG_PROMPT),
+                            generator=torch.Generator().manual_seed(3),
+                            dtype=torch.int32).numpy()
+    max_len = LONG_PROMPT + LONG_DECODE
+
+    def token_rows(tokens):
+        return torch.tensor([tokens[u] for u in range(LONG_SLOTS)],
+                            dtype=torch.int32, device="cuda")
+    # the main path at bf16, each run counted: the masked run free, the
+    # other two on its tokens
+    runs = {"masked": long_context_run(cfg, params, prompts, {})}
+    toks = runs["masked"]["tokens"]
+    forced = token_rows(toks)
+    for name in ("window_slice", "ring"):
+        runs[name] = long_context_run(cfg, params, prompts,
+                                      LONG_VARIANTS[name], forced)
+    # past the counted runs: the masked path at f32 on the bf16 run's
+    # tokens (the bf16 model's own rounding, the yardstick of the bf16
+    # variants' logits), then the three ways at f32, free
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    own_run = long_context_run(f32cfg, params, prompts, {}, forced)
+    f32_runs = {name: long_context_run(f32cfg, params, prompts, kw)
+                for name, kw in LONG_VARIANTS.items()}
+
+    def rel(a, b):
+        return max(float((x - y).abs().max()) / float(y.abs().max())
+                   for x, y in zip(a, b))
+    masked = runs["masked"]["logits"]
+    own = rel(masked, own_run["logits"])
+    gaps, flips, beyond = {}, {}, {}
+    for name in ("window_slice", "ring"):
+        got = runs[name]["logits"]
+        gaps[name] = rel(got, masked)
+        flips[name] = beyond[name] = 0
+        # logits[i] chose token i (the prefill's the first)
+        for i, (g, m) in enumerate(zip(got, masked)):
+            top2 = m.topk(2, dim=-1).values
+            margin = top2[:, 0] - top2[:, 1]
+            differ = g.argmax(-1) != forced[:, i]
+            flips[name] += int(differ.sum())
+            beyond[name] += int((differ & (margin > 2 * float(
+                (g - m).abs().max()))).sum())
+    f32_toks = {name: r["tokens"] for name, r in f32_runs.items()}
+    n_layers = cfg.n_layers
+    result = {
+        "arch": cfg.name, "layers": n_layers, "window": LONG_CONTEXT_WINDOW,
+        "slots": LONG_SLOTS, "prompt_len": LONG_PROMPT,
+        "decode_steps": LONG_DECODE, "bf16_vs_f32_masked": own,
+        "vs_masked_bf16": gaps, "bf16_flips": flips,
+        "bf16_flips_beyond_margin": beyond,
+        "f32_tokens_equal": {name: f32_toks[name] == f32_toks["masked"]
+                             for name in ("window_slice", "ring")},
+        "f32_vs_masked": {name: rel(f32_runs[name]["logits"],
+                                    f32_runs["masked"]["logits"])
+                          for name in ("window_slice", "ring")},
+        "f32_decode_ms_median": {name: r["decode_ms_median"]
+                                 for name, r in f32_runs.items()},
+        **{name: {k: v for k, v in r.items() if k not in ("tokens",
+                                                          "logits")}
+           for name, r in runs.items()}}
+    emit("serve_long_context", **result)
+    for name, r in runs.items():
+        check(r["launches"]["flash_attention"] == n_layers
+              and r["windows"] == [(LONG_PROMPT, LONG_CONTEXT_WINDOW)],
+              f"serve_long_context {name}: flash_attention launches "
+              f"{r['launches']} at (S, window) {r['windows']}, not "
+              f"{n_layers} at ({LONG_PROMPT}, {LONG_CONTEXT_WINDOW})")
+        check(r["launches"]["ssd_scan"] == 0
+              and r["launches"]["kmeans_assign"] == 0,
+              f"serve_long_context {name}: ssd_scan or kmeans_assign "
+              "launched")
+        check(len(r["tokens"]) == LONG_SLOTS and all(
+            len(o) == LONG_DECODE + 1 for o in r["tokens"].values())
+            and r["decode_steps"] == LONG_DECODE,
+            f"serve_long_context {name}: not every request completed")
+        check(all(bool(torch.isfinite(x).all()) for x in r["logits"]),
+              f"serve_long_context {name}: non-finite logits")
+    for rs in (runs, f32_runs):
+        check(rs["ring"]["cache_positions"] == LONG_CONTEXT_WINDOW
+              and rs["masked"]["cache_positions"] == max_len
+              and rs["window_slice"]["cache_positions"] == max_len,
+              "serve_long_context: cache lengths")
+    for name in ("window_slice", "ring"):
+        check(gaps[name] <= own,
+              f"serve_long_context bf16: {name}'s logits {gaps[name]} from "
+              f"the masked run's, beyond the bf16 model's own rounding {own}")
+        check(beyond[name] == 0,
+              f"serve_long_context bf16: {name} chose {beyond[name]} tokens "
+              "other than the masked run's beyond the logits' error margin")
+        check(f32_toks[name] == f32_toks["masked"],
+              f"serve_long_context f32: {name}'s greedy tokens differ from "
+              "the masked run's")
+    del params, runs, f32_runs, own_run
+    torch.cuda.empty_cache()
+    return {"flash_attention": 3 * n_layers,
+            "prefill_ms": result["masked"]["prefill_ms"]}
+
+
+# -- phase 6f: the hybrid interleave trained at full width --------------------
+
+# jamba-1.5-large-398b's interleave without MoE at full width: 2 layers,
+# (MAMBA, DENSE) and (ATTN, DENSE) (2.85 B parameters: 45.6 GB of f32
+# parameters, gradients and AdamW moments), the experiment's AdamW at
+# S = 512 and B = HYBRID_TRAIN_BATCH (8, the larger of 4 and 8; it fits),
+# 3 steps through ``launch.train.train_standard`` with remat: every step
+# launches flash_attention twice and ssd_scan twice (forward and
+# recompute); then kernel vs plain at f32 (loss 1e-5, gradient norm 1e-4)
+# and bf16.  Training one MoE layer at full width needs at least 154 GB of
+# state: it waits for several cards (ROADMAP item 14).  Then the smoke
+# config on the full 8-layer pattern, two groups (16 layers, remat),
+# kernel vs plain the same way, the plain path on the kernel path's
+# replayed expert choices.
+HYBRID_TRAIN_BATCH = 8
+HYBRID_TRAIN_CUT = {"n_layers": 2, "layer_pattern": ("mamba", "attn"),
+                    "ffn_pattern": ("dense", "dense")}
+
+
+def train_hybrid_phase() -> dict:
+    from repro_torch.config import get_config, get_smoke_config
+    full = get_config(JAMBA)
+    cfg = dataclasses.replace(full.model, **HYBRID_TRAIN_CUT)
+    exp = dataclasses.replace(full, model=cfg)
+    check(exp.train.optimizer == "adamw" and exp.train.seq_len == TRAIN_SEQ
+          and cfg.remat and cfg.block_pattern() == (("mamba", "dense"),
+                                                     ("attn", "dense")),
+          f"{JAMBA}: the training cut's blocks or TrainConfig changed")
+    # the main path: every kernel count is read around exactly this run
+    result = drive_training(exp, HYBRID_TRAIN_BATCH, TRAIN_SEQ,
+                            kernel="both")
+    result.update(layers_full=full.model.n_layers,
+                  blocks=[list(b) for b in cfg.block_pattern()],
+                  moe_training="waits for several cards (ROADMAP item 14): "
+                  "one MoE layer at full width needs >= 154 GB of state")
+    emit("train_hybrid", **result)
+    check(result["params"] == cfg.num_params() + mamba_extra_params(cfg),
+          f"{JAMBA} training cut holds {result['params']} parameters")
+    check_trained("train_hybrid", result)
+    gaps = train_vs_plain(JAMBA, HYBRID_TRAIN_BATCH, phase=
+                          "train_hybrid_vs_plain", kernel="both",
+                          f32_tol=MAMBA_F32_TOL, cfg=cfg)
+    smoke = get_smoke_config(JAMBA).model
+    pattern = dataclasses.replace(
+        smoke, layer_pattern=full.model.layer_pattern,
+        ffn_pattern=full.model.ffn_pattern, n_layers=16, remat=True)
+    smoke_gaps = train_vs_plain(JAMBA, phase="train_hybrid_smoke_vs_plain",
+                                kernel="both", f32_tol=MAMBA_F32_TOL,
+                                cfg=pattern)
+    return {"flash_attention": result["launches"]["flash_attention"],
+            "ssd_scan": result["launches"]["ssd_scan"],
+            "step_ms_median": result["step_ms_median"],
+            "max_memory_allocated": result["max_memory_allocated"],
+            "vs_plain": gaps, "smoke_vs_plain": smoke_gaps}
+
+
 # -- phase 7: ol4el over the LM ----------------------------------------------------
 
 OL4EL_EDGES, OL4EL_BATCH, OL4EL_SEQ, OL4EL_ROUNDS = 2, 4, 128, 2
@@ -4284,9 +4789,20 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     return out
 
 
-def sdpa_name(gqa: bool) -> str:
+def sdpa_name(gqa: bool, window: int = 0) -> str:
+    mask = (f"attn_mask=<[S, S] bool causal band of {window}>"
+            if window else "is_causal=True")
     return ("torch.nn.functional.scaled_dot_product_attention("
-            f"is_causal=True, enable_gqa={gqa})")
+            f"{mask}, enable_gqa={gqa})")
+
+
+def attended_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal sequence of ``s`` attends, with a
+    sliding window of ``window`` keys (0: none): what the work needs,
+    the masked pairs left out."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
 
 
 def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
@@ -4300,25 +4816,45 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     e = q.element_size()
     # q, k, v read once, o written once
     nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * e
-    # QK^T and PV on the causal triangle (window 0): 2 x 2 B H D S(S+1)/2
-    flops = 4 * b * h * d * s * (s + 1) // 2
+    # QK^T and PV on the attended pairs (the causal triangle, cut to the
+    # window): 2 x 2 B H D pairs
+    pairs = attended_pairs(s, window)
+    flops = 4 * b * h * d * pairs
     peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = kv != h                 # MHA shapes call SDPA without the flag
+    if window:
+        pos = torch.arange(s, device="cuda")
+        band = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+
+        def library():
+            return sdpa(qt, kt, vt, attn_mask=band, enable_gqa=gqa)
+    else:
+        def library():
+            return sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
     out = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "window": window,
-           "dtype": dtype_name, "library": sdpa_name(gqa)}
+           "dtype": dtype_name, "library": sdpa_name(gqa, window),
+           "pairs_per_sequence": pairs}
+    # the long instances' plain version holds tens of GB of logits: fewer
+    # repeats
+    few = 20 if s <= 4096 else 3
     for key, fn, iters in (
-            ("", lambda: ops.flash_attention(q, k, v, window=window), 50),
-            ("plain_", lambda: ref.attention_ref(q, k, v, window=window), 20),
-            ("library_", lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=gqa), 50)):
-        out[key + "ms"] = cuda_ms(fn, iters=iters, warmup=5, queued=True)
-        out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=5)
+            ("", lambda: ops.flash_attention(q, k, v, window=window),
+             50 if s <= 4096 else 10),
+            ("plain_", lambda: ref.attention_ref(q, k, v, window=window),
+             few),
+            ("library_", library, 50 if s <= 4096 else 10)):
+        warm = 5 if s <= 4096 else 1
+        out[key + "ms"] = cuda_ms(fn, iters=iters, warmup=warm, queued=True)
+        out[key + "call_ms"] = cuda_ms(fn, iters=iters, warmup=warm)
     out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=flops)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4469,6 +5005,9 @@ def main() -> None:
                    f32_tol=MULTIMODAL_F32_TOL)
     musicgen_served = serve_musicgen_phase()
     paligemma_served = serve_paligemma_phase()
+    jamba_served = serve_jamba_phase()
+    long_served = serve_long_context_phase()
+    hybrid_trained = train_hybrid_phase()
     ol4el_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
@@ -4510,6 +5049,22 @@ def main() -> None:
     fa_paligemma_serve = flash_timing(*FLASH_PALIGEMMA_SERVE)
     emit("flash_timing", case="paligemma-3b engine prefill",
          **fa_paligemma_serve)
+    fa_jamba = flash_timing(*FLASH_JAMBA)
+    emit("flash_timing", case="jamba-1.5 serving prefill", **fa_jamba)
+    fa_jamba_train = flash_timing(*FLASH_JAMBA_TRAIN)
+    emit("flash_timing", case="jamba-1.5 interleave training",
+         **fa_jamba_train)
+    fa_long = flash_timing(*FLASH_LONG)
+    emit("flash_timing", case="qwen3-1.7b long-context prefill, window "
+         f"{LONG_CONTEXT_WINDOW}", **fa_long)
+    ssd_jamba = ssd_timing(*SSD_JAMBA)
+    emit("ssd_timing", case="jamba-1.5 serving prefill", **ssd_jamba)
+    ssd_jamba32 = ssd_timing(*SSD_JAMBA[:-1], "float32")
+    emit("ssd_timing", case="jamba-1.5 kernel-vs-naive fill at f32",
+         **ssd_jamba32)
+    ssd_jamba_train = ssd_timing(*SSD_JAMBA_TRAIN)
+    emit("ssd_timing", case="jamba-1.5 interleave training",
+         **ssd_jamba_train)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
@@ -4620,7 +5175,23 @@ def main() -> None:
              "phase 5f: paligemma-3b's engine prefill of text prompts, every "
              "layer's fill (D = 256, MQA)",
              paligemma_served["flash_attention"], FLASH_PALIGEMMA_SERVE,
-             fa_paligemma_serve))] + [{
+             fa_paligemma_serve),
+            ("flash_attention_jamba_serve_prefill",
+             "phase 5g: jamba-1.5-large-398b serving at full width, layers "
+             "2-4, the attention layer's prefill fill (64 query heads over "
+             "8 KV heads of 128)",
+             jamba_served["flash_attention"], FLASH_JAMBA, fa_jamba),
+            ("flash_attention_jamba_train",
+             "phase 6f: jamba-1.5's (MAMBA, DENSE), (ATTN, DENSE) trained "
+             "at full width, the attention layer's forward and remat "
+             "recompute",
+             hybrid_trained["flash_attention"], FLASH_JAMBA_TRAIN,
+             fa_jamba_train),
+            ("flash_attention_long_context_prefill",
+             "phase 5h: qwen3-1.7b with a sliding window of 8192, the "
+             "prefill of 2 x 12,288 tokens (attention_fill and "
+             "attention_fill_ring: the kernel's window branch)",
+             long_served["flash_attention"], FLASH_LONG, fa_long))] + [{
         "name": "ssd_scan_mamba_train", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",
@@ -4632,7 +5203,28 @@ def main() -> None:
         "kernel_ms": ssd_train["ms"], "call_ms": ssd_train["call_ms"],
         "plain_ms": ssd_train["plain_ms"], "bound_ms": ssd_train["bound_ms"],
         "bound_by": ssd_train["bound_by"], "library_ms": None,
-        "launch_floor_ms": launch_floor_ms, "shapes": [ssd_train]}]}),
+        "launch_floor_ms": launch_floor_ms, "shapes": [ssd_train]}] + [{
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",
+        "path": path, "launches": n, "max_abs_err": ssd_errs[case],
+        "ms": t["ms"], "kernel_ms": t["ms"], "call_ms": t["call_ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "launch_floor_ms": launch_floor_ms, "shapes": shapes}
+        for name, path, n, case, t, shapes in (
+            ("ssd_scan_jamba_serve_prefill",
+             "phase 5g: jamba-1.5-large-398b serving at full width, layers "
+             "2-4, both Mamba layers' prefill (128 heads of P = N = 128, P "
+             "tile 64; the f32 instance in the kernel-vs-naive fill, "
+             "uncounted)",
+             jamba_served["ssd_scan"], SSD_JAMBA, ssd_jamba,
+             [ssd_jamba, ssd_jamba32]),
+            ("ssd_scan_jamba_train",
+             "phase 6f: jamba-1.5's (MAMBA, DENSE), (ATTN, DENSE) trained "
+             "at full width, the Mamba layer's forward and remat recompute",
+             hybrid_trained["ssd_scan"], SSD_JAMBA_TRAIN, ssd_jamba_train,
+             [ssd_jamba_train]))]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,9 @@ built here describes the same experiment:
   * ``MeshConfig``       -- logical mesh description;
   * ``ExperimentConfig`` -- the bundle ``get_config(arch)`` returns.
 
-The paper's two workloads (``CLASSIC_IDS``) and the LM architectures the
-port has reached (``PORTED_LM_IDS``) resolve; every other LM id raises a
-``KeyError`` naming the slice that brings it (``LM_SLICES``).
+The paper's two workloads (``CLASSIC_IDS``) and every LM architecture of
+the reference (``PORTED_LM_IDS``) resolve; any other id raises a
+``KeyError``.
 """
 
 from __future__ import annotations
@@ -241,15 +241,15 @@ class ExperimentConfig:
 # Paper-native workloads.
 CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 
-# LM architectures of the reference, by the slice of the port that brings
-# each (the LM ids this slice does not resolve raise and name theirs).
+# LM architectures of the reference: every one is ported.  ``LM_SLICES``
+# would name the slice of the port that brings an LM id not ported yet
+# (such an id raises naming it); it is empty.
 PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b", "minicpm-2b",
                                    "qwen2.5-14b", "deepseek-coder-33b",
                                    "olmoe-1b-7b", "deepseek-moe-16b",
-                                   "musicgen-medium", "paligemma-3b")
-LM_SLICES = {
-    "jamba-1.5-large-398b": "the hybrid attention/SSM/MoE slice (item 13.6)",
-}
+                                   "musicgen-medium", "paligemma-3b",
+                                   "jamba-1.5-large-398b")
+LM_SLICES: dict = {}
 
 
 def _module_for(arch: str) -> str:

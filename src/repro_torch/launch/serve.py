@@ -1,12 +1,14 @@
 """Serving launcher: batched prefill + decode against the model's cache.
 
 ``python -m repro_torch.launch.serve --arch qwen3-1.7b --tokens 32`` (or
-any other ported LM id: mamba2-370m, minicpm-2b, qwen2.5-14b,
+any other LM id of the reference: mamba2-370m, minicpm-2b, qwen2.5-14b,
 deepseek-coder-33b, olmoe-1b-7b, deepseek-moe-16b, musicgen-medium,
-paligemma-3b) runs a batch of synthetic requests end to end on the card:
-prefill the prompts (attention through the CUDA ``flash_attention``
-kernel, filling the KV cache; Mamba layers through ``ssd_scan``), then
-decode N tokens per request against the cache.  musicgen-medium's
+paligemma-3b, jamba-1.5-large-398b) runs a batch of synthetic requests
+end to end on the card: prefill the prompts (attention through the CUDA
+``flash_attention`` kernel, filling the KV cache; Mamba layers through
+``ssd_scan``, jamba's hybrid stack through both), then decode N tokens
+per request against the cache.  jamba-1.5-large-398b's full tree (398 B
+parameters) fits no single card: serve it with ``--smoke``.  musicgen-medium's
 prompts are ``[B, 4, S]`` (every codebook decoded, codebook 0's ids
 printed); paligemma-3b is served on its text alone, as the reference's
 launcher serves it.  ``--smoke`` takes the reduced config, ``--device

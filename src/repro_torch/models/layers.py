@@ -26,8 +26,14 @@ take the full-sequence paths above; with ``impl="kernel"`` they run the
 fills with naive or blocked attention (the kernel fill is held to the
 naive one).  The caches are written in place and returned, and the decode
 index stays a device tensor: a step reads nothing back to the host.
-The reference's ``window_slice`` (a window-sized slice of the cache in
-place of a mask) is not ported (item 13.7) and raises.
+
+``window_slice``, as in the reference: with a sliding window, each query
+block of the blocked path reads only the ``window + block_q`` keys that
+can reach it, and the decode reads only the ``window + 1`` cache rows
+that end at the new token (gathered at a start computed on the device),
+in place of masking the whole cache.  The values are the masked path's;
+the naive and kernel paths ignore the option (the kernel already skips
+the tiles outside the window).
 """
 
 from __future__ import annotations
@@ -178,30 +184,36 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _blocked_attention(q, k, v, q_positions, k_positions, window, scale,
-                       block_q=1024):
-    """Query chunks of ``block_q`` rows, each against every key (the
-    reference's ``lax.scan`` over chunks as a Python loop; its
-    ``window_slice`` option is not ported: item 13.7)."""
+                       block_q=1024, window_slice=False):
+    """Query chunks of ``block_q`` rows (the reference's ``lax.scan`` over
+    chunks as a Python loop), each against every key, or with
+    ``window_slice`` and a window against the ``window + block_q`` keys
+    ending at the chunk's last row (O(S * window) work)."""
     b, s, h, d = q.shape
+    t = k.shape[1]
     nblocks = -(-s // block_q)
     pad = nblocks * block_q - s
     if pad:
         q = F.pad(q, (0, 0, 0, 0, 0, pad))
         q_positions = F.pad(q_positions, (0, pad), value=-1)
+    span = min(window + block_q, t) if window_slice and window > 0 else t
     outs = []
     for i in range(nblocks):
         rows = slice(i * block_q, (i + 1) * block_q)
-        bias = _mask_bias(q_positions[rows], k_positions, window)
-        outs.append(_sdpa(q[:, rows], k, v, bias, scale))
+        start = min(max((i + 1) * block_q - span, 0), t - span)
+        keys = slice(start, start + span)
+        bias = _mask_bias(q_positions[rows], k_positions[keys], window)
+        outs.append(_sdpa(q[:, rows], k[:, keys], v[:, keys], bias, scale))
     return torch.cat(outs, dim=1)[:, :s]
 
 
 def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     cfg: ModelConfig, positions: torch.Tensor,
-                    impl: str) -> torch.Tensor:
+                    impl: str, window_slice: bool = False) -> torch.Tensor:
     """Causal (optionally windowed) attention of the whole sequence by
     ``impl``: ``kernel``, ``naive``, ``blocked`` or ``auto`` (the
-    reference's rule: naive up to 2048 positions, blocked beyond)."""
+    reference's rule: naive up to 2048 positions, blocked beyond);
+    ``window_slice`` reaches the blocked path only, as there."""
     scale = cfg.resolved_head_dim ** -0.5
     if impl == "auto":
         impl = "naive" if q.shape[1] <= 2048 else "blocked"
@@ -210,7 +222,8 @@ def _full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       window=cfg.sliding_window)
     if impl == "blocked":
         return _blocked_attention(q, k, v, positions, positions,
-                                  cfg.sliding_window, scale)
+                                  cfg.sliding_window, scale,
+                                  window_slice=window_slice)
     if impl == "naive":
         bias = _mask_bias(positions, positions, cfg.sliding_window)
         return _sdpa(q, k, v, bias, scale)
@@ -224,25 +237,21 @@ def _out_proj(params: Params, out: torch.Tensor) -> torch.Tensor:
                  params["wo"].reshape(-1, params["wo"].shape[-1]))
 
 
-def _refuse_window_slice(window_slice: bool) -> None:
-    if window_slice:
-        raise NotImplementedError(
-            "window_slice (a window-sized slice of the KV cache in place of "
-            "a mask) is not ported: item 13.7")
-
-
 def attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+              positions: torch.Tensor, impl: str = "auto",
+              window_slice: bool = False) -> torch.Tensor:
     """Full-sequence causal attention (train / scoring).  ``impl``:
     ``kernel``, ``naive``, ``blocked`` or ``auto`` (the reference's rule:
     naive up to 2048 positions, blocked beyond)."""
     q, k, v = _qkv(params, cfg, x, positions)
-    return _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+    return _out_proj(params, _full_attention(q, k, v, cfg, positions, impl,
+                                             window_slice))
 
 
 def attention_fill(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, cache_k: torch.Tensor,
-                   cache_v: torch.Tensor, impl: str = "auto"
+                   cache_v: torch.Tensor, impl: str = "auto",
+                   window_slice: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention that also fills the KV cache (prefill).
 
@@ -253,13 +262,15 @@ def attention_fill(params: Params, cfg: ModelConfig, x: torch.Tensor,
     s = x.shape[1]
     cache_k[:, :s].copy_(k)
     cache_v[:, :s].copy_(v)
-    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl,
+                                          window_slice))
     return y, cache_k, cache_v
 
 
 def attention_fill_ring(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         positions: torch.Tensor, cache_k: torch.Tensor,
-                        cache_v: torch.Tensor, impl: str = "auto"
+                        cache_v: torch.Tensor, impl: str = "auto",
+                        window_slice: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Prefill that fills a ring cache of length L in place: only the
     last ``min(S, L)`` positions land in it, at slot = position mod L."""
@@ -269,7 +280,8 @@ def attention_fill_ring(params: Params, cfg: ModelConfig, x: torch.Tensor,
     slots = torch.arange(s - n, s, device=x.device) % ring
     cache_k.index_copy_(1, slots, k[:, s - n:].to(cache_k.dtype))
     cache_v.index_copy_(1, slots, v[:, s - n:].to(cache_v.dtype))
-    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl))
+    y = _out_proj(params, _full_attention(q, k, v, cfg, positions, impl,
+                                          window_slice))
     return y, cache_k, cache_v
 
 
@@ -301,19 +313,30 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     position), on the device: the write and the mask index with it, and
     nothing is read back to the host.  As the reference's
     ``dynamic_update_slice``, a write past S_max lands in the last slot.
+    ``window_slice`` with a window shorter than S_max: attend over only
+    the ``window + 1`` rows that end at the new token, gathered from a
+    start clamped on the device (the reference's ``dynamic_slice``).
     Returns (y [B, 1, d], cache_k, cache_v).
     """
-    _refuse_window_slice(window_slice)
     s_max = cache_k.shape[1]
+    win = cfg.sliding_window
     q, k_new, v_new = _decode_qkv(params, cfg, x, cache_index)
     slot = cache_index.clamp(0, s_max - 1).reshape(1).long()
     cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
     cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
-    k_pos = torch.arange(s_max, device=x.device)
+    if window_slice and 0 < win < s_max:
+        span = win + 1                     # the window ending at the token
+        start = (cache_index - win).clamp(0, s_max - span)
+        k_pos = start + torch.arange(span, device=x.device)
+        k_r = cache_k.index_select(1, k_pos)
+        v_r = cache_v.index_select(1, k_pos)
+    else:
+        k_r, v_r = cache_k, cache_v
+        k_pos = torch.arange(s_max, device=x.device)
     valid = k_pos <= cache_index
-    if cfg.sliding_window > 0:
-        valid &= k_pos > (cache_index - cfg.sliding_window)
-    return _decode_attend(params, cfg, q, cache_k, cache_v, valid), \
+    if win > 0:
+        valid &= k_pos > (cache_index - win)
+    return _decode_attend(params, cfg, q, k_r, v_r, valid), \
         cache_k, cache_v
 
 

@@ -1,14 +1,19 @@
 """Decoder-only language model over the ModelConfig space (port of
 ``repro.models.transformer``).
 
-This port runs the block kinds of the pure-SSM, dense and MoE families,
-each through forward, ``loss`` (and its gradient), ``prefill`` and
-``decode_step``: ``(MAMBA, NO_FFN)`` (mamba2-370m), ``(ATTN, DENSE_FFN)``
-(qwen3-1.7b, minicpm-2b, qwen2.5-14b, deepseek-coder-33b; musicgen-medium
-and paligemma-3b) and ``(ATTN, MOE_FFN)`` (olmoe-1b-7b; deepseek-moe-16b,
-whose first layer is dense).  A multi-codebook model (musicgen-medium)
-takes tokens ``[B, CB, S]``, sums the codebooks' embeddings and has one
-head per codebook (logits ``[B, CB, S, V]``); a prefix-embedding model
+One implementation covers every LM architecture of the reference, each
+through forward, ``loss`` (and its gradient), ``prefill`` and
+``decode_step``.  A layer is a mixer, attention (``ATTN``) or Mamba-2
+(``MAMBA``), and an FFN, dense (``DENSE_FFN``), mixture-of-experts
+(``MOE_FFN``) or none (``NO_FFN``), in any combination: ``(MAMBA,
+NO_FFN)`` (mamba2-370m), ``(ATTN, DENSE_FFN)`` (the dense zoo,
+musicgen-medium, paligemma-3b), ``(ATTN, MOE_FFN)`` (olmoe-1b-7b;
+deepseek-moe-16b after its dense first layer), and jamba-1.5's hybrid
+stack, whose 8-layer group interleaves ``(MAMBA, DENSE_FFN)``, ``(MAMBA,
+MOE_FFN)`` and ``(ATTN, DENSE_FFN)`` (its smoke config ``(ATTN,
+MOE_FFN)``).  A multi-codebook model (musicgen-medium) takes tokens
+``[B, CB, S]``, sums the codebooks' embeddings and has one head per
+codebook (logits ``[B, CB, S, V]``); a prefix-embedding model
 (paligemma-3b) takes precomputed ``prefix_emb [B, P, d]`` placed before
 the text in ``forward``, ``loss`` and ``prefill``.
 Every full-sequence attention (the forward's and the prefill's) runs
@@ -21,18 +26,21 @@ there) and ``loss`` weighs into the loss.
 Parameter and cache trees have the reference's shape, so weights and
 caches carry across (``repro_torch.interop``): the layer pattern splits
 into unstacked ``prefix_layers`` (a list; deepseek-moe's dense first
-layer at depth 4 and beyond) and ``n_groups`` repetitions of a group,
-whose leaves are stacked on a leading ``[n_groups]`` axis (every LM
-config sets ``scan_layers``), and the cache holds a scalar ``index``.
-Where the reference scans over the stacked groups, the port unbinds them
-once (one autograd node per leaf, whose backward stacks the groups'
-gradients) and loops in Python; ``cfg.remat`` checkpoints each group as
-``jax.checkpoint`` does.  An attention layer writes its K/V rows into its
-group's view of the stacked cache (or its prefix layer's cache) in
-place, so ``prefill`` and ``decode_step`` return the cache they were
-given with those rows (and the index) updated, where the reference
-returns a new one with the same values; the SSM state is small and is
-restacked.
+layer at depth 4 and beyond) and ``n_groups`` repetitions of a group.
+With ``cfg.scan_layers`` (every LM config) the groups' leaves are stacked
+on a leading ``[n_groups]`` axis; without it ``groups`` is a list of
+per-group trees, as the reference's unstacked model.  The cache holds a
+scalar ``index``.  Where the reference scans over the stacked groups, the
+port unbinds them once (one autograd node per leaf, whose backward stacks
+the groups' gradients) and loops in Python; ``cfg.remat`` checkpoints
+each group as ``jax.checkpoint`` does.  An attention layer writes its
+K/V rows into its group's view of the stacked cache (or its own cache
+in a list) in place, so ``prefill`` and ``decode_step`` return the cache
+they were given with those rows (and the index) updated, where the
+reference returns a new one with the same values; an SSM layer's state
+is small and is returned new (restacked, in a stacked tree), so one
+group of the hybrid stack keeps its attention sub's K/V and takes new
+SSM state.
 """
 
 from __future__ import annotations
@@ -51,14 +59,6 @@ from repro_torch.models import moe as MoE
 from repro_torch.models.layers import Params
 
 ATTN_IMPLS = ("kernel", "naive", "blocked", "auto")
-_HYBRID = "the hybrid attention/SSM/MoE slice (item 13.6)"
-
-
-def _require_ported(kind: str, ffn: str) -> None:
-    if kind != ATTN and ffn == MOE_FFN:
-        raise NotImplementedError(f"block ({kind}, {ffn}): an SSM mixer "
-                                  f"with a MoE FFN comes with {_HYBRID} "
-                                  "of the port")
 
 
 # ---------------------------------------------------------------------------
@@ -95,9 +95,13 @@ def layer_groups(cfg: ModelConfig) -> Tuple[Tuple, Tuple, int]:
 
 
 def _stack(trees: List[Any]) -> Any:
-    """Stack same-shaped trees leaf by leaf on a new leading axis."""
+    """Stack same-shaped trees leaf by leaf on a new leading axis (one
+    tree's leaves as views with that axis added: no copy, so a model of
+    one group never holds its weights twice)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if len(trees) == 1:
+        return trees[0].unsqueeze(0)
     return torch.stack(trees)
 
 
@@ -130,7 +134,6 @@ def _restack(new: List[Any], old: List[Any], stacked: Any) -> Any:
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
                ffn: str) -> Params:
-    _require_ported(kind, ffn)
     p: Params = {"mix": L.init_attention(gen, cfg) if kind == ATTN
                  else M.init_mamba(gen, cfg)}
     if ffn == DENSE_FFN:
@@ -167,15 +170,16 @@ def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str, x: torch.Tensor
 
 def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                 x: torch.Tensor, positions: torch.Tensor,
-                attn_impl: str = "auto", use_ssd_kernel: bool = False
+                attn_impl: str = "auto", window_slice: bool = False,
+                use_ssd_kernel: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence block: (x, aux), aux zero but for a MoE FFN (whose
     ``expert_frac_max`` enters as a max, the rest as sums)."""
-    _require_ported(kind, ffn)
     aux = _zero_aux(x.device)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
-        x = x + L.attention(p["mix"], cfg, h, positions, impl=attn_impl)
+        x = x + L.attention(p["mix"], cfg, h, positions, impl=attn_impl,
+                            window_slice=window_slice)
     else:
         x = x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
     x, moe_aux = _apply_ffn(p, cfg, ffn, x)
@@ -191,17 +195,17 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
 def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                      x: torch.Tensor, positions: torch.Tensor,
                      cache: Params, attn_impl: str = "auto",
-                     use_ssd_kernel: bool = False, ring: bool = False
-                     ) -> Tuple[torch.Tensor, Params]:
+                     window_slice: bool = False, use_ssd_kernel: bool = False,
+                     ring: bool = False) -> Tuple[torch.Tensor, Params]:
     """Full-sequence block that also fills the decode cache (prefill):
     an attention layer writes its K/V into ``cache`` in place (a ring
     cache with ``ring``), an SSM layer returns its final state."""
-    _require_ported(kind, ffn)
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
         fill = L.attention_fill_ring if ring else L.attention_fill
         y, ck, cv = fill(p["mix"], cfg, h, positions, cache["k"],
-                         cache["v"], impl=attn_impl)
+                         cache["v"], impl=attn_impl,
+                         window_slice=window_slice)
         cache = {"k": ck, "v": cv}
     else:
         y, cache = M.mamba_mixer_with_state(p["mix"], cfg, h,
@@ -211,13 +215,19 @@ def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
 
 def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                        x: torch.Tensor, cache: Params, index: torch.Tensor,
-                       ring: bool = False) -> Tuple[torch.Tensor, Params]:
-    """One-token block at position ``index`` (a 0-d device tensor)."""
-    _require_ported(kind, ffn)
+                       window_slice: bool = False, ring: bool = False
+                       ) -> Tuple[torch.Tensor, Params]:
+    """One-token block at position ``index`` (a 0-d device tensor); a
+    ring cache ignores ``window_slice``, as in the reference."""
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
-        decode = L.attention_decode_ring if ring else L.attention_decode
-        y, ck, cv = decode(p["mix"], cfg, h, cache["k"], cache["v"], index)
+        if ring:
+            y, ck, cv = L.attention_decode_ring(p["mix"], cfg, h, cache["k"],
+                                                cache["v"], index)
+        else:
+            y, ck, cv = L.attention_decode(p["mix"], cfg, h, cache["k"],
+                                           cache["v"], index,
+                                           window_slice=window_slice)
         cache = {"k": ck, "v": cv}
     else:
         y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
@@ -229,7 +239,6 @@ def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
                      ) -> Params:
     """Zero cache of one block: K and V [batch, max_len, KV, D] for
     attention, the O(1) SSM state otherwise."""
-    _require_ported(kind, ffn)
     if kind == ATTN:
         shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -258,7 +267,9 @@ class LM:
     ``fused_xent``: the loss as ``logsumexp`` less the label's logit (the
     reference's form for a vocab-sharded loss; the same value, the label
     logit taken by ``gather`` where the reference contracts a one-hot).
-    ``window_slice`` (item 13.7) is not ported.
+    ``window_slice``: a sliding-window model's blocked attention and
+    decode read only the keys the window can reach (the reference's
+    option; the values are the masked path's).
     """
 
     def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
@@ -276,19 +287,9 @@ class LM:
         self.use_ssd_kernel = (on_card if use_ssd_kernel is None
                                else use_ssd_kernel)
         self.fused_xent = fused_xent
-        L._refuse_window_slice(window_slice)
+        self.window_slice = window_slice
         self.ring_cache = ring_cache and cfg.sliding_window > 0
         self.dtype = getattr(torch, cfg.dtype)
-        for kind, ffn in cfg.block_pattern():
-            _require_ported(kind, ffn)
-        if len(set(cfg.layer_kinds())) > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: interleaved attention and SSM layers come "
-                f"with {_HYBRID} of the port")
-        if not cfg.scan_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: the port stacks layer groups; unstacked "
-                "(scan_layers=False) trees are not ported")
         self.prefix, self.group, self.n_groups = layer_groups(cfg)
 
     # -- init ---------------------------------------------------------------
@@ -308,11 +309,22 @@ class LM:
         if self.prefix:
             params["prefix_layers"] = [init_block(gen, cfg, kind, ffn)
                                        for kind, ffn in self.prefix]
-        groups = [{f"sub{i}": init_block(gen, cfg, kind, ffn)
-                   for i, (kind, ffn) in enumerate(self.group)}
-                  for _ in range(self.n_groups)]
-        params["groups"] = _stack(groups)
+        params["groups"] = self._pack([
+            {f"sub{i}": init_block(gen, cfg, kind, ffn)
+             for i, (kind, ffn) in enumerate(self.group)}
+            for _ in range(self.n_groups)])
         return tree_map(lambda t: t.to(self.device), params)
+
+    def _pack(self, groups: List[Params]) -> Any:
+        """Per-group trees as the model's ``groups``: stacked with
+        ``cfg.scan_layers``, else the list itself."""
+        return _stack(groups) if self.cfg.scan_layers else groups
+
+    def _groups(self, tree: Params) -> List[Params]:
+        """A params or cache tree's groups as one tree per group (views
+        of a stacked tree)."""
+        groups = tree["groups"]
+        return _unstack(groups) if self.cfg.scan_layers else list(groups)
 
     # -- embedding ----------------------------------------------------------
 
@@ -347,7 +359,8 @@ class LM:
                positions: torch.Tensor
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return apply_block(p, self.cfg, kind, ffn, x, positions,
-                           self.attn_impl, self.use_ssd_kernel)
+                           self.attn_impl, self.window_slice,
+                           self.use_ssd_kernel)
 
     def _group_fn(self, p_group: Params, x: torch.Tensor,
                   positions: torch.Tensor
@@ -373,7 +386,7 @@ class LM:
         # remat: keep only each group's input; its activations are
         # recomputed in the backward (forward-only calls skip it)
         remat = cfg.remat and torch.is_grad_enabled()
-        for p_group in _unstack(params["groups"]):
+        for p_group in self._groups(params):
             if remat:
                 x, a = checkpoint(self._group_fn, p_group, x, positions,
                                   use_reentrant=False)
@@ -433,7 +446,8 @@ class LM:
         """Zero decode cache for ``batch`` slots: attention layers hold
         ``max_len`` positions (a ring cache ``min(max_len, window)``), SSM
         layers O(1) state; prefix layers' caches unstacked
-        (``prefix_layers``, batch-leading), the groups' stacked."""
+        (``prefix_layers``, batch-leading), the groups' as the
+        parameters' (stacked, or a list)."""
         cfg = self.cfg
         if self.ring_cache:
             # ring length == window: slots cover (index - window, index]
@@ -447,7 +461,7 @@ class LM:
         if self.prefix:
             cache["prefix_layers"] = [block_cache(kind, ffn)
                                       for kind, ffn in self.prefix]
-        cache["groups"] = _stack([
+        cache["groups"] = self._pack([
             {f"sub{i}": block_cache(kind, ffn)
              for i, (kind, ffn) in enumerate(self.group)}
             for _ in range(self.n_groups)])
@@ -458,8 +472,10 @@ class LM:
         """Thread ``x`` through every block, the prefix layers first, with
         ``block_fn(p, kind, ffn, x, c) -> (x, c)``; return x and the new
         cache's layers: ``prefix_layers`` (a list) where the model has
-        them, and the stacked ``groups`` (a cache leaf the blocks wrote
-        in place is the one given)."""
+        them, and ``groups``, stacked or a list as given.  In a stacked
+        tree each sub's leaves are restacked apart: a leaf every group
+        wrote in place (an attention sub's K/V) is the one given, a leaf
+        the blocks returned new (an SSM sub's state) is stacked anew."""
         layers: Params = {}
         if self.prefix:
             new_prefix = []
@@ -469,15 +485,17 @@ class LM:
                 x, c = block_fn(p_layer, kind, ffn, x, c_layer)
                 new_prefix.append(c)
             layers["prefix_layers"] = new_prefix
-        old_groups = _unstack(cache["groups"])
+        old_groups = self._groups(cache)
         new_groups = []
-        for p_group, c_group in zip(_unstack(params["groups"]), old_groups):
+        for p_group, c_group in zip(self._groups(params), old_groups):
             new_c = {}
             for i, (kind, ffn) in enumerate(self.group):
                 x, new_c[f"sub{i}"] = block_fn(
                     p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"])
             new_groups.append(new_c)
-        layers["groups"] = _restack(new_groups, old_groups, cache["groups"])
+        layers["groups"] = (
+            _restack(new_groups, old_groups, cache["groups"])
+            if self.cfg.scan_layers else new_groups)
         return x, layers
 
     def decode_step(self, params: Params, tokens: torch.Tensor,
@@ -492,7 +510,8 @@ class LM:
         x, layers = self._run_layers(
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_decode(
-                p, cfg, kind, ffn, x, c, index, self.ring_cache))
+                p, cfg, kind, ffn, x, c, index, self.window_slice,
+                self.ring_cache))
         new_cache = {"index": index + 1, **layers}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache
@@ -516,7 +535,7 @@ class LM:
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_fill(
                 p, cfg, kind, ffn, x, positions, c, self.attn_impl,
-                self.use_ssd_kernel, self.ring_cache))
+                self.window_slice, self.use_ssd_kernel, self.ring_cache))
         new_cache = {"index": cache["index"] + s, **layers}
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         return self.unembed(params, x), new_cache

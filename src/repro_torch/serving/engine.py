@@ -3,9 +3,10 @@
 
   * a fixed number of batch *slots*, each owning a row of the cache: of
     every attention layer's K/V (``[n_groups, slots, max_len, KV, D]``,
-    ``[slots, max_len, KV, D]`` in an unstacked prefix layer, a ring of
-    ``min(max_len, window)`` positions for a sliding-window model built
-    with ``ring_cache``) or of every SSM layer's state;
+    ``[slots, max_len, KV, D]`` in an unstacked prefix layer or group, a
+    ring of ``min(max_len, window)`` positions for a sliding-window model
+    built with ``ring_cache``) and of every SSM layer's state (a hybrid
+    model's group holds both);
   * waiting requests are admitted in waves into free slots (left-padded
     to a common length), prefilled as one batch, then decoded in
     lock-step; finished slots free early (EOS / max tokens) while the
@@ -57,7 +58,10 @@ def _scatter_rows(live: Any, new: Any, rows: torch.Tensor,
     place, leaf by leaf, along the batch axis ``axis``: 1 in the stacked
     groups (after the leading ``[n_groups]``: K/V ``[n_groups, B, S_max,
     KV, D]``, SSM state ``[n_groups, B, ...]``), 0 in the unstacked
-    prefix layers, as the reference's ``scatter``."""
+    prefix layers and in a list of unstacked groups, as the reference's
+    ``scatter``.  Every leaf of an admitted row is overwritten, K/V and
+    SSM state alike: the row takes the new prompt's prefilled state and
+    keeps nothing of the request it held before."""
     if isinstance(live, dict):
         for k in live:
             _scatter_rows(live[k], new[k], rows, axis)
@@ -163,7 +167,9 @@ class ServingEngine:
         rows = torch.tensor(admitted, dtype=torch.long, device=self.device)
         # the shared position index is equal by construction (live and
         # scratch both at _cur_len); only the layers' slot rows move
-        _scatter_rows(self.cache["groups"], scratch["groups"], rows, 1)
+        stacked = not isinstance(self.cache["groups"], list)
+        _scatter_rows(self.cache["groups"], scratch["groups"], rows,
+                      1 if stacked else 0)
         if "prefix_layers" in self.cache:
             _scatter_rows(self.cache["prefix_layers"],
                           scratch["prefix_layers"], rows, 0)

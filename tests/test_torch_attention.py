@@ -124,6 +124,27 @@ def test_blocked_attention_over_several_chunks_matches_reference():
     _close(got, want, F32_TOL)
 
 
+@pytest.mark.parametrize("block_q", [4, 16])
+def test_blocked_attention_window_slice_matches_reference(block_q):
+    """``window_slice``: 40 rows, window 8, each chunk of ``block_q``
+    rows against only the ``8 + block_q`` keys ending at its last row
+    (the first chunks' spans clamped at 0): the reference's
+    ``window_slice`` output within 1e-5, the port's own masked output
+    (the same ops over every key) within 1e-6."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal((2, 40, h, 64)).astype(np.float32)
+               for h in (4, 2, 2))
+    pos = np.arange(40)
+    want = jax_L._blocked_attention(*map(jnp.asarray, (q, k, v, pos, pos)),
+                                    8, 0.125, block_q=block_q,
+                                    window_slice=True)
+    got, masked = (port_L._blocked_attention(
+        *map(torch.from_numpy, (q, k, v, pos, pos)), 8, 0.125,
+        block_q=block_q, window_slice=ws) for ws in (True, False))
+    _close(got, want, F32_TOL)
+    np.testing.assert_allclose(_np(got), _np(masked), atol=1e-6, rtol=1e-6)
+
+
 def test_unknown_attention_impl_raises():
     _, tc = _cfgs(**LAYER)
     _, tp = _attn_params(_cfgs(**LAYER)[0])
@@ -254,16 +275,26 @@ def test_full_config_parameter_count():
         jax_config.get_config("qwen3-1.7b").model.num_params()
 
 
-def test_kv_cache_paths_and_fused_xent_raise():
+def test_kv_cache_tree_window_slice_and_fused_xent_match_reference():
     rc, tc = _smoke()
-    # the KV cache is ported: the reference's tree, K and V [n_groups, B,
-    # max_len, KV, D]; its window_slice is not (item 13.7)
+    # the KV cache: the reference's tree, K and V [n_groups, B, max_len,
+    # KV, D]
     cache = LM(tc, device="cpu").init_cache(2, 16)
     want = jax.tree.map(lambda a: a.shape, jax_build(rc).init_cache(2, 16))
     assert tree_map(lambda t: tuple(t.shape), cache) == want
-    with pytest.raises(NotImplementedError, match="window_slice"):
-        LM(tc, window_slice=True, device="cpu")
-    # fused_xent is ported (item 13.7): the same loss as log_softmax
+    # window_slice on the blocked path of a windowed model: the
+    # reference's window_slice forward
+    rw, tw = (dataclasses.replace(c, sliding_window=8) for c in (rc, tc))
+    rp = jax_build(rw).init(jax.random.key(2))
+    wtoks = np.random.default_rng(2).integers(0, rc.vocab_size,
+                                              (2, 24)).astype(np.int32)
+    want = jax_build(rw, attn_impl="blocked", window_slice=True).forward(
+        rp, jnp.asarray(wtoks))[0]
+    got = LM(tw, attn_impl="blocked", window_slice=True, device="cpu"
+             ).forward(tree_from_numpy(jax.tree.map(np.asarray, rp), "cpu"),
+                       torch.from_numpy(wtoks))[0]
+    _close(got, want, F32_TOL)
+    # fused_xent: the same loss as log_softmax
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, tc.vocab_size, (2, 12)).astype(np.int32))
     params = LM(tc, device="cpu").init(torch.Generator().manual_seed(0))

@@ -37,9 +37,10 @@ def test_configs_equal_reference(arch):
     assert port.notes == ref.notes
 
 
-def test_unknown_arch_raises():
-    with pytest.raises(KeyError):
-        t_config.get_config("jamba-1.5-large-398b")
+def test_an_arch_neither_package_has_raises():
+    assert "gpt-5" not in jax_config.ARCH_IDS
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_config.get_config("gpt-5")
 
 
 def _assert_same_split(a, b):

@@ -615,7 +615,10 @@ def test_async_engine_on_the_card_makes_the_cpu_decisions(arch, batch_k,
 # bf16 (tensor-core) instance's branches: P tile P (the serving shape,
 # B * H = 160) and P / 2 (B * H <= 66), P = N = 128 (jamba-1.5's head dim
 # and d_state) with P tiles of 64 and of 128 (a warp holding 4 state
-# items), the mid-flight admission prefill (B = 1, S = 128), 5 chunks.
+# items), the mid-flight admission prefill (B = 1, S = 128), 5 chunks;
+# last jamba-1.5's serving prefill (128 heads of P = N = 128, B * H = 512,
+# P tile 64) in bf16 and in f32 (its kernel-vs-naive fill: the f32 plan
+# takes 231,936 bytes of shared memory).
 SSD_CASES = [
     (2, 128, 4, 32, 16, 32, "float32"),
     (1, 256, 2, 64, 128, 128, "float32"),
@@ -635,6 +638,8 @@ SSD_CASES = [
     (1, 128, 32, 64, 128, 128, "bfloat16"),
     (2, 640, 8, 64, 128, 128, "bfloat16"),
     (2, 100, 4, 32, 16, 100, "bfloat16"),
+    (4, 512, 128, 128, 128, 128, "bfloat16"),
+    (4, 512, 128, 128, 128, 128, "float32"),
 ]
 
 
@@ -776,6 +781,7 @@ FLASH_CASES = [
     (4, 512, 24, 24, 64, 0, "bfloat16"),
     (4, 768, 8, 1, 256, 0, "bfloat16"),
     (4, 512, 8, 1, 256, 0, "bfloat16"),
+    (4, 512, 64, 8, 128, 0, "bfloat16"),
 ]
 # (b, s, h, kv, d, window, dtype), causal=False: the bf16 instance without
 # the causal bound, ragged, and with a window that starts mid-tile
@@ -816,6 +822,27 @@ def test_flash_attention_matches_plain(b, s, h, kv, d, window, dtype,
     assert fa_ops.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
     assert_flash_close(out, q, k, v, window=window)
+
+
+def test_flash_attention_long_context_window_matches_plain(cuda_device):
+    """qwen3-1.7b's long-context prefill, (2, 12288, 16, 8, 128) at the
+    reference's window of 8192 (the kernel's window branch skips each
+    query tile's dead key tiles): one launch, held to the plain version
+    one (batch row, KV head) at a time (each query head sees its own KV
+    head only; the whole plain version's logits would take 19 GB)."""
+    b, s, h, kv, d, window = 2, 12288, 16, 8, 128, 8192
+    q, k, v = flash_inputs(b, s, h, kv, d, "bfloat16", 5, cuda_device)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    g = h // kv
+    for i in range(b):
+        for j in range(kv):
+            heads = slice(j * g, (j + 1) * g)
+            assert_flash_close(out[i:i + 1, :, heads], q[i:i + 1, :, heads],
+                               k[i:i + 1, :, j:j + 1], v[i:i + 1, :, j:j + 1],
+                               window=window)
 
 
 @pytest.mark.parametrize("b,s,h,kv,d,window,dtype", FLASH_NON_CAUSAL)
@@ -957,6 +984,86 @@ def test_attention_fill_kernel_equals_naive_fill_at_ragged_s(arch, dtype,
     if dt == torch.float32:
         rel = float((yk - yn).abs().max()) / float(yn.abs().max())
         assert rel <= 1e-3, rel
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jamba_smoke_kernel_fill_equals_the_naive_fill(dtype, cuda_device):
+    """jamba-1.5's smoke config over two groups of its full 8-layer
+    pattern (16 layers: Mamba and attention layers, dense and MoE FFNs):
+    a prefill through both kernels (one flash_attention launch per
+    attention layer, one ssd_scan per Mamba layer) and through naive
+    attention and the plain SSD, the plain run on the kernel run's
+    replayed expert choices; then 8 greedy decode steps from each cache.
+    At f32 logits, every K/V and SSM state within 1e-3 of their largest
+    magnitude and the greedy tokens equal; at bf16 finite, the first
+    tokens equal wherever the kernel's top-2 margin exceeds twice the
+    logits' difference."""
+    import dataclasses
+
+    from repro_torch.config import get_smoke_config
+    from repro_torch.interop import tree_leaves
+    from repro_torch.models import LM, moe
+    full = get_config("jamba-1.5-large-398b").model
+    cfg = dataclasses.replace(
+        get_smoke_config("jamba-1.5-large-398b").model, n_layers=16,
+        layer_pattern=full.layer_pattern, ffn_pattern=full.ffn_pattern,
+        dtype=dtype)
+    params = LM(cfg, device=cuda_device).init(
+        torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 200), device=cuda_device,
+                         generator=torch.Generator(
+                             device=cuda_device).manual_seed(1),
+                         dtype=torch.int32)
+    choices, route = [], moe.route
+
+    def run(impl, replay):
+        def logged(router, xf, k):
+            logits, probs, gate, idx = route(router, xf, k)
+            if replay is not None:
+                idx = replay[len(choices)]
+                gate = probs.gather(-1, idx)
+                gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+            choices.append(idx)
+            return logits, probs, gate, idx
+        m = LM(cfg, attn_impl=impl, use_ssd_kernel=impl == "kernel",
+               device=cuda_device)
+        moe.route = logged
+        try:
+            with torch.no_grad():
+                logits, cache = m.prefill(params, toks, m.init_cache(4, 216))
+                first = logits[:, -1].float()
+                out = [first.argmax(-1)]
+                for _ in range(8):
+                    logits, cache = m.decode_step(params, out[-1][:, None],
+                                                  cache)
+                    out.append(logits[:, -1].argmax(-1))
+        finally:
+            moe.route = route
+        return first, cache, torch.stack(out, 1)
+
+    before = (fa_ops.launches, ssd_ops.launches)
+    kernel = run("kernel", None)
+    kinds = cfg.layer_kinds()
+    assert (fa_ops.launches - before[0], ssd_ops.launches - before[1]) == (
+        kinds.count("attn"), kinds.count("mamba"))
+    replay, choices[:] = list(choices), []
+    naive = run("naive", replay)
+    assert (fa_ops.launches, ssd_ops.launches) == (
+        before[0] + kinds.count("attn"), before[1] + kinds.count("mamba"))
+    (lk, ck, tk), (ln, cn, tn) = kernel, naive
+    assert bool(torch.isfinite(lk).all())
+    if dtype == "float32":
+        for a, b in zip(tree_leaves(ck), tree_leaves(cn)):
+            a, b = a.float(), b.float()
+            assert float((a - b).abs().max()) <= 1e-3 * max(
+                float(b.abs().max()), 1e-30)
+        assert float((lk - ln).abs().max()) <= 1e-3 * float(ln.abs().max())
+        assert torch.equal(tk, tn)
+    else:
+        top2 = lk.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = margin > 2 * float((lk - ln).abs().max())
+        assert torch.equal(tk[sure, 0], tn[sure, 0])
 
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,

@@ -9,7 +9,9 @@ The four cache functions of ``repro_torch.models.layers``
 with the ring cache of a sliding-window variant through more decode steps
 than the ring holds; minicpm-2b's, qwen2.5-14b's and deepseek-coder-33b's
 smoke ``LM.forward`` and ``LM.loss`` and parameter counts; minicpm-2b's
-``wsd`` learning rates.  Configs: qwen3-1.7b's
+``wsd`` learning rates; ``window_slice`` (the decode's window-sized
+gather at a device start, the blocked fills) against the reference and
+against the masked path (a layer within 1e-6 of its masked output).  Configs: qwen3-1.7b's
 smoke (per-head qk-norm), qwen2.5-14b's (QKV bias, set non-zero here),
 minicpm-2b's (MHA, tied embeddings) and qwen3's with ``sliding_window=8``.
 
@@ -226,17 +228,130 @@ def test_attention_decode_ring_matches_reference(dtype):
             _close(g, w, _tol(dtype))
 
 
-def test_window_slice_is_refused_with_its_item():
+# a layer's window_slice output against its masked output: the same ops
+# over a shorter row (summation order only), held to 1e-6; against the
+# reference the f32 tier F32_TOL (one element of 768 was 1.39e-6 apart at
+# 1e-6), and through a whole LM's decode, where layer 0's difference
+# reaches layer 1's K and V, F32_TOL on / off too (2.7e-6 measured)
+WS_TOL = 1e-6
+
+
+@pytest.mark.parametrize("index", [0, 5, 9, 19, 23])
+def test_window_slice_decode_matches_reference_and_the_masked_decode(index):
+    """``window_slice``: one token against a cache of 20 reads only the
+    window + 1 rows ending at it (the start clamped at 0 and at S_max -
+    span, the write clamped past the end at index 23): the output and
+    cache equal the reference's ``window_slice`` decode (``F32_TOL``) and
+    the port's masked decode (1e-6)."""
     rc, tc = _cfgs("qwen3-1.7b", sliding_window=WINDOW)
-    p = _t(jax.tree.map(np.asarray,
-                        jax_L.init_attention(jax.random.key(0), rc)))
-    ck = torch.zeros(1, 16, tc.n_kv_heads, tc.resolved_head_dim)
-    with pytest.raises(NotImplementedError, match="item 13.7"):
-        port_L.attention_decode(p, tc, torch.zeros(1, 1, tc.d_model), ck,
-                                ck.clone(), torch.tensor(3),
-                                window_slice=True)
-    with pytest.raises(NotImplementedError, match="item 13.7"):
-        LM(tc, window_slice=True, device="cpu")
+    p = _randomise(jax_L.init_attention(jax.random.key(11), rc), seed=11)
+    x, ck, cv = _layer_inputs(rc, 3, 1, 20, "float32", seed=12 + index)
+    want = jax_L.attention_decode(jax.tree.map(jnp.asarray, p), rc,
+                                  jnp.asarray(x), jnp.asarray(ck),
+                                  jnp.asarray(cv),
+                                  jnp.asarray(index, jnp.int32),
+                                  window_slice=True)
+    got, masked = (port_L.attention_decode(
+        _t(p), tc, _t(x), _t(ck), _t(cv),
+        torch.tensor(index, dtype=torch.int32), window_slice=ws)
+        for ws in (True, False))
+    for g, w, m in zip(got, want, masked):
+        assert tuple(g.shape) == w.shape
+        _close(g, w, F32_TOL)
+        np.testing.assert_allclose(_f32(g), _f32(m), atol=WS_TOL,
+                                   rtol=WS_TOL)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_window_slice_fills_match_reference(ring):
+    """``attention_fill`` and ``attention_fill_ring`` on the blocked path
+    with ``window_slice``: output and cache equal the reference's
+    (``F32_TOL``) and the port's without the option (1e-6)."""
+    rc, tc = _cfgs("qwen3-1.7b", sliding_window=WINDOW)
+    p = _randomise(jax_L.init_attention(jax.random.key(13), rc), seed=13)
+    x, ck, cv = _layer_inputs(rc, 2, 19, WINDOW if ring else 24,
+                              "float32", seed=14)
+    pos = np.arange(19)
+    ref_fill = jax_L.attention_fill_ring if ring else jax_L.attention_fill
+    fill = port_L.attention_fill_ring if ring else port_L.attention_fill
+    want = ref_fill(jax.tree.map(jnp.asarray, p), rc, jnp.asarray(x),
+                    jnp.asarray(pos), jnp.asarray(ck), jnp.asarray(cv),
+                    impl="blocked", window_slice=True)
+    got, plain = (fill(_t(p), tc, _t(x), torch.from_numpy(pos), _t(ck),
+                       _t(cv), impl="blocked", window_slice=ws)
+                  for ws in (True, False))
+    for g, w, m in zip(got, want, plain):
+        _close(g, w, F32_TOL)
+        np.testing.assert_allclose(_f32(g), _f32(m), atol=WS_TOL,
+                                   rtol=WS_TOL)
+
+
+def test_window_slice_decode_reads_nothing_back_to_the_host():
+    """The slice starts at an index computed on the device: the decode
+    runs on ``meta`` tensors (no values, so any read back to the host,
+    ``.item()`` or a ``narrow`` at a tensor start, raises), and a whole
+    ``LM.decode_step`` calls no host-reading tensor method."""
+    from torch.overrides import TorchFunctionMode
+    _, tc = _cfgs("qwen3-1.7b", sliding_window=WINDOW)
+    p = tree_map(lambda t: t.to("meta"),
+                 port_L.init_attention(torch.Generator().manual_seed(0), tc))
+    ck = torch.zeros(2, 20, tc.n_kv_heads, tc.resolved_head_dim,
+                     device="meta")
+    y, k, _ = port_L.attention_decode(
+        p, tc, torch.zeros(2, 1, tc.d_model, device="meta"), ck,
+        ck.clone(), torch.tensor(13, device="meta"), window_slice=True)
+    assert y.shape == (2, 1, tc.d_model) and k is ck
+
+    class HostReads(TorchFunctionMode):
+        names = ("item", "tolist", "__bool__", "__int__", "__float__",
+                 "__index__", "numpy", "narrow")
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in self.names:
+                self.seen.append(name)
+            return func(*args, **(kwargs or {}))
+    tm = LM(tc, window_slice=True, device="cpu")
+    params = tm.init(torch.Generator().manual_seed(0))
+    toks = torch.zeros(2, 12, dtype=torch.int32)
+    _, cache = tm.prefill(params, toks, tm.init_cache(2, 20))
+    with HostReads() as mode:
+        tm.decode_step(params, toks[:, :1], cache)
+    assert mode.seen == []
+
+
+def test_lm_window_slice_prefill_and_decode_match_reference():
+    """``LM(window_slice=True)`` on the windowed qwen3 (window 8, cache
+    32): a 9-token prefill and 15 decode steps, logits and caches within
+    1e-5 of the reference's ``window_slice`` model and of the port's
+    masked one."""
+    rc, tc = _cfgs("qwen3-1.7b", sliding_window=WINDOW)
+    rp = jax.tree.map(jnp.asarray, _randomise(
+        jax_build(rc).init(jax.random.key(0)), seed=1))
+    tp = tree_from_numpy(jax.tree.map(np.asarray, rp), "cpu")
+    toks = np.random.default_rng(2).integers(0, rc.vocab_size,
+                                             (3, 24)).astype(np.int32)
+    rm = jax_build(rc, window_slice=True)
+    tm, masked = (LM(tc, window_slice=ws, device="cpu")
+                  for ws in (True, False))
+    ref_decode = jax.jit(rm.decode_step)
+    out_ref = rm.prefill(rp, jnp.asarray(toks[:, :9]), rm.init_cache(3, 32))
+    out = tm.prefill(tp, torch.from_numpy(toks[:, :9]), tm.init_cache(3, 32))
+    out_m = masked.prefill(tp, torch.from_numpy(toks[:, :9]),
+                           masked.init_cache(3, 32))
+    for t in range(9, 25):
+        _tree_close(out, out_ref, F32_TOL)
+        _tree_close(out, tree_to_numpy(out_m), F32_TOL)
+        if t == 24:
+            break
+        tok = toks[:, t:t + 1]
+        out_ref = ref_decode(rp, jnp.asarray(tok), out_ref[1])
+        out = tm.decode_step(tp, torch.from_numpy(tok), out[1])
+        out_m = masked.decode_step(tp, torch.from_numpy(tok), out_m[1])
 
 
 # -- the LM: prefill and decode -----------------------------------------------

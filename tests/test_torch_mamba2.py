@@ -217,7 +217,9 @@ def test_cache_tree_matches_reference():
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen3-1.7b", "svm-wafer",
                                   "kmeans-traffic", "minicpm-2b",
                                   "qwen2.5-14b", "deepseek-coder-33b",
-                                  "olmoe-1b-7b", "deepseek-moe-16b"])
+                                  "olmoe-1b-7b", "deepseek-moe-16b",
+                                  "musicgen-medium", "paligemma-3b",
+                                  "jamba-1.5-large-398b"])
 def test_config_equals_reference_field_for_field(arch, getter):
     port = getattr(port_config, getter)(arch)
     ref = getattr(jax_config, getter)(arch)
@@ -240,36 +242,48 @@ def test_num_params():
         sum(a.size for a in jax.tree.leaves(ref_params))
 
 
-def test_unported_archs_and_blocks_name_their_slice():
-    # item 13.5 resolves paligemma-3b and musicgen-medium; jamba is the one
-    # LM id left, and it names item 13.6
-    for arch in ("paligemma-3b", "musicgen-medium"):
+def test_every_lm_arch_resolves_and_builds_every_block_kind():
+    # every LM id of the reference resolves (jamba-1.5 the last, item
+    # 13.6), so no id is left to name a slice; unknown ids still raise
+    assert port_config.LM_SLICES == {}
+    assert set(port_config.PORTED_LM_IDS) == set(jax_config.ARCH_IDS)
+    for arch in ("paligemma-3b", "musicgen-medium", "jamba-1.5-large-398b"):
         assert port_config.get_config(arch).model.name == arch
-        assert arch in port_config.PORTED_LM_IDS
-    assert list(port_config.LM_SLICES) == ["jamba-1.5-large-398b"]
-    with pytest.raises(KeyError, match="hybrid attention/SSM/MoE slice"):
-        port_config.get_smoke_config("jamba-1.5-large-398b")
-    with pytest.raises(KeyError, match="item 13.6"):
-        port_config.get_config("jamba-1.5-large-398b")
+        assert port_config.get_smoke_config(arch).model.name == \
+            arch + "-smoke"
     with pytest.raises(KeyError, match="unknown arch"):
         port_config.get_config("gpt-5")
+    # an SSM mixer with a MoE FFN, and attention and SSM layers in one
+    # stack, build and run (item 13.6)
     hybrid = port_config.ModelConfig(
-        n_layers=2, layer_pattern=(port_config.MAMBA,),
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, vocab_size=64,
+        layer_pattern=(port_config.MAMBA,), dtype="float32",
+        mamba=port_config.MambaConfig(d_state=16, head_dim=32,
+                                      chunk_size=8),
         moe=port_config.MoEConfig(num_experts=4, expert_ffn_dim=32))
-    with pytest.raises(NotImplementedError, match="item 13.6"):
-        LM(hybrid, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13.6"):
-        LM(dataclasses.replace(hybrid, layer_pattern=(
-            port_config.MAMBA, port_config.ATTN),
-            moe=port_config.MoEConfig()), device="cpu")
+    mixed = dataclasses.replace(hybrid, layer_pattern=(
+        port_config.MAMBA, port_config.ATTN), moe=port_config.MoEConfig())
+    toks = torch.zeros(1, 8, dtype=torch.int32)
+    for cfg in (hybrid, mixed):
+        m = LM(cfg, device="cpu")
+        logits, aux = m.forward(m.init(torch.Generator().manual_seed(0)),
+                                toks)
+        assert logits.shape == (1, 8, 64) and bool(torch.isfinite(
+            logits).all())
+        assert float(aux["n_moe"]) == (2.0 if cfg is hybrid else 0.0)
     attn = port_config.ModelConfig(n_layers=2)
     # multi-codebook heads and prefix embeddings build (item 13.5)
     cb = LM(dataclasses.replace(attn, n_codebooks=4, num_prefix_embeddings=2),
             device="cpu")
     assert cb.init(torch.Generator().manual_seed(0))["lm_head"].shape == (
         4, attn.d_model, attn.vocab_size)
-    with pytest.raises(NotImplementedError, match="item 13.7"):
-        LM(attn, window_slice=True, device="cpu")
+    # window_slice and unstacked trees build (item 13.7)
+    assert LM(attn, window_slice=True, device="cpu").window_slice
+    flat = LM(dataclasses.replace(attn, d_model=64, n_heads=2, n_kv_heads=2,
+                                  d_ff=64, vocab_size=32, scan_layers=False),
+              device="cpu")
+    groups = flat.init(torch.Generator().manual_seed(0))["groups"]
+    assert isinstance(groups, list) and len(groups) == 2
 
 
 def test_interop_round_trip_keeps_dtypes():
