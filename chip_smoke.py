@@ -241,6 +241,27 @@ Phases, each printing JSON lines:
 7. ol4el   -- the paper's loop over qwen3-1.7b at full width
               (``launch.train.train_ol4el``, sync, 2 edges, B = 4,
               S = 128, 2 rounds);
+9. planner -- the H100 planner (``repro_torch.launch.dryrun``) on meta
+              tensors against the card: each row's predicted peak within
+              15 % of the peak measured around one clean step in the phase
+              that built the model (5c: olmoe-1b-7b's 4 x 512 prefill; 5d:
+              deepseek-moe-16b's, layers 0:4; 6b: minicpm-2b's train step
+              at B = 4 and at the experiment's B = 8; 5g: jamba's, layers
+              2:5; 6f: the interleave's train step at B = 8), and the
+              verdicts of the rows not run (olmoe-1b-7b's training state
+              and jamba's layers 0:5 do not fit; deepseek-moe-16b's full
+              depth stated); then qwen3-1.7b's 4 x 512 prefill planned and
+              measured (``--measure``), its step time beside the port's
+              roofline bound (``repro_torch.bench.roofline``); each line
+              beside the card's name and power limit;
+9b. examples -- ``repro_torch.examples``' quickstart (qwen3-1.7b smoke,
+              ``flash_attention`` launched), serve_batched (qwen3-1.7b,
+              mamba2-370m and jamba smoke: ``flash_attention`` and
+              ``ssd_scan`` launched) and train_lm_ol4el (``--preset 25m
+              --rounds 10``, its checkpoint restored bit for bit), and
+              ``launch.train --arch kmeans-traffic --mode ol4el
+              --kmeans-impl cuda --alpha 1.0`` (``kmeans_assign``
+              launched);
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch (the batched
               ``kmeans_assign`` beside 4 single launches, and at the sweep's
@@ -263,7 +284,7 @@ Phases, each printing JSON lines:
 
 Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
 6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
-runs), 6f, 7) is
+runs), 6f, 7, each of 9b's four runs) is
 driven with every kernel's launch count set to 0 just before it and read
 just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
@@ -286,10 +307,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12           # f32 outside the tensor cores
-H100_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 
 
 def emit(phase: str, **fields) -> None:
@@ -3368,7 +3385,8 @@ def counts() -> dict:
 
 
 def drive_training(exp, batch: int, seq: int,
-                   kernel: str = "flash_attention", ckpt=None) -> dict:
+                   kernel: str = "flash_attention", ckpt=None,
+                   clean_batches=()) -> dict:
     """``launch.train.train_standard`` for ``TRAIN_STEPS`` steps at
     ``batch`` x ``seq``: the main path, every kernel count set to 0 just
     before it and read just after.  ``kernel`` is the one every layer's
@@ -3376,10 +3394,14 @@ def drive_training(exp, batch: int, seq: int,
     hybrid stack, whose attention layers launch ``flash_attention`` and
     whose Mamba layers ``ssd_scan``.  Returns the phase line's fields;
     with ``ckpt`` (the launcher's ``--ckpt``: the state is saved there
-    after the steps) also the trained state, under ``"state"``."""
+    after the steps) also the trained state, under ``"state"``.  Past the
+    counted run, one clean step from the trained state at each batch size
+    of ``clean_batches`` (``clean_step_peak``), under ``"clean_steps"``:
+    the peaks phase 9 holds the planner to."""
     import torch
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.train import train_standard
+    from repro_torch.train.state import make_train_step
 
     cfg = exp.model
     args = train_args(exp.model.name, steps=TRAIN_STEPS, batch=batch,
@@ -3418,11 +3440,50 @@ def drive_training(exp, batch: int, seq: int,
         "kernel_launches_per_step": {
             k: 2 * n for k, n in layers_by_kernel(cfg, kernel).items()},
         "params_finite": finite}
+    if clean_batches:
+        state = out["state"]
+        result["clean_steps"] = {
+            b: clean_step_peak(cfg, lambda model, data: make_train_step(
+                model, exp.train)(state, data), tree_leaves(state), b, seq)
+            for b in clean_batches}
+        del state
     if ckpt:
         result["state"] = out["state"]
     del out, leaves
     torch.cuda.empty_cache()
     return result
+
+
+def clean_step_peak(cfg, step_fn, held, batch: int, seq: int) -> dict:
+    """One clean step on the card for phase 9: ``step_fn(model, data)``
+    on a fresh batch of ``batch`` x ``seq`` synthetic tokens (the model
+    built as the planner builds it, over tensors the phase already holds:
+    ``held``), between ``reset_peak_memory_stats()`` and
+    ``max_memory_allocated()`` (``dryrun.measure_step``: the step's rise
+    above what was allocated before it, plus its arguments' blocks).  The
+    phase has just run the same path, so no warm-up."""
+    import torch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import batch_struct
+    model = dryrun.build(cfg, "cuda")
+    data = dryrun.card_batch(cfg, batch_struct(cfg, batch, seq), "cuda",
+                             torch.Generator(device="cuda").manual_seed(5))
+    out = dryrun.measure_step(lambda: step_fn(model, data),
+                              held + list(data.values()), repeats=1,
+                              warmup=False)
+    del data
+    torch.cuda.empty_cache()
+    return {"batch": batch, "seq": seq, "peak_bytes": out["peak_bytes"],
+            "step_ms": out["step_ms"], "launches": out["launches"]}
+
+
+def clean_prefill_peak(cfg, params, batch: int = 4, seq: int = 512) -> dict:
+    """``clean_step_peak`` of ``make_prefill_step`` over ``params``."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.train.state import make_prefill_step
+    return clean_step_peak(
+        cfg, lambda model, data: make_prefill_step(model)(params, data),
+        tree_leaves(params), batch, seq)
 
 
 def layers_by_kernel(cfg, kernel: str) -> dict:
@@ -3512,7 +3573,10 @@ def minicpm_train_phase() -> dict:
           "minicpm-2b: the experiment's schedule, optimizer, remat, "
           "embeddings or heads changed")
     # the main path: every kernel count is read around exactly this run
-    result = drive_training(exp, MINICPM_BATCH, MINICPM_SEQ)
+    # (then clean steps at B = 4 and at the experiment's B = 8 for phase 9)
+    result = drive_training(exp, MINICPM_BATCH, MINICPM_SEQ,
+                            clean_batches=(MINICPM_BATCH,
+                                           exp.train.global_batch))
     want_lrs = [wsd_lr(exp.train, i) for i in range(TRAIN_STEPS)]
     result.update(schedule=exp.train.schedule, reference_lrs=want_lrs)
     emit("train_minicpm", **result)
@@ -3527,7 +3591,8 @@ def minicpm_train_phase() -> dict:
           f"schedule's {want_lrs}")
     return {"flash_attention": result["launches"]["flash_attention"],
             "step_ms_median": result["step_ms_median"],
-            "max_memory_allocated": result["max_memory_allocated"]}
+            "max_memory_allocated": result["max_memory_allocated"],
+            "clean_steps": result["clean_steps"]}
 
 
 def train_vs_plain(arch: str = "qwen3-1.7b", batch_size: int = TRAIN_BATCH,
@@ -3872,6 +3937,8 @@ def serve_moe(cfg, name: str, reruns: int = 0) -> dict:
             "expert_ffn_dim": m.expert_ffn_dim,
             "shared_experts": m.num_shared_experts,
             "prefix_layers": [list(b) for b in prefix]})
+    # past the counted run: phase 9's clean prefill at the engine's shape
+    summary["clean_step"] = clean_prefill_peak(cfg, params)
     first_moe = next(i for i, (_, f) in enumerate(group) if f == "moe")
     ffn = {n: t[0] for n, t in
            params["groups"][f"sub{first_moe}"]["ffn"].items()}
@@ -4342,6 +4409,8 @@ def serve_jamba_phase() -> dict:
                 cfg.d_model), "ssm_head_dim": mc.head_dim,
             "d_state": mc.d_state,
             "blocks": [list(b) for b in cfg.block_pattern()]})
+    # past the counted run: phase 9's clean prefill at the engine's shape
+    summary["clean_step"] = clean_prefill_peak(cfg, params)
     fill = moe_fill_vs_naive(cfg, params, prompts)
     emit("serve_jamba_vs_plain", **fill)
     check_moe_fill("serve_jamba_vs_plain", fill)
@@ -4353,9 +4422,8 @@ def serve_jamba_phase() -> dict:
 # -- phase 5h: qwen3-1.7b at long context -------------------------------------
 
 # qwen3-1.7b at full width with the sliding window the reference gives
-# attention models at long context (``LONG_CONTEXT_WINDOW``,
-# ``src/repro/launch/specs.py:24``, copied: this script imports nothing of
-# the JAX package): 2 slots of 12,288-token prompts through the engine and
+# attention models at long context (``LONG_CONTEXT_WINDOW`` of the port's
+# ``repro_torch.launch.specs``, the reference's value): 2 slots of 12,288-token prompts through the engine and
 # 16 greedy decode steps, three ways: the masked full cache (12,304
 # positions), ``window_slice`` (each decode step gathers the 8193 rows
 # ending at its token) and ``ring_cache`` (8192 slots).  Every prefill goes
@@ -4374,7 +4442,6 @@ def serve_jamba_phase() -> dict:
 # blocked path's logits over the whole sequence, and every later token
 # then differed.)  At f32 the three runs decode freely and their tokens
 # must be equal.
-LONG_CONTEXT_WINDOW = 8192
 LONG_SLOTS, LONG_PROMPT, LONG_DECODE = 2, 12288, 16
 
 
@@ -4460,6 +4527,7 @@ def long_context_run(cfg, params, prompts, kw, forced=None) -> dict:
 def serve_long_context_phase() -> dict:
     import torch
     from repro_torch.config import get_config
+    from repro_torch.launch.specs import LONG_CONTEXT_WINDOW
     from repro_torch.models import LM
     cfg = dataclasses.replace(get_config("qwen3-1.7b").model,
                               sliding_window=LONG_CONTEXT_WINDOW)
@@ -4593,7 +4661,8 @@ def train_hybrid_phase() -> dict:
           f"{JAMBA}: the training cut's blocks or TrainConfig changed")
     # the main path: every kernel count is read around exactly this run
     result = drive_training(exp, HYBRID_TRAIN_BATCH, TRAIN_SEQ,
-                            kernel="both")
+                            kernel="both",
+                            clean_batches=(HYBRID_TRAIN_BATCH,))
     result.update(layers_full=full.model.n_layers,
                   blocks=[list(b) for b in cfg.block_pattern()],
                   moe_training="waits for several cards (ROADMAP item 14): "
@@ -4616,6 +4685,7 @@ def train_hybrid_phase() -> dict:
             "ssd_scan": result["launches"]["ssd_scan"],
             "step_ms_median": result["step_ms_median"],
             "max_memory_allocated": result["max_memory_allocated"],
+            "clean_steps": result["clean_steps"],
             "vs_plain": gaps, "smoke_vs_plain": smoke_gaps}
 
 
@@ -4675,15 +4745,198 @@ def ol4el_phase() -> dict:
     return {"flash_attention": launches["flash_attention"]}
 
 
+# -- phase 9: the planner against the card -----------------------------------
+
+# Each row plans one step on meta tensors (``repro_torch.launch.dryrun``)
+# and holds its predicted peak to the peak the card measured around one
+# clean step of the same step in the phase that already built that model
+# (``clean_step_peak``), within PLAN_PEAK_TOL; a row the planner says does
+# not fit is not run.  The timing row plans and measures qwen3-1.7b's
+# prefill at phase 5b's shape (``plan_combo(measure=True)``: a warm-up,
+# the median of 3) beside the port's roofline bound.
+PLAN_PEAK_TOL = 0.15
+PLAN_SHAPE = (4, 512)            # the engine's prefill: 4 slots of 512
+
+
+def plan_row(name: str, plan: dict, measured=None, expect_fits=None) -> dict:
+    """One phase-9 line: the plan's static bytes, predicted peak and
+    verdict beside the card's measured peak (``None``: not run), checked."""
+    mem = plan["memory"]
+    row = {"row": name, "static_bytes": plan["static_bytes"],
+           "predicted_peak_bytes": mem["peak_live_bytes"],
+           "fits": plan["fits"], "flops": plan["cost"]["flops"],
+           "bytes_accessed": plan["cost"]["bytes accessed"],
+           "card": card_line()}
+    if measured is not None:
+        row.update(measured_peak_bytes=measured["peak_bytes"],
+                   peak_error=mem["peak_live_bytes"] / measured["peak_bytes"]
+                   - 1.0, clean_step_ms=measured["step_ms"])
+    emit("planner", **row)
+    if expect_fits is not None:
+        check(plan["fits"] == expect_fits,
+              f"planner {name}: fits={plan['fits']}, the card says "
+              f"{expect_fits}")
+    if measured is not None:
+        check(plan["fits"], f"planner {name}: ran on the card but the plan "
+              "says it does not fit")
+        check(abs(row["peak_error"]) <= PLAN_PEAK_TOL,
+              f"planner {name}: predicted {mem['peak_live_bytes']} bytes, "
+              f"the card {measured['peak_bytes']} "
+              f"({row['peak_error']:+.3f}, bound {PLAN_PEAK_TOL})")
+    return row
+
+
+def planner_phase(moe, deepseek, minicpm, jamba, hybrid) -> dict:
+    import torch
+    from repro_torch.bench import roofline
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    b, s = PLAN_SHAPE
+    rows = [
+        plan_row("olmoe-1b-7b prefill 4x512",
+                 dryrun.plan_combo("olmoe-1b-7b", "prefill_32k", batch=b,
+                                   seq_len=s), moe["clean_step"], True)]
+    olmoe_train = dryrun.plan_combo("olmoe-1b-7b", "train_4k", batch=4,
+                                    seq_len=s)
+    rows.append(plan_row("olmoe-1b-7b train_step 4x512 (not run)",
+                         olmoe_train, expect_fits=False))
+    check(olmoe_train["static_bytes"] >= 110e9,
+          f"planner: olmoe-1b-7b's training state is "
+          f"{olmoe_train['static_bytes']} bytes, not >= 110 GB")
+    rows.append(plan_row(
+        f"deepseek-moe-16b prefill 4x512 layers 0:{DEEPSEEK_MOE_LAYERS}",
+        dryrun.plan_combo("deepseek-moe-16b", "prefill_32k", batch=b,
+                          seq_len=s, layers=f"0:{DEEPSEEK_MOE_LAYERS}"),
+        deepseek["clean_step"], True))
+    rows.append(plan_row(
+        "deepseek-moe-16b prefill 4x512 full depth (not run)",
+        dryrun.plan_combo("deepseek-moe-16b", "prefill_32k", batch=b,
+                          seq_len=s)))
+    for batch, clean in sorted(minicpm["clean_steps"].items()):
+        rows.append(plan_row(
+            f"minicpm-2b train_step {batch}x{MINICPM_SEQ}",
+            dryrun.plan_combo("minicpm-2b", "train_4k", batch=batch,
+                              seq_len=MINICPM_SEQ), clean, True))
+    rows.append(plan_row(
+        "jamba-1.5-large-398b prefill 4x512 layers 2:5",
+        dryrun.plan_combo(JAMBA, "prefill_32k", batch=b, seq_len=s,
+                          layers="2:5"), jamba["clean_step"], True))
+    rows.append(plan_row(
+        "jamba-1.5-large-398b prefill 4x512 layers 0:5 (not run)",
+        dryrun.plan_combo(JAMBA, "prefill_32k", batch=b, seq_len=s,
+                          layers="0:5"), expect_fits=False))
+    cut = dataclasses.replace(get_config(JAMBA).model, **HYBRID_TRAIN_CUT)
+    rows.append(plan_row(
+        f"jamba-1.5 (MAMBA, DENSE), (ATTN, DENSE) train_step "
+        f"{HYBRID_TRAIN_BATCH}x{TRAIN_SEQ}",
+        dryrun.plan_model(cut, "train", HYBRID_TRAIN_BATCH, TRAIN_SEQ),
+        hybrid["clean_steps"][HYBRID_TRAIN_BATCH], True))
+    # the timing row: plan and measure qwen3-1.7b's prefill at 5b's shape
+    timed = dryrun.plan_combo("qwen3-1.7b", "prefill_32k", batch=b,
+                              seq_len=s, measure=True, device="cuda")
+    roof = roofline.analyze(timed)
+    step_s = timed["measured"]["step_ms"] / 1e3
+    timing = {"row": "qwen3-1.7b prefill 4x512 --measure",
+              "step_ms": timed["measured"]["step_ms"],
+              "step_ms_all": timed["measured"]["step_ms_all"],
+              "bound_s": roof["bound_s"], "dominant": roof["dominant"],
+              "t_compute_s": roof["t_compute_s"],
+              "t_memory_s": roof["t_memory_s"],
+              "step_over_bound": step_s / roof["bound_s"],
+              "predicted_peak_bytes": timed["memory"]["peak_live_bytes"],
+              "measured_peak_bytes": timed["measured"]["peak_bytes"],
+              "peak_error": timed["peak_error"],
+              "launches": timed["measured"]["launches"],
+              "kernels": timed["kernels"], "card": card_line()}
+    emit("planner_timing", **timing)
+    check(abs(timed["peak_error"]) <= PLAN_PEAK_TOL,
+          f"planner qwen3-1.7b prefill: peak error {timed['peak_error']}")
+    qwen = get_config("qwen3-1.7b").model
+    check(timed["measured"]["launches"]["flash_attention"]
+          == timed["measured"]["repeats"] * qwen.n_layers,
+          f"planner --measure: flash_attention launched "
+          f"{timed['measured']['launches']} times, not {qwen.n_layers} a "
+          f"step")
+    check(timed["kernels"]["flash_attention"]["flops"]
+          == qwen.n_layers * fa_ops.work(
+              b, s, qwen.n_heads, qwen.n_kv_heads,
+              qwen.resolved_head_dim)[0],
+          f"planner qwen3-1.7b prefill: kernel work {timed['kernels']}")
+    torch.cuda.empty_cache()
+    emit("planner_done", rows=len(rows) + 1,
+         seconds=time.perf_counter() - t0)
+    return {"rows": rows, "timing": timing}
+
+
+# -- phase 9b: the examples and the classic launcher on the card --------------
+
+def examples_phase() -> dict:
+    import tempfile
+    import torch
+    from repro_torch.examples import quickstart, serve_batched, \
+        train_lm_ol4el
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint
+    out, t0 = {}, time.perf_counter()
+    # each example and the launcher a main path of its own
+    reset_counts()
+    quick = quickstart.main(["--arch", "qwen3-1.7b", "--steps", "3"])
+    out["quickstart"] = {"launches": counts(), "losses": quick["losses"]}
+    check(out["quickstart"]["launches"]["flash_attention"] > 0
+          and all(x == x for x in quick["losses"]),
+          f"quickstart: {out['quickstart']}")
+    reset_counts()
+    served = serve_batched.main([])
+    out["serve_batched"] = {"launches": counts(),
+                            "archs": sorted(served)}
+    check(out["serve_batched"]["launches"]["flash_attention"] > 0
+          and out["serve_batched"]["launches"]["ssd_scan"] > 0,
+          f"serve_batched: {out['serve_batched']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/lm_ol4el.npz"
+        reset_counts()
+        rep = train_lm_ol4el.main(["--preset", "25m", "--rounds", "10",
+                                   "--ckpt", path])
+        launches = counts()
+        back = checkpoint.restore(path, rep.final_params)
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(back), tree_leaves(rep.final_params)))
+        out["train_lm_ol4el"] = {
+            "launches": launches, "aggregations": rep.n_aggregations,
+            "final_loss": rep.final_metric, "restored_bit_equal": same}
+        check(same and launches["flash_attention"] > 0
+              and rep.n_aggregations > 0,
+              f"train_lm_ol4el: {out['train_lm_ol4el']}")
+        del rep, back
+    reset_counts()
+    rep = launch_train.main(["--arch", "kmeans-traffic", "--mode", "ol4el",
+                             "--el-mode", "sync", "--kmeans-impl", "cuda",
+                             "--alpha", "1.0", "--budget", "5000",
+                             "--steps", "64"])
+    launches = counts()
+    km = launches["kmeans_assign"] + launches["kmeans_assign_batched"]
+    out["launch_train_kmeans"] = {
+        "launches": launches, "aggregations": rep.n_aggregations,
+        "final_f1": rep.final_metric}
+    check(km > 0 and rep.n_aggregations > 0,
+          f"launch.train kmeans-traffic: {out['launch_train_kmeans']}")
+    torch.cuda.empty_cache()
+    emit("examples", seconds=time.perf_counter() - t0, **out)
+    return out
+
+
 # -- phase 8: times and bounds ------------------------------------------------
 
 def kmeans_timing(n: int, d: int, k: int) -> dict:
     import torch
     from repro_torch.kernels.kmeans_assign import ops, ref
+    from repro_torch.bench.roofline import F32_FLOPS, HBM_BW
     x, c = km_inputs(n, d, k, "float32", seed=7)
-    nbytes = (n * d + k * d) * 4 + n * (4 + 4)
-    flops = 2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    flops, nbytes = ops.work(n, d, k)
+    t_bytes, t_ops = nbytes / HBM_BW, flops / F32_FLOPS
     out = {"n": n, "d": d, "k": k}
     for key, fn in (("", lambda: ops.assign_with_dist(x, c)),
                     ("plain_", lambda: ref.assign_ref(x, c)),
@@ -4702,10 +4955,10 @@ def kmeans_batched_timing(e: int, n: int, d: int, k: int) -> dict:
     version and the library's batched ``cdist`` + ``min``."""
     import torch
     from repro_torch.kernels.kmeans_assign import ops, ref
+    from repro_torch.bench.roofline import F32_FLOPS, HBM_BW
     x, c = km_batched_inputs(e, n, d, k, "float32", seed=8)
-    nbytes = e * ((n * d + k * d) * 4 + n * (4 + 4))
-    flops = e * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    flops, nbytes = ops.work(n, d, k, e)
+    t_bytes, t_ops = nbytes / HBM_BW, flops / F32_FLOPS
     out = {"e": e, "n": n, "d": d, "k": k}
     for key, fn in (
             ("", lambda: ops.assign_with_dist_batched(x, c)),
@@ -4733,10 +4986,10 @@ def kmeans_cells_timing(n_cells: int, e: int, n: int, d: int,
     pairs = n_cells * e
     x, c = km_batched_inputs(pairs, n, d, k, "float32", seed=9)
     xv, cv = x.view(n_cells, e, n, d), c.view(n_cells, e, k, d)
+    from repro_torch.bench.roofline import F32_FLOPS, HBM_BW
     vmapped = torch.func.vmap(ops.assign_with_dist_batched)
-    nbytes = pairs * ((n * d + k * d) * 4 + n * (4 + 4))
-    flops = pairs * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    flops, nbytes = ops.work(n, d, k, pairs)
+    t_bytes, t_ops = nbytes / HBM_BW, flops / F32_FLOPS
     out = {"cells": n_cells, "e": e, "pairs": pairs, "n": n, "d": d,
            "k": k}
     for key, fn in (
@@ -4758,22 +5011,14 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     cores', as each instance runs).  No single PyTorch call computes the
     SSD scan, so there is no library time."""
     import torch
+    from repro_torch.bench.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
     x, da, bm, cm = ssd_inputs(b, s, h, p, n, dtype_name, seed=11)
-    e = x.element_size()
-    # each input read once, each output written once
-    nbytes = (2 * b * s * h * p * e + b * s * h * 4 + 2 * b * s * n * e
-              + b * h * p * n * 4)
-    # what the function needs, as multiply-adds (2 operations each), on
-    # the causal triangle of the L x L terms only: G = C B^T is shared by
-    # the heads, once per (b, chunk) (2 tri N); per (b, h, chunk) the
-    # masked Gd X (2 tri P), C state^T and the state update (2LPN each)
-    tri = chunk * (chunk + 1) // 2
-    n_chunks = s // chunk
-    flops = b * n_chunks * 2 * tri * n \
-        + b * h * n_chunks * (2 * tri * p + 4 * chunk * p * n)
-    peak = H100_BF16_FLOPS if x.dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    # each input read once, each output written once; the operations on
+    # the causal triangle of the L x L terms only (``ops.work``)
+    flops, nbytes = ops.work(b, s, h, p, n, chunk, x.element_size())
+    peak = PEAK_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak
     out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
            "dtype": dtype_name, "p_tile": kernel.p_tile(
                b, h, p, n, chunk, x.dtype, kernel.max_smem(0),
@@ -4796,32 +5041,21 @@ def sdpa_name(gqa: bool, window: int = 0) -> str:
             f"{mask}, enable_gqa={gqa})")
 
 
-def attended_pairs(s: int, window: int) -> int:
-    """(query, key) pairs a causal sequence of ``s`` attends, with a
-    sliding window of ``window`` keys (0: none): what the work needs,
-    the masked pairs left out."""
-    if window <= 0 or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's, the
     library's (SDPA; timed here as a yardstick, never called by the port)
     and its bound (bf16 operations at the tensor cores' rate, f32 at the
     CUDA cores', as each instance runs)."""
     import torch
+    from repro_torch.bench.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v = flash_inputs(b, s, h, kv, d, dtype_name, seed=13)
-    e = q.element_size()
-    # q, k, v read once, o written once
-    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * e
-    # QK^T and PV on the attended pairs (the causal triangle, cut to the
-    # window): 2 x 2 B H D pairs
-    pairs = attended_pairs(s, window)
-    flops = 4 * b * h * d * pairs
-    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    # q, k, v read once, o written once; QK^T and PV on the attended
+    # pairs (the causal triangle, cut to the window; ``ops.work``)
+    pairs = ops.attended_pairs(s, window)
+    flops, nbytes = ops.work(b, s, h, kv, d, window, q.element_size())
+    peak = PEAK_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BW, flops / peak
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gqa = kv != h                 # MHA shapes call SDPA without the flag
@@ -5009,6 +5243,9 @@ def main() -> None:
     long_served = serve_long_context_phase()
     hybrid_trained = train_hybrid_phase()
     ol4el_phase()
+    planner_phase(moe_served, deepseek_served, minicpm, jamba_served,
+                  hybrid_trained)
+    examples_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
@@ -5056,7 +5293,7 @@ def main() -> None:
          **fa_jamba_train)
     fa_long = flash_timing(*FLASH_LONG)
     emit("flash_timing", case="qwen3-1.7b long-context prefill, window "
-         f"{LONG_CONTEXT_WINDOW}", **fa_long)
+         f"{FLASH_LONG[5]}", **fa_long)
     ssd_jamba = ssd_timing(*SSD_JAMBA)
     emit("ssd_timing", case="jamba-1.5 serving prefill", **ssd_jamba)
     ssd_jamba32 = ssd_timing(*SSD_JAMBA[:-1], "float32")

@@ -1,19 +1,21 @@
 """The port's figure harness: ``python -m repro_torch.bench.run``.
 
-One benchmark per paper artifact (Fig. 3/4/5) plus the policy ablation
-and the microbenchmarks (``repro_torch.bench.microbench``), on the card
-unless ``--device`` says otherwise.  Writes the reference's JSON keys to
-``--out`` and prints the harness CSV contract ``name,us_per_call,derived``
-at the end, the micro rows first, with the reference's row names.
+One benchmark per paper artifact (Fig. 3/4/5) plus the policy ablation,
+the roofline analysis over the planner's rows
+(``repro_torch.bench.roofline``: ``results/torch_dryrun*.jsonl``, H100
+constants) and the microbenchmarks (``repro_torch.bench.microbench``), on
+the card unless ``--device`` says otherwise.  Writes the reference's JSON
+keys to ``--out`` and prints the harness CSV contract
+``name,us_per_call,derived`` at the end, the micro rows first, with the
+reference's row names, and the roofline rows last
+(``roofline:arch:shape:mesh:step``, the bound in microseconds, the
+dominant term).
 
 Modes (the reference's sizes):
   --fast   tiny sizes (CI smoke)
   default  reduced-but-representative sizes
   --full   paper-scale (20k samples, H sweep to 15, 100 edges)
 
-The reference's roofline analysis over its dry-run artifacts (TPU
-constants) is not ported: ``--only roofline`` raises, and a whole run
-writes ``"roofline": []``.
 """
 
 from __future__ import annotations
@@ -22,12 +24,6 @@ import argparse
 import json
 import os
 import time
-
-_UNPORTED = ("roofline",)
-_UNPORTED_ITEM = ("ROADMAP Queue 1 item 15 (the H100 memory and FLOP "
-                  "planner: launch/specs.py, launch/dryrun.py, "
-                  "benchmarks/roofline.py)")
-
 
 def sizes(fast: bool = False, full: bool = False):
     """The (fig3, fig4, fig5) keyword sets of a preset."""
@@ -62,10 +58,6 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.only in _UNPORTED:
-        raise NotImplementedError(
-            f"repro_torch.bench.run --only {args.only}: the roofline "
-            f"analysis arrives with {_UNPORTED_ITEM}")
     kw3, kw4, kw5 = sizes(args.fast, args.full)
     dev = dict(device=args.device)
 
@@ -88,6 +80,10 @@ def main(argv=None) -> None:
                      for r in policy_ablation.run(
                          seeds=pol_seeds, with_testbed=not args.fast,
                          **dev)]
+    roofline_rows = []
+    if args.only in (None, "roofline"):
+        from repro_torch.bench import roofline
+        roofline_rows = roofline.run()
     micro_rows = []
     if args.only in (None, "micro"):
         from repro_torch.bench import microbench
@@ -95,7 +91,7 @@ def main(argv=None) -> None:
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
-        json.dump({"figures": all_rows, "roofline": [],
+        json.dump({"figures": all_rows, "roofline": roofline_rows,
                    "micro": micro_rows,
                    "wall_s": time.time() - t_start}, f, indent=1,
                   default=str)
@@ -109,6 +105,9 @@ def main(argv=None) -> None:
                         ("figure", "workload", "algo", "H", "n_edges",
                          "consumption_frac") if r.get(k) is not None)
         print(f"{name},0,{r['metric']:.4f}")
+    for r in roofline_rows:
+        name = f"roofline:{r['arch']}:{r['shape']}:{r['mesh']}:{r['step']}"
+        print(f"{name},{r['bound_s'] * 1e6:.2f},{r['dominant']}")
     print(f"# total wall time: {time.time() - t_start:.1f}s")
 
 

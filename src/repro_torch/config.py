@@ -9,18 +9,20 @@ built here describes the same experiment:
   * ``TrainConfig``      -- optimizer / schedule / batching;
   * ``OL4ELConfig``      -- the paper's scheduler knobs (arms, budgets, costs);
   * ``MeshConfig``       -- logical mesh description;
-  * ``ExperimentConfig`` -- the bundle ``get_config(arch)`` returns.
+  * ``ExperimentConfig`` -- the bundle ``get_config(arch)`` returns;
+  * ``InputShape``       -- one of the four assigned input shapes
+    (``INPUT_SHAPES``) the planner (``repro_torch.launch.dryrun``) plans.
 
 The paper's two workloads (``CLASSIC_IDS``) and every LM architecture of
-the reference (``PORTED_LM_IDS``) resolve; any other id raises a
-``KeyError``.
+the reference (``ARCH_IDS``, in the reference's order) resolve; any other
+id raises a ``KeyError``.
 """
 
 from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 
 # Layer kinds understood by the unified decoder stack.
@@ -177,6 +179,16 @@ class ModelConfig:
         total += d                                        # final norm
         return total
 
+    def num_active_params(self) -> int:
+        """Params touched per token (MoE: shared + top_k experts only)."""
+        if not self.moe.enabled:
+            return self.num_params()
+        m = self.moe
+        inactive_per_moe_layer = (
+            (m.num_experts - m.top_k) * 3 * self.d_model * m.expert_ffn_dim)
+        n_moe_layers = sum(1 for _, f in self.block_pattern() if f == MOE_FFN)
+        return self.num_params() - n_moe_layers * inactive_per_moe_layer
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -228,6 +240,18 @@ class MeshConfig:
     shape: Tuple[int, ...] = (16, 16)
     axes: Tuple[str, ...] = ("data", "model")
 
+    @property
+    def edge_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def n_edges(self) -> int:
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax in ("pod", "data"):
+                n *= s
+        return n
+
 
 @dataclass(frozen=True)
 class ExperimentConfig:
@@ -238,18 +262,48 @@ class ExperimentConfig:
     notes: str = ""
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
+# LM architectures of the reference, in its order.
+ARCH_IDS: Tuple[str, ...] = (
+    "mamba2-370m",
+    "deepseek-moe-16b",
+    "minicpm-2b",
+    "qwen2.5-14b",
+    "musicgen-medium",
+    "jamba-1.5-large-398b",
+    "paligemma-3b",
+    "deepseek-coder-33b",
+    "olmoe-1b-7b",
+    "qwen3-1.7b",
+)
+
 # Paper-native workloads.
 CLASSIC_IDS: Tuple[str, ...] = ("svm-wafer", "kmeans-traffic")
 
-# LM architectures of the reference: every one is ported.  ``LM_SLICES``
-# would name the slice of the port that brings an LM id not ported yet
-# (such an id raises naming it); it is empty.
-PORTED_LM_IDS: Tuple[str, ...] = ("mamba2-370m", "qwen3-1.7b", "minicpm-2b",
-                                   "qwen2.5-14b", "deepseek-coder-33b",
-                                   "olmoe-1b-7b", "deepseek-moe-16b",
-                                   "musicgen-medium", "paligemma-3b",
-                                   "jamba-1.5-large-398b")
+# Every LM architecture of the reference is ported.  ``LM_SLICES`` would
+# name the slice of the port that brings an LM id not ported yet (such an
+# id raises naming it); it is empty.
+PORTED_LM_IDS: Tuple[str, ...] = ARCH_IDS
 LM_SLICES: dict = {}
+
+
+def list_archs() -> List[str]:
+    return list(ARCH_IDS)
 
 
 def _module_for(arch: str) -> str:

@@ -12,9 +12,17 @@ package has no backward kernel, so neither has the port).
 launch), so a run can show that its attention went through the kernel.
 Under activation checkpointing the forward runs again in the backward's
 recompute and counts again.
+
+On ``meta`` tensors (the planner's shape-only trace,
+``repro_torch.launch.dryrun``) the forward allocates the kernel's output,
+computes nothing, launches nothing and adds the kernel's ``work`` to
+``meta_flops`` / ``meta_bytes``: the planner counts what the card's path
+does (the attended pairs only), not the plain version's full square.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -22,6 +30,30 @@ from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 launches = 0
+meta_flops = 0
+meta_bytes = 0
+
+
+def attended_pairs(s: int, window: int, causal: bool = True) -> int:
+    """(query, key) pairs a sequence of ``s`` attends, with a sliding
+    window of ``window`` keys (0: none): what the work needs, the masked
+    pairs left out."""
+    if causal:
+        if window <= 0 or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+    if window <= 0 or window >= s:
+        return s * s
+    return s * s - (s - window) * (s - window + 1) // 2
+
+
+def work(b: int, s: int, h: int, kv: int, d: int, window: int = 0,
+         element_size: int = 2, causal: bool = True) -> Tuple[int, int]:
+    """(operations, bytes) of one call: QK^T and PV on the attended pairs
+    (2 x 2 B H D a pair), q, k, v read once and o written once."""
+    flops = 4 * b * h * d * attended_pairs(s, window, causal)
+    nbytes = (2 * b * s * h * d + 2 * b * s * kv * d) * element_size
+    return flops, nbytes
 
 
 def _check(q, k, v) -> None:
@@ -46,9 +78,16 @@ def _check(q, k, v) -> None:
 
 
 def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    global launches
+    global launches, meta_flops, meta_bytes
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type == "meta":
+        bsz, s, h, d = q.shape
+        flops, nbytes = work(bsz, s, h, k.shape[2], d, window,
+                             q.element_size(), causal)
+        meta_flops += flops
+        meta_bytes += nbytes
+        return torch.empty_like(q)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no path for device {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v)):

@@ -23,6 +23,10 @@ the cell dimension into the edge dimension (``[C, E, N, D]`` into
 local step is still one launch for every (cell, edge) pair; nested vmaps
 fold one dimension at a time.  The kernel's grid takes at most
 ``MAX_EDGES`` such pairs.
+
+On ``meta`` tensors both entries allocate the kernel's outputs, compute
+nothing, launch nothing and add the kernel's ``work`` to ``meta_flops`` /
+``meta_bytes``, as the other kernels' wrappers do for the planner.
 """
 
 from __future__ import annotations
@@ -41,6 +45,32 @@ MAX_EDGES = 65_535
 launches = 0
 batched_launches = 0
 batched_captured = 0
+meta_flops = 0
+meta_bytes = 0
+
+
+def work(n: int, d: int, k: int, e: int = 1, element_size: int = 4
+         ) -> Tuple[int, int]:
+    """(operations, bytes) of one call over ``e`` edges: x and the centres
+    read once, the assignments (i32) and distances (f32) written once;
+    the distance expansion (2NKD), the norms (2ND + 2KD) and the combine
+    and minimum (3NK)."""
+    nbytes = e * ((n * d + k * d) * element_size + n * (4 + 4))
+    flops = e * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k)
+    return flops, nbytes
+
+
+def _meta_outputs(x: torch.Tensor, centers: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The outputs' shapes and dtypes, with the call's work counted."""
+    global meta_flops, meta_bytes
+    *lead, n, d = x.shape
+    flops, nbytes = work(n, d, centers.shape[-2],
+                         x.shape[0] if lead else 1, x.element_size())
+    meta_flops += flops
+    meta_bytes += nbytes
+    return (x.new_empty((*lead, n), dtype=torch.int32),
+            x.new_empty((*lead, n), dtype=torch.float32))
 
 
 def _check_shapes(x: torch.Tensor, centers: torch.Tensor) -> None:
@@ -86,6 +116,8 @@ def assign_with_dist(x: torch.Tensor, centers: torch.Tensor
     _check(x, centers)
     if x.device.type == "cpu":
         return assign_ref(x, centers)
+    if x.device.type == "meta":
+        return _meta_outputs(x, centers)
     _check_cuda(x, centers)
     n = x.shape[0]
     out_assign = torch.empty(n, dtype=torch.int32, device=x.device)
@@ -106,6 +138,8 @@ def assign_with_dist_batched(x: torch.Tensor, centers: torch.Tensor
     min_d2 [E, N] f32), edge e's points against edge e's centres."""
     _check_batched_shapes(x, centers)
     _check(x, centers)
+    if x.device.type == "meta":
+        return _meta_outputs(x, centers)
     return _assign_batched(x, centers)
 
 

@@ -13,6 +13,11 @@ neither has the port).
 launch), so a run can show that its prefills and training steps went
 through the kernel.  Under activation checkpointing the forward runs
 again in the backward's recompute and counts again.
+
+On ``meta`` tensors (the planner's shape-only trace,
+``repro_torch.launch.dryrun``) the forward allocates the kernel's outputs,
+computes nothing, launches nothing and adds the kernel's ``work`` to
+``meta_flops`` / ``meta_bytes``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,25 @@ from repro_torch.kernels.ssd_scan import kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
 
 launches = 0
+meta_flops = 0
+meta_bytes = 0
+
+
+def work(b: int, s: int, h: int, p: int, n: int, chunk: int,
+         element_size: int = 2) -> Tuple[int, int]:
+    """(operations, bytes) of one call.  Each input read once, each output
+    written once; what the function needs, as multiply-adds (2 operations
+    each), on the causal triangle of the L x L terms only: G = C B^T is
+    shared by the heads, once per (b, chunk) (2 tri N); per (b, h, chunk)
+    the masked Gd X (2 tri P), C state^T and the state update (2LPN
+    each)."""
+    nbytes = (2 * b * s * h * p * element_size + b * s * h * 4
+              + 2 * b * s * n * element_size + b * h * p * n * 4)
+    tri = chunk * (chunk + 1) // 2
+    n_chunks = s // chunk
+    flops = b * n_chunks * 2 * tri * n \
+        + b * h * n_chunks * (2 * tri * p + 4 * chunk * p * n)
+    return flops, nbytes
 
 
 def _check(x, da, b_mat, c_mat, chunk: int) -> None:
@@ -54,9 +78,18 @@ def _check(x, da, b_mat, c_mat, chunk: int) -> None:
 
 def _forward(x, da, b_mat, c_mat, chunk: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
+    global launches, meta_flops, meta_bytes
     if x.device.type == "cpu":
         return ssd_reference(x, da, b_mat, c_mat, chunk)
+    if x.device.type == "meta":
+        bsz, s, h, p = x.shape
+        flops, nbytes = work(bsz, s, h, p, b_mat.shape[-1], chunk,
+                             x.element_size())
+        meta_flops += flops
+        meta_bytes += nbytes
+        return (torch.empty_like(x),
+                torch.empty(bsz, h, p, b_mat.shape[-1], dtype=torch.float32,
+                            device=x.device))
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no path for device {x.device}")
     if chunk > kernel.MAX_CHUNK:

@@ -22,7 +22,10 @@ engine (``ELSession.run_async_ingraph``, ``--async-batch-k`` its wave
 width), and the scenario flags (``--churn``, ``--churn-period``,
 ``--cost-model``, ``--drift``; ``repro_torch.el.scenarios.cli``) inject
 fleet dynamics into them.  Those flags need a classic arch under ``--mode
-ol4el``, as the reference requires.  ``--metrics-out`` writes the run's
+ol4el``, as the reference requires; so do ``--alpha`` (the Dirichlet
+concentration of the edge data split) and ``--kmeans-impl`` (``cuda``:
+the ``kmeans_assign`` kernel, the reference's ``pallas``; ``torch``: the
+plain version, its ``jnp``).  ``--metrics-out`` writes the run's
 metrics (``repro_torch.obs.cli``: the EL report's registry, Prometheus
 text and JSON, and the tracer's spans) and ``--trace-dir`` a
 ``torch.profiler`` trace.  ``--telemetry [N]`` records the compiled
@@ -150,6 +153,7 @@ def train_classic_ol4el(exp, args):
     from repro_torch.el.scenarios.cli import scenario_from_args
     from repro_torch.launch.classic import classic_fixture
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
+                         alpha=args.alpha, kmeans_impl=args.kmeans_impl,
                          device=args.device)
     metric = fx["metric"]
     scenario, base_cost_model = scenario_from_args(args)
@@ -227,6 +231,15 @@ def parser() -> argparse.ArgumentParser:
                     help="torch device (default: cuda, required)")
     ap.add_argument("--samples", type=int, default=4000,
                     help="classic-arch dataset size (ol4el mode)")
+    ap.add_argument("--alpha", type=float, default=100.0,
+                    help="Dirichlet concentration of the classic edge "
+                         "data split (matches repro_torch.launch.sweep)")
+    ap.add_argument("--kmeans-impl", default=None, choices=["cuda", "torch"],
+                    help="K-means E-step engine for the local blocks "
+                         "(default: the device's path; cuda: the "
+                         "kmeans_assign kernel, the reference's 'pallas'; "
+                         "torch: the plain version, the reference's "
+                         "'jnp'; cuda on a CPU device raises)")
     add_scenario_args(ap)
     add_metrics_args(ap, trace_dir=True)
     telemetry_arg(ap)

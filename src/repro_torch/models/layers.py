@@ -51,19 +51,27 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 Params = dict
 
 
+def draw_generator(gen: torch.Generator) -> torch.Generator | None:
+    """The generator an init draws from, or None for a shape-only tree:
+    ``gen`` on the ``meta`` device stands for no generator (a ``meta``
+    model's ``LM.init(None)``), and its leaves hold no values."""
+    return None if gen.device.type == "meta" else gen
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis_size: int | None = None) -> torch.Tensor:
     """Truncated-normal fan-in init (1/sqrt(fan_in), cut at 2 sigma)."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0,
+                                generator=draw_generator(gen))
     return t.mul_(std)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                       device=gen.device) * 0.02
+    return torch.randn(tuple(shape), generator=draw_generator(gen),
+                       dtype=torch.float32, device=gen.device) * 0.02
 
 
 def rms_norm(scale: torch.Tensor, x: torch.Tensor,

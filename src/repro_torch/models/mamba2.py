@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import segsum, ssd_reference
-from repro_torch.models.layers import Params, dense_init, init_rms_norm, \
-    rms_norm
+from repro_torch.models.layers import Params, dense_init, draw_generator, \
+    init_rms_norm, rms_norm
 
 __all__ = ["segsum", "ssd_reference", "ssd_recurrent_step", "init_mamba",
            "mamba_mixer", "mamba_mixer_with_state", "init_mamba_cache",
@@ -70,7 +70,8 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Params:
     in_proj = dense_init(gen, (d, 2 * di + 2 * n + nh), in_axis_size=d)
     conv_w = dense_init(gen, (mc.d_conv, conv_ch), in_axis_size=mc.d_conv)
     # dt bias: softplus^-1 of dt log-uniform in [1e-3, 1e-1]
-    u = torch.rand(nh, generator=gen, dtype=torch.float32, device=dev)
+    u = torch.rand(nh, generator=draw_generator(gen), dtype=torch.float32,
+                   device=dev)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     dt_bias = dt + torch.log(-torch.expm1(-dt))
     out_proj = dense_init(gen, (di, d), in_axis_size=di)

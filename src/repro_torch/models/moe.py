@@ -127,7 +127,10 @@ def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor
 
     # ---- aux losses -------------------------------------------------------
     flat_e = expert_idx.reshape(t * k)                            # [T*k]
-    counts = torch.bincount(flat_e, minlength=e).float()          # [E]
+    # bincount as a scatter of ones (exact in any order; its output
+    # shape, unlike bincount's, does not depend on the data)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e)).float()               # [E]
     frac_routed = counts / (t * k)                                # f_e
     mean_prob = probs.mean(dim=0)                                 # P_e
     aux = {

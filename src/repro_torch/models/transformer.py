@@ -45,6 +45,7 @@ SSM state.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -294,9 +295,18 @@ class LM:
 
     # -- init ---------------------------------------------------------------
 
-    def init(self, gen: torch.Generator) -> Params:
+    def init(self, gen: Optional[torch.Generator]) -> Params:
         """Random parameters drawn from ``gen`` on its device, placed on
-        the model's."""
+        the model's.  ``gen=None`` on a ``meta`` model builds the tree's
+        shapes, dtypes and key paths only (``meta`` leaves, nothing
+        drawn): the counterpart of ``jax.eval_shape(model.init)``, which
+        the planner (``repro_torch.launch.dryrun``) traces on."""
+        if gen is None:
+            if self.device.type != "meta":
+                raise ValueError("LM.init(None) builds a shape-only tree "
+                                 f"and needs a meta model, not "
+                                 f"{self.device}")
+            gen = SimpleNamespace(device=self.device)
         cfg = self.cfg
         cb = (cfg.n_codebooks,) if cfg.n_codebooks > 1 else ()
         params: Params = {

@@ -329,6 +329,8 @@ def test_run_fast_fig5_matches_reference(monkeypatch, tmp_path, capsys):
     ref_json, port_json = (json.loads(p.read_text())
                            for p in (ref_out, port_out))
     assert port_json.keys() == ref_json.keys()
+    # no planner rows under this working directory's results/ (the
+    # checkout's, which .gitignore lists): the roofline half writes none
     assert port_json["roofline"] == port_json["micro"] == []
     assert_same_rows(port_json["figures"], ref_json["figures"], bound)
     assert [r[:2] for r in port_csv] == [r[:2] for r in ref_csv]
@@ -368,11 +370,28 @@ def test_presets_are_the_references(monkeypatch):
 
 
 @pytest.mark.parametrize("only", ["roofline"])
-def test_run_refuses_the_unported_half_by_name(only, tmp_path):
-    out = tmp_path / "x.json"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        port_run.main(["--only", only, "--device", "cpu", "--out", str(out)])
-    assert not out.exists()
+def test_run_refuses_the_unported_half_by_name(only, tmp_path, capsys,
+                                               monkeypatch):
+    """The roofline half, once refused naming ROADMAP item 15, is ported:
+    ``--only roofline`` analyzes the planner's rows
+    (``results/torch_dryrun*.jsonl``, here under ``tmp_path``) with H100
+    constants and writes them to the JSON's ``"roofline"`` and the CSV's
+    ``roofline:arch:shape:mesh:step`` lines (``benchmarks/run.py:68-94``)."""
+    from repro_torch.launch import dryrun
+    monkeypatch.chdir(tmp_path)
+    assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "long_500k"]) == 0
+    assert os.path.exists("results/torch_dryrun.jsonl")
+    port_run.main(["--only", only, "--device", "cpu", "--out", "x.json"])
+    doc = json.loads((tmp_path / "x.json").read_text())
+    assert [(r["arch"], r["shape"], r["mesh"], r["step"])
+            for r in doc["roofline"]] == [("qwen3-1.7b", "long_500k", "1x1",
+                                           "decode_step")]
+    row = doc["roofline"][0]
+    assert row["t_collective_s"] == 0.0 and row["chips"] == 1
+    assert doc["figures"] == doc["micro"] == []
+    csv = capsys.readouterr().out.split("name,us_per_call,derived\n")[1]
+    assert f"roofline:qwen3-1.7b:long_500k:1x1:decode_step," \
+        f"{row['bound_s'] * 1e6:.2f},{row['dominant']}" in csv
 
 
 def test_run_only_micro_writes_and_prints_the_micro_rows(tmp_path, capsys):

@@ -36,6 +36,11 @@ def test_every_port_module_imports_without_jax_or_repro():
         "assert 'repro_torch.bench.run' in names, names\n"
         "assert {'repro_torch.obs.rings', 'repro_torch.obs.prof',\n"
         "        'repro_torch.obs.regress'} <= set(names), names\n"
+        "assert {'repro_torch.examples.quickstart',\n"
+        "        'repro_torch.examples.serve_batched',\n"
+        "        'repro_torch.examples.train_lm_ol4el',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.specs',\n"
+        "        'repro_torch.bench.roofline'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -112,6 +117,30 @@ def test_bench_entry_points_default_to_cuda(monkeypatch, tmp_path):
         churn_baselines.main(["--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         testbed.main(["--samples", "600"])
+    assert not out.exists()
+
+
+def test_examples_and_the_planners_measure_default_to_cuda(monkeypatch,
+                                                          tmp_path):
+    """The examples run on the card unless given ``--device cpu``; the
+    planner traces on ``meta`` tensors, and its ``--measure`` runs on a
+    card or nowhere."""
+    from repro_torch.examples import quickstart, serve_batched, \
+        train_lm_ol4el
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for main in (quickstart.main, serve_batched.main, train_lm_ol4el.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main([])
+    out = tmp_path / "rows.jsonl"
+    with pytest.raises(SystemExit):
+        dryrun.main(["--measure", "--out", str(out)])
+    with pytest.raises(ValueError, match="card"):
+        dryrun.plan_combo("mamba2-370m", "long_500k", measure=True,
+                          device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.plan_combo("mamba2-370m", "long_500k", measure=True,
+                          device="cuda")
     assert not out.exists()
 
 

@@ -1237,3 +1237,100 @@ def test_bench_el_smoke_on_the_card(cuda_device):
     assert report["meta"]["backend"] == "cuda"
     assert report["meta"]["device_name"]
     assert report["meta"]["power_limit"].endswith("W")
+
+
+# -- the planner: the kernels' meta paths and a measured plan ----------------
+
+def _old_phase8_work(kind, *shape):
+    """Each kernel's (operations, bytes) as phase 8 of ``chip_smoke.py``
+    wrote them before they moved into ``ops.work``."""
+    if kind == "kmeans_assign":
+        e, n, d, k = shape
+        return (e * (2 * n * k * d + 2 * n * d + 2 * k * d + 3 * n * k),
+                e * ((n * d + k * d) * 4 + n * (4 + 4)))
+    if kind == "ssd_scan":
+        b, s, h, p, n, chunk, e = shape
+        tri = chunk * (chunk + 1) // 2
+        n_chunks = s // chunk
+        flops = b * n_chunks * 2 * tri * n \
+            + b * h * n_chunks * (2 * tri * p + 4 * chunk * p * n)
+        return flops, (2 * b * s * h * p * e + b * s * h * 4
+                       + 2 * b * s * n * e + b * h * p * n * 4)
+    b, s, h, kv, d, window, e = shape
+    pairs = (s * (s + 1) // 2 if window <= 0 or window >= s
+             else window * (window + 1) // 2 + (s - window) * window)
+    return 4 * b * h * d * pairs, (2 * b * s * h * d + 2 * b * s * kv * d) * e
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_meta_paths_give_the_cuda_outputs_shapes_and_phase8_work(
+        dtype, cuda_device):
+    """On ``meta`` each wrapper returns what its kernel returns on the card
+    (shapes, dtypes), launches nothing and counts the work phase 8 of
+    ``chip_smoke.py`` reported at the main paths' shapes."""
+    dt = getattr(torch, dtype)
+    cases = [
+        (fa_ops, "flash_attention", (4, 512, 16, 8, 128, 0)),
+        (fa_ops, "flash_attention", (2, 12288, 16, 8, 128, 8192)),
+        (ssd_ops, "ssd_scan", (4, 512, 32, 64, 128, 128)),
+        (ops, "kmeans_assign", (4, 128, 64, 3)),
+    ]
+    for mod, kind, shape in cases:
+        gen = torch.Generator().manual_seed(0)
+        if kind == "flash_attention":
+            b, s, h, kv, d, w = shape
+            if s > 4096 and dtype == "float32":
+                continue
+            args = [torch.randn(b, s, n, d, generator=gen).to(dt)
+                    for n in (h, kv, kv)]
+
+            def call(*t, w=w):
+                return fa_ops.flash_attention(*t, window=w)
+            want_work = _old_phase8_work(kind, *shape, dt.itemsize)
+        elif kind == "ssd_scan":
+            b, s, h, p, n, chunk = shape
+            args = [torch.randn(b, s, h, p, generator=gen).to(dt) * 0.1,
+                    -torch.rand(b, s, h, generator=gen) * 0.1,
+                    torch.randn(b, s, n, generator=gen).to(dt) * 0.1,
+                    torch.randn(b, s, n, generator=gen).to(dt) * 0.1]
+
+            def call(*t, chunk=chunk):
+                return ssd_ops.ssd(*t, chunk)
+            want_work = _old_phase8_work(kind, *shape, dt.itemsize)
+        else:
+            if dtype != "float32":
+                continue
+            e, n, d, k = shape
+            args = [torch.randn(e, n, d, generator=gen),
+                    torch.randn(e, k, d, generator=gen)]
+            call = ops.assign_with_dist_batched
+            want_work = _old_phase8_work(kind, *shape)
+        card = call(*(t.to(cuda_device) for t in args))
+        card = card if isinstance(card, tuple) else (card,)
+        mod.meta_flops = mod.meta_bytes = 0
+        launches = (mod.launches, getattr(mod, "batched_launches", 0))
+        meta = call(*(torch.empty_like(t, device="meta") for t in args))
+        meta = meta if isinstance(meta, tuple) else (meta,)
+        assert [(t.shape, t.dtype) for t in meta] \
+            == [(t.shape, t.dtype) for t in card], kind
+        assert (mod.launches, getattr(mod, "batched_launches", 0)) \
+            == launches
+        assert (mod.meta_flops, mod.meta_bytes) == want_work, kind
+
+
+@pytest.mark.parametrize("kind,batch,seq", [("prefill", 2, 64),
+                                            ("train", 2, 64),
+                                            ("decode", 2, 64)])
+def test_dryrun_measure_agrees_with_its_plan(kind, batch, seq, cuda_device):
+    """``dryrun``'s plan of qwen3-1.7b smoke against the peak the card
+    measures around the same step, within the 15 % that phase 9 of
+    ``chip_smoke.py`` holds the full-width rows to."""
+    from repro_torch.config import get_smoke_config
+    from repro_torch.launch import dryrun
+    cfg = get_smoke_config("qwen3-1.7b").model
+    plan = dryrun.plan_model(cfg, kind, batch, seq)
+    got = dryrun.measure_model(cfg, kind, batch, seq, cuda_device)
+    err = plan["memory"]["peak_live_bytes"] / got["peak_bytes"] - 1.0
+    assert abs(err) <= 0.15, (plan["memory"], got)
+    if kind != "decode":
+        assert got["launches"]["flash_attention"] > 0
