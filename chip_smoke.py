@@ -262,6 +262,26 @@ Phases, each printing JSON lines:
               ``launch.train --arch kmeans-traffic --mode ol4el
               --kmeans-impl cuda --alpha 1.0`` (``kmeans_assign``
               launched);
+10. ranks -- several ranks: 2 gloo ranks on the one card (each this script
+              run as ``chip_smoke.py --rank gloo SPEC`` through
+              ``repro_torch.launch.hostdev.spawn_ranks``; NCCL puts no two
+              ranks of one communicator on one card): (a) phase 4b's
+              full-width kmeans-traffic and svm-wafer fixtures through
+              ``run_sync_ingraph(mesh=)`` (a rank's 2 of 4 edges, the edge
+              stack all-gathered before the aggregation, chunks eager),
+              every rank's records and final params bit for bit the
+              unsharded card run's on the card's generator, each
+              ``kmeans_assign`` launch over 2 lanes, the census (all-gather
+              >= 1, no all-reduce) and the donated twin (same records,
+              ``alias_bytes == param_bytes``); (b) ``local_sgd.
+              make_el_round`` on mamba2-370m at full width (E = 2, h_max
+              = 2, 3 rounds, the per-edge batch the ``--step el_round``
+              plan picks) on one rank with both edges and on the 2 ranks
+              with one edge each: params bit for bit equal, losses finite,
+              each rank's peak within 15 % of the plan; (c) an NCCL world
+              of one (``chip_smoke.py --rank nccl SPEC``): the sharded
+              sync run issues no collective; each line beside the card's
+              name and power limit;
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch (the batched
               ``kmeans_assign`` beside 4 single launches, and at the sweep's
@@ -280,13 +300,16 @@ Phases, each printing JSON lines:
               window 8192 (its library time SDPA with a boolean band mask),
               and ``ssd_scan`` at phase 6c's (8, 512, 32, 64, 128, 128), 5g's
               (4, 512, 128, 128, 128, 128) (and f32) and 6f's (8, 512, 128,
-              128, 128, 128), bf16, each a row of its own.
+              128, 128, 128), bf16, each a row of its own; phase 10's
+              batched ``kmeans_assign`` at a rank's (2, 128, 64, 3) and
+              ``ssd_scan`` at its round's per-edge batch, rows of their
+              own.
 
 Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
 6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
-runs), 6f, 7, each of 9b's four runs) is
-driven with every kernel's launch count set to 0 just before it and read
-just after.
+runs), 6f, 7, each of 9b's four runs, and in each rank each of 10's runs)
+is driven with every kernel's launch count set to 0 just before it and
+read just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
 "device": {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
@@ -432,8 +455,9 @@ def kernel_vs_plain() -> float:
 # wafer widths (scalar loads), K = 1, bf16
 KM_BATCHED_CASES = [(4, 128, 64, 3, "float32"), (4, 1001, 64, 3, "float32"),
                     (3, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
-                    (3, 300, 64, 3, "bfloat16")]
+                    (3, 300, 64, 3, "bfloat16"), (2, 128, 64, 3, "float32")]
 KM_BATCHED_MAIN = (4, 128, 64, 3)
+KM_BATCHED_SHARDED = (2, 128, 64, 3)      # phase 10: a rank's 2 of 4 edges
 
 
 def km_batched_inputs(e, n, d, k, dtype_name, seed):
@@ -445,13 +469,13 @@ def km_batched_inputs(e, n, d, k, dtype_name, seed):
     return x, c
 
 
-def kernel_batched_vs_plain() -> float:
+def kernel_batched_vs_plain() -> dict:
     """The batched entry bit-equal to E single launches, and within the
     single entry's tolerance of the plain version; returns the largest
-    |d2 - d2_plain| at the main path's shape."""
+    |d2 - d2_plain| at each f32 shape (e, n, d, k)."""
     import torch
     from repro_torch.kernels.kmeans_assign import ops, ref
-    main_err = 0.0
+    errs = {}
     for i, (e, n, d, k, dt) in enumerate(KM_BATCHED_CASES):
         x, c = km_batched_inputs(e, n, d, k, dt, seed=50 + i)
         a, d2 = ops.assign_with_dist_batched(x, c)
@@ -472,9 +496,9 @@ def kernel_batched_vs_plain() -> float:
               f"kmeans_assign batched d2 off at {(e, n, d, k, dt)}: {err}")
         check(dt == "bfloat16" or agree >= 0.999,
               f"kmeans_assign batched assignments agree {agree}")
-        if (e, n, d, k) == KM_BATCHED_MAIN:
-            main_err = err
-    return main_err
+        if dt == "float32":
+            errs[e, n, d, k] = err
+    return errs
 
 
 def kernel_cells_vs_plain(n_cells: int) -> float:
@@ -4928,6 +4952,374 @@ def examples_phase() -> dict:
     return out
 
 
+# -- phase 10: several ranks --------------------------------------------------
+
+# Two gloo ranks share the one card (NCCL puts no two ranks of one
+# communicator on one card); each is this script run as ``chip_smoke.py
+# --rank <mode> <spec>`` by ``repro_torch.launch.hostdev.spawn_ranks`` and
+# writes what it saw to ``build/ranks/``.  (a) the full-width kmeans-traffic
+# and svm-wafer fixtures of phase 4b through ``run_sync_ingraph(mesh=)``
+# (edges split 2 / 2, the edge stack all-gathered before the aggregation,
+# chunks eager), bit for bit the unsharded card run on the card's own
+# generator, its census, then donated; (b) ``local_sgd.make_el_round`` on
+# mamba2-370m at full width (E = 2, h_max = 2, one edge a rank), bit for
+# bit the one-rank run of both edges, each rank's peak held to the
+# ``--step el_round`` plan; (c) an NCCL world of one: the sharded sync run
+# issues no collective.
+RANKS = 2
+RANKS_DIR = ROOT / "build" / "ranks"
+RANK_TIMEOUT = 900
+LM_ARCH = "mamba2-370m"
+LM_EDGES, LM_H_MAX, LM_SEQ = 2, 2, 512
+# a round's intervals: the first runs every edge's h_max steps (the round
+# the plan plans), then one edge each
+LM_INTERVALS = ((2, 2), (1, 2), (2, 1))
+LM_WEIGHTS = (1.0, 3.0)
+LM_EDGE_BATCHES = (8, 4)       # per-edge batches, largest first
+LM_CARD_SHARE = 0.8            # of the card both ranks' planned peaks may use
+
+
+def rank_records(rep) -> list:
+    return [[r.interval, r.n_aggregations, r.total_consumed, r.wall_time,
+             r.metric, r.utility] for r in rep.records]
+
+
+def same_floats(a, b) -> bool:
+    import numpy as np
+    return np.array_equal(np.asarray(a, np.float64), np.asarray(b, np.float64),
+                          equal_nan=True)
+
+
+def tree_digest(tree) -> list:
+    from repro_torch.interop import tree_leaves
+    return [bit_digest(t) for t in tree_leaves(tree)]
+
+
+def lm_tokens(edge_batch: int, seq: int):
+    import numpy as np
+    from repro_torch.config import get_config
+    vocab = get_config(LM_ARCH).model.vocab_size
+    return np.random.default_rng(29).integers(
+        0, vocab, (len(LM_INTERVALS), LM_EDGES, LM_H_MAX, edge_batch, seq),
+        np.int32)
+
+
+def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
+    """``make_el_round`` on mamba2-370m (the planner's model and AdamW),
+    ``LM_INTERVALS`` rounds over ``mesh`` (None: both edges here), the
+    ``ssd_scan`` count set to 0 just before and read just after; the
+    state's peak over the rounds (the rise over what was allocated, plus
+    the arguments' blocks, as ``dryrun.measure_step`` reads it)."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.federated import local_sgd
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import gather_edge_stack
+    cfg = get_config(LM_ARCH).model
+    model = dryrun.build(cfg, "cuda")
+    tc = dryrun._dryrun_train_cfg(edge_batch * LM_EDGES, seq)
+    rnd = local_sgd.make_el_round(model, tc, LM_H_MAX, mesh=mesh)
+    mine = rnd.edges(LM_EDGES)
+    state = local_sgd.init_el_state(
+        model, tc, LM_EDGES, torch.Generator(device="cuda").manual_seed(29),
+        edges=mine)
+    tokens = torch.from_numpy(lm_tokens(edge_batch, seq)[:, mine.start:mine.stop]
+                              ).cuda()
+    arg_bytes = dryrun.storages_bytes(tree_leaves(state) + [tokens[0]])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.launches = 0
+    losses, secs = [], []
+    for r, iv in enumerate(LM_INTERVALS):
+        t0 = time.perf_counter()
+        state, met = rnd(state, {"tokens": tokens[r]},
+                         torch.tensor(iv, dtype=torch.int32, device="cuda"),
+                         torch.tensor(LM_WEIGHTS, device="cuda"))
+        losses.append(float(met["mean_loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = ssd_ops.launches
+    peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+    params, gather_s = state.params, None
+    if mesh is not None:           # the round's gather alone, once more
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = gather_edge_stack(params, mesh.edge_group())
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+    out = {"edges": [mine.start, mine.stop], "losses": losses,
+           "round_s": secs, "gather_s": gather_s, "ssd_scan": launches,
+           "peak_bytes": peak,
+           "digest": tree_digest(params),
+           "finite": all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(params))}
+    del state, params, tokens, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_classic(arch: str, mesh, want: dict) -> dict:
+    """Phase 4b's session over ``mesh``: the sharded run (contract and
+    profile on) on the card's generator, the kmeans_assign count set to 0
+    just before and read just after, every batched launch's lane count
+    recorded; then the same run donated."""
+    import torch
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
+    lanes, launch = [], ka_kernel.assign_fwd_batched
+
+    def counted(x, *rest):
+        lanes.append(int(x.shape[0]))
+        return launch(x, *rest)
+    ka_kernel.assign_fwd_batched = counted
+    try:
+        sess = compiled_session(fx, fx["init_params"])
+        ka_ops.batched_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh,
+                                    contract=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ka_ops.batched_launches
+    finally:
+        ka_kernel.assign_fwd_batched = launch
+    # past the counted run: the program again (profiled once, reused), and
+    # the round's one collective alone
+    t0 = time.perf_counter()
+    again = sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh)
+    torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t0
+    gather_ms = None
+    if mesh.size > 1:
+        from repro_torch.launch.mesh import gather_edge_stack
+        stack = {k: v.unsqueeze(0).expand(4 // mesh.size, *v.shape)
+                 .contiguous() for k, v in again.final_params.items()}
+        gather_edge_stack(stack, mesh.edge_group())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            gather_edge_stack(stack, mesh.edge_group())
+        torch.cuda.synchronize()
+        gather_ms = (time.perf_counter() - t0) / 50 * 1e3
+    donated = params_from_numpy(want["init"], "cuda")
+    dsess = compiled_session(fx, donated)
+    drep = dsess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh,
+                                  donate=True, contract=True)
+    prof, dprof = rep.telemetry["profile"], drep.telemetry["profile"]
+    return {"records": rank_records(rep), "digest": tree_digest(
+        rep.final_params), "run_s": secs, "rerun_s": rerun_s,
+        "rerun_same": same_floats(rank_records(again), rank_records(rep)),
+        "gather_ms": gather_ms,
+        "kmeans_assign_batched": launches, "lanes": sorted(set(lanes)),
+        "collectives": prof["collectives"],
+        "collective_bytes": prof["collective_bytes"],
+        "alias_bytes": prof["alias_bytes"],
+        "device_loop": rep.telemetry["device_loop"],
+        "donated_same": same_floats(rank_records(drep), rank_records(rep))
+        and tree_digest(drep.final_params) == tree_digest(rep.final_params),
+        "donated_alias_bytes": dprof["alias_bytes"],
+        "donated_shares_storage": all(
+            drep.final_params[k].data_ptr() == donated[k].data_ptr()
+            for k in donated)}
+
+
+def rank_main(mode: str, spec_path: str) -> None:
+    """One rank of phase 10's worlds (``chip_smoke.py --rank MODE SPEC``)."""
+    import pickle
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        fail("rank: no card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+    resolve_device("cuda")
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    if mode == "gloo":
+        mesh = make_debug_mesh(RANKS, 1, device="cuda", backend="gloo")
+        out = {"classic": {arch: sharded_classic(arch, mesh, want)
+                           for arch, want in spec["classic"].items()},
+               "lm": lm_rounds(spec["edge_batch"], spec["seq"], mesh)}
+    else:
+        mesh = make_mesh((1, 1), ("data", "model"))     # CUDA + NCCL
+        arch = "svm-wafer"
+        out = {"classic": {arch: sharded_classic(arch, mesh,
+                                                 spec["classic"][arch])}}
+    out.update(rank=mesh.rank, backend=mesh.backend, mesh=dict(mesh.shape),
+               modules=sorted(m for m in sys.modules if m.split(".")[0]
+                              in ("jax", "jaxlib", "repro", "benchmarks")))
+    with open(RANKS_DIR / f"{mode}{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def rank_world(n: int, mode: str, spec: dict) -> list:
+    import os
+    import pickle
+    from repro_torch.launch.hostdev import spawn_ranks
+    RANKS_DIR.mkdir(parents=True, exist_ok=True)
+    path = RANKS_DIR / f"{mode}_spec.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(spec, f)
+    t0 = time.perf_counter()
+    procs = spawn_ranks(n, [sys.executable, str(ROOT / "chip_smoke.py"),
+                            "--rank", mode, str(path)],
+                        env=dict(os.environ, PYTHONPATH=str(SRC)),
+                        capture=True, timeout=RANK_TIMEOUT)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"phase 10 {mode} rank {r} exited "
+              f"{p.returncode}: {p.stderr[-3000:]}")
+    out = []
+    for r in range(n):
+        with open(RANKS_DIR / f"{mode}{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    emit("ranks_world", mode=mode, ranks=n,
+         seconds=time.perf_counter() - t0)
+    return out
+
+
+def pick_edge_batch() -> tuple:
+    """The largest per-edge batch of ``LM_EDGE_BATCHES`` whose planned
+    per-rank peak (``--step el_round``, one edge a rank over 2 data
+    ranks), times the ranks sharing the card, fits ``LM_CARD_SHARE`` of
+    it."""
+    from repro_torch.bench.roofline import CARD_MEMORY_BYTES
+    from repro_torch.launch import dryrun
+    for eb in LM_EDGE_BATCHES:
+        row = dryrun.plan_combo(LM_ARCH, "train_4k", step_mode="el_round",
+                                h_max=LM_H_MAX, batch=eb * LM_EDGES,
+                                seq_len=LM_SEQ, edges_per_rank=1,
+                                data_ranks=RANKS)
+        peak = row["memory"]["peak_live_bytes"]
+        if RANKS * peak <= LM_CARD_SHARE * CARD_MEMORY_BYTES:
+            return eb, row
+    fail(f"phase 10: no per-edge batch of {LM_EDGE_BATCHES} fits")
+
+
+def ranks_phase() -> dict:
+    """Phase 10 in this process: the unsharded references, the plan, the
+    gloo world of 2 and the NCCL world of 1, each check, the lines."""
+    import gc
+    import torch
+    from repro_torch.interop import params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    card = card_line()
+    t_phase = time.perf_counter()
+    want = {}
+    for arch in ("kmeans-traffic", "svm-wafer"):
+        fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
+        init = params_to_numpy(fx["init_params"])
+        sess = compiled_session(fx, fx["init_params"])
+        sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS)    # capture
+        ka_ops.batched_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS)
+        torch.cuda.synchronize()
+        want[arch] = {"init": init, "records": rank_records(rep),
+                      "digest": tree_digest(rep.final_params),
+                      "run_s": time.perf_counter() - t0,
+                      "kmeans_assign_batched": ka_ops.batched_launches,
+                      "param_bytes": sum(v.nbytes for v in init.values())}
+        del sess, rep, fx
+    edge_batch, plan = pick_edge_batch()
+    one = lm_rounds(edge_batch, LM_SEQ)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = {"classic": {a: {"init": w["init"]} for a, w in want.items()},
+            "edge_batch": edge_batch, "seq": LM_SEQ}
+    ranks = rank_world(RANKS, "gloo", spec)
+    nccl = rank_world(1, "nccl", spec)[0]
+    out = {"kmeans_assign_batched": 0, "ssd_scan": one["ssd_scan"]}
+    for arch, w in want.items():
+        for r, res in enumerate(ranks):
+            got = res["classic"][arch]
+            n_edges = 4 // RANKS
+            ag = got["collectives"].get("all-gather", {})
+            emit("ranks_sharded_sync", arch=arch, rank=r, card=card,
+                 backend=res["backend"], mesh=res["mesh"],
+                 run_s=got["run_s"], rerun_s=got["rerun_s"],
+                 unsharded_run_s=w["run_s"], gather_ms=got["gather_ms"],
+                 rounds=len(got["records"]),
+                 kmeans_assign_batched=got["kmeans_assign_batched"],
+                 lanes=got["lanes"], collectives=got["collectives"],
+                 collective_bytes=got["collective_bytes"],
+                 device_loop=got["device_loop"])
+            check(same_floats(got["records"], w["records"]) and
+                  got["digest"] == w["digest"],
+                  f"phase 10 {arch} rank {r}: the sharded run is not the "
+                  "unsharded card run")
+            check(got["rerun_same"], f"phase 10 {arch} rank {r}: a rerun "
+                  "of the sharded program differs")
+            check(got["device_loop"]["graphs_captured"] == 0,
+                  f"phase 10 {arch} rank {r}: a sharded chunk was captured")
+            check(ag.get("count", 0) >= 1 and
+                  "all-reduce" not in got["collectives"],
+                  f"phase 10 {arch} rank {r}: census {got['collectives']}")
+            check(got["donated_same"] and got["donated_shares_storage"] and
+                  got["donated_alias_bytes"] == w["param_bytes"] and
+                  got["alias_bytes"] == 0,
+                  f"phase 10 {arch} rank {r}: the donated run")
+            if arch == "kmeans-traffic":
+                check(got["kmeans_assign_batched"] > 0 and
+                      got["lanes"] == [n_edges],
+                      f"phase 10 kmeans rank {r}: launches "
+                      f"{got['kmeans_assign_batched']}, lanes "
+                      f"{got['lanes']}")
+                out["kmeans_assign_batched"] += got["kmeans_assign_batched"]
+    tol = PLAN_PEAK_TOL
+    planned = plan["memory"]["peak_live_bytes"]
+    for r, res in enumerate(ranks):
+        lm = res["lm"]
+        err = planned / lm["peak_bytes"] - 1.0
+        emit("ranks_el_round", arch=LM_ARCH, rank=r, card=card,
+             edges=lm["edges"], edge_batch=edge_batch, h_max=LM_H_MAX,
+             intervals=LM_INTERVALS, round_s=lm["round_s"],
+             gather_s=lm["gather_s"],
+             one_rank_round_s=one["round_s"], losses=lm["losses"],
+             ssd_scan=lm["ssd_scan"], peak_bytes=lm["peak_bytes"],
+             planned_peak_bytes=planned, peak_error=err,
+             plan_collectives=plan["collectives"],
+             one_rank_peak_bytes=one["peak_bytes"])
+        check(lm["digest"] == one["digest"] and lm["losses"] == one["losses"],
+              f"phase 10 el_round rank {r}: the sharded round is not the "
+              "one-rank round")
+        check(lm["finite"] and all(x == x and abs(x) < float("inf")
+                                   for x in lm["losses"]),
+              f"phase 10 el_round rank {r}: non-finite")
+        check(lm["ssd_scan"] > 0, f"phase 10 el_round rank {r}: ssd_scan "
+              "never launched")
+        check(abs(err) <= tol, f"phase 10 el_round rank {r}: planned peak "
+              f"{planned} vs measured {lm['peak_bytes']} ({err:+.3f})")
+        check(res["modules"] == [], f"rank {r} imported {res['modules']}")
+        out["ssd_scan"] += lm["ssd_scan"]
+    got = nccl["classic"]["svm-wafer"]
+    emit("ranks_nccl_world_of_one", card=card, backend=nccl["backend"],
+         mesh=nccl["mesh"], collectives=got["collectives"],
+         rounds=len(got["records"]), run_s=got["run_s"],
+         device_loop=got["device_loop"])
+    check(nccl["backend"] == "nccl" and got["collectives"] == {} and
+          same_floats(got["records"], want["svm-wafer"]["records"]) and
+          got["digest"] == want["svm-wafer"]["digest"],
+          f"phase 10 NCCL world of one: {got['collectives']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    out["edge_batch"] = edge_batch
+    emit("ranks", card=card, seconds=out["seconds"],
+         kmeans_assign_batched=out["kmeans_assign_batched"],
+         ssd_scan=out["ssd_scan"], edge_batch=edge_batch,
+         unverified="NCCL across several cards: the machine has one")
+    return out
+
+
 # -- phase 8: times and bounds ------------------------------------------------
 
 def kmeans_timing(n: int, d: int, k: int) -> dict:
@@ -5192,7 +5584,8 @@ def main() -> None:
 
     build_all()
     km_err = kernel_vs_plain()
-    kmb_err = kernel_batched_vs_plain()
+    kmb_errs = kernel_batched_vs_plain()
+    kmb_err = kmb_errs[KM_BATCHED_MAIN]
     kmc_err = max(kernel_cells_vs_plain(SWEEP_CELLS),
                   kernel_cells_vs_plain(FLEET_SLOTS))
     ssd_errs = ssd_vs_plain()
@@ -5246,12 +5639,15 @@ def main() -> None:
     planner_phase(moe_served, deepseek_served, minicpm, jamba_served,
                   hybrid_trained)
     examples_phase()
+    ranks = ranks_phase()
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
     emit("kmeans_timing", case="microbench E-step", **km_shapes[-1])
     kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
     emit("kmeans_batched_timing", **kmb)
+    kms = kmeans_batched_timing(*KM_BATCHED_SHARDED)
+    emit("kmeans_batched_timing", case="phase 10: a rank's share", **kms)
     kmc = kmeans_cells_timing(SWEEP_CELLS, *KM_BATCHED_MAIN)
     emit("kmeans_cells_timing", **kmc)
     kmf = kmeans_cells_timing(FLEET_SLOTS, *KM_BATCHED_MAIN)  # the fleet's
@@ -5302,6 +5698,10 @@ def main() -> None:
     ssd_jamba_train = ssd_timing(*SSD_JAMBA_TRAIN)
     emit("ssd_timing", case="jamba-1.5 interleave training",
          **ssd_jamba_train)
+    ssd_el = (ranks["edge_batch"],) + SSD_TRAIN[1:]
+    ssd_el_round = ssd_timing(*ssd_el)
+    emit("ssd_timing", case="phase 10: the OL4EL round, one edge's batch",
+         **ssd_el_round)
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
@@ -5334,6 +5734,20 @@ def main() -> None:
         "singles_ms": kmb["singles_ms"],
         "singles_call_ms": kmb["singles_call_ms"],
         "launch_floor_ms": launch_floor_ms, "shapes": [kmb]}, {
+        "name": "kmeans_assign_batched_sharded", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
+                    "jax.vmap over a shard's edges, src/repro/el/"
+                    "ingraph.py:526, sharded by :338-379)",
+        "path": "phase 10: run_sync_ingraph(mesh=) on 2 gloo ranks, each "
+                "rank's 2 of 4 edges a launch",
+        "launches": ranks["kmeans_assign_batched"],
+        "max_abs_err": kmb_errs[KM_BATCHED_SHARDED], "ms": kms["ms"],
+        "kernel_ms": kms["ms"], "call_ms": kms["call_ms"],
+        "plain_ms": kms["plain_ms"], "bound_ms": kms["bound_ms"],
+        "bound_by": kms["bound_by"], "library_ms": kms["library_ms"],
+        "library": "torch.cdist(x, c).min(-1) on [E, N, D] x [E, K, D]",
+        "launch_floor_ms": launch_floor_ms, "shapes": [kms]}, {
         "name": "kmeans_assign_batched_cells", "route": "cuda",
         "source": "src/repro_torch/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
@@ -5461,7 +5875,12 @@ def main() -> None:
              "phase 6f: jamba-1.5's (MAMBA, DENSE), (ATTN, DENSE) trained "
              "at full width, the Mamba layer's forward and remat recompute",
              hybrid_trained["ssd_scan"], SSD_JAMBA_TRAIN, ssd_jamba_train,
-             [ssd_jamba_train]))]}),
+             [ssd_jamba_train]),
+            ("ssd_scan_el_round",
+             "phase 10: local_sgd.make_el_round on mamba2-370m at full "
+             "width, one rank with both edges and 2 gloo ranks with one "
+             "each, every layer's forward and remat recompute",
+             ranks["ssd_scan"], ssd_el, ssd_el_round, [ssd_el_round]))]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5470,4 +5889,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(*sys.argv[2:4])
+    else:
+        main()

@@ -69,7 +69,19 @@ same draws as the scenario-less round.
 carry: each round records its arm, straggler cost, residual budget and
 the bandit's per-arm statistics at ``t % ring_size``, and ``finalize``
 emits them as ``out["telemetry"]``; off, the carry is the ungated one.
-``mesh=`` (ROADMAP Queue 1 item 14) raises ``NotImplementedError``.
+
+``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) runs the round over the
+ranks of a world: the per-edge datasets and the local blocks split over
+the mesh's edge axes (``repro_torch.sharding.el_edge_dim_axes``: tiled,
+or replicated when the edge count does not tile them), each rank runs
+its own edges' lanes on its rows of the round's uniforms, and before the
+aggregation it all-gathers the ``[E, ...]`` edge stack
+(``repro_torch.launch.mesh.gather_edge_stack``) and reduces it in edge
+order as the unsharded round does.  Everything else (bandit, budgets,
+knobs, draws, the eval set, termination) is replicated: every rank
+computes it from the same inputs, so a sharded run is bit-identical to
+the unsharded one on every rank.  The ``model`` axis replicates the
+classic models' parameters, as the reference's resolver does.
 """
 
 from __future__ import annotations
@@ -265,11 +277,12 @@ def sync_knob_names(cfg: OL4ELConfig) -> Tuple[str, ...]:
 
 
 def _pad_edge_data(edge_data: List[Dict[str, np.ndarray]],
-                   device: DeviceLike
+                   device: DeviceLike, rows: slice = slice(None)
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Stack per-edge datasets [E, Nmax, d] / [E, Nmax] with wraparound
     padding (padding rows repeat real rows, so uniform index sampling over
-    [0, n_e) never sees them), on ``device``."""
+    [0, n_e) never sees them), on ``device``; ``rows``: only these edges'
+    (a rank's shard), padded to the whole fleet's Nmax."""
     n = np.array([len(d["y"]) for d in edge_data], np.int32)
     n_max = int(n.max())
     dim = np.asarray(edge_data[0]["x"]).shape[-1]
@@ -280,8 +293,9 @@ def _pad_edge_data(edge_data: List[Dict[str, np.ndarray]],
         xs[e] = np.tile(np.asarray(d["x"], np.float32), (reps, 1))[:n_max]
         ys[e] = np.tile(np.asarray(d["y"], np.int64), reps)[:n_max]
     dev = torch.device(device)
-    return (torch.as_tensor(xs, device=dev), torch.as_tensor(ys, device=dev),
-            torch.as_tensor(n, device=dev))
+    return (torch.as_tensor(xs[rows], device=dev),
+            torch.as_tensor(ys[rows], device=dev),
+            torch.as_tensor(n[rows], device=dev))
 
 
 def default_metric_fn(model, eval_set, metric_name: str
@@ -436,6 +450,9 @@ class ELCell:
     init_draw_shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
         default_factory=dict)
     items_per_step: int = 1
+    #: whether a step issues collectives (a sharded round): its chunks run
+    #: eagerly, never captured
+    sharded: bool = False
 
 
 def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
@@ -455,13 +472,15 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     None/False off, True/int/``TelemetrySpec`` on).  Off builds exactly
     the carry below; on adds ``carry["telem"]``, recorded by ``body`` /
     ``body_scn`` (the scenario round adds active edges, dropouts and
-    rejoins) and emitted by ``finalize`` as ``out["telemetry"]``."""
+    rejoins) and emitted by ``finalize`` as ``out["telemetry"]``.
+
+    ``mesh=``: the round over the mesh's ranks (see the module's
+    docstring); this rank keeps its edges' rows of the datasets, and the
+    cell's ``sharded`` flag says whether it gathers (it does not when the
+    edge dim replicates)."""
+    from repro_torch.launch.mesh import edge_shard
     from repro_torch.obs.rings import (as_spec, finalize_telemetry,
                                        sync_ring_init, sync_ring_record)
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_sync_cell(mesh=...): sharded runs arrive with ROADMAP "
-            "Queue 1 item 14")
     spec = as_spec(telemetry)
     check_ingraph_support(cfg, caller="make_sync_program")
     dev = resolve_device(device if device is not None
@@ -476,7 +495,11 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         raise ValueError(f"cfg.n_edges = {n_edges} but the executor has "
                          f"{len(edge_data)} edge datasets")
 
-    xs, ys, n_per_edge = _pad_edge_data(edge_data, dev)
+    shard = edge_shard(mesh, n_edges)
+    mine = slice(None) if shard is None else shard.rows
+    n_local = n_edges if shard is None else shard.hi - shard.lo
+    gather = (lambda tree: tree) if shard is None else shard.gather
+    xs, ys, n_per_edge = _pad_edge_data(edge_data, dev, mine)
     w_agg = (np.ones(n_edges) if n_samples is None
              else np.asarray(n_samples, np.float64))
     # f64 weights rounded to f32, as the reference's; kept in f64 for the
@@ -513,7 +536,10 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             return metric_fn(params)
         return torch.full((), float("nan"), device=dev)
 
-    def init(init_params: Params, knobs: Knobs, draws) -> Carry:
+    def init(init_params: Params, knobs: Knobs, draws, *,
+             copy: bool = True) -> Carry:
+        """The initial carry; ``copy=False`` (a donated run) takes
+        ``init_params``' tensors as the carry's own."""
         hist = {
             "metric": torch.full((max_rounds,), float("nan"), device=dev),
             "utility": torch.zeros(max_rounds, device=dev),
@@ -525,7 +551,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         if scn is not None:
             hist["active_edges"] = torch.zeros(max_rounds, dtype=torch.int32,
                                                device=dev)
-        carry = {"params": tree_map(lambda p: p.to(dev, copy=True),
+        carry = {"params": tree_map(lambda p: p.to(dev, copy=copy),
                                     init_params),
                  "bstate": device_bandit_init(k, dev),
                  "consumed": torch.zeros(n_edges, device=dev),
@@ -556,9 +582,9 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         interval = arm + 1
 
         bcast = tree_map(lambda p: p.unsqueeze(0).expand(
-            n_edges, *p.shape).contiguous(), params)
-        edge_params = local_block(bcast, interval, draws["uniform"])
-        new_params = weighted_mean(edge_params)
+            n_local, *p.shape).contiguous(), params)
+        edge_params = local_block(bcast, interval, draws["uniform"][mine])
+        new_params = weighted_mean(gather(edge_params))
 
         # straggler semantics: every edge's clock advances by the slowest
         # edge's round time; each edge's realized cost is the expected
@@ -646,13 +672,14 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         interval = arm + 1
 
         bcast = tree_map(lambda p: p.unsqueeze(0).expand(
-            n_edges, *p.shape).contiguous(), params)
+            n_local, *p.shape).contiguous(), params)
         # a dropped edge runs its steps masked (interval 0); the drift
         # phase rotates every edge's sampling window
         edge_iv = torch.where(act, interval, 0)
         shift = knobs["scn_drift"] * t.float()
-        edge_params = local_block(bcast, edge_iv, draws["uniform"],
-                                  shift=shift)
+        edge_params = gather(local_block(bcast, edge_iv[mine],
+                                         draws["uniform"][mine],
+                                         shift=shift))
         # mask-aware aggregation: dead edges carry zero weight and the
         # live weights renormalise
         w_act = w_agg_t * act.float()
@@ -697,7 +724,8 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     draw_shapes = {"gumbel": (k,), "uniform": (n_edges, k, batch),
                    "normal": (n_edges,)}
     return ELCell(init=init, cond=cond, body=body, finalize=finalize,
-                  horizon=max_rounds, draw_shapes=draw_shapes, device=dev)
+                  horizon=max_rounds, draw_shapes=draw_shapes, device=dev,
+                  sharded=shard is not None)
 
 
 def _tree_copy_(dst, src) -> None:
@@ -751,6 +779,15 @@ class ChunkRunner:
     tensors, both copies of the final carry's.  ``last_run`` describes the
     latest run: chunks (= host syncs), graphs captured, replays and the batched
     kernel launches a graph holds.
+
+    A sharded cell (``cell.sharded``: its step all-gathers across ranks)
+    runs every chunk eagerly, on a card too: no graph is captured
+    (``graphs_captured == 0``), and each batched ``kmeans_assign`` launch
+    counts as it runs.  ``donate=True`` (a solo runner) takes the caller's
+    ``init_params`` tensors as the carry's parameter storage, with no
+    copy: the run updates them in place and returns them as the final
+    params (new tensor objects on the same storage).  On a card a donated
+    run whose storage is not the captured graph's captures anew.
     """
 
     def __init__(self, cell: ELCell, rounds_per_chunk: int = 16,
@@ -857,25 +894,55 @@ class ChunkRunner:
         return init
 
     def _load(self, init_params: Params, knobs: Dict[str, Any],
-              draws) -> None:
+              draws, donate: bool = False) -> None:
         """Knobs and the initial carry into the static buffers (with
-        ``draws=None`` the initial draws are the buffers' current ones)."""
+        ``draws=None`` the initial draws are the buffers' current ones);
+        ``donate``: the carry's params are ``init_params``' tensors."""
         knob_t = {name: _knob_tensor(v, self.device)
                   for name, v in knobs.items()}
         if self.init_bufs and draws is not None:
             draws.fill_init(self.init_bufs)
-        init = self._init_carry(init_params, knob_t)
+        if donate:
+            self._check_donated(init_params)
+            init = self.cell.init(init_params, knob_t, self.init_bufs,
+                                  copy=False)
+        else:
+            init = self._init_carry(init_params, knob_t)
         if self.carry is None:
             self.knobs, self.carry = knob_t, init
+            return
+        _tree_copy_(self.knobs, knob_t)
+        if donate:
+            old = tree_leaves(self.carry["params"])
+            if self.graph is not None and any(
+                    a.data_ptr() != b.data_ptr()
+                    for a, b in zip(old, tree_leaves(init["params"]))):
+                self.graph = None             # captured over other storage
+            params = init.pop("params")
+            _tree_copy_({k: self.carry[k] for k in init}, init)
+            self.carry["params"] = params
         else:
-            _tree_copy_(self.knobs, knob_t)
             _tree_copy_(self.carry, init)
+
+    def _check_donated(self, params: Params) -> None:
+        if self.n_cells is not None:
+            raise ValueError("donate=True runs a solo program")
+        for p in tree_leaves(params):
+            dev = p.device if isinstance(p, torch.Tensor) else None
+            if dev is None or dev.type != self.device.type or (
+                    None not in (dev.index, self.device.index)
+                    and dev.index != self.device.index) \
+                    or not p.is_contiguous():
+                raise ValueError(
+                    "donate=True takes the params' tensors as the run's "
+                    f"storage: each must be a contiguous tensor on "
+                    f"{self.device}")
 
     def _run_chunk(self) -> None:
         """One chunk on the loaded buffers: a replay on a card (the first
         captures the graph), eagerly on the CPU."""
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.cell.sharded:
             self._step()
             return
         if self.graph is None:
@@ -886,8 +953,11 @@ class ChunkRunner:
 
     def _prepare_chunk(self) -> None:
         """On a card: capture the chunk's graph if there is none (its
-        warm-up runs the chunk eagerly), else run that warm-up alone."""
-        if self.graph is None:
+        warm-up runs the chunk eagerly), else run that warm-up alone; a
+        sharded cell's chunk runs eagerly, its result discarded."""
+        if self.cell.sharded:
+            self._chunk(self.carry)
+        elif self.graph is None:
             self._capture()
         else:
             self._warm_up()
@@ -924,9 +994,10 @@ class ChunkRunner:
             draws.fill(self.draw_bufs, status[1:1 + n],
                        rows=[bool(s) for s in status[1 + n:]])
 
-    def __call__(self, init_params: Params, knobs: Dict[str, Any], draws
+    def __call__(self, init_params: Params, knobs: Dict[str, Any], draws,
+                 donate: bool = False
                  ) -> Tuple[Params, Dict[str, np.ndarray]]:
-        self._load(init_params, knobs, draws)
+        self._load(init_params, knobs, draws, donate)
         if self.active is not None:
             self.active.fill_(True)
         graphs_before, replays_before = self.graphs_captured, self.replays
@@ -945,7 +1016,10 @@ class ChunkRunner:
         # a copy (the nested rings too): on the CPU ``.cpu()`` would alias
         # the carry buffers the next run refills
         out = tree_map(lambda v: v.to("cpu", copy=True).numpy(), out)
-        params = tree_map(torch.clone, params)
+        if donate:                    # the donated storage, new objects
+            params = tree_map(lambda p: p.view_as(p), params)
+        else:
+            params = tree_map(torch.clone, params)
         self.last_run = {
             "chunks": chunks, "rounds_per_chunk": self.rounds_per_chunk,
             "graphs_captured": self.graphs_captured - graphs_before,

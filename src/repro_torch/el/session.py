@@ -138,6 +138,14 @@ class ELSession:
 
     def _initial_params(self) -> Params:
         if self._init_params is not None:
+            from repro_torch.interop import tree_leaves
+            if any(getattr(leaf, "_repro_donated", False)
+                   for leaf in tree_leaves(self._init_params)):
+                raise RuntimeError(
+                    "the session's init_params were donated to a previous "
+                    "donate=True run (the run updated their storage in "
+                    "place); pass fresh init_params via .with_executor() "
+                    "before running again")
             return self._init_params
         ex = self._require_executor()
         if hasattr(ex, "init_params"):
@@ -374,7 +382,8 @@ class ELSession:
 
     def _profile_program(self, key: tuple, program: Any,
                          example_args: tuple, *, mode: str, profile: bool,
-                         contract, scenario: bool = False) -> Any:
+                         contract, scenario: bool = False, mesh=None,
+                         donate: bool = False) -> Any:
         """The dispatch-time half of the program profiles
         (``repro_torch.obs.prof``): profile the cached program once per
         cache entry and, when a contract is armed, enforce it.
@@ -382,8 +391,10 @@ class ELSession:
         ``profile`` / ``contract`` are the per-call opt-ins;
         ``REPRO_EL_PROFILE=1`` / ``REPRO_EL_CONTRACTS=1`` arm them
         process-wide.  ``contract=True`` checks the mode's
-        ``default_contract`` (no collectives, nothing aliased); a
-        ``CollectiveContract`` instance checks that.  A violation raises
+        ``default_contract`` for ``mesh`` and ``donate`` (one rank: no
+        collectives; sharded: gather-before-reduce; donated: the params
+        aliased, else nothing); a ``CollectiveContract`` instance checks
+        that.  A violation raises
         ``repro_torch.obs.prof.ContractViolation`` before any chunk of
         the run is replayed.
         """
@@ -399,13 +410,16 @@ class ELSession:
         prof = self._programs.profile(key)
         if prof is None:
             with trace.span("session.profile", mode=mode):
-                prof = obs_prof.profile_jit(program, *example_args)
+                prof = obs_prof.profile_jit(program, *example_args,
+                                            donated=donate)
                 self._programs.set_profile(key, prof)
         if contract:
             c = contract
             if c is True:
                 c = obs_prof.default_contract(
-                    mode=mode, scenario=scenario,
+                    mode=mode, scenario=scenario, donated=donate,
+                    mesh=mesh if getattr(program.cell, "sharded",
+                                         False) else None,
                     param_bytes=obs_prof.param_tree_bytes(example_args[0]))
             c.enforce(prof)
         return prof
@@ -521,17 +535,24 @@ class ELSession:
         ``default_contract``).  ``REPRO_EL_PROFILE=1`` /
         ``REPRO_EL_CONTRACTS=1`` arm these process-wide.
 
-        ``mesh`` and ``donate`` (ROADMAP Queue 1 item 14) raise
-        ``NotImplementedError``.
+        ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) runs the program
+        over the mesh's ranks, every rank calling this with the same
+        session: the per-edge datasets and local blocks split over the
+        edge axes, the edge stack all-gathered before the aggregation
+        (``repro_torch.el.ingraph``).  Every rank returns the same report,
+        bit for bit the unsharded run's; its chunks run eagerly
+        (``telemetry["device_loop"]["graphs_captured"] == 0``).
+        ``donate=True`` makes the init params' tensors the run's parameter
+        storage, with no copy: the run updates them in place and
+        ``final_params`` shares their storage, so the session refuses to
+        run from them again (pass fresh ``init_params``).  The program
+        cache key holds the mesh and ``donate``, as the reference's.
         """
         from repro_torch.el.ingraph import make_sync_program, sync_knobs
         from repro_torch.el.rng import TorchDraws
+        from repro_torch.interop import tree_leaves
         from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
-        if mesh is not None or donate:
-            raise NotImplementedError(
-                "run_sync_ingraph(mesh=/donate=): sharded and donating "
-                f"runs arrive with {_MESH_ITEM}")
         ex = self._require_executor()
         cfg = self._ingraph_cfg("run_sync_ingraph", mode="sync")
         spec = obs_rings.as_spec(telemetry)
@@ -539,7 +560,7 @@ class ELSession:
         key = ("sync", ex, self._structural_cfg(cfg), max_rounds,
                metric_fn, self.metric_name,
                None if self._n_samples is None else tuple(self._n_samples),
-               spec)
+               spec, mesh, bool(donate))
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
@@ -549,20 +570,25 @@ class ELSession:
                     ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
                     batch=ex.batch, n_samples=self._n_samples,
                     metric_fn=metric_fn, metric_name=self.metric_name,
-                    max_rounds=max_rounds, telemetry=spec,
+                    max_rounds=max_rounds, mesh=mesh, telemetry=spec,
                     device=getattr(ex, "device", None))
                 self._cache_program(key, program)
         self._fastpath = program
         self._profile_program(key, program, (params, sync_knobs(cfg)),
                               mode="sync", profile=profile,
                               contract=contract,
-                              scenario=cfg.scenario is not None)
+                              scenario=cfg.scenario is not None, mesh=mesh,
+                              donate=donate)
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
         with trace.span("session.dispatch", mode="sync") as sp:
-            params, out = program(params, sync_knobs(cfg), draws)
+            params, out = program(params, sync_knobs(cfg), draws,
+                                  donate=donate)
             sp["n_rounds"] = int(out["n_rounds"])
+        if donate and self._init_params is not None:
+            for leaf in tree_leaves(self._init_params):
+                leaf._repro_donated = True
         records: List[RoundRecord] = []
         for rec in records_from_out(out, 0, int(out["n_rounds"])):
             self._emit(records, rec)

@@ -33,8 +33,15 @@ calibration (``--calibrate``) reproduces the full-depth FLOPs exactly.
 
 Step per shape kind:
   train    -> ``train_step``  (AdamW)
-              (``--step el_round``, the OL4EL round over a mesh, waits for
-              ROADMAP item 14 and writes a failed row naming it)
+              or ``el_round`` (``--step el_round``): ONE rank's share of
+              the paper's OL4EL round over a data-only mesh of
+              ``--mesh-data`` ranks (``repro_torch.federated.local_sgd``):
+              ``--edges-per-rank`` edges' training states, each edge's
+              ``batch // n_edges`` share of the global batch for all
+              ``--h-max`` local steps, then the all-gather of the
+              parameter stack (its bytes in the row's ``collectives``)
+              and the mean; a ``model`` axis (``--mesh-model``) and the
+              multi-pod mesh wait for ROADMAP item 14's later parts
   prefill  -> ``prefill_step`` (forward, full sequence)
   decode   -> ``decode_step``  (ONE token vs a seq_len KV/SSM cache)
 """
@@ -79,8 +86,8 @@ KERNEL_OPS = {"flash_attention": fa_ops, "ssd_scan": ssd_ops,
 ALLOCATIONS = (torch.ops.aten.empty, torch.ops.aten.empty_like,
                torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
                torch.ops.aten.new_empty_strided)
-MULTI_CARD = ("ROADMAP item 14 (several cards: federated/local_sgd.py, "
-              "sharding.py, launch/mesh.py)")
+MULTI_CARD = ("ROADMAP item 14's later parts (tensor-parallel / FSDP "
+              "execution over model, the multi-pod mesh)")
 
 
 def block_bytes(nbytes: int) -> int:
@@ -346,6 +353,53 @@ def measure_step(step: Callable[[], Any], arguments: List[torch.Tensor],
             "device": torch.cuda.get_device_name(dev)}
 
 
+def el_round_inputs(model: LM, batch: int, seq_len: int, h_max: int,
+                    edges_per_rank: int, data_ranks: int,
+                    opt_state_dtype: str = "float32",
+                    gen: Optional[torch.Generator] = None
+                    ) -> Tuple[Callable[[], Any], List[torch.Tensor], int,
+                               Any]:
+    """Rank 0's share of one OL4EL round on ``model``'s device: ``(step,
+    arguments, static_bytes, mesh)``.  The state holds ``edges_per_rank``
+    edges (every edge drawn, as ``init_el_state`` draws them), the batch
+    their rows of ``el_round_batch_struct``, every edge runs all ``h_max``
+    steps (the most a round runs), and the round gathers over a
+    ``PlanMesh`` of ``data_ranks`` ranks (``mesh.group.calls``: the
+    gathers)."""
+    from repro_torch.federated.local_sgd import init_el_state, make_el_round
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.launch.specs import el_round_batch_struct
+    cfg = model.cfg
+    meta = model.device.type == "meta"
+    n_edges = edges_per_rank * data_ranks
+    tc = _dryrun_train_cfg(batch, seq_len, opt_state_dtype)
+    state = init_el_state(model, tc, n_edges, None if meta else gen,
+                          edges=range(edges_per_rank))
+    struct = {k: v[:edges_per_rank] for k, v in el_round_batch_struct(
+        cfg, n_edges, h_max, batch, seq_len).items()}
+    data = struct if meta else card_batch(cfg, struct, model.device, gen)
+    mesh = PlanMesh(data_ranks)
+    el_round = make_el_round(model, tc, h_max,
+                             mesh=mesh if data_ranks > 1 else None)
+    intervals = torch.full((n_edges,), h_max, dtype=torch.int32)
+    weights = torch.ones(n_edges, device=model.device)
+    arguments = tree_leaves(state) + list(data.values())
+    grads = storages_bytes(tree_leaves(state.params)) // edges_per_rank
+    return (lambda: el_round(state, data, intervals, weights), arguments,
+            storages_bytes(arguments) + grads, mesh)
+
+
+def gather_census(mesh) -> Dict[str, Dict[str, float]]:
+    """The row's ``collectives`` from a ``PlanMesh``'s recorded gathers
+    (one traced round)."""
+    out: Dict[str, Dict[str, float]] = {}
+    for op, nbytes in mesh.group.calls:
+        entry = out.setdefault(op, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += nbytes
+    return out
+
+
 def measure_model(model_cfg: ModelConfig, kind: str, batch: int,
                   seq_len: int, device: Any = "cuda", window_slice: bool = False,
                   fused_xent: bool = False, prefill_last_only: bool = False,
@@ -384,11 +438,15 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
                seq_len: Optional[int] = None,
                layers: Optional[str] = None,
                measure: bool = False,
-               device: Any = "meta") -> Dict[str, Any]:
+               device: Any = "meta", edges_per_rank: int = 1,
+               data_ranks: int = 1, model_ranks: int = 1) -> Dict[str, Any]:
     """Plan one combo on one card: the reference's ``lower_combo``
     arguments, plus ``batch`` / ``seq_len`` (override the shape's) and
     ``layers`` (a window ``a:b`` of the full layer pattern).  With
     ``measure`` (``device`` a card) a row that fits also runs on the card.
+    ``step_mode="el_round"`` plans one rank's share of the OL4EL round
+    (``el_round_inputs``) over ``data_ranks`` x ``model_ranks`` ranks;
+    ``model_ranks > 1`` raises.
 
     ``depth_groups``: calibration mode, as the reference's: a
     depth-reduced unstacked variant (prefix + depth_groups * group
@@ -399,6 +457,10 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
     if multi_pod:
         raise NotImplementedError(
             f"the multi-pod mesh plans several cards: {MULTI_CARD}")
+    if model_ranks > 1:
+        raise NotImplementedError(
+            f"a model axis of {model_ranks} ranks shards each model: "
+            f"{MULTI_CARD}")
     if measure and torch.device(device).type != "cuda":
         raise ValueError(f"--measure runs the step on a card, not on "
                          f"{device!r}")
@@ -449,10 +511,9 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
         record["n_layers_reduced"] = model_cfg.n_layers
 
     if shape.kind == "train" and step_mode == "el_round":
-        record["step"] = "el_round"
-        raise NotImplementedError(
-            f"--step el_round, the OL4EL round over a mesh of edges, waits "
-            f"for {MULTI_CARD}")
+        return _plan_el_round(record, model_cfg, batch_, seq_, h_max,
+                              edges_per_rank, data_ranks, opt_state_dtype,
+                              measure, device, t0)
     record["step"] = {"train": "train_step", "prefill": "prefill_step",
                       "decode": "decode_step"}[shape.kind]
     flags = dict(window_slice=window_slice, fused_xent=fused_xent,
@@ -475,6 +536,42 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
     return record
 
 
+def _plan_el_round(record, model_cfg, batch, seq_len, h_max,
+                   edges_per_rank, data_ranks, opt_state_dtype, measure,
+                   device, t0) -> Dict[str, Any]:
+    n_edges = edges_per_rank * data_ranks
+    if batch % n_edges:
+        raise ValueError(f"a global batch of {batch} does not split over "
+                         f"{n_edges} edges")
+    record.update(step="el_round", mesh=f"{data_ranks}x1",
+                  n_chips=data_ranks, n_edges=n_edges, h_max=h_max,
+                  edges_per_rank=edges_per_rank,
+                  edge_batch=batch // n_edges)
+    step, arguments, static, mesh = el_round_inputs(
+        build(model_cfg, "meta"), batch, seq_len, h_max, edges_per_rank,
+        data_ranks, opt_state_dtype)
+    plan = trace_step(step, arguments)
+    plan["fits"] = plan["memory"]["peak_live_bytes"] <= CARD_MEMORY_BYTES
+    record["plan_s"] = round(time.time() - t0, 2)
+    record.update(memory=plan["memory"], cost=plan["cost"],
+                  static_bytes=static, fits=plan["fits"], card=CARD_NAME,
+                  card_memory_bytes=CARD_MEMORY_BYTES,
+                  kernels=plan["kernels"], collectives=gather_census(mesh),
+                  ok=True)
+    if measure and plan["fits"]:
+        model = build(model_cfg, device)
+        step, arguments, _, _ = el_round_inputs(
+            model, batch, seq_len, h_max, edges_per_rank, data_ranks,
+            opt_state_dtype,
+            gen=torch.Generator(device=model.device).manual_seed(0))
+        record["measured"] = measure_step(step, arguments)
+        del step, arguments, model
+        torch.cuda.empty_cache()
+        record["peak_error"] = (plan["memory"]["peak_live_bytes"]
+                                / record["measured"]["peak_bytes"] - 1.0)
+    return record
+
+
 # ---------------------------------------------------------------------------
 # CLI
 # ---------------------------------------------------------------------------
@@ -488,6 +585,13 @@ def main(argv=None) -> int:
     ap.add_argument("--step", default="auto",
                     choices=["auto", "train_step", "el_round"])
     ap.add_argument("--h-max", type=int, default=4)
+    ap.add_argument("--edges-per-rank", type=int, default=1,
+                    help="--step el_round: edges a rank holds")
+    ap.add_argument("--mesh-data", type=int, default=1,
+                    help="--step el_round: ranks of the data axis")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="--step el_round: ranks of the model axis "
+                         "(> 1 is ROADMAP item 14's later part)")
     ap.add_argument("--window-slice", action="store_true",
                     help="enable KV-slice optimization for sliding-window")
     ap.add_argument("--fused-xent", action="store_true",
@@ -529,7 +633,7 @@ def main(argv=None) -> int:
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
-    mesh_name = "1x1"
+    mesh_name = f"{args.mesh_data}x1" if args.step == "el_round" else "1x1"
 
     done = set()
     if args.skip_existing and os.path.exists(args.out):
@@ -581,7 +685,10 @@ def main(argv=None) -> int:
                             extra_tag=args.tag, depth_groups=dg,
                             batch=args.batch, seq_len=args.seq,
                             layers=args.layers, measure=args.measure,
-                            device=args.device)
+                            device=args.device,
+                            edges_per_rank=args.edges_per_rank,
+                            data_ranks=args.mesh_data,
+                            model_ranks=args.mesh_model)
                     except Exception as e:
                         rec = {"arch": arch, "shape": shape_name,
                                "mesh": mesh_name, "n_chips": 1,

@@ -34,14 +34,27 @@ with ``--metrics-out``, the ring series into the registry).  ``--ckpt
 PATH`` saves the result in the reference's ``.npz`` format
 (``repro_torch.train.checkpoint``): the final ``TrainState`` at step
 ``n_steps`` (standard), the EL report's final parameters at its
-aggregation count (ol4el).  The reference's mesh and donation flags
-(item 14) are not taken.
+aggregation count (ol4el).
+
+``--mesh debug|prod`` shards a classic arch's compiled sync run over the
+ranks of a world (``repro_torch.launch.mesh``), bit-identical to the
+unsharded run on every rank: ``debug`` spawns the debug mesh's ranks
+(``REPRO_SWEEP_DEVICES``, default 4: a 2 x 2 mesh) through
+``repro_torch.launch.hostdev`` when this process is no rank yet (gloo
+with ``--device cpu``; on cards, one NCCL rank a card), ``prod`` takes the
+launched world (``torchrun``), which must hold the production mesh
+(``REPRO_DEBUG_MESH=d``: d x d ranks).  ``--donate`` makes the initial
+params' tensors the run's parameter storage (no copy).  The async engine
+and the LM archs over a mesh are ROADMAP item 14's later parts and
+raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
 import time
 
 import torch
@@ -146,10 +159,38 @@ def train_ol4el(exp, args):
     return report
 
 
+MESH_ITEM = "ROADMAP item 14"
+
+
+def _build_mesh(args):
+    """The run's mesh over the launched world (``None`` for ``--mesh
+    none``): the debug mesh for its size, or the production mesh, which
+    the world must match."""
+    if args.mesh == "none":
+        return None
+    from repro_torch.launch.mesh import (make_debug_mesh_for,
+                                         make_production_mesh,
+                                         production_shape)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.mesh == "debug":
+        return make_debug_mesh_for(world, device=args.device)
+    n = math.prod(production_shape()[0])
+    if world != n:
+        raise SystemExit(
+            "--mesh prod needs the production fleet (a 16x16 = 256-chip "
+            "pod); on a CPU host set REPRO_DEBUG_MESH=2 (with "
+            "REPRO_SWEEP_DEVICES=4) for the debug-scale 2x2 production "
+            "mesh, or use --mesh debug (here: a launched world of "
+            f"{n} ranks, e.g. torchrun --nproc-per-node {n}; this world "
+            f"has {world})")
+    return make_production_mesh(device=args.device)
+
+
 def train_classic_ol4el(exp, args):
     """Classic archs through the compiled sync round or async event engine
     on the device, scenario-injected by the ``--churn`` / ``--cost-model``
-    / ``--drift`` flags; returns the ``ELReport``."""
+    / ``--drift`` flags, the sync round optionally over a mesh
+    (``--mesh``) and donating (``--donate``); returns the ``ELReport``."""
     from repro_torch.el.scenarios.cli import scenario_from_args
     from repro_torch.launch.classic import classic_fixture
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
@@ -164,17 +205,22 @@ def train_classic_ol4el(exp, args):
                              async_batch_k=args.async_batch_k,
                              policy="ol4el", utility=fx["utility"],
                              cost_model=base_cost_model, scenario=scenario)
+    mesh = _build_mesh(args)
+    # one voice for the world: rank 0 prints
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     session = (ELSession(ol, metric_name=metric, lr=fx["lr"])
                .with_executor(fx["executor"], init_params=fx["init_params"],
                               n_samples=fx["n_samples"]))
-    print(f"ol4el {args.arch}: compiled {ol.mode} run, {args.edges} edges "
-          f"on {fx['executor'].device}"
-          + ("" if scenario is None else f", scenario {scenario}"),
-          flush=True)
+    say(f"ol4el {args.arch}: compiled {ol.mode} run, {args.edges} edges "
+        f"on {fx['executor'].device}"
+        + ("" if scenario is None else f", scenario {scenario}")
+        + ("" if mesh is None else f", mesh {dict(mesh.shape)} "
+           f"({mesh.backend}, {mesh.size} ranks)")
+        + (", donated params" if args.donate else ""), flush=True)
     if ol.mode == "sync":
         report = session.run_sync_ingraph(
             max_rounds=args.steps if args.steps is not None else 256,
-            telemetry=args.telemetry)
+            telemetry=args.telemetry, mesh=mesh, donate=args.donate)
     else:
         # as train_ol4el: an explicit --steps caps the run at steps * edges
         # events, announced, never silently
@@ -186,13 +232,14 @@ def train_classic_ol4el(exp, args):
             max_events=None if args.steps is None
             else args.steps * args.edges, telemetry=args.telemetry)
     loop = report.telemetry["device_loop"]
-    print(f"done: {report.n_aggregations} aggregations, "
-          f"final {metric} {report.final_metric:.4f}, "
-          f"consumed {report.total_consumed:.0f} "
-          f"({report.terminated_reason}); arm pulls {report.arm_pulls}; "
-          f"{loop['chunks']} chunks of {loop['rounds_per_chunk']} rounds, "
-          f"{loop['replays']} graph replays", flush=True)
-    _save_el(args, report)
+    say(f"done: {report.n_aggregations} aggregations, "
+        f"final {metric} {report.final_metric:.4f}, "
+        f"consumed {report.total_consumed:.0f} "
+        f"({report.terminated_reason}); arm pulls {report.arm_pulls}; "
+        f"{loop['chunks']} chunks of {loop['rounds_per_chunk']} rounds, "
+        f"{loop['replays']} graph replays", flush=True)
+    if mesh is None or mesh.rank == 0:
+        _save_el(args, report)
     return report
 
 
@@ -240,6 +287,18 @@ def parser() -> argparse.ArgumentParser:
                          "kmeans_assign kernel, the reference's 'pallas'; "
                          "torch: the plain version, the reference's "
                          "'jnp'; cuda on a CPU device raises)")
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "debug", "prod"],
+                    help="shard a classic arch's compiled sync run over "
+                         "ranks: 'debug' spawns the debug mesh's ranks "
+                         "(REPRO_SWEEP_DEVICES, default 4: 2 x 2) unless "
+                         "this process is one; 'prod' takes the launched "
+                         "world (torchrun), the production mesh "
+                         "(REPRO_DEBUG_MESH=d shrinks it to d x d)")
+    ap.add_argument("--donate", action="store_true",
+                    help="donate the initial params' tensors to the "
+                         "compiled run (updated in place; classic ol4el "
+                         "only)")
     add_scenario_args(ap)
     add_metrics_args(ap, trace_dir=True)
     telemetry_arg(ap)
@@ -257,14 +316,29 @@ def main(argv=None):
     classic_el = args.mode == "ol4el" and exp.model.family == "classic"
     scenario_flags = (args.churn is not None or args.drift is not None
                       or args.cost_model not in ("fixed", "variable"))
-    if (scenario_flags or args.telemetry is not None) and not classic_el:
-        ap.error("--telemetry/--churn/--drift and the scenario "
-                 "--cost-model kinds drive the compiled single-run "
-                 "programs, which need a classic arch under --mode ol4el "
-                 "(LM archs and --mode standard run the host loops)")
+    if not classic_el and (args.mesh != "none" or args.donate
+                           or args.telemetry is not None or scenario_flags):
+        ap.error("--mesh/--donate/--telemetry/--churn/--drift and the "
+                 "scenario --cost-model kinds drive the compiled "
+                 "single-run programs, which need a classic arch under "
+                 "--mode ol4el (LM archs and --mode standard run the host "
+                 f"loops; the LM round over ranks is {MESH_ITEM}'s "
+                 "repro_torch.federated.local_sgd)")
     if exp.model.family == "classic" and args.mode != "ol4el":
         raise ValueError(f"{args.arch}: classic archs train under "
                          "--mode ol4el (the compiled EL round)")
+    if (args.mesh != "none" or args.donate) and args.el_mode == "async":
+        raise NotImplementedError(
+            "--el-mode async with --mesh/--donate: run_async_ingraph over "
+            f"a mesh is a later part of {MESH_ITEM}")
+    from repro_torch.launch import hostdev
+    if args.mesh == "debug":
+        rc = hostdev.force_host_devices(argv=argv,
+                                        module="repro_torch.launch.train")
+        if rc is not None:                # this process spawned the world
+            if rc:
+                raise SystemExit(rc)
+            return None
     begin_observability(args)
     if classic_el:
         report = train_classic_ol4el(exp, args)
@@ -281,6 +355,9 @@ def main(argv=None):
         registry = registry_from_report(
             report, labels={"arch": args.arch, "mode": report.mode})
     finish_observability(args, registry)
+    if args.mesh != "none":
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return report
 
 

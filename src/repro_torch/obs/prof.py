@@ -19,13 +19,14 @@ Profiling is opt-in and cached once per program (``ELSession``:
 
 :class:`CollectiveContract` turns the profile into a dispatch-time
 assertion (``contract.enforce(profile)`` raises
-:class:`ContractViolation`), as in the reference.  On one card a program
-issues no collectives, so ``collectives`` is ``{}`` and the default
-contract (no collectives, nothing aliased for a solo program) holds.
-The reference's HLO census parser (``parse_collectives`` /
-``_type_bytes``) is not copied: nothing on one card feeds it; it returns
-with the multi-card programs (ROADMAP Queue 1 item 14).
-``repro_torch.obs`` never imports ``repro_torch.el``.
+:class:`ContractViolation`), as in the reference.  Where the reference
+parses collectives out of the optimized HLO, the port counts them in a
+``torch.profiler`` trace of one chunk of a sharded program
+(:func:`collective_census`): gloo's ``gloo:all_gather`` / ... ops and
+NCCL's ``ncclDevKernel_AllGather*`` / ... kernels, mapped onto the
+reference's mnemonics with their bytes.  A program on one rank issues
+none, so its ``collectives`` is ``{}``.  ``repro_torch.obs`` never
+imports ``repro_torch.el``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,99 @@ from repro_torch.interop import tree_leaves
 #: names)
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
+
+#: A backend's collective, as a ``torch.profiler`` trace names it, to the
+#: reference's mnemonic: gloo's ``gloo:<op>`` host ops and NCCL's
+#: ``ncclDevKernel_<Op>_...`` (or ``ncclKernel_<Op>_...``) kernels.
+_GLOO_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+             "send": "collective-permute", "recv": "collective-permute"}
+_NCCL_KERNELS = (("AllGather", "all-gather"), ("AllReduce", "all-reduce"),
+                 ("ReduceScatter", "reduce-scatter"),
+                 ("AllToAll", "all-to-all"), ("SendRecv", "collective-permute"),
+                 ("Send", "collective-permute"),
+                 ("Recv", "collective-permute"))
+
+
+def _mnemonic(name: str) -> Optional[Tuple[str, str]]:
+    """(backend, mnemonic) of a trace event's name, or None."""
+    if name.startswith("gloo:"):
+        op = _GLOO_OPS.get(name[5:])
+        return None if op is None else ("gloo", op)
+    for prefix in ("ncclDevKernel_", "ncclKernel_"):
+        if name.startswith(prefix):
+            rest = name[len(prefix):]
+            for key, op in _NCCL_KERNELS:
+                if rest.startswith(key):
+                    return "nccl", op
+    return None
+
+
+_DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2,
+                "double": 8, "int": 4, "long int": 8}
+
+
+def census_of_events(events) -> Tuple[Dict[str, Dict[str, float]], int]:
+    """``(collectives, collective_bytes)`` from ``torch.profiler`` events
+    (``prof.events()``): a gloo op counts once with its input's bytes
+    (shape times element size, f32 unless the trace records the dtype);
+    an NCCL kernel counts once, its bytes those of the ``nccl:<op>`` host
+    op that launched it, in order.  Host ops count on the host only (with
+    CUDA activity a range also shows as a device annotation); kernels on
+    the device."""
+    from torch.autograd import DeviceType
+    counts: Dict[str, Dict[str, float]] = {}
+    host_nccl: Dict[str, List[int]] = {}
+    # a host op's range also shows on the device as a user annotation of
+    # the same name: keep the host's
+    events = [e for e in events
+              if (getattr(e, "device_type", DeviceType.CPU) == DeviceType.CPU)
+              == (e.name.startswith(("gloo:", "nccl:")))]
+
+    def nbytes(e) -> int:
+        shapes = [s for s in (e.input_shapes or []) if s]
+        if not shapes:
+            return 0
+        dtypes = getattr(e, "input_dtypes", None) or []
+        size = _DTYPE_BYTES.get(dtypes[0], 4) if dtypes else 4
+        return int(np.prod(shapes[0])) * size
+
+    for e in events:
+        if e.name.startswith("nccl:"):
+            op = _GLOO_OPS.get(e.name[5:])
+            if op is not None:
+                host_nccl.setdefault(op, []).append(nbytes(e))
+    for e in events:
+        hit = _mnemonic(e.name)
+        if hit is None:
+            continue
+        backend, op = hit
+        if backend == "gloo":
+            b = nbytes(e)
+        else:
+            queue = host_nccl.get(op, [])
+            b = queue.pop(0) if queue else 0
+        entry = counts.setdefault(op, {"count": 0, "bytes": 0})
+        entry["count"] += 1
+        entry["bytes"] += b
+    return counts, int(sum(v["bytes"] for v in counts.values()))
+
+
+def collective_census(fn, device: torch.device
+                      ) -> Tuple[Dict[str, Dict[str, float]], int]:
+    """Run ``fn`` (one chunk of a program, on every rank at once) under
+    ``torch.profiler`` and count its collectives
+    (:func:`census_of_events`)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.synchronize(device)
+    with profile(activities=acts, record_shapes=True) as prof:
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    return census_of_events(prof.events())
 
 
 # ---------------------------------------------------------------------------
@@ -144,10 +238,13 @@ def profile_jit(program, *example_args, donated: bool = False
       discards the result), or over that eager chunk when the graph
       exists, less what was allocated before;
     * ``peak_live_bytes``: arguments + outputs + temps − aliased;
-    * ``alias_bytes``: 0, or with ``donated=True`` (a cohort's stacked
-      carry, which the wave's graph updates in place) the bytes of the
-      first example argument;
-    * ``collectives``: ``{}`` and ``collective_bytes`` 0 (one card);
+    * ``alias_bytes``: 0, or with ``donated=True`` (a donated run's
+      params, or a cohort's stacked carry, which the wave's graph updates
+      in place) the bytes of the first example argument;
+    * ``collectives`` / ``collective_bytes``: a sharded program's
+      (``program.cell.sharded``) census of one eager chunk
+      (:func:`collective_census`; every rank profiles at once), ``{}`` and
+      0 for a program on one rank;
     * ``flops``: one masked step under ``torch.utils.flop_counter.
       FlopCounterMode``, which counts the matmul-family ops (``mm``,
       ``bmm``, ``addmm``, convolutions, attention): the SVM's scores and
@@ -175,6 +272,9 @@ def profile_jit(program, *example_args, donated: bool = False
         kw["flops"] = _count_flops(view["step"])
     except Exception as e:                                  # pragma: no cover
         errors.append(f"flops: {e}")
+    if getattr(getattr(program, "cell", None), "sharded", False):
+        kw["collectives"], kw["collective_bytes"] = collective_census(
+            view["chunk"], device)
     if device.type == "cuda":
         kw["temp_bytes"] = _chunk_temp_bytes(device, view["chunk"])
         kw["peak_live_bytes"] = (kw["argument_bytes"] + kw["output_bytes"]

@@ -494,22 +494,56 @@ def test_ingraph_rejects_unsupported_configs(fixtures):
         s.run_sync_ingraph()
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14"),
+@pytest.mark.parametrize("kw,item", [({"mesh": "a world of one"},
+                                      "item 14"),
                                      ({"donate": True}, "item 14"),
                                      ({"telemetry": True}, "item 12"),
                                      ({"profile": True}, "item 12"),
                                      ({"contract": True}, "item 12")])
 def test_unported_options_name_their_items(fixtures, kw, item):
-    """``mesh=`` / ``donate=`` (item 14) raise; the rings and the program
-    profiles (item 12) run and attach what the reference's attach: the
-    rings under ``report.telemetry["rings"]`` with the reference's field
-    names, a profile with no collectives and nothing aliased."""
+    """``mesh=`` / ``donate=`` (item 14's first part) run: on a mesh of one
+    rank (this process, a gloo world of one) the run is the unsharded
+    one and issues no collective; a donated run gives the same records,
+    its final params on the donated storage, ``alias_bytes ==
+    param_bytes``, and the session refuses to run from them again (the
+    sharded runs are ``tests/test_torch_mesh.py``'s).  The rings and the
+    program profiles (item 12) run and attach what the reference's
+    attach: the rings under ``report.telemetry["rings"]`` with the
+    reference's field names, a profile with no collectives and nothing
+    aliased."""
     from repro.obs import prof as jax_prof
     from repro.obs import rings as jax_rings
     _, tf = fixtures["svm-wafer", "jnp"]
     if item == "item 14":
-        with pytest.raises(NotImplementedError, match=item):
-            _session(tf).run_sync_ingraph(**kw)
+        off = _session(tf).run_sync_ingraph(contract=True)
+        if "mesh" in kw:
+            import torch.distributed as dist
+            from repro_torch.launch.mesh import make_mesh
+            mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+            try:
+                rep = _session(tf).run_sync_ingraph(mesh=mesh,
+                                                    contract=True)
+            finally:
+                dist.destroy_process_group()
+            assert rep.telemetry["profile"]["collectives"] == {}
+        else:
+            params = {k: v.clone() for k, v in tf["init_params"].items()}
+            s = _session(tf).with_executor(
+                tf["executor"], init_params=params,
+                n_samples=tf["n_samples"])
+            rep = s.run_sync_ingraph(donate=True, contract=True)
+            assert rep.telemetry["profile"]["alias_bytes"] == sum(
+                v.numel() * 4 for v in params.values())
+            assert all(rep.final_params[k].data_ptr() == params[k].data_ptr()
+                       for k in params)
+            with pytest.raises(RuntimeError, match="donated"):
+                s.run_sync_ingraph(donate=True)
+        assert [r.interval for r in rep.records] == \
+            [r.interval for r in off.records]
+        assert [r.total_consumed for r in rep.records] == \
+            [r.total_consumed for r in off.records]
+        for k, v in off.final_params.items():
+            assert torch.equal(rep.final_params[k], v)
         return
     off = _session(tf).run_sync_ingraph()
     rep = _session(tf).run_sync_ingraph(**kw)

@@ -41,12 +41,40 @@ def test_every_port_module_imports_without_jax_or_repro():
         "        'repro_torch.examples.train_lm_ol4el',\n"
         "        'repro_torch.launch.dryrun', 'repro_torch.launch.specs',\n"
         "        'repro_torch.bench.roofline'} <= set(names), names\n"
+        "assert {'repro_torch.sharding', 'repro_torch.launch.mesh',\n"
+        "        'repro_torch.launch.hostdev',\n"
+        "        'repro_torch.federated.local_sgd'} <= set(names), names\n"
         "assert not bad, bad\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+
+
+def test_a_spawned_rank_imports_no_jax_or_repro():
+    """A rank of a world that ``hostdev`` spawns (here the training
+    launcher's entry, as ``--mesh debug`` runs it on each rank: a sharded,
+    donated svm-wafer run over 2 gloo ranks) imports nothing of JAX, the
+    JAX package or its ``benchmarks`` harness."""
+    from repro_torch.launch import hostdev
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--arch', 'svm-wafer', '--mode', 'ol4el',\n"
+        "            '--el-mode', 'sync', '--edges', '2', '--samples',\n"
+        "            '300', '--budget', '600', '--mesh', 'debug',\n"
+        "            '--donate', '--device', 'cpu'])\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
+        "assert 'repro_torch.launch.mesh' in sys.modules\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = hostdev.spawn_ranks(2, [sys.executable, "-c", code], env=env,
+                              capture=True, timeout=300)
+    for r in res:
+        assert r.returncode == 0, r.stderr[-3000:]
+    assert "done:" in res[0].stdout and "done:" not in res[1].stdout
 
 
 @pytest.mark.parametrize("path", _port_sources(),

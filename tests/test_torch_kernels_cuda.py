@@ -1334,3 +1334,99 @@ def test_dryrun_measure_agrees_with_its_plan(kind, batch, seq, cuda_device):
     assert abs(err) <= 0.15, (plan["memory"], got)
     if kind != "decode":
         assert got["launches"]["flash_attention"] > 0
+
+
+# -- several ranks on the card (the sharded sync run) -----------------------------
+
+_RANK_CODE = """
+import pickle, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_debug_mesh
+sys.path.insert(0, {tests!r})
+from test_torch_kernels_cuda import _sharded_sync_run
+resolve_device("cuda")
+mesh = make_debug_mesh({n}, 1, device="cuda", backend={backend!r})
+out = _sharded_sync_run(mesh)
+with open({out!r} + f"/rank{{mesh.rank}}.pkl", "wb") as f:
+    pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _sharded_sync_run(mesh=None):
+    """kmeans-traffic (2,000 samples, 4 edges) through the compiled sync
+    round on the card, on draws replayed from a seeded numpy generator,
+    over ``mesh`` (None: unsharded); records, final params, census."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=4,
+                         device="cuda")
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=4,
+                              budget=3000.0, utility=fx["utility"])
+    rng = np.random.default_rng(4)
+    k, b = cfg.max_interval, fx["executor"].batch
+    draws = ReplayDraws(rng.gumbel(size=(128, k)),
+                        rng.uniform(size=(128, 4, k, b)),
+                        rng.standard_normal((128, 4)))
+    rep = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+           .with_executor(fx["executor"], init_params=fx["init_params"],
+                          n_samples=fx["n_samples"])
+           .run_sync_ingraph(max_rounds=128, draws=draws, mesh=mesh,
+                             contract=True))
+    return {"records": [(r.interval, r.total_consumed, r.wall_time,
+                         r.utility) for r in rep.records],
+            "params": tree_to_numpy(rep.final_params),
+            "collectives": rep.telemetry["profile"]["collectives"],
+            "graphs": rep.telemetry["device_loop"]["graphs_captured"],
+            "replays": rep.telemetry["device_loop"]["replays"]}
+
+
+def _world_equals_unsharded(n, backend, tmp_path):
+    import os
+    import pathlib
+    import pickle
+    import sys
+    from repro_torch.launch.hostdev import spawn_ranks
+    tests = str(pathlib.Path(__file__).resolve().parent)
+    code = _RANK_CODE.format(tests=tests, n=n, backend=backend,
+                             out=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(pathlib.Path(tests).parent / "src"), tests]))
+    procs = spawn_ranks(n, [sys.executable, "-c", code], env=env,
+                        capture=True, timeout=600)
+    for p in procs:
+        assert p.returncode == 0, p.stderr[-3000:]
+    want = _sharded_sync_run()
+    # the unsharded run replays the graph its profile captured
+    assert want["collectives"] == {} and want["replays"] > 0
+    for r in range(n):
+        got = pickle.load(open(tmp_path / f"rank{r}.pkl", "rb"))
+        assert got["records"] == want["records"]
+        for key, v in want["params"].items():
+            np.testing.assert_array_equal(got["params"][key], v)
+        assert got["collectives"]["all-gather"]["count"] >= 1
+        assert "all-reduce" not in got["collectives"]
+        assert got["graphs"] == 0 and got["replays"] == 0
+
+
+def test_gloo_ranks_on_one_card_shard_the_sync_run(cuda_device, tmp_path):
+    """Two gloo ranks share the card (CUDA tensors): every rank's sharded
+    run is the unsharded card run, bit for bit, with one all-gather a
+    round and no all-reduce."""
+    _world_equals_unsharded(2, "gloo", tmp_path)
+
+
+def test_nccl_ranks_shard_the_sync_run(cuda_device, tmp_path):
+    """One NCCL rank a card over every card of the machine (NCCL puts no
+    two ranks of one communicator on one card): unverified on a machine
+    with one card, where it skips."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("an NCCL world of several ranks needs several cards")
+    _world_equals_unsharded(2 if n < 4 else 4, "nccl", tmp_path)

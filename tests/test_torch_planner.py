@@ -285,8 +285,29 @@ def test_one_card_facts_hold_on_meta():
         port_config.get_config("jamba-1.5-large-398b").model, "2:5")
     assert mid.block_pattern() == (("mamba", "dense"), ("mamba", "moe"),
                                    ("attn", "dense"))
+    # one rank's share of the OL4EL round over 2 data ranks: its edge's
+    # state, the batch's half, the gather of the parameter stack
+    row = dryrun.plan_combo("qwen3-1.7b", "train_4k", step_mode="el_round",
+                            h_max=2, batch=4, seq_len=64, layers="0:2",
+                            data_ranks=2)
+    assert (row["step"], row["mesh"], row["n_chips"], row["n_edges"],
+            row["edge_batch"], row["h_max"]) == ("el_round", "2x1", 2, 2, 2,
+                                                 2)
+    params = LM(dryrun.layer_window(
+        port_config.get_config("qwen3-1.7b").model, "0:2"),
+        device="meta").init(None)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in jax.tree_util.tree_leaves(params))
+    gathers = row["collectives"]["all-gather"]
+    # one gather a dtype of the parameters, one of the edges' losses
+    assert gathers["bytes"] == nbytes + 4 and gathers["count"] >= 2
+    assert row["memory"]["argument_size_in_bytes"] >= 3 * nbytes
+    assert row["fits"] and row["ok"]
     with pytest.raises(NotImplementedError, match="item 14"):
-        dryrun.plan_combo("qwen3-1.7b", "train_4k", step_mode="el_round")
+        dryrun.plan_combo("qwen3-1.7b", "train_4k", step_mode="el_round",
+                          model_ranks=2)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        dryrun.plan_combo("qwen3-1.7b", "train_4k", multi_pod=True)
     with pytest.raises(ValueError, match="card"):
         dryrun.plan_combo("qwen3-1.7b", "decode_32k", measure=True,
                           device="cpu")
@@ -297,7 +318,8 @@ def test_dryrun_cli_writes_rows_and_failed_rows(tmp_path, capsys):
     assert dryrun.main(["--arch", "mamba2-370m", "--shape", "long_500k",
                         "--out", str(out)]) == 0
     assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
-                        "--step", "el_round", "--out", str(out)]) == 1
+                        "--step", "el_round", "--mesh-model", "2",
+                        "--out", str(out)]) == 1
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert rows[0]["ok"] and rows[0]["collectives"] == {}
     assert {"memory", "cost", "fits", "plan_s", "params",
