@@ -282,6 +282,25 @@ Phases, each printing JSON lines:
               of one (``chip_smoke.py --rank nccl SPEC``): the sharded
               sync run issues no collective; each line beside the card's
               name and power limit;
+11. ranks, part 2 -- in phase 10's gloo world, after its runs: (a) phase
+              4c's full-width fixtures on its replayed draws through
+              ``run_async_ingraph(mesh=, contract=True)`` at K = 1 and at
+              the width the mesh resolves (4): every rank's events bit for
+              bit phase 4c's unsharded K = 1 card run's and its final
+              params the unsharded run's at its K, no graph, the census
+              16 all-gathers a chunk of K edges' parameters and no
+              all-reduce, each ``kmeans_assign`` launch over K lanes, a
+              rerun equal, the donated twin equal with ``alias_bytes ==
+              param_bytes``; (b) phase 4d's grids (24 sync cells, 12 a
+              rank; 2 x 8 async cells, 4 a rank each) through
+              ``sweep(mesh=)``, every cell bit for bit 4d's; (c) phase
+              4f's kmeans-traffic async cohort (8 tenants, 4 slots, 2 a
+              rank, admitted as slots free) through ``FleetServer(mesh=)``,
+              every report 4f's and the streamed deltas its records; (d)
+              a churn scenario (rate 0.3, period 16) on kmeans-traffic,
+              sync and async, each bit for bit its unsharded card run made
+              here; each run's seconds and rerun's beside the unsharded
+              run's, a gather's ms, beside the card's name and power limit;
 8. kernels -- per-kernel launches, error, times (CUDA events) and bound,
               beside the time of one empty launch (the batched
               ``kmeans_assign`` beside 4 single launches, and at the sweep's
@@ -303,12 +322,14 @@ Phases, each printing JSON lines:
               128, 128, 128), bf16, each a row of its own; phase 10's
               batched ``kmeans_assign`` at a rank's (2, 128, 64, 3) and
               ``ssd_scan`` at its round's per-edge batch, rows of their
-              own.
+              own; phase 11's batched ``kmeans_assign`` at a rank's wave
+              (4, 128, 64, 3) and single event (1, 128, 64, 3), a row of
+              its own.
 
 Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
 6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
-runs), 6f, 7, each of 9b's four runs, and in each rank each of 10's runs)
-is driven with every kernel's launch count set to 0 just before it and
+runs), 6f, 7, each of 9b's four runs, and in each rank each of 10's and
+11's runs) is driven with every kernel's launch count set to 0 just before it and
 read just after.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
 "device": {...}}``.
@@ -452,10 +473,12 @@ def kernel_vs_plain() -> float:
 
 # (e, n, d, k, dtype name) of the batched entry: the compiled round's local
 # step (4 edges of (128, 64, 3)), N not a multiple of the block's points,
-# wafer widths (scalar loads), K = 1, bf16
+# wafer widths (scalar loads), K = 1, bf16; phase 11 adds each other lane
+# count its runs launch at
 KM_BATCHED_CASES = [(4, 128, 64, 3, "float32"), (4, 1001, 64, 3, "float32"),
                     (3, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
-                    (3, 300, 64, 3, "bfloat16"), (2, 128, 64, 3, "float32")]
+                    (3, 300, 64, 3, "bfloat16"), (2, 128, 64, 3, "float32"),
+                    (1, 128, 64, 3, "float32")]
 KM_BATCHED_MAIN = (4, 128, 64, 3)
 KM_BATCHED_SHARDED = (2, 128, 64, 3)      # phase 10: a rank's 2 of 4 edges
 
@@ -469,33 +492,40 @@ def km_batched_inputs(e, n, d, k, dtype_name, seed):
     return x, c
 
 
-def kernel_batched_vs_plain() -> dict:
-    """The batched entry bit-equal to E single launches, and within the
-    single entry's tolerance of the plain version; returns the largest
-    |d2 - d2_plain| at each f32 shape (e, n, d, k)."""
+def batched_case_vs_plain(e, n, d, k, dt, seed) -> float:
+    """The batched entry at one shape bit-equal to E single launches, and
+    within the single entry's tolerance of the plain version; returns the
+    largest |d2 - d2_plain|."""
     import torch
     from repro_torch.kernels.kmeans_assign import ops, ref
+    x, c = km_batched_inputs(e, n, d, k, dt, seed=seed)
+    a, d2 = ops.assign_with_dist_batched(x, c)
+    singles = [ops.assign_with_dist(x[j], c[j]) for j in range(e)]
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    bit_equal = all(torch.equal(a[j], sa) and torch.equal(d2[j], sd)
+                    for j, (sa, sd) in enumerate(singles))
+    tol = (1e-2, 1e-2) if dt == "bfloat16" else (1e-4, 1e-3)
+    err = float((d2 - d2_ref).abs().max())
+    agree = float((a == a_ref).float().mean())
+    emit("kernel_vs_plain", kernel="kmeans_assign_batched", e=e, n=n,
+         d=d, k=k, dtype=dt, bit_equal_to_singles=bit_equal,
+         max_abs_err=err, assign_agree=agree)
+    check(bit_equal, f"kmeans_assign batched != {e} single launches at "
+          f"{(e, n, d, k, dt)}")
+    check(torch.allclose(d2, d2_ref, rtol=tol[0], atol=tol[1]),
+          f"kmeans_assign batched d2 off at {(e, n, d, k, dt)}: {err}")
+    check(dt == "bfloat16" or agree >= 0.999,
+          f"kmeans_assign batched assignments agree {agree}")
+    return err
+
+
+def kernel_batched_vs_plain() -> dict:
+    """:func:`batched_case_vs_plain` at every ``KM_BATCHED_CASES`` shape;
+    returns the largest |d2 - d2_plain| at each f32 shape (e, n, d, k)."""
     errs = {}
     for i, (e, n, d, k, dt) in enumerate(KM_BATCHED_CASES):
-        x, c = km_batched_inputs(e, n, d, k, dt, seed=50 + i)
-        a, d2 = ops.assign_with_dist_batched(x, c)
-        singles = [ops.assign_with_dist(x[j], c[j]) for j in range(e)]
-        a_ref, d2_ref = ref.assign_ref(x, c)
-        torch.cuda.synchronize()
-        bit_equal = all(torch.equal(a[j], sa) and torch.equal(d2[j], sd)
-                        for j, (sa, sd) in enumerate(singles))
-        tol = (1e-2, 1e-2) if dt == "bfloat16" else (1e-4, 1e-3)
-        err = float((d2 - d2_ref).abs().max())
-        agree = float((a == a_ref).float().mean())
-        emit("kernel_vs_plain", kernel="kmeans_assign_batched", e=e, n=n,
-             d=d, k=k, dtype=dt, bit_equal_to_singles=bit_equal,
-             max_abs_err=err, assign_agree=agree)
-        check(bit_equal, f"kmeans_assign batched != {e} single launches at "
-              f"{(e, n, d, k, dt)}")
-        check(torch.allclose(d2, d2_ref, rtol=tol[0], atol=tol[1]),
-              f"kmeans_assign batched d2 off at {(e, n, d, k, dt)}: {err}")
-        check(dt == "bfloat16" or agree >= 0.999,
-              f"kmeans_assign batched assignments agree {agree}")
+        err = batched_case_vs_plain(e, n, d, k, dt, seed=50 + i)
         if dt == "float32":
             errs[e, n, d, k] = err
     return errs
@@ -1082,6 +1112,13 @@ def event_decisions(rep):
             for r in rep.records]
 
 
+def event_records(rep) -> list:
+    """An async run's events, every field: edge, interval, charged total,
+    time, metric, utility."""
+    return [[r.edge, r.interval, r.total_consumed, r.wall_time, r.metric,
+             r.utility] for r in rep.records]
+
+
 def max_param_diff(a, b) -> float:
     return max(float((a[k].float().cpu() - b[k].float().cpu()).abs().max())
                for k in a)
@@ -1094,7 +1131,9 @@ def async_phase(fixtures) -> dict:
     from repro_torch.kernels.kmeans_assign import ops
 
     # (a) replayed draws: the card's decisions are the CPU run's, and a
-    # K-event wave's the single events'
+    # K-event wave's the single events'; the card runs' events and params
+    # are phase 11's unsharded references
+    replayed = {}
     for arch, fx in fixtures.items():
         init = params_to_numpy(fx["cuda"]["init_params"])
         reps = {}
@@ -1105,6 +1144,10 @@ def async_phase(fixtures) -> dict:
             reps[dev, bk] = sess.run_async_ingraph(draws=draws)
         gpu, cpu, wave = reps["cuda", 1], reps["cpu", 1], \
             reps["cuda", ASYNC_WAVE]
+        replayed[arch] = {"init": init, **{
+            bk: {"events": event_records(reps["cuda", bk]),
+                 "digest": tree_digest(reps["cuda", bk].final_params)}
+            for bk in (1, ASYNC_WAVE)}}
         bound = flip_bound(arch, fx["cpu"]["executor"].eval_set["y"].numpy())
         same = event_decisions(gpu) == event_decisions(cpu)
         same_wave = event_decisions(wave) == event_decisions(gpu)
@@ -1199,7 +1242,8 @@ def async_phase(fixtures) -> dict:
           launches["ssd_scan"] == 0 and launches["flash_attention"] == 0,
           f"async: unexpected kernel launches {launches}")
     return {"kmeans_assign": launches["kmeans_assign"],
-            "kmeans_assign_batched": launches["kmeans_assign_batched"]}
+            "kmeans_assign_batched": launches["kmeans_assign_batched"],
+            "replayed": replayed}
 
 
 # -- phase 4d: the compiled ablation sweep ------------------------------------
@@ -1238,6 +1282,17 @@ class FillClock:
         self.cls.fill = self.orig
 
 
+def sweep_grid(sess, mode):
+    """The mode's grid (``SWEEP_SYNC`` / ``SWEEP_ASYNC``, the async one's
+    horizon its top budget's padded event horizon)."""
+    from repro_torch.el.events import padded_event_horizon
+    from repro_torch.el.sweep import SweepSpec
+    if mode == "sync":
+        return SweepSpec(**SWEEP_SYNC)
+    top = dataclasses.replace(sess.cfg, budget=max(SWEEP_ASYNC["budget"]))
+    return SweepSpec(**SWEEP_ASYNC, max_rounds=padded_event_horizon(top))
+
+
 def sweep_session(fx, mode):
     from repro_torch.el import ELSession
     cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=4,
@@ -1254,6 +1309,24 @@ def cell_report(rep, i, horizon, mode):
     return report_from_out(out, mode=mode, policy=rep.policy,
                            horizon=horizon, final_metric=float("nan"),
                            final_params=None, elapsed_s=0.0)
+
+
+def out_digest(out: dict) -> dict:
+    """A SHA-1 of each array's dtype, shape and bytes (nested dicts
+    through)."""
+    import hashlib
+    import numpy as np
+    if isinstance(out, dict):
+        return {k: out_digest(v) for k, v in out.items()}
+    a = np.ascontiguousarray(out)
+    return hashlib.sha1(f"{a.dtype}{a.shape}".encode()
+                        + a.tobytes()).hexdigest()
+
+
+def sweep_digest(rep) -> dict:
+    """A sweep's every cell, bit for bit: its ``out`` and final params."""
+    return {"out": out_digest(rep.out),
+            "params": tree_digest(rep.final_params)}
 
 
 def max_diff(a, b) -> float:
@@ -1302,8 +1375,6 @@ def sweep_phase(fixtures) -> dict:
     import warnings
     import numpy as np
     import torch
-    from repro_torch.el.events import padded_event_horizon
-    from repro_torch.el.sweep import SweepSpec
     from repro_torch.kernels.kmeans_assign import ops
 
     warnings.filterwarnings("error", message=PERF_DROP)
@@ -1312,14 +1383,8 @@ def sweep_phase(fixtures) -> dict:
     for arch, fx in fixtures.items():
         for mode in ("sync", "async"):
             sess = sweep_session(fx["cuda"], mode)
-            if mode == "sync":
-                spec = SweepSpec(**SWEEP_SYNC)
-            else:
-                top = dataclasses.replace(
-                    sess.cfg, budget=max(SWEEP_ASYNC["budget"]))
-                spec = SweepSpec(**SWEEP_ASYNC,
-                                 max_rounds=padded_event_horizon(top))
-            sessions[arch, mode], specs[arch, mode] = sess, spec
+            sessions[arch, mode], specs[arch, mode] = sess, sweep_grid(
+                sess, mode)
 
     # (a) the main path, counts read around it: each grid twice, the
     # first run capturing its graphs, the second reusing them
@@ -1440,7 +1505,10 @@ def sweep_phase(fixtures) -> dict:
              final_metrics=[float(m) for m in rep.final_metrics()],
              card=card, **waves)
     return {"kmeans_assign": launches["kmeans_assign"],
-            "kmeans_assign_batched": launches["kmeans_assign_batched"]}
+            "kmeans_assign_batched": launches["kmeans_assign_batched"],
+            "digests": {key: dict(sweep_digest(rep),
+                                  run_s=runs[key][1]["run_s"])
+                        for key, rep in reports.items()}}
 
 
 # -- phase 4e: the scenario engine ---------------------------------------------
@@ -1926,13 +1994,13 @@ def fleet_runs(fixtures) -> dict:
     return out
 
 
-def fleet_server(fixtures, cfgs, cache):
-    """A server on the card over ``cache`` with every tenant submitted in
-    order (tenant ids ``arch/mode/i``); the subscriber's events by
-    tenant."""
+def fleet_server(fixtures, cfgs, cache, mesh=None):
+    """A server on the card over ``cache`` (and ``mesh``) with every
+    tenant submitted in order (tenant ids ``arch/mode/i``); the
+    subscriber's events by tenant."""
     from repro_torch.el.fleet import FleetServer, TenantRun
     server = FleetServer(n_slots=FLEET_SLOTS, rounds_per_wave=FLEET_WAVE,
-                         cache=cache)
+                         cache=cache, mesh=mesh)
     events = {}
     server.subscribe(lambda ev: events.setdefault(ev.tenant_id,
                                                   []).append(ev))
@@ -1951,6 +2019,16 @@ def fleet_server(fixtures, cfgs, cache):
 def _records(rep):
     import numpy as np
     return np.array([dataclasses.astuple(r) for r in rep.records])
+
+
+def fleet_digest(rep) -> dict:
+    """A tenant's report, field for field and bit for bit (what
+    ``same_fleet_report`` compares)."""
+    return {"records": out_digest(_records(rep)), "params": tree_digest(
+        rep.final_params), "summary": [rep.arm_pulls, rep.n_aggregations,
+                                       rep.total_consumed, rep.wall_time,
+                                       rep.terminated_reason,
+                                       repr(rep.final_metric)]}
 
 
 def same_fleet_report(got, want) -> bool:
@@ -2181,7 +2259,14 @@ def fleet_phase(fixtures) -> dict:
          kernels_a_wave=ct["kernels_per_chunk_round"] * FLEET_WAVE, **ct,
          card=card)
     return {"kmeans_assign": launches["kmeans_assign"],
-            "kmeans_assign_batched_cells": launches["kmeans_assign_batched"]}
+            "kmeans_assign_batched_cells": launches["kmeans_assign_batched"],
+            "kmeans_async": {
+                tid: fleet_digest(rep) for tid, rep in
+                first["reports"].items()
+                if tid.startswith("kmeans-traffic/async/")},
+            "kmeans_async_waves_s": [
+                c["waves_s"] for k, c in second["cohorts"].items()
+                if k[1] is km_ex and k[2].mode == "async"][0]}
 
 
 # -- phase 4h: the device telemetry rings and program profiles ----------------
@@ -5148,6 +5233,7 @@ def rank_main(mode: str, spec_path: str) -> None:
         out = {"classic": {arch: sharded_classic(arch, mesh, want)
                            for arch, want in spec["classic"].items()},
                "lm": lm_rounds(spec["edge_batch"], spec["seq"], mesh)}
+        out["part2"] = part2_rank(spec["part2"], mesh)     # phase 11
     else:
         mesh = make_mesh((1, 1), ("data", "model"))     # CUDA + NCCL
         arch = "svm-wafer"
@@ -5204,9 +5290,11 @@ def pick_edge_batch() -> tuple:
     fail(f"phase 10: no per-edge batch of {LM_EDGE_BATCHES} fits")
 
 
-def ranks_phase() -> dict:
-    """Phase 10 in this process: the unsharded references, the plan, the
-    gloo world of 2 and the NCCL world of 1, each check, the lines."""
+def ranks_phase(part2_refs: dict) -> dict:
+    """Phases 10 and 11 in this process: the unsharded references (phase
+    11's from phases 4c, 4d and 4f, ``part2_refs``, and the churn
+    scenario's runs made here), the plan, the gloo world of 2 (which runs
+    both phases) and the NCCL world of 1, each check, the lines."""
     import gc
     import torch
     from repro_torch.interop import params_to_numpy
@@ -5233,10 +5321,15 @@ def ranks_phase() -> dict:
         del sess, rep, fx
     edge_batch, plan = pick_edge_batch()
     one = lm_rounds(edge_batch, LM_SEQ)
+    t_base = time.perf_counter()
+    base = part2_references(part2_refs)
+    base_s = time.perf_counter() - t_base
     gc.collect()
     torch.cuda.empty_cache()
     spec = {"classic": {a: {"init": w["init"]} for a, w in want.items()},
-            "edge_batch": edge_batch, "seq": LM_SEQ}
+            "edge_batch": edge_batch, "seq": LM_SEQ,
+            "part2": {"init": {a: r["init"] for a, r in
+                               part2_refs["async"].items()}}}
     ranks = rank_world(RANKS, "gloo", spec)
     nccl = rank_world(1, "nccl", spec)[0]
     out = {"kmeans_assign_batched": 0, "ssd_scan": one["ssd_scan"]}
@@ -5311,13 +5404,378 @@ def ranks_phase() -> dict:
           same_floats(got["records"], want["svm-wafer"]["records"]) and
           got["digest"] == want["svm-wafer"]["digest"],
           f"phase 10 NCCL world of one: {got['collectives']}")
+    out["part2"] = part2_checks(ranks, part2_refs, base, card)
+    part2_s = base_s + max(res["part2"]["seconds"] for res in ranks)
+    emit("ranks_part2", card=card, seconds=part2_s,
+         unsharded_references_s=base_s,
+         rank_seconds=[res["part2"]["seconds"] for res in ranks],
+         **out["part2"],
+         unverified="NCCL across several cards: the machine has one")
     out["seconds"] = time.perf_counter() - t_phase
     out["edge_batch"] = edge_batch
     emit("ranks", card=card, seconds=out["seconds"],
+         phase_10_seconds=out["seconds"] - part2_s,
          kmeans_assign_batched=out["kmeans_assign_batched"],
          ssd_scan=out["ssd_scan"], edge_batch=edge_batch,
          unverified="NCCL across several cards: the machine has one")
     return out
+
+
+# -- phase 11: several ranks, part 2 -------------------------------------------
+
+# In phase 10's world of 2 gloo ranks on the one card, after phase 10's
+# runs: (a) phase 4c's full-width fixtures on its replayed draws through
+# ``run_async_ingraph(mesh=)`` at K = 1 and at the width the mesh resolves
+# (4), against phase 4c's unsharded card runs, then donated; (b) phase
+# 4d's grids through ``sweep(mesh=)`` against its unsharded sweeps; (c)
+# phase 4f's kmeans-traffic async cohort through ``FleetServer(mesh=)``
+# against its reports; (d) a churn scenario (the reference's mesh test's:
+# rate 0.3, period 16) sync and async on kmeans-traffic against the
+# unsharded card runs made here.  Each rank's run reads every kernel count
+# from 0 and each batched ``kmeans_assign`` launch's lane count.
+CHURN = (0.3, 16)
+GATHER_REPS = 50
+
+
+class LaunchCounts:
+    """Every kernel's launch count set to 0 on entry and read on exit,
+    and the lanes of each batched ``kmeans_assign`` launch (a captured
+    graph's at its capture)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
+        self.lanes, self._orig = [], ka_kernel.assign_fwd_batched
+
+        def counted(x, *rest):
+            self.lanes.append(int(x.shape[0]))
+            return self._orig(x, *rest)
+        ka_kernel.assign_fwd_batched = counted
+        reset_counts()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
+        torch.cuda.synchronize()
+        per_width: dict = {}
+        for w in self.lanes:
+            per_width[w] = per_width.get(w, 0) + 1
+        self.row = dict(counts(), lanes=sorted(per_width),
+                        launches_by_lanes=per_width)
+        ka_kernel.assign_fwd_batched = self._orig
+        return False
+
+
+def timed(fn):
+    """``(fn(), seconds)``, the card synchronized before the clock
+    stops."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def churn_session(fx, init, mode):
+    from repro_torch.el import ELSession
+    from repro_torch.el.scenarios import ChurnSpec, ScenarioSpec
+    cfg = dataclasses.replace(
+        fx["exp"].ol4el, mode=mode, n_edges=4, utility=fx["utility"],
+        scenario=ScenarioSpec(churn=ChurnSpec(rate=CHURN[0],
+                                              period=CHURN[1])))
+    return (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=init,
+                           n_samples=fx["n_samples"]))
+
+
+def churn_run(sess, mode, mesh=None):
+    """The scenario's run on the card's own generator (``cfg.seed +
+    17``), over ``mesh``."""
+    if mode == "sync":
+        return sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh)
+    return sess.run_async_ingraph(mesh=mesh)
+
+
+def churn_digest(rep) -> dict:
+    return {"raw": out_digest(rep.raw), "params": tree_digest(
+        rep.final_params), "rounds": rep.n_aggregations}
+
+
+def gather_ms(params, group, lanes: int) -> float:
+    """One all-gather of ``lanes`` rows of ``params`` over ``group``, ms
+    (mean of ``GATHER_REPS``, after one untimed)."""
+    import torch
+    from repro_torch.launch.mesh import gather_edge_stack
+    stack = {k: v.unsqueeze(0).expand(lanes, *v.shape).contiguous()
+             for k, v in params.items()}
+    gather_edge_stack(stack, group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GATHER_REPS):
+        gather_edge_stack(stack, group)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / GATHER_REPS * 1e3
+
+
+def part2_async(fx, init, mesh) -> dict:
+    """(a) on one rank: the run at K = 1 and at the mesh's width (the
+    counted run with the contract armed, then a rerun of the profiled
+    program), the gather alone, then the mesh-width run donated."""
+    from repro_torch.interop import params_from_numpy
+
+    def go(sess, **kw):
+        return sess.run_async_ingraph(draws=async_replay_draws(
+            sess.cfg, fx["executor"].batch, seed=5), mesh=mesh, **kw)
+    out = {}
+    for name, bk in (("one", 1), ("auto", 0)):
+        sess = async_session(fx, params_from_numpy(init, "cuda"), bk)
+        with LaunchCounts() as lc:
+            rep, secs = timed(lambda: go(sess, contract=True))
+        again, rerun_s = timed(lambda: go(sess))
+        prof = rep.telemetry["profile"]
+        out[name] = {
+            "events": event_records(rep),
+            "digest": tree_digest(rep.final_params), "run_s": secs,
+            "rerun_s": rerun_s, "rerun_same": same_floats(
+                event_records(again), event_records(rep))
+            and tree_digest(again.final_params) == tree_digest(
+                rep.final_params),
+            "collectives": prof["collectives"],
+            "collective_bytes": prof["collective_bytes"],
+            "alias_bytes": prof["alias_bytes"],
+            "device_loop": rep.telemetry["device_loop"], **lc.row,
+            "gather_ms": gather_ms(rep.final_params, mesh.edge_group(),
+                                   rep.telemetry["device_loop"]["batch_k"])}
+    donated = params_from_numpy(init, "cuda")
+    drep = go(async_session(fx, donated, 0), donate=True, contract=True)
+    out["donated"] = {
+        "same": same_floats(event_records(drep), out["auto"]["events"])
+        and tree_digest(drep.final_params) == out["auto"]["digest"],
+        "alias_bytes": drep.telemetry["profile"]["alias_bytes"],
+        "shares_storage": all(drep.final_params[k].data_ptr()
+                              == donated[k].data_ptr() for k in donated)}
+    return out
+
+
+def part2_rank(spec: dict, mesh) -> dict:
+    """Phase 11 on one rank of phase 10's gloo world."""
+    from repro_torch.el.fleet import ReportReady, RoundDelta
+    from repro_torch.launch.classic import classic_fixture
+    t_part = time.perf_counter()
+    fixtures = {arch: {"cuda": classic_fixture(arch, samples=20000,
+                                               n_edges=4, device="cuda")}
+                for arch in ("kmeans-traffic", "svm-wafer")}
+    out = {"async": {arch: part2_async(fixtures[arch]["cuda"], init, mesh)
+                     for arch, init in spec["init"].items()},
+           "sweep": {}, "scenario": {}}
+    # (b) phase 4d's grids: the counted run captures each sub-grid's graph,
+    # the rerun replays it
+    for arch in fixtures:
+        for mode in ("sync", "async"):
+            sess = sweep_session(fixtures[arch]["cuda"], mode)
+            grid = sweep_grid(sess, mode)
+            with LaunchCounts() as lc:
+                rep, secs = timed(lambda: sess.sweep(grid, mesh=mesh))
+            again, rerun_s = timed(lambda: sess.sweep(grid, mesh=mesh))
+            out["sweep"][arch, mode] = {
+                "digest": sweep_digest(rep), "rerun_same":
+                sweep_digest(again) == sweep_digest(rep), "run_s": secs,
+                "rerun_s": rerun_s, "cells": rep.n_cells,
+                "loops": rep.telemetry["device_loops"], **lc.row}
+    # (c) phase 4f's kmeans async cohort, 2 of its 4 slots a rank
+    cfgs = {("kmeans-traffic", "async"):
+            fleet_runs(fixtures)["kmeans-traffic", "async"]}
+    from repro_torch.el.cache import ProgramCache
+    server, events = fleet_server(fixtures, cfgs, ProgramCache(2), mesh)
+    with LaunchCounts() as lc:
+        reports, secs = timed(server.drain)
+    cohort = server.cohorts()[0]
+    out["fleet"] = {
+        "reports": {tid: fleet_digest(r) for tid, r in reports.items()},
+        "stream_ok": all(
+            isinstance(evs[-1], ReportReady)
+            and all(isinstance(e, RoundDelta) for e in evs[:-1])
+            and same_floats([dataclasses.astuple(e.record)
+                             for e in evs[:-1]], _records(reports[tid]))
+            for tid, evs in events.items()),
+        "stats": server.stats(), "run_s": secs,
+        "slots": ([0, cohort.batch.n_slots] if cohort.batch.shard is None
+                  else [cohort.batch.shard.lo, cohort.batch.shard.hi]),
+        "graphs_captured": cohort.batch.program.graphs_captured, **lc.row}
+    server.close()
+    # (d) the churn scenario, sync and async
+    fx = fixtures["kmeans-traffic"]["cuda"]
+    for mode in ("sync", "async"):
+        sess = churn_session(fx, fx["init_params"], mode)
+        with LaunchCounts() as lc:
+            rep, secs = timed(lambda: churn_run(sess, mode, mesh))
+        again, rerun_s = timed(lambda: churn_run(sess, mode, mesh))
+        out["scenario"][mode] = {
+            "digest": churn_digest(rep), "rerun_same":
+            churn_digest(again) == churn_digest(rep), "run_s": secs,
+            "rerun_s": rerun_s, "device_loop": rep.telemetry["device_loop"],
+            **lc.row}
+    out["seconds"] = time.perf_counter() - t_part
+    return out
+
+
+def part2_references(refs: dict) -> dict:
+    """Phase 11's unsharded side on the card: phase 4c's replayed runs
+    again (their seconds, the graph reused; their events checked against
+    4c's), and the churn scenario's runs (digests and seconds)."""
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.classic import classic_fixture
+    out = {"async_s": {}, "scenario": {}}
+    for arch, want in refs["async"].items():
+        fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
+        for bk in (1, ASYNC_WAVE):
+            sess = async_session(fx, params_from_numpy(want["init"], "cuda"),
+                                 bk)
+
+            def go():
+                return sess.run_async_ingraph(draws=async_replay_draws(
+                    sess.cfg, fx["executor"].batch, seed=5))
+            go()                                # capture
+            rep, secs = timed(go)
+            check(same_floats(event_records(rep), want[bk]["events"])
+                  and tree_digest(rep.final_params) == want[bk]["digest"],
+                  f"phase 11 {arch} batch_k={bk}: the unsharded rerun is "
+                  "not phase 4c's run")
+            out["async_s"][arch, bk] = secs
+        if arch == "kmeans-traffic":
+            for mode in ("sync", "async"):
+                sess = churn_session(fx, fx["init_params"], mode)
+                first = churn_run(sess, mode)
+                rep, secs = timed(lambda: churn_run(sess, mode))
+                check(churn_digest(rep) == churn_digest(first),
+                      f"phase 11 churn {mode}: the unsharded rerun differs")
+                out["scenario"][mode] = dict(churn_digest(rep), run_s=secs)
+        del fx
+    return out
+
+
+def part2_checks(ranks: list, refs: dict, base: dict, card: str) -> dict:
+    """Phase 11's checks and lines over every rank's results; returns the
+    single ``kmeans_assign`` launches of the ranks' runs and the batched
+    ones in two parts: the eager runs' (the async engine's and the churn
+    scenario's sharded chunks, every launch seen, so counted by lane
+    count) and the graph runs' (a rank's sweep cells and cohort slots,
+    the cells row's; their lane counts as captured)."""
+    n = {"kmeans_assign_batched": 0, "kmeans_assign": 0,
+         "launches_by_lanes": {}, "kmeans_assign_batched_cells": 0,
+         "cells_lanes": []}
+
+    def tally(row, where, graphs=False):
+        check(row["ssd_scan"] == 0 and row["flash_attention"] == 0,
+              f"phase 11 {where}: unexpected kernel launches {row}")
+        n["kmeans_assign"] += row["kmeans_assign"]
+        if graphs:
+            n["kmeans_assign_batched_cells"] += row["kmeans_assign_batched"]
+            n["cells_lanes"] = sorted(set(n["cells_lanes"])
+                                      | set(row["lanes"]))
+            return
+        check(sum(row["launches_by_lanes"].values())
+              == row["kmeans_assign_batched"],
+              f"phase 11 {where}: batched launches {row} not all seen")
+        n["kmeans_assign_batched"] += row["kmeans_assign_batched"]
+        by = n["launches_by_lanes"]
+        for w, c in row["launches_by_lanes"].items():
+            by[w] = by.get(w, 0) + c
+
+    for r, res in enumerate(ranks):
+        p2 = res["part2"]
+        for arch, runs in p2["async"].items():
+            want = refs["async"][arch]
+            for name, got in ((n_, runs[n_]) for n_ in ("one", "auto")):
+                bk = got["device_loop"]["batch_k"]
+                ag = got["collectives"].get("all-gather", {})
+                edge_bytes = sum(v.nbytes for v in want["init"].values())
+                emit("ranks_sharded_async", arch=arch, rank=r, width=name,
+                     batch_k=bk, card=card, run_s=got["run_s"],
+                     rerun_s=got["rerun_s"],
+                     unsharded_run_s=base["async_s"][arch, bk],
+                     gather_ms=got["gather_ms"],
+                     events=len(got["events"]),
+                     kmeans_assign_batched=got["kmeans_assign_batched"],
+                     lanes=got["lanes"], collectives=got["collectives"],
+                     gathered_bytes_per_step=ag.get("bytes", 0) / 16,
+                     predicted_bytes_per_step=bk * edge_bytes,
+                     device_loop=got["device_loop"])
+                check(bk == (1 if name == "one" else ASYNC_WAVE),
+                      f"phase 11 {arch} rank {r}: K {bk} for {name}")
+                check(same_floats(got["events"], want[1]["events"]),
+                      f"phase 11 {arch} rank {r} K={bk}: the events are not "
+                      "phase 4c's unsharded K = 1 card run's")
+                check(got["digest"] == want[bk]["digest"],
+                      f"phase 11 {arch} rank {r} K={bk}: the final params "
+                      f"are not phase 4c's unsharded K = {bk} card run's")
+                check(got["rerun_same"], f"phase 11 {arch} rank {r}: a "
+                      "rerun differs")
+                check(got["device_loop"]["graphs_captured"] == 0,
+                      f"phase 11 {arch} rank {r}: a sharded chunk was "
+                      "captured")
+                check(ag.get("count", 0) == 16 and "all-reduce" not in
+                      got["collectives"] and ag["bytes"] == 16 * bk
+                      * edge_bytes,
+                      f"phase 11 {arch} rank {r}: census "
+                      f"{got['collectives']}")
+                if arch == "kmeans-traffic":
+                    check(got["kmeans_assign_batched"] > 0
+                          and got["lanes"] == [bk],
+                          f"phase 11 kmeans rank {r}: launches "
+                          f"{got['kmeans_assign_batched']}, lanes "
+                          f"{got['lanes']}")
+                tally(got, f"{arch} {name}")
+            d = runs["donated"]
+            check(d["same"] and d["shares_storage"] and d["alias_bytes"]
+                  == sum(v.nbytes for v in want["init"].values())
+                  and runs["auto"]["alias_bytes"] == 0,
+                  f"phase 11 {arch} rank {r}: the donated run {d}")
+        for (arch, mode), got in p2["sweep"].items():
+            want = refs["sweep"][arch, mode]
+            emit("ranks_sharded_sweep", arch=arch, mode=mode, rank=r,
+                 card=card, cells=got["cells"], run_s=got["run_s"],
+                 rerun_s=got["rerun_s"], unsharded_run_s=want["run_s"],
+                 loops=got["loops"],
+                 kmeans_assign_batched=got["kmeans_assign_batched"],
+                 lanes=got["lanes"])
+            check(got["digest"] == {k: want[k] for k in ("out", "params")}
+                  and got["rerun_same"],
+                  f"phase 11 sweep {arch} {mode} rank {r}: the cells are "
+                  "not phase 4d's")
+            check([lp["n_cells"] for lp in got["loops"]] == (
+                [SWEEP_CELLS // 2] if mode == "sync" else [4, 4]),
+                f"phase 11 sweep {arch} {mode} rank {r}: cells a rank "
+                f"{got['loops']}")
+            tally(got, f"sweep {arch} {mode}", graphs=True)
+        got = p2["fleet"]
+        emit("ranks_sharded_fleet", arch="kmeans-traffic", mode="async",
+             rank=r, card=card, slots=got["slots"], drain_s=got["run_s"],
+             unsharded_cohort_waves_s=refs["fleet_waves_s"],
+             stats=got["stats"], graphs_captured=got["graphs_captured"],
+             kmeans_assign_batched=got["kmeans_assign_batched"],
+             lanes=got["lanes"])
+        check(got["reports"] == refs["fleet"] and got["stream_ok"],
+              f"phase 11 fleet rank {r}: the reports are not phase 4f's")
+        check(got["slots"] == [2 * r, 2 * r + 2] and
+              got["stats"]["tenants_done"] == FLEET_TENANTS,
+              f"phase 11 fleet rank {r}: slots {got['slots']}")
+        tally(got, "fleet", graphs=True)
+        for mode, got in p2["scenario"].items():
+            want = base["scenario"][mode]
+            emit("ranks_sharded_scenario", arch="kmeans-traffic", mode=mode,
+                 churn=CHURN, rank=r, card=card, run_s=got["run_s"],
+                 rerun_s=got["rerun_s"], unsharded_run_s=want["run_s"],
+                 rounds=got["digest"]["rounds"],
+                 device_loop=got["device_loop"],
+                 kmeans_assign_batched=got["kmeans_assign_batched"],
+                 lanes=got["lanes"])
+            check(got["digest"] == {k: want[k] for k in
+                                    ("raw", "params", "rounds")}
+                  and got["rerun_same"],
+                  f"phase 11 churn {mode} rank {r}: not the unsharded run")
+            tally(got, f"churn {mode}")
+    return n
 
 
 # -- phase 8: times and bounds ------------------------------------------------
@@ -5639,7 +6097,11 @@ def main() -> None:
     planner_phase(moe_served, deepseek_served, minicpm, jamba_served,
                   hybrid_trained)
     examples_phase()
-    ranks = ranks_phase()
+    ranks = ranks_phase({"async": events["replayed"],
+                         "sweep": sweep["digests"],
+                         "fleet": fleet["kmeans_async"],
+                         "fleet_waves_s": fleet["kmeans_async_waves_s"]})
+    launches["kmeans_assign"] += ranks["part2"]["kmeans_assign"]
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
@@ -5648,6 +6110,27 @@ def main() -> None:
     emit("kmeans_batched_timing", **kmb)
     kms = kmeans_batched_timing(*KM_BATCHED_SHARDED)
     emit("kmeans_batched_timing", case="phase 10: a rank's share", **kms)
+    # phase 11's batched launches at each lane count they ran at (the
+    # eager runs': a rank's event lane, async wave, churn round share; the
+    # graph runs': a rank's cohort slots and sweep cells), each shape
+    # timed and held against the plain version
+    p2 = ranks["part2"]
+
+    def lane_timing(w, **kw):
+        shape = (w,) + KM_BATCHED_MAIN[1:]
+        if shape not in kmb_errs:
+            kmb_errs[shape] = batched_case_vs_plain(*shape, "float32",
+                                                    seed=70 + w)
+        t = dict(kmeans_batched_timing(*shape), **kw,
+                 max_abs_err=kmb_errs[shape])
+        emit("kmeans_batched_timing", case=f"phase 11: {w} lanes a launch",
+             **t)
+        return t
+    p2_shapes = [lane_timing(w, launches=c) for w, c in
+                 sorted(p2["launches_by_lanes"].items())]
+    kmp2 = max(p2_shapes, key=lambda t: t["launches"])
+    p2_cell_shapes = [lane_timing(w, path="a rank's sweep cells or cohort "
+                                  "slots") for w in p2["cells_lanes"]]
     kmc = kmeans_cells_timing(SWEEP_CELLS, *KM_BATCHED_MAIN)
     emit("kmeans_cells_timing", **kmc)
     kmf = kmeans_cells_timing(FLEET_SLOTS, *KM_BATCHED_MAIN)  # the fleet's
@@ -5748,22 +6231,47 @@ def main() -> None:
         "bound_by": kms["bound_by"], "library_ms": kms["library_ms"],
         "library": "torch.cdist(x, c).min(-1) on [E, N, D] x [E, K, D]",
         "launch_floor_ms": launch_floor_ms, "shapes": [kms]}, {
+        "name": "kmeans_assign_batched_sharded_async", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
+                    "jax.vmap over a wave's lanes, src/repro/el/events/"
+                    "program.py:363-373, sharded by :79-88)",
+        "path": "phase 11 on 2 gloo ranks, eager chunks: "
+                "run_async_ingraph(mesh=) (every rank's wave of 4 lanes, the "
+                "2 it owns live, or one event's lane) and the churn "
+                "scenario's sync round and event body; the headline numbers "
+                "are those of the lane count with the most launches, and "
+                "every lane count run is timed and counted under shapes",
+        "launches": ranks["part2"]["kmeans_assign_batched"],
+        "max_abs_err": max(t["max_abs_err"] for t in p2_shapes),
+        "ms": kmp2["ms"], "kernel_ms": kmp2["ms"],
+        "call_ms": kmp2["call_ms"], "plain_ms": kmp2["plain_ms"],
+        "bound_ms": kmp2["bound_ms"], "bound_by": kmp2["bound_by"],
+        "library_ms": kmp2["library_ms"],
+        "library": "torch.cdist(x, c).min(-1) on [E, N, D] x [E, K, D]",
+        "launch_floor_ms": launch_floor_ms, "shapes": p2_shapes}, {
         "name": "kmeans_assign_batched_cells", "route": "cuda",
         "source": "src/repro_torch/csrc/kmeans_assign.cu",
         "replaces": "src/repro/kernels/kmeans_assign/kernel.py:20 (under "
                     "jax.vmap over edges, src/repro/el/ingraph.py:526, and "
                     "over cells, src/repro/el/sweep/engine.py:190, and so "
                     "over a fleet cohort's slots)",
+        "path": "phases 4d-4h's grids and cohorts, and phase 11's sweep "
+                "cells and cohort slots over 2 gloo ranks (each rank's "
+                "lane counts timed under shapes)",
         "launches": sweep["kmeans_assign_batched"]
         + scenarios["kmeans_assign_batched_cells"]
         + fleet["kmeans_assign_batched_cells"]
-        + telemetry["kmeans_assign_batched_cells"],
-        "max_abs_err": kmc_err, "ms": kmc["ms"], "kernel_ms": kmc["ms"],
+        + telemetry["kmeans_assign_batched_cells"]
+        + p2["kmeans_assign_batched_cells"],
+        "max_abs_err": max([kmc_err] + [t["max_abs_err"]
+                                        for t in p2_cell_shapes]), "ms": kmc["ms"], "kernel_ms": kmc["ms"],
         "call_ms": kmc["call_ms"], "vmap_call_ms": kmc["vmap_call_ms"],
         "plain_ms": kmc["plain_ms"], "bound_ms": kmc["bound_ms"],
         "bound_by": kmc["bound_by"], "library_ms": kmc["library_ms"],
         "library": "torch.cdist(x, c).min(-1) on [C*E, N, D] x [C*E, K, D]",
-        "launch_floor_ms": launch_floor_ms, "shapes": [kmc, kmf]}, {
+        "launch_floor_ms": launch_floor_ms,
+        "shapes": [kmc, kmf] + p2_cell_shapes}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

@@ -164,8 +164,8 @@ def run_el_sweep(workload: str, spec, heterogeneity: float = 6.0,
     ``SweepReport``.  ``scenario=`` (a
     ``repro_torch.el.scenarios.ScenarioSpec``) runs the fleet-dynamics
     path, enabling the ``policy`` / ``churn_rate`` sweep axes.  ``mesh=``
-    raises ``NotImplementedError`` (ROADMAP Queue 1 item 14).  The
-    session is closed when its report is taken."""
+    runs the grid over the mesh's ranks (``ELSession.sweep(mesh=)``).
+    The session is closed when its report is taken."""
     session = make_el_session(
         workload, "ol4el", "sync", heterogeneity, n_edges=n_edges,
         budget=budget, seed=seed, n_data=n_data, alpha=alpha, lr=lr,

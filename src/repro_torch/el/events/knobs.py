@@ -93,13 +93,22 @@ def bucket_event_horizon(cap: int) -> int:
     return max(64, 1 << (max(int(cap), 1) - 1).bit_length())
 
 
-def resolve_async_batch_k(cfg: OL4ELConfig) -> int:
-    """The engine's K-event wave width.  ``cfg.async_batch_k > 0`` pins it,
-    clamped to ``n_edges`` (a wave pops distinct edges); ``0`` resolves
-    to 1, as the reference resolves it without a mesh (sharded runs are
-    ROADMAP Queue 1 item 14) and under a scenario (whose body is the
-    single-event one; ``make_async_cell`` refuses a pinned K > 1 with a
-    scenario)."""
+def resolve_async_batch_k(cfg: OL4ELConfig, mesh=None) -> int:
+    """The engine's K-event wave width for this (config, mesh), the
+    reference's rule.  ``cfg.async_batch_k > 0`` pins it, clamped to
+    ``n_edges`` (a wave pops distinct edges).  ``0`` resolves to 1 under
+    a scenario (whose body is the single-event one; ``make_async_cell``
+    refuses a pinned K > 1 with a scenario) and without a mesh of more
+    than one device, and to ``min(4, n_edges)`` on one: a sharded run
+    pays a gather a step, which a wave of up to 4 events amortizes while
+    the safe-gap criterion keeps the event order exact.  The devices are
+    counted as the reference counts them (``mesh.devices.size``), even
+    where the edge dim replicates."""
     if cfg.async_batch_k > 0:
         return max(1, min(int(cfg.async_batch_k), cfg.n_edges))
-    return 1
+    if cfg.scenario is not None:
+        return 1
+    n_dev = 1 if mesh is None else int(np.asarray(mesh.devices).size)
+    if n_dev <= 1:
+        return 1
+    return max(1, min(4, cfg.n_edges))

@@ -52,8 +52,24 @@ draws as the scenario-less one.
 records its edge, arm, charge, the edge's residual budget, the merge's
 alpha and staleness, the inter-arrival time and the edge's bandit
 statistics at slot ``t % ring_size``; a wave writes its accepted lanes'
-rows.  Off, the carry is the ungated one.  Sharded runs (ROADMAP Queue 1
-item 14) are not ported.
+rows.  Off, the carry is the ungated one.
+
+**Over ranks** (``mesh=``, a ``repro_torch.launch.mesh.Mesh``): the
+per-edge datasets and the ``[E, ...]`` fetched-params stack split over
+the mesh's edge axes (``repro_torch.launch.mesh.edge_shard``: tiled, or
+replicated when the edge count does not tile them); everything else (the
+bandits, budgets, finish times, the event order, the draws, the global
+params, termination) is control plane, computed by every rank from the
+same inputs.  A step's data plane runs on the owners: every rank runs
+the same fixed-width block (one lane for a single event, ``batch_k`` for
+a wave), a lane whose edge it does not own masked (interval 0, its row
+index clamped into the rank's rows); one all-gather of the ``[L, ...]``
+results follows (``gather_edge_stack``), and lane l takes the owner's
+row.  Only the owner writes an event's new global model into its row of
+the stack.  Nothing is summed across ranks, and a lane's result does not
+depend on the lanes beside it, so a sharded run is bit-identical on
+every rank to the unsharded one.  Its chunks run eagerly
+(``ELCell.sharded``).
 """
 
 from __future__ import annotations
@@ -85,12 +101,13 @@ Knobs = Dict[str, torch.Tensor]
 def _build_parts(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                  lr: float, batch: int, metric_fn: Optional[Callable],
                  metric_name: str, device: torch.device,
-                 drift: bool = False):
+                 drift: bool = False, rows: slice = slice(None)):
     """The data-plane pieces both async paths share: the lane-indexed
     local block (the sync round's minibatch streams; ``drift=`` the
-    scenario path's drift-aware one) and ``eval_step``, the one closure
-    that yields (metric, utility)."""
-    xs, ys, n_per_edge = _pad_edge_data(edge_data, device)
+    scenario path's drift-aware one) over the datasets of the edges
+    ``rows`` (a rank's shard; its lanes index them) and ``eval_step``, the
+    one closure that yields (metric, utility)."""
+    xs, ys, n_per_edge = _pad_edge_data(edge_data, device, rows)
     local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr,
                                    cfg.max_interval, drift=drift)
     if metric_fn is None:
@@ -142,22 +159,21 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                     device: DeviceLike = None) -> ELCell:
     """The budgeted async event loop as an :class:`ELCell` on ``device``
     (default: the model's).  ``batch_k`` is the K-event wave width
-    (``None``: ``resolve_async_batch_k(cfg)``); 1 builds the single-event
-    body.  With ``cfg.scenario`` set the body is the single-event
+    (``None``: ``resolve_async_batch_k(cfg, mesh)``); 1 builds the
+    single-event body.  With ``cfg.scenario`` set the body is the single-event
     scenario body (``batch_k`` > 1 raises) and the history gains
     ``active_edges``.  ``n_samples`` is ignored: the async global update
     is the staleness mix, not a weighted average.  ``telemetry=`` gates
     the rings (see ``make_sync_cell``); a wave wider than the ring
-    raises."""
+    raises.  ``mesh=``: the run over the mesh's ranks (see the module's
+    docstring); the cell's ``sharded`` flag says whether it gathers (it
+    does not when the edge dim replicates)."""
+    from repro_torch.launch.mesh import edge_shard
     from repro_torch.obs.rings import (as_spec, async_ring_init,
                                        async_ring_record,
                                        async_ring_record_wave,
                                        finalize_telemetry)
     del n_samples
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_async_cell(mesh=...): sharded runs arrive with ROADMAP "
-            "Queue 1 item 14")
     spec = as_spec(telemetry)
     check_ingraph_support(cfg, caller="make_async_program")
     dev = resolve_device(device if device is not None
@@ -172,7 +188,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         raise ValueError(f"cfg.n_edges = {n_edges} but the executor has "
                          f"{len(edge_data)} edge datasets")
     if batch_k is None:
-        batch_k = resolve_async_batch_k(cfg)
+        batch_k = resolve_async_batch_k(cfg, mesh)
     batch_k = max(1, min(int(batch_k), n_edges))
     if scn is not None and batch_k > 1:
         raise ValueError(
@@ -186,13 +202,19 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             f"{spec.ring_size}: a wave's per-event ring writes would "
             "collide within one scatter — raise telemetry= or lower "
             "the batch width")
+    shard = edge_shard(mesh, n_edges)
+    n_local = n_edges if shard is None else shard.n_local
+    my_rows = slice(None) if shard is None else shard.rows
     local_block, metric_fn, eval_step = _build_parts(
         model, edge_data, eval_set, cfg, lr=lr, batch=batch,
         metric_fn=metric_fn, metric_name=metric_name, device=dev,
-        drift=scn is not None)
+        drift=scn is not None,
+        rows=my_rows)
 
     pos = torch.arange(max_events, device=dev)
     edge_ids = torch.arange(n_edges, device=dev)
+    # the edges of this rank's rows of the fetched-params stack
+    local_ids = edge_ids[my_rows]
     lane_ids = torch.arange(batch_k, device=dev)
     always = torch.ones((), dtype=torch.bool, device=dev)
     n_edges_f = torch.tensor(float(max(n_edges, 1)), device=dev)
@@ -202,7 +224,34 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         return torch.where(hit.reshape((-1,) + (1,) * (old.dim() - 1)),
                            new, old)
 
-    def init(init_params: Params, knobs: Knobs, draws) -> Carry:
+    def owned(lanes: torch.Tensor, interval: torch.Tensor):
+        """(rows, interval): each lane's row in this rank's stack and
+        datasets, and its interval, 0 (masked) where the rank does not own
+        the lane's edge, whose row index is then clamped into the rank's
+        rows."""
+        if shard is None:
+            return lanes, interval
+        rows, mine = shard.local_rows(lanes)
+        return rows, torch.where(mine, interval, 0)
+
+    def block(edge_params: Params, lanes: torch.Tensor,
+              interval: torch.Tensor, uniform: torch.Tensor,
+              shift: Optional[torch.Tensor] = None) -> Params:
+        """The lanes' local blocks, each from the params its edge fetched,
+        run by the edges' owners."""
+        rows, interval = owned(lanes, interval)
+        kw = {} if shift is None else {"shift": shift}
+        p_lanes = local_block(
+            tree_map(lambda a: a[rows], edge_params), interval, uniform,
+            rows, **kw)
+        # one gather of every rank's lanes, each lane's from its owner
+        return p_lanes if shard is None else shard.from_owners(p_lanes,
+                                                               lanes)
+
+    def init(init_params: Params, knobs: Knobs, draws, *,
+             copy: bool = True) -> Carry:
+        """The initial carry; ``copy=False`` (a donated run) takes
+        ``init_params``' tensors as the global model's own."""
         fleet = bandit_fleet_init(n_edges, k, dev)
         zero = torch.zeros((), device=dev)
         # every edge selects its first block, in edge order (the host
@@ -214,7 +263,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             knobs["comp"][e], knobs["comm"][e], zero,
             draws["init_gumbel"][e], draws["init_normal"][e])
             for e in range(n_edges)]
-        gparams = tree_map(lambda p: p.to(dev, copy=True), init_params)
+        gparams = tree_map(lambda p: p.to(dev, copy=copy), init_params)
         prev_metric = (metric_fn(gparams).reshape(()).float()
                        if metric_fn is not None
                        else torch.full((), float("nan"), device=dev))
@@ -234,7 +283,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                                                device=dev)
         carry = {"gparams": gparams,
                  "edge_params": tree_map(lambda p: p.unsqueeze(0).repeat(
-                     (n_edges,) + (1,) * p.dim()), gparams),
+                     (n_local,) + (1,) * p.dim()), gparams),
                  "fleet": fleet,
                  "consumed": torch.zeros(n_edges, device=dev),
                  "finish": torch.stack([s[3] for s in sched]),
@@ -305,12 +354,14 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         edge's fetched model and next block, and the history row."""
         new_global, _, consumed, _, _, metric = state
         hit = (edge_ids == e) & ok
+        mine = (local_ids == e) & ok
         nxt_i, nxt_c, fin = nxt
         at = (pos == t) & ok
         hist = carry["hist"]
         return dict(
             carry,
-            edge_params=tree_map(lambda a, g: on_edge(hit, g.unsqueeze(0), a),
+            edge_params=tree_map(lambda a, g: on_edge(mine, g.unsqueeze(0),
+                                                      a),
                                  carry["edge_params"], new_global),
             finish=torch.where(hit, fin, carry["finish"]),
             infl_i=torch.where(hit, nxt_i, carry["infl_i"]),
@@ -348,9 +399,8 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         interval, cost = _at(carry["infl_i"], e), _at(carry["infl_c"], e)
         at = item(draws, t - draws["t_base"])
         lanes = e.reshape(1)
-        p_new = local_block(tree_map(lambda a: a[lanes], carry["edge_params"]),
-                            interval.reshape(1),
-                            draws["uniform"][at.reshape(1), lanes], lanes)
+        p_new = block(carry["edge_params"], lanes, interval.reshape(1),
+                      draws["uniform"][at.reshape(1), lanes])
         state, utility, nxt, sig = event(
             state_of(carry), knobs, e, wall, interval, cost,
             tree_map(lambda a: a[0], p_new), _at(draws["gumbel"], at, e),
@@ -383,10 +433,9 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         # the data plane: one batched block over the lanes, each from the
         # params its edge fetched before this wave (lanes are distinct
         # edges); lanes past the prefix run masked
-        p_new = local_block(tree_map(lambda a: a[e_sorted],
-                                     carry["edge_params"]),
-                            torch.where(valid, interval_l, 0),
-                            draws["uniform"][at, e_sorted], e_sorted)
+        p_new = block(carry["edge_params"], e_sorted,
+                      torch.where(valid, interval_l, 0),
+                      draws["uniform"][at, e_sorted])
         gumbel, normal = draws["gumbel"][at, e_sorted], \
             draws["normal"][at, e_sorted]
         # the control plane: the merge chain is sequential (lane j + 1
@@ -442,11 +491,10 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         lanes = e.reshape(1)
         # a dropped edge runs its steps masked (interval 0); the drift
         # phase rotates the sampling window
-        p_new = local_block(
-            tree_map(lambda a: a[lanes], carry["edge_params"]),
-            torch.where(is_act, interval, 0).reshape(1),
-            draws["uniform"][at.reshape(1), lanes], lanes,
-            shift=knobs["scn_drift"] * t.float())
+        p_new = block(carry["edge_params"], lanes,
+                      torch.where(is_act, interval, 0).reshape(1),
+                      draws["uniform"][at.reshape(1), lanes],
+                      shift=knobs["scn_drift"] * t.float())
         gparams, version = carry["gparams"], carry["version"]
         # charge at completion, live edges only: probes are free
         consumed = torch.where(hit, carry["consumed"]
@@ -468,8 +516,10 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
             bandit_slice(carry["fleet"], e),
             torch.where(is_act, interval - 1, -1), utility, cost)
         fleet = bandit_place(carry["fleet"], e, bstate_e)
-        # only a live edge refetches the global model
-        edge_params = tree_map(lambda a, g: on_edge(live, g.unsqueeze(0), a),
+        # only a live edge refetches the global model (into its owner's
+        # row)
+        mine = (local_ids == e) & is_act
+        edge_params = tree_map(lambda a, g: on_edge(mine, g.unsqueeze(0), a),
                                carry["edge_params"], new_global)
         fetch_ver = torch.where(live, version, carry["fetch_ver"])
         # straggler spikes scale the NEXT block's cost surface at
@@ -551,7 +601,8 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                   draw_shapes=draw_shapes, device=dev,
                   init_draw_shapes={"init_gumbel": (n_edges, k),
                                     "init_normal": (n_edges,)},
-                  items_per_step=batch_k)
+                  items_per_step=batch_k, sharded=shard is not None,
+                  params_key="gparams")
 
 
 class AsyncProgram(ChunkRunner):

@@ -16,6 +16,12 @@ cost a copy of the whole carry a wave), so a cohort serving thousands of
 tenants recycles one set of device buffers.  A ``CellBatch`` holds that
 state, so it serves one live cohort at a time (:meth:`Cohort._claim`).
 
+Over ranks (a ``CellBatch`` with a slot shard) every rank runs the same
+cohort: admission, the knob rows and every decision here are host-side
+and replicated, the batch places and steps the slots this rank owns, and
+what is read across slots comes back all-gathered, so every rank emits
+the same events and reports.
+
 With ``profile=True`` the first wave profiles the batch's wave program
 (``repro_torch.obs.prof.profile_jit``, the stacked carry ``donated``: the
 graph updates it in place) once per cohort, stores the profile on the
@@ -59,16 +65,18 @@ class _Active:
         self.t0 = time.perf_counter()
 
 
-def _hist_rows(hist: Dict[str, torch.Tensor], lo: int, hi: int
-               ) -> Dict[str, np.ndarray]:
+def _hist_rows(batch: CellBatch, hist: Dict[str, torch.Tensor], lo: int,
+               hi: int) -> Dict[str, np.ndarray]:
     """Rows ``[lo, hi)`` of every slot's record history on the host, in
-    one device-to-host copy: the entries (all 4-byte f32 / int32) are
-    packed as int32 bits and viewed back as their own dtypes."""
+    one device-to-host copy (over ranks, after one all-gather of every
+    rank's slots): the entries (all 4-byte f32 / int32) are packed as
+    int32 bits and viewed back as their own dtypes."""
     keys = [k for k in _RECORD_KEYS if k in hist]
-    packed = torch.stack([hist[k][:, lo:hi].view(torch.int32)
-                          for k in keys]).cpu().numpy()
-    return {k: packed[i].view(np.float32 if hist[k].is_floating_point()
-                              else np.int32)
+    packed = batch.gather_slots(torch.stack(
+        [hist[k][:, lo:hi].view(torch.int32) for k in keys], 1))
+    packed = packed.cpu().numpy()
+    return {k: packed[:, i].view(np.float32 if hist[k].is_floating_point()
+                                 else np.int32)
             for i, k in enumerate(keys)}
 
 
@@ -233,7 +241,7 @@ class Cohort:
                if slot is not None and t_host[s] > len(slot.records)]
         if new:
             lo, hi = min(n[1] for n in new), max(n[2] for n in new)
-            rows = _hist_rows(self._stacked["hist"], lo, hi)
+            rows = _hist_rows(self.batch, self._stacked["hist"], lo, hi)
             for s, a, b in new:
                 slot = self._slots[s]
                 fresh = records_from_out({k: v[s] for k, v in rows.items()},

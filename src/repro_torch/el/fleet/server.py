@@ -31,7 +31,7 @@ from repro_torch.el.executor import validate_executor
 from repro_torch.el.fleet.cohort import Cohort
 from repro_torch.el.fleet.tenant import TenantRun
 from repro_torch.el.report import ELReport
-from repro_torch.el.session import DEFAULT_SYNC_HORIZON, _MESH_ITEM
+from repro_torch.el.session import DEFAULT_SYNC_HORIZON
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -67,7 +67,16 @@ class FleetServer:
     and every tenant report from that cohort carries it as
     ``report.telemetry["profile"]``.
 
-    ``mesh=`` (ROADMAP Queue 1 item 14) raises ``NotImplementedError``.
+    ``mesh=`` (a ``repro_torch.launch.mesh.Mesh``) serves every cohort
+    over the mesh's ranks, every rank driving the same server with the
+    same submissions: a cohort's slot dim splits over the edge axes
+    (``make_cell_batch(mesh=)``; replicated, with a warning, when it does
+    not tile them), admission stays host-side and replicated, a slot's
+    owner places and steps its tenant, and each wave's running flags and
+    history rows, and a finalize's rows, are all-gathered, so every rank
+    streams the same events, delivers the same reports and counts the
+    same ``stats()`` as the unsharded server.  The mesh joins the cohort
+    and program-cache keys.
     """
 
     def __init__(self, *, n_slots: int = 4, rounds_per_wave: int = 32,
@@ -76,12 +85,9 @@ class FleetServer:
                  profile: bool = False, device: DeviceLike = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetServer(mesh=...): sharded cohorts arrive with "
-                f"{_MESH_ITEM}")
         from repro_torch.obs.rings import as_spec
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.telemetry = as_spec(telemetry)
         self.profile = bool(profile or os.environ.get("REPRO_EL_PROFILE"))
         self.n_slots = int(n_slots)
@@ -117,7 +123,7 @@ class FleetServer:
         return ("fleet", run.executor,
                 ELSession._structural_cfg(run.cfg), run.metric_fn,
                 run.metric_name, n_samples, horizon, self.n_slots,
-                self.rounds_per_wave, self.telemetry)
+                self.rounds_per_wave, self.mesh, self.telemetry)
 
     def _horizon(self, run: TenantRun) -> int:
         if run.cfg.mode == "async":
@@ -199,8 +205,8 @@ class FleetServer:
                     lr=ex.lr, batch=ex.batch,
                     n_samples=self._n_samples_of(run),
                     metric_fn=run.metric_fn, metric_name=run.metric_name,
-                    horizon=horizon, telemetry=self.telemetry,
-                    device=self.device)
+                    horizon=horizon, mesh=self.mesh,
+                    telemetry=self.telemetry, device=self.device)
                 self._cache.put(key, batch)
                 self.compiles += 1
         return batch

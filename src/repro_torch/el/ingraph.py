@@ -450,9 +450,12 @@ class ELCell:
     init_draw_shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
         default_factory=dict)
     items_per_step: int = 1
-    #: whether a step issues collectives (a sharded round): its chunks run
-    #: eagerly, never captured
+    #: whether a step issues collectives (a sharded round or event): its
+    #: chunks run eagerly, never captured
     sharded: bool = False
+    #: the carry's global-params entry, which ``finalize`` returns and a
+    #: donated run takes as its storage
+    params_key: str = "params"
 
 
 def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
@@ -497,7 +500,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
 
     shard = edge_shard(mesh, n_edges)
     mine = slice(None) if shard is None else shard.rows
-    n_local = n_edges if shard is None else shard.hi - shard.lo
+    n_local = n_edges if shard is None else shard.n_local
     gather = (lambda tree: tree) if shard is None else shard.gather
     xs, ys, n_per_edge = _pad_edge_data(edge_data, dev, mine)
     w_agg = (np.ones(n_edges) if n_samples is None
@@ -913,14 +916,15 @@ class ChunkRunner:
             return
         _tree_copy_(self.knobs, knob_t)
         if donate:
-            old = tree_leaves(self.carry["params"])
+            key = self.cell.params_key
+            old = tree_leaves(self.carry[key])
             if self.graph is not None and any(
                     a.data_ptr() != b.data_ptr()
-                    for a, b in zip(old, tree_leaves(init["params"]))):
+                    for a, b in zip(old, tree_leaves(init[key]))):
                 self.graph = None             # captured over other storage
-            params = init.pop("params")
+            params = init.pop(key)
             _tree_copy_({k: self.carry[k] for k in init}, init)
-            self.carry["params"] = params
+            self.carry[key] = params
         else:
             _tree_copy_(self.carry, init)
 

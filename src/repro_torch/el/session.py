@@ -54,8 +54,6 @@ from repro_torch.federated.aggregation import (staleness_alpha, staleness_mix,
 Params = Any
 RoundCallback = Callable[[RoundRecord], None]
 
-_MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
-
 #: ``run_sync_ingraph``'s default compiled history length (``max_rounds``)
 DEFAULT_SYNC_HORIZON = 512
 
@@ -135,6 +133,14 @@ class ELSession:
         if self._executor is None:
             raise RuntimeError("call .with_executor(...) before .run()")
         return self._executor
+
+    def _mark_donated(self) -> None:
+        """Flag the session's init params as given to a ``donate=True``
+        run: ``_initial_params`` refuses them from now on."""
+        from repro_torch.interop import tree_leaves
+        if self._init_params is not None:
+            for leaf in tree_leaves(self._init_params):
+                leaf._repro_donated = True
 
     def _initial_params(self) -> Params:
         if self._init_params is not None:
@@ -550,7 +556,6 @@ class ELSession:
         """
         from repro_torch.el.ingraph import make_sync_program, sync_knobs
         from repro_torch.el.rng import TorchDraws
-        from repro_torch.interop import tree_leaves
         from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
         ex = self._require_executor()
@@ -586,9 +591,8 @@ class ELSession:
             params, out = program(params, sync_knobs(cfg), draws,
                                   donate=donate)
             sp["n_rounds"] = int(out["n_rounds"])
-        if donate and self._init_params is not None:
-            for leaf in tree_leaves(self._init_params):
-                leaf._repro_donated = True
+        if donate:
+            self._mark_donated()
         records: List[RoundRecord] = []
         for rec in records_from_out(out, 0, int(out["n_rounds"])):
             self._emit(records, rec)
@@ -637,8 +641,20 @@ class ELSession:
         ``telemetry=``, ``profile=`` and ``contract=`` work as in
         ``run_sync_ingraph``; the async rings record the event edge, the
         merge's alpha and staleness and the inter-arrival time too, and
-        a wave wider than the ring raises.  ``mesh`` and ``donate``
-        (ROADMAP Queue 1 item 14) raise ``NotImplementedError``.
+        a wave wider than the ring raises.
+
+        ``mesh=`` and ``donate=`` work as in ``run_sync_ingraph``: every
+        rank calls this with the same session; the per-edge datasets and
+        the fetched-params stack split over the mesh's edge axes, each
+        event's (or wave's) blocks run on their edges' owners and are
+        all-gathered (``repro_torch.el.events.program``), and every rank
+        returns the same report, bit for bit the unsharded run's, its
+        chunks eager.  On a mesh of more than one device
+        ``async_batch_k = 0`` resolves to waves of ``min(4, n_edges)``
+        (``resolve_async_batch_k(cfg, mesh)``).  ``donate=True`` makes
+        the init params' tensors the global model's storage, with no
+        copy, and the session refuses to run from them again.  The
+        program cache key holds the mesh and ``donate``.
         """
         from repro_torch.el.events import (async_knobs, bucket_event_horizon,
                                            make_async_program,
@@ -647,10 +663,6 @@ class ELSession:
         from repro_torch.el.rng import TorchDraws
         from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
-        if mesh is not None or donate:
-            raise NotImplementedError(
-                "run_async_ingraph(mesh=/donate=): sharded and donating "
-                f"runs arrive with {_MESH_ITEM}")
         ex = self._require_executor()
         cfg = self._ingraph_cfg("run_async_ingraph", mode="async")
         spec = obs_rings.as_spec(telemetry)
@@ -660,9 +672,9 @@ class ELSession:
         else:
             event_cap = int(max_events)
             horizon = bucket_event_horizon(event_cap)
-        batch_k = resolve_async_batch_k(cfg)
+        batch_k = resolve_async_batch_k(cfg, mesh)
         key = ("async", ex, self._structural_cfg(cfg), horizon, batch_k,
-               metric_fn, self.metric_name, spec)
+               metric_fn, self.metric_name, spec, mesh, bool(donate))
         params = self._initial_params()
         program = self._programs.get(key)
         if program is None:
@@ -672,7 +684,7 @@ class ELSession:
                     ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
                     batch=ex.batch, metric_fn=metric_fn,
                     metric_name=self.metric_name, max_events=horizon,
-                    telemetry=spec, batch_k=batch_k,
+                    mesh=mesh, telemetry=spec, batch_k=batch_k,
                     device=getattr(ex, "device", None))
                 self._cache_program(key, program)
         self._fastpath = program
@@ -681,13 +693,16 @@ class ELSession:
             knobs["event_cap"] = np.int32(event_cap)
         self._profile_program(key, program, (params, knobs), mode="async",
                               profile=profile, contract=contract,
-                              scenario=cfg.scenario is not None)
+                              scenario=cfg.scenario is not None, mesh=mesh,
+                              donate=donate)
         if draws is None:
             draws = TorchDraws(torch.Generator(device=program.device)
                                .manual_seed(cfg.seed + 17))
         with trace.span("session.dispatch", mode="async") as sp:
-            params, out = program(params, knobs, draws)
+            params, out = program(params, knobs, draws, donate=donate)
             sp["n_events"] = int(out["n_rounds"])
+        if donate:
+            self._mark_donated()
         records: List[RoundRecord] = []
         for rec in records_from_out(out, 0, int(out["n_rounds"])):
             self._emit(records, rec)
@@ -734,18 +749,25 @@ class ELSession:
         metric (K-means F1) has its cells' final params scored here.
         ``telemetry=`` switches the per-cell rings on (see
         ``run_sync_ingraph``); each cell's rings land stacked in the
-        report's ``out["telemetry"]`` leaves.  ``mesh=`` (ROADMAP Queue 1
-        item 14) raises ``NotImplementedError``.  Returns a
+        report's ``out["telemetry"]`` leaves.
+
+        ``mesh=`` runs the grid over the mesh's ranks, every rank calling
+        this with the same session: each (sub-)grid's cells split over the
+        edge axes (``repro_torch.el.sweep.sweep_partition_specs``; a grid
+        that does not tile them raises ``ValueError``), each rank runs its
+        cells with their draw providers, and the cells are all-gathered,
+        so every rank returns the same cells, ``out`` and final params,
+        bit for bit the unsharded sweep's.  ``telemetry["device_loops"]``
+        is this rank's runners'.  The mesh joins the program key.  Returns
+        a
         :class:`repro_torch.el.sweep.SweepReport`.
         """
         from repro_torch.el.sweep.engine import (make_sweep_program,
-                                                 refuse_unported,
                                                  run_sweep_program)
         from repro_torch.el.sweep.report import SweepReport
         from repro_torch.interop import tree_map
         from repro_torch.obs import rings as obs_rings
         from repro_torch.obs import trace
-        refuse_unported("ELSession.sweep", mesh)
         ex = self._require_executor()
         cfg = self._ingraph_cfg("ELSession.sweep")
         tele_spec = obs_rings.as_spec(telemetry)
@@ -767,7 +789,7 @@ class ELSession:
             key = ("sweep", ex, self._structural_cfg(sub_cfg), spec_shape,
                    metric_fn, self.metric_name,
                    None if self._n_samples is None
-                   else tuple(self._n_samples), tele_spec)
+                   else tuple(self._n_samples), tele_spec, mesh)
             program = self._programs.get(key)
             if program is None:
                 with trace.span("session.compile", mode="sweep",
@@ -776,7 +798,8 @@ class ELSession:
                         ex.model, ex.edge_data, ex.eval_set, sub_cfg, sub,
                         lr=ex.lr, batch=ex.batch,
                         n_samples=self._n_samples, metric_fn=metric_fn,
-                        metric_name=self.metric_name, telemetry=tele_spec,
+                        metric_name=self.metric_name, mesh=mesh,
+                        telemetry=tele_spec,
                         device=getattr(ex, "device", None))
                     self._cache_program(key, program)
             self._sweep_programs.append(program)
@@ -787,7 +810,7 @@ class ELSession:
                             n_cells=sub.n_cells):
                 params, out = run_sweep_program(
                     program, self._initial_params(),
-                    sub.cell_cfgs(sub_cfg), sub_draws)
+                    sub.cell_cfgs(sub_cfg), sub_draws, mesh=mesh)
             params_parts.append(params)
             out_parts.append(out)
             loops.append(dict(program.last_run))

@@ -10,12 +10,16 @@ a card.  Each cell makes the decisions of an independent
 ``ELSession.run_sync_ingraph`` / ``run_async_ingraph`` with that cell's
 config on the same draws.  Front door: ``ELSession.sweep(spec)`` →
 :class:`SweepReport`.  :class:`CellBatch` steps the same vmapped cells a
-wave at a time over slots (the fleet's engine).
+wave at a time over slots (the fleet's engine).  Over a mesh the sweep
+dim splits over the edge axes (``sweep_partition_specs``), as in the
+reference.
 """
 
 from repro_torch.el.sweep.engine import (CellBatch, cell_draws, knob_names,
                                          make_cell_batch, make_sweep_program,
-                                         run_sweep_program, stack_knobs)
+                                         run_sweep_program, stack_knobs,
+                                         sweep_input_shardings,
+                                         sweep_partition_specs)
 from repro_torch.el.sweep.report import SweepReport
 from repro_torch.el.sweep.spec import (AXIS_ORDER, SweepSpec,
                                        spec_from_sequences)
@@ -23,5 +27,6 @@ from repro_torch.el.sweep.spec import (AXIS_ORDER, SweepSpec,
 __all__ = [
     "SweepSpec", "SweepReport", "AXIS_ORDER", "spec_from_sequences",
     "make_sweep_program", "run_sweep_program", "stack_knobs", "cell_draws",
-    "knob_names", "CellBatch", "make_cell_batch",
+    "knob_names", "CellBatch", "make_cell_batch", "sweep_partition_specs",
+    "sweep_input_shardings",
 ]

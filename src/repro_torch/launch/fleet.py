@@ -16,9 +16,17 @@ that many cohort programs ("one compile per cohort"), and the run exits
 non-zero when the wave-batched dispatch invariant breaks (more place or
 gather dispatches than waves).  ``--telemetry [N]`` records every
 tenant's device rings (``repro_torch.obs.rings``) into its report and
-``--metrics-out`` folds them into the registry.  ``--mesh debug``
-(sharded cohorts, ROADMAP Queue 1 item 14) raises
-``NotImplementedError``.
+``--metrics-out`` folds them into the registry.
+
+``--mesh debug`` serves every cohort over the ranks of a world
+(``FleetServer(mesh=)``: each cohort's slot dim over the mesh's edge
+axes, every rank streaming the same events and delivering the same
+reports as the unsharded server): when this process is no rank yet it
+spawns the debug mesh's ranks (``REPRO_SWEEP_DEVICES``, default 4: a 2 x
+2 mesh) through ``repro_torch.launch.hostdev`` (gloo with ``--device
+cpu``; on cards, one NCCL rank a card); under ``torchrun`` it takes the
+launched world.  Only rank 0 prints; every rank makes the checks above
+and exits non-zero on a failed one.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from repro_torch.config import CLASSIC_IDS
 from repro_torch.el.fleet import (FleetServer, ReportReady, RoundDelta,
                                   TenantRun)
 from repro_torch.launch.classic import classic_fixture
+from repro_torch.launch.mesh import debug_mesh_world, launcher_world
 from repro_torch.obs.cli import (add_metrics_args, begin_observability,
                                  finish_observability, telemetry_arg)
 
@@ -130,8 +139,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, required)")
     ap.add_argument("--mesh", default="none", choices=["none", "debug"],
-                    help="sharded cohorts: ROADMAP Queue 1 item 14; "
-                         "'debug' raises")
+                    help="'debug': serve every cohort over the debug "
+                         "mesh's ranks (REPRO_SWEEP_DEVICES, default 4: "
+                         "2 x 2), spawned unless this process is one")
     ap.add_argument("--async-batch-k", type=int, default=0,
                     help="default async K-event wave width for tenants "
                          "that don't set async_batch_k themselves "
@@ -149,19 +159,31 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> Dict[str, Any]:
     """Serve the manifest; returns the delivered reports (tenant id →
-    ``ELReport``) or exits non-zero on a failed check."""
+    ``ELReport``; ``{}`` in a process that spawned a world of ranks) or
+    exits non-zero on a failed check."""
     ap = parser()
     args = ap.parse_args(argv)
     if args.demo == (args.manifest is not None):
         ap.error("pass exactly one of --demo / --manifest")
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh: sharded cohorts arrive with ROADMAP Queue 1 item 14 "
-            "(multiple GPUs)")
+    mesh = None
+    if args.mesh == "debug":
+        mesh, rc = debug_mesh_world(argv, "repro_torch.launch.fleet",
+                                    device=args.device)
+        if rc is not None:              # this process spawned the world
+            if rc:
+                raise SystemExit(rc)
+            return {}
+    with launcher_world(mesh):
+        return serve(args, mesh)
+
+
+def serve(args, mesh) -> Dict[str, Any]:
+    """The manifest through one server (over ``mesh`` when given: every
+    rank serves it and makes every check)."""
     manifest = DEMO_MANIFEST if args.demo else load_manifest(args.manifest)
 
     server = FleetServer(n_slots=args.slots,
-                         rounds_per_wave=args.rounds_per_wave,
+                         rounds_per_wave=args.rounds_per_wave, mesh=mesh,
                          telemetry=args.telemetry, device=args.device)
     begin_observability(args)
 
@@ -180,7 +202,9 @@ def main(argv=None) -> Dict[str, Any]:
     t0 = time.perf_counter()
     ids = [server.submit(run) for run in runs]
     print(f"fleet: {len(ids)} tenants, slots={args.slots}, "
-          f"wave={args.rounds_per_wave} on {server.device}", flush=True)
+          f"wave={args.rounds_per_wave} on {server.device}"
+          + ("" if mesh is None else f", mesh {dict(mesh.shape)} "
+             f"({mesh.backend}, {mesh.size} ranks)"), flush=True)
     reports = server.drain()
     elapsed = time.perf_counter() - t0
 

@@ -30,6 +30,8 @@ world is a world of one.
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import os
 from typing import Any, Optional, Tuple
 
@@ -217,6 +219,38 @@ def make_debug_mesh_for(n_devices: int, *, device: Any = None,
                            backend=backend)
 
 
+def debug_mesh_world(argv, module: str, *, device: Any = None
+                     ) -> Tuple[Optional[Mesh], Optional[int]]:
+    """A launcher's ``--mesh debug``: in a process that is no rank yet,
+    spawn the world (``repro_torch.launch.hostdev.force_host_devices``:
+    ``REPRO_SWEEP_DEVICES`` ranks of ``python -m module argv``) and return
+    ``(None, its exit code)``; in a rank, ``(the debug mesh over the
+    launched world, None)``."""
+    from repro_torch.launch import hostdev
+    rc = hostdev.force_host_devices(argv=argv, module=module)
+    if rc is not None:
+        return None, rc
+    return make_debug_mesh_for(int(os.environ.get("WORLD_SIZE", "1")),
+                               device=device), None
+
+
+@contextlib.contextmanager
+def launcher_world(mesh: Optional[Mesh]):
+    """A launcher's body over ``mesh``: only rank 0's standard output
+    shows, and the process leaves the world on the way out (nothing for
+    ``mesh=None``)."""
+    if mesh is None:
+        yield
+        return
+    import torch.distributed as dist
+    try:
+        with (contextlib.nullcontext() if mesh.rank == 0
+              else contextlib.redirect_stdout(io.StringIO())):
+            yield
+    finally:
+        dist.destroy_process_group()
+
+
 # ---------------------------------------------------------------------------
 # The edge data plane's one collective
 # ---------------------------------------------------------------------------
@@ -234,9 +268,34 @@ class EdgeShard:
     def rows(self) -> slice:
         return slice(self.lo, self.hi)
 
+    @property
+    def n_local(self) -> int:
+        return self.hi - self.lo
+
     def gather(self, tree: Any) -> Any:
         """``gather_edge_stack`` of ``tree`` over this shard's group."""
         return gather_edge_stack(tree, self.group)
+
+    def local_rows(self, ids):
+        """(rows, mine) of an ``[L]`` tensor of edge ids: each id's row in
+        this rank's block, clamped into it, and whether this rank owns
+        the id."""
+        rows = ids - self.lo
+        mine = (rows >= 0) & (rows < self.n_local)
+        return rows.clamp(0, self.n_local - 1), mine
+
+    def from_owners(self, tree: Any, ids) -> Any:
+        """A tree of ``[L, ...]`` rows, one for each of ``ids`` and
+        computed by every rank (at :meth:`local_rows`), as each id's row
+        from the rank that owns it: one gather, then row l of the block
+        of the rank that holds ``ids[l]`` (the group's rank order is the
+        blocks' order)."""
+        import torch
+        from repro_torch.interop import tree_map
+        width = ids.shape[0]
+        pick = (ids // self.n_local) * width + torch.arange(
+            width, device=ids.device)
+        return tree_map(lambda a: a[pick], self.gather(tree))
 
 
 def edge_shard(mesh, n_edges: int) -> Optional[EdgeShard]:
@@ -264,8 +323,8 @@ def gather_edge_stack(tree: Any, group) -> Any:
     This is the explicit gather in front of every cross-edge reduction
     that keeps a sharded run bit-identical to an unsharded one: the
     reduction then runs on every rank, in edge order, on the whole stack
-    (no all-reduce, whose partial sums would reorder it).  A
-    :class:`PlannedGroup` allocates the same buffers and exchanges
+    (no all-reduce, whose partial sums would reorder it).  Booleans
+    travel as bytes.  A :class:`PlannedGroup` allocates the same buffers and exchanges
     nothing (the planner's)."""
     import torch
     import torch.distributed as dist
@@ -280,6 +339,8 @@ def gather_edge_stack(tree: Any, group) -> Any:
     for dtype, idx in by_dtype.items():
         local = torch.cat([leaves[i].reshape(leaves[i].shape[0], -1)
                            for i in idx], dim=1)
+        if dtype == torch.bool:            # gathered as bytes
+            local = local.view(torch.uint8)
         full = local.new_empty((world * local.shape[0], local.shape[1]))
         parts = list(full.chunk(world))
         if planned:
@@ -289,6 +350,7 @@ def gather_edge_stack(tree: Any, group) -> Any:
         else:
             dist.all_gather(parts, local, group=group)
         del local
+        full = full.view(dtype)
         col = 0
         for i in idx:
             width = leaves[i][0].numel()

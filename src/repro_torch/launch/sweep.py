@@ -23,8 +23,16 @@ grid's metrics (``repro_torch.obs.cli``: Prometheus text, JSON and the
 tracer's spans) and ``--trace-dir`` a ``torch.profiler`` trace.
 ``--telemetry [N]`` records every cell's device rings
 (``repro_torch.obs.rings``, ring length N, default 128) into the report's
-``out["telemetry"]``.  ``--mesh`` (sharded sweeps, ROADMAP Queue 1 item
-14) raises ``NotImplementedError``.
+``out["telemetry"]``.
+
+``--mesh debug`` shards the grid over the ranks of a world
+(``ELSession.sweep(mesh=)``: the sweep dim over the mesh's edge axes, each
+rank its block of cells, every cell gathered back), bit for bit the
+unsharded grid: when this process is no rank yet it spawns the debug
+mesh's ranks (``REPRO_SWEEP_DEVICES``, default 4: a 2 x 2 mesh) through
+``repro_torch.launch.hostdev`` (gloo with ``--device cpu``; on cards, one
+NCCL rank a card); under ``torchrun`` it takes the launched world.  Only
+rank 0 prints.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from repro_torch.el.scenarios import ScenarioSpec
 from repro_torch.el.scenarios.cli import add_scenario_args, scenario_from_args
 from repro_torch.el.sweep import spec_from_sequences
 from repro_torch.launch.classic import classic_fixture
+from repro_torch.launch.mesh import debug_mesh_world, launcher_world
 from repro_torch.obs.cli import (add_metrics_args, begin_observability,
                                  finish_observability, telemetry_arg)
 
@@ -108,8 +117,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, required)")
     ap.add_argument("--mesh", default="none", choices=["none", "debug"],
-                    help="sharded sweeps: ROADMAP Queue 1 item 14; "
-                         "'debug' raises")
+                    help="'debug': shard the grid over the debug mesh's "
+                         "ranks (REPRO_SWEEP_DEVICES, default 4: 2 x 2), "
+                         "spawned unless this process is one")
     add_scenario_args(ap)
     add_metrics_args(ap, trace_dir=True)
     telemetry_arg(ap)
@@ -119,10 +129,6 @@ def parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.mesh != "none":
-        raise NotImplementedError(
-            "--mesh: sharded sweeps arrive with ROADMAP Queue 1 item 14 "
-            "(multiple GPUs)")
     scenario, base_cost_model = scenario_from_args(args)
     if args.policy and scenario is None:
         # the policy switch lives on the scenario program path; an
@@ -131,6 +137,21 @@ def main(argv=None) -> None:
     if args.churn_rate and (scenario is None or scenario.churn is None):
         ap.error("--churn-rate re-draws the dropout schedule per cell "
                  "and needs a base --churn RATE")
+    mesh = None
+    if args.mesh == "debug":
+        mesh, rc = debug_mesh_world(argv, "repro_torch.launch.sweep",
+                                    device=args.device)
+        if rc is not None:              # this process spawned the world
+            if rc:
+                raise SystemExit(rc)
+            return
+    with launcher_world(mesh):
+        run(args, mesh, scenario, base_cost_model)
+
+
+def run(args, mesh, scenario, base_cost_model) -> None:
+    """The grid, its tables and its metrics (over ``mesh`` when given:
+    every rank runs it)."""
     begin_observability(args)
     spec = spec_from_sequences(
         ucb_c=args.ucb_c, budget=args.budget,
@@ -140,9 +161,11 @@ def main(argv=None) -> None:
         seeds=args.seeds, max_rounds=args.max_rounds)
     session = build_session(args, scenario, base_cost_model)
     print(f"sweep {args.arch}: {spec.describe(session.cfg)} on "
-          f"{resolve_device(args.device)}", flush=True)
+          f"{resolve_device(args.device)}"
+          + ("" if mesh is None else f", mesh {dict(mesh.shape)} "
+             f"({mesh.backend}, {mesh.size} ranks)"), flush=True)
 
-    report = session.sweep(spec, telemetry=args.telemetry)
+    report = session.sweep(spec, mesh=mesh, telemetry=args.telemetry)
 
     scn_cols = bool(args.policy or args.churn_rate)
     print(f"\n{'ucb_c':>6s} {'budget':>8s} {'H':>5s} {'noise':>6s} "

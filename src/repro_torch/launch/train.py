@@ -36,17 +36,19 @@ PATH`` saves the result in the reference's ``.npz`` format
 ``n_steps`` (standard), the EL report's final parameters at its
 aggregation count (ol4el).
 
-``--mesh debug|prod`` shards a classic arch's compiled sync run over the
-ranks of a world (``repro_torch.launch.mesh``), bit-identical to the
-unsharded run on every rank: ``debug`` spawns the debug mesh's ranks
+``--mesh debug|prod`` shards a classic arch's compiled sync round or
+async event engine over the ranks of a world (``repro_torch.launch.mesh``),
+bit-identical to the unsharded run on every rank (``--async-batch-k 0``
+resolves to waves of up to 4 events on a mesh of several ranks):
+``debug`` spawns the debug mesh's ranks
 (``REPRO_SWEEP_DEVICES``, default 4: a 2 x 2 mesh) through
 ``repro_torch.launch.hostdev`` when this process is no rank yet (gloo
 with ``--device cpu``; on cards, one NCCL rank a card), ``prod`` takes the
 launched world (``torchrun``), which must hold the production mesh
 (``REPRO_DEBUG_MESH=d``: d x d ranks).  ``--donate`` makes the initial
-params' tensors the run's parameter storage (no copy).  The async engine
-and the LM archs over a mesh are ROADMAP item 14's later parts and
-raise.
+params' tensors the run's parameter storage (no copy).  Only rank 0
+prints.  The LM archs take neither flag, as in the reference (their
+round over ranks is ``repro_torch.federated.local_sgd``).
 """
 
 from __future__ import annotations
@@ -189,8 +191,8 @@ def _build_mesh(args):
 def train_classic_ol4el(exp, args):
     """Classic archs through the compiled sync round or async event engine
     on the device, scenario-injected by the ``--churn`` / ``--cost-model``
-    / ``--drift`` flags, the sync round optionally over a mesh
-    (``--mesh``) and donating (``--donate``); returns the ``ELReport``."""
+    / ``--drift`` flags, optionally over a mesh (``--mesh``) and donating
+    (``--donate``); returns the ``ELReport``."""
     from repro_torch.el.scenarios.cli import scenario_from_args
     from repro_torch.launch.classic import classic_fixture
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
@@ -225,12 +227,13 @@ def train_classic_ol4el(exp, args):
         # as train_ol4el: an explicit --steps caps the run at steps * edges
         # events, announced, never silently
         if args.steps is not None:
-            print(f"async: --steps caps the run at "
-                  f"{args.steps * args.edges} events (omit --steps to "
-                  "run to budget exhaustion)", flush=True)
+            say(f"async: --steps caps the run at "
+                f"{args.steps * args.edges} events (omit --steps to "
+                "run to budget exhaustion)", flush=True)
         report = session.run_async_ingraph(
             max_events=None if args.steps is None
-            else args.steps * args.edges, telemetry=args.telemetry)
+            else args.steps * args.edges, telemetry=args.telemetry,
+            mesh=mesh, donate=args.donate)
     loop = report.telemetry["device_loop"]
     say(f"done: {report.n_aggregations} aggregations, "
         f"final {metric} {report.final_metric:.4f}, "
@@ -256,7 +259,9 @@ def parser() -> argparse.ArgumentParser:
                     help="async staleness-mix base rate (cfg.async_alpha)")
     ap.add_argument("--async-batch-k", type=int, default=0,
                     help="classic archs, compiled async engine: K-event "
-                         "wave width (cfg.async_batch_k; 0 resolves to 1)")
+                         "wave width (cfg.async_batch_k; 0 resolves to 1, "
+                         "or to min(4, edges) over a mesh of several "
+                         "ranks)")
     ap.add_argument("--steps", type=int, default=None,
                     help="standard/sync: training steps/rounds (default "
                          "50); async: optional event cap of steps*edges "
@@ -289,8 +294,8 @@ def parser() -> argparse.ArgumentParser:
                          "'jnp'; cuda on a CPU device raises)")
     ap.add_argument("--mesh", default="none",
                     choices=["none", "debug", "prod"],
-                    help="shard a classic arch's compiled sync run over "
-                         "ranks: 'debug' spawns the debug mesh's ranks "
+                    help="shard a classic arch's compiled sync or async "
+                         "run over ranks: 'debug' spawns the debug mesh's ranks "
                          "(REPRO_SWEEP_DEVICES, default 4: 2 x 2) unless "
                          "this process is one; 'prod' takes the launched "
                          "world (torchrun), the production mesh "
@@ -327,10 +332,6 @@ def main(argv=None):
     if exp.model.family == "classic" and args.mode != "ol4el":
         raise ValueError(f"{args.arch}: classic archs train under "
                          "--mode ol4el (the compiled EL round)")
-    if (args.mesh != "none" or args.donate) and args.el_mode == "async":
-        raise NotImplementedError(
-            "--el-mode async with --mesh/--donate: run_async_ingraph over "
-            f"a mesh is a later part of {MESH_ITEM}")
     from repro_torch.launch import hostdev
     if args.mesh == "debug":
         rc = hostdev.force_host_devices(argv=argv,

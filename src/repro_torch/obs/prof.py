@@ -72,7 +72,8 @@ def _mnemonic(name: str) -> Optional[Tuple[str, str]]:
 
 
 _DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2,
-                "double": 8, "int": 4, "long int": 8}
+                "double": 8, "int": 4, "long int": 8, "unsigned char": 1,
+                "bool": 1}
 
 
 def census_of_events(events) -> Tuple[Dict[str, Dict[str, float]], int]:
@@ -121,6 +122,27 @@ def census_of_events(events) -> Tuple[Dict[str, Dict[str, float]], int]:
     return counts, int(sum(v["bytes"] for v in counts.values()))
 
 
+class _TraceEvent:
+    """A raw trace event read as ``census_of_events`` reads a profiler
+    ``FunctionEvent``."""
+
+    __slots__ = ("name", "device_type", "input_shapes", "input_dtypes")
+
+    def __init__(self, e):
+        self.name, self.device_type = e.name(), e.device_type()
+        self.input_shapes, self.input_dtypes = e.shapes(), e.dtypes()
+
+
+def _collective_events(prof) -> list:
+    """The trace's collective events (by name), read from the raw trace:
+    building the profiler's event tree (``prof.events()``) of a chunk's
+    tens of thousands of ops costs seconds; the raw list, a tenth of
+    one."""
+    raw = prof.profiler.kineto_results.events()
+    prefixes = ("gloo:", "nccl:", "ncclDevKernel_", "ncclKernel_")
+    return [_TraceEvent(e) for e in raw if e.name().startswith(prefixes)]
+
+
 def collective_census(fn, device: torch.device
                       ) -> Tuple[Dict[str, Dict[str, float]], int]:
     """Run ``fn`` (one chunk of a program, on every rank at once) under
@@ -135,7 +157,7 @@ def collective_census(fn, device: torch.device
         fn()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-    return census_of_events(prof.events())
+    return census_of_events(_collective_events(prof))
 
 
 # ---------------------------------------------------------------------------

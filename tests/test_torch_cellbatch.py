@@ -28,7 +28,7 @@ from repro.launch.classic import classic_fixture as jax_fixture  # noqa: E402
 from repro_torch.el import events, ingraph  # noqa: E402
 from repro_torch.el.rng import ReplayDraws  # noqa: E402
 from repro_torch.el.sweep import make_cell_batch  # noqa: E402
-from repro_torch.interop import params_from_numpy  # noqa: E402
+from repro_torch.interop import params_from_numpy, tree_map  # noqa: E402
 from repro_torch.launch.classic import classic_fixture  # noqa: E402
 
 SAMPLES, EDGES, SLOTS = 1500, 3, 3
@@ -273,13 +273,32 @@ def test_place_many_with_padded_duplicates_equals_single_places(fixtures):
 def test_cell_batch_rejects_what_it_does_not_port(fixtures):
     _, tf = fixtures["svm-wafer"]
     ex = tf["executor"]
-    for kw, item in (({"mesh": object()}, "item 14"),
+    from repro_torch.launch.mesh import PlanMesh
+    for kw, item in (({"mesh": PlanMesh(2)}, "item 14"),
                      ({"telemetry": True}, "item 12")):
         if item == "item 14":
-            with pytest.raises(NotImplementedError, match=item):
-                make_cell_batch(ex.model, ex.edge_data, ex.eval_set,
-                                _base(tf, "sync"), n_slots=2, lr=ex.lr,
-                                batch=ex.batch, device="cpu", **kw)
+            # over a mesh (a plan's: rank 0 of 2 data ranks) a batch holds
+            # its block of the slots and writes only the slots it owns;
+            # 3 slots do not tile 2 ranks: replicated, and said so (the
+            # 2- and 4-rank cohorts are tests/test_torch_mesh_events.py's)
+            cb = make_cell_batch(ex.model, ex.edge_data, ex.eval_set,
+                                 _base(tf, "sync"), n_slots=4, lr=ex.lr,
+                                 batch=ex.batch, device="cpu", **kw)
+            assert (cb.n_slots, cb.n_local, cb.shard.rows) == (4, 2,
+                                                          slice(0, 2))
+            carry = cb.init_slot(tf["init_params"],
+                                 _knobs(_base(tf, "sync")), None)
+            zero = tree_map(torch.zeros_like, carry)
+            st = cb.place_many(cb.broadcast(zero), [carry, carry], [1, 3],
+                               [None, None])
+            assert torch.equal(st["params"]["w"][1], carry["params"]["w"])
+            assert torch.equal(st["params"]["w"][0], zero["params"]["w"])
+            assert st["params"]["w"].shape[0] == 2
+            with pytest.warns(UserWarning, match="do not tile"):
+                rep = make_cell_batch(
+                    ex.model, ex.edge_data, ex.eval_set, _base(tf, "sync"),
+                    n_slots=3, lr=ex.lr, batch=ex.batch, device="cpu", **kw)
+            assert rep.shard is None and rep.n_local == rep.n_slots == 3
             continue
         # the rings are ported: a slot's initial carry has empty rings
         cb = make_cell_batch(ex.model, ex.edge_data, ex.eval_set,

@@ -679,9 +679,21 @@ def test_async_rejects_unsupported_configs(port_fixtures):
             == str(want.value).split("\n")[0]
     ex = fx["executor"]
     cfg = _port_session(fx).cfg
-    with pytest.raises(NotImplementedError, match="item 14"):
-        events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
-                               lr=ex.lr, batch=ex.batch, mesh=object())
+    # over a mesh (a plan's: rank 0 of 3 data ranks), a rank keeps one
+    # edge's row of the fetched-params stack, the cell gathers and the
+    # wave width resolves on the mesh, as the reference's
+    from repro_torch.launch.mesh import PlanMesh
+    cell = events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
+                                  lr=ex.lr, batch=ex.batch,
+                                  mesh=PlanMesh(3))
+    assert cell.sharded and cell.params_key == "gparams"
+    assert cell.items_per_step == jax_knobs.resolve_async_batch_k(
+        JaxCfg(n_edges=EDGES), PlanMesh(3)) == EDGES
+    init = cell.init(ex.init_params(0), {
+        k: torch.as_tensor(v) for k, v in events.async_knobs(cfg).items()},
+        {"init_gumbel": torch.zeros(EDGES, cfg.max_interval),
+         "init_normal": torch.zeros(EDGES)})
+    assert {v.shape[0] for v in init["edge_params"].values()} == {1}
     # the rings are ported; a wave wider than the ring raises with the
     # reference's message
     cell = events.make_async_cell(ex.model, ex.edge_data, ex.eval_set, cfg,
@@ -697,20 +709,50 @@ def test_async_rejects_unsupported_configs(port_fixtures):
         "telemetry= or lower the batch width")
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "item 14"),
+@pytest.mark.parametrize("kw,item", [({"mesh": "a world of one"},
+                                      "item 14"),
                                      ({"donate": True}, "item 14"),
                                      ({"telemetry": True}, "item 12"),
                                      ({"profile": True}, "item 12"),
                                      ({"contract": True}, "item 12")])
 def test_unported_options_name_their_items(port_fixtures, kw, item):
-    """``mesh=`` / ``donate=`` (item 14) raise; the rings and the program
-    profiles (item 12) run, leave the events as they were and attach the
-    reference's fields."""
+    """``mesh=`` / ``donate=`` (item 14's second part) run: on a mesh of
+    one rank (this process, a gloo world of one) the run is the unsharded
+    one, K resolves to 1 and no collective is issued; a donated run gives
+    the same events, its final params on the donated storage,
+    ``alias_bytes == param_bytes``, and the session refuses to run from
+    them again (the sharded runs are ``tests/test_torch_mesh_events.
+    py``'s).  The rings and the program profiles (item 12) run, leave
+    the events as they were and attach the reference's fields."""
     from repro.obs import rings as jax_rings
     fx = port_fixtures["svm-wafer"]
     if item == "item 14":
-        with pytest.raises(NotImplementedError, match=item):
-            _port_session(fx).run_async_ingraph(**kw)
+        off = _port_session(fx).run_async_ingraph()
+        if "mesh" in kw:
+            import torch.distributed as dist
+            from repro_torch.launch.mesh import make_mesh
+            mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+            try:
+                rep = _port_session(fx).run_async_ingraph(mesh=mesh,
+                                                          contract=True)
+            finally:
+                dist.destroy_process_group()
+            assert rep.telemetry["profile"]["collectives"] == {}
+            assert rep.telemetry["device_loop"]["batch_k"] == 1
+        else:
+            params = {k: v.clone() for k, v in fx["init_params"].items()}
+            s = _port_session(fx).with_executor(fx["executor"],
+                                                init_params=params)
+            rep = s.run_async_ingraph(donate=True, contract=True)
+            assert rep.telemetry["profile"]["alias_bytes"] == sum(
+                v.numel() * 4 for v in params.values())
+            assert all(rep.final_params[k].data_ptr() == params[k].data_ptr()
+                       for k in params)
+            with pytest.raises(RuntimeError, match="donated"):
+                s.run_async_ingraph(donate=True)
+        assert _same(_key(rep), _key(off))
+        for k, v in off.final_params.items():
+            assert torch.equal(rep.final_params[k], v)
         return
     off = _port_session(fx).run_async_ingraph()
     rep = _port_session(fx).run_async_ingraph(**kw)

@@ -369,13 +369,33 @@ def test_close_refuses_new_work_and_keeps_reports(fixtures):
 def test_unported_options_and_devices_raise(fixtures, monkeypatch):
     _, tf = fixtures["svm-wafer", "jnp"]
     from repro_torch.obs.rings import TelemetrySpec
-    for kw, item in (({"mesh": object()}, "item 14"),
+    for kw, item in (({"mesh": "a world of one"}, "item 14"),
                      ({"telemetry": True}, "item 12"),
                      ({"telemetry": 16}, "item 12"),
                      ({"profile": True}, "item 12")):
         if item == "item 14":
-            with pytest.raises(NotImplementedError, match=item):
-                FleetServer(device="cpu", **kw)
+            # a server over a mesh of one rank (this process) delivers the
+            # unsharded server's report (the 2- and 4-rank cohorts are
+            # tests/test_torch_mesh_events.py's)
+            import torch.distributed as dist
+            from repro_torch.launch.mesh import make_mesh
+            cfg = dataclasses.replace(_base(tf, "sync"), budget=600.0)
+            reps = []
+            for mesh in ("one", None):
+                if mesh:
+                    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+                try:
+                    server = FleetServer(device="cpu", n_slots=2, mesh=mesh)
+                    tid = server.submit(_run(tf, cfg, None))
+                    reps.append(server.drain()[tid])
+                    assert server.mesh is mesh
+                finally:
+                    if mesh:
+                        dist.destroy_process_group()
+            assert [r.interval for r in reps[0].records] == \
+                [r.interval for r in reps[1].records]
+            assert all(torch.equal(reps[0].final_params[k], v)
+                       for k, v in reps[1].final_params.items())
             continue
         # the rings and profiles are ported: the gates arm, as the
         # reference's server arms them
@@ -416,9 +436,16 @@ def test_launcher_demo_serves_eight_tenants(capsys, tmp_path):
     with pytest.raises(SystemExit):
         launch_fleet.main(["--demo", "--device", "cpu",
                            "--assert-compiles", "3", "--samples", "256"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launch_fleet.main(["--demo", "--device", "cpu", "--mesh",
-                           "debug"])
+    # --mesh debug in a rank of a launched world of one (this process):
+    # served over its mesh, nothing spawned
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "1")
+        mp.setenv("RANK", "0")
+        got = launch_fleet.main(["--demo", "--device", "cpu", "--samples",
+                                 "256", "--mesh", "debug",
+                                 "--assert-compiles", "2"])
+    assert len(got) == 8
+    assert "(gloo, 1 ranks)" in capsys.readouterr().out
     manifest = tmp_path / "m.json"
     manifest.write_text('{"tenants": [{"arch": "svm-wafer", "budget": 600,'
                         ' "tenant_id": "only"}]}')

@@ -1430,3 +1430,107 @@ def test_nccl_ranks_shard_the_sync_run(cuda_device, tmp_path):
     if n < 2:
         pytest.skip("an NCCL world of several ranks needs several cards")
     _world_equals_unsharded(2 if n < 4 else 4, "nccl", tmp_path)
+
+
+_PART2_RANK_CODE = """
+import pickle, sys
+import torch.distributed as dist
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_debug_mesh
+sys.path.insert(0, {tests!r})
+from test_torch_kernels_cuda import _sharded_async_and_cohort
+resolve_device("cuda")
+mesh = make_debug_mesh(2, 1, device="cuda", backend="gloo")
+out = _sharded_async_and_cohort(mesh)
+with open({out!r} + f"/rank{{mesh.rank}}.pkl", "wb") as f:
+    pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _sharded_async_and_cohort(mesh=None):
+    """kmeans-traffic (2,000 samples, 4 edges) on the card over ``mesh``
+    (None: unsharded): the async engine at the wave width the mesh
+    resolves (pinned to 4 without one) on draws replayed from a seeded
+    numpy generator, then a cohort of 4 slots serving 6 sync tenants
+    (the last two admitted as slots free); events, final params, census,
+    each tenant's records and params."""
+    import dataclasses
+    from repro_torch.el import ELSession
+    from repro_torch.el.fleet import FleetServer, TenantRun
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=4,
+                         device="cuda")
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode="async", n_edges=4,
+                              budget=3000.0, utility=fx["utility"],
+                              async_batch_k=0 if mesh is not None else 4)
+    rng = np.random.default_rng(5)
+    k, b = cfg.max_interval, fx["executor"].batch
+    draws = ReplayDraws(rng.gumbel(size=(256, 4, k)),
+                        rng.uniform(size=(256, 4, k, b)),
+                        rng.standard_normal((256, 4)),
+                        init_gumbel=rng.gumbel(size=(4, k)),
+                        init_normal=rng.standard_normal(4))
+    rep = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+           .with_executor(fx["executor"], init_params=fx["init_params"])
+           .run_async_ingraph(draws=draws, mesh=mesh, contract=True))
+    server = FleetServer(n_slots=4, rounds_per_wave=16, mesh=mesh,
+                         device="cuda")
+    scfg = dataclasses.replace(cfg, mode="sync", async_batch_k=0)
+    ids = [server.submit(TenantRun(
+        cfg=dataclasses.replace(scfg, budget=1500.0 + 250.0 * i, seed=i),
+        executor=fx["executor"], metric_name=fx["metric"],
+        n_samples=fx["n_samples"], init_params=fx["init_params"],
+        max_rounds=128)) for i in range(6)]
+    reports = server.drain()
+    return {"events": [(r.edge, r.interval, r.total_consumed, r.wall_time)
+                       for r in rep.records],
+            "params": tree_to_numpy(rep.final_params),
+            "batch_k": rep.telemetry["device_loop"]["batch_k"],
+            "collectives": rep.telemetry["profile"]["collectives"],
+            "graphs": rep.telemetry["device_loop"]["graphs_captured"],
+            "tenants": {t: ([(r.interval, r.total_consumed, r.wall_time)
+                             for r in reports[t].records],
+                            tree_to_numpy(reports[t].final_params))
+                        for t in ids},
+            "stats": server.stats()}
+
+
+def test_gloo_ranks_on_one_card_shard_the_async_run_and_a_cohort(
+        cuda_device, tmp_path):
+    """Two gloo ranks share the card (CUDA tensors): every rank's sharded
+    async run (K resolved on the mesh: 4) is the unsharded K = 4 card run
+    bit for bit, with all-gathers and no all-reduce and no graph; every
+    tenant of the sharded cohort (2 slots a rank) is the unsharded
+    server's, bit for bit."""
+    import os
+    import pathlib
+    import pickle
+    import sys
+    from repro_torch.launch.hostdev import spawn_ranks
+    tests = str(pathlib.Path(__file__).resolve().parent)
+    code = _PART2_RANK_CODE.format(tests=tests, out=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(pathlib.Path(tests).parent / "src"), tests]))
+    procs = spawn_ranks(2, [sys.executable, "-c", code], env=env,
+                        capture=True, timeout=600)
+    for p in procs:
+        assert p.returncode == 0, p.stderr[-3000:]
+    want = _sharded_async_and_cohort()
+    assert want["collectives"] == {} and want["batch_k"] == 4
+    for r in range(2):
+        got = pickle.load(open(tmp_path / f"rank{r}.pkl", "rb"))
+        assert got["batch_k"] == 4 and got["graphs"] == 0
+        assert got["events"] == want["events"]
+        for key, v in want["params"].items():
+            np.testing.assert_array_equal(got["params"][key], v)
+        assert got["collectives"]["all-gather"]["count"] >= 1
+        assert "all-reduce" not in got["collectives"]
+        assert got["tenants"].keys() == want["tenants"].keys()
+        for t, (records, params) in want["tenants"].items():
+            assert got["tenants"][t][0] == records, t
+            for key, v in params.items():
+                np.testing.assert_array_equal(got["tenants"][t][1][key], v)
+        assert got["stats"] == want["stats"]

@@ -346,13 +346,22 @@ def test_census_counts_host_ops_and_nccl_kernels_once():
     assert total == 2 * 96 * 4 + 4 * 8 * 4 + 12
 
 
-def test_the_launcher_refuses_what_part_1_does_not_run():
+def test_the_launcher_refuses_what_part_1_does_not_run(monkeypatch):
+    """The async engine runs over a mesh and donating since part 2 (here
+    in a rank of a launched world of one, this process: nothing is
+    spawned); an LM arch with ``--mesh`` is still refused, as the
+    reference refuses it."""
     from repro_torch.launch import train
     base = ["--mode", "ol4el", "--edges", "2", "--samples", "200",
             "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        train.main(["--arch", "svm-wafer", "--el-mode", "async",
-                    "--mesh", "debug"] + base)
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    rep = train.main(["--arch", "svm-wafer", "--el-mode", "async",
+                      "--budget", "1500", "--mesh", "debug", "--donate"]
+                     + base)
+    assert rep.mode == "async" and rep.n_aggregations > 0
+    assert rep.terminated_reason == "budget_exhausted"
+    assert rep.telemetry["device_loop"]["batch_k"] == 1   # one device
     with pytest.raises(SystemExit):          # the reference's restriction
         train.main(["--arch", "qwen3-1.7b", "--smoke", "--mesh", "debug"]
                    + base)

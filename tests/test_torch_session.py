@@ -159,16 +159,29 @@ def test_coordinator_and_horizon_match_reference(mode, cost_model):
 def test_later_slices_raise_not_implemented(fixtures):
     """The sweep engine's and the async engine's entry points
     (``sweep``, ``run_async_ingraph``, ``run_async(rng_streams="jax")``)
-    run, and raise only for their unported option, sharded runs; the
-    scenario engine's sweep axes are taken as the reference takes them
-    (they need ``cfg.scenario`` set)."""
+    run, over a mesh too (here a gloo world of one rank, this process:
+    the runs are the unsharded ones; several ranks are
+    ``tests/test_torch_mesh_events.py``'s); the scenario engine's sweep
+    axes are taken as the reference takes them (they need
+    ``cfg.scenario`` set)."""
+    import torch.distributed as dist
     from repro.el.sweep import SweepSpec as JaxSpec
     from repro_torch.el.scenarios import ScenarioSpec
     from repro_torch.el.sweep import SweepSpec
+    from repro_torch.launch.mesh import make_mesh
     jf, tf = fixtures["svm-wafer"]
     sess = ELSession(_cfg(tf, "sync", "ol4el")).with_executor(tf["executor"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sess.sweep(SweepSpec(seeds=(0,)), mesh=object())
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        one = sess.sweep(SweepSpec(seeds=(0,), max_rounds=16), mesh=mesh)
+        ran = sess.run_async_ingraph(mesh=mesh, max_events=4)
+    finally:
+        dist.destroy_process_group()
+    plain = sess.sweep(SweepSpec(seeds=(0,), max_rounds=16))
+    for k, v in plain.out.items():
+        np.testing.assert_array_equal(one.out[k], v)
+    assert ran.n_aggregations == 4
+    assert ran.telemetry["device_loop"]["batch_k"] == 1
     spec = SweepSpec(policy=("ol4el",))
     with pytest.raises(ValueError) as want:
         JaxSpec(policy=("ol4el",)).cell_cfgs(_cfg(jf, "sync", "ol4el"))
@@ -179,8 +192,6 @@ def test_later_slices_raise_not_implemented(fixtures):
                                                scenario=ScenarioSpec()))
     assert [c.policy for c in cells] == ["ol4el"]
     assert cells[0].scenario == ScenarioSpec()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        sess.run_async_ingraph(mesh=object())
     assert sess.run_async_ingraph(max_events=4).n_aggregations == 4
     assert sess.run_async(rng_streams="jax",
                           max_events=4).n_aggregations == 4

@@ -455,8 +455,25 @@ def test_sweep_rejects_what_it_does_not_port(fixtures):
                                             init_params=tf["init_params"])
 
     spec = SweepSpec(seeds=(0,), max_rounds=8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        session().sweep(spec, mesh=object())
+    # over a mesh: a world of one rank (this process) runs every cell
+    # itself; a mesh with no edge axis cannot hold the sweep dim (the
+    # reference's ValueError; the 2- and 4-rank grids are
+    # tests/test_torch_mesh_events.py's)
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    try:
+        one = session().sweep(spec, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    plain = session().sweep(spec)
+    for k, v in plain.out.items():
+        np.testing.assert_array_equal(one.out[k], v)
+    class ModelOnly:                     # what the placement reads
+        axis_names, devices, rank = ("model",), np.arange(2), 0
+
+    with pytest.raises(ValueError, match="no edge axes"):
+        session().sweep(spec, mesh=ModelOnly())
     # the per-cell rings are ported: each cell's come back stacked
     rep = session().sweep(spec, telemetry=True)
     np.testing.assert_array_equal(rep.out["telemetry"]["head"],
@@ -489,9 +506,17 @@ def test_launch_sweep_runs_on_the_cpu(capsys):
                        "--edges", "2", "--device", "cpu"])
     text = capsys.readouterr().out
     assert "2 cells" in text and "Pareto frontier" in text
-    with pytest.raises(NotImplementedError, match="item 14"):
-        launch_sweep.main(["--device", "cpu", "--samples", "200", "--mesh",
-                           "debug"])
+    # --mesh debug in a rank of a launched world of one (this process):
+    # the grid runs over its mesh, nothing spawned
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("WORLD_SIZE", "1")
+        mp.setenv("RANK", "0")
+        launch_sweep.main(["--device", "cpu", "--samples", "200", "--seeds",
+                           "0", "--edges", "2", "--max-rounds", "16",
+                           "--mesh", "debug"])
+    text = capsys.readouterr().out
+    assert "mesh {'data': 1, 'model': 1} (gloo, 1 ranks)" in text
+    assert "spawning" not in text
     # the scenario engine's axes run, as the reference's launcher runs them:
     # --policy implies the identity scenario, --churn-rate a base --churn
     for flags in (["--policy", "ol4el"], ["--churn", "0.2", "--churn-rate",
