@@ -129,7 +129,8 @@ Phases, each printing JSON lines:
               ``ref.allowed_error``; (b) ``bench_fleet`` at 16 tenants
               (its fleet contract: ``fleet_16`` makes
               ``sequential_ingraph_16``'s aggregations); (c)
-              ``bench_check --smoke`` (a small ``bench_el`` on the card
+              ``bench_check --smoke`` (a small ``bench_el`` on the card,
+              its four sharded tiers in 4 gloo ranks sharing the card,
               against the committed ``BENCH_torch_el.json``) and (d)
               ``bench_check`` on the committed baselines: a contract or
               ledger finding, or exit code 2, fails; the ratio and overhead
@@ -275,13 +276,25 @@ Phases, each printing JSON lines:
               >= 1, no all-reduce) and the donated twin (same records,
               ``alias_bytes == param_bytes``); (b) ``local_sgd.
               make_el_round`` on mamba2-370m at full width (E = 2, h_max
-              = 2, 3 rounds, the per-edge batch the ``--step el_round``
-              plan picks) on one rank with both edges and on the 2 ranks
+              = 2, 3 rounds, a per-edge batch of 8 whose ``--step
+              el_round`` plan must fit 0.8 of the card on 2 ranks) on one
+              rank with both edges and on the 2 ranks
               with one edge each: params bit for bit equal, losses finite,
               each rank's peak within 15 % of the plan; (c) an NCCL world
               of one (``chip_smoke.py --rank nccl SPEC``): the sharded
-              sync run issues no collective; each line beside the card's
-              name and power limit;
+              sync run issues no collective; (d) in (b)'s world after (b),
+              a (1 data x 2 model) mesh: (b)'s first round (intervals (2,
+              2)) with both edges on each rank and each edge's model split
+              over the 2 ranks (``init_el_state(mesh=)``, every group's
+              weights gathered in its forward and remat recompute, each
+              gradient leaf for the clip): every rank's blocks of the
+              state (params and AdamW moments) bit for bit the matching
+              slices of (b)'s one-rank state after its first round (the
+              two ranks' blocks cover every value), losses equal and
+              finite, ``ssd_scan`` launched on each rank, each rank's
+              peak within 15 % of ``plan_combo(step_mode="el_round",
+              model_ranks=2)``; each line beside the card's name and
+              power limit;
 11. ranks, part 2 -- in phase 10's gloo world, after its runs: (a) phase
               4c's full-width fixtures on its replayed draws through
               ``run_async_ingraph(mesh=, contract=True)`` at K = 1 and at
@@ -353,8 +366,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t`` is its seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - T_START, 2)}),
+          flush=True)
 
 
 def fail(msg: str) -> None:
@@ -5060,7 +5079,7 @@ LM_EDGES, LM_H_MAX, LM_SEQ = 2, 2, 512
 # the plan plans), then one edge each
 LM_INTERVALS = ((2, 2), (1, 2), (2, 1))
 LM_WEIGHTS = (1.0, 3.0)
-LM_EDGE_BATCHES = (8, 4)       # per-edge batches, largest first
+LM_EDGE_BATCH = 8              # per-edge batch, its plan checked to fit
 LM_CARD_SHARE = 0.8            # of the card both ranks' planned peaks may use
 
 
@@ -5094,7 +5113,10 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
     ``LM_INTERVALS`` rounds over ``mesh`` (None: both edges here), the
     ``ssd_scan`` count set to 0 just before and read just after; the
     state's peak over the rounds (the rise over what was allocated, plus
-    the arguments' blocks, as ``dryrun.measure_step`` reads it)."""
+    the arguments' blocks, as ``dryrun.measure_step`` reads it).  On one
+    rank also ``first_blocks``: after the first round, for each rank of
+    (d)'s (1 x 2) mesh the digests of the state's slices that rank holds
+    (``model_blocks``)."""
     import torch
     from repro_torch.config import get_config
     from repro_torch.federated import local_sgd
@@ -5117,7 +5139,7 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ssd_ops.launches = 0
-    losses, secs = [], []
+    losses, secs, first_blocks = [], [], None
     for r, iv in enumerate(LM_INTERVALS):
         t0 = time.perf_counter()
         state, met = rnd(state, {"tokens": tokens[r]},
@@ -5126,6 +5148,9 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
         losses.append(float(met["mean_loss"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
+        if r == 0 and mesh is None:
+            first_blocks = [model_blocks(cfg, tc, state, i)
+                            for i in range(RANKS)]
     launches = ssd_ops.launches
     peak = torch.cuda.max_memory_allocated() - base + arg_bytes
     params, gather_s = state.params, None
@@ -5137,11 +5162,93 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
         gather_s = time.perf_counter() - t0
     out = {"edges": [mine.start, mine.stop], "losses": losses,
            "round_s": secs, "gather_s": gather_s, "ssd_scan": launches,
-           "peak_bytes": peak,
+           "peak_bytes": peak, "first_blocks": first_blocks,
            "digest": tree_digest(params),
            "finite": all(bool(torch.isfinite(t).all())
                          for t in tree_leaves(params))}
     del state, params, tokens, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_blocks(cfg, tc, state, index: int) -> list:
+    """The digests of the slices of a whole-leaf state (params and
+    moments, every edge) that rank ``index`` of a 2-wide ``model`` axis
+    holds: each leaf's block along the dim ``el_state_specs`` puts on
+    ``model``, a replicated leaf whole, in ``tree_leaves`` order."""
+    from repro_torch.federated import local_sgd
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.models import LM
+    shapes = local_sgd.init_el_state(LM(cfg, device="meta"), tc, LM_EDGES,
+                                     None)
+    specs = local_sgd.el_state_specs(cfg, PlanMesh(1, RANKS), shapes)
+    dims = tree_leaves(local_sgd._state_dims(specs))
+    out = []
+    for leaf, d in zip(tree_leaves(state), dims):
+        if d is not None:
+            n = leaf.shape[d] // RANKS
+            leaf = leaf.narrow(d, index * n, n)
+        out.append(bit_digest(leaf))
+    return out
+
+
+def lm_model_axis(edge_batch: int, seq: int, mesh) -> dict:
+    """(d) on one rank of the (1 x 2) mesh: ``lm_rounds``' model, state
+    and tokens, both edges, this rank's blocks (``init_el_state(mesh=)``),
+    the first round only; the ``ssd_scan`` count set to 0 just before and
+    read just after, the peak read as ``lm_rounds`` reads it, the digests
+    of the rank's blocks, and (past the counted round) one pass of the
+    model group's gathers over an edge's parameters, timed."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.federated import local_sgd
+    from repro_torch.interop import tree_leaves, tree_map
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun
+    cfg = get_config(LM_ARCH).model
+    model = dryrun.build(cfg, "cuda")
+    tc = dryrun._dryrun_train_cfg(edge_batch * LM_EDGES, seq)
+    rnd = local_sgd.make_el_round(model, tc, LM_H_MAX, mesh=mesh)
+    mine = rnd.edges(LM_EDGES)
+    state = local_sgd.init_el_state(
+        model, tc, LM_EDGES, torch.Generator(device="cuda").manual_seed(29),
+        edges=mine, mesh=mesh)
+    tokens = torch.from_numpy(lm_tokens(edge_batch, seq)[0]).cuda()
+    arg_bytes = dryrun.storages_bytes(tree_leaves(state) + [tokens])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.launches = 0
+    t0 = time.perf_counter()
+    state, met = rnd(state, {"tokens": tokens},
+                     torch.tensor(LM_INTERVALS[0], dtype=torch.int32,
+                                  device="cuda"),
+                     torch.tensor(LM_WEIGHTS, device="cuda"))
+    loss = float(met["mean_loss"])
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches = ssd_ops.launches
+    peak = torch.cuda.max_memory_allocated() - base + arg_bytes
+    axis = local_sgd.model_axis(model, mesh)
+    edge0 = tree_map(lambda a: a[0], state.params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in axis.full_leaves(edge0):
+        pass
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    out = {"edges": [mine.start, mine.stop], "losses": [loss],
+           "round_s": round_s, "gather_pass_s": gather_s,
+           "ssd_scan": launches, "peak_bytes": peak,
+           "digest": tree_digest(state),
+           "split": sum(a.shape != b.shape for a, b in zip(
+               tree_leaves(state.params), tree_leaves(
+                   local_sgd.init_el_state(dryrun.build(cfg, "meta"), tc,
+                                           LM_EDGES, None).params))),
+           "finite": all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(state.params))}
+    del state, edge0, tokens, model, rnd
     torch.cuda.empty_cache()
     return out
 
@@ -5233,6 +5340,12 @@ def rank_main(mode: str, spec_path: str) -> None:
         out = {"classic": {arch: sharded_classic(arch, mesh, want)
                            for arch, want in spec["classic"].items()},
                "lm": lm_rounds(spec["edge_batch"], spec["seq"], mesh)}
+        t_axis = time.perf_counter()
+        model_mesh = make_debug_mesh(1, RANKS, device="cuda",
+                                     backend="gloo")
+        out["model_axis"] = lm_model_axis(spec["edge_batch"], spec["seq"],
+                                          model_mesh)
+        out["model_axis"]["seconds"] = time.perf_counter() - t_axis
         out["part2"] = part2_rank(spec["part2"], mesh)     # phase 11
     else:
         mesh = make_mesh((1, 1), ("data", "model"))     # CUDA + NCCL
@@ -5272,22 +5385,19 @@ def rank_world(n: int, mode: str, spec: dict) -> list:
     return out
 
 
-def pick_edge_batch() -> tuple:
-    """The largest per-edge batch of ``LM_EDGE_BATCHES`` whose planned
-    per-rank peak (``--step el_round``, one edge a rank over 2 data
-    ranks), times the ranks sharing the card, fits ``LM_CARD_SHARE`` of
-    it."""
-    from repro_torch.bench.roofline import CARD_MEMORY_BYTES
+def lm_plans() -> dict:
+    """The ``--step el_round`` plans of (b) (one edge a rank over 2 data
+    ranks) and (d) (both edges, each model over 2 model ranks) at
+    ``LM_EDGE_BATCH``: meta tensors on the host, run on a thread while the
+    gloo world runs."""
     from repro_torch.launch import dryrun
-    for eb in LM_EDGE_BATCHES:
-        row = dryrun.plan_combo(LM_ARCH, "train_4k", step_mode="el_round",
-                                h_max=LM_H_MAX, batch=eb * LM_EDGES,
-                                seq_len=LM_SEQ, edges_per_rank=1,
-                                data_ranks=RANKS)
-        peak = row["memory"]["peak_live_bytes"]
-        if RANKS * peak <= LM_CARD_SHARE * CARD_MEMORY_BYTES:
-            return eb, row
-    fail(f"phase 10: no per-edge batch of {LM_EDGE_BATCHES} fits")
+    kw = dict(step_mode="el_round", h_max=LM_H_MAX,
+              batch=LM_EDGE_BATCH * LM_EDGES, seq_len=LM_SEQ)
+    return {"data": dryrun.plan_combo(LM_ARCH, "train_4k", edges_per_rank=1,
+                                      data_ranks=RANKS, **kw),
+            "model": dryrun.plan_combo(LM_ARCH, "train_4k",
+                                       edges_per_rank=LM_EDGES,
+                                       model_ranks=RANKS, **kw)}
 
 
 def ranks_phase(part2_refs: dict) -> dict:
@@ -5319,7 +5429,7 @@ def ranks_phase(part2_refs: dict) -> dict:
                       "kmeans_assign_batched": ka_ops.batched_launches,
                       "param_bytes": sum(v.nbytes for v in init.values())}
         del sess, rep, fx
-    edge_batch, plan = pick_edge_batch()
+    edge_batch = LM_EDGE_BATCH
     one = lm_rounds(edge_batch, LM_SEQ)
     t_base = time.perf_counter()
     base = part2_references(part2_refs)
@@ -5330,7 +5440,21 @@ def ranks_phase(part2_refs: dict) -> dict:
             "edge_batch": edge_batch, "seq": LM_SEQ,
             "part2": {"init": {a: r["init"] for a, r in
                                part2_refs["async"].items()}}}
+    # (b)'s and (d)'s plans on the host while the ranks run
+    import threading
+    from repro_torch.bench.roofline import CARD_MEMORY_BYTES
+    plans: dict = {}
+    planner = threading.Thread(target=lambda: plans.update(lm_plans()))
+    planner.start()
     ranks = rank_world(RANKS, "gloo", spec)
+    planner.join()
+    check(set(plans) == {"data", "model"}, "phase 10: the plans failed")
+    plan = plans["data"]
+    check(RANKS * plan["memory"]["peak_live_bytes"]
+          <= LM_CARD_SHARE * CARD_MEMORY_BYTES,
+          f"phase 10: the planned per-rank peak at a per-edge batch of "
+          f"{edge_batch}, {plan['memory']['peak_live_bytes']} bytes, does "
+          f"not fit {LM_CARD_SHARE} of the card on {RANKS} ranks")
     nccl = rank_world(1, "nccl", spec)[0]
     out = {"kmeans_assign_batched": 0, "ssd_scan": one["ssd_scan"]}
     for arch, w in want.items():
@@ -5395,6 +5519,8 @@ def ranks_phase(part2_refs: dict) -> dict:
               f"{planned} vs measured {lm['peak_bytes']} ({err:+.3f})")
         check(res["modules"] == [], f"rank {r} imported {res['modules']}")
         out["ssd_scan"] += lm["ssd_scan"]
+    out["model_axis"] = model_axis_checks(ranks, one, plans["model"],
+                                         edge_batch, card)
     got = nccl["classic"]["svm-wafer"]
     emit("ranks_nccl_world_of_one", card=card, backend=nccl["backend"],
          mesh=nccl["mesh"], collectives=got["collectives"],
@@ -5415,10 +5541,54 @@ def ranks_phase(part2_refs: dict) -> dict:
     out["edge_batch"] = edge_batch
     emit("ranks", card=card, seconds=out["seconds"],
          phase_10_seconds=out["seconds"] - part2_s,
+         model_axis_seconds=out["model_axis"]["seconds"],
          kmeans_assign_batched=out["kmeans_assign_batched"],
-         ssd_scan=out["ssd_scan"], edge_batch=edge_batch,
+         ssd_scan=out["ssd_scan"],
+         ssd_scan_model_axis=out["model_axis"]["ssd_scan"],
+         edge_batch=edge_batch,
          unverified="NCCL across several cards: the machine has one")
     return out
+
+
+def model_axis_checks(ranks: list, one: dict, plan: dict, edge_batch: int,
+                      card: str) -> dict:
+    """(d)'s lines and checks: each rank's blocks against (b)'s one-rank
+    state after its first round, its loss, ``ssd_scan``, its peak against
+    the plan."""
+    planned = plan["memory"]["peak_live_bytes"]
+    launches = 0
+    for r, res in enumerate(ranks):
+        ma = res["model_axis"]
+        err = planned / ma["peak_bytes"] - 1.0
+        emit("ranks_el_round_model_axis", arch=LM_ARCH, rank=r, card=card,
+             mesh={"data": 1, "model": RANKS}, edges=ma["edges"],
+             edge_batch=edge_batch, h_max=LM_H_MAX,
+             intervals=LM_INTERVALS[0], round_s=ma["round_s"],
+             one_rank_first_round_s=one["round_s"][0],
+             gather_pass_s=ma["gather_pass_s"], seconds=ma["seconds"],
+             losses=ma["losses"], ssd_scan=ma["ssd_scan"],
+             split_leaves=ma["split"], peak_bytes=ma["peak_bytes"],
+             planned_peak_bytes=planned, peak_error=err,
+             plan_collectives=plan["collectives"],
+             plan_s=plan["plan_s"])
+        check(ma["digest"] == one["first_blocks"][r],
+              f"phase 10 (d) rank {r}: the model-axis round's blocks are "
+              "not the one-rank state's after its first round")
+        check(ma["losses"] == one["losses"][:1],
+              f"phase 10 (d) rank {r}: loss {ma['losses']} vs "
+              f"{one['losses'][:1]}")
+        check(ma["finite"] and all(x == x and abs(x) < float("inf")
+                                   for x in ma["losses"]),
+              f"phase 10 (d) rank {r}: non-finite")
+        check(ma["split"] > 0, f"phase 10 (d) rank {r}: no leaf is split")
+        check(ma["ssd_scan"] > 0, f"phase 10 (d) rank {r}: ssd_scan never "
+              "launched")
+        check(abs(err) <= PLAN_PEAK_TOL,
+              f"phase 10 (d) rank {r}: planned peak {planned} vs measured "
+              f"{ma['peak_bytes']} ({err:+.3f})")
+        launches += ma["ssd_scan"]
+    return {"ssd_scan": launches,
+            "seconds": max(res["model_axis"]["seconds"] for res in ranks)}
 
 
 # -- phase 11: several ranks, part 2 -------------------------------------------
@@ -6388,7 +6558,15 @@ def main() -> None:
              "phase 10: local_sgd.make_el_round on mamba2-370m at full "
              "width, one rank with both edges and 2 gloo ranks with one "
              "each, every layer's forward and remat recompute",
-             ranks["ssd_scan"], ssd_el, ssd_el_round, [ssd_el_round]))]}),
+             ranks["ssd_scan"], ssd_el, ssd_el_round, [ssd_el_round]),
+            ("ssd_scan_el_round_model_axis",
+             "phase 10 (d): local_sgd.make_el_round on mamba2-370m at full "
+             "width over a (1 data x 2 model) mesh of 2 gloo ranks, both "
+             "edges on each rank, each edge's model split over the ranks "
+             "(its layers' weights gathered before use), every layer's "
+             "forward and remat recompute on each rank",
+             ranks["model_axis"]["ssd_scan"], ssd_el, ssd_el_round,
+             [ssd_el_round]))]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -55,10 +55,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 #: within-run tier ratios the smoke gate tracks (row, reference); the
-#: us_per_aggregation ratio between these pairs is scale-robust.  The
-#: sharded / donated rows are ROADMAP Queue 1 item 14's: the port's
-#: bench_el does not produce them yet, and ``compare_ratios`` skips a
-#: pair whose rows a run lacks
+#: us_per_aggregation ratio between these pairs is scale-robust (the
+#: sharded rows come from bench_el's 4 gloo ranks)
 SMOKE_PAIRS = (
     ("el_sync_sharded", "el_sync_ingraph"),
     ("el_sync_sharded_donate", "el_sync_ingraph"),

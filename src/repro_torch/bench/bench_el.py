@@ -10,6 +10,9 @@ tier the port runs:
   * ``ingraph``           — the compiled program (``make_sync_program`` /
                             ``make_async_program``: chunks of masked
                             steps, each a CUDA graph replay on a card);
+  * ``ingraph_donate``    — the same program run ``donate=True``: the
+                            run takes the initial params' tensors as its
+                            carry (``alias_bytes`` = their bytes);
   * ``ingraph_telemetry`` — the program with the device telemetry rings
                             (``repro_torch.obs.rings``) recording every
                             round; against the bare ``ingraph`` row this
@@ -21,17 +24,28 @@ tier the port runs:
                             (``repro_torch.el.scenarios``) under a
                             ``--churn-rate`` dropout schedule; against the
                             bare ``ingraph`` row this bounds the scenario
-                            engine's overhead (acceptance: <10%).
+                            engine's overhead (acceptance: <10%);
+  * ``sharded``           — the program over the reference's 2 x 2
+                            (data, model) debug mesh (``mesh=``: the edge
+                            dim split over ``data``, the edge stack
+                            all-gathered before each aggregation, chunks
+                            run eagerly; the async tier at the wave width
+                            the mesh resolves, ``meta["async_batch_k"]
+                            ["sharded_auto"]``);
+  * ``sharded_donate``    — the sharded program run ``donate=True``.
 
-The reference's ``ingraph_donate``, ``sharded`` and ``sharded_donate``
-tiers need ``donate=`` / ``mesh=`` (ROADMAP Queue 1 item 14): they are
-listed in ``meta["not_ported"]`` and have no row.
+The sharded tiers run in 4 ranks that ``repro_torch.launch.hostdev.
+spawn_ranks`` starts once for all four (``python -m repro_torch.bench.
+bench_el --rank-spec FILE``): gloo ranks, with CUDA tensors on the one
+card they share (or CPU tensors on the CPU), each timing the same calls;
+rank 0's rows are kept.  ``meta`` records the mesh, the ranks, their
+backend and the card.
 
 Every compiled row carries the tier's ``repro_torch.obs.prof``
 ``ProgramProfile`` under the reference's keys (``profile_jit``: static
 buffer bytes, the allocator's chunk peak on a card, the matmul flops of
-one step, an empty collective census on one card), and
-``profile_errors`` where a field could not be measured.
+one step, the collective census: empty on one rank, a sharded tier's
+gathers), and ``profile_errors`` where a field could not be measured.
 
 Timing convention (shared with ``bench_fleet``): every timed call ends in
 ``torch.cuda.synchronize()`` on a card; the scalar ``wall_us`` is the MIN
@@ -54,8 +68,13 @@ schema-versioned entry to ``BENCH_torch_history.jsonl``
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
+import os
+import pickle
+import sys
+import tempfile
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -71,21 +90,17 @@ from repro_torch.el.rng import TorchDraws
 from repro_torch.el.scenarios import ChurnSpec, ScenarioSpec
 from repro_torch.interop import tree_from_numpy, tree_map
 from repro_torch.launch.classic import classic_fixture
+from repro_torch.launch.hostdev import spawn_ranks
 from repro_torch.obs.prof import profile_jit
 from repro_torch.obs.regress import append_history
 from repro_torch.obs.timing import repeat_s, summarize_ns, time_block
 
-_MESH_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
-
-#: the reference's tiers the port cannot run yet, by row name
-NOT_PORTED = {
-    "el_sync_ingraph_donate": "donate= (params aliased into the output)",
-    "el_async_ingraph_donate": "donate= (params aliased into the output)",
-    "el_sync_sharded": "mesh= (the edge dim sharded over cards)",
-    "el_async_sharded": "mesh= (the edge dim sharded over cards)",
-    "el_sync_sharded_donate": "mesh= and donate=",
-    "el_async_sharded_donate": "mesh= and donate=",
-}
+#: the sharded tiers' world: the reference's ``make_debug_mesh_for(4)``,
+#: a 2 x 2 (data, model) mesh of gloo ranks
+SHARDED_RANKS = 4
+SHARDED_BACKEND = "gloo"
+#: (row suffix, donate) of the tiers the ranks run, for each mode
+SHARDED_TIERS = (("sharded", False), ("sharded_donate", True))
 
 
 def _fixture(args, device: DeviceLike = None):
@@ -107,10 +122,11 @@ def _init(model, ex, init_params):
     return model.init(torch.Generator().manual_seed(0))
 
 
-def _profile_row(program, example_args) -> Dict[str, Any]:
+def _profile_row(program, example_args, donate: bool = False
+                 ) -> Dict[str, Any]:
     """The tier's ``ProgramProfile`` flattened into BENCH-row fields (the
     reference's keys)."""
-    prof = profile_jit(program, *example_args)
+    prof = profile_jit(program, *example_args, donated=donate)
     row = {
         "peak_live_bytes": prof.peak_live_bytes,
         "argument_bytes": prof.argument_bytes,
@@ -129,8 +145,11 @@ def _profile_row(program, example_args) -> Dict[str, Any]:
 
 def bench_compiled(model, ex, ol, ns, mode, args, telemetry=None,
                    batch_k=None, scenario=None, init_params=None,
-                   draws_for: Optional[DrawsFor] = None) -> Dict[str, Any]:
-    """Time one compiled-program tier and read its profile."""
+                   draws_for: Optional[DrawsFor] = None, mesh=None,
+                   donate: bool = False) -> Dict[str, Any]:
+    """Time one compiled-program tier and read its profile; ``mesh``:
+    the program over it (every rank of the mesh calls this alike),
+    ``donate``: every call donates its fresh copy of the params."""
     cfg = dataclasses.replace(ol, mode=mode, scenario=scenario)
     if batch_k is not None:
         cfg = dataclasses.replace(cfg, async_batch_k=int(batch_k))
@@ -139,14 +158,14 @@ def bench_compiled(model, ex, ol, ns, mode, args, telemetry=None,
         program = make_sync_program(
             model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr, batch=ex.batch,
             n_samples=np.asarray(ns, np.float64), max_rounds=horizon,
-            telemetry=telemetry, device=ex.device)
+            mesh=mesh, telemetry=telemetry, device=ex.device)
         knobs = sync_knobs(cfg)
     else:
         horizon = args.max_events
         program = make_async_program(
             model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr, batch=ex.batch,
-            max_events=horizon, telemetry=telemetry,
-            batch_k=resolve_async_batch_k(cfg), device=ex.device)
+            max_events=horizon, mesh=mesh, telemetry=telemetry,
+            batch_k=resolve_async_batch_k(cfg, mesh), device=ex.device)
         knobs = async_knobs(cfg)
     params0 = _init(model, ex, init_params)
 
@@ -160,7 +179,7 @@ def bench_compiled(model, ex, ol, ns, mode, args, telemetry=None,
                           .manual_seed(cfg.seed + 17))
 
     def call():
-        out = program(fresh(), knobs, draws())[1]
+        out = program(fresh(), knobs, draws(), donate=donate)[1]
         synchronize(program.device)
         return out
 
@@ -176,7 +195,7 @@ def bench_compiled(model, ex, ol, ns, mode, args, telemetry=None,
         "wall_us": dt_us,
         "wall_us_stats": summarize_ns(reps),
     }
-    row.update(_profile_row(program, (params0, knobs)))
+    row.update(_profile_row(program, (params0, knobs), donate))
     return row
 
 
@@ -211,14 +230,15 @@ def bench(args, init_params=None,
     churn_scn = ScenarioSpec(churn=ChurnSpec(rate=args.churn_rate))
 
     rows: Dict[str, Dict[str, Any]] = {}
-    # (name, telemetry, batch_k, scenario) — batch_k is async-only: the
-    # batched tier pins an explicit K-event wave width; the churn tier is
-    # sync-only (the scenario-path program with a dropout schedule, gated
-    # <10% per-round over the bare one)
-    tiers = [("ingraph", None, None, None),
-             ("ingraph_telemetry", args.telemetry_ring, None, None),
-             ("ingraph_batched", None, args.async_batch_k, None),
-             ("ingraph_churn", None, None, churn_scn)]
+    # (name, donate, telemetry, batch_k, scenario) — batch_k is
+    # async-only: the batched tier pins an explicit K-event wave width;
+    # the churn tier is sync-only (the scenario-path program with a
+    # dropout schedule, gated <10% per-round over the bare one)
+    tiers = [("ingraph", False, None, None, None),
+             ("ingraph_donate", True, None, None, None),
+             ("ingraph_telemetry", False, args.telemetry_ring, None, None),
+             ("ingraph_batched", False, None, args.async_batch_k, None),
+             ("ingraph_churn", False, None, None, churn_scn)]
     for mode in ("sync", "async"):
         if not args.skip_host:
             rows[f"el_{mode}_host"] = bench_host(model, ex, ol, ns, mode,
@@ -226,7 +246,7 @@ def bench(args, init_params=None,
             print(f"el_{mode}_host: "
                   f"{rows[f'el_{mode}_host']['us_per_aggregation']:.0f} "
                   "us/agg", flush=True)
-        for name, telem, batch_k, scn in tiers:
+        for name, donate, telem, batch_k, scn in tiers:
             if batch_k is not None and mode != "async":
                 continue
             if scn is not None and mode != "sync":
@@ -234,13 +254,9 @@ def bench(args, init_params=None,
             row = bench_compiled(model, ex, ol, ns, mode, args,
                                  telemetry=telem, batch_k=batch_k,
                                  scenario=scn, init_params=init_params,
-                                 draws_for=draws_for)
+                                 draws_for=draws_for, donate=donate)
             rows[f"el_{mode}_{name}"] = row
-            peak = row.get("peak_live_bytes")
-            print(f"el_{mode}_{name}: {row['us_per_aggregation']:.0f} "
-                  f"us/agg, peak "
-                  f"{peak if peak is None else f'{peak / 1e6:.2f}MB'}",
-                  flush=True)
+            _print_row(f"el_{mode}_{name}", row)
         # instrumented/scenario per-round cost vs the bare program — the
         # acceptance bound for both is <10% (bench_check gates any row
         # carrying overhead_vs_ingraph_pct)
@@ -256,32 +272,116 @@ def bench(args, init_params=None,
             print(f"{tier_name} overhead: "
                   f"{trow['overhead_vs_ingraph_pct']:+.1f}%", flush=True)
 
+    draws = None
+    if draws_for is not None:
+        draws = {mode: draws_for(dataclasses.replace(ol, mode=mode),
+                                 ex.batch, horizon)
+                 for mode, horizon in (("sync", args.max_rounds),
+                                       ("async", args.max_events))}
+    sharded = sharded_rows(args, device, init_params, draws)
+    rows.update(sharded["rows"])
+    for name, row in sharded["rows"].items():
+        _print_row(name, row)
+
     meta = {
         "workload": "svm-wafer",
         "edges": args.edges, "samples": args.samples,
         "batch": args.batch, "budget": args.budget,
         "max_rounds": args.max_rounds, "max_events": args.max_events,
-        "devices": 1, "mesh": None,
+        "devices": SHARDED_RANKS, "mesh": sharded["mesh"],
+        "ranks": {"count": SHARDED_RANKS, "backend": SHARDED_BACKEND,
+                  "device": device.type,
+                  "cards": 1 if device.type == "cuda" else 0,
+                  "rows": sorted(sharded["rows"])},
         "repeats": args.repeats,
         "async_batch_k": {
             "batched_tier": int(args.async_batch_k),
-            "sharded_auto": None,
+            "sharded_auto": sharded["sharded_auto"],
         },
         "churn": {"rate": float(args.churn_rate),
                   "period": churn_scn.period},
         "backend": device.type, "torch": torch.__version__,
         **card_meta(device),
-        "not_ported": {name: f"{why}: {_MESH_ITEM}"
-                       for name, why in NOT_PORTED.items()},
         "note": (f"wall-clock on the {device.type} device's host, every "
                  "timed call ending in a synchronize; wall_us is "
                  "min-of-repeats (wall_us_stats carries the spread); "
                  "profile fields are repro_torch.obs.prof.profile_jit's: "
                  "static buffer bytes, the allocator's chunk peak (CUDA "
-                 "only), the matmul flops of one step, an empty "
-                 "collective census on one device"),
+                 "only), the matmul flops of one step, the collective "
+                 "census (empty on one device); the *_sharded* rows are "
+                 f"rank 0's of {SHARDED_RANKS} {SHARDED_BACKEND} ranks on "
+                 "a 2 x 2 (data, model) mesh"
+                 + (" sharing the one card: their gathers go through host "
+                    "memory and their chunks run eagerly"
+                    if device.type == "cuda" else "")),
     }
     return {"meta": meta, "rows": rows}
+
+
+def _print_row(name: str, row: Dict[str, Any]) -> None:
+    peak = row.get("peak_live_bytes")
+    print(f"{name}: {row['us_per_aggregation']:.0f} us/agg, peak "
+          f"{peak if peak is None else f'{peak / 1e6:.2f}MB'}", flush=True)
+
+
+def sharded_rows(args, device: torch.device, init_params=None,
+                 draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """The four sharded tiers, from one world of ``SHARDED_RANKS`` ranks
+    (:func:`rank_main`): ``{"rows", "mesh", "sharded_auto"}``, rank 0's.
+    ``draws``: per mode a provider every call of that mode's tiers
+    replays (default: the session's generator, as in-process)."""
+    spec = {"args": vars(args), "device": str(device),
+            "init_params": init_params, "draws": draws}
+    with tempfile.TemporaryDirectory(prefix="bench_el_ranks_") as td:
+        path = os.path.join(td, "spec.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(spec, f)
+        src = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [src, os.environ.get("PYTHONPATH", "")]))
+        procs = spawn_ranks(SHARDED_RANKS, [
+            sys.executable, "-m", "repro_torch.bench.bench_el",
+            "--rank-spec", path], env=env, capture=True, timeout=1800)
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise RuntimeError(f"bench_el: sharded rank {r} exited "
+                                   f"{p.returncode}:\n{p.stderr[-4000:]}")
+        with open(os.path.join(td, "rows.pkl"), "rb") as f:
+            return pickle.load(f)
+
+
+def rank_main(spec_path: str) -> None:
+    """One rank of :func:`sharded_rows`' world: every sharded tier of both
+    modes over the 2 x 2 debug mesh; rank 0 writes its rows beside the
+    spec."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh_for
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    args = argparse.Namespace(**spec["args"])
+    device = resolve_device(spec["device"])
+    mesh = make_debug_mesh_for(SHARDED_RANKS, device=device,
+                               backend=SHARDED_BACKEND)
+    model, ex, ol, ns = _fixture(args, device)
+    draws = spec["draws"]
+    draws_for = None if draws is None else (
+        lambda cfg, batch, horizon: copy.deepcopy(draws[cfg.mode]))
+    rows = {}
+    for mode in ("sync", "async"):
+        for name, donate in SHARDED_TIERS:
+            rows[f"el_{mode}_{name}"] = bench_compiled(
+                model, ex, ol, ns, mode, args,
+                init_params=spec["init_params"], draws_for=draws_for,
+                mesh=mesh, donate=donate)
+    if mesh.rank == 0:
+        out = {"rows": rows, "mesh": dict(mesh.shape),
+               "sharded_auto": resolve_async_batch_k(
+                   dataclasses.replace(ol, mode="async"), mesh)}
+        with open(os.path.join(os.path.dirname(spec_path), "rows.pkl"),
+                  "wb") as f:
+            pickle.dump(out, f)
+    dist.destroy_process_group()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -318,6 +418,10 @@ def parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--rank-spec"]:
+        rank_main(argv[1])
+        return
     args = parser().parse_args(argv)
     report = bench(args)
     with open(args.out, "w") as f:

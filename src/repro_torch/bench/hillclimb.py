@@ -8,8 +8,10 @@ Each variant is a (flags, tag) combination run through
 needed).  Rows append to ``results/torch_dryrun_opt.jsonl`` with distinct
 tags; calibration twins (tagged calib1/calib2 within the same file and
 tag) feed ``repro_torch.bench.roofline``'s extrapolation per variant.
-The ``el_round`` variants plan the OL4EL round over a mesh of edges, which
-waits for ROADMAP item 14: they write failed rows naming it.
+The ``el_round`` variants plan one rank's share of the OL4EL round
+(``dryrun --step el_round``, ``repro_torch.federated.local_sgd``); a
+variant whose state does not fit one card writes its row with ``fits:
+false``.
 
 Usage: PYTHONPATH=src python -m repro_torch.bench.hillclimb [--only N]
 """

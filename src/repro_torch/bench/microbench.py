@@ -15,6 +15,11 @@ the row also holds them as ``launches`` / ``max_abs_err``, with
 ``assign_mismatches`` (assignments that differ from the plain version's)
 and ``beyond_allowed`` (distances outside ``ref.allowed_error``).
 
+``--sharded`` adds the reference's four donated and mesh-sharded rows
+after the sweep's, from one ``repro_torch.bench.bench_el`` run at the
+reference's sizes (``SHARDED_BENCH``; its sharded tiers run in 4 gloo
+ranks, sharing the one card).
+
     PYTHONPATH=src python -m repro_torch.bench.microbench [--device cpu]
 """
 
@@ -34,7 +39,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.obs.timing import repeat_s
 from repro_torch.obs.timing import timeit_us as _time
 
-_SHARDED_ITEM = "ROADMAP Queue 1 item 14 (multiple GPUs)"
+#: the ``bench_el`` run behind the sharded rows: the reference's
+#: (``benchmarks/microbench.py:230-233``)
+SHARDED_BENCH = ["--skip-host", "--repeats", "3", "--samples", "2000",
+                 "--budget", "2000", "--max-rounds", "48",
+                 "--max-events", "128"]
 
 #: the E-step rows' inputs: 4096 points of 64 features, 3 centres
 KM_N, KM_D, KM_K = 4096, 64, 3
@@ -126,14 +135,10 @@ def el_fixture(device: DeviceLike = None):
 def run(quiet: bool = False, sharded: bool = False, fleet: bool = False,
         device: DeviceLike = None) -> List[Dict]:
     """The reference's rows on ``device`` (default CUDA).
-    ``sharded=True`` raises ``NotImplementedError`` (the mesh-sharded and
-    donated rows arrive with ROADMAP Queue 1 item 14); ``fleet=True``
-    adds the multi-tenant serving row from the port's ``bench_fleet``
-    (``--tenants 64 --repeats 1``, in this process, no history entry)."""
-    if sharded:
-        raise NotImplementedError(
-            "microbench --sharded: the mesh-sharded and donated single-run "
-            f"rows arrive with {_SHARDED_ITEM}")
+    ``sharded=True`` adds the donated and mesh-sharded single-run rows
+    (:func:`_sharded_rows`); ``fleet=True`` adds the multi-tenant serving
+    row from the port's ``bench_fleet`` (``--tenants 64 --repeats 1``, in
+    this process, no history entry)."""
     dev = resolve_device(device)
     rows = []
 
@@ -287,6 +292,10 @@ def run(quiet: bool = False, sharded: bool = False, fleet: bool = False,
                 f"speedup={seq_host_us / max(sweep_us, 1e-9):.1f}"
                 "x_vs_seq_host"))
 
+    # the donated and mesh-sharded single-run rows (bench_el's tiers)
+    if sharded:
+        rows.extend(_sharded_rows(dev))
+
     # multi-tenant EL serving: a FleetServer cohort (slot waves with
     # mid-flight refill) vs sequential per-tenant sessions
     if fleet:
@@ -296,6 +305,49 @@ def run(quiet: bool = False, sharded: bool = False, fleet: bool = False,
         for row in rows:
             print(f"micro {row['name']:40s} {row['us_per_call']:12.1f} us  "
                   f"{row['derived']}", flush=True)
+    return rows
+
+
+def _sharded_rows(dev: torch.device) -> List[Dict]:
+    """The reference's four rows from one ``bench_el`` run
+    (``SHARDED_BENCH``, no history entry): the sync donated and sharded
+    tiers per round and the async sharded tier per event, each beside
+    its unsharded tier."""
+    import json
+
+    from repro_torch.bench import bench_el
+    with tempfile.TemporaryDirectory() as td:
+        out = os.path.join(td, "bench_el.json")
+        bench_el.main(SHARDED_BENCH + ["--device", str(dev), "--no-history",
+                                       "--out", out])
+        with open(out) as f:
+            sub = json.load(f)["rows"]
+
+    def peak(row):
+        p = row.get("peak_live_bytes")
+        return "n/a" if p is None else f"{p / 1e6:.2f}MB"
+
+    rows = []
+    base = sub["el_sync_ingraph"]
+    for name, tag in (("el_sync_ingraph_donate", "donated"),
+                      ("el_sync_sharded", "sharded_2x2"),
+                      ("el_sync_sharded_donate", "sharded_donated")):
+        row = sub[name]
+        speedup = base["us_per_aggregation"] / max(
+            row["us_per_aggregation"], 1e-9)
+        rows.append(dict(
+            name=f"{name}_per_round", us_per_call=row["us_per_aggregation"],
+            derived=f"{tag},speedup={speedup:.1f}x_vs_replicated,"
+                    f"peak={peak(row)}(vs{peak(base)}),"
+                    f"alias={row.get('alias_bytes', 0)}B"))
+    abase, arow = sub["el_async_ingraph"], sub["el_async_sharded"]
+    speedup = abase["us_per_aggregation"] / max(arow["us_per_aggregation"],
+                                                1e-9)
+    rows.append(dict(
+        name="el_async_sharded_per_event",
+        us_per_call=arow["us_per_aggregation"],
+        derived=f"speedup={speedup:.1f}x_vs_replicated,"
+                f"peak={peak(arow)}(vs{peak(abase)})"))
     return rows
 
 
@@ -326,8 +378,8 @@ if __name__ == "__main__":
     import argparse
     ap = argparse.ArgumentParser()
     ap.add_argument("--sharded", action="store_true",
-                    help="the mesh-sharded/donated single-run rows (raises: "
-                         f"{_SHARDED_ITEM})")
+                    help="also run the donated and mesh-sharded single-run "
+                         "rows (bench_el's tiers; 4 gloo ranks)")
     ap.add_argument("--fleet", action="store_true",
                     help="also run the multi-tenant fleet serving row "
                          "(the port's bench_fleet, in this process)")

@@ -17,11 +17,25 @@ batches.  Before the mean it all-gathers the ``[E, ...]`` parameter stack
 (``repro_torch.launch.mesh.gather_edge_stack``) and reduces it in edge
 order, in f32, on every rank; no all-reduce sits on the parameter path,
 so a run on R ranks is bit-identical to the run on one, on every rank.
-Intervals, weights, the bandit, budgets and the draws are replicated.  A
-mesh whose ``model`` axis is larger than 1 raises: running the
-``param_specs`` layout over ``model`` (tensor parallel, FSDP) is ROADMAP
-item 14's later part; :func:`el_state_specs` still returns the
-reference's specs.
+Intervals, weights, the bandit, budgets and the draws are replicated.
+
+A ``model`` axis of M > 1 ranks splits each edge's model: a rank holds
+only its block of each leaf (parameters and optimizer moments) along the
+dim :func:`el_state_specs` puts on ``model`` (the reference's
+``param_specs`` layout; a leaf the resolver replicates stays whole), and
+gathers each block over the model group just before use, as FSDP /
+ZeRO-3 does (:class:`ModelAxis`): the model's ``param_hook`` all-gathers
+a group's leaves inside the group's ``checkpoint`` (its full weights live
+only during its forward and its recompute), and the embedding, head,
+final norm and prefix layers where they are used; the gather's backward
+keeps the rank's block of the gradient.  Every model rank runs the same
+batch on the same gathered weights, so their gradients are equal and
+nothing is reduced.  The clip's global norm gathers one gradient leaf at
+a time and reduces it as the unsharded step does, and AdamW's update is
+elementwise on the blocks, so every rank's blocks are the matching
+slices of the unsharded run's state, bit for bit.  The edge stack's
+gather and the mean then run on the blocks.  :func:`shard_el_state` /
+:func:`gather_el_state` carry a state across the two layouts.
 
 Where the reference scans all ``h_max`` steps and keeps a masked step's
 result by ``where(take, new, old)``, a rank reads the round's ``[E]``
@@ -34,6 +48,7 @@ stacked state).
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,17 +58,19 @@ from repro_torch.core.bandit import (device_bandit_init, device_bandit_update,
                                      device_select_arm)
 from repro_torch.el.ingraph import _edge_sum, _fma32
 from repro_torch.interop import tree_leaves, tree_map
+from repro_torch.launch.mesh import (edge_shard, gather_edge_stack,
+                                     gather_model_dim, group_rank,
+                                     group_size)
+from repro_torch.sharding import P, edge_axes, map_specs, param_specs
 from repro_torch.train.optimizer import OptState, init_opt_state
 from repro_torch.train.state import TrainState, make_train_step
 
 Params = Any
 
-MESH_ITEM = "ROADMAP item 14 (tensor-parallel / FSDP execution over model)"
-
 
 class ELMeshState(NamedTuple):
     """Per-edge training state: every leaf has a leading edge dim (the
-    rank's own edges over a mesh)."""
+    rank's own edges over a mesh; over a ``model`` axis, their blocks)."""
     params: Params
     opt: Any
 
@@ -64,18 +81,23 @@ def _stack(trees: List[Any]) -> Any:
 
 def init_el_state(model, train_cfg: TrainConfig, n_edges: int,
                   gen: Optional[torch.Generator],
-                  edges: Optional[range] = None) -> ELMeshState:
+                  edges: Optional[range] = None, *,
+                  mesh=None) -> ELMeshState:
     """Edge e's parameters are the e-th ``model.init(gen)`` draw, its
     optimizer state fresh; ``edges``: keep only these edges' state (a
     rank's share; every edge is still drawn, in order, so edge e's
-    parameters do not depend on the split).  ``gen=None`` on a ``meta``
-    model gives the state's shapes (the planner's)."""
+    parameters do not depend on the split).  ``mesh`` with a ``model``
+    axis: keep only this rank's block of each kept edge's leaves (each
+    edge cut as it is drawn, so no full state of the rank's edges is
+    ever held).  ``gen=None`` on a ``meta`` model gives the state's
+    shapes (the planner's)."""
     keep = range(n_edges) if edges is None else edges
+    axis = model_axis(model, mesh)
     params = []
     for e in range(n_edges):
         p = model.init(gen)
         if e in keep:
-            params.append(p)
+            params.append(p if axis is None else axis.shard(p))
     opts = [init_opt_state(train_cfg, p) for p in params]
     return ELMeshState(_stack(params), _stack(opts))
 
@@ -87,14 +109,130 @@ def el_bandit_init(n_edges: int, n_arms: int, device=None) -> Dict:
                    for _ in range(n_edges)])
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is None:
-        return
-    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a mesh whose model axis has {sizes['model']} ranks shards "
-            f"each edge's model: {MESH_ITEM}")
+def _model_dim(spec) -> Optional[int]:
+    """The dim a spec puts on the ``model`` axis, or ``None``."""
+    for d, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple)
+                                and "model" in entry):
+            return d
+    return None
+
+
+class _GatherShard(torch.autograd.Function):
+    """Forward: a leaf's blocks all-gathered over the model group along
+    ``dim``; backward: this rank's block of the incoming gradient, a copy
+    (so the full gradient is freed at once)."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group):
+        ctx.dim, ctx.n = dim, shard.shape[dim]
+        ctx.lo = group_rank(group) * ctx.n
+        return gather_model_dim(shard, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None
+
+
+class ModelAxis:
+    """One edge's model split over a mesh's ``model`` group: ``dims`` is
+    the parameter tree's ``model`` dim per leaf (``None``: replicated),
+    from ``repro_torch.sharding.param_specs`` on the full shapes
+    ``params_shape``; a ``Mesh`` or a ``PlanMesh`` (whose group records
+    the gathers)."""
+
+    def __init__(self, model_cfg: ModelConfig, mesh, params_shape: Params):
+        self.group = mesh.model_group()
+        self.index, self.world = group_rank(self.group), group_size(
+            self.group)
+        self.dims = map_specs(_model_dim,
+                              param_specs(model_cfg, mesh, params_shape))
+        groups = self.dims["groups"]
+        # a group's tree: the stacked leaves less their [n_groups] dim, or
+        # (unstacked) any group of the list
+        self.group_dims = (tree_map(lambda d: None if d is None else d - 1,
+                                    groups)
+                           if model_cfg.scan_layers else groups[0])
+
+    def shard(self, params: Params) -> Params:
+        """One edge's full parameter tree cut to this rank's blocks."""
+        return tree_map(lambda leaf, d: _cut(leaf, d, self.index,
+                                             self.world),
+                        params, self.dims)
+
+    def use(self, tree: Params, *key) -> Params:
+        """The ``LM.param_hook``: the blocks at ``key`` gathered."""
+        if key == ("groups",):
+            dims = self.group_dims
+        else:
+            dims = self.dims
+            for k in key:
+                dims = dims[k]
+        return tree_map(lambda leaf, d: leaf if d is None
+                        else _GatherShard.apply(leaf, d, self.group),
+                        tree, dims)
+
+    def full_leaves(self, grads: Params):
+        """The clip's leaves: each gradient block gathered, one at a time,
+        in ``tree_leaves`` order."""
+        for g, d in zip(tree_leaves(grads), tree_leaves(self.dims)):
+            yield _gather(g, d, self.group)
+
+
+def _cut(leaf: torch.Tensor, dim: Optional[int], index: int,
+         world: int) -> torch.Tensor:
+    """Block ``index`` of ``world`` along ``dim``, its own storage (so
+    the whole leaf can be freed); the leaf itself for ``dim=None``."""
+    if dim is None:
+        return leaf
+    n = leaf.shape[dim] // world
+    return leaf.narrow(dim, index * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather(leaf: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
+    return leaf if dim is None else gather_model_dim(leaf, dim, group)
+
+
+def model_axis(model, mesh) -> Optional[ModelAxis]:
+    """``model``'s :class:`ModelAxis` on ``mesh``, or ``None`` (no mesh,
+    or no ``model`` axis of 2 or more ranks)."""
+    if mesh is None or mesh.model_group() is None:
+        return None
+    from repro_torch.models import LM
+    return ModelAxis(model.cfg, mesh,
+                     LM(model.cfg, device="meta").init(None))
+
+
+def _state_dims(specs: ELMeshState) -> ELMeshState:
+    return map_specs(_model_dim, specs)
+
+
+def shard_el_state(state: ELMeshState, specs: ELMeshState,
+                   mesh) -> ELMeshState:
+    """This rank's blocks of a state of its edges (whole leaves):
+    each leaf cut along the dim its spec (:func:`el_state_specs`) puts on
+    ``model``; a leaf the resolver replicates stays whole.  The edge dim
+    is the caller's (``init_el_state(edges=)``)."""
+    group = mesh.model_group()
+    if group is None:
+        return state
+    index, world = group_rank(group), group_size(group)
+    return tree_map(lambda leaf, d: _cut(leaf, d, index, world), state,
+                    _state_dims(specs))
+
+
+def gather_el_state(state: ELMeshState, specs: ELMeshState,
+                    mesh) -> ELMeshState:
+    """The whole leaves of a state of blocks (:func:`shard_el_state`'s
+    inverse): each leaf all-gathered over the model group along its
+    ``model`` dim.  For tests and checkpoints; a collective every model
+    rank calls."""
+    group = mesh.model_group()
+    if group is None:
+        return state
+    return tree_map(lambda leaf, d: _gather(leaf, d, group), state,
+                    _state_dims(specs))
 
 
 def _edge_view(tree: Any, j: int) -> Any:
@@ -117,6 +255,8 @@ def make_el_round(model, train_cfg: TrainConfig, h_max: int,
 
     ``el_round(state, batches, intervals, weights)`` with
       state:     ``ELMeshState``, the rank's edges on the leading dim
+                 (over a ``model`` axis, its blocks: ``init_el_state(
+                 mesh=)``)
       batches:   tree; tokens ``[E_rank, h_max, B_e, S]``, the rank's edges
       intervals: ``[E]`` int32 (1..h_max), from the cloud bandit
       weights:   ``[E]`` f32 aggregation weights (sync: data sizes;
@@ -127,9 +267,14 @@ def make_el_round(model, train_cfg: TrainConfig, h_max: int,
     ``mean_interval`` (replicated).  ``el_round.edges(n_edges)`` is the
     range of edges this rank holds.
     """
-    from repro_torch.launch.mesh import edge_shard, gather_edge_stack
-    _check_mesh(mesh)
-    train_step = make_train_step(model, train_cfg)
+    axis = model_axis(model, mesh)
+    if axis is None:
+        train_step = make_train_step(model, train_cfg)
+    else:
+        model = copy.copy(model)
+        model.param_hook = axis.use
+        train_step = make_train_step(model, train_cfg,
+                                     full_leaves=axis.full_leaves)
 
     def edges(n_edges: int) -> range:
         shard = edge_shard(mesh, n_edges)
@@ -280,7 +425,6 @@ def el_state_specs(model_cfg: ModelConfig, mesh,
     """PartitionSpecs: the leading edge dim over (pod, data); params by
     the per-arch resolver; optimizer moments mirror the params (SGD's
     scalar placeholders shard the edge dim only); the step replicates."""
-    from repro_torch.sharding import P, edge_axes, map_specs, param_specs
     ea = edge_axes(mesh)
 
     def strip_lead(tree):

@@ -34,14 +34,17 @@ calibration (``--calibrate``) reproduces the full-depth FLOPs exactly.
 Step per shape kind:
   train    -> ``train_step``  (AdamW)
               or ``el_round`` (``--step el_round``): ONE rank's share of
-              the paper's OL4EL round over a data-only mesh of
-              ``--mesh-data`` ranks (``repro_torch.federated.local_sgd``):
-              ``--edges-per-rank`` edges' training states, each edge's
-              ``batch // n_edges`` share of the global batch for all
-              ``--h-max`` local steps, then the all-gather of the
-              parameter stack (its bytes in the row's ``collectives``)
-              and the mean; a ``model`` axis (``--mesh-model``) and the
-              multi-pod mesh wait for ROADMAP item 14's later parts
+              the paper's OL4EL round over a (``--mesh-data`` x
+              ``--mesh-model``) mesh (``repro_torch.federated.
+              local_sgd``): ``--edges-per-rank`` edges' training states
+              (over a ``model`` axis, the rank's blocks of them), each
+              edge's ``batch // n_edges`` share of the global batch for
+              all ``--h-max`` local steps (over a ``model`` axis each
+              group's weights gathered in its forward and again in its
+              recompute, each gradient leaf gathered for the clip), then
+              the all-gather of the parameter stack and the mean; every
+              gather's bytes in the row's ``collectives``, by group; the
+              multi-pod mesh waits for ROADMAP item 14 part 7
   prefill  -> ``prefill_step`` (forward, full sequence)
   decode   -> ``decode_step``  (ONE token vs a seq_len KV/SSM cache)
 """
@@ -86,8 +89,7 @@ KERNEL_OPS = {"flash_attention": fa_ops, "ssd_scan": ssd_ops,
 ALLOCATIONS = (torch.ops.aten.empty, torch.ops.aten.empty_like,
                torch.ops.aten.empty_strided, torch.ops.aten.new_empty,
                torch.ops.aten.new_empty_strided)
-MULTI_CARD = ("ROADMAP item 14's later parts (tensor-parallel / FSDP "
-              "execution over model, the multi-pod mesh)")
+MULTI_POD = "ROADMAP item 14 part 7 (the multi-pod mesh)"
 
 
 def block_bytes(nbytes: int) -> int:
@@ -356,15 +358,17 @@ def measure_step(step: Callable[[], Any], arguments: List[torch.Tensor],
 def el_round_inputs(model: LM, batch: int, seq_len: int, h_max: int,
                     edges_per_rank: int, data_ranks: int,
                     opt_state_dtype: str = "float32",
-                    gen: Optional[torch.Generator] = None
+                    gen: Optional[torch.Generator] = None,
+                    model_ranks: int = 1
                     ) -> Tuple[Callable[[], Any], List[torch.Tensor], int,
                                Any]:
     """Rank 0's share of one OL4EL round on ``model``'s device: ``(step,
     arguments, static_bytes, mesh)``.  The state holds ``edges_per_rank``
-    edges (every edge drawn, as ``init_el_state`` draws them), the batch
-    their rows of ``el_round_batch_struct``, every edge runs all ``h_max``
-    steps (the most a round runs), and the round gathers over a
-    ``PlanMesh`` of ``data_ranks`` ranks (``mesh.group.calls``: the
+    edges (every edge drawn, as ``init_el_state`` draws them; over
+    ``model_ranks`` > 1, rank 0's blocks of them), the batch their rows
+    of ``el_round_batch_struct``, every edge runs all ``h_max`` steps
+    (the most a round runs), and the round gathers over a ``PlanMesh`` of
+    ``data_ranks`` x ``model_ranks`` ranks (its groups' ``calls``: the
     gathers)."""
     from repro_torch.federated.local_sgd import init_el_state, make_el_round
     from repro_torch.launch.mesh import PlanMesh
@@ -373,14 +377,15 @@ def el_round_inputs(model: LM, batch: int, seq_len: int, h_max: int,
     meta = model.device.type == "meta"
     n_edges = edges_per_rank * data_ranks
     tc = _dryrun_train_cfg(batch, seq_len, opt_state_dtype)
+    mesh = PlanMesh(data_ranks, model_ranks)
     state = init_el_state(model, tc, n_edges, None if meta else gen,
-                          edges=range(edges_per_rank))
+                          edges=range(edges_per_rank), mesh=mesh)
     struct = {k: v[:edges_per_rank] for k, v in el_round_batch_struct(
         cfg, n_edges, h_max, batch, seq_len).items()}
     data = struct if meta else card_batch(cfg, struct, model.device, gen)
-    mesh = PlanMesh(data_ranks)
-    el_round = make_el_round(model, tc, h_max,
-                             mesh=mesh if data_ranks > 1 else None)
+    el_round = make_el_round(
+        model, tc, h_max,
+        mesh=mesh if data_ranks * model_ranks > 1 else None)
     intervals = torch.full((n_edges,), h_max, dtype=torch.int32)
     weights = torch.ones(n_edges, device=model.device)
     arguments = tree_leaves(state) + list(data.values())
@@ -389,14 +394,21 @@ def el_round_inputs(model: LM, batch: int, seq_len: int, h_max: int,
             storages_bytes(arguments) + grads, mesh)
 
 
-def gather_census(mesh) -> Dict[str, Dict[str, float]]:
+def gather_census(mesh) -> Dict[str, Dict[str, Any]]:
     """The row's ``collectives`` from a ``PlanMesh``'s recorded gathers
-    (one traced round)."""
-    out: Dict[str, Dict[str, float]] = {}
-    for op, nbytes in mesh.group.calls:
-        entry = out.setdefault(op, {"count": 0, "bytes": 0})
-        entry["count"] += 1
-        entry["bytes"] += nbytes
+    (one traced round): per op its ``count`` and ``bytes`` sent, and
+    ``by_group`` the same for the edge group's and the model group's."""
+    out: Dict[str, Dict[str, Any]] = {}
+    groups = (("edge", mesh.group), ("model", mesh.model_group()))
+    for name, group in groups:
+        for op, nbytes in (group.calls if group is not None else ()):
+            entry = out.setdefault(op, {"count": 0, "bytes": 0,
+                                        "by_group": {}})
+            part = entry["by_group"].setdefault(name, {"count": 0,
+                                                       "bytes": 0})
+            for e in (entry, part):
+                e["count"] += 1
+                e["bytes"] += nbytes
     return out
 
 
@@ -446,7 +458,7 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
     ``measure`` (``device`` a card) a row that fits also runs on the card.
     ``step_mode="el_round"`` plans one rank's share of the OL4EL round
     (``el_round_inputs``) over ``data_ranks`` x ``model_ranks`` ranks;
-    ``model_ranks > 1`` raises.
+    ``multi_pod`` raises (ROADMAP item 14 part 7).
 
     ``depth_groups``: calibration mode, as the reference's: a
     depth-reduced unstacked variant (prefix + depth_groups * group
@@ -456,11 +468,7 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
     t0 = time.time()
     if multi_pod:
         raise NotImplementedError(
-            f"the multi-pod mesh plans several cards: {MULTI_CARD}")
-    if model_ranks > 1:
-        raise NotImplementedError(
-            f"a model axis of {model_ranks} ranks shards each model: "
-            f"{MULTI_CARD}")
+            f"the multi-pod mesh plans several cards: {MULTI_POD}")
     if measure and torch.device(device).type != "cuda":
         raise ValueError(f"--measure runs the step on a card, not on "
                          f"{device!r}")
@@ -512,8 +520,8 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
 
     if shape.kind == "train" and step_mode == "el_round":
         return _plan_el_round(record, model_cfg, batch_, seq_, h_max,
-                              edges_per_rank, data_ranks, opt_state_dtype,
-                              measure, device, t0)
+                              edges_per_rank, data_ranks, model_ranks,
+                              opt_state_dtype, measure, device, t0)
     record["step"] = {"train": "train_step", "prefill": "prefill_step",
                       "decode": "decode_step"}[shape.kind]
     flags = dict(window_slice=window_slice, fused_xent=fused_xent,
@@ -537,19 +545,19 @@ def plan_combo(arch: str, shape_name: str, multi_pod: bool = False,
 
 
 def _plan_el_round(record, model_cfg, batch, seq_len, h_max,
-                   edges_per_rank, data_ranks, opt_state_dtype, measure,
-                   device, t0) -> Dict[str, Any]:
+                   edges_per_rank, data_ranks, model_ranks, opt_state_dtype,
+                   measure, device, t0) -> Dict[str, Any]:
     n_edges = edges_per_rank * data_ranks
     if batch % n_edges:
         raise ValueError(f"a global batch of {batch} does not split over "
                          f"{n_edges} edges")
-    record.update(step="el_round", mesh=f"{data_ranks}x1",
-                  n_chips=data_ranks, n_edges=n_edges, h_max=h_max,
-                  edges_per_rank=edges_per_rank,
+    record.update(step="el_round", mesh=f"{data_ranks}x{model_ranks}",
+                  n_chips=data_ranks * model_ranks, n_edges=n_edges,
+                  h_max=h_max, edges_per_rank=edges_per_rank,
                   edge_batch=batch // n_edges)
     step, arguments, static, mesh = el_round_inputs(
         build(model_cfg, "meta"), batch, seq_len, h_max, edges_per_rank,
-        data_ranks, opt_state_dtype)
+        data_ranks, opt_state_dtype, model_ranks=model_ranks)
     plan = trace_step(step, arguments)
     plan["fits"] = plan["memory"]["peak_live_bytes"] <= CARD_MEMORY_BYTES
     record["plan_s"] = round(time.time() - t0, 2)
@@ -563,7 +571,8 @@ def _plan_el_round(record, model_cfg, batch, seq_len, h_max,
         step, arguments, _, _ = el_round_inputs(
             model, batch, seq_len, h_max, edges_per_rank, data_ranks,
             opt_state_dtype,
-            gen=torch.Generator(device=model.device).manual_seed(0))
+            gen=torch.Generator(device=model.device).manual_seed(0),
+            model_ranks=model_ranks)
         record["measured"] = measure_step(step, arguments)
         del step, arguments, model
         torch.cuda.empty_cache()
@@ -590,8 +599,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-data", type=int, default=1,
                     help="--step el_round: ranks of the data axis")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="--step el_round: ranks of the model axis "
-                         "(> 1 is ROADMAP item 14's later part)")
+                    help="--step el_round: ranks of the model axis (each "
+                         "edge's model split over them)")
     ap.add_argument("--window-slice", action="store_true",
                     help="enable KV-slice optimization for sliding-window")
     ap.add_argument("--fused-xent", action="store_true",
@@ -633,7 +642,8 @@ def main(argv=None) -> int:
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
     shapes = [args.shape] if args.shape else list(INPUT_SHAPES)
-    mesh_name = f"{args.mesh_data}x1" if args.step == "el_round" else "1x1"
+    mesh_name = (f"{args.mesh_data}x{args.mesh_model}"
+                 if args.step == "el_round" else "1x1")
 
     done = set()
     if args.skip_existing and os.path.exists(args.out):

@@ -92,8 +92,9 @@ class Mesh:
     ``axis_names``, ``devices`` (the ranks, an int array in the mesh's
     shape), ``shape`` (axis name -> size, in order), ``size``; plus the
     torch ``device_mesh``, the ``backend``, this process's ``rank`` and
-    ``coordinate``, and :meth:`edge_group`.  What block of a tensor a
-    rank holds is ``repro_torch.sharding.Placement``'s to say."""
+    ``coordinate``, :meth:`edge_group` and :meth:`model_group`.  What
+    block of a tensor a rank holds is ``repro_torch.sharding.
+    Placement``'s to say."""
 
     def __init__(self, device_mesh, backend: str, device_type: str):
         import torch.distributed as dist
@@ -106,7 +107,9 @@ class Mesh:
         self.rank = dist.get_rank()
         where = np.argwhere(self.devices == self.rank)[0]
         self.coordinate = dict(zip(self.axis_names, (int(c) for c in where)))
-        self._edge_group = self._make_edge_group()
+        self._edge_group = self._make_group(self.edge_axes)
+        self._model_group = self._make_group(
+            ("model",) if self.shape.get("model", 1) > 1 else ())
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -121,17 +124,16 @@ class Mesh:
     def edge_axes(self) -> Tuple[str, ...]:
         return tuple(a for a in EDGE_AXES if a in self.axis_names)
 
-    def _make_edge_group(self):
-        """The group of ranks that differ only along the edge axes (with
-        both ``pod`` and ``data``, the flattened pair), on the mesh's own
-        backend: every rank forms every such group, in the same order, as
-        ``new_group`` requires.  Group ranks run in the flattened edge
-        coordinate's order."""
+    def _make_group(self, axes: Tuple[str, ...]):
+        """The group of ranks that differ only along ``axes`` (several
+        axes: their flattened coordinate), on the mesh's own backend:
+        every rank forms every such group, in the same order, as
+        ``new_group`` requires.  Group ranks run in the flattened
+        coordinate's order; ``None`` for no axes."""
         import torch.distributed as dist
-        ea = self.edge_axes
-        if not ea:
+        if not axes:
             return None
-        dims = [self.axis_names.index(a) for a in ea]
+        dims = [self.axis_names.index(a) for a in axes]
         rest = [i for i in range(len(self.axis_names)) if i not in dims]
         moved = np.moveaxis(self.devices, dims, range(len(dims)))
         flat = moved.reshape((-1,) + moved.shape[len(dims):])
@@ -146,6 +148,12 @@ class Mesh:
     def edge_group(self):
         """The process group over the edge axes (``None`` without any)."""
         return self._edge_group
+
+    def model_group(self):
+        """The process group over the ``model`` axis, its ranks in model
+        coordinate order (``None`` without a ``model`` axis of 2 or
+        more): the ranks that hold the shards of one edge's model."""
+        return self._model_group
 
     def __repr__(self) -> str:
         return (f"Mesh({dict(self.shape)}, backend={self.backend!r}, "
@@ -331,7 +339,7 @@ def gather_edge_stack(tree: Any, group) -> Any:
     from repro_torch.interop import tree_leaves, tree_map
     leaves = tree_leaves(tree)
     planned = isinstance(group, PlannedGroup)
-    world = group.world if planned else dist.get_world_size(group)
+    world = group_size(group)
     out_leaves: dict = {}
     by_dtype: dict = {}
     for i, leaf in enumerate(leaves):
@@ -363,6 +371,48 @@ def gather_edge_stack(tree: Any, group) -> Any:
     return tree_map(lambda leaf: out_leaves[order[id(leaf)]], tree)
 
 
+def group_rank(group) -> int:
+    """This process's rank within ``group`` (0 in a plan)."""
+    if isinstance(group, PlannedGroup):
+        return 0
+    import torch.distributed as dist
+    return dist.get_rank(group)
+
+
+def group_size(group) -> int:
+    """The ranks of ``group`` (a :class:`PlannedGroup`'s ``world``)."""
+    if isinstance(group, PlannedGroup):
+        return group.world
+    import torch.distributed as dist
+    return dist.get_world_size(group)
+
+
+def gather_model_dim(shard, dim: int, group):
+    """All-gather the ranks' shards of one tensor along ``dim`` over a
+    model group: rank i's shard is block i of the result, which is a new
+    contiguous tensor (the layout of the unsharded tensor, so a kernel or
+    a reduction sees what it sees on one rank).  One ``all_gather`` into
+    an ``[M, *shard.shape]`` buffer, then one copy that moves the blocks
+    into ``dim`` (none for ``dim == 0``).  A :class:`PlannedGroup`
+    allocates the same buffers and exchanges nothing."""
+    import torch.distributed as dist
+    planned = isinstance(group, PlannedGroup)
+    world = group_size(group)
+    local = shard.contiguous()
+    buf = local.new_empty((world,) + tuple(local.shape))
+    parts = list(buf.unbind(0))
+    if planned:
+        group.record(local)
+        for part in parts:
+            part.copy_(local)
+    else:
+        dist.all_gather(parts, local, group=group)
+    del local, parts
+    full = list(shard.shape)
+    full[dim] *= world
+    return buf.movedim(0, dim).reshape(full)
+
+
 class PlannedGroup:
     """A group of ``world`` ranks that exist only in a plan
     (``repro_torch.launch.dryrun --step el_round``): a gather over it
@@ -379,9 +429,11 @@ class PlannedGroup:
 
 
 class PlanMesh:
-    """A data-only mesh of ``n_data`` ranks seen from rank 0, for plans:
-    what ``repro_torch.sharding`` and :func:`edge_shard` read of a
-    :class:`Mesh`, its edge group a :class:`PlannedGroup`."""
+    """A (data, model) mesh of ``n_data`` x ``n_model`` ranks seen from
+    rank 0, for plans: what ``repro_torch.sharding``, :func:`edge_shard`
+    and ``repro_torch.federated.local_sgd`` read of a :class:`Mesh`, its
+    edge group and (``n_model > 1``) its model group
+    :class:`PlannedGroup` s."""
 
     def __init__(self, n_data: int, n_model: int = 1):
         self.axis_names = ("data", "model")
@@ -389,7 +441,11 @@ class PlanMesh:
         self.shape = collections.OrderedDict(zip(self.axis_names,
                                                  self.devices.shape))
         self.group = PlannedGroup(n_data)
+        self.model = PlannedGroup(n_model) if n_model > 1 else None
         self.rank = 0
 
     def edge_group(self) -> PlannedGroup:
         return self.group
+
+    def model_group(self) -> Optional[PlannedGroup]:
+        return self.model

@@ -271,7 +271,17 @@ class LM:
     ``window_slice``: a sliding-window model's blocked attention and
     decode read only the keys the window can reach (the reference's
     option; the values are the masked path's).
+
+    ``param_hook``: ``None`` (the default), or ``hook(tree, *key)`` giving
+    the parameters at ``key`` (``"embed"``, ``"lm_head"``,
+    ``"final_norm"``, ``("prefix_layers", i)`` or ``"groups"``, one
+    group's tree) as the layers use them, called where they are used:
+    ``repro_torch.federated.local_sgd`` gathers the shards of a model split
+    over ranks there, a group's inside its ``checkpoint`` (so a group's
+    full weights live only during its forward and its recompute).
     """
+
+    param_hook = None
 
     def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
                  use_ssd_kernel: Optional[bool] = None,
@@ -330,6 +340,12 @@ class LM:
         ``cfg.scan_layers``, else the list itself."""
         return _stack(groups) if self.cfg.scan_layers else groups
 
+    def _use(self, tree: Params, *key) -> Params:
+        """The parameters ``tree`` at ``key`` as the layers use them
+        (``param_hook``'s)."""
+        return tree if self.param_hook is None else self.param_hook(tree,
+                                                                    *key)
+
     def _groups(self, tree: Params) -> List[Params]:
         """A params or cache tree's groups as one tree per group (views
         of a stacked tree)."""
@@ -342,7 +358,7 @@ class LM:
               prefix_emb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """[B, P + S, d]: the prefix embeddings (if any), then the tokens'
         (``[B, S]``, or ``[B, CB, S]`` summed over the codebooks)."""
-        emb = params["embed"]
+        emb = self._use(params["embed"], "embed")
         if self.cfg.n_codebooks > 1:
             cb = torch.arange(self.cfg.n_codebooks,
                               device=tokens.device)[None, :, None]
@@ -357,11 +373,11 @@ class LM:
         """Logits [B, S, V], or [B, CB, S, V] from per-codebook heads (a
         tied embedding wins, as in the reference)."""
         if self.cfg.tie_embeddings:
-            return x @ params["embed"].to(x.dtype).T
+            return x @ self._use(params["embed"], "embed").to(x.dtype).T
+        head = self._use(params["lm_head"], "lm_head")
         if self.cfg.n_codebooks > 1:
-            return torch.einsum("bsd,cdv->bcsv", x,
-                                params["lm_head"].to(x.dtype))
-        return x @ params["lm_head"].to(x.dtype)
+            return torch.einsum("bsd,cdv->bcsv", x, head.to(x.dtype))
+        return x @ head.to(x.dtype)
 
     # -- forward (train / scoring) ------------------------------------------
 
@@ -376,6 +392,7 @@ class LM:
                   positions: torch.Tensor
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         aux = _zero_aux(x.device)
+        p_group = self._use(p_group, "groups")
         for i, (kind, ffn) in enumerate(self.group):
             x, a = self._block(p_group[f"sub{i}"], kind, ffn, x, positions)
             aux = _add_aux(aux, a)
@@ -389,9 +406,10 @@ class LM:
         x = self.embed(params, tokens, prefix_emb)
         positions = torch.arange(x.shape[1], device=x.device)
         aux = _zero_aux(x.device)
-        for p_layer, (kind, ffn) in zip(params.get("prefix_layers", []),
-                                        self.prefix):
-            x, a = self._block(p_layer, kind, ffn, x, positions)
+        for i, (p_layer, (kind, ffn)) in enumerate(zip(
+                params.get("prefix_layers", []), self.prefix)):
+            x, a = self._block(self._use(p_layer, "prefix_layers", i), kind,
+                               ffn, x, positions)
             aux = _add_aux(aux, a)
         # remat: keep only each group's input; its activations are
         # recomputed in the backward (forward-only calls skip it)
@@ -403,7 +421,8 @@ class LM:
             else:
                 x, a = self._group_fn(p_group, x, positions)
             aux = _add_aux(aux, a)
-        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        x = L.rms_norm(self._use(params["final_norm"], "final_norm"), x,
+                       cfg.norm_eps)
         if last_only:
             x = x[:, -1:]
         return self.unembed(params, x), aux
@@ -489,15 +508,17 @@ class LM:
         layers: Params = {}
         if self.prefix:
             new_prefix = []
-            for p_layer, c_layer, (kind, ffn) in zip(
+            for i, (p_layer, c_layer, (kind, ffn)) in enumerate(zip(
                     params["prefix_layers"], cache["prefix_layers"],
-                    self.prefix):
-                x, c = block_fn(p_layer, kind, ffn, x, c_layer)
+                    self.prefix)):
+                x, c = block_fn(self._use(p_layer, "prefix_layers", i),
+                                kind, ffn, x, c_layer)
                 new_prefix.append(c)
             layers["prefix_layers"] = new_prefix
         old_groups = self._groups(cache)
         new_groups = []
         for p_group, c_group in zip(self._groups(params), old_groups):
+            p_group = self._use(p_group, "groups")
             new_c = {}
             for i, (kind, ffn) in enumerate(self.group):
                 x, new_c[f"sub{i}"] = block_fn(
@@ -523,7 +544,8 @@ class LM:
                 p, cfg, kind, ffn, x, c, index, self.window_slice,
                 self.ring_cache))
         new_cache = {"index": index + 1, **layers}
-        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        x = L.rms_norm(self._use(params["final_norm"], "final_norm"), x,
+                       cfg.norm_eps)
         return self.unembed(params, x), new_cache
 
     def prefill(self, params: Params, tokens: torch.Tensor, cache: Params,
@@ -547,5 +569,6 @@ class LM:
                 p, cfg, kind, ffn, x, positions, c, self.attn_impl,
                 self.window_slice, self.use_ssd_kernel, self.ring_cache))
         new_cache = {"index": cache["index"] + s, **layers}
-        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        x = L.rms_norm(self._use(params["final_norm"], "final_norm"), x,
+                       cfg.norm_eps)
         return self.unembed(params, x), new_cache

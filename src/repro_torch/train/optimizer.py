@@ -18,7 +18,7 @@ copy of it.  Callers that must keep their inputs pass copies
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,13 +88,21 @@ def init_opt_state(cfg: TrainConfig, params: Params) -> OptState:
                     mu=mu, nu=nu)
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        full_leaves: Optional[Callable] = None
                         ) -> Tuple[Params, torch.Tensor]:
     """Scale ``grads`` in place to a global L2 norm of at most
     ``max_norm`` (no scaling when ``max_norm <= 0``); returns them and
-    their norm before clipping (f32 0-d)."""
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for g in tree_leaves(grads)))
+    their norm before clipping (f32 0-d).  Each leaf's sum of squares is
+    taken over its values in row-major order, whatever its strides.
+    ``full_leaves(grads)``: the leaves the norm reads, one at a time, in
+    ``tree_leaves`` order, for a tree of shards (``repro_torch.federated.
+    local_sgd``: each leaf gathered over the model group, so the norm is
+    the unsharded one bit for bit and one full leaf is live at a time)."""
+    leaves = (tree_leaves(grads) if full_leaves is None
+              else full_leaves(grads))
+    gnorm = torch.sqrt(sum(g.float().contiguous().square().sum()
+                           for g in leaves))
     if max_norm <= 0:
         return grads, gnorm
     scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
@@ -104,12 +112,15 @@ def clip_by_global_norm(grads: Params, max_norm: float
 
 
 def apply_updates(cfg: TrainConfig, params: Params, grads: Params,
-                  opt_state: OptState
+                  opt_state: OptState,
+                  full_leaves: Optional[Callable] = None
                   ) -> Tuple[Params, OptState, Dict[str, torch.Tensor]]:
     """One optimizer step, in place on ``params``, ``grads`` and the
-    moments; returns ``(params, new opt state, {"lr", "grad_norm"})``."""
+    moments; returns ``(params, new opt state, {"lr", "grad_norm"})``.
+    Every update is elementwise, so it runs on shards as on whole leaves;
+    ``full_leaves``: the clip's (:func:`clip_by_global_norm`)."""
     grads = tree_map(lambda g: g.float(), grads)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, full_leaves)
     step = opt_state.step
     lr = lr_schedule(cfg, step)
     wd = cfg.weight_decay

@@ -47,15 +47,17 @@ def loss_and_grads(model, params: Params, batch: Dict[str, torch.Tensor]
     return {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(model, train_cfg: TrainConfig):
+def make_train_step(model, train_cfg: TrainConfig, full_leaves=None):
     """Standard synchronous train step: grad -> clip -> update.  The
-    state's parameters and moments are updated in place."""
+    state's parameters and moments are updated in place.
+    ``full_leaves``: the clip's, for a state of shards
+    (``repro_torch.train.optimizer.clip_by_global_norm``)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         metrics, grads = loss_and_grads(model, state.params, batch)
         params, opt, opt_metrics = apply_updates(
-            train_cfg, state.params, grads, state.opt)
+            train_cfg, state.params, grads, state.opt, full_leaves)
         return TrainState(params, opt), dict(metrics, **opt_metrics)
 
     return train_step

@@ -126,8 +126,10 @@ def test_defaults_are_the_ports_files():
 
 
 def test_committed_baselines_hold_contracts_and_ledger():
-    """The card baselines: no collectives, nothing aliased, an empty
-    ledger, the card named beside them and the item-14 tiers listed."""
+    """The card baselines: every one of the reference's rows, a sharded
+    tier's gathers and no other collective, a donated tier's aliased
+    params, an empty ledger, the card named beside them and the sharded
+    tiers' mesh, ranks and card in the meta."""
     args = bench_check.parser().parse_args([])
     found = bench_check.findings(args)
     gates = {gate for gate, _ in found}
@@ -140,7 +142,12 @@ def test_committed_baselines_hold_contracts_and_ledger():
     for meta in (el["meta"], fleet["meta"]):
         assert meta["backend"] == "cuda"
         assert meta["device_name"] and meta["power_limit"].endswith("W")
-    assert sorted(el["meta"]["not_ported"]) == sorted(bench_el.NOT_PORTED)
+    assert sorted(el["rows"]) == sorted(_load("BENCH_el.json")["rows"])
+    assert "not_ported" not in el["meta"]
+    assert el["meta"]["mesh"] == {"data": 2, "model": 2}
+    assert el["meta"]["ranks"] == {
+        "count": 4, "backend": "gloo", "device": "cuda", "cards": 1,
+        "rows": sorted(n for n in el["rows"] if "sharded" in n)}
     hist = regress.load_history(args.history)
     assert sorted(h["kind"] for h in hist) == ["el", "fleet"]
 
@@ -216,12 +223,26 @@ def test_smoke_on_the_cpu_against_a_cpu_baseline_exits_0(tmp_path,
     3.95x, past the 150 % slack.  For the same reason the smoke's
     ``bench_el`` runs in this process, on the command line the gate
     builds; its real subprocess runs on the card (``chip_smoke.py``
-    phase 4i)."""
+    phase 4i).  Its sharded tiers' ranks are real processes: each starts
+    with the same counter clock (``rank_clock``), so their ratios are as
+    fixed as the in-process tiers'."""
     import itertools
     import types
     from repro_torch.obs import timing
     clock = itertools.count(0, 1_000_000)
     monkeypatch.setattr(timing.time, "perf_counter_ns", lambda: next(clock))
+    real_spawn = bench_el.spawn_ranks
+    rank_clock = ("import itertools, runpy, sys, time\n"
+                  "c = itertools.count(0, 1_000_000)\n"
+                  "time.perf_counter_ns = lambda: next(c)\n"
+                  "sys.argv = ['bench_el'] + sys.argv[1:]\n"
+                  "runpy.run_module('repro_torch.bench.bench_el', "
+                  "run_name='__main__')\n")
+
+    def spawn_with_counter_clocks(n, cmd, **kw):
+        assert cmd[1:3] == ["-m", "repro_torch.bench.bench_el"]
+        return real_spawn(n, [cmd[0], "-c", rank_clock, *cmd[3:]], **kw)
+    monkeypatch.setattr(bench_el, "spawn_ranks", spawn_with_counter_clocks)
     commands = []
 
     def run_in_process(cmd, env):
@@ -244,7 +265,9 @@ def test_smoke_on_the_cpu_against_a_cpu_baseline_exits_0(tmp_path,
                              "--history", str(hist)])
     out = capsys.readouterr().out
     assert code == 0, out
-    assert "bench_check: OK (5 checks, 0 regressions" in out
+    # the contracts, then each of the eight SMOKE_PAIRS, the four sharded
+    # pairs among them
+    assert "bench_check: OK (9 checks, 0 regressions" in out
     assert len(commands) == 1 and "--skip-host" in commands[0]
     assert commands[0][commands[0].index("--device") + 1] == "cpu"
     assert [e["kind"] for e in regress.load_history(str(hist))] == \

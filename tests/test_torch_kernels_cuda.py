@@ -1215,8 +1215,10 @@ def test_microbench_kernel_row_equals_the_plain_version(cuda_device):
 
 def test_bench_el_smoke_on_the_card(cuda_device):
     """``bench_el`` at the smoke gate's sizes on the card: the port's
-    compiled tiers, each profiled with the allocator's chunk peak, no
-    collectives, nothing aliased, the card named in ``meta``."""
+    compiled tiers, the donated and sharded ones included (the sharded
+    from 4 gloo ranks on this card), each profiled with the allocator's
+    chunk peak, the contracts holding (gathers only where sharded, the
+    params aliased only where donated), the card named in ``meta``."""
     from repro_torch.bench import bench_check, bench_el
     args = bench_el.parser().parse_args(
         ["--device", "cuda", "--edges", "4", "--samples", "512",
@@ -1228,7 +1230,10 @@ def test_bench_el_smoke_on_the_card(cuda_device):
     assert sorted(rows) == sorted(
         ["el_sync_ingraph", "el_sync_ingraph_telemetry",
          "el_sync_ingraph_churn", "el_async_ingraph",
-         "el_async_ingraph_telemetry", "el_async_ingraph_batched"])
+         "el_async_ingraph_telemetry", "el_async_ingraph_batched"]
+        + [f"el_{mode}_{tier}" for mode in ("sync", "async")
+           for tier in ("ingraph_donate", "sharded", "sharded_donate")])
+    assert report["meta"]["ranks"]["cards"] == 1
     for name, row in rows.items():
         assert row["n_aggregations"] > 0, name
         assert "profile_errors" not in row, (name, row["profile_errors"])

@@ -15,6 +15,14 @@ rounds, termination; ``consumed`` / ``wall`` bit-equal at fixed cost);
 its donated twin must give the same records with the params aliased; its
 census must show at least one all-gather and no all-reduce; and the
 sharded OL4EL round must equal one rank's, bit for bit.
+
+The ``model`` axis: in the same worlds, a (1, 2) mesh of the 2 ranks and
+the (2, 2) mesh of the 4 split each edge's model (qwen3-1.7b dense,
+olmoe-1b-7b MoE with its experts split, mamba2-370m; smoke widths, f32,
+AdamW, remat on): a ``make_el_round`` round and two ``make_el_program``
+rounds, after which every rank's gathered params and moments are bit for
+bit the unsharded port run's, its losses equal, and its blocks the shapes
+``el_state_specs`` names (held spec for spec against the reference's).
 """
 
 import dataclasses
@@ -24,6 +32,7 @@ import pickle
 import subprocess
 import sys
 import threading
+import types
 
 import jax
 import numpy as np
@@ -32,8 +41,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_ingraph import jax_round_draws  # noqa: E402
+from test_torch_sharding import _assert_same_specs  # noqa: E402
+from torch_mesh_worker import model_axis  # noqa: E402
 
+from repro import config as ref_config  # noqa: E402
 from repro.el import ELSession as JaxSession  # noqa: E402
+from repro.federated import local_sgd as ref_local_sgd  # noqa: E402
+from repro.models import build_model as ref_build  # noqa: E402
 from repro.launch.classic import classic_fixture as jax_fixture  # noqa: E402
 from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.el import ELSession  # noqa: E402
@@ -55,6 +69,11 @@ LM_CASE = {"arch": "qwen3-1.7b", "edges": 4, "h_max": 2, "mode": "sync",
            "weights": [1.0, 2.0, 0.5, 1.5],
            "train": dict(optimizer="sgd", peak_lr=0.05, momentum=0.9,
                          warmup_steps=2)}
+#: the model axis: each world's (data, model) mesh, and the families
+MODEL_MESHES = {2: ((1, 2), ("data", "model")),
+                4: ((2, 2), ("data", "model"))}
+MODEL_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b", "mamba2-370m")
+MODEL_EDGES, MODEL_H_MAX, MODEL_ROUNDS = 2, 2, 3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -112,16 +131,45 @@ def _lm_tokens():
         0, vocab, (2, LM_CASE["edges"], LM_CASE["h_max"], 2, 16), np.int32)
 
 
+def _model_cfgs(arch):
+    """The smoke config at f32 with remat on, and its AdamW train config."""
+    exp = get_smoke_config(arch)
+    return (dataclasses.replace(exp.model, dtype="float32", remat=True),
+            dataclasses.replace(exp.train, warmup_steps=2))
+
+
 @pytest.fixture(scope="module")
-def worlds(cases, tmp_path_factory):
+def model_cases():
+    """Per arch: a round's intervals and weights, tokens [rounds, E, h_max,
+    B, S] (the round's, then the program's), the program's costs and
+    budgets and its Gumbel draws [rounds, E, h_max]."""
+    rng = np.random.default_rng(1)
+    out = {}
+    for arch in MODEL_ARCHS:
+        model_cfg, train_cfg = _model_cfgs(arch)
+        out[arch] = {
+            "arch": arch, "model_cfg": model_cfg, "train_cfg": train_cfg,
+            "edges": MODEL_EDGES, "h_max": MODEL_H_MAX, "seed": 3,
+            "intervals": [2, 1], "weights": [1.0, 3.0],
+            "tokens": rng.integers(0, model_cfg.vocab_size, (
+                MODEL_ROUNDS, MODEL_EDGES, MODEL_H_MAX, 2, 16), np.int32),
+            "comp": [40.0, 60.0], "comm": [50.0, 50.0],
+            "budgets": [400.0, 400.0],
+            "gumbel": rng.gumbel(size=(MODEL_ROUNDS - 1, MODEL_EDGES,
+                                       MODEL_H_MAX)).astype(np.float32)}
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(cases, model_cases, tmp_path_factory):
     """Each world's per-rank results, both worlds spawned at once."""
     lm = dict(LM_CASE, tokens=_lm_tokens())
     results, threads = {}, []
     for world, mesh in WORLDS.items():
         d = tmp_path_factory.mktemp(f"world{world}")
         spec = {"mesh": mesh, "classic": [c[0] for c in cases.values()],
-                "lm": dict(lm, **({"model_mesh": ((2, 2), ("data", "model"))}
-                                  if world == 4 else {}))}
+                "lm": lm, "model": list(model_cases.values()),
+                "model_mesh": MODEL_MESHES[world]}
         with open(d / "spec.pkl", "wb") as f:
             pickle.dump(spec, f)
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -250,7 +298,84 @@ def test_sharded_el_round_is_one_ranks(worlds, lm_one_rank, world):
         assert lm["losses"] == losses
         _equal_trees(lm["params"], params)
         assert all(np.isfinite(lm["losses"]))
-    assert "item 14" in worlds[4][0]["lm"]["model_axis"]
+
+
+@pytest.fixture(scope="module")
+def model_one_rank(model_cases):
+    """Each model case run unsharded, on one rank."""
+    return {arch: model_axis(case, None)
+            for arch, case in model_cases.items()}
+
+
+MODEL_GRID = [(w, a) for w in MODEL_MESHES for a in MODEL_ARCHS]
+
+
+@pytest.mark.parametrize("world,arch", MODEL_GRID)
+def test_model_axis_state_is_the_unsharded_runs(worlds, model_one_rank,
+                                                world, arch):
+    """Every rank's params and AdamW moments, gathered over the model and
+    edge groups after a round and two program rounds, are the unsharded
+    run's bit for bit; its losses and decisions are equal."""
+    want = model_one_rank[arch]
+    assert all(np.isfinite(want["losses"]))
+    for res in worlds[world]:
+        got = res["model"][arch]
+        assert got["losses"] == want["losses"]
+        assert got["intervals"] == want["intervals"]
+        assert got["budgets"] == want["budgets"]
+        _equal_trees(got["state"], want["state"])
+
+
+def _split(shape, spec, sizes):
+    """A leaf's block shape under ``spec`` on a mesh of axis ``sizes``."""
+    out = []
+    for n, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        out.append(n // int(np.prod([sizes[a] for a in axes])))
+    return tuple(out)
+
+
+@pytest.mark.parametrize("world,arch", MODEL_GRID)
+def test_model_axis_blocks_are_the_specs(worlds, model_cases, world, arch):
+    """The port's ``el_state_specs`` are the reference's on the world's
+    mesh; each rank holds blocks of exactly the shapes they name, and the
+    ``model`` axis really splits leaves of every family (olmoe's experts
+    on the expert dim)."""
+    from repro_torch.interop import tree_leaves
+    from repro_torch.sharding import map_specs
+    shape, axes = MODEL_MESHES[world]
+    duck = type("Duck", (), {"axis_names": axes,
+                             "devices": np.empty(shape)})()
+    case = model_cases[arch]
+    meta = local_sgd.init_el_state(LM(case["model_cfg"], device="meta"),
+                                   case["train_cfg"], MODEL_EDGES, None)
+    specs = local_sgd.el_state_specs(case["model_cfg"], duck, meta)
+    rexp = ref_config.get_smoke_config(arch)
+    rcfg = dataclasses.replace(rexp.model, dtype="float32", remat=True)
+    rtc = dataclasses.replace(rexp.train, warmup_steps=2)
+    ref_state = jax.eval_shape(lambda: ref_local_sgd.init_el_state(
+        ref_build(rcfg), rtc, MODEL_EDGES, jax.random.key(0)))
+    _assert_same_specs(specs, ref_local_sgd.el_state_specs(rcfg, duck,
+                                                           ref_state))
+    sizes = dict(zip(axes, shape))
+    flat_specs = [b.spec for b in tree_leaves(map_specs(
+        lambda spec: types.SimpleNamespace(spec=spec), specs))]
+    want = [_split(tuple(t.shape), s, sizes)
+            for t, s in zip(tree_leaves(meta), flat_specs)]
+    # the step counters follow the rank's edges, as every leaf's edge dim
+    # does (the reference's spec replicates its [E] counters)
+    step = len(tree_leaves(meta.params))
+    assert tree_leaves(meta)[step] is meta.opt.step
+    want[step] = (MODEL_EDGES // sizes["data"],)
+    split = [tuple(t.shape) != w and "model" in s
+             for t, s, w in zip(tree_leaves(meta), flat_specs, want)]
+    assert sum(split) > 0
+    for res in worlds[world]:
+        assert res["model"][arch]["shapes"] == want
+    if arch == "olmoe-1b-7b":
+        we = specs.params["groups"]["sub0"]["ffn"]["we_gate"]
+        assert tuple(we) == ("data", None, "model", None, None)
 
 
 @pytest.mark.parametrize("world", list(WORLDS))

@@ -84,9 +84,37 @@ def test_rows_are_the_references_in_order(cpu_rows):
     assert "x_vs_seq_host" in derived["el_sweep_vmapped_4cells"]
 
 
-def test_sharded_rows_name_item_14():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        microbench.run(quiet=True, sharded=True, device="cpu")
+def test_sharded_rows_name_item_14(monkeypatch):
+    """``--sharded``, once item 14's refusal: the reference's four donated
+    and mesh-sharded rows after the sweep's, from one ``bench_el`` run
+    (here at ``bench_check --smoke``'s sizes, on the CPU)."""
+    monkeypatch.setattr(microbench, "SHARDED_BENCH", [
+        "--skip-host", "--repeats", "1", "--edges", "4", "--samples", "512",
+        "--batch", "64", "--budget", "300", "--max-rounds", "16",
+        "--max-events", "64"])
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rows = microbench.run(quiet=True, sharded=True, device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    names = [r["name"] for r in rows]
+    sharded = ["el_sync_ingraph_donate_per_round",
+               "el_sync_sharded_per_round",
+               "el_sync_sharded_donate_per_round",
+               "el_async_sharded_per_event"]
+    want = reference_row_names()
+    at = want.index("el_sweep_vmapped_4cells") + 1
+    assert names == want[:at] + sharded + want[at:]
+    derived = {r["name"]: r["derived"] for r in rows}
+    assert derived["el_sync_ingraph_donate_per_round"].startswith("donated,")
+    assert derived["el_sync_sharded_per_round"].startswith("sharded_2x2,")
+    assert "alias=1920B" in derived["el_sync_sharded_donate_per_round"]
+    assert "alias=0B" in derived["el_sync_sharded_per_round"]
+    assert "x_vs_replicated" in derived["el_async_sharded_per_event"]
+    for r in rows:      # the rings' overhead row is clamped at 0
+        assert math.isfinite(r["us_per_call"]) and r["us_per_call"] >= 0
+        assert r["name"] not in sharded or r["us_per_call"] > 0
 
 
 def test_kernel_row_needs_a_card():

@@ -303,14 +303,82 @@ def test_one_card_facts_hold_on_meta():
     assert gathers["bytes"] == nbytes + 4 and gathers["count"] >= 2
     assert row["memory"]["argument_size_in_bytes"] >= 3 * nbytes
     assert row["fits"] and row["ok"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        dryrun.plan_combo("qwen3-1.7b", "train_4k", step_mode="el_round",
-                          model_ranks=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14 part 7"):
         dryrun.plan_combo("qwen3-1.7b", "train_4k", multi_pod=True)
     with pytest.raises(ValueError, match="card"):
         dryrun.plan_combo("qwen3-1.7b", "decode_32k", measure=True,
                           device="cpu")
+
+
+def _block_bytes(shape, spec, dtype, sizes):
+    """Allocator bytes of one rank's block of a leaf under ``spec``."""
+    n = 1
+    for d, size in enumerate(shape):
+        entry = spec[d] if d < len(spec) else None
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else entry)
+        n *= size // int(np.prod([sizes[a] for a in axes]))
+    return dryrun.block_bytes(n * dtype.itemsize)
+
+
+def test_el_round_plans_a_model_axis(tmp_path):
+    """``--step el_round`` over a model axis of 2: the arguments are the
+    rank's blocks of its edges' state (``el_state_specs``, the edge dim
+    the rank's own) plus its batch, exactly; the peak is below the
+    unsplit round's; ``collectives`` holds the model group's gathers (each
+    group's weights in the forward and again in the recompute, each
+    gradient leaf for the clip) and, over 2 data ranks, the edge group's
+    too; the CLI plans the row."""
+    import types
+
+    from repro_torch.federated import local_sgd
+    from repro_torch.interop import tree_leaves
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.launch.specs import el_round_batch_struct
+    from repro_torch.sharding import map_specs
+    kw = dict(step_mode="el_round", h_max=2, batch=4, seq_len=64,
+              layers="0:2", edges_per_rank=2)
+    one = dryrun.plan_combo("mamba2-370m", "train_4k", **kw)
+    two = dryrun.plan_combo("mamba2-370m", "train_4k", model_ranks=2, **kw)
+    assert (two["mesh"], two["n_chips"]) == ("1x2", 2)
+    cfg = dryrun.layer_window(
+        port_config.get_config("mamba2-370m").model, "0:2")
+    tc = dryrun._dryrun_train_cfg(4, 64)
+    meta = local_sgd.init_el_state(LM(cfg, device="meta"), tc, 2, None)
+    mesh = PlanMesh(1, 2)
+    specs = local_sgd.el_state_specs(cfg, mesh, meta)
+    flat = [b.spec for b in tree_leaves(map_specs(
+        lambda spec: types.SimpleNamespace(spec=spec), specs))]
+    sizes = dict(mesh.shape)
+    state = sum(_block_bytes(tuple(t.shape), s, np.dtype(str(t.dtype)[6:]),
+                             sizes) for t, s in zip(tree_leaves(meta), flat))
+    batch = sum(dryrun.block_bytes(t.numel() * t.element_size())
+                for t in el_round_batch_struct(cfg, 2, 2, 4, 64).values())
+    assert two["memory"]["argument_size_in_bytes"] == state + batch
+    assert sum("model" in s for s in flat) > 0
+    assert two["memory"]["peak_live_bytes"] < \
+        one["memory"]["peak_live_bytes"]
+    gathers = two["collectives"]["all-gather"]
+    assert set(gathers["by_group"]) == {"model"}
+    # each of the 4 steps (2 edges x h_max 2) sends the rank's blocks of
+    # the split leaves at least twice: in the forward and for the clip
+    split = sum(t[0].numel() * t.element_size() // 2
+                for t, s in zip(tree_leaves(meta.params), flat)
+                if "model" in s)
+    assert 8 * split <= gathers["bytes"] <= 16 * split
+    four = dryrun.plan_combo("mamba2-370m", "train_4k", data_ranks=2,
+                             model_ranks=2, **dict(kw, edges_per_rank=1))
+    assert four["mesh"] == "2x2" and set(
+        four["collectives"]["all-gather"]["by_group"]) == {"edge", "model"}
+    out = tmp_path / "rows.jsonl"
+    assert dryrun.main(["--arch", "mamba2-370m", "--shape", "train_4k",
+                        "--step", "el_round", "--mesh-model", "2",
+                        "--edges-per-rank", "2", "--batch", "4", "--seq",
+                        "64", "--layers", "0:2", "--h-max", "2",
+                        "--out", str(out)]) == 0
+    row = json.loads(out.read_text())
+    assert row["ok"] and row["mesh"] == "1x2"
+    assert row["memory"] == two["memory"]
 
 
 def test_dryrun_cli_writes_rows_and_failed_rows(tmp_path, capsys):
@@ -318,13 +386,13 @@ def test_dryrun_cli_writes_rows_and_failed_rows(tmp_path, capsys):
     assert dryrun.main(["--arch", "mamba2-370m", "--shape", "long_500k",
                         "--out", str(out)]) == 0
     assert dryrun.main(["--arch", "qwen3-1.7b", "--shape", "train_4k",
-                        "--step", "el_round", "--mesh-model", "2",
+                        "--step", "el_round", "--edges-per-rank", "3",
                         "--out", str(out)]) == 1
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert rows[0]["ok"] and rows[0]["collectives"] == {}
     assert {"memory", "cost", "fits", "plan_s", "params",
             "active_params"} <= set(rows[0])
-    assert not rows[1]["ok"] and "item 14" in rows[1]["error"]
+    assert not rows[1]["ok"] and "does not split" in rows[1]["error"]
     assert "[OK] mamba2-370m long_500k 1x1" in capsys.readouterr().out
     # --skip-existing keeps the reference's key
     assert dryrun.main(["--arch", "mamba2-370m", "--shape", "long_500k",

@@ -370,9 +370,15 @@ def test_el_state_specs_are_the_references(lm):
 
 
 def test_a_model_axis_is_refused_and_init_draws_edge_by_edge(lm):
+    """A model axis was refused until item 14 part 6; now a round builds
+    on one, and ``init_el_state`` draws every edge in order whatever the
+    split: a rank's edges (``edges=``) are the whole state's rows, and its
+    blocks over a model axis (``mesh=``) ``shard_el_state``'s cut of
+    them, which ``gather_el_state`` would invert."""
+    from repro_torch.launch.mesh import PlanMesh
     _, _, tm, tc, _, _ = lm
-    with pytest.raises(NotImplementedError, match="item 14"):
-        local_sgd.make_el_round(tm, tc, H_MAX, mesh=DuckMesh("2x2"))
+    assert callable(local_sgd.make_el_round(tm, tc, H_MAX,
+                                            mesh=PlanMesh(1, 2)))
     gen = torch.Generator().manual_seed(5)
     whole = local_sgd.init_el_state(tm, tc, 3, gen)
     part = local_sgd.init_el_state(tm, tc, 3,
@@ -381,3 +387,15 @@ def test_a_model_axis_is_refused_and_init_draws_edge_by_edge(lm):
     for a, b in zip(tree_leaves(whole.params), tree_leaves(part.params)):
         assert torch.equal(a[1:], b)
     assert whole.opt.step.shape == (3,)
+    mesh = PlanMesh(1, 2)
+    blocks = local_sgd.init_el_state(tm, tc, 3,
+                                     torch.Generator().manual_seed(5),
+                                     mesh=mesh)
+    specs = local_sgd.el_state_specs(tm.cfg, mesh, whole)
+    cut = local_sgd.shard_el_state(whole, specs, mesh)
+    n_split = 0
+    for a, b, w in zip(tree_leaves(blocks), tree_leaves(cut),
+                       tree_leaves(whole)):
+        assert torch.equal(a, b) and b.is_contiguous()
+        n_split += a.shape != w.shape
+    assert n_split > 0

@@ -13,8 +13,13 @@ it saw to ``OUT_DIR/rank<r>.pkl``:
     (``donate=True``), and whether running the donated params again
     raises;
   * ``lm``: ``local_sgd.make_el_round`` over a data-only mesh, the rank's
-    edges' state gathered after the rounds, and whether a mesh with a
-    ``model`` axis is refused;
+    edges' state gathered after the rounds;
+  * ``model``: per arch, each edge's model split over the ``model`` axis
+    of the world's ``model_mesh`` (``init_el_state(mesh=)``): one
+    ``make_el_round`` round, then ``make_el_program`` rounds on replayed
+    draws; the losses, the shapes of the rank's blocks, and the whole
+    state (params and moments) gathered over the model group and the edge
+    group;
   * ``modules``: any ``jax`` / ``repro`` / ``benchmarks`` module the rank
     imported.
 """
@@ -104,16 +109,56 @@ def lm_round(case, world):
             torch.tensor(case["weights"], dtype=torch.float32))
         losses.append(float(met["mean_loss"]))
     group = mesh.edge_group()
-    out = {"edges": (mine.start, mine.stop), "losses": losses,
-           "params": tree_to_numpy(gather_edge_stack(state.params, group))}
-    if "model_mesh" in case:
-        try:
-            local_sgd.make_el_round(model, tc, case["h_max"], mesh=make_mesh(
-                *case["model_mesh"], device="cpu"))
-            out["model_axis"] = "ran"
-        except NotImplementedError as e:
-            out["model_axis"] = str(e)
-    return out
+    return {"edges": (mine.start, mine.stop), "losses": losses,
+            "params": tree_to_numpy(gather_edge_stack(state.params, group))}
+
+
+def model_axis(case, mesh):
+    """``case``'s arch with each edge's model over ``mesh``'s ``model``
+    axis (``tests/test_torch_mesh.py``'s ``model_cases``); ``mesh=None``:
+    the unsharded run on one rank."""
+    from repro_torch.el.rng import ReplayDraws
+    from repro_torch.federated import local_sgd
+    from repro_torch.interop import tree_leaves, tree_to_numpy
+    from repro_torch.launch.mesh import edge_shard
+    from repro_torch.models import LM
+    model_cfg, tc = case["model_cfg"], case["train_cfg"]
+    model = LM(model_cfg, device="cpu")
+    n_edges, h_max = case["edges"], case["h_max"]
+    rnd = local_sgd.make_el_round(model, tc, h_max, "sync", mesh=mesh)
+    mine = rnd.edges(n_edges)
+    state = local_sgd.init_el_state(
+        model, tc, n_edges, torch.Generator().manual_seed(case["seed"]),
+        edges=mine, mesh=mesh)
+    shapes = [tuple(t.shape) for t in tree_leaves(state)]
+    tokens = case["tokens"]
+    state, met = rnd(state, {"tokens": torch.from_numpy(
+        tokens[0][mine.start:mine.stop])},
+        torch.tensor(case["intervals"], dtype=torch.int32),
+        torch.tensor(case["weights"], dtype=torch.float32))
+    losses = [float(met["mean_loss"])]
+
+    def data_fn(edge_ids, rnd_idx, steps):
+        return {"tokens": torch.from_numpy(
+            tokens[1 + rnd_idx][edge_ids.numpy()][:, steps.numpy()])}
+    prog = local_sgd.make_el_program(
+        model, tc, n_edges, h_max, len(tokens) - 1, data_fn,
+        case["comp"], case["comm"], mode="async", ucb_c=1.0, mesh=mesh)
+    state, _, budgets, hist = prog(
+        state, local_sgd.el_bandit_init(n_edges, h_max, "cpu"),
+        torch.tensor(case["budgets"]), ReplayDraws(gumbel=case["gumbel"]))
+    full, shard = state, edge_shard(mesh, n_edges)
+    if mesh is not None:
+        specs = local_sgd.el_state_specs(
+            model_cfg, mesh, local_sgd.init_el_state(
+                LM(model_cfg, device="meta"), tc, n_edges, None))
+        full = local_sgd.gather_el_state(state, specs, mesh)
+    if shard is not None:
+        full = shard.gather(full)
+    return {"edges": (mine.start, mine.stop), "shapes": shapes,
+            "losses": losses + hist["loss"].tolist(),
+            "intervals": hist["intervals"].tolist(),
+            "budgets": budgets.tolist(), "state": tree_to_numpy(full)}
 
 
 def main():
@@ -130,6 +175,10 @@ def main():
                        for c in spec["classic"]}}
     if spec.get("lm"):
         out["lm"] = lm_round(spec["lm"], world)
+    if spec.get("model"):
+        model_mesh = make_mesh(*spec["model_mesh"], device="cpu")
+        out["model"] = {c["arch"]: model_axis(c, model_mesh)
+                        for c in spec["model"]}
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in
                             ("jax", "jaxlib", "repro", "benchmarks"))
     with open(os.path.join(out_dir, f"rank{mesh.rank}.pkl"), "wb") as f:
