@@ -105,8 +105,9 @@ Phases, each printing JSON lines:
               and async K = 1 the kernels a chunk round each side
               (``card_time``);
 4g. figures -- the paper's figure harness (``repro_torch.bench``) at its
-              ``--full`` sizes: Fig. 3 (3 seeds, H 1 to 15, 20,000 samples),
-              Fig. 4 (3 seeds), Fig. 5 (2 seeds, 3 / 10 / 30 / 100 edges,
+              ``--full`` sizes, seed 0 only (the preset's 3 / 3 / 2 seeds
+              took ~80 s of the script's 1,200 s): Fig. 3 (H 1 to 15,
+              20,000 samples), Fig. 4, Fig. 5 (3 / 10 / 30 / 100 edges,
               H 1 / 5 / 15, budget 600, batch 32), the policy ablation
               with its testbed and ``ucb_sweep``, the churn baselines and
               the §V testbed, every K-means local step and evaluation one
@@ -197,11 +198,12 @@ Phases, each printing JSON lines:
               288 ``flash_attention`` launches (48 forward + 48 remat
               recompute a step); then kernel vs naive attention at f32
               (loss 1e-5, gradient norm 1e-4) and bf16;
-6e. train_paligemma -- paligemma-3b at full width and depth (18 layers,
-              d_model 2048, 8 query heads of 256 and 1 KV head, GeGLU d_ff
-              16,384, tied vocab 257,216, 256 prefix embeddings before the
-              text; 2,508,662,784 parameters): 3 steps at B = 4, S = 512,
-              the attention at (4, 768, 8, 1, 256), 108 launches; kernel vs
+6e. train_paligemma -- paligemma-3b at full width (d_model 2048, 8 query
+              heads of 256 and 1 KV head, GeGLU d_ff 16,384, tied vocab
+              257,216, 256 prefix embeddings before the text), depth 18
+              cut to 4 (967,198,720 parameters; the whole 2,508,662,784
+              in the kernel-vs-naive pass): 3 steps at B = 4, S = 512,
+              the attention at (4, 768, 8, 1, 256), 24 launches; kernel vs
               naive as in 6d; then ``--ckpt``: the launcher's saved state
               restored into a fresh template equal to the live one bit for
               bit, and one more step from each the same;
@@ -2297,7 +2299,7 @@ TELEM_RING, TELEM_SHORT = 128, 16
 TELEM_CASES = (("sync", 1, False), ("async", 1, False),
                ("async", ASYNC_WAVE, False), ("sync", 1, True),
                ("async", 1, True))
-TELEM_TIMED = 5                   # timed runs a side, on and off alternating
+TELEM_TIMED = 3                   # timed runs a side, on and off alternating
 TELEM_COHORT = ("kmeans-traffic", "sync")        # one of phase 4f's cohorts
 
 
@@ -2742,8 +2744,9 @@ def check_metrics(name: str, rows, keys) -> None:
 
 def figures_phase() -> dict:
     """The paper's figures through ``repro_torch.bench`` at the ``--full``
-    sizes, each figure timed and its kernel launches counted; then fig3's
-    H = 6, seed-0 runs again on the CPU from the same init."""
+    sizes with seed 0 only, each figure timed and its kernel launches
+    counted; then fig3's H = 6, seed-0 runs again on the CPU from the
+    same init."""
     import numpy as np
     import torch
     from repro_torch.bench import (churn_baselines, common,
@@ -2753,7 +2756,8 @@ def figures_phase() -> dict:
     from repro_torch.bench import run as bench_run
     from repro_torch.data import make_traffic_dataset, make_wafer_dataset
 
-    kw3, kw4, kw5 = bench_run.sizes(full=True)
+    kw3, kw4, kw5 = (dict(kw, seeds=(0,))
+                     for kw in bench_run.sizes(full=True))
     fig3_runs, fig5_run_s, last = [], {}, [0.0]
 
     def keep3(r):
@@ -4159,14 +4163,16 @@ def mamba_train_phase() -> dict:
 # of 64 (MHA), GeGLU d_ff 6144, 4 codebooks of vocab 2048: summed
 # embeddings and a head per codebook, bf16, remat; 6d) under the
 # experiment's own TrainConfig (AdamW, B = 8, S = 512, tokens [8, 4,
-# 512]); paligemma-3b at full width and depth (18 layers, d_model 2048, 8
-# query heads of 256 and 1 KV head, GeGLU d_ff 16,384, tied vocab 257,216,
-# 256 prefix embeddings before the text, bf16, remat; 6e) at B = 4, S =
-# 512 text tokens, the attention at (4, 768, 8, 1, 256).  Each after the
-# previous phase's state is released; every attention layer's forward and
-# remat recompute through flash_attention; then kernel vs naive attention
-# through the whole model at f32 (loss 1e-5, gradient norm 1e-4, as 6c
-# holds the SSD) and bf16.  6e then checks ``--ckpt``: the launcher saved
+# 512]); paligemma-3b at full width (d_model 2048, 8 query heads of 256
+# and 1 KV head, GeGLU d_ff 16,384, tied vocab 257,216, 256 prefix
+# embeddings before the text, bf16, remat; 6e), its 18 layers cut to
+# PALIGEMMA_TRAIN_LAYERS (at full depth the checkpoint's disk round trip,
+# 30.1 GB written and read back, took ~125 s of the script's 1,200 s), at
+# B = 4, S = 512 text tokens, the attention at (4, 768, 8, 1, 256).  Each
+# after the previous phase's state is released; every attention layer's
+# forward and remat recompute through flash_attention; then kernel vs
+# naive attention through the whole model at f32 (loss 1e-5, gradient
+# norm 1e-4, as 6c holds the SSD) and bf16.  6e then checks ``--ckpt``: the launcher saved
 # the state after its steps; it is restored into a fresh template (each
 # leaf's shape, dtype and device, no values) and must equal the live
 # state bit for bit; one more step from each must give the same metrics
@@ -4176,6 +4182,7 @@ def mamba_train_phase() -> dict:
 # while the live one steps).
 MULTIMODAL_F32_TOL = MAMBA_F32_TOL
 PALIGEMMA_BATCH = 4
+PALIGEMMA_TRAIN_LAYERS = 4
 
 
 def musicgen_train_phase() -> dict:
@@ -4299,6 +4306,13 @@ def paligemma_train_phase() -> dict:
           and cfg.vocab_size == 257216 and cfg.tie_embeddings
           and cfg.num_prefix_embeddings == 256,
           "paligemma-3b: the config, optimizer or remat changed")
+    full = cfg
+    cfg = dataclasses.replace(full, n_layers=PALIGEMMA_TRAIN_LAYERS)
+    exp = dataclasses.replace(exp, model=cfg)
+    emit("train_paligemma_cut", layers=[full.n_layers, cfg.n_layers],
+         full_params=full.num_params(), cut_params=cfg.num_params(),
+         reason="the checkpoint's disk round trip at full depth (30.1 GB "
+                "written and read back) held ~125 s of the script's limit")
     path = ROOT / "build" / "paligemma_ckpt.npz"
     # the main path: every kernel count is read around exactly this run
     result = drive_training(exp, PALIGEMMA_BATCH, TRAIN_SEQ, ckpt=str(path))
@@ -4309,8 +4323,8 @@ def paligemma_train_phase() -> dict:
                                 if k != "state"})
     # paligemma has no q/k norms: the tree is num_params() exactly
     check(result["params"] == cfg.num_params(),
-          f"paligemma-3b holds {result['params']} parameters, not its full "
-          "width")
+          f"paligemma-3b at {cfg.n_layers} layers holds {result['params']} "
+          "parameters, not its full width")
     check_trained("train_paligemma", result)
     ck = ckpt_check(exp, result, path, PALIGEMMA_BATCH)
     emit("train_paligemma_ckpt", **ck)
@@ -4998,6 +5012,99 @@ def planner_phase(moe, deepseek, minicpm, jamba, hybrid) -> dict:
     return {"rows": rows, "timing": timing}
 
 
+# -- phase 9c: rank 0's share of the baseline steps on the production meshes --
+# Three planner rows of ``dryrun --mesh pod|multipod`` that fit one card:
+# rank 0's share of a train, a prefill and a decode step (the batch-1
+# long_500k decode, its K/V sequence split over the 16 edge ranks),
+# planned on meta and run on the card over a ``PlanMesh`` (every
+# collective allocated as the ranks would allocate it, nothing exchanged:
+# a gather copies the rank's block into every block) by
+# ``dryrun.measure_model``, a warm-up then 3 clean steps (the train share,
+# ~4.7 s a step: 1); each measured peak
+# within PLAN_PEAK_TOL of the plan, each
+# kernel of the row launched as often as its layers say, and each new
+# kernel shape held to its plain version (the flash shape one (batch row,
+# KV head) at a time, as phase 5h).
+MESH_ROWS = (("qwen3-1.7b", "train_4k", "multipod", 1),
+             ("mamba2-370m", "prefill_32k", "pod", 3),
+             ("qwen3-1.7b", "long_500k", "pod", 3))
+FLASH_MESH_TRAIN = (8, 4096, 16, 8, 128, 0, "bfloat16")      # 8 rows a rank
+SSD_MESH_PREFILL = (2, 32768, 32, 64, 128, 128, "bfloat16")  # 2 rows a rank
+
+
+def mesh_plan_phase() -> dict:
+    import torch
+    from repro_torch.config import INPUT_SHAPES, get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.launch.specs import adapt_model_for_shape
+    t0 = time.perf_counter()
+    card = card_line()
+    rows, launches = [], {"flash_attention": 0, "ssd_scan": 0}
+    for arch, shape, mesh, repeats in MESH_ROWS:
+        row = dryrun.plan_combo(arch, shape, mesh=mesh)
+        check(row["fits"],
+              f"phase 9c {arch} {shape} {mesh}: the plan says it does not "
+              f"fit ({row['memory']['peak_live_bytes']} bytes)")
+        spec = INPUT_SHAPES[shape]
+        got = dryrun.measure_model(
+            adapt_model_for_shape(get_config(arch).model, spec), spec.kind,
+            spec.global_batch, spec.seq_len, "cuda",
+            mesh=PlanMesh.production(multi_pod=mesh == "multipod"),
+            repeats=repeats)
+        err = row["memory"]["peak_live_bytes"] / got["peak_bytes"] - 1.0
+        n_layers = get_config(arch).model.n_layers
+        # a train step runs each layer's kernel in the forward and the
+        # remat recompute; a prefill once; a decode none (plain attention
+        # against the cache)
+        want = {"train": 2 * n_layers, "prefill": n_layers,
+                "decode": 0}[INPUT_SHAPES[shape].kind] * got["repeats"]
+        kernel = "ssd_scan" if arch == "mamba2-370m" else "flash_attention"
+        out = {"arch": arch, "shape": shape, "mesh": row["mesh"],
+               "n_chips": row["n_chips"], "edge_ranks": row["edge_ranks"],
+               "model_ranks": row["model_ranks"], "step": row["step"],
+               "argument_bytes": row["memory"]["argument_size_in_bytes"],
+               "predicted_peak_bytes": row["memory"]["peak_live_bytes"],
+               "measured_peak_bytes": got["peak_bytes"], "peak_error": err,
+               "step_ms": got["step_ms"], "step_ms_all": got["step_ms_all"],
+               "launches": got["launches"], "flops": row["cost"]["flops"],
+               "collective_bytes": row["collectives"]["bytes_per_device"],
+               "collectives": {k: v["count"] for k, v in
+                               row["collectives"]["per_op"].items()},
+               "card": card}
+        emit("mesh_plan", **out)
+        check(abs(err) <= PLAN_PEAK_TOL,
+              f"phase 9c {arch} {shape} {mesh}: predicted "
+              f"{out['predicted_peak_bytes']} bytes, the card "
+              f"{got['peak_bytes']} ({err:+.3f}, bound {PLAN_PEAK_TOL})")
+        check(got["launches"][kernel] == want,
+              f"phase 9c {arch} {shape} {mesh}: {kernel} launched "
+              f"{got['launches']}, not {want}")
+        check(row["collectives"]["bytes_per_device"] > 0,
+              f"phase 9c {arch} {shape} {mesh}: no collective planned")
+        for k in launches:
+            launches[k] += got["launches"][k]
+        rows.append(out)
+    errs = {FLASH_MESH_TRAIN: flash_long_vs_plain(FLASH_MESH_TRAIN)}
+    b, s, h, p, n, chunk, dt = SSD_MESH_PREFILL
+    x, da, bm, cm = ssd_inputs(b, s, h, p, n, dt, seed=311)
+    y, state = ssd_ops.ssd(x, da, bm, cm, chunk)
+    torch.cuda.synchronize()
+    res = ssd_compare(y, state, x, da, bm, cm, chunk)
+    emit("kernel_vs_plain", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
+         chunk=chunk, dtype=dt, path="phase 9c", **res)
+    for part in ("y", "state"):
+        check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
+              f"ssd_scan {part} off at {SSD_MESH_PREFILL}: {res[part]}")
+    errs[SSD_MESH_PREFILL] = res["y"]["max_abs_err"]
+    del x, da, bm, cm, y, state
+    torch.cuda.empty_cache()
+    emit("mesh_plan_done", rows=len(rows), launches=launches,
+         seconds=time.perf_counter() - t0)
+    return {"rows": rows, "errs": errs, **launches}
+
+
 # -- phase 9b: the examples and the classic launcher on the card --------------
 
 def examples_phase() -> dict:
@@ -5180,10 +5287,12 @@ def model_blocks(cfg, tc, state, index: int) -> list:
     from repro_torch.interop import tree_leaves
     from repro_torch.launch.mesh import PlanMesh
     from repro_torch.models import LM
+    from repro_torch.sharding import map_specs
+    from repro_torch.train.layout import model_dim
     shapes = local_sgd.init_el_state(LM(cfg, device="meta"), tc, LM_EDGES,
                                      None)
     specs = local_sgd.el_state_specs(cfg, PlanMesh(1, RANKS), shapes)
-    dims = tree_leaves(local_sgd._state_dims(specs))
+    dims = tree_leaves(map_specs(model_dim, specs))
     out = []
     for leaf, d in zip(tree_leaves(state), dims):
         if d is not None:
@@ -6266,6 +6375,9 @@ def main() -> None:
     ol4el_phase()
     planner_phase(moe_served, deepseek_served, minicpm, jamba_served,
                   hybrid_trained)
+    mesh_planned = mesh_plan_phase()
+    fa_errs[FLASH_MESH_TRAIN] = mesh_planned["errs"][FLASH_MESH_TRAIN]
+    ssd_errs[SSD_MESH_PREFILL] = mesh_planned["errs"][SSD_MESH_PREFILL]
     examples_phase()
     ranks = ranks_phase({"async": events["replayed"],
                          "sweep": sweep["digests"],
@@ -6351,6 +6463,12 @@ def main() -> None:
     ssd_jamba_train = ssd_timing(*SSD_JAMBA_TRAIN)
     emit("ssd_timing", case="jamba-1.5 interleave training",
          **ssd_jamba_train)
+    fa_mesh = flash_timing(*FLASH_MESH_TRAIN)
+    emit("flash_timing", case="phase 9c: rank 0's share of qwen3-1.7b "
+         "train_4k on the 2x16x16 mesh", **fa_mesh)
+    ssd_mesh = ssd_timing(*SSD_MESH_PREFILL)
+    emit("ssd_timing", case="phase 9c: rank 0's share of mamba2-370m "
+         "prefill_32k on the 16x16 mesh", **ssd_mesh)
     ssd_el = (ranks["edge_batch"],) + SSD_TRAIN[1:]
     ssd_el_round = ssd_timing(*ssd_el)
     emit("ssd_timing", case="phase 10: the OL4EL round, one edge's batch",
@@ -6520,7 +6638,13 @@ def main() -> None:
              "phase 5h: qwen3-1.7b with a sliding window of 8192, the "
              "prefill of 2 x 12,288 tokens (attention_fill and "
              "attention_fill_ring: the kernel's window branch)",
-             long_served["flash_attention"], FLASH_LONG, fa_long))] + [{
+             long_served["flash_attention"], FLASH_LONG, fa_long),
+            ("flash_attention_mesh_train",
+             "phase 9c: rank 0's share of qwen3-1.7b train_4k on the "
+             "2x16x16 mesh (its 8 rows, each layer's weights gathered over "
+             "a PlanMesh), a clean step's forward and remat recompute",
+             mesh_planned["flash_attention"], FLASH_MESH_TRAIN,
+             fa_mesh))] + [{
         "name": "ssd_scan_mamba_train", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",
@@ -6566,7 +6690,12 @@ def main() -> None:
              "(its layers' weights gathered before use), every layer's "
              "forward and remat recompute on each rank",
              ranks["model_axis"]["ssd_scan"], ssd_el, ssd_el_round,
-             [ssd_el_round]))]}),
+             [ssd_el_round]),
+            ("ssd_scan_mesh_prefill",
+             "phase 9c: rank 0's share of mamba2-370m prefill_32k on the "
+             "16x16 mesh (its 2 rows of 32,768 tokens), 3 clean prefills",
+             mesh_planned["ssd_scan"], SSD_MESH_PREFILL, ssd_mesh,
+             [ssd_mesh]))]}),
         flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

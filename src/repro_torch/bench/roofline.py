@@ -8,13 +8,18 @@ derives, per (arch x shape x mesh x step):
     memory term     = bytes      / 3.35e12 HBM B/s
     collective term = coll_bytes / 450e9 NVLink B/s (one direction)
 
-A row plans one card, so its counts are the card's own and the
-collective term is 0 (``collectives`` is ``{}``); the column stays for
-the multi-card planner (ROADMAP item 14).  MODEL_FLOPS uses
-6*N_active*tokens for training, 2*N_active*tokens for forward-only steps,
-with the row's ``batch`` / ``seq_len`` where the planner overrode the
-shape's; the ratio MODEL_FLOPS / counted FLOPs exposes remat, recompute
-and dispatch waste.
+A row's counts are one card's: the whole step (``mesh`` 1x1, no
+collective), or rank 0's share of it on a mesh (``el_round`` rows, and
+``--mesh pod|multipod``'s 16x16 / 2x16x16 rows), whose ``collectives``
+(the reference's schema: ``per_op`` and ``bytes_per_device``, each
+all-gather metered by its gathered result) all go at NVLink's rate: the
+inter-node link of a 256- or 512-card mesh is not modelled.
+MODEL_FLOPS uses 6*N_active*tokens for training, 2*N_active*tokens for
+forward-only steps, with the row's ``batch`` / ``seq_len`` where the
+planner overrode the shape's; the ratio MODEL_FLOPS / (counted FLOPs x
+``n_chips``) exposes remat, recompute and dispatch waste, and on a mesh
+the model axis's redundant compute (each of its ranks runs its rows'
+whole step on gathered weights).
 """
 
 from __future__ import annotations

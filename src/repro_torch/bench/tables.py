@@ -84,12 +84,16 @@ def main():
     with open("results/tables/torch_roofline.json", "w") as f:
         json.dump(roof, f, indent=1, default=str)
 
-    # dominant-term summary
-    doms = Counter((r["shape"], r["dominant"]) for r in roof
-                   if r["mesh"] == "1x1" and r["step"] != "el_round")
-    print("dominant terms (one H100):")
-    for (shape, dom), n in sorted(doms.items()):
-        print(f"  {shape:12s} {dom:10s} x{n}")
+    # dominant-term summary, one card and rank 0 of each production mesh
+    for mesh, what in (("1x1", "one H100"), ("16x16", "rank 0 of 16x16"),
+                       ("2x16x16", "rank 0 of 2x16x16")):
+        doms = Counter((r["shape"], r["dominant"]) for r in roof
+                       if r["mesh"] == mesh and r["step"] != "el_round")
+        if not doms:
+            continue
+        print(f"dominant terms ({what}):")
+        for (shape, dom), n in sorted(doms.items()):
+            print(f"  {shape:12s} {dom:10s} x{n}")
 
 
 if __name__ == "__main__":

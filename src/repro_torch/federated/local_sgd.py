@@ -24,7 +24,8 @@ only its block of each leaf (parameters and optimizer moments) along the
 dim :func:`el_state_specs` puts on ``model`` (the reference's
 ``param_specs`` layout; a leaf the resolver replicates stays whole), and
 gathers each block over the model group just before use, as FSDP /
-ZeRO-3 does (:class:`ModelAxis`): the model's ``param_hook`` all-gathers
+ZeRO-3 does (``repro_torch.train.layout.ParamLayout``, the layout the
+baseline train and serving steps over a mesh use too): the model's ``param_hook`` all-gathers
 a group's leaves inside the group's ``checkpoint`` (its full weights live
 only during its forward and its recompute), and the embedding, head,
 final norm and prefix layers where they are used; the gather's backward
@@ -48,7 +49,6 @@ stacked state).
 
 from __future__ import annotations
 
-import copy
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -58,10 +58,9 @@ from repro_torch.core.bandit import (device_bandit_init, device_bandit_update,
                                      device_select_arm)
 from repro_torch.el.ingraph import _edge_sum, _fma32
 from repro_torch.interop import tree_leaves, tree_map
-from repro_torch.launch.mesh import (edge_shard, gather_edge_stack,
-                                     gather_model_dim, group_rank,
-                                     group_size)
+from repro_torch.launch.mesh import edge_shard, gather_edge_stack
 from repro_torch.sharding import P, edge_axes, map_specs, param_specs
+from repro_torch.train.layout import Blocks, ParamLayout
 from repro_torch.train.optimizer import OptState, init_opt_state
 from repro_torch.train.state import TrainState, make_train_step
 
@@ -109,103 +108,13 @@ def el_bandit_init(n_edges: int, n_arms: int, device=None) -> Dict:
                    for _ in range(n_edges)])
 
 
-def _model_dim(spec) -> Optional[int]:
-    """The dim a spec puts on the ``model`` axis, or ``None``."""
-    for d, entry in enumerate(spec):
-        if entry == "model" or (isinstance(entry, tuple)
-                                and "model" in entry):
-            return d
-    return None
-
-
-class _GatherShard(torch.autograd.Function):
-    """Forward: a leaf's blocks all-gathered over the model group along
-    ``dim``; backward: this rank's block of the incoming gradient, a copy
-    (so the full gradient is freed at once)."""
-
-    @staticmethod
-    def forward(ctx, shard, dim, group):
-        ctx.dim, ctx.n = dim, shard.shape[dim]
-        ctx.lo = group_rank(group) * ctx.n
-        return gather_model_dim(shard, dim, group)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.narrow(ctx.dim, ctx.lo, ctx.n).contiguous(), None, None
-
-
-class ModelAxis:
-    """One edge's model split over a mesh's ``model`` group: ``dims`` is
-    the parameter tree's ``model`` dim per leaf (``None``: replicated),
-    from ``repro_torch.sharding.param_specs`` on the full shapes
-    ``params_shape``; a ``Mesh`` or a ``PlanMesh`` (whose group records
-    the gathers)."""
-
-    def __init__(self, model_cfg: ModelConfig, mesh, params_shape: Params):
-        self.group = mesh.model_group()
-        self.index, self.world = group_rank(self.group), group_size(
-            self.group)
-        self.dims = map_specs(_model_dim,
-                              param_specs(model_cfg, mesh, params_shape))
-        groups = self.dims["groups"]
-        # a group's tree: the stacked leaves less their [n_groups] dim, or
-        # (unstacked) any group of the list
-        self.group_dims = (tree_map(lambda d: None if d is None else d - 1,
-                                    groups)
-                           if model_cfg.scan_layers else groups[0])
-
-    def shard(self, params: Params) -> Params:
-        """One edge's full parameter tree cut to this rank's blocks."""
-        return tree_map(lambda leaf, d: _cut(leaf, d, self.index,
-                                             self.world),
-                        params, self.dims)
-
-    def use(self, tree: Params, *key) -> Params:
-        """The ``LM.param_hook``: the blocks at ``key`` gathered."""
-        if key == ("groups",):
-            dims = self.group_dims
-        else:
-            dims = self.dims
-            for k in key:
-                dims = dims[k]
-        return tree_map(lambda leaf, d: leaf if d is None
-                        else _GatherShard.apply(leaf, d, self.group),
-                        tree, dims)
-
-    def full_leaves(self, grads: Params):
-        """The clip's leaves: each gradient block gathered, one at a time,
-        in ``tree_leaves`` order."""
-        for g, d in zip(tree_leaves(grads), tree_leaves(self.dims)):
-            yield _gather(g, d, self.group)
-
-
-def _cut(leaf: torch.Tensor, dim: Optional[int], index: int,
-         world: int) -> torch.Tensor:
-    """Block ``index`` of ``world`` along ``dim``, its own storage (so
-    the whole leaf can be freed); the leaf itself for ``dim=None``."""
-    if dim is None:
-        return leaf
-    n = leaf.shape[dim] // world
-    return leaf.narrow(dim, index * n, n).clone(
-        memory_format=torch.contiguous_format)
-
-
-def _gather(leaf: torch.Tensor, dim: Optional[int], group) -> torch.Tensor:
-    return leaf if dim is None else gather_model_dim(leaf, dim, group)
-
-
-def model_axis(model, mesh) -> Optional[ModelAxis]:
-    """``model``'s :class:`ModelAxis` on ``mesh``, or ``None`` (no mesh,
-    or no ``model`` axis of 2 or more ranks)."""
+def model_axis(model, mesh) -> Optional[ParamLayout]:
+    """``model``'s parameter layout on ``mesh`` (each edge's model split
+    over the ``model`` group, ``repro_torch.train.layout.ParamLayout``),
+    or ``None`` (no mesh, or no ``model`` axis of 2 or more ranks)."""
     if mesh is None or mesh.model_group() is None:
         return None
-    from repro_torch.models import LM
-    return ModelAxis(model.cfg, mesh,
-                     LM(model.cfg, device="meta").init(None))
-
-
-def _state_dims(specs: ELMeshState) -> ELMeshState:
-    return map_specs(_model_dim, specs)
+    return ParamLayout.for_model(model, mesh)
 
 
 def shard_el_state(state: ELMeshState, specs: ELMeshState,
@@ -215,11 +124,7 @@ def shard_el_state(state: ELMeshState, specs: ELMeshState,
     ``model``; a leaf the resolver replicates stays whole.  The edge dim
     is the caller's (``init_el_state(edges=)``)."""
     group = mesh.model_group()
-    if group is None:
-        return state
-    index, world = group_rank(group), group_size(group)
-    return tree_map(lambda leaf, d: _cut(leaf, d, index, world), state,
-                    _state_dims(specs))
+    return state if group is None else Blocks(specs, group).shard(state)
 
 
 def gather_el_state(state: ELMeshState, specs: ELMeshState,
@@ -229,10 +134,7 @@ def gather_el_state(state: ELMeshState, specs: ELMeshState,
     ``model`` dim.  For tests and checkpoints; a collective every model
     rank calls."""
     group = mesh.model_group()
-    if group is None:
-        return state
-    return tree_map(lambda leaf, d: _gather(leaf, d, group), state,
-                    _state_dims(specs))
+    return state if group is None else Blocks(specs, group).gather(state)
 
 
 def _edge_view(tree: Any, j: int) -> Any:
@@ -271,9 +173,7 @@ def make_el_round(model, train_cfg: TrainConfig, h_max: int,
     if axis is None:
         train_step = make_train_step(model, train_cfg)
     else:
-        model = copy.copy(model)
-        model.param_hook = axis.use
-        train_step = make_train_step(model, train_cfg,
+        train_step = make_train_step(axis.hooked(model), train_cfg,
                                      full_leaves=axis.full_leaves)
 
     def edges(n_edges: int) -> range:

@@ -352,7 +352,7 @@ def gather_edge_stack(tree: Any, group) -> Any:
         full = local.new_empty((world * local.shape[0], local.shape[1]))
         parts = list(full.chunk(world))
         if planned:
-            group.record(local)
+            group.record("all-gather", full.numel() * full.element_size())
             for part in parts:
                 part.copy_(local)
         else:
@@ -389,7 +389,8 @@ def group_size(group) -> int:
 
 def gather_model_dim(shard, dim: int, group):
     """All-gather the ranks' shards of one tensor along ``dim`` over a
-    model group: rank i's shard is block i of the result, which is a new
+    group (a model group, or the edge group of a leaf split over the edge
+    axes): rank i's shard is block i of the result, which is a new
     contiguous tensor (the layout of the unsharded tensor, so a kernel or
     a reduction sees what it sees on one rank).  One ``all_gather`` into
     an ``[M, *shard.shape]`` buffer, then one copy that moves the blocks
@@ -402,7 +403,7 @@ def gather_model_dim(shard, dim: int, group):
     buf = local.new_empty((world,) + tuple(local.shape))
     parts = list(buf.unbind(0))
     if planned:
-        group.record(local)
+        group.record("all-gather", buf.numel() * buf.element_size())
         for part in parts:
             part.copy_(local)
     else:
@@ -413,36 +414,129 @@ def gather_model_dim(shard, dim: int, group):
     return buf.movedim(0, dim).reshape(full)
 
 
+def _all_to_all(send, group):
+    """``send``'s dim-0 block r to rank r of ``group``, block r of the
+    result from rank r (a :class:`PlannedGroup` keeps its own blocks)."""
+    import torch.distributed as dist
+    recv = send.new_empty(send.shape)
+    if isinstance(group, PlannedGroup):
+        recv.copy_(send)
+    else:
+        dist.all_to_all_single(recv, send, group=group)
+    return recv
+
+
+def _ordered_sum(parts):
+    """Σ of ``parts`` ([R, ...]) in rank order, one add at a time: every
+    rank sums the same values in the same order, so the result is the
+    same bits on each."""
+    acc = parts[0].clone()
+    for r in range(1, parts.shape[0]):
+        acc.add_(parts[r])
+    return acc
+
+
+def reduce_scatter_dim(full, dim: int, group):
+    """The sum over ``group``'s ranks of their ``full`` tensors, summed in
+    rank order, and of it this rank's block along ``dim`` (block i for
+    group rank i, as :func:`gather_model_dim` places it): a deterministic
+    reduce-scatter, one ``all_to_all`` and an ordered sum of the
+    ``[R, block]`` it receives.  A :class:`PlannedGroup` records
+    ``reduce-scatter`` and the bytes reduced."""
+    world = group_size(group)
+    send = full.movedim(dim, 0).contiguous()
+    if isinstance(group, PlannedGroup):
+        group.record("reduce-scatter", send.numel() * send.element_size())
+    recv = _all_to_all(send, group)
+    del send
+    parts = recv.view((world, recv.shape[0] // world) + recv.shape[1:])
+    return _ordered_sum(parts).movedim(0, dim).contiguous()
+
+
+def all_reduce_ordered(full, group):
+    """The sum over ``group``'s ranks of their ``full`` tensors, in rank
+    order, on every rank: :func:`reduce_scatter_dim` of the flattened
+    tensor (padded to a multiple of the ranks), then one all-gather.  A
+    :class:`PlannedGroup` records one ``all-reduce`` of the tensor's
+    bytes."""
+    import torch
+    import torch.distributed as dist
+    world = group_size(group)
+    flat = full.reshape(-1)
+    pad = -flat.numel() % world
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    planned = isinstance(group, PlannedGroup)
+    if planned:
+        group.record("all-reduce", full.numel() * full.element_size())
+    recv = _all_to_all(flat, group)
+    mine = _ordered_sum(recv.view(world, -1))
+    out = mine.new_empty((world,) + tuple(mine.shape))
+    parts = list(out.unbind(0))
+    if planned:
+        for part in parts:
+            part.copy_(mine)
+    else:
+        dist.all_gather(parts, mine, group=group)
+    return out.reshape(-1)[:full.numel()].view(full.shape)
+
+
 class PlannedGroup:
     """A group of ``world`` ranks that exist only in a plan
-    (``repro_torch.launch.dryrun --step el_round``): a gather over it
-    allocates what the real one does and copies this rank's rows into
-    every block; ``calls`` lists each gather's (mnemonic, bytes sent)."""
+    (``repro_torch.launch.dryrun``): a collective over it allocates what
+    the real one does and exchanges nothing (a gather copies this rank's
+    rows into every block); ``calls`` lists each collective's (mnemonic,
+    bytes) as the reference's HLO census meters them: an all-gather its
+    gathered result, a reduce-scatter its input, an all-reduce its
+    operand."""
 
     def __init__(self, world: int):
         self.world = world
         self.calls: list = []
 
-    def record(self, local) -> None:
-        self.calls.append(("all-gather", local.numel()
-                           * local.element_size()))
+    def record(self, op: str, nbytes: int) -> None:
+        self.calls.append((op, int(nbytes)))
 
 
 class PlanMesh:
-    """A (data, model) mesh of ``n_data`` x ``n_model`` ranks seen from
-    rank 0, for plans: what ``repro_torch.sharding``, :func:`edge_shard`
-    and ``repro_torch.federated.local_sgd`` read of a :class:`Mesh`, its
-    edge group and (``n_model > 1``) its model group
-    :class:`PlannedGroup` s."""
+    """A (data, model) mesh of ``n_data`` x ``n_model`` ranks, or with
+    ``n_pod`` a (pod, data, model) one, seen from rank 0, for plans: what
+    ``repro_torch.sharding``, :func:`edge_shard`,
+    ``repro_torch.federated.local_sgd`` and ``repro_torch.train.layout``
+    read of a :class:`Mesh`, its edge group (pod x data) and (``n_model >
+    1``) its model group :class:`PlannedGroup` s."""
 
-    def __init__(self, n_data: int, n_model: int = 1):
-        self.axis_names = ("data", "model")
-        self.devices = np.arange(n_data * n_model).reshape(n_data, n_model)
+    def __init__(self, n_data: int, n_model: int = 1,
+                 n_pod: Optional[int] = None):
+        if n_pod is None:
+            self.axis_names = ("data", "model")
+            shape = (n_data, n_model)
+        else:
+            self.axis_names = ("pod", "data", "model")
+            shape = (n_pod, n_data, n_model)
+        self.devices = np.arange(int(np.prod(shape))).reshape(shape)
         self.shape = collections.OrderedDict(zip(self.axis_names,
                                                  self.devices.shape))
-        self.group = PlannedGroup(n_data)
+        self.group = PlannedGroup(n_data * (n_pod or 1))
         self.model = PlannedGroup(n_model) if n_model > 1 else None
         self.rank = 0
+
+    @classmethod
+    def production(cls, multi_pod: bool = False) -> "PlanMesh":
+        """The production mesh (:func:`production_shape`, which honours
+        ``REPRO_DEBUG_MESH``) seen from rank 0."""
+        shape, _ = production_shape(multi_pod=multi_pod)
+        if multi_pod:
+            return cls(shape[1], shape[2], n_pod=shape[0])
+        return cls(*shape)
+
+    @property
+    def edge_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in EDGE_AXES if a in self.axis_names)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
 
     def edge_group(self) -> PlannedGroup:
         return self.group

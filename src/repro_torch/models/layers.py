@@ -310,6 +310,77 @@ def _decode_attend(params: Params, cfg: ModelConfig, q: torch.Tensor,
     return _out_proj(params, out)
 
 
+def attend_partial(q: torch.Tensor, cache_k: torch.Tensor,
+                   cache_v: torch.Tensor, valid: torch.Tensor, scale: float
+                   ) -> torch.Tensor:
+    """One rank's share of split-KV decode attention over its block of
+    keys: per query head the f32 (max, sum, Σ p·V) of its valid keys,
+    packed as ``[B, KV, G, Sq, D + 2]`` (Σ p·V, then the max, then the
+    sum).  A block with no valid key gives max -inf and exact zeros."""
+    b, sq, h, d = q.shape
+    kvh = cache_k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bskgd,btkd->bkgst", qg,
+                     cache_k.to(q.dtype)).float() * scale
+    s = s.masked_fill(~valid, float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0))
+    o = torch.einsum("bkgst,btkd->bkgsd", p, cache_v.float())
+    return torch.cat([o, m, p.sum(-1, keepdim=True)], dim=-1)
+
+
+def combine_split_attention(parts: torch.Tensor) -> torch.Tensor:
+    """The ranks' :func:`attend_partial` shares ``[R, B, KV, G, Sq, D +
+    2]`` combined in rank order: ``Σ_r e^(m_r - M) o_r / Σ_r e^(m_r - M)
+    l_r`` with M the ranks' max, so a share with no valid key adds exact
+    zeros.  Returns ``[B, Sq, H, D]`` (f32)."""
+    o, m, l_ = parts[..., :-2], parts[..., -2:-1], parts[..., -1:]
+    w = torch.exp(m - m.amax(0))
+    num, den = w[0] * o[0], w[0] * l_[0]
+    for r in range(1, parts.shape[0]):
+        num = num + w[r] * o[r]
+        den = den + w[r] * l_[r]
+    out = num / den                                     # [B, KV, G, Sq, D]
+    b, kvh, g, sq, d = out.shape
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, d)
+
+
+def attention_decode_split(params: Params, cfg: ModelConfig,
+                           x: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, cache_index: torch.Tensor,
+                           split) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """:func:`attention_decode` against a K/V cache whose sequence is split
+    over a group of ranks (``split``: ``repro_torch.train.layout.KVSplit``,
+    this rank's positions ``lo .. lo + n - 1``; ``cache_k`` / ``cache_v``
+    its block ``[B, n, KV, D]``).  Every rank forms the new token's q, k,
+    v; only the rank that owns slot ``cache_index`` (clamped to the last
+    slot, as the unsplit write is) writes its K/V; each rank's f32 (max,
+    sum, Σ p·V) over its block (:func:`attend_partial`, the causal and
+    window mask at its positions) is all-gathered over the group and
+    combined in rank order (:func:`combine_split_attention`)."""
+    from repro_torch.launch.mesh import gather_edge_stack, group_size
+    n = cache_k.shape[1]
+    s_max = n * group_size(split.group)
+    win = cfg.sliding_window
+    q, k_new, v_new = _decode_qkv(params, cfg, x, cache_index)
+    rel = cache_index.clamp(0, s_max - 1) - split.lo
+    owner = (rel >= 0) & (rel < n)
+    slot = rel.clamp(0, n - 1).reshape(1).long()
+    for cache, new in ((cache_k, k_new), (cache_v, v_new)):
+        cache.index_copy_(1, slot, torch.where(
+            owner, new.to(cache.dtype), cache.index_select(1, slot)))
+    k_pos = split.lo + torch.arange(n, device=x.device)
+    valid = k_pos <= cache_index
+    if win > 0:
+        valid &= k_pos > (cache_index - win)
+    part = attend_partial(q, cache_k, cache_v, valid,
+                          cfg.resolved_head_dim ** -0.5)
+    parts = gather_edge_stack(part.reshape(1, -1), split.group)
+    out = combine_split_attention(parts.view((-1,) + part.shape))
+    return _out_proj(params, out.to(q.dtype)), cache_k, cache_v
+
+
 def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor,
                      cache_index: torch.Tensor, window_slice: bool = False

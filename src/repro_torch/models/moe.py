@@ -4,7 +4,9 @@
 Sort-free capacity dispatch, as in the reference:
 
   1. router logits -> softmax -> top-k experts per token (renormalized),
-     in f32, ties to the lower expert index as ``lax.top_k`` breaks them;
+     in f32, ties to the lower expert index as ``lax.top_k`` breaks them,
+     probabilities below f32's normal range flushed to 0 as the
+     reference's backends (XLA's CPU, the TPU) flush them;
   2. position-in-expert by an exclusive cumsum of expert one-hots
      (``dispatch="cumsum"``) or by a stable argsort by expert id
      (``"sort"``: the same positions in O(T*k) memory);
@@ -22,6 +24,15 @@ greedy tokens) vary from run to run.
 
 Aux losses follow the standard load-balance formulation
 ``E * sum_e f_e * P_e`` plus a router z-loss.
+
+Over ranks (``group``: the edge group a step's batch rows split over,
+``repro_torch.train.layout``) a rank routes only its own tokens, yet the
+dispatch is the one step's: the capacity comes from the global token
+count, each expert's positions start after the earlier ranks' (an
+exclusive prefix, in rank order, of the ``[E]`` counts gathered over the
+group), and the aux values are formed from gathered sums, the rank's own
+share carrying the gradient and the other ranks' detached.  Grouped
+dispatch whose groups tile the ranks is rank-local as it stands.
 """
 
 from __future__ import annotations
@@ -79,27 +90,49 @@ def route(router: torch.Tensor, xf: torch.Tensor, k: int
     gate [T, k] renormalized, expert_idx [T, k]).  The top k by a stable
     descending sort: equal probabilities keep the lower expert index
     first, as ``lax.top_k`` orders them (``torch.topk`` does not promise
-    an order among ties)."""
+    an order among ties); a subnormal probability is 0, as the
+    reference's backends flush it (so it ties by index there too)."""
     logits = xf.float() @ router.float()                        # [T, E]
     probs = torch.softmax(logits, dim=-1)
+    probs = probs.masked_fill(probs < torch.finfo(probs.dtype).tiny, 0.0)
     top, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, expert_idx = top[:, :k], order[:, :k]
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
     return logits, probs, gate, expert_idx
 
 
-def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _gathered(v: torch.Tensor, group) -> torch.Tensor:
+    """``[R, n]``: every rank's ``[n]`` ``v`` (detached), rank order."""
+    from repro_torch.launch.mesh import gather_edge_stack
+    return gather_edge_stack(v.detach()[None], group)
+
+
+def _own(own: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """The value ``total``, the gradient of ``own`` (this rank's share)."""
+    return own + (total - own).detach()
+
+
+def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor,
+            group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: [B, S, d] -> (y [B, S, d], aux {load_balance_loss,
-    router_z_loss, expert_frac_max})."""
+    router_z_loss, expert_frac_max}); ``group``: the ranks this step's
+    rows split over (x the rank's rows), or ``None``."""
     m = cfg.moe
     b, s, d = x.shape
-    if m.dispatch_groups > 1 and (b * s) % m.dispatch_groups == 0:
+    world = 1
+    if group is not None:
+        from repro_torch.launch.mesh import group_size
+        world = group_size(group)
+    if m.dispatch_groups > 1 and (b * s * world) % m.dispatch_groups == 0:
         # grouped dispatch: tokens are routed within ``dispatch_groups``
         # independent groups (the reference vmaps over them), each with
         # its own capacity; aux is the groups' max for expert_frac_max
         # and their mean otherwise
-        g = m.dispatch_groups
+        if m.dispatch_groups % world:
+            raise ValueError(
+                f"moe.dispatch_groups={m.dispatch_groups} does not tile the "
+                f"{world} ranks a step's rows split over")
+        g = m.dispatch_groups // world
         xg = x.reshape(g, (b * s) // g, 1, d)
         outs = [_moe_ffn_flat(params, cfg, xe) for xe in xg.unbind(0)]
         y = torch.stack([o[0] for o in outs])
@@ -107,18 +140,27 @@ def moe_ffn(params: Params, cfg: ModelConfig, x: torch.Tensor
         for key in AUX_KEYS:
             v = torch.stack([o[1][key] for o in outs])
             aux[key] = v.max() if key == "expert_frac_max" else v.mean()
+        if world > 1:
+            # every rank holds g of the step's groups: the mean over all
+            # is the mean of the ranks' means
+            every = _gathered(torch.stack([aux[k] for k in AUX_KEYS]),
+                              group)
+            for i, key in enumerate(AUX_KEYS):
+                aux[key] = (every[:, i].max() if key == "expert_frac_max"
+                            else _own(aux[key] / world,
+                                      every[:, i].sum() / world))
         return y.reshape(b, s, d), aux
-    return _moe_ffn_flat(params, cfg, x)
+    return _moe_ffn_flat(params, cfg, x, group if world > 1 else None)
 
 
-def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor
+def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                  group=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     k = m.top_k
     e = m.num_experts
-    cap = capacity(t, cfg)
     dtype, dev = x.dtype, x.device
     xf = x.reshape(t, d)
 
@@ -131,13 +173,36 @@ def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor
     # shape, unlike bincount's, does not depend on the data)
     counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add_(
         0, flat_e, torch.ones_like(flat_e)).float()               # [E]
-    frac_routed = counts / (t * k)                                # f_e
-    mean_prob = probs.mean(dim=0)                                 # P_e
-    aux = {
-        "load_balance_loss": e * (frac_routed * mean_prob).sum(),
-        "router_z_loss": torch.logsumexp(logits, dim=-1).square().mean(),
-        "expert_frac_max": frac_routed.max(),
-    }
+    z_sq = torch.logsumexp(logits, dim=-1).square()
+    if group is None:
+        cap = capacity(t, cfg)
+        frac_routed = counts / (t * k)                            # f_e
+        mean_prob = probs.mean(dim=0)                             # P_e
+        aux = {
+            "load_balance_loss": e * (frac_routed * mean_prob).sum(),
+            "router_z_loss": z_sq.mean(),
+            "expert_frac_max": frac_routed.max(),
+        }
+        offset = None
+    else:
+        # the step's counts, probability and z sums over every rank's
+        # tokens, and the earlier ranks' counts
+        from repro_torch.launch.mesh import group_rank
+        every = _gathered(torch.cat([counts, probs.sum(0), z_sq.sum()[None]]),
+                          group)                                  # [R, 2E+1]
+        world, me = every.shape[0], group_rank(group)
+        n_tok = t * world
+        cap = capacity(n_tok, cfg)
+        frac_routed = every[:, :e].sum(0) / (n_tok * k)
+        aux = {
+            "load_balance_loss": _own(
+                e * (frac_routed * probs.sum(0) / n_tok).sum(),
+                e * (frac_routed * every[:, e:2 * e].sum(0) / n_tok).sum()),
+            "router_z_loss": _own(z_sq.sum() / n_tok,
+                                  every[:, 2 * e].sum() / n_tok),
+            "expert_frac_max": frac_routed.max(),
+        }
+        offset = every[:me, :e].sum(0).long()                     # [E]
 
     # ---- position-in-expert ------------------------------------------------
     flat_gate = gate.reshape(t * k).to(dtype)
@@ -157,15 +222,23 @@ def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor
         oh = torch.nn.functional.one_hot(flat_e, e)               # [T*k, E]
         pos = torch.cumsum(oh, dim=0) - oh                        # exclusive
         pos_in_e = (pos * oh).sum(-1)                             # [T*k]
-    keep = pos_in_e < cap
-    # dropped assignments go to the sentinel row E*cap
-    dst = torch.where(keep, flat_e * cap + pos_in_e,
-                      torch.full_like(pos_in_e, e * cap))
+    if offset is None:
+        keep = pos_in_e < cap
+        rows = cap
+    else:
+        # kept by the step's position; a rank's buffer holds its own
+        # tokens only: a token's k experts are distinct, so at most
+        # min(cap, T) an expert
+        keep = offset[flat_e] + pos_in_e < cap
+        rows = min(cap, t)
+    # dropped assignments go to the sentinel row E*rows
+    dst = torch.where(keep, flat_e * rows + pos_in_e,
+                      torch.full_like(pos_in_e, e * rows))
 
     # ---- dispatch (only the sentinel row receives duplicates) --------------
-    buf = torch.zeros(e * cap + 1, d, dtype=dtype, device=dev)
+    buf = torch.zeros(e * rows + 1, d, dtype=dtype, device=dev)
     buf = buf.index_copy(0, dst, xf[flat_tok])
-    xb = buf[: e * cap].reshape(e, cap, d)                        # [E, C, d]
+    xb = buf[: e * rows].reshape(e, rows, d)                      # [E, C, d]
 
     # ---- expert FFN ---------------------------------------------------------
     g = _act(cfg.act_fn, torch.bmm(xb, params["we_gate"].to(dtype)))
@@ -173,7 +246,7 @@ def _moe_ffn_flat(params: Params, cfg: ModelConfig, x: torch.Tensor
     yb = torch.bmm(g * u, params["we_down"].to(dtype))            # [E, C, d]
 
     # ---- combine: token t's k contributions are rows t*k .. t*k+k-1 ---------
-    ybuf = torch.cat([yb.reshape(e * cap, d),
+    ybuf = torch.cat([yb.reshape(e * rows, d),
                       torch.zeros(1, d, dtype=dtype, device=dev)])
     contrib = ybuf[dst] * (flat_gate * keep.to(dtype))[:, None]
     y = contrib.view(t, k, d).sum(1)

@@ -156,15 +156,18 @@ def _add_aux(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]
     return {k: a[k] + b[k] for k in a}
 
 
-def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str, x: torch.Tensor
+def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str, x: torch.Tensor,
+               token_group=None
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """The block's FFN half: x and, for a MoE FFN, its router's aux."""
+    """The block's FFN half: x and, for a MoE FFN, its router's aux
+    (``token_group``: the ranks the step's rows split over, whose tokens
+    a MoE FFN dispatches as one step's)."""
     if ffn == DENSE_FFN:
         h = L.rms_norm(p["ffn"]["norm"], x, cfg.norm_eps)
         return x + L.mlp(p["ffn"], h, cfg.act_fn), None
     if ffn == MOE_FFN:
         h = L.rms_norm(p["ffn"]["norm"], x, cfg.norm_eps)
-        y, moe_aux = MoE.moe_ffn(p["ffn"], cfg, h)
+        y, moe_aux = MoE.moe_ffn(p["ffn"], cfg, h, token_group)
         return x + y, moe_aux
     return x, None
 
@@ -172,7 +175,7 @@ def _apply_ffn(p: Params, cfg: ModelConfig, ffn: str, x: torch.Tensor
 def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                 x: torch.Tensor, positions: torch.Tensor,
                 attn_impl: str = "auto", window_slice: bool = False,
-                use_ssd_kernel: bool = False
+                use_ssd_kernel: bool = False, token_group=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence block: (x, aux), aux zero but for a MoE FFN (whose
     ``expert_frac_max`` enters as a max, the rest as sums)."""
@@ -183,7 +186,7 @@ def apply_block(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                             window_slice=window_slice)
     else:
         x = x + M.mamba_mixer(p["mix"], cfg, h, use_kernel=use_ssd_kernel)
-    x, moe_aux = _apply_ffn(p, cfg, ffn, x)
+    x, moe_aux = _apply_ffn(p, cfg, ffn, x, token_group)
     if moe_aux is not None:
         for k in ("load_balance_loss", "router_z_loss"):
             aux[k] = aux[k] + moe_aux[k]
@@ -216,13 +219,27 @@ def apply_block_fill(p: Params, cfg: ModelConfig, kind: str, ffn: str,
 
 def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
                        x: torch.Tensor, cache: Params, index: torch.Tensor,
-                       window_slice: bool = False, ring: bool = False
+                       window_slice: bool = False, ring: bool = False,
+                       token_group=None, kv_split=None
                        ) -> Tuple[torch.Tensor, Params]:
     """One-token block at position ``index`` (a 0-d device tensor); a
-    ring cache ignores ``window_slice``, as in the reference."""
+    ring cache ignores ``window_slice``, as in the reference.
+    ``kv_split``: the K/V block's share of a sequence split over ranks
+    (``repro_torch.train.layout.KVSplit``; split-KV attention, which reads
+    every valid key of its block, so ``window_slice`` changes nothing)."""
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
-        if ring:
+        if kv_split is not None:
+            if ring:
+                raise NotImplementedError(
+                    "the ring cache over a sequence-split K/V cache: "
+                    "attention_decode_ring's slots wrap across the ranks' "
+                    "blocks; serve batch-1 long context without "
+                    "ring_cache")
+            y, ck, cv = L.attention_decode_split(p["mix"], cfg, h,
+                                                 cache["k"], cache["v"],
+                                                 index, kv_split)
+        elif ring:
             y, ck, cv = L.attention_decode_ring(p["mix"], cfg, h, cache["k"],
                                                 cache["v"], index)
         else:
@@ -232,7 +249,7 @@ def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
         cache = {"k": ck, "v": cv}
     else:
         y, cache = M.mamba_decode(p["mix"], cfg, h, cache)
-    return _apply_ffn(p, cfg, ffn, x + y)[0], cache
+    return _apply_ffn(p, cfg, ffn, x + y, token_group)[0], cache
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, ffn: str, batch: int,
@@ -279,9 +296,19 @@ class LM:
     ``repro_torch.federated.local_sgd`` gathers the shards of a model split
     over ranks there, a group's inside its ``checkpoint`` (so a group's
     full weights live only during its forward and its recompute).
+
+    Over a mesh (``repro_torch.train.state``'s ``mesh=`` steps set these
+    on a copy of the model): ``token_group`` is the group a step's batch
+    rows split over (the loss is a masked mean over the whole batch, MoE
+    layers dispatch the whole step's tokens); ``cache_layout`` a decode
+    cache held as a rank's blocks (``repro_torch.train.layout.
+    CacheLayout.run`` wraps each decode block; its ``kv_split`` the
+    rank's share of a sequence-split K/V).
     """
 
     param_hook = None
+    token_group = None
+    cache_layout = None
 
     def __init__(self, cfg: ModelConfig, attn_impl: Optional[str] = None,
                  use_ssd_kernel: Optional[bool] = None,
@@ -386,7 +413,7 @@ class LM:
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return apply_block(p, self.cfg, kind, ffn, x, positions,
                            self.attn_impl, self.window_slice,
-                           self.use_ssd_kernel)
+                           self.use_ssd_kernel, self.token_group)
 
     def _group_fn(self, p_group: Params, x: torch.Tensor,
                   positions: torch.Tensor
@@ -458,7 +485,18 @@ class LM:
                               device=nll.device)
         else:
             mask = torch.broadcast_to(mask, nll.shape).float()
-        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        if self.token_group is None:
+            ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        else:
+            # a rank's rows: its share of the batch's masked sum over the
+            # batch's count; the value is the batch's
+            from repro_torch.launch.mesh import gather_edge_stack
+            num = (nll * mask).sum()
+            every = gather_edge_stack(torch.stack(
+                [num.detach(), mask.sum()])[None], self.token_group)
+            den = every[:, 1].sum().clamp_min(1.0)
+            ce = num / den
+            ce = ce + (every[:, 0].sum() / den - ce).detach()
         loss = ce
         m = self.cfg.moe
         if m.enabled:
@@ -471,12 +509,17 @@ class LM:
 
     # -- serving -------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_len: int) -> Params:
+    def init_cache(self, batch: int, max_len: int, mesh=None) -> Params:
         """Zero decode cache for ``batch`` slots: attention layers hold
         ``max_len`` positions (a ring cache ``min(max_len, window)``), SSM
         layers O(1) state; prefix layers' caches unstacked
         (``prefix_layers``, batch-leading), the groups' as the
-        parameters' (stacked, or a list)."""
+        parameters' (stacked, or a list).  ``mesh``: this rank's blocks
+        of it in ``cache_specs``' layout
+        (``repro_torch.train.layout.CacheLayout``)."""
+        if mesh is not None:
+            from repro_torch.train.layout import CacheLayout
+            return CacheLayout(self, mesh, batch, max_len).init(self.device)
         cfg = self.cfg
         if self.ring_cache:
             # ring length == window: slots cover (index - window, index]
@@ -506,13 +549,21 @@ class LM:
         wrote in place (an attention sub's K/V) is the one given, a leaf
         the blocks returned new (an SSM sub's state) is stacked anew."""
         layers: Params = {}
+        if self.cache_layout is not None:
+            run, index = self.cache_layout.run, cache["index"]
+
+            def block_fn(p, kind, ffn, x, c, *key, _fn=block_fn):
+                return run(_fn, p, kind, ffn, x, c, index, key)
+        else:
+            def block_fn(p, kind, ffn, x, c, *key, _fn=block_fn):
+                return _fn(p, kind, ffn, x, c)
         if self.prefix:
             new_prefix = []
             for i, (p_layer, c_layer, (kind, ffn)) in enumerate(zip(
                     params["prefix_layers"], cache["prefix_layers"],
                     self.prefix)):
                 x, c = block_fn(self._use(p_layer, "prefix_layers", i),
-                                kind, ffn, x, c_layer)
+                                kind, ffn, x, c_layer, "prefix_layers", i)
                 new_prefix.append(c)
             layers["prefix_layers"] = new_prefix
         old_groups = self._groups(cache)
@@ -522,7 +573,8 @@ class LM:
             new_c = {}
             for i, (kind, ffn) in enumerate(self.group):
                 x, new_c[f"sub{i}"] = block_fn(
-                    p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"])
+                    p_group[f"sub{i}"], kind, ffn, x, c_group[f"sub{i}"],
+                    "groups", f"sub{i}")
             new_groups.append(new_c)
         layers["groups"] = (
             _restack(new_groups, old_groups, cache["groups"])
@@ -542,7 +594,9 @@ class LM:
             params, cache, x,
             lambda p, kind, ffn, x, c: apply_block_decode(
                 p, cfg, kind, ffn, x, c, index, self.window_slice,
-                self.ring_cache))
+                self.ring_cache, self.token_group,
+                None if self.cache_layout is None
+                else self.cache_layout.kv_split))
         new_cache = {"index": index + 1, **layers}
         x = L.rms_norm(self._use(params["final_norm"], "final_norm"), x,
                        cfg.norm_eps)
@@ -560,6 +614,11 @@ class LM:
         (index advanced by P + S).
         """
         cfg = self.cfg
+        if self.cache_layout is not None:
+            raise NotImplementedError(
+                "prefill into a cache held as a rank's blocks: fill the "
+                "whole cache and cut it (CacheLayout.shard), or run "
+                "make_prefill_step(mesh=)")
         x = self.embed(params, tokens, prefix_emb)
         s = x.shape[1]
         positions = torch.arange(s, device=x.device)

@@ -23,6 +23,29 @@ AdamW, remat on): a ``make_el_round`` round and two ``make_el_program``
 rounds, after which every rank's gathered params and moments are bit for
 bit the unsharded port run's, its losses equal, and its blocks the shapes
 ``el_state_specs`` names (held spec for spec against the reference's).
+
+The baseline steps over a (pod x) data x model mesh (``repro_torch.
+train.state``'s ``mesh=``), in the same worlds: the 2 ranks as (2, 1) and
+(1, 2) (data, model) meshes, the 4 as (2, 2) and a (2, 1, 2) (pod, data,
+model) mesh, on qwen3-1.7b, olmoe-1b-7b and mamba2-370m at smoke width,
+f32, remat on.  Two train steps (AdamW, and SGD with momentum) from the
+whole state cut to the rank's blocks: each rank's blocks are the matching
+``local_slices`` of the unsharded port step's parameters within 1e-5,
+its losses within 1e-5; the SGD run is held to the reference's
+``make_train_step`` on the same numpy inputs too (AdamW's first steps
+scale each gradient element to about +-1, so a rounding-level difference
+in a near-zero element moves a parameter by up to the learning rate: the
+unsharded port and the reference are held to each other on AdamW's losses
+only, ``tests/test_torch_train.py``; the dropping MoE case below trains
+with SGD for the same reason).  Ranks that differ only in their
+``model`` coordinate agree bit for bit.  A MoE whose step routes T * k >
+4096 assignments drops tokens: the step's dispatch of a rank's rows is the
+unsharded dispatch's, a rank-local one is not.  The prefill's logits of a
+rank's rows and 15 decode steps after a prefill (the batch over the edge
+ranks; batch 1 with the K/V sequence split, windows inside one rank's
+block and across two) are the unsharded rows and the reference's on the
+same inputs within 1e-5; so is the dropping MoE's dispatch of a rank's
+rows.
 """
 
 import dataclasses
@@ -42,7 +65,8 @@ torch = pytest.importorskip("torch")
 
 from test_torch_ingraph import jax_round_draws  # noqa: E402
 from test_torch_sharding import _assert_same_specs  # noqa: E402
-from torch_mesh_worker import model_axis  # noqa: E402
+from torch_mesh_worker import (model_axis, step_decode,  # noqa: E402
+                               step_prefill, step_train)
 
 from repro import config as ref_config  # noqa: E402
 from repro.el import ELSession as JaxSession  # noqa: E402
@@ -74,6 +98,20 @@ MODEL_MESHES = {2: ((1, 2), ("data", "model")),
                 4: ((2, 2), ("data", "model"))}
 MODEL_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b", "mamba2-370m")
 MODEL_EDGES, MODEL_H_MAX, MODEL_ROUNDS = 2, 2, 3
+#: the baseline steps: each world's meshes, the families, the sizes
+STEP_MESHES = {2: [((2, 1), ("data", "model")), ((1, 2), ("data", "model"))],
+               4: [((2, 2), ("data", "model")),
+                   ((2, 1, 2), ("pod", "data", "model"))]}
+STEP_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b", "mamba2-370m")
+STEP_BATCH, STEP_SEQ, STEP_TOL, AUX_TOL = 4, 16, 1e-5, 1e-6
+#: decodes: (batch, window); prefill 6 positions, then 15 steps in a
+#: 32-slot cache (two ranks' blocks of 16: a window of 3 sits inside one
+#: block at most positions, one of 9 spans both)
+DECODES = ((4, 0), (1, 0), (1, 3), (1, 9))
+PREFILL_LEN, MAX_LEN, DECODE_STEPS = 6, 32, 15
+#: the dropping MoE: 8 x 320 tokens, top 2 of 4 experts, capacity factor
+#: 1; its grouped dispatch in 4 groups (2 a rank on the 2 edge ranks)
+DROP_SHAPE, DROP_MESHES, DROP_GROUPS = (8, 320), ((2, 1), (2, 1, 2)), 4
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -160,16 +198,71 @@ def model_cases():
     return out
 
 
+def _step_cfgs(arch):
+    """The smoke config at f32 with remat on; AdamW (the smoke config's)
+    and SGD with momentum, warm-up 2 steps."""
+    exp = get_smoke_config(arch)
+    return (dataclasses.replace(exp.model, dtype="float32", remat=True),
+            {"adamw": dataclasses.replace(exp.train, warmup_steps=2),
+             "sgd": dataclasses.replace(exp.train, warmup_steps=2,
+                                        optimizer="sgd", peak_lr=0.05,
+                                        momentum=0.9)})
+
+
 @pytest.fixture(scope="module")
-def worlds(cases, model_cases, tmp_path_factory):
-    """Each world's per-rank results, both worlds spawned at once."""
+def step_cases():
+    """Per arch: the port's init as numpy (seed 3), two batches of tokens,
+    the decode prompts; and the dropping MoE case: its init, whose router
+    is scaled by 30 so that no top-2 choice sits within rounding of a tie
+    while it trains, and a dispatch input ``moe_x`` for its first MoE
+    block ``moe_p`` at the unscaled router (at 30x the logits' rounding
+    reaches the gates 30-fold, up to 1.5e-5 in the reference's y)."""
+    rng = np.random.default_rng(2)
+    out = []
+    for arch in STEP_ARCHS:
+        model_cfg, tcs = _step_cfgs(arch)
+        init = tree_to_numpy(LM(model_cfg, device="cpu").init(
+            torch.Generator().manual_seed(3)))
+        out.append({
+            "arch": arch, "model_cfg": model_cfg, "train_cfgs": tcs,
+            "init": init, "tokens": rng.integers(
+                0, model_cfg.vocab_size, (2, STEP_BATCH, STEP_SEQ),
+                np.int32),
+            "prompt": rng.integers(0, model_cfg.vocab_size, (
+                4, PREFILL_LEN + DECODE_STEPS), np.int32),
+            "prefill_len": PREFILL_LEN, "max_len": MAX_LEN,
+            "decode": DECODE_STEPS,
+            "decodes": DECODES if arch != "mamba2-370m" else DECODES[:2]})
+    model_cfg, tcs = _step_cfgs("olmoe-1b-7b")
+    model_cfg = dataclasses.replace(model_cfg, moe=dataclasses.replace(
+        model_cfg.moe, capacity_factor=1.0))
+    init = tree_to_numpy(LM(model_cfg, device="cpu").init(
+        torch.Generator().manual_seed(4)))
+    moe_p = {k: v[0].copy() for k, v in
+             init["groups"]["sub0"]["ffn"].items()}
+    init["groups"]["sub0"]["ffn"]["router"] *= 30.0
+    b, s = DROP_SHAPE
+    out.append({"arch": "olmoe-1b-7b", "drop": True, "meshes": DROP_MESHES,
+                "model_cfg": model_cfg, "train_cfgs": {"sgd": tcs["sgd"]},
+                "init": init, "moe_p": moe_p, "groups": DROP_GROUPS,
+                "tokens": rng.integers(
+                    0, model_cfg.vocab_size, (2, b, s), np.int32),
+                "moe_x": rng.standard_normal(
+                    (b, s, model_cfg.d_model)).astype(np.float32)})
+    return out
+
+
+@pytest.fixture(scope="module")
+def spawned(cases, model_cases, step_cases, tmp_path_factory):
+    """Both worlds, spawned at once and left running (``worlds`` waits)."""
     lm = dict(LM_CASE, tokens=_lm_tokens())
     results, threads = {}, []
     for world, mesh in WORLDS.items():
         d = tmp_path_factory.mktemp(f"world{world}")
         spec = {"mesh": mesh, "classic": [c[0] for c in cases.values()],
                 "lm": lm, "model": list(model_cases.values()),
-                "model_mesh": MODEL_MESHES[world]}
+                "model_mesh": MODEL_MESHES[world],
+                "step_meshes": STEP_MESHES[world], "step_cases": step_cases}
         with open(d / "spec.pkl", "wb") as f:
             pickle.dump(spec, f)
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -180,6 +273,93 @@ def worlds(cases, model_cases, tmp_path_factory):
                         str(d)], env=env, capture=True, timeout=600))
         threads.append(threading.Thread(target=go))
         threads[-1].start()
+    return results, threads
+
+
+@pytest.fixture(scope="module")
+def step_refs(step_cases):
+    """Per arch, the unsharded port run of every step scenario and the
+    reference's on the same numpy inputs: its SGD steps
+    (``repro.train.state.make_train_step``, jitted), its prefill logits
+    (``make_prefill_step``) and its prefill + decode logits
+    (``decode_step``, jitted) at each (batch, window); the dropping case's
+    unsharded training and dispatch, the port's and the reference's
+    ``moe_ffn``.  Computed while the worlds run."""
+    from repro.models import moe as ref_moe
+    from repro.train import optimizer as ref_opt
+    from repro.train import state as ref_state
+    from repro_torch.models import moe as port_moe
+    jnp = jax.numpy
+    out = {}
+    for case in step_cases:
+        arch = case["arch"]
+        rexp = ref_config.get_smoke_config(arch)
+        rcfg = dataclasses.replace(rexp.model, dtype="float32", remat=True)
+        if case.get("drop"):
+            rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+                rcfg.moe, capacity_factor=1.0))
+            p = params_from_numpy(case["moe_p"], "cpu")
+            rp = {k: jnp.asarray(v) for k, v in case["moe_p"].items()}
+            out["drop"] = step_train(case, None, "sgd")
+            for name, groups in (("dispatch", 0),
+                                 ("grouped", case["groups"])):
+                cfg = case["model_cfg"]
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, dispatch_groups=groups))
+                y, aux = port_moe.moe_ffn(p, cfg,
+                                          torch.from_numpy(case["moe_x"]))
+                ry, raux = ref_moe.moe_ffn(rp, dataclasses.replace(
+                    rcfg, moe=dataclasses.replace(
+                        rcfg.moe, dispatch_groups=groups)),
+                    jnp.asarray(case["moe_x"]))
+                out["drop"].update({
+                    name: y.numpy(), "reference_" + name: np.asarray(ry),
+                    name + "_aux": {k: float(v) for k, v in aux.items()},
+                    "reference_" + name + "_aux": {
+                        k: float(v) for k, v in raux.items()}})
+            continue
+        rtc = dataclasses.replace(rexp.train, warmup_steps=2,
+                                  optimizer="sgd", peak_lr=0.05,
+                                  momentum=0.9)
+        rp = jax.tree.map(jnp.asarray, case["init"])
+        rm = ref_build(rcfg)
+        js = ref_state.TrainState(rp, ref_opt.init_opt_state(rtc, rp))
+        jstep = jax.jit(ref_state.make_train_step(rm, rtc))
+        losses = []
+        for tokens in case["tokens"]:
+            js, met = jstep(js, {"tokens": jnp.asarray(tokens)})
+            losses.append(float(met["loss"]))
+        ref_decode = {}
+        n0, toks = case["prefill_len"], jnp.asarray(case["prompt"])
+        for b, w in case["decodes"]:
+            wm = ref_build(dataclasses.replace(rcfg, sliding_window=w))
+            dec = jax.jit(wm.decode_step)
+            _, cache = wm.prefill(rp, toks[:b, :n0],
+                                  wm.init_cache(b, case["max_len"]))
+            logits = []
+            for i in range(case["decode"]):
+                lg, cache = dec(rp, toks[:b, n0 + i:n0 + i + 1], cache)
+                logits.append(np.asarray(lg))
+            ref_decode[f"{b}/{w}"] = logits
+        out[arch] = {
+            "train": {opt: step_train(case, None, opt)
+                      for opt in case["train_cfgs"]},
+            "reference": {
+                "losses": losses,
+                "params": jax.tree.map(np.asarray, js.params),
+                "prefill": np.asarray(ref_state.make_prefill_step(rm)(
+                    rp, {"tokens": jnp.asarray(case["tokens"][0])})),
+                "decode": ref_decode},
+            "prefill": step_prefill(case, None),
+            "decode": {f"{b}/{w}": step_decode(case, None, b, w)
+                       for b, w in case["decodes"]}}
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(spawned, step_refs):
+    """Each world's per-rank results."""
+    results, threads = spawned
     for t in threads:
         t.join()
     out = {}
@@ -381,6 +561,215 @@ def test_model_axis_blocks_are_the_specs(worlds, model_cases, world, arch):
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_a_rank_imports_no_jax_or_reference(worlds, world):
     assert all(res["modules"] == [] for res in worlds[world])
+
+
+# -- the baseline steps over a (pod x) data x model mesh ---------------------------
+
+
+STEP_GRID = [(w, tuple(m[0]), a) for w in STEP_MESHES
+             for m in STEP_MESHES[w] for a in STEP_ARCHS]
+
+
+def _stub(shape):
+    axes = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                      "model")
+    return types.SimpleNamespace(axis_names=axes,
+                                 devices=np.arange(int(np.prod(shape)))
+                                 .reshape(shape))
+
+
+def _edge(shape, coord):
+    """(edge index, edge ranks) of a rank's coordinate."""
+    idx, n = 0, 1
+    for a, size in zip(("pod", "data"), shape[:-1] if len(shape) == 3
+                       else (1,) + tuple(shape[:-1])):
+        idx, n = idx * size + coord.get(a, 0), n * size
+    return idx, n
+
+
+def _rank_blocks(arch, shape, rank, full):
+    """``full``'s leaves cut to ``rank``'s blocks on a mesh of ``shape``
+    (``param_specs(fsdp=True)``, ``Placement.local_slices``)."""
+    from repro_torch.sharding import Placement, map_specs, param_specs
+    cfg, _ = _step_cfgs(arch)
+    mesh = _stub(shape)
+    specs = param_specs(cfg, mesh, LM(cfg, device="meta").init(None),
+                        fsdp=True)
+    flat = jax.tree_util.tree_leaves(map_specs(
+        lambda sp: types.SimpleNamespace(spec=sp), specs))
+    return [leaf[Placement(mesh, sp.spec).local_slices(leaf.shape, rank)]
+            for leaf, sp in zip(jax.tree_util.tree_leaves(full), flat)]
+
+
+def _close(got, want, tol=STEP_TOL):
+    got, want = jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(
+        want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("world,shape,arch", STEP_GRID)
+def test_mesh_train_step_blocks_are_the_unsharded_steps(
+        worlds, step_refs, world, shape, arch):
+    """Two steps over the mesh: each rank's blocks are the unsharded port
+    step's ``local_slices`` and its losses the step's, within 1e-5, with
+    AdamW and with SGD; the SGD run is the reference's too."""
+    ref = step_refs[arch]
+    for rank, res in enumerate(worlds[world]):
+        got = res["steps"][shape][arch]["train"]
+        for opt, want in ref["train"].items():
+            np.testing.assert_allclose(got[opt]["losses"], want["losses"],
+                                       rtol=0, atol=STEP_TOL)
+            _close(got[opt]["params"],
+                   _rank_blocks(arch, shape, rank, want["params"]))
+        np.testing.assert_allclose(got["sgd"]["losses"],
+                                   ref["reference"]["losses"], rtol=0,
+                                   atol=STEP_TOL)
+        _close(got["sgd"]["params"],
+               _rank_blocks(arch, shape, rank, ref["reference"]["params"]))
+
+
+@pytest.mark.parametrize("world,shape,arch", STEP_GRID)
+def test_mesh_prefill_and_decode_rows_are_the_unsharded_rows(
+        worlds, step_refs, world, shape, arch):
+    """The prefill's logits of a rank's rows and 15 decode steps' logits
+    after a prefill, within 1e-5 of the unsharded port's rows and of the
+    reference's on the same inputs: the batch of 4 over the edge ranks,
+    batch 1 with the K/V sequence split over them (windows 3 and 9: inside
+    one rank's block, across both)."""
+    ref = step_refs[arch]
+    for res in worlds[world]:
+        coord = res["steps"][shape]["coordinate"]
+        edge, n_edge = _edge(shape, coord)
+        got = res["steps"][shape][arch]
+        rows = slice(edge * STEP_BATCH // n_edge,
+                     (edge + 1) * STEP_BATCH // n_edge)
+        _close(got["prefill"], ref["prefill"][rows])
+        _close(got["prefill"], ref["reference"]["prefill"][rows])
+        for key, want in ref["decode"].items():
+            batch = int(key.split("/")[0])
+            dec = got["decode"][key]
+            layout = ("replicated" if n_edge == 1 else "batch"
+                      if batch % n_edge == 0 else "replicated"
+                      if arch == "mamba2-370m" else "sequence")
+            assert dec["layout"] == layout, key
+            r = (slice(edge * batch // n_edge, (edge + 1) * batch // n_edge)
+                 if layout == "batch" else slice(None))
+            assert len(dec["logits"]) == DECODE_STEPS
+            for g, w, rw in zip(dec["logits"], want["logits"],
+                                ref["reference"]["decode"][key]):
+                _close(g, w[r])
+                _close(g, rw[r])
+
+
+@pytest.mark.parametrize("world,shape", [(w, tuple(m[0])) for w in
+                                         STEP_MESHES
+                                         for m in STEP_MESHES[w]])
+def test_mesh_steps_agree_bit_for_bit_across_model_ranks(worlds, world,
+                                                         shape):
+    """Ranks that differ only in their ``model`` coordinate compute the
+    same rows on the same gathered weights: equal losses, equal blocks of
+    every leaf the ``model`` axis leaves whole, equal logits, bit for
+    bit."""
+    from repro_torch.sharding import map_specs, param_specs
+    by_edge = {}
+    for res in worlds[world]:
+        c = dict(res["steps"][shape]["coordinate"])
+        c.pop("model")
+        by_edge.setdefault(tuple(sorted(c.items())), []).append(
+            res["steps"][shape])
+    pairs = [g for g in by_edge.values() if len(g) > 1]
+    assert len(pairs) == (world if shape[-1] > 1 else 0) // 2
+    for first, *rest in pairs:
+        for other in rest:
+            for arch in STEP_ARCHS:
+                cfg, _ = _step_cfgs(arch)
+                specs = jax.tree_util.tree_leaves(map_specs(
+                    lambda sp: types.SimpleNamespace(spec=sp),
+                    param_specs(cfg, _stub(shape), LM(
+                        cfg, device="meta").init(None), fsdp=True)))
+                a, b = first[arch], other[arch]
+                for opt in a["train"]:
+                    assert a["train"][opt]["losses"] == \
+                        b["train"][opt]["losses"]
+                    for x, y, sp in zip(
+                            jax.tree_util.tree_leaves(
+                                a["train"][opt]["params"]),
+                            jax.tree_util.tree_leaves(
+                                b["train"][opt]["params"]), specs):
+                        if "model" not in tuple(sp.spec):
+                            np.testing.assert_array_equal(x, y)
+                np.testing.assert_array_equal(a["prefill"], b["prefill"])
+                for key in a["decode"]:
+                    for x, y in zip(a["decode"][key]["logits"],
+                                    b["decode"][key]["logits"]):
+                        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_mesh_moe_dispatch_is_the_steps_where_it_drops(worlds, step_refs,
+                                                       world):
+    """8 x 320 tokens route 5,120 > 4,096 assignments: the capacity
+    drops.  Over the edge ranks the step's dispatch of a rank's rows is
+    the unsharded dispatch's rows exactly and the reference's
+    ``moe_ffn``'s within 1e-5, and so is the grouped dispatch whose 4
+    groups tile the 2 edge ranks (the reference's grouped branch); each
+    one's aux values are the unsharded port's and the reference's within
+    1e-6; a rank-local dispatch (its own
+    capacity and positions) differs on some rank; two SGD steps are the
+    unsharded steps within 1e-5 (AdamW's first steps would turn the
+    rounding of the embedding's near-zero gradient sums into moves of up
+    to the learning rate: see the module's doc)."""
+    ref = step_refs["drop"]
+    b = DROP_SHAPE[0]
+    differs = []
+    shapes = [tuple(m[0]) for m in STEP_MESHES[world]
+              if tuple(m[0]) in DROP_MESHES]
+    assert shapes
+    for shape in shapes:
+        for rank, res in enumerate(worlds[world]):
+            got = res["steps"][shape]["drop"]
+            edge, n_edge = _edge(shape, res["steps"][shape]["coordinate"])
+            rows = slice(edge * b // n_edge, (edge + 1) * b // n_edge)
+            for name in ("dispatch", "grouped"):
+                np.testing.assert_array_equal(got[name], ref[name][rows])
+                _close(got[name], ref["reference_" + name][rows])
+                for key, v in got[name + "_aux"].items():
+                    for want in (ref[name + "_aux"],
+                                 ref["reference_" + name + "_aux"]):
+                        np.testing.assert_allclose(v, want[key], rtol=0,
+                                                   atol=AUX_TOL)
+            differs.append(not np.array_equal(got["local"],
+                                              ref["dispatch"][rows]))
+            np.testing.assert_allclose(got["losses"], ref["losses"], rtol=0,
+                                       atol=STEP_TOL)
+            _close(got["params"], _rank_blocks("olmoe-1b-7b", shape, rank,
+                                               ref["params"]))
+    assert any(differs)
+
+
+def test_split_attention_partials_combine_to_the_whole():
+    """``attend_partial`` over two halves of the keys, combined in rank
+    order, is the whole softmax within 1e-6; a half with no valid key
+    (outside the window) adds exact zeros."""
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 1, 4, 8, generator=g)
+    k, v = torch.randn(2, 16, 2, 8, generator=g), torch.randn(
+        2, 16, 2, 8, generator=g)
+    valid = torch.arange(16) >= 10                  # the window: 10..15
+    whole = L._sdpa(q, k, v, torch.where(valid, 0.0, -1e30)[None], 0.5)
+    parts = torch.stack([L.attend_partial(q, k[:, h], v[:, h], valid[h], 0.5)
+                         for h in (slice(0, 8), slice(8, 16))])
+    assert torch.all(parts[0, ..., :-2] == 0) and torch.all(
+        parts[0, ..., -1] == 0)
+    assert torch.all(torch.isinf(parts[0, ..., -2]))
+    np.testing.assert_allclose(L.combine_split_attention(parts), whole,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(L.combine_split_attention(parts),
+                                  L.combine_split_attention(parts[1:]))
 
 
 # -- the mesh and the spawner -------------------------------------------------------

@@ -298,13 +298,24 @@ def test_one_card_facts_hold_on_meta():
         device="meta").init(None)
     nbytes = sum(t.numel() * t.element_size()
                  for t in jax.tree_util.tree_leaves(params))
-    gathers = row["collectives"]["all-gather"]
-    # one gather a dtype of the parameters, one of the edges' losses
-    assert gathers["bytes"] == nbytes + 4 and gathers["count"] >= 2
+    gathers = row["collectives"]["per_op"]["all-gather"]
+    # one gather a dtype of the parameters, one of the edges' losses, each
+    # metered by its gathered result (both ranks' rows), as the
+    # reference's census meters it
+    assert gathers["bytes"] == 2 * (nbytes + 4) and gathers["count"] >= 2
+    assert row["collectives"]["bytes_per_device"] == gathers["bytes"]
     assert row["memory"]["argument_size_in_bytes"] >= 3 * nbytes
     assert row["fits"] and row["ok"]
-    with pytest.raises(NotImplementedError, match="item 14 part 7"):
-        dryrun.plan_combo("qwen3-1.7b", "train_4k", multi_pod=True)
+    # the multi-pod mesh plans rank 0's share (ROADMAP item 14 part 7)
+    mp = dryrun.plan_combo("qwen3-1.7b", "train_4k", multi_pod=True,
+                           batch=64, seq_len=64, layers="0:2")
+    assert (mp["mesh"], mp["n_chips"], mp["edge_ranks"],
+            mp["model_ranks"], mp["step"]) == ("2x16x16", 512, 32, 16,
+                                              "train_step")
+    assert mp["ok"] and mp["collectives"]["bytes_per_device"] > 0
+    assert set(mp["collectives"]["per_op"]) == {"all-gather",
+                                                "reduce-scatter",
+                                                "all-reduce"}
     with pytest.raises(ValueError, match="card"):
         dryrun.plan_combo("qwen3-1.7b", "decode_32k", measure=True,
                           device="cpu")
@@ -358,18 +369,20 @@ def test_el_round_plans_a_model_axis(tmp_path):
     assert sum("model" in s for s in flat) > 0
     assert two["memory"]["peak_live_bytes"] < \
         one["memory"]["peak_live_bytes"]
-    gathers = two["collectives"]["all-gather"]
+    gathers = two["collectives"]["per_op"]["all-gather"]
     assert set(gathers["by_group"]) == {"model"}
-    # each of the 4 steps (2 edges x h_max 2) sends the rank's blocks of
-    # the split leaves at least twice: in the forward and for the clip
-    split = sum(t[0].numel() * t.element_size() // 2
+    # each of the 4 steps (2 edges x h_max 2) gathers the split leaves
+    # whole (both ranks' blocks, the gathered result) at least twice: in
+    # the forward and for the clip
+    split = sum(t[0].numel() * t.element_size()
                 for t, s in zip(tree_leaves(meta.params), flat)
                 if "model" in s)
     assert 8 * split <= gathers["bytes"] <= 16 * split
     four = dryrun.plan_combo("mamba2-370m", "train_4k", data_ranks=2,
                              model_ranks=2, **dict(kw, edges_per_rank=1))
     assert four["mesh"] == "2x2" and set(
-        four["collectives"]["all-gather"]["by_group"]) == {"edge", "model"}
+        four["collectives"]["per_op"]["all-gather"]["by_group"]) == {
+            "edge", "model"}
     out = tmp_path / "rows.jsonl"
     assert dryrun.main(["--arch", "mamba2-370m", "--shape", "train_4k",
                         "--step", "el_round", "--mesh-model", "2",
@@ -379,6 +392,106 @@ def test_el_round_plans_a_model_axis(tmp_path):
     row = json.loads(out.read_text())
     assert row["ok"] and row["mesh"] == "1x2"
     assert row["memory"] == two["memory"]
+
+
+def _ref_window(arch, shape_name, port_cfg):
+    """The reference's config of ``arch`` for ``shape_name`` cut to the
+    port's layer window ``port_cfg``."""
+    ref_cfg = ref_specs.adapt_model_for_shape(
+        ref_config.get_config(arch).model, ref_config.INPUT_SHAPES[shape_name])
+    return dataclasses.replace(
+        ref_cfg, n_layers=port_cfg.n_layers,
+        layer_pattern=port_cfg.layer_pattern,
+        ffn_pattern=port_cfg.ffn_pattern, first_k_dense=0)
+
+
+def _spec_bytes(tree, specs, sizes):
+    from jax.sharding import PartitionSpec
+    leaves = jax.tree_util.tree_leaves(tree)
+    flat = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, PartitionSpec))
+    assert len(leaves) == len(flat)
+    return sum(_block_bytes(tuple(t.shape), tuple(s), np.dtype(t.dtype),
+                            sizes) for t, s in zip(leaves, flat))
+
+
+MESH_ROWS = [(m, a, s) for m in ("pod", "multipod")
+             for a, s in (("qwen3-1.7b", "train_4k"),
+                          ("olmoe-1b-7b", "train_4k"),
+                          ("qwen3-1.7b", "prefill_32k"),
+                          ("mamba2-370m", "decode_32k"),
+                          ("qwen3-1.7b", "decode_32k"),
+                          ("qwen3-1.7b", "long_500k"))]
+
+
+@pytest.mark.parametrize("mesh,arch,shape_name", MESH_ROWS)
+def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name):
+    """Rank 0's share on the (16, 16) and (2, 16, 16) meshes: its
+    argument bytes are, exactly, the blocks ``repro.sharding``'s
+    ``param_specs`` (``fsdp=True`` for training, with AdamW's moments
+    mirroring the parameters and the replicated step; ``fsdp=False`` to
+    serve) and ``cache_specs`` give on a stub mesh of that shape (the
+    reference's resolver reads ``axis_names`` and ``devices.shape`` only),
+    plus the rank's rows of the batch (the whole batch-1 token of
+    ``long_500k``, whose K/V sequence splits instead); the row records the
+    reference's ``mesh`` / ``n_chips`` and a census."""
+    import types
+
+    from repro import sharding as ref_sharding
+    row = dryrun.plan_combo(arch, shape_name, mesh=mesh, layers="0:2")
+    multi = mesh == "multipod"
+    shape = (2, 16, 16) if multi else (16, 16)
+    axes = ("pod", "data", "model") if multi else ("data", "model")
+    assert (row["mesh"], row["n_chips"]) == (
+        "2x16x16" if multi else "16x16", 512 if multi else 256)
+    stub = types.SimpleNamespace(axis_names=axes, devices=np.empty(shape))
+    sizes = dict(zip(axes, shape))
+    n_edge = int(np.prod(shape[:-1]))
+    ishape = ref_config.INPUT_SHAPES[shape_name]
+    port_cfg = dryrun.layer_window(specs.adapt_model_for_shape(
+        port_config.get_config(arch).model,
+        port_config.INPUT_SHAPES[shape_name]), "0:2")
+    ref_cfg = _ref_window(arch, shape_name, port_cfg)
+    model = ref_build(ref_cfg)
+    params = jax.eval_shape(model.init, jax.random.key(0))
+    b, s = ishape.global_batch, ishape.seq_len
+    if ishape.kind == "train":
+        p_bytes = _spec_bytes(params, ref_sharding.param_specs(
+            ref_cfg, stub, params, fsdp=True), sizes)
+        want = 3 * p_bytes + dryrun.block_bytes(4) \
+            + dryrun.block_bytes(b // n_edge * s * 4)
+    else:
+        want = _spec_bytes(params, ref_sharding.param_specs(
+            ref_cfg, stub, params, fsdp=False), sizes)
+        if ishape.kind == "prefill":
+            want += dryrun.block_bytes(b // n_edge * s * 4)
+        else:
+            cache = jax.eval_shape(lambda: model.init_cache(b, s))
+            want += _spec_bytes(cache, ref_sharding.cache_specs(
+                ref_cfg, stub, cache, b), sizes)
+            want += dryrun.block_bytes(
+                (b // n_edge if b % n_edge == 0 else b) * 4)
+    assert row["memory"]["argument_size_in_bytes"] == want
+    assert row["ok"] and row["collectives"]["bytes_per_device"] > 0
+
+
+def test_collective_term_reads_the_planners_census():
+    """The roofline's collective term is the census's ``bytes_per_device``
+    over NVLink's rate, above 0 for an ``el_round`` row and a pod row, and
+    a pod row's global FLOPs count every chip."""
+    el = dryrun.plan_combo("qwen3-1.7b", "train_4k", step_mode="el_round",
+                           h_max=1, batch=4, seq_len=64, layers="0:2",
+                           data_ranks=2)
+    pod = dryrun.plan_combo("qwen3-1.7b", "prefill_32k", mesh="pod",
+                            batch=16, seq_len=64, layers="0:2")
+    for row in (el, pod):
+        coll = row["collectives"]["bytes_per_device"]
+        got = roofline.analyze(row)
+        assert coll > 0 and got["t_collective_s"] == coll / roofline.NVLINK_BW
+        assert got["collectives"] == row["collectives"]["per_op"]
+    got = roofline.analyze(pod)
+    assert got["chips"] == 256
+    assert got["hlo_flops_global"] == pod["cost"]["flops"] * 256
 
 
 def test_dryrun_cli_writes_rows_and_failed_rows(tmp_path, capsys):

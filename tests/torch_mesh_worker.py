@@ -20,6 +20,17 @@ it saw to ``OUT_DIR/rank<r>.pkl``:
     draws; the losses, the shapes of the rank's blocks, and the whole
     state (params and moments) gathered over the model group and the edge
     group;
+  * ``steps``: per (pod x) data x model mesh of ``step_meshes`` and per
+    arch, the baseline steps over it (``repro_torch.train.state``'s
+    ``mesh=``): two train steps from the whole state cut to the rank's
+    blocks (AdamW and SGD with momentum; the losses and the rank's blocks
+    of the parameters), the prefill's logits of the rank's rows, and 15
+    decode steps after an unsharded prefill whose cache is cut to the
+    rank's blocks (the batch over the edge ranks; batch 1 with the K/V
+    sequence split, at each window of the case); a ``drop`` case trains
+    a MoE whose dispatch drops tokens and runs its first MoE block's
+    dispatch on the rank's rows three ways (the step's, rank-local, and
+    grouped with the groups tiling the edge ranks);
   * ``modules``: any ``jax`` / ``repro`` / ``benchmarks`` module the rank
     imported.
 """
@@ -161,6 +172,117 @@ def model_axis(case, mesh):
             "budgets": budgets.tolist(), "state": tree_to_numpy(full)}
 
 
+def step_train(case, mesh, opt):
+    """Two train steps of ``case`` with optimizer ``opt`` over ``mesh``
+    (``None``: unsharded): the losses and the (rank's blocks of the)
+    parameters."""
+    from repro_torch.interop import tree_from_numpy, tree_to_numpy
+    from repro_torch.models import LM
+    from repro_torch.train.layout import local_rows
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.state import TrainState, make_train_step
+    model = LM(case["model_cfg"], device="cpu")
+    tc = case["train_cfgs"][opt]
+    params = tree_from_numpy(case["init"], "cpu")
+    state = TrainState(params, init_opt_state(tc, params))
+    step = make_train_step(model, tc, mesh=mesh)
+    if mesh is not None:
+        state = step.layout.shard_state(state)
+    losses = []
+    for tokens in case["tokens"]:
+        state, met = step(state, local_rows(
+            {"tokens": torch.from_numpy(tokens)}, mesh))
+        losses.append(float(met["loss"]))
+    return {"losses": losses, "params": tree_to_numpy(state.params)}
+
+
+def step_prefill(case, mesh):
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.models import LM
+    from repro_torch.train.layout import local_rows
+    from repro_torch.train.state import make_prefill_step
+    step = make_prefill_step(LM(case["model_cfg"], device="cpu"),
+                             mesh=mesh)
+    params = tree_from_numpy(case["init"], "cpu")
+    if mesh is not None:
+        params = step.layout.shard(params)
+    tokens = {"tokens": torch.from_numpy(case["tokens"][0])}
+    return step(params, local_rows(tokens, mesh)).numpy()
+
+
+def step_decode(case, mesh, batch, window):
+    """A prefill of ``case["prompt"]``'s first ``batch`` rows, then
+    ``decode`` steps of its next tokens on the cache cut to the rank's
+    blocks (``mesh=None``: the whole cache): the logits of each step (the
+    rank's rows when the batch tiles its edge ranks), and the layout."""
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.models import LM
+    from repro_torch.train.layout import local_rows
+    from repro_torch.train.state import make_decode_step
+    cfg = dataclasses.replace(case["model_cfg"], sliding_window=window)
+    model = LM(cfg, device="cpu")
+    params = tree_from_numpy(case["init"], "cpu")
+    toks = torch.from_numpy(case["prompt"][:batch])
+    n0, max_len = case["prefill_len"], case["max_len"]
+    _, cache = model.prefill(params, toks[:, :n0],
+                             model.init_cache(batch, max_len))
+    step = make_decode_step(model, mesh=mesh, batch=batch, max_len=max_len)
+    layout = "whole"
+    if mesh is not None:
+        params = step.layout.shard(params)
+        cache = step.cache_layout.shard(cache)
+        cl = step.cache_layout
+        layout = ("batch" if cl.batch_split else
+                  "sequence" if cl.kv_split is not None else "replicated")
+    logits = []
+    for i in range(case["decode"]):
+        t = toks[:, n0 + i:n0 + i + 1]
+        if layout == "batch":
+            t = local_rows(t, mesh)
+        out, cache = step(params, t, cache)
+        logits.append(out.numpy())
+    return {"logits": logits, "layout": layout}
+
+
+def step_drop(case, mesh):
+    """The dropping MoE case: its two train steps, and the dispatch of
+    ``case["moe_x"]``'s rows on this rank through its first MoE block
+    (``moe_p``), as the step's (over the edge group) and rank-local, and
+    the grouped dispatch (``case["groups"]`` groups, a multiple of the
+    edge ranks) over the edge group; each dispatch's aux values."""
+    from repro_torch.interop import tree_from_numpy
+    from repro_torch.models import moe as MoE
+    from repro_torch.train.layout import edge_group, local_rows
+    out = step_train(case, mesh, "sgd")
+    p = tree_from_numpy(case["moe_p"], "cpu")
+    x = local_rows(torch.from_numpy(case["moe_x"]), mesh)
+    cfg = case["model_cfg"]
+    grouped = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_groups=case["groups"]))
+    for name, c in (("dispatch", cfg), ("grouped", grouped)):
+        y, aux = MoE.moe_ffn(p, c, x, edge_group(mesh))
+        out[name] = y.numpy()
+        out[name + "_aux"] = {k: float(v) for k, v in aux.items()}
+    out["local"] = MoE.moe_ffn(p, cfg, x)[0].numpy()
+    return out
+
+
+def mesh_steps(spec, mesh):
+    """The ``steps`` scenario of one mesh (see the module's doc)."""
+    out = {}
+    for case in spec["step_cases"]:
+        if case.get("drop"):
+            out["drop"] = step_drop(case, mesh)
+            continue
+        out[case["arch"]] = {
+            "train": {opt: step_train(case, mesh, opt)
+                      for opt in case["train_cfgs"]},
+            "prefill": step_prefill(case, mesh),
+            "decode": {f"{b}/{w}": step_decode(case, mesh, b, w)
+                       for b, w in case["decodes"]}}
+    return out
+
+
 def main():
     spec_path, out_dir = sys.argv[1:3]
     torch.set_num_threads(1)
@@ -179,6 +301,16 @@ def main():
         model_mesh = make_mesh(*spec["model_mesh"], device="cpu")
         out["model"] = {c["arch"]: model_axis(c, model_mesh)
                         for c in spec["model"]}
+    if spec.get("step_meshes"):
+        out["steps"] = {}
+        for shape, axes in spec["step_meshes"]:
+            step_mesh = make_mesh(shape, axes, device="cpu")
+            out["steps"][tuple(shape)] = {
+                "coordinate": step_mesh.coordinate,
+                **mesh_steps(dict(spec, step_cases=[
+                    c for c in spec["step_cases"]
+                    if not c.get("drop") or tuple(shape) in c["meshes"]]),
+                    step_mesh)}
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in
                             ("jax", "jaxlib", "repro", "benchmarks"))
     with open(os.path.join(out_dir, f"rank{mesh.rank}.pkl"), "wb") as f:
