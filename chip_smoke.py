@@ -271,7 +271,9 @@ Phases, each printing JSON lines:
               ranks of one communicator on one card): (a) phase 4b's
               full-width kmeans-traffic and svm-wafer fixtures through
               ``run_sync_ingraph(mesh=)`` (a rank's 2 of 4 edges, the edge
-              stack all-gathered before the aggregation, chunks eager),
+              stack all-gathered before the aggregation; chunks eager:
+              gloo gathers through host memory, which no CUDA graph can
+              hold),
               every rank's records and final params bit for bit the
               unsharded card run's on the card's generator, each
               ``kmeans_assign`` launch over 2 lanes, the census (all-gather
@@ -284,7 +286,19 @@ Phases, each printing JSON lines:
               with one edge each: params bit for bit equal, losses finite,
               each rank's peak within 15 % of the plan; (c) an NCCL world
               of one (``chip_smoke.py --rank nccl SPEC``): the sharded
-              sync run issues no collective; (d) in (b)'s world after (b),
+              sync run issues no collective; (i) a CUDA graph holding
+              ``gather_edge_stack`` over the world's group and the f32
+              edge-order mean, replayed on fresh inputs, bit-equal to the
+              same ops run eagerly, its warm-up's census the one NCCL
+              all-gather; (ii) phase 4b's kmeans-traffic sync cell over a
+              ``PlanMesh(2)`` (rank 0's 2 of 4 edges) captured, then with
+              ``capturable=False`` eager: records and params bit-equal, one
+              graph, replays, ``kmeans_assign`` launches = replays x
+              launches a graph; and the SVM step's lanes against 4 (the
+              lone lane recorded: cuBLAS may round it apart, which is
+              why a sharded rank of one edge runs its lane beside a
+              copy; 2 and 3 lanes and the copy must agree); (d) in (b)'s
+              world after (b),
               a (1 data x 2 model) mesh: (b)'s first round (intervals (2,
               2)) with both edges on each rank and each edge's model split
               over the 2 ranks (``init_el_state(mesh=)``, every group's
@@ -295,8 +309,18 @@ Phases, each printing JSON lines:
               two ranks' blocks cover every value), losses equal and
               finite, ``ssd_scan`` launched on each rank, each rank's
               peak within 15 % of ``plan_combo(step_mode="el_round",
-              model_ranks=2)``; each line beside the card's name and
-              power limit;
+              model_ranks=2)``; (e) only with 2 or more cards (else one
+              line says why): an NCCL world of ``min(4, cards)`` ranks,
+              one a card (``--rank cards``), runs (a)'s two sync runs,
+              11 (a)'s async runs (the mesh's K = 4) and 11 (d)'s churn
+              runs with their chunks captured, each bit for bit the
+              unsharded card run, one graph or more and replays on every
+              rank, the census an all-gather and no all-reduce; then a
+              world of 2 (``--rank cards_lm``) runs (b)'s round, one edge
+              a rank, bit for bit the one-rank round (``python3
+              chip_smoke.py --cards`` runs (e) alone, with its
+              references); each line beside the card's name and power
+              limit;
 11. ranks, part 2 -- in phase 10's gloo world, after its runs: (a) phase
               4c's full-width fixtures on its replayed draws through
               ``run_async_ingraph(mesh=, contract=True)`` at K = 1 and at
@@ -5176,7 +5200,9 @@ def examples_phase() -> dict:
 # mamba2-370m at full width (E = 2, h_max = 2, one edge a rank), bit for
 # bit the one-rank run of both edges, each rank's peak held to the
 # ``--step el_round`` plan; (c) an NCCL world of one: the sharded sync run
-# issues no collective.
+# issues no collective, (i) a captured NCCL gather, (ii) a sharded cell
+# over a ``PlanMesh`` captured and eager; (e) with several cards, NCCL
+# worlds of one rank a card whose sharded chunks are CUDA graphs.
 RANKS = 2
 RANKS_DIR = ROOT / "build" / "ranks"
 RANK_TIMEOUT = 900
@@ -5423,6 +5449,8 @@ def sharded_classic(arch: str, mesh, want: dict) -> dict:
         "collective_bytes": prof["collective_bytes"],
         "alias_bytes": prof["alias_bytes"],
         "device_loop": rep.telemetry["device_loop"],
+        "graphs_total": sess._fastpath.graphs_captured,
+        "donated_loop": drep.telemetry["device_loop"],
         "donated_same": same_floats(rank_records(drep), rank_records(rep))
         and tree_digest(drep.final_params) == tree_digest(rep.final_params),
         "donated_alias_bytes": dprof["alias_bytes"],
@@ -5431,8 +5459,161 @@ def sharded_classic(arch: str, mesh, want: dict) -> dict:
             for k in donated)}
 
 
+def captured_gather(mesh, shapes: dict) -> dict:
+    """10 (c) (i) on the NCCL world of one: ``gather_edge_stack`` over the
+    world's edge group and the f32 mean of the gathered stack in edge
+    order, on a rank's 2 edges of each leaf of ``shapes`` (svm-wafer's
+    parameters); run eagerly on a side stream under the census (the
+    warm-up, which also creates the communicator), captured into one CUDA
+    graph, then replayed on fresh inputs, each replay against the same
+    ops run eagerly on them; a replay's ms by CUDA events."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import gather_edge_stack
+    from repro_torch.obs.prof import collective_census
+    group = mesh.edge_group()
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def fresh():
+        return {k: torch.randn((2,) + tuple(v), generator=gen,
+                               device="cuda") for k, v in shapes.items()}
+
+    def body(tree):
+        out = {}
+        for k, v in gather_edge_stack(tree, group).items():
+            acc = v[0].clone()
+            for e in range(1, v.shape[0]):
+                acc = acc + v[e]
+            out[k] = acc / v.shape[0]
+        return out
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        census, nbytes = collective_census(lambda: body(static),
+                                           torch.device("cuda"))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        result = body(static)
+    same, replays = True, 8
+    for _ in range(replays):
+        tree = fresh()
+        for k, v in tree.items():
+            static[k].copy_(v)
+        graph.replay()
+        want = body(tree)
+        same = same and all(torch.equal(result[k], want[k]) for k in want)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(GATHER_REPS):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return {"same": same, "replays": replays, "collectives": census,
+            "collective_bytes": nbytes,
+            "stack_bytes": 2 * 4 * sum(int(np.prod(v))
+                                       for v in shapes.values()),
+            "replay_ms": start.elapsed_time(stop) / GATHER_REPS}
+
+
+def planned_capture(init: dict) -> dict:
+    """10 (c) (ii): phase 4b's full-width kmeans-traffic sync cell over a
+    ``PlanMesh(2)`` (rank 0's 2 of 4 edges, its gathers copies: each
+    ``PlannedGroup`` gather a device copy, nothing exchanged) on the
+    card's generator, captured (a first run captures the chunk, a second
+    replays it, the ``kmeans_assign`` count set to 0 just before and read
+    just after), then the same cell with ``capturable=False``: every
+    chunk eager."""
+    import torch
+    from repro_torch.el.ingraph import (SyncProgram, make_sync_program,
+                                        sync_knobs)
+    from repro_torch.el.rng import TorchDraws
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.kernels.kmeans_assign import ops as ka_ops
+    from repro_torch.launch.classic import classic_fixture
+    from repro_torch.launch.mesh import PlanMesh
+    fx = classic_fixture("kmeans-traffic", samples=20000, n_edges=4,
+                         device="cuda")
+    cfg = compiled_session(fx, fx["init_params"]).cfg
+    ex = fx["executor"]
+    prog = make_sync_program(
+        ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr, batch=ex.batch,
+        n_samples=fx["n_samples"], metric_name=fx["metric"],
+        max_rounds=COMPILED_ROUNDS, mesh=PlanMesh(2), device="cuda")
+    eager = SyncProgram(dataclasses.replace(prog.cell, capturable=False),
+                        prog.rounds_per_chunk)
+
+    def run(p):
+        params, out = p(params_from_numpy(init, "cuda"), sync_knobs(cfg),
+                        TorchDraws(torch.Generator(device="cuda")
+                                   .manual_seed(cfg.seed + 17)))
+        return tree_digest(params), out_digest(out), int(out["n_rounds"])
+    first = run(prog)
+    capture_loop = dict(prog.last_run)
+    ka_ops.batched_launches = 0
+    got, secs = timed(lambda: run(prog))
+    launches = ka_ops.batched_launches
+    loop = dict(prog.last_run)
+    want, eager_s = timed(lambda: run(eager))
+    return {"same": got == want == first, "rounds": got[2],
+            "sharded": prog.cell.sharded, "capturable": prog.cell.capturable,
+            "capture_loop": capture_loop, "device_loop": loop,
+            "eager_loop": dict(eager.last_run),
+            "kmeans_assign_batched": launches, "run_s": secs,
+            "eager_s": eager_s}
+
+
+def lane_rounding() -> dict:
+    """Why a sharded rank of one edge runs its lane beside a copy: the SVM
+    step (batched GEMMs) at 4 lanes against its first lanes alone (1, 2,
+    3) and against lane 0 beside a copy of itself, bit for bit; the lone
+    lane is recorded, the others must agree."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.models import build_model
+    model = build_model(get_config("svm-wafer").model, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"w": torch.randn(4, 59, 8, generator=gen, device="cuda") * 0.1,
+              "b": torch.randn(4, 8, generator=gen, device="cuda") * 0.1}
+    batch = {"x": torch.randn(4, 128, 59, generator=gen, device="cuda"),
+             "y": torch.randint(0, 8, (4, 128), generator=gen,
+                                device="cuda")}
+    full = model.step(params, batch, 0.01)
+
+    def same(rows):
+        part = model.step({k: v[rows] for k, v in params.items()},
+                          {k: v[rows] for k, v in batch.items()}, 0.01)
+        return all(torch.equal(part[k][0], full[k][0]) for k in full)
+    return {"lone": same([0]), "two": same([0, 1]), "three": same([0, 1, 2]),
+            "beside_a_copy": same([0, 0])}
+
+
+def cards_rank(spec: dict, mesh) -> dict:
+    """10 (e) on one NCCL rank of a world of one rank a card: phase 4b's
+    sync runs (``sharded_classic``), phase 11 (a)'s async runs
+    (``part2_async``) and the churn scenario, sync and async (its
+    census kept), each through CUDA graphs that hold their gathers."""
+    from repro_torch.launch.classic import classic_fixture
+    t0 = time.perf_counter()
+    out = {"classic": {arch: sharded_classic(arch, mesh, want)
+                       for arch, want in spec["classic"].items()},
+           "async": {}}
+    for arch, init in spec["part2"]["init"].items():
+        fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
+        out["async"][arch] = part2_async(fx, init, mesh)
+    out["scenario"] = churn_ranks(classic_fixture(
+        "kmeans-traffic", samples=20000, n_edges=4, device="cuda"), mesh,
+        contract=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def rank_main(mode: str, spec_path: str) -> None:
-    """One rank of phase 10's worlds (``chip_smoke.py --rank MODE SPEC``)."""
+    """One rank of phase 10's worlds (``chip_smoke.py --rank MODE SPEC``):
+    ``gloo`` (2 ranks sharing the card), ``nccl`` (a world of one),
+    ``cards`` and ``cards_lm`` (10 (e): NCCL, one rank a card)."""
     import pickle
     import torch
     import torch.distributed as dist
@@ -5456,11 +5637,25 @@ def rank_main(mode: str, spec_path: str) -> None:
                                           model_mesh)
         out["model_axis"]["seconds"] = time.perf_counter() - t_axis
         out["part2"] = part2_rank(spec["part2"], mesh)     # phase 11
-    else:
+    elif mode == "nccl":
         mesh = make_mesh((1, 1), ("data", "model"))     # CUDA + NCCL
         arch = "svm-wafer"
+        init = spec["classic"][arch]["init"]
         out = {"classic": {arch: sharded_classic(arch, mesh,
-                                                 spec["classic"][arch])}}
+                                                 spec["classic"][arch])},
+               "gather": captured_gather(mesh, {k: v.shape for k, v in
+                                                init.items()}),
+               "planned": planned_capture(
+                   spec["classic"]["kmeans-traffic"]["init"]),
+               "lanes": lane_rounding()}
+    else:                               # one NCCL rank a card
+        import os
+        n = 2 if mode == "cards_lm" else int(os.environ["WORLD_SIZE"])
+        mesh = make_debug_mesh(n, 1, device="cuda")
+        if mode == "cards_lm":
+            out = {"lm": lm_rounds(spec["edge_batch"], spec["seq"], mesh)}
+        else:
+            out = cards_rank(spec, mesh)
     out.update(rank=mesh.rank, backend=mesh.backend, mesh=dict(mesh.shape),
                modules=sorted(m for m in sys.modules if m.split(".")[0]
                               in ("jax", "jaxlib", "repro", "benchmarks")))
@@ -5509,18 +5704,14 @@ def lm_plans() -> dict:
                                        model_ranks=RANKS, **kw)}
 
 
-def ranks_phase(part2_refs: dict) -> dict:
-    """Phases 10 and 11 in this process: the unsharded references (phase
-    11's from phases 4c, 4d and 4f, ``part2_refs``, and the churn
-    scenario's runs made here), the plan, the gloo world of 2 (which runs
-    both phases) and the NCCL world of 1, each check, the lines."""
-    import gc
+def sync_references() -> dict:
+    """Phase 4b's unsharded sync runs of both fixtures on the card's
+    generator, the second of two (the first captures): init, records,
+    digest, seconds, launches, param bytes."""
     import torch
     from repro_torch.interop import params_to_numpy
-    from repro_torch.launch.classic import classic_fixture
     from repro_torch.kernels.kmeans_assign import ops as ka_ops
-    card = card_line()
-    t_phase = time.perf_counter()
+    from repro_torch.launch.classic import classic_fixture
     want = {}
     for arch in ("kmeans-traffic", "svm-wafer"):
         fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
@@ -5538,6 +5729,74 @@ def ranks_phase(part2_refs: dict) -> dict:
                       "kmeans_assign_batched": ka_ops.batched_launches,
                       "param_bytes": sum(v.nbytes for v in init.values())}
         del sess, rep, fx
+    return want
+
+
+def async_references() -> dict:
+    """Phase 4c's unsharded card runs on its replayed draws (numpy seed
+    5) at K = 1 and the wave width, as phase 4c keeps them for phase 11:
+    ``{arch: {"init", 1: {events, digest}, ASYNC_WAVE: ...}}``."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    out = {}
+    for arch in ("kmeans-traffic", "svm-wafer"):
+        fx = classic_fixture(arch, samples=20000, n_edges=4, device="cuda")
+        init = params_to_numpy(fx["init_params"])
+        out[arch] = {"init": init}
+        for bk in (1, ASYNC_WAVE):
+            sess = async_session(fx, params_from_numpy(init, "cuda"), bk)
+            rep = sess.run_async_ingraph(draws=async_replay_draws(
+                sess.cfg, fx["executor"].batch, seed=5))
+            out[arch][bk] = {"events": event_records(rep),
+                             "digest": tree_digest(rep.final_params)}
+    return out
+
+
+def ranks_spec(want: dict, part2_refs: dict) -> dict:
+    """What every rank of phase 10's worlds reads: the fixtures' inits and
+    the LM round's sizes."""
+    return {"classic": {a: {"init": w["init"]} for a, w in want.items()},
+            "edge_batch": LM_EDGE_BATCH, "seq": LM_SEQ,
+            "part2": {"init": {a: r["init"] for a, r in
+                               part2_refs["async"].items()}}}
+
+
+def cards_main() -> None:
+    """``python3 chip_smoke.py --cards``: phase 10 (e) alone on a machine
+    of 2 or more cards, after the build, with the unsharded card runs it
+    is held to made here (phase 4b's sync runs, 4c's replayed async runs,
+    the churn runs, 10 (b)'s one-rank round).  Exits 1 on one card."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    if torch.cuda.device_count() < 2:
+        fail("--cards needs 2 or more cards, one NCCL rank a card")
+    build_all()
+    card = card_line()
+    want = sync_references()
+    refs = {"async": async_references()}
+    base = part2_references(refs)
+    one = lm_rounds(LM_EDGE_BATCH, LM_SEQ)
+    out = cards_phase(ranks_spec(want, refs), want, refs, base, one, card)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "cards": out["ranks"],
+                      "seconds": out["seconds"]}), flush=True)
+
+
+def ranks_phase(part2_refs: dict) -> dict:
+    """Phases 10 and 11 in this process: the unsharded references (phase
+    11's from phases 4c, 4d and 4f, ``part2_refs``, and the churn
+    scenario's runs made here), the plan, the gloo world of 2 (which runs
+    both phases), the NCCL world of 1 and, on several cards, 10 (e)'s
+    worlds; each check, the lines."""
+    import gc
+    import torch
+    card = card_line()
+    t_phase = time.perf_counter()
+    want = sync_references()
     edge_batch = LM_EDGE_BATCH
     one = lm_rounds(edge_batch, LM_SEQ)
     t_base = time.perf_counter()
@@ -5545,10 +5804,7 @@ def ranks_phase(part2_refs: dict) -> dict:
     base_s = time.perf_counter() - t_base
     gc.collect()
     torch.cuda.empty_cache()
-    spec = {"classic": {a: {"init": w["init"]} for a, w in want.items()},
-            "edge_batch": edge_batch, "seq": LM_SEQ,
-            "part2": {"init": {a: r["init"] for a, r in
-                               part2_refs["async"].items()}}}
+    spec = ranks_spec(want, part2_refs)
     # (b)'s and (d)'s plans on the host while the ranks run
     import threading
     from repro_torch.bench.roofline import CARD_MEMORY_BYTES
@@ -5639,13 +5895,27 @@ def ranks_phase(part2_refs: dict) -> dict:
           same_floats(got["records"], want["svm-wafer"]["records"]) and
           got["digest"] == want["svm-wafer"]["digest"],
           f"phase 10 NCCL world of one: {got['collectives']}")
+    out["nccl_capture"] = nccl_capture_checks(nccl, card)
+    out["kmeans_assign_batched"] += \
+        out["nccl_capture"]["kmeans_assign_batched"]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        out["cards"] = cards_phase(spec, want, part2_refs, base, one, card)
+        unverified = {}
+    else:
+        emit("ranks_cards", card=card, cards=cards, skipped="an NCCL world "
+             "of several ranks needs several cards, one rank a card; this "
+             "machine has one")
+        unverified = {"unverified": "NCCL across several cards: this "
+                      "machine has one card, so 10 (e) did not run; 10 (c) "
+                      "captured an NCCL gather in a world of one"}
     out["part2"] = part2_checks(ranks, part2_refs, base, card)
     part2_s = base_s + max(res["part2"]["seconds"] for res in ranks)
     emit("ranks_part2", card=card, seconds=part2_s,
          unsharded_references_s=base_s,
          rank_seconds=[res["part2"]["seconds"] for res in ranks],
          **out["part2"],
-         unverified="NCCL across several cards: the machine has one")
+         chunks={"gloo": "eager", "nccl": "captured"}, **unverified)
     out["seconds"] = time.perf_counter() - t_phase
     out["edge_batch"] = edge_batch
     emit("ranks", card=card, seconds=out["seconds"],
@@ -5655,7 +5925,154 @@ def ranks_phase(part2_refs: dict) -> dict:
          ssd_scan=out["ssd_scan"],
          ssd_scan_model_axis=out["model_axis"]["ssd_scan"],
          edge_batch=edge_batch,
-         unverified="NCCL across several cards: the machine has one")
+         chunks={"gloo": "eager", "nccl": "captured"},
+         cards=out.get("cards", {}).get("ranks", 0), **unverified)
+    return out
+
+
+def nccl_capture_checks(nccl: dict, card: str) -> dict:
+    """10 (c)'s two checks of the captured sharded chunk: (i) the graph
+    holding the NCCL gather and the edge-order mean, bit-equal to the
+    same ops run eagerly, its census the gather; (ii) the ``PlanMesh(2)``
+    sync cell captured, bit-equal to the same cell eager, its launches
+    the replays' count."""
+    g, pl = nccl["gather"], nccl["planned"]
+    emit("ranks_nccl_captured_gather", card=card, same=g["same"],
+         replays=g["replays"], replay_ms=g["replay_ms"],
+         collectives=g["collectives"],
+         collective_bytes=g["collective_bytes"])
+    check(g["same"], "phase 10 (c) (i): the captured NCCL gather and mean "
+          "are not the same ops run eagerly")
+    check(set(g["collectives"]) == {"all-gather"}
+          and g["collectives"]["all-gather"]["count"] == 1
+          and g["collective_bytes"] == g["stack_bytes"],
+          f"phase 10 (c) (i): census {g['collectives']}")
+    loop = pl["device_loop"]
+    emit("ranks_planned_capture", arch="kmeans-traffic", card=card,
+         mesh={"data": 2, "model": 1}, rounds=pl["rounds"],
+         run_s=pl["run_s"], eager_s=pl["eager_s"],
+         capture_loop=pl["capture_loop"], device_loop=loop,
+         eager_loop=pl["eager_loop"],
+         kmeans_assign_batched=pl["kmeans_assign_batched"])
+    check(pl["same"], "phase 10 (c) (ii): the captured PlanMesh cell is not "
+          "the same cell run eagerly")
+    check(pl["sharded"] and pl["capturable"]
+          and pl["capture_loop"]["graphs_captured"] == 1
+          and loop["replays"] > 0 and loop["graphs_captured"] == 0
+          and pl["eager_loop"]["graphs_captured"] == 0
+          and pl["eager_loop"]["replays"] == 0,
+          f"phase 10 (c) (ii): loops {pl['capture_loop']}, {loop}, "
+          f"{pl['eager_loop']}")
+    check(pl["kmeans_assign_batched"] == loop["replays"]
+          * loop["kernel_launches_per_graph"] > 0,
+          f"phase 10 (c) (ii): {pl['kmeans_assign_batched']} launches, "
+          f"{loop}")
+    lanes = nccl["lanes"]
+    emit("ranks_lane_rounding", arch="svm-wafer", card=card,
+         same_as_four_lanes=lanes)
+    check(lanes["two"] and lanes["three"] and lanes["beside_a_copy"],
+          f"phase 10 (c): the SVM step's lanes round apart {lanes}")
+    return {"kmeans_assign_batched": pl["kmeans_assign_batched"]}
+
+
+def cards_phase(spec: dict, want: dict, refs: dict, base: dict, one: dict,
+                card: str) -> dict:
+    """10 (e): NCCL worlds of one rank a card (``min(4, cards)`` ranks,
+    then 2 for the LM round), each rank's runs against the unsharded card
+    runs made in this script, the lines."""
+    import torch
+    n = min(4, torch.cuda.device_count())
+    t0 = time.perf_counter()
+    ranks = rank_world(n, "cards", spec)
+    world_s = time.perf_counter() - t0
+    lm_ranks = rank_world(2, "cards_lm", spec)
+    out = {"ranks": n, "kmeans_assign_batched": 0, "ssd_scan": 0,
+           "seconds": time.perf_counter() - t0}
+
+    def loop_ok(got, where):
+        loop = got["device_loop"]
+        check(got["graphs_total"] >= 1 and loop["replays"] > 0,
+              f"phase 10 (e) {where}: graphs {got['graphs_total']}, loop "
+              f"{loop}")
+
+    def census_ok(coll, where):
+        check(coll.get("all-gather", {}).get("count", 0) >= 1
+              and "all-reduce" not in coll,
+              f"phase 10 (e) {where}: census {coll}")
+    for r, res in enumerate(ranks):
+        check(res["backend"] == "nccl" and res["modules"] == [],
+              f"phase 10 (e) rank {r}: {res['backend']}, {res['modules']}")
+        for arch, w in want.items():
+            got = res["classic"][arch]
+            emit("ranks_cards_sync", arch=arch, rank=r, ranks=n, card=card,
+                 run_s=got["run_s"], rerun_s=got["rerun_s"],
+                 unsharded_run_s=w["run_s"], gather_ms=got["gather_ms"],
+                 graphs=got["graphs_total"], device_loop=got["device_loop"],
+                 collectives=got["collectives"],
+                 kmeans_assign_batched=got["kmeans_assign_batched"],
+                 lanes=got["lanes"])
+            check(same_floats(got["records"], w["records"])
+                  and got["digest"] == w["digest"] and got["rerun_same"],
+                  f"phase 10 (e) {arch} rank {r}: not the unsharded run")
+            loop_ok(got, f"{arch} rank {r}")
+            census_ok(got["collectives"], f"{arch} rank {r}")
+            check(got["donated_same"] and got["donated_shares_storage"]
+                  and got["donated_alias_bytes"] == w["param_bytes"],
+                  f"phase 10 (e) {arch} rank {r}: the donated run")
+            out["kmeans_assign_batched"] += got["kmeans_assign_batched"]
+        for arch, runs in res["async"].items():
+            ref = refs["async"][arch]
+            got = runs["auto"]
+            bk = got["device_loop"]["batch_k"]
+            emit("ranks_cards_async", arch=arch, rank=r, ranks=n, card=card,
+                 batch_k=bk, run_s=got["run_s"], rerun_s=got["rerun_s"],
+                 unsharded_run_s=base["async_s"][arch, bk],
+                 gather_ms=got["gather_ms"], graphs=got["graphs_total"],
+                 device_loop=got["device_loop"],
+                 collectives=got["collectives"],
+                 kmeans_assign_batched=got["kmeans_assign_batched"],
+                 lanes=got["lanes"])
+            check(bk == ASYNC_WAVE and same_floats(got["events"],
+                                                   ref[1]["events"])
+                  and got["digest"] == ref[bk]["digest"]
+                  and got["rerun_same"] and runs["donated"]["same"],
+                  f"phase 10 (e) async {arch} rank {r}: not the unsharded "
+                  f"K = {bk} run")
+            loop_ok(got, f"async {arch} rank {r}")
+            census_ok(got["collectives"], f"async {arch} rank {r}")
+            out["kmeans_assign_batched"] += got["kmeans_assign_batched"]
+        for mode, got in res["scenario"].items():
+            w = base["scenario"][mode]
+            emit("ranks_cards_scenario", arch="kmeans-traffic", mode=mode,
+                 churn=CHURN, rank=r, ranks=n, card=card, run_s=got["run_s"],
+                 rerun_s=got["rerun_s"], unsharded_run_s=w["run_s"],
+                 graphs=got["graphs_total"], device_loop=got["device_loop"],
+                 collectives=got["collectives"],
+                 kmeans_assign_batched=got["kmeans_assign_batched"])
+            check(got["digest"] == {k: w[k] for k in
+                                    ("raw", "params", "rounds")}
+                  and got["rerun_same"],
+                  f"phase 10 (e) churn {mode} rank {r}: not the unsharded "
+                  "run")
+            loop_ok(got, f"churn {mode} rank {r}")
+            census_ok(got["collectives"], f"churn {mode} rank {r}")
+            out["kmeans_assign_batched"] += got["kmeans_assign_batched"]
+    for r, res in enumerate(lm_ranks):
+        lm = res["lm"]
+        emit("ranks_cards_el_round", arch=LM_ARCH, rank=r, card=card,
+             edges=lm["edges"], round_s=lm["round_s"],
+             gather_s=lm["gather_s"], one_rank_round_s=one["round_s"],
+             losses=lm["losses"], ssd_scan=lm["ssd_scan"])
+        check(res["backend"] == "nccl" and lm["digest"] == one["digest"]
+              and lm["losses"] == one["losses"] and lm["finite"]
+              and lm["ssd_scan"] > 0,
+              f"phase 10 (e) el_round rank {r}: not the one-rank round")
+        out["ssd_scan"] += lm["ssd_scan"]
+    emit("ranks_cards", card=card, ranks=n, seconds=out["seconds"],
+         world_seconds=world_s,
+         rank_seconds=[res["seconds"] for res in ranks],
+         kmeans_assign_batched=out["kmeans_assign_batched"],
+         ssd_scan=out["ssd_scan"], chunks="captured")
     return out
 
 
@@ -5767,12 +6184,33 @@ def churn_session(fx, init, mode):
                            n_samples=fx["n_samples"]))
 
 
-def churn_run(sess, mode, mesh=None):
+def churn_run(sess, mode, mesh=None, **kw):
     """The scenario's run on the card's own generator (``cfg.seed +
     17``), over ``mesh``."""
     if mode == "sync":
-        return sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh)
-    return sess.run_async_ingraph(mesh=mesh)
+        return sess.run_sync_ingraph(max_rounds=COMPILED_ROUNDS, mesh=mesh,
+                                     **kw)
+    return sess.run_async_ingraph(mesh=mesh, **kw)
+
+
+def churn_ranks(fx, mesh, contract: bool = False) -> dict:
+    """The churn scenario, sync and async, over ``mesh`` on one rank: the
+    counted run (``contract``: armed, its census kept), then a rerun."""
+    out = {}
+    for mode in ("sync", "async"):
+        sess = churn_session(fx, fx["init_params"], mode)
+        kw = {"contract": True} if contract else {}
+        with LaunchCounts() as lc:
+            rep, secs = timed(lambda: churn_run(sess, mode, mesh, **kw))
+        again, rerun_s = timed(lambda: churn_run(sess, mode, mesh))
+        out[mode] = {
+            "digest": churn_digest(rep), "rerun_same":
+            churn_digest(again) == churn_digest(rep), "run_s": secs,
+            "rerun_s": rerun_s, "device_loop": rep.telemetry["device_loop"],
+            "graphs_total": sess._fastpath.graphs_captured, **lc.row}
+        if contract:
+            out[mode]["collectives"] = rep.telemetry["profile"]["collectives"]
+    return out
 
 
 def churn_digest(rep) -> dict:
@@ -5823,6 +6261,7 @@ def part2_async(fx, init, mesh) -> dict:
             "collective_bytes": prof["collective_bytes"],
             "alias_bytes": prof["alias_bytes"],
             "device_loop": rep.telemetry["device_loop"], **lc.row,
+            "graphs_total": sess._fastpath.graphs_captured,
             "gather_ms": gather_ms(rep.final_params, mesh.edge_group(),
                                    rep.telemetry["device_loop"]["batch_k"])}
     donated = params_from_numpy(init, "cuda")
@@ -5883,17 +6322,7 @@ def part2_rank(spec: dict, mesh) -> dict:
         "graphs_captured": cohort.batch.program.graphs_captured, **lc.row}
     server.close()
     # (d) the churn scenario, sync and async
-    fx = fixtures["kmeans-traffic"]["cuda"]
-    for mode in ("sync", "async"):
-        sess = churn_session(fx, fx["init_params"], mode)
-        with LaunchCounts() as lc:
-            rep, secs = timed(lambda: churn_run(sess, mode, mesh))
-        again, rerun_s = timed(lambda: churn_run(sess, mode, mesh))
-        out["scenario"][mode] = {
-            "digest": churn_digest(rep), "rerun_same":
-            churn_digest(again) == churn_digest(rep), "run_s": secs,
-            "rerun_s": rerun_s, "device_loop": rep.telemetry["device_loop"],
-            **lc.row}
+    out["scenario"] = churn_ranks(fixtures["kmeans-traffic"]["cuda"], mesh)
     out["seconds"] = time.perf_counter() - t_part
     return out
 
@@ -6511,8 +6940,15 @@ def main() -> None:
                     "jax.vmap over a shard's edges, src/repro/el/"
                     "ingraph.py:526, sharded by :338-379)",
         "path": "phase 10: run_sync_ingraph(mesh=) on 2 gloo ranks, each "
-                "rank's 2 of 4 edges a launch",
+                "rank's 2 of 4 edges a launch, chunks eager (a); and 10 (c) "
+                "(ii): the same cell over a PlanMesh(2) on the NCCL rank, "
+                "rank 0's 2 of 4 edges, in CUDA graph replays (replays x "
+                "launches a graph); cards_launches: 10 (e)'s captured "
+                "runs over NCCL ranks, one a card, where the machine has "
+                "several",
         "launches": ranks["kmeans_assign_batched"],
+        "cards_launches": ranks.get("cards", {}).get(
+            "kmeans_assign_batched"),
         "max_abs_err": kmb_errs[KM_BATCHED_SHARDED], "ms": kms["ms"],
         "kernel_ms": kms["ms"], "call_ms": kms["call_ms"],
         "plain_ms": kms["plain_ms"], "bound_ms": kms["bound_ms"],
@@ -6706,5 +7142,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         rank_main(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_main()
     else:
         main()

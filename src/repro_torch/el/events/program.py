@@ -68,8 +68,9 @@ results follows (``gather_edge_stack``), and lane l takes the owner's
 row.  Only the owner writes an event's new global model into its row of
 the stack.  Nothing is summed across ranks, and a lane's result does not
 depend on the lanes beside it, so a sharded run is bit-identical on
-every rank to the unsharded one.  Its chunks run eagerly
-(``ELCell.sharded``).
+every rank to the unsharded one.  On NCCL ranks its chunks are CUDA
+graphs that hold the gathers, as an unsharded run's are; over gloo they
+run eagerly (``ELCell.capturable``).
 """
 
 from __future__ import annotations
@@ -167,8 +168,9 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     the rings (see ``make_sync_cell``); a wave wider than the ring
     raises.  ``mesh=``: the run over the mesh's ranks (see the module's
     docstring); the cell's ``sharded`` flag says whether it gathers (it
-    does not when the edge dim replicates)."""
-    from repro_torch.launch.mesh import edge_shard
+    does not when the edge dim replicates) and ``capturable`` whether a
+    CUDA graph can hold the gathers."""
+    from repro_torch.launch.mesh import edge_shard, graph_capturable
     from repro_torch.obs.rings import (as_spec, async_ring_init,
                                        async_ring_record,
                                        async_ring_record_wave,
@@ -602,6 +604,7 @@ def make_async_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                   init_draw_shapes={"init_gumbel": (n_edges, k),
                                     "init_normal": (n_edges,)},
                   items_per_step=batch_k, sharded=shard is not None,
+                  capturable=shard is None or graph_capturable(shard.group),
                   params_key="gparams")
 
 

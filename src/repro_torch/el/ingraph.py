@@ -17,7 +17,7 @@ masked rounds.  A round whose ``cond`` is false leaves every carry entry
 bit-unchanged, so a chunk may run past the end of the run.  On a card
 each chunk is captured once as a CUDA graph over static buffers (carry,
 knobs, draws) and replayed; termination is read back once per chunk.  On
-the CPU the same chunk runs eagerly.
+the CPU (and over gloo ranks) the same chunk runs eagerly.
 
 The control-plane knobs (exploration constant, per-edge budget, cost
 arrays) are inputs, not constants: ``sync_knobs(cfg)`` derives them on
@@ -81,7 +81,10 @@ order as the unsharded round does.  Everything else (bandit, budgets,
 knobs, draws, the eval set, termination) is replicated: every rank
 computes it from the same inputs, so a sharded run is bit-identical to
 the unsharded one on every rank.  The ``model`` axis replicates the
-classic models' parameters, as the reference's resolver does.
+classic models' parameters, as the reference's resolver does.  On NCCL
+ranks (one a card) the chunks are CUDA graphs that hold their gathers,
+as the reference's one jitted program holds its sharding constraint;
+over gloo they run eagerly (``ChunkRunner``).
 """
 
 from __future__ import annotations
@@ -450,9 +453,13 @@ class ELCell:
     init_draw_shapes: Dict[str, Tuple[int, ...]] = dataclasses.field(
         default_factory=dict)
     items_per_step: int = 1
-    #: whether a step issues collectives (a sharded round or event): its
-    #: chunks run eagerly, never captured
+    #: whether a step issues collectives (a sharded round or event: it
+    #: all-gathers the edge stack); the profile's census reads it
     sharded: bool = False
+    #: whether a CUDA graph can hold the step's collectives
+    #: (``repro_torch.launch.mesh.graph_capturable``: NCCL or a plan yes,
+    #: gloo no); a chunk that cannot be captured runs eagerly on a card
+    capturable: bool = True
     #: the carry's global-params entry, which ``finalize`` returns and a
     #: donated run takes as its storage
     params_key: str = "params"
@@ -478,10 +485,11 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
     rejoins) and emitted by ``finalize`` as ``out["telemetry"]``.
 
     ``mesh=``: the round over the mesh's ranks (see the module's
-    docstring); this rank keeps its edges' rows of the datasets, and the
+    docstring); this rank keeps its edges' rows of the datasets, the
     cell's ``sharded`` flag says whether it gathers (it does not when the
-    edge dim replicates)."""
-    from repro_torch.launch.mesh import edge_shard
+    edge dim replicates) and ``capturable`` whether a CUDA graph can hold
+    the gather (its group's backend)."""
+    from repro_torch.launch.mesh import edge_shard, graph_capturable
     from repro_torch.obs.rings import (as_spec, finalize_telemetry,
                                        sync_ring_init, sync_ring_record)
     spec = as_spec(telemetry)
@@ -519,6 +527,28 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
 
     local_block = make_local_block(model, xs, ys, n_per_edge, batch, lr, k,
                                    drift=scn is not None)
+    # a rank of one edge runs its lane beside a copy of it: cuBLAS sums a
+    # batch of one matrix in another order than a batch of several (the
+    # SVM step's products), so a lone lane would round apart from the
+    # unsharded round's
+    pad_lanes = (torch.zeros(2, dtype=torch.long, device=dev)
+                 if shard is not None and n_local == 1 else None)
+
+    def rank_block(params: Params, interval: torch.Tensor,
+                   uniform: torch.Tensor, **kw) -> Params:
+        """The local blocks of this rank's edges from the global
+        ``params``: ``[n_local, ...]``; ``interval`` a scalar or one per
+        edge, ``uniform`` the edges' ``[n_local, k, batch]``."""
+        width = n_local if pad_lanes is None else pad_lanes.shape[0]
+        bcast = tree_map(lambda p: p.unsqueeze(0).expand(
+            width, *p.shape).contiguous(), params)
+        if pad_lanes is None:
+            return local_block(bcast, interval, uniform, **kw)
+        if interval.dim():
+            interval = interval[pad_lanes]
+        out = local_block(bcast, interval, uniform[pad_lanes],
+                          lanes=pad_lanes, **kw)
+        return tree_map(lambda p: p[:n_local], out)
     eval_gain = gain_fn(metric_fn) if cfg.utility == "eval_gain" else None
     pos = torch.arange(max_rounds, device=dev)
 
@@ -584,9 +614,7 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
         arm = torch.argmax(draws["gumbel"] + device_arm_logits(w))
         interval = arm + 1
 
-        bcast = tree_map(lambda p: p.unsqueeze(0).expand(
-            n_local, *p.shape).contiguous(), params)
-        edge_params = local_block(bcast, interval, draws["uniform"][mine])
+        edge_params = rank_block(params, interval, draws["uniform"][mine])
         new_params = weighted_mean(gather(edge_params))
 
         # straggler semantics: every edge's clock advances by the slowest
@@ -674,15 +702,13 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                                 draws["gumbel"])
         interval = arm + 1
 
-        bcast = tree_map(lambda p: p.unsqueeze(0).expand(
-            n_local, *p.shape).contiguous(), params)
         # a dropped edge runs its steps masked (interval 0); the drift
         # phase rotates every edge's sampling window
         edge_iv = torch.where(act, interval, 0)
         shift = knobs["scn_drift"] * t.float()
-        edge_params = gather(local_block(bcast, edge_iv[mine],
-                                         draws["uniform"][mine],
-                                         shift=shift))
+        edge_params = gather(rank_block(params, edge_iv[mine],
+                                        draws["uniform"][mine],
+                                        shift=shift))
         # mask-aware aggregation: dead edges carry zero weight and the
         # live weights renormalise
         w_act = w_agg_t * act.float()
@@ -728,7 +754,15 @@ def make_sync_cell(model, edge_data, eval_set, cfg: OL4ELConfig, *,
                    "normal": (n_edges,)}
     return ELCell(init=init, cond=cond, body=body, finalize=finalize,
                   horizon=max_rounds, draw_shapes=draw_shapes, device=dev,
-                  sharded=shard is not None)
+                  sharded=shard is not None,
+                  capturable=shard is None or graph_capturable(shard.group))
+
+
+def captures_chunks(cell: ELCell) -> bool:
+    """Whether a :class:`ChunkRunner` of ``cell`` captures its chunks as
+    CUDA graphs: on a card, where a graph can hold the step's collectives
+    (``cell.capturable``); else every chunk runs eagerly."""
+    return cell.device.type == "cuda" and cell.capturable
 
 
 def _tree_copy_(dst, src) -> None:
@@ -784,13 +818,30 @@ class ChunkRunner:
     kernel launches a graph holds.
 
     A sharded cell (``cell.sharded``: its step all-gathers across ranks)
-    runs every chunk eagerly, on a card too: no graph is captured
-    (``graphs_captured == 0``), and each batched ``kmeans_assign`` launch
-    counts as it runs.  ``donate=True`` (a solo runner) takes the caller's
-    ``init_params`` tensors as the carry's parameter storage, with no
-    copy: the run updates them in place and returns them as the final
-    params (new tensor objects on the same storage).  On a card a donated
-    run whose storage is not the captured graph's captures anew.
+    whose gathers a graph can hold (``cell.capturable``: NCCL, or a
+    plan's ``PlannedGroup``) takes the same path: the warm-up chunk (which
+    also creates the NCCL communicator, before any capture), one capture
+    holding the chunk's gathers, then a refill, a replay and one status
+    read a chunk; a capture that fails raises.  Over gloo
+    (``capturable=False``) every chunk runs eagerly, on a card too: no
+    graph (``graphs_captured == 0``), and each batched ``kmeans_assign``
+    launch counts as it runs.
+
+    Over ranks every rank captures and replays the same graphs in the
+    same order, as a captured collective needs: the loop's exit and each
+    chunk's first item come from ``status``, which is computed from
+    replicated or gathered state only, so it reads the same on every rank
+    and every rank runs the same number of chunks; the capture comes on
+    the same chunk on every rank (the first of the program's first run,
+    or of its profile); and a donated run of a sharded cell drops the
+    graph whatever its storage (a rule that needs no rank's pointers), so
+    every rank captures anew together.
+
+    ``donate=True`` (a solo runner) takes the caller's ``init_params``
+    tensors as the carry's parameter storage, with no copy: the run
+    updates them in place and returns them as the final params (new
+    tensor objects on the same storage).  On a card a donated run whose
+    storage is not the captured graph's captures anew.
     """
 
     def __init__(self, cell: ELCell, rounds_per_chunk: int = 16,
@@ -918,10 +969,12 @@ class ChunkRunner:
         if donate:
             key = self.cell.params_key
             old = tree_leaves(self.carry[key])
-            if self.graph is not None and any(
+            if self.graph is not None and (self.cell.sharded or any(
                     a.data_ptr() != b.data_ptr()
-                    for a, b in zip(old, tree_leaves(init[key]))):
-                self.graph = None             # captured over other storage
+                    for a, b in zip(old, tree_leaves(init[key])))):
+                # captured over other storage (a sharded cell: whatever
+                # the storage, so that every rank recaptures together)
+                self.graph = None
             params = init.pop(key)
             _tree_copy_({k: self.carry[k] for k in init}, init)
             self.carry[key] = params
@@ -944,9 +997,9 @@ class ChunkRunner:
 
     def _run_chunk(self) -> None:
         """One chunk on the loaded buffers: a replay on a card (the first
-        captures the graph), eagerly on the CPU."""
+        captures the graph), eagerly on the CPU or over gloo."""
         from repro_torch.kernels.kmeans_assign import ops as ka_ops
-        if self.device.type != "cuda" or self.cell.sharded:
+        if not captures_chunks(self.cell):
             self._step()
             return
         if self.graph is None:
@@ -958,8 +1011,9 @@ class ChunkRunner:
     def _prepare_chunk(self) -> None:
         """On a card: capture the chunk's graph if there is none (its
         warm-up runs the chunk eagerly), else run that warm-up alone; a
-        sharded cell's chunk runs eagerly, its result discarded."""
-        if self.cell.sharded:
+        chunk no graph can hold (gloo) runs eagerly, its result
+        discarded."""
+        if not self.cell.capturable:
             self._chunk(self.carry)
         elif self.graph is None:
             self._capture()
@@ -978,7 +1032,9 @@ class ChunkRunner:
         """What ``repro_torch.obs.prof.profile_jit`` measures, with
         ``init_params`` and ``knobs`` loaded into the static buffers (no
         draw is taken): the device, the input buffers, the finalized
-        outputs, one masked step and the chunk to capture (or warm up)."""
+        outputs, one masked step, the chunk to capture (or warm up) and
+        one eager chunk, its result discarded (the capture's warm-up: the
+        census counts its collectives, which a graph would hide)."""
         self._load(init_params, knobs, None)
         params, out = self._per_cell(self.cell.finalize, (0, 0))(
             self.carry, self.knobs)
@@ -987,7 +1043,8 @@ class ChunkRunner:
                               self.init_bufs),
                 "outputs": (params, out),
                 "step": self._one_step,
-                "chunk": self._prepare_chunk}
+                "chunk": self._prepare_chunk,
+                "eager_chunk": lambda: self._chunk(self.carry)}
 
     def _fill(self, draws, status: List[int]) -> None:
         """The next chunk's draws from the status the last chunk left."""

@@ -546,7 +546,9 @@ class ELSession:
         session: the per-edge datasets and local blocks split over the
         edge axes, the edge stack all-gathered before the aggregation
         (``repro_torch.el.ingraph``).  Every rank returns the same report,
-        bit for bit the unsharded run's; its chunks run eagerly
+        bit for bit the unsharded run's.  On NCCL ranks (one a card) its
+        chunks are CUDA graphs holding their gathers, captured and
+        replayed as an unsharded run's; over gloo they run eagerly
         (``telemetry["device_loop"]["graphs_captured"] == 0``).
         ``donate=True`` makes the init params' tensors the run's parameter
         storage, with no copy: the run updates them in place and
@@ -649,12 +651,12 @@ class ELSession:
         event's (or wave's) blocks run on their edges' owners and are
         all-gathered (``repro_torch.el.events.program``), and every rank
         returns the same report, bit for bit the unsharded run's, its
-        chunks eager.  On a mesh of more than one device
-        ``async_batch_k = 0`` resolves to waves of ``min(4, n_edges)``
-        (``resolve_async_batch_k(cfg, mesh)``).  ``donate=True`` makes
-        the init params' tensors the global model's storage, with no
-        copy, and the session refuses to run from them again.  The
-        program cache key holds the mesh and ``donate``.
+        chunks captured on NCCL and eager over gloo.  On a mesh of more
+        than one device ``async_batch_k = 0`` resolves to waves of
+        ``min(4, n_edges)`` (``resolve_async_batch_k(cfg, mesh)``).
+        ``donate=True`` makes the init params' tensors the global model's
+        storage, with no copy, and the session refuses to run from them
+        again.  The program cache key holds the mesh and ``donate``.
         """
         from repro_torch.el.events import (async_knobs, bucket_event_horizon,
                                            make_async_program,

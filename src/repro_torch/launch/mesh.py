@@ -325,20 +325,20 @@ def edge_shard(mesh, n_edges: int) -> Optional[EdgeShard]:
 def gather_edge_stack(tree: Any, group) -> Any:
     """All-gather a tree of ``[E_local, ...]`` edge stacks into ``[E,
     ...]`` stacks, rows in the group's rank order (the flattened edge
-    coordinate's).  One ``all_gather`` a dtype: the leaves are flattened
-    side by side into one ``[E_local, F]`` buffer and gathered into the
-    row blocks of one ``[E, F]`` buffer, each output leaf a view of it.
-    This is the explicit gather in front of every cross-edge reduction
-    that keeps a sharded run bit-identical to an unsharded one: the
-    reduction then runs on every rank, in edge order, on the whole stack
-    (no all-reduce, whose partial sums would reorder it).  Booleans
-    travel as bytes.  A :class:`PlannedGroup` allocates the same buffers and exchanges
-    nothing (the planner's)."""
+    coordinate's).  One gather a dtype: the leaves are flattened side by
+    side into one ``[E_local, F]`` buffer and gathered into the row
+    blocks of one ``[E, F]`` buffer (:func:`all_gather_rows`), each
+    output leaf a view of it.  This is the explicit gather in front of
+    every cross-edge reduction that keeps a sharded run bit-identical to
+    an unsharded one: the reduction then runs on every rank, in edge
+    order, on the whole stack (no all-reduce, whose partial sums would
+    reorder it).  Booleans travel as bytes.  No host read and no host
+    tensor: on NCCL a CUDA graph holds the whole gather
+    (:func:`graph_capturable`).  A :class:`PlannedGroup` allocates the
+    same buffers and exchanges nothing (the planner's)."""
     import torch
-    import torch.distributed as dist
     from repro_torch.interop import tree_leaves, tree_map
     leaves = tree_leaves(tree)
-    planned = isinstance(group, PlannedGroup)
     world = group_size(group)
     out_leaves: dict = {}
     by_dtype: dict = {}
@@ -350,13 +350,7 @@ def gather_edge_stack(tree: Any, group) -> Any:
         if dtype == torch.bool:            # gathered as bytes
             local = local.view(torch.uint8)
         full = local.new_empty((world * local.shape[0], local.shape[1]))
-        parts = list(full.chunk(world))
-        if planned:
-            group.record("all-gather", full.numel() * full.element_size())
-            for part in parts:
-                part.copy_(local)
-        else:
-            dist.all_gather(parts, local, group=group)
+        all_gather_rows(full, local, group)
         del local
         full = full.view(dtype)
         col = 0
@@ -369,6 +363,54 @@ def gather_edge_stack(tree: Any, group) -> Any:
     # match the leaves by identity
     order = {id(leaf): i for i, leaf in enumerate(leaves)}
     return tree_map(lambda leaf: out_leaves[order[id(leaf)]], tree)
+
+
+def all_gather_rows(out, local, group) -> None:
+    """Every rank's contiguous ``local`` into ``out``, block r (of the
+    ``world`` equal blocks along dim 0: ``[world * n, ...]`` rows or a
+    ``[world, ...]`` stack) rank r's.  On NCCL one
+    ``all_gather_into_tensor`` writes ``out`` in place, nothing
+    allocated or read on the host, so a CUDA graph can hold it; on gloo
+    one ``all_gather`` into ``out``'s blocks as a list of views (the same
+    bytes).  A :class:`PlannedGroup` records the all-gather's bytes and
+    copies ``local`` into every block."""
+    import torch.distributed as dist
+    world = group_size(group)
+    if isinstance(group, PlannedGroup):
+        group.record("all-gather", out.numel() * out.element_size())
+        for part in out.view((world,) + tuple(local.shape)).unbind(0):
+            part.copy_(local)
+        return
+    if group_backend(group) == "nccl":
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        gather(out, local, group=group)
+    else:
+        dist.all_gather(list(out.view((world,) + tuple(local.shape))
+                             .unbind(0)), local, group=group)
+
+
+def group_backend(group) -> str:
+    """``group``'s backend (``"nccl"``, ``"gloo"``), ``"planned"`` for a
+    :class:`PlannedGroup`."""
+    if isinstance(group, PlannedGroup):
+        return "planned"
+    import torch.distributed as dist
+    return str(dist.get_backend(group))
+
+
+#: the backends whose collectives a CUDA graph can hold: NCCL's run on
+#: the device; a plan's exchange nothing and make no host call.  Gloo's
+#: run on the host.
+CAPTURABLE_BACKENDS = ("nccl", "planned")
+
+
+def graph_capturable(group) -> bool:
+    """Whether a CUDA graph can hold a gather over ``group`` (``None``,
+    no group: nothing to hold, so yes): a sharded chunk over it is
+    captured once and replayed, as an unsharded one is; over gloo it runs
+    eagerly."""
+    return group is None or group_backend(group) in CAPTURABLE_BACKENDS
 
 
 def group_rank(group) -> int:
@@ -392,23 +434,16 @@ def gather_model_dim(shard, dim: int, group):
     group (a model group, or the edge group of a leaf split over the edge
     axes): rank i's shard is block i of the result, which is a new
     contiguous tensor (the layout of the unsharded tensor, so a kernel or
-    a reduction sees what it sees on one rank).  One ``all_gather`` into
-    an ``[M, *shard.shape]`` buffer, then one copy that moves the blocks
-    into ``dim`` (none for ``dim == 0``).  A :class:`PlannedGroup`
-    allocates the same buffers and exchanges nothing."""
-    import torch.distributed as dist
-    planned = isinstance(group, PlannedGroup)
+    a reduction sees what it sees on one rank).  One gather
+    (:func:`all_gather_rows`) into an ``[M, *shard.shape]`` buffer, then
+    one copy that moves the blocks into ``dim`` (none for ``dim == 0``).
+    A :class:`PlannedGroup` allocates the same buffers and exchanges
+    nothing.  The LM paths call it eagerly."""
     world = group_size(group)
     local = shard.contiguous()
     buf = local.new_empty((world,) + tuple(local.shape))
-    parts = list(buf.unbind(0))
-    if planned:
-        group.record("all-gather", buf.numel() * buf.element_size())
-        for part in parts:
-            part.copy_(local)
-    else:
-        dist.all_gather(parts, local, group=group)
-    del local, parts
+    all_gather_rows(buf, local, group)
+    del local
     full = list(shard.shape)
     full[dim] *= world
     return buf.movedim(0, dim).reshape(full)
@@ -460,7 +495,6 @@ def all_reduce_ordered(full, group):
     :class:`PlannedGroup` records one ``all-reduce`` of the tensor's
     bytes."""
     import torch
-    import torch.distributed as dist
     world = group_size(group)
     flat = full.reshape(-1)
     pad = -flat.numel() % world
@@ -472,12 +506,11 @@ def all_reduce_ordered(full, group):
     recv = _all_to_all(flat, group)
     mine = _ordered_sum(recv.view(world, -1))
     out = mine.new_empty((world,) + tuple(mine.shape))
-    parts = list(out.unbind(0))
-    if planned:
-        for part in parts:
+    if planned:            # the all-reduce's bytes are recorded above
+        for part in out.unbind(0):
             part.copy_(mine)
     else:
-        dist.all_gather(parts, mine, group=group)
+        all_gather_rows(out, mine, group)
     return out.reshape(-1)[:full.numel()].view(full.shape)
 
 

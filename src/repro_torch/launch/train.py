@@ -195,6 +195,9 @@ def train_classic_ol4el(exp, args):
     (``--donate``); returns the ``ELReport``."""
     from repro_torch.el.scenarios.cli import scenario_from_args
     from repro_torch.launch.classic import classic_fixture
+    # the world first: joining it picks this rank's card, on which the
+    # fixture's tensors are then made
+    mesh = _build_mesh(args)
     fx = classic_fixture(args.arch, samples=args.samples, n_edges=args.edges,
                          alpha=args.alpha, kmeans_impl=args.kmeans_impl,
                          device=args.device)
@@ -207,7 +210,6 @@ def train_classic_ol4el(exp, args):
                              async_batch_k=args.async_batch_k,
                              policy="ol4el", utility=fx["utility"],
                              cost_model=base_cost_model, scenario=scenario)
-    mesh = _build_mesh(args)
     # one voice for the world: rank 0 prints
     say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     session = (ELSession(ol, metric_name=metric, lr=fx["lr"])

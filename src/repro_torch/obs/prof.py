@@ -21,12 +21,14 @@ Profiling is opt-in and cached once per program (``ELSession``:
 assertion (``contract.enforce(profile)`` raises
 :class:`ContractViolation`), as in the reference.  Where the reference
 parses collectives out of the optimized HLO, the port counts them in a
-``torch.profiler`` trace of one chunk of a sharded program
-(:func:`collective_census`): gloo's ``gloo:all_gather`` / ... ops and
-NCCL's ``ncclDevKernel_AllGather*`` / ... kernels, mapped onto the
-reference's mnemonics with their bytes.  A program on one rank issues
-none, so its ``collectives`` is ``{}``.  ``repro_torch.obs`` never
-imports ``repro_torch.el``.
+``torch.profiler`` trace of one eager chunk of a sharded program
+(:func:`collective_census`): the backends' host ops, gloo's
+``gloo:all_gather`` / ... and NCCL's ``nccl:_all_gather_base`` / ...,
+mapped onto the reference's mnemonics with their bytes.  The chunk is
+eager even where the program replays a CUDA graph that holds its
+gathers (NCCL): it is the capture's warm-up, and a replay shows no host
+op.  A program on one rank issues none, so its ``collectives`` is
+``{}``.  ``repro_torch.obs`` never imports ``repro_torch.el``.
 """
 
 from __future__ import annotations
@@ -44,31 +46,26 @@ from repro_torch.interop import tree_leaves
 COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                "collective-permute")
 
-#: A backend's collective, as a ``torch.profiler`` trace names it, to the
-#: reference's mnemonic: gloo's ``gloo:<op>`` host ops and NCCL's
-#: ``ncclDevKernel_<Op>_...`` (or ``ncclKernel_<Op>_...``) kernels.
-_GLOO_OPS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-             "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+#: A backend's collective, as a ``torch.profiler`` trace names its host
+#: op (``gloo:<op>``, ``nccl:<op>``), to the reference's mnemonic.  NCCL
+#: names a tensor-to-tensor gather ``_all_gather_base``; its kernel is no
+#: measure (a world of one copies instead).
+_HOST_OPS = {"all_gather": "all-gather", "_all_gather_base": "all-gather",
+             "all_gather_into_tensor_coalesced": "all-gather",
+             "all_reduce": "all-reduce",
+             "reduce_scatter": "reduce-scatter",
+             "_reduce_scatter_base": "reduce-scatter",
+             "all_to_all": "all-to-all",
              "send": "collective-permute", "recv": "collective-permute"}
-_NCCL_KERNELS = (("AllGather", "all-gather"), ("AllReduce", "all-reduce"),
-                 ("ReduceScatter", "reduce-scatter"),
-                 ("AllToAll", "all-to-all"), ("SendRecv", "collective-permute"),
-                 ("Send", "collective-permute"),
-                 ("Recv", "collective-permute"))
+_BACKEND_PREFIXES = ("gloo:", "nccl:")
 
 
-def _mnemonic(name: str) -> Optional[Tuple[str, str]]:
-    """(backend, mnemonic) of a trace event's name, or None."""
-    if name.startswith("gloo:"):
-        op = _GLOO_OPS.get(name[5:])
-        return None if op is None else ("gloo", op)
-    for prefix in ("ncclDevKernel_", "ncclKernel_"):
-        if name.startswith(prefix):
-            rest = name[len(prefix):]
-            for key, op in _NCCL_KERNELS:
-                if rest.startswith(key):
-                    return "nccl", op
-    return None
+def _mnemonic(name: str) -> Optional[str]:
+    """The mnemonic of a trace event's name, or None."""
+    backend, _, op = name.partition(":")
+    if backend + ":" not in _BACKEND_PREFIXES:
+        return None
+    return _HOST_OPS.get(op)
 
 
 _DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2,
@@ -78,20 +75,15 @@ _DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2,
 
 def census_of_events(events) -> Tuple[Dict[str, Dict[str, float]], int]:
     """``(collectives, collective_bytes)`` from ``torch.profiler`` events
-    (``prof.events()``): a gloo op counts once with its input's bytes
-    (shape times element size, f32 unless the trace records the dtype);
-    an NCCL kernel counts once, its bytes those of the ``nccl:<op>`` host
-    op that launched it, in order.  Host ops count on the host only (with
-    CUDA activity a range also shows as a device annotation); kernels on
-    the device."""
+    (``prof.events()``): a backend's host op (gloo or NCCL) counts once
+    with its input's bytes (shape times element size, f32 unless the
+    trace records the dtype).  Host ops count on the host only (with CUDA
+    activity a range also shows as a device annotation of the same name);
+    kernels not at all."""
     from torch.autograd import DeviceType
     counts: Dict[str, Dict[str, float]] = {}
-    host_nccl: Dict[str, List[int]] = {}
-    # a host op's range also shows on the device as a user annotation of
-    # the same name: keep the host's
     events = [e for e in events
-              if (getattr(e, "device_type", DeviceType.CPU) == DeviceType.CPU)
-              == (e.name.startswith(("gloo:", "nccl:")))]
+              if getattr(e, "device_type", DeviceType.CPU) == DeviceType.CPU]
 
     def nbytes(e) -> int:
         shapes = [s for s in (e.input_shapes or []) if s]
@@ -102,23 +94,12 @@ def census_of_events(events) -> Tuple[Dict[str, Dict[str, float]], int]:
         return int(np.prod(shapes[0])) * size
 
     for e in events:
-        if e.name.startswith("nccl:"):
-            op = _GLOO_OPS.get(e.name[5:])
-            if op is not None:
-                host_nccl.setdefault(op, []).append(nbytes(e))
-    for e in events:
-        hit = _mnemonic(e.name)
-        if hit is None:
+        op = _mnemonic(e.name)
+        if op is None:
             continue
-        backend, op = hit
-        if backend == "gloo":
-            b = nbytes(e)
-        else:
-            queue = host_nccl.get(op, [])
-            b = queue.pop(0) if queue else 0
         entry = counts.setdefault(op, {"count": 0, "bytes": 0})
         entry["count"] += 1
-        entry["bytes"] += b
+        entry["bytes"] += nbytes(e)
     return counts, int(sum(v["bytes"] for v in counts.values()))
 
 
@@ -139,14 +120,14 @@ def _collective_events(prof) -> list:
     tens of thousands of ops costs seconds; the raw list, a tenth of
     one."""
     raw = prof.profiler.kineto_results.events()
-    prefixes = ("gloo:", "nccl:", "ncclDevKernel_", "ncclKernel_")
-    return [_TraceEvent(e) for e in raw if e.name().startswith(prefixes)]
+    return [_TraceEvent(e) for e in raw
+            if e.name().startswith(_BACKEND_PREFIXES)]
 
 
 def collective_census(fn, device: torch.device
                       ) -> Tuple[Dict[str, Dict[str, float]], int]:
-    """Run ``fn`` (one chunk of a program, on every rank at once) under
-    ``torch.profiler`` and count its collectives
+    """Run ``fn`` (one eager chunk of a program, on every rank at once)
+    under ``torch.profiler`` and count its collectives
     (:func:`census_of_events`)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
@@ -264,7 +245,9 @@ def profile_jit(program, *example_args, donated: bool = False
       params, or a cohort's stacked carry, which the wave's graph updates
       in place) the bytes of the first example argument;
     * ``collectives`` / ``collective_bytes``: a sharded program's
-      (``program.cell.sharded``) census of one eager chunk
+      (``program.cell.sharded``) census of one eager chunk, the capture's
+      warm-up, whether the program replays a graph that holds its
+      gathers (NCCL) or runs every chunk eagerly (gloo)
       (:func:`collective_census`; every rank profiles at once), ``{}`` and
       0 for a program on one rank;
     * ``flops``: one masked step under ``torch.utils.flop_counter.
@@ -296,7 +279,7 @@ def profile_jit(program, *example_args, donated: bool = False
         errors.append(f"flops: {e}")
     if getattr(getattr(program, "cell", None), "sharded", False):
         kw["collectives"], kw["collective_bytes"] = collective_census(
-            view["chunk"], device)
+            view["eager_chunk"], device)
     if device.type == "cuda":
         kw["temp_bytes"] = _chunk_temp_bytes(device, view["chunk"])
         kw["peak_live_bytes"] = (kw["argument_bytes"] + kw["output_bytes"]

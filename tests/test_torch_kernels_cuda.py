@@ -1351,27 +1351,28 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_debug_mesh
 sys.path.insert(0, {tests!r})
-from test_torch_kernels_cuda import _sharded_sync_run
+from test_torch_kernels_cuda import _sharded_async_run, _sharded_sync_run
 resolve_device("cuda")
 mesh = make_debug_mesh({n}, 1, device="cuda", backend={backend!r})
-out = _sharded_sync_run(mesh)
+out = _sharded_sync_run(mesh, {arch!r})
+if {with_async!r}:
+    out["async"] = _sharded_async_run(mesh)
 with open({out!r} + f"/rank{{mesh.rank}}.pkl", "wb") as f:
     pickle.dump(out, f)
 dist.destroy_process_group()
 """
 
 
-def _sharded_sync_run(mesh=None):
-    """kmeans-traffic (2,000 samples, 4 edges) through the compiled sync
-    round on the card, on draws replayed from a seeded numpy generator,
-    over ``mesh`` (None: unsharded); records, final params, census."""
+def _sharded_sync_run(mesh=None, arch="kmeans-traffic"):
+    """``arch`` (2,000 samples, 4 edges) through the compiled sync round
+    on the card, on draws replayed from a seeded numpy generator, over
+    ``mesh`` (None: unsharded); records, final params, census."""
     import dataclasses
     from repro_torch.el import ELSession
     from repro_torch.el.rng import ReplayDraws
     from repro_torch.interop import tree_to_numpy
     from repro_torch.launch.classic import classic_fixture
-    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=4,
-                         device="cuda")
+    fx = classic_fixture(arch, samples=2000, n_edges=4, device="cuda")
     cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=4,
                               budget=3000.0, utility=fx["utility"])
     rng = np.random.default_rng(4)
@@ -1379,20 +1380,23 @@ def _sharded_sync_run(mesh=None):
     draws = ReplayDraws(rng.gumbel(size=(128, k)),
                         rng.uniform(size=(128, 4, k, b)),
                         rng.standard_normal((128, 4)))
-    rep = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
-           .with_executor(fx["executor"], init_params=fx["init_params"],
-                          n_samples=fx["n_samples"])
-           .run_sync_ingraph(max_rounds=128, draws=draws, mesh=mesh,
-                             contract=True))
+    sess = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=fx["init_params"],
+                           n_samples=fx["n_samples"]))
+    rep = sess.run_sync_ingraph(max_rounds=128, draws=draws, mesh=mesh,
+                                contract=True)
     return {"records": [(r.interval, r.total_consumed, r.wall_time,
                          r.utility) for r in rep.records],
             "params": tree_to_numpy(rep.final_params),
             "collectives": rep.telemetry["profile"]["collectives"],
             "graphs": rep.telemetry["device_loop"]["graphs_captured"],
+            # the profile (contract=True) captures before the run replays
+            "graphs_total": sess._fastpath.graphs_captured,
             "replays": rep.telemetry["device_loop"]["replays"]}
 
 
-def _world_equals_unsharded(n, backend, tmp_path):
+def _world_equals_unsharded(n, backend, tmp_path, with_async=False,
+                            arch="kmeans-traffic"):
     import os
     import pathlib
     import pickle
@@ -1400,16 +1404,18 @@ def _world_equals_unsharded(n, backend, tmp_path):
     from repro_torch.launch.hostdev import spawn_ranks
     tests = str(pathlib.Path(__file__).resolve().parent)
     code = _RANK_CODE.format(tests=tests, n=n, backend=backend,
-                             out=str(tmp_path))
+                             out=str(tmp_path), with_async=with_async,
+                             arch=arch)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(pathlib.Path(tests).parent / "src"), tests]))
     procs = spawn_ranks(n, [sys.executable, "-c", code], env=env,
                         capture=True, timeout=600)
     for p in procs:
         assert p.returncode == 0, p.stderr[-3000:]
-    want = _sharded_sync_run()
+    want = _sharded_sync_run(arch=arch)
     # the unsharded run replays the graph its profile captured
     assert want["collectives"] == {} and want["replays"] > 0
+    want_async = _sharded_async_run() if with_async else None
     for r in range(n):
         got = pickle.load(open(tmp_path / f"rank{r}.pkl", "rb"))
         assert got["records"] == want["records"]
@@ -1417,7 +1423,27 @@ def _world_equals_unsharded(n, backend, tmp_path):
             np.testing.assert_array_equal(got["params"][key], v)
         assert got["collectives"]["all-gather"]["count"] >= 1
         assert "all-reduce" not in got["collectives"]
+        _assert_chunks(got, backend)
+        if with_async:
+            a = got["async"]
+            assert a["batch_k"] == want_async["batch_k"] == 4
+            assert a["events"] == want_async["events"]
+            for key, v in want_async["params"].items():
+                np.testing.assert_array_equal(a["params"][key], v)
+            assert a["collectives"]["all-gather"]["count"] >= 1
+            assert "all-reduce" not in a["collectives"]
+            _assert_chunks(a, backend)
+
+
+def _assert_chunks(got, backend):
+    """A gloo rank's chunks run eagerly: no graph, no replay.  An NCCL
+    rank's are CUDA graphs that hold their gathers, captured (by the
+    profile) and replayed as an unsharded run's."""
+    if backend == "gloo":
+        assert got["graphs_total"] == 0
         assert got["graphs"] == 0 and got["replays"] == 0
+    else:
+        assert got["graphs_total"] >= 1 and got["replays"] > 0
 
 
 def test_gloo_ranks_on_one_card_shard_the_sync_run(cuda_device, tmp_path):
@@ -1427,14 +1453,164 @@ def test_gloo_ranks_on_one_card_shard_the_sync_run(cuda_device, tmp_path):
     _world_equals_unsharded(2, "gloo", tmp_path)
 
 
+def test_gloo_ranks_of_one_edge_on_one_card_shard_the_sync_run(
+        cuda_device, tmp_path):
+    """Four gloo ranks share the card, one svm-wafer edge each (a (4, 1)
+    mesh): each rank runs its lane beside a copy, since cuBLAS rounds a
+    batched GEMM of one matrix apart from one of several, and every
+    rank's run is the unsharded card run bit for bit."""
+    _world_equals_unsharded(4, "gloo", tmp_path, arch="svm-wafer")
+
+
 def test_nccl_ranks_shard_the_sync_run(cuda_device, tmp_path):
     """One NCCL rank a card over every card of the machine (NCCL puts no
-    two ranks of one communicator on one card): unverified on a machine
-    with one card, where it skips."""
+    two ranks of one communicator on one card): the sharded sync run and
+    the async run at K = 4, their chunks CUDA graphs that hold their
+    gathers, each the unsharded card run bit for bit; skips on a machine
+    with one card."""
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("an NCCL world of several ranks needs several cards")
-    _world_equals_unsharded(2 if n < 4 else 4, "nccl", tmp_path)
+    _world_equals_unsharded(2 if n < 4 else 4, "nccl", tmp_path,
+                            with_async=True)
+
+
+_GATHER_RANK_CODE = """
+import pickle, sys
+import torch
+import torch.distributed as dist
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_mesh
+sys.path.insert(0, {tests!r})
+from test_torch_kernels_cuda import _captured_gather
+resolve_device("cuda")
+mesh = make_mesh((1, 1), ("data", "model"))
+out = _captured_gather(mesh)
+with open({out!r} + "/gather.pkl", "wb") as f:
+    pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _captured_gather(mesh):
+    """``gather_edge_stack`` over ``mesh``'s edge group and the f32 mean
+    of the stack in edge order, a rank's 2 edges of svm-wafer-like
+    leaves: its census on an eager warm-up (a side stream), then one CUDA
+    graph of it replayed on fresh inputs, each replay against the same
+    ops run eagerly."""
+    from repro_torch.launch.mesh import gather_edge_stack
+    from repro_torch.obs.prof import collective_census
+    group = mesh.edge_group()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = {"w": (2, 59, 8), "b": (2, 8)}
+
+    def fresh():
+        return {k: torch.randn(v, generator=gen, device="cuda")
+                for k, v in shapes.items()}
+
+    def body(tree):
+        out = {}
+        for k, v in gather_edge_stack(tree, group).items():
+            acc = v[0].clone()
+            for e in range(1, v.shape[0]):
+                acc = acc + v[e]
+            out[k] = acc / v.shape[0]
+        return out
+    static = fresh()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        census = collective_census(lambda: body(static),
+                                   torch.device("cuda"))
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        result = body(static)
+    same = []
+    for _ in range(4):
+        tree = fresh()
+        for k, v in tree.items():
+            static[k].copy_(v)
+        graph.replay()
+        want = body(tree)
+        same.append(all(torch.equal(result[k], want[k]) for k in want))
+    return {"census": census, "same": same}
+
+
+def test_nccl_world_of_one_captures_the_edge_gather(cuda_device, tmp_path):
+    """An NCCL world of one (one card): a CUDA graph holds the edge
+    gather and the edge-order mean; each replay on fresh inputs is the
+    same ops run eagerly, bit for bit, and the warm-up's census is the
+    one all-gather with the rank's bytes (a world of one copies; the host
+    op counts it)."""
+    import os
+    import pathlib
+    import pickle
+    import sys
+    from repro_torch.launch.hostdev import spawn_ranks
+    tests = str(pathlib.Path(__file__).resolve().parent)
+    code = _GATHER_RANK_CODE.format(tests=tests, out=str(tmp_path))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(pathlib.Path(tests).parent / "src"), tests]))
+    procs = spawn_ranks(1, [sys.executable, "-c", code], env=env,
+                        capture=True, timeout=600)
+    assert procs[0].returncode == 0, procs[0].stderr[-3000:]
+    got = pickle.load(open(tmp_path / "gather.pkl", "rb"))
+    assert got["same"] == [True] * 4
+    census, nbytes = got["census"]
+    assert census == {"all-gather": {"count": 1,
+                                     "bytes": 2 * (59 * 8 + 8) * 4}}
+    assert nbytes == 2 * (59 * 8 + 8) * 4
+
+
+def test_planned_sharded_cell_captured_is_the_eager_cell(cuda_device):
+    """kmeans-traffic's sync cell over a ``PlanMesh(2)`` (rank 0's 2 of 4
+    edges; a plan's gathers are device copies, so a graph holds them):
+    captured once and replayed, it is the same cell run eagerly
+    (``capturable=False``) bit for bit; the replayed run's batched
+    ``kmeans_assign`` launches are its replays times the launches a
+    graph holds."""
+    import dataclasses
+    from repro_torch.el.ingraph import (SyncProgram, make_sync_program,
+                                        sync_knobs)
+    from repro_torch.el.rng import TorchDraws
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    from repro_torch.launch.mesh import PlanMesh
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=4,
+                         device="cuda")
+    cfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=4,
+                              budget=3000.0, utility=fx["utility"])
+    ex = fx["executor"]
+    prog = make_sync_program(
+        ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr, batch=ex.batch,
+        n_samples=fx["n_samples"], metric_name=fx["metric"],
+        max_rounds=128, mesh=PlanMesh(2), device="cuda")
+    assert prog.cell.sharded and prog.cell.capturable
+    eager = SyncProgram(dataclasses.replace(prog.cell, capturable=False),
+                        prog.rounds_per_chunk)
+
+    def run(p):
+        params, out = p(fx["init_params"], sync_knobs(cfg), TorchDraws(
+            torch.Generator(device="cuda").manual_seed(cfg.seed + 17)))
+        return tree_to_numpy(params), out
+    first = run(prog)
+    assert prog.last_run["graphs_captured"] == 1
+    ops.batched_launches = 0
+    got = run(prog)
+    loop = prog.last_run
+    assert loop["graphs_captured"] == 0 and loop["replays"] > 0
+    assert ops.batched_launches == loop["replays"] \
+        * loop["kernel_launches_per_graph"] > 0
+    want = run(eager)
+    assert eager.last_run["graphs_captured"] == 0
+    assert eager.last_run["replays"] == 0
+    for a in (first, got):
+        for key, v in want[0].items():
+            np.testing.assert_array_equal(a[0][key], v)
+        assert a[1].keys() == want[1].keys()
+        for key, v in want[1].items():
+            np.testing.assert_array_equal(a[1][key], v)
 
 
 _PART2_RANK_CODE = """
@@ -1453,16 +1629,13 @@ dist.destroy_process_group()
 """
 
 
-def _sharded_async_and_cohort(mesh=None):
-    """kmeans-traffic (2,000 samples, 4 edges) on the card over ``mesh``
-    (None: unsharded): the async engine at the wave width the mesh
-    resolves (pinned to 4 without one) on draws replayed from a seeded
-    numpy generator, then a cohort of 4 slots serving 6 sync tenants
-    (the last two admitted as slots free); events, final params, census,
-    each tenant's records and params."""
+def _sharded_async_run(mesh=None):
+    """kmeans-traffic (2,000 samples, 4 edges) through the async engine
+    on the card over ``mesh`` (None: unsharded) at the wave width the
+    mesh resolves (pinned to 4 without one), on draws replayed from a
+    seeded numpy generator: events, final params, census, graphs."""
     import dataclasses
     from repro_torch.el import ELSession
-    from repro_torch.el.fleet import FleetServer, TenantRun
     from repro_torch.el.rng import ReplayDraws
     from repro_torch.interop import tree_to_numpy
     from repro_torch.launch.classic import classic_fixture
@@ -1478,29 +1651,48 @@ def _sharded_async_and_cohort(mesh=None):
                         rng.standard_normal((256, 4)),
                         init_gumbel=rng.gumbel(size=(4, k)),
                         init_normal=rng.standard_normal(4))
-    rep = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
-           .with_executor(fx["executor"], init_params=fx["init_params"])
-           .run_async_ingraph(draws=draws, mesh=mesh, contract=True))
+    sess = (ELSession(cfg, metric_name=fx["metric"], lr=fx["lr"])
+            .with_executor(fx["executor"], init_params=fx["init_params"]))
+    rep = sess.run_async_ingraph(draws=draws, mesh=mesh, contract=True)
+    loop = rep.telemetry["device_loop"]
+    return {"events": [(r.edge, r.interval, r.total_consumed, r.wall_time)
+                       for r in rep.records],
+            "params": tree_to_numpy(rep.final_params),
+            "batch_k": loop["batch_k"],
+            "collectives": rep.telemetry["profile"]["collectives"],
+            "graphs": loop["graphs_captured"],
+            "graphs_total": sess._fastpath.graphs_captured,
+            "replays": loop["replays"]}
+
+
+def _sharded_async_and_cohort(mesh=None):
+    """``_sharded_async_run`` over ``mesh``, then a cohort of 4 slots
+    serving 6 sync kmeans-traffic tenants (the last two admitted as slots
+    free): each tenant's records and params."""
+    import dataclasses
+    from repro_torch.el.fleet import FleetServer, TenantRun
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch.classic import classic_fixture
+    out = _sharded_async_run(mesh)
+    fx = classic_fixture("kmeans-traffic", samples=2000, n_edges=4,
+                         device="cuda")
+    scfg = dataclasses.replace(fx["exp"].ol4el, mode="sync", n_edges=4,
+                               budget=3000.0, utility=fx["utility"],
+                               async_batch_k=0)
     server = FleetServer(n_slots=4, rounds_per_wave=16, mesh=mesh,
                          device="cuda")
-    scfg = dataclasses.replace(cfg, mode="sync", async_batch_k=0)
     ids = [server.submit(TenantRun(
         cfg=dataclasses.replace(scfg, budget=1500.0 + 250.0 * i, seed=i),
         executor=fx["executor"], metric_name=fx["metric"],
         n_samples=fx["n_samples"], init_params=fx["init_params"],
         max_rounds=128)) for i in range(6)]
     reports = server.drain()
-    return {"events": [(r.edge, r.interval, r.total_consumed, r.wall_time)
-                       for r in rep.records],
-            "params": tree_to_numpy(rep.final_params),
-            "batch_k": rep.telemetry["device_loop"]["batch_k"],
-            "collectives": rep.telemetry["profile"]["collectives"],
-            "graphs": rep.telemetry["device_loop"]["graphs_captured"],
-            "tenants": {t: ([(r.interval, r.total_consumed, r.wall_time)
-                             for r in reports[t].records],
-                            tree_to_numpy(reports[t].final_params))
-                        for t in ids},
-            "stats": server.stats()}
+    out["tenants"] = {t: ([(r.interval, r.total_consumed, r.wall_time)
+                           for r in reports[t].records],
+                          tree_to_numpy(reports[t].final_params))
+                      for t in ids}
+    out["stats"] = server.stats()
+    return out
 
 
 def test_gloo_ranks_on_one_card_shard_the_async_run_and_a_cohort(

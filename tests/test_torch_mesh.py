@@ -260,6 +260,7 @@ def spawned(cases, model_cases, step_cases, tmp_path_factory):
     for world, mesh in WORLDS.items():
         d = tmp_path_factory.mktemp(f"world{world}")
         spec = {"mesh": mesh, "classic": [c[0] for c in cases.values()],
+                "one_edge_mesh": ONE_EDGE_MESH if world == 4 else None,
                 "lm": lm, "model": list(model_cases.values()),
                 "model_mesh": MODEL_MESHES[world],
                 "step_meshes": STEP_MESHES[world], "step_cases": step_cases}
@@ -400,6 +401,8 @@ def _equal_trees(a, b):
 
 
 GRID = [(w, a) for w in WORLDS for a in ARCHS]
+#: the 4 ranks as a (4, 1) mesh too: one edge a rank
+ONE_EDGE_MESH = ((4, 1), ("data", "model"))
 
 
 @pytest.mark.parametrize("world,arch", GRID)
@@ -465,6 +468,102 @@ def test_census_shows_gather_before_reduce(worlds, cases, world, arch):
         assert got["collectives"]["all-gather"]["bytes"] == \
             16 * row_bytes * EDGES // 2 == got["collective_bytes"]
     assert cases[arch][2].telemetry["profile"]["collectives"] == {}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_one_edge_a_rank_is_the_unsharded_run(worlds, cases, arch):
+    """The 4 ranks as a (4, 1) mesh, one edge a rank, its lone lane run
+    beside a copy (on a card cuBLAS rounds a batch of one matrix apart
+    from a batch of several): every rank's run and donated twin bit for
+    bit the unsharded run, one gathered row a rank a round."""
+    _, _, port = cases[arch]
+    row_bytes = sum(v.nbytes for v in cases[arch][0]["init"].values())
+    for res in worlds[4]:
+        got = res["one_edge"][arch]
+        np.testing.assert_array_equal(got["records"], _records(port))
+        _equal_trees(got["params"], tree_to_numpy(port.final_params))
+        np.testing.assert_array_equal(got["donated_records"],
+                                      got["records"])
+        _equal_trees(got["donated_params"], got["params"])
+        assert got["cell"] == (True, False)
+        assert got["collectives"] == {"all-gather": {
+            "count": 16, "bytes": 16 * row_bytes}}
+
+
+@pytest.mark.parametrize("world,arch", GRID)
+def test_gloo_cells_gather_and_run_eagerly(worlds, world, arch):
+    """Over gloo a sharded cell gathers (the census reads that) but no
+    CUDA graph can hold the gathers, which run in host memory: the run
+    and its donated twin capture nothing and replay nothing, every chunk
+    eager."""
+    for res in worlds[world]:
+        got = res["classic"][arch]
+        assert got["cell"] == (True, False)
+        for loop in (got["device_loop"], got["donated_loop"]):
+            assert loop["graphs_captured"] == 0 and loop["replays"] == 0
+            assert loop["chunks"] > 0
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+def test_edge_gather_is_each_leafs_gather_in_both_forms(worlds, world):
+    """``gather_edge_stack``'s one gather a dtype lays out every leaf as
+    gathering it alone would (rank-major row blocks, bools as bytes), the
+    same stack on every rank; ``all_gather_rows``' two forms, the list
+    of views that gloo takes and the tensor-to-tensor call that NCCL
+    takes, write the same bytes."""
+    first = worlds[world][0]["gather"]
+    for res in worlds[world]:
+        g = res["gather"]
+        assert g["stack"].keys() == g["per_leaf"].keys()
+        for k, want in g["per_leaf"].items():
+            got = g["stack"][k]
+            assert got.dtype == (np.bool_ if k == "m" else want.dtype)
+            np.testing.assert_array_equal(
+                got.view(np.uint8) if k == "m" else got, want)
+            np.testing.assert_array_equal(got, first["stack"][k])
+        # the edge group: the data axis (the 4-rank world's model axis
+        # holds copies)
+        assert g["ranks"] == WORLDS[world][0][0]
+        assert g["rows"].shape == (g["ranks"] * 3, 7)
+        np.testing.assert_array_equal(g["list_form"], g["rows"])
+        np.testing.assert_array_equal(g["tensor_form"], g["rows"])
+
+
+@pytest.mark.parametrize("backend,captured", [("nccl", True),
+                                              ("gloo", False),
+                                              ("planned", True)])
+def test_the_capture_rule_follows_the_gathers_backend(monkeypatch, backend,
+                                                      captured):
+    """A sharded cell's chunks are CUDA graphs where a graph can hold its
+    gathers: NCCL's (device kernels) and a plan's (no exchange), not
+    gloo's (host memory).  Without a card: the sync and async cells over
+    a ``PlanMesh(2)`` (2 of 4 edges a rank) with the edge group's backend
+    read as ``backend``, and the runner's choice for such a cell on a
+    CUDA device and on the CPU; a cell with no mesh gathers nothing and
+    is captured on a card."""
+    import dataclasses
+    from repro_torch.el.events.program import make_async_cell
+    from repro_torch.el.ingraph import captures_chunks, make_sync_cell
+    from repro_torch.launch.mesh import PlanMesh
+    if backend != "planned":
+        monkeypatch.setattr(port_mesh, "group_backend", lambda g: backend)
+    assert port_mesh.graph_capturable(None)
+    assert port_mesh.graph_capturable(port_mesh.PlannedGroup(2)) == captured
+    fx = classic_fixture("svm-wafer", samples=200, n_edges=EDGES,
+                         device="cpu")
+    ex = fx["executor"]
+    cuda = torch.device("cuda")
+    for mode, make in (("sync", make_sync_cell), ("async", make_async_cell)):
+        cfg = dataclasses.replace(fx["exp"].ol4el, mode=mode, n_edges=EDGES,
+                                  utility=fx["utility"])
+        for mesh in (None, PlanMesh(2)):
+            cell = make(ex.model, ex.edge_data, ex.eval_set, cfg, lr=ex.lr,
+                        batch=ex.batch, mesh=mesh, device="cpu")
+            want = (False, True) if mesh is None else (True, captured)
+            assert (cell.sharded, cell.capturable) == want, (mode, mesh)
+            assert captures_chunks(dataclasses.replace(cell, device=cuda)) \
+                == want[1]
+            assert not captures_chunks(cell)
 
 
 @pytest.mark.parametrize("world", list(WORLDS))
@@ -834,8 +933,10 @@ def test_a_mesh_needs_its_world_and_nccl_a_card_a_rank(monkeypatch):
 def test_census_counts_host_ops_and_nccl_kernels_once():
     """A gloo op shows in a CUDA trace as a host op and a device
     annotation of the same name (counted once, its input's bytes); an
-    NCCL collective as a host op and a kernel (counted once, by the
-    kernel, its bytes the host op's)."""
+    NCCL collective as a host op, an annotation and a kernel (counted
+    once, by the host op, its input's bytes: a world of one's gather
+    launches no NCCL kernel, a copy instead); NCCL's tensor-to-tensor
+    gather is ``nccl:_all_gather_base``."""
     from torch.autograd import DeviceType
     from repro_torch.obs.prof import census_of_events
 
@@ -852,12 +953,15 @@ def test_census_counts_host_ops_and_nccl_kernels_once():
               Event("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgs)", gpu),
               Event("ncclDevKernel_AllReduce_Sum_f32_RING_LL", gpu),
               Event("nccl:all_reduce", cpu, [[3]]),
-              Event("aten::mm", cpu, [[2, 2], [2, 2]])]
+              Event("aten::mm", cpu, [[2, 2], [2, 2]]),
+              Event("nccl:_all_gather_base", cpu, [[2, 10]]),
+              Event("nccl:_all_gather_base", gpu),
+              Event("Memcpy DtoD (Device -> Device)", gpu)]
     counts, total = census_of_events(events)
-    assert counts == {"all-gather": {"count": 2, "bytes": 2 * 96 * 4
-                                     + 4 * 8 * 4},
+    assert counts == {"all-gather": {"count": 3, "bytes": 2 * 96 * 4
+                                     + 4 * 8 * 4 + 2 * 10 * 4},
                       "all-reduce": {"count": 1, "bytes": 12}}
-    assert total == 2 * 96 * 4 + 4 * 8 * 4 + 12
+    assert total == 2 * 96 * 4 + 4 * 8 * 4 + 2 * 10 * 4 + 12
 
 
 def test_the_launcher_refuses_what_part_1_does_not_run(monkeypatch):

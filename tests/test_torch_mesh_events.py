@@ -142,6 +142,8 @@ def _spec():
 
 def _spawn(world, spec, d, results):
     spec = dict(spec, mesh=WORLDS[world])
+    if world == 4:             # and a (4, 1) mesh of it: one edge a rank
+        spec["one_edge_mesh"] = ((4, 1), ("data", "model"))
     with open(d / "spec.pkl", "wb") as f:
         pickle.dump(spec, f)
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}"
@@ -399,6 +401,41 @@ def test_sharded_scenario_runs_are_the_unsharded_runs(runs, world, mode):
         assert worker.same(got["params"], want["params"])
         assert set(got["collectives"]) == {"all-gather"}
     assert want["collectives"] == {}
+
+
+@pytest.mark.parametrize("world", list(WORLDS))
+@pytest.mark.parametrize("kind", ["one", "auto", "sync", "async"])
+def test_gloo_cells_gather_and_run_eagerly(runs, world, kind):
+    """Over gloo an async cell (one event, or the mesh's wave) and the
+    churn scenario's sync and async cells gather, and no CUDA graph can
+    hold the gathers: no capture, no replay, every chunk eager; the
+    unsharded cells gather nothing and may be captured (on a card)."""
+    plain = runs[1]
+    for res in _ranks(runs, world):
+        got = (res["async"][arch][kind] for arch in ARCHS) \
+            if kind in ("one", "auto") else [res["scenario"][kind]]
+        for g in got:
+            assert g["cell"] == (True, False)
+            loop = g["device_loop"]
+            assert loop["graphs_captured"] == 0 and loop["replays"] == 0
+            assert loop["chunks"] > 0
+    want = [plain["async"][a][kind] for a in ARCHS] \
+        if kind in ("one", "auto") else [plain["scenario"][kind]]
+    assert all(w["cell"] == (False, True) for w in want)
+
+
+@pytest.mark.parametrize("mode", ["sync", "async"])
+def test_one_edge_a_rank_scenario_runs_are_the_unsharded_runs(runs, mode):
+    """The 4 ranks as a (4, 1) mesh, one edge a rank: the churn
+    scenario's sync round (a rank's lone lane run beside a copy) and
+    async events, bit for bit the unsharded runs."""
+    want = runs[1]["scenario"][mode]
+    for res in _ranks(runs, 4):
+        got = res["scenario_one_edge"][mode]
+        assert worker.same(got["raw"], want["raw"])
+        assert worker.same(got["params"], want["params"])
+        assert set(got["collectives"]) == {"all-gather"}
+        assert got["cell"] == (True, False)
 
 
 @pytest.mark.parametrize("mode", ["sync", "async"])

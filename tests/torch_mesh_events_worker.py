@@ -13,14 +13,17 @@ sides run one code path:
     the replayed draws at ``"one"`` event a step and at the ``"auto"``
     wave width (0, resolved on the mesh; without one, ``spec["auto_k"]``,
     the width the worlds resolve): events, final params, the census, the
-    device loop; then the auto-width run donated, and whether running the
-    donated params again raises;
-  * ``scenario``: the churn scenario's sync round and async event run;
+    device loop, the cell's flags; then the auto-width run donated, and
+    whether running the donated params again raises;
+  * ``scenario``: the churn scenario's sync round and async event run
+    (their device loops and cells' flags too);
   * ``sweep``: a 4-cell sync grid and a 4-cell async grid (two wave
     widths) through ``ELSession.sweep(mesh=)``, and the error of a 3-cell
     grid;
   * ``fleet``: a ``FleetServer(mesh=)`` of 4 slots, tenants admitted
     mid-flight: its reports, its subscriber stream and ``stats()``;
+  * ``scenario_one_edge`` (a world given ``one_edge_mesh``): the churn
+    scenario's runs over that mesh, one edge a rank;
   * ``modules``: any ``jax`` / ``repro`` / ``benchmarks`` module the rank
     imported.
 """
@@ -72,6 +75,13 @@ def numpy_tree(tree):
     return tree_to_numpy(tree)
 
 
+def cell_flags(sess):
+    """The ``sharded`` / ``capturable`` flags of the session's last
+    program's cell."""
+    cell = sess._fastpath.cell
+    return cell.sharded, cell.capturable
+
+
 def async_case(case, spec, mesh):
     from repro_torch.el.rng import ReplayDraws
     fx = fixture(case["arch"], spec)
@@ -79,7 +89,8 @@ def async_case(case, spec, mesh):
     out = {}
     for name, k in (("one", 1), ("auto", auto)):
         kw = dict(case["cfg"], async_batch_k=k)
-        rep = session(fx, kw, case["init"]).run_async_ingraph(
+        sess = session(fx, kw, case["init"])
+        rep = sess.run_async_ingraph(
             draws=ReplayDraws(**case["draws"]), mesh=mesh, contract=True)
         prof = rep.telemetry["profile"]
         out[name] = {"events": events(rep), "params": numpy_tree(
@@ -89,7 +100,8 @@ def async_case(case, spec, mesh):
             "collectives": prof["collectives"],
             "collective_bytes": prof["collective_bytes"],
             "alias_bytes": prof["alias_bytes"],
-            "device_loop": rep.telemetry["device_loop"]}
+            "device_loop": rep.telemetry["device_loop"],
+            "cell": cell_flags(sess)}
     from repro_torch.interop import tree_from_numpy
     donated = tree_from_numpy(case["init"], "cpu")
     sess = session(fx, dict(case["cfg"], async_batch_k=auto), params=donated)
@@ -128,7 +140,9 @@ def scenario_case(case, spec, mesh):
             rep = sess.run_async_ingraph(draws=draws, mesh=mesh,
                                          contract=True)
         out[mode] = {"raw": rep.raw, "params": numpy_tree(rep.final_params),
-                     "collectives": rep.telemetry["profile"]["collectives"]}
+                     "collectives": rep.telemetry["profile"]["collectives"],
+                     "device_loop": rep.telemetry["device_loop"],
+                     "cell": cell_flags(sess)}
     return out
 
 
@@ -233,6 +247,10 @@ def main():
     mesh = make_mesh(*spec["mesh"], device="cpu")
     out = {"rank": mesh.rank, "mesh": dict(mesh.shape),
            **run_all(spec, mesh)}
+    if spec.get("one_edge_mesh"):        # one edge a rank
+        out["scenario_one_edge"] = scenario_case(
+            spec["scenario"], spec, make_mesh(*spec["one_edge_mesh"],
+                                              device="cpu"))
     out["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in
                             ("jax", "jaxlib", "repro", "benchmarks"))
     with open(os.path.join(out_dir, f"rank{mesh.rank}.pkl"), "wb") as f:

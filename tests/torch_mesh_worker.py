@@ -11,7 +11,11 @@ it saw to ``OUT_DIR/rank<r>.pkl``:
     contract=True)`` on replayed draws (records, final params, the
     profile's census, the device loop), then the same run donated
     (``donate=True``), and whether running the donated params again
-    raises;
+    raises; the cell's ``sharded`` / ``capturable`` flags;
+  * ``gather``: the edge group's gathers, both forms, against a gather of
+    each leaf alone;
+  * ``one_edge`` (a world given ``one_edge_mesh``): ``classic`` over that
+    mesh, one edge a rank;
   * ``lm``: ``local_sgd.make_el_round`` over a data-only mesh, the rank's
     edges' state gathered after the rounds;
   * ``model``: per arch, each edge's model split over the ``model`` axis
@@ -67,7 +71,8 @@ def classic_case(case, mesh):
             mesh=mesh, contract=True, **kw)
         return session, params, rep
 
-    _, _, rep = run()
+    first, _, rep = run()
+    cell = first._fastpath.cell
     session, donated, drep = run(donate=True)
     try:
         session.run_sync_ingraph(max_rounds=case["max_rounds"],
@@ -85,6 +90,8 @@ def classic_case(case, mesh):
         "collective_bytes": prof["collective_bytes"],
         "alias_bytes": prof["alias_bytes"],
         "device_loop": rep.telemetry["device_loop"],
+        "cell": (cell.sharded, cell.capturable),
+        "donated_loop": drep.telemetry["device_loop"],
         "donated_records": _records(drep),
         "donated_params": tree_to_numpy(drep.final_params),
         "donated_alias_bytes": drep.telemetry["profile"]["alias_bytes"],
@@ -93,6 +100,49 @@ def classic_case(case, mesh):
             drep.final_params[k].data_ptr() == donated[k].data_ptr()
             for k in donated),
         "reuse": reuse}
+
+
+def gather_case(mesh):
+    """The edge group's gathers against a gather of each leaf alone, the
+    old layout: ``gather_edge_stack`` of a tree of every dtype it packs
+    (f32, int64, bool), and ``all_gather_rows`` in both forms on one
+    buffer: gloo's list of views, and the tensor-to-tensor call it makes
+    on NCCL (the group's backend read as ``"nccl"``)."""
+    import torch.distributed as dist
+    from repro_torch.interop import tree_to_numpy
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.mesh import all_gather_rows, gather_edge_stack
+    group = mesh.edge_group()
+    world = dist.get_world_size(group)
+    # the edge coordinate's data: every edge group gathers the same stack
+    gen = torch.Generator().manual_seed(11 + mesh.coordinate["data"])
+    tree = {"w": torch.randn(2, 3, 4, generator=gen),
+            "b": torch.randn(2, 5, generator=gen),
+            "n": torch.randint(0, 9, (2, 3), generator=gen),
+            "m": torch.rand(2, 2, generator=gen) > 0.5}
+
+    def per_leaf(leaf):
+        parts = [torch.empty_like(leaf) for _ in range(world)]
+        dist.all_gather(parts, leaf, group=group)
+        return torch.cat(parts)
+    local = torch.randn(3, 7, generator=gen)
+    forms = {}
+    backend = mesh_mod.group_backend
+    for nccl in (False, True):
+        if nccl:
+            mesh_mod.group_backend = lambda g: "nccl"
+        try:
+            out = local.new_empty((world * 3, 7))
+            all_gather_rows(out, local, group)
+        finally:
+            mesh_mod.group_backend = backend
+        forms[nccl] = out.numpy()
+    return {"stack": tree_to_numpy(gather_edge_stack(tree, group)),
+            "per_leaf": {k: per_leaf(v.view(torch.uint8) if v.dtype ==
+                                     torch.bool else v).numpy()
+                         for k, v in tree.items()},
+            "list_form": forms[False], "tensor_form": forms[True],
+            "rows": per_leaf(local).numpy(), "ranks": world}
 
 
 def lm_round(case, world):
@@ -294,7 +344,12 @@ def main():
     out = {"rank": mesh.rank, "mesh": dict(mesh.shape),
            "coordinate": mesh.coordinate,
            "classic": {c["name"]: classic_case(c, mesh)
-                       for c in spec["classic"]}}
+                       for c in spec["classic"]},
+           "gather": gather_case(mesh)}
+    if spec.get("one_edge_mesh"):        # one edge a rank
+        one = make_mesh(*spec["one_edge_mesh"], device="cpu")
+        out["one_edge"] = {c["name"]: classic_case(c, one)
+                           for c in spec["classic"]}
     if spec.get("lm"):
         out["lm"] = lm_round(spec["lm"], world)
     if spec.get("model"):
