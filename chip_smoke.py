@@ -319,8 +319,18 @@ Phases, each printing JSON lines:
               world of 2 (``--rank cards_lm``) runs (b)'s round, one edge
               a rank, bit for bit the one-rank round (``python3
               chip_smoke.py --cards`` runs (e) alone, with its
-              references); each line beside the card's name and power
-              limit;
+              references), and (f) over its ranks; (f) the ring KV cache
+              over ranks: qwen3-1.7b at full width and depth, f32, window
+              8192 as a ring (``ring_cache``), batch 1, a prefill of 8,448
+              tokens (the ring wraps by 256; 28 ``flash_attention``
+              launches through its window branch) and 16 greedy decode
+              steps, whole in this process, then in (a)'s world after
+              phase 11 on each of the 2 gloo ranks with the filled ring
+              split over the (2, 1) mesh, 4096 slots a rank (the
+              sequence-split ring decode, partials combined in rank
+              order): each rank's logits within 1e-4 of the whole ring
+              decode's at every step, its tokens equal; each line beside
+              the card's name and power limit;
 11. ranks, part 2 -- in phase 10's gloo world, after its runs: (a) phase
               4c's full-width fixtures on its replayed draws through
               ``run_async_ingraph(mesh=, contract=True)`` at K = 1 and at
@@ -355,7 +365,8 @@ Phases, each printing JSON lines:
               6e's and 5f's prefix prefill (4, 768, 8, 1, 256) and 5f's
               engine prefill (4, 512, 8, 1, 256), 5g's (4, 512, 64, 8, 128),
               6f's (8, 512, 64, 8, 128) and 5h's (2, 12288, 16, 8, 128) at
-              window 8192 (its library time SDPA with a boolean band mask),
+              window 8192 (its library time SDPA with a boolean band mask)
+              and 10 (f)'s f32 (1, 8448, 16, 8, 128) at window 8192,
               and ``ssd_scan`` at phase 6c's (8, 512, 32, 64, 128, 128), 5g's
               (4, 512, 128, 128, 128, 128) (and f32) and 6f's (8, 512, 128,
               128, 128, 128), bf16, each a row of its own; phase 10's
@@ -5037,10 +5048,11 @@ def planner_phase(moe, deepseek, minicpm, jamba, hybrid) -> dict:
 
 
 # -- phase 9c: rank 0's share of the baseline steps on the production meshes --
-# Three planner rows of ``dryrun --mesh pod|multipod`` that fit one card:
-# rank 0's share of a train, a prefill and a decode step (the batch-1
-# long_500k decode, its K/V sequence split over the 16 edge ranks),
-# planned on meta and run on the card over a ``PlanMesh`` (every
+# Four planner rows of ``dryrun --mesh pod|multipod`` that fit one card:
+# rank 0's share of a train, a prefill and two decode steps (the batch-1
+# long_500k decode, its K/V sequence split over the 16 edge ranks: 32,768
+# positions a rank, or with ``--ring-cache`` the window's 8192 ring slots,
+# 512 a rank), planned on meta and run on the card over a ``PlanMesh`` (every
 # collective allocated as the ranks would allocate it, nothing exchanged:
 # a gather copies the rank's block into every block) by
 # ``dryrun.measure_model``, a warm-up then 3 clean steps (the train share,
@@ -5049,9 +5061,10 @@ def planner_phase(moe, deepseek, minicpm, jamba, hybrid) -> dict:
 # kernel of the row launched as often as its layers say, and each new
 # kernel shape held to its plain version (the flash shape one (batch row,
 # KV head) at a time, as phase 5h).
-MESH_ROWS = (("qwen3-1.7b", "train_4k", "multipod", 1),
-             ("mamba2-370m", "prefill_32k", "pod", 3),
-             ("qwen3-1.7b", "long_500k", "pod", 3))
+MESH_ROWS = (("qwen3-1.7b", "train_4k", "multipod", 1, False),
+             ("mamba2-370m", "prefill_32k", "pod", 3, False),
+             ("qwen3-1.7b", "long_500k", "pod", 3, False),
+             ("qwen3-1.7b", "long_500k", "pod", 3, True))
 FLASH_MESH_TRAIN = (8, 4096, 16, 8, 128, 0, "bfloat16")      # 8 rows a rank
 SSD_MESH_PREFILL = (2, 32768, 32, 64, 128, 128, "bfloat16")  # 2 rows a rank
 
@@ -5066,19 +5079,32 @@ def mesh_plan_phase() -> dict:
     t0 = time.perf_counter()
     card = card_line()
     rows, launches = [], {"flash_attention": 0, "ssd_scan": 0}
-    for arch, shape, mesh, repeats in MESH_ROWS:
-        row = dryrun.plan_combo(arch, shape, mesh=mesh)
+    for arch, shape, mesh, repeats, ring in MESH_ROWS:
+        where = f"{arch} {shape} {mesh}" + (" ring_cache" if ring else "")
+        row = dryrun.plan_combo(arch, shape, mesh=mesh, ring_cache=ring)
         check(row["fits"],
-              f"phase 9c {arch} {shape} {mesh}: the plan says it does not "
+              f"phase 9c {where}: the plan says it does not "
               f"fit ({row['memory']['peak_live_bytes']} bytes)")
         spec = INPUT_SHAPES[shape]
         got = dryrun.measure_model(
             adapt_model_for_shape(get_config(arch).model, spec), spec.kind,
-            spec.global_batch, spec.seq_len, "cuda",
+            spec.global_batch, spec.seq_len, "cuda", ring_cache=ring,
             mesh=PlanMesh.production(multi_pod=mesh == "multipod"),
             repeats=repeats)
         err = row["memory"]["peak_live_bytes"] / got["peak_bytes"] - 1.0
         n_layers = get_config(arch).model.n_layers
+        if ring:
+            from repro_torch.models import LM
+            from repro_torch.train.layout import CacheLayout
+            split = CacheLayout(LM(adapt_model_for_shape(
+                get_config(arch).model, spec), device="meta",
+                ring_cache=True), PlanMesh.production(), spec.global_batch,
+                spec.seq_len).kv_split
+            check(split is not None and split.n * row["edge_ranks"]
+                  == row["sliding_window"],
+                  f"phase 9c {where}: the ring is not split over the "
+                  f"{row['edge_ranks']} edge ranks")
+            ring_slots = split.n
         # a train step runs each layer's kernel in the forward and the
         # remat recompute; a prefill once; a decode none (plain attention
         # against the cache)
@@ -5086,6 +5112,8 @@ def mesh_plan_phase() -> dict:
                 "decode": 0}[INPUT_SHAPES[shape].kind] * got["repeats"]
         kernel = "ssd_scan" if arch == "mamba2-370m" else "flash_attention"
         out = {"arch": arch, "shape": shape, "mesh": row["mesh"],
+               "ring_cache": ring, "sliding_window": row["sliding_window"],
+               "slots_a_rank": ring_slots if ring else None,
                "n_chips": row["n_chips"], "edge_ranks": row["edge_ranks"],
                "model_ranks": row["model_ranks"], "step": row["step"],
                "argument_bytes": row["memory"]["argument_size_in_bytes"],
@@ -5099,14 +5127,14 @@ def mesh_plan_phase() -> dict:
                "card": card}
         emit("mesh_plan", **out)
         check(abs(err) <= PLAN_PEAK_TOL,
-              f"phase 9c {arch} {shape} {mesh}: predicted "
+              f"phase 9c {where}: predicted "
               f"{out['predicted_peak_bytes']} bytes, the card "
               f"{got['peak_bytes']} ({err:+.3f}, bound {PLAN_PEAK_TOL})")
         check(got["launches"][kernel] == want,
-              f"phase 9c {arch} {shape} {mesh}: {kernel} launched "
+              f"phase 9c {where}: {kernel} launched "
               f"{got['launches']}, not {want}")
         check(row["collectives"]["bytes_per_device"] > 0,
-              f"phase 9c {arch} {shape} {mesh}: no collective planned")
+              f"phase 9c {where}: no collective planned")
         for k in launches:
             launches[k] += got["launches"][k]
         rows.append(out)
@@ -5607,6 +5635,7 @@ def cards_rank(spec: dict, mesh) -> dict:
         "kmeans-traffic", samples=20000, n_edges=4, device="cuda"), mesh,
         contract=True)
     out["seconds"] = time.perf_counter() - t0
+    out["ring"] = ring_decode(mesh)                        # 10 (f)
     return out
 
 
@@ -5637,6 +5666,7 @@ def rank_main(mode: str, spec_path: str) -> None:
                                           model_mesh)
         out["model_axis"]["seconds"] = time.perf_counter() - t_axis
         out["part2"] = part2_rank(spec["part2"], mesh)     # phase 11
+        out["ring"] = ring_decode(mesh)                    # 10 (f)
     elif mode == "nccl":
         mesh = make_mesh((1, 1), ("data", "model"))     # CUDA + NCCL
         arch = "svm-wafer"
@@ -5702,6 +5732,145 @@ def lm_plans() -> dict:
             "model": dryrun.plan_combo(LM_ARCH, "train_4k",
                                        edges_per_rank=LM_EDGES,
                                        model_ranks=RANKS, **kw)}
+
+
+# -- phase 10 (f): the ring cache over ranks --------------------------------
+# qwen3-1.7b at full width and depth, f32 (TF32 off), the long-context
+# window (``LONG_CONTEXT_WINDOW``, 8192) kept as a ring (``ring_cache``),
+# batch 1: a prefill of RING_PROMPT tokens (the ring wraps by 256; every
+# layer's ``attention_fill_ring`` through the kernel's window branch, the
+# f32 instance at FLASH_RING), then RING_DECODE greedy steps.  Once whole
+# in this process (``attention_decode_ring``), then on each rank of 10's
+# gloo world over its (2, 1) mesh, the filled ring cut to the rank's 4096
+# slots (``make_decode_step(mesh=)``, ``CacheLayout.shard``;
+# ``attention_decode_split(ring=True)``: the owner of slot ``index mod
+# 8192`` writes it, every rank's partials are gathered and combined in rank
+# order); on several cards 10 (e)'s NCCL ranks run it too, 2048 slots a rank
+# of 4.  Each rank's logits within RING_TOL of the whole ring decode's at
+# every step, its greedy tokens equal.
+RING_ARCH = "qwen3-1.7b"
+RING_PROMPT, RING_DECODE, RING_SEED = 8448, 16, 43
+RING_TOL = 1e-4
+FLASH_RING = (1, RING_PROMPT, 16, 8, 128, 8192, "float32")
+
+
+def ring_decode(mesh=None) -> dict:
+    """The ring decode above, whole (``mesh=None``) or as this rank's share
+    of ``mesh``, every kernel count set to 0 just before the prefill and
+    read after the last step: each step's f32 logits (on the host), the
+    greedy tokens, the cache's layout and slots, seconds."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.launch.specs import LONG_CONTEXT_WINDOW
+    from repro_torch.models import LM
+    from repro_torch.train.state import make_decode_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(RING_ARCH).model, dtype="float32",
+                              sliding_window=LONG_CONTEXT_WINDOW)
+    model = LM(cfg, device="cuda", ring_cache=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(RING_SEED))
+    prompt = torch.from_numpy(np.random.default_rng(RING_SEED).integers(
+        0, cfg.vocab_size, (1, RING_PROMPT))).to("cuda")
+    max_len = RING_PROMPT + RING_DECODE
+    step = make_decode_step(model, mesh=mesh, batch=1, max_len=max_len)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prompt,
+                                      model.init_cache(1, max_len))
+        tok = logits[:, -1:].argmax(-1)
+        del logits
+        ring = int(cache["groups"]["sub0"]["k"].shape[2])
+        layout = "whole"
+        if mesh is not None:
+            params = step.layout.shard(params)
+            cache = step.cache_layout.shard(cache)
+            layout = ("sequence" if step.cache_layout.kv_split is not None
+                      else "replicated")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out_logits, tokens, step_ms = [], [], []
+        for _ in range(RING_DECODE):
+            t1 = time.perf_counter()
+            lg, cache = step(params, tok, cache)
+            tok = lg[:, -1:].argmax(-1)
+            tokens.append(int(tok))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            out_logits.append(lg[:, -1].float().cpu().numpy())
+    launches = counts()
+    out = {"logits": out_logits, "tokens": tokens, "layout": layout,
+           "ring": ring, "slots": int(cache["groups"]["sub0"]["k"].shape[2]),
+           "launches": launches, "prefill_s": prefill_s,
+           "decode_ms": step_ms,
+           "finite": all(bool(np.isfinite(x).all()) for x in out_logits),
+           "seconds": time.perf_counter() - t0}
+    del model, params, cache, step, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_checks(ranks: list, ref: dict, card: str, where: str) -> int:
+    """Each rank's ring decode (``res["ring"]``) against the whole one:
+    the ring split over the world's edge ranks (its slots a rank), logits
+    within RING_TOL at every step, tokens equal, the prefill's 28
+    ``flash_attention`` launches; the lines.  Returns the ranks'
+    launches."""
+    import numpy as np
+    n = len(ranks)
+    launches = 0
+    for r, res in enumerate(ranks):
+        got = res["ring"]
+        gap = max(float(np.abs(g - w).max()) for g, w in
+                  zip(got["logits"], ref["logits"]))
+        emit("ranks_ring_decode", where=where, rank=r, ranks=n, card=card,
+             backend=res["backend"], mesh=res["mesh"], arch=RING_ARCH,
+             dtype="float32", prompt=RING_PROMPT, steps=RING_DECODE,
+             ring=got["ring"], slots_a_rank=got["slots"],
+             layout=got["layout"], max_abs_logit_gap=gap, tol=RING_TOL,
+             tokens=got["tokens"], tokens_equal=got["tokens"]
+             == ref["tokens"], launches=got["launches"],
+             prefill_s=got["prefill_s"],
+             decode_ms_median=sorted(got["decode_ms"])[RING_DECODE // 2],
+             whole_decode_ms_median=sorted(ref["decode_ms"])[
+                 RING_DECODE // 2], seconds=got["seconds"])
+        check(got["layout"] == "sequence" and got["ring"] == ref["ring"]
+              and got["slots"] * n == ref["ring"],
+              f"{where} rank {r}: the ring is not split over {n} ranks: "
+              f"{got['layout']}, {got['slots']} of {got['ring']} slots")
+        check(got["finite"] and gap <= RING_TOL,
+              f"{where} rank {r}: logits {gap} from the whole ring decode's "
+              f"(bound {RING_TOL})")
+        check(got["tokens"] == ref["tokens"],
+              f"{where} rank {r}: tokens {got['tokens']} vs "
+              f"{ref['tokens']}")
+        check(got["launches"]["flash_attention"] == ref["launches"][
+            "flash_attention"] > 0, f"{where} rank {r}: flash_attention "
+              f"launched {got['launches']}, the whole run {ref['launches']}")
+        launches += got["launches"]["flash_attention"]
+    return launches
+
+
+def ring_reference() -> dict:
+    """Phase 10 (f)'s whole ring decode on the card, and the kernel at its
+    prefill's shape held to the plain version."""
+    ref = ring_decode()
+    emit("ring_decode_whole", arch=RING_ARCH, dtype="float32",
+         prompt=RING_PROMPT, steps=RING_DECODE, ring=ref["ring"],
+         tokens=ref["tokens"], launches=ref["launches"],
+         prefill_s=ref["prefill_s"], decode_ms=ref["decode_ms"],
+         card=card_line())
+    check(ref["finite"] and ref["layout"] == "whole"
+          and ref["ring"] < RING_PROMPT and ref["launches"][
+              "flash_attention"] > 0,
+          f"phase 10 (f): the whole ring decode: ring {ref['ring']}, "
+          f"launches {ref['launches']}, finite {ref['finite']}")
+    ref["kernel_err"] = flash_long_vs_plain(FLASH_RING)
+    return ref
 
 
 def sync_references() -> dict:
@@ -5780,7 +5949,9 @@ def cards_main() -> None:
     refs = {"async": async_references()}
     base = part2_references(refs)
     one = lm_rounds(LM_EDGE_BATCH, LM_SEQ)
-    out = cards_phase(ranks_spec(want, refs), want, refs, base, one, card)
+    ring_ref = ring_reference()
+    out = cards_phase(ranks_spec(want, refs), want, refs, base, one, card,
+                      ring_ref)
     print(card, flush=True)
     print(json.dumps({"ok": True, "cards": out["ranks"],
                       "seconds": out["seconds"]}), flush=True)
@@ -5802,6 +5973,7 @@ def ranks_phase(part2_refs: dict) -> dict:
     t_base = time.perf_counter()
     base = part2_references(part2_refs)
     base_s = time.perf_counter() - t_base
+    ring_ref = ring_reference()
     gc.collect()
     torch.cuda.empty_cache()
     spec = ranks_spec(want, part2_refs)
@@ -5886,6 +6058,11 @@ def ranks_phase(part2_refs: dict) -> dict:
         out["ssd_scan"] += lm["ssd_scan"]
     out["model_axis"] = model_axis_checks(ranks, one, plans["model"],
                                          edge_batch, card)
+    out["ring"] = {"kernel_err": ring_ref["kernel_err"],
+                   "seconds": ring_ref["seconds"] + max(
+                       res["ring"]["seconds"] for res in ranks),
+                   "flash_attention": ring_ref["launches"]["flash_attention"]
+                   + ring_checks(ranks, ring_ref, card, "phase 10 (f)")}
     got = nccl["classic"]["svm-wafer"]
     emit("ranks_nccl_world_of_one", card=card, backend=nccl["backend"],
          mesh=nccl["mesh"], collectives=got["collectives"],
@@ -5900,7 +6077,8 @@ def ranks_phase(part2_refs: dict) -> dict:
         out["nccl_capture"]["kmeans_assign_batched"]
     cards = torch.cuda.device_count()
     if cards >= 2:
-        out["cards"] = cards_phase(spec, want, part2_refs, base, one, card)
+        out["cards"] = cards_phase(spec, want, part2_refs, base, one, card,
+                                   ring_ref)
         unverified = {}
     else:
         emit("ranks_cards", card=card, cards=cards, skipped="an NCCL world "
@@ -5921,6 +6099,8 @@ def ranks_phase(part2_refs: dict) -> dict:
     emit("ranks", card=card, seconds=out["seconds"],
          phase_10_seconds=out["seconds"] - part2_s,
          model_axis_seconds=out["model_axis"]["seconds"],
+         ring_seconds=out["ring"]["seconds"],
+         flash_attention_ring=out["ring"]["flash_attention"],
          kmeans_assign_batched=out["kmeans_assign_batched"],
          ssd_scan=out["ssd_scan"],
          ssd_scan_model_axis=out["model_axis"]["ssd_scan"],
@@ -5976,10 +6156,11 @@ def nccl_capture_checks(nccl: dict, card: str) -> dict:
 
 
 def cards_phase(spec: dict, want: dict, refs: dict, base: dict, one: dict,
-                card: str) -> dict:
+                card: str, ring_ref: dict) -> dict:
     """10 (e): NCCL worlds of one rank a card (``min(4, cards)`` ranks,
     then 2 for the LM round), each rank's runs against the unsharded card
-    runs made in this script, the lines."""
+    runs made in this script (10 (f)'s ring decode against ``ring_ref``),
+    the lines."""
     import torch
     n = min(4, torch.cuda.device_count())
     t0 = time.perf_counter()
@@ -6057,6 +6238,8 @@ def cards_phase(spec: dict, want: dict, refs: dict, base: dict, one: dict,
             loop_ok(got, f"churn {mode} rank {r}")
             census_ok(got["collectives"], f"churn {mode} rank {r}")
             out["kmeans_assign_batched"] += got["kmeans_assign_batched"]
+    out["flash_attention"] = ring_checks(ranks, ring_ref, card,
+                                         "phase 10 (e) ring")
     for r, res in enumerate(lm_ranks):
         lm = res["lm"]
         emit("ranks_cards_el_round", arch=LM_ARCH, rank=r, card=card,
@@ -6072,7 +6255,8 @@ def cards_phase(spec: dict, want: dict, refs: dict, base: dict, one: dict,
          world_seconds=world_s,
          rank_seconds=[res["seconds"] for res in ranks],
          kmeans_assign_batched=out["kmeans_assign_batched"],
-         ssd_scan=out["ssd_scan"], chunks="captured")
+         ssd_scan=out["ssd_scan"], flash_attention=out["flash_attention"],
+         chunks="captured")
     return out
 
 
@@ -6813,6 +6997,7 @@ def main() -> None:
                          "fleet": fleet["kmeans_async"],
                          "fleet_waves_s": fleet["kmeans_async_waves_s"]})
     launches["kmeans_assign"] += ranks["part2"]["kmeans_assign"]
+    fa_errs[FLASH_RING] = ranks["ring"]["kernel_err"]
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
@@ -6895,6 +7080,9 @@ def main() -> None:
     fa_mesh = flash_timing(*FLASH_MESH_TRAIN)
     emit("flash_timing", case="phase 9c: rank 0's share of qwen3-1.7b "
          "train_4k on the 2x16x16 mesh", **fa_mesh)
+    fa_ring = flash_timing(*FLASH_RING)
+    emit("flash_timing", case="phase 10 (f): qwen3-1.7b's f32 ring-cache "
+         f"prefill, window {FLASH_RING[5]}", **fa_ring)
     ssd_mesh = ssd_timing(*SSD_MESH_PREFILL)
     emit("ssd_timing", case="phase 9c: rank 0's share of mamba2-370m "
          "prefill_32k on the 16x16 mesh", **ssd_mesh)
@@ -7080,7 +7268,16 @@ def main() -> None:
              "2x16x16 mesh (its 8 rows, each layer's weights gathered over "
              "a PlanMesh), a clean step's forward and remat recompute",
              mesh_planned["flash_attention"], FLASH_MESH_TRAIN,
-             fa_mesh))] + [{
+             fa_mesh),
+            ("flash_attention_ring_prefill",
+             "phase 10 (f): qwen3-1.7b at f32 with a ring cache of 8192 "
+             "slots, the prefill of 8,448 tokens (attention_fill_ring: the "
+             "f32 instance's window branch), whole and on each of 2 gloo "
+             "ranks (on several cards also 10 (e)'s NCCL ranks) before "
+             "the filled ring is split over the ranks for the decode",
+             ranks["ring"]["flash_attention"]
+             + ranks.get("cards", {}).get("flash_attention", 0), FLASH_RING,
+             fa_ring))] + [{
         "name": "ssd_scan_mamba_train", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:32",

@@ -235,14 +235,16 @@ def fresh_findings(args) -> List[Gated]:
 
 
 def smoke_findings(args) -> List[Gated]:
-    """``--smoke``: a small fresh ``bench_el`` run on ``--device``,
-    contract-checked and ratio-compared against the committed baseline.
+    """``--smoke``: a small fresh ``bench_el`` run on ``--device``, its
+    sharded tiers over ``--devices`` ranks, contract-checked and
+    ratio-compared against the committed baseline.
     A failed smoke bench raises ``RuntimeError`` (exit code 2)."""
     _require(args.el)
     cmd = [sys.executable, "-m", "repro_torch.bench.bench_el",
            "--edges", "4", "--samples", "512", "--batch", "64",
            "--budget", "300", "--max-rounds", "16", "--max-events", "64",
-           "--repeats", "2", "--skip-host", "--no-history"]
+           "--repeats", "2", "--skip-host", "--no-history",
+           "--devices", str(args.devices)]
     if args.device is not None:
         cmd += ["--device", args.device]
     env = dict(os.environ)
@@ -293,6 +295,9 @@ def parser() -> argparse.ArgumentParser:
                          "tier ratios + contracts (the CI step)")
     ap.add_argument("--device", default=None,
                     help="torch device of the --smoke run (default: cuda)")
+    ap.add_argument("--devices", type=int, default=4,
+                    help="ranks of the --smoke run's sharded tiers "
+                         "(bench_el --devices)")
     ap.add_argument("--slack", type=float, default=1.5,
                     help="allowed relative worsening of within-run "
                          "ratios in --smoke (1.5 = 150%%)")

@@ -25,21 +25,22 @@ tier the port runs:
                             ``--churn-rate`` dropout schedule; against the
                             bare ``ingraph`` row this bounds the scenario
                             engine's overhead (acceptance: <10%);
-  * ``sharded``           — the program over the reference's 2 x 2
-                            (data, model) debug mesh (``mesh=``: the edge
-                            dim split over ``data``, the edge stack
+  * ``sharded``           — the program over the reference's debug mesh
+                            of ``--devices`` ranks, ``(devices//2, 2)``
+                            (data, model), 2 x 2 by default (``mesh=``:
+                            the edge dim split over ``data``, the edge stack
                             all-gathered before each aggregation, chunks
                             run eagerly; the async tier at the wave width
                             the mesh resolves, ``meta["async_batch_k"]
                             ["sharded_auto"]``);
   * ``sharded_donate``    — the sharded program run ``donate=True``.
 
-The sharded tiers run in 4 ranks that ``repro_torch.launch.hostdev.
-spawn_ranks`` starts once for all four (``python -m repro_torch.bench.
-bench_el --rank-spec FILE``): gloo ranks, with CUDA tensors on the one
-card they share (or CPU tensors on the CPU), each timing the same calls;
-rank 0's rows are kept.  ``meta`` records the mesh, the ranks, their
-backend and the card.
+The sharded tiers run in ``--devices`` ranks (default 4, the reference's)
+that ``repro_torch.launch.hostdev.spawn_ranks`` starts once for all four
+tiers (``python -m repro_torch.bench.bench_el --rank-spec FILE``): gloo
+ranks, with CUDA tensors on the one card they share (or CPU tensors on
+the CPU), each timing the same calls; rank 0's rows are kept.  ``meta``
+records the devices, the mesh, the ranks, their backend and the card.
 
 Every compiled row carries the tier's ``repro_torch.obs.prof``
 ``ProgramProfile`` under the reference's keys (``profile_jit``: static
@@ -95,8 +96,9 @@ from repro_torch.obs.prof import profile_jit
 from repro_torch.obs.regress import append_history
 from repro_torch.obs.timing import repeat_s, summarize_ns, time_block
 
-#: the sharded tiers' world: the reference's ``make_debug_mesh_for(4)``,
-#: a 2 x 2 (data, model) mesh of gloo ranks
+#: the sharded tiers' world: ``--devices`` gloo ranks on the reference's
+#: ``make_debug_mesh_for(devices)``, by default 4 (a 2 x 2 (data, model)
+#: mesh)
 SHARDED_RANKS = 4
 SHARDED_BACKEND = "gloo"
 #: (row suffix, donate) of the tiers the ranks run, for each mode
@@ -288,8 +290,8 @@ def bench(args, init_params=None,
         "edges": args.edges, "samples": args.samples,
         "batch": args.batch, "budget": args.budget,
         "max_rounds": args.max_rounds, "max_events": args.max_events,
-        "devices": SHARDED_RANKS, "mesh": sharded["mesh"],
-        "ranks": {"count": SHARDED_RANKS, "backend": SHARDED_BACKEND,
+        "devices": args.devices, "mesh": sharded["mesh"],
+        "ranks": {"count": args.devices, "backend": SHARDED_BACKEND,
                   "device": device.type,
                   "cards": 1 if device.type == "cuda" else 0,
                   "rows": sorted(sharded["rows"])},
@@ -309,8 +311,9 @@ def bench(args, init_params=None,
                  "static buffer bytes, the allocator's chunk peak (CUDA "
                  "only), the matmul flops of one step, the collective "
                  "census (empty on one device); the *_sharded* rows are "
-                 f"rank 0's of {SHARDED_RANKS} {SHARDED_BACKEND} ranks on "
-                 "a 2 x 2 (data, model) mesh"
+                 f"rank 0's of {args.devices} {SHARDED_BACKEND} ranks on "
+                 "a {} x {} (data, model) mesh".format(
+                     *sharded["mesh"].values())
                  + (" sharing the one card: their gathers go through host "
                     "memory and their chunks run eagerly"
                     if device.type == "cuda" else "")),
@@ -326,7 +329,7 @@ def _print_row(name: str, row: Dict[str, Any]) -> None:
 
 def sharded_rows(args, device: torch.device, init_params=None,
                  draws: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """The four sharded tiers, from one world of ``SHARDED_RANKS`` ranks
+    """The four sharded tiers, from one world of ``args.devices`` ranks
     (:func:`rank_main`): ``{"rows", "mesh", "sharded_auto"}``, rank 0's.
     ``draws``: per mode a provider every call of that mode's tiers
     replays (default: the session's generator, as in-process)."""
@@ -340,7 +343,7 @@ def sharded_rows(args, device: torch.device, init_params=None,
             os.path.abspath(__file__))))
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [src, os.environ.get("PYTHONPATH", "")]))
-        procs = spawn_ranks(SHARDED_RANKS, [
+        procs = spawn_ranks(args.devices, [
             sys.executable, "-m", "repro_torch.bench.bench_el",
             "--rank-spec", path], env=env, capture=True, timeout=1800)
         for r, p in enumerate(procs):
@@ -353,15 +356,15 @@ def sharded_rows(args, device: torch.device, init_params=None,
 
 def rank_main(spec_path: str) -> None:
     """One rank of :func:`sharded_rows`' world: every sharded tier of both
-    modes over the 2 x 2 debug mesh; rank 0 writes its rows beside the
-    spec."""
+    modes over the debug mesh of ``--devices`` ranks; rank 0 writes its
+    rows beside the spec."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_debug_mesh_for
     with open(spec_path, "rb") as f:
         spec = pickle.load(f)
     args = argparse.Namespace(**spec["args"])
     device = resolve_device(spec["device"])
-    mesh = make_debug_mesh_for(SHARDED_RANKS, device=device,
+    mesh = make_debug_mesh_for(args.devices, device=device,
                                backend=SHARDED_BACKEND)
     model, ex, ol, ns = _fixture(args, device)
     draws = spec["draws"]
@@ -390,6 +393,9 @@ def parser() -> argparse.ArgumentParser:
                     "BENCH_torch_el.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--devices", type=int, default=SHARDED_RANKS,
+                    help="ranks of the sharded tiers' world (the debug "
+                         "mesh is (devices//2, 2))")
     ap.add_argument("--edges", type=int, default=8)
     ap.add_argument("--samples", type=int, default=4000)
     ap.add_argument("--batch", type=int, default=128)

@@ -219,6 +219,10 @@ def parser() -> argparse.ArgumentParser:
                     "BENCH_torch_fleet.json")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--devices", type=int, default=4,
+                    help="the reference's flag: its forced host-device "
+                         "count, which no row of this bench reads (every "
+                         "row runs on one device)")
     ap.add_argument("--tenants", default="16,64,256",
                     help="comma-separated tenant counts to benchmark")
     ap.add_argument("--slots", type=int, default=8,

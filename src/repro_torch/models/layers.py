@@ -345,35 +345,59 @@ def combine_split_attention(parts: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, d)
 
 
+def block_write_slot(cache_index: torch.Tensor, lo: int, n: int, total: int,
+                     ring: bool = False):
+    """Where the new token's K/V goes in a cache of ``total`` slots held
+    in blocks of ``n``: the global slot (a ring's ``index mod total``,
+    else ``index`` clamped to the last slot, as the unsplit writes do),
+    whether the block at ``lo`` owns it, and the block's local slot
+    (``[1]``, clamped into the block)."""
+    at = (cache_index.remainder(total) if ring
+          else cache_index.clamp(0, total - 1))
+    rel = at - lo
+    return at, (rel >= 0) & (rel < n), rel.clamp(0, n - 1).reshape(1).long()
+
+
 def attention_decode_split(params: Params, cfg: ModelConfig,
                            x: torch.Tensor, cache_k: torch.Tensor,
                            cache_v: torch.Tensor, cache_index: torch.Tensor,
-                           split) -> Tuple[torch.Tensor, torch.Tensor,
-                                           torch.Tensor]:
+                           split, ring: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
     """:func:`attention_decode` against a K/V cache whose sequence is split
     over a group of ranks (``split``: ``repro_torch.train.layout.KVSplit``,
-    this rank's positions ``lo .. lo + n - 1``; ``cache_k`` / ``cache_v``
-    its block ``[B, n, KV, D]``).  Every rank forms the new token's q, k,
-    v; only the rank that owns slot ``cache_index`` (clamped to the last
+    this rank's slots ``lo .. lo + n - 1``; ``cache_k`` / ``cache_v`` its
+    block ``[B, n, KV, D]``).  Every rank forms the new token's q, k, v;
+    only the rank that owns slot ``cache_index`` (clamped to the last
     slot, as the unsplit write is) writes its K/V; each rank's f32 (max,
     sum, Σ p·V) over its block (:func:`attend_partial`, the causal and
     window mask at its positions) is all-gathered over the group and
-    combined in rank order (:func:`combine_split_attention`)."""
+    combined in rank order (:func:`combine_split_attention`).
+
+    ``ring``: the ranks' blocks are one ring of ``W = n · R`` slots
+    (:func:`attention_decode_ring`'s): the new token goes to global slot
+    ``cache_index mod W``, and global slot j holds position ``index -
+    ((index - j) mod W)``, masked as that function masks it."""
     from repro_torch.launch.mesh import gather_edge_stack, group_size
     n = cache_k.shape[1]
     s_max = n * group_size(split.group)
     win = cfg.sliding_window
     q, k_new, v_new = _decode_qkv(params, cfg, x, cache_index)
-    rel = cache_index.clamp(0, s_max - 1) - split.lo
-    owner = (rel >= 0) & (rel < n)
-    slot = rel.clamp(0, n - 1).reshape(1).long()
+    at, owner, slot = block_write_slot(cache_index, split.lo, n, s_max, ring)
     for cache, new in ((cache_k, k_new), (cache_v, v_new)):
         cache.index_copy_(1, slot, torch.where(
             owner, new.to(cache.dtype), cache.index_select(1, slot)))
-    k_pos = split.lo + torch.arange(n, device=x.device)
-    valid = k_pos <= cache_index
+    j = split.lo + torch.arange(n, device=x.device)
+    if ring:
+        k_pos = cache_index - (cache_index - j).remainder(s_max)
+        valid = k_pos >= 0
+    else:
+        k_pos = j
+        valid = k_pos <= cache_index
     if win > 0:
         valid &= k_pos > (cache_index - win)
+    if ring:
+        valid |= j == at                # the fresh token is always live
     part = attend_partial(q, cache_k, cache_v, valid,
                           cfg.resolved_head_dim ** -0.5)
     parts = gather_edge_stack(part.reshape(1, -1), split.group)

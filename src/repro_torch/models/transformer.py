@@ -226,19 +226,14 @@ def apply_block_decode(p: Params, cfg: ModelConfig, kind: str, ffn: str,
     ring cache ignores ``window_slice``, as in the reference.
     ``kv_split``: the K/V block's share of a sequence split over ranks
     (``repro_torch.train.layout.KVSplit``; split-KV attention, which reads
-    every valid key of its block, so ``window_slice`` changes nothing)."""
+    every valid key of its block, so ``window_slice`` changes nothing; a
+    ring cache's slots split the same way)."""
     h = L.rms_norm(p["mix"]["norm"], x, cfg.norm_eps)
     if kind == ATTN:
         if kv_split is not None:
-            if ring:
-                raise NotImplementedError(
-                    "the ring cache over a sequence-split K/V cache: "
-                    "attention_decode_ring's slots wrap across the ranks' "
-                    "blocks; serve batch-1 long context without "
-                    "ring_cache")
             y, ck, cv = L.attention_decode_split(p["mix"], cfg, h,
                                                  cache["k"], cache["v"],
-                                                 index, kv_split)
+                                                 index, kv_split, ring)
         elif ring:
             y, ck, cv = L.attention_decode_ring(p["mix"], cfg, h, cache["k"],
                                                 cache["v"], index)

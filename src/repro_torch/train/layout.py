@@ -45,6 +45,7 @@ from repro_torch.interop import tree_leaves, tree_map
 from repro_torch.launch.mesh import (all_reduce_ordered, gather_model_dim,
                                      group_rank, group_size,
                                      reduce_scatter_dim)
+from repro_torch.models.layers import block_write_slot
 from repro_torch.sharding import cache_specs, map_specs, param_specs
 
 Params = Any
@@ -291,7 +292,7 @@ def local_rows(batch: Any, mesh) -> Any:
 
 class KVSplit:
     """A decode's K/V sequence split over the edge group: this rank holds
-    positions ``lo .. lo + n - 1``."""
+    slots ``lo .. lo + n - 1`` (positions, or a ring cache's slots)."""
 
     def __init__(self, lo: int, n: int, group):
         self.lo, self.n, self.group = lo, n, group
@@ -356,13 +357,13 @@ class CacheLayout(Blocks):
         return groups[key[1]]
 
     def _slot(self, index: torch.Tensor, length: int) -> torch.Tensor:
-        """The slot the new token's K/V went to in a layer's block."""
-        if self.ring:
-            return index.remainder(length).reshape(1).long()
-        if self.kv_split is not None:
-            s_max = self.kv_split.n * self.edge_world
-            index = index.clamp(0, s_max - 1) - self.kv_split.lo
-        return index.clamp(0, length - 1).reshape(1).long()
+        """The slot the new token's K/V went to in a layer's block (on a
+        rank that does not own it, a slot of its block it rewrote
+        unchanged)."""
+        split = self.kv_split
+        lo, blocks = (0, 1) if split is None else (split.lo, self.edge_world)
+        return block_write_slot(index, lo, length, length * blocks,
+                                self.ring)[2]
 
     def run(self, block_fn, p, kind: str, ffn: str, x: torch.Tensor,
             c: Any, index: torch.Tensor, key: tuple):

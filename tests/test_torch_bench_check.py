@@ -122,7 +122,7 @@ def test_defaults_are_the_ports_files():
                        (args.ledger, "BENCH_torch_ledger.json"),
                        (args.history, "BENCH_torch_history.jsonl")):
         assert os.path.abspath(path) == os.path.join(ROOT, name)
-    assert args.device is None and not hasattr(args, "devices")
+    assert args.device is None and args.devices == 4
 
 
 def test_committed_baselines_hold_contracts_and_ledger():
@@ -202,6 +202,31 @@ def test_fixed_ledger_entry_exits_3(tmp_path):
     assert "bench_check: FAILING-BETTER" in r.stdout
 
 
+def test_smoke_passes_devices_on_to_bench_el(monkeypatch, capsys):
+    """``--smoke --devices N`` hands ``--devices N`` to its ``bench_el``
+    run (the reference's ``scripts/bench_check.py:231``; default 4, as
+    there); a failed run exits 2."""
+    import re
+    import types
+    with open(os.path.join(ROOT, "scripts", "bench_check.py")) as f:
+        ref = re.search(r'"--devices", type=int, default=(\d+)', f.read())
+    assert int(ref.group(1)) == bench_check.parser().parse_args(
+        []).devices == 4
+    commands = []
+
+    def failed_run(cmd, env):
+        commands.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1)
+    monkeypatch.setattr(bench_check, "subprocess",
+                        types.SimpleNamespace(run=failed_run))
+    assert bench_check.main(["--smoke", "--devices", "2", "--device",
+                             "cpu"]) == 2
+    (cmd,) = commands
+    assert cmd[1:3] == ["-m", "repro_torch.bench.bench_el"]
+    assert cmd[cmd.index("--devices") + 1] == "2"
+    assert "smoke bench failed" in capsys.readouterr().err
+
+
 def test_missing_artifact_exits_2(tmp_path):
     r = _gate("--el", str(tmp_path / "nothere.json"))
     assert r.returncode == 2
@@ -270,6 +295,7 @@ def test_smoke_on_the_cpu_against_a_cpu_baseline_exits_0(tmp_path,
     assert "bench_check: OK (9 checks, 0 regressions" in out
     assert len(commands) == 1 and "--skip-host" in commands[0]
     assert commands[0][commands[0].index("--device") + 1] == "cpu"
+    assert commands[0][commands[0].index("--devices") + 1] == "4"
     assert [e["kind"] for e in regress.load_history(str(hist))] == \
         ["el-smoke"]
 

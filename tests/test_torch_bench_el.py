@@ -301,7 +301,7 @@ def test_mains_write_the_ports_files(tmp_path, monkeypatch):
         "BENCH_torch_el.json", "BENCH_torch_history.jsonl", None)
     assert (fleet_args.out, fleet_args.history) == (
         "BENCH_torch_fleet.json", "BENCH_torch_history.jsonl")
-    assert not hasattr(el_args, "devices")
+    assert el_args.devices == fleet_args.devices == 4
     monkeypatch.chdir(tmp_path)
     bench_fleet.main(FLEET[:-1] + ["--skip-host"])
     hist = [json.loads(line)
@@ -310,3 +310,57 @@ def test_mains_write_the_ports_files(tmp_path, monkeypatch):
     assert sorted(json.load(open(tmp_path / "BENCH_torch_fleet.json"))
                   ["rows"]) == ["fleet_4", "sequential_ingraph_4"]
     assert not (tmp_path / "BENCH_fleet.json").exists()
+
+
+def _reference_default(script, flag="--devices"):
+    """``flag``'s default in one of the reference's ``scripts/`` (read from
+    its source: importing it would force host devices)."""
+    import re
+    with open(os.path.join(ROOT, "scripts", script)) as f:
+        found = re.search(r'"%s", type=int, default=(\d+)' % flag, f.read())
+    return int(found.group(1))
+
+
+def test_devices_sizes_the_sharded_world(monkeypatch):
+    """``--devices``, the reference's flag with its default (4): the
+    sharded tiers' world has that many gloo ranks on ``make_debug_mesh_for
+    (devices)``, ``(devices // 2, 2)``; at 2 a (1, 2) (data, model) mesh,
+    and ``meta`` records 2 devices and 2 ranks.  One real world of 2 ranks
+    builds the mesh; the tiers, in the ranks and here, are stubbed (the
+    full run at 4 ranks is ``el_run``'s)."""
+    for script in ("bench_el.py", "bench_fleet.py"):
+        assert _reference_default(script) == 4
+    assert bench_el.parser().parse_args([]).devices == 4
+    assert bench_fleet.parser().parse_args(["--devices", "2"]).devices == 2
+    args = bench_el.parser().parse_args(SMOKE + ["--devices", "2"])
+    stub = ("def bench_compiled(*a, mesh=None, **kw):\n"
+            "    return {'n_aggregations': 1, 'us_per_aggregation': 1.0,\n"
+            "            'wall_us': 1.0, 'peak_live_bytes': None,\n"
+            "            'mesh': None if mesh is None else dict(mesh.shape)}\n")
+    namespace = {}
+    exec(stub, namespace)
+    monkeypatch.setattr(bench_el, "bench_compiled",
+                        namespace["bench_compiled"])
+    monkeypatch.setattr(bench_el, "bench_host",
+                        lambda *a, **kw: namespace["bench_compiled"]())
+    worlds = []
+    real_spawn = bench_el.spawn_ranks
+    rank = ("import sys\nfrom repro_torch.bench import bench_el\n" + stub
+            + "bench_el.bench_compiled = bench_compiled\n"
+            "bench_el.main(sys.argv[1:])\n")
+
+    def spawn(n, cmd, **kw):
+        assert cmd[1:3] == ["-m", "repro_torch.bench.bench_el"]
+        worlds.append(n)
+        return real_spawn(n, [cmd[0], "-c", rank, *cmd[3:]], **kw)
+    monkeypatch.setattr(bench_el, "spawn_ranks", spawn)
+    report = bench_el.bench(args)
+    meta = report["meta"]
+    assert worlds == [2]
+    assert meta["devices"] == meta["ranks"]["count"] == 2
+    assert meta["mesh"] == {"data": 1, "model": 2}
+    assert "2 gloo ranks on a 1 x 2 (data, model) mesh" in meta["note"]
+    sharded = sorted(n for n in REF_ROWS if "sharded" in n)
+    assert meta["ranks"]["rows"] == sharded
+    for name in sharded:
+        assert report["rows"][name]["mesh"] == {"data": 1, "model": 2}

@@ -65,8 +65,8 @@ torch = pytest.importorskip("torch")
 
 from test_torch_ingraph import jax_round_draws  # noqa: E402
 from test_torch_sharding import _assert_same_specs  # noqa: E402
-from torch_mesh_worker import (model_axis, step_decode,  # noqa: E402
-                               step_prefill, step_train)
+from torch_mesh_worker import (decode_key, model_axis,  # noqa: E402
+                               step_decode, step_prefill, step_train)
 
 from repro import config as ref_config  # noqa: E402
 from repro.el import ELSession as JaxSession  # noqa: E402
@@ -104,10 +104,13 @@ STEP_MESHES = {2: [((2, 1), ("data", "model")), ((1, 2), ("data", "model"))],
                    ((2, 1, 2), ("pod", "data", "model"))]}
 STEP_ARCHS = ("qwen3-1.7b", "olmoe-1b-7b", "mamba2-370m")
 STEP_BATCH, STEP_SEQ, STEP_TOL, AUX_TOL = 4, 16, 1e-5, 1e-6
-#: decodes: (batch, window); prefill 6 positions, then 15 steps in a
-#: 32-slot cache (two ranks' blocks of 16: a window of 3 sits inside one
-#: block at most positions, one of 9 spans both)
-DECODES = ((4, 0), (1, 0), (1, 3), (1, 9))
+#: decodes: (batch, window, ring); prefill 6 positions, then 15 steps in
+#: a 32-slot cache (two ranks' blocks of 16: a window of 3 sits inside one
+#: block at most positions, one of 9 spans both); a ring cache of 8 slots
+#: (two ranks' blocks of 4; 21 positions wrap it twice) and one of 9 (it
+#: does not divide over 2 edge ranks: replicated, as the reference's spec)
+DECODES = ((4, 0, False), (1, 0, False), (1, 3, False), (1, 9, False),
+           (1, 8, True), (1, 9, True))
 PREFILL_LEN, MAX_LEN, DECODE_STEPS = 6, 32, 15
 #: the dropping MoE: 8 x 320 tokens, top 2 of 4 experts, capacity factor
 #: 1; its grouped dispatch in 4 groups (2 a rank on the 2 edge ranks)
@@ -332,8 +335,9 @@ def step_refs(step_cases):
             losses.append(float(met["loss"]))
         ref_decode = {}
         n0, toks = case["prefill_len"], jnp.asarray(case["prompt"])
-        for b, w in case["decodes"]:
-            wm = ref_build(dataclasses.replace(rcfg, sliding_window=w))
+        for b, w, ring in case["decodes"]:
+            wm = ref_build(dataclasses.replace(rcfg, sliding_window=w),
+                           ring_cache=ring)
             dec = jax.jit(wm.decode_step)
             _, cache = wm.prefill(rp, toks[:b, :n0],
                                   wm.init_cache(b, case["max_len"]))
@@ -341,7 +345,7 @@ def step_refs(step_cases):
             for i in range(case["decode"]):
                 lg, cache = dec(rp, toks[:b, n0 + i:n0 + i + 1], cache)
                 logits.append(np.asarray(lg))
-            ref_decode[f"{b}/{w}"] = logits
+            ref_decode[decode_key(b, w, ring)] = logits
         out[arch] = {
             "train": {opt: step_train(case, None, opt)
                       for opt in case["train_cfgs"]},
@@ -352,8 +356,8 @@ def step_refs(step_cases):
                     rp, {"tokens": jnp.asarray(case["tokens"][0])})),
                 "decode": ref_decode},
             "prefill": step_prefill(case, None),
-            "decode": {f"{b}/{w}": step_decode(case, None, b, w)
-                       for b, w in case["decodes"]}}
+            "decode": {decode_key(*d): step_decode(case, None, *d)
+                       for d in case["decodes"]}}
     return out
 
 
@@ -737,7 +741,9 @@ def test_mesh_prefill_and_decode_rows_are_the_unsharded_rows(
     after a prefill, within 1e-5 of the unsharded port's rows and of the
     reference's on the same inputs: the batch of 4 over the edge ranks,
     batch 1 with the K/V sequence split over them (windows 3 and 9: inside
-    one rank's block, across both)."""
+    one rank's block, across both), and batch 1 with a ring cache (the
+    reference's ``ring_cache=True``): 8 slots split over the edge ranks,
+    wrapped twice; 9 slots, which do not split, replicated."""
     ref = step_refs[arch]
     for res in worlds[world]:
         coord = res["steps"][shape]["coordinate"]
@@ -748,12 +754,20 @@ def test_mesh_prefill_and_decode_rows_are_the_unsharded_rows(
         _close(got["prefill"], ref["prefill"][rows])
         _close(got["prefill"], ref["reference"]["prefill"][rows])
         for key, want in ref["decode"].items():
-            batch = int(key.split("/")[0])
+            batch, window = map(int, key.split("/")[:2])
+            slots = (min(MAX_LEN, window) if key.endswith("/ring")
+                     else MAX_LEN)
             dec = got["decode"][key]
             layout = ("replicated" if n_edge == 1 else "batch"
                       if batch % n_edge == 0 else "replicated"
-                      if arch == "mamba2-370m" else "sequence")
+                      if arch == "mamba2-370m" or slots % n_edge
+                      else "sequence")
             assert dec["layout"] == layout, key
+            # each K/V leaf holds the rank's block of the cache's slots
+            # (a ring: the window's), the whole cache unless split
+            share = n_edge if layout == "sequence" else 1
+            assert arch == "mamba2-370m" or dec["slots"] and all(
+                n * share == slots for n in dec["slots"]), key
             r = (slice(edge * batch // n_edge, (edge + 1) * batch // n_edge)
                  if layout == "batch" else slice(None))
             assert len(dec["logits"]) == DECODE_STEPS
@@ -869,6 +883,49 @@ def test_split_attention_partials_combine_to_the_whole():
                                rtol=0, atol=1e-6)
     np.testing.assert_array_equal(L.combine_split_attention(parts),
                                   L.combine_split_attention(parts[1:]))
+
+
+@pytest.mark.parametrize("window", [8, 5])
+@pytest.mark.parametrize("index", [5, 8, 19])
+def test_split_ring_partials_combine_to_the_whole_ring(monkeypatch, index,
+                                                       window):
+    """``attention_decode_split(ring=True)`` on each of two ranks' blocks of
+    an 8-slot ring, their partials combined in rank order, is
+    ``attention_decode_ring`` on the whole ring within 1e-6 (before the
+    ring fills, at its first wrap and past it; with the window the ring's
+    length, as ``LM(ring_cache=True)`` sizes it, and shorter, so that the
+    mask reads every slot's position); only the owner of slot ``index mod
+    8`` writes, and the blocks are the whole ring's written one.  The
+    ranks' gather is replayed in one process: a first pass records each
+    rank's partial, a second hands every rank the stack."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import layers as L
+    from repro_torch.train.layout import KVSplit
+    cfg = dataclasses.replace(get_smoke_config("qwen3-1.7b").model,
+                              dtype="float32", sliding_window=window)
+    g = torch.Generator().manual_seed(1)
+    p = L.init_attention(g, cfg)
+    shape = (1, 8, cfg.n_kv_heads, cfg.resolved_head_dim)
+    k, v = torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+    x = torch.randn(1, 1, cfg.d_model, generator=g)
+    at = torch.tensor(index, dtype=torch.int32)
+    want, wk, wv = L.attention_decode_ring(p, cfg, x, k.clone(), v.clone(),
+                                           at)
+    monkeypatch.setattr(mesh_mod, "group_size", lambda group: 2)
+    seen = []
+
+    def run(gather):
+        monkeypatch.setattr(mesh_mod, "gather_edge_stack", gather)
+        return [L.attention_decode_split(
+            p, cfg, x, k[:, 4 * r:4 * r + 4].clone(),
+            v[:, 4 * r:4 * r + 4].clone(), at, KVSplit(4 * r, 4, None),
+            ring=True) for r in (0, 1)]
+    run(lambda part, group: seen.append(part) or part)
+    outs = run(lambda part, group: torch.cat(seen))
+    for y, _, _ in outs:
+        np.testing.assert_allclose(y, want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(torch.cat([o[1] for o in outs], 1), wk)
+    np.testing.assert_array_equal(torch.cat([o[2] for o in outs], 1), wv)
 
 
 # -- the mesh and the spawner -------------------------------------------------------

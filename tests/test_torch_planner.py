@@ -415,17 +415,19 @@ def _spec_bytes(tree, specs, sizes):
                             sizes) for t, s in zip(leaves, flat))
 
 
-MESH_ROWS = [(m, a, s) for m in ("pod", "multipod")
+MESH_ROWS = [(m, a, s, False) for m in ("pod", "multipod")
              for a, s in (("qwen3-1.7b", "train_4k"),
                           ("olmoe-1b-7b", "train_4k"),
                           ("qwen3-1.7b", "prefill_32k"),
                           ("mamba2-370m", "decode_32k"),
                           ("qwen3-1.7b", "decode_32k"),
-                          ("qwen3-1.7b", "long_500k"))]
+                          ("qwen3-1.7b", "long_500k"))] + [
+    (m, a, "long_500k", True) for m in ("pod", "multipod")
+    for a in ("qwen3-1.7b", "olmoe-1b-7b")]
 
 
-@pytest.mark.parametrize("mesh,arch,shape_name", MESH_ROWS)
-def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name):
+@pytest.mark.parametrize("mesh,arch,shape_name,ring", MESH_ROWS)
+def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name, ring):
     """Rank 0's share on the (16, 16) and (2, 16, 16) meshes: its
     argument bytes are, exactly, the blocks ``repro.sharding``'s
     ``param_specs`` (``fsdp=True`` for training, with AdamW's moments
@@ -434,11 +436,14 @@ def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name):
     reference's resolver reads ``axis_names`` and ``devices.shape`` only),
     plus the rank's rows of the batch (the whole batch-1 token of
     ``long_500k``, whose K/V sequence splits instead); the row records the
-    reference's ``mesh`` / ``n_chips`` and a census."""
+    reference's ``mesh`` / ``n_chips`` and a census.  ``ring``: the
+    ``--ring-cache`` row, a cache of the window's slots split over the
+    edge ranks (the reference's model built with ``ring_cache=True``)."""
     import types
 
     from repro import sharding as ref_sharding
-    row = dryrun.plan_combo(arch, shape_name, mesh=mesh, layers="0:2")
+    row = dryrun.plan_combo(arch, shape_name, mesh=mesh, layers="0:2",
+                            ring_cache=ring)
     multi = mesh == "multipod"
     shape = (2, 16, 16) if multi else (16, 16)
     axes = ("pod", "data", "model") if multi else ("data", "model")
@@ -452,7 +457,7 @@ def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name):
         port_config.get_config(arch).model,
         port_config.INPUT_SHAPES[shape_name]), "0:2")
     ref_cfg = _ref_window(arch, shape_name, port_cfg)
-    model = ref_build(ref_cfg)
+    model = ref_build(ref_cfg, ring_cache=ring)
     params = jax.eval_shape(model.init, jax.random.key(0))
     b, s = ishape.global_batch, ishape.seq_len
     if ishape.kind == "train":
@@ -467,6 +472,10 @@ def test_mesh_rows_hold_the_references_blocks(mesh, arch, shape_name):
             want += dryrun.block_bytes(b // n_edge * s * 4)
         else:
             cache = jax.eval_shape(lambda: model.init_cache(b, s))
+            if ring:
+                k = jax.tree_util.tree_leaves(cache["groups"])[0]
+                assert k.shape[-3] == ref_cfg.sliding_window < s
+                assert row["sliding_window"] == ref_cfg.sliding_window
             want += _spec_bytes(cache, ref_sharding.cache_specs(
                 ref_cfg, stub, cache, b), sizes)
             want += dryrun.block_bytes(

@@ -260,17 +260,25 @@ def step_prefill(case, mesh):
     return step(params, local_rows(tokens, mesh)).numpy()
 
 
-def step_decode(case, mesh, batch, window):
+def decode_key(batch, window, ring=False):
+    """A decode scenario's key: ``"batch/window"``, ``"/ring"`` after it
+    for a ring cache."""
+    return f"{batch}/{window}" + ("/ring" if ring else "")
+
+
+def step_decode(case, mesh, batch, window, ring=False):
     """A prefill of ``case["prompt"]``'s first ``batch`` rows, then
     ``decode`` steps of its next tokens on the cache cut to the rank's
     blocks (``mesh=None``: the whole cache): the logits of each step (the
-    rank's rows when the batch tiles its edge ranks), and the layout."""
-    from repro_torch.interop import tree_from_numpy
+    rank's rows when the batch tiles its edge ranks), the layout and each
+    K/V leaf's slots after the last step.  ``ring``: a ring cache of
+    ``min(max_len, window)`` slots."""
+    from repro_torch.interop import tree_from_numpy, tree_leaves
     from repro_torch.models import LM
     from repro_torch.train.layout import local_rows
     from repro_torch.train.state import make_decode_step
     cfg = dataclasses.replace(case["model_cfg"], sliding_window=window)
-    model = LM(cfg, device="cpu")
+    model = LM(cfg, device="cpu", ring_cache=ring)
     params = tree_from_numpy(case["init"], "cpu")
     toks = torch.from_numpy(case["prompt"][:batch])
     n0, max_len = case["prefill_len"], case["max_len"]
@@ -291,7 +299,8 @@ def step_decode(case, mesh, batch, window):
             t = local_rows(t, mesh)
         out, cache = step(params, t, cache)
         logits.append(out.numpy())
-    return {"logits": logits, "layout": layout}
+    slots = [leaf.shape[-3] for leaf in tree_leaves(cache) if leaf.dim() > 3]
+    return {"logits": logits, "layout": layout, "slots": slots}
 
 
 def step_drop(case, mesh):
@@ -328,8 +337,8 @@ def mesh_steps(spec, mesh):
             "train": {opt: step_train(case, mesh, opt)
                       for opt in case["train_cfgs"]},
             "prefill": step_prefill(case, mesh),
-            "decode": {f"{b}/{w}": step_decode(case, mesh, b, w)
-                       for b, w in case["decodes"]}}
+            "decode": {decode_key(*d): step_decode(case, mesh, *d)
+                       for d in case["decodes"]}}
     return out
 
 
