@@ -10,9 +10,10 @@ Phases, each printing JSON lines:
               with nvcc for sm_90a, one nvcc per source, all at once
               (ptxas report included): ``kmeans_assign``, ``ssd_scan`` and
               ``flash_attention`` (the bf16 and f32 instances' shared
-              memory of the last two, and the tensor-core instructions in
-              each instance's SASS by ``cuobjdump``: every bf16 instance
-              must have some);
+              memory of the last two, each f32 entry's registers and
+              spills, and the tensor-core instructions in each instance's
+              SASS by ``cuobjdump``: every bf16 instance must have some,
+              no f32 instance any, and no f32 entry may spill);
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths'
               (the batched ``kmeans_assign`` also under ``torch.func.vmap``
@@ -381,6 +382,8 @@ Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
 runs), 6f, 7, each of 9b's four runs, and in each rank each of 10's and
 11's runs) is driven with every kernel's launch count set to 0 just before it and
 read just after.
+Before phase 8's rows, one line counts each f32 (CUDA-core) instance's
+launches on the run's paths, by the phase line they came before.
 Then the card's name and power limit (nvidia-smi), and last ``{"ok": true,
 "device": {...}}``.
 Any failed check exits non-zero, as does a machine without CUDA or a
@@ -404,10 +407,20 @@ SRC = ROOT / "src"
 
 
 T_START = time.perf_counter()
+# f32 (CUDA-core) launches of flash_attention and ssd_scan since the last
+# line, and by the phase line that followed them (count_f32_launches)
+F32_PENDING = {"flash_attention": 0, "ssd_scan": 0}
+F32_BY_PHASE = {"flash_attention": {}, "ssd_scan": {}}
 
 
 def emit(phase: str, **fields) -> None:
-    """One JSON line; ``t`` is its seconds since the script started."""
+    """One JSON line; ``t`` is its seconds since the script started.  The
+    f32 launches since the last line are charged to this one's phase."""
+    for name, n in F32_PENDING.items():
+        if n:
+            by = F32_BY_PHASE[name]
+            by[phase] = by.get(phase, 0) + n
+            F32_PENDING[name] = 0
     print(json.dumps({"phase": phase, **fields,
                       "t": round(time.perf_counter() - T_START, 2)}),
           flush=True)
@@ -633,9 +646,10 @@ def kernel_cells_vs_plain(n_cells: int) -> float:
 # 64 and of 128 (a warp holding 4 state items), N = 16 with a ragged L;
 # phase 6c's training shape (mamba2-370m at B = 8, S = 512); last
 # jamba-1.5's (128 heads of P = N = 128): phase 5g's prefill in bf16 (P
-# tile 64, B * H = 512) and in f32 (its kernel-vs-naive fill: the f32
-# instance's plan takes 231,936 of the card's 232,448 bytes of shared
-# memory), and phase 6f's training shape
+# tile 64, B * H = 512) and in f32 (its kernel-vs-naive fill: 16 heads a
+# diagonal block, two carry blocks a head), and phase 6f's training shape;
+# then the f32 instance's tiles: one chunk, 16 chunks (the carried state),
+# B * H = 1, P and N not multiples of 4 at chunk 45, N = 256 at chunk 64
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -655,7 +669,12 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (8, 512, 32, 64, 128, 128, "bfloat16"),
              (4, 512, 128, 128, 128, 128, "bfloat16"),
              (4, 512, 128, 128, 128, 128, "float32"),
-             (8, 512, 128, 128, 128, 128, "bfloat16")]
+             (8, 512, 128, 128, 128, 128, "bfloat16"),
+             (1, 128, 4, 32, 16, 128, "float32"),
+             (1, 2048, 2, 64, 128, 128, "float32"),
+             (1, 256, 1, 64, 128, 128, "float32"),
+             (1, 90, 2, 30, 18, 45, "float32"),
+             (1, 128, 2, 32, 256, 64, "float32")]
 # shapes the bf16 instance refuses, with the error's words: N not a
 # multiple of 16, and a plan beyond the card's shared memory
 SSD_REFUSED = [((1, 128, 2, 32, 24, 64), "multiples of 16"),
@@ -728,14 +747,17 @@ def ssd_vs_plain() -> dict:
             check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
                   f"ssd_scan {part} off at {case}: {res[part]}")
         errs[case] = res["y"]["max_abs_err"]
-    # strongly negative da: exp above the diagonal would overflow to inf
-    for shape in ((1, 128, 4, 32, 16, "float32"),
-                  (2, 256, 4, 64, 128, "bfloat16")):
+    # strongly negative da (exp above the diagonal would overflow to inf),
+    # and da = 0 (every decay exactly 1)
+    for shape, scale in (((1, 128, 4, 32, 16, "float32"), 200.0),
+                         ((2, 256, 4, 64, 128, "bfloat16"), 200.0),
+                         ((2, 256, 4, 64, 128, "float32"), 0.0)):
         x, da, bm, cm = ssd_inputs(*shape, seed=7)
-        y, state = ops.ssd(x, da * 200.0, bm, cm, 128)
+        da = da * scale
+        y, state = ops.ssd(x, da, bm, cm, 128)
         torch.cuda.synchronize()
-        res = ssd_compare(y, state, x, da * 200.0, bm, cm, 128)
-        emit("kernel_vs_plain", kernel="ssd_scan", case="da*200",
+        res = ssd_compare(y, state, x, da, bm, cm, 128)
+        emit("kernel_vs_plain", kernel="ssd_scan", case=f"da*{scale:g}",
              dtype=shape[-1], **res)
         check(res["y"]["finite"] and res["state"]["finite"]
               and res["y"]["beyond_allowed"] == 0
@@ -761,7 +783,9 @@ def ssd_vs_plain() -> dict:
 # S = 512) in f32 and the config's bf16; then every branch of the bf16
 # (tensor-core) instance: D 64, 128 and 256, GQA groups 1, 2 and 8,
 # S = 17 and 300 (not multiples of its 64-row tiles) and 512, windows of
-# 100 and 64 that start mid-tile
+# 100 and 64 that start mid-tile; last the f32 (CUDA-core) instance's
+# 128-row tiles: S = 1, 63, 65 and 1000, windows of 1, one key tile (64)
+# and >= S, GQA groups of 1 and 8 at D = 64 and 256
 FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 256, 4, 2, 64, 0, "float32"),
                (1, 256, 8, 1, 64, 0, "float32"),
@@ -798,12 +822,25 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (4, 512, 64, 8, 128, 0, "bfloat16"),
                (4, 512, 64, 8, 128, 0, "float32"),
                (4, 515, 64, 8, 128, 0, "bfloat16"),
-               (8, 512, 64, 8, 128, 0, "bfloat16")]
+               (8, 512, 64, 8, 128, 0, "bfloat16"),
+               (2, 1, 4, 2, 128, 0, "float32"),
+               (2, 63, 4, 2, 128, 0, "float32"),
+               (2, 65, 4, 2, 128, 0, "float32"),
+               (1, 1000, 4, 2, 128, 0, "float32"),
+               (1, 300, 4, 2, 128, 1, "float32"),
+               (1, 300, 4, 2, 128, 64, "float32"),
+               (1, 300, 4, 2, 128, 512, "float32"),
+               (2, 300, 4, 4, 64, 0, "float32"),
+               (1, 300, 8, 1, 64, 0, "float32"),
+               (1, 300, 8, 1, 256, 64, "float32")]
 # the same fields, causal=False: the bf16 instance without the causal
-# bound, ragged, and with a window that starts mid-tile
+# bound, ragged, and with a window that starts mid-tile; then the f32
+# instance the same ways
 FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
                     (2, 17, 8, 1, 64, 0, "bfloat16"),
-                    (1, 300, 4, 1, 64, 100, "bfloat16")]
+                    (1, 300, 4, 1, 64, 100, "bfloat16"),
+                    (1, 300, 4, 2, 128, 0, "float32"),
+                    (2, 200, 4, 1, 64, 100, "float32")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
 # phase 5b's prefill (qwen3-1.7b serving, 4 slots: a full wave, and a
 # mid-flight admission at a ragged 515 above), phase 6b's attention
@@ -6834,12 +6871,12 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     return out
 
 
-def sass_census(library: Path, kernel: str, params: tuple) -> dict:
+def sass_census(library: Path, kernel: str, params) -> dict:
     """Tensor-core instructions in each instance of a kernel's SASS
     (``cuobjdump -sass`` on the built library): HMMA is ``mma.sync``,
     HGMMA ``wgmma``.  Functions are named ``<kernel>_<instance>`` with int
-    template arguments named by ``params``, keyed as
-    ``instance<param=value,...>``."""
+    template arguments named by ``params`` (a tuple, or a dict of tuples by
+    instance), keyed as ``instance<param=value,...>``."""
     from repro_torch.kernels import _build
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(library)],
@@ -6852,8 +6889,10 @@ def sass_census(library: Path, kernel: str, params: tuple) -> dict:
             name = None
             if m:
                 args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                names = (params.get(m.group(1), ()) if isinstance(
+                    params, dict) else params)
                 name = m.group(1) + (
-                    "<" + ",".join(f"{p}={a}" for p, a in zip(params, args))
+                    "<" + ",".join(f"{p}={a}" for p, a in zip(names, args))
                     + ">" if args else "")
                 census[name] = {"HMMA": 0, "HGMMA": 0}
         elif name:
@@ -6861,6 +6900,44 @@ def sass_census(library: Path, kernel: str, params: tuple) -> dict:
             if op:
                 census[name][op.group(1)] += 1
     return census
+
+
+def count_f32_launches() -> None:
+    """Wrap both kernels' launch functions (``kernel.flash_fwd``,
+    ``kernel.ssd_fwd``, which every op call that launches goes through) so
+    that each launch of an f32 instance is counted (``F32_PENDING``)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    for mod, fn, name in ((fa_kernel, "flash_fwd", "flash_attention"),
+                          (ssd_kernel, "ssd_fwd", "ssd_scan")):
+        def counted(x, *args, _launch=getattr(mod, fn), _name=name):
+            if x.dtype.itemsize == 4:
+                F32_PENDING[_name] += 1
+            return _launch(x, *args)
+        setattr(mod, fn, counted)
+
+
+def f32_entries(log: str) -> dict:
+    """Each f32 entry of an nvcc ``-Xptxas -v`` log (a function whose name
+    holds ``_f32``): its registers and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"kernel_(f32\w*?)(?:I(Li\d+E)E|E)", m.group(1))
+            name = None
+            if k:
+                name = k.group(1) + (
+                    "<" + k.group(2)[2:-1] + ">" if k.group(2) else "")
+                out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return out
 
 
 def build_all() -> None:
@@ -6879,7 +6956,7 @@ def build_all() -> None:
     census = sass_census(paths["flash_attention"], "flash_attention_kernel",
                          ("D",))
     ssd_census = sass_census(paths["ssd_scan"], "ssd_scan_kernel",
-                             ("Pt", "items"))
+                             {"bf16": ("Pt", "items"), "f32_carry": ("NV",)})
     # ptxas reports static shared memory only; these two use dynamic
     extra = {"ssd_scan": {
         "dynamic_smem_bytes_at_P64_N128_L128": {
@@ -6896,10 +6973,14 @@ def build_all() -> None:
             for dt in (torch.bfloat16, torch.float32)},
         "dynamic_smem_limit": fa_kernel.max_smem(0),
         "sass_tensor_core_instructions": census}}
+    f32 = {}
     for name, mod in kernels.items():
         mod.library()
         log_path = paths[name].with_suffix(".log")
         log = log_path.read_text() if log_path.exists() else ""
+        if name != "kmeans_assign":
+            # the f32 (CUDA-core) entries: registers and spills
+            f32[name] = extra[name]["f32_ptxas"] = f32_entries(log)
         emit("build", kernel=name, seconds=seconds,
              library=str(paths[name].relative_to(ROOT)),
              ptxas=[ln.strip() for ln in log.splitlines()
@@ -6916,6 +6997,17 @@ def build_all() -> None:
           and all(v["HMMA"] > 0 for v in bf16.values()),
           f"ssd_scan: a bf16 instance without HMMA in its SASS: "
           f"{ssd_census}")
+    # f32 stays on the CUDA cores (no TF32): no tensor-core instruction,
+    # and no spills
+    for name, c in (("flash_attention", census), ("ssd_scan", ssd_census)):
+        entries = {k: v for k, v in c.items() if k.startswith("f32")}
+        check(len(entries) == len(f32[name]) > 0
+              and all(v["HMMA"] + v["HGMMA"] == 0 for v in entries.values()),
+              f"{name}: an f32 instance with tensor-core instructions, or "
+              f"not one found: {c}, {f32[name]}")
+        check(all(v.get("spill_stores", 1) + v.get("spill_loads", 1) == 0
+                  for v in f32[name].values()),
+              f"{name}: an f32 entry spills: {f32[name]}")
 
 
 def main() -> None:
@@ -6933,6 +7025,7 @@ def main() -> None:
          tf32=torch.backends.cuda.matmul.allow_tf32)
 
     build_all()
+    count_f32_launches()
     km_err = kernel_vs_plain()
     kmb_errs = kernel_batched_vs_plain()
     kmb_err = kmb_errs[KM_BATCHED_MAIN]
@@ -6998,6 +7091,14 @@ def main() -> None:
                          "fleet_waves_s": fleet["kmeans_async_waves_s"]})
     launches["kmeans_assign"] += ranks["part2"]["kmeans_assign"]
     fa_errs[FLASH_RING] = ranks["ring"]["kernel_err"]
+    # each f32 (CUDA-core) instance's launches on this run's paths, by the
+    # phase line each came before (phase 3's are its kernel-vs-plain
+    # checks); phase 10 (f)'s ring prefill on its gloo ranks apart
+    emit("f32_launches",
+         flash_attention=dict(F32_BY_PHASE["flash_attention"]),
+         ssd_scan=dict(F32_BY_PHASE["ssd_scan"]),
+         flash_attention_ring_prefill_whole_and_ranks=ranks["ring"][
+             "flash_attention"])
 
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]

@@ -23,13 +23,14 @@
 // nothing, which exp(-1e30 - m) gives only once m is a real logit.
 //
 // Both instances share the TPU grid's shape: one block per (b, h, tile of
-// 64 query rows), numbered heaviest causal tile first, with the TPU grid's
-// sequential KV axis as the loop inside the block. Only live key tiles are
-// visited: keys up to the tile's last row (causal) and from its first
-// row's window start. The TPU grid walks every S/128 block; skipping dead
-// ones changes nothing, because every row keeps its diagonal. Ragged S is
-// masked (rows past S are computed on zero queries and never stored, keys
-// past S get p = 0), so any S works. Instances exist for D = 64, 128 and
+// query rows: 64 in bf16; 128 in f32, 64 at D = 256), numbered heaviest
+// causal tile first, with the TPU grid's sequential KV axis as the loop
+// inside the block. Only live key tiles are visited: keys up to the tile's
+// last row (causal) and from its first row's window start. The TPU grid
+// walks every S/128 block; skipping dead ones changes nothing, because
+// every row keeps its diagonal. Ragged S is masked (rows past S are
+// computed on zero queries and never stored, keys past S get p = 0), so
+// any S works. Instances exist for D = 64, 128 and
 // 256; the wrapper checks each one's shared-memory budget and raises
 // beyond it. flash_attention_launch dispatches on the dtype code: bf16 runs
 // the tensor-core kernel, f32 the CUDA-core kernel.
@@ -96,21 +97,46 @@
 // f32 instance: CUDA cores (flash_attention_kernel_f32)
 // -----------------------------------------------------
 // Tensor cores take f32 only as TF32, which the port's f32 parity tier
-// forbids, so f32 keeps a CUDA-core design: one block of 256 threads per
-// query tile stages its query tile once, then per tile of 32 keys stages K
-// and V and computes its [64, 32] logits as a 16 x 16 grid of threads,
-// each owning 4 rows x 2 columns in registers; the 16 threads of a row
-// group are one half-warp, so row max and row sum are shuffles. The
-// probabilities go through shared memory to the PV product, where each
-// thread owns the same 4 rows x D/16 columns of the output accumulator in
-// registers. Products are plain f32 FMAs and exps are expf (no TF32, no
-// fast-math exp). Rows of the query and key tiles are padded to D + 1
-// floats and those of the probabilities to 33, so a warp's reads hit
-// distinct banks or broadcast. Shared memory is
-// 4 (64 (D+1) + 32 (D+1) + 32 D + 64 * 33) bytes: 41,600 at D = 64,
-// 74,368 at D = 128, 139,904 at D = 256. It is bound by shared-memory
-// bandwidth and the FMA pipes (67 TFLOP/s of f32), far above the card's
-// bound.
+// forbids, so every product is a plain f32 FMA. At the training shape the
+// f32 call does 8.6 GFLOP on the causal triangle (67 TFLOP/s of f32: 128
+// us) against 100.7 MB (30 us): the bound is operations. On the CUDA cores
+// a thread's rate is set by how many floats it loads from shared memory
+// per FMA: an SM serves 32 a cycle (one per lane of a warp) against 128
+// FMAs, so a thread must do 4 FMAs per float it loads to keep the FMA
+// pipes fed, and what a thread can hold is capped by its 255 registers.
+// The design, FlashAttention-2's loop on the FMA pipes:
+// - One block of 256 threads (8 warps) per (b, h, tile of 128 query rows;
+//   64 at D = 256), heaviest causal tile first; a warp owns 16 rows for
+//   the whole key loop, so no barrier guards the softmax state. A warp's
+//   lanes are 4 row groups x 8 key groups: a thread holds 4 query rows
+//   (2 at D = 256), 8 keys of each 64-key tile and D / 8 output columns.
+//   QK^T loads 12 floats per 32 FMAs (8-byte loads along D), PV 16 per 64
+//   (16-byte loads of V's rows) plus 4 shuffles.
+// - P stays in registers: a row's max is a 3-shuffle tree over its row
+//   group, l a thread-partial sum (alpha is uniform over the group) summed
+//   at the end, and PV takes each key's p from its owner lane by shuffle.
+// - Staging by cp.async: Q once; one K and one V buffer, K of tile t + 1
+//   copied while tile t's softmax and PV run, V of tile t + 1 while its
+//   QK^T runs. Rows are padded to D + 4 floats, so the 8 rows a quarter
+//   warp's 16-byte loads read fall in distinct banks. Shared memory is
+//   4 (D + 4)(BLOCK_Q + 2 * 64) bytes: 69,632 at D = 64, 135,168 at 128,
+//   199,680 at 256.
+// - Masks only on the tiles that need them (the causal diagonal, a
+//   window's first tiles, the ragged tail); exp2f with log2 e folded into
+//   the scale, as in the bf16 instance. The window branch skips each query
+//   tile's dead key tiles.
+// Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W; scripts/
+// f32_kernels.py, PERF.md): 0.3126 ms at (8, 512, 16, 8, 128) (2.4x the
+// bound; the first design, 4 x 2 tiles with P through shared memory, took
+// 0.5118 in chip_smoke.py) and 7.44 ms at the ring prefill (1, 8448, 16,
+// 8, 128, window 8192: 1.7x; the first design 14.109). Thread tiles of 8
+// rows x 8 keys (16 floats per 64 FMAs) on 128-key tiles need more than
+// 255 registers and spill (0.633 ms); 4 x 16 on 128-key tiles ran 0.617;
+// blocks of 64 rows, two an SM, 0.309 but 8.07 at the ring (and spill at
+// D = 256); warps skipping a causal tile they do not reach 0.307 but 7.72
+// at the ring; the QK^T loop unrolled 1 or 2 steps instead of 4, 0.346
+// and 0.321. ptxas (CUDA 12.9, sm_90a): 251, 255 and 254 registers at
+// D = 64, 128 and 256, no spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -124,23 +150,128 @@ constexpr float kNegInf = -1e30f;
 
 namespace f32 {
 
-constexpr int kThreads = 256;
-constexpr int kBlockQ = 64;            // query rows per block (BLOCK_Q)
-constexpr int kBlockK = 32;            // keys per tile (BLOCK_K)
-constexpr int kRows = kBlockQ / 16;    // query rows per thread
-constexpr int kCols = kBlockK / 16;    // key columns per thread
-constexpr int kP1 = kBlockK + 1;       // padded row stride of the p tile
+constexpr int kPad = 4;                // floats of padding per smem row
+constexpr float kLog2e = 1.4426950408889634f;
 
+// The tiles per head dim. A warp's lanes are kRowGroups row groups x
+// kKeyGroups key (and output column) groups; a thread holds kRows query
+// rows (row group + kRowGroups i), kKeys keys of each key tile (key group
+// + kKeyGroups j) and D / kKeyGroups output columns (kChunks float4s).
+template <int D>
+struct Tile {
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRowGroups = 4;
+  static constexpr int kKeyGroups = 32 / kRowGroups;
+  static constexpr int kRows = D > 128 ? 2 : 4;
+  static constexpr int kBlockQ = kWarps * kRowGroups * kRows;  // 128 or 64
+  static constexpr int kBlockK = 64;
+  static constexpr int kKeys = kBlockK / kKeyGroups;
+  static constexpr int kChunks = D / (4 * kKeyGroups);
+};
+
+// the Q tile, one K tile and one V tile, rows padded to D + kPad
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBlockQ) * (D + 1) + size_t(kBlockK) * (D + 1)
-                          + size_t(kBlockK) * D + size_t(kBlockQ) * kP1);
+  return sizeof(float) * size_t(D + kPad) *
+         (Tile<D>::kBlockQ + 2 * Tile<D>::kBlockK);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !in
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy rows [0, kTileRows) of a [*, row_step] f32 array into a
+// [kTileRows, D + kPad] tile, one 16-byte cp.async per chunk; rows >=
+// n_valid are zero-filled.
+template <int D, int kTileRows>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long row_step, int n_valid,
+                                          int tid) {
+  constexpr int kThreads = Tile<D>::kThreads;
+  constexpr int kChunks = D / 4;                 // 16-byte chunks per row
+  static_assert(kTileRows * kChunks % kThreads == 0, "whole rounds");
+#pragma unroll
+  for (int i = 0; i < kTileRows * kChunks / kThreads; ++i) {
+    const int c = tid + i * kThreads;
+    const int r = c / kChunks;
+    const int ch = c % kChunks;
+    const bool in = r < n_valid;
+    cp_async16(smem_addr(dst + r * (D + kPad) + ch * 4),
+               src + (in ? r * row_step + ch * 4 : 0), in);
+  }
+}
+
+// One key tile's online-softmax update on a thread's logits: s[i][j] is
+// row row0 + kRG i, key k0 + kg + kKG j; on return it holds p (0 where
+// masked). The kKG lanes of a row group share its rows: the row max is a
+// shuffle tree, l a thread-partial sum (alpha is uniform over the group).
+template <int kR, int kNK, int kC, int kRG, int kKG, bool kMask>
+__device__ __forceinline__ void softmax_update(
+    float (&s)[kR][kNK], float (&m)[kR], float (&l)[kR],
+    float (&acc)[kR][kC][4], float scale_log2, int row0, int k0, int kg,
+    int seqlen, int causal, int window) {
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    const int qi = row0 + kRG * i;
+    uint32_t live = 0;                  // bit j: key counts
+    float row_max = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kNK; ++j) {
+      float& x = s[i][j];
+      if (kMask) {
+        const int kj = k0 + kg + kKG * j;
+        const bool ok = kj < seqlen && (!causal || kj <= qi) &&
+                        (window <= 0 || kj > qi - window);
+        live |= uint32_t(ok) << j;
+        x = ok ? x * scale_log2 : kNegInf;
+      } else {
+        x *= scale_log2;
+      }
+      row_max = fmaxf(row_max, x);
+    }
+#pragma unroll
+    for (int off = 1; off < kKG; off <<= 1)
+      row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+    const float m_new = fmaxf(m[i], row_max);
+    const float alpha = exp2f(m[i] - m_new);
+    float row_sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNK; ++j) {
+      float& x = s[i][j];
+      x = (!kMask || (live >> j) & 1u) ? exp2f(x - m_new) : 0.f;
+      row_sum += x;
+    }
+    l[i] = l[i] * alpha + row_sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] *= alpha;
+  }
 }
 
 }  // namespace f32
 
 template <int D>
-__global__ void __launch_bounds__(f32::kThreads)
+__global__ void __launch_bounds__(f32::Tile<D>::kThreads, 1)
     flash_attention_kernel_f32(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
@@ -148,26 +279,34 @@ __global__ void __launch_bounds__(f32::kThreads)
                                int heads, int kv_heads, int causal,
                                int window, float scale) {
   using namespace f32;
-  constexpr int kD1 = D + 1;           // padded row stride: q, k tiles
-  constexpr int kDCols = D / 16;       // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                    // [kBlockQ, D + 1]
-  float* ks = qs + kBlockQ * kD1;      // [kBlockK, D + 1]
-  float* vs = ks + kBlockK * kD1;      // [kBlockK, D]
-  float* ps = vs + kBlockK * D;        // [kBlockQ, kBlockK + 1]
+  using Tl = Tile<D>;
+  constexpr int kS = D + kPad;             // smem row stride, floats
+  constexpr int kBQ = Tl::kBlockQ;
+  constexpr int kBK = Tl::kBlockK;
+  constexpr int kR = Tl::kRows;
+  constexpr int kNK = Tl::kKeys;
+  constexpr int kC = Tl::kChunks;
+  constexpr int kRG = Tl::kRowGroups;
+  constexpr int kKG = Tl::kKeyGroups;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [kBQ, kS]
+  float* ks = qs + kBQ * kS;               // [kBK, kS]
+  float* vs = ks + kBK * kS;               // [kBK, kS]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;             // key column / output column group
-  const int ty = tid >> 4;             // query row group
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane / kKG;               // row group
+  const int kg = lane % kKG;               // key / column group
   const int bh_count = batch * heads;
-  const int n_q = (seqlen + kBlockQ - 1) / kBlockQ;
+  const int n_q = (seqlen + kBQ - 1) / kBQ;
   const int bh = blockIdx.x % bh_count;
   const int qt = n_q - 1 - blockIdx.x / bh_count;   // heaviest tile first
   const int b = bh / heads;
   const int h = bh - b * heads;
   const int kvh = h / (heads / kv_heads);
-  const int q0 = qt * kBlockQ;
-  const int q_rows = min(kBlockQ, seqlen - q0);
+  const int q0 = qt * kBQ;
+  const int q_rows = min(kBQ, seqlen - q0);
 
   const long long q_step = (long long)heads * D;      // between positions
   const long long kv_step = (long long)kv_heads * D;
@@ -177,117 +316,138 @@ __global__ void __launch_bounds__(f32::kThreads)
   const float* vb = v + (long long)b * seqlen * kv_step + (long long)kvh * D;
   float* ob = o + ((long long)b * seqlen + q0) * q_step + (long long)h * D;
 
-  for (int idx = tid; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    qs[r * kD1 + c] = r < q_rows ? qb[r * q_step + c] : 0.f;
-  }
-
   // live keys: [kv_begin, kv_end)
   const int kv_end = causal ? q0 + q_rows : seqlen;
   const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_begin = kv_begin / kBlockK;
-  const int t_end = (kv_end + kBlockK - 1) / kBlockK;
+  const int t_begin = kv_begin / kBK;
+  const int t_end = (kv_end + kBK - 1) / kBK;
 
-  float m[kRows], l[kRows], acc[kRows][kDCols];
+  // one K and one V buffer: K of tile t + 1 is copied while tile t's
+  // softmax and PV run, V of tile t + 1 while its QK^T runs. Groups: {Q,
+  // K_t0}, {V_t0}, then per tile {K_t+1}, {V_t+1} (empty past the last).
+  {
+    const int k0 = t_begin * kBK;
+    load_tile<D, kBQ>(qs, qb, q_step, q_rows, tid);
+    load_tile<D, kBK>(ks, kb + k0 * kv_step, kv_step, seqlen - k0, tid);
+    cp_async_commit();
+    load_tile<D, kBK>(vs, vb + k0 * kv_step, kv_step, seqlen - k0, tid);
+    cp_async_commit();
+  }
+
+  // this thread's query rows (tile-local): lrow + kRG i
+  const int lrow = warp * kRG * kR + rg;
+  const float* q_row = qs + lrow * kS;
+  float acc[kR][kC][4];
+  float m[kR], l[kR];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kDCols; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
   }
+  const float scale_log2 = scale * kLog2e;
 
   for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBlockK;
-    const int k_rows = min(kBlockK, seqlen - k0);
-    __syncthreads();  // the last tile's ks, vs and ps are consumed
-    for (int idx = tid; idx < kBlockK * D; idx += kThreads) {
-      const int r = idx / D;
-      const int c = idx - r * D;
-      const bool in = r < k_rows;
-      ks[r * kD1 + c] = in ? kb[(k0 + r) * kv_step + c] : 0.f;
-      vs[r * D + c] = in ? vb[(k0 + r) * kv_step + c] : 0.f;
-    }
+    const int k0 = t * kBK;
+    cp_async_wait<1>();                    // Q and K_t
     __syncthreads();
 
-    float s[kRows][kCols];
+    // S = Q K^T: 8-byte loads along D (two floats of each operand a step
+    // keep the operands at 2 (kR + kNK) registers)
+    float s[kR][kNK];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = qs[(ty + 16 * i) * kD1 + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = ks[(tx + 16 * j) * kD1 + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      bool ok[kCols];
-      float row_max = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        ok[j] = kj < seqlen && (!causal || kj <= qi) &&
-                (window <= 0 || kj > qi - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        row_max = fmaxf(row_max, s[i][j]);
-      }
-      // the 16 threads of this row group are one half-warp
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      const float m_new = fmaxf(m[i], row_max);
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        row_sum += p;
-        ps[(ty + 16 * i) * kP1 + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
-      l[i] = l[i] * alpha + row_sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kDCols; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
+      for (int j = 0; j < kNK; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int j = 0; j < kBlockK; ++j) {
-      float pv[kRows], vv[kDCols];
+    for (int d = 0; d < D; d += 2) {
+      float2 qv[kR], kv[kNK];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty + 16 * i) * kP1 + j];
+      for (int i = 0; i < kR; ++i)
+        qv[i] = *reinterpret_cast<const float2*>(q_row + kRG * i * kS + d);
 #pragma unroll
-      for (int c = 0; c < kDCols; ++c) vv[c] = vs[j * D + tx + 16 * c];
+      for (int j = 0; j < kNK; ++j)
+        kv[j] = *reinterpret_cast<const float2*>(ks + (kg + kKG * j) * kS +
+                                                 d);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < kR; ++i)
 #pragma unroll
-        for (int c = 0; c < kDCols; ++c)
-          acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+        for (int j = 0; j < kNK; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+        }
     }
+    __syncthreads();                       // K_t read by every warp
+    if (t + 1 < t_end) {
+      const int k1 = k0 + kBK;
+      load_tile<D, kBK>(ks, kb + k1 * kv_step, kv_step, seqlen - k1, tid);
+    }
+    cp_async_commit();
+
+    const bool need_mask = (causal && k0 + kBK - 1 > q0) ||
+                           (window > 0 && k0 <= q0 + kBQ - 1 - window) ||
+                           k0 + kBK > seqlen;
+    if (need_mask)
+      softmax_update<kR, kNK, kC, kRG, kKG, true>(
+          s, m, l, acc, scale_log2, q0 + lrow, k0, kg, seqlen, causal,
+          window);
+    else
+      softmax_update<kR, kNK, kC, kRG, kKG, false>(
+          s, m, l, acc, scale_log2, q0 + lrow, k0, kg, seqlen, causal,
+          window);
+    cp_async_wait<1>();                    // V_t
+    __syncthreads();
+
+    // O += P V: key kKG j + g is slot j of lane g of this row group, so p
+    // comes by shuffle; V's row by 16-byte loads, columns 4 (kKG c + kg)
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int g = 0; g < kKG; ++g) {
+        float p[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+          p[i] = __shfl_sync(0xffffffffu, s[i][j], (lane & ~(kKG - 1)) | g);
+        const float* v_row = vs + (kKG * j + g) * kS + 4 * kg;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(v_row + 4 * kKG * c);
+#pragma unroll
+          for (int i = 0; i < kR; ++i) {
+            acc[i][c][0] = fmaf(p[i], vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(p[i], vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(p[i], vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(p[i], vv.w, acc[i][c][3]);
+          }
+        }
+      }
+    __syncthreads();                       // V_t read by every warp
+    if (t + 1 < t_end) {
+      const int k1 = k0 + kBK;
+      load_tile<D, kBK>(vs, vb + k1 * kv_step, kv_step, seqlen - k1, tid);
+    }
+    cp_async_commit();
   }
 
+  // o = acc / max(l, 1e-30), 16-byte stores; rows past S are not stored
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int r = ty + 16 * i;
+  for (int i = 0; i < kR; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 1; off < kKG; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float denom = fmaxf(sum, 1e-30f);
+    const int r = lrow + kRG * i;
     if (r < q_rows) {
-      const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < kDCols; ++c)
-        ob[r * q_step + tx + 16 * c] = acc[i][c] / denom;
+      for (int c = 0; c < kC; ++c)
+        *reinterpret_cast<float4*>(ob + r * q_step + 4 * (kKG * c + kg)) =
+            make_float4(acc[i][c][0] / denom, acc[i][c][1] / denom,
+                        acc[i][c][2] / denom, acc[i][c][3] / denom);
     }
   }
 }
@@ -655,7 +815,7 @@ template <int D>
 int launch_dim(const Args& a, int dtype) {
   if (dtype == 0)
     return launch<float>(flash_attention_kernel_f32<D>, f32::smem_bytes<D>(),
-                         f32::kThreads, f32::kBlockQ, a);
+                         f32::Tile<D>::kThreads, f32::Tile<D>::kBlockQ, a);
   return launch<bf16::T>(flash_attention_kernel_bf16<D>,
                          bf16::smem_bytes<D>(), bf16::kThreads,
                          bf16::kBlockQ, a);

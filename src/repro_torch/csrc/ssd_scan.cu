@@ -94,22 +94,57 @@
 // block of 8 warps per SM hides little latency; TMA, wgmma and warp
 // specialisation are the later work.
 //
-// f32 instance: CUDA cores (ssd_scan_kernel_f32)
-// ----------------------------------------------
-// One block of 256 threads per (b, h): the TPU grid's sequential chunk axis
-// becomes the loop inside the block, and the state stays in shared memory
-// for the whole sequence. Per chunk the block stages x [L, P] and B [L, N],
-// then walks the chunk's rows in blocks of 32: stage those rows of C, form
-// their rows of Gd (exp only on the causal triangle), and write their y
-// rows; last it updates the state in place. Computing Gd a row block at a
-// time keeps the [L, L] tile out of shared memory: at L = 128, P = 64,
-// N = 128 the block uses 166 KB, and at P = N = 128 227 KB, all the card
-// allows. Rows of the state and of B are padded to N + 1 floats so that the
-// threads of a warp hit 32 distinct banks; C and Gd are read as warp-wide
-// broadcasts. At the serving shape its 5.4 GFLOP of f32 FMAs (67 TFLOP/s:
-// 80 us of operations; 2.72 GFLOP needed with G shared, 41 us) are bound
-// by shared-memory bandwidth (one load per FMA), and G is formed by each
-// of the H blocks of a batch row.
+// f32 instance: CUDA cores (ssd_scan_kernel_f32_diag, _carry)
+// -------------------------------------------------------------
+// Tensor cores take f32 only as TF32, which the port's f32 parity tier
+// forbids, so every product is a plain f32 FMA. At the serving shape the
+// call needs 2.72 GFLOP (67 TFLOP/s of f32: 41 us) against 40.1 MB (12
+// us): the bound is operations. As in flash_attention's f32 instance, an
+// SM's shared memory serves 32 floats a cycle against 128 FMAs, so a
+// thread's register tile sets the rate. The first design (one block of
+// 256 threads per (b, h) walking the chunks, one shared load per FMA, G
+// formed by every head, the cumulative sum on one thread) took 1.18 ms
+// there, 1.8x its plain version. This one takes the chunked form the plain
+// version uses (ref.py) in two launches on one stream, with no scratch:
+// kernel 1 writes each chunk's diagonal part of y, kernel 2 carries the
+// state and adds the off-diagonal part.
+// - Kernel 1 (ssd_scan_kernel_f32_diag): one block of 256 threads per (b,
+//   chunk, group of up to 16 heads; the wrapper plans the group,
+//   kernel.f32_heads_per_block). C, B and the group's da by cp.async; each
+//   head's a_cs by a warp scan; G = C B^T once for the group, warp w on
+//   rows 16 w .. 16 w + 15 and the w + 1 column blocks the causal triangle
+//   needs ([8, w + 1] register tiles, 16-byte loads along N); then per
+//   head Gd = G o exp(a_cs[i] - a_cs[j]) (exp only where j <= i < L, on
+//   the columns its rows read) and y = Gd x on [8 rows x 4 columns]
+//   tiles, warp w's keys ending at 16 w + 15, a slab of 64 columns of P
+//   at a time, the next slab copied while one is used.
+// - Kernel 2 (ssd_scan_kernel_f32_carry): one block of 256 threads per
+//   (b, h, 64 columns of P), the state [64, N] in registers ([4, 4 kNV] a
+//   thread) for the whole sequence, the chunks in order: (a) y +=
+//   exp(a_cs) o (C state^T) past the first chunk, on [8 rows x 4 columns]
+//   tiles reading the state from its shared-memory copy, kernel 1's part
+//   of y loaded before the product; (b) state = exp(a_last) state + (x o
+//   w)^T B, w = exp(a_last - a_cs). C and da of chunk c + 1 are copied
+//   while (b) of chunk c runs, x and B while (a) of chunk c + 1 runs; the
+//   final state is stored from the registers.
+// - Shapes: any chunk <= 128 (rows padded to 16 and zero-filled), P and N
+//   of any size (4-byte copies where a row is not a 16-byte multiple), N
+//   <= 256 (kernel 2's state). The wrapper raises beyond that or the
+//   shared memory: 210,944 bytes (kernel 1) and 203,776 (kernel 2) at
+//   L = N = 128.
+// Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W; scripts/f32_kernels.py,
+// PERF.md): 0.147 ms at the serving shape (3.6x the bound; the plain
+// version 0.673), kernel 1 65 us and kernel 2 81 us; 0.930 ms at jamba's
+// P = N = 128 (2.9x the bound; plain 3.64), 301 and 632 us. Cut out one
+// at a time at the serving shape, (a) costs 35 us, (b) 26, G 16, Gd x 17,
+// the exps 9: the products run at 30-60 % of the FMA rate on register
+// tiles of 32 floats a thread (2.7 FMAs per float loaded), and G is formed
+// again by each of a chunk's 8 blocks. G as a full square (balanced warps,
+// twice the work) took 0.167 ms, y's part read after (a)'s product 0.169;
+// G shared over thread-block clusters of a chunk's blocks (distributed
+// shared memory) ran slower, its clusters holding fewer blocks resident.
+// ptxas (CUDA 12.9, sm_90a): kernel 1 168 registers, kernel 2 244, 254
+// and 254 at N padded to 64, 128 and 256; no spills.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -120,129 +155,512 @@ namespace {
 // -- f32 instance: CUDA cores ---------------------------------------------
 
 namespace f32 {
-constexpr int kThreads = 256;
-constexpr int kRows = 32;  // chunk rows per block of Gd (the wrapper's ROWS)
+
+constexpr int kThreads = 256;          // 8 warps; 16 x 16 thread grids
+constexpr int kPad = 4;                // floats of padding per smem row
+constexpr int kPTile = 64;             // P columns of a carry block
+constexpr int kXS = 64;                // P columns of a diagonal x slab
+constexpr int kMaxGroup = 16;          // heads a diagonal block takes
+
+__host__ __device__ inline int padded_chunk(int chunk) {
+  return (chunk + 15) / 16 * 16;
+}
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// N padded to 64 kNV, the carry kernel's state columns
+__host__ __device__ inline int carry_nv(int n_dim) {
+  return n_dim <= 64 ? 1 : n_dim <= 128 ? 2 : n_dim <= 256 ? 4 : 0;
+}
+
+// Dynamic shared memory (bytes) of a diagonal block: G [Lp, Lp + 4], then
+// C and B [Lp, N4 + 4] (N4 = N rounded up to 4) while G is formed, later
+// Gd [Lp, Lp + 4] and two x slabs [Lp, 64] in the same bytes; da, then
+// a_cs, of up to kMaxGroup heads [kMaxGroup, Lp].
+__host__ __device__ inline int diag_smem(int n_dim, int chunk) {
+  const int lp = padded_chunk(chunk);
+  const int gs = lp + kPad;
+  const int ns = pad4(n_dim) + kPad;
+  const int phase1 = 2 * lp * ns;
+  const int phase2 = lp * gs + 2 * lp * kXS;
+  return 4 * (lp * gs + (phase1 > phase2 ? phase1 : phase2) +
+              kMaxGroup * lp);
+}
+
+// Dynamic shared memory (bytes) of a carry block: C and B [Lp, 64 kNV +
+// 4], x [Lp, 64], the state [64, 64 kNV + 4], and da, a_cs, exp(a_cs)
+// and w [Lp].
+__host__ __device__ inline int carry_smem(int n_dim, int chunk) {
+  const int lp = padded_chunk(chunk);
+  const int ns = 64 * carry_nv(n_dim) + kPad;
+  return 4 * (2 * lp * ns + lp * kPTile + kPTile * ns + 4 * lp);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared, 16 or 4 bytes; zero-filled (nothing read) when !in
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Copy the [rows_pad, cols_pad] corner of a row-major f32 array (rows
+// src_step floats apart) into shared memory (rows dst_step apart); what
+// lies past rows_valid or cols_valid is zero-filled. vec: 16-byte pieces
+// (cols_valid, cols_pad, the steps and src 16-byte multiples), else 4.
+__device__ __forceinline__ void stage(float* dst, int dst_step,
+                                      const float* src, long long src_step,
+                                      int rows_valid, int rows_pad,
+                                      int cols_valid, int cols_pad, bool vec,
+                                      int tid) {
+  if (vec) {
+    const int cw = cols_pad / 4;
+    for (int k = tid; k < rows_pad * cw; k += kThreads) {
+      const int r = k / cw;
+      const int c = (k - r * cw) * 4;
+      const bool in = r < rows_valid && c < cols_valid;
+      cp_async16(smem_addr(dst + r * dst_step + c),
+                 src + (in ? r * src_step + c : 0), in);
+    }
+  } else {
+    for (int k = tid; k < rows_pad * cols_pad; k += kThreads) {
+      const int r = k / cols_pad;
+      const int c = k - r * cols_pad;
+      const bool in = r < rows_valid && c < cols_valid;
+      cp_async4(smem_addr(dst + r * dst_step + c),
+                src + (in ? r * src_step + c : 0), in);
+    }
+  }
+}
+
+// a_cs[l] = da[0] + ... + da[l] for l < lp (rows past the chunk add 0),
+// by one warp: a shuffle scan per 32 rows plus the running total; a_cs may
+// be da itself. Both kernels form a chunk's a_cs with these same adds.
+__device__ __forceinline__ void scan_chunk(const float* da, int chunk, int lp,
+                                           float* a_cs, int lane) {
+  float v[4];                              // lp <= 128: loads first
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int l = 32 * s + lane;
+    v[s] = l < chunk ? da[l] : 0.f;
+  }
+  float carry = 0.f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    if (32 * s >= lp) break;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(0xffffffffu, v[s], off);
+      if (lane >= off) v[s] += u;
+    }
+    v[s] += carry;
+    if (32 * s + lane < lp) a_cs[32 * s + lane] = v[s];
+    carry = __shfl_sync(0xffffffffu, v[s], 31);
+  }
+}
+
 }  // namespace f32
 
-__global__ void __launch_bounds__(f32::kThreads)
-    ssd_scan_kernel_f32(const float* __restrict__ x,
-                        const float* __restrict__ da,
-                        const float* __restrict__ bm,
-                        const float* __restrict__ cm, int seqlen, int heads,
-                        int p_dim, int n_dim, int chunk,
-                        float* __restrict__ y, float* __restrict__ state_out) {
+// G = C B^T for a warp's 16 rows (a thread's rows row0 + 2 r) and its
+// kNC column blocks of 16 (a thread's columns tx + 16 c): the causal
+// triangle's blocks on and below the diagonal, 16-byte loads along N.
+template <int kNC>
+__device__ __forceinline__ void gram_rows(const float* cs, const float* bs,
+                                          float* g, int ns, int gs, int n4,
+                                          int row0, int tx) {
+  using f32::dot4;
+  using f32::ld4;
+  float acc[8][kNC];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) acc[r][c] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < n4; n += 4) {
+    float4 cv[8], bv[kNC];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) cv[r] = ld4(cs + (row0 + 2 * r) * ns + n);
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) bv[c] = ld4(bs + (tx + 16 * c) * ns + n);
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) acc[r][c] = dot4(cv[r], bv[c], acc[r][c]);
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < kNC; ++c)
+      g[(row0 + 2 * r) * gs + tx + 16 * c] = acc[r][c];
+}
+
+// Kernel 1: per (b, chunk, group of `hg` <= kMaxGroup heads), everything
+// of a chunk that needs no carried state. G = C B^T once for the group,
+// on the causal triangle's column blocks; then per head Gd = G o
+// exp(a_cs[i] - a_cs[j]) (exp only where j <= i < L) and y = Gd x, a slab
+// of 64 columns of P at a time, written to y. The 16 x 16 thread grid
+// gives warp w rows 16 w .. 16 w + 15 (a thread rows 16 w + (ty & 1) +
+// 2 r), so a warp's G needs column blocks c <= w and its Gd x keys
+// j < 16 w + 16: the triangle's dead half is skipped warp by warp.
+// Operands are read as 16-byte vectors along the reduction; the next x
+// slab is copied (cp.async) while one is used.
+__global__ void __launch_bounds__(f32::kThreads, 1)
+    ssd_scan_kernel_f32_diag(const float* __restrict__ x,
+                             const float* __restrict__ da,
+                             const float* __restrict__ bm,
+                             const float* __restrict__ cm, int seqlen,
+                             int heads, int p_dim, int n_dim, int chunk,
+                             int hg, int vec_x, int vec_bc,
+                             float* __restrict__ y) {
   using namespace f32;
-  extern __shared__ float smem[];
-  const int ns = n_dim + 1;              // padded row stride: state, B
-  float* state = smem;                   // [P, ns]
-  float* xs = state + p_dim * ns;        // [L, P]
-  float* bs = xs + chunk * p_dim;        // [L, ns]
-  float* cs = bs + chunk * ns;           // [kRows, N]
-  float* gd = cs + kRows * n_dim;        // [kRows, L]
-  float* a_cs = gd + kRows * chunk;      // [L] cumulative sum of da
-  float* e_cs = a_cs + chunk;            // [L] exp(a_cs)
-  float* w = e_cs + chunk;               // [L] exp(a_cs[L-1] - a_cs)
+  extern __shared__ __align__(16) float smem[];
+  const int lp = padded_chunk(chunk);
+  const int gs = lp + kPad;
+  const int n4 = pad4(n_dim);
+  const int ns = n4 + kPad;
+  float* g = smem;                         // [lp, gs]
+  float* cs = g + lp * gs;                 // [lp, ns]     (phase 1)
+  float* bs = cs + lp * ns;                // [lp, ns]     (phase 1)
+  float* gd = g + lp * gs;                 // [lp, gs]     (phase 2)
+  float* xs = gd + lp * gs;                // [2][lp, kXS] (phase 2)
+  float* a_cs = g + lp * gs + max(2 * lp * ns, lp * gs + 2 * lp * kXS);
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.x / heads;
-  const int h = blockIdx.x - b * heads;
-  const int pn = p_dim * n_dim;
-
-  for (int k = tid; k < pn; k += kThreads) {
-    const int p = k / n_dim;
-    state[p * ns + (k - p * n_dim)] = 0.f;
-  }
-
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
   const int n_chunks = seqlen / chunk;
-  for (int ic = 0; ic < n_chunks; ++ic) {
-    // first row of this chunk in the flattened [B * S] sequence axis
-    const long long t0 = (long long)b * seqlen + (long long)ic * chunk;
+  const int n_groups = (heads + hg - 1) / hg;
+  const int gi = blockIdx.x % n_groups;
+  const int ci = (blockIdx.x / n_groups) % n_chunks;
+  const int bi = blockIdx.x / n_groups / n_chunks;
+  const int h0 = gi * hg;
+  const int n_heads = min(hg, heads - h0);
+  // first row of this chunk in the flattened [B * S] sequence axis
+  const long long t0 = (long long)bi * seqlen + (long long)ci * chunk;
+  const long long x_step = (long long)heads * p_dim;
+  const bool live = 16 * warp < lp;        // the warp has rows
+  const int row0 = 16 * warp + (ty & 1);   // its rows: row0 + 2 r
+  const int n_slabs = (p_dim + kXS - 1) / kXS;
+  const int n_items = n_heads * n_slabs;   // (head, slab) in order
 
-    for (int k = tid; k < chunk * p_dim; k += kThreads) {
-      const int l = k / p_dim;
-      xs[k] = x[((t0 + l) * heads + h) * p_dim + (k - l * p_dim)];
-    }
-    for (int k = tid; k < chunk * n_dim; k += kThreads) {
-      const int l = k / n_dim;
-      const int n = k - l * n_dim;
-      bs[l * ns + n] = bm[(t0 + l) * n_dim + n];
-    }
-    for (int l = tid; l < chunk; l += kThreads)
-      a_cs[l] = da[(t0 + l) * heads + h];
-    __syncthreads();
-    if (tid == 0) {  // L <= 128 serial adds, in the reference's order
-      float s = 0.f;
-      for (int l = 0; l < chunk; ++l) {
-        s += a_cs[l];
-        a_cs[l] = s;
-      }
-    }
-    __syncthreads();
-    const float a_last = a_cs[chunk - 1];
-    for (int l = tid; l < chunk; l += kThreads) {
-      e_cs[l] = expf(a_cs[l]);
-      w[l] = expf(a_last - a_cs[l]);
-    }
-    __syncthreads();
+  auto stage_x = [&](int item) {
+    const int p0 = item % n_slabs * kXS;
+    stage(xs + (item & 1) * lp * kXS, kXS,
+          x + t0 * x_step + (long long)(h0 + item / n_slabs) * p_dim + p0,
+          x_step, chunk, lp, min(kXS, p_dim - p0), kXS, vec_x, tid);
+  };
+  stage(cs, ns, cm + t0 * n_dim, n_dim, chunk, lp, n_dim, n4, vec_bc, tid);
+  stage(bs, ns, bm + t0 * n_dim, n_dim, chunk, lp, n_dim, n4, vec_bc, tid);
+  for (int k = tid; k < n_heads * lp; k += kThreads) {
+    const int hh = k / lp;
+    const int l = k - hh * lp;
+    cp_async4(smem_addr(a_cs + k),
+              da + (l < chunk ? (t0 + l) * heads + h0 + hh : 0), l < chunk);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // da -> a_cs in place, a head per warp
+  for (int hh = warp; hh < n_heads; hh += kThreads / 32)
+    scan_chunk(a_cs + hh * lp, chunk, lp, a_cs + hh * lp, lane);
 
-    for (int r0 = 0; r0 < chunk; r0 += kRows) {
-      const int rows = min(kRows, chunk - r0);
-      for (int k = tid; k < rows * n_dim; k += kThreads) {
-        const int r = k / n_dim;
-        cs[k] = cm[(t0 + r0 + r) * n_dim + (k - r * n_dim)];
-      }
-      __syncthreads();
-      // rows r0 .. r0+rows of Gd; the causal triangle only
-      for (int k = tid; k < rows * chunk; k += kThreads) {
-        const int r = k / chunk;
-        const int j = k - r * chunk;
-        const int i = r0 + r;
-        float g = 0.f;
-        if (j <= i) {
-          const float* cr = cs + r * n_dim;
-          const float* br = bs + j * ns;
-          float acc = 0.f;
-          for (int n = 0; n < n_dim; ++n) acc = fmaf(cr[n], br[n], acc);
-          g = acc * expf(a_cs[i] - a_cs[j]);
+  switch (warp) {                          // warp w: column blocks <= w
+#define SSD_F32_GRAM(W)                                                      \
+  case W:                                                                    \
+    if (live) gram_rows<W + 1>(cs, bs, g, ns, gs, n4, row0, tx);              \
+    break;
+    SSD_F32_GRAM(0)
+    SSD_F32_GRAM(1)
+    SSD_F32_GRAM(2)
+    SSD_F32_GRAM(3)
+    SSD_F32_GRAM(4)
+    SSD_F32_GRAM(5)
+    SSD_F32_GRAM(6)
+    SSD_F32_GRAM(7)
+#undef SSD_F32_GRAM
+  }
+  __syncthreads();                         // C and B make way for Gd, x
+  stage_x(0);
+  cp_async_commit();
+
+  for (int item = 0; item < n_items; ++item) {
+    const int hh = item / n_slabs;
+    const int p0 = item % n_slabs * kXS;
+    const int h = h0 + hh;
+    if (item + 1 < n_items) stage_x(item + 1);
+    cp_async_commit();
+    if (p0 == 0) {                         // this head's Gd
+      const float* ac = a_cs + hh * lp;
+      for (int i = warp; i < lp; i += kThreads / 32)   // the keys Gd x
+        for (int j = lane; j <= (i | 15); j += 32)      // reads for row i
+          gd[i * gs + j] = j <= i && i < chunk
+                               ? g[i * gs + j] * expf(ac[i] - ac[j])
+                               : 0.f;
+    }
+    cp_async_wait<1>();                    // this item's x slab
+    __syncthreads();
+    if (live) {
+      const float* xt = xs + (item & 1) * lp * kXS;
+      float acc[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+      const int j_end = 16 * warp + 16;    // keys j <= i of the warp's rows
+#pragma unroll 1
+      for (int j = 0; j < j_end; j += 4) {
+        float4 gv[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) gv[r] = ld4(gd + (row0 + 2 * r) * gs + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float4 xv = ld4(xt + (j + jj) * kXS + 4 * tx);
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            const float gj = jj == 0   ? gv[r].x
+                             : jj == 1 ? gv[r].y
+                             : jj == 2 ? gv[r].z
+                                       : gv[r].w;
+            acc[r][0] = fmaf(gj, xv.x, acc[r][0]);
+            acc[r][1] = fmaf(gj, xv.y, acc[r][1]);
+            acc[r][2] = fmaf(gj, xv.z, acc[r][2]);
+            acc[r][3] = fmaf(gj, xv.w, acc[r][3]);
+          }
         }
-        gd[k] = g;
       }
-      __syncthreads();
-      // their rows of y: diagonal block plus the carried state's share
-      for (int k = tid; k < rows * p_dim; k += kThreads) {
-        const int r = k / p_dim;
-        const int p = k - r * p_dim;
-        const int i = r0 + r;
-        const float* gr = gd + r * chunk;
-        float acc = 0.f;
-        for (int j = 0; j <= i; ++j) acc = fmaf(gr[j], xs[j * p_dim + p], acc);
-        const float* cr = cs + r * n_dim;
-        const float* sr = state + p * ns;
-        float off = 0.f;
-        for (int n = 0; n < n_dim; ++n) off = fmaf(cr[n], sr[n], off);
-        y[((t0 + i) * heads + h) * p_dim + p] = fmaf(e_cs[i], off, acc);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int i = row0 + 2 * r;
+        if (i < chunk) {
+          float* yr = y + (t0 + i) * x_step + (long long)h * p_dim + p0;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (p0 + 4 * tx + e < p_dim) yr[4 * tx + e] = acc[r][e];
+        }
       }
-      __syncthreads();  // cs and gd are refilled by the next row block
     }
+    __syncthreads();                       // x slab and Gd free
+  }
+}
 
-    // state update, in place: each thread owns its (p, n) entries
-    const float e_last = e_cs[chunk - 1];
-    for (int k = tid; k < pn; k += kThreads) {
-      const int p = k / n_dim;
-      const int n = k - p * n_dim;
-      float acc = 0.f;
-      for (int l = 0; l < chunk; ++l)
-        acc = fmaf(xs[l * p_dim + p] * w[l], bs[l * ns + n], acc);
-      float* s = state + p * ns + n;
-      *s = fmaf(e_last, *s, acc);
+// Kernel 2: per (b, h, tile of 64 columns of P), the chunks in order with
+// the state [64, N] carried in registers, after kernel 1 has written each
+// chunk's y = Gd x:
+//   (a) y += exp(a_cs) o (C state^T), the state as it entered the chunk
+//       (read from its shared-memory copy; nothing to add at chunk 0);
+//   (b) state = exp(a_last) state + (x o w)^T B, w = exp(a_last - a_cs).
+// (a) runs on a 16 x 16 grid of [8 rows, 4 columns] tiles (rows ty + 16 r,
+// columns tx + 16 e), (b) on [4 rows of p, 4 kNV columns of n] tiles
+// (p = 4 ty + e, n = 64 q + 4 tx + e'), both fed by 16-byte loads. C and
+// da for chunk c + 1 are copied (cp.async) while (b) of chunk c runs, x
+// and B while (a) of chunk c + 1 runs.
+template <int kNV>
+__global__ void __launch_bounds__(f32::kThreads, 1)
+    ssd_scan_kernel_f32_carry(const float* __restrict__ x,
+                              const float* __restrict__ da,
+                              const float* __restrict__ bm,
+                              const float* __restrict__ cm, int seqlen,
+                              int heads, int p_dim, int n_dim, int chunk,
+                              int vec_x, int vec_bc, float* __restrict__ y,
+                              float* __restrict__ state_out) {
+  using namespace f32;
+  constexpr int kNP = 64 * kNV;            // N padded
+  constexpr int kNS = kNP + kPad;          // row stride of C, B, state
+  extern __shared__ __align__(16) float smem[];
+  const int lp = padded_chunk(chunk);
+  float* cs = smem;                        // [lp, kNS]
+  float* bs = cs + lp * kNS;               // [lp, kNS]
+  float* xs = bs + lp * kNS;               // [lp, kPTile]
+  float* ss = xs + lp * kPTile;            // [kPTile, kNS] the state
+  float* da_s = ss + kPTile * kNS;         // [lp]
+  float* a_cs = da_s + lp;                 // [lp]
+  float* e_cs = a_cs + lp;                 // [lp] exp(a_cs)
+  float* w = e_cs + lp;                    // [lp] exp(a_last - a_cs)
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int n_pt = (p_dim + kPTile - 1) / kPTile;
+  const int p0 = (blockIdx.x % n_pt) * kPTile;
+  const int bh = blockIdx.x / n_pt;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int p_cols = min(kPTile, p_dim - p0);
+  const int n_chunks = seqlen / chunk;
+  const long long x_step = (long long)heads * p_dim;
+
+  auto stage_c = [&](int ic) {             // C and da of chunk ic
+    const long long t0 = (long long)b * seqlen + (long long)ic * chunk;
+    stage(cs, kNS, cm + t0 * n_dim, n_dim, chunk, lp, n_dim, kNP, vec_bc,
+          tid);
+    for (int l = tid; l < lp; l += kThreads)
+      cp_async4(smem_addr(da_s + l), da + (l < chunk ? (t0 + l) * heads + h
+                                                      : 0),
+                l < chunk);
+  };
+  auto stage_xb = [&](int ic) {            // x's tile and B of chunk ic
+    const long long t0 = (long long)b * seqlen + (long long)ic * chunk;
+    stage(xs, kPTile, x + t0 * x_step + (long long)h * p_dim + p0, x_step,
+          chunk, lp, p_cols, kPTile, vec_x, tid);
+    stage(bs, kNS, bm + t0 * n_dim, n_dim, chunk, lp, n_dim, kNP, vec_bc,
+          tid);
+  };
+  stage_c(0);
+  cp_async_commit();
+  stage_xb(0);
+  cp_async_commit();
+
+  float st[4][kNV][4];                     // state rows 4 ty + e
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int q = 0; q < kNV; ++q)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) st[e][q][f] = 0.f;
+
+  for (int ic = 0; ic < n_chunks; ++ic) {
+    const long long t0 = (long long)b * seqlen + (long long)ic * chunk;
+    cp_async_wait<1>();                    // C and da of chunk ic
+    __syncthreads();
+    if (warp == 0) {
+      scan_chunk(da_s, chunk, lp, a_cs, lane);
+      __syncwarp();
+      const float a_last = a_cs[chunk - 1];
+      for (int l = lane; l < lp; l += 32) {
+        e_cs[l] = expf(a_cs[l]);
+        w[l] = expf(a_last - a_cs[l]);
+      }
     }
-    __syncthreads();  // xs, bs and the state are read by the next chunk
+    __syncthreads();
+
+    if (ic > 0) {                          // (a)
+      float yv[8][4], acc[8][4];
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ty + 16 * r;
+          const int p = tx + 16 * e;
+          acc[r][e] = 0.f;
+          yv[r][e] = i < chunk && p < p_cols
+                         ? y[(t0 + i) * x_step + (long long)h * p_dim + p0 + p]
+                         : 0.f;
+        }
+      for (int n = 0; n < kNP; n += 4) {
+        float4 sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sv[e] = ld4(ss + (tx + 16 * e) * kNS + n);
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {     // rows past lp: the last, unused
+          const float4 cv = ld4(cs + min(ty + 16 * r, lp - 1) * kNS + n);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = dot4(cv, sv[e], acc[r][e]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ty + 16 * r;
+          const int p = tx + 16 * e;
+          if (i < chunk && p < p_cols)
+            y[(t0 + i) * x_step + (long long)h * p_dim + p0 + p] =
+                fmaf(e_cs[i], acc[r][e], yv[r][e]);
+        }
+    }
+    __syncthreads();                       // C, da and the state copy read
+    if (ic + 1 < n_chunks) stage_c(ic + 1);
+    cp_async_commit();
+    cp_async_wait<1>();                    // x and B of chunk ic
+    __syncthreads();
+    for (int k = tid; k < lp * kPTile; k += kThreads)
+      xs[k] *= w[k / kPTile];
+    __syncthreads();
+
+    // (b)
+    const float e_last = e_cs[chunk - 1];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < kNV; ++q)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) st[e][q][f] *= e_last;
+#pragma unroll 4
+    for (int l = 0; l < lp; ++l) {
+      const float4 xv = ld4(xs + l * kPTile + 4 * ty);
+      const float xe[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+      for (int q = 0; q < kNV; ++q) {
+        const float4 bv = ld4(bs + l * kNS + 64 * q + 4 * tx);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          st[e][q][0] = fmaf(xe[e], bv.x, st[e][q][0]);
+          st[e][q][1] = fmaf(xe[e], bv.y, st[e][q][1]);
+          st[e][q][2] = fmaf(xe[e], bv.z, st[e][q][2]);
+          st[e][q][3] = fmaf(xe[e], bv.w, st[e][q][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int q = 0; q < kNV; ++q)
+        *reinterpret_cast<float4*>(ss + (4 * ty + e) * kNS + 64 * q +
+                                   4 * tx) =
+            make_float4(st[e][q][0], st[e][q][1], st[e][q][2], st[e][q][3]);
+    __syncthreads();                       // x and B read, the state copied
+    if (ic + 1 < n_chunks) stage_xb(ic + 1);
+    cp_async_commit();
   }
 
-  float* out = state_out + (long long)blockIdx.x * pn;
-  for (int k = tid; k < pn; k += kThreads) {
-    const int p = k / n_dim;
-    out[k] = state[p * ns + (k - p * n_dim)];
+  float* out = state_out + ((long long)bh * p_dim + p0) * n_dim;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int p = 4 * ty + e;
+    if (p < p_cols) {
+#pragma unroll
+      for (int q = 0; q < kNV; ++q)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int n = 64 * q + 4 * tx + f;
+          if (n < n_dim) out[(long long)p * n_dim + n] = st[e][q][f];
+        }
+    }
   }
 }
 
@@ -702,19 +1120,41 @@ int set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Kernel 1 (the chunks' diagonal blocks into y), then kernel 2 (the
+// carried state: y's off-diagonal part and the final state), on one
+// stream. hg is the heads a kernel-1 block takes (the wrapper plans it).
 int launch_f32(const float* x, const float* da, const float* bm,
                const float* cm, int batch, int seqlen, int heads, int p_dim,
-               int n_dim, int chunk, float* y, float* state_out,
+               int n_dim, int chunk, int hg, float* y, float* state_out,
                cudaStream_t stream) {
   using namespace f32;
-  const size_t smem =
-      (size_t(p_dim) * (n_dim + 1) + size_t(chunk) * p_dim +
-       size_t(chunk) * (n_dim + 1) + size_t(kRows) * n_dim +
-       size_t(kRows) * chunk + 3 * size_t(chunk)) *
-      sizeof(float);
-  if (int err = set_smem(ssd_scan_kernel_f32, (int)smem)) return err;
-  ssd_scan_kernel_f32<<<batch * heads, kThreads, smem, stream>>>(
-      x, da, bm, cm, seqlen, heads, p_dim, n_dim, chunk, y, state_out);
+  const int nv = carry_nv(n_dim);
+  if (chunk < 1 || chunk > 128 || seqlen % chunk || hg < 1 ||
+      hg > kMaxGroup || nv == 0)
+    return (int)cudaErrorInvalidValue;
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const int vec_x = p_dim % 4 == 0 && aligned(x);
+  const int vec_bc = n_dim % 4 == 0 && aligned(bm) && aligned(cm);
+  const int n_chunks = seqlen / chunk;
+
+  auto diag = ssd_scan_kernel_f32_diag;
+  const int diag_bytes = diag_smem(n_dim, chunk);
+  if (int err = set_smem(diag, diag_bytes)) return err;
+  diag<<<batch * n_chunks * ((heads + hg - 1) / hg), kThreads, diag_bytes,
+         stream>>>(x, da, bm, cm, seqlen, heads, p_dim, n_dim, chunk, hg,
+                   vec_x, vec_bc, y);
+  if (int err = (int)cudaGetLastError()) return err;
+
+  auto carry = nv == 1   ? ssd_scan_kernel_f32_carry<1>
+               : nv == 2 ? ssd_scan_kernel_f32_carry<2>
+                         : ssd_scan_kernel_f32_carry<4>;
+  const int carry_bytes = carry_smem(n_dim, chunk);
+  if (int err = set_smem(carry, carry_bytes)) return err;
+  carry<<<batch * heads * ((p_dim + kPTile - 1) / kPTile), kThreads,
+          carry_bytes, stream>>>(x, da, bm, cm, seqlen, heads, p_dim, n_dim,
+                                 chunk, vec_x, vec_bc, y, state_out);
   return (int)cudaGetLastError();
 }
 
@@ -789,8 +1229,10 @@ extern "C" {
 // seqlen % chunk == 0, chunk <= 128. bf16 only: p_tile (16, 32, 64 or 128,
 // dividing P) is the P columns a scan block owns, and items (1 to
 // kMaxItems) the state items each of its warps holds, both as the wrapper
-// planned them; P and N must be multiples of 16. f32 ignores both.
-// Returns the cudaError_t of the launch (0 = ok).
+// planned them; P and N must be multiples of 16. f32 ignores p_tile and
+// takes items as the heads one block of its diagonal kernel forms (the
+// wrapper plans it); N <= 256. Returns the cudaError_t of the launch
+// (0 = ok).
 int ssd_scan_launch(const void* x, const void* da, const void* bm,
                     const void* cm, int batch, int seqlen, int heads,
                     int p_dim, int n_dim, int chunk, int dtype, int p_tile,
@@ -802,7 +1244,8 @@ int ssd_scan_launch(const void* x, const void* da, const void* bm,
     return launch_f32(static_cast<const float*>(x), da_f,
                       static_cast<const float*>(bm),
                       static_cast<const float*>(cm), batch, seqlen, heads,
-                      p_dim, n_dim, chunk, static_cast<float*>(y), st, s);
+                      p_dim, n_dim, chunk, items, static_cast<float*>(y), st,
+                      s);
   if (dtype == 1)
     return launch_bf16(static_cast<const __nv_bfloat16*>(x), da_f,
                        static_cast<const __nv_bfloat16*>(bm),
@@ -816,6 +1259,13 @@ int ssd_scan_launch(const void* x, const void* da, const void* bm,
 // the kernel lays it out (the wrapper's smem_bytes must agree).
 int ssd_scan_bf16_smem(int p_tile, int n_dim, int chunk) {
   return bf16::layout(p_tile, n_dim, chunk).total;
+}
+
+// The f32 kernels' dynamic shared memory at (N, chunk): which = 0 the
+// diagonal block, 1 the carry block (the wrapper's f32 plan must agree).
+int ssd_scan_f32_smem(int n_dim, int chunk, int which) {
+  return which == 0 ? f32::diag_smem(n_dim, chunk)
+                    : f32::carry_smem(n_dim, chunk);
 }
 
 // Largest dynamic shared memory one block may opt into on `device`.

@@ -20,10 +20,6 @@ from repro_torch.kernels import _build
 
 SOURCES = ("flash_attention.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# per instance, as the .cu's kBlockQ / kBlockK: query rows per block, key
-# rows per tile
-BLOCK_Q = {torch.float32: 64, torch.bfloat16: 64}
-BLOCK_K = {torch.float32: 32, torch.bfloat16: 64}
 HEAD_DIMS = (64, 128, 256)     # the head dims the .cu is instantiated for
 
 
@@ -54,17 +50,24 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{err} ({msg})")
 
 
+def tiles(d: int, dtype: torch.dtype) -> tuple:
+    """(query rows per block, keys per tile) of ``dtype``'s instance at
+    head dim ``d``, as the .cu's tiles: bf16 (64, 64); f32 (128, 64) up to
+    D = 128, (64, 64) above (``f32::Tile``)."""
+    if dtype == torch.bfloat16:
+        return 64, 64
+    return (128, 64) if d <= 128 else (64, 64)
+
+
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
     """Dynamic shared memory of one block, as the .cu lays it out for
-    ``dtype``'s instance.  f32 (CUDA cores), all f32: the query tile
-    [BLOCK_Q, D+1], a key tile [BLOCK_K, D+1], a value tile [BLOCK_K, D]
-    and the probabilities [BLOCK_Q, BLOCK_K+1].  bf16 (tensor cores), all
-    bf16 with rows padded to D+8: the query tile and two stages of key and
-    value tiles [BLOCK_K, D+8]."""
-    bq, bk = BLOCK_Q[dtype], BLOCK_K[dtype]
+    ``dtype``'s instance: the query tile, and key and value tiles, rows
+    padded to D+8 bf16 with two stages of each (tensor cores) or to D+4
+    f32 with one of each (CUDA cores)."""
+    bq, bk = tiles(d, dtype)
     if dtype == torch.bfloat16:
         return 2 * (d + 8) * (bq + 2 * 2 * bk)
-    return 4 * (bq * (d + 1) + bk * (d + 1) + bk * d + bq * (bk + 1))
+    return 4 * (d + 4) * (bq + 2 * bk)
 
 
 @functools.lru_cache(maxsize=None)
@@ -92,6 +95,10 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d} is not one of the "
                          f"kernel's {HEAD_DIMS}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: the kernel copies q, k and v and "
+                         "stores o in 16-byte pieces; they must start "
+                         "16-byte aligned")
     lib = library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(

@@ -4,8 +4,9 @@ The kernel itself is CUDA C++ in ``repro_torch/csrc/ssd_scan.cu`` (see its
 header for the design and what bounds it), in two instances that its
 entry point picks by dtype: bf16 on the tensor cores (``mma.sync``), f32
 on the CUDA cores.  This module builds it on first use, declares its
-C signature, plans a shape (the bf16 instance's P tile, both instances'
-shared-memory budget) and launches it.  Shape and dtype checks live in
+C signature, plans a shape (the bf16 instance's P tile, the f32
+instance's heads per diagonal block, both instances' shared-memory
+budget) and launches it.  Shape and dtype checks live in
 the ``ops`` wrapper.
 """
 
@@ -20,7 +21,9 @@ from repro_torch.kernels import _build
 
 SOURCES = ("ssd_scan.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-ROWS = 32                      # f32: chunk rows per block of G (f32::kRows)
+F32_P_TILE = 64                # f32: P columns of a carry block (kPTile)
+F32_MAX_N = 256                # f32: the carry block's state columns at most
+F32_MAX_GROUP = 16             # f32: heads a diagonal block takes at most
 MAX_CHUNK = 128
 P_TILES = (16, 32, 64, 128)    # bf16: the P tiles the .cu is built for
 ITEM_COLS = 32                 # bf16: state columns per item (kItemCols)
@@ -46,6 +49,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_scan_launch.restype = ci
     lib.ssd_scan_bf16_smem.argtypes = [ci, ci, ci]
     lib.ssd_scan_bf16_smem.restype = ci
+    lib.ssd_scan_f32_smem.argtypes = [ci, ci, ci]
+    lib.ssd_scan_f32_smem.restype = ci
     lib.ssd_scan_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.ssd_scan_max_smem.restype = ci
     lib.ssd_scan_error_string.argtypes = [ci]
@@ -61,27 +66,62 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def padded_chunk(chunk: int) -> int:
-    """The bf16 instance's rows per chunk tile: L rounded up to 16."""
+    """Both instances' rows per chunk tile: L rounded up to 16."""
     return -(-chunk // 16) * 16
+
+
+def f32_diag_smem(n: int, chunk: int) -> int:
+    """Dynamic shared memory of the f32 diagonal block (``f32::diag_smem``),
+    all f32, Lp = L rounded up to 16 and N4 = N rounded up to 4: G [Lp,
+    Lp+4]; then C and B [Lp, N4+4] while G is formed, in the same bytes
+    later Gd [Lp, Lp+4] and two x slabs [Lp, 64]; and da, then a_cs, of
+    up to F32_MAX_GROUP heads [F32_MAX_GROUP, Lp]."""
+    lp, n4 = padded_chunk(chunk), -(-n // 4) * 4
+    return 4 * (lp * (lp + 4) + max(2 * lp * (n4 + 4),
+                                    lp * (lp + 4) + 2 * lp * 64)
+                + F32_MAX_GROUP * lp)
+
+
+def f32_carry_smem(n: int, chunk: int) -> int:
+    """Dynamic shared memory of the f32 carry block (``f32::carry_smem``),
+    all f32, N padded to 64, 128 or 256 (Np): C and B [Lp, Np+4], x's tile
+    [Lp, F32_P_TILE], the state [F32_P_TILE, Np+4] and four [Lp] vectors."""
+    lp = padded_chunk(chunk)
+    ns = 64 * (1 if n <= 64 else 2 if n <= 128 else 4) + 4
+    return 4 * (2 * lp * ns + lp * F32_P_TILE + F32_P_TILE * ns + 4 * lp)
 
 
 def smem_bytes(p: int, n: int, chunk: int, dtype: torch.dtype,
                p_tile: int = None) -> int:
-    """Dynamic shared memory of one scan block, as the .cu lays it out for
-    ``dtype``'s instance.  f32 (CUDA cores), all f32: the state [P, N+1],
-    x [L, P], B [L, N+1], a row block of C [ROWS, N] and of G [ROWS, L],
-    and three [L] vectors.  bf16 (tensor cores), for a block owning
-    ``p_tile`` (default P) columns of P, with Lp = L rounded up to 16: two
-    stages of x [Lp, Pt+8], B and C [Lp, N+8] in bf16 and da [Lp] in f32,
-    the state's hi and lo bf16 parts [Pt, N+8], and four [Lp] vectors and
-    8 totals in f32."""
+    """Dynamic shared memory of one block, as the .cu lays it out for
+    ``dtype``'s instance.  f32 (CUDA cores): the larger of its two
+    kernels' blocks, ``f32_diag_smem`` and ``f32_carry_smem``.  bf16
+    (tensor cores), for a block owning ``p_tile`` (default P) columns of P,
+    with Lp = L rounded up to 16: two stages of x [Lp, Pt+8], B and C [Lp,
+    N+8] in bf16 and da [Lp] in f32, the state's hi and lo bf16 parts [Pt,
+    N+8], and four [Lp] vectors and 8 totals in f32."""
     if dtype == torch.bfloat16:
         pt = p if p_tile is None else p_tile
         lp = padded_chunk(chunk)
         stage = 2 * lp * (pt + 8) + 2 * 2 * lp * (n + 8) + 4 * lp
         return 2 * stage + 2 * 2 * pt * (n + 8) + 4 * (4 * lp + 8)
-    return 4 * (p * (n + 1) + chunk * p + chunk * (n + 1) + ROWS * n
-                + ROWS * chunk + 3 * chunk)
+    return max(f32_diag_smem(n, chunk), f32_carry_smem(n, chunk))
+
+
+def f32_heads_per_block(bsz: int, s: int, h: int, p: int, n: int,
+                        chunk: int, sms: int) -> int:
+    """f32: the heads one diagonal block takes.  A block forms its chunk's
+    G = C B^T once (work ~ N) and then each head's Gd x (~ P); at one
+    block an SM, the plan takes the head count (up to F32_MAX_GROUP) with
+    the fewest waves x (N + heads P), the smaller count on a tie."""
+    rows = bsz * (s // chunk)
+    best, best_cost = 1, None
+    for hg in range(1, min(h, F32_MAX_GROUP) + 1):
+        waves = -(-rows * -(-h // hg) // sms)
+        cost = waves * (n + hg * p)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = hg, cost
+    return best
 
 
 def state_items(p_tile: int, n: int) -> int:
@@ -98,21 +138,26 @@ def p_tile(bsz: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
     """The P columns one scan block owns, for a call on a card with
     ``sms`` SMs and ``limit`` bytes of opt-in shared memory a block.
 
-    f32: all of P.  bf16: P / 2 where twice B * H blocks still run in one
+    f32: the carry block's F32_P_TILE columns (all of P when P is
+    smaller).  bf16: P / 2 where twice B * H blocks still run in one
     wave (one block per SM), else P; the other one where the first does
     not fit.  (At B * H = 128 on an H100's 132 SMs, P / 2 makes two waves
     and ran 1.7x slower than P; at B * H = 32 it ran 1.09x faster:
     ``scripts/ssd_scan_variants.py``, PERF.md.)  Raises ``ValueError``
     naming the limit for a shape the instance cannot take: P or N not a
     multiple of 16, no built tile, a warp's share of the state over its
-    registers, or no tile within the shared memory."""
+    registers, f32's N over F32_MAX_N, or no tile within the shared
+    memory."""
     if dtype != torch.bfloat16:
+        if n > F32_MAX_N:
+            raise ValueError(f"ssd_scan: N={n} exceeds the f32 instance's "
+                             f"{F32_MAX_N} state columns a block holds")
         need = smem_bytes(p, n, chunk, dtype)
         if need > limit:
             raise ValueError(
                 f"ssd_scan: P={p}, N={n}, chunk={chunk} needs {need} bytes "
                 f"of shared memory per block; the card allows {limit}")
-        return p
+        return min(p, F32_P_TILE)
     if p % 16 or n % 16:
         raise ValueError(f"ssd_scan: the bf16 instance takes P and N in "
                          f"multiples of 16 (mma.sync tiles), got P={p}, "
@@ -161,7 +206,10 @@ def ssd_fwd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
     n = b_mat.shape[-1]
     dev = x.device.index
     tile = p_tile(bsz, h, p, n, chunk, x.dtype, max_smem(dev), sm_count(dev))
-    items = state_items(tile, n) if x.dtype == torch.bfloat16 else 0
+    if x.dtype == torch.bfloat16:
+        items = state_items(tile, n)
+    else:                      # f32: heads a diagonal block takes
+        items = f32_heads_per_block(bsz, s, h, p, n, chunk, sm_count(dev))
     if x.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
         raise ValueError("ssd_scan: the bf16 instance copies x, b and c in "

@@ -131,10 +131,11 @@ def test_op_checks_its_inputs():
 
 # the .cu's dynamic shared memory per block: bf16 (tensor cores) holds the
 # query tile and two stages of key and value tiles, bf16 rows padded to
-# D + 8; f32 (CUDA cores) the query, key, value and probability tiles
+# D + 8; f32 (CUDA cores) the query tile (128 rows, 64 at D = 256) and one
+# key and one value tile of 64 rows, f32 rows padded to D + 4
 SMEM_PLAN = [("bfloat16", 64, 46_080), ("bfloat16", 128, 87_040),
-             ("bfloat16", 256, 168_960), ("float32", 64, 41_600),
-             ("float32", 128, 74_368), ("float32", 256, 139_904)]
+             ("bfloat16", 256, 168_960), ("float32", 64, 69_632),
+             ("float32", 128, 135_168), ("float32", 256, 199_680)]
 H100_SMEM_PER_BLOCK = 232_448       # cudaDevAttrMaxSharedMemoryPerBlockOptin
 
 
@@ -147,6 +148,15 @@ def test_smem_plan_fits_the_card(dtype, d, want):
     assert got <= H100_SMEM_PER_BLOCK
     assert kernel.smem_bytes(2 * kernel.HEAD_DIMS[-1], dt) \
         > H100_SMEM_PER_BLOCK
+
+
+# (dtype, D, query rows per block, keys per tile)
+@pytest.mark.parametrize("dtype,d,bq,bk", [
+    ("bfloat16", 64, 64, 64), ("bfloat16", 256, 64, 64),
+    ("float32", 64, 128, 64), ("float32", 128, 128, 64),
+    ("float32", 256, 64, 64)])
+def test_tiles_by_instance(dtype, d, bq, bk):
+    assert kernel.tiles(d, getattr(torch, dtype)) == (bq, bk)
 
 
 def test_cpu_runs_the_plain_version_and_never_launches(monkeypatch):

@@ -617,8 +617,8 @@ def test_async_engine_on_the_card_makes_the_cpu_decisions(arch, batch_k,
 # and d_state) with P tiles of 64 and of 128 (a warp holding 4 state
 # items), the mid-flight admission prefill (B = 1, S = 128), 5 chunks;
 # last jamba-1.5's serving prefill (128 heads of P = N = 128, B * H = 512,
-# P tile 64) in bf16 and in f32 (its kernel-vs-naive fill: the f32 plan
-# takes 231,936 bytes of shared memory).
+# P tile 64) in bf16 and in f32 (its kernel-vs-naive fill: 16 heads a
+# diagonal block, two carry blocks a head).
 SSD_CASES = [
     (2, 128, 4, 32, 16, 32, "float32"),
     (1, 256, 2, 64, 128, 128, "float32"),
@@ -729,6 +729,52 @@ def test_ssd_scan_bf16_refuses_what_it_cannot_take(cuda_device,
     assert ssd_ops.launches == before
 
 
+# (b, s, h, p, n, chunk, da scale): the f32 (CUDA-core) instance's two
+# kernels: chunk 100 (Lp = 112), a single chunk (nothing carried), 16
+# chunks (S = 2048: the carried state), P = N = 128 (two carry blocks a
+# head, two x slabs), P = 32 with N = 16, B * H = 1, an all-zero da (every
+# decay exactly 1), P and N not multiples of 4 (4-byte copies), N = 256
+# (the widest carry block), P = 200 (a ragged last P tile), and 20 heads
+# in diagonal blocks of 3 (a last group of 2)
+SSD_F32_TILES = [
+    (2, 100, 4, 64, 128, 100, 1.0),
+    (1, 128, 4, 32, 16, 128, 1.0),
+    (1, 2048, 2, 64, 128, 128, 1.0),
+    (1, 384, 2, 128, 128, 128, 1.0),
+    (3, 64, 4, 32, 16, 32, 1.0),
+    (1, 256, 1, 64, 128, 128, 1.0),
+    (2, 256, 4, 64, 128, 128, 0.0),
+    (1, 90, 2, 30, 18, 45, 1.0),
+    (1, 128, 2, 32, 256, 64, 1.0),
+    (2, 128, 3, 200, 64, 64, 1.0),
+    (4, 512, 20, 64, 128, 128, 1.0),
+]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,scale", SSD_F32_TILES)
+def test_ssd_scan_f32_tiles_match_plain(b, s, h, p, n, chunk, scale,
+                                        cuda_device):
+    x, da, bm, cm = ssd_inputs(b, s, h, p, n, "float32", s * h + p + n,
+                               cuda_device)
+    da = da * scale
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(x, da, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert_ssd_close(y, state, x, da, bm, cm, chunk)
+
+
+@pytest.mark.parametrize("n,chunk", [(128, 128), (16, 32), (18, 45),
+                                     (256, 64), (128, 100)])
+def test_ssd_scan_f32_smem_plan_matches_the_kernel(n, chunk, cuda_device):
+    lib = ssd_kernel.library()
+    assert ssd_kernel.f32_diag_smem(n, chunk) == \
+        lib.ssd_scan_f32_smem(n, chunk, 0)
+    assert ssd_kernel.f32_carry_smem(n, chunk) == \
+        lib.ssd_scan_f32_smem(n, chunk, 1)
+
+
 def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
     x, da, bm, cm = ssd_inputs(1, 256, 2, 32, 16, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="chunk"):
@@ -822,6 +868,36 @@ def test_flash_attention_matches_plain(b, s, h, kv, d, window, dtype,
     assert fa_ops.launches == before + 1
     assert out.dtype == q.dtype and out.shape == q.shape
     assert_flash_close(out, q, k, v, window=window)
+
+
+# (b, s, h, kv, d, window, causal): the f32 (CUDA-core) instance's tiles
+# (128 query rows, 64 at D = 256; 64-key tiles): S = 1, 63, 65, 200 and
+# 1000, windows of 1, one key tile (64) and >= S, non-causal with and
+# without a window, D = 64, 128 and 256, GQA groups of 1, 2 and 8
+FLASH_F32_TILES = [
+    (2, 1, 4, 2, 128, 0, True), (2, 63, 4, 2, 128, 0, True),
+    (2, 65, 4, 2, 128, 0, True), (1, 200, 4, 2, 128, 0, True),
+    (1, 1000, 4, 2, 128, 0, True), (1, 300, 4, 2, 128, 1, True),
+    (1, 300, 4, 2, 128, 64, True), (1, 300, 4, 2, 256, 64, True),
+    (1, 300, 4, 2, 128, 300, True), (1, 300, 4, 2, 128, 1000, True),
+    (1, 300, 4, 2, 128, 0, False), (2, 200, 4, 1, 64, 100, False),
+    (2, 300, 4, 4, 64, 0, True), (2, 300, 8, 4, 128, 0, True),
+    (1, 300, 8, 1, 256, 0, True), (1, 300, 8, 1, 128, 0, True),
+    (1, 300, 2, 2, 256, 0, False),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,causal", FLASH_F32_TILES)
+def test_flash_attention_f32_tiles_match_plain(b, s, h, kv, d, window,
+                                               causal, cuda_device):
+    q, k, v = flash_inputs(b, s, h, kv, d, "float32",
+                           s + h + d + window + causal, cuda_device)
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert_flash_close(out, q, k, v, causal=causal, window=window)
 
 
 def test_flash_attention_long_context_window_matches_plain(cuda_device):

@@ -160,11 +160,12 @@ def test_ssd_rejects_bad_inputs():
 H100_SMEM, H100_SMS = 232448, 132
 
 
-# (P, N, L, dtype, P tile, bytes): f32 as the CUDA-core block lays it out;
-# bf16 two stages of x [Lp, Pt+8], B and C [Lp, N+8] (bf16) and da [Lp],
-# the state's hi and lo parts [Pt, N+8] and five small f32 vectors
+# (P, N, L, dtype, P tile, bytes): f32 the larger of its diagonal and
+# carry blocks (the diagonal block at this shape); bf16 two stages of x
+# [Lp, Pt+8], B and C [Lp, N+8] (bf16) and da [Lp], the state's hi and lo
+# parts [Pt, N+8] and five small f32 vectors
 @pytest.mark.parametrize("p,n,chunk,dtype,tile,want", [
-    (64, 128, 128, "float32", None, 166144),
+    (64, 128, 128, "float32", None, 210944),
     (64, 128, 128, "bfloat16", 64, 214048),
     (64, 128, 128, "bfloat16", 32, 180256),
     (32, 16, 32, "bfloat16", 16, 11552),
@@ -188,6 +189,8 @@ def test_smem_plan_by_dtype(p, n, chunk, dtype, tile, want):
     (1, 4, 32, 16, 32, "bfloat16", 16),
     (1, 4, 16, 16, 32, "bfloat16", 16),        # no tile of 8
     (4, 32, 64, 128, 128, "float32", 64),
+    (4, 128, 128, 128, 128, "float32", 64),    # two carry blocks a head
+    (3, 4, 32, 16, 32, "float32", 32),
 ])
 def test_p_tile_choice(b, h, p, n, chunk, dtype, tile):
     assert kernel.p_tile(b, h, p, n, chunk, getattr(torch, dtype),
@@ -212,8 +215,58 @@ def test_state_items(tile, n, items):
     (512, 16, 32, "bfloat16", "no P tile"),
     (128, 512, 16, "bfloat16", "registers"),
     (256, 256, 128, "float32", "shared memory"),
+    (32, 512, 16, "float32", "state columns"),
 ])
 def test_p_tile_refusals_name_the_limit(p, n, chunk, dtype, words):
     with pytest.raises(ValueError, match=words):
         kernel.p_tile(1, 2, p, n, chunk, getattr(torch, dtype), H100_SMEM,
                       H100_SMS)
+
+
+# (P, N, L, diagonal block bytes, carry block bytes): the f32 instance's
+# two kernels.  Diagonal: G [Lp, Lp+4], then C and B [Lp, N4+4] or Gd
+# [Lp, Lp+4] and two x slabs [Lp, 64] in the same bytes, and da / a_cs of
+# up to 16 heads [16, Lp].  Carry: C and B [Lp, Np+4] (N padded to 64, 128
+# or 256), x's tile [Lp, 64], the state [64, Np+4] and four [Lp] vectors.
+@pytest.mark.parametrize("p,n,chunk,diag,carry", [
+    (64, 128, 128, 210944, 203776),      # mamba2-370m
+    (128, 128, 128, 210944, 203776),     # jamba-1.5
+    (64, 128, 100, 177408, 182528),      # a 100-token prompt: Lp = 112
+    (32, 16, 32, 27648, 43520),          # the smoke config
+    (30, 18, 45, 47616, 56576),          # neither P nor N a multiple of 4
+    (32, 256, 64, 154624, 217088),       # N = 256 at L = 64
+])
+def test_f32_smem_plan(p, n, chunk, diag, carry):
+    assert kernel.f32_diag_smem(n, chunk) == diag
+    assert kernel.f32_carry_smem(n, chunk) == carry
+    assert kernel.smem_bytes(p, n, chunk, torch.float32) == max(diag, carry)
+    assert max(diag, carry) <= H100_SMEM
+
+
+# (B, S, H, P, N, L, heads a diagonal block takes): the fewest waves of
+# 132 SMs times (N + heads P), G formed once per block, 16 heads at most
+@pytest.mark.parametrize("b,s,h,p,n,chunk,hg", [
+    (4, 512, 32, 64, 128, 128, 4),       # mamba2-370m serving: 128 blocks
+    (8, 512, 32, 64, 128, 128, 8),       # its training shape
+    (4, 512, 128, 128, 128, 128, 16),    # jamba-1.5: 128 blocks
+    (1, 128, 4, 32, 16, 32, 1),          # a few blocks: one head each
+    (1, 128, 1, 64, 128, 128, 1),        # B * H = 1
+    (4, 512, 256, 128, 128, 128, 16),    # 32 would make one wave: capped
+])
+def test_f32_heads_per_block(b, s, h, p, n, chunk, hg):
+    assert kernel.f32_heads_per_block(b, s, h, p, n, chunk, H100_SMS) == hg
+
+
+def test_meta_forward_plans_no_scratch():
+    """The f32 kernels take no scratch (kernel 1 writes y's diagonal part,
+    kernel 2 adds the carried state's): the shape-only trace allocates the
+    outputs alone and counts ``ops.work``."""
+    before = (ops.meta_flops, ops.meta_bytes)
+    x = torch.empty(4, 512, 32, 64, device="meta")
+    da = torch.empty(4, 512, 32, device="meta")
+    bm = torch.empty(4, 512, 128, device="meta")
+    y, state = ops.ssd(x, da, bm, bm, 128)
+    assert y.shape == x.shape and tuple(state.shape) == (4, 32, 64, 128)
+    flops, nbytes = ops.work(4, 512, 32, 64, 128, 128, 4)
+    assert (ops.meta_flops - before[0], ops.meta_bytes - before[1]) == \
+        (flops, nbytes)
