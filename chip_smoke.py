@@ -17,7 +17,12 @@ Phases, each printing JSON lines:
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths'
               (the batched ``kmeans_assign`` also under ``torch.func.vmap``
-              over 24 cells: one launch, bit-equal to 24);
+              over 24 cells: one launch, bit-equal to 24), and at the
+              shapes the wrappers' plans reach: head dims no instance has
+              (zero-padded), SSD chunks above 128 (sub-chunks), bf16 P and
+              N off the 16-wide tiles (padded), K-means centre sets beyond
+              one block (tiles, a tie across a tile boundary); the one
+              refusal left of each (D = 512, N = 512) in both dtypes;
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
               (20,000 samples, 4 edges, batch 128, budget 5000 per edge)
               through ``ELSession.run_sync`` and ``run_async`` on the card;
@@ -262,7 +267,9 @@ Phases, each printing JSON lines:
               ``flash_attention`` launched), serve_batched (qwen3-1.7b,
               mamba2-370m and jamba smoke: ``flash_attention`` and
               ``ssd_scan`` launched) and train_lm_ol4el (``--preset 25m
-              --rounds 10``, its checkpoint restored bit for bit), and
+              --rounds 10``, its checkpoint restored bit for bit; then
+              ``--preset 5m --rounds 10``, 4 heads of 48 on the f32
+              instance at D = 64, ``flash_attention`` launched), and
               ``launch.train --arch kmeans-traffic --mode ol4el
               --kmeans-impl cuda --alpha 1.0`` (``kmeans_assign``
               launched);
@@ -301,16 +308,19 @@ Phases, each printing JSON lines:
               copy; 2 and 3 lanes and the copy must agree); (d) in (b)'s
               world after (b),
               a (1 data x 2 model) mesh: (b)'s first round (intervals (2,
-              2)) with both edges on each rank and each edge's model split
+              2)) on mamba2-370m's first 8 of 48 layers (the cut keeps the
+              script inside its time limit), with both edges on each rank
+              and each edge's model split
               over the 2 ranks (``init_el_state(mesh=)``, every group's
               weights gathered in its forward and remat recompute, each
               gradient leaf for the clip): every rank's blocks of the
               state (params and AdamW moments) bit for bit the matching
-              slices of (b)'s one-rank state after its first round (the
+              slices of a one-rank state at the same depth after its
+              first round (the
               two ranks' blocks cover every value), losses equal and
               finite, ``ssd_scan`` launched on each rank, each rank's
               peak within 15 % of ``plan_combo(step_mode="el_round",
-              model_ranks=2)``; (e) only with 2 or more cards (else one
+              model_ranks=2, layers="0:8")``; (e) only with 2 or more cards (else one
               line says why): an NCCL world of ``min(4, cards)`` ranks,
               one a card (``--rank cards``), runs (a)'s two sync runs,
               11 (a)'s async runs (the mesh's K = 4) and 11 (d)'s churn
@@ -375,11 +385,16 @@ Phases, each printing JSON lines:
               ``ssd_scan`` at its round's per-edge batch, rows of their
               own; phase 11's batched ``kmeans_assign`` at a rank's wave
               (4, 128, 64, 3) and single event (1, 128, 64, 3), a row of
-              its own.
+              its own; phase 9b's ``--preset 5m`` training at f32 (4, 256,
+              4, 4, 48), a row of its own; and shapes under their kernels:
+              ``flash_attention`` bf16 at (8, 512, 32, 32, 96) (SDPA the
+              library), ``ssd_scan`` bf16 at (4, 512, 32, 64, 128) with
+              chunk 256, ``kmeans_assign`` at (4096, 128, 1024) (``cdist``
+              + ``min`` the library).
 
 Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
 6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
-runs), 6f, 7, each of 9b's four runs, and in each rank each of 10's and
+runs), 6f, 7, each of 9b's five runs, and in each rank each of 10's and
 11's runs) is driven with every kernel's launch count set to 0 just before it and
 read just after.
 Before phase 8's rows, one line counts each f32 (CUDA-core) instance's
@@ -395,6 +410,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -480,15 +496,21 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20,
 # in bf16, D = 300 (32 lanes, past the 8 elements a lane keeps), N = 1001
 # (not a multiple of the block's 16 points), and more lanes than a bf16
 # row has 16-byte vectors (8 lanes for 5 at D = 40, 4 for 3 at D = 24);
-# last Fig. 5's local-step minibatch of 32 (phase 4g)
+# Fig. 5's local-step minibatch of 32 (phase 4g); last centre sets beyond
+# one block's shared memory, walked in tiles: 1,000 centres of 64 (two
+# tiles), a 1,024-entry codebook at D = 128 (three; phase 8's row), bf16,
+# and the widest point the kernel takes (4,096 features, 14 centres a tile)
 KM_CASES = [(100, 8, 3, "float32"), (1000, 64, 3, "float32"),
             (513, 59, 8, "float32"), (256, 16, 32, "float32"),
             (300, 64, 3, "bfloat16"), (128, 64, 3, "float32"),
             (4000, 64, 3, "float32"), (200, 59, 3, "bfloat16"),
             (64, 300, 4, "float32"), (1001, 64, 3, "float32"),
             (300, 40, 3, "bfloat16"), (200, 24, 3, "bfloat16"),
-            (32, 64, 3, "float32")]
+            (32, 64, 3, "float32"), (1000, 64, 1000, "float32"),
+            (4096, 128, 1024, "float32"), (300, 64, 1000, "bfloat16"),
+            (64, 4096, 40, "float32")]
 MAIN_SHAPES = [(128, 64, 3), (4000, 64, 3), (32, 64, 3)]
+KM_TILED = (4096, 128, 1024)      # phase 8's row of a tiled centre set
 
 
 def km_inputs(n, d, k, dtype_name, seed):
@@ -500,11 +522,12 @@ def km_inputs(n, d, k, dtype_name, seed):
     return x, c
 
 
-def kernel_vs_plain() -> float:
-    """Returns the largest |d2 - d2_plain| at the main path's shapes."""
+def kernel_vs_plain() -> tuple:
+    """Returns the largest |d2 - d2_plain| at the main path's shapes, and
+    that of each f32 case by (n, d, k)."""
     import torch
     from repro_torch.kernels.kmeans_assign import kernel, ops, ref
-    main_err = 0.0
+    main_err, errs = 0.0, {}
     for i, (n, d, k, dt) in enumerate(KM_CASES):
         x, c = km_inputs(n, d, k, dt, seed=i)
         a, d2 = ops.assign_with_dist(x, c)
@@ -517,12 +540,15 @@ def kernel_vs_plain() -> float:
         err = float((d2 - d2_ref).abs().max())
         close = torch.allclose(d2, d2_ref, rtol=rtol, atol=atol)
         agree = float((a == a_ref).float().mean())
+        group, tile = kernel.plan(d, k, kernel.max_smem(0))
         emit("kernel_vs_plain", kernel="kmeans_assign", n=n, d=d, k=k,
-             dtype=dt, group=kernel.lane_group(d), max_abs_err=err,
+             dtype=dt, group=group, centres_a_tile=tile, max_abs_err=err,
              assign_agree=agree)
         check(close, f"kmeans_assign d2 off at {(n, d, k, dt)}: {err}")
         check(dt == "bfloat16" or agree >= 0.999,
               f"kmeans_assign assignments agree {agree} at {(n, d, k, dt)}")
+        if dt == "float32":
+            errs[n, d, k] = err
         if (n, d, k) in MAIN_SHAPES:
             main_err = max(main_err, err)
     # an exact tie (duplicated centroid) must resolve to the lower index
@@ -537,17 +563,41 @@ def kernel_vs_plain() -> float:
     check(not bool((a == 1).any()), "kmeans_assign tie went to the higher "
           "index")
     check(bool((a == a_ref).all()), "kmeans_assign tie case disagrees")
-    return main_err
+    # ties across a tile boundary: the last centre of the first tile and
+    # the first of the second are one point, as are centre 5 and the last
+    n, d, k = KM_TILED
+    _, tile = kernel.plan(d, k, kernel.max_smem(0))
+    x, c = km_inputs(n, d, k, "float32", seed=98)
+    c[tile] = c[tile - 1]
+    c[k - 1] = c[5]
+    x[:64] = c[tile - 1] + 1e-3 * x[:64]
+    x[64:128] = c[5] + 1e-3 * x[64:128]
+    a, _ = ops.assign_with_dist(x, c)
+    ab, _ = ops.assign_with_dist_batched(x[None], c[None])
+    a_ref, _ = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    higher = int(((a == tile) | (a == k - 1)).sum())
+    emit("kernel_vs_plain", kernel="kmeans_assign", case="tie across tiles",
+         n=n, d=d, k=k, centres_a_tile=tile, picked_higher=higher,
+         assign_agree=float((a == a_ref).float().mean()),
+         batched_equal=bool(torch.equal(ab[0], a)))
+    check(tile < k and higher == 0 and bool((a[:64] == tile - 1).all())
+          and bool((a[64:128] == 5).all()),
+          "kmeans_assign tie across a tile boundary went to the higher index")
+    check(bool((a == a_ref).all()) and bool(torch.equal(ab[0], a)),
+          "kmeans_assign tie across tiles disagrees with the plain version "
+          "or the batched entry")
+    return main_err, errs
 
 
 # (e, n, d, k, dtype name) of the batched entry: the compiled round's local
 # step (4 edges of (128, 64, 3)), N not a multiple of the block's points,
-# wafer widths (scalar loads), K = 1, bf16; phase 11 adds each other lane
-# count its runs launch at
+# wafer widths (scalar loads), K = 1, bf16, 1,000 centres an edge (two
+# tiles); phase 11 adds each other lane count its runs launch at
 KM_BATCHED_CASES = [(4, 128, 64, 3, "float32"), (4, 1001, 64, 3, "float32"),
                     (3, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
                     (3, 300, 64, 3, "bfloat16"), (2, 128, 64, 3, "float32"),
-                    (1, 128, 64, 3, "float32")]
+                    (1, 128, 64, 3, "float32"), (3, 300, 64, 1000, "float32")]
 KM_BATCHED_MAIN = (4, 128, 64, 3)
 KM_BATCHED_SHARDED = (2, 128, 64, 3)      # phase 10: a rank's 2 of 4 edges
 
@@ -649,7 +699,12 @@ def kernel_cells_vs_plain(n_cells: int) -> float:
 # tile 64, B * H = 512) and in f32 (its kernel-vs-naive fill: 16 heads a
 # diagonal block, two carry blocks a head), and phase 6f's training shape;
 # then the f32 instance's tiles: one chunk, 16 chunks (the carried state),
-# B * H = 1, P and N not multiples of 4 at chunk 45, N = 256 at chunk 64
+# B * H = 1, P and N not multiples of 4 at chunk 45, N = 256 at chunk 64;
+# last the shapes the wrapper's plan reaches: mamba2's public chunk of 256
+# (sub-chunks of 128) at mamba2-370m's widths in both dtypes, bf16 P = 48
+# (P tile 16), N = 24 and P = 40 with N = 24 (padded to multiples of 16),
+# N = 256 (sub-chunks of 64), the f32 (256, 256) block (sub-chunks of 64)
+# and a chunk of 130 (sub-chunks of 65)
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -674,11 +729,20 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 2048, 2, 64, 128, 128, "float32"),
              (1, 256, 1, 64, 128, 128, "float32"),
              (1, 90, 2, 30, 18, 45, "float32"),
-             (1, 128, 2, 32, 256, 64, "float32")]
-# shapes the bf16 instance refuses, with the error's words: N not a
-# multiple of 16, and a plan beyond the card's shared memory
-SSD_REFUSED = [((1, 128, 2, 32, 24, 64), "multiples of 16"),
-               ((1, 128, 2, 64, 256, 128), "shared memory")]
+             (1, 128, 2, 32, 256, 64, "float32"),
+             (4, 512, 32, 64, 128, 256, "bfloat16"),
+             (2, 512, 8, 64, 128, 256, "float32"),
+             (2, 256, 8, 48, 128, 128, "bfloat16"),
+             (1, 128, 2, 32, 24, 64, "bfloat16"),
+             (2, 256, 8, 40, 24, 64, "bfloat16"),
+             (1, 128, 2, 64, 256, 128, "bfloat16"),
+             (2, 256, 4, 64, 256, 128, "bfloat16"),
+             (1, 256, 2, 256, 256, 128, "float32"),
+             (1, 260, 4, 64, 128, 130, "bfloat16")]
+# the one shape limit left, with the error's words: N past 256 state
+# columns (in both dtypes)
+SSD_REFUSED = [((1, 128, 2, 32, 512, 64), "256 state columns")]
+SSD_CHUNK256 = (4, 512, 32, 64, 128, 256, "bfloat16")   # phase 8's row
 SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
 SSD_TRAIN = (8, 512, 32, 64, 128, 128, "bfloat16")      # phase 6c's
 SSD_JAMBA = (4, 512, 128, 128, 128, 128, "bfloat16")    # phase 5g's
@@ -741,8 +805,8 @@ def ssd_vs_plain() -> dict:
         torch.cuda.synchronize()
         res = ssd_compare(y, state, x, da, bm, cm, chunk)
         emit("kernel_vs_plain", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
-             chunk=chunk, dtype=dt, p_tile=kernel.p_tile(
-                 b, h, p, n, chunk, x.dtype, limit, sms), **res)
+             chunk=chunk, dtype=dt, plan=kernel.plan(
+                 b, s, h, p, n, chunk, x.dtype, limit, sms)._asdict(), **res)
         for part in ("y", "state"):
             check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
                   f"ssd_scan {part} off at {case}: {res[part]}")
@@ -763,17 +827,18 @@ def ssd_vs_plain() -> dict:
               and res["y"]["beyond_allowed"] == 0
               and res["state"]["beyond_allowed"] == 0,
               f"ssd_scan large-decay case {shape}: {res}")
-    for (b, s, h, p, n, chunk), words in SSD_REFUSED:
+    for ((b, s, h, p, n, chunk), words), dt in itertools.product(
+            SSD_REFUSED, ("bfloat16", "float32")):
         before = ops.launches
         try:
-            ops.ssd(*ssd_inputs(b, s, h, p, n, "bfloat16", seed=8), chunk)
+            ops.ssd(*ssd_inputs(b, s, h, p, n, dt, seed=8), chunk)
             refused = ""
         except ValueError as e:
             refused = str(e)
         emit("kernel_refuses", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
-             chunk=chunk, dtype="bfloat16", error=refused)
+             chunk=chunk, dtype=dt, error=refused)
         check(words in refused and ops.launches == before,
-              f"ssd_scan bf16 did not refuse {(p, n, chunk)}: {refused!r}")
+              f"ssd_scan {dt} did not refuse {(p, n, chunk)}: {refused!r}")
     return errs
 
 
@@ -785,7 +850,10 @@ def ssd_vs_plain() -> dict:
 # S = 17 and 300 (not multiples of its 64-row tiles) and 512, windows of
 # 100 and 64 that start mid-tile; last the f32 (CUDA-core) instance's
 # 128-row tiles: S = 1, 63, 65 and 1000, windows of 1, one key tile (64)
-# and >= S, GQA groups of 1 and 8 at D = 64 and 256
+# and >= S, GQA groups of 1 and 8 at D = 64 and 256; last head dims no
+# instance has, zero-padded to the next: D = 32 and 48 (the 5m preset's,
+# at its training shape) on 64, 96 (Phi-3-mini's; bf16 at phase 8's row)
+# on 128, 160 on 256, with a window and GQA groups
 FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 256, 4, 2, 64, 0, "float32"),
                (1, 256, 8, 1, 64, 0, "float32"),
@@ -832,7 +900,16 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (1, 300, 4, 2, 128, 512, "float32"),
                (2, 300, 4, 4, 64, 0, "float32"),
                (1, 300, 8, 1, 64, 0, "float32"),
-               (1, 300, 8, 1, 256, 64, "float32")]
+               (1, 300, 8, 1, 256, 64, "float32"),
+               (1, 64, 2, 2, 32, 0, "float32"),
+               (4, 256, 4, 4, 48, 0, "float32"),
+               (2, 300, 4, 2, 48, 100, "bfloat16"),
+               (1, 300, 8, 2, 96, 0, "float32"),
+               (8, 512, 32, 32, 96, 0, "bfloat16"),
+               (1, 200, 4, 4, 160, 64, "float32"),
+               (1, 256, 8, 1, 160, 0, "bfloat16")]
+# head dims past the largest instance (256), refused in both dtypes
+FLASH_REFUSED = [((1, 64, 2, 2, 512), "largest instance, 256")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile; then the f32
 # instance the same ways
@@ -842,6 +919,11 @@ FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
                     (1, 300, 4, 2, 128, 0, "float32"),
                     (2, 200, 4, 1, 64, 100, "float32")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
+# phase 9b's --preset 5m training (4 edges' B = 4, S = 256, 4 heads of 48,
+# f32) and a bf16 head dim of 96 (8, 512, 32, 32, 96): phase 8's rows of
+# padded head dims
+FLASH_5M = (4, 256, 4, 4, 48, 0, "float32")
+FLASH_D96 = (8, 512, 32, 32, 96, 0, "bfloat16")
 # phase 5b's prefill (qwen3-1.7b serving, 4 slots: a full wave, and a
 # mid-flight admission at a ragged 515 above), phase 6b's attention
 # (minicpm-2b: 36 heads of 64, MHA, B = 4) and phases 5c / 5d's prefill
@@ -883,7 +965,7 @@ def flash_vs_plain() -> dict:
     hold the kernel to: the reference test's bare tolerance); returns the
     largest |o - o_plain| of each causal case."""
     import torch
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     errs = {}
     cases = [(c, True) for c in FLASH_CASES] + \
         [(c, False) for c in FLASH_NON_CAUSAL]
@@ -903,12 +985,24 @@ def flash_vs_plain() -> dict:
                "plain_vs_f64": float((want - exact).abs().max()),
                "finite": bool(torch.isfinite(out).all())}
         emit("kernel_vs_plain", kernel="flash_attention", b=b, s=s, h=h,
-             kv=kv, d=d, window=window, causal=causal, dtype=dt,
-             tol=ref.tolerance(q.dtype), **res)
+             kv=kv, d=d, instance_d=kernel.padded_head_dim(d), window=window,
+             causal=causal, dtype=dt, tol=ref.tolerance(q.dtype), **res)
         check(res["finite"] and res["beyond_allowed"] == 0,
               f"flash_attention off at {case}, causal={causal}: {res}")
         if causal:
             errs[case] = res["max_abs_err"]
+    for ((b, s, h, kv, d), words), dt in itertools.product(
+            FLASH_REFUSED, ("bfloat16", "float32")):
+        before = ops.launches
+        try:
+            ops.flash_attention(*flash_inputs(b, s, h, kv, d, dt, seed=9))
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        emit("kernel_refuses", kernel="flash_attention", b=b, s=s, h=h,
+             kv=kv, d=d, dtype=dt, error=refused)
+        check(words in refused and ops.launches == before,
+              f"flash_attention {dt} did not refuse D={d}: {refused!r}")
     errs[FLASH_LONG] = flash_long_vs_plain(FLASH_LONG)
     return errs
 
@@ -5235,6 +5329,19 @@ def examples_phase() -> dict:
               and rep.n_aggregations > 0,
               f"train_lm_ol4el: {out['train_lm_ol4el']}")
         del rep, back
+        # the 5m preset: 4 heads of 48, no instance's head dim (the f32
+        # instance at D = 64 on zero-padded q, k and v)
+        reset_counts()
+        rep = train_lm_ol4el.main(["--preset", "5m", "--rounds", "10",
+                                   "--ckpt", f"{tmp}/lm_5m.npz"])
+        launches = counts()
+        out["train_lm_ol4el_5m"] = {
+            "launches": launches, "aggregations": rep.n_aggregations,
+            "final_loss": rep.final_metric}
+        check(launches["flash_attention"] > 0 and rep.n_aggregations > 0
+              and rep.final_metric == rep.final_metric,
+              f"train_lm_ol4el --preset 5m: {out['train_lm_ol4el_5m']}")
+        del rep
     reset_counts()
     rep = launch_train.main(["--arch", "kmeans-traffic", "--mode", "ol4el",
                              "--el-mode", "sync", "--kmeans-impl", "cuda",
@@ -5278,6 +5385,7 @@ LM_EDGES, LM_H_MAX, LM_SEQ = 2, 2, 512
 LM_INTERVALS = ((2, 2), (1, 2), (2, 1))
 LM_WEIGHTS = (1.0, 3.0)
 LM_EDGE_BATCH = 8              # per-edge batch, its plan checked to fit
+LM_AXIS_LAYERS = "0:8"         # (d)'s layer window: 8 of mamba2-370m's 48
 LM_CARD_SHARE = 0.8            # of the card both ranks' planned peaks may use
 
 
@@ -5306,15 +5414,16 @@ def lm_tokens(edge_batch: int, seq: int):
         np.int32)
 
 
-def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
-    """``make_el_round`` on mamba2-370m (the planner's model and AdamW),
+def lm_rounds(edge_batch: int, seq: int, mesh=None, layers=None) -> dict:
+    """``make_el_round`` on mamba2-370m (the planner's model and AdamW; only
+    its layer window ``layers``, ``a:b``, where given),
     ``LM_INTERVALS`` rounds over ``mesh`` (None: both edges here), the
     ``ssd_scan`` count set to 0 just before and read just after; the
     state's peak over the rounds (the rise over what was allocated, plus
     the arguments' blocks, as ``dryrun.measure_step`` reads it).  On one
-    rank also ``first_blocks``: after the first round, for each rank of
-    (d)'s (1 x 2) mesh the digests of the state's slices that rank holds
-    (``model_blocks``)."""
+    rank at a layer window also ``first_blocks``: after the first round,
+    for each rank of (d)'s (1 x 2) mesh the digests of the state's slices
+    that rank holds (``model_blocks``)."""
     import torch
     from repro_torch.config import get_config
     from repro_torch.federated import local_sgd
@@ -5323,6 +5432,8 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import gather_edge_stack
     cfg = get_config(LM_ARCH).model
+    if layers:
+        cfg = dryrun.layer_window(cfg, layers)
     model = dryrun.build(cfg, "cuda")
     tc = dryrun._dryrun_train_cfg(edge_batch * LM_EDGES, seq)
     rnd = local_sgd.make_el_round(model, tc, LM_H_MAX, mesh=mesh)
@@ -5346,7 +5457,7 @@ def lm_rounds(edge_batch: int, seq: int, mesh=None) -> dict:
         losses.append(float(met["mean_loss"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
-        if r == 0 and mesh is None:
+        if r == 0 and mesh is None and layers:
             first_blocks = [model_blocks(cfg, tc, state, i)
                             for i in range(RANKS)]
     launches = ssd_ops.launches
@@ -5394,8 +5505,9 @@ def model_blocks(cfg, tc, state, index: int) -> list:
 
 
 def lm_model_axis(edge_batch: int, seq: int, mesh) -> dict:
-    """(d) on one rank of the (1 x 2) mesh: ``lm_rounds``' model, state
-    and tokens, both edges, this rank's blocks (``init_el_state(mesh=)``),
+    """(d) on one rank of the (1 x 2) mesh: ``lm_rounds``' model at its
+    ``LM_AXIS_LAYERS`` window, state and tokens, both edges, this rank's
+    blocks (``init_el_state(mesh=)``),
     the first round only; the ``ssd_scan`` count set to 0 just before and
     read just after, the peak read as ``lm_rounds`` reads it, the digests
     of the rank's blocks, and (past the counted round) one pass of the
@@ -5406,7 +5518,7 @@ def lm_model_axis(edge_batch: int, seq: int, mesh) -> dict:
     from repro_torch.interop import tree_leaves, tree_map
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch import dryrun
-    cfg = get_config(LM_ARCH).model
+    cfg = dryrun.layer_window(get_config(LM_ARCH).model, LM_AXIS_LAYERS)
     model = dryrun.build(cfg, "cuda")
     tc = dryrun._dryrun_train_cfg(edge_batch * LM_EDGES, seq)
     rnd = local_sgd.make_el_round(model, tc, LM_H_MAX, mesh=mesh)
@@ -5758,8 +5870,8 @@ def rank_world(n: int, mode: str, spec: dict) -> list:
 
 def lm_plans() -> dict:
     """The ``--step el_round`` plans of (b) (one edge a rank over 2 data
-    ranks) and (d) (both edges, each model over 2 model ranks) at
-    ``LM_EDGE_BATCH``: meta tensors on the host, run on a thread while the
+    ranks) and (d) (both edges, each model over 2 model ranks, its
+    ``LM_AXIS_LAYERS`` window) at ``LM_EDGE_BATCH``: meta tensors on the host, run on a thread while the
     gloo world runs."""
     from repro_torch.launch import dryrun
     kw = dict(step_mode="el_round", h_max=LM_H_MAX,
@@ -5768,7 +5880,8 @@ def lm_plans() -> dict:
                                       data_ranks=RANKS, **kw),
             "model": dryrun.plan_combo(LM_ARCH, "train_4k",
                                        edges_per_rank=LM_EDGES,
-                                       model_ranks=RANKS, **kw)}
+                                       model_ranks=RANKS,
+                                       layers=LM_AXIS_LAYERS, **kw)}
 
 
 # -- phase 10 (f): the ring cache over ranks --------------------------------
@@ -6007,6 +6120,7 @@ def ranks_phase(part2_refs: dict) -> dict:
     want = sync_references()
     edge_batch = LM_EDGE_BATCH
     one = lm_rounds(edge_batch, LM_SEQ)
+    one_axis = lm_rounds(edge_batch, LM_SEQ, layers=LM_AXIS_LAYERS)
     t_base = time.perf_counter()
     base = part2_references(part2_refs)
     base_s = time.perf_counter() - t_base
@@ -6093,7 +6207,7 @@ def ranks_phase(part2_refs: dict) -> dict:
               f"{planned} vs measured {lm['peak_bytes']} ({err:+.3f})")
         check(res["modules"] == [], f"rank {r} imported {res['modules']}")
         out["ssd_scan"] += lm["ssd_scan"]
-    out["model_axis"] = model_axis_checks(ranks, one, plans["model"],
+    out["model_axis"] = model_axis_checks(ranks, one_axis, plans["model"],
                                          edge_batch, card)
     out["ring"] = {"kernel_err": ring_ref["kernel_err"],
                    "seconds": ring_ref["seconds"] + max(
@@ -6299,16 +6413,17 @@ def cards_phase(spec: dict, want: dict, refs: dict, base: dict, one: dict,
 
 def model_axis_checks(ranks: list, one: dict, plan: dict, edge_batch: int,
                       card: str) -> dict:
-    """(d)'s lines and checks: each rank's blocks against (b)'s one-rank
-    state after its first round, its loss, ``ssd_scan``, its peak against
-    the plan."""
+    """(d)'s lines and checks: each rank's blocks against the one-rank
+    state at (d)'s layer window after its first round (``one``), its loss,
+    ``ssd_scan``, its peak against the plan."""
     planned = plan["memory"]["peak_live_bytes"]
     launches = 0
     for r, res in enumerate(ranks):
         ma = res["model_axis"]
         err = planned / ma["peak_bytes"] - 1.0
         emit("ranks_el_round_model_axis", arch=LM_ARCH, rank=r, card=card,
-             mesh={"data": 1, "model": RANKS}, edges=ma["edges"],
+             layers=LM_AXIS_LAYERS, mesh={"data": 1, "model": RANKS},
+             edges=ma["edges"],
              edge_batch=edge_batch, h_max=LM_H_MAX,
              intervals=LM_INTERVALS[0], round_s=ma["round_s"],
              one_rank_first_round_s=one["round_s"][0],
@@ -6711,12 +6826,13 @@ def part2_checks(ranks: list, refs: dict, base: dict, card: str) -> dict:
 
 def kmeans_timing(n: int, d: int, k: int) -> dict:
     import torch
-    from repro_torch.kernels.kmeans_assign import ops, ref
+    from repro_torch.kernels.kmeans_assign import kernel, ops, ref
     from repro_torch.bench.roofline import F32_FLOPS, HBM_BW
     x, c = km_inputs(n, d, k, "float32", seed=7)
     flops, nbytes = ops.work(n, d, k)
     t_bytes, t_ops = nbytes / HBM_BW, flops / F32_FLOPS
-    out = {"n": n, "d": d, "k": k}
+    out = {"n": n, "d": d, "k": k,
+           "centres_a_tile": kernel.plan(d, k, kernel.max_smem(0))[1]}
     for key, fn in (("", lambda: ops.assign_with_dist(x, c)),
                     ("plain_", lambda: ref.assign_ref(x, c)),
                     ("library_", lambda: torch.cdist(x, c).min(-1))):
@@ -6798,10 +6914,10 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     flops, nbytes = ops.work(b, s, h, p, n, chunk, x.element_size())
     peak = PEAK_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
     t_bytes, t_ops = nbytes / HBM_BW, flops / peak
+    run = kernel.plan(b, s, h, p, n, chunk, x.dtype, kernel.max_smem(0),
+                      kernel.sm_count(0))
     out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
-           "dtype": dtype_name, "p_tile": kernel.p_tile(
-               b, h, p, n, chunk, x.dtype, kernel.max_smem(0),
-               kernel.sm_count(0))}
+           "dtype": dtype_name, "p_tile": run.p_tile, "plan": run._asdict()}
     for key, fn, iters in (
             ("", lambda: ops.ssd(x, da, bm, cm, chunk), 50),
             ("plain_", lambda: ref.ssd_reference(x, da, bm, cm, chunk), 20)):
@@ -6827,7 +6943,7 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     CUDA cores', as each instance runs)."""
     import torch
     from repro_torch.bench.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
-    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     q, k, v = flash_inputs(b, s, h, kv, d, dtype_name, seed=13)
     # q, k, v read once, o written once; QK^T and PV on the attended
     # pairs (the causal triangle, cut to the window; ``ops.work``)
@@ -6849,8 +6965,8 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
         def library():
             return sdpa(qt, kt, vt, is_causal=True, enable_gqa=gqa)
     out = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "window": window,
-           "dtype": dtype_name, "library": sdpa_name(gqa, window),
-           "pairs_per_sequence": pairs}
+           "instance_d": kernel.padded_head_dim(d), "dtype": dtype_name,
+           "library": sdpa_name(gqa, window), "pairs_per_sequence": pairs}
     # the long instances' plain version holds tens of GB of logits: fewer
     # repeats
     few = 20 if s <= 4096 else 3
@@ -6866,6 +6982,13 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     out.update(bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=nbytes, flops=flops)
+    if out["instance_d"] != d:
+        # what the pad costs: the same call at the instance's head dim
+        wide = flash_inputs(b, s, h, kv, out["instance_d"], dtype_name,
+                            seed=14)
+        out["instance_ms"] = cuda_ms(lambda: ops.flash_attention(
+            *wide, window=window), iters=50, warmup=5, queued=True)
+        del wide
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -7026,7 +7149,7 @@ def main() -> None:
 
     build_all()
     count_f32_launches()
-    km_err = kernel_vs_plain()
+    km_err, km_errs = kernel_vs_plain()
     kmb_errs = kernel_batched_vs_plain()
     kmb_err = kmb_errs[KM_BATCHED_MAIN]
     kmc_err = max(kernel_cells_vs_plain(SWEEP_CELLS),
@@ -7084,7 +7207,7 @@ def main() -> None:
     mesh_planned = mesh_plan_phase()
     fa_errs[FLASH_MESH_TRAIN] = mesh_planned["errs"][FLASH_MESH_TRAIN]
     ssd_errs[SSD_MESH_PREFILL] = mesh_planned["errs"][SSD_MESH_PREFILL]
-    examples_phase()
+    examples = examples_phase()
     ranks = ranks_phase({"async": events["replayed"],
                          "sweep": sweep["digests"],
                          "fleet": fleet["kmeans_async"],
@@ -7103,6 +7226,10 @@ def main() -> None:
     km_shapes = [kmeans_timing(*s) for s in MAIN_SHAPES + [MICRO_SHAPE]]
     km = km_shapes[0]
     emit("kmeans_timing", case="microbench E-step", **km_shapes[-1])
+    km_tiled = dict(kmeans_timing(*KM_TILED), max_abs_err=km_errs[KM_TILED])
+    emit("kmeans_timing", case="a 1,024-entry codebook in centre tiles",
+         **km_tiled)
+    km_shapes.append(km_tiled)
     kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
     emit("kmeans_batched_timing", **kmb)
     kms = kmeans_batched_timing(*KM_BATCHED_SHARDED)
@@ -7140,10 +7267,19 @@ def main() -> None:
     emit("ssd_timing", **ssd_admit)
     ssd_train = ssd_timing(*SSD_TRAIN)
     emit("ssd_timing", case="mamba2-370m training", **ssd_train)
+    ssd_c256 = dict(ssd_timing(*SSD_CHUNK256),
+                    max_abs_err=ssd_errs[SSD_CHUNK256])
+    emit("ssd_timing", case="chunk 256 in sub-chunks of 128", **ssd_c256)
     fa = flash_timing(*FLASH_MAIN)
     emit("flash_timing", **fa)
     fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
     emit("flash_timing", **fa32)
+    fa_5m = flash_timing(*FLASH_5M)
+    emit("flash_timing", case="train_lm_ol4el --preset 5m: D = 48 on the "
+         "D = 64 instance", **fa_5m)
+    fa_d96 = dict(flash_timing(*FLASH_D96), max_abs_err=fa_errs[FLASH_D96])
+    emit("flash_timing", case="bf16 D = 96 on the D = 128 instance",
+         **fa_d96)
     fa_serve = flash_timing(*FLASH_SERVE)
     emit("flash_timing", case="qwen3-1.7b serving prefill", **fa_serve)
     fa_minicpm = flash_timing(*FLASH_MINICPM)
@@ -7294,7 +7430,7 @@ def main() -> None:
         "bound_by": ssd["bound_by"], "library_ms": None,
         "instances": instances(ssd, ssd32),
         "launch_floor_ms": launch_floor_ms,
-        "shapes": [ssd, ssd32, ssd_admit]}, {
+        "shapes": [ssd, ssd32, ssd_admit, ssd_c256]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
@@ -7304,7 +7440,7 @@ def main() -> None:
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
         "library": fa["library"],
         "instances": instances(fa, fa32),
-        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32]}] + [{
+        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32, fa_d96]}] + [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
@@ -7315,6 +7451,12 @@ def main() -> None:
         "library": t["library"],
         "launch_floor_ms": launch_floor_ms, "shapes": [t]}
         for name, path, n, case, t in (
+            ("flash_attention_5m_train",
+             "phase 9b: train_lm_ol4el --preset 5m --rounds 10 (4 edges, "
+             "B = 4, S = 256, 4 heads of 48 at f32: q, k and v zero-padded "
+             "to the D = 64 instance), every layer's forward",
+             examples["train_lm_ol4el_5m"]["launches"]["flash_attention"],
+             FLASH_5M, fa_5m),
             ("flash_attention_serve_prefill",
              "phase 5b: qwen3-1.7b serving, every layer's prefill fill",
              served["flash_attention"], FLASH_SERVE, fa_serve),

@@ -205,7 +205,8 @@ def time_shapes(libs) -> None:
         err = libs["shared_g"].ssd_scan_set_gram(gram.data_ptr())
         if err:
             raise SystemExit(f"setting the G buffer failed: CUDA error {err}")
-        planned = kernel.p_tile(b, h, p, n, chunk, x.dtype, limit, sms)
+        planned = kernel.plan(b, s, h, p, n, chunk, x.dtype, limit,
+                              sms).p_tile
         variants = {f"pt{t}_{name}": (libs[name], t)
                     for t in (p, p // 2) for name in ("as_built", "shared_g")}
         variants["bf16_rounding"] = (libs["bf16_rounding"], planned)

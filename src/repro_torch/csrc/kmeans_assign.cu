@@ -28,10 +28,17 @@
 //     The loads are issued before the centroids are staged, so the two
 //     global latencies overlap. Past 8 elements a lane (D > 256 at G = 32)
 //     the rest of the row is re-read per centroid (from L1).
-//   * The [K, D] centroids live in shared memory in f32 for the block's
-//     lifetime (the TPU kernel's "centroids resident in VMEM"); a lane reads
-//     its slice of a centroid, the groups of a warp read the same addresses
-//     (broadcasts).
+//   * The [K, D] centroids live in shared memory in f32 (the TPU kernel's
+//     "centroids resident in VMEM"); a lane reads its slice of a centroid,
+//     the groups of a warp read the same addresses (broadcasts). Where K
+//     centroids do not fit one block's shared memory, the block walks them
+//     in tiles of Kt rows (the wrapper sizes Kt to fit, all K in one tile
+//     where they do), and each group keeps its point's running minimum and
+//     argmin in registers from tile to tile. The comparison stays strict
+//     and runs in centroid order, so ties keep the lowest index across
+//     tiles too. With one tile the launch takes an instance with the tile
+//     loop folded away (kTiled false): the whole-K kernel's code, and its
+//     outputs bit for bit.
 //   * Each lane forms its partial ||x||^2 and the K partial dots in a fixed
 //     order; the group sums them with log2 G rounds of __shfl_xor_sync. The
 //     butterfly leaves every lane with the same bits (a + b == b + a), and
@@ -43,8 +50,12 @@
 //     zeros and write nothing. 128 threads a block: 16 points at G = 8, so
 //     the local step's N = 128 spreads over 8 SMs instead of one.
 // The dependent chain at D = 64 is now 8 FMAs, 3 shuffles and an add per
-// product. wgmma/TMA pipelines are left for when a caller's shape makes this
-// bandwidth- or compute-bound.
+// product. A centre set in several tiles is another matter: each block
+// restages every tile for its few points (8 at D = 128), one block an SM
+// when a tile fills the shared memory, and walks the centres one dependent
+// chain after another; such a shape wants many points a block (a GEMM's
+// tiles). That, and wgmma/TMA pipelines, are left for when a caller's shape
+// makes this bandwidth- or compute-bound.
 //
 // Edges: the reference also runs the TPU kernel under jax.vmap over edges
 // (src/repro/el/ingraph.py, the compiled EL round's local blocks), so the
@@ -151,16 +162,20 @@ __device__ __forceinline__ float lane_dot(const float (&xv)[kRegElems],
   return part;
 }
 
-template <typename T, int V>
+// kTiled false: all k centroids in one tile (kt == k), the loop over tiles
+// folded away at compile time, so the code is the whole-K kernel's (kt comes
+// last, leaving the other parameters where that kernel had them)
+template <typename T, int V, bool kTiled>
 __global__ void __launch_bounds__(kThreads)
     kmeans_assign_kernel(const T* __restrict__ x,
                          const T* __restrict__ centers, int n, int d, int k,
                          int group, int32_t* __restrict__ out_assign,
-                         float* __restrict__ out_d2) {
+                         float* __restrict__ out_d2, int kt) {
   constexpr int kSlots = kRegElems / V;
   extern __shared__ float4 smem4[];
-  float* c_s = reinterpret_cast<float*>(smem4);  // [k, d]
-  float* c2_s = c_s + k * d;                      // [k]
+  if (!kTiled) kt = k;                  // (the launch passes k; folded)
+  float* c_s = reinterpret_cast<float*>(smem4);  // [kt, d]
+  float* c2_s = c_s + kt * d;                     // [kt]
 
   // this block's edge: its points, centroids and outputs
   const long long edge = blockIdx.y;
@@ -191,36 +206,44 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < V; ++t) xv[s * V + t] = v[t];
   }
 
-  for (int i = tid; i < k * d; i += kThreads) c_s[i] = to_f32(centers[i]);
-  __syncthreads();
-  // ||c||^2, centroid c0 + gi by group gi (the loop is uniform over the
-  // block, so every lane takes part in every shuffle)
-  for (int c0 = 0; c0 < k; c0 += groups) {
-    const int c = c0 + gi;
-    float part = 0.f;
-    if (c < k) {
-      for (int j = r; j < d; j += group)
-        part = fmaf(c_s[c * d + j], c_s[c * d + j], part);
-    }
-    part = group_sum(part, group);
-    if (c < k && r == 0) c2_s[c] = part;
-  }
-  __syncthreads();
-
-  // a dead point's lanes still join the shuffles; its tail is not read
-  const int nv_live = live ? nv : min(nv, group * kSlots);
-  const float x2 =
-      group_sum(lane_dot<T, V>(xv, x_row, nullptr, nv_live, r, group), group);
+  float x2 = 0.f;
   float best = 0.f;
   int best_k = 0;
-  for (int c = 0; c < k; ++c) {
-    const float dot = group_sum(
-        lane_dot<T, V>(xv, x_row, c_s + c * d, nv_live, r, group), group);
-    // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
-    const float d2 = (x2 - 2.f * dot) + c2_s[c];
-    if (c == 0 || d2 < best) {  // strict <: ties keep the lowest index
-      best = d2;
-      best_k = c;
+  // centroids t0 .. t0 + kc - 1 at a time (the loop is uniform over the
+  // block, so every lane takes part in every shuffle and barrier)
+  for (int t0 = 0; t0 < (kTiled ? k : 1); t0 += (kTiled ? kt : 1)) {
+    const int kc = kTiled ? min(kt, k - t0) : k;
+    if (kTiled && t0 > 0) __syncthreads();   // every group is done with it
+    const T* tile = centers + (long long)t0 * d;
+    for (int i = tid; i < kc * d; i += kThreads) c_s[i] = to_f32(tile[i]);
+    __syncthreads();
+    // ||c||^2, centroid c0 + gi by group gi
+    for (int c0 = 0; c0 < kc; c0 += groups) {
+      const int c = c0 + gi;
+      float part = 0.f;
+      if (c < kc) {
+        for (int j = r; j < d; j += group)
+          part = fmaf(c_s[c * d + j], c_s[c * d + j], part);
+      }
+      part = group_sum(part, group);
+      if (c < kc && r == 0) c2_s[c] = part;
+    }
+    __syncthreads();
+
+    // a dead point's lanes still join the shuffles; its tail is not read
+    const int nv_live = live ? nv : min(nv, group * kSlots);
+    if (!kTiled || t0 == 0)
+      x2 = group_sum(lane_dot<T, V>(xv, x_row, nullptr, nv_live, r, group),
+                     group);
+    for (int c = 0; c < kc; ++c) {
+      const float dot = group_sum(
+          lane_dot<T, V>(xv, x_row, c_s + c * d, nv_live, r, group), group);
+      // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
+      const float d2 = (x2 - 2.f * dot) + c2_s[c];
+      if (t0 + c == 0 || d2 < best) {  // strict <: ties keep the lowest index
+        best = d2;
+        best_k = t0 + c;
+      }
     }
   }
   if (live && r == 0) {
@@ -231,10 +254,11 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int V>
 int launch(const void* x, const void* centers, int edges, int n, int d, int k,
-           int group, int32_t* out_assign, float* out_d2,
+           int kt, int group, int32_t* out_assign, float* out_d2,
            cudaStream_t stream) {
-  auto kernel = kmeans_assign_kernel<T, V>;
-  const size_t smem = (size_t(k) * d + k) * sizeof(float);
+  auto kernel = kt < k ? kmeans_assign_kernel<T, V, true>
+                       : kmeans_assign_kernel<T, V, false>;
+  const size_t smem = (size_t(kt) * d + kt) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -244,7 +268,7 @@ int launch(const void* x, const void* centers, int edges, int n, int d, int k,
   const dim3 blocks((n + points - 1) / points, edges);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(centers), n, d, k,
-      group, out_assign, out_d2);
+      group, out_assign, out_d2, kt);
   return (int)cudaGetLastError();
 }
 
@@ -253,16 +277,16 @@ int launch(const void* x, const void* centers, int edges, int n, int d, int k,
 // otherwise
 template <typename T>
 int launch_dtype(const void* x, const void* centers, int edges, int n, int d,
-                 int k, int group, int32_t* out_assign, float* out_d2,
+                 int k, int kt, int group, int32_t* out_assign, float* out_d2,
                  cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   const bool aligned = d % kV == 0 && (uintptr_t)x % 16 == 0 &&
                        (uintptr_t)centers % 16 == 0;
   if (aligned)
-    return launch<T, kV>(x, centers, edges, n, d, k, group, out_assign,
+    return launch<T, kV>(x, centers, edges, n, d, k, kt, group, out_assign,
                          out_d2, stream);
-  return launch<T, 1>(x, centers, edges, n, d, k, group, out_assign, out_d2,
-                      stream);
+  return launch<T, 1>(x, centers, edges, n, d, k, kt, group, out_assign,
+                      out_d2, stream);
 }
 
 }  // namespace
@@ -271,21 +295,22 @@ extern "C" {
 
 // x [edges, n, d] and centers [edges, k, d], contiguous, into out_assign /
 // out_d2 [edges, n]; edge e's points against edge e's centroids (edges = 1:
-// one problem). dtype: 0 = float32, 1 = bfloat16 (x and centers share it).
-// group: lanes per point, a power of two <= 32. Returns the cudaError_t of
-// the launch (0 = success).
+// one problem). kt: the centroids a block holds in shared memory at once
+// (1 to k; k: all of them). dtype: 0 = float32, 1 = bfloat16 (x and
+// centers share it). group: lanes per point, a power of two <= 32.
+// Returns the cudaError_t of the launch (0 = success).
 int kmeans_assign_launch(const void* x, const void* centers, int edges, int n,
-                         int d, int k, int dtype, int group,
+                         int d, int k, int kt, int dtype, int group,
                          int32_t* out_assign, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group < 1 || group > 32 || (group & (group - 1)) != 0 || edges < 1 ||
-      edges > 65535)
+      edges > 65535 || kt < 1 || kt > k)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dtype<float>(x, centers, edges, n, d, k, group, out_assign,
-                               out_d2, s);
+    return launch_dtype<float>(x, centers, edges, n, d, k, kt, group,
+                               out_assign, out_d2, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(x, centers, edges, n, d, k, group,
+    return launch_dtype<__nv_bfloat16>(x, centers, edges, n, d, k, kt, group,
                                        out_assign, out_d2, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,18 +3,24 @@
 The kernel itself is CUDA C++ in ``repro_torch/csrc/flash_attention.cu``
 (see its header for the design and what bounds it), in two instances that
 its entry point picks by dtype: bf16 on the tensor cores (``mma.sync``),
-f32 on the CUDA cores.  This module builds it on first use, declares its
-C signature, checks a shape's shared-memory budget and launches it.
-Shape and dtype checks live in the ``ops`` wrapper.
+f32 on the CUDA cores, each built for the head dims ``HEAD_DIMS``.  This
+module builds it on first use, declares its C signature, checks a shape's
+shared-memory budget and launches it.  Another head dim up to the largest
+instance runs on that instance's tiles: ``pad_head_dim`` zero-pads q, k
+and v along D (zero columns add exact zeros to every q.k, and give zero
+output columns), the launch keeps the caller's scale 1/sqrt(D), and
+``unpad`` slices the output back.  Shape and dtype checks live in the
+``ops`` wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import math
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -50,6 +56,34 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
                            f"{err} ({msg})")
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernel runs a caller's ``d`` at: the smallest
+    instance in ``HEAD_DIMS`` that holds it.  Raises past the largest."""
+    for dp in HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash_attention: head dim {d} exceeds the kernel's "
+                     f"largest instance, {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v zero-padded along D to ``padded_head_dim(D)``: new
+    contiguous tensors (16-byte aligned, as a fresh allocation is), or
+    the inputs themselves where D is an instance's."""
+    d = q.shape[-1]
+    extra = padded_head_dim(d) - d
+    if not extra:
+        return q, k, v
+    return tuple(F.pad(t, (0, extra)) for t in (q, k, v))
+
+
+def unpad(out: torch.Tensor, d: int) -> torch.Tensor:
+    """The first ``d`` columns of a padded output, contiguous (``out``
+    itself where it has ``d``)."""
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
+
+
 def tiles(d: int, dtype: torch.dtype) -> tuple:
     """(query rows per block, keys per tile) of ``dtype``'s instance at
     head dim ``d``, as the .cu's tiles: bf16 (64, 64); f32 (128, 64) up to
@@ -81,11 +115,14 @@ def max_smem(device_index: int) -> int:
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool, window: int, out: torch.Tensor) -> None:
+              causal: bool, window: int, out: torch.Tensor,
+              scale: float) -> None:
     """Launch on the current stream: q [B,S,H,D], k and v [B,S,KV,D]
     (contiguous, one CUDA device, one dtype, f32 or bf16) into out
-    [B,S,H,D].  Raises when the head dim's block does not fit the card's
-    shared memory or the kernel has no instance for it."""
+    [B,S,H,D], the logits scaled by ``scale`` (1/sqrt of the caller's head
+    dim, which a padded call does not change).  Raises when the head
+    dim's block does not fit the card's shared memory or the kernel has
+    no instance for it."""
     bsz, s, h, d = q.shape
     need, limit = smem_bytes(d, q.dtype), max_smem(q.device.index)
     if need > limit:
@@ -103,6 +140,6 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, s, h,
-        k.shape[2], d, int(causal), int(window), 1.0 / math.sqrt(d),
+        k.shape[2], d, int(causal), int(window), scale,
         _DTYPE_CODE[q.dtype], stream)
     _check(lib, err, "launch")

@@ -13,15 +13,23 @@ launch), so a run can show that its attention went through the kernel.
 Under activation checkpointing the forward runs again in the backward's
 recompute and counts again.
 
+A head dim that is not one of the kernel's instances (``kernel.HEAD_DIMS``)
+runs on the next larger one: the forward zero-pads q, k and v along D
+(``kernel.pad_head_dim``), launches with the caller's scale 1/sqrt(D) and
+slices the output back (``kernel.unpad``), which is exact.  Past the
+largest instance (256) it raises.  The backward stays at the caller's D.
+
 On ``meta`` tensors (the planner's shape-only trace,
-``repro_torch.launch.dryrun``) the forward allocates the kernel's output,
-computes nothing, launches nothing and adds the kernel's ``work`` to
-``meta_flops`` / ``meta_bytes``: the planner counts what the card's path
-does (the attended pairs only), not the plain version's full square.
+``repro_torch.launch.dryrun``) the forward allocates what the card's path
+does (the padded copies and the kernel's output), computes nothing,
+launches nothing and adds the kernel's ``work`` at the caller's D to
+``meta_flops`` / ``meta_bytes``: the planner counts what the function
+needs (the attended pairs only), not the plain version's full square.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -81,22 +89,24 @@ def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
     global launches, meta_flops, meta_bytes
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention: no path for device {q.device}")
+    if q.device.type == "cuda" and not all(t.is_contiguous()
+                                           for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    bsz, s, h, d = q.shape
+    qp, kp, vp = kernel.pad_head_dim(q, k, v)
+    out = torch.empty_like(qp)
     if q.device.type == "meta":
-        bsz, s, h, d = q.shape
         flops, nbytes = work(bsz, s, h, k.shape[2], d, window,
                              q.element_size(), causal)
         meta_flops += flops
         meta_bytes += nbytes
-        return torch.empty_like(q)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no path for device {q.device}")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k and v must be contiguous")
-    out = torch.empty_like(q)
-    if out.numel():
-        kernel.flash_fwd(q, k, v, causal, window, out)
+    elif out.numel():
+        kernel.flash_fwd(qp, kp, vp, causal, window, out,
+                         1.0 / math.sqrt(d))
         launches += 1
-    return out
+    return kernel.unpad(out, d)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -12,19 +12,27 @@ product.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B, S, H, D]; k, v: [B, S, KV, D] -> [B, S, H, D]."""
+                  causal: bool = True, window: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """q: [B, S, H, D]; k, v: [B, S, KV, D] -> [B, S, H, D].  The logits
+    are divided by sqrt(D), or multiplied by ``scale`` where one is given
+    (a head dim padded with zero columns keeps its own 1/sqrt(D))."""
     b, s, h, d = q.shape
     kvh = k.shape[2]
     g = h // kvh
     f32 = torch.float64 if q.dtype == torch.float64 else torch.float32
     qg = q.reshape(b, s, kvh, g, d)
     logits = torch.einsum("bskgd,btkd->bkgst", qg, k).to(f32)
-    logits = logits / torch.sqrt(torch.tensor(d, dtype=f32))
+    if scale is None:
+        logits = logits / torch.sqrt(torch.tensor(d, dtype=f32))
+    else:
+        logits = logits * scale
     pos = torch.arange(s, device=q.device)
     ok = torch.ones(s, s, dtype=torch.bool, device=q.device)
     if causal:

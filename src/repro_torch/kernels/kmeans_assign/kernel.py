@@ -2,14 +2,16 @@
 
 The kernel itself is CUDA C++ in ``repro_torch/csrc/kmeans_assign.cu``
 (see its header for the design and what bounds it); this module builds
-it on first use, declares its C signature and launches it.  Shape and
-dtype checks live in the ``ops`` wrapper.
+it on first use, declares its C signature, plans a shape (lanes per
+point, and the centres a block holds in shared memory at once) and
+launches it.  Shape and dtype checks live in the ``ops`` wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -19,6 +21,7 @@ SOURCES = ("kmeans_assign.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 128                  # threads per block (the .cu's kThreads)
 LANE_ELEMS = 8                 # elements of a point a lane keeps in registers
+MAX_D = 4096                   # the features a point may have, at most
 
 
 def library_path():
@@ -30,8 +33,8 @@ def library_path():
 def library() -> ctypes.CDLL:
     lib = _build.load("kmeans_assign", SOURCES)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, vp,
-                                         vp, vp]
+    lib.kmeans_assign_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                         vp, vp, vp]
     lib.kmeans_assign_launch.restype = ci
     lib.kmeans_assign_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.kmeans_assign_max_smem.restype = ci
@@ -58,23 +61,24 @@ def lane_group(d: int) -> int:
 
 
 def smem_bytes(d: int, k: int) -> int:
-    """Dynamic shared memory of one block: the centroids [K, D] and their
-    norms [K], in f32."""
+    """Dynamic shared memory of one block holding ``k`` centroids: the
+    centroids [k, D] and their norms [k], in f32."""
     return 4 * (k * d + k)
 
 
 @functools.lru_cache(maxsize=None)
-def plan(d: int, k: int, limit: int) -> int:
-    """Lanes per point for feature dim ``d`` and ``k`` centres under
-    ``limit`` bytes of shared memory (a block holds ``THREADS`` // lanes
-    points).  Cached: the EL loop launches at a few shapes thousands of
-    times.  Raises when the centroids do not fit one block."""
-    if smem_bytes(d, k) > limit:
-        raise ValueError(
-            f"kmeans_assign: K*D = {k}*{d} centroids need "
-            f"{smem_bytes(d, k)} bytes of shared memory per block; the card "
-            f"allows {limit}")
-    return lane_group(d)
+def plan(d: int, k: int, limit: int) -> Tuple[int, int]:
+    """(lanes per point, centres a tile) for feature dim ``d`` and ``k``
+    centres under ``limit`` bytes of shared memory: a block holds
+    ``THREADS`` // lanes points and walks the centres in tiles of that
+    many rows, as few tiles as fit, of even size (one tile, all K, where
+    they fit).  Cached: the EL loop launches at a few shapes thousands of
+    times.  Raises past ``MAX_D``."""
+    if d > MAX_D:
+        raise ValueError(f"kmeans_assign: D = {d} exceeds the kernel's "
+                         f"{MAX_D} features")
+    tiles = -(-k // (limit // smem_bytes(d, 1)))
+    return lane_group(d), -(-k // tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,11 +94,11 @@ def _launch(x: torch.Tensor, centers: torch.Tensor, edges: int,
             out_assign: torch.Tensor, out_d2: torch.Tensor) -> None:
     n, d = x.shape[-2:]
     k = centers.shape[-2]
-    group = plan(d, k, max_smem(x.device.index))
+    group, tile = plan(d, k, max_smem(x.device.index))
     lib = library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.kmeans_assign_launch(
-        x.data_ptr(), centers.data_ptr(), edges, n, d, k,
+        x.data_ptr(), centers.data_ptr(), edges, n, d, k, tile,
         _DTYPE_CODE[x.dtype], group, out_assign.data_ptr(),
         out_d2.data_ptr(), stream)
     _check(lib, err, "launch")

@@ -4,27 +4,32 @@ The kernel itself is CUDA C++ in ``repro_torch/csrc/ssd_scan.cu`` (see its
 header for the design and what bounds it), in two instances that its
 entry point picks by dtype: bf16 on the tensor cores (``mma.sync``), f32
 on the CUDA cores.  This module builds it on first use, declares its
-C signature, plans a shape (the bf16 instance's P tile, the f32
+C signature, plans a shape (``plan``: the widths a bf16 call is padded
+to, the chunk length it runs at, the bf16 instance's P tile, the f32
 instance's heads per diagonal block, both instances' shared-memory
-budget) and launches it.  Shape and dtype checks live in
-the ``ops`` wrapper.
+budget) and launches it.  Shape and dtype checks live in the ``ops``
+wrapper, which pads a call around the launch (``pad_widths``,
+``unpad``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
 SOURCES = ("ssd_scan.cu",)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 F32_P_TILE = 64                # f32: P columns of a carry block (kPTile)
-F32_MAX_N = 256                # f32: the carry block's state columns at most
+MAX_N = 256                    # N at most: the f32 carry block's state
+                               # columns (bf16 refuses past it too)
 F32_MAX_GROUP = 16             # f32: heads a diagonal block takes at most
-MAX_CHUNK = 128
+MAX_CHUNK = 128                # the chunk length a block runs at, at most
 P_TILES = (16, 32, 64, 128)    # bf16: the P tiles the .cu is built for
 ITEM_COLS = 32                 # bf16: state columns per item (kItemCols)
 MAX_ITEMS = 4                  # bf16: state items a warp may hold (kMaxItems)
@@ -133,52 +138,103 @@ def state_items(p_tile: int, n: int) -> int:
     return -(-groups // (WARPS // (p_tile // 16)))
 
 
-def p_tile(bsz: int, h: int, p: int, n: int, chunk: int, dtype: torch.dtype,
-           limit: int, sms: int) -> int:
-    """The P columns one scan block owns, for a call on a card with
-    ``sms`` SMs and ``limit`` bytes of opt-in shared memory a block.
+def padded_widths(p: int, n: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(P, N) the kernel runs a call at: bf16 rounds both up to a multiple
+    of 16 (``mma.sync`` tiles; the wrapper pads with zeros, which is
+    exact: zero columns of B and C add zeros to G and to the state, zero
+    columns of x give zero columns of y, and every column of P is
+    independent of the others); f32 takes them as they are.  Raises past
+    ``MAX_N`` state columns, in both dtypes."""
+    if n > MAX_N:
+        raise ValueError(f"ssd_scan: N={n} exceeds the {MAX_N} state "
+                         f"columns a block of the kernel holds")
+    if dtype == torch.bfloat16:
+        return -(-p // 16) * 16, -(-n // 16) * 16
+    return p, n
+
+
+def pad_widths(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x's P and b's and c's N zero-padded to ``padded_widths``: new
+    contiguous tensors where a width grows, else the inputs themselves."""
+    p, n = x.shape[-1], b_mat.shape[-1]
+    pp, np_ = padded_widths(p, n, x.dtype)
+    if pp != p:
+        x = F.pad(x, (0, pp - p))
+    if np_ != n:
+        b_mat, c_mat = F.pad(b_mat, (0, np_ - n)), F.pad(c_mat, (0, np_ - n))
+    return x, b_mat, c_mat
+
+
+def unpad(y: torch.Tensor, final_state: torch.Tensor, p: int, n: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """y [.., P] and the final state [.., P, N] sliced back to a caller's
+    P and N, contiguous (the tensors themselves where nothing was
+    padded)."""
+    if final_state.shape[-2:] == (p, n):
+        return y, final_state
+    return y[..., :p].contiguous(), final_state[..., :p, :n].contiguous()
+
+
+def sub_chunks(chunk: int) -> list:
+    """The chunk lengths the kernel may run a caller's ``chunk`` at,
+    largest first: its divisors up to ``MAX_CHUNK``.  Chunking only
+    blocks the recurrence (the state is carried from chunk to chunk), so
+    every one computes the same function, up to rounding."""
+    return [c for c in range(min(chunk, MAX_CHUNK), 0, -1) if chunk % c == 0]
+
+
+def bf16_tiles(bsz: int, h: int, p: int, n: int, sms: int) -> list:
+    """bf16: the P tiles to try, in order.  P / 2 first where twice B * H
+    blocks still run in one wave (one block per SM), else P first.  (At
+    B * H = 128 on an H100's 132 SMs, P / 2 makes two waves and ran 1.7x
+    slower than P; at B * H = 32 it ran 1.09x faster:
+    ``scripts/ssd_scan_variants.py``, PERF.md.)  A tile must be built
+    (``P_TILES``), divide P and leave a warp at most ``MAX_ITEMS`` items of
+    the state; where neither P nor P / 2 does, the largest tile that does
+    (P = 48 takes 16)."""
+    def ok(t):
+        return t in P_TILES and p % t == 0 and state_items(t, n) <= MAX_ITEMS
+    order = (p // 2, p) if 2 * bsz * h <= sms else (p, p // 2)
+    return [t for t in order if ok(t)] or [max(filter(ok, P_TILES))]
+
+
+class Plan(NamedTuple):
+    """How the kernel runs one call (``plan``)."""
+    p: int          # P it runs at (bf16: rounded up to 16)
+    n: int          # N likewise
+    chunk: int      # the chunk length it runs at, dividing the caller's
+    p_tile: int     # the P columns one scan (bf16) or carry (f32) block owns
+    items: int      # bf16: state items a warp holds; f32: heads a diagonal
+                    # block takes
+
+
+def plan(bsz: int, s: int, h: int, p: int, n: int, chunk: int,
+         dtype: torch.dtype, limit: int, sms: int) -> Plan:
+    """The kernel's plan for a call on a card with ``sms`` SMs and
+    ``limit`` bytes of opt-in shared memory a block: the widths
+    (``padded_widths``), then the largest chunk length in
+    ``sub_chunks(chunk)`` whose block fits, and its P tile.
 
     f32: the carry block's F32_P_TILE columns (all of P when P is
-    smaller).  bf16: P / 2 where twice B * H blocks still run in one
-    wave (one block per SM), else P; the other one where the first does
-    not fit.  (At B * H = 128 on an H100's 132 SMs, P / 2 makes two waves
-    and ran 1.7x slower than P; at B * H = 32 it ran 1.09x faster:
-    ``scripts/ssd_scan_variants.py``, PERF.md.)  Raises ``ValueError``
-    naming the limit for a shape the instance cannot take: P or N not a
-    multiple of 16, no built tile, a warp's share of the state over its
-    registers, f32's N over F32_MAX_N, or no tile within the shared
-    memory."""
-    if dtype != torch.bfloat16:
-        if n > F32_MAX_N:
-            raise ValueError(f"ssd_scan: N={n} exceeds the f32 instance's "
-                             f"{F32_MAX_N} state columns a block holds")
-        need = smem_bytes(p, n, chunk, dtype)
-        if need > limit:
-            raise ValueError(
-                f"ssd_scan: P={p}, N={n}, chunk={chunk} needs {need} bytes "
-                f"of shared memory per block; the card allows {limit}")
-        return min(p, F32_P_TILE)
-    if p % 16 or n % 16:
-        raise ValueError(f"ssd_scan: the bf16 instance takes P and N in "
-                         f"multiples of 16 (mma.sync tiles), got P={p}, "
-                         f"N={n}")
-    order = (p // 2, p) if 2 * bsz * h <= sms else (p, p // 2)
-    tiles = [t for t in order if t in P_TILES and p % t == 0]
-    if not tiles:
-        raise ValueError(f"ssd_scan: P={p} has no P tile among the bf16 "
-                         f"instance's {P_TILES}")
-    tiles = [t for t in tiles if state_items(t, n) <= MAX_ITEMS]
-    if not tiles:
-        raise ValueError(f"ssd_scan: N={n} at P={p} gives a warp more than "
-                         f"{MAX_ITEMS} items of the state to hold in "
-                         f"registers")
-    for t in tiles:
-        if smem_bytes(p, n, chunk, dtype, t) <= limit:
-            return t
-    need = min(smem_bytes(p, n, chunk, dtype, t) for t in tiles)
+    smaller) and the heads a diagonal block takes
+    (``f32_heads_per_block``).  bf16: the first of ``bf16_tiles`` that
+    fits, and its state items.  Every shape whose caller's chunk fits
+    runs at that chunk, unpadded where P and N are multiples of 16.
+    Raises ``ValueError`` naming the limit past ``MAX_N`` state columns."""
+    p, n = padded_widths(p, n, dtype)
+    bf16 = dtype == torch.bfloat16
+    tiles = bf16_tiles(bsz, h, p, n, sms) if bf16 else [min(p, F32_P_TILE)]
+    for length in sub_chunks(chunk):
+        for t in tiles:
+            if smem_bytes(p, n, length, dtype, t) <= limit:
+                items = (state_items(t, n) if bf16 else f32_heads_per_block(
+                    bsz, s, h, p, n, length, sms))
+                return Plan(p, n, length, t, items)
     raise ValueError(
-        f"ssd_scan: P={p}, N={n}, chunk={chunk} at bfloat16 needs {need} "
-        f"bytes of shared memory per block; the card allows {limit}")
+        f"ssd_scan: P={p}, N={n} at {dtype} needs "
+        f"{smem_bytes(p, n, 1, dtype, tiles[-1])} bytes of shared memory "
+        f"per block at the shortest chunk; the card allows {limit}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -199,17 +255,18 @@ def ssd_fwd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
             c_mat: torch.Tensor, chunk: int, y: torch.Tensor,
             final_state: torch.Tensor) -> None:
     """Launch on the current stream: x [B,S,H,P], da [B,S,H] f32, b/c
-    [B,S,N] (contiguous, one CUDA device, x's dtype f32 or bf16) into
-    y [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32.  Raises
-    (``p_tile``) for a shape the instance cannot take."""
+    [B,S,N] (contiguous, one CUDA device, x's dtype f32 or bf16; bf16 P
+    and N multiples of 16, as ``padded_widths`` leaves them) into y
+    [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32, at the chunk
+    length ``plan`` picks from ``chunk``.  Raises (``plan``) for a shape
+    the kernel cannot take."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     dev = x.device.index
-    tile = p_tile(bsz, h, p, n, chunk, x.dtype, max_smem(dev), sm_count(dev))
-    if x.dtype == torch.bfloat16:
-        items = state_items(tile, n)
-    else:                      # f32: heads a diagonal block takes
-        items = f32_heads_per_block(bsz, s, h, p, n, chunk, sm_count(dev))
+    run = plan(bsz, s, h, p, n, chunk, x.dtype, max_smem(dev), sm_count(dev))
+    if (run.p, run.n) != (p, n):
+        raise ValueError(f"ssd_scan: the {x.dtype} instance takes P and N "
+                         f"in multiples of 16, got P={p}, N={n}")
     if x.dtype == torch.bfloat16 and any(
             t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
         raise ValueError("ssd_scan: the bf16 instance copies x, b and c in "
@@ -218,6 +275,6 @@ def ssd_fwd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.ssd_scan_launch(
         x.data_ptr(), da.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-        bsz, s, h, p, n, chunk, _DTYPE_CODE[x.dtype], tile, items,
-        y.data_ptr(), final_state.data_ptr(), stream)
+        bsz, s, h, p, n, run.chunk, _DTYPE_CODE[x.dtype], run.p_tile,
+        run.items, y.data_ptr(), final_state.data_ptr(), stream)
     _check(lib, err, "launch")

@@ -14,10 +14,17 @@ launch), so a run can show that its prefills and training steps went
 through the kernel.  Under activation checkpointing the forward runs
 again in the backward's recompute and counts again.
 
+The kernel takes any chunk dividing S, any P and N up to 256: it runs a
+chunk above its 128 rows as sub-chunks (``kernel.plan``), and in bf16 the
+forward zero-pads P and N up to multiples of 16 (``kernel.pad_widths``)
+and slices y and the final state back (``kernel.unpad``), which is exact.
+Past 256 state columns it raises.
+
 On ``meta`` tensors (the planner's shape-only trace,
-``repro_torch.launch.dryrun``) the forward allocates the kernel's outputs,
-computes nothing, launches nothing and adds the kernel's ``work`` to
-``meta_flops`` / ``meta_bytes``.
+``repro_torch.launch.dryrun``) the forward allocates what the card's path
+does (padded copies where bf16 pads, and the kernel's outputs), computes
+nothing, launches nothing and adds the kernel's ``work`` at the caller's
+widths to ``meta_flops`` / ``meta_bytes``.
 """
 
 from __future__ import annotations
@@ -81,33 +88,28 @@ def _forward(x, da, b_mat, c_mat, chunk: int
     global launches, meta_flops, meta_bytes
     if x.device.type == "cpu":
         return ssd_reference(x, da, b_mat, c_mat, chunk)
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_scan: no path for device {x.device}")
+    if x.device.type == "cuda" and not all(
+            t.is_contiguous() for t in (x, da, b_mat, c_mat)):
+        raise ValueError("ssd_scan: x, da, b and c must be contiguous")
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    x, b_mat, c_mat = kernel.pad_widths(x, b_mat, c_mat)
+    y = torch.empty_like(x)
+    final_state = torch.empty(bsz, h, x.shape[-1], b_mat.shape[-1],
+                              dtype=torch.float32, device=x.device)
     if x.device.type == "meta":
-        bsz, s, h, p = x.shape
-        flops, nbytes = work(bsz, s, h, p, b_mat.shape[-1], chunk,
-                             x.element_size())
+        flops, nbytes = work(bsz, s, h, p, n, chunk, x.element_size())
         meta_flops += flops
         meta_bytes += nbytes
-        return (torch.empty_like(x),
-                torch.empty(bsz, h, p, b_mat.shape[-1], dtype=torch.float32,
-                            device=x.device))
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan: no path for device {x.device}")
-    if chunk > kernel.MAX_CHUNK:
-        raise ValueError(f"ssd_scan: chunk={chunk} exceeds the kernel's "
-                         f"{kernel.MAX_CHUNK}")
-    if not all(t.is_contiguous() for t in (x, da, b_mat, c_mat)):
-        raise ValueError("ssd_scan: x, da, b and c must be contiguous")
-    bsz, _, h, p = x.shape
-    y = torch.empty_like(x)
-    final_state = torch.empty(bsz, h, p, b_mat.shape[-1],
-                              dtype=torch.float32, device=x.device)
-    if y.numel() and final_state.numel():
+    elif y.numel() and final_state.numel():
         kernel.ssd_fwd(x, da, b_mat, c_mat, chunk, y, final_state)
         launches += 1
     else:                                  # nothing to scan or no state
         y.zero_()
         final_state.zero_()
-    return y, final_state
+    return kernel.unpad(y, final_state, p, n)
 
 
 class _SSD(torch.autograd.Function):

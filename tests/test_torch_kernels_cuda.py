@@ -127,12 +127,66 @@ def test_kmeans_assign_empty_input_does_not_launch(cuda_device):
 
 
 def test_kmeans_assign_rejects_what_the_kernel_cannot_take(cuda_device):
+    """Non-contiguous rows, and points wider than the kernel's 4,096
+    features (centre sets beyond one block's shared memory are walked in
+    tiles: ``test_kmeans_assign_centres_beyond_one_block_match_plain``)."""
     x, c = _inputs(64, 64, 3, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.assign_with_dist(x.T.contiguous().T, c)
-    big = torch.zeros(1000, 64, device=cuda_device)   # 256 KB of centroids
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.assign_with_dist(x, big)
+    wide = torch.zeros(8, km_kernel.MAX_D + 1, device=cuda_device)
+    before = ops.launches
+    with pytest.raises(ValueError, match="4096 features"):
+        ops.assign_with_dist(wide, wide[:3])
+    assert ops.launches == before
+
+
+# (n, d, k, dtype): centre sets larger than one block's shared memory,
+# walked in tiles: 1,000 centres of 64 (two tiles of 500; 256 KB of
+# centroids), a 1,024-entry codebook at D = 128 (three tiles), bf16, and
+# the widest point the kernel takes (14 centres of 4,096 a tile)
+KM_TILED = [(1000, 64, 1000, "float32"), (4096, 128, 1024, "float32"),
+            (300, 64, 1000, "bfloat16"), (64, 4096, 40, "float32")]
+
+
+@pytest.mark.parametrize("n,d,k,dtype", KM_TILED)
+def test_kmeans_assign_centres_beyond_one_block_match_plain(
+        n, d, k, dtype, cuda_device, monkeypatch):
+    monkeypatch.setattr(ops, "assign_ref", lambda *a: pytest.fail(
+        "the plain E-step ran for a CUDA tensor"))
+    group, tile = km_kernel.plan(d, k, km_kernel.max_smem(0))
+    assert tile < k
+    x, c = _inputs(n, d, k, dtype, n + d + k, cuda_device)
+    before = ops.launches
+    a, d2 = ops.assign_with_dist(x, c)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    rtol, atol = (1e-4, 1e-3) if dtype == "float32" else (1e-2, 1e-2)
+    torch.testing.assert_close(d2, d2_ref, rtol=rtol, atol=atol)
+    if dtype == "float32":
+        assert float((a == a_ref).float().mean()) >= 0.999
+
+
+def test_kmeans_assign_tie_across_a_tile_boundary(cuda_device):
+    """K = 1,024 at D = 128 runs in tiles: the last centre of one tile and
+    the first of the next are the same point, as are one in the first and
+    one in the last tile; points at them go to the lower index, as
+    ``jnp.argmin`` does, in the single and the batched entry."""
+    n, d, k = 4096, 128, 1024
+    _, tile = km_kernel.plan(d, k, km_kernel.max_smem(0))
+    assert tile < k
+    x, c = _inputs(n, d, k, "float32", 12, cuda_device)
+    c[tile] = c[tile - 1]
+    c[k - 1] = c[5]
+    x[:64] = c[tile - 1] + 1e-3 * x[:64]
+    x[64:128] = c[5] + 1e-3 * x[64:128]
+    a, _ = ops.assign_with_dist(x, c)
+    ab, _ = ops.assign_with_dist_batched(x[None], c[None])
+    a_ref, _ = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    assert bool((a[:64] == tile - 1).all()) and bool((a[64:128] == 5).all())
+    assert not bool(((a == tile) | (a == k - 1)).any())
+    assert torch.equal(a, a_ref) and torch.equal(ab[0], a)
 
 
 def test_kmeans_cuda_local_step_matches_plain_step(cuda_device):
@@ -218,9 +272,23 @@ def test_kmeans_assign_batched_rejects_what_the_kernel_cannot_take(
     with pytest.raises(ValueError, match="contiguous"):
         ops.assign_with_dist_batched(x.transpose(1, 2).contiguous()
                                      .transpose(1, 2), c)
-    big = torch.zeros(2, 1000, 64, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        ops.assign_with_dist_batched(x, big)
+    wide = torch.zeros(2, 8, km_kernel.MAX_D + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="4096 features"):
+        ops.assign_with_dist_batched(wide, wide[:, :3].contiguous())
+
+
+def test_kmeans_assign_batched_walks_centre_tiles(cuda_device):
+    """The batched entry over 1,000 centres of 64 an edge (two tiles a
+    block): bit-equal to single launches, within the plain version's
+    tolerance."""
+    x, c = _batched_inputs(3, 300, 64, 1000, "float32", 2, cuda_device)
+    a, d2 = ops.assign_with_dist_batched(x, c)
+    singles = [ops.assign_with_dist(x[j], c[j]) for j in range(3)]
+    a_ref, d2_ref = ref.assign_ref(x, c)
+    torch.cuda.synchronize()
+    for j, (sa, sd) in enumerate(singles):
+        assert torch.equal(a[j], sa) and torch.equal(d2[j], sd)
+    torch.testing.assert_close(d2, d2_ref, rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("cells", [1, 24])
@@ -715,18 +783,50 @@ def test_ssd_scan_bf16_smem_plan_matches_the_kernel(p, n, chunk,
 
 def test_ssd_scan_bf16_refuses_what_it_cannot_take(cuda_device,
                                                    monkeypatch):
-    """N not a multiple of 16, or a plan over the card's shared memory:
-    the op raises and never gives way to the plain version."""
+    """N past 256 state columns, in both dtypes: the op raises and never
+    gives way to the plain version."""
     monkeypatch.setattr(ssd_ops, "ssd_reference", lambda *a, **k: pytest.fail(
         "the plain SSD ran for a CUDA tensor"))
     before = ssd_ops.launches
-    with pytest.raises(ValueError, match="multiples of 16"):
-        ssd_ops.ssd(*ssd_inputs(1, 128, 2, 32, 24, "bfloat16", 1,
-                                cuda_device), 64)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_ops.ssd(*ssd_inputs(1, 128, 2, 64, 256, "bfloat16", 1,
-                                cuda_device), 128)
+    for dtype in ("bfloat16", "float32"):
+        with pytest.raises(ValueError, match="256 state columns"):
+            ssd_ops.ssd(*ssd_inputs(1, 128, 2, 32, 512, dtype, 1,
+                                    cuda_device), 64)
     assert ssd_ops.launches == before
+
+
+# (b, s, h, p, n, chunk, dtype): shapes the kernel reaches through its
+# wrapper's plan: mamba2's public chunk of 256 (two sub-chunks of 128) at
+# mamba2-370m's widths in both dtypes, P = 48 (P tile 16, no pad), N = 24
+# and P = 40 with N = 24 (padded to multiples of 16), N = 256 in bf16
+# (sub-chunks of 64), the f32 (256, 256) block (sub-chunks of 64), a
+# chunk of 130 (sub-chunks of 65)
+SSD_PLANNED = [(4, 512, 32, 64, 128, 256, "bfloat16"),
+               (2, 512, 8, 64, 128, 256, "float32"),
+               (2, 256, 8, 48, 128, 128, "bfloat16"),
+               (2, 256, 8, 64, 24, 128, "bfloat16"),
+               (2, 256, 8, 40, 24, 64, "bfloat16"),
+               (2, 256, 4, 64, 256, 128, "bfloat16"),
+               (1, 256, 2, 256, 256, 128, "float32"),
+               (1, 260, 4, 64, 128, 130, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,dtype", SSD_PLANNED)
+def test_ssd_scan_planned_shapes_match_plain(b, s, h, p, n, chunk, dtype,
+                                             cuda_device, monkeypatch):
+    x, da, bm, cm = ssd_inputs(b, s, h, p, n, dtype, s * h + p + n,
+                               cuda_device)
+    plain = ssd_ops.ssd_reference
+    monkeypatch.setattr(ssd_ops, "ssd_reference", lambda *a, **k: pytest.fail(
+        "the plain SSD ran for a CUDA tensor"))
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(x, da, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    monkeypatch.setattr(ssd_ops, "ssd_reference", plain)
+    assert y.shape == x.shape and state.shape == (b, h, p, n)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(state).all())
+    assert_ssd_close(y, state, x, da, bm, cm, chunk)
 
 
 # (b, s, h, p, n, chunk, da scale): the f32 (CUDA-core) instance's two
@@ -776,9 +876,13 @@ def test_ssd_scan_f32_smem_plan_matches_the_kernel(n, chunk, cuda_device):
 
 
 def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
+    """A chunk that does not divide S, non-contiguous inputs, da not f32
+    and N past 256.  (A chunk of 256, and the f32 (256, 256) block over
+    the card's shared memory at chunk 128, now run as sub-chunks:
+    ``test_ssd_scan_planned_shapes_match_plain``.)"""
     x, da, bm, cm = ssd_inputs(1, 256, 2, 32, 16, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_ops.ssd(x, da, bm, cm, 256)
+        ssd_ops.ssd(x, da, bm, cm, 96)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_ops.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), da, bm,
                     cm, 128)
@@ -786,8 +890,8 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
         ssd_ops.ssd(x, da.to(torch.bfloat16), bm, cm, 128)
     assert ssd_kernel.smem_bytes(256, 256, 128, torch.float32) \
         > ssd_kernel.max_smem(0)
-    big = ssd_inputs(1, 128, 1, 256, 256, "float32", 2, cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
+    big = ssd_inputs(1, 128, 1, 256, 512, "float32", 2, cuda_device)
+    with pytest.raises(ValueError, match="256 state columns"):
         ssd_ops.ssd(*big, 128)
 
 
@@ -1144,25 +1248,56 @@ def test_jamba_smoke_kernel_fill_equals_the_naive_fill(dtype, cuda_device):
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
                                                              monkeypatch):
-    """Over the shared-memory budget (D = 512) or without a kernel instance
-    the op raises; it never gives way to the plain version."""
+    """Past the largest instance (D = 512: its block would not fit the
+    card's shared memory either) the op raises; it never gives way to the
+    plain version.  (D = 32 now runs on the D = 64 instance:
+    ``test_flash_attention_padded_head_dims_match_plain``.)"""
     monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **k: pytest.fail(
         "the plain forward ran for a CUDA tensor"))
     before = fa_ops.launches
     for dtype in ("float32", "bfloat16"):
         assert fa_kernel.smem_bytes(512, getattr(torch, dtype)) \
             > fa_kernel.max_smem(0)
-        with pytest.raises(ValueError, match="shared memory"):
+        with pytest.raises(ValueError, match="largest instance, 256"):
             fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 512, dtype, 1,
                                                  cuda_device))
-    with pytest.raises(ValueError, match="head dim"):
-        fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 32, "float32", 1,
-                                             cuda_device))
     q, k, v = flash_inputs(1, 64, 2, 2, 64, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
     assert fa_ops.launches == before
+
+
+# (b, s, h, kv, d, window, dtype): head dims no instance has, zero-padded
+# to the next one: D = 32 and 48 (the 5m preset's) on the D = 64 instance,
+# 96 (Phi-3-mini's) on 128, 160 on 256; a window and a GQA group; the 5m
+# preset's training shape, and bf16 at (8, 512, 32, 32, 96)
+FLASH_PADDED = [(1, 64, 2, 2, 32, 0, "float32"),
+                (4, 256, 4, 4, 48, 0, "float32"),
+                (2, 300, 4, 2, 48, 100, "bfloat16"),
+                (1, 300, 8, 2, 96, 0, "float32"),
+                (2, 512, 32, 32, 96, 0, "bfloat16"),
+                (1, 200, 4, 4, 160, 64, "float32"),
+                (1, 256, 8, 1, 160, 0, "bfloat16")]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,window,dtype", FLASH_PADDED)
+def test_flash_attention_padded_head_dims_match_plain(b, s, h, kv, d, window,
+                                                      dtype, cuda_device,
+                                                      monkeypatch):
+    q, k, v = flash_inputs(b, s, h, kv, d, dtype, s + h + d + window,
+                           cuda_device)
+    plain = fa_ops.attention_ref
+    monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **kw: pytest.fail(
+        "the plain forward ran for a CUDA tensor"))
+    before = fa_ops.launches
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    monkeypatch.setattr(fa_ops, "attention_ref", plain)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    assert_flash_close(out, q, k, v, window=window)
 
 
 # -- the device telemetry rings and program profiles on the card ------------------

@@ -126,18 +126,23 @@ def test_lane_group_follows_d(d, group):
 
 
 def test_plan_spreads_the_local_step_over_blocks():
-    group = kernel.plan(64, 3, 232448)
+    group, tile = kernel.plan(64, 3, 232448)
     points = kernel.THREADS // group
-    assert (group, points) == (8, 16)
+    assert (group, points, tile) == (8, 16, 3)
     assert kernel.THREADS % group == 0 and -(-128 // points) == 8
-    assert kernel.plan(8, 3, 232448) == 1
+    assert kernel.plan(8, 3, 232448) == (1, 3)
 
 
 def test_plan_refuses_centroids_beyond_shared_memory():
+    """Centroids beyond one block's shared memory are walked in tiles (as
+    few as fit, of even size); only a point wider than the kernel's
+    ``MAX_D`` features is refused."""
     assert kernel.smem_bytes(64, 3) == 4 * (64 * 3 + 3)
-    with pytest.raises(ValueError, match="shared memory"):
-        kernel.plan(64, 1000, 232448)
-    assert kernel.plan(64, 800, 232448) == 8
+    assert kernel.plan(64, 800, 232448) == (8, 800)       # 206 KB: one tile
+    assert kernel.plan(64, 1000, 232448) == (8, 500)      # 894 fit: two
+    assert kernel.smem_bytes(64, 500) <= 232448
+    with pytest.raises(ValueError, match="4096 features"):
+        kernel.plan(4097, 3, 232448)
 
 
 # -- the batched entry: x [E, N, D] against each edge's centres [E, K, D] ----

@@ -193,8 +193,9 @@ def test_smem_plan_by_dtype(p, n, chunk, dtype, tile, want):
     (3, 4, 32, 16, 32, "float32", 32),
 ])
 def test_p_tile_choice(b, h, p, n, chunk, dtype, tile):
-    assert kernel.p_tile(b, h, p, n, chunk, getattr(torch, dtype),
-                         H100_SMEM, H100_SMS) == tile
+    run = kernel.plan(b, 4 * chunk, h, p, n, chunk, getattr(torch, dtype),
+                      H100_SMEM, H100_SMS)
+    assert (run.p, run.n, run.chunk, run.p_tile) == (p, n, chunk, tile)
 
 
 # (P tile, N, items a warp holds): 8 warps share the P tile's 16-row
@@ -207,20 +208,22 @@ def test_state_items(tile, n, items):
     assert kernel.state_items(tile, n) == items
 
 
-# (P, N, L, dtype, words the refusal names)
+# (P, N, L, dtype, words the refusal names): past 256 state columns, the
+# one limit left, in both dtypes (every other shape is planned: padded,
+# sub-chunked, on a smaller P tile; tests/test_torch_kernel_shapes.py)
 @pytest.mark.parametrize("p,n,chunk,dtype,words", [
-    (32, 24, 64, "bfloat16", "multiples of 16"),
-    (40, 16, 64, "bfloat16", "multiples of 16"),
-    (64, 256, 128, "bfloat16", "shared memory"),
-    (512, 16, 32, "bfloat16", "no P tile"),
-    (128, 512, 16, "bfloat16", "registers"),
-    (256, 256, 128, "float32", "shared memory"),
-    (32, 512, 16, "float32", "state columns"),
+    (32, 512, 64, "bfloat16", "256 state columns"),
+    (40, 272, 64, "bfloat16", "256 state columns"),
+    (64, 257, 128, "bfloat16", "256 state columns"),
+    (512, 1024, 32, "bfloat16", "256 state columns"),
+    (128, 512, 16, "float32", "256 state columns"),
+    (256, 264, 128, "float32", "256 state columns"),
+    (32, 512, 256, "float32", "256 state columns"),
 ])
 def test_p_tile_refusals_name_the_limit(p, n, chunk, dtype, words):
     with pytest.raises(ValueError, match=words):
-        kernel.p_tile(1, 2, p, n, chunk, getattr(torch, dtype), H100_SMEM,
-                      H100_SMS)
+        kernel.plan(1, 4 * chunk, 2, p, n, chunk, getattr(torch, dtype),
+                    H100_SMEM, H100_SMS)
 
 
 # (P, N, L, diagonal block bytes, carry block bytes): the f32 instance's
