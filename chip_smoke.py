@@ -9,11 +9,13 @@ Phases, each printing JSON lines:
 2. build   -- compile every kernel of the port from ``src/repro_torch/csrc``
               with nvcc for sm_90a, one nvcc per source, all at once
               (ptxas report included): ``kmeans_assign``, ``ssd_scan`` and
-              ``flash_attention`` (the bf16 and f32 instances' shared
-              memory of the last two, each f32 entry's registers and
-              spills, and the tensor-core instructions in each instance's
-              SASS by ``cuobjdump``: every bf16 instance must have some,
-              no f32 instance any, and no f32 entry may spill);
+              ``flash_attention`` (each library's nvcc seconds, the bf16,
+              f16 and f32 instances' shared memory of the last two, each
+              f32 entry's registers and spills, and the tensor-core
+              instructions in each instance's SASS by ``cuobjdump``: every
+              bf16 and f16 instance must have some, no f32 instance and no
+              wide flash_attention instance any, and no f32 entry may
+              spill);
 3. kernel  -- hold each kernel against its plain PyTorch version on the
               card, at the reference tests' shapes and the main paths'
               (the batched ``kmeans_assign`` also under ``torch.func.vmap``
@@ -21,8 +23,10 @@ Phases, each printing JSON lines:
               shapes the wrappers' plans reach: head dims no instance has
               (zero-padded), SSD chunks above 128 (sub-chunks), bf16 P and
               N off the 16-wide tiles (padded), K-means centre sets beyond
-              one block (tiles, a tie across a tile boundary); the one
-              refusal left of each (D = 512, N = 512) in both dtypes;
+              one block (the block-tiled instance, a tie across a tile
+              boundary); float16 in all three kernels; the former limits:
+              head dims past 256 (the wide instance), N past 256 (parts
+              summed in f32), K-means points past 4,096 features;
 4. slice   -- the paper's host EL loop at full width: kmeans-traffic
               (20,000 samples, 4 edges, batch 128, budget 5000 per edge)
               through ``ELSession.run_sync`` and ``run_async`` on the card;
@@ -136,13 +140,14 @@ Phases, each printing JSON lines:
               ``ref.allowed_error``; (b) ``bench_fleet`` at 16 tenants
               (its fleet contract: ``fleet_16`` makes
               ``sequential_ingraph_16``'s aggregations); (c)
-              ``bench_check --smoke`` (a small ``bench_el`` on the card,
-              its four sharded tiers in 4 gloo ranks sharing the card,
-              against the committed ``BENCH_torch_el.json``) and (d)
               ``bench_check`` on the committed baselines: a contract or
               ledger finding, or exit code 2, fails; the ratio and overhead
               findings are printed with their rows, ungated; each part's
-              seconds;
+              seconds.  (``bench_check --smoke`` left this phase to keep
+              the run inside its time: its ``bench_el`` at the gate's
+              sizes, the sharded tiers in 4 gloo ranks on the card and
+              the contracts, runs in the ``cuda`` tests'
+              ``test_bench_el_smoke_on_the_card``);
 5. serve   -- mamba2-370m at full width (48 layers, d_model 1024, bf16,
               random weights from a seeded generator) through the port's
               ``ServingEngine``: 4 slots, 8 greedy requests of 16 tokens
@@ -159,6 +164,12 @@ Phases, each printing JSON lines:
               the cache in plain torch; prefill and decode ms a call, peak
               memory; then the same prompts' prefill with the naive fill,
               logits and every layer's K and V compared at f32 and bf16;
+5i. f16_prefill -- qwen3-1.7b and mamba2-370m at full width and float16
+              (``ModelConfig(dtype="float16")``), one prefill of 4 x 512
+              each through ``flash_attention`` / ``ssd_scan`` (one launch a
+              layer), then through the naive fill / plain SSD: the logits
+              and every layer's cache within the kernel's f16 tolerance,
+              relative to their largest magnitude;
 6. train   -- qwen3-1.7b at full width (28 layers, d_model 2048, 16 query
               and 8 KV heads of 128, vocab 151,936, bf16, remat; random
               weights from a seeded generator) through the port's
@@ -388,11 +399,16 @@ Phases, each printing JSON lines:
               its own; phase 9b's ``--preset 5m`` training at f32 (4, 256,
               4, 4, 48), a row of its own; and shapes under their kernels:
               ``flash_attention`` bf16 at (8, 512, 32, 32, 96) (SDPA the
-              library), ``ssd_scan`` bf16 at (4, 512, 32, 64, 128) with
-              chunk 256, ``kmeans_assign`` at (4096, 128, 1024) (``cdist``
-              + ``min`` the library).
+              library) and the wide instance at (4, 512, 8, 2, 512),
+              ``ssd_scan`` bf16 at (4, 512, 32, 64, 128) with chunk 256
+              and at N = 512 (two parts), ``kmeans_assign`` at (4096, 128,
+              1024) and (1024, 8192, 64) on the block-tiled instance and in
+              f16 at (4096, 64, 3) (``cdist`` + ``min`` the library); phase
+              5i's f16 prefills, ``flash_attention`` at (4, 512, 16, 8,
+              128) and ``ssd_scan`` at (4, 512, 32, 64, 128, 128), a row
+              each of their own and the two kernels' float16 instances.
 
-Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 6, 6b, 5c, 5d, 6c, 6d,
+Each path (4, 4b, 4c, 4d, 4e, 4f, 4h, 4g, 4i, 5, 5b, 5i, 6, 6b, 5c, 5d, 6c, 6d,
 6e, 5e, 5f (its engine and its prefix prefill), 5g, 5h (each of its three
 runs), 6f, 7, each of 9b's five runs, and in each rank each of 10's and
 11's runs) is driven with every kernel's launch count set to 0 just before it and
@@ -497,9 +513,11 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 20,
 # (not a multiple of the block's 16 points), and more lanes than a bf16
 # row has 16-byte vectors (8 lanes for 5 at D = 40, 4 for 3 at D = 24);
 # Fig. 5's local-step minibatch of 32 (phase 4g); last centre sets beyond
-# one block's shared memory, walked in tiles: 1,000 centres of 64 (two
-# tiles), a 1,024-entry codebook at D = 128 (three; phase 8's row), bf16,
-# and the widest point the kernel takes (4,096 features, 14 centres a tile)
+# one block's shared memory, on the block-tiled instance: 1,000 centres of
+# 64, a 1,024-entry codebook at D = 128 (phase 8's row), bf16, a point of
+# 4,096 features; then float16 on the lane-group instance (16-byte and
+# scalar loads) and on the block-tiled one, and points past the old
+# 4,096-feature limit (4,097, 5,000 in f16, 8,192: phase 8's row's width)
 KM_CASES = [(100, 8, 3, "float32"), (1000, 64, 3, "float32"),
             (513, 59, 8, "float32"), (256, 16, 32, "float32"),
             (300, 64, 3, "bfloat16"), (128, 64, 3, "float32"),
@@ -508,9 +526,14 @@ KM_CASES = [(100, 8, 3, "float32"), (1000, 64, 3, "float32"),
             (300, 40, 3, "bfloat16"), (200, 24, 3, "bfloat16"),
             (32, 64, 3, "float32"), (1000, 64, 1000, "float32"),
             (4096, 128, 1024, "float32"), (300, 64, 1000, "bfloat16"),
-            (64, 4096, 40, "float32")]
+            (64, 4096, 40, "float32"), (1000, 64, 3, "float16"),
+            (200, 59, 3, "float16"), (300, 64, 1000, "float16"),
+            (64, 4097, 5, "float32"), (100, 5000, 70, "float16"),
+            (1024, 8192, 64, "float32")]
 MAIN_SHAPES = [(128, 64, 3), (4000, 64, 3), (32, 64, 3)]
 KM_TILED = (4096, 128, 1024)      # phase 8's row of a tiled centre set
+KM_WIDE = (1024, 8192, 64)        # and of points past 4,096 features
+KM_F16 = (4096, 64, 3)            # and of float16 at the microbench's shape
 
 
 def km_inputs(n, d, k, dtype_name, seed):
@@ -533,17 +556,14 @@ def kernel_vs_plain() -> tuple:
         a, d2 = ops.assign_with_dist(x, c)
         a_ref, d2_ref = ref.assign_ref(x, c)
         torch.cuda.synchronize()
-        # f32: the expansion cancels terms of size ||x||^2 ~ D, and the two
-        # sides sum in different orders; bf16 inputs as the reference test
-        tol = 1e-2 if dt == "bfloat16" else None
-        rtol, atol = (tol, tol) if tol else (1e-4, 1e-3)
+        rtol, atol = ref.tolerance(x.dtype)
         err = float((d2 - d2_ref).abs().max())
         close = torch.allclose(d2, d2_ref, rtol=rtol, atol=atol)
         agree = float((a == a_ref).float().mean())
-        group, tile = kernel.plan(d, k, kernel.max_smem(0))
+        run = kernel.plan(d, k, kernel.max_smem(0))
         emit("kernel_vs_plain", kernel="kmeans_assign", n=n, d=d, k=k,
-             dtype=dt, group=group, centres_a_tile=tile, max_abs_err=err,
-             assign_agree=agree)
+             dtype=dt, block_tiled=run.block, group=run.group,
+             centres_a_tile=run.tile, max_abs_err=err, assign_agree=agree)
         check(close, f"kmeans_assign d2 off at {(n, d, k, dt)}: {err}")
         check(dt == "bfloat16" or agree >= 0.999,
               f"kmeans_assign assignments agree {agree} at {(n, d, k, dt)}")
@@ -566,7 +586,7 @@ def kernel_vs_plain() -> tuple:
     # ties across a tile boundary: the last centre of the first tile and
     # the first of the second are one point, as are centre 5 and the last
     n, d, k = KM_TILED
-    _, tile = kernel.plan(d, k, kernel.max_smem(0))
+    tile = kernel.plan(d, k, kernel.max_smem(0)).tile
     x, c = km_inputs(n, d, k, "float32", seed=98)
     c[tile] = c[tile - 1]
     c[k - 1] = c[5]
@@ -592,12 +612,15 @@ def kernel_vs_plain() -> tuple:
 
 # (e, n, d, k, dtype name) of the batched entry: the compiled round's local
 # step (4 edges of (128, 64, 3)), N not a multiple of the block's points,
-# wafer widths (scalar loads), K = 1, bf16, 1,000 centres an edge (two
-# tiles); phase 11 adds each other lane count its runs launch at
+# wafer widths (scalar loads), K = 1, bf16, 1,000 centres an edge (the
+# block-tiled instance); float16 on both instances, and points of 5,000
+# features; phase 11 adds each other lane count its runs launch at
 KM_BATCHED_CASES = [(4, 128, 64, 3, "float32"), (4, 1001, 64, 3, "float32"),
                     (3, 513, 59, 8, "float32"), (2, 100, 64, 1, "float32"),
                     (3, 300, 64, 3, "bfloat16"), (2, 128, 64, 3, "float32"),
-                    (1, 128, 64, 3, "float32"), (3, 300, 64, 1000, "float32")]
+                    (1, 128, 64, 3, "float32"), (3, 300, 64, 1000, "float32"),
+                    (3, 300, 64, 3, "float16"), (2, 200, 128, 1024, "float16"),
+                    (2, 100, 5000, 5, "float32")]
 KM_BATCHED_MAIN = (4, 128, 64, 3)
 KM_BATCHED_SHARDED = (2, 128, 64, 3)      # phase 10: a rank's 2 of 4 edges
 
@@ -624,7 +647,7 @@ def batched_case_vs_plain(e, n, d, k, dt, seed) -> float:
     torch.cuda.synchronize()
     bit_equal = all(torch.equal(a[j], sa) and torch.equal(d2[j], sd)
                     for j, (sa, sd) in enumerate(singles))
-    tol = (1e-2, 1e-2) if dt == "bfloat16" else (1e-4, 1e-3)
+    tol = ref.tolerance(x.dtype)
     err = float((d2 - d2_ref).abs().max())
     agree = float((a == a_ref).float().mean())
     emit("kernel_vs_plain", kernel="kmeans_assign_batched", e=e, n=n,
@@ -704,7 +727,11 @@ def kernel_cells_vs_plain(n_cells: int) -> float:
 # (sub-chunks of 128) at mamba2-370m's widths in both dtypes, bf16 P = 48
 # (P tile 16), N = 24 and P = 40 with N = 24 (padded to multiples of 16),
 # N = 256 (sub-chunks of 64), the f32 (256, 256) block (sub-chunks of 64)
-# and a chunk of 130 (sub-chunks of 65)
+# and a chunk of 130 (sub-chunks of 65); then float16 (the tensor-core
+# instance's twin): the reference test's case, the serving prefill's shape,
+# P and N padded; last N past 256 state columns, as parts summed in f32:
+# 512 in bf16 and f32 (two parts), 320 in f16, 600 in bf16 (three parts)
+# and phase 8's row (mamba2-370m's widths at N = 512)
 SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 256, 2, 64, 128, 128, "float32"),
              (1, 64, 8, 64, 64, 32, "float32"),
@@ -738,10 +765,17 @@ SSD_CASES = [(2, 128, 4, 32, 16, 32, "float32"),
              (1, 128, 2, 64, 256, 128, "bfloat16"),
              (2, 256, 4, 64, 256, 128, "bfloat16"),
              (1, 256, 2, 256, 256, 128, "float32"),
-             (1, 260, 4, 64, 128, 130, "bfloat16")]
-# the one shape limit left, with the error's words: N past 256 state
-# columns (in both dtypes)
-SSD_REFUSED = [((1, 128, 2, 32, 512, 64), "256 state columns")]
+             (1, 260, 4, 64, 128, 130, "bfloat16"),
+             (1, 128, 4, 32, 16, 32, "float16"),
+             (4, 512, 32, 64, 128, 128, "float16"),
+             (2, 256, 4, 40, 24, 64, "float16"),
+             (1, 128, 2, 32, 512, 64, "bfloat16"),
+             (1, 128, 2, 32, 512, 64, "float32"),
+             (1, 256, 4, 64, 320, 128, "float16"),
+             (1, 256, 2, 64, 600, 128, "bfloat16"),
+             (4, 512, 32, 64, 512, 128, "bfloat16")]
+SSD_F16 = (4, 512, 32, 64, 128, 128, "float16")         # phase 5i's
+SSD_WIDE = (4, 512, 32, 64, 512, 128, "bfloat16")       # phase 8's row
 SSD_CHUNK256 = (4, 512, 32, 64, 128, 256, "bfloat16")   # phase 8's row
 SSD_MAIN = (4, 512, 32, 64, 128, 128, "bfloat16")
 SSD_TRAIN = (8, 512, 32, 64, 128, 128, "bfloat16")      # phase 6c's
@@ -805,8 +839,10 @@ def ssd_vs_plain() -> dict:
         torch.cuda.synchronize()
         res = ssd_compare(y, state, x, da, bm, cm, chunk)
         emit("kernel_vs_plain", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
-             chunk=chunk, dtype=dt, plan=kernel.plan(
-                 b, s, h, p, n, chunk, x.dtype, limit, sms)._asdict(), **res)
+             chunk=chunk, dtype=dt, plans=[
+                 {"n0": n0, "n1": n1, **run._asdict()} for n0, n1, run in
+                 kernel.plans(b, s, h, p, n, chunk, x.dtype, limit, sms)],
+             **res)
         for part in ("y", "state"):
             check(res[part]["finite"] and res[part]["beyond_allowed"] == 0,
                   f"ssd_scan {part} off at {case}: {res[part]}")
@@ -827,18 +863,6 @@ def ssd_vs_plain() -> dict:
               and res["y"]["beyond_allowed"] == 0
               and res["state"]["beyond_allowed"] == 0,
               f"ssd_scan large-decay case {shape}: {res}")
-    for ((b, s, h, p, n, chunk), words), dt in itertools.product(
-            SSD_REFUSED, ("bfloat16", "float32")):
-        before = ops.launches
-        try:
-            ops.ssd(*ssd_inputs(b, s, h, p, n, dt, seed=8), chunk)
-            refused = ""
-        except ValueError as e:
-            refused = str(e)
-        emit("kernel_refuses", kernel="ssd_scan", b=b, s=s, h=h, p=p, n=n,
-             chunk=chunk, dtype=dt, error=refused)
-        check(words in refused and ops.launches == before,
-              f"ssd_scan {dt} did not refuse {(p, n, chunk)}: {refused!r}")
     return errs
 
 
@@ -853,7 +877,12 @@ def ssd_vs_plain() -> dict:
 # and >= S, GQA groups of 1 and 8 at D = 64 and 256; last head dims no
 # instance has, zero-padded to the next: D = 32 and 48 (the 5m preset's,
 # at its training shape) on 64, 96 (Phi-3-mini's; bf16 at phase 8's row)
-# on 128, 160 on 256, with a window and GQA groups
+# on 128, 160 on 256, with a window and GQA groups; then float16 (the
+# tensor-core instance's twin) at D 64, 128 and 256, a window, a padded
+# head dim and phase 5i's prefill shape; last the wide instance past
+# D = 256 (D in slices of 64, 256 output columns a block): D = 512 in both
+# dtypes (the old refusal's shape), 320 in f16 with a window, 300 in f32
+# (padded to 320), and phase 8's row (bf16, 8 query heads over 2 of 512)
 FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (2, 256, 4, 2, 64, 0, "float32"),
                (1, 256, 8, 1, 64, 0, "float32"),
@@ -907,9 +936,17 @@ FLASH_CASES = [(1, 128, 4, 4, 64, 0, "float32"),
                (1, 300, 8, 2, 96, 0, "float32"),
                (8, 512, 32, 32, 96, 0, "bfloat16"),
                (1, 200, 4, 4, 160, 64, "float32"),
-               (1, 256, 8, 1, 160, 0, "bfloat16")]
-# head dims past the largest instance (256), refused in both dtypes
-FLASH_REFUSED = [((1, 64, 2, 2, 512), "largest instance, 256")]
+               (1, 256, 8, 1, 160, 0, "bfloat16"),
+               (1, 128, 4, 2, 64, 0, "float16"),
+               (2, 300, 4, 2, 128, 100, "float16"),
+               (1, 300, 8, 1, 256, 64, "float16"),
+               (2, 300, 4, 2, 48, 100, "float16"),
+               (4, 512, 16, 8, 128, 0, "float16"),
+               (1, 64, 2, 2, 512, 0, "bfloat16"),
+               (1, 64, 2, 2, 512, 0, "float32"),
+               (1, 300, 4, 2, 320, 64, "float16"),
+               (1, 200, 4, 1, 300, 0, "float32"),
+               (4, 512, 8, 2, 512, 0, "bfloat16")]
 # the same fields, causal=False: the bf16 instance without the causal
 # bound, ragged, and with a window that starts mid-tile; then the f32
 # instance the same ways
@@ -917,13 +954,19 @@ FLASH_NON_CAUSAL = [(1, 300, 4, 2, 128, 0, "bfloat16"),
                     (2, 17, 8, 1, 64, 0, "bfloat16"),
                     (1, 300, 4, 1, 64, 100, "bfloat16"),
                     (1, 300, 4, 2, 128, 0, "float32"),
-                    (2, 200, 4, 1, 64, 100, "float32")]
+                    (2, 200, 4, 1, 64, 100, "float32"),
+                    (1, 300, 4, 2, 128, 0, "float16"),
+                    (2, 100, 4, 1, 512, 0, "bfloat16")]
 FLASH_MAIN = (8, 512, 16, 8, 128, 0, "bfloat16")
 # phase 9b's --preset 5m training (4 edges' B = 4, S = 256, 4 heads of 48,
 # f32) and a bf16 head dim of 96 (8, 512, 32, 32, 96): phase 8's rows of
 # padded head dims
 FLASH_5M = (4, 256, 4, 4, 48, 0, "float32")
 FLASH_D96 = (8, 512, 32, 32, 96, 0, "bfloat16")
+# phase 5i's float16 prefill (qwen3-1.7b, 4 slots of 512) and phase 8's
+# row of the wide instance (D = 512)
+FLASH_F16 = (4, 512, 16, 8, 128, 0, "float16")
+FLASH_WIDE = (4, 512, 8, 2, 512, 0, "bfloat16")
 # phase 5b's prefill (qwen3-1.7b serving, 4 slots: a full wave, and a
 # mid-flight admission at a ragged 515 above), phase 6b's attention
 # (minicpm-2b: 36 heads of 64, MHA, B = 4) and phases 5c / 5d's prefill
@@ -991,18 +1034,6 @@ def flash_vs_plain() -> dict:
               f"flash_attention off at {case}, causal={causal}: {res}")
         if causal:
             errs[case] = res["max_abs_err"]
-    for ((b, s, h, kv, d), words), dt in itertools.product(
-            FLASH_REFUSED, ("bfloat16", "float32")):
-        before = ops.launches
-        try:
-            ops.flash_attention(*flash_inputs(b, s, h, kv, d, dt, seed=9))
-            refused = ""
-        except ValueError as e:
-            refused = str(e)
-        emit("kernel_refuses", kernel="flash_attention", b=b, s=s, h=h,
-             kv=kv, d=d, dtype=dt, error=refused)
-        check(words in refused and ops.launches == before,
-              f"flash_attention {dt} did not refuse D={d}: {refused!r}")
     errs[FLASH_LONG] = flash_long_vs_plain(FLASH_LONG)
     return errs
 
@@ -3086,8 +3117,8 @@ def bench_gate(mode: str, argv: list) -> dict:
 def bench_phase() -> dict:
     """Phase 4i: (a) ``microbench.run`` on the card, the count set to 0
     just before and read just after; (b) ``bench_fleet`` at 16 tenants;
-    (c) ``bench_check --smoke``; (d) ``bench_check`` on the committed
-    baselines.  Each part's seconds."""
+    (c) ``bench_check`` on the committed baselines.  Each part's
+    seconds."""
     import math
     import os
     import tempfile
@@ -3141,10 +3172,9 @@ def bench_phase() -> dict:
     emit("bench_fleet", device="cuda", rows=frows,
          seconds=seconds["fleet"], card=card)
 
-    # (c) the smoke gate, (d) the gate on the committed baselines
+    # (c) the gate on the committed baselines
     gates = {}
-    for mode, argv in (("smoke", ["--smoke", "--no-history"]),
-                       ("baselines", [])):
+    for mode, argv in (("baselines", []),):
         t0 = time.perf_counter()
         gates[mode] = bench_gate(mode, argv)
         seconds[mode] = time.perf_counter() - t0
@@ -3630,6 +3660,90 @@ def serve_attention_phase() -> dict:
     del params
     torch.cuda.empty_cache()
     return summary
+
+
+# -- phase 5i: float16 prefills -----------------------------------------------
+
+# (arch, the kernel its prefill runs, the kernel's ops module's plain
+# version's tolerance): qwen3-1.7b's fill through flash_attention,
+# mamba2-370m's SSD through ssd_scan, each one prefill of 4 x 512 at full
+# width in float16 (``ModelConfig(dtype="float16")``, which the reference
+# takes), held to the plain path at the kernel's f16 tolerance
+F16_PREFILLS = (("qwen3-1.7b", "flash_attention"),
+                ("mamba2-370m", "ssd_scan"))
+F16_PREFILL = (4, 512)
+
+
+def f16_prefill_phase() -> dict:
+    """Each ``F16_PREFILLS`` model's prefill at float16 through its kernel
+    (the main path: counts set to 0 just before, read just after; one
+    launch a layer), then through the plain path (the naive fill, the
+    plain SSD) on the same weights and prompts: the logits and every
+    layer's cache tensors within ``ref.tolerance(float16)`` of the plain
+    path's, relative to their largest magnitude, all finite.  Returns the
+    launches by kernel and each prefill's result."""
+    import torch
+    from repro_torch.config import get_config
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.launch.serve import build
+    from repro_torch.models import build_model
+    tols = {"flash_attention": fa_ref.tolerance(torch.float16),
+            "ssd_scan": ssd_ref.tolerance(torch.float16)}
+    out = {"launches": {}, "results": {}}
+    for arch, kernel in F16_PREFILLS:
+        cfg = dataclasses.replace(get_config(arch).model, dtype="float16")
+        model, params, tokens = build(cfg, *F16_PREFILL, "cuda")
+        paths, tensors = (attention_paths() if kernel == "flash_attention"
+                          else ssd_paths())
+        check(model.attn_impl == "kernel" and model.use_ssd_kernel,
+              f"f16 prefill {arch}: the card's model must take the kernels")
+        got = {}
+        for use_kernel in (True, False):
+            m = model if use_kernel else build_model(cfg, device="cuda",
+                                                     **paths[False])
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits, cache = m.prefill(params, tokens, m.init_cache(
+                    *F16_PREFILL))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            n = counts()
+            if use_kernel:
+                out["launches"][kernel] = n[kernel]
+                prefill_s = seconds
+            else:
+                check(n[kernel] == 0, f"f16 prefill {arch}: the plain path "
+                      f"launched {kernel}")
+            check(logits.dtype == torch.float16,
+                  f"f16 prefill {arch}: logits in {logits.dtype}")
+            got[use_kernel] = {"logits": logits[..., -1, :].float(),
+                               **tensors(cache)}
+            del logits, cache
+        rel = {t: float((got[True][t] - got[False][t]).abs().max())
+               / float(got[False][t].abs().max()) for t in got[True]}
+        finite = all(bool(torch.isfinite(v).all())
+                     for g in got.values() for v in g.values())
+        same = float((got[True]["logits"].argmax(-1)
+                      == got[False]["logits"].argmax(-1)).float().mean())
+        res = {"arch": arch, "kernel": kernel, "shape": list(F16_PREFILL),
+               "dtype": "float16", "layers": cfg.n_layers,
+               "launches": out["launches"][kernel], "rel_err": rel,
+               "tol": tols[kernel], "finite": finite,
+               "first_token_agree": same, "prefill_s": prefill_s}
+        emit("f16_prefill", **res)
+        out["results"][arch] = res
+        check(out["launches"][kernel] == cfg.layer_kinds().count(
+            "attn" if kernel == "flash_attention" else "mamba"),
+              f"f16 prefill {arch}: {kernel} launched "
+              f"{out['launches'][kernel]} times, not once a layer")
+        check(finite and all(v <= tols[kernel] for v in rel.values()),
+              f"f16 prefill {arch}: kernel vs plain path off: {res}")
+        del model, params, tokens, got
+        torch.cuda.empty_cache()
+    return out
 
 
 # -- phase 6: qwen3-1.7b training ------------------------------------------------
@@ -6824,15 +6938,19 @@ def part2_checks(ranks: list, refs: dict, base: dict, card: str) -> dict:
 
 # -- phase 8: times and bounds ------------------------------------------------
 
-def kmeans_timing(n: int, d: int, k: int) -> dict:
+def kmeans_timing(n: int, d: int, k: int, dtype_name="float32") -> dict:
+    """The kernel's card time at one shape beside its plain version's, the
+    library's (``cdist`` + ``min``) and its bound: the kernel computes in
+    f32 from any input dtype, so its operations are bound at f32's rate."""
     import torch
     from repro_torch.kernels.kmeans_assign import kernel, ops, ref
     from repro_torch.bench.roofline import F32_FLOPS, HBM_BW
-    x, c = km_inputs(n, d, k, "float32", seed=7)
-    flops, nbytes = ops.work(n, d, k)
+    x, c = km_inputs(n, d, k, dtype_name, seed=7)
+    flops, nbytes = ops.work(n, d, k, 1, x.element_size())
     t_bytes, t_ops = nbytes / HBM_BW, flops / F32_FLOPS
-    out = {"n": n, "d": d, "k": k,
-           "centres_a_tile": kernel.plan(d, k, kernel.max_smem(0))[1]}
+    run = kernel.plan(d, k, kernel.max_smem(0))
+    out = {"n": n, "d": d, "k": k, "dtype": dtype_name,
+           "block_tiled": run.block, "centres_a_tile": run.tile}
     for key, fn in (("", lambda: ops.assign_with_dist(x, c)),
                     ("plain_", lambda: ref.assign_ref(x, c)),
                     ("library_", lambda: torch.cdist(x, c).min(-1))):
@@ -6902,9 +7020,9 @@ def kmeans_cells_timing(n_cells: int, e: int, n: int, d: int,
 
 def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's and
-    its bound (bf16 operations at the tensor cores' rate, f32 at the CUDA
-    cores', as each instance runs).  No single PyTorch call computes the
-    SSD scan, so there is no library time."""
+    its bound (bf16 and f16 operations at the tensor cores' rate, f32 at
+    the CUDA cores', the rate of their type).  No single PyTorch call
+    computes the SSD scan, so there is no library time."""
     import torch
     from repro_torch.bench.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
     from repro_torch.kernels.ssd_scan import kernel, ops, ref
@@ -6912,12 +7030,14 @@ def ssd_timing(b, s, h, p, n, chunk, dtype_name) -> dict:
     # each input read once, each output written once; the operations on
     # the causal triangle of the L x L terms only (``ops.work``)
     flops, nbytes = ops.work(b, s, h, p, n, chunk, x.element_size())
-    peak = PEAK_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    peak = F32_FLOPS if x.dtype == torch.float32 else PEAK_FLOPS
     t_bytes, t_ops = nbytes / HBM_BW, flops / peak
-    run = kernel.plan(b, s, h, p, n, chunk, x.dtype, kernel.max_smem(0),
-                      kernel.sm_count(0))
+    runs = kernel.plans(b, s, h, p, n, chunk, x.dtype, kernel.max_smem(0),
+                        kernel.sm_count(0))
     out = {"b": b, "s": s, "h": h, "p": p, "n": n, "chunk": chunk,
-           "dtype": dtype_name, "p_tile": run.p_tile, "plan": run._asdict()}
+           "dtype": dtype_name, "p_tile": runs[0][2].p_tile,
+           "plans": [{"n0": n0, "n1": n1, **run._asdict()}
+                     for n0, n1, run in runs]}
     for key, fn, iters in (
             ("", lambda: ops.ssd(x, da, bm, cm, chunk), 50),
             ("plain_", lambda: ref.ssd_reference(x, da, bm, cm, chunk), 20)):
@@ -6939,8 +7059,10 @@ def sdpa_name(gqa: bool, window: int = 0) -> str:
 def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     """The kernel's card time at one shape beside its plain version's, the
     library's (SDPA; timed here as a yardstick, never called by the port)
-    and its bound (bf16 operations at the tensor cores' rate, f32 at the
-    CUDA cores', as each instance runs)."""
+    and its bound (bf16 and f16 operations at the tensor cores' rate, f32
+    at the CUDA cores', the rate of their type: the wide instance runs
+    bf16 and f16 on the CUDA cores, and is bound as the card could do
+    the work)."""
     import torch
     from repro_torch.bench.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -6949,7 +7071,7 @@ def flash_timing(b, s, h, kv, d, window, dtype_name) -> dict:
     # pairs (the causal triangle, cut to the window; ``ops.work``)
     pairs = ops.attended_pairs(s, window)
     flops, nbytes = ops.work(b, s, h, kv, d, window, q.element_size())
-    peak = PEAK_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    peak = F32_FLOPS if q.dtype == torch.float32 else PEAK_FLOPS
     t_bytes, t_ops = nbytes / HBM_BW, flops / peak
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))     # [B, H, S, D]
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -7064,22 +7186,42 @@ def f32_entries(log: str) -> dict:
 
 
 def build_all() -> None:
-    """Compile every kernel's source at once (one nvcc each), then load."""
+    """Compile every kernel's libraries at once (one nvcc each: the
+    kernels' sources, ``flash_attention``'s and ``ssd_scan``'s f16
+    instances a library apart), then load."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.kmeans_assign import kernel as ka_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     kernels = {"kmeans_assign": ka_kernel, "ssd_scan": ssd_kernel,
                "flash_attention": fa_kernel}
+    libs = [(name, False) for name in kernels] + [
+        ("ssd_scan", True), ("flash_attention", True)]
+
+    def timed_build(lib):
+        name, f16 = lib
+        t = time.perf_counter()
+        path = (kernels[name].library_path(True) if f16
+                else kernels[name].library_path())
+        return path, time.perf_counter() - t
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-        paths = dict(zip(kernels, pool.map(lambda k: k.library_path(),
-                                           kernels.values())))
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        built = dict(zip(libs, pool.map(timed_build, libs)))
     seconds = time.perf_counter() - t0
-    census = sass_census(paths["flash_attention"], "flash_attention_kernel",
-                         ("D",))
-    ssd_census = sass_census(paths["ssd_scan"], "ssd_scan_kernel",
-                             {"bf16": ("Pt", "items"), "f32_carry": ("NV",)})
+    paths = {name: path for (name, f16), (path, _) in built.items()
+             if not f16}
+    f16_paths = {name: path for (name, f16), (path, _) in built.items()
+                 if f16}
+    census = {**sass_census(paths["flash_attention"],
+                            "flash_attention_kernel", ("D",)),
+              **sass_census(f16_paths["flash_attention"],
+                            "flash_attention_kernel", ("D",))}
+    ssd_params = {"bf16": ("Pt", "items"), "f16": ("Pt", "items"),
+                  "f32_carry": ("NV",)}
+    ssd_census = {**sass_census(paths["ssd_scan"], "ssd_scan_kernel",
+                                ssd_params),
+                  **sass_census(f16_paths["ssd_scan"], "ssd_scan_kernel",
+                                ssd_params)}
     # ptxas reports static shared memory only; these two use dynamic
     extra = {"ssd_scan": {
         "dynamic_smem_bytes_at_P64_N128_L128": {
@@ -7093,33 +7235,46 @@ def build_all() -> None:
             str(dt).removeprefix("torch."): {
                 f"D={d}": fa_kernel.smem_bytes(d, dt)
                 for d in fa_kernel.HEAD_DIMS}
-            for dt in (torch.bfloat16, torch.float32)},
+            for dt in (torch.bfloat16, torch.float16, torch.float32)},
+        "dynamic_smem_bytes_wide": fa_kernel.smem_bytes(
+            2 * fa_kernel.HEAD_DIMS[-1], torch.bfloat16),
         "dynamic_smem_limit": fa_kernel.max_smem(0),
         "sass_tensor_core_instructions": census}}
     f32 = {}
-    for name, mod in kernels.items():
-        mod.library()
-        log_path = paths[name].with_suffix(".log")
+    for (name, f16), (path, nvcc_s) in built.items():
+        mod = kernels[name]
+        if f16:
+            mod.library(True)
+        else:
+            mod.library()
+        log_path = path.with_suffix(".log")
         log = log_path.read_text() if log_path.exists() else ""
-        if name != "kmeans_assign":
+        if name != "kmeans_assign" and not f16:
             # the f32 (CUDA-core) entries: registers and spills
             f32[name] = extra[name]["f32_ptxas"] = f32_entries(log)
-        emit("build", kernel=name, seconds=seconds,
-             library=str(paths[name].relative_to(ROOT)),
+        emit("build", kernel=name + ("_f16" if f16 else ""),
+             seconds=seconds, nvcc_seconds=nvcc_s,
+             library=str(path.relative_to(ROOT)),
              ptxas=[ln.strip() for ln in log.splitlines()
                     if ("ptxas info" in ln or "spill" in ln)
                     and "Compile time" not in ln],
-             **extra.get(name, {}))
-    for d in fa_kernel.HEAD_DIMS:
-        counts = census.get(f"bf16<D={d}>", {})
+             **({} if f16 else extra.get(name, {})))
+    for d, dt in itertools.product(fa_kernel.HEAD_DIMS, ("bf16", "f16")):
+        counts = census.get(f"{dt}<D={d}>", {})
         check(counts.get("HMMA", 0) + counts.get("HGMMA", 0) > 0,
-              f"flash_attention bf16 at D={d}: no tensor-core instruction "
+              f"flash_attention {dt} at D={d}: no tensor-core instruction "
               f"in its SASS: {census}")
-    bf16 = {k: v for k, v in ssd_census.items() if k.startswith("bf16<")}
-    check(len(bf16) == 3 * len(ssd_kernel.P_TILES)
-          and all(v["HMMA"] > 0 for v in bf16.values()),
-          f"ssd_scan: a bf16 instance without HMMA in its SASS: "
-          f"{ssd_census}")
+    # the wide instance runs every dtype on the CUDA cores
+    wide = {k: v for k, v in census.items() if k.startswith("wide_")}
+    check(sorted(wide) == ["wide_bf16", "wide_f16", "wide_f32"]
+          and all(v["HMMA"] + v["HGMMA"] == 0 for v in wide.values()),
+          f"flash_attention: the wide instances: {census}")
+    for dt in ("bf16", "f16"):
+        tc = {k: v for k, v in ssd_census.items() if k.startswith(dt + "<")}
+        check(len(tc) == 3 * len(ssd_kernel.P_TILES)
+              and all(v["HMMA"] > 0 for v in tc.values()),
+              f"ssd_scan: a {dt} instance without HMMA in its SASS: "
+              f"{ssd_census}")
     # f32 stays on the CUDA cores (no TF32): no tensor-core instruction,
     # and no spills
     for name, c in (("flash_attention", census), ("ssd_scan", ssd_census)):
@@ -7179,6 +7334,7 @@ def main() -> None:
                                          + telemetry["kmeans_assign_batched"])
     launches.update(serve_phase())
     served = serve_attention_phase()
+    f16 = f16_prefill_phase()
     launches.update(train_phase())
     train_vs_plain()
     minicpm = minicpm_train_phase()
@@ -7227,9 +7383,15 @@ def main() -> None:
     km = km_shapes[0]
     emit("kmeans_timing", case="microbench E-step", **km_shapes[-1])
     km_tiled = dict(kmeans_timing(*KM_TILED), max_abs_err=km_errs[KM_TILED])
-    emit("kmeans_timing", case="a 1,024-entry codebook in centre tiles",
-         **km_tiled)
-    km_shapes.append(km_tiled)
+    emit("kmeans_timing", case="a 1,024-entry codebook on the block-tiled "
+         "instance", **km_tiled)
+    km_wide = dict(kmeans_timing(*KM_WIDE), max_abs_err=km_errs[KM_WIDE])
+    emit("kmeans_timing", case="points of 8,192 features on the "
+         "block-tiled instance", **km_wide)
+    km_f16 = kmeans_timing(*KM_F16, "float16")
+    emit("kmeans_timing", case="float16 at the microbench's shape",
+         **km_f16)
+    km_shapes += [km_tiled, km_wide, km_f16]
     kmb = kmeans_batched_timing(*KM_BATCHED_MAIN)
     emit("kmeans_batched_timing", **kmb)
     kms = kmeans_batched_timing(*KM_BATCHED_SHARDED)
@@ -7270,6 +7432,11 @@ def main() -> None:
     ssd_c256 = dict(ssd_timing(*SSD_CHUNK256),
                     max_abs_err=ssd_errs[SSD_CHUNK256])
     emit("ssd_timing", case="chunk 256 in sub-chunks of 128", **ssd_c256)
+    ssd_f16 = dict(ssd_timing(*SSD_F16), max_abs_err=ssd_errs[SSD_F16])
+    emit("ssd_timing", case="phase 5i: mamba2-370m's float16 prefill",
+         **ssd_f16)
+    ssd_wide = dict(ssd_timing(*SSD_WIDE), max_abs_err=ssd_errs[SSD_WIDE])
+    emit("ssd_timing", case="N = 512 in two parts of 256", **ssd_wide)
     fa = flash_timing(*FLASH_MAIN)
     emit("flash_timing", **fa)
     fa32 = flash_timing(*FLASH_MAIN[:-1], "float32")
@@ -7280,6 +7447,12 @@ def main() -> None:
     fa_d96 = dict(flash_timing(*FLASH_D96), max_abs_err=fa_errs[FLASH_D96])
     emit("flash_timing", case="bf16 D = 96 on the D = 128 instance",
          **fa_d96)
+    fa_f16 = flash_timing(*FLASH_F16)
+    emit("flash_timing", case="phase 5i: qwen3-1.7b's float16 prefill",
+         **fa_f16)
+    fa_wide = dict(flash_timing(*FLASH_WIDE),
+                   max_abs_err=fa_errs[FLASH_WIDE])
+    emit("flash_timing", case="D = 512 on the wide instance", **fa_wide)
     fa_serve = flash_timing(*FLASH_SERVE)
     emit("flash_timing", case="qwen3-1.7b serving prefill", **fa_serve)
     fa_minicpm = flash_timing(*FLASH_MINICPM)
@@ -7330,9 +7503,11 @@ def main() -> None:
     instance_keys = ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "bound_by")
 
-    def instances(bf16, f32):
+    def instances(bf16, f32, f16):
         return {"bfloat16": {"cores": "tensor (mma.sync)",
                              **{k: bf16[k] for k in instance_keys}},
+                "float16": {"cores": "tensor (mma.sync)",
+                            **{k: f16[k] for k in instance_keys}},
                 "float32": {"cores": "CUDA (f32 FMA)",
                             **{k: f32[k] for k in instance_keys}}}
     # an empty kernel queued the same way: what a launch alone costs
@@ -7428,9 +7603,9 @@ def main() -> None:
         "ms": ssd["ms"], "kernel_ms": ssd["ms"], "call_ms": ssd["call_ms"],
         "plain_ms": ssd["plain_ms"], "bound_ms": ssd["bound_ms"],
         "bound_by": ssd["bound_by"], "library_ms": None,
-        "instances": instances(ssd, ssd32),
+        "instances": instances(ssd, ssd32, ssd_f16),
         "launch_floor_ms": launch_floor_ms,
-        "shapes": [ssd, ssd32, ssd_admit, ssd_c256]}, {
+        "shapes": [ssd, ssd32, ssd_admit, ssd_c256, ssd_wide]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
@@ -7439,8 +7614,9 @@ def main() -> None:
         "plain_ms": fa["plain_ms"], "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"], "library_ms": fa["library_ms"],
         "library": fa["library"],
-        "instances": instances(fa, fa32),
-        "launch_floor_ms": launch_floor_ms, "shapes": [fa, fa32, fa_d96]}] + [{
+        "instances": instances(fa, fa32, fa_f16),
+        "launch_floor_ms": launch_floor_ms,
+        "shapes": [fa, fa32, fa_d96, fa_wide]}] + [{
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:30",
@@ -7460,6 +7636,10 @@ def main() -> None:
             ("flash_attention_serve_prefill",
              "phase 5b: qwen3-1.7b serving, every layer's prefill fill",
              served["flash_attention"], FLASH_SERVE, fa_serve),
+            ("flash_attention_f16_prefill",
+             "phase 5i: qwen3-1.7b at float16, one prefill of 4 x 512 at "
+             "full width, every layer's fill (the f16 tensor-core instance)",
+             f16["launches"]["flash_attention"], FLASH_F16, fa_f16),
             ("flash_attention_minicpm_train",
              "phase 6b: minicpm-2b training, every layer's forward and "
              "remat recompute (D = 64, MHA)",
@@ -7542,6 +7722,10 @@ def main() -> None:
         "bound_by": t["bound_by"], "library_ms": None,
         "launch_floor_ms": launch_floor_ms, "shapes": shapes}
         for name, path, n, case, t, shapes in (
+            ("ssd_scan_f16_prefill",
+             "phase 5i: mamba2-370m at float16, one prefill of 4 x 512 at "
+             "full width, every layer's SSD (the f16 tensor-core instance)",
+             f16["launches"]["ssd_scan"], SSD_F16, ssd_f16, [ssd_f16]),
             ("ssd_scan_jamba_serve_prefill",
              "phase 5g: jamba-1.5-large-398b serving at full width, layers "
              "2-4, both Mamba layers' prefill (128 heads of P = N = 128, P "

@@ -273,7 +273,7 @@ def run_variants() -> int:
                 err = lib.ssd_scan_launch(
                     x.data_ptr(), da.data_ptr(), bm.data_ptr(),
                     cm.data_ptr(), b, s, h, p, n, chunk, 0, 0, hg,
-                    y.data_ptr(), st.data_ptr(), stream)
+                    y.data_ptr(), st.data_ptr(), None, 0, stream)
                 if err:
                     raise SystemExit(f"{name}: CUDA error {err}")
             launch()

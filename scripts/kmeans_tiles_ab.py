@@ -4,11 +4,14 @@
 
 Builds ``src/repro_torch/csrc/kmeans_assign.cu`` of this checkout and of
 DIR (a checkout of another commit, e.g. unpacked by ``git archive``) with
-the same nvcc flags, checks that the two give bit-identical assignments
-and distances at phase 8's shapes (all K centres in one block, where the
-tiled kernel runs one tile), and times both in turns (parent, change,
-change, parent, each round) by CUDA events on one card.  Prints one JSON
-line per shape, then the card's name and power limit.  Needs a card.
+the same nvcc flags, checks that the lane-group (whole-K) instances of
+both have the same SASS, instruction for instruction (``cuobjdump``; an
+instance is named by its element type and vector width, whatever else
+its template takes), and that the two give bit-identical assignments and
+distances at phase 8's shapes (all K centres in one block), and times
+both in turns (parent, change, change, parent, each round) by CUDA events
+on one card.  Prints one JSON line for the SASS and one per shape, then
+the card's name and power limit.  Needs a card.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +44,29 @@ def build(source: Path, out: Path) -> ctypes.CDLL:
     if proc.returncode:
         raise SystemExit(f"build of {source} failed:\n{proc.stderr}")
     return ctypes.CDLL(str(out))
+
+
+def sass(library: Path) -> dict:
+    """The whole-K lane-group instances' SASS by (element type, vector
+    width): each a list of instructions (addresses and encodings
+    dropped)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            m = re.search(r"kmeans_assign_kernelI(\w+?)Li(\d+)E(Lb0E)?E",
+                          line)
+            name = f"{m.group(1)}/V={m.group(2)}" if m else None
+            if name:
+                funcs[name] = []
+        elif name:
+            ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if ins:
+                funcs[name].append(ins.group(1))
+    return funcs
 
 
 def launcher(lib: ctypes.CDLL, tiled: bool):
@@ -76,11 +103,24 @@ def main(argv=None) -> None:
     resolve_device("cuda")
     rel = Path("src/repro_torch/csrc/kmeans_assign.cu")
     out_dir = ROOT / "build" / "kmeans_ab"
-    builds = {}
+    builds, code = {}, {}
     for name, base in (("parent", args.parent), ("change", ROOT)):
         src = base / rel
         tiled = "int k, int kt," in src.read_text()
-        builds[name] = launcher(build(src, out_dir / f"{name}.so"), tiled)
+        lib_path = out_dir / f"{name}.so"
+        builds[name] = launcher(build(src, lib_path), tiled)
+        code[name] = sass(lib_path)
+    shared = sorted(set(code["parent"]) & set(code["change"]))
+    same_sass = {f: code["parent"][f] == code["change"][f] for f in shared}
+    print(json.dumps({"sass_instances_compared": shared,
+                      "sass_identical": same_sass,
+                      "instructions": {f: len(code["change"][f])
+                                       for f in shared},
+                      "change_only": sorted(set(code["change"])
+                                            - set(code["parent"]))}),
+          flush=True)
+    if not shared or not all(same_sass.values()):
+        raise SystemExit(f"the whole-K instances' SASS differ: {same_sass}")
     g = torch.Generator(device="cuda").manual_seed(0)
     for e, n, d, k in SHAPES:
         x = torch.randn(e, n, d, generator=g, device="cuda")

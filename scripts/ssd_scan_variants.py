@@ -52,11 +52,10 @@ GRAM_KERNEL = """\
 __device__ float* g_gram;
 float* h_gram = nullptr;
 
-__global__ void __launch_bounds__(bf16::kThreads)
+__global__ void __launch_bounds__(kThreads)
     ssd_gram_kernel_bf16(const __nv_bfloat16* __restrict__ bm,
                          const __nv_bfloat16* __restrict__ cm, int n_dim,
                          int chunk, float* __restrict__ gram) {
-  using namespace bf16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lp = (chunk + 15) / 16 * 16;
   const int ns = n_dim + kPad;
@@ -80,7 +79,8 @@ __global__ void __launch_bounds__(bf16::kThreads)
     while ((rt + 1) * (rt + 2) / 2 <= t) ++rt;
     const int kt = t - rt * (rt + 1) / 2;
     float gv[2][4];
-    gram_tile(gv, cs, bs, ns, n_dim, rt * 16, kt * 16, lane);
+    gram_tile<__nv_bfloat16>(gv, cs, bs, ns, n_dim, rt * 16, kt * 16,
+                             lane);
     for (int e = 0; e < 2; ++e) {
       float* row = out + (rt * 16 + g) * lp + kt * 16 + 8 * e + 2 * tig;
       *reinterpret_cast<float2*>(row) = make_float2(gv[e][0], gv[e][1]);
@@ -107,38 +107,40 @@ LOAD_G = """\
 EDITS = {
     "as_built": [],
     "shared_g": [
-        ("template <int kPt, int kItems>\n__global__",
-         GRAM_KERNEL + "template <int kPt, int kItems>\n__global__"),
+        ("// The scan block's body, for T",
+         GRAM_KERNEL + "// The scan block's body, for T"),
         ("      float acc[kNT][4];\n", LOAD_G + "      float acc[kNT][4];\n"),
-        ("        gram_tile(gv, cs_a, bs_a, ns, n_dim, i0, j0, lane);\n",
+        ("        gram_tile<T>(gv, cs_a, bs_a, ns, n_dim, i0, j0, lane);\n",
          "        for (int e = 0; e < 2; ++e)\n"
          "          for (int q = 0; q < 4; ++q) gv[e][q] = g_next[e][q];\n"
          "        if (kt < rt) load_g(g_next, j0 + 16);\n"),
         ("    return (int)cudaErrorInvalidValue;\n  switch (p_tile) {",
          "    return (int)cudaErrorInvalidValue;\n"
-         "  {\n"
-         "    const int smem = 2 * ((chunk + 15) / 16 * 16) * "
-         "(n_dim + bf16::kPad) * 2;\n"
-         "    if (int err = set_smem(ssd_gram_kernel_bf16, smem)) "
+         "  if constexpr (std::is_same_v<T, __nv_bfloat16>) {\n"
+         "    const int smem = 2 * ((a.chunk + 15) / 16 * 16) * "
+         "(a.n_dim + tc::kPad) * 2;\n"
+         "    if (int err = set_smem(tc::ssd_gram_kernel_bf16, smem)) "
          "return err;\n"
-         "    ssd_gram_kernel_bf16<<<batch * (seqlen / chunk), "
-         "bf16::kThreads, smem, stream>>>(bm, cm, n_dim, chunk, h_gram);\n"
+         "    tc::ssd_gram_kernel_bf16<<<a.batch * (a.seqlen / a.chunk), "
+         "tc::kThreads, smem, a.stream>>>(a.bm, a.cm, a.n_dim, a.chunk, "
+         "tc::h_gram);\n"
          "    if (int err = (int)cudaGetLastError()) return err;\n"
          "  }\n"
          "  switch (p_tile) {"),
         ("}  // extern \"C\"",
          "// the G buffer the scan blocks read\n"
          "int ssd_scan_set_gram(void* gram) {\n"
-         "  h_gram = static_cast<float*>(gram);\n"
-         "  return (int)cudaMemcpyToSymbol(g_gram, &h_gram, sizeof(h_gram));\n"
+         "  tc::h_gram = static_cast<float*>(gram);\n"
+         "  return (int)cudaMemcpyToSymbol(tc::g_gram, &tc::h_gram,\n"
+         "                                 sizeof(tc::h_gram));\n"
          "}\n\n}  // extern \"C\"")],
     "bf16_rounding": [
-        ("  lo = pack_bf16(a - hf.x, b - hf.y);", "  lo = 0u;"),
-        ("  mma(c, hi, b0, b1);\n  mma(c, lo, b0, b1);",
-         "  mma(c, hi, b0, b1);"),
+        ("  lo = pack<T>(a - hf.x, b - hf.y);", "  lo = 0u;"),
+        ("  mma<T>(c, hi, b0, b1);\n  mma<T>(c, lo, b0, b1);",
+         "  mma<T>(c, hi, b0, b1);"),
         ("            ldmatrix_x4(bl, lo_a + off);\n", ""),
-        ("            mma(acc[2 * dp], a, bl[0], bl[1]);\n"
-         "            mma(acc[2 * dp + 1], a, bl[2], bl[3]);\n", "")],
+        ("            mma<T>(acc[2 * dp], a, bl[0], bl[1]);\n"
+         "            mma<T>(acc[2 * dp + 1], a, bl[2], bl[3]);\n", "")],
 }
 # (b, s, h, p, n, chunk): the serving prefill first, then a lone admitted
 # prompt, the mid-flight wave padded to 640, and P = N = 128
@@ -215,7 +217,7 @@ def time_shapes(libs) -> None:
             err = lib.ssd_scan_launch(
                 x.data_ptr(), da.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                 b, s, h, p, n, chunk, 1, tile, kernel.state_items(tile, n),
-                y.data_ptr(), state.data_ptr(),
+                y.data_ptr(), state.data_ptr(), None, 0,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise SystemExit(f"launch failed: CUDA error {err}")

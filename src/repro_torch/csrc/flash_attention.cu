@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_attn_kernel, launched by flash_attention_fwd through pl.pallas_call).
-// Inputs, one dtype (f32 or bf16), contiguous:
+// Inputs, one dtype (f32, bf16 or f16), contiguous:
 //
 //     q [B, S, H, D],  k, v [B, S, KV, D],  H a multiple of KV
 //
@@ -22,8 +22,9 @@
 // sentinel in the max: a row whose keys in a tile are all masked must add
 // nothing, which exp(-1e30 - m) gives only once m is a real logit.
 //
-// Both instances share the TPU grid's shape: one block per (b, h, tile of
-// query rows: 64 in bf16; 128 in f32, 64 at D = 256), numbered heaviest
+// The instances share the TPU grid's shape: one block per (b, h, tile of
+// query rows: 64 in bf16 and f16; 128 in f32, 64 at D = 256), numbered
+// heaviest
 // causal tile first, with the TPU grid's sequential KV axis as the loop
 // inside the block. Only live key tiles are visited: keys up to the tile's
 // last row (causal) and from its first row's window start. The TPU grid
@@ -31,9 +32,14 @@
 // every row keeps its diagonal. Ragged S is masked (rows past S are
 // computed on zero queries and never stored, keys past S get p = 0), so
 // any S works. Instances exist for D = 64, 128 and
-// 256; the wrapper checks each one's shared-memory budget and raises
-// beyond it. flash_attention_launch dispatches on the dtype code: bf16 runs
-// the tensor-core kernel, f32 the CUDA-core kernel.
+// 256, and the wide instance for any D past 256 in slices of 64; the
+// wrapper checks each one's shared-memory budget and raises beyond it.
+// flash_attention_launch dispatches on the dtype code and D: bf16 and f16
+// run the tensor-core kernel, f32 the CUDA-core kernel, D > 256 the wide
+// kernel in every dtype. This source builds two libraries, one nvcc each,
+// side by side (kernels/_build.py): the f32 and bf16 instances, and with
+// -DF16_INSTANCES the f16 ones alone, whose flash_attention_launch takes
+// dtype 2 only (in one library they lengthened its nvcc time by half).
 //
 // What bounds it on an H100: at the training shape (B = 8, S = 512,
 // H = 16, KV = 8, D = 128, bf16) one call must move q, k, v and o once,
@@ -41,8 +47,11 @@
 // on the causal triangle (989 TFLOP/s of bf16 on the tensor cores: 8.7
 // us). So the card's bound is bytes.
 //
-// bf16 instance: tensor cores (flash_attention_kernel_bf16)
-// ---------------------------------------------------------
+// bf16 and f16 instances: tensor cores (flash_attention_kernel_bf16, _f16)
+// -------------------------------------------------------------------------
+// One body (tc::attention) for both element types: f16 takes the same
+// tiles with mma.sync's .f16 operands and __half2 packing, and rounds P to
+// f16 before PV as bf16 rounds it to bf16. Below, "bf16" stands for both.
 // The FlashAttention-2 shape on mma.sync. 128 threads, 4 warps; each warp
 // owns 16 query rows of the block's 64 for the whole key loop, so no
 // barrier guards the softmax state.
@@ -137,10 +146,35 @@
 // at the ring; the QK^T loop unrolled 1 or 2 steps instead of 4, 0.346
 // and 0.321. ptxas (CUDA 12.9, sm_90a): 251, 255 and 254 registers at
 // D = 64, 128 and 256, no spills.
+//
+// wide instance: D past 256, CUDA cores (flash_attention_kernel_wide_*)
+// ---------------------------------------------------------------------
+// A D = 512 block of the tiled instances needs 332,800 bytes of shared
+// memory in bf16 and 396,288 in f32, over the H100's 232,448, and its
+// output accumulator would not fit a thread's registers. So D is split
+// twice: QK^T is summed over D in slices of 64 (each key tile stages Q's
+// and K's slice [64, 64] in f32 in turn), and each block owns 256 output
+// columns, so a block's PV accumulator is 64 registers a thread whatever
+// D is; the blocks of one query tile each form the same S (QK^T runs once
+// per 256 output columns). Grid: (b, h, 64 query rows, 256 columns),
+// heaviest causal tile first; threads, online softmax (f32::softmax_update)
+// and PV's register tiles as f32's instance at D = 256. Every dtype runs
+// here on the CUDA cores, inputs converted to f32 as they are staged; P is
+// rounded to T before PV (T's tensor-core instance rounds it so), and o is
+// written in T. Shared memory is 101,376 bytes for any D. The wrapper pads
+// D to a multiple of 64 and keeps the caller's 1/sqrt(D). A simple,
+// correct kernel: no cp.async pipeline, tensor cores or shared S across
+// the column blocks yet. ptxas (sm_90a): 255 registers, 48-64 bytes of
+// spill loads; on an H100 it ran 1.30 ms at (4, 512, 8, 2, 512) in bf16,
+// against 2.30 with 128 columns a block (no spills, QK^T formed twice as
+// often), 4.3x its plain version (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -452,11 +486,10 @@ __global__ void __launch_bounds__(f32::Tile<D>::kThreads, 1)
   }
 }
 
-// -- bf16 instance: tensor cores ------------------------------------------
+// -- bf16 and f16 instances: tensor cores ---------------------------------
 
-namespace bf16 {
+namespace tc {
 
-using T = __nv_bfloat16;
 constexpr int kThreads = 128;          // 4 warps, 16 query rows each
 constexpr int kBlockQ = 64;            // query rows per block (BLOCK_Q)
 constexpr int kBlockK = 64;            // keys per tile (BLOCK_K)
@@ -466,7 +499,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(T) * size_t(D + kPad) * (kBlockQ + 2 * kStages * kBlockK);
+  return 2 * size_t(D + kPad) * (kBlockQ + 2 * kStages * kBlockK);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -506,25 +539,40 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), T (bf16 or f16) in, f32
+// accumulate
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, __half>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two f32 rounded to a bf16 pair, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
+// two f32 rounded to a T pair, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&p);
+  } else {
+    __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&p);
+  }
 }
 
-// Copy rows [0, 64) of a [*, row_step] bf16 array into a [64, D + 8] tile,
+// Copy rows [0, 64) of a [*, row_step] 2-byte array into a [64, D + 8] tile,
 // one 16-byte cp.async per chunk; rows >= n_valid are zero-filled.
-template <int D>
+template <int D, typename T>
 __device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
                                           long long row_step, int n_valid,
                                           int tid) {
@@ -536,7 +584,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* src,
     const int r = c / kChunks;
     const int ch = c % kChunks;
     const bool in = r < n_valid;
-    cp_async16(dst + (r * (D + kPad) + ch * 8) * sizeof(T),
+    cp_async16(dst + (r * (D + kPad) + ch * 8) * 2,
                src + (in ? r * row_step + ch * 8 : 0), in);
   }
 }
@@ -593,17 +641,15 @@ __device__ __forceinline__ void softmax_update(
   }
 }
 
-}  // namespace bf16
-
-template <int D>
-__global__ void __launch_bounds__(bf16::kThreads)
-    flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v,
-                                __nv_bfloat16* __restrict__ o, int batch,
-                                int seqlen, int heads, int kv_heads,
-                                int causal, int window, float scale) {
-  using namespace bf16;
+// The kernel's body, for T = bf16 or f16 (the __global__ entries below)
+template <typename T, int D>
+__device__ __forceinline__ void attention(const T* __restrict__ q,
+                                          const T* __restrict__ k,
+                                          const T* __restrict__ v,
+                                          T* __restrict__ o, int batch,
+                                          int seqlen, int heads, int kv_heads,
+                                          int causal, int window,
+                                          float scale) {
   constexpr int kS = D + kPad;             // smem row stride, halves
   constexpr int kTile = kBlockK * kS;      // halves per K or V stage
   constexpr int kKSteps = D / 16;          // k16 steps of QK^T
@@ -723,8 +769,8 @@ __global__ void __launch_bounds__(bf16::kThreads)
         for (int jp = 0; jp < kNT / 2; ++jp) {
           uint32_t bk[4];
           ldmatrix_x4(bk, kst + k_off + (jp * 16 * kS + kk * 16) * sizeof(T));
-          mma(s[2 * jp], a, bk[0], bk[1]);
-          mma(s[2 * jp + 1], a, bk[2], bk[3]);
+          mma<T>(s[2 * jp], a, bk[0], bk[1]);
+          mma<T>(s[2 * jp + 1], a, bk[2], bk[3]);
         }
       }
 
@@ -741,17 +787,17 @@ __global__ void __launch_bounds__(bf16::kThreads)
       // O += P V: P's bf16 pairs are the A fragments (C tiles 2kk, 2kk + 1)
 #pragma unroll
       for (int kk = 0; kk < kSubK / 16; ++kk) {
-        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t a[4] = {pack<T>(s[2 * kk][0], s[2 * kk][1]),
+                               pack<T>(s[2 * kk][2], s[2 * kk][3]),
+                               pack<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
         for (int dp = 0; dp < kDT / 2; ++dp) {
           uint32_t bv[4];
           ldmatrix_x4_trans(
               bv, vst + v_off + (kk * 16 * kS + dp * 16) * sizeof(T));
-          mma(acc[2 * dp], a, bv[0], bv[1]);
-          mma(acc[2 * dp + 1], a, bv[2], bv[3]);
+          mma<T>(acc[2 * dp], a, bv[0], bv[1]);
+          mma<T>(acc[2 * dp + 1], a, bv[2], bv[3]);
         }
       }
     }
@@ -769,7 +815,7 @@ __global__ void __launch_bounds__(bf16::kThreads)
 #pragma unroll
     for (int c = 0; c < kDT; ++c)
       *reinterpret_cast<uint32_t*>(row + 8 * c) =
-          pack_bf16(acc[c][2 * half] / denom, acc[c][2 * half + 1] / denom);
+          pack<T>(acc[c][2 * half] / denom, acc[c][2 * half + 1] / denom);
   }
   __syncwarp();
 #pragma unroll
@@ -782,6 +828,326 @@ __global__ void __launch_bounds__(bf16::kThreads)
           *reinterpret_cast<const uint4*>(qs + r * kS + ch * 8);
   }
 }
+
+}  // namespace tc
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+    flash_attention_kernel_bf16(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o, int batch,
+                                int seqlen, int heads, int kv_heads,
+                                int causal, int window, float scale) {
+  tc::attention<__nv_bfloat16, D>(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                  causal, window, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(tc::kThreads)
+    flash_attention_kernel_f16(const __half* __restrict__ q,
+                               const __half* __restrict__ k,
+                               const __half* __restrict__ v,
+                               __half* __restrict__ o, int batch, int seqlen,
+                               int heads, int kv_heads, int causal,
+                               int window, float scale) {
+  tc::attention<__half, D>(q, k, v, o, batch, seqlen, heads, kv_heads, causal,
+                           window, scale);
+}
+
+// -- wide instance: any head dim past 256, CUDA cores ----------------------
+
+namespace wide {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowGroups = 4;          // a warp's lanes: 4 row groups x 8
+constexpr int kKeyGroups = 8;          //   key (and output column) groups
+constexpr int kRows = 2;               // query rows a thread holds
+constexpr int kBlockQ = kWarps * kRowGroups * kRows;    // 64
+constexpr int kBlockK = 64;
+constexpr int kKeys = kBlockK / kKeyGroups;             // 8 a thread
+constexpr int kSlice = 64;             // D columns a QK^T step stages
+constexpr int kCols = 256;             // output columns a block owns
+constexpr int kChunks = kCols / (4 * kKeyGroups);       // float4s a row
+constexpr int kPad = 4;                // floats of padding per smem row
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the Q and K slices [64, kSlice + 4] and the V slice [64, kCols + 4], f32
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t(kBlockQ + kBlockK) * (kSlice + kPad) +
+                          size_t(kBlockK) * (kCols + kPad));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// This thread's share of columns [c0, c0 + kW) of rows [0, 64) of a
+// [*, row_step] array, as f32 in registers (all loads issued before the
+// stores); rows >= n_valid and columns >= d_valid are zeros.
+template <int kW, typename T>
+__device__ __forceinline__ void load(float (&v)[64 * kW / kThreads],
+                                     const T* src, long long row_step,
+                                     int n_valid, int c0, int d_valid,
+                                     int tid) {
+#pragma unroll
+  for (int u = 0; u < 64 * kW / kThreads; ++u) {
+    const int i = tid + u * kThreads;
+    const int r = i / kW, c = i - r * kW;
+    const bool in = r < n_valid && c0 + c < d_valid;
+    v[u] = in ? to_f32(src[r * row_step + c0 + c]) : 0.f;
+  }
+}
+
+// the registers into a [64, kW] corner of an f32 tile whose rows are
+// kStride floats apart
+template <int kW, int kStride = kW + kPad>
+__device__ __forceinline__ void store(float* dst,
+                                      const float (&v)[64 * kW / kThreads],
+                                      int tid) {
+#pragma unroll
+  for (int u = 0; u < 64 * kW / kThreads; ++u) {
+    const int i = tid + u * kThreads;
+    const int r = i / kW, c = i - r * kW;
+    dst[r * kStride + c] = v[u];
+  }
+}
+
+}  // namespace wide
+
+// One block per (b, h, tile of 64 query rows, 256 output columns),
+// heaviest causal tile first. Per live key tile: S = Q K^T summed over D
+// in slices of 64 (Q's and K's slices staged in f32), the online-softmax
+// update of f32's instance (f32::softmax_update), then O += P V on the
+// block's 256 columns of V, p rounded to T first (T's instance rounds P so
+// too); o = acc / max(l, 1e-30) in T. Every block of a row tile forms the
+// same S, so QK^T runs once per 256 output columns.
+template <typename T>
+__device__ __forceinline__ void attention_wide(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int batch, int seqlen, int heads, int kv_heads,
+    int head_dim, int causal, int window, float scale) {
+  using namespace wide;
+  constexpr int kQS = kSlice + kPad;       // smem row strides, floats
+  constexpr int kVS = kCols + kPad;
+  constexpr int kR = kRows, kNK = kKeys, kC = kChunks;
+  constexpr int kRG = kRowGroups, kKG = kKeyGroups;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                        // [kBlockQ, kQS]
+  float* ks = qs + kBlockQ * kQS;          // [kBlockK, kQS]
+  float* vs = ks + kBlockK * kQS;          // [kBlockK, kVS]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane / kKG;
+  const int kg = lane % kKG;
+  const int n_cols = (head_dim + kCols - 1) / kCols;
+  const int bh_count = batch * heads;
+  const int n_q = (seqlen + kBlockQ - 1) / kBlockQ;
+  const int col = blockIdx.x % n_cols;
+  const int rest = blockIdx.x / n_cols;
+  const int bh = rest % bh_count;
+  const int qt = n_q - 1 - rest / bh_count;   // heaviest tile first
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int kvh = h / (heads / kv_heads);
+  const int q0 = qt * kBlockQ;
+  const int q_rows = min(kBlockQ, seqlen - q0);
+  const int c0 = col * kCols;
+
+  const long long q_step = (long long)heads * head_dim;
+  const long long kv_step = (long long)kv_heads * head_dim;
+  const T* qb = q + ((long long)b * seqlen + q0) * q_step
+                + (long long)h * head_dim;
+  const T* kb = k + (long long)b * seqlen * kv_step
+                + (long long)kvh * head_dim;
+  const T* vb = v + (long long)b * seqlen * kv_step
+                + (long long)kvh * head_dim;
+  T* ob = o + ((long long)b * seqlen + q0) * q_step + (long long)h * head_dim;
+
+  const int kv_end = causal ? q0 + q_rows : seqlen;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_begin = kv_begin / kBlockK;
+  const int t_end = (kv_end + kBlockK - 1) / kBlockK;
+
+  const int lrow = warp * kRG * kR + rg;   // this thread's rows: + kRG i
+  float acc[kR][kC][4];
+  float m[kR], l[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+  }
+  const float scale_log2 = scale * kLog2e;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kBlockK;
+    float s[kR][kNK];                      // logits, then p
+#pragma unroll
+    for (int i = 0; i < kR; ++i)
+#pragma unroll
+      for (int j = 0; j < kNK; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < head_dim; d0 += kSlice) {
+      float qr[64 * kSlice / kThreads], kr[64 * kSlice / kThreads];
+      load<kSlice>(qr, qb, q_step, q_rows, d0, head_dim, tid);
+      load<kSlice>(kr, kb + k0 * kv_step, kv_step, seqlen - k0, d0,
+                   head_dim, tid);
+      __syncthreads();                     // the last slices are read
+      store<kSlice>(qs, qr, tid);
+      store<kSlice>(ks, kr, tid);
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < kSlice; d += 2) {
+        float2 qv[kR], kv2[kNK];
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+          qv[i] = *reinterpret_cast<const float2*>(
+              qs + (lrow + kRG * i) * kQS + d);
+#pragma unroll
+        for (int j = 0; j < kNK; ++j)
+          kv2[j] = *reinterpret_cast<const float2*>(
+              ks + (kg + kKG * j) * kQS + d);
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+#pragma unroll
+          for (int j = 0; j < kNK; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv2[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv2[j].y, s[i][j]);
+          }
+      }
+    }
+#pragma unroll 1
+    for (int half = 0; half < 2; ++half) {   // V's slice, 128 columns at once
+      float vr[64 * kCols / 2 / kThreads];
+      load<kCols / 2>(vr, vb + k0 * kv_step, kv_step, seqlen - k0,
+                      c0 + half * kCols / 2, head_dim, tid);
+      store<kCols / 2, kVS>(vs + half * kCols / 2, vr, tid);
+    }
+
+    const bool need_mask = (causal && k0 + kBlockK - 1 > q0) ||
+                           (window > 0 && k0 <= q0 + kBlockQ - 1 - window) ||
+                           k0 + kBlockK > seqlen;
+    if (need_mask)
+      f32::softmax_update<kR, kNK, kC, kRG, kKG, true>(
+          s, m, l, acc, scale_log2, q0 + lrow, k0, kg, seqlen, causal,
+          window);
+    else
+      f32::softmax_update<kR, kNK, kC, kRG, kKG, false>(
+          s, m, l, acc, scale_log2, q0 + lrow, k0, kg, seqlen, causal,
+          window);
+#pragma unroll
+    for (int i = 0; i < kR; ++i)           // p in T, as T's instance has it
+#pragma unroll
+      for (int j = 0; j < kNK; ++j) s[i][j] = to_f32(from_f32<T>(s[i][j]));
+    __syncthreads();                       // V's slice staged
+
+    // O += P V, as f32's instance: key kKG j + g is slot j of lane g of
+    // this row group; columns 4 (kKG c + kg) of the block's kCols
+#pragma unroll
+    for (int j = 0; j < kNK; ++j)
+#pragma unroll
+      for (int g = 0; g < kKG; ++g) {
+        float p[kR];
+#pragma unroll
+        for (int i = 0; i < kR; ++i)
+          p[i] = __shfl_sync(0xffffffffu, s[i][j], (lane & ~(kKG - 1)) | g);
+        const float* v_row = vs + (kKG * j + g) * kVS + 4 * kg;
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float4 vv =
+              *reinterpret_cast<const float4*>(v_row + 4 * kKG * c);
+#pragma unroll
+          for (int i = 0; i < kR; ++i) {
+            acc[i][c][0] = fmaf(p[i], vv.x, acc[i][c][0]);
+            acc[i][c][1] = fmaf(p[i], vv.y, acc[i][c][1]);
+            acc[i][c][2] = fmaf(p[i], vv.z, acc[i][c][2]);
+            acc[i][c][3] = fmaf(p[i], vv.w, acc[i][c][3]);
+          }
+        }
+      }
+  }
+
+  // o = acc / max(l, 1e-30) in T; rows past S and columns past D not stored
+#pragma unroll
+  for (int i = 0; i < kR; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 1; off < kKG; off <<= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float denom = fmaxf(sum, 1e-30f);
+    const int r = lrow + kRG * i;
+    if (r < q_rows) {
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int cc = c0 + 4 * (kKG * c + kg) + e;
+          if (cc < head_dim)
+            ob[r * q_step + cc] = from_f32<T>(acc[i][c][e] / denom);
+        }
+    }
+  }
+}
+
+#ifndef F16_INSTANCES
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_attention_kernel_wide_f32(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    float* __restrict__ o, int batch,
+                                    int seqlen, int heads, int kv_heads,
+                                    int head_dim, int causal, int window,
+                                    float scale) {
+  attention_wide<float>(q, k, v, o, batch, seqlen, heads, kv_heads, head_dim,
+                        causal, window, scale);
+}
+
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_attention_kernel_wide_bf16(const __nv_bfloat16* __restrict__ q,
+                                     const __nv_bfloat16* __restrict__ k,
+                                     const __nv_bfloat16* __restrict__ v,
+                                     __nv_bfloat16* __restrict__ o, int batch,
+                                     int seqlen, int heads, int kv_heads,
+                                     int head_dim, int causal, int window,
+                                     float scale) {
+  attention_wide<__nv_bfloat16>(q, k, v, o, batch, seqlen, heads, kv_heads,
+                                head_dim, causal, window, scale);
+}
+
+#else
+__global__ void __launch_bounds__(wide::kThreads, 1)
+    flash_attention_kernel_wide_f16(const __half* __restrict__ q,
+                                    const __half* __restrict__ k,
+                                    const __half* __restrict__ v,
+                                    __half* __restrict__ o, int batch,
+                                    int seqlen, int heads, int kv_heads,
+                                    int head_dim, int causal, int window,
+                                    float scale) {
+  attention_wide<__half>(q, k, v, o, batch, seqlen, heads, kv_heads, head_dim,
+                         causal, window, scale);
+}
+#endif  // F16_INSTANCES
 
 // -- launch ---------------------------------------------------------------
 
@@ -813,27 +1179,53 @@ int launch(Kernel kernel, size_t smem, int threads, int block_q,
 
 template <int D>
 int launch_dim(const Args& a, int dtype) {
+#ifndef F16_INSTANCES
   if (dtype == 0)
     return launch<float>(flash_attention_kernel_f32<D>, f32::smem_bytes<D>(),
                          f32::Tile<D>::kThreads, f32::Tile<D>::kBlockQ, a);
-  return launch<bf16::T>(flash_attention_kernel_bf16<D>,
-                         bf16::smem_bytes<D>(), bf16::kThreads,
-                         bf16::kBlockQ, a);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(flash_attention_kernel_bf16<D>,
+                                 tc::smem_bytes<D>(), tc::kThreads,
+                                 tc::kBlockQ, a);
+#else
+  if (dtype == 2)
+    return launch<__half>(flash_attention_kernel_f16<D>, tc::smem_bytes<D>(),
+                          tc::kThreads, tc::kBlockQ, a);
+#endif
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename Kernel>
+int launch_wide(Kernel kernel, int head_dim, const Args& a) {
+  const size_t smem = wide::smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_q = (a.seqlen + wide::kBlockQ - 1) / wide::kBlockQ;
+  const int n_cols = (head_dim + wide::kCols - 1) / wide::kCols;
+  kernel<<<a.batch * a.heads * n_q * n_cols, wide::kThreads, smem,
+           a.stream>>>(static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+                       static_cast<const T*>(a.v), static_cast<T*>(a.o),
+                       a.batch, a.seqlen, a.heads, a.kv_heads, head_dim,
+                       a.causal, a.window, a.scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); q, k, v
-// and o share it. All tensors contiguous; heads % kv_heads == 0; head_dim
-// 64, 128 or 256; causal 0/1; window <= 0 for none. Returns the
-// cudaError_t of the launch (0 = ok).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor
+// cores; the -DF16_INSTANCES build's only dtype, the other build's two
+// others); q, k, v and o share it. All tensors contiguous; heads %
+// kv_heads == 0; head_dim 64, 128 or 256, or past 256 a multiple of 64
+// (the wide instance, CUDA cores in every dtype); causal 0/1; window <= 0
+// for none. Returns the cudaError_t of the launch (0 = ok).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int batch, int seqlen, int heads,
                            int kv_heads, int head_dim, int causal, int window,
                            float scale, int dtype, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads != 0 || (dtype != 0 && dtype != 1))
+  if (kv_heads <= 0 || heads % kv_heads != 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const Args a{q,     k,        v,      o,      batch, seqlen,
                heads, kv_heads, causal, window, scale,
@@ -843,8 +1235,23 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     case 128: return launch_dim<128>(a, dtype);
     case 256: return launch_dim<256>(a, dtype);
   }
+  if (head_dim < 256 || head_dim % wide::kSlice)
+    return (int)cudaErrorInvalidValue;
+#ifndef F16_INSTANCES
+  if (dtype == 0)
+    return launch_wide<float>(flash_attention_kernel_wide_f32, head_dim, a);
+  if (dtype == 1)
+    return launch_wide<__nv_bfloat16>(flash_attention_kernel_wide_bf16,
+                                      head_dim, a);
+#else
+  if (dtype == 2)
+    return launch_wide<__half>(flash_attention_kernel_wide_f16, head_dim, a);
+#endif
   return (int)cudaErrorInvalidValue;
 }
+
+// The wide instance's dynamic shared memory (the wrapper's must agree).
+int flash_attention_wide_smem() { return (int)wide::smem_bytes(); }
 
 // Largest dynamic shared memory one block may opt into on `device`.
 int flash_attention_max_smem(int device, int* bytes) {

@@ -9,9 +9,15 @@
 //     min_d2 = min_k d2[k]      (f32)
 //
 // The expansion is kept on purpose (not ||x - c||^2): the reference's min_d2
-// is defined by it and may dip below 0 by rounding. Inputs are f32 or bf16,
-// upcast to f32 on load; every sum is an f32 accumulation.
+// is defined by it and may dip below 0 by rounding. Inputs are f32, bf16 or
+// f16, upcast to f32 on load; every sum is an f32 accumulation. Two
+// instances, which the wrapper's plan picks (kernel.plan): the lane-group
+// kernel for every shape whose K centroids fit one block and whose point a
+// group's registers hold (D <= 256: the paper's shapes), and the
+// block-tiled kernel for the rest.
 //
+// Lane-group instance (kmeans_assign_kernel)
+// ------------------------------------------
 // What bounds it on an H100: at the main path's shapes (N=128 local-step
 // minibatch, D=64, K=3) one call reads ~33 KB and does ~49 kFLOP, i.e.
 // ~10 ns at 3.35 TB/s and under 1 ns of f32 math, far below the few
@@ -24,21 +30,16 @@
 // chosen by the wrapper from D (8 at D = 64: at most 8 elements a lane).
 //   * Lane r of a group holds vectors r, r + G, r + 2G, ... of the point's
 //     row in registers, loaded straight from global memory: 16-byte vectors
-//     (4 f32 or 8 bf16) where D and the pointers allow it, else scalars.
-//     The loads are issued before the centroids are staged, so the two
-//     global latencies overlap. Past 8 elements a lane (D > 256 at G = 32)
-//     the rest of the row is re-read per centroid (from L1).
-//   * The [K, D] centroids live in shared memory in f32 (the TPU kernel's
-//     "centroids resident in VMEM"); a lane reads its slice of a centroid,
-//     the groups of a warp read the same addresses (broadcasts). Where K
-//     centroids do not fit one block's shared memory, the block walks them
-//     in tiles of Kt rows (the wrapper sizes Kt to fit, all K in one tile
-//     where they do), and each group keeps its point's running minimum and
-//     argmin in registers from tile to tile. The comparison stays strict
-//     and runs in centroid order, so ties keep the lowest index across
-//     tiles too. With one tile the launch takes an instance with the tile
-//     loop folded away (kTiled false): the whole-K kernel's code, and its
-//     outputs bit for bit.
+//     (4 f32 or 8 bf16 / f16) where D and the pointers allow it, else
+//     scalars. The loads are issued before the centroids are staged, so the
+//     two global latencies overlap. (lane_dot's loop over vectors past a
+//     lane's 8 elements never runs since the wrapper sends D > 256 to the
+//     block-tiled instance; it stays so the f32 and bf16 instances compile
+//     to the SASS they had before the f16 and block-tiled instances came.)
+//   * The [K, D] centroids live in shared memory in f32 for the block's
+//     lifetime (the TPU kernel's "centroids resident in VMEM"); a lane reads
+//     its slice of a centroid, the groups of a warp read the same addresses
+//     (broadcasts).
 //   * Each lane forms its partial ||x||^2 and the K partial dots in a fixed
 //     order; the group sums them with log2 G rounds of __shfl_xor_sync. The
 //     butterfly leaves every lane with the same bits (a + b == b + a), and
@@ -50,24 +51,61 @@
 //     zeros and write nothing. 128 threads a block: 16 points at G = 8, so
 //     the local step's N = 128 spreads over 8 SMs instead of one.
 // The dependent chain at D = 64 is now 8 FMAs, 3 shuffles and an add per
-// product. A centre set in several tiles is another matter: each block
-// restages every tile for its few points (8 at D = 128), one block an SM
-// when a tile fills the shared memory, and walks the centres one dependent
-// chain after another; such a shape wants many points a block (a GEMM's
-// tiles). That, and wgmma/TMA pipelines, are left for when a caller's shape
-// makes this bandwidth- or compute-bound.
+// product. wgmma/TMA pipelines are left for when a caller's shape makes this
+// bandwidth- or compute-bound.
+//
+// Block-tiled instance (kmeans_assign_block_kernel)
+// -------------------------------------------------
+// For centre sets beyond one block's shared memory and points wider than a
+// group's registers (any K, any D). A centre set in several tiles of the
+// lane-group kernel's layout cost each block of 8 points a restage of every
+// tile, one dependent chain per centroid (1.5675 ms at (4096, 128, 1024),
+// 14.5x its plain version: PERF.md); here a block holds many points, as a
+// GEMM's tiles do. What bounds it: at (4096, 128, 1024) 1.09 GFLOP of f32
+// against 2.6 MB, so operations (67 TFLOP/s of f32: 16 us).
+//   * One block of 256 threads (a 16 x 16 grid) per kBM = 64 points; it
+//     walks the centres in tiles of kBK = 64 and D in slices of kDK = 32.
+//     Each slice of the points [64, 32] and of the tile's centres [64, 32]
+//     is read from global memory into registers (converted to f32) while
+//     the slice before it is used, then stored transposed in shared
+//     memory, [32, 64 + 4] each; thread (ty, tx) then owns
+//     points 4 ty .. 4 ty + 3 against centres 4 tx .. 4 tx + 3, a 4 x 4
+//     register tile fed by two 16-byte shared loads per step of D (16 FMAs
+//     per 8 floats loaded).
+//   * Every sum runs in one fixed order over D, slice after slice: each
+//     (point, centre) dot is one thread's FMA chain, ||x||^2 one thread's
+//     (warps 0-1, the first centre tile only) and ||c||^2 one thread's
+//     (warps 2-3, each tile), so two identical centroids give identical
+//     d2 and the tie still goes to the lower index. Points past N and
+//     columns past D are zeros; centres past K never win.
+//   * A tile's minimum: each thread scans its 4 centres in order (strict
+//     <), then the 16 lanes sharing a point combine by shuffles, keeping
+//     the smaller d2 and, on equal d2, the lower index: the first minimum
+//     in centre order. Each point's running minimum and argmin stay in
+//     registers from tile to tile, replaced only on a strict <, so ties
+//     keep the lowest index across tiles too.
+//   * A simple, correct kernel on the FMA pipes: no cp.async or TMA
+//     pipeline, no wgmma, and a shape with few point blocks (N / 64 under
+//     the SM count) leaves SMs idle. On an H100 (PERF.md): 0.123 ms at
+//     (4096, 128, 1024), near its plain version; 0.43 ms at (1024, 8192,
+//     64), 16 blocks, 3.2x its plain version; staging each slice with
+//     its loads and stores interleaved, before the register prefetch,
+//     took 0.227 and 1.408. ptxas: 159-161 registers, no spills.
 //
 // Edges: the reference also runs the TPU kernel under jax.vmap over edges
 // (src/repro/el/ingraph.py, the compiled EL round's local blocks), so the
 // compiled round's E-step is E problems X [E, N, D] against C [E, K, D], each
-// edge against its own centroids. One launch covers them all: blockIdx.y is
-// the edge, blockIdx.x the point block, and each block stages its own edge's
-// centroids and norms in shared memory. A single problem is one edge, so a
+// edge against its own centroids. One launch covers them all, in both
+// instances: blockIdx.y is the edge, blockIdx.x the point block, and each
+// block reads its own edge's centroids. A single problem is one edge, so a
 // batched launch computes bit for bit what E single launches compute.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,6 +116,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
 
 // V consecutive elements of a row, from global memory, as f32
 template <typename T, int V>
@@ -88,6 +127,17 @@ __device__ __forceinline__ void load_vec(float (&out)[V], const T* p) {
     static_assert(V == 4, "f32 vectors are 16 bytes");
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  } else if constexpr (std::is_same_v<T, __half>) {
+    static_assert(V == 8, "f16 vectors are 16 bytes");
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f =
+          __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
   } else {
     static_assert(V == 8, "bf16 vectors are 16 bytes");
     const uint4 v = *reinterpret_cast<const uint4*>(p);
@@ -162,20 +212,16 @@ __device__ __forceinline__ float lane_dot(const float (&xv)[kRegElems],
   return part;
 }
 
-// kTiled false: all k centroids in one tile (kt == k), the loop over tiles
-// folded away at compile time, so the code is the whole-K kernel's (kt comes
-// last, leaving the other parameters where that kernel had them)
-template <typename T, int V, bool kTiled>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     kmeans_assign_kernel(const T* __restrict__ x,
                          const T* __restrict__ centers, int n, int d, int k,
                          int group, int32_t* __restrict__ out_assign,
-                         float* __restrict__ out_d2, int kt) {
+                         float* __restrict__ out_d2) {
   constexpr int kSlots = kRegElems / V;
   extern __shared__ float4 smem4[];
-  if (!kTiled) kt = k;                  // (the launch passes k; folded)
-  float* c_s = reinterpret_cast<float*>(smem4);  // [kt, d]
-  float* c2_s = c_s + kt * d;                     // [kt]
+  float* c_s = reinterpret_cast<float*>(smem4);  // [k, d]
+  float* c2_s = c_s + k * d;                      // [k]
 
   // this block's edge: its points, centroids and outputs
   const long long edge = blockIdx.y;
@@ -206,44 +252,36 @@ __global__ void __launch_bounds__(kThreads)
     for (int t = 0; t < V; ++t) xv[s * V + t] = v[t];
   }
 
-  float x2 = 0.f;
+  for (int i = tid; i < k * d; i += kThreads) c_s[i] = to_f32(centers[i]);
+  __syncthreads();
+  // ||c||^2, centroid c0 + gi by group gi (the loop is uniform over the
+  // block, so every lane takes part in every shuffle)
+  for (int c0 = 0; c0 < k; c0 += groups) {
+    const int c = c0 + gi;
+    float part = 0.f;
+    if (c < k) {
+      for (int j = r; j < d; j += group)
+        part = fmaf(c_s[c * d + j], c_s[c * d + j], part);
+    }
+    part = group_sum(part, group);
+    if (c < k && r == 0) c2_s[c] = part;
+  }
+  __syncthreads();
+
+  // a dead point's lanes still join the shuffles; its tail is not read
+  const int nv_live = live ? nv : min(nv, group * kSlots);
+  const float x2 =
+      group_sum(lane_dot<T, V>(xv, x_row, nullptr, nv_live, r, group), group);
   float best = 0.f;
   int best_k = 0;
-  // centroids t0 .. t0 + kc - 1 at a time (the loop is uniform over the
-  // block, so every lane takes part in every shuffle and barrier)
-  for (int t0 = 0; t0 < (kTiled ? k : 1); t0 += (kTiled ? kt : 1)) {
-    const int kc = kTiled ? min(kt, k - t0) : k;
-    if (kTiled && t0 > 0) __syncthreads();   // every group is done with it
-    const T* tile = centers + (long long)t0 * d;
-    for (int i = tid; i < kc * d; i += kThreads) c_s[i] = to_f32(tile[i]);
-    __syncthreads();
-    // ||c||^2, centroid c0 + gi by group gi
-    for (int c0 = 0; c0 < kc; c0 += groups) {
-      const int c = c0 + gi;
-      float part = 0.f;
-      if (c < kc) {
-        for (int j = r; j < d; j += group)
-          part = fmaf(c_s[c * d + j], c_s[c * d + j], part);
-      }
-      part = group_sum(part, group);
-      if (c < kc && r == 0) c2_s[c] = part;
-    }
-    __syncthreads();
-
-    // a dead point's lanes still join the shuffles; its tail is not read
-    const int nv_live = live ? nv : min(nv, group * kSlots);
-    if (!kTiled || t0 == 0)
-      x2 = group_sum(lane_dot<T, V>(xv, x_row, nullptr, nv_live, r, group),
-                     group);
-    for (int c = 0; c < kc; ++c) {
-      const float dot = group_sum(
-          lane_dot<T, V>(xv, x_row, c_s + c * d, nv_live, r, group), group);
-      // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
-      const float d2 = (x2 - 2.f * dot) + c2_s[c];
-      if (t0 + c == 0 || d2 < best) {  // strict <: ties keep the lowest index
-        best = d2;
-        best_k = t0 + c;
-      }
+  for (int c = 0; c < k; ++c) {
+    const float dot = group_sum(
+        lane_dot<T, V>(xv, x_row, c_s + c * d, nv_live, r, group), group);
+    // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
+    const float d2 = (x2 - 2.f * dot) + c2_s[c];
+    if (c == 0 || d2 < best) {  // strict <: ties keep the lowest index
+      best = d2;
+      best_k = c;
     }
   }
   if (live && r == 0) {
@@ -254,11 +292,10 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int V>
 int launch(const void* x, const void* centers, int edges, int n, int d, int k,
-           int kt, int group, int32_t* out_assign, float* out_d2,
+           int group, int32_t* out_assign, float* out_d2,
            cudaStream_t stream) {
-  auto kernel = kt < k ? kmeans_assign_kernel<T, V, true>
-                       : kmeans_assign_kernel<T, V, false>;
-  const size_t smem = (size_t(kt) * d + kt) * sizeof(float);
+  auto kernel = kmeans_assign_kernel<T, V>;
+  const size_t smem = (size_t(k) * d + k) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -268,7 +305,7 @@ int launch(const void* x, const void* centers, int edges, int n, int d, int k,
   const dim3 blocks((n + points - 1) / points, edges);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(centers), n, d, k,
-      group, out_assign, out_d2, kt);
+      group, out_assign, out_d2);
   return (int)cudaGetLastError();
 }
 
@@ -277,16 +314,196 @@ int launch(const void* x, const void* centers, int edges, int n, int d, int k,
 // otherwise
 template <typename T>
 int launch_dtype(const void* x, const void* centers, int edges, int n, int d,
-                 int k, int kt, int group, int32_t* out_assign, float* out_d2,
+                 int k, int group, int32_t* out_assign, float* out_d2,
                  cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   const bool aligned = d % kV == 0 && (uintptr_t)x % 16 == 0 &&
                        (uintptr_t)centers % 16 == 0;
   if (aligned)
-    return launch<T, kV>(x, centers, edges, n, d, k, kt, group, out_assign,
+    return launch<T, kV>(x, centers, edges, n, d, k, group, out_assign,
                          out_d2, stream);
-  return launch<T, 1>(x, centers, edges, n, d, k, kt, group, out_assign,
-                      out_d2, stream);
+  return launch<T, 1>(x, centers, edges, n, d, k, group, out_assign, out_d2,
+                      stream);
+}
+
+
+// -- block-tiled instance ----------------------------------------------------
+
+constexpr int kBThreads = 256;         // a 16 x 16 thread grid
+constexpr int kBM = 64;                // points a block
+constexpr int kBK = 64;                // centres a tile
+constexpr int kDK = 32;                // features a slice
+constexpr int kSS = kBM + 4;           // row stride of a staged slice (floats)
+static_assert(kBM == kBK, "one stride for both staged slices");
+
+constexpr int kPer = kBM * kDK / kBThreads;   // elements a thread stages
+
+// this thread's share of rows [r0, r0 + 64) x columns [d0, d0 + 32) of a
+// [rows, d] array, as f32 in registers (the next slice's loads are in
+// flight while the current one is used); past `rows` or d: zeros
+template <typename T>
+__device__ __forceinline__ void load_slice(float (&v)[kPer], const T* src,
+                                           int r0, int rows, int d0, int d,
+                                           int tid) {
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = tid + u * kBThreads;
+    const int r = i / kDK, j = i - r * kDK;
+    const bool in = r0 + r < rows && d0 + j < d;
+    v[u] = in ? to_f32(src[(long long)(r0 + r) * d + d0 + j]) : 0.f;
+  }
+}
+
+// a slice from registers into dst[32][kSS], transposed
+__device__ __forceinline__ void store_slice(float* dst,
+                                            const float (&v)[kPer],
+                                            int tid) {
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int i = tid + u * kBThreads;
+    const int r = i / kDK, j = i - r * kDK;
+    dst[j * kSS + r] = v[u];
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBThreads)
+    kmeans_assign_block_kernel(const T* __restrict__ x,
+                               const T* __restrict__ centers, int n, int d,
+                               int k, int32_t* __restrict__ out_assign,
+                               float* __restrict__ out_d2) {
+  __shared__ __align__(16) float xs[kDK * kSS];   // [feature][point]
+  __shared__ __align__(16) float cs[kDK * kSS];   // [feature][centre]
+  __shared__ float x2_s[kBM];
+  __shared__ float c2_s[kBK];
+
+  // this block's edge: its points, centroids and outputs
+  const long long edge = blockIdx.y;
+  x += edge * n * d;
+  centers += edge * k * d;
+  out_assign += edge * n;
+  out_d2 += edge * n;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
+  const int p0 = blockIdx.x * kBM;
+  float best[4];
+  int best_k[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    best[i] = 0.f;
+    best_k[i] = -1;                    // no centre yet
+  }
+  float norm = 0.f;   // warps 0-1: ||x||^2 of point tid; 2-3: ||c||^2
+  // slices in order: the first tile's, then the next tile's, ...; each
+  // staged from registers loaded while the slice before was used
+  float xr[kPer], cr[kPer];
+  load_slice(xr, x, p0, n, 0, d, tid);
+  load_slice(cr, centers, 0, k, 0, d, tid);
+
+  for (int k0 = 0; k0 < k; k0 += kBK) {
+    float dot[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dot[i][j] = 0.f;
+    if (tid >= kBM) norm = 0.f;        // ||c||^2 starts again each tile
+    for (int d0 = 0; d0 < d; d0 += kDK) {
+      __syncthreads();                 // the last slice is read
+      store_slice(xs, xr, tid);
+      store_slice(cs, cr, tid);
+      __syncthreads();
+      const bool last = d0 + kDK >= d;  // the next slice: this tile's, or
+      const int nd0 = last ? 0 : d0 + kDK;   // the next tile's first
+      const int nk0 = last ? k0 + kBK : k0;
+      if (nk0 < k) {
+        load_slice(xr, x, p0, n, nd0, d, tid);
+        load_slice(cr, centers, nk0, k, nd0, d, tid);
+      }
+      if (tid < kBM) {
+        if (k0 == 0)                   // one pass over D is enough
+          for (int j = 0; j < kDK; ++j)
+            norm = fmaf(xs[j * kSS + tid], xs[j * kSS + tid], norm);
+      } else if (tid < kBM + kBK) {
+        const int c = tid - kBM;
+        for (int j = 0; j < kDK; ++j)
+          norm = fmaf(cs[j * kSS + c], cs[j * kSS + c], norm);
+      }
+#pragma unroll 8
+      for (int j = 0; j < kDK; ++j) {
+        const float4 xv = *reinterpret_cast<const float4*>(
+            xs + j * kSS + 4 * ty);
+        const float4 cv = *reinterpret_cast<const float4*>(
+            cs + j * kSS + 4 * tx);
+        const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+        const float ca[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            dot[i][c] = fmaf(xa[i], ca[c], dot[i][c]);
+      }
+    }
+    if (tid < kBM) {
+      if (k0 == 0) x2_s[tid] = norm;
+    } else if (tid < kBM + kBK) {
+      c2_s[tid - kBM] = norm;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x2 = x2_s[4 * ty + i];
+      // this thread's centres in order, strict <: the first minimum
+      float v = 0.f;
+      int vk = -1;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int kc = k0 + 4 * tx + c;
+        // 2*dot is exact, so a contracted fma(-2, dot, x2) rounds identically
+        const float d2 = (x2 - 2.f * dot[i][c]) + c2_s[4 * tx + c];
+        if (kc < k && (vk < 0 || d2 < v)) {
+          v = d2;
+          vk = kc;
+        }
+      }
+      // the 16 lanes of the point: the smaller d2, the lower index on ties
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+        const int ok = __shfl_xor_sync(0xffffffffu, vk, off);
+        if (ok >= 0 && (vk < 0 || ov < v || (ov == v && ok < vk))) {
+          v = ov;
+          vk = ok;
+        }
+      }
+      if (best_k[i] < 0 || v < best[i]) {  // strict <: earlier tiles win ties
+        best[i] = v;
+        best_k[i] = vk;
+      }
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + 4 * ty + i;
+      if (p < n) {
+        out_assign[p] = best_k[i];
+        out_d2[p] = best[i];
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_block(const void* x, const void* centers, int edges, int n, int d,
+                 int k, int32_t* out_assign, float* out_d2,
+                 cudaStream_t stream) {
+  const dim3 blocks((n + kBM - 1) / kBM, edges);
+  kmeans_assign_block_kernel<T><<<blocks, kBThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(centers), n, d, k,
+      out_assign, out_d2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -295,23 +512,47 @@ extern "C" {
 
 // x [edges, n, d] and centers [edges, k, d], contiguous, into out_assign /
 // out_d2 [edges, n]; edge e's points against edge e's centroids (edges = 1:
-// one problem). kt: the centroids a block holds in shared memory at once
-// (1 to k; k: all of them). dtype: 0 = float32, 1 = bfloat16 (x and
-// centers share it). group: lanes per point, a power of two <= 32.
-// Returns the cudaError_t of the launch (0 = success).
+// one problem). dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and
+// centers share it). group: lanes per point, a power of two <= 32; all k
+// centroids are staged at once (the wrapper plans that they fit). Returns
+// the cudaError_t of the launch (0 = success).
 int kmeans_assign_launch(const void* x, const void* centers, int edges, int n,
-                         int d, int k, int kt, int dtype, int group,
+                         int d, int k, int dtype, int group,
                          int32_t* out_assign, float* out_d2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group < 1 || group > 32 || (group & (group - 1)) != 0 || edges < 1 ||
-      edges > 65535 || kt < 1 || kt > k)
+      edges > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_dtype<float>(x, centers, edges, n, d, k, kt, group,
-                               out_assign, out_d2, s);
+    return launch_dtype<float>(x, centers, edges, n, d, k, group, out_assign,
+                               out_d2, s);
   if (dtype == 1)
-    return launch_dtype<__nv_bfloat16>(x, centers, edges, n, d, k, kt, group,
+    return launch_dtype<__nv_bfloat16>(x, centers, edges, n, d, k, group,
                                        out_assign, out_d2, s);
+  if (dtype == 2)
+    return launch_dtype<__half>(x, centers, edges, n, d, k, group,
+                                out_assign, out_d2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The block-tiled instance: the same arguments and outputs, any k and d
+// (no alignment needed).
+int kmeans_assign_block_launch(const void* x, const void* centers, int edges,
+                               int n, int d, int k, int dtype,
+                               int32_t* out_assign, float* out_d2,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (edges < 1 || edges > 65535 || k < 1 || d < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_block<float>(x, centers, edges, n, d, k, out_assign,
+                               out_d2, s);
+  if (dtype == 1)
+    return launch_block<__nv_bfloat16>(x, centers, edges, n, d, k,
+                                       out_assign, out_d2, s);
+  if (dtype == 2)
+    return launch_block<__half>(x, centers, edges, n, d, k, out_assign,
+                                out_d2, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan/kernel.py
 // (_ssd_kernel, launched by ssd_fwd through pl.pallas_call). Inputs:
 //
-//     x  [B, S, H, P]  already scaled by dt, f32 or bf16
+//     x  [B, S, H, P]  already scaled by dt, f32, bf16 or f16
 //     da [B, S, H]     dt * A (<= 0), f32
 //     Bm, Cm [B, S, N] in x's dtype, one group shared by every head
 //
@@ -18,16 +18,37 @@
 //                + sum_l exp(a_cs[L-1] - a_cs[l]) * x[l, :]^T B_l
 //
 // y is written in x's dtype, the final state in f32; every sum is an f32
-// accumulation from f32 or bf16 inputs. exp is evaluated only where j <= i:
-// above the diagonal a_cs[i] - a_cs[j] > 0 can overflow to inf, and a
-// multiply by a 0/1 mask would turn that into NaN.
+// accumulation from f32, bf16 or f16 inputs. exp is evaluated only where
+// j <= i: above the diagonal a_cs[i] - a_cs[j] > 0 can overflow to inf,
+// and a multiply by a 0/1 mask would turn that into NaN.
 //
-// ssd_scan_launch picks the instance by dtype: bf16 runs on the tensor
-// cores, f32 on the CUDA cores (tensor cores take f32 only as TF32, which
-// the port's f32 parity tier forbids).
+// ssd_scan_launch picks the instance by dtype: bf16 and f16 run on the
+// tensor cores, f32 on the CUDA cores (tensor cores take f32 only as TF32,
+// which the port's f32 parity tier forbids). This source builds two
+// libraries, one nvcc each, side by side (kernels/_build.py): the f32 and
+// bf16 instances, and with -DF16_INSTANCES the f16 ones alone, whose
+// ssd_scan_launch takes dtype 2 only (in one library they doubled its
+// nvcc time).
 //
-// bf16 instance: tensor cores (ssd_scan_kernel_bf16)
-// ---------------------------------------------------
+// N past 256 (a launch's limit: the f32 carry block's state columns, a
+// bf16 warp's 4 state items) is split by the wrapper into parts of at most
+// 256 columns, one launch each on its own copy of B's and C's columns. y is
+// linear in the state columns (G = C B^T and C state^T both sum over n, and
+// the state's columns are independent), so each part's y is a partial sum:
+// the launch's y_mode makes the first part write it in f32 (y32), the
+// middle ones add theirs to it and the last write y32 + y rounded once to
+// x's dtype; the f32 instance adds each later part's diagonal blocks to y
+// itself (kernel 2 adds the carried part as always). The final state's
+// columns are the parts', side by side.
+//
+// bf16 and f16 instances: tensor cores (ssd_scan_kernel_bf16, _f16)
+// ------------------------------------------------------------------
+// One body (tc::scan) for both element types: f16 takes the same tiles,
+// plan and shared memory with mma.sync's .f16 operands, and splits its f32
+// operands into f16 hi and lo parts as bf16 splits them into bf16 parts
+// (the split needs those f32 operands within f16's range, |v| <= 65,504:
+// a limit of this scheme that the reference, computing them in f32, does
+// not have). Below, "bf16" stands for both.
 // What bounds it on an H100: at the serving prefill's shape (B = 4, S = 512,
 // H = 32, P = 64, N = 128, L = 128) one call must read x, da, B, C and write
 // y and the state once, 22.3 MB (3.35 TB/s: 6.7 us), and do 2.72 GFLOP on
@@ -148,10 +169,14 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
+#ifndef F16_INSTANCES
 // -- f32 instance: CUDA cores ---------------------------------------------
 
 namespace f32 {
@@ -329,7 +354,9 @@ __device__ __forceinline__ void gram_rows(const float* cs, const float* bs,
 // of a chunk that needs no carried state. G = C B^T once for the group,
 // on the causal triangle's column blocks; then per head Gd = G o
 // exp(a_cs[i] - a_cs[j]) (exp only where j <= i < L) and y = Gd x, a slab
-// of 64 columns of P at a time, written to y. The 16 x 16 thread grid
+// of 64 columns of P at a time, written to y (added to it with
+// `accumulate`: a part of a call split over N after the first). The 16 x 16
+// thread grid
 // gives warp w rows 16 w .. 16 w + 15 (a thread rows 16 w + (ty & 1) +
 // 2 r), so a warp's G needs column blocks c <= w and its Gd x keys
 // j < 16 w + 16: the triangle's dead half is skipped warp by warp.
@@ -342,7 +369,7 @@ __global__ void __launch_bounds__(f32::kThreads, 1)
                              const float* __restrict__ cm, int seqlen,
                              int heads, int p_dim, int n_dim, int chunk,
                              int hg, int vec_x, int vec_bc,
-                             float* __restrict__ y) {
+                             float* __restrict__ y, int accumulate) {
   using namespace f32;
   extern __shared__ __align__(16) float smem[];
   const int lp = padded_chunk(chunk);
@@ -468,7 +495,9 @@ __global__ void __launch_bounds__(f32::kThreads, 1)
           float* yr = y + (t0 + i) * x_step + (long long)h * p_dim + p0;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (p0 + 4 * tx + e < p_dim) yr[4 * tx + e] = acc[r][e];
+            if (p0 + 4 * tx + e < p_dim)
+              yr[4 * tx + e] = accumulate ? yr[4 * tx + e] + acc[r][e]
+                                          : acc[r][e];
         }
       }
     }
@@ -664,11 +693,12 @@ __global__ void __launch_bounds__(f32::kThreads, 1)
   }
 }
 
-// -- bf16 instance: tensor cores ------------------------------------------
+#endif  // F16_INSTANCES
 
-namespace bf16 {
+// -- bf16 and f16 instances: tensor cores ---------------------------------
 
-using T = __nv_bfloat16;
+namespace tc {
+
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPad = 8;                // halves of padding per staged row
@@ -744,48 +774,89 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// c += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, f32 accumulate
+// c += a b: a 16 x 16 (row), b 16 x 8 (col), T (bf16 or f16) in, f32
+// accumulate
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same_v<T, __half>)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
+// two f32 rounded to a T pair, lo in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same_v<T, __half>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// two f32 rounded to a bf16 pair, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return bits(__floats2bfloat162_rn(lo, hi));
+template <typename T>
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  if constexpr (std::is_same_v<T, __half>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&v));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
-
-// (a, b) as a bf16 pair `hi` plus the pair of what it leaves, `lo`
+// (a, b) as a T pair `hi` plus the pair of what it leaves, `lo`
+template <typename T>
 __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
+  hi = pack<T>(a, b);
+  const float2 hf = unpack<T>(hi);
+  lo = pack<T>(a - hf.x, b - hf.y);
 }
 
 // c += (a_hi + a_lo) b
+template <typename T>
 __device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&hi)[4],
                                      const uint32_t (&lo)[4], uint32_t b0,
                                      uint32_t b1) {
-  mma(c, hi, b0, b1);
-  mma(c, lo, b0, b1);
+  mma<T>(c, hi, b0, b1);
+  mma<T>(c, lo, b0, b1);
 }
 
-// Rows [0, Lp) of a [*, row_step] bf16 array, `cols` wide, into a tile
+// A pair of y (row i, columns col and col + 1 at element offset `at`) by
+// the launch's mode: 0 y = v in T; 1 y32 = v; 2 y32 += v; 3 y = T(y32 + v)
+// (the parts of a call split over N: every part's y summed in f32, rounded
+// once)
+template <typename T>
+__device__ __forceinline__ void store_y(T* y, float* y32, long long at,
+                                        float a, float b, int mode) {
+  if (mode == 0) {
+    *reinterpret_cast<uint32_t*>(y + at) = pack<T>(a, b);
+    return;
+  }
+  float2* p = reinterpret_cast<float2*>(y32 + at);
+  if (mode == 1) {
+    *p = make_float2(a, b);
+    return;
+  }
+  const float2 sum = *p;
+  if (mode == 2)
+    *p = make_float2(sum.x + a, sum.y + b);
+  else
+    *reinterpret_cast<uint32_t*>(y + at) = pack<T>(sum.x + a, sum.y + b);
+}
+
+// Rows [0, Lp) of a [*, row_step] 2-byte array, `cols` wide, into a tile
 // with row stride `stride` halves; rows >= n_valid are zero-filled.
+template <typename T>
 __device__ __forceinline__ void load_rows(uint32_t dst, const T* src,
                                           long long row_step, int lp,
                                           int cols, int stride, int n_valid,
@@ -802,6 +873,7 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const T* src,
 
 // The 16 x 16 tile of G = C B^T at rows i0, columns j0 as two n8 C-layout
 // fragments, from C and B staged with row stride ns (halves)
+template <typename T>
 __device__ __forceinline__ void gram_tile(float (&gv)[2][4], uint32_t cs,
                                           uint32_t bs, int ns, int n_dim,
                                           int i0, int j0, int lane) {
@@ -817,23 +889,21 @@ __device__ __forceinline__ void gram_tile(float (&gv)[2][4], uint32_t cs,
     uint32_t a[4], bk[4];
     ldmatrix_x4(a, cs + a_off + kk * 32);
     ldmatrix_x4(bk, bs + b_off + kk * 32);
-    mma(gv[0], a, bk[0], bk[1]);
-    mma(gv[1], a, bk[2], bk[3]);
+    mma<T>(gv[0], a, bk[0], bk[1]);
+    mma<T>(gv[1], a, bk[2], bk[3]);
   }
 }
 
-}  // namespace bf16
-
-template <int kPt, int kItems>
-__global__ void __launch_bounds__(bf16::kThreads, 1)
-    ssd_scan_kernel_bf16(const __nv_bfloat16* __restrict__ x,
-                         const float* __restrict__ da,
-                         const __nv_bfloat16* __restrict__ bm,
-                         const __nv_bfloat16* __restrict__ cm, int seqlen,
-                         int heads, int p_dim, int n_dim, int chunk,
-                         __nv_bfloat16* __restrict__ y,
-                         float* __restrict__ state_out) {
-  using namespace bf16;
+// The scan block's body, for T = bf16 or f16 (the __global__ entries below)
+template <typename T, int kPt, int kItems>
+__device__ __forceinline__ void scan(const T* __restrict__ x,
+                                     const float* __restrict__ da,
+                                     const T* __restrict__ bm,
+                                     const T* __restrict__ cm, int seqlen,
+                                     int heads, int p_dim, int n_dim,
+                                     int chunk, T* __restrict__ y,
+                                     float* __restrict__ state_out,
+                                     float* __restrict__ y32, int y_mode) {
   constexpr int kNT = kPt / 8;             // n8 tiles of a y row tile
   constexpr int kPT = kPt / 16;            // 16-row tiles of p
   constexpr int kWP = kWarps / kPT;        // warps sharing a p tile
@@ -972,10 +1042,10 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
             uint32_t bh[4], bl[4];
             ldmatrix_x4(bh, hi_a + off);
             ldmatrix_x4(bl, lo_a + off);
-            mma(acc[2 * dp], a, bh[0], bh[1]);
-            mma(acc[2 * dp + 1], a, bh[2], bh[3]);
-            mma(acc[2 * dp], a, bl[0], bl[1]);
-            mma(acc[2 * dp + 1], a, bl[2], bl[3]);
+            mma<T>(acc[2 * dp], a, bh[0], bh[1]);
+            mma<T>(acc[2 * dp + 1], a, bh[2], bh[3]);
+            mma<T>(acc[2 * dp], a, bl[0], bl[1]);
+            mma<T>(acc[2 * dp + 1], a, bl[2], bl[3]);
           }
         }
         const float e0 = e_s[r0], e1 = e_s[r1];
@@ -993,7 +1063,7 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
       for (int kt = 0; kt <= rt; ++kt) {
         const int j0 = kt * 16;
         float gv[2][4];                    // C layout: cols j0 + 8e + 2tig
-        gram_tile(gv, cs_a, bs_a, ns, n_dim, i0, j0, lane);
+        gram_tile<T>(gv, cs_a, bs_a, ns, n_dim, i0, j0, lane);
         uint32_t ahi[4], alo[4];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
@@ -1011,15 +1081,15 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
             }
             // A fragment: a0 (r0, cols 0-7), a1 (r1, 0-7), a2 (r0, 8-15),
             // a3 (r1, 8-15)
-            split(d[0], d[1], ahi[2 * e + half], alo[2 * e + half]);
+            split<T>(d[0], d[1], ahi[2 * e + half], alo[2 * e + half]);
           }
 #pragma unroll
         for (int dp = 0; dp < kPt / 16; ++dp) {
           uint32_t bv[4];                  // x [j, p]: k = j, col = p
           ldmatrix_x4_trans(
               bv, xs_a + ((j0 + row_kn) * xs + dp * 16 + col_kn) * 2);
-          mma2(acc[2 * dp], ahi, alo, bv[0], bv[1]);
-          mma2(acc[2 * dp + 1], ahi, alo, bv[2], bv[3]);
+          mma2<T>(acc[2 * dp], ahi, alo, bv[0], bv[1]);
+          mma2<T>(acc[2 * dp + 1], ahi, alo, bv[2], bv[3]);
         }
       }
 
@@ -1027,13 +1097,11 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
       for (int t = 0; t < kNT; ++t) {
         const int col = p0 + t * 8 + 2 * tig;
         if (r0 < chunk)
-          *reinterpret_cast<uint32_t*>(
-              y + ((t0 + r0) * heads + h) * p_dim + col) =
-              pack_bf16(acc[t][0], acc[t][1]);
+          store_y<T>(y, y32, ((t0 + r0) * heads + h) * p_dim + col,
+                     acc[t][0], acc[t][1], y_mode);
         if (r1 < chunk)
-          *reinterpret_cast<uint32_t*>(
-              y + ((t0 + r1) * heads + h) * p_dim + col) =
-              pack_bf16(acc[t][2], acc[t][3]);
+          store_y<T>(y, y32, ((t0 + r1) * heads + h) * p_dim + col,
+                     acc[t][2], acc[t][3], y_mode);
       }
     }
     __syncthreads();                       // phase A's state reads are done
@@ -1057,9 +1125,9 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
       uint32_t ahi[4], alo[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {        // a0, a1: l 2tig..; a2, a3: +8
-        const float2 v = unpack_bf16(xa[q]);
+        const float2 v = unpack<T>(xa[q]);
         const float2 w = q < 2 ? w0 : w1;
-        split(v.x * w.x, v.y * w.y, ahi[q], alo[q]);
+        split<T>(v.x * w.x, v.y * w.y, ahi[q], alo[q]);
       }
 #pragma unroll
       for (int j = 0; j < kItems; ++j) {
@@ -1070,8 +1138,8 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
             uint32_t bv[4];                // B [l, n]: k = l, col = n
             ldmatrix_x4_trans(
                 bv, bs_a + ((l0 + row_kn) * ns + n0 + np * 16 + col_kn) * 2);
-            mma2(state[j][2 * np], ahi, alo, bv[0], bv[1]);
-            mma2(state[j][2 * np + 1], ahi, alo, bv[2], bv[3]);
+            mma2<T>(state[j][2 * np], ahi, alo, bv[0], bv[1]);
+            mma2<T>(state[j][2 * np + 1], ahi, alo, bv[2], bv[3]);
           }
         }
       }
@@ -1086,8 +1154,8 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
         const int col = n0 + t * 8 + 2 * tig;
         if (col < n_dim) {
           const int k0 = ((pr + g) * ns + col) / 2, k1 = k0 + 4 * ns;
-          split(state[j][t][0], state[j][t][1], hi_s[k0], lo_s[k0]);
-          split(state[j][t][2], state[j][t][3], hi_s[k1], lo_s[k1]);
+          split<T>(state[j][t][0], state[j][t][1], hi_s[k0], lo_s[k0]);
+          split<T>(state[j][t][2], state[j][t][3], hi_s[k1], lo_s[k1]);
         }
       }
     }
@@ -1111,6 +1179,38 @@ __global__ void __launch_bounds__(bf16::kThreads, 1)
   }
 }
 
+}  // namespace tc
+
+#ifndef F16_INSTANCES
+template <int kPt, int kItems>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    ssd_scan_kernel_bf16(const __nv_bfloat16* __restrict__ x,
+                         const float* __restrict__ da,
+                         const __nv_bfloat16* __restrict__ bm,
+                         const __nv_bfloat16* __restrict__ cm, int seqlen,
+                         int heads, int p_dim, int n_dim, int chunk,
+                         __nv_bfloat16* __restrict__ y,
+                         float* __restrict__ state_out,
+                         float* __restrict__ y32, int y_mode) {
+  tc::scan<__nv_bfloat16, kPt, kItems>(x, da, bm, cm, seqlen, heads, p_dim,
+                                       n_dim, chunk, y, state_out, y32,
+                                       y_mode);
+}
+#else
+template <int kPt, int kItems>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    ssd_scan_kernel_f16(const __half* __restrict__ x,
+                        const float* __restrict__ da,
+                        const __half* __restrict__ bm,
+                        const __half* __restrict__ cm, int seqlen, int heads,
+                        int p_dim, int n_dim, int chunk,
+                        __half* __restrict__ y, float* __restrict__ state_out,
+                        float* __restrict__ y32, int y_mode) {
+  tc::scan<__half, kPt, kItems>(x, da, bm, cm, seqlen, heads, p_dim, n_dim,
+                                chunk, y, state_out, y32, y_mode);
+}
+#endif  // F16_INSTANCES
+
 // -- launch ---------------------------------------------------------------
 
 template <typename Kernel>
@@ -1120,13 +1220,15 @@ int set_smem(Kernel kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+#ifndef F16_INSTANCES
 // Kernel 1 (the chunks' diagonal blocks into y), then kernel 2 (the
 // carried state: y's off-diagonal part and the final state), on one
-// stream. hg is the heads a kernel-1 block takes (the wrapper plans it).
+// stream. hg is the heads a kernel-1 block takes (the wrapper plans it);
+// accumulate: kernel 1 adds to y instead of writing it.
 int launch_f32(const float* x, const float* da, const float* bm,
                const float* cm, int batch, int seqlen, int heads, int p_dim,
                int n_dim, int chunk, int hg, float* y, float* state_out,
-               cudaStream_t stream) {
+               int accumulate, cudaStream_t stream) {
   using namespace f32;
   const int nv = carry_nv(n_dim);
   if (chunk < 1 || chunk > 128 || seqlen % chunk || hg < 1 ||
@@ -1144,7 +1246,7 @@ int launch_f32(const float* x, const float* da, const float* bm,
   if (int err = set_smem(diag, diag_bytes)) return err;
   diag<<<batch * n_chunks * ((heads + hg - 1) / hg), kThreads, diag_bytes,
          stream>>>(x, da, bm, cm, seqlen, heads, p_dim, n_dim, chunk, hg,
-                   vec_x, vec_bc, y);
+                   vec_x, vec_bc, y, accumulate);
   if (int err = (int)cudaGetLastError()) return err;
 
   auto carry = nv == 1   ? ssd_scan_kernel_f32_carry<1>
@@ -1157,65 +1259,69 @@ int launch_f32(const float* x, const float* da, const float* bm,
                                  chunk, vec_x, vec_bc, y, state_out);
   return (int)cudaGetLastError();
 }
+#endif  // F16_INSTANCES
 
+// The arguments of a tensor-core launch, T = bf16 or f16
+template <typename T>
+struct TcArgs {
+  const T* x;
+  const float* da;
+  const T* bm;
+  const T* cm;
+  int batch, seqlen, heads, p_dim, n_dim, chunk;
+  T* y;
+  float* state_out;
+  float* y32;
+  int y_mode;
+  cudaStream_t stream;
+};
+
+// the scan kernel's instance for x's type
+#ifndef F16_INSTANCES
 template <int kPt, int kItems>
-int launch_scan_bf16(const __nv_bfloat16* x, const float* da,
-                     const __nv_bfloat16* bm, const __nv_bfloat16* cm,
-                     int batch, int seqlen, int heads,
-                     int p_dim, int n_dim, int chunk, __nv_bfloat16* y,
-                     float* state_out, cudaStream_t stream) {
-  auto kernel = ssd_scan_kernel_bf16<kPt, kItems>;
-  const int smem = bf16::layout(kPt, n_dim, chunk).total;
+auto scan_kernel(const __nv_bfloat16*) {
+  return ssd_scan_kernel_bf16<kPt, kItems>;
+}
+#else
+template <int kPt, int kItems>
+auto scan_kernel(const __half*) {
+  return ssd_scan_kernel_f16<kPt, kItems>;
+}
+#endif
+
+template <int kPt, int kItems, typename T>
+int launch_scan_tc(const TcArgs<T>& a) {
+  auto kernel = scan_kernel<kPt, kItems>(a.x);
+  const int smem = tc::layout(kPt, a.n_dim, a.chunk).total;
   if (int err = set_smem(kernel, smem)) return err;
-  kernel<<<batch * heads * (p_dim / kPt), bf16::kThreads, smem, stream>>>(
-      x, da, bm, cm, seqlen, heads, p_dim, n_dim, chunk, y, state_out);
+  kernel<<<a.batch * a.heads * (a.p_dim / kPt), tc::kThreads, smem,
+           a.stream>>>(a.x, a.da, a.bm, a.cm, a.seqlen, a.heads, a.p_dim,
+                       a.n_dim, a.chunk, a.y, a.state_out, a.y32, a.y_mode);
   return (int)cudaGetLastError();
 }
 
 // the instance with the fewest state registers that holds `items`, the
 // phase-B items (16 rows of p, kItemCols columns of n) each warp owns; the
 // wrapper plans that count (kernel.state_items), this only dispatches
-template <int kPt>
-int launch_tile_bf16(const __nv_bfloat16* x, const float* da,
-                     const __nv_bfloat16* bm, const __nv_bfloat16* cm,
-                     int batch, int seqlen, int heads,
-                     int p_dim, int n_dim, int chunk, int items,
-                     __nv_bfloat16* y, float* state_out,
-                     cudaStream_t stream) {
+template <int kPt, typename T>
+int launch_tile_tc(const TcArgs<T>& a, int items) {
   if (items < 1) return (int)cudaErrorInvalidValue;
-  if (items <= 1)
-    return launch_scan_bf16<kPt, 1>(x, da, bm, cm, batch, seqlen,
-                                    heads, p_dim, n_dim, chunk, y, state_out,
-                                    stream);
-  if (items <= 2)
-    return launch_scan_bf16<kPt, 2>(x, da, bm, cm, batch, seqlen,
-                                    heads, p_dim, n_dim, chunk, y, state_out,
-                                    stream);
-  if (items <= bf16::kMaxItems)
-    return launch_scan_bf16<kPt, bf16::kMaxItems>(
-        x, da, bm, cm, batch, seqlen, heads, p_dim, n_dim, chunk, y,
-        state_out, stream);
+  if (items <= 1) return launch_scan_tc<kPt, 1>(a);
+  if (items <= 2) return launch_scan_tc<kPt, 2>(a);
+  if (items <= tc::kMaxItems) return launch_scan_tc<kPt, tc::kMaxItems>(a);
   return (int)cudaErrorInvalidValue;
 }
 
-int launch_bf16(const __nv_bfloat16* x, const float* da,
-                const __nv_bfloat16* bm, const __nv_bfloat16* cm, int batch,
-                int seqlen, int heads, int p_dim, int n_dim, int chunk,
-                int p_tile, int items, __nv_bfloat16* y, float* state_out,
-                cudaStream_t stream) {
-  if (p_dim % 16 || n_dim % 16 || p_tile <= 0 || p_dim % p_tile)
+template <typename T>
+int launch_tc(const TcArgs<T>& a, int p_tile, int items) {
+  if (a.p_dim % 16 || a.n_dim % 16 || p_tile <= 0 || a.p_dim % p_tile ||
+      a.y_mode < 0 || a.y_mode > 3 || (a.y_mode > 0 && a.y32 == nullptr))
     return (int)cudaErrorInvalidValue;
   switch (p_tile) {
-#define SSD_SCAN_TILE(PT)                                                    \
-  case PT:                                                                   \
-    return launch_tile_bf16<PT>(x, da, bm, cm, batch, seqlen, heads,         \
-                                p_dim, n_dim, chunk, items, y, state_out,    \
-                                stream);
-    SSD_SCAN_TILE(16)
-    SSD_SCAN_TILE(32)
-    SSD_SCAN_TILE(64)
-    SSD_SCAN_TILE(128)
-#undef SSD_SCAN_TILE
+    case 16: return launch_tile_tc<16>(a, items);
+    case 32: return launch_tile_tc<32>(a, items);
+    case 64: return launch_tile_tc<64>(a, items);
+    case 128: return launch_tile_tc<128>(a, items);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1224,49 +1330,76 @@ int launch_bf16(const __nv_bfloat16* x, const float* da,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores); x, Bm, Cm
-// and y share it, da and the state are f32. All tensors contiguous;
-// seqlen % chunk == 0, chunk <= 128. bf16 only: p_tile (16, 32, 64 or 128,
-// dividing P) is the P columns a scan block owns, and items (1 to
-// kMaxItems) the state items each of its warps holds, both as the wrapper
-// planned them; P and N must be multiples of 16. f32 ignores p_tile and
-// takes items as the heads one block of its diagonal kernel forms (the
-// wrapper plans it); N <= 256. Returns the cudaError_t of the launch
-// (0 = ok).
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16, 2 = float16 (tensor
+// cores; the -DF16_INSTANCES build's only dtype, the other build's two
+// others); x, Bm, Cm and y share it, da and the state are f32. All tensors
+// contiguous; seqlen % chunk == 0, chunk <= 128. bf16 and f16: p_tile (16,
+// 32, 64 or 128, dividing P) is the P columns a scan block owns, and items
+// (1 to kMaxItems) the state items each of its warps holds, both as the
+// wrapper planned them; P and N must be multiples of 16. f32 ignores
+// p_tile and takes items as the heads one block of its diagonal kernel
+// forms (the wrapper plans it); N <= 256. y_mode, for a call the wrapper
+// splits over N into parts (y is linear in the state columns): 0 writes y
+// (one part, or the first in f32); bf16 and f16 write the first part's y
+// to y32 (f32, [B, S, H, P]) with 1, add a middle part's to it with 2, and
+// write the last part's y32 + y in their dtype with 3; f32 adds each later
+// part's to y itself with 2 (y32 unused). Returns the cudaError_t of the
+// launch (0 = ok).
 int ssd_scan_launch(const void* x, const void* da, const void* bm,
                     const void* cm, int batch, int seqlen, int heads,
                     int p_dim, int n_dim, int chunk, int dtype, int p_tile,
-                    int items, void* y, void* state_out, void* stream) {
+                    int items, void* y, void* state_out, void* y32,
+                    int y_mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* da_f = static_cast<const float*>(da);
   float* st = static_cast<float*>(state_out);
-  if (dtype == 0)
+  float* acc = static_cast<float*>(y32);
+#ifndef F16_INSTANCES
+  if (dtype == 0) {
+    if (y_mode != 0 && y_mode != 2) return (int)cudaErrorInvalidValue;
     return launch_f32(static_cast<const float*>(x), da_f,
                       static_cast<const float*>(bm),
                       static_cast<const float*>(cm), batch, seqlen, heads,
                       p_dim, n_dim, chunk, items, static_cast<float*>(y), st,
-                      s);
-  if (dtype == 1)
-    return launch_bf16(static_cast<const __nv_bfloat16*>(x), da_f,
-                       static_cast<const __nv_bfloat16*>(bm),
-                       static_cast<const __nv_bfloat16*>(cm), batch, seqlen,
-                       heads, p_dim, n_dim, chunk, p_tile, items,
-                       static_cast<__nv_bfloat16*>(y), st, s);
+                      y_mode == 2, s);
+  }
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    return launch_tc(TcArgs<T>{static_cast<const T*>(x), da_f,
+                               static_cast<const T*>(bm),
+                               static_cast<const T*>(cm), batch, seqlen,
+                               heads, p_dim, n_dim, chunk,
+                               static_cast<T*>(y), st, acc, y_mode, s},
+                     p_tile, items);
+  }
+#else
+  if (dtype == 2) {
+    using T = __half;
+    return launch_tc(TcArgs<T>{static_cast<const T*>(x), da_f,
+                               static_cast<const T*>(bm),
+                               static_cast<const T*>(cm), batch, seqlen,
+                               heads, p_dim, n_dim, chunk,
+                               static_cast<T*>(y), st, acc, y_mode, s},
+                     p_tile, items);
+  }
+#endif  // F16_INSTANCES
   return (int)cudaErrorInvalidValue;
 }
 
-// The bf16 scan block's dynamic shared memory at (p_tile, N, chunk), as
-// the kernel lays it out (the wrapper's smem_bytes must agree).
+// The bf16 (and f16) scan block's dynamic shared memory at (p_tile, N,
+// chunk), as the kernel lays it out (the wrapper's smem_bytes must agree).
 int ssd_scan_bf16_smem(int p_tile, int n_dim, int chunk) {
-  return bf16::layout(p_tile, n_dim, chunk).total;
+  return tc::layout(p_tile, n_dim, chunk).total;
 }
 
+#ifndef F16_INSTANCES
 // The f32 kernels' dynamic shared memory at (N, chunk): which = 0 the
 // diagonal block, 1 the carry block (the wrapper's f32 plan must agree).
 int ssd_scan_f32_smem(int n_dim, int chunk, int which) {
   return which == 0 ? f32::diag_smem(n_dim, chunk)
                     : f32::carry_smem(n_dim, chunk);
 }
+#endif  // F16_INSTANCES
 
 // Largest dynamic shared memory one block may opt into on `device`.
 int ssd_scan_max_smem(int device, int* bytes) {

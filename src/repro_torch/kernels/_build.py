@@ -6,7 +6,10 @@ Each kernel is plain CUDA C++ under ``repro_torch/csrc/`` with an
 in ``.gitignore``), named by a hash of its sources and flags so an edit
 rebuilds and an unchanged source loads the cached library, then loaded
 with ``ctypes``.  No PyTorch headers are compiled, so a build takes
-seconds.
+seconds.  A source may build several libraries, each with its own
+preprocessor ``defines`` (``flash_attention.cu`` and ``ssd_scan.cu``
+build their f16 instances apart, ``-DF16_INSTANCES``), so that each
+library is one nvcc call of its own and they can run side by side.
 
 A missing ``nvcc`` or a failed build raises: nothing falls back to a
 kernel's plain version.
@@ -42,11 +45,14 @@ def _nvcc() -> str:
         "kernels are compiled at first use and need the CUDA toolkit")
 
 
-def library_path(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``sources`` (file names under csrc/) unless cached; return
-    the shared library's path.  The compiler's log, ptxas register and
-    shared-memory report included, sits beside it as ``.log``."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, sources: Sequence[str],
+                 defines: Sequence[str] = ()) -> Path:
+    """Compile ``sources`` (file names under csrc/) with ``-D`` each of
+    ``defines`` unless cached; return the shared library's path.  The
+    compiler's log, ptxas register and shared-memory report included, sits
+    beside it as ``.log``."""
+    flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+    digest = hashlib.sha256(" ".join(flags).encode())
     paths = [CSRC / s for s in sources]
     for p in paths:
         digest.update(p.name.encode())
@@ -56,7 +62,7 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"building {name} failed ({' '.join(cmd)}):\n"
@@ -67,6 +73,8 @@ def library_path(name: str, sources: Sequence[str]) -> Path:
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load(name: str, sources: Sequence[str],
+         defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Build if needed and load once per process."""
-    return ctypes.CDLL(str(library_path(name, tuple(sources))))
+    return ctypes.CDLL(str(library_path(name, tuple(sources),
+                                        tuple(defines))))

@@ -1,14 +1,19 @@
 """ctypes binding of the Hopper flash-attention kernel.
 
 The kernel itself is CUDA C++ in ``repro_torch/csrc/flash_attention.cu``
-(see its header for the design and what bounds it), in two instances that
-its entry point picks by dtype: bf16 on the tensor cores (``mma.sync``),
-f32 on the CUDA cores, each built for the head dims ``HEAD_DIMS``.  This
-module builds it on first use, declares its C signature, checks a shape's
-shared-memory budget and launches it.  Another head dim up to the largest
-instance runs on that instance's tiles: ``pad_head_dim`` zero-pads q, k
-and v along D (zero columns add exact zeros to every q.k, and give zero
-output columns), the launch keeps the caller's scale 1/sqrt(D), and
+(see its header for the design and what bounds it), in instances that its
+entry point picks by dtype and head dim: bf16 and f16 on the tensor cores
+(``mma.sync``), f32 on the CUDA cores, each built for the head dims
+``HEAD_DIMS``; past 256 the wide instance (CUDA cores, every dtype), which
+sums QK^T over D in slices of ``WIDE_SLICE`` and writes the output
+``WIDE_COLS`` columns a block.  The f16 instances are a library of their
+own (the same source with ``-DF16_INSTANCES``, built beside the other).
+This module builds it on first use, declares its C signature, checks a
+shape's shared-memory budget and launches it.  Another
+head dim runs on the next instance's tiles: ``pad_head_dim`` zero-pads q,
+k and v along D (to the next of ``HEAD_DIMS``, or past 256 to a multiple
+of ``WIDE_SLICE``; zero columns add exact zeros to every q.k, and give
+zero output columns), the launch keeps the caller's scale 1/sqrt(D), and
 ``unpad`` slices the output back.  Shape and dtype checks live in the
 ``ops`` wrapper.
 """
@@ -25,18 +30,27 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 SOURCES = ("flash_attention.cu",)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = (64, 128, 256)     # the head dims the .cu is instantiated for
+WIDE_SLICE = 64                # past 256: D in slices of this (wide::kSlice)
+WIDE_COLS = 256                # and output columns a block (wide::kCols)
 
 
-def library_path():
-    """Build if needed; the shared library's path (its ``.log`` beside)."""
-    return _build.library_path("flash_attention", SOURCES)
+#: the libraries the source builds: the f32 and bf16 instances, and the
+#: f16 ones alone (``-DF16_INSTANCES``), each an nvcc call of its own
+LIBRARIES = {False: ("flash_attention", SOURCES, ()),
+             True: ("flash_attention_f16", SOURCES, ("F16_INSTANCES",))}
+
+
+def library_path(f16: bool = False):
+    """Build if needed; the shared library's path (its ``.log`` beside):
+    the f32 and bf16 instances', or with ``f16`` the f16 instances'."""
+    return _build.library_path(*LIBRARIES[f16])
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    lib = _build.load("flash_attention", SOURCES)
+def library(f16: bool = False) -> ctypes.CDLL:
+    lib = _build.load(*LIBRARIES[f16])
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                            ci, ci, ci, ctypes.c_float, ci,
@@ -58,12 +72,17 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def padded_head_dim(d: int) -> int:
     """The head dim the kernel runs a caller's ``d`` at: the smallest
-    instance in ``HEAD_DIMS`` that holds it.  Raises past the largest."""
+    instance in ``HEAD_DIMS`` that holds it, or past the largest the
+    wide instance's, ``d`` rounded up to a multiple of ``WIDE_SLICE``."""
     for dp in HEAD_DIMS:
         if d <= dp:
             return dp
-    raise ValueError(f"flash_attention: head dim {d} exceeds the kernel's "
-                     f"largest instance, {HEAD_DIMS[-1]}")
+    return -(-d // WIDE_SLICE) * WIDE_SLICE
+
+
+def wide(d: int) -> bool:
+    """Whether head dim ``d`` (as padded) runs on the wide instance."""
+    return d > HEAD_DIMS[-1]
 
 
 def pad_head_dim(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -85,21 +104,26 @@ def unpad(out: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def tiles(d: int, dtype: torch.dtype) -> tuple:
-    """(query rows per block, keys per tile) of ``dtype``'s instance at
-    head dim ``d``, as the .cu's tiles: bf16 (64, 64); f32 (128, 64) up to
-    D = 128, (64, 64) above (``f32::Tile``)."""
-    if dtype == torch.bfloat16:
+    """(query rows per block, keys per tile) of the instance that runs
+    head dim ``d`` in ``dtype``, as the .cu's tiles: bf16 and f16 (64,
+    64); f32 (128, 64) up to D = 128, (64, 64) above (``f32::Tile``); the
+    wide instance (64, 64)."""
+    if wide(d) or dtype != torch.float32:
         return 64, 64
     return (128, 64) if d <= 128 else (64, 64)
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
-    """Dynamic shared memory of one block, as the .cu lays it out for
-    ``dtype``'s instance: the query tile, and key and value tiles, rows
-    padded to D+8 bf16 with two stages of each (tensor cores) or to D+4
-    f32 with one of each (CUDA cores)."""
+    """Dynamic shared memory of one block, as the .cu lays it out for the
+    instance that runs head dim ``d`` in ``dtype``: the query tile, and
+    key and value tiles, rows padded to D+8 halves with two stages of
+    each (tensor cores) or to D+4 f32 with one of each (CUDA cores); the
+    wide instance's f32 slices, Q's and K's [64, WIDE_SLICE + 4] and V's
+    [64, WIDE_COLS + 4], whatever D."""
     bq, bk = tiles(d, dtype)
-    if dtype == torch.bfloat16:
+    if wide(d):
+        return 4 * ((bq + bk) * (WIDE_SLICE + 4) + bk * (WIDE_COLS + 4))
+    if dtype != torch.float32:
         return 2 * (d + 8) * (bq + 2 * 2 * bk)
     return 4 * (d + 4) * (bq + 2 * bk)
 
@@ -118,7 +142,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, window: int, out: torch.Tensor,
               scale: float) -> None:
     """Launch on the current stream: q [B,S,H,D], k and v [B,S,KV,D]
-    (contiguous, one CUDA device, one dtype, f32 or bf16) into out
+    (contiguous, one CUDA device, one dtype, f32, bf16 or f16) into out
     [B,S,H,D], the logits scaled by ``scale`` (1/sqrt of the caller's head
     dim, which a padded call does not change).  Raises when the head
     dim's block does not fit the card's shared memory or the kernel has
@@ -129,14 +153,15 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"flash_attention: head dim {d} at {q.dtype} needs {need} bytes "
             f"of shared memory per block; the card allows {limit}")
-    if d not in HEAD_DIMS:
+    if d != padded_head_dim(d):
         raise ValueError(f"flash_attention: head dim {d} is not one of the "
-                         f"kernel's {HEAD_DIMS}")
+                         f"kernel's {HEAD_DIMS} or, past them, a multiple of "
+                         f"{WIDE_SLICE}")
     if any(t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention: the kernel copies q, k and v and "
                          "stores o in 16-byte pieces; they must start "
                          "16-byte aligned")
-    lib = library()
+    lib = library(True) if q.dtype == torch.float16 else library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bsz, s, h,

@@ -14,10 +14,11 @@ Under activation checkpointing the forward runs again in the backward's
 recompute and counts again.
 
 A head dim that is not one of the kernel's instances (``kernel.HEAD_DIMS``)
-runs on the next larger one: the forward zero-pads q, k and v along D
+runs on the next larger one, and past 256 on the wide instance at the
+next multiple of 64: the forward zero-pads q, k and v along D
 (``kernel.pad_head_dim``), launches with the caller's scale 1/sqrt(D) and
-slices the output back (``kernel.unpad``), which is exact.  Past the
-largest instance (256) it raises.  The backward stays at the caller's D.
+slices the output back (``kernel.unpad``), which is exact.  The backward
+stays at the caller's D.
 
 On ``meta`` tensors (the planner's shape-only trace,
 ``repro_torch.launch.dryrun``) the forward allocates what the card's path
@@ -36,6 +37,9 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: The dtypes the op takes (``kernel._DTYPE_CODE``'s)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 launches = 0
 meta_flops = 0
@@ -76,11 +80,10 @@ def _check(q, k, v) -> None:
         raise ValueError(f"flash_attention: shapes disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} (H must be a multiple of KV)")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k and v must share dtype "
-                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
+                        f"float32, bfloat16 or float16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
     if len({t.device for t in (q, k, v)}) != 1:
         raise ValueError("flash_attention: q, k and v on different devices")
 

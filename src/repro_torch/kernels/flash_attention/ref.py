@@ -46,9 +46,15 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def tolerance(dtype: torch.dtype) -> float:
-    """The reference kernel test's elementwise bound, absolute and
-    relative alike: 2e-2 for bf16 inputs, 2e-5 otherwise."""
-    return 2e-2 if dtype == torch.bfloat16 else 2e-5
+    """The elementwise bound, absolute and relative alike: the reference
+    kernel test's 2e-2 for bf16 inputs and 2e-5 for f32.  f16 inputs
+    (the reference's tests have none) start from the bf16 bound, halved
+    as far as the card showed it holds: 1e-2, 5x the largest error an
+    H100 gave at f16 (1.95e-3, one f16 ulp at |o| ~ 2; PERF.md); f16
+    keeps 3 more mantissa bits than bf16, so P and o round finer."""
+    if dtype == torch.bfloat16:
+        return 2e-2
+    return 1e-2 if dtype == torch.float16 else 2e-5
 
 
 def allowed_error(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -38,6 +38,9 @@ import torch
 from repro_torch.kernels.kmeans_assign import kernel
 from repro_torch.kernels.kmeans_assign.ref import assign_ref
 
+#: The float dtypes the op takes (the kernel upcasts each to f32 on load)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
 #: The most (cell, edge) pairs one batched launch takes: the kernel's
 #: ``gridDim.y`` is the edge.
 MAX_EDGES = 65_535
@@ -91,10 +94,9 @@ def _check_batched_shapes(x: torch.Tensor, centers: torch.Tensor) -> None:
 def _check(x: torch.Tensor, centers: torch.Tensor) -> None:
     if centers.shape[-2] < 1:
         raise ValueError("kmeans_assign: need at least one centre")
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or centers.dtype != x.dtype:
+    if x.dtype not in DTYPES or centers.dtype != x.dtype:
         raise TypeError(f"kmeans_assign: x and centers must share dtype "
-                        f"float32 or bfloat16, got {x.dtype} and "
+                        f"float32, bfloat16 or float16, got {x.dtype} and "
                         f"{centers.dtype}")
     if x.device != centers.device:
         raise ValueError(f"kmeans_assign: x on {x.device}, centers on "

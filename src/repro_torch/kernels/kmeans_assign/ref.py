@@ -28,13 +28,23 @@ def assign_ref(x: torch.Tensor, centers: torch.Tensor
     return d2.argmin(-1).to(torch.int32), d2.amin(-1)
 
 
+def tolerance(dtype: torch.dtype) -> "tuple[float, float]":
+    """(rtol, atol) the kernel's distances are held to: f32 inputs 1e-4
+    and 1e-3 (the expansion cancels terms of size ||x||^2 ~ D, and the two
+    sides sum in different orders); bf16 inputs 1e-2 each, the reference
+    kernel test's tolerance.  f16 inputs (the reference's tests have
+    none) start from the bf16 bound and take f32's, as far as the card
+    showed it holds: both sides upcast to f32 on load, so the inputs are
+    exact and only the summation order differs (an H100 gave f16 the
+    errors it gave f32 at the same shapes; PERF.md)."""
+    return (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-4, 1e-3)
+
+
 def allowed_error(x: torch.Tensor, centers: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(d2_plain, allowed): the plain version's distances and how far the
-    kernel's may lie from them, ``atol + rtol * |d2_plain|`` elementwise.
-    f32 inputs: rtol 1e-4, atol 1e-3 (the expansion cancels terms of size
-    ||x||^2 ~ D, and the two sides sum in different orders); bf16 inputs
-    1e-2 each, the reference kernel test's tolerance."""
-    tol = (1e-4, 1e-3) if x.dtype == torch.float32 else (1e-2, 1e-2)
+    kernel's may lie from them, ``atol + rtol * |d2_plain|`` elementwise
+    at ``tolerance(x.dtype)``."""
+    rtol, atol = tolerance(x.dtype)
     d2 = assign_ref(x, centers)[1]
-    return d2, tol[1] + tol[0] * d2.abs()
+    return d2, atol + rtol * d2.abs()

@@ -1,22 +1,26 @@
 """ctypes binding of the Hopper SSD scan kernel.
 
 The kernel itself is CUDA C++ in ``repro_torch/csrc/ssd_scan.cu`` (see its
-header for the design and what bounds it), in two instances that its
-entry point picks by dtype: bf16 on the tensor cores (``mma.sync``), f32
-on the CUDA cores.  This module builds it on first use, declares its
+header for the design and what bounds it), in instances that its entry
+point picks by dtype: bf16 and f16 on the tensor cores (``mma.sync``; the
+"bf16" names below cover both, which share one layout and plan), f32 on
+the CUDA cores.  This module builds it on first use, declares its
 C signature, plans a shape (``plan``: the widths a bf16 call is padded
 to, the chunk length it runs at, the bf16 instance's P tile, the f32
 instance's heads per diagonal block, both instances' shared-memory
-budget) and launches it.  Shape and dtype checks live in the ``ops``
-wrapper, which pads a call around the launch (``pad_widths``,
-``unpad``).
+budget) and launches it.  Past ``MAX_PART_N`` state columns a call runs
+as parts of at most that many (``split_n``): y is linear in the state
+columns, so each part's y is summed in f32 by the kernel and rounded once,
+and the final state's columns are the parts' side by side.  Shape and
+dtype checks live in the ``ops`` wrapper, which pads a call around the
+launch (``pad_widths``, ``unpad``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,10 +28,10 @@ import torch.nn.functional as F
 from repro_torch.kernels import _build
 
 SOURCES = ("ssd_scan.cu",)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 F32_P_TILE = 64                # f32: P columns of a carry block (kPTile)
-MAX_N = 256                    # N at most: the f32 carry block's state
-                               # columns (bf16 refuses past it too)
+MAX_PART_N = 256               # N a launch takes at most: the f32 carry
+                               # block's state columns (bf16 holds no more)
 F32_MAX_GROUP = 16             # f32: heads a diagonal block takes at most
 MAX_CHUNK = 128                # the chunk length a block runs at, at most
 P_TILES = (16, 32, 64, 128)    # bf16: the P tiles the .cu is built for
@@ -36,26 +40,35 @@ MAX_ITEMS = 4                  # bf16: state items a warp may hold (kMaxItems)
 WARPS = 8                      # bf16: warps per scan block (kWarps)
 
 
-def library_path():
-    """Build if needed; the shared library's path (its ``.log`` beside)."""
-    return _build.library_path("ssd_scan", SOURCES)
+#: the libraries the source builds: the f32 and bf16 instances, and the
+#: f16 ones alone (``-DF16_INSTANCES``), each an nvcc call of its own
+LIBRARIES = {False: ("ssd_scan", SOURCES, ()),
+             True: ("ssd_scan_f16", SOURCES, ("F16_INSTANCES",))}
+
+
+def library_path(f16: bool = False):
+    """Build if needed; the shared library's path (its ``.log`` beside):
+    the f32 and bf16 instances', or with ``f16`` the f16 instances'."""
+    return _build.library_path(*LIBRARIES[f16])
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    return declare(_build.load("ssd_scan", SOURCES))
+def library(f16: bool = False) -> ctypes.CDLL:
+    return declare(_build.load(*LIBRARIES[f16]))
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the C signatures on a loaded build of ``ssd_scan.cu``."""
+    """Set the C signatures on a loaded build of ``ssd_scan.cu`` (the f16
+    build has no f32 instance, so no ``ssd_scan_f32_smem``)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.ssd_scan_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                    ci, ci, ci, vp, vp, vp]
+                                    ci, ci, ci, vp, vp, vp, ci, vp]
     lib.ssd_scan_launch.restype = ci
     lib.ssd_scan_bf16_smem.argtypes = [ci, ci, ci]
     lib.ssd_scan_bf16_smem.restype = ci
-    lib.ssd_scan_f32_smem.argtypes = [ci, ci, ci]
-    lib.ssd_scan_f32_smem.restype = ci
+    if hasattr(lib, "ssd_scan_f32_smem"):
+        lib.ssd_scan_f32_smem.argtypes = [ci, ci, ci]
+        lib.ssd_scan_f32_smem.restype = ci
     lib.ssd_scan_max_smem.argtypes = [ci, ctypes.POINTER(ci)]
     lib.ssd_scan_max_smem.restype = ci
     lib.ssd_scan_error_string.argtypes = [ci]
@@ -105,7 +118,7 @@ def smem_bytes(p: int, n: int, chunk: int, dtype: torch.dtype,
     with Lp = L rounded up to 16: two stages of x [Lp, Pt+8], B and C [Lp,
     N+8] in bf16 and da [Lp] in f32, the state's hi and lo bf16 parts [Pt,
     N+8], and four [Lp] vectors and 8 totals in f32."""
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         pt = p if p_tile is None else p_tile
         lp = padded_chunk(chunk)
         stage = 2 * lp * (pt + 8) + 2 * 2 * lp * (n + 8) + 4 * lp
@@ -139,18 +152,25 @@ def state_items(p_tile: int, n: int) -> int:
 
 
 def padded_widths(p: int, n: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(P, N) the kernel runs a call at: bf16 rounds both up to a multiple
-    of 16 (``mma.sync`` tiles; the wrapper pads with zeros, which is
-    exact: zero columns of B and C add zeros to G and to the state, zero
-    columns of x give zero columns of y, and every column of P is
-    independent of the others); f32 takes them as they are.  Raises past
-    ``MAX_N`` state columns, in both dtypes."""
-    if n > MAX_N:
-        raise ValueError(f"ssd_scan: N={n} exceeds the {MAX_N} state "
-                         f"columns a block of the kernel holds")
-    if dtype == torch.bfloat16:
+    """(P, N) the kernel runs a call at: bf16 and f16 round both up to a
+    multiple of 16 (``mma.sync`` tiles; the wrapper pads with zeros, which
+    is exact: zero columns of B and C add zeros to G and to the state,
+    zero columns of x give zero columns of y, and every column of P is
+    independent of the others); f32 takes them as they are."""
+    if dtype != torch.float32:
         return -(-p // 16) * 16, -(-n // 16) * 16
     return p, n
+
+
+def split_n(n: int, dtype: torch.dtype) -> List[Tuple[int, int]]:
+    """The state columns [n0, n1) each launch of a call at (padded) N
+    takes: all of them up to ``MAX_PART_N``, else as few near-equal parts
+    of at most that many (multiples of 16 in bf16 and f16, of 4 in f32
+    where N is, so the parts keep the 16-byte copies)."""
+    parts = -(-n // MAX_PART_N)
+    unit = 16 if dtype != torch.float32 else 4 if n % 4 == 0 else 1
+    size = -(-n // (parts * unit)) * unit
+    return [(n0, min(n0 + size, n)) for n0 in range(0, n, size)]
 
 
 def pad_widths(x: torch.Tensor, b_mat: torch.Tensor, c_mat: torch.Tensor
@@ -185,8 +205,9 @@ def sub_chunks(chunk: int) -> list:
 
 
 def bf16_tiles(bsz: int, h: int, p: int, n: int, sms: int) -> list:
-    """bf16: the P tiles to try, in order.  P / 2 first where twice B * H
-    blocks still run in one wave (one block per SM), else P first.  (At
+    """bf16 and f16: the P tiles to try, in order.  P / 2 first where
+    twice B * H blocks still run in one wave (one block per SM), else P
+    first.  (At
     B * H = 128 on an H100's 132 SMs, P / 2 makes two waves and ran 1.7x
     slower than P; at B * H = 32 it ran 1.09x faster:
     ``scripts/ssd_scan_variants.py``, PERF.md.)  A tile must be built
@@ -211,30 +232,43 @@ class Plan(NamedTuple):
 
 def plan(bsz: int, s: int, h: int, p: int, n: int, chunk: int,
          dtype: torch.dtype, limit: int, sms: int) -> Plan:
-    """The kernel's plan for a call on a card with ``sms`` SMs and
-    ``limit`` bytes of opt-in shared memory a block: the widths
+    """The kernel's plan for a launch on a card with ``sms`` SMs and
+    ``limit`` bytes of opt-in shared memory a block, at N up to
+    ``MAX_PART_N`` (``plans`` splits a wider call): the widths
     (``padded_widths``), then the largest chunk length in
     ``sub_chunks(chunk)`` whose block fits, and its P tile.
 
     f32: the carry block's F32_P_TILE columns (all of P when P is
     smaller) and the heads a diagonal block takes
-    (``f32_heads_per_block``).  bf16: the first of ``bf16_tiles`` that
-    fits, and its state items.  Every shape whose caller's chunk fits
-    runs at that chunk, unpadded where P and N are multiples of 16.
-    Raises ``ValueError`` naming the limit past ``MAX_N`` state columns."""
+    (``f32_heads_per_block``).  bf16 and f16: the first of ``bf16_tiles``
+    that fits, and its state items.  Every shape whose caller's chunk
+    fits runs at that chunk, unpadded where P and N are multiples of 16."""
     p, n = padded_widths(p, n, dtype)
-    bf16 = dtype == torch.bfloat16
-    tiles = bf16_tiles(bsz, h, p, n, sms) if bf16 else [min(p, F32_P_TILE)]
+    if n > MAX_PART_N:
+        raise ValueError(f"ssd_scan: plan a launch of at most {MAX_PART_N} "
+                         f"state columns (N={n}; ``plans`` splits it)")
+    tc = dtype != torch.float32
+    tiles = bf16_tiles(bsz, h, p, n, sms) if tc else [min(p, F32_P_TILE)]
     for length in sub_chunks(chunk):
         for t in tiles:
             if smem_bytes(p, n, length, dtype, t) <= limit:
-                items = (state_items(t, n) if bf16 else f32_heads_per_block(
+                items = (state_items(t, n) if tc else f32_heads_per_block(
                     bsz, s, h, p, n, length, sms))
                 return Plan(p, n, length, t, items)
     raise ValueError(
         f"ssd_scan: P={p}, N={n} at {dtype} needs "
         f"{smem_bytes(p, n, 1, dtype, tiles[-1])} bytes of shared memory "
         f"per block at the shortest chunk; the card allows {limit}")
+
+
+def plans(bsz: int, s: int, h: int, p: int, n: int, chunk: int,
+          dtype: torch.dtype, limit: int, sms: int
+          ) -> List[Tuple[int, int, Plan]]:
+    """Each launch of a call: its state columns [n0, n1) of the padded N
+    (``split_n``) and its ``plan``."""
+    p, n = padded_widths(p, n, dtype)
+    return [(n0, n1, plan(bsz, s, h, p, n1 - n0, chunk, dtype, limit, sms))
+            for n0, n1 in split_n(n, dtype)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -251,30 +285,59 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def _launch(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
+            c_mat: torch.Tensor, run: Plan, y: torch.Tensor,
+            final_state: torch.Tensor, y32, y_mode: int) -> None:
+    """One launch of the library at ``run``'s chunk and tiles (``y32``: the
+    f32 sum of a split call's y, or None; ``y_mode`` as the .cu's)."""
+    bsz, s, h, p = x.shape
+    lib = library(True) if x.dtype == torch.float16 else library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.ssd_scan_launch(
+        x.data_ptr(), da.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+        bsz, s, h, p, b_mat.shape[-1], run.chunk, _DTYPE_CODE[x.dtype],
+        run.p_tile, run.items, y.data_ptr(), final_state.data_ptr(),
+        None if y32 is None else y32.data_ptr(), y_mode, stream)
+    _check(lib, err, "launch")
+
+
 def ssd_fwd(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
             c_mat: torch.Tensor, chunk: int, y: torch.Tensor,
             final_state: torch.Tensor) -> None:
     """Launch on the current stream: x [B,S,H,P], da [B,S,H] f32, b/c
-    [B,S,N] (contiguous, one CUDA device, x's dtype f32 or bf16; bf16 P
-    and N multiples of 16, as ``padded_widths`` leaves them) into y
-    [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32, at the chunk
-    length ``plan`` picks from ``chunk``.  Raises (``plan``) for a shape
-    the kernel cannot take."""
+    [B,S,N] (contiguous, one CUDA device, x's dtype f32, bf16 or f16; bf16
+    and f16 P and N multiples of 16, as ``padded_widths`` leaves them) into
+    y [B,S,H,P] (x's dtype) and final_state [B,H,P,N] f32, at the chunk
+    length ``plan`` picks from ``chunk``.  Past ``MAX_PART_N`` state
+    columns, one launch a part of ``split_n``, each on its own contiguous
+    copy of B's and C's columns: the first writes y (f32) or an f32 sum
+    (bf16, f16), the next add theirs to it and the last (bf16, f16) writes
+    the sum rounded to y; each part's final state is copied into its
+    columns.  Raises (``plan``) for a shape the kernel cannot take."""
     bsz, s, h, p = x.shape
     n = b_mat.shape[-1]
     dev = x.device.index
-    run = plan(bsz, s, h, p, n, chunk, x.dtype, max_smem(dev), sm_count(dev))
-    if (run.p, run.n) != (p, n):
+    runs = plans(bsz, s, h, p, n, chunk, x.dtype, max_smem(dev),
+                 sm_count(dev))
+    if (runs[0][2].p, runs[-1][1]) != (p, n):
         raise ValueError(f"ssd_scan: the {x.dtype} instance takes P and N "
                          f"in multiples of 16, got P={p}, N={n}")
-    if x.dtype == torch.bfloat16 and any(
+    if x.dtype != torch.float32 and any(
             t.data_ptr() % 16 for t in (x, b_mat, c_mat)):
-        raise ValueError("ssd_scan: the bf16 instance copies x, b and c in "
-                         "16-byte pieces; they must start 16-byte aligned")
-    lib = library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.ssd_scan_launch(
-        x.data_ptr(), da.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-        bsz, s, h, p, n, run.chunk, _DTYPE_CODE[x.dtype], run.p_tile,
-        run.items, y.data_ptr(), final_state.data_ptr(), stream)
-    _check(lib, err, "launch")
+        raise ValueError(f"ssd_scan: the {x.dtype} instance copies x, b and "
+                         f"c in 16-byte pieces; they must start 16-byte "
+                         f"aligned")
+    if len(runs) == 1:
+        _launch(x, da, b_mat, c_mat, runs[0][2], y, final_state, None, 0)
+        return
+    f32 = x.dtype == torch.float32
+    y32 = None if f32 else torch.empty(y.shape, dtype=torch.float32,
+                                       device=y.device)
+    for i, (n0, n1, run) in enumerate(runs):
+        mode = (0 if i == 0 else 2) if f32 else \
+            1 if i == 0 else 3 if i == len(runs) - 1 else 2
+        state = torch.empty(bsz, h, p, n1 - n0, dtype=torch.float32,
+                            device=x.device)
+        _launch(x, da, b_mat[..., n0:n1].contiguous(),
+                c_mat[..., n0:n1].contiguous(), run, y, state, y32, mode)
+        final_state[..., n0:n1].copy_(state)

@@ -14,11 +14,12 @@ launch), so a run can show that its prefills and training steps went
 through the kernel.  Under activation checkpointing the forward runs
 again in the backward's recompute and counts again.
 
-The kernel takes any chunk dividing S, any P and N up to 256: it runs a
-chunk above its 128 rows as sub-chunks (``kernel.plan``), and in bf16 the
-forward zero-pads P and N up to multiples of 16 (``kernel.pad_widths``)
-and slices y and the final state back (``kernel.unpad``), which is exact.
-Past 256 state columns it raises.
+The kernel takes any chunk dividing S and any P and N: it runs a chunk
+above its 128 rows as sub-chunks (``kernel.plan``), N past 256 as parts
+of at most 256 state columns whose y it sums in f32 (``kernel.split_n``),
+and in bf16 and f16 the forward zero-pads P and N up to multiples of 16
+(``kernel.pad_widths``) and slices y and the final state back
+(``kernel.unpad``), which is exact.
 
 On ``meta`` tensors (the planner's shape-only trace,
 ``repro_torch.launch.dryrun``) the forward allocates what the card's path
@@ -35,6 +36,9 @@ import torch
 
 from repro_torch.kernels.ssd_scan import kernel
 from repro_torch.kernels.ssd_scan.ref import ssd_reference
+
+#: The dtypes of x, b and c the op takes (``kernel._DTYPE_CODE``'s)
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 launches = 0
 meta_flops = 0
@@ -72,11 +76,11 @@ def _check(x, da, b_mat, c_mat, chunk: int) -> None:
     if chunk < 1 or s % chunk:
         raise ValueError(f"ssd_scan: S={s} is not a multiple of chunk="
                          f"{chunk}")
-    if x.dtype not in (torch.float32, torch.bfloat16) \
-            or b_mat.dtype != x.dtype or c_mat.dtype != x.dtype:
-        raise TypeError(f"ssd_scan: x, b and c must share dtype float32 or "
-                        f"bfloat16, got {x.dtype}, {b_mat.dtype}, "
-                        f"{c_mat.dtype}")
+    if x.dtype not in DTYPES or b_mat.dtype != x.dtype \
+            or c_mat.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: x, b and c must share dtype float32, "
+                        f"bfloat16 or float16, got {x.dtype}, "
+                        f"{b_mat.dtype}, {c_mat.dtype}")
     if da.dtype != torch.float32:
         raise TypeError(f"ssd_scan: da must be float32, got {da.dtype}")
     if len({t.device for t in (x, da, b_mat, c_mat)}) != 1:

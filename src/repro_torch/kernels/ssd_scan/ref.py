@@ -3,7 +3,7 @@ form), a line-for-line copy of the reference's jnp oracle.
 
 The CPU path of the wrapper, the oracle the kernel is held to on the
 card, and the mixer's SSD when ``use_kernel`` is false.  Nothing on the
-card's main path runs it.  It computes in f32 from f32 or bf16 inputs, as
+card's main path runs it.  It computes in f32 from f32, bf16 or f16 inputs, as
 the reference does, and in f64 from f64 inputs (the exact answer the
 checks measure f32 rounding against).
 """
@@ -95,9 +95,14 @@ def f32_rounding_bound(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,
 
 
 def tolerance(dtype: torch.dtype) -> float:
-    """The reference kernel test's elementwise tolerance, absolute and
-    relative alike: 5e-2 for bf16 inputs, 1e-4 otherwise."""
-    return 5e-2 if dtype == torch.bfloat16 else 1e-4
+    """The elementwise tolerance, absolute and relative alike: the
+    reference kernel test's 5e-2 for bf16 inputs and 1e-4 for f32.  f16
+    inputs (the reference's tests have none) keep the bf16 bound: an H100
+    gave f16 errors of up to 0.0625 on large y (one f16 ulp there), none
+    past the bound, which is as far as it showed the bound holds."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return 5e-2
+    return 1e-4
 
 
 def allowed_error(x: torch.Tensor, da: torch.Tensor, b_mat: torch.Tensor,

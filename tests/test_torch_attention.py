@@ -30,6 +30,18 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import layers as port_L  # noqa: E402
 from repro_torch.train.state import loss_and_grads  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module, restored after: its runs are
+    many small ops, and beside the other test workers torch's OpenMP pool
+    spin-waits between them (the same loaded test ran 4x faster so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 F32_TOL = 1e-5
 GRAD_TOL = 1e-4
 BF16_TOL = 2e-2

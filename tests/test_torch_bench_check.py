@@ -25,6 +25,18 @@ torch = pytest.importorskip("torch")
 from repro_torch.bench import bench_check, bench_el  # noqa: E402
 from repro_torch.obs import regress  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module, restored after: its runs are
+    many small ops, and beside the other test workers torch's OpenMP pool
+    spin-waits between them (the same loaded test ran 4x faster so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 
@@ -247,8 +259,9 @@ def test_smoke_on_the_cpu_against_a_cpu_baseline_exits_0(tmp_path,
     timings of one tier differ by 2x and a ratio swung from 0.54x to
     3.95x, past the 150 % slack.  For the same reason the smoke's
     ``bench_el`` runs in this process, on the command line the gate
-    builds; its real subprocess runs on the card (``chip_smoke.py``
-    phase 4i).  Its sharded tiers' ranks are real processes: each starts
+    builds (on the card, ``bench_el`` at the gate's sizes runs in the
+    ``cuda`` tests' ``test_bench_el_smoke_on_the_card``).  Its sharded
+    tiers' ranks are real processes: each starts
     with the same counter clock (``rank_clock``), so their ratios are as
     fixed as the in-process tiers'."""
     import itertools

@@ -118,11 +118,13 @@ def test_flash_head_dim_plan(d, want):
 
 @pytest.mark.parametrize("d", [257, 512])
 def test_flash_refuses_head_dims_past_256(d):
-    with pytest.raises(ValueError, match="largest instance, 256"):
-        fa_kernel.padded_head_dim(d)
+    """Past the largest tiled instance (256) nothing is refused: the wide
+    instance takes D padded to a multiple of 64, and the meta trace
+    allocates the padded copies and the caller's output."""
+    assert fa_kernel.padded_head_dim(d) == -(-d // 64) * 64
     q = torch.zeros(1, 8, 2, d, device="meta")
-    with pytest.raises(ValueError, match="largest instance, 256"):
-        fa_ops.flash_attention(q, q, q)
+    out = fa_ops.flash_attention(q, q, q)
+    assert out.shape == (1, 8, 2, d) and out.device.type == "meta"
 
 
 # (b, s, h, kv, d, window, dtype): the reference's FLASH_CASES
@@ -368,28 +370,29 @@ KM_KEPT = [(100, 8, 3), (1000, 64, 3), (513, 59, 8), (256, 16, 32),
 def test_kmeans_plan_keeps_one_tile(n, d, k):
     """Where all K centres fit a block, one tile of K: the kernel runs as
     it did, bit for bit."""
-    group, tile = km_kernel.plan(d, k, H100_SMEM)
-    assert tile == k and group == km_kernel.lane_group(d)
+    run = km_kernel.plan(d, k, H100_SMEM)
+    assert not run.block and run.tile == k
+    assert run.group == km_kernel.lane_group(d)
 
 
 def test_kmeans_traffic_config_keeps_one_tile():
     m = get_config("kmeans-traffic").model
-    assert km_kernel.plan(m.d_model, m.vocab_size, H100_SMEM)[1] \
-        == m.vocab_size == 3
+    run = km_kernel.plan(m.d_model, m.vocab_size, H100_SMEM)
+    assert not run.block and run.tile == m.vocab_size == 3
 
 
-# (d, k, centres a tile): 1,000 centres of 64 (two tiles of 500), a
-# 1,024-entry codebook at D = 128 (three of 342, the last 340), the widest
-# point the kernel takes (14 centres of 4,096 fit a block)
-@pytest.mark.parametrize("d,k,tile", [(64, 1000, 500), (128, 1024, 342),
-                                      (4096, 100, 13), (4096, 14, 14)])
-def test_kmeans_plan_tiles_what_does_not_fit(d, k, tile):
-    group, got = km_kernel.plan(d, k, H100_SMEM)
-    assert got == tile
-    assert km_kernel.smem_bytes(d, got) <= H100_SMEM
-    tiles = -(-k // got)             # and one tile fewer would not fit
-    assert tiles == 1 or km_kernel.smem_bytes(
-        d, -(-k // (tiles - 1))) > H100_SMEM
+# (d, k): 1,000 centres of 64 and a 1,024-entry codebook at D = 128
+# (beyond one block's shared memory), and points wider than a lane
+# group's 256 registers' worth (4,096 features, with 100 or 14 centres)
+@pytest.mark.parametrize("d,k", [(64, 1000), (128, 1024), (4096, 100),
+                                 (4096, 14)])
+def test_kmeans_plan_tiles_what_does_not_fit(d, k):
+    """The block-tiled instance, tiles of ``BLOCK_CENTRES``, where the
+    lane-group instance cannot hold the centres or the point."""
+    run = km_kernel.plan(d, k, H100_SMEM)
+    assert run.block and run.tile == km_kernel.BLOCK_CENTRES
+    assert d > km_kernel.LANES_MAX_D \
+        or km_kernel.smem_bytes(d, k) > H100_SMEM
 
 
 # -- the op reaches the kernel at the new shapes, never the plain version -------

@@ -29,8 +29,9 @@ pytestmark = pytest.mark.cuda
 # the reference's tests/test_kernels.py cases, then the main path's
 # local-step minibatch and evaluation-set shapes; then the lane-group
 # kernel's branches: D = 59 (not a multiple of its 8 lanes, scalar loads)
-# in bf16, D = 300 (32 lanes, past the 8 elements a lane keeps), N = 1001
-# (not a multiple of the block's 16 points)
+# in bf16, N = 1001 (not a multiple of the block's 16 points); D = 300
+# (past a lane group's registers: the block-tiled instance); float16 on
+# both instances (16-byte and scalar loads)
 KM_CASES = [
     (100, 8, 3, "float32"),
     (1000, 64, 3, "float32"),
@@ -42,6 +43,9 @@ KM_CASES = [
     (200, 59, 3, "bfloat16"),
     (64, 300, 4, "float32"),
     (1001, 64, 3, "float32"),
+    (1000, 64, 3, "float16"),
+    (200, 59, 3, "float16"),
+    (300, 64, 1000, "float16"),
 ]
 
 
@@ -71,9 +75,7 @@ def test_kmeans_assign_matches_plain(n, d, k, dtype, cuda_device):
     assert ops.launches == before + 1
     assert a.dtype == torch.int32 and d2.dtype == torch.float32
     a_ref, d2_ref = ref.assign_ref(x, c)
-    # f32: both sides sum terms of size ||x||^2 ~ D in different orders;
-    # bf16: the reference test's bound
-    rtol, atol = (1e-4, 1e-3) if dtype == "float32" else (1e-2, 1e-2)
+    rtol, atol = ref.tolerance(x.dtype)
     torch.testing.assert_close(d2, d2_ref, rtol=rtol, atol=atol)
     if dtype == "float32":
         assert float((a == a_ref).float().mean()) >= 0.999
@@ -126,26 +128,35 @@ def test_kmeans_assign_empty_input_does_not_launch(cuda_device):
     assert ops.launches == before and a.shape == (0,) and d2.shape == (0,)
 
 
-def test_kmeans_assign_rejects_what_the_kernel_cannot_take(cuda_device):
-    """Non-contiguous rows, and points wider than the kernel's 4,096
-    features (centre sets beyond one block's shared memory are walked in
-    tiles: ``test_kmeans_assign_centres_beyond_one_block_match_plain``)."""
+def test_kmeans_assign_rejects_what_the_kernel_cannot_take(cuda_device,
+                                                           monkeypatch):
+    """Non-contiguous rows.  (Points wider than the old 4,096-feature cap,
+    D = 4,097, now run on the block-tiled instance: held to the plain
+    version here, which is patched to fail inside the op, the launch
+    counted.)"""
     x, c = _inputs(64, 64, 3, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.assign_with_dist(x.T.contiguous().T, c)
-    wide = torch.zeros(8, km_kernel.MAX_D + 1, device=cuda_device)
+    wx, wc = _inputs(8, 4097, 3, "float32", 2, cuda_device)
+    plain = ops.assign_ref
+    monkeypatch.setattr(ops, "assign_ref", lambda *a: pytest.fail(
+        "the plain E-step ran for a CUDA tensor"))
     before = ops.launches
-    with pytest.raises(ValueError, match="4096 features"):
-        ops.assign_with_dist(wide, wide[:3])
-    assert ops.launches == before
+    a, d2 = ops.assign_with_dist(wx, wc)
+    torch.cuda.synchronize()
+    assert ops.launches == before + 1
+    a_ref, d2_ref = plain(wx, wc)
+    torch.testing.assert_close(d2, d2_ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(a, a_ref)
 
 
 # (n, d, k, dtype): centre sets larger than one block's shared memory,
 # walked in tiles: 1,000 centres of 64 (two tiles of 500; 256 KB of
-# centroids), a 1,024-entry codebook at D = 128 (three tiles), bf16, and
-# the widest point the kernel takes (14 centres of 4,096 a tile)
+# centroids), a 1,024-entry codebook at D = 128, bf16, a point of 4,096
+# features, and past it 5,000 (f16) and 8,192
 KM_TILED = [(1000, 64, 1000, "float32"), (4096, 128, 1024, "float32"),
-            (300, 64, 1000, "bfloat16"), (64, 4096, 40, "float32")]
+            (300, 64, 1000, "bfloat16"), (64, 4096, 40, "float32"),
+            (100, 5000, 70, "float16"), (200, 8192, 7, "float32")]
 
 
 @pytest.mark.parametrize("n,d,k,dtype", KM_TILED)
@@ -153,27 +164,27 @@ def test_kmeans_assign_centres_beyond_one_block_match_plain(
         n, d, k, dtype, cuda_device, monkeypatch):
     monkeypatch.setattr(ops, "assign_ref", lambda *a: pytest.fail(
         "the plain E-step ran for a CUDA tensor"))
-    group, tile = km_kernel.plan(d, k, km_kernel.max_smem(0))
-    assert tile < k
+    assert km_kernel.plan(d, k, km_kernel.max_smem(0)).block
     x, c = _inputs(n, d, k, dtype, n + d + k, cuda_device)
     before = ops.launches
     a, d2 = ops.assign_with_dist(x, c)
     torch.cuda.synchronize()
     assert ops.launches == before + 1
     a_ref, d2_ref = ref.assign_ref(x, c)
-    rtol, atol = (1e-4, 1e-3) if dtype == "float32" else (1e-2, 1e-2)
+    rtol, atol = ref.tolerance(x.dtype)
     torch.testing.assert_close(d2, d2_ref, rtol=rtol, atol=atol)
     if dtype == "float32":
         assert float((a == a_ref).float().mean()) >= 0.999
 
 
 def test_kmeans_assign_tie_across_a_tile_boundary(cuda_device):
-    """K = 1,024 at D = 128 runs in tiles: the last centre of one tile and
-    the first of the next are the same point, as are one in the first and
-    one in the last tile; points at them go to the lower index, as
-    ``jnp.argmin`` does, in the single and the batched entry."""
+    """K = 1,024 at D = 128 runs in tiles (the block-tiled instance): the
+    last centre of one tile and the first of the next are the same point,
+    as are one in the first and one in the last tile; points at them go to
+    the lower index, as ``jnp.argmin`` does, in the single and the batched
+    entry."""
     n, d, k = 4096, 128, 1024
-    _, tile = km_kernel.plan(d, k, km_kernel.max_smem(0))
+    tile = km_kernel.plan(d, k, km_kernel.max_smem(0)).tile
     assert tile < k
     x, c = _inputs(n, d, k, "float32", 12, cuda_device)
     c[tile] = c[tile - 1]
@@ -267,14 +278,25 @@ def test_kmeans_assign_batched_in_a_cuda_graph(cuda_device):
 
 
 def test_kmeans_assign_batched_rejects_what_the_kernel_cannot_take(
-        cuda_device):
+        cuda_device, monkeypatch):
+    """Non-contiguous rows.  (D = 4,097, past the old cap, now runs on the
+    block-tiled instance: one launch for both edges, held to the plain
+    version, which is patched to fail inside the op.)"""
     x, c = _batched_inputs(2, 64, 64, 3, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         ops.assign_with_dist_batched(x.transpose(1, 2).contiguous()
                                      .transpose(1, 2), c)
-    wide = torch.zeros(2, 8, km_kernel.MAX_D + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="4096 features"):
-        ops.assign_with_dist_batched(wide, wide[:, :3].contiguous())
+    wx, wc = _batched_inputs(2, 8, 4097, 3, "float32", 2, cuda_device)
+    plain = ops.assign_ref
+    monkeypatch.setattr(ops, "assign_ref", lambda *a: pytest.fail(
+        "the plain E-step ran for a CUDA tensor"))
+    before = ops.batched_launches
+    a, d2 = ops.assign_with_dist_batched(wx, wc)
+    torch.cuda.synchronize()
+    assert ops.batched_launches == before + 1
+    a_ref, d2_ref = plain(wx, wc)
+    torch.testing.assert_close(d2, d2_ref, rtol=1e-4, atol=1e-3)
+    assert torch.equal(a, a_ref)
 
 
 def test_kmeans_assign_batched_walks_centre_tiles(cuda_device):
@@ -708,6 +730,10 @@ SSD_CASES = [
     (2, 100, 4, 32, 16, 100, "bfloat16"),
     (4, 512, 128, 128, 128, 128, "bfloat16"),
     (4, 512, 128, 128, 128, 128, "float32"),
+    (1, 128, 4, 32, 16, 32, "float16"),
+    (4, 512, 32, 64, 128, 128, "float16"),
+    (1, 128, 136, 128, 32, 64, "float16"),
+    (2, 100, 4, 32, 16, 100, "float16"),
 ]
 
 
@@ -781,18 +807,24 @@ def test_ssd_scan_bf16_smem_plan_matches_the_kernel(p, n, chunk,
             lib.ssd_scan_bf16_smem(tile, n, chunk)
 
 
-def test_ssd_scan_bf16_refuses_what_it_cannot_take(cuda_device,
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_ssd_scan_bf16_refuses_what_it_cannot_take(dtype, cuda_device,
                                                    monkeypatch):
-    """N past 256 state columns, in both dtypes: the op raises and never
-    gives way to the plain version."""
+    """N past 256 state columns (512, the old refusal's shape) runs as two
+    parts of 256, y summed in f32 and rounded once: held to the plain
+    version, which is patched to fail inside the op, the launch
+    counted."""
+    x, da, bm, cm = ssd_inputs(1, 128, 2, 32, 512, dtype, 1, cuda_device)
+    plain = ssd_ops.ssd_reference
     monkeypatch.setattr(ssd_ops, "ssd_reference", lambda *a, **k: pytest.fail(
         "the plain SSD ran for a CUDA tensor"))
     before = ssd_ops.launches
-    for dtype in ("bfloat16", "float32"):
-        with pytest.raises(ValueError, match="256 state columns"):
-            ssd_ops.ssd(*ssd_inputs(1, 128, 2, 32, 512, dtype, 1,
-                                    cuda_device), 64)
-    assert ssd_ops.launches == before
+    y, state = ssd_ops.ssd(x, da, bm, cm, 64)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    monkeypatch.setattr(ssd_ops, "ssd_reference", plain)
+    assert y.dtype == x.dtype and state.shape == (1, 2, 32, 512)
+    assert_ssd_close(y, state, x, da, bm, cm, 64)
 
 
 # (b, s, h, p, n, chunk, dtype): shapes the kernel reaches through its
@@ -876,10 +908,11 @@ def test_ssd_scan_f32_smem_plan_matches_the_kernel(n, chunk, cuda_device):
 
 
 def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
-    """A chunk that does not divide S, non-contiguous inputs, da not f32
-    and N past 256.  (A chunk of 256, and the f32 (256, 256) block over
-    the card's shared memory at chunk 128, now run as sub-chunks:
-    ``test_ssd_scan_planned_shapes_match_plain``.)"""
+    """A chunk that does not divide S, non-contiguous inputs and da not
+    f32.  (A chunk of 256, and the f32 (256, 256) block over the card's
+    shared memory at chunk 128, now run as sub-chunks:
+    ``test_ssd_scan_planned_shapes_match_plain``; N = 512 runs as two
+    parts of 256, here at f32 (256, 512) against the plain version.)"""
     x, da, bm, cm = ssd_inputs(1, 256, 2, 32, 16, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="chunk"):
         ssd_ops.ssd(x, da, bm, cm, 96)
@@ -891,8 +924,11 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
     assert ssd_kernel.smem_bytes(256, 256, 128, torch.float32) \
         > ssd_kernel.max_smem(0)
     big = ssd_inputs(1, 128, 1, 256, 512, "float32", 2, cuda_device)
-    with pytest.raises(ValueError, match="256 state columns"):
-        ssd_ops.ssd(*big, 128)
+    before = ssd_ops.launches
+    y, state = ssd_ops.ssd(*big, 128)
+    torch.cuda.synchronize()
+    assert ssd_ops.launches == before + 1
+    assert_ssd_close(y, state, *big, 128)
 
 
 # (b, s, h, kv, d, window, dtype): the reference's tests/test_kernels.py
@@ -903,7 +939,10 @@ def test_ssd_scan_rejects_what_the_kernel_cannot_take(cuda_device):
 # of 100 and 64 that start mid-tile; last the main-path shapes of
 # musicgen-medium (24 heads of 64, MHA: training at B = 8, a prefill of 4
 # slots) and paligemma-3b (8 query heads of 256, 1 KV head: 256 prefix
-# embeddings before 512 tokens, and the engine's text prefill)
+# embeddings before 512 tokens, and the engine's text prefill); then the
+# float16 twin of the tensor-core instance (D 64, 128 and 256, ragged S, a
+# window) and the wide instance past D = 256 (320 in f16 with a window,
+# 300 in f32 padded to 320, 576 in bf16 with MQA)
 FLASH_CASES = [
     (1, 128, 4, 4, 64, 0, "float32"),
     (2, 256, 4, 2, 64, 0, "float32"),
@@ -932,13 +971,23 @@ FLASH_CASES = [
     (4, 768, 8, 1, 256, 0, "bfloat16"),
     (4, 512, 8, 1, 256, 0, "bfloat16"),
     (4, 512, 64, 8, 128, 0, "bfloat16"),
+    (1, 128, 4, 2, 64, 0, "float16"),
+    (2, 17, 16, 2, 128, 0, "float16"),
+    (1, 300, 4, 2, 256, 64, "float16"),
+    (4, 512, 16, 8, 128, 0, "float16"),
+    (1, 300, 4, 2, 320, 64, "float16"),
+    (1, 200, 4, 1, 300, 0, "float32"),
+    (2, 130, 8, 1, 576, 0, "bfloat16"),
 ]
 # (b, s, h, kv, d, window, dtype), causal=False: the bf16 instance without
-# the causal bound, ragged, and with a window that starts mid-tile
+# the causal bound, ragged, and with a window that starts mid-tile; the f16
+# twin, and the wide instance with a window
 FLASH_NON_CAUSAL = [
     (1, 300, 4, 2, 128, 0, "bfloat16"),
     (2, 17, 8, 1, 64, 0, "bfloat16"),
     (1, 300, 4, 1, 64, 100, "bfloat16"),
+    (1, 300, 4, 2, 128, 0, "float16"),
+    (2, 100, 4, 1, 512, 64, "bfloat16"),
 ]
 
 
@@ -1248,24 +1297,35 @@ def test_jamba_smoke_kernel_fill_equals_the_naive_fill(dtype, cuda_device):
 
 def test_flash_attention_rejects_what_the_kernel_cannot_take(cuda_device,
                                                              monkeypatch):
-    """Past the largest instance (D = 512: its block would not fit the
-    card's shared memory either) the op raises; it never gives way to the
-    plain version.  (D = 32 now runs on the D = 64 instance:
-    ``test_flash_attention_padded_head_dims_match_plain``.)"""
+    """Non-contiguous inputs raise; the op never gives way to the plain
+    version.  (D = 32 runs on the D = 64 instance:
+    ``test_flash_attention_padded_head_dims_match_plain``; D = 512, the
+    old refusal's shape, runs on the wide instance, here in every dtype
+    against the plain version, which is patched to fail inside the op,
+    each launch counted.)"""
+    plain = fa_ops.attention_ref
     monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **k: pytest.fail(
         "the plain forward ran for a CUDA tensor"))
     before = fa_ops.launches
-    for dtype in ("float32", "bfloat16"):
-        assert fa_kernel.smem_bytes(512, getattr(torch, dtype)) \
-            > fa_kernel.max_smem(0)
-        with pytest.raises(ValueError, match="largest instance, 256"):
-            fa_ops.flash_attention(*flash_inputs(1, 64, 2, 2, 512, dtype, 1,
-                                                 cuda_device))
     q, k, v = flash_inputs(1, 64, 2, 2, 64, "float32", 1, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         fa_ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                                k, v)
     assert fa_ops.launches == before
+    outs = {}
+    assert fa_kernel.library().flash_attention_wide_smem() \
+        == fa_kernel.smem_bytes(512, torch.bfloat16)
+    for dtype in ("float32", "bfloat16", "float16"):
+        assert fa_kernel.smem_bytes(512, getattr(torch, dtype)) \
+            <= fa_kernel.max_smem(0)
+        inputs = flash_inputs(1, 64, 2, 2, 512, dtype, 1, cuda_device)
+        outs[dtype] = (inputs, fa_ops.flash_attention(*inputs))
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 3
+    monkeypatch.setattr(fa_ops, "attention_ref", plain)
+    for (q, k, v), out in outs.values():
+        assert out.dtype == q.dtype and out.shape == q.shape
+        assert_flash_close(out, q, k, v)
 
 
 # (b, s, h, kv, d, window, dtype): head dims no instance has, zero-padded

@@ -30,6 +30,18 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module, restored after: its runs are
+    many small ops, and beside the other test workers torch's OpenMP pool
+    spin-waits between them (the same loaded test ran 4x faster so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["mamba2-370m", "qwen3-1.7b"]
 
 

@@ -208,9 +208,11 @@ def test_state_items(tile, n, items):
     assert kernel.state_items(tile, n) == items
 
 
-# (P, N, L, dtype, words the refusal names): past 256 state columns, the
-# one limit left, in both dtypes (every other shape is planned: padded,
-# sub-chunked, on a smaller P tile; tests/test_torch_kernel_shapes.py)
+# (P, N, L, dtype, words the refusal names): past 256 state columns, a
+# launch's limit, in both dtypes (``kernel.plans`` runs a wider call as
+# parts of at most 256, tests/test_torch_kernel_f16.py; every other shape
+# is planned: padded, sub-chunked, on a smaller P tile;
+# tests/test_torch_kernel_shapes.py)
 @pytest.mark.parametrize("p,n,chunk,dtype,words", [
     (32, 512, 64, "bfloat16", "256 state columns"),
     (40, 272, 64, "bfloat16", "256 state columns"),

@@ -39,6 +39,18 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.train import optimizer as port_opt  # noqa: E402
 from repro_torch.train import state as port_state  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module, restored after: its runs are
+    many small ops, and beside the other test workers torch's OpenMP pool
+    spin-waits between them (the same loaded test ran 4x faster so)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 OPT_TOL = 1e-6
 # AdamW normalises each element's step to about lr (the smoke config's
 # peak_lr, 3e-4): an element whose gradient lies near zero, where the f32
